@@ -45,7 +45,7 @@ def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "lora" in params:
         raise NotImplementedError(
             "LoRA adapters are not ported to rlaifv_tpu_torch yet: "
-            "ROADMAP.md 'Modules to port' #2 (DPO train step)"
+            "ROADMAP.md 'Modules to port' #5 (QLoRA and LoRA adapters)"
         )
     sd = {}
     for path, val in _flatten(params):
@@ -58,6 +58,26 @@ def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         sd[_torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))
     return sd
+
+
+def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
+    """torch parameter name -> the last key of the flax leaf it bridges
+    from: the inverse of `_torch_name`'s renaming, where a `.weight` was a
+    Dense/Conv `kernel`, a norm `scale` or an Embed `embedding` and every
+    other name (`bias`, `cls_token`, `pos_embed`) is kept."""
+    from rlaifv_tpu_torch.models.layers import LayerNorm
+    from rlaifv_tpu_torch.models.llama import RMSNorm
+
+    kinds = ((nn.Linear, "kernel"), ((LayerNorm, RMSNorm), "scale"),
+             (nn.Embedding, "embedding"))
+    names = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, _ in mod.named_parameters(recurse=False):
+            leaf = p_name
+            if p_name == "weight":
+                leaf = next(k for cls, k in kinds if isinstance(mod, cls))
+            names[f"{mod_name}.{p_name}" if mod_name else p_name] = leaf
+    return names
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

@@ -5,10 +5,15 @@ RoPE (rotate-half), RMSNorm in fp32, SiLU-gated MLP, grouped-query
 attention through ops/attention.py, and a static-shape per-layer KV cache
 (B, max_len, KVH, D) written in place.
 
+`remat` is activation checkpointing per block
+(`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`), the
+counterpart of `nn.remat(LlamaBlock, policy=nothing_saveable)`: only each
+block's input is kept for the backward, the rest is recomputed. It applies
+only where autograd records and no cache is given (the training forward).
+
 Not carried (each raises NotImplementedError, naming the ROADMAP.md item
 that ports it): int8/int4 weights (`quantize`), the int8 KV cache,
-fused projections (`fuse_proj`), `remat`. LoRA adapters come with the
-training slice.
+fused projections (`fuse_proj`). LoRA adapters: ROADMAP #5.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from rlaifv_tpu_torch.models.layers import Dense
 from rlaifv_tpu_torch.ops.attention import multi_head_attention
@@ -76,7 +82,6 @@ def check_supported(cfg: LlamaConfig) -> None:
         "kv_cache_dtype='int8'": (cfg.kv_cache_dtype not in ("fp", "bf16"),
                                   "#6 (serving extensions: int8 KV cache)"),
         "fuse_proj": (cfg.fuse_proj, "#6 (serving extensions: fused projections)"),
-        "remat": (cfg.remat, "#2 (DPO train step)"),
     }
     for name, (on, item) in todo.items():
         if on:
@@ -233,10 +238,19 @@ class LlamaModel(nn.Module):
         cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, cfg.dtype)
 
         x = inputs_embeds
+        if cache is None and cfg.remat and torch.is_grad_enabled():
+            for blk in self.layers:
+                x = checkpoint(_block_no_cache, blk, x, cos, sin, attention_mask,
+                               use_reentrant=False)
+            return self.ln_f(x), None
         for i, blk in enumerate(self.layers):
             x, _ = blk(x, cos, sin, attention_mask,
                        cache[i] if cache is not None else None, cache_index)
         return self.ln_f(x), cache
+
+
+def _block_no_cache(blk: LlamaBlock, x, cos, sin, attention_mask):
+    return blk(x, cos, sin, attention_mask)[0]
 
 
 class LlamaForCausalLM(nn.Module):

@@ -60,16 +60,21 @@ def splice_image_features(text_embeds: torch.Tensor, image_features: torch.Tenso
 
     text_embeds (B, L, D); image_features (B, P, D); image_starts (B,) host
     ints, -1 => text-only row. A start is clamped so the span fits, as
-    dynamic_update_slice clamps it. Inference only: the JAX version's
-    zero-strength gradient term for text-only rows has no use here.
+    dynamic_update_slice clamps it. A text-only row keeps its embeddings
+    plus a zero-strength `0 * feats.sum()` term, as in the JAX version, so
+    the vision path stays on the autograd graph: its parameters get zero
+    gradients (not None) and the optimizer still updates them.
     """
-    out = text_embeds.clone()
     L, P = text_embeds.shape[1], image_features.shape[1]
+    rows = []
     for b, start in enumerate(int(s) for s in image_starts):
+        emb, feats = text_embeds[b], image_features[b].to(text_embeds.dtype)
         if start >= 0:
-            s = min(start, L - P)
-            out[b, s:s + P] = image_features[b].to(out.dtype)
-    return out
+            s = max(min(start, L - P), 0)
+            rows.append(torch.cat([emb[:s], feats, emb[s + P:]]))
+        else:
+            rows.append(emb + (0.0 * image_features[b].sum()).to(emb.dtype))
+    return torch.stack(rows)
 
 
 class LlavaForCausalLM(nn.Module):
@@ -118,6 +123,27 @@ class LlavaForCausalLM(nn.Module):
         return self.llm(inputs_embeds=embeds, attention_mask=attention_mask,
                         position_ids=position_ids, cache=cache,
                         cache_index=cache_index)
+
+    def forward_with_features(self, input_ids, image_features, image_starts,
+                              attention_mask=None) -> torch.Tensor:
+        """Logits from precomputed vision features (B or 2B rows): the DPO
+        step encodes each image once and tiles the features over win||rej."""
+        return self.llm.logits(self.hidden_with_features(
+            input_ids, image_features, image_starts, attention_mask))
+
+    def forward_text(self, input_ids, attention_mask=None) -> torch.Tensor:
+        return self.llm.logits(self.hidden_text(input_ids, attention_mask))
+
+    def hidden_with_features(self, input_ids, image_features, image_starts,
+                             attention_mask=None) -> torch.Tensor:
+        """forward_with_features stopping before the lm_head: (B, L, H)."""
+        embeds = splice_image_features(self.llm.embed(input_ids.clamp(min=0)),
+                                       image_features, image_starts)
+        return self.llm.model(inputs_embeds=embeds, attention_mask=attention_mask)[0]
+
+    def hidden_text(self, input_ids, attention_mask=None) -> torch.Tensor:
+        return self.llm.model(input_ids.clamp(min=0),
+                              attention_mask=attention_mask)[0]
 
     def init_cache(self, batch: int, max_len: int) -> list:
         return llama_init_cache(self.cfg.llm, batch, max_len, self.device)

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library -> ctypes).
 
 Every `csrc/*.cu` file exports plain C entry points (no PyTorch headers), so
-one nvcc call builds them all in seconds. The library lands in
+each compiles in seconds: one nvcc per source, all started together, then
+one link into a single shared library. The library lands in
 `build/rlaifv_tpu_torch/` at the repository root, named by a hash of the
 sources and flags, and is reused while the sources are unchanged.
 
@@ -37,6 +38,13 @@ SIGNATURES = {
     # q strides (b, l, h), k strides (b, l, h), v strides (b, l, h),
     # causal, q_offset, scale, stream
     "flash_attention_fwd_bf16": [_P] * 6 + [_I] * 6 + [_I] * 9
+    + [_I, _I, _F, _P],
+    # q, k, v, mask, dout, lse, delta, dq, B, H, KVH, Lq, Lk, D,
+    # q/k/v/dout strides (b, l, h), causal, q_offset, scale, stream
+    "flash_attention_bwd_dq_bf16": [_P] * 8 + [_I] * 6 + [_I] * 12
+    + [_I, _I, _F, _P],
+    # as above with dk, dv in place of dq
+    "flash_attention_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_I] * 12
     + [_I, _I, _F, _P],
     # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
     # scale, stream
@@ -75,6 +83,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"librlaifv_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> str:
+    """Run the commands at once; raise with the output of a failed one."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(logs)
+
+
+def _compile_and_link(path: Path) -> str:
+    """One nvcc per source, all started together, then one link into
+    `path` (written under a temporary name and renamed). The objects and
+    the temporary file are removed whether or not the build succeeds."""
+    tag = f"{os.getpid()}.tmp"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = path.with_suffix(f".{tag}")
+    try:
+        log = _run([[_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)])
+        log += _run([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, path)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return log
+
+
 def load_kernels() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_log, build_seconds
@@ -84,19 +122,9 @@ def load_kernels() -> ctypes.CDLL:
         path = library_path()
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, _sources())]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_log = _compile_and_link(path)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{build_log}"
-                )
-            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

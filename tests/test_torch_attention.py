@@ -162,3 +162,48 @@ def test_attention_route_on_cuda(geometry, want):
                                  **geometry) == want
     assert tattn.attention_route(D=128, has_mask=True, on_cuda=False,
                                  **geometry) == "dense"
+
+
+@pytest.mark.parametrize(
+    "Lq,Lk,q_offset",
+    [(24, 24, None),   # plain DPO path: Lq == Lk == L, causal, key padding
+     (16, 16, None),   # paired prefix: Lq == Lk == Pa
+     (8, 24, 16)],     # paired suffix: Lq = W, Lk = Pa + W, q_offset = Pa
+)
+def test_dense_attention_grads_match_jax(Lq, Lk, q_offset):
+    """The dense path is differentiable: dq, dk, dv of sum(out * g) against
+    jax.grad of the JAX dense path, at the train step's three geometries."""
+    import jax
+
+    B, H, KVH, D = 2, 4, 2, 16
+    q, k, v = _qkv(5, B, Lq, Lk, H, KVH, D)
+    g = np.random.default_rng(6).normal(size=(B, Lq, H, D)).astype(np.float32)
+    mask = np.ones((B, Lk), np.int32)
+    mask[1, -3:] = 0  # padded key tail
+
+    def jloss(q, k, v):
+        out = jattn.multi_head_attention(q, k, v, attention_mask=jnp.asarray(mask),
+                                         causal=True, q_offset=q_offset)
+        return (out * g).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    out = tattn.multi_head_attention(tq, tk, tv, attention_mask=torch.from_numpy(mask),
+                                     causal=True, q_offset=q_offset, impl="dense")
+    (out * torch.from_numpy(g)).sum().backward()
+    for t, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "geometry,want",
+    [(dict(Lq=2048, Lk=2048, q_offset=None), "flash"),    # plain DPO path
+     (dict(Lq=640, Lk=640, q_offset=None), "flash"),      # paired prefix Pa
+     (dict(Lq=1408, Lk=2048, q_offset=640), "flash"),     # paired suffix W
+     (dict(Lq=96, Lk=736, q_offset=640), "dense")],       # a suffix under 128
+)
+def test_attention_route_train_shapes(geometry, want):
+    """The train step's attention calls take the flash kernels on the card
+    (forward and, through autograd, the two backward kernels)."""
+    assert tattn.attention_route(D=128, has_mask=True, on_cuda=True,
+                                 **geometry) == want

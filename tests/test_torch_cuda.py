@@ -7,7 +7,10 @@ Marked `cuda`: without a CUDA device every test skips. On the card
 
 bf16 inputs; outputs are checked as |kernel - plain| <= 1e-2 + 1e-2 |plain|
 (each side rounds once to bf16, and the flash kernel rounds its
-probabilities to bf16 for the P.V product), lse at 1e-3 abs (fp32).
+probabilities to bf16 for the P.V product), lse at 1e-3 abs (fp32). The
+backward kernels' dq, dk, dv: max|kernel - plain| <= 2e-2 max|plain| per
+gradient (P and dS are rounded to bf16 for the products and the outputs
+are bf16: about one bf16 ulp of the largest entry).
 """
 import pytest
 import torch
@@ -16,7 +19,12 @@ from rlaifv_tpu_torch.ops.decode_attention import (
     decode_attention_prefix,
     decode_attention_prefix_ref,
 )
-from rlaifv_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from rlaifv_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,6 +80,66 @@ def test_flash_kernel_takes_strided_views(gen):
     out = flash_attention(q, k, v)
     ref, _ = flash_attention_ref(q, k, v)
     _close(out, ref)
+
+
+def _close_grad(got, ref):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,KVH,D,causal,q_offset", [
+    (2, 200, 200, 4, 4, 128, True, 0),     # MHA, ragged last tile
+    (2, 256, 256, 8, 2, 128, True, 0),     # GQA, n_rep 4
+    (1, 100, 300, 4, 1, 128, True, 200),   # rectangular suffix window
+    (1, 150, 150, 4, 4, 64, False, 0),     # bidirectional, D=64
+    (2, 70, 70, 4, 2, 64, True, 0),        # one ragged tile
+])
+def test_flash_bwd_kernels_match_plain(gen, B, Lq, Lk, H, KVH, D, causal, q_offset):
+    """dq and dk/dv kernels against flash_attention_bwd_ref on the same
+    inputs, with a strided dO; the left-padded row's first queries see no
+    key and get dq = 0."""
+    q, k, v = _randn(gen, B, Lq, H, D), _randn(gen, B, Lk, KVH, D), _randn(gen, B, Lk, KVH, D)
+    mask = torch.ones((B, Lk), dtype=torch.int32, device="cuda")
+    mask[-1, :7] = 0
+    mask[0, -5:] = 0
+    out, lse = flash_attention(q, k, v, attention_mask=mask, causal=causal,
+                               q_offset=q_offset, return_lse=True)
+    do = _randn(gen, B, H, Lq, D).transpose(1, 2)  # not contiguous
+    args = (q, k, v, mask, out, lse, do, causal, q_offset)
+    n = (flash_attention_bwd.dq_launches, flash_attention_bwd.dkv_launches)
+    got = flash_attention_bwd(*args)
+    ref = flash_attention_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.dq_launches, flash_attention_bwd.dkv_launches) == \
+        (n[0] + 1, n[1] + 1)
+    for a, r, t in zip(got, ref, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == t.shape
+        _close_grad(a, r)
+    if causal and q_offset == 0:
+        assert (got[0][-1, :7] == 0).all()
+    # no atomics: the same inputs give the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_attention_bwd(*args)))
+
+
+def test_flash_autograd_on_cuda(gen):
+    """flash_attention under autograd on the card: the gradients come from
+    the two kernels and match the plain backward."""
+    B, L, H, KVH, D = 2, 192, 4, 2, 128
+    q, k, v = (_randn(gen, B, L, n, D).requires_grad_() for n in (H, KVH, KVH))
+    g = _randn(gen, B, L, H, D)
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    mask[1, -20:] = 0
+    n = (flash_attention.launches, flash_attention_bwd.dq_launches)
+    out = flash_attention(q, k, v, attention_mask=mask)
+    (out.float() * g.float()).sum().backward()
+    assert (flash_attention.launches, flash_attention_bwd.dq_launches) == (n[0] + 1, n[1] + 1)
+    ref_out, lse = flash_attention_ref(q.detach(), k.detach(), v.detach(), mask)
+    ref = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), mask, out.detach(),
+                                  lse, g, True, 0)
+    for t, r in zip((q, k, v), ref):
+        _close_grad(t.grad, r)
 
 
 @pytest.mark.parametrize("H,KVH,D", [(32, 32, 128), (32, 8, 128), (8, 1, 64)])

@@ -1,10 +1,13 @@
 """rlaifv_tpu_torch imports no JAX (nor triton) and builds nothing at import.
 
-A subprocess blocks `jax`, `jaxlib`, `flax` and `triton` with a
-sys.meta_path finder, imports every module of the package, runs the tiny
-serving slice on the CPU (random weights from a seeded generator), and
-checks that no CUDA kernel library was built or loaded.
+A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax` and `triton`
+with a sys.meta_path finder, imports every module of the package, runs the
+tiny serving slice on the CPU (random weights from a seeded generator),
+runs `python -m rlaifv_tpu_torch.train --demo` for 2 steps into a
+temporary directory, imports chip_smoke.py, and checks that no CUDA kernel
+library was built or loaded.
 """
+import ast
 import subprocess
 import sys
 import textwrap
@@ -15,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "triton")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -56,6 +59,18 @@ SCRIPT = textwrap.dedent("""
     rows = gen.greedy_gen(items[:2], max_new_tokens=3)
     assert len(rows) == 2
 
+    # the training entry point, as `python -m rlaifv_tpu_torch.train`
+    import json, os, runpy
+    out = sys.argv[1]
+    sys.argv = ["rlaifv_tpu_torch.train", "--demo", "--output-dir", out,
+                "--max-steps", "2"]
+    runpy.run_module("rlaifv_tpu_torch.train", run_name="__main__")
+    steps = [json.loads(line)["step"] for line in open(os.path.join(out, "metrics.jsonl"))]
+    assert steps == [1, 2], steps
+    assert os.listdir(os.path.join(out, "checkpoints")) == ["2"]
+
+    import chip_smoke  # noqa: F401  (its main() needs a card; the import does not)
+
     assert _build._lib is None, "a kernel library was loaded on the CPU path"
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -63,11 +78,27 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_imports_no_jax_and_builds_nothing():
+def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
-        text=True, timeout=300,
+        [sys.executable, "-c", SCRIPT, str(tmp_path / "demo")], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 15  # every module was imported
+    last = proc.stdout.strip().splitlines()[-1]
+    assert last.startswith("OK")
+    assert int(last.split()[1]) >= 15  # every module was imported
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port alone: no import statement in it names
+    JAX or the JAX package; the shared numpy data code comes through
+    rlaifv_tpu_torch.data."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "rlaifv_tpu"}, roots
+    assert "rlaifv_tpu_torch" in roots
