@@ -9,13 +9,22 @@ Phases, one progress line each (or a few):
   2. build: nvcc builds the package's CUDA kernels from csrc/;
   3. each kernel against its plain PyTorch version on the same bf16 inputs
      at the serving slice's shapes: max abs error against a stated
-     tolerance, and median times over 20 CUDA-event-timed runs;
+     tolerance, and median times over 20 CUDA-event-timed runs, beside the
+     bound (bytes and operations at the card's peaks) and the time of
+     torch's scaled_dot_product_attention on the same inputs;
   3b. the flash forward and backward kernels (dq, dk/dv) against the plain
      versions on the same bf16 inputs and dO at the train step's shapes:
      five fixed ones and the three calls phase 6's collated pair makes
      (plain, paired prefix, paired suffix at q_offset = Pa), with its
      masks; max abs errors against stated tolerances, median times,
-     TFLOP/s;
+     TFLOP/s, bounds, SDPA's autograd backward;
+  3c. the fused LM head kernels (forward, dx, dW) against the plain versions
+     at the train step's head (M = 2 (L - 1), H = 4096, V = 32000), the
+     ref-logp fallback's (M = 16 x 1023 - 5), H = 1024 and ragged
+     vocabularies; times beside the bound and the two-call library
+     composite (F.linear + F.cross_entropy); then planted faults (g dropped,
+     one-hot dropped, lse shifted, ragged tile unmasked), each of which
+     must break the bounds;
   4. the slice: LLaVA-1.5-7B at full width and depth in bf16 with random
      weights (seeded), a synthetic character-level tokenizer and
      examples/test.jpeg: autocheck of 8 facts (shared-prefix prefill ->
@@ -24,18 +33,26 @@ Phases, one progress line each (or a few):
      kernels' launch counters reset just before and read just after;
   5. the slice against its plain path: shared-prefix logits with every
      attention forced dense, same weights;
-  6. the train slice: LLaVA-1.5-7B bf16 full fine-tune with remat, the
-     shared-prefix paired forward and the "xla" head, one synthetic pair at
-     the real geometry (examples/test.jpeg) collated as train.py collates
-     it; reference logps from the same forward, then (after phase 7) 4
-     AdamW steps on that pair: loss ln 2 at step 0, below it by step 3;
-     step time, pairs/s, tokens/s with and without padding, peak memory and
-     the flash launch counts of every step (counters reset just before);
-  7. the train slice against its plain paths on the same weights and pair
-     (those of the reference, before any update): paired + flash vs plain
-     concatenated + flash vs plain + dense attention, loss, logps and the
-     gradients of four named tensors.
+  8. the reference-logp precompute: 16 synthetic RLAIF-V rows at the train
+     geometry through score_preference_rows on the frozen starting policy
+     (LLaVA-1.5-7B with remat, seed 0): the shared-prefix path (a spy
+     counts the rows it scored), the plain scorer with the fused head and
+     with the "xla" head; their agreement, pairs/s and peak memory;
+  7. the train slice against its plain paths on the first row's pair and
+     phase 8's reference logps, before any update: paired + flash vs plain
+     concatenated + flash vs plain + dense attention, and the fused head vs
+     the "xla" head; loss, logps and the gradients of named tensors;
+  6. the train slice: the 7B full fine-tune with remat, the shared-prefix
+     paired forward and lm_head_impl "auto" (the fused head at hidden
+     4096), that pair collated as train.py collates it: 4 AdamW steps,
+     loss near ln 2 at step 0 (bound stated), lower by step 3; step time,
+     pairs/s, tokens/s with and without padding, peak memory and every
+     kernel's launches per step; then 3 steps with the "xla" head on the
+     same optimizer, for its step time and peak memory beside them.
 
+Each path of the main run (4, 8, 6) starts with every launch counter at 0
+and is read just after; the `kernels` line reports those launches beside
+each kernel's error, times, bound and library time.
 Any failure raises (non-zero exit). The last two lines are a JSON object of
 per-kernel results and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits non-zero before measuring anything.
@@ -60,12 +77,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 from rlaifv_tpu_torch.core.config import Config  # noqa: E402
-from rlaifv_tpu_torch.data import (  # noqa: E402
-    IGNORE_INDEX,
-    IMAGE_TOKEN_INDEX,
-    ClipImageProcessor,
-    DPOCollator,
-)
+from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
+from rlaifv_tpu_torch.genai.engine import DecodeEngine  # noqa: E402
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
 from rlaifv_tpu_torch.models.llama import LlamaAttention  # noqa: E402
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
@@ -78,18 +91,27 @@ from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix,
     decode_attention_prefix_ref,
 )
+from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
+    _kernel_dw,
+    _kernel_dx,
+    _kernel_fwd,
+    fused_head_bwd_plain,
+    fused_head_fwd_plain,
+    fused_target_logp,
+)
 from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     DPOHparams,
     LlavaDPOAdapter,
     batch_to_device,
     derive_shared_prefix_len,
-    dpo_forward_logps,
     dpo_loss_from_batch,
     make_dpo_train_step,
     make_optimizer,
     paired_masks,
     validate_shared_prefix,
 )
+from rlaifv_tpu_torch.train.family import get_family  # noqa: E402
+from rlaifv_tpu_torch.train.ref_logp import _encode_rows, score_preference_rows  # noqa: E402
 from rlaifv_tpu_torch.train.trainer import resolve_head  # noqa: E402
 from rlaifv_tpu_torch.ops.flash_attention import (  # noqa: E402
     _kernel_bwd_dkv,
@@ -116,6 +138,7 @@ SLICE_REL_TOL = 5e-2
 # above move it by far less than this
 PROB_TOL = 1e-3
 HBM_PEAK_GBPS = 3350.0  # H100 SXM data sheet
+PEAK_BF16_TFLOPS = 989.0  # dense bf16 tensor-core rate, H100 SXM data sheet
 # backward, per gradient: max|kernel - plain| <= BWD_TOL x max|plain|. The
 # kernels round P and dS to bf16 for their products (2^-9 relative each)
 # and write bf16 outputs (one more rounding), while the plain backward
@@ -144,6 +167,38 @@ LOGP_RTOL = 5e-3
 LOSS_TOL = 0.1
 GRAD_REL_TOL = 0.2
 GRAD_COS_MIN = 0.99
+# fused head forward (3c): logp and lse within HEAD_FWD_TOL nats of the
+# plain version. Both sum the same exact bf16 x bf16 products in fp32 over
+# H (the kernel on the tensor cores, in another order): ~1e-5 at scores of
+# ~1 and lse ~11. A ragged vocabulary tile left unmasked adds its zero
+# scores to the sum: 63 columns at V = 32001 move lse by ~63 e^-11 = 9e-4
+HEAD_FWD_TOL = 2e-4
+# fused head backward (3c), elementwise: |kernel - plain| <= HEAD_GRAD_RTOL
+# |plain| + HEAD_GRAD_ATOL max|plain|. Both round dl to bf16, sum in fp32
+# and round the sum to bf16 once, so an entry differs by an ulp or two
+# (one ulp is 2^-8 to 2^-7 of it); the atol covers entries that cancel to
+# ~0. Not against max|plain| alone: dW's vocabulary rows that no label hits
+# (the softmax part, ~1e-3) are ~1e-3 of the label rows, and a fault there
+# (lse off, p wrong) would hide under a bound on the largest entry
+HEAD_GRAD_RTOL = 2 ** -6
+HEAD_GRAD_ATOL = 1e-5
+# 8, ref-logp paths on the same rows: sequence sums and means within
+# LOGP_RTOL between the shared-prefix scorer and the plain one (the
+# attention paths round bf16 activations in other places, as in 7), within
+# HEAD_LOGP_RTOL between the fused and the "xla" head on one forward (the
+# "xla" head rounds each logit to bf16 first: 2^-9 of |logit| ~ 1, random
+# in sign, ~0.004 nats a token and ~1e-5 of a ~-2700-nat sum); per-token
+# logps within TOKEN_MEAN_TOL nats on average (single tokens spread wider)
+HEAD_LOGP_RTOL = 1e-3
+TOKEN_MEAN_TOL = 0.05
+# 6, step 0: the reference logps come from phase 8's shared-prefix scorer
+# (bf16 logits, the prefix left-padded to 128 columns) and the policy's
+# from the paired forward with the fused head (fp32 logits, the prefix
+# right-padded), so the margin is not exactly 0. loss = ln(1 + e^-beta m)
+# ~ ln 2 - beta m / 2: REF_LN2_TOL = 0.1 allows a margin of 2 nats, each of
+# the four ~-2700-nat sequence logps within ~2.5e-4 of its reference, the
+# order phase 7 reads between attention paths
+REF_LN2_TOL = 0.1
 
 
 def _fake_tokenizer():
@@ -160,6 +215,32 @@ def _fake_tokenizer():
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+COUNTERS = {  # every kernel's launch count: (owner, attribute)
+    "flash": (flash_attention, "launches"),
+    "dq": (flash_attention_bwd, "dq_launches"),
+    "dkv": (flash_attention_bwd, "dkv_launches"),
+    "decode": (decode_attention_prefix, "launches"),
+    "head_fwd": (fused_target_logp, "fwd_launches"),
+    "head_dx": (fused_target_logp, "dx_launches"),
+    "head_dw": (fused_target_logp, "dw_launches"),
+}
+
+
+def reset_counts() -> None:
+    for owner, attr in COUNTERS.values():
+        setattr(owner, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(owner, attr) for k, (owner, attr) in COUNTERS.items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
 
 
 def nvidia_smi() -> str:
@@ -191,6 +272,46 @@ def time_ms(fn, runs: int = 20) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations at the bf16 tensor-core peak and the bytes (each input read
+    once, each output written once) at the HBM peak."""
+    t_ops = flop / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    t_bytes = nbytes / (HBM_PEAK_GBPS * 1e9) * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _visible(mask: torch.Tensor, Lq: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs this mask lets the attention read: keys with mask
+    1, and (causal) at or before the query's absolute position."""
+    if not causal:
+        return int(mask.sum()) * Lq
+    last = torch.clamp(q_offset + torch.arange(Lq, device=mask.device), max=mask.shape[1] - 1)
+    return int(torch.cumsum(mask.long(), dim=1)[:, last].sum())
+
+
+def _sdpa_mask(mask: torch.Tensor, Lq: int, causal: bool, q_offset: int) -> torch.Tensor:
+    """The boolean (B, 1, Lq, Lk) mask of the same attention for SDPA."""
+    keep = (mask != 0)[:, None, None, :]
+    if causal:
+        qpos = q_offset + torch.arange(Lq, device=mask.device)[:, None]
+        keep = keep & (torch.arange(mask.shape[1], device=mask.device)[None, :] <= qpos)
+    return keep
+
+
+def sdpa(q, k, v, keep):
+    """torch's scaled_dot_product_attention on (B, L, H, D) operands: the
+    library yardstick of the attention kernels, timed here only."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=keep)
+    return out.transpose(1, 2)
 
 
 def phase_environment() -> str:
@@ -274,7 +395,14 @@ def phase_kernels(g) -> dict:
             raise AssertionError(f"flash kernel disagrees with its plain version: {c}")
         err_max = max(err_max, e_out)
         if c["name"] == "autocheck prefix":
-            results["flash"] = dict(ms=t_k, plain_ms=t_p)
+            keep = _sdpa_mask(mask, L, True, 0)
+            t_lib = time_ms(lambda: sdpa(q, k, v, keep))
+            flop = 4 * H * D * _visible(mask, L, True, 0)
+            results["flash"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib,
+                                    **bound(flop, _nbytes(q, k, v, out, lse, mask)))
+            log(f"[3 flash] autocheck prefix: SDPA with the same boolean mask "
+                f"{t_lib:.4f} ms (library yardstick) | bound "
+                f"{results['flash']['bound_ms']:.4f} ms ({results['flash']['bound_by']})")
     results["flash"]["max_abs_err"] = err_max
 
     # --- prefix decode attention
@@ -307,7 +435,15 @@ def phase_kernels(g) -> dict:
             raise AssertionError(f"decode kernel disagrees at valid_len={valid_len}")
         err_max = max(err_max, e)
         if valid_len == 896:
-            results["decode"] = dict(ms=t_k, plain_ms=t_p, gbps=gbps)
+            kv, vv, mv = k[:, :valid_len], v[:, :valid_len], mask[:, :valid_len]
+            keep = (mv != 0)[:, None, None, :]
+            t_lib = time_ms(lambda: sdpa(q[:, None], kv, vv, keep))
+            flop = 4 * H * D * int(mv.sum())
+            results["decode"] = dict(ms=t_k, plain_ms=t_p, gbps=gbps, library_ms=t_lib,
+                                     **bound(flop, _nbytes(q, kv, vv, mv, out)))
+            log(f"[3 decode] valid_len={valid_len}: SDPA over the live prefix "
+                f"{t_lib:.4f} ms (library yardstick) | bound "
+                f"{results['decode']['bound_ms']:.4f} ms ({results['decode']['bound_by']})")
     results["decode"]["max_abs_err"] = err_max
     return results
 
@@ -397,7 +533,171 @@ def phase_backward(g, pair: dict) -> dict:
         res["dq_err"] = max(res["dq_err"], errs[0])
         res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
         if c["name"] == "train suffix":  # the train step's largest call
-            res.update(dq_ms=t_dq, dkv_ms=t_dkv, plain_ms=t_plain)
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+            lib_out = sdpa(ql, kl, vl, _sdpa_mask(mask, Lq, True, off))
+            t_lib = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                        retain_graph=True))
+            pairs = H * D * _visible(mask, Lq, True, off)
+            stats = _nbytes(lse, lse, mask)  # lse, delta, mask
+            res.update(dq_ms=t_dq, dkv_ms=t_dkv, plain_ms=t_plain, library_ms=t_lib,
+                       dq_bound=bound(6 * pairs, _nbytes(q, k, v, do, q) + stats),
+                       dkv_bound=bound(8 * pairs, _nbytes(q, k, v, do, k, v) + stats))
+            log(f"[3b flash bwd] train suffix: SDPA's autograd backward (dq, dk, dv "
+                f"together) {t_lib:.4f} ms (library yardstick) | bound dq "
+                f"{res['dq_bound']['bound_ms']:.4f} ms ({res['dq_bound']['bound_by']}), "
+                f"dk/dv {res['dkv_bound']['bound_ms']:.4f} ms "
+                f"({res['dkv_bound']['bound_by']})")
+    return res
+
+
+def _head_inputs(g, M: int, H: int, V: int) -> tuple:
+    """bf16 hidden rows ~N(0, 1) (the final RMSNorm's scale), the (V, H)
+    head weight ~N(0, 0.02) (its init), labels and upstream gradients."""
+    x = torch.randn(M, H, generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(V, H, generator=g, device="cuda")).to(torch.bfloat16)
+    y = torch.randint(0, V, (M,), generator=g, device="cuda", dtype=torch.int32)
+    gr = torch.randn(M, generator=g, device="cuda")
+    return x, w, y, gr
+
+
+def _grad_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|got - ref|, the largest ratio of an entry's error to its 3c
+    bound: within the bound at <= 1)."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    allowed = HEAD_GRAD_RTOL * ref.abs() + HEAD_GRAD_ATOL * ref.abs().max()
+    ratio = (d / allowed).max().item() if bool(torch.isfinite(got).all()) else math.inf
+    return d.max().item(), ratio
+
+
+def head_check(x, w, y, gr, backward: bool = True, fault: str = "") -> dict:
+    """The fused-head kernels against the plain versions on one input set.
+    `fault` plants one error around the sound kernels (the probe): "g" drops
+    the upstream gradient, "onehot" drops the label's one-hot, "lse" shifts
+    the saved lse by 0.5, "ragged" leaves the ragged vocabulary tile
+    unmasked (zero weight rows scored as real columns)."""
+    M, V = x.shape[0], w.shape[0]
+    ref_logp, ref_lse = fused_head_fwd_plain(x, w, y)
+    kx, kw, ky = x, w, y
+    if fault == "ragged":
+        kw = torch.cat([w, w.new_zeros((-V % 64, w.shape[1]))])
+    if fault == "onehot":
+        ky = torch.full_like(y, V + 7)  # a label no column matches
+    logp, lse = _kernel_fwd(kx, kw, ky)
+    out = {"logp_err": (logp - ref_logp).abs().max().item(),
+           "lse_err": (lse - ref_lse).abs().max().item()}
+    ok = out["logp_err"] <= HEAD_FWD_TOL and out["lse_err"] <= HEAD_FWD_TOL and \
+        bool(torch.isfinite(logp).all())
+    if backward:
+        ref_dx, ref_dw = fused_head_bwd_plain(x, w, y, ref_lse, gr)
+        klse = lse + 0.5 if fault == "lse" else lse
+        kg = torch.ones_like(gr) if fault == "g" else gr
+        dx = _kernel_dx(kx, kw, ky, klse, kg)
+        dw = _kernel_dw(kx, kw, ky, klse, kg)[:V]
+        out["dx_err"], out["dx_ratio"] = _grad_err(dx, ref_dx)
+        out["dw_err"], out["dw_ratio"] = _grad_err(dw, ref_dw)
+        ok = ok and out["dx_ratio"] <= 1 and out["dw_ratio"] <= 1
+    torch.cuda.synchronize()
+    out["ok"] = ok
+    return out
+
+
+def _composite(x, w, y):
+    """The library yardstick of the fused head: no single PyTorch call
+    computes it, so two: F.linear then F.cross_entropy(reduction="none")
+    (-logp), timed here only."""
+    return -torch.nn.functional.cross_entropy(torch.nn.functional.linear(x, w),
+                                              y.long(), reduction="none")
+
+
+def head_cases(pair: dict) -> list:
+    """3c's cases: the train step's head (M = 2 (L - 1) rows of the collated
+    pair, H = 4096, V = 32000), the ref-logp plain fallback at batch_pairs 8
+    (M = 16 x 1023, less 5 for a ragged row tile), the single-pass regime of
+    TPU row 13 (H = 1024) and ragged vocabularies (V = 32001 and 300)."""
+    M = 2 * (pair["batch_np"]["input_ids"].shape[1] - 1)
+    return [
+        dict(name="train step", M=M, H=4096, V=32000, backward=True, time=True),
+        dict(name="ref-logp fallback", M=16 * 1023 - 5, H=4096, V=32000, backward=False,
+             time=True),
+        dict(name="small H (row 13)", M=M, H=1024, V=32000, backward=True, time=True),
+        dict(name="ragged vocab", M=1000, H=4096, V=32001, backward=True, time=False),
+        dict(name="tiny ragged", M=77, H=1024, V=300, backward=True, time=False),
+    ]
+
+
+def phase_head(g, pair: dict) -> dict:
+    """3c: the fused-head kernels (forward, dx, dW) against the plain
+    versions, their times beside the bound and the library composite, then
+    the planted-fault probe."""
+    res = {"fwd_err": 0.0, "dx_err": 0.0, "dw_err": 0.0}
+    for c in head_cases(pair):
+        M, H, V = c["M"], c["H"], c["V"]
+        x, w, y, gr = _head_inputs(g, M, H, V)
+        r = head_check(x, w, y, gr, backward=c["backward"])
+        msg = (f"[3c fused head] {c['name']}: M={M} H={H} V={V} | max|logp err| "
+               f"{r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} (tol {HEAD_FWD_TOL})")
+        if c["backward"]:
+            msg += (f" | max|dx err| {r['dx_err']:.3e} max|dW err| {r['dw_err']:.3e} "
+                    f"(tol {HEAD_GRAD_RTOL:.4f} x |plain| + {HEAD_GRAD_ATOL} x max|plain|; "
+                    f"worst entry at {r['dx_ratio']:.3f} / {r['dw_ratio']:.3f} of it)")
+        res["fwd_err"] = max(res["fwd_err"], r["logp_err"], r["lse_err"])
+        res["dx_err"] = max(res["dx_err"], r.get("dx_err", 0.0))
+        res["dw_err"] = max(res["dw_err"], r.get("dw_err", 0.0))
+        if c["time"]:
+            runs = 10 if M > 4096 else 20
+            flop = 2 * M * H * V
+            t_f = time_ms(lambda: _kernel_fwd(x, w, y), runs)
+            t_fp = time_ms(lambda: fused_head_fwd_plain(x, w, y), runs)
+            t_fl = time_ms(lambda: _composite(x, w, y), runs)
+            b_f = bound(flop, _nbytes(x, w, y) + 8 * M)
+            msg += (f" | fwd kernel {t_f:.3f} ms = {flop / (t_f * 1e-3) / 1e12:.1f} "
+                    f"TFLOP/s, plain {t_fp:.3f} ms, library composite (F.linear + "
+                    f"F.cross_entropy) {t_fl:.3f} ms, bound {b_f['bound_ms']:.3f} ms "
+                    f"({b_f['bound_by']})")
+            res.setdefault("fwd", {})[c["name"]] = dict(ms=t_f, plain_ms=t_fp,
+                                                        library_ms=t_fl, **b_f)
+            if c["backward"]:
+                _, lse = _kernel_fwd(x, w, y)
+                t_dx = time_ms(lambda: _kernel_dx(x, w, y, lse, gr))
+                t_dw = time_ms(lambda: _kernel_dw(x, w, y, lse, gr))
+                t_bp = time_ms(lambda: fused_head_bwd_plain(x, w, y, lse, gr), 10)
+                xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
+                lib = _composite(xl, wl, y)
+                t_bl = time_ms(lambda: torch.autograd.grad(lib, (xl, wl), gr,
+                                                           retain_graph=True))
+                stats = _nbytes(x, w, y, lse, gr)
+                b_dx = res.setdefault("dx", {})[c["name"]] = dict(
+                    ms=t_dx, plain_ms=t_bp, library_ms=t_bl,
+                    **bound(2 * flop, stats + _nbytes(x)))
+                b_dw = res.setdefault("dw", {})[c["name"]] = dict(
+                    ms=t_dw, plain_ms=t_bp, library_ms=t_bl,
+                    **bound(2 * flop, stats + _nbytes(w)))
+                msg += (f" | dx kernel {t_dx:.3f} ms = {2 * flop / (t_dx * 1e-3) / 1e12:.1f} "
+                        f"TFLOP/s (bound {b_dx['bound_ms']:.3f} ms), dW kernel "
+                        f"{t_dw:.3f} ms = {2 * flop / (t_dw * 1e-3) / 1e12:.1f} TFLOP/s "
+                        f"(bound {b_dw['bound_ms']:.3f} ms), plain backward (dx "
+                        f"and dW) {t_bp:.3f} ms, composite's autograd backward "
+                        f"{t_bl:.3f} ms")
+                del xl, wl, lib
+        log(msg + f" | {'ok' if r['ok'] else 'FAIL'}")
+        if not r["ok"]:
+            raise AssertionError(f"fused head kernels disagree with the plain versions: "
+                                 f"{c['name']}")
+        del x, w, y, gr
+    torch.cuda.empty_cache()
+
+    # the probe: each planted fault must break the bounds above
+    x, w, y, gr = _head_inputs(g, 2046, 1024, 32001)
+    for fault in ("g", "onehot", "lse", "ragged"):
+        r = head_check(x, w, y, gr, fault=fault)
+        log(f"[3c fused head] planted fault {fault!r} (M=2046 H=1024 V=32001): max|logp "
+            f"err| {r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} max|dx err| "
+            f"{r['dx_err']:.3e} max|dW err| {r['dw_err']:.3e} (worst entry at "
+            f"{r['dx_ratio']:.3g} / {r['dw_ratio']:.3g} of its bound) | "
+            f"{'caught' if not r['ok'] else 'MISSED'}")
+        if r["ok"]:
+            raise AssertionError(f"the 3c bounds miss the planted fault {fault!r}")
     return res
 
 
@@ -421,8 +721,7 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes) -> dict:
     gen.diverse_gen(diverse[:2], max_new_tokens=2)
     torch.cuda.synchronize()
 
-    flash_attention.launches = 0
-    decode_attention_prefix.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     scored = gen.autocheck(facts, batch_size=8)
@@ -436,8 +735,7 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes) -> dict:
     greedy_rows = gen.greedy_gen(greedy, max_new_tokens=32)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    launches = {"flash": flash_attention.launches,
-                "decode": decode_attention_prefix.launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     assert len(scored) == 8 and all(
@@ -495,70 +793,173 @@ def phase_slice_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
         raise AssertionError("slice disagrees with its plain path")
 
 
-def _train_pair(image: np.ndarray, vocab: int):
-    """One (rej, win) pair at the real geometry: a 35-token system prompt,
-    the image (576 slots once expanded), a 24-token question, answers of
-    256 (win) and 192 (rej) tokens; random ids, seeded."""
+def synth_rows(image_bytes: bytes, n: int = 16) -> list:
+    """n raw RLAIF-V rows (question, chosen, rejected, image) at the train
+    pair's geometry: with the character-level tokenizer a 24-token question
+    and answers of 224-256 (chosen) and 160-224 (rejected) tokens after the
+    llava_v1 system prompt and the image's 576 slots; random letters and
+    spaces, seeded; every row on examples/test.jpeg."""
     rng = np.random.default_rng(0)
-    system = rng.integers(5, vocab, 35).tolist()
-    question = rng.integers(5, vocab, 24).tolist()
+    chars = np.asarray(list("abcdefghijklmnopqrstuvwxyz     "))
 
-    def side(n):
-        ans = rng.integers(5, vocab, n).tolist()
-        ids = [1, *system, IMAGE_TOKEN_INDEX, *question, *ans, 2]
-        labels = [IGNORE_INDEX] * (len(ids) - n - 1) + ans + [2]
-        return {"input_ids": np.asarray(ids), "labels": np.asarray(labels),
-                "image": image}
+    def text(k):
+        body = "".join(rng.choice(chars, k - 2))
+        return "q" + body + "e"
 
-    win = side(256)
-    return side(192), win
+    return [{"idx": str(i), "question": text(24),
+             "chosen": text(int(rng.integers(224, 257))),
+             "rejected": text(int(rng.integers(160, 225))),
+             "image": {"bytes": image_bytes, "path": "test.jpeg"},
+             "image_path": "test.jpeg", "origin_dataset": "chip_smoke",
+             "origin_split": "{}"} for i in range(n)]
 
 
-def collate_train_pair(image: np.ndarray, cfg: LlavaConfig) -> dict:
+def preference_items(rows: list, tok, cfg: LlavaConfig, logps=None) -> list:
+    """The (rej, win) items DPODataset._get_one builds from parquet rows and
+    their reference logps, built in memory (no parquet on this path)."""
+    spec = get_family("llava15")
+    mm_cfg = spec.mm_cfg(ClipImageProcessor(image_size=cfg.vision.image_size),
+                         cfg.num_image_tokens)
+    items = _encode_rows(rows, tok, mm_cfg, spec.preprocess_func)
+    for (rej, win), lp in zip(items, logps or []):
+        win["ref_win_logp"], win["ref_win_avg_logp"], win["ref_win_per_token_logp"] = lp[:3]
+        rej["ref_rej_logp"], rej["ref_rej_avg_logp"], rej["ref_rej_per_token_logp"] = lp[3:]
+    return items
+
+
+def collate_train_pair(items: list, tok, cfg: LlavaConfig) -> dict:
     """6, data: configs/llava15_dpo.json's training settings (one pair a
-    step, max_len 2048, shared_prefix_len -1) with the "xla" head; the pair
-    collated as train.py collates it (DPOCollator's default bucket: the
-    batch pads to the next multiple of 256 tokens) and its shared prefix
-    derived from the batch."""
+    step, max_len 2048, shared_prefix_len -1, lm_head_impl "auto"); the
+    first row's pair collated as train.py collates it (DPOCollator's default
+    bucket: the batch pads to the next multiple of 256 tokens) and its shared
+    prefix derived from the batch."""
     t = Config.from_json(str(ROOT / "configs" / "llava15_dpo.json")).training
-    t.lm_head_impl = "xla"
-    collator = DPOCollator(pad_token_id=0, max_len=2048,
-                           num_patches=cfg.num_image_tokens, beta=t.dpo_beta)
-    batch_np = collator([_train_pair(image, cfg.llm.vocab_size)])
     assert t.shared_prefix_len == -1 and t.per_device_batch_pairs == 1
+    assert getattr(t, "lm_head_impl", "auto") == "auto"
+    collator = DPOCollator(pad_token_id=tok.pad_token_id, max_len=2048,
+                           num_patches=cfg.num_image_tokens, beta=t.dpo_beta,
+                           **get_family("llava15").collator_kwargs(tok))
+    batch_np = collator(items[:1])
     P = derive_shared_prefix_len(batch_np, cfg.num_image_tokens)
     validate_shared_prefix(batch_np, P, cfg.num_image_tokens)
     return dict(batch_np=batch_np, P=P, training=t)
 
 
-def build_train(pair: dict, cfg: LlavaConfig, device: str = "cuda") -> dict:
-    """6, set-up: the model of `cfg` (LLaVA-1.5-7B here) with random weights
-    and the pair's reference logps from the same forward."""
+def build_model(cfg: LlavaConfig, device: str = "cuda"):
+    """The model of `cfg` (LLaVA-1.5-7B with remat here), random weights
+    from seed 0: the frozen starting policy of phase 8 and the policy of 6."""
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
     init_weights_(model, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[8 ref-logp] LLaVA-1.5-7B bf16, remat on: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def _seq_close(a: list, b: list, rtol: float) -> tuple:
+    """(max relative difference of the sums and means, mean |difference| of
+    the per-token logps, max of it) between two row lists of one layout."""
+    rel, tok_mean, tok_max = 0.0, 0.0, 0.0
+    for ra, rb in zip(a, b):
+        for k in (0, 1, 3, 4):
+            rel = max(rel, abs(ra[k] - rb[k]) / abs(rb[k]))
+        for k in (2, 5):
+            assert len(ra[k]) == len(rb[k]), "per-token layouts differ"
+            d = np.abs(np.asarray(ra[k]) - np.asarray(rb[k]))
+            tok_mean, tok_max = max(tok_mean, float(d.mean())), max(tok_max, float(d.max()))
+    return rel, tok_mean, tok_max
+
+
+def phase_ref_logp(model, tok, rows: list, cfg: LlavaConfig) -> tuple:
+    """8: the reference-logp precompute of the rows through the port's
+    score_preference_rows three times: the shared-prefix path (the default
+    of inference_logp), the plain scorer with the fused head (what rows
+    that cannot share take, and what "auto" picks at 7B) and the plain
+    scorer with the "xla" head (the comparison, not counted). A spy on
+    DecodeEngine.score_pair_logps counts the rows the shared path scored."""
+    kw = dict(max_len=2048, num_patches=cfg.num_image_tokens, batch_pairs=8,
+              image_processor=ClipImageProcessor(image_size=cfg.vision.image_size),
+              progress=False)
+    spied = []
+    orig = DecodeEngine.score_pair_logps
+
+    def spy(self, prefixes, *a, **k):
+        spied.append(len(prefixes))
+        return orig(self, prefixes, *a, **k)
+
+    DecodeEngine.score_pair_logps = spy
+    runs, launches = {}, {}
+    try:
+        for name, extra in (("shared", dict(shared_prefix=True)),
+                            ("fused", dict(lm_head_impl="fused")),
+                            ("xla", dict(lm_head_impl="xla"))):
+            score_preference_rows(rows[:2], model, tok, **kw, **extra)  # warm-up
+            torch.cuda.synchronize()
+            spied.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = score_preference_rows(rows, model, tok, **kw, **extra)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name != "xla":  # the comparison's launches do not count
+                add_counts(launches, read_counts())
+            runs[name] = out
+            ok = all(np.isfinite(r[k]) for r in out for k in (0, 1, 3, 4))
+            log(f"[8 ref-logp] {name}: {len(rows)} pairs in {dt:.3f} s = "
+                f"{len(rows) / dt:.2f} pairs/s | peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | rows through "
+                f"the shared-prefix engine {sum(spied)} | logps row 0 "
+                f"{out[0][0]:.2f}/{out[0][3]:.2f}")
+            if not ok:
+                raise AssertionError(f"8: non-finite logps on the {name} path")
+            if sum(spied) != (len(rows) if name == "shared" else 0):
+                raise AssertionError(f"8: the shared path scored {sum(spied)} of "
+                                     f"{len(rows)} rows on the {name} run")
+    finally:
+        DecodeEngine.score_pair_logps = orig
+    ok = True
+    for a, b, rtol in (("shared", "fused", LOGP_RTOL), ("fused", "xla", HEAD_LOGP_RTOL)):
+        rel, tmean, tmax = _seq_close(runs[a], runs[b], rtol)
+        good = rel <= rtol and tmean <= TOKEN_MEAN_TOL
+        ok = ok and good
+        log(f"[8 ref-logp] {a} vs {b}: sums and means max rel {rel:.3e} (tol {rtol}) | "
+            f"per-token |d| mean {tmean:.3e} (tol {TOKEN_MEAN_TOL}) max {tmax:.3e} | "
+            f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("8: the ref-logp paths disagree")
+    if launches["head_fwd"] < 1 or launches["flash"] < 2 * cfg.llm.num_layers:
+        raise AssertionError(f"8: a kernel of the ref-logp path did not run: {launches}")
+    log(f"[8 ref-logp] launches: flash fwd {launches['flash']}, fused head fwd "
+        f"{launches['head_fwd']}")
+    return runs["shared"], launches
+
+
+def build_train(pair: dict, model, device: str = "cuda") -> dict:
+    """6, set-up: the step's hyperparameters and the collated pair with the
+    reference logps phase 8 wrote for it."""
+    cfg = model.cfg
     t, P, batch_np = pair["training"], pair["P"], pair["batch_np"]
     L = batch_np["input_ids"].shape[1]
     hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
                     lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
                     shared_prefix_len=P)
+    assert hp.lm_head_impl == "fused", hp.lm_head_impl
     batch = batch_to_device(batch_np, device)
     adapter = LlavaDPOAdapter(model)
     model.train()
-    with torch.no_grad():
-        ref_w, ref_r, _ = dpo_forward_logps(adapter, batch, hp)
-    batch["ref_win_logp"], batch["ref_rej_logp"] = ref_w.float(), ref_r.float()
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
     # the paired path's rows: the prefix once, each suffix padded to W
     tokens = P + 2 * (L - P)
     real = P + int(batch_np["attention_mask"][:, P:].sum())
-    log(f"[6 train] LLaVA-1.5 bf16 full fine-tune, remat on: {n_params / 1e9:.3f} B "
-        f"params, built and reference logps in {time.perf_counter() - t0:.1f} s | "
+    log(f"[6 train] LLaVA-1.5 bf16 full fine-tune, remat on | "
         f"one pair padded to L={L} (bucket 256), derived P={P} (array "
         f"{-(-P // 128) * 128}), W={L - P}: {tokens} tokens a step, {real} of them "
-        f"not padding | head {hp.lm_head_impl}, beta {hp.beta}, constant lr "
-        f"{TRAIN_LR}, weight decay {t.weight_decay}, clip {t.max_grad_norm}")
+        f"not padding | head {hp.lm_head_impl} (\"auto\" at hidden "
+        f"{cfg.llm.hidden_size}), beta {hp.beta}, constant lr {TRAIN_LR}, weight decay "
+        f"{t.weight_decay}, clip {t.max_grad_norm} | reference logps from phase 8 "
+        f"{float(batch_np['ref_win_logp'][0]):.3f}/{float(batch_np['ref_rej_logp'][0]):.3f}")
     return dict(model=model, adapter=adapter, batch=batch, hp=hp, tokens=tokens,
                 real_tokens=real, training=t)
 
@@ -571,42 +972,59 @@ def phase_train(tr: dict) -> dict:
                                max_grad_norm=t.max_grad_norm, schedule="constant")
     step = make_dpo_train_step(tr["adapter"], optimizer, tr["hp"])
     n_layers = model.cfg.llm.num_layers
-    flash_attention.launches = 0
-    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
-    losses, times = [], []
+    losses, times, launches = [], [], {}
     for i in range(4):
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
-        c0 = (flash_attention.launches, flash_attention_bwd.dq_launches,
-              flash_attention_bwd.dkv_launches)
+        reset_counts()
         ts = time.perf_counter()
         metrics = step(tr["batch"])
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
         times.append(time.perf_counter() - ts)
-        n = (flash_attention.launches - c0[0], flash_attention_bwd.dq_launches - c0[1],
-             flash_attention_bwd.dkv_launches - c0[2])
+        n = read_counts()
+        add_counts(launches, n)
         losses.append(loss)
         log(f"[6 train] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
-            f"{times[-1]:.3f} s | flash launches fwd {n[0]} bwd dq {n[1]} dk/dv {n[2]}")
+            f"{times[-1]:.3f} s | flash launches fwd {n['flash']} bwd dq {n['dq']} "
+            f"dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} dx {n['head_dx']} "
+            f"dW {n['head_dw']}" + (f" | policy logps {float(metrics['logps_train/chosen']):.3f}"
+                                     f"/{float(metrics['logps_train/rejected']):.3f}"
+                                     if i == 0 else ""))
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"non-finite loss or grad norm at step {i}")
-        if min(n) < n_layers:
-            raise AssertionError(f"a kernel of the train path did not run every layer: {n}")
-        if i == 0 and (abs(loss - math.log(2)) > LN2_TOL or not gnorm > 0):
-            raise AssertionError(f"step 0: loss {loss} != ln 2 (policy == reference) "
-                                 f"or grad norm {gnorm} not above 0")
-    launches = {"fwd": flash_attention.launches, "dq": flash_attention_bwd.dq_launches,
-                "dkv": flash_attention_bwd.dkv_launches}
+        if min(n["flash"], n["dq"], n["dkv"]) < n_layers or \
+                min(n["head_fwd"], n["head_dx"], n["head_dw"]) < 1:
+            raise AssertionError(f"a kernel of the train path did not run: {n}")
+        if i == 0 and (abs(loss - math.log(2)) > REF_LN2_TOL or not gnorm > 0):
+            raise AssertionError(f"step 0: loss {loss} not within {REF_LN2_TOL} of ln 2 "
+                                 f"(policy == reference) or grad norm {gnorm} not above 0")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = statistics.mean(times[1:])
     log(f"[6 train] steps 1-3 (after the warm-up step 0): {step_s:.3f} s a step = "
         f"{1 / step_s:.3f} pairs/s = {tr['tokens'] / step_s:.0f} tokens/s with padding, "
         f"{tr['real_tokens'] / step_s:.0f} without | peak device memory "
         f"{peak_gb:.2f} GiB | loss {losses[0]:.6f} -> {losses[-1]:.3e} "
-        f"(ln 2 = {math.log(2):.6f} within {LN2_TOL} at step 0)")
-    if not losses[-1] < math.log(2):
-        raise AssertionError(f"the loss did not fall below ln 2: {losses}")
+        f"(step 0 within {REF_LN2_TOL} of ln 2 = {math.log(2):.6f}: "
+        f"{losses[0] - math.log(2):+.3e})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall after 3 updates: {losses}")
+
+    # the same step with the "xla" head on the same optimizer and batch, for
+    # the step time and peak memory beside the fused head's (not counted)
+    xla_step = make_dpo_train_step(tr["adapter"], optimizer,
+                                   dataclasses.replace(tr["hp"], lm_head_impl="xla"))
+    torch.cuda.reset_peak_memory_stats()
+    xla_times = []
+    for _ in range(3):
+        ts = time.perf_counter()
+        float(xla_step(tr["batch"])["loss"])
+        xla_times.append(time.perf_counter() - ts)
+    log(f"[6 train] the same step with the \"xla\" head (comparison, after the fused "
+        f"steps): {', '.join(f'{t:.3f}' for t in xla_times)} s, mean "
+        f"{statistics.mean(xla_times):.3f} s against {step_s:.3f} s fused | peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB against "
+        f"{peak_gb:.2f} GiB fused")
     return launches
 
 
@@ -623,6 +1041,7 @@ def train_run(model, adapter, batch, hp, impl: str) -> tuple:
         f"layer {last} k_proj": f"llm.model.layers.{last}.attn.k_proj.weight",
         f"layer {last} v_proj": f"llm.model.layers.{last}.attn.v_proj.weight",
         "lm_head": "llm.lm_head.weight",
+        "final norm": "llm.model.ln_f.weight",
         "clip patch_embed": "vision_tower.patch_embed.weight",
     }
     attn = [m for m in model.modules() if isinstance(m, LlamaAttention)]
@@ -654,16 +1073,20 @@ def compare_runs(run: tuple, ref: tuple) -> tuple:
 
 
 def phase_train_vs_plain(model, adapter, batch, hp) -> None:
-    """7: paired + flash, plain + flash and plain + dense on one pair, at
-    the weights the reference logps came from (loss ln 2 on the paired
-    path), each path's loss, logps and named gradients."""
+    """7: paired + flash, plain + flash and plain + dense on one pair with
+    the fused head, and paired + flash with the "xla" head, at the weights
+    the reference logps came from (loss about ln 2 on the paired path), each
+    path's loss, logps and named gradients."""
     plain = dataclasses.replace(hp, shared_prefix_len=0)
+    xla = dataclasses.replace(hp, lm_head_impl="xla")
     runs = {"paired+flash": train_run(model, adapter, batch, hp, "auto"),
             "plain+flash": train_run(model, adapter, batch, plain, "auto"),
-            "plain+dense": train_run(model, adapter, batch, plain, "dense")}
+            "plain+dense": train_run(model, adapter, batch, plain, "dense"),
+            "paired+flash xla head": train_run(model, adapter, batch, xla, "auto")}
     ok = runs["plain+dense"][3] == 0 and runs["paired+flash"][3] > 0
     for name, ref_name in (("paired+flash", "plain+dense"), ("plain+flash", "plain+dense"),
-                           ("paired+flash", "plain+flash")):
+                           ("paired+flash", "plain+flash"),
+                           ("paired+flash", "paired+flash xla head")):
         (loss, logps, _, n_flash), ref = runs[name], runs[ref_name]
         d_loss, d_logp, grads = compare_runs(runs[name], ref)
         parts = [f"[7 train vs plain] {name} vs {ref_name}: loss {loss:.5f} vs "
@@ -680,6 +1103,12 @@ def phase_train_vs_plain(model, adapter, batch, hp) -> None:
         raise AssertionError("the train slice disagrees with its plain paths")
 
 
+def _row(name, source, replaces, launches, err, timing) -> dict:
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, **{k: timing[k] for k in keys}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -690,9 +1119,11 @@ def main() -> None:
     kern = phase_kernels(g)
     cfg = LlavaConfig.llava15_7b()
     image_bytes = (ROOT / "examples" / "test.jpeg").read_bytes()
-    image = ClipImageProcessor(image_size=cfg.vision.image_size)(image_bytes)
-    pair = collate_train_pair(image, cfg)
+    tok = _fake_tokenizer()
+    rows = synth_rows(image_bytes)
+    pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
     bwd = phase_backward(g, pair)
+    head = phase_head(g, pair)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -705,7 +1136,7 @@ def main() -> None:
     log("[4 slice] weights are random (seed 0) and the tokenizer is the "
         "synthetic character-level tests/fake_tokenizer.py: the text is "
         "meaningless, the shapes and paths are the real ones")
-    gen = Llava15Generator(model, _fake_tokenizer(), cfg.num_image_tokens,
+    gen = Llava15Generator(model, tok, cfg.num_image_tokens,
                            image_size=cfg.vision.image_size,
                            checkpoint_name="random-llava15-7b")
     launches = phase_slice(gen, image_bytes)
@@ -714,36 +1145,43 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 7 runs on the weights before any update: the DPO loss of this random
-    # model saturates after one step at any lr that moves bf16 weights
-    tr = build_train(pair, LlavaConfig.llava15_7b(remat=True))
+    # 8 scores the rows with the frozen starting policy; 7 and 6 train that
+    # same model on the first row's pair against those reference logps (7
+    # runs on the weights before any update: the DPO loss of this random
+    # model saturates after one step at any lr that moves bf16 weights)
+    model = build_model(LlavaConfig.llava15_7b(remat=True))
+    ref_logps, rl = phase_ref_logp(model, tok, rows, cfg)
+    add_counts(launches, rl)
+    train_pair = collate_train_pair(preference_items(rows, tok, cfg, ref_logps), tok, cfg)
+    assert (train_pair["batch_np"]["input_ids"] == pair["batch_np"]["input_ids"]).all()
+    tr = build_train(train_pair, model)
     phase_train_vs_plain(tr["model"], tr["adapter"], tr["batch"], tr["hp"])
-    tl = phase_train(tr)
+    add_counts(launches, phase_train(tr))
 
-    log(f"[6 train] main-path launches: flash fwd {launches['flash']} (serving) + "
-        f"{tl['fwd']} (train), bwd dq {tl['dq']}, dk/dv {tl['dkv']}")
+    log(f"[6 train] main-path launches (serving 4, ref-logp 8, train 6): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
+    head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "rlaifv_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "rlaifv_tpu/ops/flash_attention.py:73",
-         "launches": launches["flash"] + tl["fwd"],
-         "max_abs_err": max(kern["flash"]["max_abs_err"], bwd["fwd_err"]),
-         "ms": kern["flash"]["ms"], "plain_ms": kern["flash"]["plain_ms"]},
-        {"name": "flash_attention_bwd_dq", "route": "cuda", "source": src,
-         "replaces": "rlaifv_tpu/ops/flash_attention.py:157",
-         "launches": tl["dq"], "max_abs_err": bwd["dq_err"],
-         "ms": bwd["dq_ms"], "plain_ms": bwd["plain_ms"]},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda", "source": src,
-         "replaces": "rlaifv_tpu/ops/flash_attention.py:191",
-         "launches": tl["dkv"], "max_abs_err": bwd["dkv_err"],
-         "ms": bwd["dkv_ms"], "plain_ms": bwd["plain_ms"]},
-        {"name": "decode_attention_prefix", "route": "cuda",
-         "source": "rlaifv_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "rlaifv_tpu/ops/decode_attention.py:59",
-         "launches": launches["decode"],
-         "max_abs_err": kern["decode"]["max_abs_err"],
-         "ms": kern["decode"]["ms"], "plain_ms": kern["decode"]["plain_ms"]},
+        _row("flash_attention_fwd", "rlaifv_tpu_torch/csrc/flash_attention.cu",
+             "rlaifv_tpu/ops/flash_attention.py:73", launches["flash"],
+             max(kern["flash"]["max_abs_err"], bwd["fwd_err"]), kern["flash"]),
+        _row("flash_attention_bwd_dq", src, "rlaifv_tpu/ops/flash_attention.py:157",
+             launches["dq"], bwd["dq_err"],
+             dict(ms=bwd["dq_ms"], plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
+                  **bwd["dq_bound"])),
+        _row("flash_attention_bwd_dkv", src, "rlaifv_tpu/ops/flash_attention.py:191",
+             launches["dkv"], bwd["dkv_err"],
+             dict(ms=bwd["dkv_ms"], plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"],
+                  **bwd["dkv_bound"])),
+        _row("decode_attention_prefix", "rlaifv_tpu_torch/csrc/decode_attention.cu",
+             "rlaifv_tpu/ops/decode_attention.py:59", launches["decode"],
+             kern["decode"]["max_abs_err"], kern["decode"]),
+        _row("fused_head_fwd", head_src, "rlaifv_tpu/ops/fused_head.py:128,157",
+             launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"]),
+        _row("fused_head_dx", head_src, "rlaifv_tpu/ops/fused_head.py:318",
+             launches["head_dx"], head["dx_err"], head["dx"]["train step"]),
+        _row("fused_head_dw", head_src, "rlaifv_tpu/ops/fused_head.py:334",
+             launches["head_dw"], head["dw_err"], head["dw"]["train step"]),
     ]
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
@@ -752,5 +1190,58 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def profile_train() -> None:
+    """`python3 chip_smoke.py --profile-train`: a one-off breakdown of the
+    7B train step, not part of the smoke run. torch.profiler over two steps
+    with the fused head and two with the "xla" head on phase 6's pair (the
+    first row of phase 8's rows; zero reference logps, since only time is
+    read), each after one warm-up step: wall and device time a step, the
+    device's idle share, and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        sys.exit(1)
+    phase_environment()
+    phase_build()
+    cfg = LlavaConfig.llava15_7b()
+    tok = _fake_tokenizer()
+    rows = synth_rows((ROOT / "examples" / "test.jpeg").read_bytes())
+    pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
+    for key in ("ref_win_logp", "ref_rej_logp"):
+        pair["batch_np"][key] = np.zeros(1, np.float32)
+    tr = build_train(pair, build_model(LlavaConfig.llava15_7b(remat=True)))
+    t = tr["training"]
+    optimizer = make_optimizer(tr["model"], TRAIN_LR, total_steps=t.max_steps,
+                               warmup_ratio=0.0, weight_decay=t.weight_decay,
+                               max_grad_norm=t.max_grad_norm, schedule="constant")
+    for head in ("fused", "xla"):
+        step = make_dpo_train_step(tr["adapter"], optimizer,
+                                   dataclasses.replace(tr["hp"], lm_head_impl=head))
+        step(tr["batch"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(tr["batch"])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 2 * 1e3
+        # device-side events only (kernels, copies, sets): an operator's
+        # own row repeats the time of the kernels it launched
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+
+        def dev(e):
+            return getattr(e, "self_device_time_total", None) or \
+                getattr(e, "self_cuda_time_total", 0)
+
+        device = sum(dev(e) for e in kernels) / 2 / 1e3
+        log(f"[profile] head {head}: {wall:.1f} ms a step wall (profiled), {device:.1f} "
+            f"ms of device time ({1 - device / wall:.1%} idle), {len(kernels)} kernel names")
+        top = sorted(kernels, key=dev, reverse=True)
+        for e in top[:20] + [e for e in top[20:] if "fused_head" in e.key]:
+            log(f"[profile]   {dev(e) / 2 / 1e3:8.2f} ms  x{e.count // 2:<5d} {e.key[:90]}")
+
+
 if __name__ == "__main__":
-    main()
+    profile_train() if "--profile-train" in sys.argv[1:] else main()

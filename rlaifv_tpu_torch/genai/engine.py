@@ -12,7 +12,11 @@ bf16-cache path, with the same conventions:
 - decoding stops once every row has emitted EOS;
 - shared-prefix scoring prefills the prefix once into a cache of exactly
   P columns (square, so the flash kernel serves it) and runs the suffixes
-  in buckets of 32 over a copy of that cache.
+  in buckets of 32 over a copy of that cache;
+- win||rej pair scoring (the ref-logp precompute) prefills each pair's
+  left-padded prefix once at exactly Pmax columns and runs both answer
+  suffixes at q_offset = Pmax over the tiled KV: both phases take the
+  flash kernel.
 
 Each decode step reads `done.all()` on the host: one device sync per step
 in eager mode, which a CUDA-graph decode loop would remove.
@@ -26,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.genai.sampling import SamplingParams, sample_token
 
 
@@ -280,3 +285,116 @@ class DecodeEngine:
             rows = logits[torch.arange(B, device=dev), last].float().cpu().numpy()
             out[c0:c0 + len(chunk)] = rows[:len(chunk)]
         return out
+
+    def _pair_scores(self, pids, pmask, images, starts, sids, smask, slabels):
+        """Two-phase scorer of one chunk: B left-padded prefixes (B, Pmax)
+        prefill once into a cache of exactly Pmax columns at cache_index 0
+        (square: the flash kernel); their KV is tiled to the 2B win||rej rows
+        with W empty columns, and the suffixes (2B, W) run at cache_index
+        Pmax (q_offset + Lq == Lk: the flash kernel again) -> (sums (2B,),
+        means (2B,), per_token (2B, W)) in fp32."""
+        B, Pmax = pids.shape
+        W = sids.shape[1]
+        ppos = (torch.cumsum(pmask, dim=1) - 1).clamp(min=0)
+        embeds = self.model.build_embeds(pids, images, starts)
+        _, pcache = self.llm(inputs_embeds=embeds, attention_mask=pmask,
+                             position_ids=ppos, cache=self.llm.init_cache(B, Pmax),
+                             cache_index=0)
+        # win rows 0..B-1 and rej rows B..2B-1 share prefix i
+        cache = [{name: torch.cat([torch.cat([c, c]),
+                                   c.new_zeros((2 * B, W) + c.shape[2:])], dim=1)
+                  for name, c in layer.items()} for layer in pcache]
+        del pcache
+        pmask2 = torch.cat([pmask, pmask])
+        cmask = torch.cat([pmask2, smask], dim=1)
+        spos = (pmask2.sum(dim=1, keepdim=True) + torch.cumsum(smask, dim=1) - 1).clamp(min=0)
+        logits, _ = self.llm(input_ids=sids.clamp(min=0), attention_mask=cmask,
+                             position_ids=spos, cache=cache, cache_index=Pmax)
+        # the label's logit minus the fp32 logsumexp: log_softmax at the
+        # label without a normalised (2B, W, V) tensor
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        tok = torch.gather(logits32, -1, slabels.clamp(min=0)[..., None])[..., 0] - lse
+        m = ((slabels != IGNORE_INDEX) & (smask == 1)).float()
+        per_token = tok * m
+        sums = per_token.sum(dim=1)
+        return sums, sums / m.sum(dim=1).clamp(min=1.0), per_token
+
+    @torch.inference_mode()
+    def score_pair_logps(self, prefixes, suffixes, suffix_labels, *, images=None,
+                         image_starts=None, pair_batch: int = 8,
+                         prefix_bucket: int = 128, suffix_bucket: int = 64):
+        """Shared-prefix win||rej scoring, the ref-logp precompute's fast
+        path: each pair's prompt prefix (system, image tokens, question)
+        prefills once and only the two answer suffixes run again. Exact,
+        because causal attention gives every row of a pair the same prefix
+        KV.
+
+        prefixes: B token lists; suffixes and suffix_labels: 2B lists (win
+        rows 0..B-1, rej rows B..2B-1), entry j of a label list the label of
+        the token predicted at suffix position j (-100 masked); images
+        (B, H, W, 3) or None; image_starts (B,) in unpadded prefix
+        coordinates (-1 none). Returns (sums (2B,), means (2B,), per_token:
+        2B fp32 arrays cut to each suffix's length)."""
+        B_total = len(prefixes)
+        if not len(suffixes) == 2 * B_total == len(suffix_labels):
+            raise ValueError("score_pair_logps: need 2B suffixes and label lists")
+        if any(len(s) < 1 for s in suffixes):
+            raise ValueError("score_pair_logps: empty suffix")
+        dev = self.device
+        sums = np.zeros(2 * B_total, np.float32)
+        means = np.zeros(2 * B_total, np.float32)
+        per_token = [None] * (2 * B_total)
+        for c0 in range(0, B_total, pair_batch):
+            pc = prefixes[c0:c0 + pair_batch]
+            n = len(pc)
+            B = pair_batch if B_total > pair_batch else n
+            rows = list(range(c0, c0 + n))
+            sfx = [suffixes[i] for i in rows] + [suffixes[B_total + i] for i in rows]
+            lab = [suffix_labels[i] for i in rows] + \
+                  [suffix_labels[B_total + i] for i in rows]
+            Pmax = _round_up(max(len(p) for p in pc), prefix_bucket)
+            W = _round_up(max(len(s) for s in sfx), suffix_bucket)
+
+            pids = np.zeros((B, Pmax), np.int64)
+            pmask = np.zeros((B, Pmax), np.int32)
+            starts = np.full((B,), -1, np.int64)
+            for r, p in enumerate(pc):
+                off = Pmax - len(p)
+                pids[r, off:] = p
+                pmask[r, off:] = 1
+                if image_starts is not None and image_starts[c0 + r] >= 0:
+                    starts[r] = image_starts[c0 + r] + off
+            imgs = None
+            if images is not None:
+                sel = np.asarray(images[c0:c0 + n])
+                if n < B:  # pad pairs: repeat pair 0
+                    sel = np.concatenate([sel, np.repeat(sel[:1], B - n, axis=0)])
+                imgs = self._device_images(sel)
+            if n < B:
+                pids[n:], pmask[n:], starts[n:] = pids[0], pmask[0], starts[0]
+
+            sids = np.zeros((2 * B, W), np.int64)
+            smask = np.zeros((2 * B, W), np.int32)
+            slab = np.full((2 * B, W), IGNORE_INDEX, np.int64)
+            for r in range(n):
+                for half, src_row in ((0, r), (B, n + r)):
+                    s, lb = sfx[src_row], lab[src_row]
+                    sids[half + r, :len(s)] = s
+                    smask[half + r, :len(s)] = 1
+                    slab[half + r, :len(lb)] = lb
+            for r in range(n, B):  # pad rows mirror row 0
+                sids[r], smask[r], slab[r] = sids[0], smask[0], slab[0]
+                sids[B + r], smask[B + r], slab[B + r] = sids[B], smask[B], slab[B]
+
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            s_d, m_d, pt_d = self._pair_scores(
+                t(pids), t(pmask), imgs, starts if images is not None else None,
+                t(sids), t(smask), t(slab))
+            s_h, m_h, pt_h = (a.cpu().numpy() for a in (s_d, m_d, pt_d))
+            for r in range(n):
+                for dst, src in ((c0 + r, r), (B_total + c0 + r, B + r)):
+                    sums[dst] = s_h[src]
+                    means[dst] = m_h[src]
+                    per_token[dst] = pt_h[src][:len(suffixes[dst])]
+        return sums, means, per_token

@@ -21,18 +21,18 @@ from typing import List
 
 import numpy as np
 
-from rlaifv_tpu.constants import (
+from rlaifv_tpu_torch.constants import (
     DEFAULT_IM_END_TOKEN,
     DEFAULT_IM_START_TOKEN,
     DEFAULT_IMAGE_TOKEN,
 )
-from rlaifv_tpu.data import conversation as conversation_lib
-from rlaifv_tpu.data.datasets import GenDataset, shard_indices
-from rlaifv_tpu.data.image_processing import ClipImageProcessor, decode_image
-from rlaifv_tpu.data.multimodal import expand_image_sentinels, tokenizer_image_token
+from rlaifv_tpu_torch.data import conversation as conversation_lib
+from rlaifv_tpu_torch.data.datasets import GenDataset, shard_indices
+from rlaifv_tpu_torch.data.image_processing import ClipImageProcessor, decode_image
+from rlaifv_tpu_torch.data.multimodal import expand_image_sentinels, tokenizer_image_token
 from rlaifv_tpu_torch.genai.engine import DecodeEngine, group_consecutive
-from rlaifv_tpu.utils.file_io import write_jsonlines
 from rlaifv_tpu_torch.genai.sampling import SamplingParams
+from rlaifv_tpu_torch.utils.file_io import write_jsonlines
 
 _NOT_PORTED = "is not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #6"
 

@@ -49,6 +49,12 @@ SIGNATURES = {
     # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
     # scale, stream
     "decode_attention_prefix_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # x, w, y, part_m, part_s, part_t, M, H, V, nsplit, stream
+    "fused_head_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, y, lse, g, dx_part, M, H, V, nsplit, Mpad, stream
+    "fused_head_dx_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    # x, w, y, lse, g, dw32, M, H, V, Vpad, stream
+    "fused_head_dw_bf16": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -3,12 +3,14 @@
     python -m rlaifv_tpu_torch.train --config cfg.json   # run from a checkpoint
     python -m rlaifv_tpu_torch.train --demo              # tiny synthetic run
 
-Counterpart of train.py for the llava15 family on one device (CUDA when
-available, else the CPU). `--config` loads the HF checkpoint through the
-JAX package's numpy converter (rlaifv_tpu/models/convert.py, no jax) and
-bridges it with `llava_params_from_jax`. The dataset directory must
-already hold the reference-logp parquet files: their precompute is not
-ported yet (ROADMAP.md #4), so a directory without them raises.
+Counterpart of train.py for the llava15 family on one device: the card
+(`--device cuda`, the default; without a visible card the run stops with an
+error) or the CPU when asked (`--device cpu`). `--config` loads the HF
+checkpoint through the port's numpy converter (models/convert.py
+`load_llava_checkpoint`) and the bridge, then follows train.py: when the
+dataset directory holds no `*logp*.parquet`, the frozen starting policy
+scores its raw parquet rows first (train/ref_logp.py, with the train step's
+head), and DPO trains against those reference logps.
 """
 from __future__ import annotations
 
@@ -18,8 +20,12 @@ import os
 import torch
 
 
-def _device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(name: str) -> torch.device:
+    """"cuda" (the default) needs a visible card; "cpu" only when asked."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("rlaifv_tpu_torch.train: no CUDA device is visible; "
+                         "pass --device cpu to run on the CPU")
+    return torch.device(name)
 
 
 def build_llava(config, device):
@@ -42,37 +48,20 @@ def build_llava(config, device):
     return cfg, LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
 
 
-def _require_logps(data_dir: str) -> None:
-    have = os.path.isdir(data_dir) and any(
-        f.endswith(".parquet") and "logp" in f for f in os.listdir(data_dir))
-    if not have:
-        raise NotImplementedError(
-            f"{data_dir!r} holds no '*logp*.parquet' files and the reference-"
-            "logp precompute is not ported to rlaifv_tpu_torch yet: ROADMAP.md "
-            "'Modules to port' #4 (train/ref_logp.py); run it with the JAX "
-            "package first (train.py)"
-        )
-
-
-def run_config(config) -> int:
-    _require_logps(config.data.data_dir)
+def run_config(config, device) -> int:
     import numpy as np
     from transformers import AutoTokenizer
 
-    from rlaifv_tpu.data.collator import DPOCollator
-    from rlaifv_tpu.data.datasets import DPODataset
-    from rlaifv_tpu.models.convert import load_llava_checkpoint
-    from rlaifv_tpu.train.family import get_family
-    from rlaifv_tpu_torch.models.convert import load_jax_params
-    from rlaifv_tpu_torch.train.trainer import DPOTrainer
+    from rlaifv_tpu_torch.data.collator import DPOCollator
+    from rlaifv_tpu_torch.data.datasets import DPODataset
+    from rlaifv_tpu_torch.models.convert import load_jax_params, load_llava_checkpoint
+    from rlaifv_tpu_torch.train.family import get_family
+    from rlaifv_tpu_torch.train.ref_logp import inference_logp
+    from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
 
     family = config.model.model_family
-    if family != "llava15":
-        raise NotImplementedError(
-            f"model_family={family!r} is not ported to rlaifv_tpu_torch yet: "
-            "ROADMAP.md 'Modules to port' #9 (OmniLMM-12B family)")
-    cfg, model = build_llava(config, _device())
-    spec = get_family(family)
+    spec = get_family(family)  # families other than llava15 raise
+    cfg, model = build_llava(config, device)
     print(f"[train] loading checkpoint {config.model.model_name_or_path}", flush=True)
     load_jax_params(model, load_llava_checkpoint(
         config.model.model_name_or_path, dtype=np.float32,
@@ -85,7 +74,26 @@ def run_config(config) -> int:
     proc = spec.image_processor(cfg.vision.image_size)
     mm_cfg = spec.mm_cfg(proc, cfg.num_image_tokens)
     mm_cfg["is_multimodal"] = config.data.is_multimodal
-    dataset = DPODataset(tokenizer, config.data.data_dir, mm_cfg,
+
+    def score_fn(data_dir):
+        # lazy reference-logp precompute on the frozen starting policy
+        import pyarrow.parquet as pq
+
+        raw = [f for f in os.listdir(data_dir)
+               if f.endswith(".parquet") and "logp" not in f]
+        if not raw:
+            raise FileNotFoundError(f"no raw parquet rows in {data_dir} to score")
+        rows = []
+        for f in sorted(raw):
+            rows.extend(pq.read_table(os.path.join(data_dir, f)).to_pylist())
+        # the train step's head keeps policy == reference => loss = ln 2 exact
+        t = config.training
+        inference_logp(rows, model, tokenizer, data_dir, max_len=config.data.max_len,
+                       num_patches=cfg.num_image_tokens, image_processor=proc,
+                       lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                       compact_len=int(t.compact_len), family=family)
+
+    dataset = DPODataset(tokenizer, config.data.data_dir, mm_cfg, score_fn=score_fn,
                          preprocess_func=spec.preprocess_func)
     collator = DPOCollator(
         pad_token_id=tokenizer.pad_token_id, max_len=config.data.max_len,
@@ -98,16 +106,15 @@ def run_config(config) -> int:
     return steps
 
 
-def run_demo(config) -> int:
+def run_demo(config, device) -> int:
     """Tiny synthetic end-to-end run (random weights, seed 0)."""
-    from rlaifv_tpu.data.collator import DPOCollator
+    from rlaifv_tpu_torch.data.collator import DPOCollator
     from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
     from rlaifv_tpu_torch.train.trainer import DPOTrainer
     from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
 
     cfg = LlavaConfig.tiny()
     pairs = synth_preference_pairs(cfg, 16, answer_len=12, question_len=8)
-    device = _device()
     model = init_weights_(LlavaForCausalLM(cfg, device=device),
                           torch.Generator(device=device).manual_seed(0))
     config.training.max_steps = min(config.training.max_steps, 8)
@@ -129,7 +136,10 @@ def main(argv=None):
                     help="tiny synthetic end-to-end run (no checkpoint needed)")
     ap.add_argument("--output-dir", type=str, default=None)
     ap.add_argument("--max-steps", type=int, default=None)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the card (default) or, when asked, the CPU")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
 
     from rlaifv_tpu_torch.core.config import Config
 
@@ -138,7 +148,7 @@ def main(argv=None):
         config.training.output_dir = args.output_dir
     if args.max_steps:
         config.training.max_steps = args.max_steps
-    return run_demo(config) if args.demo else run_config(config)
+    return run_demo(config, device) if args.demo else run_config(config, device)
 
 
 if __name__ == "__main__":

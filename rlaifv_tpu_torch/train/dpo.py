@@ -12,7 +12,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from rlaifv_tpu.constants import IGNORE_INDEX
+from rlaifv_tpu_torch.constants import IGNORE_INDEX
 
 
 class BatchLogps(NamedTuple):
@@ -45,12 +45,19 @@ def get_batch_logps(logits: torch.Tensor, labels: torch.Tensor, *,
     return BatchLogps(per_token, total, total / mask.sum(-1))
 
 
-def get_batch_logps_from_hidden(hidden, lm_head_weight, labels, *, shift=True):
-    """The fused LM-head path (Pallas kernels #13-#15 on the TPU)."""
-    raise NotImplementedError(
-        "the fused LM head (lm_head_impl='fused') is not ported to "
-        "rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #7 (fused LM head)"
-    )
+def get_batch_logps_from_hidden(hidden: torch.Tensor, lm_head_weight: torch.Tensor,
+                                labels: torch.Tensor, *,
+                                shift: bool = True) -> BatchLogps:
+    """get_batch_logps from the pre-head hidden states through the fused
+    head (ops/fused_head.py; the CUDA kernels on the card): the (B, L, V)
+    logits are never materialised. lm_head_weight is the torch (V, H)
+    weight. Same contract and outputs as get_batch_logps(logits, labels)."""
+    from rlaifv_tpu_torch.ops.fused_head import fused_target_logp
+
+    safe_tgt, mask = _targets(labels, shift)
+    per_token = fused_target_logp(hidden[:, :-1, :], lm_head_weight, safe_tgt) * mask
+    total = per_token.sum(-1)
+    return BatchLogps(per_token, total, total / mask.sum(-1))
 
 
 class CompactLogps(NamedTuple):

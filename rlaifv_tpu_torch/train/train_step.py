@@ -4,7 +4,7 @@ cached reference logps -> gradients -> AdamW update.
 Counterpart of rlaifv_tpu/train/train_step.py on one card: the same
 `DPOHparams`, the same host-side shared-prefix helpers, the same forward
 variants (plain concatenated, shared-prefix paired, KTO, text-only; the
-"xla" and "compact" heads) and an optimizer that reproduces optax's
+"xla", "compact" and "fused" heads) and an optimizer that reproduces optax's
 `chain(clip_by_global_norm, adamw(mask=wd_mask))` update for update.
 
 The vision tower runs once per image (B) and its features are tiled over
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rlaifv_tpu.constants import IGNORE_INDEX
+from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.models.convert import flax_leaf_names
 from rlaifv_tpu_torch.models.llava import splice_image_features
 from rlaifv_tpu_torch.train.dpo import (
@@ -44,7 +44,8 @@ class DPOHparams:
     dpo_weight: float = 1.0
     logp_shift: bool = True  # False for the MiniCPM label alignment
     # "xla": logits then the logp math; "compact": the head only on the
-    # <= compact_len loss positions; "fused": ROADMAP #7, raises
+    # <= compact_len loss positions; "fused": the fused head kernels
+    # (ops/fused_head.py), no (2B, L, V) logits
     lm_head_impl: str = "xla"
     compact_len: int = 0
     # > 0: win/rej share the first shared_prefix_len tokens, and the prefix
@@ -243,7 +244,7 @@ def dpo_forward_logps(model: LlavaDPOAdapter, batch: Dict, hp: DPOHparams
         lp = get_batch_logps_compact(out, model.lm_head_weight(), labels,
                                      n_pos=hp.compact_len, shift=hp.logp_shift)
         aux["compact_overflow"] = lp.overflow.max()
-    elif fused:  # ROADMAP #7: raises
+    elif fused:
         lp = get_batch_logps_from_hidden(out, model.lm_head_weight(), labels,
                                          shift=hp.logp_shift)
     else:

@@ -21,7 +21,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from rlaifv_tpu.utils.prefetch import prefetch_iterator
+from rlaifv_tpu_torch.utils.prefetch import prefetch_iterator
 from rlaifv_tpu_torch.core.checkpoint import CheckpointManager, has_resumable_checkpoint
 from rlaifv_tpu_torch.core.config import Config
 from rlaifv_tpu_torch.train.train_step import (
@@ -63,20 +63,13 @@ class MetricLogger:
 
 def resolve_head(training, hidden_size: int) -> str:
     """lm_head_impl "auto" follows the JAX trainer's rule: "compact" when
-    compact_len > 0, else "fused" at hidden_size >= 2048 (7B+), else "xla".
-    The fused head is not ported, so picking it raises."""
+    compact_len > 0, else "fused" at hidden_size >= 2048 (7B+), else "xla"."""
     head = getattr(training, "lm_head_impl", "auto")
     if head == "auto":
         if int(getattr(training, "compact_len", 0)) > 0:
             head = "compact"
         else:
             head = "fused" if hidden_size >= 2048 else "xla"
-    if head == "fused":
-        raise NotImplementedError(
-            "lm_head_impl='fused' (what 'auto' picks at hidden_size >= 2048) is "
-            "not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' "
-            "#7 (fused LM head); set training.lm_head_impl to 'xla' or 'compact'"
-        )
     return head
 
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from rlaifv_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from rlaifv_tpu_torch.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
 
 def synth_preference_pairs(cfg, n_pairs: int, *, answer_len: int = 96,

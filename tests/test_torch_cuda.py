@@ -10,7 +10,10 @@ bf16 inputs; outputs are checked as |kernel - plain| <= 1e-2 + 1e-2 |plain|
 probabilities to bf16 for the P.V product), lse at 1e-3 abs (fp32). The
 backward kernels' dq, dk, dv: max|kernel - plain| <= 2e-2 max|plain| per
 gradient (P and dS are rounded to bf16 for the products and the outputs
-are bf16: about one bf16 ulp of the largest entry).
+are bf16: about one bf16 ulp of the largest entry). The fused LM head:
+logp and lse within 2e-4 nats (fp32 sums of the same bf16 products in
+other orders); dx and dW elementwise within 2^-6 |plain| + 1e-5 max|plain|
+(both round dl to bf16 and the fp32 sums to bf16 once: an ulp or two).
 """
 import pytest
 import torch
@@ -24,6 +27,13 @@ from rlaifv_tpu_torch.ops.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_ref,
     flash_attention_ref,
+)
+from rlaifv_tpu_torch.ops.fused_head import (
+    fused_head_bwd,
+    fused_head_bwd_plain,
+    fused_head_fwd,
+    fused_head_fwd_plain,
+    fused_target_logp,
 )
 
 pytestmark = pytest.mark.cuda
@@ -217,3 +227,59 @@ def test_tiny_slice_kernels_match_dense_path(gen):
     scale = plain_logits.abs().max().item()
     assert (fast_logits - plain_logits).abs().max().item() <= 5e-2 * scale
     assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale
+
+
+def _head_case(gen, M, H, V):
+    x = torch.randn(M, H, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(V, H, generator=gen, device="cuda")).to(torch.bfloat16)
+    y = torch.randint(0, V, (M,), generator=gen, device="cuda", dtype=torch.int32)
+    return x, w, y, torch.randn(M, generator=gen, device="cuda")
+
+
+def _grad_close(got, ref):
+    got, ref = got.float(), ref.float()
+    assert torch.isfinite(got).all()
+    bad = (got - ref).abs() - (2 ** -6 * ref.abs() + 1e-5 * ref.abs().max())
+    assert bad.max().item() <= 0, bad.max().item()
+
+
+@pytest.mark.parametrize("M,H,V", [
+    (2046, 4096, 32000),  # the 7B train step's head
+    (2046, 1024, 32000),  # H <= 2048: the TPU's single-pass row 13
+    (130, 4096, 32001),   # ragged rows and one valid column in the last tile
+    (77, 128, 300),       # tiny, every edge ragged
+    (1, 64, 64),          # one row, one tile
+])
+def test_fused_head_kernels_match_plain(gen, M, H, V):
+    x, w, y, g = _head_case(gen, M, H, V)
+    logp, lse = fused_head_fwd(x, w, y)
+    ref_logp, ref_lse = fused_head_fwd_plain(x, w, y)
+    assert (logp - ref_logp).abs().max().item() <= 2e-4
+    assert (lse - ref_lse).abs().max().item() <= 2e-4
+    dx, dw = fused_head_bwd(x, w, y, ref_lse, g)
+    ref_dx, ref_dw = fused_head_bwd_plain(x, w, y, ref_lse, g)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    _grad_close(dx, ref_dx)
+    _grad_close(dw, ref_dw)
+    # no atomics: a rerun gives the same bits
+    assert torch.equal(fused_head_bwd(x, w, y, ref_lse, g)[1], dw)
+    assert torch.equal(fused_head_fwd(x, w, y)[0], logp)
+
+
+def test_fused_head_autograd_counts_its_launches(gen):
+    x, w, y, g = _head_case(gen, 300, 256, 1000)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    n0 = (fused_target_logp.fwd_launches, fused_target_logp.dx_launches,
+          fused_target_logp.dw_launches)
+    (fused_target_logp(x.view(3, 100, 256), w, y.view(3, 100)).reshape(-1) * g).sum().backward()
+    assert (fused_target_logp.fwd_launches - n0[0], fused_target_logp.dx_launches - n0[1],
+            fused_target_logp.dw_launches - n0[2]) == (1, 1, 1)
+    _, lse = fused_head_fwd_plain(x.detach(), w.detach(), y)
+    ref_dx, ref_dw = fused_head_bwd_plain(x.detach(), w.detach(), y, lse, g)
+    _grad_close(x.grad, ref_dx)
+    _grad_close(w.grad, ref_dw)
+    with pytest.raises(TypeError):
+        fused_head_fwd(x.detach().float(), w.detach(), y)
+    with pytest.raises(ValueError):
+        fused_head_fwd(x.detach()[:, :100], w.detach()[:, :100], y)

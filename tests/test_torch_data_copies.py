@@ -1,0 +1,211 @@
+"""The port's copies of the JAX package's numpy modules give the originals'
+outputs on the same inputs.
+
+rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
+`utils/prefetch`, the llava15 `train/family` spec and the HF-checkpoint
+loader of `models/convert` (it imports nothing of rlaifv_tpu). Each case
+runs one piece of both packages and compares the results exactly: the
+copies are the same numpy code.
+"""
+import io
+import os
+from functools import partial
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _deep_equal(a, b, path="out"):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and set(a) == set(b), (path, set(a) ^ set(b))
+        for k in a:
+            _deep_equal(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _deep_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=path)
+    elif hasattr(a, "__dataclass_fields__"):
+        _deep_equal(vars(a), vars(b), path)
+    else:
+        assert a == b, (path, a, b)
+
+
+def _pairs(c, rng):
+    """(rej, win) pairs with an image sentinel, as the collator takes them."""
+    out = []
+    for _ in range(3):
+        q = rng.integers(5, 60, 6).tolist()
+        image = rng.normal(size=(14, 14, 3)).astype(np.float32)
+
+        def side(n):
+            ans = rng.integers(5, 60, n).tolist()
+            ids = [1, *q[:3], c.IMAGE_TOKEN_INDEX, *q[3:], *ans, 2]
+            labels = [c.IGNORE_INDEX] * (len(ids) - n - 1) + ans + [2]
+            return {"input_ids": np.asarray(ids), "labels": np.asarray(labels),
+                    "image": image, "ref_win_logp": -1.0, "ref_win_avg_logp": -0.1,
+                    "ref_rej_logp": -2.0, "ref_rej_avg_logp": -0.2}
+
+        win = side(int(rng.integers(3, 9)))
+        out.append((side(int(rng.integers(3, 9))), win))
+    return out
+
+
+def case_constants(pkg):
+    c = pkg("constants")
+    return {k: v for k, v in vars(c).items() if k.isupper()}
+
+
+def case_collator(pkg):
+    c = pkg("constants")
+    coll = pkg("data.collator").DPOCollator(pad_token_id=0, max_len=64, num_patches=4,
+                                            beta=0.1)
+    return coll(_pairs(c, np.random.default_rng(0)))
+
+
+def case_conversation(pkg):
+    conv_lib = pkg("data.conversation")
+    out = {}
+    for name in sorted(conv_lib.conv_templates):
+        conv = conv_lib.conv_templates[name].copy()
+        conv.append_message(conv.roles[0], "<image>\nWhat is this?")
+        conv.append_message(conv.roles[1], None)
+        out[name] = conv.get_prompt()
+    return out
+
+
+def case_preprocess_v1(pkg):
+    from tests.fake_tokenizer import FakeTokenizer
+
+    pre = pkg("data.preprocess")
+    src = {"question": {"from": "human", "value": "<image>\nWhat is in the image?"},
+           "chosen": {"from": "gpt", "value": "A cat on a mat."},
+           "rejected": {"from": "gpt", "value": "A dog under a hat."}}
+    mm = {"is_multimodal": True, "image_token_len": 4, "use_im_start_end": False,
+          "keep_image_tag": True}
+    return pre.encode_preference_sample(src, FakeTokenizer(), mm,
+                                        preprocess_func=partial(pre.preprocess_v1,
+                                                                has_image=True))
+
+
+def case_multimodal(pkg):
+    from tests.fake_tokenizer import FakeTokenizer
+
+    mm = pkg("data.multimodal")
+    c = pkg("constants")
+    ids = mm.tokenizer_image_token("USER: <image>\nHi there ASSISTANT:", FakeTokenizer())
+    labels = np.full(len(ids), c.IGNORE_INDEX)
+    return ids, mm.expand_image_sentinels(np.asarray(ids), labels, 5, 64)
+
+
+def case_diff_lib(pkg):
+    d = pkg("data.diff_lib")
+    return d.get_diff_ids([1, 2, 3, 4, 5, 6], [1, 2, 9, 9, 5, 6, 7])
+
+
+def case_clip_preprocessor(pkg):
+    ip = pkg("data.image_processing")
+    raw = (ROOT / "examples" / "test.jpeg").read_bytes()
+    return {aspect: ip.ClipImageProcessor(image_size=336, aspect_ratio=aspect)(raw)
+            for aspect in ("pad", "square")}
+
+
+def case_shard_indices(pkg):
+    ds = pkg("data.datasets")
+    return ([list(ds.shard_indices(n, w, r)) for n in (0, 7, 10) for w in (1, 3)
+             for r in range(w)],
+            [ds.chunk_indices(10, 3, i) for i in range(3)])
+
+
+def case_parquet_round_trip(pkg, tmp_path):
+    """write_logp_parquet, then the lazy-cache reader and DPODataset."""
+    from PIL import Image
+
+    from tests.fake_tokenizer import FakeTokenizer
+
+    ds = pkg("data.datasets")
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(3):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (20, 24, 3), dtype=np.uint8)).save(
+            buf, format="PNG")
+        rows.append({"idx": str(i), "question": f"What is {i}?", "chosen": "A cat.",
+                     "rejected": "A dog.", "image": {"bytes": buf.getvalue(),
+                                                     "path": f"{i}.png"}})
+    logps = [[-1.0 * i, -0.5, [-0.5, -0.5], -2.0, -1.0, [-1.0, -1.0]] for i in range(3)]
+    d = tmp_path / pkg.__name__
+    written = [os.path.basename(p) for p in ds.write_logp_parquet(rows, str(d), logps,
+                                                                   rows_per_file=2)]
+    mm = {"is_multimodal": True, "image_token_len": 4, "use_im_start_end": False,
+          "image_processor": pkg("data.image_processing").ClipImageProcessor(image_size=14)}
+    data = ds.DPODataset(FakeTokenizer(), str(d), mm)
+    return written, [data[i] for i in range(len(data))]
+
+
+def case_family_spec(pkg):
+    from tests.fake_tokenizer import FakeTokenizer
+
+    fam = pkg("train.family").get_family("llava15")
+    c = pkg("constants")
+    inst = {"input_ids": np.asarray([1, 5, c.IMAGE_TOKEN_INDEX, 6, 7, 2]),
+            "labels": np.asarray([c.IGNORE_INDEX] * 4 + [7, 2])}
+    mm = fam.mm_cfg(None, 4)
+    return ({k: getattr(fam, k) for k in ("name", "keep_image_tag", "use_im_start_end",
+                                          "expand_images_in_collator",
+                                          "default_image_size", "image_aspect")},
+            mm, fam.collator_kwargs(FakeTokenizer()),
+            fam.expand_inst(inst, 4, 32, FakeTokenizer()),
+            vars(fam.image_processor()), fam.preprocess_func.keywords)
+
+
+def case_checkpoint_loader(pkg, tmp_path):
+    from tests.test_loader_variants import _make_tiny_llava_sd
+
+    d = tmp_path / "ckpt"
+    if not d.exists():
+        _make_tiny_llava_sd(str(d))
+    conv = pkg("models.convert")
+    return conv.load_llava_checkpoint(str(d), vision_layers_to_run=1), \
+        conv.load_image_newline(str(d))
+
+
+def case_file_io_and_prefetch(pkg, tmp_path):
+    fio = pkg("utils.file_io")
+    path = str(tmp_path / f"{pkg.__name__}.jsonl")
+    fio.write_jsonlines(path, [{"a": 1}, {"b": [2, 3]}])
+    return fio.read_jsonlines(path), fio.read_json_or_jsonlines(path), \
+        list(pkg("utils.prefetch").prefetch_iterator(iter(range(7)), depth=2))
+
+
+CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
+
+
+def _package(root):
+    import importlib
+
+    def get(name):
+        return importlib.import_module(f"{root}.{name}")
+
+    get.__name__ = root
+    return get
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_copy_matches_the_original(case, tmp_path):
+    fn = CASES[case]
+    kw = {"tmp_path": tmp_path} if "tmp_path" in fn.__code__.co_varnames else {}
+    got = fn(_package("rlaifv_tpu_torch"), **kw)
+    want = fn(_package("rlaifv_tpu"), **kw)
+    _deep_equal(got, want)
+
+
+def test_the_data_layer_the_scripts_import_is_the_ports_own():
+    from rlaifv_tpu_torch import data
+
+    for cls in (data.DPOCollator, data.ClipImageProcessor):
+        assert cls.__module__.startswith("rlaifv_tpu_torch.data."), cls.__module__

@@ -123,6 +123,13 @@ def test_dpo_metrics_match_jax():
 
 
 def test_fused_head_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="#7"):
-        tdpo.get_batch_logps_from_hidden(torch.zeros(1, 2, 4), torch.zeros(5, 4),
-                                         torch.zeros(1, 2, dtype=torch.long))
+    """The fused head is ported (tests/test_torch_fused_head.py holds it to
+    the JAX kernels); what its CUDA kernels do not take raises naming the
+    condition before any launch: bf16 operands, H a multiple of 64."""
+    from rlaifv_tpu_torch.ops.fused_head import _check
+
+    y = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="bf16"):
+        _check(torch.zeros(2, 64), torch.zeros(5, 64), y)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        _check(torch.zeros(2, 4, dtype=torch.bfloat16), torch.zeros(5, 4, dtype=torch.bfloat16), y)

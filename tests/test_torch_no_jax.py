@@ -1,11 +1,14 @@
-"""rlaifv_tpu_torch imports no JAX (nor triton) and builds nothing at import.
+"""rlaifv_tpu_torch imports no JAX, nothing of the JAX package and no
+triton, and builds nothing at import.
 
-A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax` and `triton`
-with a sys.meta_path finder, imports every module of the package, runs the
-tiny serving slice on the CPU (random weights from a seeded generator),
-runs `python -m rlaifv_tpu_torch.train --demo` for 2 steps into a
-temporary directory, imports chip_smoke.py, and checks that no CUDA kernel
-library was built or loaded.
+A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
+the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
+module of the port, runs the tiny serving slice on the CPU (random weights
+from a seeded generator), runs `python -m rlaifv_tpu_torch.train --demo
+--device cpu` for 2 steps into a temporary directory, imports
+chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
+An AST scan finds no import statement rooted at those names in any file of
+the port or in chip_smoke.py.
 """
 import ast
 import subprocess
@@ -13,12 +16,14 @@ import sys
 import textwrap
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "rlaifv_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -63,7 +68,7 @@ SCRIPT = textwrap.dedent("""
     import json, os, runpy
     out = sys.argv[1]
     sys.argv = ["rlaifv_tpu_torch.train", "--demo", "--output-dir", out,
-                "--max-steps", "2"]
+                "--max-steps", "2", "--device", "cpu"]
     runpy.run_module("rlaifv_tpu_torch.train", run_name="__main__")
     steps = [json.loads(line)["step"] for line in open(os.path.join(out, "metrics.jsonl"))]
     assert steps == [1, 2], steps
@@ -89,16 +94,31 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     assert int(last.split()[1]) >= 15  # every module was imported
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py drives the port alone: no import statement in it names
-    JAX or the JAX package; the shared numpy data code comes through
-    rlaifv_tpu_torch.data."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _import_roots(path: Path) -> set:
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             roots |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom) and node.module:
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
             roots.add(node.module.split(".")[0])
-    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "rlaifv_tpu"}, roots
+    return roots
+
+
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "rlaifv_tpu"}
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py drives the port alone: no import statement in it names
+    JAX or the JAX package."""
+    roots = _import_roots(ROOT / "chip_smoke.py")
+    assert not roots & FORBIDDEN, roots
     assert "rlaifv_tpu_torch" in roots
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "rlaifv_tpu_torch").rglob("*.py")))
+def test_no_import_is_rooted_at_jax_or_the_jax_package(path):
+    """Every import statement of the port, at module level or inside a
+    function."""
+    roots = _import_roots(ROOT / path)
+    assert not roots & FORBIDDEN, (path, roots & FORBIDDEN)

@@ -124,6 +124,11 @@ VARIANTS = {
     "average-sft": ("batch", dict(dpo_use_average=True, sft_weight=0.3), False),
     "token-weighted": ("batch", dict(dpo_token_weighted=True, shared_prefix_len="derive"), False),
     "compact": ("batch", dict(lm_head_impl="compact", compact_len=16), False),
+    # the fused head: the JAX side runs its Pallas kernels in interpret mode
+    "fused": ("batch", dict(lm_head_impl="fused"), False),
+    "fused-paired": ("batch", dict(lm_head_impl="fused", shared_prefix_len="derive"), False),
+    "fused-remat-paired": ("batch", dict(lm_head_impl="fused", shared_prefix_len="derive"),
+                           True),
     "text-only": ("text", dict(), False),
     "text-only-paired": ("text", dict(shared_prefix_len="derive"), False),
     "remat-plain": ("batch", dict(), True),
@@ -289,14 +294,23 @@ def test_weight_decay_mask_follows_the_jax_leaf_names(setup):
 
 
 def test_paired_rejects_bad_lengths_and_the_fused_head(setup):
+    """A shared prefix as long as the batch raises; the fused head computes
+    the "xla" head's loss and head gradient (fp32, LOSS_ATOL / GRAD_ATOL)."""
     model = _torch_model(setup["params"])
     adapter = tts.LlavaDPOAdapter(model)
     batch = tts.batch_to_device(setup["batch"], "cpu")
     L = batch["input_ids"].shape[1]
     with pytest.raises(ValueError, match="shared_prefix_len"):
         tts.dpo_loss_from_batch(adapter, batch, tts.DPOHparams(shared_prefix_len=L))
-    with pytest.raises(NotImplementedError, match="#7"):
-        tts.dpo_loss_from_batch(adapter, batch, tts.DPOHparams(lm_head_impl="fused"))
+    out = {}
+    for head in ("xla", "fused"):
+        model.zero_grad(set_to_none=True)
+        loss, _ = tts.dpo_loss_from_batch(adapter, batch, tts.DPOHparams(lm_head_impl=head))
+        loss.backward()
+        out[head] = (float(loss.detach()), model.llm.lm_head.weight.grad.clone())
+    np.testing.assert_allclose(out["fused"][0], out["xla"][0], atol=LOSS_ATOL)
+    np.testing.assert_allclose(out["fused"][1].numpy(), out["xla"][1].numpy(),
+                               atol=GRAD_ATOL, rtol=GRAD_RTOL)
 
 
 @pytest.mark.parametrize("case", ["clean", "diverges", "image-span", "drops-labels"])

@@ -3,8 +3,9 @@
 Ports of tests/test_trainer.py's loop tests (runs and checkpoints, resumes,
 accumulates gradients, re-derives the shared prefix on a shorter batch) on
 the tiny LLaVA with random weights from a seeded generator, the
-`--config` entry point on a tiny HF checkpoint whose reference logps the
-JAX package wrote, and the pieces that raise for what is not ported.
+`--config` entry point on a tiny HF checkpoint (with reference logps the
+JAX package wrote, and with none, which the port then precomputes), the
+`--device` rule, and the pieces that raise for what is not ported.
 Parameters are compared exactly (a restore copies the saved tensors bit
 for bit).
 """
@@ -16,9 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from rlaifv_tpu.data.collator import DPOCollator
 from rlaifv_tpu_torch.core.checkpoint import CheckpointManager, has_resumable_checkpoint
 from rlaifv_tpu_torch.core.config import Config
+from rlaifv_tpu_torch.data.collator import DPOCollator
 from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
 from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
 from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
@@ -188,22 +189,34 @@ def test_non_finite_loss_stops_the_run(data, tmp_path):
 
 
 def test_what_is_not_ported_raises(data, tmp_path):
-    """The 7B "auto" head is the fused one (#7), LoRA is #5, and a config
-    run needs the reference-logp parquet files (#4)."""
+    """The 7B "auto" head is the fused one (ported); LoRA is #5 and the
+    OmniLMM family #9."""
     training = Config().training
-    with pytest.raises(NotImplementedError, match="#7"):
-        resolve_head(training, 4096)
+    assert resolve_head(training, 4096) == "fused"
     assert resolve_head(training, 64) == "xla"
     pairs, coll = data
     with pytest.raises(NotImplementedError, match="#5"):
         DPOTrainer(_config(tmp_path, use_lora=True), _model(), pairs, coll)
     from rlaifv_tpu_torch.train.__main__ import main
 
-    cfg = {"data": {"data_dir": str(tmp_path / "no_logps")},
+    cfg = {"model": {"model_family": "omnilmm"},
            "training": {"output_dir": str(tmp_path / "out")}}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="#4"):
-        main(["--config", str(tmp_path / "cfg.json")])
+    with pytest.raises(NotImplementedError, match="#9"):
+        main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
+
+
+def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    """Without a visible card and without --device cpu the entry point
+    stops with an error before it builds anything."""
+    from rlaifv_tpu_torch.train import __main__ as tmain
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(tmain, "run_demo", lambda *a: pytest.fail("ran without a card"))
+    with pytest.raises(SystemExit) as exc:
+        tmain.main(["--demo", "--output-dir", str(tmp_path)])
+    assert exc.value.code != 0 and "--device cpu" in str(exc.value.code)
+    assert tmain.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_config_files_load_unchanged():
@@ -238,19 +251,45 @@ def _tiny_tokenizer(d):
     return fast
 
 
+def _tiny_dims():
+    """The geometry of tests/test_loader_variants.py's tiny checkpoint."""
+    llm = dict(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=2,
+               num_heads=2, num_kv_heads=2)
+    vision = dict(image_size=14, patch_size=7, hidden_size=16, intermediate_size=32,
+                  num_layers=2, num_heads=2)
+    return llm, vision
+
+
+def _tiny_rows():
+    """Four raw RLAIF-V rows in the tiny tokenizer's words, seeded PNGs."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for i in range(4):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (20, 24, 3), dtype=np.uint8)).save(
+            buf, format="PNG")
+        rows.append({"idx": str(i), "question": "why did the car stop",
+                     "chosen": "red light", "rejected": f"a user {'stop ' * (i + 1)}",
+                     "image": {"bytes": buf.getvalue(), "path": f"{i}.png"},
+                     "image_path": f"{i}.png", "origin_dataset": "tiny",
+                     "origin_split": "{}"})
+    return rows
+
+
 def test_config_run_from_a_checkpoint_and_jax_reference_logps(tmp_path, monkeypatch):
     """`python -m rlaifv_tpu_torch.train --config` end to end on a tiny HF
     checkpoint: the JAX package precomputes the reference logps into the
-    dataset directory (the step the port does not have yet, ROADMAP #4),
+    dataset directory (the port's own precompute is the next test),
     the port loads the same checkpoint through the numpy converter and the
     bridge, and trains 2 steps. Policy == reference at step 1, so its loss
     is ln 2 up to the two packages' fp32 differences (atol 1e-4: logps of
     ~-100 agree to ~1e-5 relative)."""
-    import io
-
     import jax
     import jax.numpy as jnp
-    from PIL import Image
 
     from rlaifv_tpu.data.image_processing import ClipImageProcessor
     from rlaifv_tpu.models.clip_vit import CLIPVisionConfig as JCLIP
@@ -267,24 +306,10 @@ def test_config_run_from_a_checkpoint_and_jax_reference_logps(tmp_path, monkeypa
     ckpt, data = str(tmp_path / "ckpt"), str(tmp_path / "data")
     _make_tiny_llava_sd(ckpt)
     tok = _tiny_tokenizer(ckpt)
-    llm = dict(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=2,
-               num_heads=2, num_kv_heads=2)
-    vision = dict(image_size=14, patch_size=7, hidden_size=16, intermediate_size=32,
-                  num_layers=2, num_heads=2)
+    llm, vision = _tiny_dims()
     jcfg = JLlavaConfig(llm=JLlama(**llm), vision=JCLIP(**vision))
     n_img = jcfg.num_image_tokens
-
-    rng = np.random.default_rng(0)
-    rows = []
-    for i in range(4):
-        buf = io.BytesIO()
-        Image.fromarray(rng.integers(0, 255, (20, 24, 3), dtype=np.uint8)).save(
-            buf, format="PNG")
-        rows.append({"idx": str(i), "question": "why did the car stop",
-                     "chosen": "red light", "rejected": f"a user {'stop ' * (i + 1)}",
-                     "image": {"bytes": buf.getvalue(), "path": f"{i}.png"},
-                     "image_path": f"{i}.png", "origin_dataset": "tiny",
-                     "origin_split": "{}"})
+    rows = _tiny_rows()
     proc = ClipImageProcessor(image_size=14)
     params = load_llava_checkpoint(ckpt, vision_layers_to_run=jcfg.vision.layers_to_run)
     inference_logp(rows, JLlava(jcfg), jax.tree.map(jnp.asarray, params), tok, data,
@@ -300,10 +325,79 @@ def test_config_run_from_a_checkpoint_and_jax_reference_logps(tmp_path, monkeypa
                         "learning_rate": 1e-3, "warmup_ratio": 0.0,
                         "lm_head_impl": "xla", "shared_prefix_len": -1}}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    assert tmain.main(["--config", str(tmp_path / "cfg.json")]) == 2
+    assert tmain.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"]) == 2
     logged = [json.loads(x) for x in open(out / "metrics.jsonl")]
     steps = [m for m in logged if "loss" in m]
     assert [m["step"] for m in steps] == [1, 2]
     assert logged[0]["derived_shared_prefix_len"] > n_img  # the paired path ran
     np.testing.assert_allclose(steps[0]["loss"], np.log(2.0), atol=1e-4)
     assert os.listdir(out / "checkpoints") == ["2"]
+
+
+def test_config_run_precomputes_reference_logps(tmp_path, monkeypatch):
+    """`python -m rlaifv_tpu_torch.train --config ... --device cpu` on a
+    dataset directory of raw parquet rows without logp files: the port
+    scores them with the frozen starting policy (shared-prefix path, the
+    fused head for rows that cannot share), writes the logp parquet in the
+    JAX package's layout and values (atol 1e-4 on sums, 1e-5 per token:
+    fp32 in both, other summation orders), and trains on it with the fused
+    head; policy == reference at step 1, so the loss is ln 2 (atol 1e-4)."""
+    import pandas as pd
+
+    from rlaifv_tpu.models.llava import LlavaConfig as JLlavaConfig
+    from rlaifv_tpu.models.llava import LlavaForCausalLM as JLlava
+    from rlaifv_tpu.train.ref_logp import inference_logp
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+    from rlaifv_tpu_torch.models.convert import load_llava_checkpoint
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.train import __main__ as tmain
+    from tests.test_loader_variants import _make_tiny_llava_sd
+
+    ckpt, data, jdata = (str(tmp_path / d) for d in ("ckpt", "data", "jdata"))
+    _make_tiny_llava_sd(ckpt)
+    tok = _tiny_tokenizer(ckpt)
+    llm, vision = _tiny_dims()
+    rows = _tiny_rows()
+    os.makedirs(data)
+    pd.DataFrame(rows).to_parquet(os.path.join(data, "raw-000.parquet"))
+
+    tcfg = LlavaConfig(llm=LlamaConfig(**llm), vision=CLIPVisionConfig(**vision))
+    monkeypatch.setattr(tmain, "build_llava", lambda config, device: (
+        tcfg, LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu")))
+    out = tmp_path / "out"
+    cfg = {"model": {"model_name_or_path": ckpt},
+           "data": {"data_dir": data, "max_len": 512},
+           "training": {"output_dir": str(out), "max_steps": 2, "save_steps": 2,
+                        "learning_rate": 1e-3, "warmup_ratio": 0.0,
+                        "lm_head_impl": "fused", "shared_prefix_len": -1}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    assert tmain.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"]) == 2
+
+    # the JAX package's precompute on the same checkpoint and rows
+    from rlaifv_tpu.data.image_processing import ClipImageProcessor
+    from rlaifv_tpu.models.clip_vit import CLIPVisionConfig as JCLIP
+    from rlaifv_tpu.models.llama import LlamaConfig as JLlama
+
+    import jax
+    import jax.numpy as jnp
+
+    jcfg = JLlavaConfig(llm=JLlama(**llm), vision=JCLIP(**vision))
+    params = load_llava_checkpoint(ckpt, vision_layers_to_run=jcfg.vision.layers_to_run)
+    inference_logp(rows, JLlava(jcfg), jax.tree.map(jnp.asarray, params), tok, jdata,
+                   max_len=512, num_patches=jcfg.num_image_tokens,
+                   image_processor=ClipImageProcessor(image_size=14),
+                   lm_head_impl="fused")
+    name = "RLAIF-V-Dataset-withlogp_000-4.parquet"
+    assert sorted(f for f in os.listdir(data) if "logp" in f) == [name]
+    got, want = (pd.read_parquet(os.path.join(d, name)) for d in (data, jdata))
+    assert list(got.columns) == list(want.columns)
+    for a, b in zip(got["logps"], want["logps"]):
+        a, b = json.loads(a)["logps"], json.loads(b)["logps"]
+        np.testing.assert_allclose([a[0], a[3]], [b[0], b[3]], atol=1e-4)
+        for k in (1, 2, 4, 5):
+            np.testing.assert_allclose(a[k], b[k], atol=1e-5)
+
+    logged = [json.loads(x) for x in open(out / "metrics.jsonl")]
+    steps = [m for m in logged if "loss" in m]
+    assert [m["step"] for m in steps] == [1, 2]
+    np.testing.assert_allclose(steps[0]["loss"], np.log(2.0), atol=1e-4)
