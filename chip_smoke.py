@@ -48,11 +48,33 @@ Phases, one progress line each (or a few):
      loss near ln 2 at step 0 (bound stated), lower by step 3; step time,
      pairs/s, tokens/s with and without padding, peak memory and every
      kernel's launches per step; then 3 steps with the "xla" head on the
-     same optimizer, for its step time and peak memory beside them.
+     same optimizer, for its step time and peak memory beside them;
+  3d. (run after 3c) the int8 weight kernels (#7 in-kernel quantisation,
+     #8 its dx, #9 and #10 the prequantised pair) against their plain twins
+     at the 7B widths
+     (K x N = 4096 x 4096, 4096 x 11008, 11008 x 4096) and M = 16, 64, 127
+     (in-kernel route), 128 and the M values of phase 9's batches: max abs
+     difference 0, #7 == #9 and #8 == #10; times beside the bound (int8 at
+     1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
+     (product only) and the "dequant" route (a bf16 cuBLAS product of the
+     dequantised weight), and one projection's int8 route against the
+     dequant route (the activation-quantisation error, ~1%);
+  9. the QLoRA slice (configs/llava15_dpo_qlora.json): phase 8's seed-0
+     LLaVA-1.5-7B rebuilt after phase 6 is freed, its LLM projections
+     quantised to int8 on the card (head, CLIP and projector bf16), the
+     reference logps of phase 8's 16 rows and one short row scored on that
+     base (shared-prefix path), step 0 of r=64 / alpha=16 adapters on all 7
+     projections x 32 layers against the same step on the "dequant" route
+     (and the SFT term's gradient on both routes),
+     3 AdamW steps of 8 pairs collated as train.py collates them (loss near
+     ln 2 at step 0, lower by step 2), then one step on the short pair whose
+     suffix has fewer than INT8_DEQUANT_MIN_M rows (#7 and #8 on the train
+     path); step time, pairs/s, tokens/s, peak memory and launches a step.
 
-Each path of the main run (4, 8, 6) starts with every launch counter at 0
-and is read just after; the `kernels` line reports those launches beside
-each kernel's error, times, bound and library time.
+Each path of the main run (4, 8, 6, and 9's precompute, steps and short
+step) starts with every launch counter at 0 and is read just after; the
+`kernels` line reports those launches beside each kernel's error, times,
+bound and library time.
 Any failure raises (non-zero exit). The last two lines are a JSON object of
 per-kernel results and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits non-zero before measuring anything.
@@ -76,6 +98,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from rlaifv_tpu_torch.constants import IGNORE_INDEX  # noqa: E402
 from rlaifv_tpu_torch.core.config import Config  # noqa: E402
 from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import DecodeEngine  # noqa: E402
@@ -86,7 +109,12 @@ from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     LlavaForCausalLM,
     init_weights_,
 )
+from rlaifv_tpu_torch.models.convert import (  # noqa: E402
+    quantize_kernel_int8_torch,
+    quantize_llm_int8,
+)
 from rlaifv_tpu_torch.ops import _build  # noqa: E402
+from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix,
     decode_attention_prefix_ref,
@@ -106,10 +134,13 @@ from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     derive_shared_prefix_len,
     dpo_loss_from_batch,
     make_dpo_train_step,
+    make_lora_dpo_train_step,
     make_optimizer,
+    named_tensors,
     paired_masks,
     validate_shared_prefix,
 )
+from rlaifv_tpu_torch.train.lora import attach_lora, lora_init, lora_scaled  # noqa: E402
 from rlaifv_tpu_torch.train.family import get_family  # noqa: E402
 from rlaifv_tpu_torch.train.ref_logp import _encode_rows, score_preference_rows  # noqa: E402
 from rlaifv_tpu_torch.train.trainer import resolve_head  # noqa: E402
@@ -139,6 +170,7 @@ SLICE_REL_TOL = 5e-2
 PROB_TOL = 1e-3
 HBM_PEAK_GBPS = 3350.0  # H100 SXM data sheet
 PEAK_BF16_TFLOPS = 989.0  # dense bf16 tensor-core rate, H100 SXM data sheet
+PEAK_INT8_TOPS = 1979.0  # dense int8 tensor-core rate, H100 SXM data sheet
 # backward, per gradient: max|kernel - plain| <= BWD_TOL x max|plain|. The
 # kernels round P and dS to bf16 for their products (2^-9 relative each)
 # and write bf16 outputs (one more rounding), while the plain backward
@@ -199,6 +231,33 @@ TOKEN_MEAN_TOL = 0.05
 # the four ~-2700-nat sequence logps within ~2.5e-4 of its reference, the
 # order phase 7 reads between attention paths
 REF_LN2_TOL = 0.1
+# 9: the QLoRA step-0 logps, loss and adapter gradients against the same
+# step on the "dequant" route (the int8 weights dequantised to bf16, no
+# activation quantisation). Rowwise int8 quantisation rounds each entry of
+# a row to a step of max|row| / 127: for Gaussian-like rows (max ~4.5 rms
+# at K = 4096) that is ~1% rms noise on every projection's input in the
+# forward and on every dy * s in the backward, against the ~0.4% of one
+# bf16 rounding. The logps stay within QLORA_LOGP_RTOL (read 6.1e-4) and
+# the losses within LOSS_TOL. The gradients of b at layers 0 and 31 (a and
+# its gradient are 0 at step 0: b starts at 0) collect that noise from
+# every layer between them and the loss, twice (forward activations and
+# backward dy): the SFT term's gradient (the chosen sequences' mean logp,
+# the same step with dpo_weight 0 and sft_weight 1) read rel 0.046-0.25
+# and cosine >= 0.967, the DPO margin's gradient, a difference of the win
+# and rej gradients each several times larger, rel 0.16-0.43 and cosine
+# >= 0.914 (on an H100 80GB HBM3, PERF.md section 6; the same inputs and
+# deterministic kernels repeat these readings). The bounds sit about 1.5x outside them:
+# a scale left out or a dy quantised without its row scale moves rel far
+# past 1, a wrong or dropped dx turns the cosine to ~0
+QLORA_LOGP_RTOL = 5e-3
+# 3d: one projection's int8 route against the dequant route on Gaussian
+# inputs: ~1% (see route_noise), plus bf16 rounding of both outputs
+ROUTE_REL_TOL = 0.03
+QLORA_GRAD_REL_TOL = 0.6
+QLORA_GRAD_COS_MIN = 0.85
+QLORA_SFT_GRAD_REL_TOL = 0.4
+QLORA_SFT_GRAD_COS_MIN = 0.95
+QLORA_LR = 1e-4  # constant: the adapters' b moves off 0 by ~lr a step
 
 
 def _fake_tokenizer():
@@ -225,6 +284,10 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "head_fwd": (fused_target_logp, "fwd_launches"),
     "head_dx": (fused_target_logp, "dx_launches"),
     "head_dw": (fused_target_logp, "dw_launches"),
+    "int8": (qm.int8_matmul, "launches"),
+    "int8_dx": (qm.int8_matmul_dx, "launches"),
+    "int8_prequant": (qm.int8_matmul_prequant, "launches"),
+    "int8_dx_prequant": (qm.int8_matmul_dx_prequant, "launches"),
 }
 
 
@@ -274,11 +337,12 @@ def time_ms(fn, runs: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def bound(flop: float, nbytes: float) -> dict:
+def bound(flop: float, nbytes: float, peak_tera: float = PEAK_BF16_TFLOPS) -> dict:
     """The least time the card could take for the work: the larger of the
-    operations at the bf16 tensor-core peak and the bytes (each input read
-    once, each output written once) at the HBM peak."""
-    t_ops = flop / (PEAK_BF16_TFLOPS * 1e12) * 1e3
+    operations at the tensor-core peak for their type (bf16 unless given)
+    and the bytes (each input read once, each output written once) at the
+    HBM peak."""
+    t_ops = flop / (peak_tera * 1e12) * 1e3
     t_bytes = nbytes / (HBM_PEAK_GBPS * 1e9) * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -793,6 +857,19 @@ def phase_slice_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
         raise AssertionError("slice disagrees with its plain path")
 
 
+def _text(rng, k: int) -> str:
+    chars = np.asarray(list("abcdefghijklmnopqrstuvwxyz     "))
+    return "q" + "".join(rng.choice(chars, k - 2)) + "e"
+
+
+def _raw_row(idx: str, question: str, chosen: str, rejected: str,
+             image_bytes: bytes) -> dict:
+    return {"idx": idx, "question": question, "chosen": chosen, "rejected": rejected,
+            "image": {"bytes": image_bytes, "path": "test.jpeg"},
+            "image_path": "test.jpeg", "origin_dataset": "chip_smoke",
+            "origin_split": "{}"}
+
+
 def synth_rows(image_bytes: bytes, n: int = 16) -> list:
     """n raw RLAIF-V rows (question, chosen, rejected, image) at the train
     pair's geometry: with the character-level tokenizer a 24-token question
@@ -800,18 +877,18 @@ def synth_rows(image_bytes: bytes, n: int = 16) -> list:
     llava_v1 system prompt and the image's 576 slots; random letters and
     spaces, seeded; every row on examples/test.jpeg."""
     rng = np.random.default_rng(0)
-    chars = np.asarray(list("abcdefghijklmnopqrstuvwxyz     "))
+    return [_raw_row(str(i), _text(rng, 24), _text(rng, int(rng.integers(224, 257))),
+                     _text(rng, int(rng.integers(160, 225))), image_bytes)
+            for i in range(n)]
 
-    def text(k):
-        body = "".join(rng.choice(chars, k - 2))
-        return "q" + body + "e"
 
-    return [{"idx": str(i), "question": text(24),
-             "chosen": text(int(rng.integers(224, 257))),
-             "rejected": text(int(rng.integers(160, 225))),
-             "image": {"bytes": image_bytes, "path": "test.jpeg"},
-             "image_path": "test.jpeg", "origin_dataset": "chip_smoke",
-             "origin_split": "{}"} for i in range(n)]
+def short_row(image_bytes: bytes) -> dict:
+    """9's short pair: an 8-token question and answers of 10 and 8 tokens,
+    so that its suffix past the image (question, the assistant tag, the
+    answer), trimmed to the labels, has fewer rows (two of W tokens) than
+    INT8_DEQUANT_MIN_M."""
+    rng = np.random.default_rng(1)
+    return _raw_row("short", _text(rng, 8), _text(rng, 10), _text(rng, 8), image_bytes)
 
 
 def preference_items(rows: list, tok, cfg: LlavaConfig, logps=None) -> list:
@@ -845,14 +922,15 @@ def collate_train_pair(items: list, tok, cfg: LlavaConfig) -> dict:
     return dict(batch_np=batch_np, P=P, training=t)
 
 
-def build_model(cfg: LlavaConfig, device: str = "cuda"):
+def build_model(cfg: LlavaConfig, tag: str = "8 ref-logp", device: str = "cuda"):
     """The model of `cfg` (LLaVA-1.5-7B with remat here), random weights
-    from seed 0: the frozen starting policy of phase 8 and the policy of 6."""
+    from seed 0: the frozen starting policy of phase 8, the policy of 6 and,
+    built again, the base that 9 quantises."""
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
     init_weights_(model, torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[8 ref-logp] LLaVA-1.5-7B bf16, remat on: "
+    log(f"[{tag}] LLaVA-1.5-7B bf16, remat on: "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return model
@@ -1103,6 +1181,331 @@ def phase_train_vs_plain(model, adapter, batch, hp) -> None:
         raise AssertionError("the train slice disagrees with its plain paths")
 
 
+def qlora_batches(rows: list, short: dict, tok, cfg: LlavaConfig, ref=None) -> dict:
+    """9, data: configs/llava15_dpo_qlora.json (int8 base, adapters r 64 /
+    alpha 16, 8 pairs a step, max_len 2048, shared_prefix_len -1) collated
+    as train.py collates it (DPOCollator's bucket 256): the first 8 rows as
+    one batch, its shared prefix derived; and the short row's pair with its
+    suffix trimmed to the labels (shared_suffix_len W, a multiple of 16).
+    `ref`: the reference logps of rows + [short]. The projections' row
+    counts (prefix 8 Pa, suffix 2 x 8 (L - P), short suffix 2 W) follow from
+    the shapes alone, so phase 3d reads them before any logps exist."""
+    c = Config.from_json(str(ROOT / "configs" / "llava15_dpo_qlora.json"))
+    t, n = c.training, cfg.num_image_tokens
+    assert c.model.quantize and c.model.quantize_bits == 8 and t.use_lora
+    assert t.per_device_batch_pairs == 8 and t.shared_prefix_len == -1
+    collator = DPOCollator(pad_token_id=tok.pad_token_id, max_len=c.data.max_len,
+                           num_patches=n, beta=t.dpo_beta,
+                           **get_family("llava15").collator_kwargs(tok))
+    items = preference_items(rows + [short], tok, cfg, ref)
+    batch = collator(items[:t.per_device_batch_pairs])
+    P = derive_shared_prefix_len(batch, n)
+    validate_shared_prefix(batch, P, n)
+    sbatch = collator(items[-1:])
+    Ps = derive_shared_prefix_len(sbatch, n)
+    last = int(np.nonzero((sbatch["labels"] != IGNORE_INDEX).any(axis=0))[0].max()) + 1
+    W = -(-(last - Ps) // 16) * 16
+    validate_shared_prefix(sbatch, Ps, n, suffix_len=W)
+    assert 2 * W < qm.INT8_DEQUANT_MIN_M, (W, qm.INT8_DEQUANT_MIN_M)
+    B, L = t.per_device_batch_pairs, batch["input_ids"].shape[1]
+    return dict(config=c, batch_np=batch, P=P, short_np=sbatch, Ps=Ps, W=W,
+                m_prefix=B * (-(-P // 128) * 128), m_suffix=2 * B * (L - P), m_short=2 * W)
+
+
+def int_mm_ms(a: torch.Tensor, b: torch.Tensor):
+    """torch._int_mm (cuBLASLt, int8 x int8 -> int32) on the same int8
+    operands: the library yardstick of the int8 kernels, product only (no
+    quantisation, no scales), timed here only; None where it refuses the
+    operands (it takes more than 16 rows)."""
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        log(f"[3d int8] torch._int_mm refuses {tuple(a.shape)} x {tuple(b.shape)}: "
+            f"{str(e).splitlines()[0][:120]}")
+        return None
+    return time_ms(lambda: torch._int_mm(a, b))
+
+
+def route_noise(x, dy, q, s, out, dx) -> None:
+    """One projection's int8 route against the "dequant" route on Gaussian
+    x and dy: the activation-quantisation error of a single forward and dx,
+    ~1% of a row's rms for Gaussian rows (a step of max|row| / 127, max ~4.5
+    rms). Phase 9 reads the same noise summed over 32 layers."""
+    rel = [((a.float() - r.float()).norm() / r.float().norm()).item()
+           for a, r in ((out, qm.dequant_matmul(x, q, s)),
+                        (dx, qm.dequant_matmul_dx(dy, q, s)))]
+    ok = max(rel) <= ROUTE_REL_TOL
+    log(f"[3d int8] M={x.shape[0]} K={q.shape[0]} N={q.shape[1]}: int8 route against the "
+        f"dequant route, ||d|| / ||dequant||: forward {rel[0]:.3e} dx {rel[1]:.3e} (tol "
+        f"{ROUTE_REL_TOL}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8 route's quantisation error exceeds its bound")
+
+
+def phase_int8(g, qb: dict) -> dict:
+    """3d: the four int8 kernels against their plain twins (max abs
+    difference 0; #7 == #9, #8 == #10) at the 7B projection widths, with
+    times beside the int8 bound, torch._int_mm and the "dequant" route."""
+    res = {"err": 0.0}
+    ms = sorted({16, 64, 127, 128, qb["m_short"], qb["m_suffix"], qb["m_prefix"]})
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        for M in ms:
+            x, dy = _randn(g, M, K), _randn(g, M, N)
+            q, s = quantize_kernel_int8_torch(
+                0.02 * torch.randn(K, N, generator=g, device="cuda"))
+            xq, sx = qm.quantize_rows(x.float())
+            dyq, sy = qm.quantize_rows(dy.float() * s)
+            sx, sy = sx.reshape(-1), sy.reshape(-1)
+            run = {7: lambda: qm._kernel_fwd(x, q, s),
+                   9: lambda: qm._kernel_prequant(xq, sx, q, s),
+                   8: lambda: qm._kernel_dx(dy, q, s),
+                   10: lambda: qm._kernel_dx_prequant(dyq, sy, q)}
+            out = {k: fn() for k, fn in run.items()}
+            plain = {7: qm.int8_matmul_plain(x, q, s), 8: qm.int8_matmul_dx_plain(dy, q, s)}
+            plain[9], plain[10] = plain[7], plain[8]
+            torch.cuda.synchronize()
+            err = {k: (out[k].float() - plain[k].float()).abs().max().item() for k in out}
+            ok = max(err.values()) == 0 and torch.equal(out[7], out[9]) and \
+                torch.equal(out[8], out[10]) and \
+                all(bool(torch.isfinite(o.float()).all()) for o in out.values())
+            t = {k: time_ms(fn) for k, fn in run.items()}
+            t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
+            t_plain = {7: time_ms(lambda: qm.int8_matmul_plain(x, q, s), 5),
+                       8: time_ms(lambda: qm.int8_matmul_dx_plain(dy, q, s), 5)}
+            t_lib = {7: int_mm_ms(xq, q), 8: int_mm_ms(dyq, q.T)}
+            t_deq = {7: time_ms(lambda: qm.dequant_matmul(x, q, s)),
+                     8: time_ms(lambda: qm.dequant_matmul_dx(dy, q, s))}
+            nbytes = {7: _nbytes(x, q, s, out[7]), 9: _nbytes(xq, sx, q, s, out[9]),
+                      8: _nbytes(dy, q, s, out[8]), 10: _nbytes(dyq, sy, q, out[10])}
+            ops = 2 * M * K * N
+            entry = {}
+            for k in run:
+                ref = 7 if k in (7, 9) else 8
+                entry[k] = dict(ms=t[k], plain_ms=t_plain[ref], library_ms=t_lib[ref],
+                                dequant_ms=t_deq[ref],
+                                **bound(ops, nbytes[k], PEAK_INT8_TOPS))
+            res[(M, K, N)] = entry
+
+            def lib(k):
+                return "refused" if t_lib[k] is None else f"{t_lib[k]:.4f}"
+
+            log(f"[3d int8] M={M} K={K} N={N}: max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
+                f"#8 {err[8]:.1e} #10 {err[10]:.1e} (tol 0), #7==#9 "
+                f"{torch.equal(out[7], out[9])} #8==#10 {torch.equal(out[8], out[10])} | "
+                + " ".join(f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s "
+                           f"(bound {entry[k]['bound_ms']:.4f}, {entry[k]['bound_by']})"
+                           for k in run)
+                + f" | torch row quantisation of x (the prequant route's pass) "
+                f"{t_quant:.4f} ms | plain fwd {t_plain[7]:.3f} dx {t_plain[8]:.3f} ms | "
+                f"torch._int_mm fwd {lib(7)} dx {lib(8)} ms (product only) | dequant "
+                f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int8 kernels disagree with the plain twins at "
+                                     f"M={M} K={K} N={N}: {err}")
+            res["err"] = max(res["err"], max(err.values()))
+            if M == qb["m_prefix"]:
+                route_noise(x, dy, q, s, out[9], out[10])
+            del x, dy, q, s, xq, dyq, out, plain, run
+        torch.cuda.empty_cache()
+    return res
+
+
+def _lora_loss_grads(model, adapter, batch, hp, lora, alpha, names) -> tuple:
+    """One loss and backward with the adapters attached and no update ->
+    (loss, (chosen, rejected) logps, the named adapter gradients in fp32)."""
+    tensors = dict(named_tensors(lora))
+    for t in tensors.values():
+        t.grad = None
+    attach_lora(model, lora_scaled(lora, alpha=alpha))
+    loss, metrics = dpo_loss_from_batch(adapter, batch, hp)
+    loss.backward()
+    attach_lora(model, None)
+    logps = (float(metrics["logps_train/chosen"]), float(metrics["logps_train/rejected"]))
+    return (float(loss.detach()), logps,
+            {k: tensors[n].grad.float().clone() for k, n in names.items()})
+
+
+def phase_qlora(model, tok, rows: list, short: dict, cfg: LlavaConfig,
+                ref_bf16: list) -> dict:
+    """9: the QLoRA slice on phase 8's seed-0 model (built anew): int8
+    quantisation on the card, the reference logps on the int8 base, step 0
+    against the "dequant" route, 3 AdamW steps of 8 pairs, one short step."""
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    L_layers = cfg.llm.num_layers
+    t0 = time.perf_counter()
+    quantize_llm_int8(model, include_lm_head=False)
+    torch.cuda.synchronize()
+    n_q = sum(isinstance(m, QuantDense) for m in model.modules())
+    log(f"[9 qlora] LLM projections quantised to int8 on the card: {n_q} QuantDense "
+        f"(7 x {L_layers} layers) in {time.perf_counter() - t0:.2f} s; lm_head "
+        f"{type(model.llm.lm_head).__name__} {model.llm.lm_head.weight.dtype}, CLIP and "
+        f"projector bf16 | device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    if n_q != 7 * L_layers or isinstance(model.llm.lm_head, QuantDense):
+        raise AssertionError("9: the int8 base is not the 7 projections x layers")
+    launches = {}
+
+    # the reference logps of the 16 rows and the short one on the int8 base
+    kw = dict(max_len=2048, num_patches=cfg.num_image_tokens, batch_pairs=8,
+              image_processor=ClipImageProcessor(image_size=cfg.vision.image_size),
+              progress=False, shared_prefix=True)
+    score_preference_rows(rows[:2], model, tok, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = score_preference_rows(rows + [short], model, tok, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = read_counts()
+    add_counts(launches, n)
+    rel, tmean, tmax = _seq_close(ref[:len(ref_bf16)], ref_bf16, 1.0)
+    log(f"[9 qlora] ref-logp on the int8 base (shared-prefix path): {len(ref)} pairs in "
+        f"{dt:.3f} s = {len(ref) / dt:.2f} pairs/s | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | launches #9 "
+        f"{n['int8_prequant']} #7 {n['int8']} flash {n['flash']} | against phase 8's bf16 "
+        f"base (weights and activations quantised): sums and means max rel {rel:.3e}, "
+        f"per-token |d| mean {tmean:.3e} max {tmax:.3e}")
+    if not all(np.isfinite(r[k]) for r in ref for k in (0, 1, 3, 4)) or \
+            n["int8_prequant"] < 7 * L_layers:
+        raise AssertionError(f"9: the int8 ref-logp path failed: {n}")
+
+    qb = qlora_batches(rows, short, tok, cfg, ref)
+    t = qb["config"].training
+    hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                    shared_prefix_len=qb["P"])
+    assert hp.lm_head_impl == "fused", hp.lm_head_impl
+    batch = batch_to_device(qb["batch_np"], "cuda")
+    adapter = LlavaDPOAdapter(model)
+    model.train()
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+    n_lora = sum(x.numel() for _, x in named_tensors(lora))
+    optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                               weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                               schedule="constant")
+    step = make_lora_dpo_train_step(adapter, optimizer, hp, lora, lora_alpha=t.lora_alpha)
+    L, P = qb["batch_np"]["input_ids"].shape[1], qb["P"]
+    B = t.per_device_batch_pairs
+    tokens = B * P + 2 * B * (L - P)
+    real = B * P + int(qb["batch_np"]["attention_mask"][:, P:].sum())
+    log(f"[9 qlora] {B} pairs padded to L={L} (bucket 256), derived P={P} (array "
+        f"{-(-P // 128) * 128}), W={L - P}: {tokens} tokens a step, {real} not padding | "
+        f"adapters r {t.lora_r} alpha {t.lora_alpha} on every projection: {n_lora / 1e6:.1f} M "
+        f"fp32 values | head {hp.lm_head_impl}, remat, constant lr {QLORA_LR}, weight decay "
+        f"{t.weight_decay} | projection rows: prefix {qb['m_prefix']}, suffix "
+        f"{qb['m_suffix']} (from {qm.INT8_DEQUANT_MIN_M}: the prequant kernels)")
+
+    # step 0 on the "dequant" route first (the comparison, not counted),
+    # and the SFT term's gradient on both routes
+    last = L_layers - 1
+    names = {f"layer {i} {p} b": f"llm/model/layer_{i}/{blk}/{p}/b"
+             for i in (0, last)
+             for blk, p in (("attn", "q_proj"), ("attn", "v_proj"), ("mlp", "down_proj"))}
+    hp_sft = dataclasses.replace(hp, dpo_weight=0.0, sft_weight=1.0)
+    sft = {}
+    for impl in ("dequant", "prequant"):
+        qm.INT8_LARGE_M_IMPL = impl
+        try:
+            if impl == "dequant":
+                deq = _lora_loss_grads(model, adapter, batch, hp, lora, t.lora_alpha, names)
+            sft[impl] = _lora_loss_grads(model, adapter, batch, hp_sft, lora, t.lora_alpha,
+                                         names)
+        finally:
+            qm.INT8_LARGE_M_IMPL = "prequant"
+    _, _, sft_grads = compare_runs(sft["prequant"], sft["dequant"])
+    ok = all(rel <= QLORA_SFT_GRAD_REL_TOL and cos >= QLORA_SFT_GRAD_COS_MIN
+             for rel, cos in sft_grads.values())
+    log("[9 qlora] step 0, SFT term (chosen mean logp), prequant vs dequant route: "
+        + " | ".join(f"{k}: rel {r:.3e} cos {c:.6f}" for k, (r, c) in sft_grads.items())
+        + f" (tol rel {QLORA_SFT_GRAD_REL_TOL}, cos {QLORA_SFT_GRAD_COS_MIN}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("9: the int8 SFT gradient disagrees with the dequant route")
+
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        reset_counts()
+        ts = time.perf_counter()
+        metrics = step(batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(time.perf_counter() - ts)
+        n = read_counts()
+        add_counts(launches, n)
+        losses.append(loss)
+        log(f"[9 qlora] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
+            f"{times[-1]:.3f} s | int8 launches #9 {n['int8_prequant']} #10 "
+            f"{n['int8_dx_prequant']} #7 {n['int8']} #8 {n['int8_dx']} | flash fwd "
+            f"{n['flash']} dq {n['dq']} dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} "
+            f"dx {n['head_dx']} dW {n['head_dw']} (the head is frozen)")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"9: non-finite loss or zero grad norm at step {i}")
+        if min(n["int8_prequant"], n["int8_dx_prequant"]) < 7 * L_layers or \
+                min(n["flash"], n["dq"], n["head_fwd"], n["head_dx"]) < 1:
+            raise AssertionError(f"9: a kernel of the QLoRA step did not run: {n}")
+        if i == 0:
+            tensors = dict(named_tensors(lora))
+            run = (loss, (float(metrics["logps_train/chosen"]),
+                          float(metrics["logps_train/rejected"])),
+                   {k: tensors[nm].grad.float().clone() for k, nm in names.items()})
+            d_loss, d_logp, grads = compare_runs(run, deq)
+            ok = d_loss <= LOSS_TOL and d_logp <= QLORA_LOGP_RTOL and all(
+                rel <= QLORA_GRAD_REL_TOL and cos >= QLORA_GRAD_COS_MIN
+                for rel, cos in grads.values())
+            log(f"[9 qlora] step 0, prequant (int8 kernels) vs dequant route: loss "
+                f"{loss:.5f} vs {deq[0]:.5f} (tol {LOSS_TOL}) | logps "
+                f"{run[1][0]:.2f}/{run[1][1]:.2f} vs {deq[1][0]:.2f}/{deq[1][1]:.2f}, max "
+                f"rel {d_logp:.2e} (tol {QLORA_LOGP_RTOL}) | "
+                + " | ".join(f"{k}: rel {r:.3e} cos {c:.6f}" for k, (r, c) in grads.items())
+                + f" (tol rel {QLORA_GRAD_REL_TOL}, cos {QLORA_GRAD_COS_MIN}) | "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("9: the int8 step disagrees with the dequant route")
+            if abs(loss - math.log(2)) > REF_LN2_TOL:
+                raise AssertionError(f"9: step-0 loss {loss} not within {REF_LN2_TOL} "
+                                     f"of ln 2")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = statistics.mean(times[1:])
+    log(f"[9 qlora] steps 1-2 (after step 0): {step_s:.3f} s a step = {B / step_s:.3f} "
+        f"pairs/s = {tokens / step_s:.0f} tokens/s with padding, {real / step_s:.0f} "
+        f"without | peak device memory {peak_gb:.2f} GiB | loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (step 0 within {REF_LN2_TOL} of ln 2 = {math.log(2):.6f}: "
+        f"{losses[0] - math.log(2):+.3e})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"9: the loss did not fall over 2 updates: {losses}")
+
+    # the short pair: its suffix rows (2 W) take the in-kernel pair #7/#8
+    Ps, W = qb["Ps"], qb["W"]
+    short_step = make_lora_dpo_train_step(
+        adapter, optimizer, dataclasses.replace(hp, shared_prefix_len=Ps,
+                                                shared_suffix_len=W),
+        lora, lora_alpha=t.lora_alpha)
+    reset_counts()
+    ts = time.perf_counter()
+    metrics = short_step(batch_to_device(qb["short_np"], "cuda"))
+    loss = float(metrics["loss"])
+    dt = time.perf_counter() - ts
+    n = read_counts()
+    add_counts(launches, n)
+    log(f"[9 qlora] short step: 1 pair, P={Ps}, suffix trimmed to W={W} ({2 * W} rows < "
+        f"{qm.INT8_DEQUANT_MIN_M}): loss {loss:.6e} | {dt:.3f} s | int8 launches #7 "
+        f"{n['int8']} #8 {n['int8_dx']} #9 {n['int8_prequant']} #10 "
+        f"{n['int8_dx_prequant']}")
+    # every suffix projection, forward (and its remat recompute) and dx, but
+    # layer 0's q, k and v read the embeddings, which need no gradient
+    if not math.isfinite(loss) or n["int8"] < 7 * L_layers or \
+            n["int8_dx"] < 7 * L_layers - 3:
+        raise AssertionError(f"9: the short step missed the in-kernel pair: {n}")
+    keys = ("int8", "int8_dx", "int8_prequant", "int8_dx_prequant")
+    log(f"[9 qlora] launches on the QLoRA path (ref-logp, 3 steps, short step): "
+        f"{ {k: launches[k] for k in keys} }")
+    if min(launches[k] for k in keys) < 1:
+        raise AssertionError(f"9: an int8 kernel never ran: {launches}")
+    return launches
+
+
 def _row(name, source, replaces, launches, err, timing) -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1122,8 +1525,11 @@ def main() -> None:
     tok = _fake_tokenizer()
     rows = synth_rows(image_bytes)
     pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
+    short = short_row(image_bytes)
     bwd = phase_backward(g, pair)
     head = phase_head(g, pair)
+    qb = qlora_batches(rows, short, tok, cfg)
+    int8 = phase_int8(g, qb)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -1157,8 +1563,19 @@ def main() -> None:
     tr = build_train(train_pair, model)
     phase_train_vs_plain(tr["model"], tr["adapter"], tr["batch"], tr["hp"])
     add_counts(launches, phase_train(tr))
+    del tr, model  # phase 6's model, gradients and optimizer (~55 GiB)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    log(f"[6 train] main-path launches (serving 4, ref-logp 8, train 6): {launches}")
+    # 9 rebuilds phase 8's seed-0 model, quantises it and trains adapters
+    model = build_model(LlavaConfig.llava15_7b(remat=True), "9 qlora")
+    add_counts(launches, phase_qlora(model, tok, rows, short, cfg, ref_logps))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[9 qlora] main-path launches (serving 4, ref-logp 8, train 6, QLoRA 9): "
+        f"{launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
@@ -1183,6 +1600,19 @@ def main() -> None:
         _row("fused_head_dw", head_src, "rlaifv_tpu/ops/fused_head.py:334",
              launches["head_dw"], head["dw_err"], head["dw"]["train step"]),
     ]
+    # rows 7-10 at the shapes of phase 9 that launch them: the short step's
+    # suffix (#7, #8) and the 8-pair step's prefix (#9, #10), gate/up widths
+    q_src, q_py = "rlaifv_tpu_torch/csrc/quant_matmul.cu", "rlaifv_tpu/ops/quant_matmul.py"
+    small, large = int8[(qb["m_short"], 4096, 11008)], int8[(qb["m_prefix"], 4096, 11008)]
+    kernels += [
+        _row("int8_matmul", q_src, f"{q_py}:36", launches["int8"], int8["err"], small[7]),
+        _row("int8_matmul_dx", q_src, f"{q_py}:132", launches["int8_dx"], int8["err"],
+             small[8]),
+        _row("int8_matmul_prequant", q_src, f"{q_py}:244", launches["int8_prequant"],
+             int8["err"], large[9]),
+        _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
+             launches["int8_dx_prequant"], int8["err"], large[10]),
+    ]
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1190,23 +1620,54 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def profile_train() -> None:
-    """`python3 chip_smoke.py --profile-train`: a one-off breakdown of the
-    7B train step, not part of the smoke run. torch.profiler over two steps
-    with the fused head and two with the "xla" head on phase 6's pair (the
-    first row of phase 8's rows; zero reference logps, since only time is
-    read), each after one warm-up step: wall and device time a step, the
-    device's idle share, and the kernels with the most device time."""
+def _profile_steps(step, batch, label: str, extra: str) -> None:
+    """torch.profiler over two steps after one warm-up step: wall and device
+    time a step, the device's idle share, the kernels with the most device
+    time and every kernel whose name holds `extra`."""
     from torch.profiler import ProfilerActivity, profile
 
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    # device-side events only (kernels, copies, sets): an operator's own row
+    # repeats the time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0)
+
+    device = sum(dev(e) for e in kernels) / 2 / 1e3
+    log(f"[profile] {label}: {wall:.1f} ms a step wall (profiled), {device:.1f} "
+        f"ms of device time ({1 - device / wall:.1%} idle), {len(kernels)} kernel names")
+    top = sorted(kernels, key=dev, reverse=True)
+    for e in top[:20] + [e for e in top[20:] if extra in e.key]:
+        log(f"[profile]   {dev(e) / 2 / 1e3:8.2f} ms  x{e.count // 2:<5d} {e.key[:90]}")
+
+
+def _profile_setup():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         sys.exit(1)
     phase_environment()
     phase_build()
-    cfg = LlavaConfig.llava15_7b()
-    tok = _fake_tokenizer()
-    rows = synth_rows((ROOT / "examples" / "test.jpeg").read_bytes())
+    image_bytes = (ROOT / "examples" / "test.jpeg").read_bytes()
+    return LlavaConfig.llava15_7b(), _fake_tokenizer(), image_bytes, synth_rows(image_bytes)
+
+
+def profile_train() -> None:
+    """`python3 chip_smoke.py --profile-train`: a one-off breakdown of the
+    7B train step, not part of the smoke run. torch.profiler over two steps
+    with the fused head and two with the "xla" head on phase 6's pair (the
+    first row of phase 8's rows; zero reference logps, since only time is
+    read), each after one warm-up step."""
+    cfg, tok, _, rows = _profile_setup()
     pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
     for key in ("ref_win_logp", "ref_rej_logp"):
         pair["batch_np"][key] = np.zeros(1, np.float32)
@@ -1218,30 +1679,35 @@ def profile_train() -> None:
     for head in ("fused", "xla"):
         step = make_dpo_train_step(tr["adapter"], optimizer,
                                    dataclasses.replace(tr["hp"], lm_head_impl=head))
-        step(tr["batch"])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(2):
-                step(tr["batch"])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 2 * 1e3
-        # device-side events only (kernels, copies, sets): an operator's
-        # own row repeats the time of the kernels it launched
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        _profile_steps(step, tr["batch"], f"head {head}", "fused_head")
 
-        def dev(e):
-            return getattr(e, "self_device_time_total", None) or \
-                getattr(e, "self_cuda_time_total", 0)
 
-        device = sum(dev(e) for e in kernels) / 2 / 1e3
-        log(f"[profile] head {head}: {wall:.1f} ms a step wall (profiled), {device:.1f} "
-            f"ms of device time ({1 - device / wall:.1%} idle), {len(kernels)} kernel names")
-        top = sorted(kernels, key=dev, reverse=True)
-        for e in top[:20] + [e for e in top[20:] if "fused_head" in e.key]:
-            log(f"[profile]   {dev(e) / 2 / 1e3:8.2f} ms  x{e.count // 2:<5d} {e.key[:90]}")
+def profile_qlora() -> None:
+    """`python3 chip_smoke.py --profile-qlora`: the same breakdown of phase
+    9's QLoRA step (8 pairs, int8 base quantised on the card, r 64 adapters,
+    the fused head; zero reference logps)."""
+    cfg, tok, image_bytes, rows = _profile_setup()
+    qb = qlora_batches(rows, short_row(image_bytes), tok, cfg)
+    t = qb["config"].training
+    for key in ("ref_win_logp", "ref_rej_logp"):
+        qb["batch_np"][key] = np.zeros(t.per_device_batch_pairs, np.float32)
+    model = build_model(LlavaConfig.llava15_7b(remat=True), "profile")
+    quantize_llm_int8(model, include_lm_head=False)
+    model.train()
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+    optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                               weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                               schedule="constant")
+    hp = DPOHparams(beta=t.dpo_beta, lm_head_impl="fused", shared_prefix_len=qb["P"])
+    step = make_lora_dpo_train_step(LlavaDPOAdapter(model), optimizer, hp, lora,
+                                    lora_alpha=t.lora_alpha)
+    _profile_steps(step, batch_to_device(qb["batch_np"], "cuda"), "qlora, 8 pairs", "qmm")
 
 
 if __name__ == "__main__":
-    profile_train() if "--profile-train" in sys.argv[1:] else main()
+    if "--profile-train" in sys.argv[1:]:
+        profile_train()
+    elif "--profile-qlora" in sys.argv[1:]:
+        profile_qlora()
+    else:
+        main()

@@ -4,8 +4,8 @@ rlaifv_tpu/core/config.py, so `configs/*.json` load unchanged, with
 
 Fields the port does not carry yet still load (a config file stays valid
 for both packages); the code that reads them raises NotImplementedError
-naming the ROADMAP.md item (LoRA and quantization: #5; the mesh fields are
-read by nothing on one card).
+naming the ROADMAP.md item (`quantize_bits` 4: #5, int4; the mesh fields
+are read by nothing on one card).
 """
 from __future__ import annotations
 

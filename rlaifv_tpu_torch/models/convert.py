@@ -8,19 +8,30 @@ the same function from the same weights:
 - flax Dense `kernel` (in, out) -> `weight` (out, in);
 - the flax patch Conv `kernel` (kh, kw, in, out) -> `weight` (out, kh*kw*in);
 - LayerNorm/RMSNorm `scale` and Embed `embedding` -> `weight`;
-- `layer_{i}` -> `layers.{i}`, projector `fc{i}` -> `fcs.{i}`.
+- `layer_{i}` -> `layers.{i}`, projector `fc{i}` -> `fcs.{i}`;
+- an int8 QuantDense node {kernel (in, out) int8, scale (out,)} -> the
+  port's QuantDense buffers `q` (the same layout) and `scale`;
+- a flax variables dict {"params", "lora"}: the base from "params"; the
+  adapters cross with `lora_from_jax`.
+
+`flax_tree` is the inverse view (the model's tensors under the flax names,
+kernels as (in, out)), which train/lora.py walks. `quantize_llm_int8`
+quantises a model's LLM projections to int8 in place, on their device,
+with `quantize_kernel_int8_torch`, bit for bit the JAX package's numpy
+`quantize_kernel_int8`.
 
 Real HF checkpoints load through `load_llava_checkpoint`, the numpy
 converter of rlaifv_tpu/models/convert.py copied function for function
 (`load_state_dict_dir`, `convert_llama`, `convert_clip_vision`,
 `convert_llava`, `load_image_newline`): HF state dict -> the same flax-style
 tree, then the bridge above. The train entry point builds its configs from
-presets, as train.py does, so no config reader is needed. The quantizers
-and the other families' converters are not copied: ROADMAP.md 'Modules to
-port' #5, #9 and #10.
+presets, as train.py does, so no config reader is needed. The int4
+quantizer and the other families' converters are not copied: ROADMAP.md
+'Modules to port' #5 (int4), #9 and #10.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Any, Dict, Mapping, Optional
@@ -47,20 +58,46 @@ def _torch_name(path: str) -> str:
     return re.sub(r"\.(kernel|scale|embedding)$", ".weight", path)
 
 
+def _quant_modules(tree: Mapping[str, Any], prefix: str = "") -> set:
+    """Dotted paths of the int8 QuantDense nodes ({kernel: int8 (in, out),
+    scale: (out,)}); an int4 node (2-D group scales) raises."""
+    out = set()
+    for key, val in tree.items():
+        if not isinstance(val, Mapping):
+            continue
+        kernel = val.get("kernel")
+        if kernel is not None and not isinstance(kernel, Mapping) \
+                and _np(kernel).dtype == np.int8:
+            if np.ndim(val.get("scale")) != 1:
+                raise NotImplementedError(
+                    f"{prefix}{key}: int4 weights are not ported to rlaifv_tpu_torch "
+                    "yet: ROADMAP.md 'Modules to port' #5 (int4, kernels #11-#12)")
+            out.add(prefix + key)
+        else:
+            out |= _quant_modules(val, f"{prefix}{key}.")
+    return out
+
+
 def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax LLaVA param tree (arrays of any numpy-convertible type) ->
-    state dict for rlaifv_tpu_torch's LlavaForCausalLM. A variables dict
-    that carries LoRA adapters ({"params", "lora"}) raises."""
-    if "lora" in params:
-        raise NotImplementedError(
-            "LoRA adapters are not ported to rlaifv_tpu_torch yet: "
-            "ROADMAP.md 'Modules to port' #5 (QLoRA and LoRA adapters)"
-        )
+    """flax LLaVA param tree (arrays of any numpy-convertible type, or
+    torch tensors, as `flax_tree` gives them) ->
+    state dict for rlaifv_tpu_torch's LlavaForCausalLM. int8 QuantDense
+    nodes become `q`/`scale` buffers; given a variables dict {"params",
+    "lora"}, the state dict of its base (the adapters: `lora_from_jax`)."""
+    if set(params) == {"params", "lora"}:
+        params = params["params"]
+    quant = _quant_modules(params)
     sd = {}
     for path, val in _flatten(params):
-        arr = np.asarray(val)
+        arr = _np(val)
         if arr.dtype.name == "bfloat16":  # ml_dtypes; torch cannot wrap it
             arr = arr.astype(np.float32)
+        module, _, leaf = path.rpartition(".")
+        if module in quant:  # QuantDense keeps the flax (in, out) layout
+            name = _torch_name(f"{module}.kernel")[:-len("weight")]
+            sd[name + ("q" if leaf == "kernel" else leaf)] = torch.from_numpy(
+                np.array(arr, order="C"))
+            continue
         if path.endswith(".kernel"):
             if arr.ndim == 4:  # patch conv (kh, kw, in, out)
                 arr = arr.reshape(-1, arr.shape[-1])
@@ -87,6 +124,107 @@ def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
                 leaf = next(k for cls, k in kinds if isinstance(mod, cls))
             names[f"{mod_name}.{p_name}" if mod_name else p_name] = leaf
     return names
+
+
+def lora_from_jax(lora: Mapping[str, Any]) -> Dict[str, Any]:
+    """The JAX package's adapter tree {.../q_proj: {a (in, r), b (r, out)}}
+    -> the port's (train/lora.py): the same nesting and layout, fp32 torch
+    tensors."""
+    return {k: lora_from_jax(v) if isinstance(v, Mapping)
+            else torch.from_numpy(np.array(np.asarray(v), dtype=np.float32))
+            for k, v in lora.items()}
+
+
+def _flax_module_path(torch_name: str) -> str:
+    """`llm.model.layers.0.attn.q_proj` -> `llm/model/layer_0/attn/q_proj`."""
+    path = re.sub(r"\blayers\.(\d+)\b", r"layer_\1", torch_name)
+    path = re.sub(r"^mm_projector\.fcs\.(\d+)\b", r"mm_projector.fc\1", path)
+    return path.replace(".", "/")
+
+
+def torch_module_name(flax_path: str) -> str:
+    """`llm/model/layer_0/attn/q_proj` -> `llm.model.layers.0.attn.q_proj`."""
+    return _torch_name(flax_path.replace("/", ".") + ".kernel")[:-len(".weight")]
+
+
+def flax_tree(model: nn.Module) -> Tree:
+    """The model's parameters and buffers as the JAX package's param tree:
+    the flax names (`layers.{i}` -> `layer_{i}`, `weight` -> `kernel`/
+    `scale`/`embedding`), Dense weights as (in, out) kernels (transposed
+    views; the patch conv flattened to 2-D), QuantDense `q`/`scale` as
+    `kernel`/`scale`. The leaves share storage with the model."""
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    leaves = flax_leaf_names(model)
+    tree: Tree = {}
+    for mod_name, mod in model.named_modules():
+        prefix = _flax_module_path(mod_name) + "/" if mod_name else ""
+        if isinstance(mod, QuantDense):
+            _set(tree, prefix + "kernel", mod.q)
+            _set(tree, prefix + "scale", mod.scale)
+            continue
+        for name, t in mod.named_parameters(recurse=False):
+            leaf = leaves[f"{mod_name}.{name}" if mod_name else name]
+            _set(tree, prefix + leaf, t.T if leaf == "kernel" else t)
+    return tree
+
+
+def quantize_kernel_int8_torch(kernel: torch.Tensor):
+    """(in, out) float kernel -> (int8 (in, out), fp32 (out,) scale) on the
+    kernel's device: models/llama.py's `quantize_kernel_int8` (the JAX
+    package's numpy quantiser) bit for bit, with tensor-by-tensor IEEE
+    divisions (torch multiplies by the reciprocal of a Python-scalar
+    divisor) and round half to even."""
+    w = kernel.detach().float()
+    amax = w.abs().amax(dim=0)
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    q = torch.round(w / scale[None, :]).clamp_(-127, 127).to(torch.int8)
+    return q.contiguous(), scale  # a transposed view in gives row-major (in, out) out
+
+
+_QUANT_PROJ = re.compile(
+    r"^(q_proj|k_proj|v_proj|o_proj|out_proj|gate_proj|up_proj|down_proj|"
+    r"lm_head)$"
+)
+
+
+@torch.no_grad()
+def quantize_llm_int8(model: nn.Module, include_lm_head: bool = True) -> nn.Module:
+    """Weight-only int8 for the LLM's projections, in place (the JAX
+    package's `quantize_llm_int8` over the port's modules): each bias-free
+    Dense named q/k/v/o_proj, gate/up/down_proj (and lm_head with
+    include_lm_head) becomes a QuantDense whose `q`/`scale` come from
+    `quantize_kernel_int8_torch` on the weight's device; the float weight
+    is dropped. `model` is a LlavaForCausalLM (its `llm` is quantised) or a
+    LlamaForCausalLM; the configs it carries are updated to say so.
+    include_lm_head=False keeps the head bf16, as QLoRA training does (the
+    fused and compact heads read it as a matrix)."""
+    from rlaifv_tpu_torch.models.layers import Dense
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, QuantDense
+
+    llm = getattr(model, "llm", model)
+    targets = [name for name, mod in llm.named_modules()
+               if isinstance(mod, Dense) and mod.bias is None
+               and _QUANT_PROJ.match(name.rsplit(".", 1)[-1])
+               and (include_lm_head or name != "lm_head")]
+    for name in targets:  # one float weight alive at a time
+        dense = llm.get_submodule(name)
+        q, scale = quantize_kernel_int8_torch(dense.weight.T)
+        quant = QuantDense(dense.in_features, dense.out_features,
+                           dtype=dense.compute_dtype, device="meta")
+        quant.q, quant.scale = q, scale
+        parent, _, attr = name.rpartition(".")
+        setattr(llm.get_submodule(parent), attr, quant)
+    for mod in model.modules():
+        cfg = getattr(mod, "cfg", None)
+        if isinstance(cfg, LlamaConfig):
+            mod.cfg = dataclasses.replace(cfg, quantize=True, quantize_bits=8,
+                                          quantize_lm_head=include_lm_head)
+        elif isinstance(getattr(cfg, "llm", None), LlamaConfig):
+            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+                cfg.llm, quantize=True, quantize_bits=8,
+                quantize_lm_head=include_lm_head))
+    return model
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

@@ -12,9 +12,19 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def lora_side_term(x: torch.Tensor, lora) -> torch.Tensor:
+    """(x @ a) @ b in x's dtype for an adapter pair a (in, r), b (r, out)
+    whose alpha/r scale is already folded into b (train/lora.py
+    `lora_scaled`): the JAX package's LoraDense / QuantDense side term."""
+    a, b = lora
+    return (x @ a.to(x.dtype)) @ b.to(x.dtype)
+
+
 class Dense(nn.Linear):
     """y = x @ W^T (+ b), computed in `dtype`; weight (out, in) is the
-    transpose of the flax (in, out) kernel."""
+    transpose of the flax (in, out) kernel. `lora`, when set to an adapter
+    pair (train/lora.py `attach_lora`), adds the low-rank side term: the
+    JAX package's LoraDense reading its "lora" collection."""
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool,
                  dtype: torch.dtype, param_dtype: torch.dtype,
@@ -23,11 +33,14 @@ class Dense(nn.Linear):
                          dtype=param_dtype)
         self.compute_dtype = dtype
         self.init_std = init_std
+        self.lora = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        x = x.to(dt)
         bias = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x, self.weight.to(dt), bias)
+        return y if self.lora is None else y + lora_side_term(x, self.lora)
 
 
 class LayerNorm(nn.Module):

@@ -11,9 +11,15 @@ counterpart of `nn.remat(LlamaBlock, policy=nothing_saveable)`: only each
 block's input is kept for the backward, the rest is recomputed. It applies
 only where autograd records and no cache is given (the training forward).
 
+`quantize` (with `quantize_bits` 8) builds the projections as QuantDense:
+the weight-only int8 layer of the JAX package, int8 (K, N) weights and fp32
+per-output-channel scales as buffers, through ops/quant_matmul.py's kernels
+on the card. Every projection (Dense or QuantDense) adds a LoRA side term
+when train/lora.py attaches adapters to it.
+
 Not carried (each raises NotImplementedError, naming the ROADMAP.md item
-that ports it): int8/int4 weights (`quantize`), the int8 KV cache,
-fused projections (`fuse_proj`). LoRA adapters: ROADMAP #5.
+that ports it): int4 weights (`quantize_bits` 4), the int8 KV cache,
+fused projections (`fuse_proj`).
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from rlaifv_tpu_torch.models.layers import Dense
+from rlaifv_tpu_torch.models.layers import Dense, lora_side_term
 from rlaifv_tpu_torch.ops.attention import multi_head_attention
+from rlaifv_tpu_torch.ops.quant_matmul import int8_matmul_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +85,8 @@ class LlamaConfig:
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise for options the port does not carry yet."""
     todo = {
-        "quantize": (cfg.quantize, "#5 (QLoRA: int8/int4 weights)"),
+        "quantize_bits=4": (cfg.quantize and cfg.quantize_bits != 8,
+                            "#5 (int4 weights, kernels #11-#12)"),
         "kv_cache_dtype='int8'": (cfg.kv_cache_dtype not in ("fp", "bf16"),
                                   "#6 (serving extensions: int8 KV cache)"),
         "fuse_proj": (cfg.fuse_proj, "#6 (serving extensions: fused projections)"),
@@ -138,7 +146,51 @@ class RMSNorm(nn.Module):
         return (xf * self.weight.float()).to(x.dtype)
 
 
-def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device) -> Dense:
+def quantize_kernel_int8(w: "np.ndarray"):
+    """(in, out) float kernel -> (int8 kernel, f32 per-out-channel scale)."""
+    import numpy as _np
+
+    w = _np.asarray(w, _np.float32)
+    scale = _np.abs(w).max(axis=0) / 127.0
+    scale = _np.maximum(scale, 1e-8)
+    q = _np.clip(_np.round(w / scale[None, :]), -127, 127).astype(_np.int8)
+    return q, scale.astype(_np.float32)
+
+
+class QuantDense(nn.Module):
+    """Weight-only int8 projection without bias: y = x @ (q * scale).
+
+    q (in, out) int8 and scale (out,) fp32 are buffers (frozen; the flax
+    `kernel`/`scale` leaves, in the flax layout). On the card the product
+    is ops/quant_matmul.py's `int8_matmul_grad` (the int8 kernels,
+    differentiable in x); on the CPU it is the formula the JAX package runs
+    off the TPU, x @ (q.to(dtype) * scale.to(dtype)). `lora` adds the same
+    side term as Dense."""
+
+    def __init__(self, in_features: int, out_features: int, *, dtype: torch.dtype,
+                 device=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.compute_dtype = dtype
+        self.register_buffer("q", torch.zeros((in_features, out_features),
+                                              dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32,
+                                                 device=device))
+        self.lora = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = x.to(dt)
+        if x.is_cuda:
+            y = int8_matmul_grad(x, self.q, self.scale)
+        else:
+            y = x @ (self.q.to(dt) * self.scale.to(dt))
+        return y if self.lora is None else y + lora_side_term(x, self.lora)
+
+
+def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device, quantize=None):
+    if cfg.quantize if quantize is None else quantize:
+        return QuantDense(n_in, n_out, dtype=cfg.dtype, device=device)
     return Dense(n_in, n_out, bias=False, dtype=cfg.dtype,
                  param_dtype=cfg.param_dtype, init_std=0.02, device=device)
 
@@ -260,7 +312,8 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(cfg, device)
         self.lm_head = None
         if not cfg.tie_word_embeddings:
-            self.lm_head = _dense(cfg, cfg.hidden_size, cfg.vocab_size, device)
+            self.lm_head = _dense(cfg, cfg.hidden_size, cfg.vocab_size, device,
+                                  cfg.quantize and cfg.quantize_lm_head)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.model.embed(input_ids)

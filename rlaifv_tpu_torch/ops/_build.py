@@ -55,6 +55,14 @@ SIGNATURES = {
     "fused_head_dx_bf16": [_P] * 6 + [_I] * 5 + [_P],
     # x, w, y, lse, g, dw32, M, H, V, Vpad, stream
     "fused_head_dw_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # x, q, s, out, M, K, N, stream
+    "int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # dy, q, s, dx, M, K, N, stream
+    "int8_matmul_dx_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # xq, sx, q, s, out, M, K, N, stream
+    "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    # dyq, sy, q, dx, M, K, N, stream
+    "int8_matmul_dx_prequant_bf16": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

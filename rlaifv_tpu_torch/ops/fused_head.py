@@ -153,15 +153,18 @@ def fused_head_fwd(x, w, y):
     return _kernel_fwd(x.contiguous(), w.contiguous(), y.to(torch.int32).contiguous())
 
 
-def fused_head_bwd(x, w, y, lse, g):
+def fused_head_bwd(x, w, y, lse, g, need_dw: bool = True):
     """(dx, dW) of sum(g * logp) from the saved lse: the dx and dW kernels
-    for CUDA tensors, the plain version on the CPU."""
+    for CUDA tensors, the plain version on the CPU. need_dw=False (a frozen
+    head, as under LoRA) returns dW None and, on the card, launches the dx
+    kernel only."""
     if not x.is_cuda:
-        return fused_head_bwd_plain(x, w, y, lse, g)
+        dx, dw = fused_head_bwd_plain(x, w, y, lse, g)
+        return dx, dw if need_dw else None
     args = (x.contiguous(), w.contiguous(), y.to(torch.int32).contiguous(),
             lse.float().contiguous(), g.float().contiguous())
     # dx, then dW: no atomics, so reruns give the same bits
-    return _kernel_dx(*args), _kernel_dw(*args)
+    return _kernel_dx(*args), _kernel_dw(*args) if need_dw else None
 
 
 class _FusedHead(torch.autograd.Function):
@@ -174,7 +177,7 @@ class _FusedHead(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y, lse = ctx.saved_tensors
-        dx, dw = fused_head_bwd(x, w, y, lse, g)
+        dx, dw = fused_head_bwd(x, w, y, lse, g, need_dw=ctx.needs_input_grad[1])
         return dx, dw, None
 
 

@@ -11,6 +11,12 @@ checkpoint through the port's numpy converter (models/convert.py
 dataset directory holds no `*logp*.parquet`, the frozen starting policy
 scores its raw parquet rows first (train/ref_logp.py, with the train step's
 head), and DPO trains against those reference logps.
+
+`training.use_lora` trains LoRA adapters (train/lora.py, seeded from
+`training.seed`) over the frozen model; `model.quantize` (which needs
+use_lora, as in train.py) first quantises the LLM's projections to int8 on
+the device, the head kept bf16 (QLoRA). The reference logps are then
+scored on that int8 base.
 """
 from __future__ import annotations
 
@@ -38,14 +44,28 @@ def build_llava(config, device):
 
     m = config.model
     dtype, pdtype = resolve_dtype(m.dtype), resolve_dtype(m.param_dtype)
+    # built in float: run_config quantises the loaded weights in place
     cfg = LlavaConfig(
-        llm=LlamaConfig.vicuna_7b(dtype=dtype, param_dtype=pdtype, remat=m.remat,
-                                  quantize=m.quantize, quantize_lm_head=False,
-                                  quantize_bits=m.quantize_bits),
+        llm=LlamaConfig.vicuna_7b(dtype=dtype, param_dtype=pdtype, remat=m.remat),
         vision=CLIPVisionConfig.clip_l_336(dtype=dtype, param_dtype=pdtype),
         projector_type=m.mm_projector_type,
     )
     return cfg, LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
+
+
+def check_quantize(config) -> None:
+    """train.py's rule: a quantised base trains nothing by itself; and the
+    port quantises to int8 only."""
+    m = config.model
+    if not m.quantize:
+        return
+    if not config.training.use_lora:
+        raise AssertionError(
+            "model.quantize trains nothing by itself — the quantized base "
+            "is frozen; combine with training.use_lora (QLoRA)")
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, check_supported
+
+    check_supported(LlamaConfig(quantize=True, quantize_bits=m.quantize_bits))
 
 
 def run_config(config, device) -> int:
@@ -54,18 +74,26 @@ def run_config(config, device) -> int:
 
     from rlaifv_tpu_torch.data.collator import DPOCollator
     from rlaifv_tpu_torch.data.datasets import DPODataset
-    from rlaifv_tpu_torch.models.convert import load_jax_params, load_llava_checkpoint
+    from rlaifv_tpu_torch.models.convert import (
+        load_jax_params,
+        load_llava_checkpoint,
+        quantize_llm_int8,
+    )
     from rlaifv_tpu_torch.train.family import get_family
     from rlaifv_tpu_torch.train.ref_logp import inference_logp
     from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
 
     family = config.model.model_family
     spec = get_family(family)  # families other than llava15 raise
+    check_quantize(config)
     cfg, model = build_llava(config, device)
     print(f"[train] loading checkpoint {config.model.model_name_or_path}", flush=True)
     load_jax_params(model, load_llava_checkpoint(
         config.model.model_name_or_path, dtype=np.float32,
         vision_layers_to_run=cfg.vision.layers_to_run))
+    if config.model.quantize:
+        quantize_llm_int8(model, include_lm_head=False)
+        cfg = model.cfg
     tokenizer = AutoTokenizer.from_pretrained(config.model.model_name_or_path,
                                               use_fast=False)
     tokenizer.model_max_length = config.data.max_len
@@ -101,9 +129,28 @@ def run_config(config, device) -> int:
         mod_token_weight=config.training.dpo_token_weight,
         task=config.training.task, **spec.collator_kwargs(tokenizer),
     )
-    steps = DPOTrainer(config, model, dataset, collator).train()
+    steps = DPOTrainer(config, model, dataset, collator,
+                       **lora_kwargs(config, model, device)).train()
     print("[train] done", flush=True)
     return steps
+
+
+def lora_kwargs(config, model, device) -> dict:
+    """DPOTrainer's LoRA arguments: adapters on every LLM projection, drawn
+    from training.seed, when training.use_lora (train.py's order)."""
+    t = config.training
+    if not t.use_lora:
+        return {}
+    from rlaifv_tpu_torch.train.lora import lora_init
+
+    if t.lora_dropout:
+        # the adapters add (x @ a) @ b to each projection with no dropout
+        # branch (ref peft drops the adapter input; default 0.05)
+        print("[train] lora_dropout is ignored by the folded-merge "
+              "LoRA design", flush=True)
+    lora = lora_init(torch.Generator(device=device).manual_seed(t.seed), model,
+                     r=t.lora_r)
+    return dict(lora=lora, lora_alpha=t.lora_alpha)
 
 
 def run_demo(config, device) -> int:

@@ -32,6 +32,7 @@ from rlaifv_tpu_torch.train.dpo import (
     get_batch_logps_compact,
     get_batch_logps_from_hidden,
 )
+from rlaifv_tpu_torch.train.lora import _flatten as named_tensors  # [(path, leaf)]
 from rlaifv_tpu_torch.train.paired_forward import merge_paired_hidden, paired_hidden
 
 
@@ -441,19 +442,26 @@ def weight_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
             for name, leaf in flax_leaf_names(model).items()}
 
 
-def make_optimizer(model: torch.nn.Module, learning_rate: float, *,
+def make_optimizer(params, learning_rate: float, *,
                    total_steps: int, warmup_ratio: float = 0.05,
                    weight_decay: float = 0.01, b1: float = 0.9,
                    b2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: float = 1.0,
                    schedule: str = "cosine") -> AdamW:
-    """The JAX make_optimizer's update over every parameter of `model`."""
+    """The JAX make_optimizer's update over every parameter of a model, or
+    over the tensors of a LoRA adapter tree (decayed, as wd_mask decays
+    every leaf not named `bias` or `scale`)."""
+    if isinstance(params, torch.nn.Module):
+        named, decay = list(params.named_parameters()), weight_decay_mask(params)
+    else:
+        named = named_tensors(params)
+        decay = {n: n.rsplit("/", 1)[-1] not in ("bias", "scale") for n, _ in named}
     return AdamW(
-        model.named_parameters(),
+        named,
         lr_schedule(learning_rate, total_steps=total_steps,
                     warmup_ratio=warmup_ratio, schedule=schedule),
         b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-        max_grad_norm=max_grad_norm, decay=weight_decay_mask(model),
+        max_grad_norm=max_grad_norm, decay=decay,
     )
 
 
@@ -469,6 +477,40 @@ def make_dpo_train_step(model: LlavaDPOAdapter, optimizer, hp: DPOHparams
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in module.parameters()]
+        metrics["grad_norm"] = global_norm(grads)
+        optimizer.step(grads, metrics["grad_norm"])
+        return metrics
+
+    return train_step
+
+
+def make_lora_dpo_train_step(model: LlavaDPOAdapter, optimizer, hp: DPOHparams,
+                             lora, *, lora_alpha: float = 16.0
+                             ) -> Callable[[Dict], Dict]:
+    """LoRA variant (the JAX make_lora_dpo_train_step): the adapter tree
+    `lora` trains, through `optimizer` (made over that tree), and the base
+    is frozen: its parameters stop requiring grad here (the JAX
+    stop_gradient) and int8 buffers never do. Each step attaches
+    lora_scaled(lora) to the projections for the forward and the backward
+    (a remat recompute reads them), then detaches them before the update;
+    metrics["grad_norm"] is the adapters' global norm."""
+    from rlaifv_tpu_torch.train.lora import attach_lora, lora_scaled
+
+    model.module.requires_grad_(False)
+    leaves = [t for _, t in named_tensors(lora)]
+    for t in leaves:
+        t.requires_grad_(True)
+
+    def train_step(batch: Dict) -> Dict:
+        for t in leaves:
+            t.grad = None
+        attach_lora(model.module, lora_scaled(lora, alpha=lora_alpha))
+        try:
+            loss, metrics = dpo_loss_from_batch(model, batch, hp)
+            loss.backward()
+        finally:
+            attach_lora(model.module, None)
+        grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
         metrics["grad_norm"] = global_norm(grads)
         optimizer.step(grads, metrics["grad_norm"])
         return metrics

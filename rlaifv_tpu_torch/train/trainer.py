@@ -6,8 +6,10 @@ order (a seeded permutation, reshuffled when exhausted), the same
 `shared_prefix_len = -1` derive-and-re-derive logic, gradient accumulation
 matching optax.MultiSteps, the non-finite-loss tripwire, the compact-head
 overflow check, and checkpoint save and auto-resume. The model trains in
-place. The mesh fields of the config are not read (one card, no mesh);
-LoRA raises (ROADMAP.md #5).
+place; with a LoRA adapter tree (the JAX trainer's `base_params` mode) the
+adapters train and the model is the frozen base, and a checkpoint holds the
+adapters and their optimizer state, not the base. The mesh fields of the
+config are not read (one card, no mesh).
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from rlaifv_tpu_torch.train.train_step import (
     batch_to_device,
     derive_shared_prefix_len,
     make_dpo_train_step,
+    make_lora_dpo_train_step,
     make_optimizer,
+    named_tensors,
     validate_shared_prefix,
 )
 
@@ -75,21 +79,20 @@ def resolve_head(training, hidden_size: int) -> str:
 
 class DPOTrainer:
     def __init__(self, config: Config, model, dataset, collator, *,
-                 adapter=None):
-        """model: a LlavaForCausalLM (trained in place, on its own device);
-        dataset: indexable -> (rej_dict, win_dict); collator: DPOCollator."""
+                 adapter=None, lora=None, lora_alpha: float = 16.0):
+        """model: a LlavaForCausalLM (trained in place, on its own device;
+        with `lora`, the frozen base, int8 or not); dataset: indexable ->
+        (rej_dict, win_dict); collator: DPOCollator; lora: an adapter tree
+        (train/lora.py) on the model's device, trained in place."""
         t = config.training
-        if t.use_lora:
-            raise NotImplementedError(
-                "training.use_lora is not ported to rlaifv_tpu_torch yet: "
-                "ROADMAP.md 'Modules to port' #5 (QLoRA and LoRA adapters)"
-            )
         self.config = config
         self.model = model
         self.dataset = dataset
         self.collator = collator
         self.adapter = adapter or LlavaDPOAdapter(model)
-        self.device = next(model.parameters()).device
+        self.device = model.device
+        self.lora, self._lora_alpha = lora, lora_alpha
+        self.use_lora = lora is not None
         hp = DPOHparams(
             beta=t.dpo_beta,
             dpo_use_average=t.dpo_use_average,
@@ -107,7 +110,7 @@ class DPOTrainer:
         self._auto_prefix = hp.shared_prefix_len < 0
         self._num_patches = getattr(model.cfg, "num_image_tokens", 0) or 0
         self.optimizer = make_optimizer(
-            model, t.learning_rate, total_steps=t.max_steps,
+            lora if self.use_lora else model, t.learning_rate, total_steps=t.max_steps,
             warmup_ratio=t.warmup_ratio, weight_decay=t.weight_decay,
             max_grad_norm=t.max_grad_norm, schedule=t.lr_schedule,
         )
@@ -126,14 +129,20 @@ class DPOTrainer:
         if has_resumable_checkpoint(self.ckpt.directory):
             restored = self.ckpt.restore()
             with torch.no_grad():
-                for name, p in model.state_dict().items():
+                for name, p in self._train_tensors().items():
                     p.copy_(restored["params"][name])
             self.optimizer.load_state_dict(restored["opt_state"])
             self.step = self.start_step = int(restored["step"])
             print(f"[train] resumed from step {self.start_step}", flush=True)
 
+    def _train_tensors(self) -> Dict:
+        """What trains: the adapters (by flax path) or the model's state."""
+        if self.use_lora:
+            return {n: t.detach() for n, t in named_tensors(self.lora)}
+        return self.model.state_dict()
+
     def _state_tree(self) -> Dict:
-        return {"step": self.step, "params": self.model.state_dict(),
+        return {"step": self.step, "params": self._train_tensors(),
                 "opt_state": self.optimizer.state_dict()}
 
     def _batches(self, seed: int) -> Iterator:
@@ -162,7 +171,11 @@ class DPOTrainer:
 
     def _build_step(self, hp: DPOHparams) -> None:
         self.hp = hp
-        self._step = make_dpo_train_step(self.adapter, self.optimizer, hp)
+        if self.use_lora:
+            self._step = make_lora_dpo_train_step(self.adapter, self.optimizer, hp,
+                                                  self.lora, lora_alpha=self._lora_alpha)
+        else:
+            self._step = make_dpo_train_step(self.adapter, self.optimizer, hp)
 
     def _set_prefix(self, step: int, batch) -> None:
         """Derive P from `batch` and rebuild the step (0 = plain path)."""

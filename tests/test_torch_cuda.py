@@ -14,6 +14,9 @@ are bf16: about one bf16 ulp of the largest entry). The fused LM head:
 logp and lse within 2e-4 nats (fp32 sums of the same bf16 products in
 other orders); dx and dW elementwise within 2^-6 |plain| + 1e-5 max|plain|
 (both round dl to bf16 and the fp32 sums to bf16 once: an ulp or two).
+The int8 matmul kernels equal their plain twins bit for bit (exact integer
+sums, IEEE quantisation, the same fp32 epilogue), and #7 equals #9, #8
+equals #10.
 """
 import pytest
 import torch
@@ -283,3 +286,89 @@ def test_fused_head_autograd_counts_its_launches(gen):
         fused_head_fwd(x.detach().float(), w.detach(), y)
     with pytest.raises(ValueError):
         fused_head_fwd(x.detach()[:, :100], w.detach()[:, :100], y)
+
+
+def _int8_case(gen, M, K, N):
+    from rlaifv_tpu_torch.models.convert import quantize_kernel_int8_torch
+
+    q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"))
+    return _randn(gen, M, K), _randn(gen, M, N), q, s
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (16, 4096, 4096),     # below the crossover: the in-kernel pair's route
+    (127, 4096, 11008),   # the 7B MLP widths, one ragged row tile
+    (128, 11008, 4096),   # down_proj, at the crossover
+    (300, 96, 300),       # ragged rows, contraction and columns
+    (5, 40, 24),          # rows not a multiple of 16 bytes: the byte path
+])
+def test_int8_kernels_match_plain_bit_for_bit(gen, M, K, N):
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    x, dy, q, s = _int8_case(gen, M, K, N)
+    n0 = [f.launches for f in (qm.int8_matmul, qm.int8_matmul_dx,
+                               qm.int8_matmul_prequant, qm.int8_matmul_dx_prequant)]
+    out, dx = qm.int8_matmul(x, q, s), qm.int8_matmul_dx(dy, q, s)
+    outp, dxp = qm.int8_matmul_prequant(x, q, s), qm.int8_matmul_dx_prequant(dy, q, s)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(
+        (qm.int8_matmul, qm.int8_matmul_dx, qm.int8_matmul_prequant,
+         qm.int8_matmul_dx_prequant), n0)] == [1, 1, 1, 1]
+    assert torch.equal(out, qm.int8_matmul_plain(x, q, s))
+    assert torch.equal(dx, qm.int8_matmul_dx_plain(dy, q, s))
+    assert torch.equal(out, outp) and torch.equal(dx, dxp)
+    assert out.shape == (M, N) and dx.shape == (M, K)
+
+
+def test_int8_autograd_routes_and_quant_dense_on_cuda(gen, monkeypatch):
+    """int8_matmul_grad launches #9/#10 from 128 rows, #7/#8 below, no
+    kernel on the "dequant" route; QuantDense on the card agrees with its
+    CPU formula to bf16 rounding; the weight quantiser gives the CPU's bits."""
+    from rlaifv_tpu_torch.models.convert import quantize_kernel_int8_torch
+    from rlaifv_tpu_torch.models.llama import QuantDense
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    w = 0.02 * torch.randn(256, 384, generator=gen, device="cuda")
+    q, s = quantize_kernel_int8_torch(w)
+    q_cpu, s_cpu = quantize_kernel_int8_torch(w.cpu())
+    assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+    for rows, kernels in ((200, (qm.int8_matmul_prequant, qm.int8_matmul_dx_prequant)),
+                          (100, (qm.int8_matmul, qm.int8_matmul_dx))):
+        x = _randn(gen, rows, 256).requires_grad_(True)
+        n0 = [f.launches for f in kernels]
+        qm.int8_matmul_grad(x, q, s).float().sum().backward()
+        assert [f.launches - n for f, n in zip(kernels, n0)] == [1, 1]
+        assert x.grad.dtype == torch.bfloat16
+    monkeypatch.setattr(qm, "INT8_LARGE_M_IMPL", "dequant")
+    n0 = qm.int8_matmul_prequant.launches
+    qm.int8_matmul_grad(_randn(gen, 200, 256), q, s)
+    assert qm.int8_matmul_prequant.launches == n0
+    monkeypatch.setattr(qm, "INT8_LARGE_M_IMPL", "prequant")
+
+    layer = QuantDense(256, 384, dtype=torch.bfloat16, device="cuda")
+    layer.q.copy_(q)
+    layer.scale.copy_(s)
+    x = _randn(gen, 3, 70, 256)
+    got = layer(x).float()
+    want = (x.float() @ (q.float() * s)).float()
+    assert ((got - want).abs() <= 0.02 * want.abs() + 0.02 * want.abs().max()).all()
+
+
+def test_int8_kernels_raise_on_what_they_do_not_take(gen):
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    x, dy, q, s = _int8_case(gen, 8, 64, 32)
+    # strided activations are taken (copied), a strided weight is not
+    xt, dyt = _randn(gen, 64, 200).T, _randn(gen, 32, 200).T
+    assert torch.equal(qm.int8_matmul_prequant(xt, q, s), qm.int8_matmul_plain(xt, q, s))
+    assert torch.equal(qm.int8_matmul_dx_prequant(dyt, q, s),
+                       qm.int8_matmul_dx_plain(dyt, q, s))
+    assert torch.equal(qm.int8_matmul(xt, q, s), qm.int8_matmul_plain(xt, q, s))
+    with pytest.raises(TypeError):
+        qm.int8_matmul(x.float(), q, s)
+    with pytest.raises(TypeError):
+        qm.int8_matmul(x, q.float(), s)
+    with pytest.raises(ValueError):
+        qm.int8_matmul(x, q, s.double())
+    with pytest.raises(ValueError):
+        qm.int8_matmul_dx(dy, q[:, :16], s)

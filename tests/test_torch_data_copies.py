@@ -2,8 +2,9 @@
 outputs on the same inputs.
 
 rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
-`utils/prefetch`, the llava15 `train/family` spec and the HF-checkpoint
-loader of `models/convert` (it imports nothing of rlaifv_tpu). Each case
+`utils/prefetch`, the llava15 `train/family` spec, the HF-checkpoint
+loader of `models/convert`, `quantize_kernel_int8` and the tree helpers of
+`train/lora` (it imports nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -180,6 +181,54 @@ def case_file_io_and_prefetch(pkg, tmp_path):
     fio.write_jsonlines(path, [{"a": 1}, {"b": [2, 3]}])
     return fio.read_jsonlines(path), fio.read_json_or_jsonlines(path), \
         list(pkg("utils.prefetch").prefetch_iterator(iter(range(7)), depth=2))
+
+
+def case_quantize_kernel_int8(pkg):
+    rng = np.random.default_rng(0)
+    w = (rng.normal(size=(48, 40)) * 0.02).astype(np.float32)
+    w[:, 3] = 0  # the 1e-8 scale floor
+    return pkg("models.llama").quantize_kernel_int8(w)
+
+
+def _lora_tree(rng):
+    """A numpy param tree shaped like a tiny LLaVA's, int8 and float
+    kernels, 1-D norm scales, a vision tower and a projector."""
+    layer = {"attn": {"q_proj": {"kernel": rng.integers(-9, 9, (8, 8)).astype(np.int8),
+                                 "scale": np.ones(8, np.float32)},
+                      "o_proj": {"kernel": rng.normal(size=(8, 8)).astype(np.float32)}},
+             "mlp": {"up_proj": {"kernel": rng.normal(size=(8, 12)).astype(np.float32)},
+                     "down_proj": {"kernel": rng.normal(size=(12, 8)).astype(np.float32)}},
+             "ln_attn": {"scale": np.ones(8, np.float32)}}
+    return {"llm": {"model": {"layer_0": layer, "layer_1": layer},
+                    "lm_head": {"kernel": rng.normal(size=(8, 16)).astype(np.float32)}},
+            "vision_tower": {"layer_0": {"attn": {"q_proj": {
+                "kernel": rng.normal(size=(8, 8)).astype(np.float32)}}}},
+            "mm_projector": {"fc0": {"kernel": rng.normal(size=(8, 8)).astype(np.float32)}}}
+
+
+def case_lora_helpers(pkg, tmp_path):
+    """lora_target_paths (default and custom rules), lora_scaled,
+    lora_merge on a float tree, and a save_lora npz read back by the same
+    package's load_lora."""
+    lora_mod = pkg("train.lora")
+    rng = np.random.default_rng(1)
+    params = _lora_tree(rng)
+    paths = [lora_mod.lora_target_paths(params),
+             lora_mod.lora_target_paths(params, target=r"(proj|fc\d)/kernel$",
+                                        exclude=r"lm_head")]
+    lora = {}
+    for path in paths[0]:
+        k = lora_mod._get(params, path)
+        lora_mod._set(lora, path.rsplit("/kernel", 1)[0], {
+            "a": rng.normal(size=(k.shape[0], 4)).astype(np.float32),
+            "b": rng.normal(size=(4, k.shape[1])).astype(np.float32)})
+    floats = {"llm": {"model": {"layer_0": {"mlp": params["llm"]["model"]["layer_0"]["mlp"]}}}}
+    merged = lora_mod.lora_merge(floats, lora, alpha=16.0)
+    path = str(tmp_path / f"{pkg.__name__}.npz")
+    lora_mod.save_lora(path, lora, alpha=16.0, r=4)
+    loaded, alpha, r = lora_mod.load_lora(path)
+    flat = {k: np.asarray(v) for k, v in lora_mod._flatten(loaded)}
+    return paths, lora_mod.lora_scaled(lora, alpha=16.0), merged, flat, alpha, r
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}

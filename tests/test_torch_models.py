@@ -140,19 +140,30 @@ def test_llm_logits_with_cache_match_jax(pair):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("quantize", True, "#5"), ("kv_cache_dtype", "int8", "#6"),
+    ("quantize_bits", 4, "#5"), ("kv_cache_dtype", "int8", "#6"),
     ("fuse_proj", True, "#6"),
 ])
 def test_unported_options_raise(option, value, item):
+    """int4 weights (quantize with quantize_bits 4; int8 is ported), the
+    int8 KV cache and fused projections raise naming their ROADMAP item."""
     from rlaifv_tpu_torch.models.llama import LlamaForCausalLM
 
+    kw = {option: value, **({"quantize": True} if option == "quantize_bits" else {})}
     with pytest.raises(NotImplementedError, match=item):
-        LlamaForCausalLM(LlamaConfig.tiny(**{option: value}), device="meta")
+        LlamaForCausalLM(LlamaConfig.tiny(**kw), device="meta")
 
 
 def test_lora_adapters_and_anyres_raise():
+    """A {"params", "lora"} variables dict bridges its base (the adapters
+    cross with lora_from_jax); an int4 tree (packed kernel, 2-D group
+    scales) raises naming #5, anyres #8."""
+    assert llava_params_from_jax({"params": {}, "lora": {}}) == {}
+    int4 = {"llm": {"model": {"layer_0": {"attn": {"q_proj": {
+        "kernel": np.zeros((32, 64), np.int8), "scale": np.ones((1, 64), np.float32)}}}}}}
     with pytest.raises(NotImplementedError, match="#5"):
-        llava_params_from_jax({"params": {}, "lora": {}})
+        llava_params_from_jax(int4)
+    with pytest.raises(NotImplementedError, match="#5"):
+        llava_params_from_jax({"params": int4, "lora": {}})
     with pytest.raises(NotImplementedError, match="#8"):
         LlavaForCausalLM(LlavaConfig(image_aspect_ratio="anyres"), device="meta")
 

@@ -189,21 +189,21 @@ def test_non_finite_loss_stops_the_run(data, tmp_path):
 
 
 def test_what_is_not_ported_raises(data, tmp_path):
-    """The 7B "auto" head is the fused one (ported); LoRA is #5 and the
-    OmniLMM family #9."""
+    """The 7B "auto" head is the fused one (ported); LoRA and int8 QLoRA are
+    ported, an int4 base (quantize_bits 4) is #5 and the OmniLMM family #9;
+    each raises before anything is loaded."""
     training = Config().training
     assert resolve_head(training, 4096) == "fused"
     assert resolve_head(training, 64) == "xla"
-    pairs, coll = data
-    with pytest.raises(NotImplementedError, match="#5"):
-        DPOTrainer(_config(tmp_path, use_lora=True), _model(), pairs, coll)
     from rlaifv_tpu_torch.train.__main__ import main
 
-    cfg = {"model": {"model_family": "omnilmm"},
-           "training": {"output_dir": str(tmp_path / "out")}}
-    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="#9"):
-        main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
+    for model, item in (({"model_family": "omnilmm"}, "#9"),
+                        ({"quantize": True, "quantize_bits": 4}, "#5")):
+        cfg = {"model": model, "training": {"output_dir": str(tmp_path / "out"),
+                                            "use_lora": True}}
+        (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+        with pytest.raises(NotImplementedError, match=item):
+            main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
 
 
 def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
@@ -401,3 +401,136 @@ def test_config_run_precomputes_reference_logps(tmp_path, monkeypatch):
     steps = [m for m in logged if "loss" in m]
     assert [m["step"] for m in steps] == [1, 2]
     np.testing.assert_allclose(steps[0]["loss"], np.log(2.0), atol=1e-4)
+
+
+def test_lora_trainer_checkpoints_adapters_and_resumes(data, tmp_path):
+    """QLoRA on the trainer: the int8 base stays as it was, the adapters
+    train, a checkpoint holds the adapters (by flax path) and their AdamW
+    state and nothing of the base, and a fresh trainer on other adapters
+    resumes from it bit for bit."""
+    from rlaifv_tpu_torch.models.convert import quantize_llm_int8
+    from rlaifv_tpu_torch.train.lora import lora_init
+    from rlaifv_tpu_torch.train.train_step import named_tensors
+
+    pairs, coll = data
+    model = quantize_llm_int8(_model(), include_lm_head=False)
+    base = {k: v.clone() for k, v in model.state_dict().items()}
+    lora = lora_init(torch.Generator().manual_seed(0), model, r=4)
+    c = _config(tmp_path, use_lora=True)
+    trainer = DPOTrainer(c, model, pairs, coll, lora=lora, lora_alpha=16.0)
+    assert trainer.use_lora and trainer.device == torch.device("cpu")
+    assert trainer.train() == 4
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, base[k]), k
+    names = [n for n, _ in named_tensors(lora)]
+    assert len(names) == 2 * 7 * 2  # a and b of 7 projections x 2 layers
+    state = CheckpointManager(str(tmp_path / "checkpoints")).restore()
+    assert sorted(state["params"]) == sorted(names)
+    assert sorted(state["opt_state"]["mu"]) == sorted(names)
+    assert not any(n.endswith("b") and not state["params"][n].any() for n in names)
+    lines = [json.loads(x) for x in open(tmp_path / "metrics.jsonl")]
+    assert all(np.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in lines)
+
+    model2 = quantize_llm_int8(_model(), include_lm_head=False)
+    lora2 = lora_init(torch.Generator().manual_seed(1), model2, r=4)
+    trainer2 = DPOTrainer(_config(tmp_path, steps=6, use_lora=True), model2, pairs, coll,
+                          lora=lora2)
+    assert trainer2.start_step == 4 and trainer2.optimizer.count == 4
+    for (name, a), (_, b) in zip(named_tensors(lora), named_tensors(lora2)):
+        assert torch.equal(a.detach(), b.detach()), name
+        assert torch.equal(trainer.optimizer.nu[name], trainer2.optimizer.nu[name])
+    assert trainer2.train() == 6
+
+
+def test_quantize_without_lora_fails_as_train_py_does(tmp_path):
+    """train.py asserts that a quantised base trains alongside adapters;
+    the port's entry point fails the same way, before loading anything."""
+    from rlaifv_tpu_torch.train.__main__ import main
+
+    cfg = {"model": {"quantize": True}, "training": {"output_dir": str(tmp_path / "o")}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    with pytest.raises(AssertionError, match="combine with training.use_lora"):
+        main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
+    assert not (tmp_path / "o").exists()
+
+
+@pytest.mark.parametrize("logps", ["jax-logp-files", "precompute"])
+def test_config_qlora_run(tmp_path, monkeypatch, logps):
+    """`--config` with quantize and use_lora (configs/llava15_dpo_qlora.json's
+    model and adapter settings, r 4) on the tiny HF checkpoint: the port
+    loads it, quantises the LLM's projections to int8 (the head stays
+    float), scores the reference logps on that int8 base when the dataset
+    has none (compared with the JAX package's precompute on its own int8
+    base: sums atol 1e-4, per token and means 1e-5, fp32 in both), or reads
+    the JAX package's, and trains 2 LoRA steps; policy == reference at step
+    1 (b = 0), so the loss is ln 2 (atol 1e-4). The checkpoint holds the
+    adapters only. (This tokenizer's rows end with their labels masked, so
+    the steps' gradients are zero here; the trainer test above trains.)"""
+    import jax
+    import jax.numpy as jnp
+    import pandas as pd
+
+    from rlaifv_tpu.data.image_processing import ClipImageProcessor
+    from rlaifv_tpu.models.clip_vit import CLIPVisionConfig as JCLIP
+    from rlaifv_tpu.models.convert import load_llava_checkpoint as jload
+    from rlaifv_tpu.models.convert import quantize_llm_int8 as jquantize
+    from rlaifv_tpu.models.llama import LlamaConfig as JLlama
+    from rlaifv_tpu.models.llava import LlavaConfig as JLlavaConfig
+    from rlaifv_tpu.models.llava import LlavaForCausalLM as JLlava
+    from rlaifv_tpu.train.ref_logp import inference_logp
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, QuantDense
+    from rlaifv_tpu_torch.train import __main__ as tmain
+    from tests.test_loader_variants import _make_tiny_llava_sd
+
+    ckpt, data, jdata = (str(tmp_path / d) for d in ("ckpt", "data", "jdata"))
+    _make_tiny_llava_sd(ckpt)
+    tok = _tiny_tokenizer(ckpt)
+    llm, vision = _tiny_dims()
+    rows = _tiny_rows()
+    jcfg = JLlavaConfig(llm=JLlama(**llm, quantize=True, quantize_lm_head=False),
+                        vision=JCLIP(**vision))
+    params = jload(ckpt, vision_layers_to_run=jcfg.vision.layers_to_run)
+    params["llm"] = jquantize(params["llm"], include_lm_head=False)
+    inference_logp(rows, JLlava(jcfg), jax.tree.map(jnp.asarray, params), tok,
+                   jdata if logps == "precompute" else data, max_len=512,
+                   num_patches=jcfg.num_image_tokens, batch_pairs=2,
+                   image_processor=ClipImageProcessor(image_size=14))
+    if logps == "precompute":
+        os.makedirs(data)
+        pd.DataFrame(rows).to_parquet(os.path.join(data, "raw-000.parquet"))
+
+    tcfg = LlavaConfig(llm=LlamaConfig(**llm), vision=CLIPVisionConfig(**vision))
+    built = []
+    monkeypatch.setattr(tmain, "build_llava", lambda config, device: (
+        tcfg, built.append(LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu"))
+        or built[-1]))
+    out = tmp_path / "out"
+    cfg = {"model": {"model_name_or_path": ckpt, "quantize": True},
+           "data": {"data_dir": data, "max_len": 512},
+           "training": {"output_dir": str(out), "max_steps": 2, "save_steps": 2,
+                        "learning_rate": 1e-3, "warmup_ratio": 0.0, "use_lora": True,
+                        "lora_r": 4, "lora_alpha": 16, "lm_head_impl": "xla",
+                        "shared_prefix_len": -1}}
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    assert tmain.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"]) == 2
+    model = built[0]
+    assert isinstance(model.llm.model.layers[0].mlp.down_proj, QuantDense)
+    assert not isinstance(model.llm.lm_head, QuantDense) and model.cfg.llm.quantize
+
+    if logps == "precompute":
+        name = "RLAIF-V-Dataset-withlogp_000-4.parquet"
+        got, want = (pd.read_parquet(os.path.join(d, name)) for d in (data, jdata))
+        for a, b in zip(got["logps"], want["logps"]):
+            a, b = json.loads(a)["logps"], json.loads(b)["logps"]
+            np.testing.assert_allclose([a[0], a[3]], [b[0], b[3]], atol=1e-4)
+            for k in (1, 2, 4, 5):
+                np.testing.assert_allclose(a[k], b[k], atol=1e-5)
+    logged = [json.loads(x) for x in open(out / "metrics.jsonl")]
+    steps = [m for m in logged if "loss" in m]
+    assert [m["step"] for m in steps] == [1, 2]
+    np.testing.assert_allclose(steps[0]["loss"], np.log(2.0), atol=1e-4)
+    state = CheckpointManager(str(out / "checkpoints")).restore()
+    assert all(k.startswith("llm/model/layer_") and k[-2:] in ("/a", "/b")
+               for k in state["params"])
+    assert len(state["params"]) == 2 * 7 * llm["num_layers"]
