@@ -71,8 +71,25 @@ Phases, one progress line each (or a few):
      suffix has fewer than INT8_DEQUANT_MIN_M rows (#7 and #8 on the train
      path); step time, pairs/s, tokens/s, peak memory and launches a step.
 
-Each path of the main run (4, 8, 6, and 9's precompute, steps and short
-step) starts with every launch counter at 0 and is read just after; the
+  3e. (run after 3d) the int4 weight kernels (#11 forward on rows quantised
+     in torch, #12 its dx) against their plain twins at the same widths and
+     M = 16, 64, 127, 128 and phase 10's prefix and suffix rows: max abs
+     difference 0 (#12 also at N = 11008, which the dispatch sends to the
+     dequant dx); times beside the int8 bound, torch._int_mm on the
+     unpacked int8 operands (product only, both weight layouts) and the
+     "dequant" route, and one projection's int4 route against it;
+  10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
+     built in memory): phase 8's seed-0 model rebuilt after phase 9 is
+     freed, its LLM projections quantised to nibble-packed int4 with
+     group-128 scales on the card, the reference logps of the 16 rows on
+     that base, step 0 against the "dequant" route (DPO and SFT
+     gradients), 3 AdamW steps of 8 pairs (loss near ln 2 at step 0, lower
+     by step 2); step time, pairs/s, tokens/s, peak memory, and the
+     launches a step of #11, #12 and the dequant dx (gate/up).
+
+Each path of the main run (4, 8, 6, 9's precompute, steps and short step,
+and 10's precompute and steps) starts with every launch counter at 0 and is
+read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
 bound and library time.
 Any failure raises (non-zero exit). The last two lines are a JSON object of
@@ -110,10 +127,13 @@ from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     init_weights_,
 )
 from rlaifv_tpu_torch.models.convert import (  # noqa: E402
+    quantize_int4_torch,
     quantize_kernel_int8_torch,
+    quantize_llm_int4,
     quantize_llm_int8,
 )
 from rlaifv_tpu_torch.ops import _build  # noqa: E402
+from rlaifv_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix,
@@ -258,6 +278,21 @@ QLORA_GRAD_COS_MIN = 0.85
 QLORA_SFT_GRAD_REL_TOL = 0.4
 QLORA_SFT_GRAD_COS_MIN = 0.95
 QLORA_LR = 1e-4  # constant: the adapters' b moves off 0 by ~lr a step
+# 10: the int4 QLoRA step 0 against the "dequant" route (the int4 weights
+# dequantised to bf16, no activation quantisation), as in 9: the same ~1%
+# rowwise activation quantisation on every projection's forward and on the
+# dx of q/k/v/o/down (#12 quantises dy * gs[j] per row and group); gate/up
+# dx takes the dequant formula on both routes. Read on an H100 80GB HBM3
+# (PERF.md section 6, PR 5; deterministic kernels on the same inputs):
+# logps 7.6e-4 relative; the DPO margin's b gradients rel 0.24-0.48, cosine
+# >= 0.887 (layer 31 q_proj; a little below 9's 0.914); the SFT term's rel
+# 0.047-0.24, cosine >= 0.970. The bounds sit about 1.5x outside the
+# readings (rel, and 1 - cosine), as in 9
+INT4_LOGP_RTOL = QLORA_LOGP_RTOL
+INT4_GRAD_REL_TOL = 0.75
+INT4_GRAD_COS_MIN = 0.82
+INT4_SFT_GRAD_REL_TOL = QLORA_SFT_GRAD_REL_TOL
+INT4_SFT_GRAD_COS_MIN = QLORA_SFT_GRAD_COS_MIN
 
 
 def _fake_tokenizer():
@@ -288,6 +323,8 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "int8_dx": (qm.int8_matmul_dx, "launches"),
     "int8_prequant": (qm.int8_matmul_prequant, "launches"),
     "int8_dx_prequant": (qm.int8_matmul_dx_prequant, "launches"),
+    "int4": (i4.int4_matmul, "launches"),
+    "int4_dx": (i4.int4_matmul_dx, "launches"),
 }
 
 
@@ -1181,38 +1218,44 @@ def phase_train_vs_plain(model, adapter, batch, hp) -> None:
         raise AssertionError("the train slice disagrees with its plain paths")
 
 
-def qlora_batches(rows: list, short: dict, tok, cfg: LlavaConfig, ref=None) -> dict:
-    """9, data: configs/llava15_dpo_qlora.json (int8 base, adapters r 64 /
-    alpha 16, 8 pairs a step, max_len 2048, shared_prefix_len -1) collated
-    as train.py collates it (DPOCollator's bucket 256): the first 8 rows as
-    one batch, its shared prefix derived; and the short row's pair with its
-    suffix trimmed to the labels (shared_suffix_len W, a multiple of 16).
-    `ref`: the reference logps of rows + [short]. The projections' row
-    counts (prefix 8 Pa, suffix 2 x 8 (L - P), short suffix 2 W) follow from
-    the shapes alone, so phase 3d reads them before any logps exist."""
+def qlora_batches(rows: list, short, tok, cfg: LlavaConfig, ref=None, bits: int = 8) -> dict:
+    """9 and 10, data: configs/llava15_dpo_qlora.json (int8 base, adapters r
+    64 / alpha 16, 8 pairs a step, max_len 2048, shared_prefix_len -1; with
+    bits 4 the same file with model.quantize_bits set to 4, in memory)
+    collated as train.py collates it (DPOCollator's bucket 256): the first 8
+    rows as one batch, its shared prefix derived; and, given a short row,
+    its pair with the suffix trimmed to the labels (shared_suffix_len W, a
+    multiple of 16). `ref`: the reference logps of rows (+ [short]). The
+    projections' row counts (prefix 8 Pa, suffix 2 x 8 (L - P), short
+    suffix 2 W) follow from the shapes alone, so phases 3d and 3e read them
+    before any logps exist."""
     c = Config.from_json(str(ROOT / "configs" / "llava15_dpo_qlora.json"))
     t, n = c.training, cfg.num_image_tokens
     assert c.model.quantize and c.model.quantize_bits == 8 and t.use_lora
     assert t.per_device_batch_pairs == 8 and t.shared_prefix_len == -1
+    c.model.quantize_bits = bits
     collator = DPOCollator(pad_token_id=tok.pad_token_id, max_len=c.data.max_len,
                            num_patches=n, beta=t.dpo_beta,
                            **get_family("llava15").collator_kwargs(tok))
-    items = preference_items(rows + [short], tok, cfg, ref)
+    items = preference_items(rows + ([short] if short else []), tok, cfg, ref)
     batch = collator(items[:t.per_device_batch_pairs])
     P = derive_shared_prefix_len(batch, n)
     validate_shared_prefix(batch, P, n)
+    B, L = t.per_device_batch_pairs, batch["input_ids"].shape[1]
+    out = dict(config=c, batch_np=batch, P=P, m_prefix=B * (-(-P // 128) * 128),
+               m_suffix=2 * B * (L - P))
+    if not short:
+        return out
     sbatch = collator(items[-1:])
     Ps = derive_shared_prefix_len(sbatch, n)
     last = int(np.nonzero((sbatch["labels"] != IGNORE_INDEX).any(axis=0))[0].max()) + 1
     W = -(-(last - Ps) // 16) * 16
     validate_shared_prefix(sbatch, Ps, n, suffix_len=W)
     assert 2 * W < qm.INT8_DEQUANT_MIN_M, (W, qm.INT8_DEQUANT_MIN_M)
-    B, L = t.per_device_batch_pairs, batch["input_ids"].shape[1]
-    return dict(config=c, batch_np=batch, P=P, short_np=sbatch, Ps=Ps, W=W,
-                m_prefix=B * (-(-P // 128) * 128), m_suffix=2 * B * (L - P), m_short=2 * W)
+    return dict(out, short_np=sbatch, Ps=Ps, W=W, m_short=2 * W)
 
 
-def int_mm_ms(a: torch.Tensor, b: torch.Tensor):
+def int_mm_ms(a: torch.Tensor, b: torch.Tensor, tag: str = "[3d int8]"):
     """torch._int_mm (cuBLASLt, int8 x int8 -> int32) on the same int8
     operands: the library yardstick of the int8 kernels, product only (no
     quantisation, no scales), timed here only; None where it refuses the
@@ -1220,26 +1263,26 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor):
     try:
         torch._int_mm(a, b)
     except RuntimeError as e:
-        log(f"[3d int8] torch._int_mm refuses {tuple(a.shape)} x {tuple(b.shape)}: "
+        log(f"{tag} torch._int_mm refuses {tuple(a.shape)} x {tuple(b.shape)}: "
             f"{str(e).splitlines()[0][:120]}")
         return None
     return time_ms(lambda: torch._int_mm(a, b))
 
 
-def route_noise(x, dy, q, s, out, dx) -> None:
-    """One projection's int8 route against the "dequant" route on Gaussian
-    x and dy: the activation-quantisation error of a single forward and dx,
-    ~1% of a row's rms for Gaussian rows (a step of max|row| / 127, max ~4.5
-    rms). Phase 9 reads the same noise summed over 32 layers."""
+def route_noise(tag: str, out, dx, deq_out, deq_dx) -> None:
+    """One projection's int8 (int4) route against the "dequant" route on
+    Gaussian x and dy: the activation-quantisation error of a single
+    forward and dx, ~1% of a row's rms for Gaussian rows (a step of
+    max|row| / 127, max ~4.5 rms). Phases 9 and 10 read the same noise
+    summed over 32 layers."""
     rel = [((a.float() - r.float()).norm() / r.float().norm()).item()
-           for a, r in ((out, qm.dequant_matmul(x, q, s)),
-                        (dx, qm.dequant_matmul_dx(dy, q, s)))]
+           for a, r in ((out, deq_out), (dx, deq_dx))]
     ok = max(rel) <= ROUTE_REL_TOL
-    log(f"[3d int8] M={x.shape[0]} K={q.shape[0]} N={q.shape[1]}: int8 route against the "
-        f"dequant route, ||d|| / ||dequant||: forward {rel[0]:.3e} dx {rel[1]:.3e} (tol "
-        f"{ROUTE_REL_TOL}) | {'ok' if ok else 'FAIL'}")
+    log(f"{tag} M={out.shape[0]} K={dx.shape[1]} N={out.shape[1]}: kernel route against "
+        f"the dequant route, ||d|| / ||dequant||: forward {rel[0]:.3e} dx {rel[1]:.3e} "
+        f"(tol {ROUTE_REL_TOL}) | {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the int8 route's quantisation error exceeds its bound")
+        raise AssertionError(f"{tag}: the quantisation error exceeds its bound")
 
 
 def phase_int8(g, qb: dict) -> dict:
@@ -1305,8 +1348,75 @@ def phase_int8(g, qb: dict) -> dict:
                                      f"M={M} K={K} N={N}: {err}")
             res["err"] = max(res["err"], max(err.values()))
             if M == qb["m_prefix"]:
-                route_noise(x, dy, q, s, out[9], out[10])
+                route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
+                            qm.dequant_matmul_dx(dy, q, s))
             del x, dy, q, s, xq, dyq, out, plain, run
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_int4(g, qb: dict) -> dict:
+    """3e: kernels #11 and #12 against their plain twins (max abs difference
+    0) at the 7B projection widths, with times beside the int8 bound,
+    torch._int_mm on the unpacked int8 operands (product only; the weight
+    row-major as it unpacks and in cuBLASLt's fast column-major layout) and
+    the "dequant" route (a bf16 dequantisation plus one cuBLAS product). #12
+    is checked at N = 11008 too, where the dispatch takes the dequant dx."""
+    res = {"err": 0.0}
+    ms = sorted({16, 64, 127, 128, qb["m_suffix"], qb["m_prefix"]})
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
+        w8 = i4.unpack_int4(qp)  # (K, N) row-major
+        w8_col = w8.T.contiguous().T  # the same values column-major
+        for M in ms:
+            x, dy = _randn(g, M, K), _randn(g, M, N)
+            xq, sx = qm.quantize_rows(x.float())
+            sx = sx.reshape(-1)
+            dyq = qm.quantize_rows(dy.float() * gs[0])[0]  # one group's operand
+            run = {11: lambda: i4._kernel_fwd(xq, sx, qp, gs),
+                   12: lambda: i4._kernel_dx(dy, qp, gs)}
+            out = {k: fn() for k, fn in run.items()}
+            plain = {11: i4.int4_matmul_plain(x, qp, gs), 12: i4.int4_matmul_dx_plain(dy, qp, gs)}
+            torch.cuda.synchronize()
+            err = {k: (out[k].float() - plain[k].float()).abs().max().item() for k in out}
+            ok = max(err.values()) == 0 and \
+                all(bool(torch.isfinite(o.float()).all()) for o in out.values())
+            t = {k: time_ms(fn) for k, fn in run.items()}
+            t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
+            t_plain = {11: time_ms(lambda: i4.int4_matmul_plain(x, qp, gs), 5),
+                       12: time_ms(lambda: i4.int4_matmul_dx_plain(dy, qp, gs), 5)}
+            t_lib = {11: int_mm_ms(xq, w8_col, "[3e int4]"), 12: int_mm_ms(dyq, w8.T, "[3e int4]")}
+            t_lib_row = int_mm_ms(xq, w8, "[3e int4]")
+            t_deq = {11: time_ms(lambda: i4.dequant_int4_matmul(x, qp, gs)),
+                     12: time_ms(lambda: i4.dequant_int4_matmul_dx(dy, qp, gs))}
+            nbytes = {11: _nbytes(xq, sx, qp, gs, out[11]), 12: _nbytes(dy, qp, gs, out[12])}
+            ops = 2 * M * K * N
+            entry = {k: dict(ms=t[k], plain_ms=t_plain[k], library_ms=t_lib[k],
+                             dequant_ms=t_deq[k], **bound(ops, nbytes[k], PEAK_INT8_TOPS))
+                     for k in run}
+            res[(M, K, N)] = entry
+
+            def lib(v):
+                return "refused" if v is None else f"{v:.4f}"
+
+            log(f"[3e int4] M={M} K={K} N={N}: max|err| #11 {err[11]:.1e} #12 {err[12]:.1e} "
+                f"(tol 0) | " + " ".join(
+                    f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s (bound "
+                    f"{entry[k]['bound_ms']:.4f}, {entry[k]['bound_by']})" for k in run)
+                + f" | torch row quantisation of x {t_quant:.4f} ms | plain #11 "
+                f"{t_plain[11]:.3f} #12 {t_plain[12]:.3f} ms | torch._int_mm on the unpacked "
+                f"operands (product only) fwd {lib(t_lib[11])} (weight row-major "
+                f"{lib(t_lib_row)}) dx {lib(t_lib[12])} ms | dequant route fwd "
+                f"{t_deq[11]:.4f} dx {t_deq[12]:.4f} ms | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int4 kernels disagree with the plain twins at "
+                                     f"M={M} K={K} N={N}: {err}")
+            res["err"] = max(res["err"], max(err.values()))
+            if M == qb["m_prefix"]:
+                route_noise("[3e int4]", out[11], out[12], i4.dequant_int4_matmul(x, qp, gs),
+                            i4.dequant_int4_matmul_dx(dy, qp, gs))
+            del x, dy, xq, dyq, out, plain, run
+        del qp, gs, w8, w8_col
         torch.cuda.empty_cache()
     return res
 
@@ -1506,6 +1616,179 @@ def phase_qlora(model, tok, rows: list, short: dict, cfg: LlavaConfig,
     return launches
 
 
+def phase_qlora_int4(model, tok, rows: list, cfg: LlavaConfig, ref_bf16: list) -> dict:
+    """10: the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4)
+    on phase 8's seed-0 model (built anew): int4 quantisation on the card,
+    the reference logps of the 16 rows on the int4 base, step 0 against the
+    "dequant" route, 3 AdamW steps of 8 pairs. A spy counts the dequant dx
+    calls (gate/up, N = 11008 > INT4_DX_MAX_N)."""
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    L_layers = cfg.llm.num_layers
+    t0 = time.perf_counter()
+    quantize_llm_int4(model)
+    torch.cuda.synchronize()
+    quant = [m for m in model.modules() if isinstance(m, QuantDense)]
+    base_gb = _nbytes(*(b for m in quant for b in (m.q, m.scale))) / 1e9
+    log(f"[10 int4] LLM projections quantised to int4 (group 128) on the card: "
+        f"{len(quant)} QuantDense (7 x {L_layers} layers) in {time.perf_counter() - t0:.2f} s; "
+        f"lm_head {type(model.llm.lm_head).__name__} {model.llm.lm_head.weight.dtype}, CLIP "
+        f"and projector bf16 | device memory {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"| packed weights and scales {base_gb:.3f} GB")
+    if len(quant) != 7 * L_layers or any(m.bits != 4 for m in quant) or \
+            isinstance(model.llm.lm_head, QuantDense) or model.cfg.llm.quantize_bits != 4:
+        raise AssertionError("10: the int4 base is not the 7 projections x layers")
+    launches = {}
+    deq_dx = {"calls": 0}
+    orig_deq_dx = i4.dequant_int4_matmul_dx
+
+    def spy_deq_dx(*a):
+        deq_dx["calls"] += 1
+        return orig_deq_dx(*a)
+
+    # the reference logps of the 16 rows on the int4 base
+    kw = dict(max_len=2048, num_patches=cfg.num_image_tokens, batch_pairs=8,
+              image_processor=ClipImageProcessor(image_size=cfg.vision.image_size),
+              progress=False, shared_prefix=True)
+    score_preference_rows(rows[:2], model, tok, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = score_preference_rows(rows, model, tok, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = read_counts()
+    add_counts(launches, n)
+    rel, tmean, tmax = _seq_close(ref, ref_bf16, 1.0)
+    log(f"[10 int4] ref-logp on the int4 base (shared-prefix path): {len(ref)} pairs in "
+        f"{dt:.3f} s = {len(ref) / dt:.2f} pairs/s | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | launches #11 {n['int4']} "
+        f"flash {n['flash']} | against phase 8's bf16 base (weights and activations "
+        f"quantised): sums and means max rel {rel:.3e}, per-token |d| mean {tmean:.3e} max "
+        f"{tmax:.3e}")
+    if not all(np.isfinite(r[k]) for r in ref for k in (0, 1, 3, 4)) or \
+            n["int4"] < 7 * L_layers:
+        raise AssertionError(f"10: the int4 ref-logp path failed: {n}")
+
+    qb = qlora_batches(rows, None, tok, cfg, ref, bits=4)
+    t = qb["config"].training
+    hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                    shared_prefix_len=qb["P"])
+    assert hp.lm_head_impl == "fused" and qb["config"].model.quantize_bits == 4
+    batch = batch_to_device(qb["batch_np"], "cuda")
+    adapter = LlavaDPOAdapter(model)
+    model.train()
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+    optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                               weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                               schedule="constant")
+    step = make_lora_dpo_train_step(adapter, optimizer, hp, lora, lora_alpha=t.lora_alpha)
+    L, P = qb["batch_np"]["input_ids"].shape[1], qb["P"]
+    B = t.per_device_batch_pairs
+    tokens = B * P + 2 * B * (L - P)
+    real = B * P + int(qb["batch_np"]["attention_mask"][:, P:].sum())
+    log(f"[10 int4] {B} pairs padded to L={L}, derived P={P}, W={L - P}: {tokens} tokens a "
+        f"step, {real} not padding | adapters r {t.lora_r} alpha {t.lora_alpha} (a of "
+        f"{lora['llm']['model']['layer_0']['mlp']['down_proj']['a'].shape[0]} rows at "
+        f"down_proj: the logical width) | head {hp.lm_head_impl}, remat, constant lr "
+        f"{QLORA_LR} | projection rows: prefix {qb['m_prefix']}, suffix {qb['m_suffix']}")
+
+    # step 0 on the "dequant" route first (the comparison, not counted), and
+    # the SFT term's gradient on both routes
+    last = L_layers - 1
+    names = {f"layer {i} {p} b": f"llm/model/layer_{i}/{blk}/{p}/b"
+             for i in (0, last)
+             for blk, p in (("attn", "q_proj"), ("attn", "v_proj"), ("mlp", "down_proj"))}
+    hp_sft = dataclasses.replace(hp, dpo_weight=0.0, sft_weight=1.0)
+    sft = {}
+    for impl in ("dequant", "kernel"):
+        i4.INT4_IMPL = impl
+        try:
+            if impl == "dequant":
+                deq = _lora_loss_grads(model, adapter, batch, hp, lora, t.lora_alpha, names)
+            sft[impl] = _lora_loss_grads(model, adapter, batch, hp_sft, lora, t.lora_alpha,
+                                         names)
+        finally:
+            i4.INT4_IMPL = "kernel"
+    _, _, sft_grads = compare_runs(sft["kernel"], sft["dequant"])
+    ok = all(rel <= INT4_SFT_GRAD_REL_TOL and cos >= INT4_SFT_GRAD_COS_MIN
+             for rel, cos in sft_grads.values())
+    log("[10 int4] step 0, SFT term (chosen mean logp), kernel vs dequant route: "
+        + " | ".join(f"{k}: rel {r:.3e} cos {c:.6f}" for k, (r, c) in sft_grads.items())
+        + f" (tol rel {INT4_SFT_GRAD_REL_TOL}, cos {INT4_SFT_GRAD_COS_MIN}) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("10: the int4 SFT gradient disagrees with the dequant route")
+
+    losses, times = [], []
+    per_step = []
+    torch.cuda.reset_peak_memory_stats()
+    i4.dequant_int4_matmul_dx = spy_deq_dx
+    try:
+        for i in range(3):
+            reset_counts()
+            deq_dx["calls"] = 0
+            ts = time.perf_counter()
+            metrics = step(batch)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            times.append(time.perf_counter() - ts)
+            n = read_counts()
+            add_counts(launches, n)
+            losses.append(loss)
+            per_step.append((n["int4"], n["int4_dx"], deq_dx["calls"]))
+            log(f"[10 int4] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
+                f"{times[-1]:.3f} s | int4 launches #11 {n['int4']} #12 {n['int4_dx']}, "
+                f"dequant dx calls {deq_dx['calls']} | int8 #7-#10 "
+                f"{n['int8'] + n['int8_dx'] + n['int8_prequant'] + n['int8_dx_prequant']} | "
+                f"flash fwd {n['flash']} dq {n['dq']} dk/dv {n['dkv']} | fused head fwd "
+                f"{n['head_fwd']} dx {n['head_dx']} dW {n['head_dw']} (the head is frozen)")
+            if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+                raise AssertionError(f"10: non-finite loss or zero grad norm at step {i}")
+            # every projection's forward (prefix and suffix), and the dx of
+            # q/k/v/o/down but layer 0's q/k/v (their input needs no gradient)
+            if n["int4"] < 2 * 7 * L_layers or n["int4_dx"] < 2 * (5 * L_layers - 3) or \
+                    deq_dx["calls"] < 1 or min(n["flash"], n["dq"], n["head_fwd"]) < 1:
+                raise AssertionError(f"10: a kernel of the int4 QLoRA step did not run: "
+                                     f"{n}, dequant dx {deq_dx['calls']}")
+            if i == 0:
+                tensors = dict(named_tensors(lora))
+                run = (loss, (float(metrics["logps_train/chosen"]),
+                              float(metrics["logps_train/rejected"])),
+                       {k: tensors[nm].grad.float().clone() for k, nm in names.items()})
+                d_loss, d_logp, grads = compare_runs(run, deq)
+                ok = d_loss <= LOSS_TOL and d_logp <= INT4_LOGP_RTOL and all(
+                    rel <= INT4_GRAD_REL_TOL and cos >= INT4_GRAD_COS_MIN
+                    for rel, cos in grads.values())
+                log(f"[10 int4] step 0, kernel (#11/#12) vs dequant route: loss {loss:.5f} vs "
+                    f"{deq[0]:.5f} (tol {LOSS_TOL}) | logps {run[1][0]:.2f}/{run[1][1]:.2f} vs "
+                    f"{deq[1][0]:.2f}/{deq[1][1]:.2f}, max rel {d_logp:.2e} (tol "
+                    f"{INT4_LOGP_RTOL}) | "
+                    + " | ".join(f"{k}: rel {r:.3e} cos {c:.6f}" for k, (r, c) in grads.items())
+                    + f" (tol rel {INT4_GRAD_REL_TOL}, cos {INT4_GRAD_COS_MIN}) | "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError("10: the int4 step disagrees with the dequant route")
+                if abs(loss - math.log(2)) > REF_LN2_TOL:
+                    raise AssertionError(f"10: step-0 loss {loss} not within {REF_LN2_TOL} "
+                                         f"of ln 2")
+    finally:
+        i4.dequant_int4_matmul_dx = orig_deq_dx
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = statistics.mean(times[1:])
+    log(f"[10 int4] steps 1-2 (after step 0): {step_s:.3f} s a step = {B / step_s:.3f} "
+        f"pairs/s = {tokens / step_s:.0f} tokens/s with padding, {real / step_s:.0f} "
+        f"without | peak device memory {peak_gb:.2f} GiB | launches a step (#11, #12, "
+        f"dequant dx): {per_step} | loss {losses[0]:.6f} -> {losses[-1]:.6f} (step 0 "
+        f"within {REF_LN2_TOL} of ln 2 = {math.log(2):.6f}: {losses[0] - math.log(2):+.3e})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"10: the loss did not fall over 2 updates: {losses}")
+    log(f"[10 int4] launches on the int4 QLoRA path (ref-logp, 3 steps): #11 "
+        f"{launches['int4']} #12 {launches['int4_dx']}")
+    return launches
+
+
 def _row(name, source, replaces, launches, err, timing) -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1530,6 +1813,7 @@ def main() -> None:
     head = phase_head(g, pair)
     qb = qlora_batches(rows, short, tok, cfg)
     int8 = phase_int8(g, qb)
+    int4 = phase_int4(g, qb)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -1574,8 +1858,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[9 qlora] main-path launches (serving 4, ref-logp 8, train 6, QLoRA 9): "
-        f"{launches}")
+    # 10 rebuilds it once more and quantises it to int4
+    model = build_model(LlavaConfig.llava15_7b(remat=True), "10 int4")
+    add_counts(launches, phase_qlora_int4(model, tok, rows, cfg, ref_logps))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"[10 int4] main-path launches (serving 4, ref-logp 8, train 6, QLoRA 9, int4 "
+        f"QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
@@ -1612,6 +1903,15 @@ def main() -> None:
              int8["err"], large[9]),
         _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
              launches["int8_dx_prequant"], int8["err"], large[10]),
+    ]
+    # rows 11-12 at the 8-pair step's prefix of phase 10: #11 at gate/up
+    # (K = 4096, N = 11008), #12 at down_proj's dx (N = 4096, K = 11008)
+    i4_src, i4_py = "rlaifv_tpu_torch/csrc/int4_matmul.cu", "rlaifv_tpu/ops/int4_matmul.py"
+    kernels += [
+        _row("int4_matmul", i4_src, f"{i4_py}:135", launches["int4"], int4["err"],
+             int4[(qb["m_prefix"], 4096, 11008)][11]),
+        _row("int4_matmul_dx", i4_src, f"{i4_py}:240", launches["int4_dx"], int4["err"],
+             int4[(qb["m_prefix"], 11008, 4096)][12]),
     ]
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
@@ -1682,17 +1982,21 @@ def profile_train() -> None:
         _profile_steps(step, tr["batch"], f"head {head}", "fused_head")
 
 
-def profile_qlora() -> None:
-    """`python3 chip_smoke.py --profile-qlora`: the same breakdown of phase
-    9's QLoRA step (8 pairs, int8 base quantised on the card, r 64 adapters,
-    the fused head; zero reference logps)."""
+def profile_qlora(bits: int) -> None:
+    """`python3 chip_smoke.py --profile-qlora [--int4]`: the same breakdown
+    of phase 9's QLoRA step (8 pairs, int8 base quantised on the card, r 64
+    adapters, the fused head; zero reference logps), or with --int4 of
+    phase 10's (the int4 base)."""
     cfg, tok, image_bytes, rows = _profile_setup()
-    qb = qlora_batches(rows, short_row(image_bytes), tok, cfg)
+    qb = qlora_batches(rows, short_row(image_bytes), tok, cfg, bits=bits)
     t = qb["config"].training
     for key in ("ref_win_logp", "ref_rej_logp"):
         qb["batch_np"][key] = np.zeros(t.per_device_batch_pairs, np.float32)
     model = build_model(LlavaConfig.llava15_7b(remat=True), "profile")
-    quantize_llm_int8(model, include_lm_head=False)
+    if bits == 4:
+        quantize_llm_int4(model)
+    else:
+        quantize_llm_int8(model, include_lm_head=False)
     model.train()
     lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
     optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
@@ -1701,13 +2005,14 @@ def profile_qlora() -> None:
     hp = DPOHparams(beta=t.dpo_beta, lm_head_impl="fused", shared_prefix_len=qb["P"])
     step = make_lora_dpo_train_step(LlavaDPOAdapter(model), optimizer, hp, lora,
                                     lora_alpha=t.lora_alpha)
-    _profile_steps(step, batch_to_device(qb["batch_np"], "cuda"), "qlora, 8 pairs", "qmm")
+    _profile_steps(step, batch_to_device(qb["batch_np"], "cuda"),
+                   f"qlora, int{bits} base, 8 pairs", "int4" if bits == 4 else "qmm")
 
 
 if __name__ == "__main__":
     if "--profile-train" in sys.argv[1:]:
         profile_train()
     elif "--profile-qlora" in sys.argv[1:]:
-        profile_qlora()
+        profile_qlora(4 if "--int4" in sys.argv[1:] else 8)
     else:
         main()

@@ -4,8 +4,8 @@ rlaifv_tpu/core/config.py, so `configs/*.json` load unchanged, with
 
 Fields the port does not carry yet still load (a config file stays valid
 for both packages); the code that reads them raises NotImplementedError
-naming the ROADMAP.md item (`quantize_bits` 4: #5, int4; the mesh fields
-are read by nothing on one card).
+naming the ROADMAP.md item (the mesh fields are read by nothing on one
+card).
 """
 from __future__ import annotations
 
@@ -27,15 +27,14 @@ class ModelArguments:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     remat: bool = True
-    # int8 weight-only frozen LLM base (the reference loader's 8-bit
-    # option). With training.use_lora this is QLoRA: 7B DPO-LoRA fits one
-    # 16G v5e chip (scripts/bench_7b_lora.py). The LM head stays bf16.
+    # weight-only quantised frozen LLM base (the reference loader's 8-bit
+    # and 4-bit options), quantised on the device after loading. With
+    # training.use_lora this is QLoRA. The LM head stays bf16.
     quantize: bool = False
-    # 8 or 4: bit-width of the frozen base when quantize=true. 4 = native
-    # nibble-packed int4 + group-128 scales (ops/int4_matmul.py) — half the base footprint
-    # again, which buys sequence length / batch on a 16G chip (12B omni
-    # QLoRA at the reference's seq 2048 instead of 1024). quantize_bits=4
-    # + use_lora IS the original QLoRA recipe (4-bit base, bf16 adapters).
+    # 8 or 4: bit width of the frozen base when quantize=true. 4 = nibble-
+    # packed int4 + group-128 scales (ops/int4_matmul.py), half the int8
+    # base's bytes again; quantize_bits=4 + use_lora is the original QLoRA
+    # recipe (4-bit base, adapters beside it).
     quantize_bits: int = 8
 
 

@@ -49,11 +49,13 @@
 // and larger tiles are left for a later change.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "int8_mma.cuh"
 
 using bf16 = __nv_bfloat16;
 
 namespace {
+
+using namespace rlaifv;
 
 constexpr int BM = 128;  // rows of x (or dy) a CTA owns
 constexpr int BN = 128;  // output columns a CTA owns: N forward, K for dx
@@ -66,92 +68,11 @@ constexpr int LDT = BK + 16;
 constexpr int A_BYTES = BM * LDT;  // one stage of the x (dy) tile
 constexpr int B_BYTES = BN * LDT;  // one stage of the K-contiguous q tile
 constexpr int Q_BYTES = BK * BN;   // one stage of the forward's q tile as it lies
+static_assert(BN == 128, "the q staging tile has 128-byte rows (swizzle128)");
 
-__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t *p) {
-  return *reinterpret_cast<const uint32_t *>(p);
-}
-
-// 16 bytes of row r, columns [c, c + 16) of a row-major (rows, cols) int8
-// matrix into dst (16-byte aligned shared memory); what lies outside the
-// matrix reads as zero. vec: rows are 16-byte aligned, so whole chunks
-// copy asynchronously.
-__device__ __forceinline__ void load16_i8(int8_t *dst, const int8_t *src, int r,
-                                          int rows, int c, int cols, bool vec) {
-  if (r < rows && c + 16 <= cols && vec) {
-    cp_async16(dst, src + (long long)r * cols + c);
-  } else if (r < rows && c < cols) {
-    const int8_t *row = src + (long long)r * cols;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) dst[j] = c + j < cols ? row[c + j] : int8_t(0);
-  } else {
-    *reinterpret_cast<uint4 *>(dst) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// 8 bf16 values of row r, columns [c, c + 8) as floats (zero outside);
-// vec: rows are 16-byte aligned
-__device__ __forceinline__ void load8_bf16(float (&v)[8], const bf16 *src, int r,
-                                           int rows, int c, int cols, bool vec) {
-  if (r < rows && c + 8 <= cols && vec) {
-    rlaifv::bf16x8_to_float(rlaifv::load16(src + (long long)r * cols + c), v);
-  } else {
-    const bf16 *row = src + (long long)r * cols;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = r < rows && c + j < cols ? __bfloat162float(row[c + j]) : 0.f;
-  }
-}
-
-// x (or dy * s) chunk -> the int8 values the TPU kernel feeds its MXU:
-// clamp(round_half_even(v / scale), -127, 127), IEEE division
-__device__ __forceinline__ uint2 quantize8(const float (&v)[8], float scale) {
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    int q = __float2int_rn(__fdiv_rn(v[j], scale));
-    q = max(-127, min(127, q));
-    w[j / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (j % 4));
-  }
-  return make_uint2(w[0], w[1]);
-}
-
-// dx: v = dy * s (one rounded product, as the plain version's dy.float() * s)
-__device__ __forceinline__ void scale_cols(float (&v)[8], const float *acol, int c,
-                                           int cols) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = c + j < cols ? __fmul_rn(v[j], acol[c + j]) : 0.f;
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the forward's q staging tile: (BK rows of K) x (BN bytes of N), row r's
-// 16-byte chunk c stored at chunk c ^ ((r / 4) % 8), so that the transpose's
-// reads (16 K-rows of one chunk per half warp) spread over the banks
-__device__ __forceinline__ int qs_offset(int r, int byte) {
-  return r * BN + ((((byte >> 4) ^ (r >> 2)) & 7) << 4) + (byte & 15);
-}
-
-// Transpose the staged (BK, BN) q tile into the K-contiguous (BN, LDT) tile
-// the mma reads as its .col operand: 4 x 4 byte blocks, two per thread;
+// Transpose the staged (BK, BN) q tile (swizzle128 layout) into the
+// K-contiguous (BN, LDT) tile the mma reads as its .col operand: 4 x 4 byte
+// blocks, two per thread;
 // a half warp takes the 16 K-blocks of one N-block, which makes a warp's
 // 32-bit stores hit 32 distinct banks.
 __device__ __forceinline__ void transpose_q(int8_t *dst, const int8_t *src) {
@@ -161,40 +82,13 @@ __device__ __forceinline__ void transpose_q(int8_t *dst, const int8_t *src) {
     const int kb = idx % (BK / 4), nb = idx / (BK / 4);
     uint32_t w[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) w[r] = ld32(src + qs_offset(kb * 4 + r, nb * 4));
+    for (int r = 0; r < 4; ++r) w[r] = ld32(src + swizzle128(kb * 4 + r, nb * 4));
     // w[r] byte j = q[k = 4 kb + r][n = 4 nb + j]; o[j] byte r = the same
-    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
-    const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
-    const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
-    const uint32_t o[4] = {__byte_perm(t0, t1, 0x5410), __byte_perm(t0, t1, 0x7632),
-                           __byte_perm(t2, t3, 0x5410), __byte_perm(t2, t3, 0x7632)};
+    uint32_t o[4];
+    transpose4x4(w, o);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       *reinterpret_cast<uint32_t *>(dst + (nb * 4 + j) * LDT + kb * 4) = o[j];
-  }
-}
-
-// Rows [m0, m0 + BM) of a (M, C) bf16 matrix (times acol per column, for
-// dx): scale = max(max |v|, 1e-20) / 127 per row, one warp a row.
-template <bool DX>
-__device__ void row_scales(float *srow, const bf16 *a, const float *acol, int m0,
-                           int M, int C, bool vec) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < BM; r += NTHREADS / 32) {
-    float amax = 0.f;
-    if (m0 + r < M) {
-      for (int c = lane * 8; c < C; c += 32 * 8) {
-        float v[8];
-        load8_bf16(v, a, m0 + r, M, c, C, vec);
-        if constexpr (DX) scale_cols(v, acol, c, C);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    if (lane == 0) srow[r] = __fdiv_rn(fmaxf(amax, 1e-20f), 127.0f);
   }
 }
 
@@ -226,7 +120,7 @@ __global__ void __launch_bounds__(NTHREADS)
   if constexpr (PREQ) {
     for (int r = threadIdx.x; r < BM; r += NTHREADS) srow[r] = m0 + r < M ? arow[m0 + r] : 1.f;
   } else {
-    row_scales<!FWD>(srow, a16, acol, m0, M, C, a_vec);
+    row_scales<!FWD, BM, NTHREADS>(srow, a16, acol, m0, M, C, a_vec);
   }
   __syncthreads();
 
@@ -242,7 +136,7 @@ __global__ void __launch_bounds__(NTHREADS)
     if constexpr (FWD) {  // q rows c0 .. c0 + BK, columns n0 .. n0 + BN, as they lie
       for (int i = threadIdx.x; i < BK * (BN / 16); i += NTHREADS) {
         const int r = i / (BN / 16), c = i % (BN / 16);
-        load16_i8(&sQ[st][qs_offset(r, c * 16)], q, c0 + r, K, n0 + c * 16, N, q_vec);
+        load16_i8(&sQ[st][swizzle128(r, c * 16)], q, c0 + r, K, n0 + c * 16, N, q_vec);
       }
     } else {  // q rows n0 .. n0 + BN (output columns), columns c0 .. c0 + BK
       for (int i = threadIdx.x; i < BN * (BK / 16); i += NTHREADS) {

@@ -9,25 +9,27 @@ the same function from the same weights:
 - the flax patch Conv `kernel` (kh, kw, in, out) -> `weight` (out, kh*kw*in);
 - LayerNorm/RMSNorm `scale` and Embed `embedding` -> `weight`;
 - `layer_{i}` -> `layers.{i}`, projector `fc{i}` -> `fcs.{i}`;
-- an int8 QuantDense node {kernel (in, out) int8, scale (out,)} -> the
-  port's QuantDense buffers `q` (the same layout) and `scale`;
+- a QuantDense node, int8 {kernel (in, out) int8, scale (out,)} or int4
+  {kernel (in/2, out) int8 nibble-packed, scale (in/G, out)} -> the port's
+  QuantDense buffers `q` (the same layout) and `scale`;
 - a flax variables dict {"params", "lora"}: the base from "params"; the
   adapters cross with `lora_from_jax`.
 
 `flax_tree` is the inverse view (the model's tensors under the flax names,
-kernels as (in, out)), which train/lora.py walks. `quantize_llm_int8`
-quantises a model's LLM projections to int8 in place, on their device,
-with `quantize_kernel_int8_torch`, bit for bit the JAX package's numpy
-`quantize_kernel_int8`.
+kernels as (in, out)), which train/lora.py walks. `quantize_llm_int8` and
+`quantize_llm_int4` quantise a model's LLM projections in place, on their
+device, with `quantize_kernel_int8_torch` and `quantize_int4_torch`, bit
+for bit the JAX package's numpy `quantize_kernel_int8` and
+`quantize_int4`.
 
 Real HF checkpoints load through `load_llava_checkpoint`, the numpy
 converter of rlaifv_tpu/models/convert.py copied function for function
 (`load_state_dict_dir`, `convert_llama`, `convert_clip_vision`,
 `convert_llava`, `load_image_newline`): HF state dict -> the same flax-style
 tree, then the bridge above. The train entry point builds its configs from
-presets, as train.py does, so no config reader is needed. The int4
-quantizer and the other families' converters are not copied: ROADMAP.md
-'Modules to port' #5 (int4), #9 and #10.
+presets, as train.py does, so no config reader is needed. The other
+families' converters and quantizers are not copied: ROADMAP.md 'Modules
+to port' #9 and #10.
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from rlaifv_tpu_torch.ops.int4_matmul import INT4_GROUP, pack_int4_torch, pick_int4_group
 
 Tree = Dict[str, Any]
 
@@ -59,8 +63,8 @@ def _torch_name(path: str) -> str:
 
 
 def _quant_modules(tree: Mapping[str, Any], prefix: str = "") -> set:
-    """Dotted paths of the int8 QuantDense nodes ({kernel: int8 (in, out),
-    scale: (out,)}); an int4 node (2-D group scales) raises."""
+    """Dotted paths of the QuantDense nodes: an int8 `kernel` beside its
+    `scale` ((out,) for int8 weights, (in/G, out) for packed int4)."""
     out = set()
     for key, val in tree.items():
         if not isinstance(val, Mapping):
@@ -68,10 +72,9 @@ def _quant_modules(tree: Mapping[str, Any], prefix: str = "") -> set:
         kernel = val.get("kernel")
         if kernel is not None and not isinstance(kernel, Mapping) \
                 and _np(kernel).dtype == np.int8:
-            if np.ndim(val.get("scale")) != 1:
-                raise NotImplementedError(
-                    f"{prefix}{key}: int4 weights are not ported to rlaifv_tpu_torch "
-                    "yet: ROADMAP.md 'Modules to port' #5 (int4, kernels #11-#12)")
+            if np.ndim(val.get("scale")) not in (1, 2):
+                raise ValueError(f"{prefix}{key}: an int8 kernel needs a 1-D (int8) or "
+                                 "2-D (int4) scale")
             out.add(prefix + key)
         else:
             out |= _quant_modules(val, f"{prefix}{key}.")
@@ -81,8 +84,8 @@ def _quant_modules(tree: Mapping[str, Any], prefix: str = "") -> set:
 def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax LLaVA param tree (arrays of any numpy-convertible type, or
     torch tensors, as `flax_tree` gives them) ->
-    state dict for rlaifv_tpu_torch's LlavaForCausalLM. int8 QuantDense
-    nodes become `q`/`scale` buffers; given a variables dict {"params",
+    state dict for rlaifv_tpu_torch's LlavaForCausalLM. QuantDense nodes
+    (int8 or int4) become `q`/`scale` buffers; given a variables dict {"params",
     "lora"}, the state dict of its base (the adapters: `lora_from_jax`)."""
     if set(params) == {"params", "lora"}:
         params = params["params"]
@@ -182,6 +185,22 @@ def quantize_kernel_int8_torch(kernel: torch.Tensor):
     return q.contiguous(), scale  # a transposed view in gives row-major (in, out) out
 
 
+def quantize_int4_torch(kernel: torch.Tensor, group: int = INT4_GROUP):
+    """(in, out) float kernel -> (packed int8 (in/2, out), fp32 (in/group,
+    out) scales) on the kernel's device: ops/int4_matmul.py's numpy
+    `quantize_int4` (the JAX package's) bit for bit, with tensor-by-tensor
+    IEEE divisions and round half to even."""
+    w = kernel.detach().float()
+    K, N = w.shape
+    if K % group or group % 2:
+        raise ValueError(f"K={K} not a multiple of even group={group}")
+    g = w.reshape(K // group, group, N)
+    amax = g.abs().amax(dim=1)
+    scale = torch.clamp_min(amax / torch.full_like(amax, 7.0), 1e-8)
+    q = torch.round(g / scale[:, None, :]).clamp_(-7, 7).to(torch.int8)
+    return pack_int4_torch(q.reshape(K, N), group), scale
+
+
 _QUANT_PROJ = re.compile(
     r"^(q_proj|k_proj|v_proj|o_proj|out_proj|gate_proj|up_proj|down_proj|"
     r"lm_head)$"
@@ -189,16 +208,11 @@ _QUANT_PROJ = re.compile(
 
 
 @torch.no_grad()
-def quantize_llm_int8(model: nn.Module, include_lm_head: bool = True) -> nn.Module:
-    """Weight-only int8 for the LLM's projections, in place (the JAX
-    package's `quantize_llm_int8` over the port's modules): each bias-free
-    Dense named q/k/v/o_proj, gate/up/down_proj (and lm_head with
-    include_lm_head) becomes a QuantDense whose `q`/`scale` come from
-    `quantize_kernel_int8_torch` on the weight's device; the float weight
-    is dropped. `model` is a LlavaForCausalLM (its `llm` is quantised) or a
-    LlamaForCausalLM; the configs it carries are updated to say so.
-    include_lm_head=False keeps the head bf16, as QLoRA training does (the
-    fused and compact heads read it as a matrix)."""
+def _quantize_llm(model: nn.Module, include_lm_head: bool, bits: int) -> nn.Module:
+    """The LLM's bias-free projections named q/k/v/o_proj, gate/up/down_proj
+    (and lm_head with include_lm_head) become bits-wide QuantDense layers in
+    place, their weights quantised on their device one at a time (the float
+    weight is dropped); the configs `model` carries say so."""
     from rlaifv_tpu_torch.models.layers import Dense
     from rlaifv_tpu_torch.models.llama import LlamaConfig, QuantDense
 
@@ -209,22 +223,42 @@ def quantize_llm_int8(model: nn.Module, include_lm_head: bool = True) -> nn.Modu
                and (include_lm_head or name != "lm_head")]
     for name in targets:  # one float weight alive at a time
         dense = llm.get_submodule(name)
-        q, scale = quantize_kernel_int8_torch(dense.weight.T)
+        kernel = dense.weight.T
+        if bits == 4:
+            q, scale = quantize_int4_torch(kernel, pick_int4_group(dense.in_features))
+        else:
+            q, scale = quantize_kernel_int8_torch(kernel)
         quant = QuantDense(dense.in_features, dense.out_features,
-                           dtype=dense.compute_dtype, device="meta")
+                           dtype=dense.compute_dtype, bits=bits, device="meta")
         quant.q, quant.scale = q, scale
         parent, _, attr = name.rpartition(".")
         setattr(llm.get_submodule(parent), attr, quant)
+    flags = dict(quantize=True, quantize_bits=bits, quantize_lm_head=include_lm_head)
     for mod in model.modules():
         cfg = getattr(mod, "cfg", None)
         if isinstance(cfg, LlamaConfig):
-            mod.cfg = dataclasses.replace(cfg, quantize=True, quantize_bits=8,
-                                          quantize_lm_head=include_lm_head)
+            mod.cfg = dataclasses.replace(cfg, **flags)
         elif isinstance(getattr(cfg, "llm", None), LlamaConfig):
-            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-                cfg.llm, quantize=True, quantize_bits=8,
-                quantize_lm_head=include_lm_head))
+            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **flags))
     return model
+
+
+def quantize_llm_int8(model: nn.Module, include_lm_head: bool = True) -> nn.Module:
+    """Weight-only int8 for the LLM's projections, in place (the JAX
+    package's `quantize_llm_int8` over the port's modules), with
+    `quantize_kernel_int8_torch`. `model` is a LlavaForCausalLM (its `llm`
+    is quantised) or a LlamaForCausalLM. include_lm_head=False keeps the
+    head bf16, as QLoRA training does (the fused and compact heads read it
+    as a matrix)."""
+    return _quantize_llm(model, include_lm_head, bits=8)
+
+
+def quantize_llm_int4(model: nn.Module, include_lm_head: bool = False) -> nn.Module:
+    """Weight-only int4 for the LLM's projections, in place (the JAX
+    package's `quantize_llm_int4`): nibble-packed weights and group scales
+    from `quantize_int4_torch` with G = `pick_int4_group(in)`. The head
+    stays float by default, as in the JAX package."""
+    return _quantize_llm(model, include_lm_head, bits=4)
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

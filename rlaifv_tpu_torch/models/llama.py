@@ -11,15 +11,16 @@ counterpart of `nn.remat(LlamaBlock, policy=nothing_saveable)`: only each
 block's input is kept for the backward, the rest is recomputed. It applies
 only where autograd records and no cache is given (the training forward).
 
-`quantize` (with `quantize_bits` 8) builds the projections as QuantDense:
-the weight-only int8 layer of the JAX package, int8 (K, N) weights and fp32
-per-output-channel scales as buffers, through ops/quant_matmul.py's kernels
-on the card. Every projection (Dense or QuantDense) adds a LoRA side term
-when train/lora.py attaches adapters to it.
+`quantize` builds the projections as QuantDense, the weight-only layer of
+the JAX package with its weights as buffers: `quantize_bits` 8, int8 (K, N)
+weights and fp32 per-output-channel scales through ops/quant_matmul.py's
+kernels on the card; `quantize_bits` 4, nibble-packed (K/2, N) int8 weights
+and fp32 (K/G, N) group scales through ops/int4_matmul.py's. Every
+projection (Dense or QuantDense) adds a LoRA side term when train/lora.py
+attaches adapters to it.
 
 Not carried (each raises NotImplementedError, naming the ROADMAP.md item
-that ports it): int4 weights (`quantize_bits` 4), the int8 KV cache,
-fused projections (`fuse_proj`).
+that ports it): the int8 KV cache, fused projections (`fuse_proj`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from rlaifv_tpu_torch.models.layers import Dense, lora_side_term
 from rlaifv_tpu_torch.ops.attention import multi_head_attention
+from rlaifv_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul_grad, pick_int4_group
 from rlaifv_tpu_torch.ops.quant_matmul import int8_matmul_grad
 
 
@@ -83,10 +85,11 @@ class LlamaConfig:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for options the port does not carry yet."""
+    """Raise for options the port does not carry yet, and for a bit width
+    the JAX package does not know."""
+    if cfg.quantize and cfg.quantize_bits not in (4, 8):
+        raise ValueError(f"LlamaConfig.quantize_bits must be 8 or 4; got {cfg.quantize_bits}")
     todo = {
-        "quantize_bits=4": (cfg.quantize and cfg.quantize_bits != 8,
-                            "#5 (int4 weights, kernels #11-#12)"),
         "kv_cache_dtype='int8'": (cfg.kv_cache_dtype not in ("fp", "bf16"),
                                   "#6 (serving extensions: int8 KV cache)"),
         "fuse_proj": (cfg.fuse_proj, "#6 (serving extensions: fused projections)"),
@@ -158,23 +161,34 @@ def quantize_kernel_int8(w: "np.ndarray"):
 
 
 class QuantDense(nn.Module):
-    """Weight-only int8 projection without bias: y = x @ (q * scale).
+    """Weight-only quantised projection without bias (the flax
+    `kernel`/`scale` leaves as frozen buffers `q`/`scale`, in the flax
+    layout):
 
-    q (in, out) int8 and scale (out,) fp32 are buffers (frozen; the flax
-    `kernel`/`scale` leaves, in the flax layout). On the card the product
-    is ops/quant_matmul.py's `int8_matmul_grad` (the int8 kernels,
-    differentiable in x); on the CPU it is the formula the JAX package runs
-    off the TPU, x @ (q.to(dtype) * scale.to(dtype)). `lora` adds the same
-    side term as Dense."""
+    - bits 8: y = x @ (q * scale), q (in, out) int8, scale (out,) fp32; on
+      the card ops/quant_matmul.py's `int8_matmul_grad`;
+    - bits 4: y = x @ dequant(q, scale), q (in/2, out) int8 nibble-packed,
+      scale (in/G, out) fp32 group scales (G = `pick_int4_group(in)`); on the
+      card ops/int4_matmul.py's `int4_matmul_grad`.
+
+    Both products are differentiable in x. On the CPU the layer computes the
+    formula the JAX package runs off the TPU: x @ the weight dequantised to
+    the activation type. `lora` adds the same side term as Dense."""
 
     def __init__(self, in_features: int, out_features: int, *, dtype: torch.dtype,
-                 device=None):
+                 bits: int = 8, device=None):
         super().__init__()
+        if bits not in (4, 8):
+            raise ValueError(f"QuantDense: bits must be 8 or 4; got {bits}")
         self.in_features, self.out_features = in_features, out_features
-        self.compute_dtype = dtype
-        self.register_buffer("q", torch.zeros((in_features, out_features),
-                                              dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(out_features, dtype=torch.float32,
+        self.compute_dtype, self.bits = dtype, bits
+        if bits == 4:
+            q_shape = (in_features // 2, out_features)
+            s_shape = (in_features // pick_int4_group(in_features), out_features)
+        else:
+            q_shape, s_shape = (in_features, out_features), (out_features,)
+        self.register_buffer("q", torch.zeros(q_shape, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(s_shape, dtype=torch.float32,
                                                  device=device))
         self.lora = None
 
@@ -182,7 +196,10 @@ class QuantDense(nn.Module):
         dt = self.compute_dtype
         x = x.to(dt)
         if x.is_cuda:
-            y = int8_matmul_grad(x, self.q, self.scale)
+            product = int4_matmul_grad if self.bits == 4 else int8_matmul_grad
+            y = product(x, self.q, self.scale)
+        elif self.bits == 4:
+            y = x @ dequantize_int4(self.q, self.scale, dt)
         else:
             y = x @ (self.q.to(dt) * self.scale.to(dt))
         return y if self.lora is None else y + lora_side_term(x, self.lora)
@@ -190,7 +207,8 @@ class QuantDense(nn.Module):
 
 def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device, quantize=None):
     if cfg.quantize if quantize is None else quantize:
-        return QuantDense(n_in, n_out, dtype=cfg.dtype, device=device)
+        return QuantDense(n_in, n_out, dtype=cfg.dtype, bits=cfg.quantize_bits,
+                          device=device)
     return Dense(n_in, n_out, bias=False, dtype=cfg.dtype,
                  param_dtype=cfg.param_dtype, init_std=0.02, device=device)
 

@@ -63,6 +63,10 @@ SIGNATURES = {
     "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 3 + [_P],
     # dyq, sy, q, dx, M, K, N, stream
     "int8_matmul_dx_prequant_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # xq, sx, qp, gs, out, M, K, N, G, stream
+    "int4_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # dy, qp, gs, dx, M, K, N, G, stream
+    "int4_matmul_dx_bf16": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -14,9 +14,10 @@ head), and DPO trains against those reference logps.
 
 `training.use_lora` trains LoRA adapters (train/lora.py, seeded from
 `training.seed`) over the frozen model; `model.quantize` (which needs
-use_lora, as in train.py) first quantises the LLM's projections to int8 on
-the device, the head kept bf16 (QLoRA). The reference logps are then
-scored on that int8 base.
+use_lora, as in train.py) first quantises the LLM's projections on the
+device, the head kept bf16 (QLoRA): to int8, or with `model.quantize_bits`
+4 to nibble-packed int4 with group-128 scales (the original QLoRA recipe).
+The reference logps are then scored on that quantised base.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def build_llava(config, device):
 
 def check_quantize(config) -> None:
     """train.py's rule: a quantised base trains nothing by itself; and the
-    port quantises to int8 only."""
+    bit width is 8 or 4."""
     m = config.model
     if not m.quantize:
         return
@@ -77,6 +78,7 @@ def run_config(config, device) -> int:
     from rlaifv_tpu_torch.models.convert import (
         load_jax_params,
         load_llava_checkpoint,
+        quantize_llm_int4,
         quantize_llm_int8,
     )
     from rlaifv_tpu_torch.train.family import get_family
@@ -92,7 +94,10 @@ def run_config(config, device) -> int:
         config.model.model_name_or_path, dtype=np.float32,
         vision_layers_to_run=cfg.vision.layers_to_run))
     if config.model.quantize:
-        quantize_llm_int8(model, include_lm_head=False)
+        if config.model.quantize_bits == 4:
+            quantize_llm_int4(model)
+        else:
+            quantize_llm_int8(model, include_lm_head=False)
         cfg = model.cfg
     tokenizer = AutoTokenizer.from_pretrained(config.model.model_name_or_path,
                                               use_fast=False)

@@ -91,13 +91,18 @@ def lora_init(
 ) -> Tree:
     """a ~ kaiming-uniform (peft default, bound sqrt(6 / fan_in)), b = 0
     (the delta starts at zero), on each kernel's device, drawn from
-    `generator` (which lives on that device) in tree order."""
+    `generator` (which lives on that device) in tree order. On a
+    packed-int4 base (an int8 kernel beside 2-D group scales, two weight
+    rows a byte) the adapter lives in the logical (in, out) space."""
     if isinstance(params, nn.Module):
         params = flax_tree(params)
     lora: Tree = {}
     for path in lora_target_paths(params, target, exclude):
         leaf = _get(params, path)
         fan_in = leaf.shape[0]
+        scale = _get(params, path.rsplit("/kernel", 1)[0]).get("scale")
+        if scale is not None and _ndim(scale) == 2 and leaf.dtype == torch.int8:
+            fan_in *= 2
         bound = float(np.sqrt(6.0 / fan_in))
         a = torch.empty((fan_in, r), dtype=dtype, device=leaf.device).uniform_(
             -bound, bound, generator=generator)

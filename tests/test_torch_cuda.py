@@ -16,7 +16,8 @@ other orders); dx and dW elementwise within 2^-6 |plain| + 1e-5 max|plain|
 (both round dl to bf16 and the fp32 sums to bf16 once: an ulp or two).
 The int8 matmul kernels equal their plain twins bit for bit (exact integer
 sums, IEEE quantisation, the same fp32 epilogue), and #7 equals #9, #8
-equals #10.
+equals #10; so do the int4 kernels #11 and #12 (the groups' fp32 sums in
+order, each product and sum rounded separately).
 """
 import pytest
 import torch
@@ -372,3 +373,93 @@ def test_int8_kernels_raise_on_what_they_do_not_take(gen):
         qm.int8_matmul(x, q, s.double())
     with pytest.raises(ValueError):
         qm.int8_matmul_dx(dy, q[:, :16], s)
+
+
+def _int4_case(gen, M, K, N):
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch
+
+    qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"))
+    return _randn(gen, M, K), _randn(gen, M, N), qp, gs
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (16, 4096, 4096),     # q/k/v/o widths, few rows
+    (127, 4096, 11008),   # gate/up widths, one ragged row tile
+    (300, 11008, 4096),   # down_proj: 86 groups, ragged rows
+    (5, 384, 128),        # three groups, one column tile
+])
+def test_int4_kernels_match_plain_bit_for_bit(gen, M, K, N):
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+
+    x, dy, qp, gs = _int4_case(gen, M, K, N)
+    n0 = (i4.int4_matmul.launches, i4.int4_matmul_dx.launches)
+    out, dx = i4.int4_matmul(x, qp, gs), i4.int4_matmul_dx(dy, qp, gs)
+    torch.cuda.synchronize()
+    assert (i4.int4_matmul.launches - n0[0], i4.int4_matmul_dx.launches - n0[1]) == (1, 1)
+    assert out.shape == (M, N) and dx.shape == (M, K)
+    assert torch.equal(out, i4.int4_matmul_plain(x, qp, gs))
+    assert torch.equal(dx, i4.int4_matmul_dx_plain(dy, qp, gs))
+
+
+def test_int4_autograd_routes_and_quant_dense_on_cuda(gen, monkeypatch):
+    """int4_matmul_grad launches #11 and, up to INT4_DX_MAX_N output
+    columns, #12 (wider ones take the dequant dx); INT4_IMPL "dequant"
+    launches neither; QuantDense(bits=4) on the card agrees with its CPU
+    formula to the activation quantisation's ~1%; the weight quantiser gives
+    the CPU's bits."""
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch
+    from rlaifv_tpu_torch.models.llama import QuantDense
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+
+    w = 0.02 * torch.randn(256, 384, generator=gen, device="cuda")
+    qp, gs = quantize_int4_torch(w)
+    qp_cpu, gs_cpu = quantize_int4_torch(w.cpu())
+    assert torch.equal(qp.cpu(), qp_cpu) and torch.equal(gs.cpu(), gs_cpu)
+    counters = (i4.int4_matmul, i4.int4_matmul_dx)
+    for max_n, want in ((8192, [1, 1]), (256, [1, 0])):
+        monkeypatch.setattr(i4, "INT4_DX_MAX_N", max_n)
+        x = _randn(gen, 200, 256).requires_grad_(True)
+        n0 = [f.launches for f in counters]
+        i4.int4_matmul_grad(x, qp, gs).float().sum().backward()
+        assert [f.launches - n for f, n in zip(counters, n0)] == want
+        assert x.grad.dtype == torch.bfloat16
+    monkeypatch.setattr(i4, "INT4_DX_MAX_N", 8192)
+    monkeypatch.setattr(i4, "INT4_IMPL", "dequant")
+    n0 = [f.launches for f in counters]
+    x = _randn(gen, 200, 256).requires_grad_(True)
+    i4.int4_matmul_grad(x, qp, gs).float().sum().backward()
+    assert [f.launches for f in counters] == n0
+    monkeypatch.setattr(i4, "INT4_IMPL", "kernel")
+
+    layer = QuantDense(256, 384, dtype=torch.bfloat16, bits=4, device="cuda")
+    layer.q.copy_(qp)
+    layer.scale.copy_(gs)
+    x = _randn(gen, 3, 70, 256)
+    got = layer(x).float()
+    want = x.float() @ i4.dequantize_int4(qp, gs)
+    assert ((got - want).abs() <= 0.02 * want.abs() + 0.02 * want.abs().max()).all()
+
+
+def test_int4_kernels_raise_on_what_they_do_not_take(gen):
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+
+    x, dy, qp, gs = _int4_case(gen, 8, 256, 128)
+    # strided activations are taken (copied), a strided weight is not
+    xt, dyt = _randn(gen, 256, 200).T, _randn(gen, 128, 200).T
+    assert torch.equal(i4.int4_matmul(xt, qp, gs), i4.int4_matmul_plain(xt, qp, gs))
+    assert torch.equal(i4.int4_matmul_dx(dyt, qp, gs), i4.int4_matmul_dx_plain(dyt, qp, gs))
+    with pytest.raises(TypeError):
+        i4.int4_matmul(x.float(), qp, gs)
+    with pytest.raises(TypeError):
+        i4.int4_matmul_dx(dy.half(), qp, gs)
+    with pytest.raises(TypeError):
+        i4.int4_matmul(x, qp.float(), gs)
+    with pytest.raises(ValueError):
+        i4.int4_matmul(x, qp, gs.double())
+    with pytest.raises(ValueError):  # N not a multiple of 128
+        i4.int4_matmul(x, qp[:, :64].contiguous(), gs[:, :64].contiguous())
+    _, _, qp2, gs2 = _int4_case(gen, 1, 256, 256)
+    with pytest.raises(ValueError):  # a strided weight
+        i4.int4_matmul_dx(dy, qp2[:, :128], gs2[:, :128])
+    with pytest.raises(ValueError):  # groups of 64 rows
+        i4.int4_matmul(x, qp, torch.ones(4, 128, device="cuda"))

@@ -3,8 +3,9 @@ outputs on the same inputs.
 
 rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
 `utils/prefetch`, the llava15 `train/family` spec, the HF-checkpoint
-loader of `models/convert`, `quantize_kernel_int8` and the tree helpers of
-`train/lora` (it imports nothing of rlaifv_tpu). Each case
+loader of `models/convert`, `quantize_kernel_int8`, the numpy int4 helpers
+of `ops/int4_matmul` and the tree helpers of `train/lora` (it imports
+nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -188,6 +189,19 @@ def case_quantize_kernel_int8(pkg):
     w = (rng.normal(size=(48, 40)) * 0.02).astype(np.float32)
     w[:, 3] = 0  # the 1e-8 scale floor
     return pkg("models.llama").quantize_kernel_int8(w)
+
+
+def case_int4_numpy_helpers(pkg):
+    """INT4_GROUP, pick_int4_group, and the numpy pack_int4 / quantize_int4
+    at group 128 and at one group of K, with an all-zero column (the 1e-8
+    scale floor)."""
+    i4 = pkg("ops.int4_matmul")
+    rng = np.random.default_rng(2)
+    w = (rng.normal(size=(256, 40)) * 0.02).astype(np.float32)
+    w[:, 5] = 0
+    q = rng.integers(-7, 8, size=(96, 24)).astype(np.int8)
+    return (i4.INT4_GROUP, [i4.pick_int4_group(k) for k in (128, 256, 11008, 64, 96)],
+            i4.pack_int4(q, 32), i4.quantize_int4(w), i4.quantize_int4(w, group=256))
 
 
 def _lora_tree(rng):

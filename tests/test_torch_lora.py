@@ -2,11 +2,14 @@
 package's, on the CPU.
 
 One flax param tree of the tiny LLaVA (fp32; for QLoRA its LLM projections
-int8, filled as tests/test_lora_collection.py fills them) and one adapter
+int8 or packed int4, filled as tests/test_lora_collection.py fills them;
+the int4 base at the tiny width, where each projection is one group, and
+at hidden 128 / intermediate 256, where the groups are 128 rows) and one adapter
 tree (JAX `lora_init` plus seeded noise, so both a and b are non-zero)
 cross to the port with `load_jax_params` and `lora_from_jax`. The same
 collated batch then goes through both DPO steps. On the CPU both packages'
-int8 projections compute x @ (q * scale) in the activation type, so the
+quantised projections compute x @ the dequantised weight in the activation
+type, so the
 comparison is fp32 against fp32: loss and metrics atol 1e-5, every adapter
 gradient atol 1e-5 plus rtol 1e-4 (as tests/test_torch_train.py: sums in
 another order). The adapters after one AdamW update: atol 1e-6 plus rtol
@@ -76,32 +79,42 @@ def batch():
     return coll([_pair(rng, cfg.llm.vocab_size, cfg.vision.image_size) for _ in range(3)])
 
 
-def _jax_llava(quantize, remat=False):
+# the LLM options of each base
+BASES = {
+    "bf16-base": {},
+    "int8-base": dict(quantize=True),
+    "int4-base": dict(quantize=True, quantize_bits=4),
+    "int4-base-g128": dict(quantize=True, quantize_bits=4, hidden_size=128,
+                           intermediate_size=256),
+}
+
+
+def _jax_llava(base, remat=False):
     tiny = JLlavaConfig.tiny()
     return JLlava(JLlavaConfig(
-        llm=JLlamaConfig.tiny(quantize=quantize, quantize_lm_head=False, remat=remat),
+        llm=JLlamaConfig.tiny(**BASES[base], quantize_lm_head=False, remat=remat),
         vision=tiny.vision))
 
 
-def _params(batch, quantize):
-    params = _jax_llava(quantize).init(
+def _params(batch, base):
+    params = _jax_llava(base).init(
         jax.random.PRNGKey(0), jnp.asarray(batch["input_ids"][:2]),
         images=jnp.asarray(batch["images"][:2]),
         image_starts=jnp.asarray(batch["image_starts"][:2]))["params"]
-    return _fill_int8(params) if quantize else params
+    return _fill_int8(params) if BASES[base] else params
 
 
-def _torch_llava(params, quantize, remat=False):
-    cfg = LlavaConfig.tiny(quantize=quantize, quantize_lm_head=False, remat=remat)
+def _torch_llava(params, base, remat=False):
+    cfg = LlavaConfig.tiny(**BASES[base], quantize_lm_head=False, remat=remat)
     return load_jax_params(LlavaForCausalLM(cfg), params)
 
 
 def test_target_paths_match_jax(batch):
     """The same kernels get adapters, by the same flax paths, on the float
     and on the int8 base, with the default and with custom rules."""
-    for quantize in (False, True):
-        params = _params(batch, quantize)
-        model = _torch_llava(params, quantize)
+    for quantize, base in ((False, "bf16-base"), (True, "int8-base")):
+        params = _params(batch, base)
+        model = _torch_llava(params, base)
         for kw in ({}, dict(target=r"model/.*(q_proj|up_proj)/kernel$"),
                    dict(target=r"(proj|fc\d)/kernel$", exclude=r"lm_head")):
             want = jlora.lora_target_paths(params, **kw)
@@ -113,14 +126,22 @@ def test_target_paths_match_jax(batch):
             assert model.llm.model.layers[0].attn.q_proj.q.dtype == torch.int8
 
 
-def test_lora_init_is_kaiming_uniform_with_zero_b(batch):
-    model = _torch_llava(_params(batch, True), True)
+def _check_lora_init(batch, base):
+    """(in, r) and (r, out) adapters in the logical weight space, as the JAX
+    lora_init gives them; a bounded by sqrt(6 / in); b zero; the draws
+    repeat."""
+    params = _params(batch, base)
+    model = _torch_llava(params, base)
     lora = tlora.lora_init(torch.Generator().manual_seed(3), model, r=8)
     pairs = dict(tlora.adapter_pairs(lora))
     assert sorted(f"{p}/kernel" for p in pairs) == sorted(tlora.lora_target_paths(model))
+    jflat = dict(jlora._flatten(jlora.lora_init(jax.random.PRNGKey(0), params, r=8)))
     for path, node in pairs.items():
         mod = model.get_submodule(path.replace("/layer_", "/layers/").replace("/", "."))
-        fan_in, fan_out = mod.q.shape
+        fan_in, fan_out = mod.in_features, mod.out_features
+        assert mod.q.shape[0] == (fan_in // 2 if "int4" in base else fan_in)
+        assert jflat[f"{path}/a"].shape == tuple(node["a"].shape)
+        assert jflat[f"{path}/b"].shape == tuple(node["b"].shape)
         assert node["a"].shape == (fan_in, 8) and node["b"].shape == (8, fan_out)
         assert node["a"].abs().max() <= np.sqrt(6.0 / fan_in) and not node["b"].any()
     again = tlora.lora_init(torch.Generator().manual_seed(3), model, r=8)
@@ -128,17 +149,28 @@ def test_lora_init_is_kaiming_uniform_with_zero_b(batch):
                zip(tts.named_tensors(lora), tts.named_tensors(again)))
 
 
-@pytest.mark.parametrize("quantize", [False, True], ids=["bf16-base", "int8-base"])
-def test_side_term_matches_jax_and_the_merged_weights(batch, quantize):
+def test_lora_init_is_kaiming_uniform_with_zero_b(batch):
+    _check_lora_init(batch, "int8-base")
+
+
+def test_lora_init_on_a_packed_int4_base(batch):
+    """On a packed int4 base, whose q holds in/2 rows, the adapters still
+    live in the logical (in, out) space (fan_in doubled, as in the JAX
+    package)."""
+    _check_lora_init(batch, "int4-base-g128")
+
+
+@pytest.mark.parametrize("kind", list(BASES))
+def test_side_term_matches_jax_and_the_merged_weights(batch, kind):
     """Adapters attached through lora_scaled give the JAX package's forward
     with its "lora" collection; on the float base also the forward of the
     lora_merge weights (the reference's peft merge)."""
-    params = _params(batch, quantize)
+    params = _params(batch, kind)
     lora = _noisy_lora(params)
-    model = _torch_llava(params, quantize).eval()
+    model = _torch_llava(params, kind).eval()
     ids = np.asarray(batch["input_ids"][:2]).clip(min=0)
     mask = np.asarray(batch["attention_mask"][:2])
-    jmodel = _jax_llava(quantize)
+    jmodel = _jax_llava(kind)
     variables = {"params": params, "lora": jlora.lora_scaled(lora, alpha=16.0)}
     want = jmodel.apply(variables, jnp.asarray(ids), attention_mask=jnp.asarray(mask),
                         method=lambda m, i, attention_mask: m.llm(
@@ -159,7 +191,7 @@ def test_side_term_matches_jax_and_the_merged_weights(batch, quantize):
         got_base = model.llm(torch.from_numpy(ids).long(),
                              attention_mask=torch.from_numpy(mask))[0]
     np.testing.assert_allclose(got_base.numpy(), np.asarray(base), atol=ATOL)
-    if not quantize:
+    if not BASES[kind]:
         with torch.no_grad():
             merged = tlora.lora_merge(flax_tree(model), tl, alpha=16.0)
         mmodel = load_jax_params(LlavaForCausalLM(LlavaConfig.tiny()), merged).eval()
@@ -200,7 +232,7 @@ def test_quant_dense_reads_lora():
 
 def test_npz_round_trip_both_ways(tmp_path, batch):
     """save_lora's npz (adapters, alpha, r) reads back in both packages."""
-    params = _params(batch, False)
+    params = _params(batch, "bf16-base")
     lora = _noisy_lora(params)
     tl = lora_from_jax(lora)
     tlora.save_lora(str(tmp_path / "t.npz"), tl, alpha=16.0, r=4)
@@ -217,9 +249,11 @@ def test_npz_round_trip_both_ways(tmp_path, batch):
 
 
 STEPS = {
-    "qlora": dict(quantize=True, remat=False, paired=False),
-    "qlora-paired-remat": dict(quantize=True, remat=True, paired=True),
-    "lora": dict(quantize=False, remat=False, paired=False),
+    "qlora": dict(base="int8-base", remat=False, paired=False),
+    "qlora-paired-remat": dict(base="int8-base", remat=True, paired=True),
+    "lora": dict(base="bf16-base", remat=False, paired=False),
+    "qlora-int4": dict(base="int4-base", remat=False, paired=False),
+    "qlora-int4-g128-paired-remat": dict(base="int4-base-g128", remat=True, paired=True),
 }
 
 
@@ -230,7 +264,7 @@ def test_lora_dpo_step_matches_jax(batch, case):
     gradient, the global norm and the adapters after the AdamW update;
     the base is untouched and gets no gradient."""
     c = STEPS[case]
-    params = _params(batch, c["quantize"])
+    params = _params(batch, c["base"])
     lora = _noisy_lora(params)
     kw = dict(beta=0.1)
     if c["paired"]:
@@ -238,7 +272,7 @@ def test_lora_dpo_step_matches_jax(batch, case):
             batch, JLlavaConfig.tiny().num_image_tokens)
         assert kw["shared_prefix_len"] > 0
 
-    jadapter = jts.LlavaDPOAdapter(_jax_llava(c["quantize"], c["remat"]))
+    jadapter = jts.LlavaDPOAdapter(_jax_llava(c["base"], c["remat"]))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
     def loss_fn(lo):
@@ -251,7 +285,7 @@ def test_lora_dpo_step_matches_jax(batch, case):
     updates, _ = jopt.update(jgrads, jopt.init(lora), lora)
     jnew = optax.apply_updates(lora, updates)
 
-    model = _torch_llava(params, c["quantize"], c["remat"])
+    model = _torch_llava(params, c["base"], c["remat"])
     base = {k: v.clone() for k, v in model.state_dict().items()}
     tl = lora_from_jax(lora)
     topt = tts.make_optimizer(tl, 1e-2, total_steps=10, warmup_ratio=0.0)
@@ -288,5 +322,5 @@ def test_lora_dpo_step_matches_jax(batch, case):
         assert torch.equal(v, base[name]), name
     assert all(p.grad is None for p in model.parameters())
     assert all(getattr(m, "lora", None) is None for m in model.modules())
-    if c["quantize"]:
+    if BASES[c["base"]]:
         assert set(llava_params_from_jax(params)) == set(model.state_dict())

@@ -3,7 +3,8 @@ triton, and builds nothing at import.
 
 A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
 the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
-module of the port, runs the tiny serving slice on the CPU (random weights
+module of the port, runs the int4 product's plain twin and the tiny
+serving slice on the CPU (random weights
 from a seeded generator), runs `python -m rlaifv_tpu_torch.train --demo
 --device cpu` for 2 steps into a temporary directory, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
@@ -41,6 +42,14 @@ SCRIPT = textwrap.dedent("""
                                                   "rlaifv_tpu_torch.")]
     for name in mods:
         importlib.import_module(name)
+    assert "rlaifv_tpu_torch.ops.int4_matmul" in mods
+
+    # the int4 product on CPU tensors: the plain twins, nothing built
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+    qp, gs = quantize_int4_torch(torch.randn(256, 128, generator=torch.Generator().manual_seed(0)))
+    x = torch.randn(3, 256, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(i4.int4_matmul_grad(x, qp, gs), i4.int4_matmul(x, qp, gs))
 
     from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator
     from rlaifv_tpu_torch.models.llava import (LlavaConfig, LlavaForCausalLM,

@@ -189,16 +189,16 @@ def test_non_finite_loss_stops_the_run(data, tmp_path):
 
 
 def test_what_is_not_ported_raises(data, tmp_path):
-    """The 7B "auto" head is the fused one (ported); LoRA and int8 QLoRA are
-    ported, an int4 base (quantize_bits 4) is #5 and the OmniLMM family #9;
-    each raises before anything is loaded."""
+    """The 7B "auto" head is the fused one (ported); LoRA and QLoRA on an
+    int8 or int4 base are ported, the OmniLMM family is #9 and MiniCPM-V
+    #10; each raises before anything is loaded."""
     training = Config().training
     assert resolve_head(training, 4096) == "fused"
     assert resolve_head(training, 64) == "xla"
     from rlaifv_tpu_torch.train.__main__ import main
 
     for model, item in (({"model_family": "omnilmm"}, "#9"),
-                        ({"quantize": True, "quantize_bits": 4}, "#5")):
+                        ({"model_family": "minicpmv"}, "#10")):
         cfg = {"model": model, "training": {"output_dir": str(tmp_path / "out"),
                                             "use_lora": True}}
         (tmp_path / "cfg.json").write_text(json.dumps(cfg))
@@ -456,16 +456,26 @@ def test_quantize_without_lora_fails_as_train_py_does(tmp_path):
 
 @pytest.mark.parametrize("logps", ["jax-logp-files", "precompute"])
 def test_config_qlora_run(tmp_path, monkeypatch, logps):
+    _qlora_run(tmp_path, monkeypatch, logps, bits=8)
+
+
+@pytest.mark.parametrize("logps", ["jax-logp-files", "precompute"])
+def test_config_qlora_int4_run(tmp_path, monkeypatch, logps):
+    _qlora_run(tmp_path, monkeypatch, logps, bits=4)
+
+
+def _qlora_run(tmp_path, monkeypatch, logps, bits):
     """`--config` with quantize and use_lora (configs/llava15_dpo_qlora.json's
-    model and adapter settings, r 4) on the tiny HF checkpoint: the port
-    loads it, quantises the LLM's projections to int8 (the head stays
-    float), scores the reference logps on that int8 base when the dataset
-    has none (compared with the JAX package's precompute on its own int8
-    base: sums atol 1e-4, per token and means 1e-5, fp32 in both), or reads
-    the JAX package's, and trains 2 LoRA steps; policy == reference at step
-    1 (b = 0), so the loss is ln 2 (atol 1e-4). The checkpoint holds the
-    adapters only. (This tokenizer's rows end with their labels masked, so
-    the steps' gradients are zero here; the trainer test above trains.)"""
+    model and adapter settings, r 4), `quantize_bits` 8 or 4, on the tiny
+    HF checkpoint: the port loads it, quantises the LLM's projections to
+    int8 or packed int4 (the head stays float), scores the reference logps
+    on that base when the dataset has none (compared with the JAX package's
+    precompute on its own quantize_llm_int8 / quantize_llm_int4 base: sums
+    atol 1e-4, per token and means 1e-5, fp32 in both), or reads the JAX
+    package's, and trains 2 LoRA steps; policy == reference at step 1 (b =
+    0), so the loss is ln 2 (atol 1e-4). The checkpoint holds the adapters
+    only. (This tokenizer's rows end with their labels masked, so the steps'
+    gradients are zero here; the trainer test above trains.)"""
     import jax
     import jax.numpy as jnp
     import pandas as pd
@@ -473,7 +483,7 @@ def test_config_qlora_run(tmp_path, monkeypatch, logps):
     from rlaifv_tpu.data.image_processing import ClipImageProcessor
     from rlaifv_tpu.models.clip_vit import CLIPVisionConfig as JCLIP
     from rlaifv_tpu.models.convert import load_llava_checkpoint as jload
-    from rlaifv_tpu.models.convert import quantize_llm_int8 as jquantize
+    from rlaifv_tpu.models.convert import quantize_llm_int4, quantize_llm_int8
     from rlaifv_tpu.models.llama import LlamaConfig as JLlama
     from rlaifv_tpu.models.llava import LlavaConfig as JLlavaConfig
     from rlaifv_tpu.models.llava import LlavaForCausalLM as JLlava
@@ -488,10 +498,11 @@ def test_config_qlora_run(tmp_path, monkeypatch, logps):
     tok = _tiny_tokenizer(ckpt)
     llm, vision = _tiny_dims()
     rows = _tiny_rows()
-    jcfg = JLlavaConfig(llm=JLlama(**llm, quantize=True, quantize_lm_head=False),
-                        vision=JCLIP(**vision))
+    jcfg = JLlavaConfig(llm=JLlama(**llm, quantize=True, quantize_bits=bits,
+                                   quantize_lm_head=False), vision=JCLIP(**vision))
     params = jload(ckpt, vision_layers_to_run=jcfg.vision.layers_to_run)
-    params["llm"] = jquantize(params["llm"], include_lm_head=False)
+    params["llm"] = quantize_llm_int4(params["llm"]) if bits == 4 else \
+        quantize_llm_int8(params["llm"], include_lm_head=False)
     inference_logp(rows, JLlava(jcfg), jax.tree.map(jnp.asarray, params), tok,
                    jdata if logps == "precompute" else data, max_len=512,
                    num_patches=jcfg.num_image_tokens, batch_pairs=2,
@@ -506,7 +517,7 @@ def test_config_qlora_run(tmp_path, monkeypatch, logps):
         tcfg, built.append(LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu"))
         or built[-1]))
     out = tmp_path / "out"
-    cfg = {"model": {"model_name_or_path": ckpt, "quantize": True},
+    cfg = {"model": {"model_name_or_path": ckpt, "quantize": True, "quantize_bits": bits},
            "data": {"data_dir": data, "max_len": 512},
            "training": {"output_dir": str(out), "max_steps": 2, "save_steps": 2,
                         "learning_rate": 1e-3, "warmup_ratio": 0.0, "use_lora": True,
@@ -515,8 +526,11 @@ def test_config_qlora_run(tmp_path, monkeypatch, logps):
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
     assert tmain.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"]) == 2
     model = built[0]
-    assert isinstance(model.llm.model.layers[0].mlp.down_proj, QuantDense)
+    down = model.llm.model.layers[0].mlp.down_proj
+    assert isinstance(down, QuantDense) and down.bits == bits
+    assert down.q.shape == ((16, 16) if bits == 4 else (32, 16))
     assert not isinstance(model.llm.lm_head, QuantDense) and model.cfg.llm.quantize
+    assert model.cfg.llm.quantize_bits == bits
 
     if logps == "precompute":
         name = "RLAIF-V-Dataset-withlogp_000-4.parquet"
