@@ -33,6 +33,16 @@ Phases, one progress line each (or a few):
      kernels' launch counters reset just before and read just after;
   5. the slice against its plain path: shared-prefix logits with every
      attention forced dense, same weights;
+  11. (run after 5, on phase 4's model) the int8-KV serving path, the JAX
+     package's headline serving configuration (scripts/bench_7b_serve.py):
+     one generate of 24 prompts of 896 tokens and 64 new tokens on the bf16
+     model, then the model quantised in place to int8 weights (head bf16),
+     its q/k/v and gate/up projections fused and its cache switched to int8;
+     phase 4's three workloads and the batch-24 generate again (kernel #5
+     on every decode step, #7/#9 at the fused widths), their rates and peak
+     memory beside the bf16 ones; then the prefill and 4 forced decode
+     steps of greedy_gen's prompts on the kernel route against attn_impl
+     "dense" (the dequantised formula) and against a bf16 cache;
   8. the reference-logp precompute: 16 synthetic RLAIF-V rows at the train
      geometry through score_preference_rows on the frozen starting policy
      (LLaVA-1.5-7B with remat, seed 0): the shared-prefix path (a spy
@@ -53,7 +63,9 @@ Phases, one progress line each (or a few):
      #8 its dx, #9 and #10 the prequantised pair) against their plain twins
      at the 7B widths
      (K x N = 4096 x 4096, 4096 x 11008, 11008 x 4096) and M = 16, 64, 127
-     (in-kernel route), 128 and the M values of phase 9's batches: max abs
+     (in-kernel route), 128 and the M values of phase 9's batches, and at
+     phase 11's fused widths (4096 x 12288, 4096 x 22016) and its decode and
+     prefill rows (M = 10, 24, 832, 3328, 21504): max abs
      difference 0, #7 == #9 and #8 == #10; times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
      (product only) and the "dequant" route (a bf16 cuBLAS product of the
@@ -78,6 +90,14 @@ Phases, one progress line each (or a few):
      dequant dx); times beside the int8 bound, torch._int_mm on the
      unpacked int8 operands (product only, both weight layouts) and the
      "dequant" route, and one projection's int4 route against it;
+  3f. (run after 3e) kernel #5, prefix decode over an int8 cache, against
+     its plain twin at phase 11's shapes (B = 10 and 4 at L = 896, block
+     128; B = 24 at L = 1024, block 256) and the edges (one live column,
+     mid-block, a block edge, L % 256 != 0, n_rep 4, D 64, fully masked
+     rows), NaN scales past the last live block; times beside the bound and
+     SDPA over the cache dequantised to bf16; then planted faults (the
+     v-scale fold dropped, p quantised with one global max, valid_len one
+     block short, the mask ignored), each of which must break the bound;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -87,9 +107,9 @@ Phases, one progress line each (or a few):
      by step 2); step time, pairs/s, tokens/s, peak memory, and the
      launches a step of #11, #12 and the dequant dx (gate/up).
 
-Each path of the main run (4, 8, 6, 9's precompute, steps and short step,
-and 10's precompute and steps) starts with every launch counter at 0 and is
-read just after; the
+Each path of the main run (4, 11's two headline runs and its slice, 8, 6,
+9's precompute, steps and short step, and 10's precompute and steps)
+starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
 bound and library time.
 Any failure raises (non-zero exit). The last two lines are a JSON object of
@@ -118,7 +138,7 @@ sys.path.insert(0, str(ROOT))
 from rlaifv_tpu_torch.constants import IGNORE_INDEX  # noqa: E402
 from rlaifv_tpu_torch.core.config import Config  # noqa: E402
 from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
-from rlaifv_tpu_torch.genai.engine import DecodeEngine  # noqa: E402
+from rlaifv_tpu_torch.genai.engine import DecodeEngine, left_pad_batch  # noqa: E402
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
 from rlaifv_tpu_torch.models.llama import LlamaAttention  # noqa: E402
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
@@ -127,17 +147,24 @@ from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     init_weights_,
 )
 from rlaifv_tpu_torch.models.convert import (  # noqa: E402
+    fuse_llm_projections_,
     quantize_int4_torch,
     quantize_kernel_int8_torch,
     quantize_llm_int4,
     quantize_llm_int8,
+    set_llm_config,
 )
 from rlaifv_tpu_torch.ops import _build  # noqa: E402
 from rlaifv_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix,
+    decode_attention_prefix_int8,
+    decode_attention_prefix_int8_ref,
     decode_attention_prefix_ref,
+    dequantize_kv,
+    prefix_block_l,
+    quantize_kv,
 )
 from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     _kernel_dw,
@@ -278,6 +305,27 @@ QLORA_GRAD_COS_MIN = 0.85
 QLORA_SFT_GRAD_REL_TOL = 0.4
 QLORA_SFT_GRAD_COS_MIN = 0.95
 QLORA_LR = 1e-4  # constant: the adapters' b moves off 0 by ~lr a step
+# 3f: kernel #5 against its twin, max|kernel - twin| <= KV8_TOL max|twin|.
+# Both sum the integer products exactly, quantise q and p with IEEE
+# divisions and round the fp32 epilogues alike (no FMA contraction); expf
+# against torch's exp moves a probability by an ulp, which can flip one p8
+# by one step (~1/127 of one key's share), and the output is bf16 (2^-9)
+KV8_TOL = 2 ** -7
+# 11 against its plain paths (logits of a prefill and 4 forced decode
+# steps). The JAX package holds a tiny fp32 model's int8-cache decode to 5%
+# of max|logit| (tests/test_kv_int8.py). A random-weight 7B model in bf16
+# amplifies ulp-level differences far more: flash against dense attention
+# moves phase 5's logits by 4.3% of max|logit|, and with int8 weights every
+# projection's row quantisation turns such differences into whole
+# quantisation steps: the int8-KV prefill (fresh-window flash) against the
+# bf16-cache prefill (dense), the same function, read 0.159 (NVIDIA H100
+# 80GB HBM3, PERF.md section 6). So each comparison is held to
+# INT8_KV_REL_TOL of max|logit| and, for the direction of every logit row,
+# to a cosine of at least INT8_KV_COS_MIN
+INT8_KV_REL_TOL = 0.4
+INT8_KV_COS_MIN = 0.9
+# 11: the JAX package's headline serving shape (scripts/bench_7b_serve.py)
+HEADLINE_B, HEADLINE_PROMPT, HEADLINE_NEW = 24, 896, 64
 # 10: the int4 QLoRA step 0 against the "dequant" route (the int4 weights
 # dequantised to bf16, no activation quantisation), as in 9: the same ~1%
 # rowwise activation quantisation on every projection's forward and on the
@@ -316,6 +364,7 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "dq": (flash_attention_bwd, "dq_launches"),
     "dkv": (flash_attention_bwd, "dkv_launches"),
     "decode": (decode_attention_prefix, "launches"),
+    "decode_int8": (decode_attention_prefix_int8, "launches"),
     "head_fwd": (fused_target_logp, "fwd_launches"),
     "head_dx": (fused_target_logp, "dx_launches"),
     "head_dw": (fused_target_logp, "dw_launches"),
@@ -812,7 +861,11 @@ FACTS = [f"Is there a {w} in the image? Please answer yes or no." for w in
          ("dog", "cat", "car", "tree", "person", "bicycle", "cup", "clock")]
 
 
-def phase_slice(gen: Llava15Generator, image_bytes: bytes) -> dict:
+def phase_slice(gen: Llava15Generator, image_bytes: bytes, tag: str = "4 slice",
+                decode: str = "decode") -> tuple:
+    """autocheck of 8 facts, diverse_gen 10 x 64 and greedy_gen 4 x 32, with
+    every launch counter reset just before and read just after -> (launches,
+    rates). `decode` names the decode kernel of the model's cache type."""
     facts = _items(image_bytes, FACTS)
     diverse = _items(image_bytes, ["Describe the image in detail."] * 10)
     greedy = _items(image_bytes, ["What is in the image?", "Describe the scene.",
@@ -828,11 +881,12 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes) -> dict:
     scored = gen.autocheck(facts, batch_size=8)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    steps0 = decode_attention_prefix.launches
+    owner, attr = COUNTERS[decode]
+    steps0 = getattr(owner, attr)
     sampled = gen.diverse_gen(diverse, temperature=0.7, max_new_tokens=64, seed=0)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    steps1 = decode_attention_prefix.launches
+    steps1 = getattr(owner, attr)
     greedy_rows = gen.greedy_gen(greedy, max_new_tokens=32)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -844,22 +898,24 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes) -> dict:
     assert len(sampled) == 10 and len(greedy_rows) == 4
     assert all(isinstance(r["answer"], str) for r in sampled + greedy_rows)
     n_layers = gen.model.cfg.llm.num_layers
-    log(f"[4 slice] launches during the slice: flash {launches['flash']}, "
-        f"decode {launches['decode']}")
-    if launches["flash"] < n_layers or launches["decode"] < n_layers:
+    log(f"[{tag}] launches during the slice: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v))
+    if launches["flash"] < n_layers or launches[decode] < n_layers:
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     # tokens sampled = rows x (decode steps + the first token, which comes
     # from the prefill logits); one decode step launches one kernel a layer
     n_div = 10 * ((steps1 - steps0) // n_layers + 1)
-    n_greedy = 4 * ((launches["decode"] - steps1) // n_layers + 1)
-    log(f"[4 slice] autocheck 8 facts in {t1 - t0:.3f} s = {8 / (t1 - t0):.2f} facts/s "
+    n_greedy = 4 * ((launches[decode] - steps1) // n_layers + 1)
+    rates = dict(facts_s=8 / (t1 - t0), diverse_tok_s=n_div / (t2 - t1),
+                 greedy_tok_s=n_greedy / (t3 - t2), peak_gb=peak_gb)
+    log(f"[{tag}] autocheck 8 facts in {t1 - t0:.3f} s = {rates['facts_s']:.2f} facts/s "
         f"(p(yes) row 0 = {scored[0]['scores']['yes']:.3e})")
-    log(f"[4 slice] diverse_gen 10 rows, {n_div} tokens in {t2 - t1:.3f} s = "
-        f"{n_div / (t2 - t1):.1f} tok/s (prefill and vision encode included)")
-    log(f"[4 slice] greedy_gen 4 rows, {n_greedy} tokens in {t3 - t2:.3f} s = "
-        f"{n_greedy / (t3 - t2):.1f} tok/s (prefill and vision encode included)")
-    log(f"[4 slice] peak device memory {peak_gb:.2f} GiB")
-    return launches
+    log(f"[{tag}] diverse_gen 10 rows, {n_div} tokens in {t2 - t1:.3f} s = "
+        f"{rates['diverse_tok_s']:.1f} tok/s (prefill and vision encode included)")
+    log(f"[{tag}] greedy_gen 4 rows, {n_greedy} tokens in {t3 - t2:.3f} s = "
+        f"{rates['greedy_tok_s']:.1f} tok/s (prefill and vision encode included)")
+    log(f"[{tag}] peak device memory {peak_gb:.2f} GiB")
+    return launches, rates
 
 
 def phase_slice_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
@@ -892,6 +948,288 @@ def phase_slice_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("slice disagrees with its plain path")
+
+
+def _kv8_cache(g, B: int, L: int, H: int, KVH: int, D: int, valid_len: int,
+               pad: int = 7) -> list:
+    """Kernel #5's operands: bf16 q, a quantised random cache whose scales
+    past the last live block are NaN (never read), and a mask with `pad` x b
+    columns of left padding in row b, live up to valid_len."""
+    q = _randn(g, B, H, D)
+    kq, ks = quantize_kv(_randn(g, B, L, KVH, D))
+    vq, vs = quantize_kv(_randn(g, B, L, KVH, D))
+    end = -(-valid_len // prefix_block_l(L)) * prefix_block_l(L)
+    ks[:, end:] = float("nan")
+    vs[:, end:] = float("nan")
+    mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, pad * b:valid_len] = 1
+    return [q, kq, ks, vq, vs, mask]
+
+
+def _kv8_ratio(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|out - ref|, that error over 3f's bound KV8_TOL x max|ref|)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if not bool(torch.isfinite(out.float()).all()):
+        return math.inf, math.inf
+    return err, err / (KV8_TOL * ref.float().abs().max().item())
+
+
+KV8_CASES = [  # 3f: the serving path's shapes, then the edges
+    dict(name="diverse_gen", B=10, L=896, H=32, KVH=32, D=128, valid=896, time=True),
+    dict(name="greedy_gen", B=4, L=896, H=32, KVH=32, D=128, valid=833, time=False),
+    dict(name="batch-24 headline", B=24, L=1024, H=32, KVH=32, D=128, valid=960, time=True),
+    dict(name="one live column", B=4, L=1024, H=32, KVH=32, D=128, valid=1, time=False),
+    dict(name="mid-block", B=4, L=1024, H=32, KVH=32, D=128, valid=200, time=False),
+    dict(name="block edge", B=4, L=1024, H=32, KVH=32, D=128, valid=256, time=False),
+    dict(name="block 128, n_rep 4", B=3, L=384, H=32, KVH=8, D=128, valid=300, time=False),
+    dict(name="D 64", B=2, L=512, H=8, KVH=8, D=64, valid=137, time=False),
+]
+
+
+def phase_kv8_kernel(g) -> dict:
+    """3f: kernel #5 against its twin at the serving path's shapes and the
+    edges, times beside the bound and the library yardstick, then planted
+    faults that must break the bound."""
+    res = {"err": 0.0}
+    for c in KV8_CASES:
+        B, L, H, KVH, D, valid = (c[k] for k in ("B", "L", "H", "KVH", "D", "valid"))
+        args = _kv8_cache(g, B, L, H, KVH, D, valid)
+        out = decode_attention_prefix_int8(*args, valid)
+        ref = decode_attention_prefix_int8_ref(*args, valid)
+        torch.cuda.synchronize()
+        err, ratio = _kv8_ratio(out, ref)
+        dead = [b for b in range(B) if 7 * b >= valid]  # rows that see no key
+        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead)
+        msg = (f"[3f int8 decode] {c['name']}: B={B} L={L} H={H} KVH={KVH} D={D} "
+               f"valid_len={valid} block_l={prefix_block_l(L)} | max|err| {err:.3e} = "
+               f"{ratio:.3f} of the bound ({KV8_TOL:.4f} x max|twin|), {len(dead)} fully "
+               f"masked rows")
+        if c["time"]:
+            q, kq, ks, vq, vs, mask = args
+            t_k = time_ms(lambda: decode_attention_prefix_int8(*args, valid))
+            t_p = time_ms(lambda: decode_attention_prefix_int8_ref(*args, valid), 10)
+            live = [t[:, :valid] for t in (kq, ks, vq, vs, mask)]
+            kd, vd = (dequantize_kv(a, sc, torch.bfloat16) for a, sc in
+                      ((live[0], live[1]), (live[2], live[3])))
+            keep = (live[4] != 0)[:, None, None, :]
+            t_lib = time_ms(lambda: sdpa(q[:, None], kd, vd, keep))
+            ops = 4 * H * D * valid * B
+            b = bound(ops, _nbytes(q, *live, out), PEAK_INT8_TOPS)
+            gbps = _nbytes(q, *live, out) / (t_k * 1e-3) / 1e9
+            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps, **b)
+            msg += (f" | kernel {t_k:.4f} ms = {gbps:.0f} GB/s ({gbps / HBM_PEAK_GBPS:.1%} of "
+                    f"{HBM_PEAK_GBPS:.0f}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                    f"twin {t_p:.3f} ms, SDPA over the live prefix dequantised to bf16 "
+                    f"(dequantisation not timed) {t_lib:.4f} ms")
+        log(msg + f" | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel #5 disagrees with its twin: {c['name']}")
+        res["err"] = max(res["err"], err)
+        del args, out, ref
+    torch.cuda.empty_cache()
+
+    # the probe: block 0 holds two keys scoring ~6 above the rest, so the
+    # later blocks' probabilities are ~e^-6 of the peak and their p8 needs
+    # the per-block scale; rows b > 0 have 100 b padded columns
+    B, L, H, D, valid = 4, 1024, 32, 128, 1000
+    q = _randn(g, B, H, D)
+    qf = q.float()
+    kf = torch.randn(B, L, H, D, generator=g, device="cuda")
+    for t in (3, 40):
+        kf[:, t] += 6 * D ** 0.5 * qf / qf.square().sum(dim=-1, keepdim=True)
+    args = _kv8_cache(g, B, L, H, H, D, valid, pad=100)
+    args[0] = q
+    args[1], args[2] = quantize_kv(kf.to(torch.bfloat16))
+    ref = decode_attention_prefix_int8_ref(*args, valid)
+    q, kq, ks, vq, vs, mask = args
+    sound = decode_attention_prefix_int8(*args, valid)
+    faults = {
+        "v-scale fold dropped": decode_attention_prefix_int8(
+            q, kq, ks, vq, torch.ones_like(vs), mask, valid),
+        "p quantised with one global max (the twin with one block)":
+            decode_attention_prefix_int8_ref(*args, valid, block_l=L),
+        "valid_len clamp one block short": decode_attention_prefix_int8(
+            *args, valid - prefix_block_l(L)),
+        "mask ignored": decode_attention_prefix_int8(
+            q, kq, ks, vq, vs, torch.ones_like(mask), valid),
+    }
+    torch.cuda.synchronize()
+    err, ratio = _kv8_ratio(sound, ref)
+    log(f"[3f int8 decode] probe B={B} L={L} H={H} D={D} valid_len={valid}: the sound "
+        f"kernel at {ratio:.3f} of the bound | {'ok' if ratio <= 1 else 'FAIL'}")
+    if ratio > 1:
+        raise AssertionError("kernel #5 disagrees with its twin on the probe")
+    for name, out in faults.items():
+        err, ratio = _kv8_ratio(out, ref)
+        log(f"[3f int8 decode] planted fault {name!r}: max|err| {err:.3e} = {ratio:.3g} of "
+            f"the bound | {'caught' if ratio > 1 else 'MISSED'}")
+        if ratio <= 1:
+            raise AssertionError(f"the 3f bound misses the planted fault {name!r}")
+    return res
+
+
+def _headline_items(gen: Llava15Generator, image_bytes: bytes) -> list:
+    """HEADLINE_B items whose prompts are HEADLINE_PROMPT tokens long (the
+    character-level tokenizer: one token a character), one image."""
+    base = len(gen._prepare(_items(image_bytes, ["Q"]))[0][0])
+    fill = HEADLINE_PROMPT - base
+    return _items(image_bytes, ["Q" + chr(ord("a") + i % 26) * fill
+                                for i in range(HEADLINE_B)])
+
+
+def phase_headline(gen: Llava15Generator, items: list, tag: str, decode: str) -> tuple:
+    """One generate at the JAX package's headline serving shape
+    (scripts/bench_7b_serve.py: batch 24, 896-token prompts, 64 new tokens,
+    greedy), after a max_new_tokens=1 run of the same batch: prefill and
+    decode rates apart -> (launches of the 64-token run, rates)."""
+    prompts, starts, images = gen._prepare(items)
+    assert {len(p) for p in prompts} == {HEADLINE_PROMPT}, {len(p) for p in prompts}
+    kw = dict(images=images, image_starts=starts)
+    gen.engine.generate(prompts[:2], images=images[:2], image_starts=starts[:2],
+                        max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen.engine.generate(prompts, max_new_tokens=1, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reset_counts()
+    res = gen.engine.generate(prompts, max_new_tokens=HEADLINE_NEW, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_counts()
+    steps = launches[decode] // gen.model.cfg.llm.num_layers
+    assert res.tokens.shape == (HEADLINE_B, HEADLINE_NEW)
+    rates = dict(prefill_s=t1 - t0, total_s=t2 - t1, steps=steps,
+                 tok_s=HEADLINE_B * (steps + 1) / (t2 - t1),
+                 decode_tok_s=HEADLINE_B * steps / max(t2 - t1 - (t1 - t0), 1e-9),
+                 peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[{tag}] headline batch {HEADLINE_B} x {HEADLINE_PROMPT}-token prompts: prefill "
+        f"(max_new_tokens=1) {rates['prefill_s']:.3f} s; {HEADLINE_NEW} new tokens "
+        f"({steps} decode steps) in {rates['total_s']:.3f} s = {rates['tok_s']:.1f} tok/s, "
+        f"decode alone {rates['decode_tok_s']:.1f} tok/s; peak {rates['peak_gb']:.2f} GiB")
+    return launches, rates
+
+
+def _forced_logits(gen: Llava15Generator, prompts, starts, images, tokens: torch.Tensor,
+                   impls: tuple) -> torch.Tensor:
+    """The prefill, then one decode step for each column of `tokens` (the
+    same tokens on every route), as DecodeEngine.generate runs them, at the
+    cache width generate gives 64 new tokens, with attn_impl impls[0] for
+    the prefill and impls[1] for the steps -> fp32 logits (1 + steps, B, V):
+    the last prompt position's, then each step's."""
+    eng = gen.engine
+    attn = [m for m in gen.model.modules() if isinstance(m, LlamaAttention)]
+    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
+    ids, mask = (torch.from_numpy(a).cuda() for a in (ids_np, mask_np))
+    starts = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
+    with torch.inference_mode():
+        for m in attn:
+            m.attn_impl = impls[0]
+        first, cache, cmask = eng._prefill(ids, mask, eng._device_images(images), starts,
+                                           -(-(Lp + 64) // 128) * 128)
+        for m in attn:
+            m.attn_impl = impls[1]
+        out, plen = [first.float()], mask.sum(dim=1)
+        for t in range(tokens.shape[1]):
+            cmask[:, Lp + t] = 1
+            logits, cache = eng.llm(input_ids=tokens[:, t:t + 1], attention_mask=cmask,
+                                    position_ids=(plen + t)[:, None], cache=cache,
+                                    cache_index=Lp + t)
+            out.append(logits[:, 0].float())
+    for m in attn:
+        m.attn_impl = "auto"
+    return torch.stack(out)
+
+
+def _logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max|a - b| / max|b|, the least cosine between matching logit rows)."""
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    cos = torch.nn.functional.cosine_similarity(a.flatten(0, -2), b.flatten(0, -2), dim=-1)
+    return rel, cos.min().item()
+
+
+def phase_int8_kv_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
+    """11, against the plain paths on greedy_gen's 4 prompts and 4 forced
+    decode steps, each route named by (cache, prefill attn_impl, decode
+    attn_impl): the path ("auto": fresh-window flash, kernel #5) against
+    the same weights with a bf16 cache, and kernel #5 against the dense
+    dequantised formula after the same prefill."""
+    prompts, starts, images = gen._prepare(_items(image_bytes, [
+        "What is in the image?", "Describe the scene.", "What colors do you see?",
+        "Is it daytime?"]))
+    tokens = torch.randint(10, min(300, gen.engine.vocab_size), (4, 4),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    routes = {"path": ("int8", "auto", "auto"), "int8 #5": ("int8", "dense", "auto"),
+              "int8 dense": ("int8", "dense", "dense"), "bf16": ("fp", "auto", "auto"),
+              "bf16 dense": ("fp", "dense", "dense")}
+    runs = {}
+    for name, (kv, *impls) in routes.items():
+        set_llm_config(gen.model, kv_cache_dtype=kv)
+        runs[name] = _forced_logits(gen, prompts, starts, images, tokens, tuple(impls))
+    set_llm_config(gen.model, kv_cache_dtype="int8")
+    assert all(bool(torch.isfinite(r).all()) for r in runs.values())
+    checks = [
+        ("prefill: the path (fresh-window flash) vs the bf16 cache (dense over max_len)",
+         "path", "bf16", slice(0, 1)),
+        ("prefill, both dense: the fresh window vs the bf16 cache's max_len",
+         "int8 dense", "bf16 dense", slice(0, 1)),
+        ("decode steps 1-4: the path (#5) vs the bf16 cache (#4)", "path", "bf16",
+         slice(1, None)),
+        ("decode steps 1-4 after one dense prefill: #5 vs the dense dequantised formula",
+         "int8 #5", "int8 dense", slice(1, None)),
+        ("decode steps 1-4, both dense: the int8 cache vs the bf16 cache",
+         "int8 dense", "bf16 dense", slice(1, None)),
+    ]
+    ok = True
+    for text, a, b, steps in checks:
+        rel, cos = _logit_gap(runs[a][steps], runs[b][steps])
+        good = rel <= INT8_KV_REL_TOL and cos >= INT8_KV_COS_MIN
+        ok = ok and good
+        log(f"[11 int8-kv vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol "
+            f"{INT8_KV_REL_TOL}), least row cosine {cos:.5f} (tol {INT8_KV_COS_MIN}) | "
+            f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the int8-KV path disagrees with its plain paths")
+
+
+def phase_int8_kv(gen: Llava15Generator, image_bytes: bytes, bf16: dict) -> dict:
+    """11: phase 4's seed-0 model at the headline shape in bf16, then
+    quantised in place to int8 weights (head bf16), fused (qkv_proj,
+    gate_up_proj) and given an int8 KV cache: phase 4's workloads and the
+    headline again, against the plain paths -> the launches of its runs."""
+    items = _headline_items(gen, image_bytes)
+    launches, bf16_head = phase_headline(gen, items, "11 bf16 headline", "decode")
+    t0 = time.perf_counter()
+    quantize_llm_int8(gen.model, include_lm_head=False)
+    set_llm_config(fuse_llm_projections_(gen.model), kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[11 int8-kv] quantised to int8 (head bf16), fused and switched to the int8 cache "
+        f"in {time.perf_counter() - t0:.1f} s: {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated")
+    slice_launches, rates = phase_slice(gen, image_bytes, "11 int8-kv", "decode_int8")
+    add_counts(launches, slice_launches)
+    n_layers = gen.model.cfg.llm.num_layers
+    if slice_launches["decode"] or slice_launches["decode_int8"] % n_layers or \
+            not slice_launches["int8"] or not slice_launches["int8_prequant"]:
+        raise AssertionError(f"11: not the int8-KV path's kernels: {slice_launches}")
+    head_launches, head = phase_headline(gen, items, "11 int8-kv headline", "decode_int8")
+    add_counts(launches, head_launches)
+    log(f"[11 int8-kv] decode kernel #5: {slice_launches['decode_int8'] // n_layers} steps x "
+        f"{n_layers} launches in the slice, {head_launches['decode_int8']} in the headline, "
+        f"#4 {slice_launches['decode'] + head_launches['decode']}")
+    for key, name in (("facts_s", "autocheck facts/s"), ("diverse_tok_s", "diverse_gen tok/s"),
+                      ("greedy_tok_s", "greedy_gen tok/s"), ("peak_gb", "slice peak GiB")):
+        log(f"[11 int8-kv] {name}: int8-KV {rates[key]:.2f} vs phase 4 bf16 {bf16[key]:.2f}")
+    for key, name in (("tok_s", "tok/s"), ("decode_tok_s", "decode tok/s"),
+                      ("prefill_s", "prefill s"), ("peak_gb", "peak GiB")):
+        log(f"[11 int8-kv] headline {name}: int8-KV {head[key]:.2f} vs bf16 {bf16_head[key]:.2f}")
+    phase_int8_kv_vs_plain(gen, image_bytes)
+    return launches
 
 
 def _text(rng, k: int) -> str:
@@ -1285,72 +1623,82 @@ def route_noise(tag: str, out, dx, deq_out, deq_dx) -> None:
         raise AssertionError(f"{tag}: the quantisation error exceeds its bound")
 
 
+# 3d at the fused widths of phase 11's model (qkv_proj N = 3 x 4096,
+# gate_up_proj N = 2 x 11008): the decode rows of diverse_gen and the
+# batch-24 headline, and the prefill rows of diverse_gen (one 832-token
+# prompt), greedy_gen (4 x 832) and the headline (24 x 896)
+FUSED_WIDTHS = ((4096, 12288), (4096, 22016))
+FUSED_MS = (10, 24, 832, 4 * 832, 24 * 896)
+
+
 def phase_int8(g, qb: dict) -> dict:
     """3d: the four int8 kernels against their plain twins (max abs
-    difference 0; #7 == #9, #8 == #10) at the 7B projection widths, with
-    times beside the int8 bound, torch._int_mm and the "dequant" route."""
+    difference 0; #7 == #9, #8 == #10) at the 7B projection widths and the
+    fused ones, with times beside the int8 bound, torch._int_mm and the
+    "dequant" route."""
     res = {"err": 0.0}
     ms = sorted({16, 64, 127, 128, qb["m_short"], qb["m_suffix"], qb["m_prefix"]})
-    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        for M in ms:
-            x, dy = _randn(g, M, K), _randn(g, M, N)
-            q, s = quantize_kernel_int8_torch(
-                0.02 * torch.randn(K, N, generator=g, device="cuda"))
-            xq, sx = qm.quantize_rows(x.float())
-            dyq, sy = qm.quantize_rows(dy.float() * s)
-            sx, sy = sx.reshape(-1), sy.reshape(-1)
-            run = {7: lambda: qm._kernel_fwd(x, q, s),
-                   9: lambda: qm._kernel_prequant(xq, sx, q, s),
-                   8: lambda: qm._kernel_dx(dy, q, s),
-                   10: lambda: qm._kernel_dx_prequant(dyq, sy, q)}
-            out = {k: fn() for k, fn in run.items()}
-            plain = {7: qm.int8_matmul_plain(x, q, s), 8: qm.int8_matmul_dx_plain(dy, q, s)}
-            plain[9], plain[10] = plain[7], plain[8]
-            torch.cuda.synchronize()
-            err = {k: (out[k].float() - plain[k].float()).abs().max().item() for k in out}
-            ok = max(err.values()) == 0 and torch.equal(out[7], out[9]) and \
-                torch.equal(out[8], out[10]) and \
-                all(bool(torch.isfinite(o.float()).all()) for o in out.values())
-            t = {k: time_ms(fn) for k, fn in run.items()}
-            t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
-            t_plain = {7: time_ms(lambda: qm.int8_matmul_plain(x, q, s), 5),
-                       8: time_ms(lambda: qm.int8_matmul_dx_plain(dy, q, s), 5)}
-            t_lib = {7: int_mm_ms(xq, q), 8: int_mm_ms(dyq, q.T)}
-            t_deq = {7: time_ms(lambda: qm.dequant_matmul(x, q, s)),
-                     8: time_ms(lambda: qm.dequant_matmul_dx(dy, q, s))}
-            nbytes = {7: _nbytes(x, q, s, out[7]), 9: _nbytes(xq, sx, q, s, out[9]),
-                      8: _nbytes(dy, q, s, out[8]), 10: _nbytes(dyq, sy, q, out[10])}
-            ops = 2 * M * K * N
-            entry = {}
-            for k in run:
-                ref = 7 if k in (7, 9) else 8
-                entry[k] = dict(ms=t[k], plain_ms=t_plain[ref], library_ms=t_lib[ref],
-                                dequant_ms=t_deq[ref],
-                                **bound(ops, nbytes[k], PEAK_INT8_TOPS))
-            res[(M, K, N)] = entry
+    cases = [(K, N, M) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)) for M in ms]
+    cases += [(K, N, M) for K, N in FUSED_WIDTHS for M in FUSED_MS]
+    for K, N, M in cases:
+        x, dy = _randn(g, M, K), _randn(g, M, N)
+        q, s = quantize_kernel_int8_torch(
+            0.02 * torch.randn(K, N, generator=g, device="cuda"))
+        xq, sx = qm.quantize_rows(x.float())
+        dyq, sy = qm.quantize_rows(dy.float() * s)
+        sx, sy = sx.reshape(-1), sy.reshape(-1)
+        run = {7: lambda: qm._kernel_fwd(x, q, s),
+               9: lambda: qm._kernel_prequant(xq, sx, q, s),
+               8: lambda: qm._kernel_dx(dy, q, s),
+               10: lambda: qm._kernel_dx_prequant(dyq, sy, q)}
+        out = {k: fn() for k, fn in run.items()}
+        plain = {7: qm.int8_matmul_plain(x, q, s), 8: qm.int8_matmul_dx_plain(dy, q, s)}
+        plain[9], plain[10] = plain[7], plain[8]
+        torch.cuda.synchronize()
+        err = {k: (out[k].float() - plain[k].float()).abs().max().item() for k in out}
+        ok = max(err.values()) == 0 and torch.equal(out[7], out[9]) and \
+            torch.equal(out[8], out[10]) and \
+            all(bool(torch.isfinite(o.float()).all()) for o in out.values())
+        t = {k: time_ms(fn) for k, fn in run.items()}
+        t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
+        t_plain = {7: time_ms(lambda: qm.int8_matmul_plain(x, q, s), 5),
+                   8: time_ms(lambda: qm.int8_matmul_dx_plain(dy, q, s), 5)}
+        t_lib = {7: int_mm_ms(xq, q), 8: int_mm_ms(dyq, q.T)}
+        t_deq = {7: time_ms(lambda: qm.dequant_matmul(x, q, s)),
+                 8: time_ms(lambda: qm.dequant_matmul_dx(dy, q, s))}
+        nbytes = {7: _nbytes(x, q, s, out[7]), 9: _nbytes(xq, sx, q, s, out[9]),
+                  8: _nbytes(dy, q, s, out[8]), 10: _nbytes(dyq, sy, q, out[10])}
+        ops = 2 * M * K * N
+        entry = {}
+        for k in run:
+            ref = 7 if k in (7, 9) else 8
+            entry[k] = dict(ms=t[k], plain_ms=t_plain[ref], library_ms=t_lib[ref],
+                            dequant_ms=t_deq[ref],
+                            **bound(ops, nbytes[k], PEAK_INT8_TOPS))
+        res[(M, K, N)] = entry
 
-            def lib(k):
-                return "refused" if t_lib[k] is None else f"{t_lib[k]:.4f}"
+        def lib(k):
+            return "refused" if t_lib[k] is None else f"{t_lib[k]:.4f}"
 
-            log(f"[3d int8] M={M} K={K} N={N}: max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
-                f"#8 {err[8]:.1e} #10 {err[10]:.1e} (tol 0), #7==#9 "
-                f"{torch.equal(out[7], out[9])} #8==#10 {torch.equal(out[8], out[10])} | "
-                + " ".join(f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s "
-                           f"(bound {entry[k]['bound_ms']:.4f}, {entry[k]['bound_by']})"
-                           for k in run)
-                + f" | torch row quantisation of x (the prequant route's pass) "
-                f"{t_quant:.4f} ms | plain fwd {t_plain[7]:.3f} dx {t_plain[8]:.3f} ms | "
-                f"torch._int_mm fwd {lib(7)} dx {lib(8)} ms (product only) | dequant "
-                f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"int8 kernels disagree with the plain twins at "
-                                     f"M={M} K={K} N={N}: {err}")
-            res["err"] = max(res["err"], max(err.values()))
-            if M == qb["m_prefix"]:
-                route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
-                            qm.dequant_matmul_dx(dy, q, s))
-            del x, dy, q, s, xq, dyq, out, plain, run
+        log(f"[3d int8] M={M} K={K} N={N}: max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
+            f"#8 {err[8]:.1e} #10 {err[10]:.1e} (tol 0), #7==#9 "
+            f"{torch.equal(out[7], out[9])} #8==#10 {torch.equal(out[8], out[10])} | "
+            + " ".join(f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s "
+                       f"(bound {entry[k]['bound_ms']:.4f}, {entry[k]['bound_by']})"
+                       for k in run)
+            + f" | torch row quantisation of x (the prequant route's pass) "
+            f"{t_quant:.4f} ms | plain fwd {t_plain[7]:.3f} dx {t_plain[8]:.3f} ms | "
+            f"torch._int_mm fwd {lib(7)} dx {lib(8)} ms (product only) | dequant "
+            f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"int8 kernels disagree with the plain twins at "
+                                 f"M={M} K={K} N={N}: {err}")
+        res["err"] = max(res["err"], max(err.values()))
+        if M == qb["m_prefix"]:
+            route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
+                        qm.dequant_matmul_dx(dy, q, s))
+        del x, dy, q, s, xq, dyq, out, plain, run
         torch.cuda.empty_cache()
     return res
 
@@ -1814,6 +2162,7 @@ def main() -> None:
     qb = qlora_batches(rows, short, tok, cfg)
     int8 = phase_int8(g, qb)
     int4 = phase_int4(g, qb)
+    kv8 = phase_kv8_kernel(g)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -1829,8 +2178,10 @@ def main() -> None:
     gen = Llava15Generator(model, tok, cfg.num_image_tokens,
                            image_size=cfg.vision.image_size,
                            checkpoint_name="random-llava15-7b")
-    launches = phase_slice(gen, image_bytes)
+    launches, bf16_rates = phase_slice(gen, image_bytes)
     phase_slice_vs_plain(gen, image_bytes)
+    # 11 serves the same seed-0 model in the int8-KV configuration
+    add_counts(launches, phase_int8_kv(gen, image_bytes, bf16_rates))
     del gen, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1865,8 +2216,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[10 int4] main-path launches (serving 4, ref-logp 8, train 6, QLoRA 9, int4 "
-        f"QLoRA 10): {launches}")
+    log(f"[10 int4] main-path launches (serving 4, int8-KV serving 11, ref-logp 8, train 6, "
+        f"QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
@@ -1913,6 +2264,13 @@ def main() -> None:
         _row("int4_matmul_dx", i4_src, f"{i4_py}:240", launches["int4_dx"], int4["err"],
              int4[(qb["m_prefix"], 11008, 4096)][12]),
     ]
+    # row 14 at diverse_gen's decode step (B = 10, valid_len = L = 896), the
+    # shape of row 4; the library time is SDPA over the cache dequantised
+    # to bf16, the dequantisation left out
+    kernels.append(_row(
+        "decode_attention_prefix_int8", "rlaifv_tpu_torch/csrc/decode_attention_int8.cu",
+        "rlaifv_tpu/ops/decode_attention.py:180", launches["decode_int8"], kv8["err"],
+        kv8["diverse_gen"]))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Batched KV-cache decode engine (prefill + eager decode loop) in PyTorch.
 
 Counterpart of rlaifv_tpu/genai/engine.py::DecodeEngine on its per-layer
-bf16-cache path, with the same conventions:
+cache path (bf16 or int8, as the model's kv_cache_dtype says), with the
+same conventions:
 
 - prompts are LEFT-padded to a bucket of 64, so every row's last prompt
   token sits at one index and one host-int cache_index drives the decode
@@ -13,6 +14,9 @@ bf16-cache path, with the same conventions:
 - shared-prefix scoring prefills the prefix once into a cache of exactly
   P columns (square, so the flash kernel serves it) and runs the suffixes
   in buckets of 32 over a copy of that cache;
+- both scoring paths (shared prefix, win||rej pairs) use a bf16 cache
+  whatever the serving cache type (`_fp_cache`): the int8 branch's prefill
+  attends only over its fresh window, so it cannot see a live prefix;
 - win||rej pair scoring (the ref-logp precompute) prefills each pair's
   left-padded prefix once at exactly Pmax columns and runs both answer
   suffixes at q_offset = Pmax over the tiled KV: both phases take the
@@ -32,6 +36,7 @@ import torch
 
 from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.genai.sampling import SamplingParams, sample_token
+from rlaifv_tpu_torch.models.llama import llama_init_cache
 
 
 def left_pad_batch(seqs, pad_id: int, length: Optional[int] = None):
@@ -113,6 +118,14 @@ class DecodeEngine:
         if images is None:
             return None
         return torch.from_numpy(np.asarray(images)).to(self.device)
+
+    def _fp_cache(self, B: int, S: int) -> list:
+        """A bf16 (cfg.dtype) cache of exactly (B, S), whatever the model's
+        kv_cache_dtype: the scoring paths keep the prefix exact (the int8
+        branch's prefill attends only over the fresh window, so it cannot
+        see a live prefix; the float branch can)."""
+        cfg = dataclasses.replace(self.llm.cfg, kv_cache_dtype="fp")
+        return llama_init_cache(cfg, B, S, self.device)
 
     def _prefill(self, ids, mask, images, image_starts, max_len):
         """Prompt pass into a fresh (B, max_len) cache at cache_index 0 ->
@@ -216,8 +229,9 @@ class DecodeEngine:
         starts = [image_start + off if image_start >= 0 else -1]
         first, cache, cache_mask = self._prefill(ids, mask, images, starts, max_len)
         # a real copy per row, not expand(): the decode writes each row's
-        # new k/v in place and the decode kernel indexes rows densely
-        cache = [{name: c.repeat(n, 1, 1, 1) for name, c in layer.items()}
+        # new k/v in place and the decode kernels index rows densely (an
+        # int8 cache's scales are 3-D)
+        cache = [{name: c.repeat(n, *[1] * (c.dim() - 1)) for name, c in layer.items()}
                  for layer in cache]
         cache_mask = cache_mask.repeat(n, 1)
         prompt_len = mask.sum(dim=1).expand(n)
@@ -249,7 +263,7 @@ class DecodeEngine:
             inputs_embeds=self.model.build_embeds(ids, images, [image_start]),
             attention_mask=torch.ones((1, P), dtype=torch.int32, device=dev),
             position_ids=torch.arange(P, device=dev)[None],
-            cache=self.llm.init_cache(1, P), cache_index=0,
+            cache=self._fp_cache(1, P), cache_index=0,
         )
 
         N = len(suffixes)
@@ -298,7 +312,7 @@ class DecodeEngine:
         ppos = (torch.cumsum(pmask, dim=1) - 1).clamp(min=0)
         embeds = self.model.build_embeds(pids, images, starts)
         _, pcache = self.llm(inputs_embeds=embeds, attention_mask=pmask,
-                             position_ids=ppos, cache=self.llm.init_cache(B, Pmax),
+                             position_ids=ppos, cache=self._fp_cache(B, Pmax),
                              cache_index=0)
         # win rows 0..B-1 and rej rows B..2B-1 share prefix i
         cache = [{name: torch.cat([torch.cat([c, c]),

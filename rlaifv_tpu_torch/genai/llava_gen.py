@@ -11,9 +11,12 @@ Counterpart of rlaifv_tpu/genai/llava_gen.py over the eager decode engine:
   (`DecodeEngine.score_shared_prefix`) for facts about one image.
 
 Output rows keep the JAX package's (and the reference's) field names;
-`run(...)` shards a GenDataset by rank and writes them as jsonl. Not
-carried yet: beam search, continuous batching and fused decode
-(ROADMAP.md 'Modules to port' #6).
+`run(...)` shards a GenDataset by rank and writes them as jsonl. The three
+modes take any model the engine takes: bf16 or int8/int4 weights, fused
+projections, a bf16 or an int8 KV cache (the JAX package's headline serving
+configuration: int8 weights, `fuse_proj`, `kv_cache_dtype="int8"`). Not
+carried yet: beam search, continuous batching and fused decode (ROADMAP.md
+'Modules to port' #6).
 """
 from __future__ import annotations
 

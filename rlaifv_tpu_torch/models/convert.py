@@ -13,14 +13,19 @@ the same function from the same weights:
   {kernel (in/2, out) int8 nibble-packed, scale (in/G, out)} -> the port's
   QuantDense buffers `q` (the same layout) and `scale`;
 - a flax variables dict {"params", "lora"}: the base from "params"; the
-  adapters cross with `lora_from_jax`.
+  adapters cross with `lora_from_jax`;
+- a fused tree (`fuse_llm_projections`: `qkv_proj`, `gate_up_proj`) onto a
+  model built with `fuse_proj=True`, float or quantised alike.
 
 `flax_tree` is the inverse view (the model's tensors under the flax names,
 kernels as (in, out)), which train/lora.py walks. `quantize_llm_int8` and
 `quantize_llm_int4` quantise a model's LLM projections in place, on their
 device, with `quantize_kernel_int8_torch` and `quantize_int4_torch`, bit
 for bit the JAX package's numpy `quantize_kernel_int8` and
-`quantize_int4`.
+`quantize_int4`. `fuse_llm_projections_` fuses a model's q/k/v and gate/up
+projections in place, as the JAX package's numpy `fuse_llm_projections`
+(copied here) rewrites a tree; `set_llm_config` replaces fields of every
+LlamaConfig a model carries (e.g. kv_cache_dtype).
 
 Real HF checkpoints load through `load_llava_checkpoint`, the numpy
 converter of rlaifv_tpu/models/convert.py copied function for function
@@ -203,8 +208,22 @@ def quantize_int4_torch(kernel: torch.Tensor, group: int = INT4_GROUP):
 
 _QUANT_PROJ = re.compile(
     r"^(q_proj|k_proj|v_proj|o_proj|out_proj|gate_proj|up_proj|down_proj|"
-    r"lm_head)$"
+    r"qkv_proj|gate_up_proj|lm_head)$"
 )
+
+
+def set_llm_config(model: nn.Module, **fields) -> nn.Module:
+    """Replace `fields` of every LlamaConfig `model` carries (its modules'
+    `cfg`, or a LlavaConfig's `llm`), in place."""
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+
+    for mod in model.modules():
+        cfg = getattr(mod, "cfg", None)
+        if isinstance(cfg, LlamaConfig):
+            mod.cfg = dataclasses.replace(cfg, **fields)
+        elif isinstance(getattr(cfg, "llm", None), LlamaConfig):
+            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **fields))
+    return model
 
 
 @torch.no_grad()
@@ -214,7 +233,7 @@ def _quantize_llm(model: nn.Module, include_lm_head: bool, bits: int) -> nn.Modu
     place, their weights quantised on their device one at a time (the float
     weight is dropped); the configs `model` carries say so."""
     from rlaifv_tpu_torch.models.layers import Dense
-    from rlaifv_tpu_torch.models.llama import LlamaConfig, QuantDense
+    from rlaifv_tpu_torch.models.llama import QuantDense
 
     llm = getattr(model, "llm", model)
     targets = [name for name, mod in llm.named_modules()
@@ -233,14 +252,8 @@ def _quantize_llm(model: nn.Module, include_lm_head: bool, bits: int) -> nn.Modu
         quant.q, quant.scale = q, scale
         parent, _, attr = name.rpartition(".")
         setattr(llm.get_submodule(parent), attr, quant)
-    flags = dict(quantize=True, quantize_bits=bits, quantize_lm_head=include_lm_head)
-    for mod in model.modules():
-        cfg = getattr(mod, "cfg", None)
-        if isinstance(cfg, LlamaConfig):
-            mod.cfg = dataclasses.replace(cfg, **flags)
-        elif isinstance(getattr(cfg, "llm", None), LlamaConfig):
-            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **flags))
-    return model
+    return set_llm_config(model, quantize=True, quantize_bits=bits,
+                          quantize_lm_head=include_lm_head)
 
 
 def quantize_llm_int8(model: nn.Module, include_lm_head: bool = True) -> nn.Module:
@@ -259,6 +272,87 @@ def quantize_llm_int4(model: nn.Module, include_lm_head: bool = False) -> nn.Mod
     from `quantize_int4_torch` with G = `pick_int4_group(in)`. The head
     stays float by default, as in the JAX package."""
     return _quantize_llm(model, include_lm_head, bits=4)
+
+
+def fuse_llm_projections(llm_params: Tree) -> Tree:
+    """Rewrite a Llama param tree for LlamaConfig.fuse_proj: q/k/v kernels
+    concat into qkv_proj, gate/up into gate_up_proj (out axis). Works on
+    both float {kernel} and int8 {kernel, scale} layouts — per-out-channel
+    scales concatenate exactly, so the fused matmul is bit-identical to
+    the separate ones."""
+
+    def fuse(mods, names, out_name):
+        parts = [mods.pop(n) for n in names]
+        fused = {"kernel": np.concatenate(
+            [np.asarray(p["kernel"]) for p in parts], axis=1
+        )}
+        if "scale" in parts[0]:
+            scales = [np.asarray(p["scale"]) for p in parts]
+            # int8: (N,) per-out-channel -> concat; int4 (QuantDense
+            # bits=4): (K//G, N) group scales -> concat the out axis.
+            # Both packing (along K) and grouping are orthogonal to the
+            # out-axis concat, so fused stays bit-identical to separate.
+            axis = 0 if scales[0].ndim == 1 else 1
+            fused["scale"] = np.concatenate(scales, axis=axis)
+        mods[out_name] = fused
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: walk(v) for k, v in node.items()}
+        if {"q_proj", "k_proj", "v_proj"} <= set(node):
+            fuse(node, ("q_proj", "k_proj", "v_proj"), "qkv_proj")
+        if {"gate_proj", "up_proj"} <= set(node):
+            fuse(node, ("gate_proj", "up_proj"), "gate_up_proj")
+        return node
+
+    return walk(llm_params)
+
+
+def _fuse_layers(parts: list) -> nn.Module:
+    """One layer computing the given bias-free projections of the same input
+    side by side: QuantDense `q`/`scale` concatenated along the out axis
+    (int8 scales on axis 0, int4 group scales on axis 1) or Dense weights
+    (out, in) along axis 0."""
+    from rlaifv_tpu_torch.models.layers import Dense
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    first, n_out = parts[0], sum(p.out_features for p in parts)
+    if isinstance(first, QuantDense):
+        fused = QuantDense(first.in_features, n_out, dtype=first.compute_dtype,
+                           bits=first.bits, device="meta")
+        fused.q = torch.cat([p.q for p in parts], dim=1)
+        fused.scale = torch.cat([p.scale for p in parts], dim=first.scale.dim() - 1)
+        return fused
+    fused = Dense(first.in_features, n_out, bias=False, dtype=first.compute_dtype,
+                  param_dtype=first.weight.dtype, init_std=first.init_std, device="meta")
+    fused.weight = nn.Parameter(torch.cat([p.weight for p in parts]),
+                                requires_grad=first.weight.requires_grad)
+    return fused
+
+
+@torch.no_grad()
+def fuse_llm_projections_(model: nn.Module) -> nn.Module:
+    """`fuse_llm_projections` on a model, in place: every LlamaAttention's
+    q/k/v_proj become one `qkv_proj`, every LlamaMLP's gate/up_proj one
+    `gate_up_proj` (float or quantised, bit-identical products), and the
+    configs `model` carries get fuse_proj=True. LoRA adapters name the
+    separate projections, so a model with adapters attached raises."""
+    from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaMLP
+
+    groups = {LlamaAttention: (("q_proj", "k_proj", "v_proj"), "qkv_proj"),
+              LlamaMLP: (("gate_proj", "up_proj"), "gate_up_proj")}
+    for mod in list(model.modules()):
+        names, fused_name = groups.get(type(mod), ((), None))
+        if not names or not hasattr(mod, names[0]):
+            continue
+        parts = [getattr(mod, n) for n in names]
+        if any(p.lora is not None for p in parts):
+            raise ValueError("fuse_llm_projections_: detach the LoRA adapters first")
+        setattr(mod, fused_name, _fuse_layers(parts))
+        for n in names:
+            delattr(mod, n)
+    return set_llm_config(model, fuse_proj=True)
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:

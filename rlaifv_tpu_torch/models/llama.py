@@ -1,9 +1,19 @@
 """LLaMA-family decoder in PyTorch - the LM backbone of LLaVA-1.5 (Vicuna-7B).
 
-Counterpart of rlaifv_tpu/models/llama.py on its bf16-cache path: HF-layout
-RoPE (rotate-half), RMSNorm in fp32, SiLU-gated MLP, grouped-query
-attention through ops/attention.py, and a static-shape per-layer KV cache
-(B, max_len, KVH, D) written in place.
+Counterpart of rlaifv_tpu/models/llama.py: HF-layout RoPE (rotate-half),
+RMSNorm in fp32, SiLU-gated MLP, grouped-query attention through
+ops/attention.py, and a static-shape per-layer KV cache (B, max_len, KVH, D)
+written in place.
+
+`kv_cache_dtype="int8"` stores the cache as int8 with fp32 (B, max_len, KVH)
+per-(token, head) scales (`quantize_kv`). A prefill (L > 1) attends over the
+fresh k/v, exactly as the float cache would; a decode step reads the int8
+cache through ops/decode_attention.py's kernel #5 on the card, and through
+the JAX package's off-TPU formula (dense attention over the dequantised
+cache) on the CPU or with attn_impl "dense". `fuse_proj` computes q/k/v in
+one `qkv_proj` (N = (H + 2 KVH) D) and gate/up in one `gate_up_proj`
+(N = 2 I), split after the product; models/convert.py's
+`fuse_llm_projections_` fuses a model in place.
 
 `remat` is activation checkpointing per block
 (`torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`), the
@@ -18,9 +28,6 @@ kernels on the card; `quantize_bits` 4, nibble-packed (K/2, N) int8 weights
 and fp32 (K/G, N) group scales through ops/int4_matmul.py's. Every
 projection (Dense or QuantDense) adds a LoRA side term when train/lora.py
 attaches adapters to it.
-
-Not carried (each raises NotImplementedError, naming the ROADMAP.md item
-that ports it): the int8 KV cache, fused projections (`fuse_proj`).
 """
 from __future__ import annotations
 
@@ -34,6 +41,11 @@ from torch.utils.checkpoint import checkpoint
 
 from rlaifv_tpu_torch.models.layers import Dense, lora_side_term
 from rlaifv_tpu_torch.ops.attention import multi_head_attention
+from rlaifv_tpu_torch.ops.decode_attention import (
+    decode_attention_prefix_int8,
+    decode_attention_prefix_int8_dense,
+    quantize_kv,
+)
 from rlaifv_tpu_torch.ops.int4_matmul import dequantize_int4, int4_matmul_grad, pick_int4_group
 from rlaifv_tpu_torch.ops.quant_matmul import int8_matmul_grad
 
@@ -85,21 +97,12 @@ class LlamaConfig:
 
 
 def check_supported(cfg: LlamaConfig) -> None:
-    """Raise for options the port does not carry yet, and for a bit width
-    the JAX package does not know."""
+    """Raise for a bit width or a cache type the JAX package does not know."""
     if cfg.quantize and cfg.quantize_bits not in (4, 8):
         raise ValueError(f"LlamaConfig.quantize_bits must be 8 or 4; got {cfg.quantize_bits}")
-    todo = {
-        "kv_cache_dtype='int8'": (cfg.kv_cache_dtype not in ("fp", "bf16"),
-                                  "#6 (serving extensions: int8 KV cache)"),
-        "fuse_proj": (cfg.fuse_proj, "#6 (serving extensions: fused projections)"),
-    }
-    for name, (on, item) in todo.items():
-        if on:
-            raise NotImplementedError(
-                f"LlamaConfig.{name} is not ported to rlaifv_tpu_torch yet: "
-                f"ROADMAP.md 'Modules to port' {item}"
-            )
+    if cfg.kv_cache_dtype not in ("fp", "bf16", "int8"):
+        raise ValueError(f"LlamaConfig.kv_cache_dtype must be 'fp', 'bf16' or 'int8'; "
+                         f"got {cfg.kv_cache_dtype!r}")
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
@@ -127,8 +130,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def llama_init_cache(cfg: LlamaConfig, batch: int, max_len: int,
                      device=None) -> list:
     """Static-shape decode cache: per layer {"k", "v"} of
-    (B, max_len, KVH, D) in cfg.dtype."""
+    (B, max_len, KVH, D) in cfg.dtype; with kv_cache_dtype "int8", {"k",
+    "k_scale", "v", "v_scale"}: int8 values and fp32 (B, max_len, KVH)
+    scales."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_size)
+    if cfg.kv_cache_dtype == "int8":
+        return [
+            {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+             "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+             "v": torch.zeros(shape, dtype=torch.int8, device=device),
+             "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+            for _ in range(cfg.num_layers)
+        ]
     return [
         {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
          "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
@@ -218,19 +231,36 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-        self.q_proj = _dense(cfg, cfg.hidden_size, H * D, device)
-        self.k_proj = _dense(cfg, cfg.hidden_size, KVH * D, device)
-        self.v_proj = _dense(cfg, cfg.hidden_size, KVH * D, device)
+        if cfg.fuse_proj:
+            self.qkv_proj = _dense(cfg, cfg.hidden_size, (H + 2 * KVH) * D, device)
+        else:
+            self.q_proj = _dense(cfg, cfg.hidden_size, H * D, device)
+            self.k_proj = _dense(cfg, cfg.hidden_size, KVH * D, device)
+            self.v_proj = _dense(cfg, cfg.hidden_size, KVH * D, device)
         self.o_proj = _dense(cfg, H * D, cfg.hidden_size, device)
         self.attn_impl = cfg.attn_impl
+
+    def qkv(self, x: torch.Tensor):
+        """x (B, L, hidden) -> q, k, v (B, L, H|KVH, D), before RoPE."""
+        cfg = self.cfg
+        B, L, _ = x.shape
+        H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+        if cfg.fuse_proj:
+            q, k, v = self.qkv_proj(x).split([H * D, KVH * D, KVH * D], dim=-1)
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        return q.view(B, L, H, D), k.view(B, L, KVH, D), v.view(B, L, KVH, D)
 
     def forward(self, x, cos, sin, attention_mask, cache=None, cache_index=None):
         cfg = self.cfg
         B, L, _ = x.shape
-        H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-        q = apply_rope(self.q_proj(x).view(B, L, H, D), cos, sin)
-        k = apply_rope(self.k_proj(x).view(B, L, KVH, D), cos, sin)
-        v = self.v_proj(x).view(B, L, KVH, D)
+        H, D = cfg.num_heads, cfg.head_size
+        q, k, v = self.qkv(x)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+
+        if cache is not None and "k_scale" in cache:
+            out = self._int8_cache_attention(q, k, v, attention_mask, cache, cache_index)
+            return self.o_proj(out.reshape(B, L, H * D)), cache
 
         if cache is not None:
             # in place (the JAX dynamic_update_slice): the step's k/v land in
@@ -249,16 +279,46 @@ class LlamaAttention(nn.Module):
         )
         return self.o_proj(out.reshape(B, L, H * D)), cache
 
+    def _int8_cache_attention(self, q, k, v, attention_mask, cache, cache_index):
+        """The int8-cache branch (the JAX LlamaAttention's): the fresh k/v
+        are quantised and written in place at cache_index; a prefill attends
+        over the fresh window (mask columns [0, L), no q_offset), a decode
+        step over the cache's live prefix."""
+        L = q.shape[1]
+        sl = slice(cache_index, cache_index + L)
+        cache["k"][:, sl], cache["k_scale"][:, sl] = quantize_kv(k)
+        cache["v"][:, sl], cache["v_scale"][:, sl] = quantize_kv(v)
+        if L > 1:
+            mask = attention_mask[:, :L] if attention_mask is not None else None
+            return multi_head_attention(q, k, v, attention_mask=mask, causal=True,
+                                        q_offset=None, impl=self.attn_impl)
+        args = (q[:, 0], cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+                attention_mask)
+        if q.is_cuda and self.attn_impl != "dense":
+            out = decode_attention_prefix_int8(*args, cache_index + 1)
+        else:
+            out = decode_attention_prefix_int8_dense(*args)
+        return out[:, None]
+
 
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        self.gate_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, device)
-        self.up_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size, device)
-        self.down_proj = _dense(cfg, cfg.intermediate_size, cfg.hidden_size, device)
+        self.cfg = cfg
+        I = cfg.intermediate_size
+        if cfg.fuse_proj:
+            self.gate_up_proj = _dense(cfg, cfg.hidden_size, 2 * I, device)
+        else:
+            self.gate_proj = _dense(cfg, cfg.hidden_size, I, device)
+            self.up_proj = _dense(cfg, cfg.hidden_size, I, device)
+        self.down_proj = _dense(cfg, I, cfg.hidden_size, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        if self.cfg.fuse_proj:
+            gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate_proj(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
 
 
 class LlamaBlock(nn.Module):

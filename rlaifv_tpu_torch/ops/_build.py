@@ -49,6 +49,9 @@ SIGNATURES = {
     # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
     # scale, stream
     "decode_attention_prefix_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # q, k, k_scale, v, v_scale, mask, out, B, H, KVH, L, D, valid_len,
+    # block_l, q stride b, q stride h, scale, stream
+    "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
     # x, w, y, part_m, part_s, part_t, M, H, V, nsplit, stream
     "fused_head_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, y, lse, g, dx_part, M, H, V, nsplit, Mpad, stream

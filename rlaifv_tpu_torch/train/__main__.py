@@ -83,7 +83,7 @@ def run_config(config, device) -> int:
     )
     from rlaifv_tpu_torch.train.family import get_family
     from rlaifv_tpu_torch.train.ref_logp import inference_logp
-    from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
+    from rlaifv_tpu_torch.train.trainer import DPOTrainer, precompute_head
 
     family = config.model.model_family
     spec = get_family(family)  # families other than llava15 raise
@@ -119,12 +119,12 @@ def run_config(config, device) -> int:
         rows = []
         for f in sorted(raw):
             rows.extend(pq.read_table(os.path.join(data_dir, f)).to_pylist())
-        # the train step's head keeps policy == reference => loss = ln 2 exact
-        t = config.training
+        # train.py's head: the train step's at compact_len 0, which keeps
+        # policy == reference => loss = ln 2 exact
         inference_logp(rows, model, tokenizer, data_dir, max_len=config.data.max_len,
                        num_patches=cfg.num_image_tokens, image_processor=proc,
-                       lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
-                       compact_len=int(t.compact_len), family=family)
+                       lm_head_impl=precompute_head(config.training, cfg.llm.hidden_size),
+                       family=family)
 
     dataset = DPODataset(tokenizer, config.data.data_dir, mm_cfg, score_fn=score_fn,
                          preprocess_func=spec.preprocess_func)

@@ -42,13 +42,12 @@ def _paired_attention(attn: LlamaAttention, xp, xs, cosp, sinp, coss, sins,
     cfg = attn.cfg
     B, P, _ = xp.shape
     S, W, _ = xs.shape  # S = 2B (win rows then rej rows)
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-    qp = apply_rope(attn.q_proj(xp).view(B, P, H, D), cosp, sinp)
-    kp = apply_rope(attn.k_proj(xp).view(B, P, KVH, D), cosp, sinp)
-    vp = attn.v_proj(xp).view(B, P, KVH, D)
-    qs = apply_rope(attn.q_proj(xs).view(S, W, H, D), coss, sins)
-    ks = apply_rope(attn.k_proj(xs).view(S, W, KVH, D), coss, sins)
-    vs = attn.v_proj(xs).view(S, W, KVH, D)
+    H, D = cfg.num_heads, cfg.head_size
+    # separate q/k/v projections or one fused qkv_proj (cfg.fuse_proj)
+    qp, kp, vp = attn.qkv(xp)
+    qs, ks, vs = attn.qkv(xs)
+    qp, kp = apply_rope(qp, cosp, sinp), apply_rope(kp, cosp, sinp)
+    qs, ks = apply_rope(qs, coss, sins), apply_rope(ks, coss, sins)
 
     # prefix: ordinary causal self-attention, one row per pair
     op = multi_head_attention(qp, kp, vp, attention_mask=pmask, causal=True,

@@ -65,16 +65,24 @@ class MetricLogger:
             print(f"[train] {brief}", flush=True)
 
 
-def resolve_head(training, hidden_size: int) -> str:
-    """lm_head_impl "auto" follows the JAX trainer's rule: "compact" when
-    compact_len > 0, else "fused" at hidden_size >= 2048 (7B+), else "xla"."""
+def precompute_head(training, hidden_size: int) -> str:
+    """The reference-logp precompute's head, train.py's rule: lm_head_impl,
+    with "auto" read as "fused" at hidden_size >= 2048 and "xla" below. No
+    compact_len reaches the precompute, so "auto" never picks the compact
+    head there (an explicit "compact" raises, as in the JAX package)."""
     head = getattr(training, "lm_head_impl", "auto")
     if head == "auto":
-        if int(getattr(training, "compact_len", 0)) > 0:
-            head = "compact"
-        else:
-            head = "fused" if hidden_size >= 2048 else "xla"
+        head = "fused" if hidden_size >= 2048 else "xla"
     return head
+
+
+def resolve_head(training, hidden_size: int) -> str:
+    """The train step's head, the JAX trainer's rule: "auto" is "compact"
+    when compact_len > 0, else `precompute_head`'s choice."""
+    if getattr(training, "lm_head_impl", "auto") == "auto" and \
+            int(getattr(training, "compact_len", 0)) > 0:
+        return "compact"
+    return precompute_head(training, hidden_size)
 
 
 class DPOTrainer:

@@ -17,14 +17,22 @@ other orders); dx and dW elementwise within 2^-6 |plain| + 1e-5 max|plain|
 The int8 matmul kernels equal their plain twins bit for bit (exact integer
 sums, IEEE quantisation, the same fp32 epilogue), and #7 equals #9, #8
 equals #10; so do the int4 kernels #11 and #12 (the groups' fp32 sums in
-order, each product and sum rounded separately).
+order, each product and sum rounded separately). The int8-cache decode
+kernel #5: max|kernel - twin| <= 2^-7 max|twin| (exact integer sums, IEEE
+quantisation and unfused fp32 epilogues on both sides; expf against torch's
+exp can flip a rounding of p8 by one step, and the output is bf16).
 """
+import dataclasses
+
 import pytest
 import torch
 
 from rlaifv_tpu_torch.ops.decode_attention import (
     decode_attention_prefix,
+    decode_attention_prefix_int8,
+    decode_attention_prefix_int8_ref,
     decode_attention_prefix_ref,
+    quantize_kv,
 )
 from rlaifv_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -188,6 +196,101 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
                                 cache.contiguous(), mask, 0)
 
 
+def _int8_cache(gen, B, L, H, KVH, D, valid_len):
+    """q, a quantised cache whose scales past the last live block are NaN
+    (never read), and a mask with left padding of 7b columns (a row padded
+    past valid_len sees nothing)."""
+    from rlaifv_tpu_torch.ops.decode_attention import prefix_block_l
+
+    q = _randn(gen, B, H, D)
+    kq, ks = quantize_kv(_randn(gen, B, L, KVH, D))
+    vq, vs = quantize_kv(_randn(gen, B, L, KVH, D))
+    end = -(-valid_len // prefix_block_l(L)) * prefix_block_l(L)
+    ks[:, end:], vs[:, end:] = float("nan"), float("nan")
+    mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, 7 * b:valid_len] = 1
+    return q, kq, ks, vq, vs, mask
+
+
+@pytest.mark.parametrize("B,L,H,KVH,D,valid_len", [
+    (10, 896, 32, 32, 128, 860),   # diverse_gen: block 128
+    (24, 1024, 32, 32, 128, 960),  # the batch-24 headline: block 256
+    (4, 1024, 32, 32, 128, 1),     # one live column
+    (4, 1024, 32, 32, 128, 200),   # mid-block
+    (4, 1024, 32, 32, 128, 256),   # exactly one block
+    (3, 384, 32, 8, 128, 300),     # n_rep 4, L % 256 != 0
+    (2, 512, 8, 8, 64, 137),       # D 64
+])
+def test_int8_decode_kernel_matches_twin(gen, B, L, H, KVH, D, valid_len):
+    args = _int8_cache(gen, B, L, H, KVH, D, valid_len)
+    n0 = decode_attention_prefix_int8.launches
+    out = decode_attention_prefix_int8(*args, valid_len)
+    ref = decode_attention_prefix_int8_ref(*args, valid_len)
+    torch.cuda.synchronize()
+    assert decode_attention_prefix_int8.launches == n0 + 1
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    dead = [b for b in range(B) if 7 * b >= valid_len]
+    assert all((out[b] == 0).all() for b in dead)  # fully masked rows output 0
+
+
+def test_int8_decode_kernel_raises_on_what_it_does_not_take(gen):
+    q, kq, ks, vq, vs, mask = _int8_cache(gen, 2, 256, 8, 4, 64, 100)
+    with pytest.raises(TypeError):
+        decode_attention_prefix_int8(q.float(), kq, ks, vq, vs, mask, 100)
+    with pytest.raises(ValueError):
+        decode_attention_prefix_int8(q, kq.transpose(1, 2).contiguous().transpose(1, 2),
+                                     ks, vq, vs, mask, 100)
+    with pytest.raises(ValueError):
+        decode_attention_prefix_int8(q, kq, ks, vq, vs, mask, 0)
+    with pytest.raises(ValueError):  # L not a multiple of 128
+        decode_attention_prefix_int8(q, kq[:, :200].contiguous(), ks[:, :200].contiguous(),
+                                     vq[:, :200].contiguous(), vs[:, :200].contiguous(),
+                                     mask[:, :200], 100)
+
+
+def test_tiny_int8_kv_model_decodes_through_kernel_5(gen):
+    """A bf16 tiny LLaMA (head dim 64) with int8 weights, fused projections
+    and an int8 cache: every decode step launches #5 once a layer and no
+    #4; its logits stay within 5% of the same model on attn_impl "dense"
+    (the dequantised formula)."""
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2, quantize=True,
+                           quantize_lm_head=False, fuse_proj=True, kv_cache_dtype="int8",
+                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    ids = torch.randint(3, 200, (3, 140), generator=gen, device="cuda")
+    mask = torch.zeros((3, 256), dtype=torch.int32, device="cuda")
+    mask[:, :130] = 1
+    outs = []
+    for impl in ("auto", "dense"):
+        torch.manual_seed(0)  # the same weights for both routes
+        model = LlamaForCausalLM(dataclasses.replace(cfg, attn_impl=impl), device="cuda")
+        wgen = torch.Generator(device="cuda").manual_seed(1)
+        for m in model.modules():
+            if hasattr(m, "q"):
+                m.q.copy_(torch.randint(-127, 128, m.q.shape, generator=wgen, device="cuda"))
+                m.scale.fill_(2e-4)
+        cache = model.init_cache(3, 256)
+        n4, n5 = decode_attention_prefix.launches, decode_attention_prefix_int8.launches
+        with torch.no_grad():
+            logits = [model(ids[:, :130], attention_mask=mask, cache=cache, cache_index=0)[0]]
+            for t in range(130, 134):
+                mask[:, t] = 1
+                logits.append(model(ids[:, t:t + 1], attention_mask=mask, cache=cache,
+                                    cache_index=t)[0])
+        mask[:, 130:] = 0
+        if impl == "auto":
+            assert decode_attention_prefix.launches == n4
+            assert decode_attention_prefix_int8.launches - n5 == 4 * cfg.num_layers
+        outs.append(torch.cat([x[:, -1] for x in logits]).float())
+    assert torch.isfinite(outs[0]).all()
+    rel = ((outs[0] - outs[1]).abs().max() / outs[1].abs().max()).item()
+    assert rel <= 0.05, rel
+
+
 def test_tiny_slice_kernels_match_dense_path(gen):
     """A bf16 tiny LLaVA (head dim 64) on the card: autocheck and greedy
     decoding through the kernels agree with the same model forced dense."""
@@ -302,6 +405,9 @@ def _int8_case(gen, M, K, N):
     (128, 11008, 4096),   # down_proj, at the crossover
     (300, 96, 300),       # ragged rows, contraction and columns
     (5, 40, 24),          # rows not a multiple of 16 bytes: the byte path
+    (10, 4096, 12288),    # fused qkv_proj, a decode step of 10 rows
+    (24, 4096, 22016),    # fused gate_up_proj, the batch-24 decode step
+    (832, 4096, 12288),   # fused qkv_proj, a prefill window
 ])
 def test_int8_kernels_match_plain_bit_for_bit(gen, M, K, N):
     from rlaifv_tpu_torch.ops import quant_matmul as qm

@@ -3,9 +3,10 @@ outputs on the same inputs.
 
 rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
 `utils/prefetch`, the llava15 `train/family` spec, the HF-checkpoint
-loader of `models/convert`, `quantize_kernel_int8`, the numpy int4 helpers
-of `ops/int4_matmul` and the tree helpers of `train/lora` (it imports
-nothing of rlaifv_tpu). Each case
+loader and `fuse_llm_projections` of `models/convert`,
+`quantize_kernel_int8`, the numpy int4 helpers of `ops/int4_matmul`, the
+tree helpers of `train/lora` and the KV-cache quantiser of
+`ops/decode_attention` (it imports nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -202,6 +203,49 @@ def case_int4_numpy_helpers(pkg):
     q = rng.integers(-7, 8, size=(96, 24)).astype(np.int8)
     return (i4.INT4_GROUP, [i4.pick_int4_group(k) for k in (128, 256, 11008, 64, 96)],
             i4.pack_int4(q, 32), i4.quantize_int4(w), i4.quantize_int4(w, group=256))
+
+
+def case_fuse_llm_projections(pkg):
+    """Two layers (float and int8, then int4 with 2-D group scales) and a
+    float head, rewritten for fuse_proj."""
+    rng = np.random.default_rng(3)
+
+    def proj(kind, n_out):
+        if kind == "float":
+            return {"kernel": rng.normal(size=(8, n_out)).astype(np.float32)}
+        if kind == "int8":
+            return {"kernel": rng.integers(-9, 9, (8, n_out)).astype(np.int8),
+                    "scale": rng.random(n_out).astype(np.float32)}
+        return {"kernel": rng.integers(-9, 9, (4, n_out)).astype(np.int8),
+                "scale": rng.random((1, n_out)).astype(np.float32)}
+
+    def layer(kind):
+        return {"attn": {n: proj(kind, w) for n, w in
+                         (("q_proj", 8), ("k_proj", 4), ("v_proj", 4), ("o_proj", 8))},
+                "mlp": {n: proj(kind, w) for n, w in
+                        (("gate_proj", 12), ("up_proj", 12), ("down_proj", 8))}}
+
+    tree = {"model": {"layer_0": layer("float"), "layer_1": layer("int8"),
+                      "layer_2": layer("int4")},
+            "lm_head": proj("float", 16)}
+    return pkg("models.convert").fuse_llm_projections(tree)
+
+
+def case_quantize_kv(pkg):
+    """The int8 KV-cache quantiser and dequantiser (torch in the port,
+    jax.numpy in the JAX package), with an all-zero row (the 1e-20 floor)."""
+    mod = pkg("ops.decode_attention")
+    x = (np.random.default_rng(4).normal(size=(2, 8, 3, 16)) * 3).astype(np.float32)
+    x[1, 2, 0] = 0
+    if pkg.__name__ == "rlaifv_tpu_torch":
+        import torch
+
+        q, s = mod.quantize_kv(torch.from_numpy(x))
+        return q.numpy(), s.numpy(), mod.dequantize_kv(q, s, torch.float32).numpy()
+    import jax.numpy as jnp
+
+    q, s = mod.quantize_kv(jnp.asarray(x))
+    return np.asarray(q), np.asarray(s), np.asarray(mod.dequantize_kv(q, s, jnp.float32))
 
 
 def _lora_tree(rng):

@@ -13,7 +13,6 @@ import torch
 from rlaifv_tpu.models.llava import LlavaConfig as JLlavaConfig
 from rlaifv_tpu.models.llava import LlavaForCausalLM as JLlava
 from rlaifv_tpu_torch.models.convert import llava_params_from_jax, load_jax_params
-from rlaifv_tpu_torch.models.llama import LlamaConfig
 from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM
 
 ATOL = 1e-4
@@ -137,18 +136,6 @@ def test_llm_logits_with_cache_match_jax(pair):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
         np.testing.assert_allclose(tcache[0]["k"].numpy(), np.asarray(jcache[0]["k"]),
                                    atol=ATOL)
-
-
-@pytest.mark.parametrize("option,value,item", [
-    ("kv_cache_dtype", "int8", "#6"), ("fuse_proj", True, "#6"),
-])
-def test_unported_options_raise(option, value, item):
-    """The int8 KV cache and fused projections raise naming their ROADMAP
-    item (int8 and int4 weights are ported)."""
-    from rlaifv_tpu_torch.models.llama import LlamaForCausalLM
-
-    with pytest.raises(NotImplementedError, match=item):
-        LlamaForCausalLM(LlamaConfig.tiny(**{option: value}), device="meta")
 
 
 def test_lora_adapters_and_anyres_raise():

@@ -4,8 +4,9 @@ triton, and builds nothing at import.
 A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
 the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
-serving slice on the CPU (random weights
-from a seeded generator), runs `python -m rlaifv_tpu_torch.train --demo
+serving slice on the CPU (random weights from a seeded generator), bf16
+cache and then in place int8 weights + fused projections + int8 cache,
+runs `python -m rlaifv_tpu_torch.train --demo
 --device cpu` for 2 steps into a temporary directory, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
 An AST scan finds no import statement rooted at those names in any file of
@@ -72,6 +73,17 @@ SCRIPT = textwrap.dedent("""
     assert len(rows) == 2 and all(isinstance(r["answer"], str) for r in rows)
     rows = gen.greedy_gen(items[:2], max_new_tokens=3)
     assert len(rows) == 2
+
+    # the same model in the int8-KV serving configuration, in place
+    from rlaifv_tpu_torch.models.convert import (fuse_llm_projections_,
+                                                 quantize_llm_int8, set_llm_config)
+    quantize_llm_int8(model, include_lm_head=False)
+    set_llm_config(fuse_llm_projections_(model), kv_cache_dtype="int8")
+    assert "k_scale" in model.init_cache(1, 128)[0]
+    rows = gen.autocheck(items, batch_size=2)
+    assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
+    assert len(gen.diverse_gen(items[:1] * 2, max_new_tokens=3)) == 2
+    assert len(gen.greedy_gen(items[:2], max_new_tokens=3)) == 2
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy

@@ -21,7 +21,7 @@ from rlaifv_tpu_torch.core.checkpoint import CheckpointManager, has_resumable_ch
 from rlaifv_tpu_torch.core.config import Config
 from rlaifv_tpu_torch.data.collator import DPOCollator
 from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
-from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
+from rlaifv_tpu_torch.train.trainer import DPOTrainer, precompute_head, resolve_head
 from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
 
 
@@ -176,6 +176,23 @@ def test_compact_head_and_its_overflow_check(data, tmp_path):
                     coll)
     with pytest.raises(ValueError, match="compact head overflow"):
         tr.train()
+
+
+@pytest.mark.parametrize("head,compact_len,hidden,want", [
+    ("auto", 0, 4096, "fused"), ("auto", 0, 64, "xla"),
+    ("auto", 32, 4096, "fused"), ("auto", 32, 64, "xla"),
+    ("xla", 32, 4096, "xla"), ("fused", 0, 64, "fused"),
+])
+def test_precompute_head_follows_train_py(head, compact_len, hidden, want):
+    """The reference-logp precompute resolves its head as train.py does:
+    "auto" is fused at hidden >= 2048, else "xla", whatever compact_len
+    (which the precompute is not given); the train step's own "auto" still
+    picks the compact head when compact_len > 0."""
+    training = Config().training
+    training.lm_head_impl, training.compact_len = head, compact_len
+    assert precompute_head(training, hidden) == want
+    if head == "auto" and compact_len:
+        assert resolve_head(training, hidden) == "compact"
 
 
 def test_non_finite_loss_stops_the_run(data, tmp_path):
@@ -371,7 +388,15 @@ def test_config_run_precomputes_reference_logps(tmp_path, monkeypatch):
                         "learning_rate": 1e-3, "warmup_ratio": 0.0,
                         "lm_head_impl": "fused", "shared_prefix_len": -1}}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    from rlaifv_tpu_torch.train import ref_logp
+
+    seen = []
+    monkeypatch.setattr(ref_logp, "inference_logp", lambda *a, _f=ref_logp.inference_logp,
+                        **kw: seen.append(kw) or _f(*a, **kw))
     assert tmain.main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"]) == 2
+    # train.py's call: the head resolved by precompute_head, no compact_len
+    assert len(seen) == 1 and seen[0]["lm_head_impl"] == "fused"
+    assert "compact_len" not in seen[0]
 
     # the JAX package's precompute on the same checkpoint and rows
     from rlaifv_tpu.data.image_processing import ClipImageProcessor
