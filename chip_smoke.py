@@ -98,6 +98,26 @@ Phases, one progress line each (or a few):
      SDPA over the cache dequantised to bf16; then planted faults (the
      v-scale fold dropped, p quantised with one global max, valid_len one
      block short, the mask ignored), each of which must break the bound;
+  3g. (run after 3f) kernel #16, fused decode through the layer stack,
+     against its plain twin (fused_decode_step_ref) at the 7B widths
+     (Vicuna-7B, 32 layers, random int8/int4 stacked weights and cache):
+     B = 8 and 10 at L = 896, batch 24 at L = 1024 and cache_index 960, a
+     block edge with a fully masked row, mid-block, n_rep 4, int4; at one
+     layer of each shape at most B/4 rows may hold a quantisation flip,
+     through 32 layers x_out and the fresh k/v within gross bounds beside
+     the twin's own one-ulp spread; times beside the bound and the twin's;
+     planted faults (the fresh column dropped, the mask ignored, the
+     activation quantised over the whole of I, rope skipped on k, one
+     I-block of the down sum dropped), each of which must break the
+     one-layer bound; the barrier-bound floor of a launch;
+  12. (run after 11, on its model) the fused engine: the eager int8-KV
+     path's forced logits and step time first, the LLM's weights stacked in
+     place (memory before and after, flat within one layer's weights),
+     phase 11's three workloads and the batch-24 headline with #16 on every
+     decode step (launches = decode steps, #4/#5/#7 none), rates and peak
+     memory beside phase 11's, then greedy_gen's prompts with 4 forced
+     tokens: the fused prefill against phase 11's, each step's #16 against
+     its twin on the same cache, and the path against phase 11's;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -107,8 +127,9 @@ Phases, one progress line each (or a few):
      by step 2); step time, pairs/s, tokens/s, peak memory, and the
      launches a step of #11, #12 and the dequant dx (gate/up).
 
-Each path of the main run (4, 11's two headline runs and its slice, 8, 6,
-9's precompute, steps and short step, and 10's precompute and steps)
+Each path of the main run (4, 11's two headline runs and its slice, 12's
+slice and headline, 8, 6, 9's precompute, steps and short step, and 10's
+precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
 bound and library time.
@@ -118,6 +139,7 @@ device it exits non-zero before measuring anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -127,6 +149,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -140,7 +163,7 @@ from rlaifv_tpu_torch.core.config import Config  # noqa: E402
 from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import DecodeEngine, left_pad_batch  # noqa: E402
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
-from rlaifv_tpu_torch.models.llama import LlamaAttention  # noqa: E402
+from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig  # noqa: E402
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     LlavaConfig,
     LlavaForCausalLM,
@@ -155,6 +178,7 @@ from rlaifv_tpu_torch.models.convert import (  # noqa: E402
     set_llm_config,
 )
 from rlaifv_tpu_torch.ops import _build  # noqa: E402
+from rlaifv_tpu_torch.ops import fused_decode as fd  # noqa: E402
 from rlaifv_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
@@ -374,6 +398,7 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "int8_dx_prequant": (qm.int8_matmul_dx_prequant, "launches"),
     "int4": (i4.int4_matmul, "launches"),
     "int4_dx": (i4.int4_matmul_dx, "launches"),
+    "fused": (fd.fused_decode_step, "launches"),
 }
 
 
@@ -862,10 +887,11 @@ FACTS = [f"Is there a {w} in the image? Please answer yes or no." for w in
 
 
 def phase_slice(gen: Llava15Generator, image_bytes: bytes, tag: str = "4 slice",
-                decode: str = "decode") -> tuple:
-    """autocheck of 8 facts, diverse_gen 10 x 64 and greedy_gen 4 x 32, with
-    every launch counter reset just before and read just after -> (launches,
-    rates). `decode` names the decode kernel of the model's cache type."""
+                decode: str = "decode", per_step: int = 0) -> tuple:
+    """autocheck of 8 facts, diverse_gen 10 x 64 (one batch) and greedy_gen
+    4 x 32, with every launch counter reset just before and read just after
+    -> (launches, rates). `decode` names the decode kernel of the path, which
+    launches `per_step` times a decode step (default: once a layer)."""
     facts = _items(image_bytes, FACTS)
     diverse = _items(image_bytes, ["Describe the image in detail."] * 10)
     greedy = _items(image_bytes, ["What is in the image?", "Describe the scene.",
@@ -883,7 +909,8 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes, tag: str = "4 slice",
     t1 = time.perf_counter()
     owner, attr = COUNTERS[decode]
     steps0 = getattr(owner, attr)
-    sampled = gen.diverse_gen(diverse, temperature=0.7, max_new_tokens=64, seed=0)
+    sampled = gen.diverse_gen(diverse, temperature=0.7, max_new_tokens=64, seed=0,
+                              batch_size=len(diverse))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     steps1 = getattr(owner, attr)
@@ -898,14 +925,15 @@ def phase_slice(gen: Llava15Generator, image_bytes: bytes, tag: str = "4 slice",
     assert len(sampled) == 10 and len(greedy_rows) == 4
     assert all(isinstance(r["answer"], str) for r in sampled + greedy_rows)
     n_layers = gen.model.cfg.llm.num_layers
+    per_step = per_step or n_layers
     log(f"[{tag}] launches during the slice: " + ", ".join(
         f"{k} {v}" for k, v in launches.items() if v))
-    if launches["flash"] < n_layers or launches[decode] < n_layers:
+    if launches["flash"] < n_layers or launches[decode] < per_step:
         raise AssertionError(f"a kernel of the path did not run: {launches}")
     # tokens sampled = rows x (decode steps + the first token, which comes
-    # from the prefill logits); one decode step launches one kernel a layer
-    n_div = 10 * ((steps1 - steps0) // n_layers + 1)
-    n_greedy = 4 * ((launches[decode] - steps1) // n_layers + 1)
+    # from the prefill logits)
+    n_div = 10 * ((steps1 - steps0) // per_step + 1)
+    n_greedy = 4 * ((launches[decode] - steps1) // per_step + 1)
     rates = dict(facts_s=8 / (t1 - t0), diverse_tok_s=n_div / (t2 - t1),
                  greedy_tok_s=n_greedy / (t3 - t2), peak_gb=peak_gb)
     log(f"[{tag}] autocheck 8 facts in {t1 - t0:.3f} s = {rates['facts_s']:.2f} facts/s "
@@ -1068,6 +1096,333 @@ def phase_kv8_kernel(g) -> dict:
             raise AssertionError(f"the 3f bound misses the planted fault {name!r}")
     return res
 
+# 3g: kernel #16 against its twin (fused_decode_step_ref). Both sum the
+# integer products exactly, quantise with IEEE divisions and round the fp32
+# formulas alike, but the norm's sum of squares, the fresh column's dot and
+# the softmax sums reduce in other orders and expf / sigmoid / rsqrt round
+# differently, so now and then a value lands on the other side of a
+# quantisation step. Such a flip changes its row's products by one step of
+# the row's scale; the next layers quantise the difference again, and through
+# 32 random-weight layers the flips spread: the twin against itself with x
+# moved by one ulp reads as far apart as the kernel does (PERF.md section 6).
+# So the check is two-fold. One layer (the first of the stack, at each case's
+# shape), the sharp check: a row of x_out (and of the fresh k/v) either
+# equals the twin's to FUSED_ROW_TOL of max|x_out| or holds a flip; at most
+# FUSED_FLIP_ROWS(B) rows may hold one, every row's x_out within
+# FUSED_FLIP_STEPS int8 steps of that row's own scale (max|x_out row| / 127)
+# and the fresh k/v within FUSED_LAYER_KV_STEPS steps. Each planted fault
+# (the twin with one piece of the function broken) must break one of these,
+# also when it touches only the rows of the second 16-row mma tile. All 32
+# layers, a gross check: x_out within FUSED_X_TOL of max|x_out|, the fresh
+# k/v at most FUSED_KV_STEPS int8 steps apart, their scales within
+# FUSED_SCALE_RTOL. Read on an H100 80GB HBM3 over two draws of the data
+# (PERF.md section 6): one layer, at most 1 of 10, 2 of 8 and 4 of 24 rows
+# with a flip, the worst row 3.42 steps of its scale, the fresh k/v 1 step;
+# the planted faults move 7-8 of 8 rows (all 8 of rows 16-23), a row
+# 3.7-87 steps, rope's k 254 steps. 32 layers: the kernel 0.06-0.24 of
+# max|x_out|, 16-54 steps, scales 0.07-0.26, the twin against itself with x
+# one ulp up 0.06-0.23; planted faults read 0.19-0.22 there, so this check
+# catches only what breaks the step outright.
+FUSED_ROW_TOL = 1e-5
+FUSED_FLIP_STEPS = 8.0
+FUSED_LAYER_KV_STEPS = 1
+FUSED_X_TOL = 0.3
+FUSED_KV_STEPS = 64
+FUSED_SCALE_RTOL = 0.4
+FUSED_LAYERS = 32
+FUSED_TILE_ROWS = 16  # rows of one mma tile: a fault on the second tile starts here
+
+
+def FUSED_FLIP_ROWS(B: int) -> int:  # noqa: N802 (a bound, named like the others)
+    return max(1, B // 4)
+
+
+FD_CASES = [  # 3g: the fused path's shapes at the 7B widths, then the edges
+    dict(name="greedy_gen, mid-block", B=8, L=896, ci=840, KVH=32, bits=8, time=True),
+    dict(name="diverse_gen", B=10, L=896, ci=895, KVH=32, bits=8, time=True),
+    dict(name="batch-24 headline", B=24, L=1024, ci=960, KVH=32, bits=8, time=True),
+    dict(name="block edge, a fully masked row", B=8, L=1024, ci=768, KVH=32, bits=8,
+         time=False, dead_row=True),
+    dict(name="early, mid-block", B=6, L=1024, ci=200, KVH=32, bits=8, time=False),
+    dict(name="GQA n_rep 4", B=6, L=512, ci=300, KVH=8, bits=8, time=True),
+    dict(name="int4 diverse_gen", B=10, L=896, ci=895, KVH=32, bits=4, time=True),
+    dict(name="int4 batch-24 headline", B=24, L=1024, ci=960, KVH=32, bits=4, time=True),
+]
+
+
+def _fd_cfg(KVH: int, bits: int, **kw):
+    """The 7B LLM config of the fused path (Vicuna-7B widths)."""
+    kw.setdefault("num_layers", FUSED_LAYERS)
+    return LlamaConfig.vicuna_7b(num_kv_heads=KVH, quantize=True, quantize_bits=bits,
+                                 fuse_proj=True, kv_cache_dtype="int8", **kw)
+
+
+def _fd_weights(g, cfg) -> dict:
+    """Stacked weights of `cfg` (the layouts of ops/fused_decode.py): each
+    projection N(0, 0.02) quantised on the card as the package quantises a
+    model (int8 per column, or int4 in groups of 128), the MLP padded to Ip
+    as stack_llama_params pads it; norms 1 + N(0, 0.1)."""
+    d = fd.default_dims(cfg, 128)
+    HD, I, Ip = d.H * d.Dh, d.I, d.Ip
+    out = {}
+    for (wk, sk), K, N in ((("wqkv", "sqkv"), d.D, d.Nq), (("wo", "so"), HD, d.D),
+                           (("wgu", "sgu"), d.D, 2 * I), (("wdown", "sdown"), I, d.D)):
+        ws, ss = [], []
+        for _ in range(d.n_layers):
+            w = torch.randn(K, N, generator=g, device="cuda") * 0.02
+            q, sc = quantize_int4_torch(w) if d.w4 else quantize_kernel_int8_torch(w)
+            sc = sc if d.w4 else sc[None]
+            if wk == "wgu":
+                q, sc = fd._pad_cols(q, I, Ip), fd._pad_cols(sc, I, Ip)
+            elif wk == "wdown":
+                q = fd._pad_rows(q, Ip // 2 if d.w4 else Ip)
+                sc = fd._pad_rows(sc, Ip // d.g_down) if d.w4 else sc
+            ws.append(q)
+            ss.append(sc)
+        out[wk], out[sk] = torch.stack(ws), torch.stack(ss)
+        del ws, ss
+    out["ln"] = 1 + 0.1 * torch.randn(d.n_layers, 2, d.D, generator=g, device="cuda")
+    return out
+
+
+def _fd_inputs(g, d, B: int, ci: int, dead_row: bool = False) -> tuple:
+    """A random stacked cache whose scales past the last live block are NaN
+    (never read), a mask with 7 b columns of left padding in row b (all of
+    row 1 masked with dead_row) live up to ci (the fresh column), x ~ N(0,
+    0.02) (an embedding's scale) and rope positions."""
+    shape = (d.n_layers, d.KVH, B, d.L)
+    cache = {}
+    for key in ("k", "v"):
+        cache[key] = torch.randint(-127, 128, shape + (d.Dh,), generator=g, device="cuda",
+                                   dtype=torch.int8)
+        sc = 0.01 + 0.02 * torch.rand(shape, generator=g, device="cuda")
+        sc[..., -(-ci // d.bl) * d.bl:] = float("nan")
+        cache[f"{key}_scale"] = sc
+    mask = torch.zeros((B, d.L), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, 7 * b:ci + 1] = 1
+    if dead_row:
+        mask[1] = 0
+    x = 0.02 * torch.randn(B, d.D, generator=g, device="cuda")
+    pos = ci - 7 * torch.arange(B, device="cuda")
+    return cache, mask, x, pos
+
+
+def _fd_gap(x_out, kv, x_ref, kv_ref) -> dict:
+    """x_out's max|d| (absolute, and over max|ref|), the largest row error in
+    int8 steps of that row's scale (max|ref row| / 127), the fresh k/v's
+    largest int8 step difference and count of differing values, their
+    scales' largest relative difference, and the batch rows that differ at
+    all (x_out beyond FUSED_ROW_TOL of max|ref|, or any fresh k/v value or
+    scale) (inf for anything not finite)."""
+    if not all(bool(torch.isfinite(t).all()) for t in (x_out, kv["k_scale"], kv["v_scale"])):
+        return dict(x_rel=math.inf, x_abs=math.inf, row_steps=math.inf, steps=math.inf,
+                    flips=-1, scale_rel=math.inf, rows=math.inf)
+    err = (x_out - x_ref).abs().amax(dim=1)
+    top = x_ref.abs().max()
+    rows = err > FUSED_ROW_TOL * top
+    diffs = [(kv[k].int() - kv_ref[k].int()).abs() for k in ("k", "v")]
+    srel = [(kv[k] - kv_ref[k]).abs() / kv_ref[k].abs() for k in ("k_scale", "v_scale")]
+    for t in diffs:  # (n_layers, KVH, B, Dh) -> (B,)
+        rows |= (t != 0).any(dim=3).any(dim=1).any(dim=0)
+    for t in srel:  # (n_layers, KVH, B)
+        rows |= (t > FUSED_ROW_TOL).any(dim=1).any(dim=0)
+    return dict(x_rel=err.max().item() / top.item(), x_abs=err.max().item(),
+                row_steps=(err / (x_ref.abs().amax(dim=1) / 127)).max().item(),
+                steps=max(t.max().item() for t in diffs),
+                flips=sum(int((t != 0).sum()) for t in diffs),
+                scale_rel=max(t.max().item() for t in srel), rows=int(rows.sum()))
+
+
+def _fd_layer_broken(gap: dict, B: int) -> list:
+    """One layer: the sharp bounds `gap` breaks."""
+    return [name for name, bad in (
+        (f"{gap['rows']} rows differ > {FUSED_FLIP_ROWS(B)}", gap["rows"] > FUSED_FLIP_ROWS(B)),
+        (f"a row {gap['row_steps']:.3g} steps of its scale off > {FUSED_FLIP_STEPS}",
+         gap["row_steps"] > FUSED_FLIP_STEPS),
+        (f"k/v {gap['steps']} steps > {FUSED_LAYER_KV_STEPS}",
+         gap["steps"] > FUSED_LAYER_KV_STEPS)) if bad]
+
+
+def _fd_within(gap: dict) -> bool:
+    """All 32 layers: the gross bounds."""
+    return (gap["x_rel"] <= FUSED_X_TOL and gap["steps"] <= FUSED_KV_STEPS
+            and gap["scale_rel"] <= FUSED_SCALE_RTOL)
+
+
+def _fd_layer0(args: tuple) -> tuple:
+    """The same step through the first layer of the stack only."""
+    stacked, cache, x, mask, pos, ci, d = args
+    return ({k: v[:1] for k, v in stacked.items()}, {k: v[:1] for k, v in cache.items()},
+            x, mask, pos, ci, dataclasses.replace(d, n_layers=1))
+
+
+def _fd_rows_from(ref: tuple, bad: tuple, start: int) -> tuple:
+    """The twin's output `ref` with the batch rows from `start` on taken
+    from `bad`: a fault confined to the second mma row tile."""
+    x = ref[0].clone()
+    x[start:] = bad[0][start:]
+    kv = {k: v.clone() for k, v in ref[1].items()}
+    for k, v in kv.items():
+        v[:, :, start:] = bad[1][k][:, :, start:]
+    return x, kv
+
+
+def _fd_faults(args: tuple, kw: dict, out: tuple, first_row: int = 0) -> None:
+    """The planted faults on one layer: the twin with one piece of the
+    function broken (on the rows from `first_row` on), each against the
+    sound kernel's output, must break a sharp bound."""
+    from unittest import mock
+
+    stacked, cache, x, mask, pos, ci, d = args
+    rope, down = fd._rope, fd._down
+    calls = [0]
+
+    def rope_q_only(t, cos, sin):  # the second rope of a layer is k's
+        calls[0] += 1
+        return t if calls[0] % 2 == 0 else rope(t, cos, sin)
+
+    def no_fresh(qg, k, v, scale):
+        m = torch.full(qg.shape[:-1] + (1,), fd.NEG_INF, device=qg.device)
+        return m, torch.zeros_like(m), torch.zeros_like(qg)
+
+    def act_whole_I(gu, d):
+        g, u = gu[:, :d.Ip], gu[:, d.Ip:]
+        a8, sa = qm.quantize_rows((g * torch.sigmoid(g)) * u)
+        return [(a8[:, b * d.bi:(b + 1) * d.bi], sa) for b in range(d.nI)]
+
+    def drop_last_block(a8, sa, wdown, sdown, blk, d):
+        y = down(a8, sa, wdown, sdown, blk, d)
+        return torch.zeros_like(y) if blk == d.nI - 1 else y
+
+    faults = {"the fresh column dropped": ("_fresh_column", no_fresh, mask),
+              "the mask ignored": (None, None, torch.ones_like(mask)),
+              "the activation quantised over the whole of I, not per I-block":
+                  ("_act_quant", act_whole_I, mask),
+              "rope skipped on k": ("_rope", rope_q_only, mask),
+              "one I-block of the down sum dropped": ("_down", drop_last_block, mask)}
+    B = x.shape[0]
+    where = f"rows {first_row}-{B - 1}" if first_row else f"all {B} rows"
+    sound = fd.fused_decode_step_ref(*args, **kw) if first_row else None
+    missed = []
+    for name, (attr, fn, fmask) in faults.items():
+        calls[0] = 0
+        with mock.patch.object(fd, attr, fn) if attr else contextlib.nullcontext():
+            ref = fd.fused_decode_step_ref(stacked, cache, x, fmask, pos, ci, d, **kw)
+        if first_row:
+            ref = _fd_rows_from(sound, ref, first_row)
+        gap = _fd_gap(*out, *ref)
+        broken = _fd_layer_broken(gap, B)
+        log(f"[3g fused decode] planted fault {name!r} on {where}, one layer: {gap['rows']} of "
+            f"{B} rows differ, x_out {gap['x_rel']:.3e} of max, a row {gap['row_steps']:.3g} "
+            f"steps of its scale off, k/v {gap['steps']} steps ({gap['flips']} values), scales "
+            f"{gap['scale_rel']:.2e} | {'caught: ' + '; '.join(broken) if broken else 'MISSED'}")
+        if not broken:
+            missed.append(name)
+    if missed:
+        raise AssertionError(f"the 3g bounds miss the planted faults {missed} on {where}")
+
+
+def _fd_bytes(d, B: int, ci: int) -> int:
+    """The bytes one step must move: every weight and scale read once at
+    the true intermediate size I (the zero padding to Ip is not part of the
+    function), the live cache prefix (columns [0, ci) of every layer, values
+    and scales), x in and out, the mask, the fresh k/v out."""
+    weights = sum(math.prod(s) * (1 if k.startswith("w") else 4)
+                  for k, s in fd._stacked_shapes(dataclasses.replace(d, Ip=d.I)).items())
+    prefix = d.n_layers * d.KVH * B * ci * 2 * (d.Dh + 4)
+    fresh = d.n_layers * d.KVH * B * 2 * (d.Dh + 4)
+    return weights + prefix + fresh + 2 * B * d.D * 4 + B * d.L * 4
+
+
+def _fd_bound(d, B: int, ci: int) -> dict:
+    """One step's bound: _fd_bytes at the HBM peak, or the int8 operations
+    (every weight used by B rows, q.k and p.v over the live prefix) at the
+    int8 peak."""
+    macs = d.D * d.Nq + d.H * d.Dh * d.D + d.D * 2 * d.I + d.I * d.D
+    ops = d.n_layers * (2 * B * macs + 4 * B * d.H * d.Dh * ci)
+    return bound(ops, _fd_bytes(d, B, ci), PEAK_INT8_TOPS)
+
+
+def phase_fused_kernel(g) -> dict:
+    """3g: kernel #16 against its twin at the fused path's shapes and edges
+    (int8 and int4, MHA and GQA), times beside the bound and the twin's;
+    the barrier-bound floor of a launch; then the planted faults."""
+    res = {"err": 0.0}
+    weights = {}
+    for c in FD_CASES:
+        key = (c["KVH"], c["bits"])
+        if key not in weights:
+            weights.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            weights[key] = _fd_weights(g, _fd_cfg(*key))
+        cfg = _fd_cfg(*key)
+        d = fd.default_dims(cfg, c["L"])
+        B, ci = c["B"], c["ci"]
+        cache, mask, x, pos = _fd_inputs(g, d, B, ci, c.get("dead_row", False))
+        args = (weights[key], cache, x, mask, pos, ci, d)
+        kw = dict(rope_theta=cfg.rope_theta)
+        out = fd.fused_decode_step(*args, **kw)
+        ref = fd.fused_decode_step_ref(*args, **kw)
+        xp = torch.nextafter(x, torch.full_like(x, math.inf))
+        spread = _fd_gap(*fd.fused_decode_step_ref(weights[key], cache, xp, *args[3:], **kw),
+                         *ref)
+        args1 = _fd_layer0(args)
+        out1 = fd.fused_decode_step(*args1, **kw)
+        gap1 = _fd_gap(*out1, *fd.fused_decode_step_ref(*args1, **kw))
+        torch.cuda.synchronize()
+        gap = _fd_gap(*out, *ref)
+        broken = _fd_layer_broken(gap1, B)
+        ok = _fd_within(gap) and not broken
+        msg = (f"[3g fused decode] {c['name']}: int{c['bits']} B={B} L={d.L} cache_index={ci} "
+               f"KVH={d.KVH} | one layer: {gap1['rows']} of {B} rows hold a flip (bound "
+               f"{FUSED_FLIP_ROWS(B)}), x_out {gap1['x_rel']:.2e} of max, the worst row "
+               f"{gap1['row_steps']:.3g} steps of its scale (tol {FUSED_FLIP_STEPS}), k/v "
+               f"{gap1['steps']} steps (tol {FUSED_LAYER_KV_STEPS}) | {d.n_layers} layers: "
+               f"x_out max|d| {gap['x_abs']:.3e} = {gap['x_rel']:.3e} of max (tol "
+               f"{FUSED_X_TOL}), fresh k/v {gap['steps']} steps apart in {gap['flips']} of "
+               f"{2 * out[1]['k'].numel()} values (tol {FUSED_KV_STEPS}), scales "
+               f"{gap['scale_rel']:.2e} (tol {FUSED_SCALE_RTOL}); the twin against itself with "
+               f"x one ulp up: {spread['x_rel']:.3e}, {spread['steps']} steps, "
+               f"{spread['scale_rel']:.2e}")
+        if c["time"]:
+            t_k = time_ms(lambda: fd.fused_decode_step(*args, **kw), 10)
+            t_p = time_ms(lambda: fd.fused_decode_step_ref(*args, **kw), 2)
+            b = _fd_bound(d, B, ci)
+            gbps = _fd_bytes(d, B, ci) / (t_k * 1e-3) / 1e9
+            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=None, gbps=gbps, **b)
+            msg += (f" | kernel {t_k:.3f} ms a step (the wrapper's rope tables and copies "
+                    f"included) = {gbps:.0f} GB/s ({gbps / HBM_PEAK_GBPS:.1%} of "
+                    f"{HBM_PEAK_GBPS:.0f}), bound {b['bound_ms']:.3f} ms ({b['bound_by']}), "
+                    f"{t_k / b['bound_ms']:.2f}x; twin {t_p:.1f} ms; no single PyTorch call "
+                    f"computes this function")
+        log(msg + f" | {'ok' if ok else 'FAIL ' + '; '.join(broken)}")
+        if not ok:
+            raise AssertionError(f"kernel #16 disagrees with its twin: {c['name']}")
+        res["err"] = max(res["err"], gap["x_abs"])
+        if c["name"].startswith("greedy_gen"):
+            _fd_faults(args1, kw, out1)
+        elif c["name"] == "batch-24 headline":
+            _fd_faults(args1, kw, out1, first_row=FUSED_TILE_ROWS)
+        del cache, args, out, ref
+    weights.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the barrier-bound floor: 32 layers of 8 phases on work too small to
+    # matter (D 256, one kv head pair, B 1, one live column)
+    cfg = _fd_cfg(2, 8, hidden_size=256, intermediate_size=512, num_heads=2)
+    d = fd.default_dims(cfg, 128)
+    tiny = _fd_weights(g, cfg)
+    cache, mask, x, pos = _fd_inputs(g, d, 1, 1)
+    t_floor = time_ms(lambda: fd.fused_decode_step(tiny, cache, x, mask, pos, 1, d), 20)
+    n_bar = 8 * d.n_layers - 1
+    res["floor_ms"] = t_floor
+    log(f"[3g fused decode] barrier-bound floor: {t_floor:.3f} ms a launch at D 256, B 1 "
+        f"({n_bar} grid barriers: <= {t_floor / n_bar * 1e3:.2f} us a barrier and phase)")
+    return res
+
 
 def _headline_items(gen: Llava15Generator, image_bytes: bytes) -> list:
     """HEADLINE_B items whose prompts are HEADLINE_PROMPT tokens long (the
@@ -1078,7 +1433,8 @@ def _headline_items(gen: Llava15Generator, image_bytes: bytes) -> list:
                                 for i in range(HEADLINE_B)])
 
 
-def phase_headline(gen: Llava15Generator, items: list, tag: str, decode: str) -> tuple:
+def phase_headline(gen: Llava15Generator, items: list, tag: str, decode: str,
+                   per_step: int = 0) -> tuple:
     """One generate at the JAX package's headline serving shape
     (scripts/bench_7b_serve.py: batch 24, 896-token prompts, 64 new tokens,
     greedy), after a max_new_tokens=1 run of the same batch: prefill and
@@ -1099,7 +1455,7 @@ def phase_headline(gen: Llava15Generator, items: list, tag: str, decode: str) ->
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = read_counts()
-    steps = launches[decode] // gen.model.cfg.llm.num_layers
+    steps = launches[decode] // (per_step or gen.model.cfg.llm.num_layers)
     assert res.tokens.shape == (HEADLINE_B, HEADLINE_NEW)
     rates = dict(prefill_s=t1 - t0, total_s=t2 - t1, steps=steps,
                  tok_s=HEADLINE_B * (steps + 1) / (t2 - t1),
@@ -1229,6 +1585,175 @@ def phase_int8_kv(gen: Llava15Generator, image_bytes: bytes, bf16: dict) -> dict
                       ("prefill_s", "prefill s"), ("peak_gb", "peak GiB")):
         log(f"[11 int8-kv] headline {name}: int8-KV {head[key]:.2f} vs bf16 {bf16_head[key]:.2f}")
     phase_int8_kv_vs_plain(gen, image_bytes)
+    return launches, dict(rates, **{f"head_{k}": v for k, v in head.items()})
+
+
+# 12 against its plain routes, on greedy_gen's 4 prompts and 4 forced
+# tokens. Each step's kernel #16 against fused_decode_step_ref on the same
+# cache (the kernel's cache carried forward): 3g's 32-layer drift through
+# the model's activations, read 0.085 of max|logit| and a least row cosine
+# of 0.9957, where the twin against itself with x one ulp up reads 0.137 and
+# 0.987 (H100 80GB HBM3, PERF.md section 6); held to FUSED_LOGIT_REL_TOL and
+# FUSED_LOGIT_COS_MIN. Against phase 11's eager int8-KV path (a different
+# function: fp32 residual, the activations quantised per head and per
+# I-block, the fresh column unquantised; read 0.226 and 0.976), gross faults
+# only: phase 11's bounds
+FUSED_LOGIT_REL_TOL = 0.3
+FUSED_LOGIT_COS_MIN = 0.95
+
+
+def _fused_forced(gen: Llava15Generator, prompts, starts, images, tokens: torch.Tensor) -> tuple:
+    """The fused engine's prefill, then one fused step for each column of
+    `tokens`, each through kernel #16, through the twin on the same cache
+    and through the twin with x one ulp up -> fp32 logits (1 + steps, B, V)
+    of the three (the prefill's first in each); the kernel's fresh k/v go
+    into the cache."""
+    eng = gen.engine
+    cfg = eng.llm.cfg
+    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    max_len = -(-(Lp + 64) // 128) * 128
+    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
+    ids, mask = (torch.from_numpy(a).cuda() for a in (ids_np, mask_np))
+    starts = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
+    d = fd.default_dims(cfg, max_len)
+    with torch.inference_mode():
+        first, cache, cmask = eng._fused_prefill(ids, mask, eng._device_images(images), starts,
+                                                 max_len)
+        kern, twin, spread = [first.float()], [first.float()], [first.float()]
+        plen = mask.sum(dim=1)
+        for t in range(tokens.shape[1]):
+            cmask[:, Lp + t] = 1
+            x = eng.llm.embed(tokens[:, t:t + 1])[:, 0].float()
+            rest = (cmask, plen + t, Lp + t, d)
+            x_k, kv = fd.fused_decode_step(eng._fused_stacked, cache, x, *rest,
+                                           rope_theta=cfg.rope_theta)
+            x_r, _ = fd.fused_decode_step_ref(eng._fused_stacked, cache, x, *rest,
+                                              rope_theta=cfg.rope_theta)
+            x_p, _ = fd.fused_decode_step_ref(eng._fused_stacked, cache,
+                                              torch.nextafter(x, torch.full_like(x, math.inf)),
+                                              *rest, rope_theta=cfg.rope_theta)
+            for out, xo in ((kern, x_k), (twin, x_r), (spread, x_p)):
+                out.append(eng._head(xo).float())
+            fd.scatter_new_kv(cache, kv, Lp + t)
+    return torch.stack(kern), torch.stack(twin), torch.stack(spread)
+
+
+def _step_ms(eng, B: int, L: int, ci: int) -> float:
+    """One decode step of `eng` (embed, the layers, the head) at batch B, a
+    cache of L columns and cache_index ci, the cache zero and the mask live
+    up to ci: CUDA-event median of 10."""
+    cfg = eng.llm.cfg
+    cache = (fd.init_stacked_cache(cfg, B, L, "cuda") if eng.fused_decode
+             else eng.llm.init_cache(B, L))
+    mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    mask[:, :ci + 1] = 1
+    tok = torch.full((B,), 5, dtype=torch.int64, device="cuda")
+    pos = torch.full((B,), ci, dtype=torch.int64, device="cuda")
+    with torch.inference_mode():
+        t = time_ms(lambda: eng._step(tok, mask, pos, cache, ci), 10)
+    del cache
+    return t
+
+
+def phase_fused(gen: Llava15Generator, image_bytes: bytes, eager: dict) -> dict:
+    """12: phase 11's quantised, fused int8-KV model served through the
+    fused engine (kernel #16 on every decode step): the eager path's forced
+    logits and step time first (stacking consumes the per-layer weights),
+    memory before and after stacking, phase 11's workloads and the
+    batch-24 headline with every launch counted, then the forced logits of
+    the kernel against the twin and against the eager path -> launches."""
+    prompts, starts, images = gen._prepare(_items(image_bytes, [
+        "What is in the image?", "Describe the scene.", "What colors do you see?",
+        "Is it daytime?"]))
+    tokens = torch.randint(10, min(300, gen.engine.vocab_size), (4, 4),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    eager_logits = _forced_logits(gen, prompts, starts, images, tokens, ("auto", "auto"))
+    B, L, ci = HEADLINE_B, 1024, 960
+    eager_ms = _step_ms(gen.engine, B, L, ci)
+    layer = gen.model.llm.model.layers[0]
+    layer_bytes = sum(m.q.numel() + 4 * m.scale.numel() for m in (
+        layer.attn.qkv_proj, layer.attn.o_proj, layer.mlp.gate_up_proj, layer.mlp.down_proj))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fgen = Llava15Generator(gen.model, gen.tokenizer, gen.num_patches,
+                            image_size=gen.model.cfg.vision.image_size,
+                            checkpoint_name=gen.checkpoint_name, fused_decode=True)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    stack_peak = torch.cuda.max_memory_allocated()
+    GiB = 2 ** 30
+    log(f"[12 fused] stacked the LLM's weights in place in {time.perf_counter() - t0:.1f} s: "
+        f"{before / GiB:.3f} GiB in use before, {after / GiB:.3f} after ({(after - before) / 2 ** 20:+.1f}"
+        f" MiB; one layer's weights and scales {layer_bytes / 2 ** 20:.1f} MiB; the zero "
+        f"padding of I to Ip included), {stack_peak / GiB:.3f} GiB peak while stacking")
+    if abs(after - before) > layer_bytes:
+        raise AssertionError("12: stacking did not replace the per-layer weights in place")
+    fused_ms = _step_ms(fgen.engine, B, L, ci)
+    log(f"[12 fused] one decode step (embed, {gen.model.cfg.llm.num_layers} layers, the head) at B={B} L={L} "
+        f"cache_index={ci}: fused {fused_ms:.3f} ms vs phase 11's eager int8-KV step "
+        f"{eager_ms:.3f} ms ({eager_ms / fused_ms:.2f}x)")
+
+    # the engine's decode steps, counted beside the launch counters (and
+    # reset with them): #16 must launch once a step and #4, #5, #7 never
+    spy, step = types.SimpleNamespace(steps=0), fgen.engine._step
+
+    def counted(*a):
+        spy.steps += 1
+        return step(*a)
+
+    fgen.engine._step, COUNTERS["steps"] = counted, (spy, "steps")
+    try:
+        launches, rates = phase_slice(fgen, image_bytes, "12 fused", "fused", per_step=1)
+        head_launches, head = phase_headline(fgen, _headline_items(fgen, image_bytes),
+                                             "12 fused headline", "fused", per_step=1)
+    finally:
+        fgen.engine._step = step
+        del COUNTERS["steps"]
+    decode_free = ("decode", "decode_int8", "int8")
+    for run in (launches, head_launches):
+        if run.pop("steps") != run["fused"] or any(run[k] for k in decode_free) \
+                or not run["int8_prequant"]:
+            raise AssertionError(f"12: #16 launches against the decode steps, or a per-layer "
+                                 f"decode kernel ran: {run}")
+    add_counts(launches, head_launches)
+    log(f"[12 fused] #16 launches = decode steps: {launches['fused'] - head_launches['fused']} "
+        f"in the slice, {head_launches['fused']} in the headline; #4, #5 and #7 "
+        f"{sum(launches[k] for k in decode_free)}; the prefill's #9 {launches['int8_prequant']}, "
+        f"flash {launches['flash']}")
+    for key, name in (("facts_s", "autocheck facts/s"), ("diverse_tok_s", "diverse_gen tok/s"),
+                      ("greedy_tok_s", "greedy_gen tok/s"), ("peak_gb", "slice peak GiB")):
+        log(f"[12 fused] {name}: fused {rates[key]:.2f} vs phase 11 eager int8-KV {eager[key]:.2f}")
+    for key, name in (("tok_s", "tok/s"), ("decode_tok_s", "decode tok/s"),
+                      ("prefill_s", "prefill s"), ("peak_gb", "peak GiB")):
+        log(f"[12 fused] headline {name}: fused {head[key]:.2f} vs eager int8-KV "
+            f"{eager['head_' + key]:.2f}")
+
+    kern, twin, spread = _fused_forced(fgen, prompts, starts, images, tokens)
+    assert all(bool(torch.isfinite(r).all()) for r in (kern, twin, spread, eager_logits))
+    rel, cos = _logit_gap(spread[1:], twin[1:])
+    log(f"[12 fused vs plain] the twin against itself with each step's x one ulp up: max|d| / "
+        f"max|ref| {rel:.4f}, least row cosine {cos:.5f} (the 32-layer drift of 3g)")
+    checks = [("prefill: the fused tower vs phase 11's per-layer prefill", kern[:1],
+               eager_logits[:1], INT8_KV_REL_TOL, INT8_KV_COS_MIN),
+              ("decode steps 1-4: kernel #16 vs the twin on the same cache", kern[1:], twin[1:],
+               FUSED_LOGIT_REL_TOL, FUSED_LOGIT_COS_MIN),
+              ("decode steps 1-4: the fused path vs phase 11's eager int8-KV path", kern[1:],
+               eager_logits[1:], INT8_KV_REL_TOL, INT8_KV_COS_MIN)]
+    ok = True
+    for text, a, b, rel_tol, cos_min in checks:
+        rel, cos = _logit_gap(a, b)
+        good = rel <= rel_tol and cos >= cos_min
+        ok = ok and good
+        log(f"[12 fused vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol {rel_tol}), least "
+            f"row cosine {cos:.5f} (tol {cos_min}) | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused path disagrees with its plain routes")
     return launches
 
 
@@ -2163,6 +2688,7 @@ def main() -> None:
     int8 = phase_int8(g, qb)
     int4 = phase_int4(g, qb)
     kv8 = phase_kv8_kernel(g)
+    fused = phase_fused_kernel(g)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -2180,8 +2706,12 @@ def main() -> None:
                            checkpoint_name="random-llava15-7b")
     launches, bf16_rates = phase_slice(gen, image_bytes)
     phase_slice_vs_plain(gen, image_bytes)
-    # 11 serves the same seed-0 model in the int8-KV configuration
-    add_counts(launches, phase_int8_kv(gen, image_bytes, bf16_rates))
+    # 11 serves the same seed-0 model in the int8-KV configuration, 12 the
+    # same quantised model through the fused engine (which consumes its
+    # per-layer weights)
+    kv8_launches, int8_kv_rates = phase_int8_kv(gen, image_bytes, bf16_rates)
+    add_counts(launches, kv8_launches)
+    add_counts(launches, phase_fused(gen, image_bytes, int8_kv_rates))
     del gen, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2216,8 +2746,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[10 int4] main-path launches (serving 4, int8-KV serving 11, ref-logp 8, train 6, "
-        f"QLoRA 9, int4 QLoRA 10): {launches}")
+    log(f"[10 int4] main-path launches (serving 4, int8-KV serving 11, fused serving 12, "
+        f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
@@ -2271,6 +2801,13 @@ def main() -> None:
         "decode_attention_prefix_int8", "rlaifv_tpu_torch/csrc/decode_attention_int8.cu",
         "rlaifv_tpu/ops/decode_attention.py:180", launches["decode_int8"], kv8["err"],
         kv8["diverse_gen"]))
+    # row 16 at the batch-24 headline's decode step (int8, L 1024, cache_index
+    # 960); max_abs_err is x_out's over 3g's cases; no single PyTorch call
+    # computes the function (library_ms null; 12 logs the eager step beside it)
+    kernels.append(_row(
+        "fused_decode_step", "rlaifv_tpu_torch/csrc/fused_decode.cu",
+        "rlaifv_tpu/ops/fused_decode.py:603", launches["fused"], fused["err"],
+        fused["batch-24 headline"]))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -79,14 +79,6 @@ static_assert(BN == 128, "the packed staging tile has 128-byte rows (swizzle128)
 constexpr int BK = 64;
 constexpr int LDT = BK + 16;
 
-// the sign-extended low / high nibbles of 4 packed bytes, byte for byte:
-// ((b & 0xF) ^ 8) - 8 and b >> 4 of the TPU kernel's unpack
-__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
-  const uint32_t n = w & 0x0f0f0f0fu;
-  return n | ((n & 0x08080808u) * 0x1eu);  // bit 3 set: the byte's top nibble 0xf
-}
-__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) { return lo_nibbles(w >> 4); }
-
 __global__ void __launch_bounds__(NTHREADS, 1)
     int4_fwd_kernel(const int8_t *__restrict__ xq, const float *__restrict__ sx,
                     const int8_t *__restrict__ qp, const float *__restrict__ gs,

@@ -1,8 +1,8 @@
-// Pieces shared by the int8 tensor-core kernels (quant_matmul.cu and
-// int4_matmul.cu): asynchronous 16-byte copies, int8 and bf16 tile loads that
-// read zeros outside the matrix, the IEEE row quantisation the TPU kernels
-// feed their MXU, the swizzled staging layout and 4 x 4 byte transpose, and
-// mma.sync m16n8k32 s8.
+// Pieces shared by the int8 tensor-core kernels (quant_matmul.cu,
+// int4_matmul.cu and fused_decode.cu): asynchronous 16-byte copies, int8 and
+// bf16 tile loads that read zeros outside the matrix, the IEEE row
+// quantisation the TPU kernels feed their MXU, int4 nibble unpacking, the
+// swizzled staging layout and 4 x 4 byte transpose, and mma.sync m16n8k32 s8.
 #pragma once
 
 #include <stdint.h>
@@ -78,6 +78,14 @@ __device__ __forceinline__ void scale_cols(float (&v)[8], const float *acol, int
 #pragma unroll
   for (int j = 0; j < 8; ++j) v[j] = c + j < cols ? __fmul_rn(v[j], acol[c + j]) : 0.f;
 }
+
+// the sign-extended low / high nibbles of 4 packed int4 bytes (pack_int4),
+// byte for byte: ((b & 0xF) ^ 8) - 8 and b >> 4 of the TPU kernels' unpack
+__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
+  const uint32_t n = w & 0x0f0f0f0fu;
+  return n | ((n & 0x08080808u) * 0x1eu);  // bit 3 set: the byte's top nibble 0xf
+}
+__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) { return lo_nibbles(w >> 4); }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {

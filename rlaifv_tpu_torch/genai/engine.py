@@ -24,6 +24,16 @@ same conventions:
 
 Each decode step reads `done.all()` on the host: one device sync per step
 in eager mode, which a CUDA-graph decode loop would remove.
+
+`fused_decode=True` (a model with int8 or int4 weights, `fuse_proj` and an
+int8 KV cache; else ValueError, as the JAX engine) serves through
+ops/fused_decode.py: the LLM's weights are stacked at construction (in
+place, the per-layer buffers freed), `generate` prefills through
+`stacked_prefill_tower` into a stacked h-major cache, and each decode step
+is the token's embedding in fp32, one `fused_decode_step` (kernel #16 on the
+card), `scatter_new_kv` (in place) and the head on the fp32 result cast to
+the model's dtype. `generate_repeated` and the scoring paths need the
+per-layer weights and raise ValueError on a fused engine.
 """
 from __future__ import annotations
 
@@ -37,6 +47,14 @@ import torch
 from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.genai.sampling import SamplingParams, sample_token
 from rlaifv_tpu_torch.models.llama import llama_init_cache
+from rlaifv_tpu_torch.ops.fused_decode import (
+    default_dims,
+    fused_decode_step,
+    init_stacked_cache,
+    scatter_new_kv,
+    stack_llama_params,
+    stacked_prefill_tower,
+)
 
 
 def left_pad_batch(seqs, pad_id: int, length: Optional[int] = None):
@@ -97,16 +115,24 @@ class DecodeEngine:
 
     def __init__(self, model, *, eos_id: int = 2, pad_id: int = 0,
                  vocab_size: Optional[int] = None, fused_decode: bool = False):
-        if fused_decode:
-            raise NotImplementedError(
-                "fused_decode is not ported to rlaifv_tpu_torch yet: "
-                "ROADMAP.md 'Modules to port' #6 (fused decode kernel)"
-            )
         self.model = model
         self.llm = model.llm
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.vocab_size = vocab_size or model.cfg.llm.vocab_size
+        self.fused_decode = fused_decode
+        self._fused_stacked = None
+        if fused_decode:
+            cfg = self.llm.cfg
+            if not (cfg.quantize and cfg.fuse_proj and cfg.kv_cache_dtype == "int8"
+                    and cfg.num_heads % cfg.num_kv_heads == 0):
+                raise ValueError(
+                    "fused_decode requires quantize + fuse_proj + int8 KV "
+                    "cache (num_heads must be a multiple of num_kv_heads)"
+                )
+            # the per-layer weights move into the stacked arrays and are
+            # freed: the model then serves only through this engine
+            self._fused_stacked = stack_llama_params(model, cfg)
 
     @property
     def device(self) -> torch.device:
@@ -118,6 +144,11 @@ class DecodeEngine:
         if images is None:
             return None
         return torch.from_numpy(np.asarray(images)).to(self.device)
+
+    def _need_per_layer(self, name: str) -> None:
+        if self.fused_decode:
+            raise ValueError(f"{name} needs the per-layer path; construct the engine "
+                             "with fused_decode=False")
 
     def _fp_cache(self, B: int, S: int) -> list:
         """A bf16 (cfg.dtype) cache of exactly (B, S), whatever the model's
@@ -139,6 +170,41 @@ class DecodeEngine:
                                  position_ids=pos, cache=self.llm.init_cache(B, max_len),
                                  cache_index=0)
         return logits[:, -1, :], cache, cache_mask
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """ln_f and the head on post-stack hidden states (B, D) -> (B, V)."""
+        h = x[:, None].to(self.llm.cfg.dtype)
+        return self.llm.logits(self.llm.model.ln_f(h))[:, 0]
+
+    def _fused_prefill(self, ids, mask, images, image_starts, max_len):
+        """The write-through prefill into a fresh stacked int8 cache ->
+        (last-position logits (B, V), stacked cache, cache_mask)."""
+        B, Lp = ids.shape
+        cfg = self.llm.cfg
+        pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
+        cache_mask = torch.zeros((B, max_len), dtype=torch.int32, device=self.device)
+        cache_mask[:, :Lp] = mask
+        embeds = self.model.build_embeds(ids, images, image_starts)
+        x, cache = stacked_prefill_tower(
+            self._fused_stacked, init_stacked_cache(cfg, B, max_len, self.device),
+            embeds, mask, pos, cfg)
+        return self._head(x[:, -1]), cache, cache_mask
+
+    def _step(self, tok, cache_mask, positions, cache, cache_index: int):
+        """One decode step of tokens (B,) at rope positions (B,) -> ((B, V)
+        logits, cache): the per-layer model, or embed (fp32) -> kernel #16
+        -> the fresh k/v scattered into the stacked cache -> the head."""
+        if not self.fused_decode:
+            logits, cache = self.llm(input_ids=tok[:, None], attention_mask=cache_mask,
+                                     position_ids=positions[:, None], cache=cache,
+                                     cache_index=cache_index)
+            return logits[:, 0], cache
+        cfg = self.llm.cfg
+        x = self.llm.embed(tok[:, None])[:, 0].float()
+        x_out, new_kv = fused_decode_step(
+            self._fused_stacked, cache, x, cache_mask, positions, cache_index,
+            default_dims(cfg, cache_mask.shape[1]), rope_theta=cfg.rope_theta)
+        return self._head(x_out), scatter_new_kv(cache, new_kv, cache_index)
 
     def _decode(self, first_logits, cache, cache_mask, prompt_len, ids, mask,
                 sp: SamplingParams, max_new: int, seed: int):
@@ -166,12 +232,7 @@ class DecodeEngine:
             if t == max_new - 1 or bool(done.all()):
                 break
             cache_mask[:, Lp + t] = live
-            step_logits, cache = self.llm(
-                input_ids=tok[:, None], attention_mask=cache_mask,
-                position_ids=(prompt_len + t)[:, None], cache=cache,
-                cache_index=Lp + t,
-            )
-            last = step_logits[:, 0]
+            last, cache = self._step(tok, cache_mask, prompt_len + t, cache, Lp + t)
             if use_rep:
                 token_seen[rows, tok] += live
         return tokens.T.cpu().numpy()
@@ -204,7 +265,8 @@ class DecodeEngine:
         max_len = _round_up(Lp + max_new_tokens, 128)
         ids = torch.from_numpy(ids_np).to(self.device)
         mask = torch.from_numpy(mask_np).to(self.device)
-        first, cache, cache_mask = self._prefill(
+        prefill = self._fused_prefill if self.fused_decode else self._prefill
+        first, cache, cache_mask = prefill(
             ids, mask, self._device_images(images), starts, max_len)
         tokens = self._decode(first, cache, cache_mask, mask.sum(dim=1), ids,
                               mask, sampling, max_new_tokens, seed)
@@ -218,6 +280,7 @@ class DecodeEngine:
                           prompt_bucket: int = 64) -> GenerateResult:
         """n sampled continuations of ONE prompt with one prefill and one
         vision encode: prefill at B=1, copy the cache to n rows, decode."""
+        self._need_per_layer("generate_repeated")
         Lp = _round_up(len(prompt), prompt_bucket)
         ids_np, mask_np = left_pad_batch([prompt], self.pad_id, Lp)
         off = Lp - len(prompt)
@@ -248,6 +311,7 @@ class DecodeEngine:
         the prefix KV is computed once (one vision encode, one prefill) and
         only the suffixes run per row - exactly
         `generate(..., max_new_tokens=1).first_logits`."""
+        self._need_per_layer("score_shared_prefix")
         if any(len(s) < 1 for s in suffixes):
             raise ValueError("score_shared_prefix: every suffix must carry "
                              "at least one token past the shared prefix")
@@ -350,6 +414,7 @@ class DecodeEngine:
         (B, H, W, 3) or None; image_starts (B,) in unpadded prefix
         coordinates (-1 none). Returns (sums (2B,), means (2B,), per_token:
         2B fp32 arrays cut to each suffix's length)."""
+        self._need_per_layer("score_pair_logps")
         B_total = len(prefixes)
         if not len(suffixes) == 2 * B_total == len(suffix_labels):
             raise ValueError("score_pair_logps: need 2B suffixes and label lists")

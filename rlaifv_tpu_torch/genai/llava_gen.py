@@ -14,9 +14,14 @@ Output rows keep the JAX package's (and the reference's) field names;
 `run(...)` shards a GenDataset by rank and writes them as jsonl. The three
 modes take any model the engine takes: bf16 or int8/int4 weights, fused
 projections, a bf16 or an int8 KV cache (the JAX package's headline serving
-configuration: int8 weights, `fuse_proj`, `kv_cache_dtype="int8"`). Not
-carried yet: beam search, continuous batching and fused decode (ROADMAP.md
-'Modules to port' #6).
+configuration: int8 weights, `fuse_proj`, `kv_cache_dtype="int8"`).
+`fused_decode=True` serves that configuration (int8 or int4 weights)
+through the fused engine (kernel #16 on every decode step): diverse_gen
+then skips `share_repeats` and autocheck the shared prefix, and both take
+the batch `generate` path, as in the JAX package (the fused engine has no
+per-layer weights for `generate_repeated` or `score_shared_prefix`). Not
+carried yet: beam search and continuous batching (ROADMAP.md 'Modules to
+port' #6).
 """
 from __future__ import annotations
 
@@ -131,7 +136,7 @@ class Llava15Generator:
         sp = SamplingParams(temperature=temperature, do_sample=True)
         out: List[dict] = [None] * len(items)
         singles = list(range(len(items)))
-        if share_repeats:
+        if share_repeats and not self.engine.fused_decode:
             groups = group_consecutive(items, with_question=True)
             singles = [i for g in groups if len(g) < 2 for i in g]
             cap = max(batch_size, 16)
@@ -202,7 +207,7 @@ class Llava15Generator:
         last image token; that prefix is prefilled once and only the
         question suffixes run per fact (engine.score_shared_prefix)."""
         ids = yesno_token_ids(self.tokenizer)
-        if not shared_prefix:
+        if not shared_prefix or self.engine.fused_decode:
             out = []
             for i in range(0, len(items), batch_size):
                 chunk = items[i:i + batch_size]

@@ -206,16 +206,21 @@ class QuantDense(nn.Module):
         self.lora = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        x = x.to(dt)
-        if x.is_cuda:
-            product = int4_matmul_grad if self.bits == 4 else int8_matmul_grad
-            y = product(x, self.q, self.scale)
-        elif self.bits == 4:
-            y = x @ dequantize_int4(self.q, self.scale, dt)
-        else:
-            y = x @ (self.q.to(dt) * self.scale.to(dt))
+        x = x.to(self.compute_dtype)
+        y = quant_product(x, self.q, self.scale, self.bits)
         return y if self.lora is None else y + lora_side_term(x, self.lora)
+
+
+def quant_product(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    """QuantDense's product on x in its compute type: the int8 or int4
+    kernels' dispatch on the card, x @ the dequantised weight on the CPU."""
+    if x.is_cuda:
+        product = int4_matmul_grad if bits == 4 else int8_matmul_grad
+        return product(x, q, scale)
+    if bits == 4:
+        return x @ dequantize_int4(q, scale, x.dtype)
+    return x @ (q.to(x.dtype) * scale.to(x.dtype))
 
 
 def _dense(cfg: LlamaConfig, n_in: int, n_out: int, device, quantize=None):

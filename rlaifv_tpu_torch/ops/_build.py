@@ -70,6 +70,9 @@ SIGNATURES = {
     "int4_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
     # dy, qp, gs, dx, M, K, N, G, stream
     "int4_matmul_dx_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    # int64 array of pointers and ints (ops/fused_decode.py), its length,
+    # eps, scale, w4, stream
+    "fused_decode_step_cuda": [_P, _I, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

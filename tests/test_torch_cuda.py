@@ -20,7 +20,13 @@ equals #10; so do the int4 kernels #11 and #12 (the groups' fp32 sums in
 order, each product and sum rounded separately). The int8-cache decode
 kernel #5: max|kernel - twin| <= 2^-7 max|twin| (exact integer sums, IEEE
 quantisation and unfused fp32 epilogues on both sides; expf against torch's
-exp can flip a rounding of p8 by one step, and the output is bf16).
+exp can flip a rounding of p8 by one step, and the output is bf16). The
+fused decode kernel #16 through 2 layers: every row of x_out within 1e-5 of
+max|x_out| of its twin and the fresh k/v equal, but for at most
+FUSED_FLIP_ROWS(B) rows where a value landed on the other side of a
+quantisation step; there every row's x_out stays within FUSED_FLIP_STEPS
+int8 steps of that row's scale (max|x_out row| / 127) and the fresh k/v
+within FUSED_KV_STEPS steps.
 """
 import dataclasses
 
@@ -569,3 +575,183 @@ def test_int4_kernels_raise_on_what_they_do_not_take(gen):
         i4.int4_matmul_dx(dy, qp2[:, :128], gs2[:, :128])
     with pytest.raises(ValueError):  # groups of 64 rows
         i4.int4_matmul(x, qp, torch.ones(4, 128, device="cuda"))
+
+
+# ---------------------------------------------------------------- kernel #16
+
+
+def _fused_case(gen, bits, D, H, KVH, I, L, B, ci, n_layers=2):
+    """A bf16 tiny Llama (head dim 128) quantised to int8 or int4 on the
+    card, fused and stacked (ops/fused_decode.py), a random stacked int8
+    cache whose scales past the last live block are NaN, a left-padded mask
+    live up to ci, x ~ N(0, 0.02)."""
+    from rlaifv_tpu_torch.models.convert import (fuse_llm_projections_, quantize_llm_int4,
+                                                 quantize_llm_int8)
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from rlaifv_tpu_torch.models.llava import init_weights_
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=D, intermediate_size=I, num_layers=n_layers,
+                      num_heads=H, num_kv_heads=KVH, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    model = init_weights_(LlamaForCausalLM(cfg, device="cuda"), gen)
+    if bits == 4:
+        quantize_llm_int4(model)
+    else:
+        quantize_llm_int8(model, include_lm_head=False)
+    fuse_llm_projections_(model)
+    d = fd.default_dims(model.cfg, L)
+    stacked = fd.stack_llama_params(model)
+    shape = (n_layers, KVH, B, L)
+    cache = {}
+    for key in ("k", "v"):
+        cache[key] = torch.randint(-127, 128, shape + (128,), generator=gen, device="cuda",
+                                   dtype=torch.int8)
+        sc = 0.01 + 0.02 * torch.rand(shape, generator=gen, device="cuda")
+        sc[..., -(-ci // 128) * 128:] = float("nan")
+        cache[f"{key}_scale"] = sc
+    mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    for b in range(B):
+        mask[b, 3 * b:ci + 1] = 1
+    x = 0.02 * torch.randn(B, D, generator=gen, device="cuda")
+    return stacked, cache, x, mask, ci - torch.arange(B, device="cuda"), ci, d
+
+
+FUSED_FLIP_STEPS = 8.0
+FUSED_KV_STEPS = 1
+
+
+def FUSED_FLIP_ROWS(B):  # noqa: N802 (a bound, named like the others)
+    return max(1, B // 4)
+
+
+def _fused_broken(out, ref):
+    """The bounds kernel #16's output `out` breaks against the twin's `ref`
+    (module docstring)."""
+    (x_out, kv), (x_ref, kv_ref) = out, ref
+    err = (x_out - x_ref).abs().amax(dim=1)
+    rows = err > 1e-5 * x_ref.abs().max()
+    steps = 0
+    for key in ("k", "v"):
+        diff = (kv[key].int() - kv_ref[key].int()).abs()
+        steps = max(steps, int(diff.max()))
+        rows |= (diff != 0).any(dim=3).any(dim=1).any(dim=0)
+        rel = (kv[f"{key}_scale"] - kv_ref[f"{key}_scale"]).abs() / kv_ref[f"{key}_scale"]
+        rows |= (rel > 1e-5).any(dim=1).any(dim=0)
+    row_steps = float((err / (x_ref.abs().amax(dim=1) / 127)).max())
+    B = x_out.shape[0]
+    return [msg for msg, bad in (
+        (f"{int(rows.sum())} rows differ", int(rows.sum()) > FUSED_FLIP_ROWS(B)),
+        (f"a row {row_steps:.3g} steps off", not row_steps <= FUSED_FLIP_STEPS),
+        (f"k/v {steps} steps apart", steps > FUSED_KV_STEPS)) if bad]
+
+
+@pytest.mark.parametrize("bits,D,H,KVH,I,L,B,ci", [
+    (8, 256, 2, 2, 512, 256, 5, 200),  # MHA, one I-block
+    (8, 512, 4, 1, 4096, 384, 3, 300),  # n_rep 4, two I-blocks
+    (8, 256, 2, 2, 512, 128, 32, 100),  # the widest batch
+    (4, 256, 2, 2, 512, 256, 4, 129),  # int4, one live column past a block edge
+    (4, 256, 2, 2, 4096, 384, 6, 256),  # int4, two I-blocks, cache_index on a block edge
+])
+def test_fused_decode_kernel_matches_twin(gen, bits, D, H, KVH, I, L, B, ci):
+    """Kernel #16 against fused_decode_step_ref through 2 layers within the
+    flip bounds of the module docstring; one launch a call."""
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+
+    args = _fused_case(gen, bits, D, H, KVH, I, L, B, ci)
+    n = fd.fused_decode_step.launches
+    out = fd.fused_decode_step(*args)
+    ref = fd.fused_decode_step_ref(*args)
+    torch.cuda.synchronize()
+    assert fd.fused_decode_step.launches == n + 1
+    assert torch.isfinite(out[0]).all()
+    assert not _fused_broken(out, ref), _fused_broken(out, ref)
+
+
+@pytest.mark.parametrize("fault", ["mask ignored", "fresh column dropped"])
+def test_fused_decode_check_catches_a_second_row_tile_fault(gen, fault):
+    """The bounds above catch a kernel wrong only in its second 16-row mma
+    tile: at B = 32, the twin with `fault` planted on rows 16-31 (rows 0-15
+    sound) against the sound kernel."""
+    from unittest import mock
+
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+
+    stacked, cache, x, mask, pos, ci, d = _fused_case(gen, 8, 256, 2, 2, 512, 128, 32, 100)
+    out = fd.fused_decode_step(stacked, cache, x, mask, pos, ci, d)
+    fresh = fd._fresh_column
+
+    def late_rows_lose_fresh(qg, k, v, scale):
+        m, l, acc = fresh(qg, k, v, scale)
+        m[16:], l[16:], acc[16:] = fd.NEG_INF, 0.0, 0.0
+        return m, l, acc
+
+    bad_mask = mask.clone()
+    if fault == "mask ignored":
+        bad_mask[16:] = 1
+    with mock.patch.object(fd, "_fresh_column",
+                           late_rows_lose_fresh if fault == "fresh column dropped" else fresh):
+        ref = fd.fused_decode_step_ref(stacked, cache, x, bad_mask, pos, ci, d)
+    torch.cuda.synchronize()
+    assert (ref[0][:16] == fd.fused_decode_step_ref(stacked, cache, x, mask, pos, ci, d)[0][:16]).all()
+    assert _fused_broken(out, ref)
+
+
+def test_fused_decode_kernel_raises_on_what_it_does_not_take(gen):
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+
+    stacked, cache, x, mask, pos, ci, d = _fused_case(gen, 8, 256, 2, 2, 512, 256, 3, 100)
+    n = fd.fused_decode_step.launches
+    with pytest.raises(ValueError, match="cache_index"):  # a device scalar, not a host int
+        fd.fused_decode_step(stacked, cache, x, mask, pos, torch.tensor(ci), d)
+    with pytest.raises(ValueError, match="cache_index"):
+        fd.fused_decode_step(stacked, cache, x, mask, pos, 256, d)
+    with pytest.raises(ValueError, match="k must be"):  # a strided cache
+        fd.fused_decode_step(stacked, dict(cache, k=cache["k"].transpose(2, 3)), x, mask, pos,
+                             ci, d)
+    with pytest.raises(ValueError, match="Dh 128"):
+        fd.fused_decode_step(stacked, cache, x, mask, pos, ci, dataclasses.replace(d, Dh=64))
+    with pytest.raises(ValueError, match="1 <= B"):
+        big = x.repeat(11, 1)
+        fd.fused_decode_step(stacked, cache, big, mask.repeat(11, 1), pos.repeat(11), ci, d)
+    assert fd.fused_decode_step.launches == n
+
+
+def test_tiny_fused_engine_decodes_through_kernel_16(gen):
+    """A bf16 tiny LLaVA (head dim 128) with int8 weights, fused projections
+    and an int8 cache through the fused engine: one #16 launch a decode
+    step, no #4, #5 or #7; the write-through prefill's logits equal the
+    per-layer engine's (the same products and attention) to 1e-3 of
+    max|logit|."""
+    import numpy as np
+
+    from rlaifv_tpu_torch.genai.engine import DecodeEngine
+    from rlaifv_tpu_torch.models.convert import fuse_llm_projections_, quantize_llm_int8, \
+        set_llm_config
+    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    cfg = LlavaConfig.tiny(hidden_size=256, num_heads=2, num_kv_heads=2,
+                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    engines = []
+    for fused in (False, True):
+        model = init_weights_(LlavaForCausalLM(cfg, device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(0)).eval()
+        quantize_llm_int8(model, include_lm_head=False)
+        set_llm_config(fuse_llm_projections_(model), kv_cache_dtype="int8")
+        engines.append(DecodeEngine(model, eos_id=-1, fused_decode=fused))
+    S = cfg.vision.image_size
+    images = np.random.default_rng(0).integers(0, 255, (2, S, S, 3), dtype=np.uint8)
+    prompts = [list(range(3, 3 + 150)), list(range(5, 5 + 140))]
+    kw = dict(images=images, image_starts=[0, 0], max_new_tokens=5)
+    counts = lambda: (fd.fused_decode_step.launches, decode_attention_prefix.launches,  # noqa: E731
+                      decode_attention_prefix_int8.launches, qm.int8_matmul.launches)
+    want = engines[0].generate(prompts, **kw)
+    before = counts()
+    got = engines[1].generate(prompts, **kw)
+    after = counts()
+    assert after[0] - before[0] == 4 and after[1:] == before[1:]
+    top = np.abs(want.first_logits).max()
+    np.testing.assert_allclose(got.first_logits, want.first_logits, rtol=0, atol=1e-3 * top)
+    assert got.tokens.shape == want.tokens.shape == (2, 5)

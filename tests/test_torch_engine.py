@@ -181,6 +181,7 @@ def test_unported_modes_raise(gens):
         tgen.greedy_gen(items, num_beams=3)
     with pytest.raises(NotImplementedError, match="#6"):
         tgen.diverse_gen(items, continuous=True)
-    with pytest.raises(NotImplementedError, match="#6"):
+    # fused decode is ported; a bf16 model is refused with the JAX message
+    with pytest.raises(ValueError, match="fused_decode requires quantize"):
         Llava15Generator(tgen.model, tgen.tokenizer, tgen.num_patches,
                          fused_decode=True)

@@ -5,8 +5,8 @@ A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
 the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
-cache and then in place int8 weights + fused projections + int8 cache,
-runs `python -m rlaifv_tpu_torch.train --demo
+cache, then in place int8 weights + fused projections + int8 cache, then
+through the fused engine (kernel #16's twin), runs `python -m rlaifv_tpu_torch.train --demo
 --device cpu` for 2 steps into a temporary directory, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
 An AST scan finds no import statement rooted at those names in any file of
@@ -84,6 +84,10 @@ SCRIPT = textwrap.dedent("""
     assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
     assert len(gen.diverse_gen(items[:1] * 2, max_new_tokens=3)) == 2
     assert len(gen.greedy_gen(items[:2], max_new_tokens=3)) == 2
+    # and through the fused engine (its weights stacked in place)
+    fused = Llava15Generator(model, FakeTokenizer(), cfg.num_image_tokens,
+                             image_size=cfg.vision.image_size, fused_decode=True)
+    assert len(fused.greedy_gen(items[:2], max_new_tokens=3)) == 2
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy
