@@ -66,7 +66,10 @@ Phases, one progress line each (or a few):
      (in-kernel route), 128 and the M values of phase 9's batches, and at
      phase 11's fused widths (4096 x 12288, 4096 x 22016) and its decode and
      prefill rows (M = 10, 24, 832, 3328, 21504): max abs
-     difference 0, #7 == #9 and #8 == #10; times beside the bound (int8 at
+     difference 0, #7 == #9 and #8 == #10; also at Llama3-8B's widths
+     (4096 x 6144, 4096 x 28672, 14336 x 4096) and phase 13's decode and
+     prefill rows (M = 8, 64, 128, 8 x its divide prompt bucket);
+     times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
      (product only) and the "dequant" route (a bf16 cuBLAS product of the
      dequantised weight), and one projection's int8 route against the
@@ -85,7 +88,8 @@ Phases, one progress line each (or a few):
 
   3e. (run after 3d) the int4 weight kernels (#11 forward on rows quantised
      in torch, #12 its dx) against their plain twins at the same widths and
-     M = 16, 64, 127, 128 and phase 10's prefix and suffix rows: max abs
+     M = 16, 64, 127, 128 and phase 10's prefix and suffix rows, and at
+     3d's Llama3-8B widths and rows: max abs
      difference 0 (#12 also at N = 11008, which the dispatch sends to the
      dequant dx); times beside the int8 bound, torch._int_mm on the
      unpacked int8 operands (product only, both weight layouts) and the
@@ -109,7 +113,18 @@ Phases, one progress line each (or a few):
      planted faults (the fresh column dropped, the mask ignored, the
      activation quantised over the whole of I, rope skipped on k, one
      I-block of the down sum dropped), each of which must break the
-     one-layer bound; the barrier-bound floor of a launch;
+     one-layer bound; Llama3-8B (I 14336: Ip 14336, bi 2048; KVH 8, B 8,
+     L 2304), int8 and int4; the barrier-bound floor of a launch;
+  3h. (run after 3g) kernel #6, single-query attention over the whole
+     cache (fp32 math), against its plain twin at run_tpu_checks' shapes (B
+     4, L 896, H 8, KVH 8 and 4, fp32, rows masked from 700 and from 13),
+     batch 24 at L 1024 and Llama3's GQA (B 8, L 2304, H 32, KVH 8) in bf16,
+     and the edges (a fully masked row -> 0, L 781, D 64, n_rep 2 and 8,
+     interior holes): fp32 within 1e-5 x max(1, max|twin|), bf16 within
+     phase 3's bound; times beside the twin, SDPA on KV repeated to H and
+     the bound; then planted faults (the mask ignored, the scale dropped, q
+     head h reading kv head h % KVH, the last partial key tile dropped, the
+     denominator clamp removed), each of which must break the bound;
   12. (run after 11, on its model) the fused engine: the eager int8-KV
      path's forced logits and step time first, the LLM's weights stacked in
      place (memory before and after, flat within one layer's weights),
@@ -118,6 +133,20 @@ Phases, one progress line each (or a few):
      memory beside phase 11's, then greedy_gen's prompts with 4 forced
      tokens: the fused prefill against phase 11's, each step's #16 against
      its twin on the same cache, and the path against phase 11's;
+  13. (run after 12, on its fused generator) the RLAIF-V feedback pipeline:
+     rlaifv_tpu_torch.pipeline.run_pipeline over 4 questions on
+     examples/test.jpeg (4 answers each), phase 12's fused LLaVA generator
+     as the generator and the labeler, Llama3-8B (full width and depth,
+     bf16, random weights, seed 0; both heads shaped to the fake
+     tokenizer's printable ids) as the divide and changeq backends at the
+     reference's sampling (T 0.2, top-p 0.9, 256 new tokens): each stage
+     file and its rows, facts > 0 and yes/no questions > 0, the pair count,
+     the backend's tok/s, peak memory and #1 / #4 launches; then the same
+     model quantised in place to int8 (head bf16, fused, int8 KV) on one
+     divide batch (#9 prefill, #7 decode rows, #5 every step, no #4), its
+     route against attn_impl "dense" on a prefill and 4 forced steps, then
+     stacked for fused decode (memory before and after; #16 once a decode
+     step, no #4 / #5 / #7) and each forced step's #16 against its twin;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -128,12 +157,13 @@ Phases, one progress line each (or a few):
      launches a step of #11, #12 and the dequant dx (gate/up).
 
 Each path of the main run (4, 11's two headline runs and its slice, 12's
-slice and headline, 8, 6, 9's precompute, steps and short step, and 10's
-precompute and steps)
+slice and headline, 13's pipeline and its int8 and fused batches, 8, 6,
+9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
-bound and library time.
-Any failure raises (non-zero exit). The last two lines are a JSON object of
+bound and library time; kernel #6 is on no path (no module of either
+package calls it), so its launches there are 0. Each phase prints its wall
+seconds. Any failure raises (non-zero exit). The last two lines are a JSON object of
 per-kernel results and `{"ok": true, "device": {...}}`. Without a CUDA
 device it exits non-zero before measuring anything.
 """
@@ -161,9 +191,11 @@ sys.path.insert(0, str(ROOT))
 from rlaifv_tpu_torch.constants import IGNORE_INDEX  # noqa: E402
 from rlaifv_tpu_torch.core.config import Config  # noqa: E402
 from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
+from rlaifv_tpu_torch import pipeline as pipe  # noqa: E402
+from rlaifv_tpu_torch.genai import divide_conquer as dcq  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import DecodeEngine, left_pad_batch  # noqa: E402
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
-from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig  # noqa: E402
+from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig, LlamaForCausalLM  # noqa: E402
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     LlavaConfig,
     LlavaForCausalLM,
@@ -182,10 +214,13 @@ from rlaifv_tpu_torch.ops import fused_decode as fd  # noqa: E402
 from rlaifv_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
 from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
+    NEG_INF,
+    decode_attention,
     decode_attention_prefix,
     decode_attention_prefix_int8,
     decode_attention_prefix_int8_ref,
     decode_attention_prefix_ref,
+    decode_attention_ref,
     dequantize_kv,
     prefix_block_l,
     quantize_kv,
@@ -198,6 +233,7 @@ from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     fused_head_fwd_plain,
     fused_target_logp,
 )
+from rlaifv_tpu_torch.utils.file_io import read_jsonlines, write_jsonlines  # noqa: E402
 from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     DPOHparams,
     LlavaDPOAdapter,
@@ -242,6 +278,7 @@ PROB_TOL = 1e-3
 HBM_PEAK_GBPS = 3350.0  # H100 SXM data sheet
 PEAK_BF16_TFLOPS = 989.0  # dense bf16 tensor-core rate, H100 SXM data sheet
 PEAK_INT8_TOPS = 1979.0  # dense int8 tensor-core rate, H100 SXM data sheet
+PEAK_FP32_TFLOPS = 67.0  # fp32 outside the tensor cores, H100 SXM data sheet
 # backward, per gradient: max|kernel - plain| <= BWD_TOL x max|plain|. The
 # kernels round P and dS to bf16 for their products (2^-9 relative each)
 # and write bf16 outputs (one more rounding), while the plain backward
@@ -389,6 +426,7 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "dkv": (flash_attention_bwd, "dkv_launches"),
     "decode": (decode_attention_prefix, "launches"),
     "decode_int8": (decode_attention_prefix_int8, "launches"),
+    "decode_full": (decode_attention, "launches"),
     "head_fwd": (fused_target_logp, "fwd_launches"),
     "head_dx": (fused_target_logp, "dx_launches"),
     "head_dw": (fused_target_logp, "dw_launches"),
@@ -1147,14 +1185,19 @@ FD_CASES = [  # 3g: the fused path's shapes at the 7B widths, then the edges
     dict(name="GQA n_rep 4", B=6, L=512, ci=300, KVH=8, bits=8, time=True),
     dict(name="int4 diverse_gen", B=10, L=896, ci=895, KVH=32, bits=4, time=True),
     dict(name="int4 batch-24 headline", B=24, L=1024, ci=960, KVH=32, bits=4, time=True),
+    # phase 13's divide-and-conquer model: Llama3-8B, I 14336 (Ip 14336, bi 2048), GQA
+    dict(name="Llama3-8B", B=8, L=2304, ci=2200, KVH=8, bits=8, time=True, llama3=True),
+    dict(name="int4 Llama3-8B", B=8, L=2304, ci=2200, KVH=8, bits=4, time=True, llama3=True),
 ]
 
 
-def _fd_cfg(KVH: int, bits: int, **kw):
-    """The 7B LLM config of the fused path (Vicuna-7B widths)."""
+def _fd_cfg(KVH: int, bits: int, llama3: bool = False, **kw):
+    """The 7B LLM config of the fused path (Vicuna-7B widths), or with
+    llama3 Llama3-8B's (I 14336, rope theta 5e5, eps 1e-5)."""
     kw.setdefault("num_layers", FUSED_LAYERS)
-    return LlamaConfig.vicuna_7b(num_kv_heads=KVH, quantize=True, quantize_bits=bits,
-                                 fuse_proj=True, kv_cache_dtype="int8", **kw)
+    base = LlamaConfig.llama3_8b if llama3 else LlamaConfig.vicuna_7b
+    return base(num_kv_heads=KVH, quantize=True, quantize_bits=bits, fuse_proj=True,
+                kv_cache_dtype="int8", **kw)
 
 
 def _fd_weights(g, cfg) -> dict:
@@ -1351,7 +1394,7 @@ def phase_fused_kernel(g) -> dict:
     res = {"err": 0.0}
     weights = {}
     for c in FD_CASES:
-        key = (c["KVH"], c["bits"])
+        key = (c["KVH"], c["bits"], c.get("llama3", False))
         if key not in weights:
             weights.clear()
             gc.collect()
@@ -1376,7 +1419,7 @@ def phase_fused_kernel(g) -> dict:
         broken = _fd_layer_broken(gap1, B)
         ok = _fd_within(gap) and not broken
         msg = (f"[3g fused decode] {c['name']}: int{c['bits']} B={B} L={d.L} cache_index={ci} "
-               f"KVH={d.KVH} | one layer: {gap1['rows']} of {B} rows hold a flip (bound "
+               f"KVH={d.KVH} I={d.I} (Ip {d.Ip}, bi {d.bi}) | one layer: {gap1['rows']} of {B} rows hold a flip (bound "
                f"{FUSED_FLIP_ROWS(B)}), x_out {gap1['x_rel']:.2e} of max, the worst row "
                f"{gap1['row_steps']:.3g} steps of its scale (tol {FUSED_FLIP_STEPS}), k/v "
                f"{gap1['steps']} steps (tol {FUSED_LAYER_KV_STEPS}) | {d.n_layers} layers: "
@@ -1424,6 +1467,160 @@ def phase_fused_kernel(g) -> dict:
     return res
 
 
+# 3h: kernel #6 against its twin (decode_attention_ref). Both compute in
+# fp32; they sum the same products in other orders, scale q . k after the
+# sum alike, and expf rounds differently from torch's exp. fp32 inputs:
+# |kernel - twin| <= FULL_RTOL x max(1, max|twin|); bf16 inputs: both round
+# the fp32 result to bf16 once, so the bf16 bound of phase 3 (OUT_TOL +
+# OUT_RTOL x |twin|). A fully masked row must be exactly 0.
+FULL_RTOL = 1e-5
+
+FULL_CASES = [  # 3h: run_tpu_checks' shapes, batch 24, Llama3 GQA, then the edges
+    dict(name="run_tpu_checks KVH 8", B=4, L=896, H=8, KVH=8, D=128, fp32=True,
+         mask="tpu_checks"),
+    dict(name="run_tpu_checks KVH 4", B=4, L=896, H=8, KVH=4, D=128, fp32=True,
+         mask="tpu_checks"),
+    dict(name="batch 24", B=24, L=1024, H=32, KVH=32, D=128, fp32=False, time=True),
+    dict(name="Llama3 GQA", B=8, L=2304, H=32, KVH=8, D=128, fp32=False, time=True),
+    dict(name="L 781, a fully masked row", B=4, L=781, H=32, KVH=8, D=128, fp32=True,
+         dead_row=True),
+    dict(name="L 781 bf16", B=3, L=781, H=32, KVH=8, D=128, fp32=False, dead_row=True),
+    dict(name="D 64", B=3, L=600, H=8, KVH=8, D=64, fp32=False),
+    dict(name="D 64 fp32, n_rep 2", B=3, L=333, H=8, KVH=4, D=64, fp32=True),
+    dict(name="n_rep 8", B=3, L=640, H=32, KVH=4, D=128, fp32=True),
+    dict(name="interior holes", B=3, L=1000, H=32, KVH=8, D=128, fp32=True, mask="holes"),
+]
+FULL_FAULT_CASE = "L 781, a fully masked row"
+
+
+def _full_inputs(g, c: dict) -> list:
+    """Kernel #6's operands for a 3h case: q, k, v ~ N(0, 1) in fp32 or bf16
+    and the mask: run_tpu_checks' (row 0 masked from 700, row 2 from 13),
+    random interior holes (a third of row 0's columns and a run in row 1),
+    or 7 b columns of left padding in row b; `dead_row` masks all of row 1."""
+    B, L, H, KVH, D = (c[k] for k in ("B", "L", "H", "KVH", "D"))
+    dtype = torch.float32 if c["fp32"] else torch.bfloat16
+    q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(dtype)
+               for shape in ((B, H, D), (B, L, KVH, D), (B, L, KVH, D)))
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    kind = c.get("mask", "pad")
+    if kind == "tpu_checks":
+        mask[0, 700:] = 0
+        mask[2, 13:] = 0
+    elif kind == "holes":
+        mask[0] = (torch.rand(L, generator=g, device="cuda") >= 1 / 3).int()
+        mask[1, L // 3:L // 2] = 0
+    else:
+        for b in range(B):
+            mask[b, :7 * b] = 0
+    if c.get("dead_row"):
+        mask[1] = 0
+    return [q, k, v, mask]
+
+
+def _full_ratio(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(max|out - ref|, that error over 3h's bound: FULL_RTOL x max(1,
+    max|ref|) for fp32, the largest |err| / (OUT_TOL + OUT_RTOL |ref|) for
+    bf16; inf where either holds a value that is not finite)."""
+    if not (bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(ref.float()).all())):
+        return math.inf, math.inf
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    if out.dtype == torch.float32:
+        return err.max().item(), err.max().item() / (FULL_RTOL * max(1.0, r.abs().max().item()))
+    return err.max().item(), (err / (OUT_TOL + OUT_RTOL * r.abs())).max().item()
+
+
+def full_tile(D: int, dtype: torch.dtype) -> int:
+    """Keys csrc/decode_attention_full.cu reads per tile: 8 warps x the key
+    rows a warp covers (32 lanes over D / (16 bytes of elements) lanes a
+    row)."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return 8 * 32 // (D // vec)
+
+
+def _full_fault(q, k, v, mask, fault: str) -> torch.Tensor:
+    """The twin's formula with one piece of kernel #6's function broken."""
+    B, H, D = q.shape
+    L, KVH = k.shape[1], k.shape[2]
+    if fault == "mask ignored":
+        mask = torch.ones_like(mask)
+    elif fault == "last partial key tile dropped":
+        mask = mask.clone()
+        mask[:, L // full_tile(D, q.dtype) * full_tile(D, q.dtype):] = 0
+    heads = torch.arange(H, device=q.device)
+    kv_of = heads % KVH if fault == "q head h read kv head h % KVH" else heads // (H // KVH)
+    kf, vf = k.float()[:, :, kv_of], v.float()[:, :, kv_of]  # (B, L, H, D)
+    scale = 1.0 if fault == "scale dropped" else 1.0 / D ** 0.5
+    s = torch.einsum("bhd,blhd->bhl", q.float(), kf) * scale
+    s = s + torch.where(mask[:, None, :] != 0, 0.0, NEG_INF)
+    p = torch.exp(s - torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2))
+    den = p.sum(dim=-1, keepdim=True)
+    if fault != "denominator clamp removed":
+        den = torch.clamp(den, min=1e-30)
+    return torch.einsum("bhl,blhd->bhd", p / den, vf).to(q.dtype)
+
+
+def phase_full_kernel(g) -> dict:
+    """3h: kernel #6 (full-cache decode attention) against its twin at
+    run_tpu_checks' shapes, batch 24, the Llama3 GQA geometry and the edges;
+    times beside the twin, SDPA and the bound; then planted faults that
+    must break the bound."""
+    res = {"err": 0.0}
+    for c in FULL_CASES:
+        args = _full_inputs(g, c)
+        q, k, v, mask = args
+        out = decode_attention(*args)
+        ref = decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        err, ratio = _full_ratio(out, ref)
+        dead = [b for b in range(c["B"]) if not bool(mask[b].any())]
+        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead)
+        tol = (f"{FULL_RTOL} x max(1, max|twin|)" if c["fp32"]
+               else f"{OUT_TOL} + {OUT_RTOL} x |twin|")
+        msg = (f"[3h full decode] {c['name']}: {'fp32' if c['fp32'] else 'bf16'} "
+               f"B={c['B']} L={c['L']} H={c['H']} KVH={c['KVH']} D={c['D']} (tile "
+               f"{full_tile(c['D'], q.dtype)} keys) | max|err| {err:.3e} = {ratio:.3f} of the "
+               f"bound ({tol}), {len(dead)} fully masked rows")
+        if c.get("time"):
+            t_k = time_ms(lambda: decode_attention(*args))
+            t_p = time_ms(lambda: decode_attention_ref(*args), 10)
+            n_rep = c["H"] // c["KVH"]
+            kr, vr = (t.repeat_interleave(n_rep, dim=2) for t in (k, v))
+            keep = (mask != 0)[:, None, None, :]
+            t_lib = time_ms(lambda: sdpa(q[:, None], kr, vr, keep))
+            ops = 4 * c["H"] * c["D"] * c["L"] * c["B"]
+            b = bound(ops, _nbytes(q, k, v, mask, out),
+                      PEAK_FP32_TFLOPS if c["fp32"] else PEAK_BF16_TFLOPS)
+            gbps = _nbytes(q, k, v, mask, out) / (t_k * 1e-3) / 1e9
+            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps, **b)
+            msg += (f" | kernel {t_k:.4f} ms = {gbps:.0f} GB/s ({gbps / HBM_PEAK_GBPS:.1%} of "
+                    f"{HBM_PEAK_GBPS:.0f}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                    f"{t_k / b['bound_ms']:.2f}x; twin {t_p:.3f} ms; SDPA with the same "
+                    f"boolean mask on KV repeated to H (the repeat not timed) {t_lib:.4f} ms")
+            del kr, vr
+        log(msg + f" | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel #6 disagrees with its twin: {c['name']}")
+        res["err"] = max(res["err"], err)
+        if c["name"] == FULL_FAULT_CASE:
+            missed = []
+            for fault in ("mask ignored", "scale dropped", "q head h read kv head h % KVH",
+                          "last partial key tile dropped", "denominator clamp removed"):
+                f_err, f_ratio = _full_ratio(out, _full_fault(*args, fault))
+                log(f"[3h full decode] planted fault {fault!r} ({c['name']}, "
+                    f"{c['L'] % full_tile(c['D'], q.dtype)} keys in the last tile): max|err| "
+                    f"{f_err:.3e} = {f_ratio:.3g} of the bound | "
+                    f"{'caught' if f_ratio > 1 else 'MISSED'}")
+                if f_ratio <= 1:
+                    missed.append(fault)
+            if missed:
+                raise AssertionError(f"the 3h bound misses the planted faults {missed}")
+        del args, q, k, v, mask, out, ref
+    torch.cuda.empty_cache()
+    return res
+
+
 def _headline_items(gen: Llava15Generator, image_bytes: bytes) -> list:
     """HEADLINE_B items whose prompts are HEADLINE_PROMPT tokens long (the
     character-level tokenizer: one token a character), one image."""
@@ -1468,19 +1665,27 @@ def phase_headline(gen: Llava15Generator, items: list, tag: str, decode: str,
     return launches, rates
 
 
-def _forced_logits(gen: Llava15Generator, prompts, starts, images, tokens: torch.Tensor,
+def _padded(eng: DecodeEngine, prompts, starts) -> tuple:
+    """generate's left padding of `prompts` to a bucket of 64 -> (Lp, ids,
+    mask, the image starts shifted by each row's padding or None)."""
+    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
+    ids, mask = (torch.from_numpy(a).cuda() for a in (ids_np, mask_np))
+    if starts is not None:
+        starts = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
+    return Lp, ids, mask, starts
+
+
+def _forced_logits(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tensor,
                    impls: tuple) -> torch.Tensor:
     """The prefill, then one decode step for each column of `tokens` (the
     same tokens on every route), as DecodeEngine.generate runs them, at the
     cache width generate gives 64 new tokens, with attn_impl impls[0] for
     the prefill and impls[1] for the steps -> fp32 logits (1 + steps, B, V):
-    the last prompt position's, then each step's."""
-    eng = gen.engine
-    attn = [m for m in gen.model.modules() if isinstance(m, LlamaAttention)]
-    Lp = -(-max(len(p) for p in prompts) // 64) * 64
-    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
-    ids, mask = (torch.from_numpy(a).cuda() for a in (ids_np, mask_np))
-    starts = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
+    the last prompt position's, then each step's. A bare language model's
+    engine takes starts and images None."""
+    attn = [m for m in eng.model.modules() if isinstance(m, LlamaAttention)]
+    Lp, ids, mask, starts = _padded(eng, prompts, starts)
     with torch.inference_mode():
         for m in attn:
             m.attn_impl = impls[0]
@@ -1524,7 +1729,8 @@ def phase_int8_kv_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
     runs = {}
     for name, (kv, *impls) in routes.items():
         set_llm_config(gen.model, kv_cache_dtype=kv)
-        runs[name] = _forced_logits(gen, prompts, starts, images, tokens, tuple(impls))
+        runs[name] = _forced_logits(gen.engine, prompts, starts, images, tokens,
+                                    tuple(impls))
     set_llm_config(gen.model, kv_cache_dtype="int8")
     assert all(bool(torch.isfinite(r).all()) for r in runs.values())
     checks = [
@@ -1602,19 +1808,15 @@ FUSED_LOGIT_REL_TOL = 0.3
 FUSED_LOGIT_COS_MIN = 0.95
 
 
-def _fused_forced(gen: Llava15Generator, prompts, starts, images, tokens: torch.Tensor) -> tuple:
+def _fused_forced(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tensor) -> tuple:
     """The fused engine's prefill, then one fused step for each column of
     `tokens`, each through kernel #16, through the twin on the same cache
     and through the twin with x one ulp up -> fp32 logits (1 + steps, B, V)
     of the three (the prefill's first in each); the kernel's fresh k/v go
     into the cache."""
-    eng = gen.engine
     cfg = eng.llm.cfg
-    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    Lp, ids, mask, starts = _padded(eng, prompts, starts)
     max_len = -(-(Lp + 64) // 128) * 128
-    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
-    ids, mask = (torch.from_numpy(a).cuda() for a in (ids_np, mask_np))
-    starts = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
     d = fd.default_dims(cfg, max_len)
     with torch.inference_mode():
         first, cache, cmask = eng._fused_prefill(ids, mask, eng._device_images(images), starts,
@@ -1655,19 +1857,21 @@ def _step_ms(eng, B: int, L: int, ci: int) -> float:
     return t
 
 
-def phase_fused(gen: Llava15Generator, image_bytes: bytes, eager: dict) -> dict:
+def phase_fused(gen: Llava15Generator, image_bytes: bytes, eager: dict) -> tuple:
     """12: phase 11's quantised, fused int8-KV model served through the
     fused engine (kernel #16 on every decode step): the eager path's forced
     logits and step time first (stacking consumes the per-layer weights),
     memory before and after stacking, phase 11's workloads and the
     batch-24 headline with every launch counted, then the forced logits of
-    the kernel against the twin and against the eager path -> launches."""
+    the kernel against the twin and against the eager path -> (launches,
+    the fused generator)."""
     prompts, starts, images = gen._prepare(_items(image_bytes, [
         "What is in the image?", "Describe the scene.", "What colors do you see?",
         "Is it daytime?"]))
     tokens = torch.randint(10, min(300, gen.engine.vocab_size), (4, 4),
                            generator=torch.Generator().manual_seed(0)).cuda()
-    eager_logits = _forced_logits(gen, prompts, starts, images, tokens, ("auto", "auto"))
+    eager_logits = _forced_logits(gen.engine, prompts, starts, images, tokens,
+                                  ("auto", "auto"))
     B, L, ci = HEADLINE_B, 1024, 960
     eager_ms = _step_ms(gen.engine, B, L, ci)
     layer = gen.model.llm.model.layers[0]
@@ -1734,7 +1938,7 @@ def phase_fused(gen: Llava15Generator, image_bytes: bytes, eager: dict) -> dict:
         log(f"[12 fused] headline {name}: fused {head[key]:.2f} vs eager int8-KV "
             f"{eager['head_' + key]:.2f}")
 
-    kern, twin, spread = _fused_forced(fgen, prompts, starts, images, tokens)
+    kern, twin, spread = _fused_forced(fgen.engine, prompts, starts, images, tokens)
     assert all(bool(torch.isfinite(r).all()) for r in (kern, twin, spread, eager_logits))
     rel, cos = _logit_gap(spread[1:], twin[1:])
     log(f"[12 fused vs plain] the twin against itself with each step's x one ulp up: max|d| / "
@@ -1754,6 +1958,265 @@ def phase_fused(gen: Llava15Generator, image_bytes: bytes, eager: dict) -> dict:
             f"row cosine {cos:.5f} (tol {cos_min}) | {'ok' if good else 'FAIL'}")
     if not ok:
         raise AssertionError("the fused path disagrees with its plain routes")
+    return launches, fgen
+
+
+# 13: the RLAIF-V feedback pipeline (rlaifv_tpu_torch.pipeline.run_pipeline)
+# on the card: phase 12's fused LLaVA generator as the generator and the
+# labeler, Llama3-8B (full width and depth, bf16, random weights from seed 0)
+# as the divide and changeq backends, with the reference's sampling (T 0.2,
+# top-p 0.9, 256 new tokens). The fake tokenizer decodes only ids 10-299,
+# so each seeded random head keeps the rows of printable characters (and
+# the newline that separates facts), scaled up by HEAD_GAIN, and has the
+# others zeroed: samples then decode to text, so the fact lists and the
+# yes/no questions are not empty. A random row's logit has a std of ~1.3 at
+# hidden 4096 (0.02 x |ln_f(h)| ~ 64), so zeroing alone leaves the ~128k
+# (or ~32k) zeroed logits of 0 most of the mass; x3 puts the largest of the
+# 96 kept logits ~10 above them, which at T 0.7 still leaves the diverse
+# answers to one question room to differ (a pair needs two answers that
+# score apart, and pairs/length_filter.py raises on an empty pair list, as
+# the JAX module does).
+PIPE_QUESTIONS = ["What is in the image?", "Describe the scene.", "What colors do you see?",
+                  "Is it daytime?"]
+PIPE_REPEAT = 4  # answers a question: 16 answers, two batches of each backend
+PIPE_MAX_TOKENS = 64  # the diverse-gen answers
+PIPE_BATCH = 8
+PIPE_NEW_TOKENS = 256  # the reference's divide/changeq budget (make_llama3_backend)
+HEAD_GAIN = 3.0
+
+
+def printable_ids(tok) -> list:
+    """The fake tokenizer's ids of printable ASCII (space to '~') and the
+    newline."""
+    return sorted({tok.convert_tokens_to_ids(c) for c in "\n" + "".join(
+        chr(i) for i in range(32, 127))})
+
+
+@torch.no_grad()
+def shape_head_(weight: torch.Tensor, keep: list) -> None:
+    """Scale the head rows (vocabulary ids) in `keep` by HEAD_GAIN and zero
+    the others, in place."""
+    rows = torch.ones(weight.shape[0], dtype=torch.bool, device=weight.device)
+    rows[torch.as_tensor(keep, device=weight.device)] = False
+    weight[rows] = 0
+    weight[~rows] *= HEAD_GAIN
+
+
+def _divide_prompt_bucket(tok) -> int:
+    """generate's prompt bucket (64) of the longest divide prompt phase 13
+    can build: the longest question with a PIPE_MAX_TOKENS-character answer
+    (one token a character)."""
+    longest = max(PIPE_QUESTIONS, key=len)
+    text = tok.apply_chat_template(dcq.divide_messages(
+        {"question": longest, "answer": "x" * PIPE_MAX_TOKENS}), tokenize=False,
+        add_generation_prompt=True)
+    return -(-len(tok(text).input_ids) // 64) * 64
+
+
+class BackendMeter:
+    """Wraps a DecodeEngine's generate and _step (instance attributes): the
+    tokens generated, the seconds (synchronised), the decode steps, the peak
+    device memory and the growth of every launch counter over the engine's
+    own calls, and each call's prefill rows."""
+
+    def __init__(self, engine: DecodeEngine):
+        self.tokens, self.seconds, self.steps, self.peak = 0, 0.0, 0, 0
+        self.launches, self.prefill_rows = {}, []
+        generate, step = engine.generate, engine._step
+
+        def metered(prompts, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before, t0 = read_counts(), time.perf_counter()
+            res = generate(prompts, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.tokens += int(res.lengths.sum())
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            add_counts(self.launches, {k: v - before[k] for k, v in read_counts().items()})
+            self.prefill_rows.append(len(prompts) * (-(-max(map(len, prompts)) // 64) * 64))
+            return res
+
+        def counted(*a):
+            self.steps += 1
+            return step(*a)
+
+        engine.generate, engine._step = metered, counted
+
+    def rates(self) -> str:
+        return (f"{self.tokens} tokens in {self.seconds:.2f} s = {self.tokens / self.seconds:.1f} "
+                f"tok/s (prefill included), {self.steps} decode steps, prefill rows "
+                f"{self.prefill_rows}, peak {self.peak / 2 ** 30:.2f} GiB")
+
+
+def build_llama3(tok) -> LlamaForCausalLM:
+    """Llama3-8B at full width and depth in bf16 on the card, random weights
+    from seed 0, its head shaped to the fake tokenizer's printable ids."""
+    t0 = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="meta").to_empty(device="cuda")
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0)).eval()
+    shape_head_(model.lm_head.weight, printable_ids(tok))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[13 pipeline] Llama3-8B bf16 on cuda: {n / 1e9:.3f} B params (vocab {cfg.vocab_size}, "
+        f"I {cfg.intermediate_size}, {cfg.num_kv_heads} KV heads for {cfg.num_heads}, rope theta "
+        f"{cfg.rope_theta:g}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, built "
+        f"in {time.perf_counter() - t0:.1f} s; random weights (seed 0), the head's rows of "
+        f"{len(printable_ids(tok))} printable ids x{HEAD_GAIN:g}, the others zeroed")
+    return model
+
+
+def _stage_files(ans_dir: str) -> dict:
+    """Every file the pipeline wrote -> its rows."""
+    return {n: read_jsonlines(os.path.join(ans_dir, n)) for n in sorted(os.listdir(ans_dir))}
+
+
+def phase_pipeline(fgen: Llava15Generator, tok) -> dict:
+    """13: run_pipeline end to end (phase 12's fused generator, the bf16
+    Llama3-8B backend), the same model quantised in place to int8 and then
+    stacked for fused decode on one divide batch, and the logit checks ->
+    the launches of its runs."""
+    import tempfile
+
+    shape_head_(fgen.model.llm.lm_head.weight, printable_ids(tok))
+    log(f"[13 pipeline] phase 12's fused LLaVA generator serves as the generator and the "
+        f"labeler; its head shaped the same way")
+    model = build_llama3(tok)
+    bf16_fn, tmpl = dcq.llama3_backend(model, tok, max_new_tokens=PIPE_NEW_TOKENS)
+    meter = BackendMeter(bf16_fn.engine)
+    launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        ques = os.path.join(work, "questions.jsonl")
+        image_path = str(ROOT / "examples" / "test.jpeg")
+        write_jsonlines(ques, [{"question": q, "image_path": image_path,
+                                "ds_question_id": f"q{i}",
+                                "metainfos": {"ds_question_id": f"q{i}"}}
+                               for i, q in enumerate(PIPE_QUESTIONS)])
+        ans_dir = os.path.join(work, "results")
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipe.run_pipeline(fgen, fgen, (bf16_fn, tmpl), (bf16_fn, tmpl), ques, ans_dir,
+                                repeat=PIPE_REPEAT, batch_size=PIPE_BATCH,
+                                max_tokens=PIPE_MAX_TOKENS, sample_num=2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_counts(launches, read_counts())
+        files = _stage_files(ans_dir)
+    for name, rows in files.items():
+        log(f"[13 pipeline] {name}: {len(rows)} rows")
+    divide = next(rows for n, rows in files.items() if n.endswith(".llama3-8b_divide.jsonl"))
+    qas = next(rows for n, rows in files.items() if n.endswith(".gq.qas.jsonl"))
+    pairs = next(rows for n, rows in files.items() if n.endswith(".pair_diff1.jsonl"))
+    n_facts = sum(len(r["facts"]) for r in divide)
+    log(f"[13 pipeline] run_pipeline in {wall:.1f} s -> {os.path.basename(out)}: "
+        f"{len(divide)} answers, {n_facts} facts, {len(qas)} yes/no questions, {len(pairs)} "
+        f"pairs, {len(files[os.path.basename(out)])} after the length balance")
+    if not (n_facts > 0 and qas and out.endswith("_pair_diff1_samp2_balanceshort.jsonl")):
+        raise AssertionError("13: the pipeline produced no facts or no yes/no questions")
+    # generate's bf16 prefill attends over a max_len cache at cache_index 0
+    # (Lq != Lk), which the dispatch sends to the dense formula, as the JAX
+    # package's; #1 serves the fresh-window prefills of the int8 and fused
+    # backends below (and phase 12's fused LLaVA prefills in this run)
+    log(f"[13 pipeline] the bf16 Llama3-8B backend: {meter.rates()} | launches in its calls: "
+        f"decode #4 {meter.launches['decode']} ({meter.steps} steps x {model.cfg.num_layers} "
+        f"layers = {meter.steps * model.cfg.num_layers}), flash #1 {meter.launches['flash']} "
+        f"(the prefill is not square: dense); the whole pipeline: {launches}")
+    if meter.launches["decode"] != meter.steps * model.cfg.num_layers:
+        raise AssertionError(f"13: the bf16 backend did not run #4 a layer a step: "
+                             f"{meter.launches}")
+
+    # step 2: the same model quantised in place (int8, head bf16, fused, int8
+    # KV), then stacked for fused decode, on one divide batch
+    rows = divide[:PIPE_BATCH]
+    prompts = [tmpl(dcq.divide_messages(r)) for r in rows]
+    int8_fn, _ = dcq.llama3_backend(model, tok, int8=True, max_new_tokens=PIPE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    m8 = BackendMeter(int8_fn.engine)
+    reset_counts()
+    int8_fn(prompts)
+    add_counts(launches, read_counts())
+    n_layers = model.cfg.num_layers
+    log(f"[13 pipeline] --llm-int8 backend, one divide batch: {m8.rates()} | #9 "
+        f"{m8.launches['int8_prequant']} (prefill), #1 {m8.launches['flash']} (the prefill's "
+        f"fresh window), #7 {m8.launches['int8']} (decode rows), #5 {m8.launches['decode_int8']} "
+        f"({m8.steps} steps x {n_layers}), #4 {m8.launches['decode']}")
+    if not (m8.launches["int8_prequant"] and m8.launches["int8"] and m8.launches["flash"]) \
+            or m8.launches["decode"] or m8.launches["decode_int8"] != m8.steps * n_layers:
+        raise AssertionError(f"13: the int8 backend's kernels: {m8.launches}")
+
+    # step 3a, before stacking consumes the per-layer weights: the int8
+    # route against attn_impl "dense" on the prefill and 4 forced steps
+    tok_ids = [tok(p).input_ids for p in prompts[:4]]
+    keep = printable_ids(tok)
+    forced = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (4, 4), generator=torch.Generator().manual_seed(0)).cuda()]
+    route = _forced_logits(int8_fn.engine, tok_ids, None, None, forced, ("auto", "auto"))
+    dense = _forced_logits(int8_fn.engine, tok_ids, None, None, forced, ("dense", "dense"))
+    ok = bool(torch.isfinite(route).all() and torch.isfinite(dense).all())
+    for text, a, b in (("prefill: the int8 route (fresh-window flash) vs attn_impl dense",
+                        route[:1], dense[:1]),
+                       ("decode steps 1-4: the int8 route (#5) vs the dense dequantised formula",
+                        route[1:], dense[1:])):
+        rel, cos = _logit_gap(a, b)
+        good = rel <= INT8_KV_REL_TOL and cos >= INT8_KV_COS_MIN
+        ok = ok and good
+        log(f"[13 vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol {INT8_KV_REL_TOL}), least "
+            f"row cosine {cos:.5f} (tol {INT8_KV_COS_MIN}) | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("13: the int8 route disagrees with attn_impl dense")
+
+    layer = model.model.layers[0]
+    layer_bytes = sum(m.q.numel() + 4 * m.scale.numel() for m in (
+        layer.attn.qkv_proj, layer.attn.o_proj, layer.mlp.gate_up_proj, layer.mlp.down_proj))
+    int8_rate = m8.tokens / m8.seconds
+    del int8_fn, m8
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fused_fn, _ = dcq.llama3_backend(model, tok, fused_decode=True,
+                                     max_new_tokens=PIPE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    log(f"[13 pipeline] --llm-fused-decode: stacked in place, {before / 2 ** 30:.3f} GiB in use "
+        f"before, {after / 2 ** 30:.3f} after ({(after - before) / 2 ** 20:+.1f} MiB; one layer's "
+        f"weights and scales {layer_bytes / 2 ** 20:.1f} MiB)")
+    if abs(after - before) > layer_bytes:
+        raise AssertionError("13: stacking did not replace the per-layer weights in place")
+    mf = BackendMeter(fused_fn.engine)
+    reset_counts()
+    fused_fn(prompts)
+    add_counts(launches, read_counts())
+    log(f"[13 pipeline] --llm-fused-decode backend, the same batch: {mf.rates()} | #16 "
+        f"{mf.launches['fused']} = {mf.steps} decode steps; #4 {mf.launches['decode']}, #5 "
+        f"{mf.launches['decode_int8']}, #7 {mf.launches['int8']}; the prefill's #9 "
+        f"{mf.launches['int8_prequant']} and #1 {mf.launches['flash']}")
+    if mf.launches["fused"] != mf.steps or not mf.launches["flash"] or \
+            any(mf.launches[k] for k in ("decode", "decode_int8", "int8")):
+        raise AssertionError(f"13: the fused backend's kernels: {mf.launches}")
+    log(f"[13 pipeline] tok/s (prefill included, {PIPE_BATCH}-row batches of "
+        f"{PIPE_NEW_TOKENS} new tokens): bf16 {meter.tokens / meter.seconds:.1f} (step 1), int8 "
+        f"{int8_rate:.1f}, fused {mf.tokens / mf.seconds:.1f}")
+
+    # step 3b: each fused step's #16 against its twin on the same cache
+    kern, twin, spread = _fused_forced(fused_fn.engine, tok_ids, None, None, forced)
+    ok = all(bool(torch.isfinite(r).all()) for r in (kern, twin, spread))
+    rel, cos = _logit_gap(spread[1:], twin[1:])
+    log(f"[13 vs plain] the twin against itself with each step's x one ulp up: max|d| / max|ref| "
+        f"{rel:.4f}, least row cosine {cos:.5f}")
+    rel, cos = _logit_gap(kern[1:], twin[1:])
+    good = ok and rel <= FUSED_LOGIT_REL_TOL and cos >= FUSED_LOGIT_COS_MIN
+    log(f"[13 vs plain] decode steps 1-4: kernel #16 vs the twin on the same cache: max|d| / "
+        f"max|ref| {rel:.4f} (tol {FUSED_LOGIT_REL_TOL}), least row cosine {cos:.5f} (tol "
+        f"{FUSED_LOGIT_COS_MIN}) | {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("13: kernel #16 disagrees with its twin at Llama3-8B")
+    del fused_fn, model
     return launches
 
 
@@ -2154,17 +2617,27 @@ def route_noise(tag: str, out, dx, deq_out, deq_dx) -> None:
 # prompt), greedy_gen (4 x 832) and the headline (24 x 896)
 FUSED_WIDTHS = ((4096, 12288), (4096, 22016))
 FUSED_MS = (10, 24, 832, 4 * 832, 24 * 896)
+# phase 13's Llama3-8B: fused qkv (4096 + 2 x 1024 columns), fused gate/up
+# (2 x 14336) and down (K 14336); its decode rows (8), and the prefill rows
+# of one divide batch: 8 prompts padded to the bucket of the longest
+# divide prompt phase 13 can build (PIPE_MAX_TOKENS-character answers)
+LLAMA3_WIDTHS = ((4096, 6144), (4096, 28672), (14336, 4096))
+
+
+def llama3_ms() -> tuple:
+    return (8, 64, 128, PIPE_BATCH * _divide_prompt_bucket(_fake_tokenizer()))
 
 
 def phase_int8(g, qb: dict) -> dict:
     """3d: the four int8 kernels against their plain twins (max abs
-    difference 0; #7 == #9, #8 == #10) at the 7B projection widths and the
-    fused ones, with times beside the int8 bound, torch._int_mm and the
+    difference 0; #7 == #9, #8 == #10) at the 7B projection widths, the
+    fused ones and Llama3-8B's, with times beside the int8 bound, torch._int_mm and the
     "dequant" route."""
     res = {"err": 0.0}
     ms = sorted({16, 64, 127, 128, qb["m_short"], qb["m_suffix"], qb["m_prefix"]})
     cases = [(K, N, M) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)) for M in ms]
     cases += [(K, N, M) for K, N in FUSED_WIDTHS for M in FUSED_MS]
+    cases += [(K, N, M) for K, N in LLAMA3_WIDTHS for M in llama3_ms()]
     for K, N, M in cases:
         x, dy = _randn(g, M, K), _randn(g, M, N)
         q, s = quantize_kernel_int8_torch(
@@ -2230,14 +2703,16 @@ def phase_int8(g, qb: dict) -> dict:
 
 def phase_int4(g, qb: dict) -> dict:
     """3e: kernels #11 and #12 against their plain twins (max abs difference
-    0) at the 7B projection widths, with times beside the int8 bound,
+    0) at the 7B projection widths and Llama3-8B's, with times beside the int8 bound,
     torch._int_mm on the unpacked int8 operands (product only; the weight
     row-major as it unpacks and in cuBLASLt's fast column-major layout) and
     the "dequant" route (a bf16 dequantisation plus one cuBLAS product). #12
     is checked at N = 11008 too, where the dispatch takes the dequant dx."""
     res = {"err": 0.0}
     ms = sorted({16, 64, 127, 128, qb["m_suffix"], qb["m_prefix"]})
-    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+    widths = [(K, N, ms) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    widths += [(K, N, llama3_ms()) for K, N in LLAMA3_WIDTHS]
+    for K, N, ms in widths:
         qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
         w8 = i4.unpack_int4(qp)  # (K, N) row-major
         w8_col = w8.T.contiguous().T  # the same values column-major
@@ -2668,27 +3143,38 @@ def _row(name, source, replaces, launches, err, timing) -> dict:
             "launches": launches, "max_abs_err": err, **{k: timing[k] for k in keys}}
 
 
+def timed(tag: str, fn, *args):
+    """fn(*args), then one line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[{tag}] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         sys.exit(1)
+    t_start = time.perf_counter()
     smi = phase_environment()
-    phase_build()
+    timed("2 build", phase_build)
     g = torch.Generator(device="cuda").manual_seed(0)
-    kern = phase_kernels(g)
+    kern = timed("3 kernels", phase_kernels, g)
     cfg = LlavaConfig.llava15_7b()
     image_bytes = (ROOT / "examples" / "test.jpeg").read_bytes()
     tok = _fake_tokenizer()
     rows = synth_rows(image_bytes)
     pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
     short = short_row(image_bytes)
-    bwd = phase_backward(g, pair)
-    head = phase_head(g, pair)
+    bwd = timed("3b flash backward", phase_backward, g, pair)
+    head = timed("3c fused head", phase_head, g, pair)
     qb = qlora_batches(rows, short, tok, cfg)
-    int8 = phase_int8(g, qb)
-    int4 = phase_int4(g, qb)
-    kv8 = phase_kv8_kernel(g)
-    fused = phase_fused_kernel(g)
+    int8 = timed("3d int8", phase_int8, g, qb)
+    int4 = timed("3e int4", phase_int4, g, qb)
+    kv8 = timed("3f int8 decode", phase_kv8_kernel, g)
+    fused = timed("3g fused decode", phase_fused_kernel, g)
+    full = timed("3h full decode", phase_full_kernel, g)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -2704,15 +3190,19 @@ def main() -> None:
     gen = Llava15Generator(model, tok, cfg.num_image_tokens,
                            image_size=cfg.vision.image_size,
                            checkpoint_name="random-llava15-7b")
-    launches, bf16_rates = phase_slice(gen, image_bytes)
-    phase_slice_vs_plain(gen, image_bytes)
+    launches, bf16_rates = timed("4 slice", phase_slice, gen, image_bytes)
+    timed("5 slice vs plain", phase_slice_vs_plain, gen, image_bytes)
     # 11 serves the same seed-0 model in the int8-KV configuration, 12 the
     # same quantised model through the fused engine (which consumes its
-    # per-layer weights)
-    kv8_launches, int8_kv_rates = phase_int8_kv(gen, image_bytes, bf16_rates)
+    # per-layer weights), 13 the feedback pipeline with that fused generator
+    kv8_launches, int8_kv_rates = timed("11 int8-kv", phase_int8_kv, gen, image_bytes,
+                                        bf16_rates)
     add_counts(launches, kv8_launches)
-    add_counts(launches, phase_fused(gen, image_bytes, int8_kv_rates))
-    del gen, model
+    fused_launches, fgen = timed("12 fused", phase_fused, gen, image_bytes, int8_kv_rates)
+    add_counts(launches, fused_launches)
+    del gen
+    add_counts(launches, timed("13 pipeline", phase_pipeline, fgen, tok))
+    del fgen, model
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2721,33 +3211,34 @@ def main() -> None:
     # runs on the weights before any update: the DPO loss of this random
     # model saturates after one step at any lr that moves bf16 weights)
     model = build_model(LlavaConfig.llava15_7b(remat=True))
-    ref_logps, rl = phase_ref_logp(model, tok, rows, cfg)
+    ref_logps, rl = timed("8 ref-logp", phase_ref_logp, model, tok, rows, cfg)
     add_counts(launches, rl)
     train_pair = collate_train_pair(preference_items(rows, tok, cfg, ref_logps), tok, cfg)
     assert (train_pair["batch_np"]["input_ids"] == pair["batch_np"]["input_ids"]).all()
     tr = build_train(train_pair, model)
-    phase_train_vs_plain(tr["model"], tr["adapter"], tr["batch"], tr["hp"])
-    add_counts(launches, phase_train(tr))
+    timed("7 train vs plain", phase_train_vs_plain, tr["model"], tr["adapter"], tr["batch"],
+          tr["hp"])
+    add_counts(launches, timed("6 train", phase_train, tr))
     del tr, model  # phase 6's model, gradients and optimizer (~55 GiB)
     gc.collect()
     torch.cuda.empty_cache()
 
     # 9 rebuilds phase 8's seed-0 model, quantises it and trains adapters
     model = build_model(LlavaConfig.llava15_7b(remat=True), "9 qlora")
-    add_counts(launches, phase_qlora(model, tok, rows, short, cfg, ref_logps))
+    add_counts(launches, timed("9 qlora", phase_qlora, model, tok, rows, short, cfg, ref_logps))
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     # 10 rebuilds it once more and quantises it to int4
     model = build_model(LlavaConfig.llava15_7b(remat=True), "10 int4")
-    add_counts(launches, phase_qlora_int4(model, tok, rows, cfg, ref_logps))
+    add_counts(launches, timed("10 int4", phase_qlora_int4, model, tok, rows, cfg, ref_logps))
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     log(f"[10 int4] main-path launches (serving 4, int8-KV serving 11, fused serving 12, "
-        f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
+        f"the feedback pipeline 13, ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     kernels = [
@@ -2808,6 +3299,14 @@ def main() -> None:
         "fused_decode_step", "rlaifv_tpu_torch/csrc/fused_decode.cu",
         "rlaifv_tpu/ops/fused_decode.py:603", launches["fused"], fused["err"],
         fused["batch-24 headline"]))
+    # row 6 at the Llama3 GQA geometry (B 8, L 2304, KVH 8, bf16): no path
+    # of the port calls it (none of the JAX package does), so its launches
+    # on the main path are 0
+    kernels.append(_row(
+        "decode_attention", "rlaifv_tpu_torch/csrc/decode_attention_full.cu",
+        "rlaifv_tpu/ops/decode_attention.py:34", launches["decode_full"], full["err"],
+        full["Llama3 GQA"]))
+    log(f"[done] {len(kernels)} kernels; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 Counterpart of rlaifv_tpu/genai/engine.py::DecodeEngine on its per-layer
 cache path (bf16 or int8, as the model's kv_cache_dtype says), with the
-same conventions:
+same conventions. It serves a LLaVA model (models/llava.py, images spliced
+into the prompt embeddings) or, as the JAX engine's bare-LM mode, a
+text-only LlamaForCausalLM (models/llama.py; `images` must be None), such
+as the divide-and-conquer stage's Llama3-8B:
 
 - prompts are LEFT-padded to a bucket of 64, so every row's last prompt
   token sits at one index and one host-int cache_index drives the decode
@@ -110,16 +113,18 @@ def _round_up(x: int, m: int) -> int:
 
 
 class DecodeEngine:
-    """Wraps a LLaVA model (models/llava.py) for batched generation. The
-    model holds its own weights and device."""
+    """Wraps a LLaVA model (models/llava.py) or a bare LlamaForCausalLM
+    (models/llama.py) for batched generation. The model holds its own
+    weights and device."""
 
     def __init__(self, model, *, eos_id: int = 2, pad_id: int = 0,
                  vocab_size: Optional[int] = None, fused_decode: bool = False):
         self.model = model
-        self.llm = model.llm
+        self._multimodal = hasattr(model.cfg, "llm")  # wrapped LM vs bare LM
+        self.llm = model.llm if self._multimodal else model
         self.eos_id = eos_id
         self.pad_id = pad_id
-        self.vocab_size = vocab_size or model.cfg.llm.vocab_size
+        self.vocab_size = vocab_size or self.llm.cfg.vocab_size
         self.fused_decode = fused_decode
         self._fused_stacked = None
         if fused_decode:
@@ -136,7 +141,16 @@ class DecodeEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.model.device
+        return self.llm.model.tok_embed.weight.device
+
+    def _embeds(self, ids, images, image_starts) -> torch.Tensor:
+        """Prompt embeddings: the LLaVA splice, or a bare LM's token
+        embeddings (image sentinels < 0 map to id 0 either way)."""
+        if self._multimodal:
+            return self.model.build_embeds(ids, images, image_starts)
+        if images is not None:
+            raise ValueError("a bare language model takes no images")
+        return self.llm.embed(ids.clamp(min=0))
 
     def _device_images(self, images):
         """uint8 pixels ship as they are and are normalised on the device
@@ -165,7 +179,7 @@ class DecodeEngine:
         pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
         cache_mask = torch.zeros((B, max_len), dtype=torch.int32, device=self.device)
         cache_mask[:, :Lp] = mask
-        embeds = self.model.build_embeds(ids, images, image_starts)
+        embeds = self._embeds(ids, images, image_starts)
         logits, cache = self.llm(inputs_embeds=embeds, attention_mask=cache_mask,
                                  position_ids=pos, cache=self.llm.init_cache(B, max_len),
                                  cache_index=0)
@@ -184,7 +198,7 @@ class DecodeEngine:
         pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
         cache_mask = torch.zeros((B, max_len), dtype=torch.int32, device=self.device)
         cache_mask[:, :Lp] = mask
-        embeds = self.model.build_embeds(ids, images, image_starts)
+        embeds = self._embeds(ids, images, image_starts)
         x, cache = stacked_prefill_tower(
             self._fused_stacked, init_stacked_cache(cfg, B, max_len, self.device),
             embeds, mask, pos, cfg)
@@ -324,7 +338,7 @@ class DecodeEngine:
         images = (self._device_images(np.asarray(image)[None])
                   if image is not None else None)
         _, pcache = self.llm(
-            inputs_embeds=self.model.build_embeds(ids, images, [image_start]),
+            inputs_embeds=self._embeds(ids, images, [image_start]),
             attention_mask=torch.ones((1, P), dtype=torch.int32, device=dev),
             position_ids=torch.arange(P, device=dev)[None],
             cache=self._fp_cache(1, P), cache_index=0,
@@ -374,7 +388,7 @@ class DecodeEngine:
         B, Pmax = pids.shape
         W = sids.shape[1]
         ppos = (torch.cumsum(pmask, dim=1) - 1).clamp(min=0)
-        embeds = self.model.build_embeds(pids, images, starts)
+        embeds = self._embeds(pids, images, starts)
         _, pcache = self.llm(inputs_embeds=embeds, attention_mask=pmask,
                              position_ids=ppos, cache=self._fp_cache(B, Pmax),
                              cache_index=0)

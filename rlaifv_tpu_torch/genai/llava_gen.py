@@ -21,7 +21,7 @@ then skips `share_repeats` and autocheck the shared prefix, and both take
 the batch `generate` path, as in the JAX package (the fused engine has no
 per-layer weights for `generate_repeated` or `score_shared_prefix`). Not
 carried yet: beam search and continuous batching (ROADMAP.md 'Modules to
-port' #6).
+port' #6e).
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ from rlaifv_tpu_torch.genai.engine import DecodeEngine, group_consecutive
 from rlaifv_tpu_torch.genai.sampling import SamplingParams
 from rlaifv_tpu_torch.utils.file_io import write_jsonlines
 
-_NOT_PORTED = "is not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #6"
+_NOT_PORTED = "is not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #6e"
 
 
 def wrap_question_for_llava15(question: str, tokenizer,

@@ -2,8 +2,11 @@
 
 `llava_params_from_jax` maps a `rlaifv_tpu.models.llava.LlavaForCausalLM`
 param tree (nested dicts of arrays) onto the names of
-`rlaifv_tpu_torch.models.llava.LlavaForCausalLM`, so both packages compute
-the same function from the same weights:
+`rlaifv_tpu_torch.models.llava.LlavaForCausalLM`, and
+`llama_params_from_jax` a bare `rlaifv_tpu.models.llama.LlamaForCausalLM`
+tree (the divide-and-conquer stage's Llama3-8B) onto the port's
+LlamaForCausalLM, so both packages compute the same function from the same
+weights:
 
 - flax Dense `kernel` (in, out) -> `weight` (out, in);
 - the flax patch Conv `kernel` (kh, kw, in, out) -> `weight` (out, kh*kw*in);
@@ -31,10 +34,11 @@ Real HF checkpoints load through `load_llava_checkpoint`, the numpy
 converter of rlaifv_tpu/models/convert.py copied function for function
 (`load_state_dict_dir`, `convert_llama`, `convert_clip_vision`,
 `convert_llava`, `load_image_newline`): HF state dict -> the same flax-style
-tree, then the bridge above. The train entry point builds its configs from
-presets, as train.py does, so no config reader is needed. The other
-families' converters and quantizers are not copied: ROADMAP.md 'Modules
-to port' #9 and #10.
+tree, then the bridge above; a bare HF Llama checkpoint goes through
+`convert_llama` and `llama_params_from_jax`, and `llama_config_from_hf`
+reads its config.json. The train entry point builds its configs from
+presets, as train.py does. The other families' converters and quantizers
+are not copied: ROADMAP.md 'Modules to port' #9 and #10.
 """
 from __future__ import annotations
 
@@ -112,6 +116,14 @@ def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = arr.T
         sd[_torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))
     return sd
+
+
+def llama_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A bare flax LlamaForCausalLM param tree ({"model": {tok_embed,
+    layer_{i}, ln_f}, "lm_head"}) -> state dict for the port's
+    LlamaForCausalLM. The mapping is `llava_params_from_jax`'s: a LLaVA
+    tree holds this one under "llm"."""
+    return llava_params_from_jax(params)
 
 
 def flax_leaf_names(model: nn.Module) -> Dict[str, str]:
@@ -356,8 +368,9 @@ def fuse_llm_projections_(model: nn.Module) -> nn.Module:
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax LLaVA param tree into `model` (strict: every name must
-    match), converting to each parameter's dtype and device."""
+    """Copy a flax LLaVA param tree into a LlavaForCausalLM, or a bare flax
+    Llama tree into a LlamaForCausalLM (strict: every name must match),
+    converting to each parameter's dtype and device."""
     sd = llava_params_from_jax(params)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
@@ -450,6 +463,32 @@ def convert_llama(
     if prefix + "lm_head.weight" in sd:
         _set(tree, "lm_head/kernel", g("lm_head.weight").T)
     return tree
+
+
+def llama_config_from_hf(model_dir: str, **overrides):
+    """LlamaConfig from a bare HF LLaMA/Vicuna/Mistral checkpoint dir
+    (for text-only loads and the real-checkpoint goldens gate)."""
+    import json as _json
+
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw = _json.load(f)
+    return LlamaConfig(
+        vocab_size=raw.get("vocab_size", 32000),
+        hidden_size=raw.get("hidden_size", 4096),
+        intermediate_size=raw.get("intermediate_size", 11008),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=raw.get("num_attention_heads", 32),
+        num_kv_heads=raw.get(
+            "num_key_value_heads", raw.get("num_attention_heads", 32)
+        ),
+        max_position_embeddings=raw.get("max_position_embeddings", 4096),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-6),
+        tie_word_embeddings=raw.get("tie_word_embeddings", False),
+        **overrides,
+    )
 
 
 def convert_clip_vision(

@@ -1,4 +1,6 @@
-"""LLaMA-family decoder in PyTorch - the LM backbone of LLaVA-1.5 (Vicuna-7B).
+"""LLaMA-family decoder in PyTorch - the LM backbone of LLaVA-1.5 (Vicuna-7B)
+and, as a bare LlamaForCausalLM, the Llama3-8B of the divide-and-conquer
+stage (grouped-query attention, 8 KV heads, rope theta 5e5).
 
 Counterpart of rlaifv_tpu/models/llama.py: HF-layout RoPE (rotate-half),
 RMSNorm in fp32, SiLU-gated MLP, grouped-query attention through
@@ -80,6 +82,22 @@ class LlamaConfig:
     @staticmethod
     def vicuna_7b(**kw) -> "LlamaConfig":
         return LlamaConfig(**kw)
+
+    @staticmethod
+    def llama3_8b(**kw) -> "LlamaConfig":
+        base = dict(
+            vocab_size=128256,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            max_position_embeddings=8192,
+            rope_theta=500000.0,
+            rms_norm_eps=1e-5,
+        )
+        base.update(kw)
+        return LlamaConfig(**base)
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":

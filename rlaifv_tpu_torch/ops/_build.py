@@ -49,6 +49,9 @@ SIGNATURES = {
     # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
     # scale, stream
     "decode_attention_prefix_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # q, k, v, mask, out, B, H, KVH, L, D, q stride b, q stride h, is_bf16,
+    # scale, stream
+    "decode_attention_full_cuda": [_P] * 5 + [_I] * 8 + [_F, _P],
     # q, k, k_scale, v, v_scale, mask, out, B, H, KVH, L, D, valid_len,
     # block_l, q stride b, q stride h, scale, stream
     "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],

@@ -1,8 +1,14 @@
-"""Prefix decode attention: hand-written Hopper kernels + plain PyTorch versions.
+"""Decode attention: hand-written Hopper kernels + plain PyTorch versions.
 
 Counterpart of rlaifv_tpu/ops/decode_attention.py: one query token per head
-over a static (B, L, KVH, D) cache, reading only the live prefix.
+over a static (B, L, KVH, D) cache.
 
+- `decode_attention` (TPU kernel #6): the whole cache, every column read,
+  fp32 or bf16 operands, the arithmetic in fp32 whatever their type,
+  causality folded into the mask by the caller; a row whose keys are all
+  masked returns 0. Kernel in csrc/decode_attention_full.cu, plain version
+  `decode_attention_ref`. No module of the JAX package calls it, and no
+  path of the port does;
 - `decode_attention_prefix` (TPU kernel #4): a bf16 cache, columns
   [0, valid_len); kernel in csrc/decode_attention.cu, plain version
   `decode_attention_prefix_ref`;
@@ -34,6 +40,82 @@ NEG_INF = -1e30
 DEFAULT_BLOCK_L = 256
 
 
+def decode_attention_ref(
+    q: torch.Tensor,  # (B, H, D)
+    k: torch.Tensor,  # (B, L, KVH, D)
+    v: torch.Tensor,  # (B, L, KVH, D)
+    mask: torch.Tensor,  # (B, L) key validity
+) -> torch.Tensor:
+    """Plain version of kernel #6 (the TPU `_kernel`) in fp32 over every
+    cache column -> (B, H, D) in q's type: s = (q . k) / sqrt(D) plus -1e30
+    where mask == 0, m = max(max s, -5e29), p = exp(s - m) / max(sum p,
+    1e-30), out = p . v. A row that sees no key outputs 0."""
+    B, H, D = q.shape
+    KVH = k.shape[2]
+    n_rep = H // KVH
+    qf = q.float().reshape(B, KVH, n_rep, D)
+    s = torch.einsum("bgrd,btgd->bgrt", qf, k.float()) * (1.0 / D ** 0.5)
+    s = s + torch.where(mask[:, None, None, :] != 0, 0.0, NEG_INF)
+    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+    p = torch.exp(s - m)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bgrt,btgd->bgrd", p, v.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _kernel_full(q, k, v, mask):
+    from rlaifv_tpu_torch.ops import _build
+
+    B, H, D = q.shape
+    L, KVH = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention kernel takes q, k and v all fp32 or all bf16; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != v.shape or k.shape[0] != B or tuple(mask.shape) != (B, L):
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} mask {tuple(mask.shape)}")
+    if D not in (64, 128) or H % KVH or H // KVH not in (1, 2, 4, 8):
+        raise ValueError(f"decode_attention kernel takes D in (64, 128) and n_rep in "
+                         f"(1, 2, 4, 8); got D={D} H={H} KVH={KVH}")
+    vec = 16 // q.element_size()  # elements of one 16-byte load
+    if not (k.is_contiguous() and v.is_contiguous()) or k.data_ptr() % 16 \
+            or v.data_ptr() % 16:
+        raise ValueError("decode_attention kernel needs a contiguous, 16-byte aligned "
+                         f"cache; got strides {k.stride()} / {v.stride()}")
+    if q.stride(-1) != 1 or q.stride(0) % vec or q.stride(1) % vec or q.data_ptr() % 16:
+        raise ValueError(f"q needs unit stride along D; got {q.stride()}")
+    mask = mask.to(dtype=torch.int32).contiguous()
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _build.load_kernels().decode_attention_full_cuda(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B, H, KVH, L, D, q.stride(0), q.stride(1), int(q.dtype == torch.bfloat16),
+        1.0 / D ** 0.5, stream,
+    )
+    _build.check(err, "decode_attention_full_cuda")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, D) single-position queries
+    k: torch.Tensor,  # (B, L, KVH, D) cache
+    v: torch.Tensor,  # (B, L, KVH, D)
+    mask: torch.Tensor,  # (B, L) key validity (causality folded in by the caller)
+) -> torch.Tensor:
+    """-> (B, H, D) in q's type. A CUDA tensor runs kernel #6 (q, k, v all
+    fp32 or all bf16, a contiguous cache, D in {64, 128}, n_rep in {1, 2,
+    4, 8}, any L; anything else raises); a CPU tensor runs
+    `decode_attention_ref`."""
+    if q.is_cuda:
+        return _kernel_full(q, k, v, mask)
+    return decode_attention_ref(q, k, v, mask)
+
+
+decode_attention.launches = 0  # kernel #6 launches (CUDA tensors only)
+
+
 def decode_attention_prefix_ref(
     q: torch.Tensor,  # (B, H, D)
     k: torch.Tensor,  # (B, L, KVH, D)
@@ -41,20 +123,9 @@ def decode_attention_prefix_ref(
     mask: torch.Tensor,  # (B, L) key validity
     valid_len: int,
 ) -> torch.Tensor:
-    """Plain version in fp32 over columns [0, valid_len) -> (B, H, D)."""
-    B, H, D = q.shape
-    KVH = k.shape[2]
-    n_rep = H // KVH
-    kf = k[:, :valid_len].float()  # (B, T, KVH, D)
-    vf = v[:, :valid_len].float()
-    qf = q.float().reshape(B, KVH, n_rep, D)
-    s = torch.einsum("bgrd,btgd->bgrt", qf, kf) * (1.0 / D ** 0.5)
-    s = s + torch.where(mask[:, None, None, :valid_len] != 0, 0.0, NEG_INF)
-    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
-    p = torch.exp(s - m)
-    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bgrt,btgd->bgrd", p, vf)
-    return out.reshape(B, H, D).to(q.dtype)
+    """Plain version of kernel #4: `decode_attention_ref` over columns
+    [0, valid_len) -> (B, H, D)."""
+    return decode_attention_ref(q, k[:, :valid_len], v[:, :valid_len], mask[:, :valid_len])
 
 
 def _kernel(q, k, v, mask, valid_len):

@@ -26,7 +26,10 @@ max|x_out| of its twin and the fresh k/v equal, but for at most
 FUSED_FLIP_ROWS(B) rows where a value landed on the other side of a
 quantisation step; there every row's x_out stays within FUSED_FLIP_STEPS
 int8 steps of that row's scale (max|x_out row| / 127) and the fresh k/v
-within FUSED_KV_STEPS steps.
+within FUSED_KV_STEPS steps. The full-cache decode kernel #6: fp32 inputs
+within 1e-5 x max(1, max|twin|) of its twin (both in fp32, sums in other
+orders, expf against torch's exp), bf16 inputs within the bf16 bound above;
+a fully masked row is exactly 0.
 """
 import dataclasses
 
@@ -34,10 +37,12 @@ import pytest
 import torch
 
 from rlaifv_tpu_torch.ops.decode_attention import (
+    decode_attention,
     decode_attention_prefix,
     decode_attention_prefix_int8,
     decode_attention_prefix_int8_ref,
     decode_attention_prefix_ref,
+    decode_attention_ref,
     quantize_kv,
 )
 from rlaifv_tpu_torch.ops.flash_attention import (
@@ -200,6 +205,56 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         decode_attention_prefix(_randn(gen, 3, 4, 64), cache.contiguous(),
                                 cache.contiguous(), mask, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KVH,D", [
+    (4, 896, 8, 4, 128),    # run_tpu_checks' shape, n_rep 2
+    (8, 2304, 32, 8, 128),  # Llama3 GQA, n_rep 4
+    (3, 781, 32, 4, 128),   # n_rep 8, a partial last key tile
+    (3, 333, 8, 8, 64),     # D 64
+])
+def test_full_decode_kernel_matches_twin(gen, dtype, B, L, H, KVH, D):
+    """Kernel #6 over every cache column: rows masked from 700 and from 13
+    (run_tpu_checks), interior holes, and a fully masked row (exactly 0)."""
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(dtype)
+               for s in ((B, H, D), (B, L, KVH, D), (B, L, KVH, D)))
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    mask[0, 700:] = 0
+    mask[0, 13:40] = 0
+    mask[1] = 0
+    mask[-1, ::3] = 0
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, mask)
+    ref = decode_attention_ref(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1 and out.dtype == dtype
+    assert (out[1] == 0).all()
+    if dtype == torch.float32:
+        assert torch.isfinite(out).all()
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
+    else:
+        _close(out, ref)
+
+
+def test_full_decode_kernel_raises_on_what_it_does_not_take(gen):
+    q, k = _randn(gen, 2, 8, 64), _randn(gen, 2, 100, 4, 64)
+    mask = torch.ones((2, 100), dtype=torch.int32, device="cuda")
+    n0 = decode_attention.launches
+    with pytest.raises(TypeError):  # mixed types
+        decode_attention(q.float(), k, k, mask)
+    with pytest.raises(TypeError):
+        decode_attention(q.half(), k.half(), k.half(), mask)
+    with pytest.raises(ValueError):  # D 48
+        decode_attention(q[..., :48], k[..., :48], k[..., :48], mask)
+    with pytest.raises(ValueError):  # n_rep 3
+        decode_attention(_randn(gen, 2, 12, 64), k, k, mask)
+    with pytest.raises(ValueError):  # a strided cache
+        decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, mask)
+    with pytest.raises(ValueError):
+        decode_attention(q, k, k, mask[:, :50])
+    assert decode_attention.launches == n0
 
 
 def _int8_cache(gen, B, L, H, KVH, D, valid_len):
@@ -755,3 +810,44 @@ def test_tiny_fused_engine_decodes_through_kernel_16(gen):
     top = np.abs(want.first_logits).max()
     np.testing.assert_allclose(got.first_logits, want.first_logits, rtol=0, atol=1e-3 * top)
     assert got.tokens.shape == want.tokens.shape == (2, 5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_tiny_bare_llama_backend_runs_its_kernels(gen, fused):
+    """A bf16 tiny bare Llama (head dim 128, GQA n_rep 2) through the
+    divide-and-conquer backend: bf16 decodes through #4 and no #6; with
+    fused_decode (int8 implied) one #16 launch a decode step and no #4,
+    #5 or #7. generate_fn returns one string a prompt."""
+    import sys
+    from pathlib import Path
+
+    from rlaifv_tpu_torch.genai import divide_conquer as dc
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from rlaifv_tpu_torch.models.llava import init_weights_
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fake_tokenizer import FakeTokenizer
+
+    cfg = LlamaConfig.tiny(vocab_size=512, hidden_size=512, num_heads=4, num_kv_heads=2,
+                           intermediate_size=1024, rope_theta=5e5, rms_norm_eps=1e-5,
+                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = init_weights_(LlamaForCausalLM(cfg, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(0)).eval()
+    gen_fn, tmpl = dc.llama3_backend(model, FakeTokenizer(), max_new_tokens=4,
+                                     fused_decode=fused)
+    gen_fn.engine.eos_id = -1  # decode all 4 tokens
+    counts = lambda: (fd.fused_decode_step.launches, decode_attention_prefix.launches,  # noqa: E731
+                      decode_attention_prefix_int8.launches, qm.int8_matmul.launches,
+                      decode_attention.launches)
+    before = counts()
+    out = gen_fn([tmpl(dc.divide_messages({"question": "Q?", "answer": a}))
+                  for a in ("A cat.", "Two dogs on a mat.")])
+    torch.cuda.synchronize()
+    d = [a - b for a, b in zip(counts(), before)]
+    assert len(out) == 2 and all(isinstance(o, str) for o in out)
+    if fused:
+        assert d == [3, 0, 0, 0, 0], d
+    else:
+        assert d[0] == 0 and d[1] == 3 * cfg.num_layers and d[2:] == [0, 0, 0], d

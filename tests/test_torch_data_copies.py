@@ -6,7 +6,8 @@ rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
 loader and `fuse_llm_projections` of `models/convert`,
 `quantize_kernel_int8`, the numpy int4 helpers of `ops/int4_matmul`, the
 tree helpers of `train/lora` and the KV-cache quantiser of
-`ops/decode_attention` (it imports nothing of rlaifv_tpu). Each case
+`ops/decode_attention`, and `pairs/{construction,preference,
+length_filter}` (it imports nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -287,6 +288,79 @@ def case_lora_helpers(pkg, tmp_path):
     loaded, alpha, r = lora_mod.load_lora(path)
     flat = {k: np.asarray(v) for k, v in lora_mod._flatten(loaded)}
     return paths, lora_mod.lora_scaled(lora, alpha=16.0), merged, flat, alpha, r
+
+
+def _fact_rows(rng):
+    """Autocheck rows of 3 instructions x 3 answers, 1-4 facts each, with
+    random yes/no scores (ties included): pairs/construction's input."""
+    rows = []
+    for qid in range(9):
+        for f in range(int(rng.integers(1, 5))):
+            yes = float(rng.choice([0.1, 0.5, 0.9]))
+            rows.append({"question_id": qid, "ds_question_id": f"ds{qid // 3}",
+                         "raw_question": f"fact {f} of {qid}?",
+                         "scores": {"yes": yes, "Yes": yes / 4, "no": 1 - yes,
+                                    "No": (1 - yes) / 4},
+                         "metainfos": {"ds_question_id": f"ds{qid // 3}", "metainfos": {
+                             "origin_question": f"Question {qid // 3}?"}}})
+    return rows
+
+
+def _answer_rows(rng, fact_rows):
+    n_facts = {}
+    for r in fact_rows:
+        n_facts[r["question_id"]] = n_facts.get(r["question_id"], 0) + 1
+    return [{"question_id": qid, "ds_question_id": f"ds{qid // 3}",
+             "raw_question": f"Question {qid // 3}?", "question": f"Question {qid // 3}?",
+             "answer": " ".join(["w"] * int(rng.integers(2, 30))),
+             "facts": [f"f{i}" for i in range(n)], "changed_facts": [f"c{i}" for i in range(n)],
+             "metainfos": {"image_path": f"/img/{qid // 3}.jpg"}}
+            for qid, n in sorted(n_facts.items())]
+
+
+def case_pairs_construction(pkg):
+    con = pkg("pairs.construction")
+    rows = _fact_rows(np.random.default_rng(5))
+    return (con.fact_label(rows[0]["scores"]), con.answer_scores(rows),
+            con.group_answers_by_instruction(rows), con.build_pairs(rows, diff=1),
+            con.build_pairs(rows, diff=0, return_infos=True))
+
+
+def case_pairs_preference(pkg, tmp_path):
+    """assemble_pairs, sample_pairs with a seed, and `run`'s side files
+    (.addcls / .addfactjudge; the unseeded sample file is left out)."""
+    pref = pkg("pairs.preference")
+    fio = pkg("utils.file_io")
+    rng = np.random.default_rng(6)
+    facts = _fact_rows(rng)
+    answers = _answer_rows(rng, facts)
+    d = tmp_path / pkg.__name__
+    d.mkdir()
+    fio.write_jsonlines(str(d / "autocheck.jsonl"), facts)
+    fio.write_jsonlines(str(d / "gq.jsonl"), answers)
+    pref.run(str(d / "autocheck.jsonl"), str(d / "gq.jsonl"), sample_num=2)
+    pairs = pref.assemble_pairs(facts, answers)
+    side = [fio.read_jsonlines(str(d / f"autocheck.pair_diff1{ext}.jsonl"))
+            for ext in ("", ".addcls", ".addfactjudge")]
+    return (pairs, pref.dedup_instructions(answers + answers[:2], facts),
+            pref.sample_pairs(pairs[0], 1, seed=3), side)
+
+
+def case_pairs_length_filter(pkg, tmp_path):
+    lf = pkg("pairs.length_filter")
+    fio = pkg("utils.file_io")
+    rng = np.random.default_rng(7)
+    pairs = [{"chosen": " ".join(["a"] * int(rng.integers(1, 40))),
+              "rejected": " ".join(["b"] * int(rng.integers(1, 40)))} for _ in range(40)]
+    pairs.append({"chosen": "same text", "rejected": "same text "})
+    d = tmp_path / pkg.__name__
+    d.mkdir()
+    fio.write_jsonlines(str(d / "p.jsonl"), pairs)
+    lf.run(str(d / "p.jsonl"), str(d / "out.jsonl"))
+    return (lf.filter_by_relative_length(pairs, 0.3), lf.statistics(pairs),
+            lf.search_balanced_cut(pairs, use_len=False),
+            fio.read_jsonlines(str(d / "out.jsonl")),
+            fio.read_jsonlines(str(d / "out_search_diff.jsonl")))
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}

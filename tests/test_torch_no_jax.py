@@ -6,7 +6,8 @@ the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
 cache, then in place int8 weights + fused projections + int8 cache, then
-through the fused engine (kernel #16's twin), runs `python -m rlaifv_tpu_torch.train --demo
+through the fused engine (kernel #16's twin), a tiny bare Llama through the
+divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.train --demo
 --device cpu` for 2 steps into a temporary directory, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
 An AST scan finds no import statement rooted at those names in any file of
@@ -88,6 +89,19 @@ SCRIPT = textwrap.dedent("""
     fused = Llava15Generator(model, FakeTokenizer(), cfg.num_image_tokens,
                              image_size=cfg.vision.image_size, fused_decode=True)
     assert len(fused.greedy_gen(items[:2], max_new_tokens=3)) == 2
+
+    # the divide-and-conquer stage: a tiny Llama3-shaped bare LM through
+    # llama3_backend, bf16 weights and fused decode (int8 implied)
+    from rlaifv_tpu_torch.genai import divide_conquer as dc
+    from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    for fused_decode in (False, True):
+        lm = init_weights_(LlamaForCausalLM(LlamaConfig.tiny(vocab_size=512, rope_theta=5e5,
+                                                             rms_norm_eps=1e-5)),
+                           torch.Generator().manual_seed(0))
+        dgen, tmpl = dc.llama3_backend(lm, FakeTokenizer(), max_new_tokens=3,
+                                       fused_decode=fused_decode)
+        out = dgen([tmpl(dc.divide_messages({"question": "Q?", "answer": "A cat."}))])
+        assert len(out) == 1 and isinstance(out[0], str)
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy
