@@ -18,12 +18,17 @@ Phases, one progress line each (or a few):
      (plain, paired prefix, paired suffix at q_offset = Pa), with its
      masks; max abs errors against stated tolerances, median times,
      TFLOP/s, bounds, SDPA's autograd backward;
-  3c. the fused LM head kernels (forward, dx, dW) against the plain versions
-     at the train step's head (M = 2 (L - 1), H = 4096, V = 32000), the
-     ref-logp fallback's (M = 16 x 1023 - 5), H = 1024 and ragged
-     vocabularies; times beside the bound and the two-call library
-     composite (F.linear + F.cross_entropy); then planted faults (g dropped,
-     one-hot dropped, lse shifted, ragged tile unmasked), each of which
+  3c. the fused LM head kernels (forward; the backward's dl, dx and dW,
+     walked in vocabulary chunks) against the plain versions at the train
+     step's head (M = 2 (L - 1), H = 4096, V = 32000), the ref-logp
+     fallback's (M = 16 x 1023 - 5, forward), the QLoRA step's frozen head
+     (M = 16 x 1023, dx only, four chunks), H = 1024, ragged vocabularies
+     and eight chunks with a ragged last one; times of the forward, dl + dx,
+     dW given dl and the whole backward call beside the bounds, the
+     two-call library composite (F.linear + F.cross_entropy, its autograd
+     backward) and a recompute composite (the backward's three products as
+     torch calls); then planted faults (g dropped, one-hot dropped, lse
+     shifted, ragged tile unmasked, one chunk's dx dropped), each of which
      must break the bounds;
   4. the slice: LLaVA-1.5-7B at full width and depth in bf16 with random
      weights (seeded), a synthetic character-level tokenizer and
@@ -225,10 +230,16 @@ from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     prefix_block_l,
     quantize_kv,
 )
+from rlaifv_tpu_torch.ops import fused_head as fh  # noqa: E402
 from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
+    FIRST,
+    LAST,
+    _kernel_dl,
     _kernel_dw,
     _kernel_dx,
     _kernel_fwd,
+    chunk_width,
+    fused_head_bwd,
     fused_head_bwd_plain,
     fused_head_fwd_plain,
     fused_target_logp,
@@ -322,6 +333,9 @@ HEAD_FWD_TOL = 2e-4
 # (lse off, p wrong) would hide under a bound on the largest entry
 HEAD_GRAD_RTOL = 2 ** -6
 HEAD_GRAD_ATOL = 1e-5
+# 3c's many-chunk case and its "chunk" fault: 8 vocabulary chunks at V =
+# 32001, the last 3329 columns wide
+PROBE_VC = 4096
 # 8, ref-logp paths on the same rows: sequence sums and means within
 # LOGP_RTOL between the shared-prefix scorer and the plain one (the
 # attention paths round bf16 activations in other places, as in 7), within
@@ -428,6 +442,7 @@ COUNTERS = {  # every kernel's launch count: (owner, attribute)
     "decode_int8": (decode_attention_prefix_int8, "launches"),
     "decode_full": (decode_attention, "launches"),
     "head_fwd": (fused_target_logp, "fwd_launches"),
+    "head_dl": (fused_target_logp, "dl_launches"),
     "head_dx": (fused_target_logp, "dx_launches"),
     "head_dw": (fused_target_logp, "dw_launches"),
     "int8": (qm.int8_matmul, "launches"),
@@ -783,12 +798,15 @@ def _grad_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return d.max().item(), ratio
 
 
-def head_check(x, w, y, gr, backward: bool = True, fault: str = "") -> dict:
-    """The fused-head kernels against the plain versions on one input set.
+def head_check(x, w, y, gr, backward: bool = True, fault: str = "", need_dw: bool = True,
+               vc=None) -> dict:
+    """The fused-head kernels against the plain versions on one input set,
+    the backward through fused_head_bwd's chunk walk (vc forced if given).
     `fault` plants one error around the sound kernels (the probe): "g" drops
     the upstream gradient, "onehot" drops the label's one-hot, "lse" shifts
     the saved lse by 0.5, "ragged" leaves the ragged vocabulary tile
-    unmasked (zero weight rows scored as real columns)."""
+    unmasked (zero weight rows scored as real columns), "chunk" drops the
+    second vocabulary chunk's dx product."""
     M, V = x.shape[0], w.shape[0]
     ref_logp, ref_lse = fused_head_fwd_plain(x, w, y)
     kx, kw, ky = x, w, y
@@ -805,59 +823,179 @@ def head_check(x, w, y, gr, backward: bool = True, fault: str = "") -> dict:
         ref_dx, ref_dw = fused_head_bwd_plain(x, w, y, ref_lse, gr)
         klse = lse + 0.5 if fault == "lse" else lse
         kg = torch.ones_like(gr) if fault == "g" else gr
-        dx = _kernel_dx(kx, kw, ky, klse, kg)
-        dw = _kernel_dw(kx, kw, ky, klse, kg)[:V]
+        with _dropped_dx_chunk(1) if fault == "chunk" else contextlib.nullcontext():
+            dx, dw = fused_head_bwd(kx, kw, ky, klse, kg, need_dw=need_dw, vc=vc)
         out["dx_err"], out["dx_ratio"] = _grad_err(dx, ref_dx)
-        out["dw_err"], out["dw_ratio"] = _grad_err(dw, ref_dw)
-        ok = ok and out["dx_ratio"] <= 1 and out["dw_ratio"] <= 1
+        ok = ok and out["dx_ratio"] <= 1
+        if need_dw:
+            out["dw_err"], out["dw_ratio"] = _grad_err(dw[:V], ref_dw)
+            ok = ok and out["dw_ratio"] <= 1
     torch.cuda.synchronize()
     out["ok"] = ok
     return out
 
 
+@contextlib.contextmanager
+def _dropped_dx_chunk(index: int):
+    """The probe's "chunk" fault: fused_head_bwd skips the dx product of its
+    index-th vocabulary chunk (the port's wrapper is patched for the block
+    only)."""
+    real, calls = fh._kernel_dx, []
+
+    def dropping(dl, w, dx32, dx, c0, vw, mode):
+        calls.append(c0)
+        if len(calls) != index + 1:
+            real(dl, w, dx32, dx, c0, vw, mode)
+
+    fh._kernel_dx = dropping
+    try:
+        yield
+    finally:
+        fh._kernel_dx = real
+
+
 def _composite(x, w, y):
     """The library yardstick of the fused head: no single PyTorch call
     computes it, so two: F.linear then F.cross_entropy(reduction="none")
-    (-logp), timed here only."""
+    (-logp), timed here only. Its autograd backward keeps the (M, V) logits
+    from the forward, so it does two products where the fused head does
+    three."""
     return -torch.nn.functional.cross_entropy(torch.nn.functional.linear(x, w),
                                               y.long(), reduction="none")
+
+
+def _recompute_composite(x, w, y, lse, gr, vc: int, need_dw: bool = True):
+    """The second yardstick of the fused head's backward, timed here only:
+    the same products as PyTorch calls, per vocabulary chunk of vc columns
+    F.linear for the scores, the dl formula in torch, then dl W_c and (with
+    need_dw) dl^T x as torch.matmul (bf16 products, fp32 sums, bf16 out;
+    dx's chunks summed in fp32)."""
+    V = w.shape[0]
+    dx, dw = None, torch.empty_like(w) if need_dw else None
+    for c0 in range(0, V, vc):
+        w_c = w[c0:c0 + vc]
+        s = torch.nn.functional.linear(x, w_c).float()
+        cols = torch.arange(c0, c0 + w_c.shape[0], device=x.device)
+        dl = (gr[:, None] * ((y[:, None] == cols).float() - torch.exp(s - lse[:, None]))
+              ).to(x.dtype)
+        part = torch.matmul(dl, w_c).float()
+        dx = part if dx is None else dx + part
+        if need_dw:
+            dw[c0:c0 + vc] = torch.matmul(dl.T, x)
+    return dx.to(x.dtype), dw
 
 
 def head_cases(pair: dict) -> list:
     """3c's cases: the train step's head (M = 2 (L - 1) rows of the collated
     pair, H = 4096, V = 32000), the ref-logp plain fallback at batch_pairs 8
-    (M = 16 x 1023, less 5 for a ragged row tile), the single-pass regime of
-    TPU row 13 (H = 1024) and ragged vocabularies (V = 32001 and 300)."""
+    (M = 16 x 1023, less 5 for a ragged row tile; forward only), the QLoRA
+    step's frozen head (M = 16 x 1023 rows, dx only, four vocabulary chunks
+    of 8192), the single-pass regime of TPU row 13 (H = 1024), ragged
+    vocabularies (V = 32001 and 300) and many chunks with a ragged last one
+    (the probe's shape at vc = 4096)."""
     M = 2 * (pair["batch_np"]["input_ids"].shape[1] - 1)
     return [
-        dict(name="train step", M=M, H=4096, V=32000, backward=True, time=True),
+        dict(name="train step", M=M, H=4096, V=32000, backward=True, time_fwd=True,
+             time_bwd=True),
         dict(name="ref-logp fallback", M=16 * 1023 - 5, H=4096, V=32000, backward=False,
-             time=True),
-        dict(name="small H (row 13)", M=M, H=1024, V=32000, backward=True, time=True),
-        dict(name="ragged vocab", M=1000, H=4096, V=32001, backward=True, time=False),
-        dict(name="tiny ragged", M=77, H=1024, V=300, backward=True, time=False),
+             time_fwd=True),
+        dict(name="QLoRA head (dx only)", M=16 * 1023, H=4096, V=32000, backward=True,
+             need_dw=False, time_bwd=True),
+        dict(name="small H (row 13)", M=M, H=1024, V=32000, backward=True, time_fwd=True,
+             time_bwd=True),
+        dict(name="ragged vocab", M=1000, H=4096, V=32001, backward=True),
+        dict(name="tiny ragged", M=77, H=1024, V=300, backward=True),
+        dict(name="many chunks", M=2046, H=1024, V=32001, backward=True, vc=PROBE_VC),
     ]
 
 
+def _time_head_bwd(x, w, y, gr, need_dw: bool) -> dict:
+    """Times of the backward at one shape, beside the bounds and the two
+    yardsticks: dl + dx (the kernels on preallocated buffers; the whole
+    chunk walk when there is more than one chunk), dW given dl (one
+    product; one chunk only), the whole fused_head_bwd call (wrapper
+    included), the plain backward, the composite's autograd backward and
+    the recompute composite."""
+    M, H = x.shape
+    V = w.shape[0]
+    flop = 2 * M * H * V
+    _, lse = _kernel_fwd(x, w, y)
+    vc = chunk_width(M, V)
+    if need_dw and vc < V:
+        raise ValueError("3c times dW given dl at one vocabulary chunk")
+    stats = _nbytes(x, w, y, lse, gr)
+    t = {}
+    if vc >= V:  # one chunk: the two kernels alone
+        dl, dx = x.new_empty((M, vc)), torch.empty_like(x)
+        t["dx"] = time_ms(lambda: (_kernel_dl(x, w, y, lse, gr, dl, 0, V),
+                                   _kernel_dx(dl, w, None, dx, 0, V, FIRST | LAST)))
+    else:
+        t["dx"] = time_ms(lambda: fused_head_bwd(x, w, y, lse, gr, need_dw=False), 5)
+    out = {"dx": dict(ms=t["dx"], **bound(2 * flop, stats + _nbytes(x)))}
+    if need_dw:
+        dw = torch.empty_like(w)
+        t["dw"] = time_ms(lambda: _kernel_dw(dl, x, dw, V))
+        out["dw"] = dict(ms=t["dw"], **bound(flop, _nbytes(dl[:, :V], x, w)))
+        t["bwd"] = time_ms(lambda: fused_head_bwd(x, w, y, lse, gr))
+        out["bwd"] = dict(ms=t["bwd"], **bound(3 * flop, stats + _nbytes(x, w)))
+    runs = 10 if M <= 4096 else 3
+    t["plain"] = time_ms(lambda: fused_head_bwd_plain(x, w, y, lse, gr), runs)
+    xl = x.detach().clone().requires_grad_(True)
+    wl = w.detach().clone().requires_grad_(need_dw)
+    lib = _composite(xl, wl, y)
+    grads = (xl, wl) if need_dw else (xl,)
+    t["library"] = time_ms(lambda: torch.autograd.grad(lib, grads, gr, retain_graph=True),
+                           runs)
+    t["recompute"] = time_ms(lambda: _recompute_composite(x, w, y, lse, gr, vc, need_dw),
+                             runs)
+    for row in out.values():
+        row.update(plain_ms=t["plain"], library_ms=t["library"],
+                   recompute_ms=t["recompute"])
+    return out
+
+
 def phase_head(g, pair: dict) -> dict:
-    """3c: the fused-head kernels (forward, dx, dW) against the plain
-    versions, their times beside the bound and the library composite, then
-    the planted-fault probe."""
+    """3c: the fused-head kernels (forward, dl, dx, dW) against the plain
+    versions, their times beside the bounds and the library yardsticks,
+    then the planted-fault probe."""
     res = {"fwd_err": 0.0, "dx_err": 0.0, "dw_err": 0.0}
     for c in head_cases(pair):
         M, H, V = c["M"], c["H"], c["V"]
+        need_dw = c.get("need_dw", True)
         x, w, y, gr = _head_inputs(g, M, H, V)
-        r = head_check(x, w, y, gr, backward=c["backward"])
-        msg = (f"[3c fused head] {c['name']}: M={M} H={H} V={V} | max|logp err| "
-               f"{r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} (tol {HEAD_FWD_TOL})")
+        r = head_check(x, w, y, gr, backward=c["backward"], need_dw=need_dw,
+                       vc=c.get("vc"))
+        msg = (f"[3c fused head] {c['name']}: M={M} H={H} V={V} vc="
+               f"{c.get('vc') or chunk_width(M, V)} | max|logp err| {r['logp_err']:.3e} "
+               f"max|lse err| {r['lse_err']:.3e} (tol {HEAD_FWD_TOL})")
         if c["backward"]:
-            msg += (f" | max|dx err| {r['dx_err']:.3e} max|dW err| {r['dw_err']:.3e} "
-                    f"(tol {HEAD_GRAD_RTOL:.4f} x |plain| + {HEAD_GRAD_ATOL} x max|plain|; "
-                    f"worst entry at {r['dx_ratio']:.3f} / {r['dw_ratio']:.3f} of it)")
+            msg += (f" | max|dx err| {r['dx_err']:.3e}"
+                    + (f" max|dW err| {r['dw_err']:.3e}" if need_dw else " (no dW)")
+                    + f" (tol {HEAD_GRAD_RTOL:.4f} x |plain| + {HEAD_GRAD_ATOL} x "
+                    f"max|plain|; worst entry at {r['dx_ratio']:.3f}"
+                    + (f" / {r['dw_ratio']:.3f}" if need_dw else "") + " of it)")
         res["fwd_err"] = max(res["fwd_err"], r["logp_err"], r["lse_err"])
         res["dx_err"] = max(res["dx_err"], r.get("dx_err", 0.0))
         res["dw_err"] = max(res["dw_err"], r.get("dw_err", 0.0))
-        if c["time"]:
+        if c.get("time_bwd"):
+            flop = 2 * M * H * V
+            tb = _time_head_bwd(x, w, y, gr, need_dw)
+            res.setdefault("bwd", {})[c["name"]] = tb
+            d = tb["dx"]
+            msg += (f" | dl + dx {d['ms']:.3f} ms = {2 * flop / (d['ms'] * 1e-3) / 1e12:.1f} "
+                    f"TFLOP/s (bound {d['bound_ms']:.3f} ms)")
+            if need_dw:
+                dw_t, b = tb["dw"], tb["bwd"]
+                msg += (f", dW given dl {dw_t['ms']:.3f} ms = "
+                        f"{flop / (dw_t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s (bound "
+                        f"{dw_t['bound_ms']:.3f} ms), whole fused_head_bwd {b['ms']:.3f} ms = "
+                        f"{3 * flop / (b['ms'] * 1e-3) / 1e12:.1f} TFLOP/s (3-product bound "
+                        f"{b['bound_ms']:.3f} ms, {b['bound_ms'] / b['ms']:.1%} of it)")
+            msg += (f" | plain backward {d['plain_ms']:.3f} ms, composite's autograd "
+                    f"backward {d['library_ms']:.3f} ms (two products: it keeps the "
+                    f"logits), recompute composite {d['recompute_ms']:.3f} ms (three "
+                    f"products in torch)")
+        if c.get("time_fwd"):
             runs = 10 if M > 4096 else 20
             flop = 2 * M * H * V
             t_f = time_ms(lambda: _kernel_fwd(x, w, y), runs)
@@ -870,42 +1008,21 @@ def phase_head(g, pair: dict) -> dict:
                     f"({b_f['bound_by']})")
             res.setdefault("fwd", {})[c["name"]] = dict(ms=t_f, plain_ms=t_fp,
                                                         library_ms=t_fl, **b_f)
-            if c["backward"]:
-                _, lse = _kernel_fwd(x, w, y)
-                t_dx = time_ms(lambda: _kernel_dx(x, w, y, lse, gr))
-                t_dw = time_ms(lambda: _kernel_dw(x, w, y, lse, gr))
-                t_bp = time_ms(lambda: fused_head_bwd_plain(x, w, y, lse, gr), 10)
-                xl, wl = (t.detach().clone().requires_grad_(True) for t in (x, w))
-                lib = _composite(xl, wl, y)
-                t_bl = time_ms(lambda: torch.autograd.grad(lib, (xl, wl), gr,
-                                                           retain_graph=True))
-                stats = _nbytes(x, w, y, lse, gr)
-                b_dx = res.setdefault("dx", {})[c["name"]] = dict(
-                    ms=t_dx, plain_ms=t_bp, library_ms=t_bl,
-                    **bound(2 * flop, stats + _nbytes(x)))
-                b_dw = res.setdefault("dw", {})[c["name"]] = dict(
-                    ms=t_dw, plain_ms=t_bp, library_ms=t_bl,
-                    **bound(2 * flop, stats + _nbytes(w)))
-                msg += (f" | dx kernel {t_dx:.3f} ms = {2 * flop / (t_dx * 1e-3) / 1e12:.1f} "
-                        f"TFLOP/s (bound {b_dx['bound_ms']:.3f} ms), dW kernel "
-                        f"{t_dw:.3f} ms = {2 * flop / (t_dw * 1e-3) / 1e12:.1f} TFLOP/s "
-                        f"(bound {b_dw['bound_ms']:.3f} ms), plain backward (dx "
-                        f"and dW) {t_bp:.3f} ms, composite's autograd backward "
-                        f"{t_bl:.3f} ms")
-                del xl, wl, lib
         log(msg + f" | {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             raise AssertionError(f"fused head kernels disagree with the plain versions: "
                                  f"{c['name']}")
         del x, w, y, gr
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
-    # the probe: each planted fault must break the bounds above
+    # the probe: each planted fault must break the bounds above; "chunk"
+    # walks PROBE_VC-wide chunks (the "many chunks" case above passes there)
     x, w, y, gr = _head_inputs(g, 2046, 1024, 32001)
-    for fault in ("g", "onehot", "lse", "ragged"):
-        r = head_check(x, w, y, gr, fault=fault)
-        log(f"[3c fused head] planted fault {fault!r} (M=2046 H=1024 V=32001): max|logp "
-            f"err| {r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} max|dx err| "
+    for fault in ("g", "onehot", "lse", "ragged", "chunk"):
+        r = head_check(x, w, y, gr, fault=fault, vc=PROBE_VC if fault == "chunk" else None)
+        log(f"[3c fused head] planted fault {fault!r} (M=2046 H=1024 V=32001"
+            f"{f' vc={PROBE_VC}' if fault == 'chunk' else ''}): max|logp err| "
+            f"{r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} max|dx err| "
             f"{r['dx_err']:.3e} max|dW err| {r['dw_err']:.3e} (worst entry at "
             f"{r['dx_ratio']:.3g} / {r['dw_ratio']:.3g} of its bound) | "
             f"{'caught' if not r['ok'] else 'MISSED'}")
@@ -2428,14 +2545,14 @@ def phase_train(tr: dict) -> dict:
         losses.append(loss)
         log(f"[6 train] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
             f"{times[-1]:.3f} s | flash launches fwd {n['flash']} bwd dq {n['dq']} "
-            f"dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} dx {n['head_dx']} "
-            f"dW {n['head_dw']}" + (f" | policy logps {float(metrics['logps_train/chosen']):.3f}"
+            f"dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} dl {n['head_dl']} "
+            f"dx {n['head_dx']} dW {n['head_dw']}" + (f" | policy logps {float(metrics['logps_train/chosen']):.3f}"
                                      f"/{float(metrics['logps_train/rejected']):.3f}"
                                      if i == 0 else ""))
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"non-finite loss or grad norm at step {i}")
         if min(n["flash"], n["dq"], n["dkv"]) < n_layers or \
-                min(n["head_fwd"], n["head_dx"], n["head_dw"]) < 1:
+                min(n["head_fwd"], n["head_dl"], n["head_dx"], n["head_dw"]) < 1:
             raise AssertionError(f"a kernel of the train path did not run: {n}")
         if i == 0 and (abs(loss - math.log(2)) > REF_LN2_TOL or not gnorm > 0):
             raise AssertionError(f"step 0: loss {loss} not within {REF_LN2_TOL} of ln 2 "
@@ -2897,11 +3014,11 @@ def phase_qlora(model, tok, rows: list, short: dict, cfg: LlavaConfig,
             f"{times[-1]:.3f} s | int8 launches #9 {n['int8_prequant']} #10 "
             f"{n['int8_dx_prequant']} #7 {n['int8']} #8 {n['int8_dx']} | flash fwd "
             f"{n['flash']} dq {n['dq']} dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} "
-            f"dx {n['head_dx']} dW {n['head_dw']} (the head is frozen)")
+            f"dl {n['head_dl']} dx {n['head_dx']} dW {n['head_dw']} (the head is frozen)")
         if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
             raise AssertionError(f"9: non-finite loss or zero grad norm at step {i}")
         if min(n["int8_prequant"], n["int8_dx_prequant"]) < 7 * L_layers or \
-                min(n["flash"], n["dq"], n["head_fwd"], n["head_dx"]) < 1:
+                min(n["flash"], n["dq"], n["head_fwd"], n["head_dl"], n["head_dx"]) < 1:
             raise AssertionError(f"9: a kernel of the QLoRA step did not run: {n}")
         if i == 0:
             tensors = dict(named_tensors(lora))
@@ -3091,13 +3208,15 @@ def phase_qlora_int4(model, tok, rows: list, cfg: LlavaConfig, ref_bf16: list) -
                 f"dequant dx calls {deq_dx['calls']} | int8 #7-#10 "
                 f"{n['int8'] + n['int8_dx'] + n['int8_prequant'] + n['int8_dx_prequant']} | "
                 f"flash fwd {n['flash']} dq {n['dq']} dk/dv {n['dkv']} | fused head fwd "
-                f"{n['head_fwd']} dx {n['head_dx']} dW {n['head_dw']} (the head is frozen)")
+                f"{n['head_fwd']} dl {n['head_dl']} dx {n['head_dx']} dW {n['head_dw']} "
+                f"(the head is frozen)")
             if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
                 raise AssertionError(f"10: non-finite loss or zero grad norm at step {i}")
             # every projection's forward (prefix and suffix), and the dx of
             # q/k/v/o/down but layer 0's q/k/v (their input needs no gradient)
             if n["int4"] < 2 * 7 * L_layers or n["int4_dx"] < 2 * (5 * L_layers - 3) or \
-                    deq_dx["calls"] < 1 or min(n["flash"], n["dq"], n["head_fwd"]) < 1:
+                    deq_dx["calls"] < 1 or \
+                    min(n["flash"], n["dq"], n["head_fwd"], n["head_dl"], n["head_dx"]) < 1:
                 raise AssertionError(f"10: a kernel of the int4 QLoRA step did not run: "
                                      f"{n}, dequant dx {deq_dx['calls']}")
             if i == 0:
@@ -3137,10 +3256,11 @@ def phase_qlora_int4(model, tok, rows: list, cfg: LlavaConfig, ref_bf16: list) -
     return launches
 
 
-def _row(name, source, replaces, launches, err, timing) -> dict:
+def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "max_abs_err": err, **{k: timing[k] for k in keys}}
+            "launches": launches, "max_abs_err": err, **{k: timing[k] for k in keys},
+            **({"note": note} if note else {})}
 
 
 def timed(tag: str, fn, *args):
@@ -3259,9 +3379,11 @@ def main() -> None:
         _row("fused_head_fwd", head_src, "rlaifv_tpu/ops/fused_head.py:128,157",
              launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"]),
         _row("fused_head_dx", head_src, "rlaifv_tpu/ops/fused_head.py:318",
-             launches["head_dx"], head["dx_err"], head["dx"]["train step"]),
+             launches["head_dx"], head["dx_err"], head["bwd"]["train step"]["dx"],
+             f"the dl and dx kernels, two products; dl launches {launches['head_dl']}"),
         _row("fused_head_dw", head_src, "rlaifv_tpu/ops/fused_head.py:334",
-             launches["head_dw"], head["dw_err"], head["dw"]["train step"]),
+             launches["head_dw"], head["dw_err"], head["bwd"]["train step"]["dw"],
+             "the dW product given dl, one product"),
     ]
     # rows 7-10 at the shapes of phase 9 that launch them: the short step's
     # suffix (#7, #8) and the 8-pair step's prefix (#9, #10), gate/up widths

@@ -57,10 +57,12 @@ SIGNATURES = {
     "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
     # x, w, y, part_m, part_s, part_t, M, H, V, nsplit, stream
     "fused_head_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    # x, w, y, lse, g, dx_part, M, H, V, nsplit, Mpad, stream
-    "fused_head_dx_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    # x, w, y, lse, g, dw32, M, H, V, Vpad, stream
-    "fused_head_dw_bf16": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, y, lse, g, dl, M, H, V, c0, vw, ldl, stream
+    "fused_head_dl_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    # dl, w, dx32, dx, M, H, V, c0, vw, ldl, mode, stream
+    "fused_head_dx_bf16": [_P] * 4 + [_I] * 7 + [_P],
+    # dl, x, dw (the chunk's first row), M, H, vw, ldl, stream
+    "fused_head_dw_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # x, q, s, out, M, K, N, stream
     "int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # dy, q, s, dx, M, K, N, stream

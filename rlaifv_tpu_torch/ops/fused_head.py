@@ -1,30 +1,55 @@
 """Fused LM head: target-token log-probabilities without the (M, V) logits.
 
 Counterpart of rlaifv_tpu/ops/fused_head.py. The kernels live in
-csrc/fused_head.cu: one forward (the TPU's `_fwd_kernel` and
+csrc/fused_head.cu. The forward is one kernel (the TPU's `_fwd_kernel` and
 `_fwd_kernel_hblocked`; the H contraction is the kernel's inner loop at any
-H), `dx` and `dW` (`_bwd_dx_kernel`, `_bwd_dw_kernel`), which recompute the
-scores from the saved row logsumexp. `target_logp_plain`,
-`fused_head_fwd_plain` and `fused_head_bwd_plain` are the same functions in
-plain PyTorch, used for CPU tensors and as the kernels' references on the
-card. `fused_target_logp` is differentiable on both devices through one
-`torch.autograd.Function`.
+H). The backward (the TPU's `_bwd_dx_kernel` and `_bwd_dw_kernel`, both
+built on `_dl_tile`) walks the vocabulary in chunks of `vc` columns, in
+order, and runs three kernels a chunk:
+
+- dl: the chunk's scores x W_c^T, recomputed once from the saved row
+  logsumexp, and from them dl_c = g (onehot(y) - exp(s - lse)), written once
+  as an (M, vc) bf16 buffer that every chunk reuses;
+- dx: dl_c W_c, summed over the chunks in order (one chunk: bf16 dx straight
+  from the kernel's registers; several: an fp32 (M, H) buffer, cast once by
+  the last chunk's kernel);
+- dW: dl_c^T x, the chunk's rows of dW, each written once (skipped for a
+  frozen head).
+
+What bounds the backward on the card: three bf16 products of 2 M H V FLOP
+at the tensor cores' rate, plus the M vc 2 bytes of dl a chunk writes once
+and reads twice. The kernels run them on wgmma fed by TMA (the source's
+header says how). `chunk_width` picks vc so that dl stays within
+DL_CHUNK_BYTES: one chunk at the 7B train step's head (M = 2046, V = 32000:
+131 MB), 8192 columns at the QLoRA step's M = 16368. Scratch: M vc 2 bytes
+of dl, plus M H 4 bytes of fp32 dx when there is more than one chunk.
+
+`target_logp_plain`, `fused_head_fwd_plain` and `fused_head_bwd_plain` are
+the functions in plain PyTorch, the kernels' references on the card; on the
+CPU the forward takes its plain version and the backward walks the same
+chunks with the per-chunk plain versions (`_dl_plain`, `_dx_plain` and an
+fp32 product for dW). `fused_target_logp` is differentiable on both devices
+through one `torch.autograd.Function`.
 
 The weight is the torch (V, H) `lm_head` weight, the JAX kernel's (H, V)
-transposed: its rows are the K-major operand of the score product, so the
-kernels read it as it lies. Scores are fp32 sums of the input-type
-products, never rounded to the input type (the TPU kernels' fp32 MXU
-accumulators); the backward rounds dl = g (onehot(y) - p) to the input type
+transposed; the kernels read it, x and dl as they lie. Scores are fp32 sums
+of the input-type products, never rounded to the input type (the TPU
+kernels' fp32 MXU accumulators); the backward rounds dl to the input type
 before its products, as `_bwd_dx_kernel` does. Labels must lie in [0, V):
 callers pass a safe target (0) at ignored positions and zero those rows.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-BLOCK = 64  # rows, vocabulary columns and H columns of the kernels' tiles
+BLOCK = 64  # rows, vocabulary columns and H columns of the forward's tiles
+# the backward's dl chunk (M x vc bf16) stays within this many bytes
+DL_CHUNK_BYTES = 256 * 2 ** 20
+# vc is a multiple of this: the dW kernel's tile over the vocabulary
+VC_ALIGN = 128
+FIRST, LAST = 1, 2  # a chunk's place in the walk, for the dx product
 
 
 def fused_head_fwd_plain(x: torch.Tensor, w: torch.Tensor, y: torch.Tensor
@@ -107,42 +132,69 @@ def _kernel_fwd(x, w, y):
     return t.sum(dim=0) - lse, lse
 
 
-def _kernel_dx(x, w, y, lse, g):
-    """dx (M, H) in x's dtype from the dx kernel: the vocabulary splits'
-    fp32 slabs are summed here."""
+def chunk_width(M: int, V: int) -> int:
+    """The backward's vocabulary chunk: the largest multiple of VC_ALIGN
+    whose dl (M x vc bf16) fits in DL_CHUNK_BYTES, at most V rounded up to
+    VC_ALIGN, at least VC_ALIGN."""
+    vc = DL_CHUNK_BYTES // (2 * M) // VC_ALIGN * VC_ALIGN
+    return max(VC_ALIGN, min(vc, -(-V // VC_ALIGN) * VC_ALIGN))
+
+
+def _dl_plain(x, w_c, y, lse, g, c0: int) -> torch.Tensor:
+    """dl (M, vw) of the chunk whose rows of the head are w_c (vw, H) and
+    whose first vocabulary column is c0, in x's dtype."""
+    s = torch.matmul(x.float(), w_c.float().T)
+    cols = torch.arange(c0, c0 + w_c.shape[0], device=x.device)
+    onehot = (y.long()[:, None] == cols).float()
+    return (g.float()[:, None] * (onehot - torch.exp(s - lse.float()[:, None]))).to(x.dtype)
+
+
+def _dx_plain(dl_c, w_c, dx32, dx, mode: int) -> None:
+    """The chunk's dl_c w_c in fp32, after the earlier chunks' sum in dx32
+    (not FIRST), into dx32 or, for the LAST chunk, into dx (its dtype)."""
+    part = torch.matmul(dl_c.float(), w_c.float())
+    if not mode & FIRST:
+        part = dx32 + part
+    (dx if mode & LAST else dx32).copy_(part)
+
+
+def _kernel_dl(x, w, y, lse, g, dl, c0: int, vw: int) -> None:
+    """The dl kernel: columns [0, vw) of dl (M, vc) for the chunk at c0."""
     from rlaifv_tpu_torch.ops import _build
 
-    _check(x, w, y, lse=lse, g=g)
     M, H = x.shape
-    V = w.shape[0]
-    nsplit = _splits(M, V, x.device)
-    Mpad = -(-M // BLOCK) * BLOCK
-    part = torch.empty((nsplit, Mpad, H), dtype=torch.float32, device=x.device)
-    err = _build.load_kernels().fused_head_dx_bf16(
+    err = _build.load_kernels().fused_head_dl_bf16(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        part.data_ptr(), M, H, V, nsplit, Mpad,
+        dl.data_ptr(), M, H, w.shape[0], c0, vw, dl.shape[1],
         torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_head_dl_bf16")
+    fused_target_logp.dl_launches += 1
+
+
+def _kernel_dx(dl, w, dx32, dx, c0: int, vw: int, mode: int) -> None:
+    """The dx product of the chunk at c0 (see _dx_plain); dx32 may be None
+    for a single chunk (mode FIRST | LAST)."""
+    from rlaifv_tpu_torch.ops import _build
+
+    M, H = dx.shape
+    err = _build.load_kernels().fused_head_dx_bf16(
+        dl.data_ptr(), w.data_ptr(), None if dx32 is None else dx32.data_ptr(),
+        dx.data_ptr(), M, H, w.shape[0], c0, vw, dl.shape[1], mode,
+        torch.cuda.current_stream(dx.device).cuda_stream)
     _build.check(err, "fused_head_dx_bf16")
     fused_target_logp.dx_launches += 1
-    return part.sum(dim=0)[:M].to(x.dtype)
 
 
-def _kernel_dw(x, w, y, lse, g):
-    """dW (V, H) in w's dtype from the dW kernel's fp32 slab."""
+def _kernel_dw(dl, x, dw_c, vw: int) -> None:
+    """The dW product of one chunk: dw_c (vw, H) = dl[:, :vw]^T x."""
     from rlaifv_tpu_torch.ops import _build
 
-    _check(x, w, y, lse=lse, g=g)
     M, H = x.shape
-    V = w.shape[0]
-    Vpad = -(-V // BLOCK) * BLOCK
-    dw32 = torch.empty((Vpad, H), dtype=torch.float32, device=x.device)
     err = _build.load_kernels().fused_head_dw_bf16(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        dw32.data_ptr(), M, H, V, Vpad,
+        dl.data_ptr(), x.data_ptr(), dw_c.data_ptr(), M, H, vw, dl.shape[1],
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_head_dw_bf16")
     fused_target_logp.dw_launches += 1
-    return dw32[:V].to(w.dtype)
 
 
 def fused_head_fwd(x, w, y):
@@ -153,18 +205,45 @@ def fused_head_fwd(x, w, y):
     return _kernel_fwd(x.contiguous(), w.contiguous(), y.to(torch.int32).contiguous())
 
 
-def fused_head_bwd(x, w, y, lse, g, need_dw: bool = True):
-    """(dx, dW) of sum(g * logp) from the saved lse: the dx and dW kernels
-    for CUDA tensors, the plain version on the CPU. need_dw=False (a frozen
-    head, as under LoRA) returns dW None and, on the card, launches the dx
-    kernel only."""
-    if not x.is_cuda:
-        dx, dw = fused_head_bwd_plain(x, w, y, lse, g)
-        return dx, dw if need_dw else None
-    args = (x.contiguous(), w.contiguous(), y.to(torch.int32).contiguous(),
-            lse.float().contiguous(), g.float().contiguous())
-    # dx, then dW: no atomics, so reruns give the same bits
-    return _kernel_dx(*args), _kernel_dw(*args) if need_dw else None
+def fused_head_bwd(x, w, y, lse, g, need_dw: bool = True, *, vc: Optional[int] = None):
+    """(dx, dW) of sum(g * logp) from the saved lse, walking the vocabulary
+    in chunks of vc columns (`chunk_width` unless given; a multiple of
+    VC_ALIGN): per chunk, dl, then its share of dx and its rows of dW. The
+    kernels for CUDA tensors, the per-chunk plain versions on the CPU.
+    need_dw=False (a frozen head, as under LoRA) returns dW None and runs
+    no dW product."""
+    M = x.shape[0]
+    V = w.shape[0]
+    vc = chunk_width(M, V) if vc is None else vc
+    if vc <= 0 or vc % VC_ALIGN:
+        raise ValueError(f"the vocabulary chunk must be a positive multiple of {VC_ALIGN}; "
+                         f"got {vc}")
+    cuda = x.is_cuda
+    if cuda:
+        x, w, y = x.contiguous(), w.contiguous(), y.to(torch.int32).contiguous()
+        lse, g = lse.float().contiguous(), g.float().contiguous()
+        _check(x, w, y, lse=lse, g=g)
+    dl = x.new_empty((M, vc))  # one chunk's dl, reused by every chunk
+    dx = torch.empty_like(x)
+    dx32 = x.new_empty(x.shape, dtype=torch.float32) if V > vc else None
+    dw = torch.empty_like(w) if need_dw else None
+    starts = range(0, V, vc)
+    for i, c0 in enumerate(starts):
+        vw = min(vc, V - c0)
+        mode = (FIRST if i == 0 else 0) | (LAST if i == len(starts) - 1 else 0)
+        # one stream, in chunk order: no atomics, so reruns give the same bits
+        if cuda:
+            _kernel_dl(x, w, y, lse, g, dl, c0, vw)
+            _kernel_dx(dl, w, dx32, dx, c0, vw, mode)
+            if need_dw:
+                _kernel_dw(dl, x, dw[c0:c0 + vw], vw)
+            continue
+        w_c, dl_c = w[c0:c0 + vw], dl[:, :vw]
+        dl_c.copy_(_dl_plain(x, w_c, y, lse, g, c0))
+        _dx_plain(dl_c, w_c, dx32, dx, mode)
+        if need_dw:
+            dw[c0:c0 + vw] = torch.matmul(dl_c.float().T, x.float())
+    return dx, dw
 
 
 class _FusedHead(torch.autograd.Function):
@@ -201,5 +280,6 @@ def fused_target_logp(hidden: torch.Tensor, w: torch.Tensor,
 
 
 fused_target_logp.fwd_launches = 0  # forward kernel launches (CUDA tensors only)
-fused_target_logp.dx_launches = 0  # dx kernel launches
-fused_target_logp.dw_launches = 0  # dW kernel launches
+fused_target_logp.dl_launches = 0  # dl kernel launches (one a chunk)
+fused_target_logp.dx_launches = 0  # dx product launches (one a chunk)
+fused_target_logp.dw_launches = 0  # dW product launches (one a chunk)

@@ -411,6 +411,7 @@ def _grad_close(got, ref):
     assert bad.max().item() <= 0, bad.max().item()
 
 
+@pytest.mark.parametrize("vc", [None, 128, 256])  # the planner's; many chunks, ragged last
 @pytest.mark.parametrize("M,H,V", [
     (2046, 4096, 32000),  # the 7B train step's head
     (2046, 1024, 32000),  # H <= 2048: the TPU's single-pass row 13
@@ -418,31 +419,47 @@ def _grad_close(got, ref):
     (77, 128, 300),       # tiny, every edge ragged
     (1, 64, 64),          # one row, one tile
 ])
-def test_fused_head_kernels_match_plain(gen, M, H, V):
+def test_fused_head_kernels_match_plain(gen, M, H, V, vc):
     x, w, y, g = _head_case(gen, M, H, V)
     logp, lse = fused_head_fwd(x, w, y)
     ref_logp, ref_lse = fused_head_fwd_plain(x, w, y)
     assert (logp - ref_logp).abs().max().item() <= 2e-4
     assert (lse - ref_lse).abs().max().item() <= 2e-4
-    dx, dw = fused_head_bwd(x, w, y, ref_lse, g)
+    dx, dw = fused_head_bwd(x, w, y, ref_lse, g, vc=vc)
     ref_dx, ref_dw = fused_head_bwd_plain(x, w, y, ref_lse, g)
     assert dx.shape == x.shape and dw.shape == w.shape
     _grad_close(dx, ref_dx)
     _grad_close(dw, ref_dw)
-    # no atomics: a rerun gives the same bits
-    assert torch.equal(fused_head_bwd(x, w, y, ref_lse, g)[1], dw)
+    # no atomics, chunks in order: a rerun gives the same bits
+    dx2, dw2 = fused_head_bwd(x, w, y, ref_lse, g, vc=vc)
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw)
     assert torch.equal(fused_head_fwd(x, w, y)[0], logp)
+
+
+def test_fused_head_frozen_head_runs_no_dw_product(gen):
+    """need_dw=False (the QLoRA head): dl and dx once a chunk, no dW."""
+    x, w, y, g = _head_case(gen, 300, 256, 1000)
+    _, lse = fused_head_fwd_plain(x, w, y)
+    n0 = (fused_target_logp.dl_launches, fused_target_logp.dx_launches,
+          fused_target_logp.dw_launches)
+    dx, dw = fused_head_bwd(x, w, y, lse, g, need_dw=False, vc=256)
+    assert dw is None
+    assert (fused_target_logp.dl_launches - n0[0], fused_target_logp.dx_launches - n0[1],
+            fused_target_logp.dw_launches - n0[2]) == (4, 4, 0)
+    _grad_close(dx, fused_head_bwd_plain(x, w, y, lse, g)[0])
 
 
 def test_fused_head_autograd_counts_its_launches(gen):
     x, w, y, g = _head_case(gen, 300, 256, 1000)
     x.requires_grad_(True)
     w.requires_grad_(True)
-    n0 = (fused_target_logp.fwd_launches, fused_target_logp.dx_launches,
-          fused_target_logp.dw_launches)
+    n0 = (fused_target_logp.fwd_launches, fused_target_logp.dl_launches,
+          fused_target_logp.dx_launches, fused_target_logp.dw_launches)
     (fused_target_logp(x.view(3, 100, 256), w, y.view(3, 100)).reshape(-1) * g).sum().backward()
-    assert (fused_target_logp.fwd_launches - n0[0], fused_target_logp.dx_launches - n0[1],
-            fused_target_logp.dw_launches - n0[2]) == (1, 1, 1)
+    # one vocabulary chunk at this shape: one launch of each kernel
+    assert (fused_target_logp.fwd_launches - n0[0], fused_target_logp.dl_launches - n0[1],
+            fused_target_logp.dx_launches - n0[2], fused_target_logp.dw_launches - n0[3]
+            ) == (1, 1, 1, 1)
     _, lse = fused_head_fwd_plain(x.detach(), w.detach(), y)
     ref_dx, ref_dw = fused_head_bwd_plain(x.detach(), w.detach(), y, lse, g)
     _grad_close(x.grad, ref_dx)

@@ -10,6 +10,13 @@ Cases mirror tests/test_fused_head.py: exact tiling, a vocabulary pad, a
 row pad, a batch shape and H-blocked forwards. Tolerances are
 tests/test_fused_head.py's: rtol/atol 1e-5 on the fp32 logps (a logsumexp
 over <= 300 terms in another order), rtol 1e-4 / atol 1e-5 on gradients.
+
+The backward walks the vocabulary in chunks (`chunk_width`, or a forced
+`vc`), on the CPU with the per-chunk plain versions: the walk is held
+against the JAX `_bwd` at forced small chunks with a ragged last one, and
+against the unchunked `fused_head_bwd_plain` (fp32: the same products
+summed over the chunks in order, rtol 1e-5 / atol 1e-6; bf16: dl rounds
+alike, the fp32 sums round once to bf16, within one bf16 ulp).
 """
 import jax
 import jax.numpy as jnp
@@ -152,3 +159,87 @@ def test_get_batch_logps_from_hidden_matches_jax(shift):
     logits = torch.from_numpy(hidden) @ torch.from_numpy(w).T
     plain = tdpo.get_batch_logps(logits, torch.from_numpy(labels), shift=shift)
     np.testing.assert_allclose(got.sum.numpy(), plain.sum.numpy(), rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.parametrize("M,V,want", [
+    (2046, 32000, 32000),   # the 7B train step's head: one chunk, 131 MB of dl
+    (16368, 32000, 8192),   # the QLoRA step's 16 x 1023 rows: four chunks
+    (16363, 32001, 8192),
+    (77, 300, 384),         # V rounded up to VC_ALIGN
+    (1, 64, 128),
+    (2 ** 21, 32000, 128),  # never below VC_ALIGN
+])
+def test_chunk_width(M, V, want):
+    vc = tfh.chunk_width(M, V)
+    assert vc == want and vc % tfh.VC_ALIGN == 0
+    assert vc * -(-V // vc) >= V  # the chunks cover the vocabulary
+    assert vc <= -(-V // tfh.VC_ALIGN) * tfh.VC_ALIGN
+    if vc > tfh.VC_ALIGN:  # within the budget, and the next width is not
+        assert M * vc * 2 <= tfh.DL_CHUNK_BYTES
+        assert vc == -(-V // tfh.VC_ALIGN) * tfh.VC_ALIGN or \
+            M * (vc + tfh.VC_ALIGN) * 2 > tfh.DL_CHUNK_BYTES
+
+
+CHUNKED = {  # M, H, V, forced vc, JAX blocks
+    "ragged last chunk": (13, 64, 300, 128, dict(block_m=8, block_v=128)),
+    "two chunks": (16, 32, 300, 256, dict(block_m=8, block_v=128)),
+    "exact chunks": (16, 32, 256, 128, dict(block_m=8, block_v=128)),
+    "h-blocked, one column last": (13, 64, 257, 128, dict(block_m=8, block_v=128,
+                                                         block_h=32)),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNKED))
+def test_chunked_backward_matches_jax(case):
+    """fused_head_bwd's chunk walk on the CPU (per-chunk plain dl, fp32
+    products, dx summed over the chunks in order) against jax.grad of the
+    JAX fused head in interpret mode (its `_bwd` kernels)."""
+    M, H, V, vc, blocks = CHUNKED[case]
+    x, w, y, g = _case(len(case) + 7, M, H, V)
+
+    def jloss(xj, wj):
+        return (jfh.fused_target_logp(xj, wj, jnp.asarray(y), interpret=True,
+                                      **blocks) * jnp.asarray(g)).sum()
+
+    dx_w, dwt_w = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w.T))
+    xt, wt, yt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(y)
+    _, lse = tfh.fused_head_fwd_plain(xt, wt, yt)
+    dx, dw = tfh.fused_head_bwd(xt, wt, yt, lse, torch.from_numpy(g), vc=vc)
+    assert -(-V // vc) > 1
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dwt_w).T, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vc", [None, 128, 256, 384])
+def test_chunked_backward_matches_unchunked_plain(vc, dtype):
+    """The chunk walk against fused_head_bwd_plain on the same inputs, with
+    dW and without (need_dw=False returns None and the same dx); no kernel
+    runs for CPU tensors."""
+    M, H, V = 21, 64, 700  # 700 = 5 x 128 + 60: ragged at every forced vc
+    x, w, y, g = _case(11, M, H, V)
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    yt, gt = torch.from_numpy(y), torch.from_numpy(g)
+    _, lse = tfh.fused_head_fwd_plain(xt, wt, yt)
+    launches = (tfh.fused_target_logp.dl_launches, tfh.fused_target_logp.dx_launches,
+                tfh.fused_target_logp.dw_launches)
+    want_dx, want_dw = tfh.fused_head_bwd_plain(xt, wt, yt, lse, gt)
+    dx, dw = tfh.fused_head_bwd(xt, wt, yt, lse, gt, vc=vc)
+    dx_only, none = tfh.fused_head_bwd(xt, wt, yt, lse, gt, need_dw=False, vc=vc)
+    assert none is None and torch.equal(dx_only, dx)
+    assert dx.dtype == dw.dtype == dtype and dx.shape == xt.shape and dw.shape == wt.shape
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else dict(rtol=2 ** -7, atol=1e-6)
+    torch.testing.assert_close(dx, want_dx, **tol)
+    torch.testing.assert_close(dw, want_dw, **tol)
+    assert launches == (tfh.fused_target_logp.dl_launches, tfh.fused_target_logp.dx_launches,
+                        tfh.fused_target_logp.dw_launches)
+
+
+@pytest.mark.parametrize("vc", [0, 64, 200])
+def test_forced_chunk_must_be_a_multiple_of_the_tile(vc):
+    x, w, y, g = _case(2, 8, 32, 256)
+    xt, wt, yt, gt = (torch.from_numpy(a) for a in (x, w, y, g))
+    _, lse = tfh.fused_head_fwd_plain(xt, wt, yt)
+    with pytest.raises(ValueError):
+        tfh.fused_head_bwd(xt, wt, yt, lse, gt, vc=vc)
