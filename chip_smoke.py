@@ -77,8 +77,16 @@ Phases, one progress line each (or a few):
      times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
      (product only) and the "dequant" route (a bf16 cuBLAS product of the
-     dequantised weight), and one projection's int8 route against the
-     dequant route (the activation-quantisation error, ~1%);
+     dequantised weight), the kernels one #8 call launched (the call
+     captured in a CUDA graph; they must match dx_launches' plan), and one
+     projection's
+     int8 route against the dequant route (the activation-quantisation
+     error, ~1%); then #8 on rows whose quotients fall on and next to
+     half-integers (synth.quotient_ties; M = 1, 63, 64, 127, the short
+     step's, ragged K and N), reruns bit-equal, and two planted faults
+     (one contraction slice dropped, sy from the next row), each a broken
+     copy of csrc/quant_matmul.cu built beside the kernels, that must break
+     the bit-exact check;
   9. the QLoRA slice (configs/llava15_dpo_qlora.json): phase 8's seed-0
      LLaVA-1.5-7B rebuilt after phase 6 is freed, its LLM projections
      quantised to int8 on the card (head, CLIP and projector bf16), the
@@ -98,7 +106,11 @@ Phases, one progress line each (or a few):
      difference 0 (#12 also at N = 11008, which the dispatch sends to the
      dequant dx); times beside the int8 bound, torch._int_mm on the
      unpacked int8 operands (product only, both weight layouts) and the
-     "dequant" route, and one projection's int4 route against it;
+     "dequant" route, the kernels one #12 call launched (captured in a CUDA
+     graph; 2 planned), and one projection's int4 route against it; then #12
+     on tie quotients (groups of 128 and 256), reruns bit-equal, and three
+     planted faults (the guard band removed, sy from group j + 1, one ring
+     stage loading chunk 0 again), each of which must break the check;
   3f. (run after 3e) kernel #5, prefix decode over an int8 cache, against
      its plain twin at phase 11's shapes (B = 10 and 4 at L = 896, block
      128; B = 24 at L = 1024, block 256) and the edges (one live column,
@@ -245,6 +257,7 @@ from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     fused_target_logp,
 )
 from rlaifv_tpu_torch.utils.file_io import read_jsonlines, write_jsonlines  # noqa: E402
+from rlaifv_tpu_torch.utils.synth import quotient_ties  # noqa: E402
 from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     DPOHparams,
     LlavaDPOAdapter,
@@ -501,6 +514,43 @@ def time_ms(fn, runs: int = 20) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+
+
+def launched_ops(fn) -> dict:
+    """What one call of fn() puts on the card: the call is captured into a
+    CUDA graph (never replayed) and the graph's nodes are read back through
+    the driver, {"kernel": n, "memset": n, ...}. A wrapper's
+    `.launches` counts its calls; this counts what a call launched."""
+    import ctypes
+    from collections import Counter
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    ops = Counter()
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        ops[GRAPH_NODE_TYPES.get(kind.value, f"node type {kind.value}")] += 1
+    graph.reset()
+    return dict(ops)
+
+
+def ops_text(ops: dict) -> str:
+    return ", ".join(f"{n} {what} node{'s' * (n != 1)}" for what, n in sorted(ops.items()))
+
+
 def bound(flop: float, nbytes: float, peak_tera: float = PEAK_BF16_TFLOPS) -> dict:
     """The least time the card could take for the work: the larger of the
     operations at the tensor-core peak for their type (bf16 unless given)
@@ -575,6 +625,49 @@ def phase_build() -> None:
         elif "Used" in line or ("bytes spill" in line and
                                 "0 bytes spill stores, 0 bytes spill loads" not in line):
             log(f"[2 build] ptxas {entry}: {line.split(':', 1)[-1].strip()}")
+
+
+def build_variants(variants: dict) -> dict:
+    """Deliberately broken copies of the kernels, for planted faults: each
+    variant {tag: [(file, old, new), ...]} replaces, in a copy of csrc/
+    under build/, each `old` text (which must occur exactly once) with
+    `new`, and builds its changed sources with common.cu into a library of
+    its own (all variants' nvcc processes started together). Returns {tag:
+    library}; `kernels_from(library)` runs the wrappers on it."""
+    root = _build.BUILD_DIR / "variants"
+    jobs = []
+    for tag, edits in variants.items():
+        d = root / tag
+        d.mkdir(parents=True, exist_ok=True)
+        texts = {}
+        for name, old, new in edits:
+            text = texts.get(name, (_build.CSRC / name).read_text())
+            if text.count(old) != 1:
+                raise AssertionError(f"variant {tag}: {old!r} occurs {text.count(old)} "
+                                     f"times in {name}")
+            texts[name] = text.replace(old, new)
+        srcs = []
+        for name, text in texts.items():
+            (d / name).write_text(text)
+            srcs.append(d / name)
+        jobs.append((tag, d / "lib.so", srcs + [_build.CSRC / "common.cu"]))
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda j: _build.compile_and_link(j[1], j[2], include=_build.CSRC),
+                      jobs))
+    return {tag: _build.open_library(path) for tag, path, _ in jobs}
+
+
+@contextlib.contextmanager
+def kernels_from(lib):
+    """The ops' wrappers launch from `lib` (a variant) inside the block."""
+    saved = _build._lib
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = saved
 
 
 def _within(out: torch.Tensor, ref: torch.Tensor) -> bool:
@@ -2502,7 +2595,7 @@ def build_train(pair: dict, model, device: str = "cuda") -> dict:
     t, P, batch_np = pair["training"], pair["P"], pair["batch_np"]
     L = batch_np["input_ids"].shape[1]
     hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
-                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size, cfg.llm.dtype),
                     shared_prefix_len=P)
     assert hp.lm_head_impl == "fused", hp.lm_head_impl
     batch = batch_to_device(batch_np, device)
@@ -2745,6 +2838,63 @@ def llama3_ms() -> tuple:
     return (8, 64, 128, PIPE_BATCH * _divide_prompt_bucket(_fake_tokenizer()))
 
 
+# 3d / 3e: planted faults in the redesigned dx kernels, each a broken copy of
+# one source (build_variants) that must break the bit-exact check
+DX8_FAULTS = {
+    "one contraction slice dropped": [(
+        "quant_matmul.cu", "    for (int s = 0; s < split; ++s) acc += part[s * MK + e];",
+        "    for (int s = 1; s < split; ++s) acc += part[s * MK + e];")],
+    "sy taken from the next row": [(
+        "quant_matmul.cu", "sy[e / K]));", "sy[(e / K + 1) % M]));")],
+}
+DX4_FAULTS = {
+    "guard band removed (rint(v r) alone)": [
+        ("int4_matmul.cu", "constexpr float BRACKET_LO = 1.0f - 0x1p-20f;",
+         "constexpr float BRACKET_LO = 1.0f;"),
+        ("int4_matmul.cu", "constexpr float BRACKET_HI = 1.0f + 0x1p-20f;",
+         "constexpr float BRACKET_HI = 1.0f;")],
+    "sy taken from group j + 1": [(
+        "int4_matmul.cu", "amax[(long long)m * J + j0 + ju[u]]",
+        "amax[(long long)m * J + (j0 + ju[u] + 1) % J]")],
+    "one ring stage skipped (chunk 0 loaded again for chunk 1)": [
+        ("int4_matmul.cu", "tma_load(st, &map_dy, c * TC, m0, bar);",
+         "tma_load(st, &map_dy, (c == 1 ? 0 : c) * TC, m0, bar);"),
+        ("int4_matmul.cu", "tma_load(st + D_BYTES, &map_qp, c * TC, p0, bar);",
+         "tma_load(st + D_BYTES, &map_qp, (c == 1 ? 0 : c) * TC, p0, bar);"),
+        ("int4_matmul.cu", "tma_load(st + D_BYTES + P_BYTES, &map_gs, c * TC, j0, bar);",
+         "tma_load(st + D_BYTES + P_BYTES, &map_gs, (c == 1 ? 0 : c) * TC, j0, bar);")],
+}
+
+
+def tie_case(M: int, N: int, J: int, seed: int) -> tuple:
+    """synth.quotient_ties on the card: bf16 dy (M, N), fp32 scales (J, N)
+    whose row quotients fall on and next to half-integers (Gaussian rows
+    hit few of them; 3e logs what #12 without its guard band does on
+    both)."""
+    dy, gs = quotient_ties(M, N, J, seed=seed)
+    return torch.from_numpy(dy).cuda().to(torch.bfloat16), torch.from_numpy(gs).cuda()
+
+
+def planted_faults(tag: str, faults: dict, cases: dict) -> None:
+    """Build each fault's broken kernels and run its case {name: (fn, args,
+    want)} on them: the output must differ from the twin's bits."""
+    t0 = time.perf_counter()
+    libs = build_variants(faults)
+    log(f"{tag} planted faults: {len(libs)} broken variants built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, lib in libs.items():
+        fn, args, want = cases[name]
+        with kernels_from(lib):
+            got = fn(*args)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        log(f"{tag} planted fault {name!r}: {n_diff} of {want.numel()} outputs differ from "
+            f"the twin | {'caught' if n_diff else 'NOT CAUGHT'}")
+        if not n_diff:
+            raise AssertionError(f"{tag}: the check misses the planted fault {name!r}")
+    return libs
+
+
 def phase_int8(g, qb: dict) -> dict:
     """3d: the four int8 kernels against their plain twins (max abs
     difference 0; #7 == #9, #8 == #10) at the 7B projection widths, the
@@ -2795,7 +2945,13 @@ def phase_int8(g, qb: dict) -> dict:
         def lib(k):
             return "refused" if t_lib[k] is None else f"{t_lib[k]:.4f}"
 
-        log(f"[3d int8] M={M} K={K} N={N}: max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
+        split = qm.dx_split(M, K, N, qm._sms(0), q.data_ptr() % 16 == 0)
+        launched = launched_ops(run[8])
+        entry[8]["kernels_a_call"] = launched.get("kernel", 0)
+        ok = ok and launched.get("kernel", 0) == qm.dx_launches(split)
+        log(f"[3d int8] M={M} K={K} N={N}: one #8 call captured in a CUDA graph: "
+            f"{ops_text(launched)}; {split} contraction slices, {qm.dx_launches(split)} kernels "
+            f"planned | max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
             f"#8 {err[8]:.1e} #10 {err[10]:.1e} (tol 0), #7==#9 "
             f"{torch.equal(out[7], out[9])} #8==#10 {torch.equal(out[8], out[10])} | "
             + " ".join(f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s "
@@ -2807,14 +2963,38 @@ def phase_int8(g, qb: dict) -> dict:
             f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"int8 kernels disagree with the plain twins at "
-                                 f"M={M} K={K} N={N}: {err}")
+            raise AssertionError(f"int8 kernels disagree with the plain twins, or #8 "
+                                 f"with its planned launches, at M={M} K={K} N={N}: {err}")
         res["err"] = max(res["err"], max(err.values()))
         if M == qb["m_prefix"]:
             route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
                         qm.dequant_matmul_dx(dy, q, s))
         del x, dy, q, s, xq, dyq, out, plain, run
         torch.cuda.empty_cache()
+
+    # #8 on quotients at and next to half-integers: the short step's rows
+    # and the edges of its row tiles, both widths; reruns give the same bits
+    for K, N, M in [(4096, 11008, M) for M in (1, 63, 64, 127, qb["m_short"])] + \
+            [(11008, 4096, qb["m_short"]), (300, 1008, 64)]:
+        q, _ = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
+        dy, s = tie_case(M, N, 1, seed=M + K)
+        got = qm._kernel_dx(dy, q, s[0])
+        want = qm.int8_matmul_dx_plain(dy, q, s[0])
+        again = qm._kernel_dx(dy, q, s[0])
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want) and torch.equal(again, got)
+        log(f"[3d int8] #8 on tie quotients M={M} K={K} N={N}: equal to the twin "
+            f"{torch.equal(got, want)}, rerun equal {torch.equal(again, got)} | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"#8 disagrees with its twin on ties at M={M} K={K} N={N}")
+
+    M, K, N = qb["m_short"], 4096, 11008  # split into slices: the finishing pass runs
+    assert qm.dx_split(M, K, N, qm._sms(0)) > 1
+    q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
+    dy = _randn(g, M, N)
+    case = (qm._kernel_dx, (dy, q, s), qm.int8_matmul_dx_plain(dy, q, s))
+    planted_faults("[3d int8] #8", DX8_FAULTS, {k: case for k in DX8_FAULTS})
     return res
 
 
@@ -2864,7 +3044,12 @@ def phase_int4(g, qb: dict) -> dict:
             def lib(v):
                 return "refused" if v is None else f"{v:.4f}"
 
-            log(f"[3e int4] M={M} K={K} N={N}: max|err| #11 {err[11]:.1e} #12 {err[12]:.1e} "
+            launched = launched_ops(run[12])
+            entry[12]["kernels_a_call"] = launched.get("kernel", 0)
+            ok = ok and launched.get("kernel", 0) == 2
+            log(f"[3e int4] M={M} K={K} N={N}: one #12 call captured in a CUDA graph: "
+                f"{ops_text(launched)}; 2 kernels planned (row maxima, product) | "
+                f"max|err| #11 {err[11]:.1e} #12 {err[12]:.1e} "
                 f"(tol 0) | " + " ".join(
                     f"#{k} {t[k]:.4f} ms = {ops / (t[k] * 1e-3) / 1e12:.1f} TOP/s (bound "
                     f"{entry[k]['bound_ms']:.4f}, {entry[k]['bound_by']})" for k in run)
@@ -2874,8 +3059,8 @@ def phase_int4(g, qb: dict) -> dict:
                 f"{lib(t_lib_row)}) dx {lib(t_lib[12])} ms | dequant route fwd "
                 f"{t_deq[11]:.4f} dx {t_deq[12]:.4f} ms | {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"int4 kernels disagree with the plain twins at "
-                                     f"M={M} K={K} N={N}: {err}")
+                raise AssertionError(f"int4 kernels disagree with the plain twins, or #12 "
+                                     f"with its planned launches, at M={M} K={K} N={N}: {err}")
             res["err"] = max(res["err"], max(err.values()))
             if M == qb["m_prefix"]:
                 route_noise("[3e int4]", out[11], out[12], i4.dequant_int4_matmul(x, qp, gs),
@@ -2883,6 +3068,37 @@ def phase_int4(g, qb: dict) -> dict:
             del x, dy, xq, dyq, out, plain, run
         del qp, gs, w8, w8_col
         torch.cuda.empty_cache()
+
+    # #12 on quotients at and next to half-integers, groups of 128 and 256;
+    # reruns give the same bits
+    for M, K, N, G in ((qb["m_prefix"], 11008, 4096, 128), (127, 4096, 4096, 128),
+                       (qb["m_suffix"], 4096, 11008, 128), (200, 4096, 4096, 256)):
+        qp, _ = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"), G)
+        dy, gs = tie_case(M, N, K // G, seed=M + G)
+        got = i4._kernel_dx(dy, qp, gs)
+        want = i4.int4_matmul_dx_plain(dy, qp, gs)
+        again = i4._kernel_dx(dy, qp, gs)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want) and torch.equal(again, got)
+        log(f"[3e int4] #12 on tie quotients M={M} K={K} N={N} G={G}: equal to the twin "
+            f"{torch.equal(got, want)}, rerun equal {torch.equal(again, got)} | "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"#12 disagrees with its twin on ties at M={M} K={K} N={N}")
+
+    M, K, N = 256, 4096, 4096
+    qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
+    dy = _randn(g, M, N)
+    tdy, tgs = tie_case(M, N, K // 128, seed=7)
+    gauss = (i4._kernel_dx, (dy, qp, gs), i4.int4_matmul_dx_plain(dy, qp, gs))
+    ties = (i4._kernel_dx, (tdy, qp, tgs), i4.int4_matmul_dx_plain(tdy, qp, tgs))
+    names = list(DX4_FAULTS)
+    libs = planted_faults("[3e int4] #12", DX4_FAULTS, {names[0]: ties, names[1]: gauss,
+                                                        names[2]: gauss})
+    with kernels_from(libs[names[0]]):  # what Gaussian rows alone would show
+        n_diff = int((i4._kernel_dx(dy, qp, gs) != gauss[2]).sum())
+    log(f"[3e int4] #12 without its guard band on Gaussian rows (M={M} K={K} N={N}): "
+        f"{n_diff} of {gauss[2].numel()} outputs differ from the twin")
     return res
 
 
@@ -2949,7 +3165,7 @@ def phase_qlora(model, tok, rows: list, short: dict, cfg: LlavaConfig,
     qb = qlora_batches(rows, short, tok, cfg, ref)
     t = qb["config"].training
     hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
-                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size, cfg.llm.dtype),
                     shared_prefix_len=qb["P"])
     assert hp.lm_head_impl == "fused", hp.lm_head_impl
     batch = batch_to_device(qb["batch_np"], "cuda")
@@ -3139,7 +3355,7 @@ def phase_qlora_int4(model, tok, rows: list, cfg: LlavaConfig, ref_bf16: list) -
     qb = qlora_batches(rows, None, tok, cfg, ref, bits=4)
     t = qb["config"].training
     hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
-                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size),
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size, cfg.llm.dtype),
                     shared_prefix_len=qb["P"])
     assert hp.lm_head_impl == "fused" and qb["config"].model.quantize_bits == 4
     batch = batch_to_device(qb["batch_np"], "cuda")
@@ -3392,7 +3608,9 @@ def main() -> None:
     kernels += [
         _row("int8_matmul", q_src, f"{q_py}:36", launches["int8"], int8["err"], small[7]),
         _row("int8_matmul_dx", q_src, f"{q_py}:132", launches["int8_dx"], int8["err"],
-             small[8]),
+             small[8], "redesigned: a row pass, the split wgmma product and the sum of "
+             f"its slices; one wrapper call launched {small[8]['kernels_a_call']} kernels "
+             "here (a CUDA graph of one call, 3d; launches counts calls)"),
         _row("int8_matmul_prequant", q_src, f"{q_py}:244", launches["int8_prequant"],
              int8["err"], large[9]),
         _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
@@ -3405,7 +3623,10 @@ def main() -> None:
         _row("int4_matmul", i4_src, f"{i4_py}:135", launches["int4"], int4["err"],
              int4[(qb["m_prefix"], 4096, 11008)][11]),
         _row("int4_matmul_dx", i4_src, f"{i4_py}:240", launches["int4_dx"], int4["err"],
-             int4[(qb["m_prefix"], 11008, 4096)][12]),
+             int4[(qb["m_prefix"], 11008, 4096)][12],
+             "redesigned: the row-maximum pass and the warp-specialised product; one "
+             f"wrapper call launched {int4[(qb['m_prefix'], 11008, 4096)][12]['kernels_a_call']}"
+             " kernels here (a CUDA graph of one call, 3e; launches counts calls)"),
     ]
     # row 14 at diverse_gen's decode step (B = 10, valid_len = L = 896), the
     # shape of row 4; the library time is SDPA over the cache dequantised

@@ -60,11 +60,11 @@
 // bytes of fp32 dx.
 //
 // H must be a multiple of 64 (the wrapper checks).
-#include <cuda.h>  // CUtensorMap and the encode function's types only
 #include <math.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -255,6 +255,8 @@ bool bad_shape(int M, int H, int V) {
 
 namespace bwd {
 
+using namespace rlaifv;
+
 constexpr int TM = 128;  // output rows of a CTA tile: two consumer warpgroups of 64
 constexpr int TN = 256;  // output columns of a CTA tile: one m64n256k16 per warpgroup
 constexpr int TK = 64;   // contraction depth of a stage: one 128-byte swizzle row of bf16
@@ -268,78 +270,8 @@ constexpr int B_BYTES = TN * TK * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 // the ring, its 2 x STAGES barriers and the slack that aligns it to an atom
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + ATOM;
-// ~4 s at the H100's clock: a wait that never ends traps instead of hanging
-constexpr long long SPIN_CYCLES = 1ll << 33;
-
 enum Epi { DL = 0, DX = 1, DW = 2 };
 constexpr int FIRST = 1, LAST = 2;  // the dx epilogue's place in the chunk walk
-
-__device__ __forceinline__ uint32_t saddr(const void *p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic to wait for
-__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// until the barrier's phase of this parity has completed
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > SPIN_CYCLES) __trap();
-  }
-}
-
-// the box at (c_inner, c_outer) of a 2D tensor map into shared memory; the
-// barrier counts its bytes (zeros for the part outside the tensor)
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap *map,
-                                         int c_inner, int c_outer, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner), "r"(c_outer)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor of a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (in 16-byte units), layout 1
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 | static_cast<uint64_t>(sbo >> 4) << 32 |
-         1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // keeps the compiler from moving reads of the accumulators across the
 // asynchronous products
@@ -486,7 +418,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a,
       bar_init(full + 8 * s, 1);
       bar_init(empty + 8 * s, NCONS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -551,41 +483,14 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a,
     epi_store(acc, p, r0, cl);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap *, CUtensorMapDataType, cuuint32_t, void *,
-                                const cuuint64_t *, const cuuint64_t *, const cuuint32_t *,
-                                const cuuint32_t *, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void *f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
 // a tensor map over the row-major bf16 (rows, cols) matrix at base, row
 // stride ld elements, read in boxes of box_rows x 64 columns (128 bytes,
 // swizzled); boxes read zeros outside the matrix
 bool tensor_map(CUtensorMap *map, const void *base, int rows, int cols, int ld,
                 int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void *>(base), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rows, cols,
+                       static_cast<long long>(ld) * 2, 64, box_rows,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int EPI>

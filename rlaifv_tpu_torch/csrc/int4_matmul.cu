@@ -22,35 +22,33 @@
 //            dx[:, group j] = bf16(float(vq . w4[group j]^T) * sy)
 // Each int32 sum is exact and below 2^24 (127 x 8 x 128 for a group of the
 // forward, 127 x 8 x N for dx up to N = 16512), so float() is exact, and the
-// divisions are IEEE (__fdiv_rn, __float2int_rn rounding half to even): every
-// kernel equals its plain PyTorch twin bit for bit.
+// quotients are IEEE ones rounded half to even (the forward's divisions
+// happen in torch; dx's are reproduced exactly without a division per
+// element, see q4dx below): every kernel equals its plain PyTorch twin bit
+// for bit.
 //
 // What bounds it on the H100: int8 tensor-core operations, 2 M K N at 1,979
 // TOP/s. At the 8-pair QLoRA step's prefix (M = 6144) that is 0.280 ms for
 // the forward at K = 4096, N = 11008 and for dx at down_proj (N = 4096,
-// K = 11008); the bytes (xq or dy, qp, gs, the output) take ~0.06 ms.
+// K = 11008); the bytes (xq or dy, qp, gs, the output) take ~0.06 ms. dx
+// also quantises dy * gs[j] once per output group: M N K / G elements
+// (2.2e9 at down_proj), a few fp32 instructions each, on the SMs' ALUs.
 //
-// What the design does about it (simple first: mma.sync, no wgmma or TMA):
-// - forward: a CTA owns a 128 x 128 output tile and walks K in steps of 128
-//   weight rows = 64 packed byte rows, the groups in order, through two
-//   cp.async stages. Each step's packed (64 x 128) tile is staged as it lies
-//   (swizzled), its nibbles sign-extended four bytes at a time and
-//   transposed with byte permutes into a K-contiguous (128 x 128) int8 tile,
-//   the B operand of mma.sync m16n8k32 s8 (.col). 8 warps each hold a 32 x 64
-//   int32 sum for the group and a fp32 sum over the groups; at a group's end
-//   the int32 sum is scaled by gs[g] and added in. No unpacked or transposed
-//   weight exists in device memory.
-// - dx: a CTA owns 128 rows of dy and the 128 output columns of 64 packed
-//   byte rows (one half of each run of a group). It first takes each row's
-//   max |dy * gs[j]| over all N (sy), then walks N in 64-wide chunks,
-//   quantising dy * gs[j] into shared memory as the A operand; the packed
-//   rows are already N-contiguous, so the B operand is read as it lies and
-//   each warp sign-extends the nibbles of its half (low or high) in
-//   registers. Every column CTA repeats the row pass and the IEEE divisions
-//   over the dy stripe (K / 64 times at down_proj), the TPU kernel's per-group
-//   quantisation; dy stays in L2 across the column CTAs of a row stripe.
+// The forward (simple first: mma.sync, no wgmma or TMA): a CTA owns a
+// 128 x 128 output tile and walks K in steps of 128 weight rows = 64 packed
+// byte rows, the groups in order, through two cp.async stages. Each step's
+// packed (64 x 128) tile is staged as it lies (swizzled), its nibbles
+// sign-extended four bytes at a time and transposed with byte permutes into
+// a K-contiguous (128 x 128) int8 tile, the B operand of mma.sync m16n8k32
+// s8 (.col). 8 warps each hold a 32 x 64 int32 sum for the group and a fp32
+// sum over the groups; at a group's end the int32 sum is scaled by gs[g]
+// and added in. No unpacked or transposed weight exists in device memory.
+// dx: TMA, warp specialisation and wgmma with A from registers (q4dx).
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
 #include "int8_mma.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -59,10 +57,10 @@ namespace {
 
 using namespace rlaifv;
 
-constexpr int BM = 128;        // rows of x (or dy) a CTA owns
+constexpr int BM = 128;        // rows of x a CTA owns (forward)
 constexpr int BN = 128;        // output columns a CTA owns
 constexpr int NTHREADS = 256;  // 8 warps, 4 along rows x 2 along columns
-constexpr int HG = 64;         // packed byte rows a step (forward) or a CTA (dx)
+constexpr int HG = 64;         // packed byte rows a step
 
 // forward: a step is 2 HG = 128 weight rows; rows of 144 bytes (36 words)
 // put a fragment load's 8 rows x 4 words in 32 distinct banks and keep
@@ -74,10 +72,6 @@ constexpr int FP_BYTES = HG * BN;   // one stage of the packed tile as it lies
 constexpr int FB_BYTES = BN * LDF;  // the unpacked, K-contiguous weight tile
 constexpr int FWD_SMEM = 2 * FA_BYTES + 2 * FP_BYTES + FB_BYTES;  // 71,680 bytes
 static_assert(BN == 128, "the packed staging tile has 128-byte rows (swizzle128)");
-
-// dx: N chunks of 64, rows of 80 bytes (as in quant_matmul.cu)
-constexpr int BK = 64;
-constexpr int LDT = BK + 16;
 
 __global__ void __launch_bounds__(NTHREADS, 1)
     int4_fwd_kernel(const int8_t *__restrict__ xq, const float *__restrict__ sx,
@@ -223,126 +217,445 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    int4_dx_kernel(const bf16 *__restrict__ dy, const int8_t *__restrict__ qp,
-                   const float *__restrict__ gs, bf16 *__restrict__ dx, int M, int K,
-                   int N, int G) {
-  __shared__ __align__(16) int8_t sA[2][BM * LDT];  // quantised dy * gs[j]
-  __shared__ __align__(16) int8_t sP[2][HG * LDT];  // packed rows, N-contiguous
-  __shared__ float srow[BM];                        // sy
+// ---------------------------------------------------------------- #12, dx
+//
+// dx[:, group j] = bf16(float(Q_j(dy * gs[j]) . w4[group j]^T) * sy[:, j]),
+// three kinds of work per output group: the quantisation of dy * gs[j]
+// (M N of them per group, 2.2e9 a call at M 6144, N 4096, K 11008), the
+// nibble unpack of the group's packed rows and the int8 products.
+//
+// 1. dx_amax: max_n |dy[m, n] gs[j, n]| for every row and group in one pass
+//    over dy, into an (M, J) table (dx_groups turns each into sy). It
+//    replaces the per-group amax pass over the dy stripe that every column
+//    CTA made before.
+// 2. dx_groups: a CTA owns 128 rows of dy and 128 packed rows (two 64-row
+//    units: two groups of 128, or half of one of 256), and walks N in
+//    64-column stages, its warps specialised:
+//    - warp 0 keeps a 4-stage ring of TMA loads in flight: the dy tile
+//      (bf16, 128-byte swizzle), the packed tile (64-byte swizzle) and the
+//      units' two gs rows;
+//    - warps 1-3 unpack each packed tile into a K-major int8 tile (low
+//      nibbles, then high ones: a 16-byte unit keeps its offset within its
+//      64-byte swizzled row), three tiles deep;
+//    - two consumer warpgroups (64 rows each) quantise dy * gs[j] straight
+//      into wgmma's A fragment registers and run wgmma m64n128k32 s8 x s8
+//      -> s32 on them and the unpacked tile, one int32 accumulator tile per
+//      unit. A warpgroup's products end before it writes the next stage's
+//      fragments; the other warpgroup quantises meanwhile.
+//    mbarriers count the ring's bytes in and its readers out, the unpacked
+//    tiles' writers and (after wgmma.wait) their readers; setmaxnreg moves
+//    registers from the loading warpgroup to the consumers. Measured on an
+//    H100 (PERF.md): the consumers' shared-memory traffic and the dy tile's
+//    reads from L2 (once per unit pair: M N 2 K / 256 bytes) bound it, not
+//    the tensor cores; a variant with the A operand in shared memory, and
+//    one with four consumer warpgroups, were slower.
+//
+// Exact rounding without a division per element. The plain twin's int8 is
+// rint(rn(v / sy)) (IEEE quotient, ties to even), v = rn(dy gs[j]). With
+// r = rn(1 / sy), r1 = rn(r (1 - 2^-20)) and r2 = rn(r (1 + 2^-20)):
+// r1 sy <= (1 + 2^-24)^2 (1 - 2^-20) < 1 - 2^-21 and r2 sy > 1 + 2^-21,
+// while q = rn(v / sy) lies within a factor (1 +- 2^-24) of v / sy. So for
+// v > 0, v r1 < q < v r2 (reversed for v < 0; all 0 for v = 0). Each fma
+// u = fma(v, r1, 1.5 2^23) rounds the exact product once, to the integer
+// nearest it (ties to even; |v r1| < 128), held in u's low mantissa bits.
+// rint is monotonic, so when the two brackets round to the same integer,
+// rint(q) is that integer: no division, no conversion instruction (the
+// int8 is u's low byte). Where they differ, a half-integer lies within
+// 2^-20 |v / sy| <= 2^-13 of v / sy and the element takes __fdiv_rn,
+// about once in 10^4 elements for Gaussian rows. |v / sy| <= 127 (1 +
+// 2^-23), so no clamp is needed: rint(q) is within [-127, 127].
+namespace q4dx {
 
-  const int p0 = blockIdx.x * HG, m0 = blockIdx.y * BM;
-  const int j = p0 / (G / 2), c = p0 % (G / 2);  // the output group, the run offset
-  const float *gcol = gs + (long long)j * N;
-  const int nt = N / BK;
-  const bool a_vec = (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
-  const bool q_vec = (reinterpret_cast<uintptr_t>(qp) & 15) == 0;
+constexpr int TC = 64;        // N columns a stage: 64 packed bytes, 64 bf16 of dy
+constexpr int STAGES = 4;
+constexpr int NBUF = 3;       // unpacked B tiles
+constexpr int NCONS = 2;      // consumer warpgroups: 128 rows of dy
+constexpr int NUNPACK = 3;    // unpacking warps, beside the producer warp
+constexpr int THREADS = (NCONS + 1) * 128;
+constexpr int D_BYTES = NCONS * 64 * TC * 2;  // dy tile, 128-byte rows
+constexpr int P_BYTES = 128 * TC;             // packed tile: 2 units x 64 rows
+constexpr int G_BYTES = 2 * TC * 4;           // the units' two gs rows
+constexpr int STAGE_BYTES = 25 * 1024;        // D, P, G, padded to a 1 KB multiple
+constexpr int U_BYTES = 128 * TC;             // one unit's unpacked tile: 128 rows
+constexpr int B_BYTES = 2 * U_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + NBUF * B_BYTES + 2 * 128 * 4 +
+                     2 * (STAGES + NBUF) * 8 + 1024;
+static_assert(D_BYTES + P_BYTES + G_BYTES <= STAGE_BYTES, "stage layout");
+constexpr float MAGIC = 12582912.0f;          // 1.5 2^23
+constexpr float BRACKET_LO = 1.0f - 0x1p-20f;
+constexpr float BRACKET_HI = 1.0f + 0x1p-20f;
 
-  row_scales<true, BM, NTHREADS>(srow, dy, gcol, m0, M, N, a_vec);
+// ---- 1. the (M, J) table of row maxima
+
+constexpr int SC = 32;  // N columns a chunk
+constexpr int SR = 256; // most rows a CTA
+constexpr int SJ = 64;  // most groups a CTA
+
+// Rows [m0, m0 + 4 nrb) x groups [j0, j0 + jt) x columns [n0, n1): thread
+// (rb, gb) keeps the 4 x 4 maxima of |dy| |gs| over its rows and groups,
+// chunks of 32 columns staged (|.| as fp32, column-major) in two shared
+// buffers while the next chunk's loads are in flight; the column slices
+// combine with atomicMax on the bits of the non-negative maxima (exact, in
+// any order) into amax (M, J), zeroed beforehand.
+__global__ void __launch_bounds__(256)
+    dx_amax(const bf16 *__restrict__ dy, const float *__restrict__ gs,
+            unsigned *__restrict__ amax, int M, int N, int J, int jt, int ngb, int nrb,
+            int slice) {
+  extern __shared__ __align__(16) float sm[];
+  const int rows = 4 * nrb, ld_d = rows + 4, ld_g = 4 * ngb + 4;
+  float *sd = sm;                      // [2][SC][ld_d]
+  float *sg = sm + 2 * SC * ld_d;      // [2][SC][ld_g]
+  const int m0 = blockIdx.x * rows, j0 = blockIdx.y * jt;
+  const int nj = min(jt, J - j0);
+  const int n0 = blockIdx.z * slice, n1 = min(N, n0 + slice);
+  const int gb = threadIdx.x % ngb, rb = threadIdx.x / ngb;
+  const int nch = (n1 - n0) / SC;
+
+  // this thread's loads of a chunk: dy (row r, columns c8 .. c8 + 7), one
+  // row a lane; gs (group j, columns c4 .. c4 + 3), one group a lane
+  constexpr int DL = SR * SC / 8 / 256, GL = SJ * SC / 4 / 256;
+  uint4 rd[DL];
+  float4 rg[GL];
+  auto fetch = [&](int n) {
+#pragma unroll
+    for (int k = 0; k < DL; ++k) {
+      const int i = threadIdx.x + 256 * k, r = i % rows, c8 = i / rows;
+      rd[k] = c8 < SC / 8 && m0 + r < M
+                  ? *reinterpret_cast<const uint4 *>(dy + (long long)(m0 + r) * N + n + 8 * c8)
+                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < GL; ++k) {
+      const int i = threadIdx.x + 256 * k, j = i % (4 * ngb), c4 = i / (4 * ngb);
+      rg[k] = c4 < SC / 4 && j < nj
+                  ? *reinterpret_cast<const float4 *>(gs + (long long)(j0 + j) * N + n + 4 * c4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int k = 0; k < DL; ++k) {
+      const int i = threadIdx.x + 256 * k, r = i % rows, c8 = i / rows;
+      if (c8 >= SC / 8) continue;
+      float f[8];
+      bf16x8_to_float(rd[k], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sd[(buf * SC + 8 * c8 + e) * ld_d + r] = fabsf(f[e]);
+    }
+#pragma unroll
+    for (int k = 0; k < GL; ++k) {
+      const int i = threadIdx.x + 256 * k, j = i % (4 * ngb), c4 = i / (4 * ngb);
+      if (c4 >= SC / 4) continue;
+      const float g[4] = {rg[k].x, rg[k].y, rg[k].z, rg[k].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sg[(buf * SC + 4 * c4 + e) * ld_g + j] = fabsf(g[e]);
+    }
+  };
+
+  float acc[4][4] = {};
+  if (nch > 0) {
+    fetch(n0);
+    stage(0);
+  }
   __syncthreads();
-
-  auto stage_q = [&](int st, int kt) {
-    for (int i = threadIdx.x; i < HG * (BK / 16); i += NTHREADS) {
-      const int r = i / (BK / 16), ch = i % (BK / 16);
-      load16_i8(&sP[st][r * LDT + ch * 16], qp, p0 + r, K / 2, kt * BK + ch * 16, N, q_vec);
-    }
-  };
-  // this thread's chunks of dy * gs[j] for chunk kt, loaded into registers
-  // now and quantised into shared memory later
-  constexpr int A_CHUNKS = BM * (BK / 8) / NTHREADS;
-  float va[A_CHUNKS][8];
-  auto fetch = [&](int kt) {
+  for (int i = 0; i < nch; ++i) {
+    if (i + 1 < nch) fetch(n0 + (i + 1) * SC);
+    if (rb < nrb) {
+      const float *d = sd + (i & 1) * SC * ld_d + 4 * rb;
+      const float *g = sg + (i & 1) * SC * ld_g + 4 * gb;
+#pragma unroll 8
+      for (int c = 0; c < SC; ++c) {
+        const float4 a = *reinterpret_cast<const float4 *>(d + c * ld_d);
+        const float4 b = *reinterpret_cast<const float4 *>(g + c * ld_g);
+        const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int idx = threadIdx.x + i * NTHREADS;
-      const int r = idx / (BK / 8), col = kt * BK + (idx % (BK / 8)) * 8;
-      load8_bf16(va[i], dy, m0 + r, M, col, N, a_vec);
-      scale_cols(va[i], gcol, col, N);
-    }
-  };
-  auto store = [&](int st) {
+        for (int x = 0; x < 4; ++x)
 #pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i) {
-      const int idx = threadIdx.x + i * NTHREADS;
-      const int r = idx / (BK / 8), cc = (idx % (BK / 8)) * 8;
-      *reinterpret_cast<uint2 *>(&sA[st][r * LDT + cc]) =
-          m0 + r < M ? quantize8(va[i], srow[r]) : make_uint2(0u, 0u);
-    }
-  };
-
-  const int lane = threadIdx.x % 32, g8 = lane / 4, t = lane % 4;
-  const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;  // wn: low or high run
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0;
-
-  stage_q(0, 0);
-  cp_async_commit();
-  fetch(0);
-  store(0);
-  for (int kt = 0; kt < nt; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nt) {
-      stage_q(cur ^ 1, kt + 1);
-      cp_async_commit();
-      fetch(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[2][4], bfrag[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t *p = &sA[cur][(wm * 32 + mt * 16 + g8) * LDT + ks + t * 4];
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * LDT);
-        af[mt][2] = ld32(p + 16);
-        af[mt][3] = ld32(p + 8 * LDT + 16);
+          for (int y = 0; y < 4; ++y) acc[x][y] = fmaxf(acc[x][y], __fmul_rn(av[x], bv[y]));
       }
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int8_t *p = &sP[cur][(jj * 8 + g8) * LDT + ks + t * 4];
-        const uint32_t w0 = ld32(p), w1 = ld32(p + 16);
-        bfrag[jj][0] = wn ? hi_nibbles(w0) : lo_nibbles(w0);
-        bfrag[jj][1] = wn ? hi_nibbles(w1) : lo_nibbles(w1);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) mma_s8(acc[mt][jj], af[mt], bfrag[jj]);
     }
-    // stage cur ^ 1 was last read in iteration kt - 1, before this
-    // iteration's first barrier
-    if (kt + 1 < nt) store(cur ^ 1);
+    if (i + 1 < nch) stage((i + 1) & 1);
     __syncthreads();
   }
+  if (rb >= nrb) return;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int m = m0 + 4 * rb + x;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int j = 4 * gb + y;
+      if (m < M && j < nj)
+        atomicMax(amax + (long long)m * J + j0 + j, __float_as_uint(acc[x][y]));
+    }
+  }
+}
 
-  // epilogue: bf16(float(acc) * sy[row]) into the run's 64 columns
+// ---- 2. the product
+
+// v = rn(d g) and the bits of fma(v, r1, MAGIC), fma(v, r2, MAGIC): the
+// brackets' integers in the low mantissa bits. Inline asm keeps the slow
+// path's recomputation from being merged with these (which would hold 16
+// flags and products live across its branch).
+__device__ __forceinline__ void bracket(float d, float g, float r1, float r2, uint32_t &q1,
+                                        uint32_t &q2) {
+  asm("{\n.reg .f32 v;\n"
+      "mul.rn.f32 v, %2, %3;\n"
+      "fma.rn.f32 %0, v, %4, 0f4B400000;\n"
+      "fma.rn.f32 %1, v, %5, 0f4B400000;\n}\n"
+      : "=r"(q1), "=r"(q2)
+      : "f"(d), "f"(g), "f"(r1), "f"(r2));
+}
+
+// 4 bf16 (8 bytes of shared memory) -> floats
+__device__ __forceinline__ void load4_bf16(float *f, uint32_t addr) {
+  uint32_t w0, w1;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(w0), "=r"(w1) : "r"(addr));
+  f[0] = __uint_as_float(w0 << 16);
+  f[1] = __uint_as_float(w0 & 0xffff0000u);
+  f[2] = __uint_as_float(w1 << 16);
+  f[3] = __uint_as_float(w1 & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load4_f32(float *f, uint32_t addr) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(f[0]), "=f"(f[1]), "=f"(f[2]), "=f"(f[3])
+               : "r"(addr));
+}
+
+// Rows [m0, m0 + 128) x packed rows [p0, p0 + 128) of dx. G: the group
+// (a multiple of 128); J = K / G groups. Warps 0-3 load and unpack, warps
+// 4-11 consume.
+__global__ void __launch_bounds__(THREADS, 1)
+    dx_groups(const __grid_constant__ CUtensorMap map_dy,
+              const __grid_constant__ CUtensorMap map_qp,
+              const __grid_constant__ CUtensorMap map_gs, const float *__restrict__ amax,
+              bf16 *__restrict__ dx, int M, int K, int N, int G) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (saddr(smem_raw) + 1023) / 1024 * 1024;
+  const uint32_t bufs = ring + STAGES * STAGE_BYTES;  // unpacked tiles
+  const uint32_t sy_s = bufs + NBUF * B_BYTES;        // [unit][128 rows] fp32
+  const uint32_t full = sy_s + 2 * 128 * 4;           // a stage's bytes have landed
+  const uint32_t empty = full + STAGES * 8;           // its readers are done
+  const uint32_t ufull = empty + STAGES * 8;          // an unpacked tile is written
+  const uint32_t ufree = ufull + NBUF * 8;            // its products have retired
+  const int J = K / G, hg = G / 2;
+  const int p0 = blockIdx.x * 128, m0 = blockIdx.y * 128;
+  const int j0 = p0 / hg;
+  // the second unit lies inside the weight; past it, its packed rows read
+  // as zeros (TMA) and its quantised rows as zeros (r1 = r2 = 0)
+  const bool two = p0 + 64 < K / 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = N / TC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, NCONS * 4 + NUNPACK);  // one arrival a reading warp
+    }
+    for (int b = 0; b < NBUF; ++b) {
+      bar_init(ufull + 8 * b, NUNPACK);
+      bar_init(ufree + 8 * b, NCONS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (warp == 0) {  // the producer: one thread starts every load
+      if (lane == 0) {
+        for (int c = 0; c < nc; ++c) {
+          const int s = c % STAGES;
+          if (c >= STAGES) bar_wait(empty + 8 * s, (c / STAGES - 1) & 1);
+          const uint32_t st = ring + s * STAGE_BYTES, bar = full + 8 * s;
+          bar_expect(bar, D_BYTES + P_BYTES + G_BYTES);
+          tma_load(st, &map_dy, c * TC, m0, bar);
+          tma_load(st + D_BYTES, &map_qp, c * TC, p0, bar);
+          tma_load(st + D_BYTES + P_BYTES, &map_gs, c * TC, j0, bar);
+        }
+      }
+    } else {  // the unpackers: 512 16-byte units of a packed tile over 96 threads
+      for (int c = 0; c < nc; ++c) {
+        const int s = c % STAGES, b = c % NBUF;
+        const uint32_t st = ring + s * STAGE_BYTES + D_BYTES, bt = bufs + b * B_BYTES;
+        bar_wait(full + 8 * s, (c / STAGES) & 1);
+        if (c >= NBUF) bar_wait(ufree + 8 * b, (c / NBUF - 1) & 1);
+        // unit u's byte o lands at u U_BYTES + o (low nibbles) and 64 rows
+        // further (high nibbles), the same offset within a swizzled row
+#pragma unroll 1
+        for (int i = threadIdx.x - 32; i < P_BYTES / 16; i += 32 * NUNPACK) {
+          const int o = i * 16, u = o / (64 * TC), w = o % (64 * TC);
+          uint32_t v[4];
+          asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                       : "r"(st + o));
+          const uint32_t lo = bt + u * U_BYTES + w, hi = lo + 64 * TC;
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo),
+                       "r"(lo_nibbles(v[0])), "r"(lo_nibbles(v[1])), "r"(lo_nibbles(v[2])),
+                       "r"(lo_nibbles(v[3])));
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi),
+                       "r"(hi_nibbles(v[0])), "r"(hi_nibbles(v[1])), "r"(hi_nibbles(v[2])),
+                       "r"(hi_nibbles(v[3])));
+        }
+        fence_async_smem();
+        __syncwarp();
+        if (lane == 0) {
+          bar_arrive(ufull + 8 * b);
+          bar_arrive(empty + 8 * s);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    const int wg = warp / 4 - 1, g8 = lane / 4, t = lane % 4;
+    const int rw = (warp % 4) * 16 + g8;  // this thread's rows rw, rw + 8 of its 64
+    const int rl = wg * 64 + rw;          // ... of the CTA's 128
+    // the units' groups, as rows of the stage's two gs rows
+    const int ju[2] = {0, (p0 + 64) / hg - j0};
+    float r1[2][2], r2[2][2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wm * 32 + mt * 16 + g8 + h * 8;
-      const int row = m0 + rl;
-      if (row >= M) continue;
-      const float rs = srow[rl];
-      bf16 *orow = dx + (long long)row * K + j * G + (wn ? G / 2 : 0) + c;
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + rl + 8 * h;
+        const bool live = m < M && (u == 0 || two);
+        // sy = max(max |v|, 1e-20) / 127, as quantize_rows
+        const float scale =
+            live ? __fdiv_rn(fmaxf(amax[(long long)m * J + j0 + ju[u]], 1e-20f), 127.0f) : 1.f;
+        const float r = __frcp_rn(scale);
+        r1[u][h] = live ? __fmul_rn(r, BRACKET_LO) : 0.f;
+        r2[u][h] = live ? __fmul_rn(r, BRACKET_HI) : 0.f;
+        if (t == 0) {
+          const uint32_t a = sy_s + (u * 128 + rl + 8 * h) * 4;
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(scale));
+        }
+      }
+    __syncwarp();
+
+    int acc[2][64];
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        *reinterpret_cast<__nv_bfloat162 *>(orow + jj * 8 + t * 2) = __floats2bfloat162_rn(
-            __fmul_rn(__int2float_rn(acc[mt][jj][h * 2]), rs),
-            __fmul_rn(__int2float_rn(acc[mt][jj][h * 2 + 1]), rs));
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[u][i] = 0;
+
+    for (int c = 0; c < nc; ++c) {
+      const int s = c % STAGES, b = c % NBUF;
+      const uint32_t st = ring + s * STAGE_BYTES;
+      // a[kk][u]: the stage's wgmma A fragments (rows rl, rl + 8; columns
+      // 32 kk + 4 t + (0..3) and + 16), quantised here
+      uint32_t a[TC / 32][2][4];
+      bar_wait(full + 8 * s, (c / STAGES) & 1);
+#pragma unroll
+      for (int kk = 0; kk < TC / 32; ++kk) {
+        // dy rows rl, rl + 8, columns 32 kk + 4 t + (0..3) and + 16: 16-byte
+        // chunk 4 kk + (t >> 1) (and + 2) of a 128-byte row, swizzled by row % 8
+        float f[2][8];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int chunk = (4 * kk + 2 * half + (t >> 1)) ^ g8;
+            load4_bf16(&f[h][4 * half], st + (rl + 8 * h) * 128 + chunk * 16 + (t & 1) * 8);
+          }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float gv[8];
+          const uint32_t ga = st + D_BYTES + P_BYTES + ju[u] * TC * 4 + (32 * kk + 4 * t) * 4;
+          load4_f32(gv, ga);
+          load4_f32(gv + 4, ga + 64);
+          // w[h][half]: the int8 of row rl + 8 h, columns 32 kk + 16 half + 4 t
+          // + (0..3), as wgmma's A fragment holds them
+          uint32_t w[2][2], diff[2][2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              uint32_t q[4];
+              diff[h][half] = 0u;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                uint32_t q2;
+                bracket(f[h][4 * half + e], gv[4 * half + e], r1[u][h], r2[u][h], q[e], q2);
+                diff[h][half] |= q[e] ^ q2;
+              }
+              w[h][half] = __byte_perm(__byte_perm(q[0], q[1], 0x0040),
+                                       __byte_perm(q[2], q[3], 0x0040), 0x5410);
+            }
+          if ((diff[0][0] | diff[0][1] | diff[1][0] | diff[1][1]) != 0u) {
+            // a bracket holds a half-integer: the IEEE quotient there
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float scale;
+              asm volatile("ld.shared.f32 %0, [%1];\n"
+                           : "=f"(scale)
+                           : "r"(sy_s + (u * 128 + rl + 8 * h) * 4));
+#pragma unroll
+              for (int x = 0; x < 8; ++x) {
+                const float v = __fmul_rn(f[h][x], gv[x]);
+                if (__fmaf_rn(v, r1[u][h], MAGIC) != __fmaf_rn(v, r2[u][h], MAGIC)) {
+                  const uint32_t q8 = __float2int_rn(__fdiv_rn(v, scale)) & 0xffu;
+                  const int sh = 8 * (x % 4);
+                  w[h][x / 4] = (w[h][x / 4] & ~(0xffu << sh)) | (q8 << sh);
+                }
+              }
+            }
+          }
+          a[kk][u][0] = w[0][0];
+          a[kk][u][1] = w[1][0];
+          a[kk][u][2] = w[0][1];
+          a[kk][u][3] = w[1][1];
+        }
+      }
+      // this warp has read the stage's dy and gs bytes: release it
+      __syncwarp();
+      if (lane == 0) bar_arrive(empty + 8 * s);
+      bar_wait(ufull + 8 * b, (c / NBUF) & 1);
+      const uint32_t bt = bufs + b * B_BYTES;
+      // A from registers: every fragment is written before the products
+      // start, which end (wgmma.wait) before the next stage writes them
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TC / 32; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)  // K-major, 64-byte swizzle: 32 bytes on
+          wgmma_s8_rs(acc[u], a[kk][u], gmma_desc(bt + u * U_BYTES + kk * 32, 16, 512, 2));
+      wgmma_commit();
+      wgmma_wait<0>();  // this stage's products have retired: free its tile
+      if (threadIdx.x % 128 == 0) bar_arrive(ufree + 8 * b);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+
+    // register i: row rl + 8 ((i >> 1) & 1), unpacked column 8 (i >> 2) + 2 t
+    // + (i & 1): packed row p0 + 64 u + (col % 64), nibble col / 64
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && !two) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + rl + 8 * h;
+        if (m >= M) continue;
+        float scale;
+        asm volatile("ld.shared.f32 %0, [%1];\n"
+                     : "=f"(scale)
+                     : "r"(sy_s + (u * 128 + rl + 8 * h) * 4));
+        bf16 *orow = dx + (long long)m * K;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 8 * j + 2 * t;
+          const int p = p0 + 64 * u + (col % 64);
+          const int k = (p / hg) * G + (col / 64) * hg + p % hg;
+          *reinterpret_cast<__nv_bfloat162 *>(orow + k) = __floats2bfloat162_rn(
+              __fmul_rn(__int2float_rn(acc[u][4 * j + 2 * h]), scale),
+              __fmul_rn(__int2float_rn(acc[u][4 * j + 2 * h + 1]), scale));
+        }
       }
     }
   }
 }
+
+}  // namespace q4dx
 
 }  // namespace
 
@@ -362,12 +675,52 @@ extern "C" int int4_matmul_bf16(const void *xq, const void *sx, const void *qp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// #12: dy (M, N) bf16, qp (K/2, N) int8, gs (K/G, N) fp32 -> dx (M, K) bf16
+// #12: dy (M, N) bf16, qp (K/2, N) int8, gs (K/G, N) fp32 -> dx (M, K) bf16;
+// amax (M, K/G) fp32 scratch from the wrapper. G a multiple of 128 dividing
+// K, N a multiple of 128, dy, qp and gs 16-byte aligned.
 extern "C" int int4_matmul_dx_bf16(const void *dy, const void *qp, const void *gs,
-                                   void *dx, int M, int K, int N, int G, void *stream) {
-  const dim3 grid(K / 2 / HG, (M + BM - 1) / BM);
-  int4_dx_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16 *>(dy), static_cast<const int8_t *>(qp),
-      static_cast<const float *>(gs), static_cast<bf16 *>(dx), M, K, N, G);
-  return static_cast<int>(cudaGetLastError());
+                                   void *amax, void *dx, int M, int K, int N, int G,
+                                   void *stream) {
+  using namespace q4dx;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || G <= 0 || G % 128 || K % G || N % 128) return cudaErrorInvalidValue;
+  const int J = K / G;
+  CUtensorMap md, mq, mg;
+  if (!tensor_map_2d(&md, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dy, M, N, 2ll * N, TC, 128,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, qp, K / 2, N, N, TC, 128,
+                     CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map_2d(&mg, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, gs, J, N, 4ll * N, TC, 2,
+                     CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  // 1. the maxima: balanced tiles of at most 64 groups, 4 x 4 a thread, and
+  // enough column slices for eight CTAs an SM (measured on an H100: 0.14
+  // ms less than two at M 6144, K 11008, N 4096)
+  const int jtiles = (J + SJ - 1) / SJ, jt = (J + jtiles - 1) / jtiles;
+  const int ngb = (jt + 3) / 4, nrb = std::min(256 / ngb, SR / 4);
+  const int mtiles = (M + 4 * nrb - 1) / (4 * nrb);
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nslice = std::max(1, std::min(N / SC, (8 * sms + mtiles * jtiles - 1) /
+                                                      (mtiles * jtiles)));
+  const int slice = (N / SC + nslice - 1) / nslice * SC;
+  const int smem = 2 * SC * (4 * nrb + 4 + 4 * ngb + 4) * 4;
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * M * J, st);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(reinterpret_cast<const void *>(dx_amax),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dx_amax<<<dim3(mtiles, jtiles, (N + slice - 1) / slice), 256, smem, st>>>(
+      static_cast<const bf16 *>(dy), static_cast<const float *>(gs),
+      static_cast<unsigned *>(amax), M, N, J, jt, ngb, nrb, slice);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // 2. the product
+  err = cudaFuncSetAttribute(reinterpret_cast<const void *>(dx_groups),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  dx_groups<<<dim3((K / 2 + 127) / 128, (M + 127) / 128), THREADS, SMEM, st>>>(
+      md, mq, mg, static_cast<const float *>(amax), static_cast<bf16 *>(dx), M, K, N, G);
+  return cudaGetLastError();
 }

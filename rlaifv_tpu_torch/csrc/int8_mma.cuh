@@ -71,14 +71,6 @@ __device__ __forceinline__ uint2 quantize8(const float (&v)[8], float scale) {
   return make_uint2(w[0], w[1]);
 }
 
-// v = dy * s per column (one rounded product, as the plain versions' fp32
-// dy * s)
-__device__ __forceinline__ void scale_cols(float (&v)[8], const float *acol, int c,
-                                           int cols) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j] = c + j < cols ? __fmul_rn(v[j], acol[c + j]) : 0.f;
-}
-
 // the sign-extended low / high nibbles of 4 packed int4 bytes (pack_int4),
 // byte for byte: ((b & 0xF) ^ 8) - 8 and b >> 4 of the TPU kernels' unpack
 __device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
@@ -115,11 +107,11 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   o[3] = __byte_perm(t2, t3, 0x7632);
 }
 
-// Rows [m0, m0 + BM) of a (M, C) bf16 matrix (times acol per column, with
-// DX): scale = max(max |v|, 1e-20) / 127 per row, one warp a row.
-template <bool DX, int BM, int NTHREADS>
-__device__ void row_scales(float *srow, const __nv_bfloat16 *a, const float *acol,
-                           int m0, int M, int C, bool vec) {
+// Rows [m0, m0 + BM) of a (M, C) bf16 matrix: scale = max(max |v|, 1e-20)
+// / 127 per row, one warp a row.
+template <int BM, int NTHREADS>
+__device__ void row_scales(float *srow, const __nv_bfloat16 *a, int m0, int M, int C,
+                           bool vec) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += NTHREADS / 32) {
     float amax = 0.f;
@@ -127,7 +119,6 @@ __device__ void row_scales(float *srow, const __nv_bfloat16 *a, const float *aco
       for (int c = lane * 8; c < C; c += 32 * 8) {
         float v[8];
         load8_bf16(v, a, m0 + r, M, c, C, vec);
-        if constexpr (DX) scale_cols(v, acol, c, C);
 #pragma unroll
         for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
       }

@@ -5,7 +5,7 @@
 //
 // Replaces, in rlaifv_tpu/ops/quant_matmul.py:
 //   #7  _kernel             (int8_matmul):             x quantised per row in the kernel
-//   #8  _dx_kernel          (int8_matmul_dx):          dy * s quantised per row in the kernel
+//   #8  _dx_kernel          (int8_matmul_dx):          dy * s quantised per row, once (qdx)
 //   #9  _prequant_kernel    (int8_matmul_prequant):    x quantised beforehand
 //   #10 _prequant_dx_kernel (int8_matmul_dx_prequant): dy * s quantised beforehand
 //
@@ -25,8 +25,9 @@
 // against K N + M (K + N) bytes), the weight bytes at small M (M < 128, each
 // q byte is used by only M rows).
 //
-// What the design does about it: each CTA owns a 128 x 128 output tile and
-// walks the contraction in 64-wide chunks through two shared-memory stages
+// What the design does about it (#7, #9, #10; #8 in qdx below): each CTA
+// owns a 128 x 128 output tile and walks the contraction in 64-wide chunks
+// through two shared-memory stages
 // (cp.async for int8 operands), 8 warps each issuing mma.sync m16n8k32
 // s8 x s8 -> s32 on a 32 x 64 sub-tile. The int8 mma takes both operands
 // contraction-contiguous (.row.col):
@@ -37,18 +38,20 @@
 //   transposed in shared memory with byte permutes into a K-contiguous
 //   tile. Neither q^T nor a second copy of the weight exists in device
 //   memory.
-// The in-kernel-quantisation kernels (#7, #8) first take each of their 128
-// rows' absolute maximum over the whole contraction (as the TPU kernel
-// quantises its row stripe in every program), then quantise each bf16
-// chunk into shared memory as it arrives, loading the next chunk into
-// registers while the current one multiplies. That costs an IEEE division
-// per element in every column CTA, the TPU kernel's redundancy across N
-// tiles, where the prequant pair divides once per element in torch. Ragged edges (M, N, K not a
-// multiple of the tile, rows whose length is not a multiple of 16 bytes)
-// read as zeros, which add exact zeros, and are never written. wgmma, TMA
-// and larger tiles are left for a later change.
+// The in-kernel-quantisation kernel (#7) first takes each of its 128 rows'
+// absolute maximum over the whole contraction (as the TPU kernel quantises
+// its row stripe in every program), then quantises each bf16 chunk into
+// shared memory as it arrives, loading the next chunk into registers while
+// the current one multiplies. That costs an IEEE division per element in
+// every column CTA, the TPU kernel's redundancy across N tiles, where the
+// prequant pair divides once per element in torch. Ragged edges (M, N, K
+// not a multiple of the tile, rows whose length is not a multiple of 16
+// bytes) read as zeros, which add exact zeros, and are never written.
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
 #include "int8_mma.cuh"
 
 using bf16 = __nv_bfloat16;
@@ -95,14 +98,15 @@ __device__ __forceinline__ void transpose_q(int8_t *dst, const int8_t *src) {
 // FWD: out (M, N) = x (M, K) . q (K, N), contraction C = K, output columns K.
 // !FWD: out (M, K) = dy (M, N) . q^T, contraction C = N, output columns K.
 // PREQ: `a` is int8 (M, C) with row scales `arow` (M,); else `a` is bf16
-// (M, C), multiplied by `acol` (C,) first when !FWD, and quantised here.
-// `ocol` (N,) scales the forward's output columns.
+// (M, C) and quantised here (the forward, #7; #8 quantises its rows in a
+// pass of its own, qdx below). `ocol` (N,) scales the forward's output
+// columns.
 template <bool FWD, bool PREQ>
 __global__ void __launch_bounds__(NTHREADS)
     qmm_kernel(const void *__restrict__ a, const float *__restrict__ arow,
-               const float *__restrict__ acol, const int8_t *__restrict__ q,
-               const float *__restrict__ ocol, bf16 *__restrict__ out, int M, int K,
-               int N) {
+               const int8_t *__restrict__ q, const float *__restrict__ ocol,
+               bf16 *__restrict__ out, int M, int K, int N) {
+  static_assert(FWD || PREQ, "the dx product takes prequantised rows");
   __shared__ __align__(16) int8_t sA[2][A_BYTES];
   __shared__ __align__(16) int8_t sB[FWD ? 1 : 2][B_BYTES];
   __shared__ __align__(16) int8_t sQ[FWD ? 2 : 1][FWD ? Q_BYTES : 16];
@@ -120,7 +124,7 @@ __global__ void __launch_bounds__(NTHREADS)
   if constexpr (PREQ) {
     for (int r = threadIdx.x; r < BM; r += NTHREADS) srow[r] = m0 + r < M ? arow[m0 + r] : 1.f;
   } else {
-    row_scales<!FWD, BM, NTHREADS>(srow, a16, acol, m0, M, C, a_vec);
+    row_scales<BM, NTHREADS>(srow, a16, m0, M, C, a_vec);
   }
   __syncthreads();
 
@@ -155,7 +159,6 @@ __global__ void __launch_bounds__(NTHREADS)
       const int idx = threadIdx.x + i * NTHREADS;
       const int r = idx / (BK / 8), c = kt * BK + (idx % (BK / 8)) * 8;
       load8_bf16(va[i], a16, m0 + r, M, c, C, a_vec);
-      if constexpr (!FWD) scale_cols(va[i], acol, c, C);
     }
   };
   auto store_bf16 = [&](int st) {
@@ -262,40 +265,273 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 template <bool FWD, bool PREQ>
-int launch(const void *a, const void *arow, const void *acol, const void *q,
-           const void *ocol, void *out, int M, int K, int N, void *stream) {
+int launch(const void *a, const void *arow, const void *q, const void *ocol, void *out,
+           int M, int K, int N, void *stream) {
   const int NO = FWD ? N : K;
   const dim3 grid((NO + BN - 1) / BN, (M + BM - 1) / BM);
   qmm_kernel<FWD, PREQ><<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const float *>(arow), static_cast<const float *>(acol),
-      static_cast<const int8_t *>(q), static_cast<const float *>(ocol),
-      static_cast<bf16 *>(out), M, K, N);
+      a, static_cast<const float *>(arow), static_cast<const int8_t *>(q),
+      static_cast<const float *>(ocol), static_cast<bf16 *>(out), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------------------------ #8, redesigned
+//
+// dx = Q(dy * s) . q^T at any M, built for the rows QLoRA's short suffix
+// gives it (M < 128, where the weight's bytes bound it) in three launches:
+// 1. dx_quant_rows: one CTA a row quantises v = dy * s once per call:
+//    sy = max(max |v|, 1e-20) / 127 and rn(v / sy) (IEEE), the same
+//    arithmetic as quantize8 / row_scales, into dyq (M, N) int8 and sy (M,),
+//    where the TPU kernel quantises the stripe again in every column tile.
+// 2. dx_product: dyq . q^T on wgmma m64n128k32 s8 x s8 -> s32, both operands
+//    K-major as they lie in device memory (the contraction N is contiguous
+//    in dyq's rows and in q's), fed by TMA through a 4-stage ring of
+//    128-byte-swizzled tiles: one producer warp, NCONS consumer warpgroups
+//    of 64 rows each (NCONS = 1 at M <= 64, so a tile holds the rows there
+//    are). The N contraction is split into `split` slices of 128-wide
+//    chunks, one CTA per (128 output columns, row tile, slice), so that at
+//    M 64, K 4096, N 11008 some 288 CTAs (two per SM, 96 KB of ring each,
+//    64 KB of weight in flight per CTA) stream disjoint slices of q. One
+//    slice writes bf16(float(acc) * sy) itself; several write exact int32
+//    partials (split, M, K);
+// 3. dx_finish (split > 1 only): sums the partials in slice order (int32:
+//    exact, |sum| <= 127^2 N < 2^31 for N < 133,000) and writes
+//    bf16(float(sum) * sy).
+// No atomics: every element is written by one thread in a fixed order, so
+// reruns give the same bits. N not a multiple of 16 (rows TMA cannot map)
+// takes #10's kernel on the quantised rows instead of step 2.
+namespace qdx {
+
+constexpr int TN = 128;      // output columns (rows of q) a CTA owns
+constexpr int TC = 128;      // contraction bytes of a stage: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int ATOM = 1024;   // 8 rows of 128 bytes
+
+template <int NCONS>
+struct Tile {
+  static constexpr int THREADS = NCONS * 128 + 32;
+  static constexpr int A_BYTES = NCONS * 64 * TC;
+  static constexpr int B_BYTES = TN * TC;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + ATOM;
+};
+
+__device__ __forceinline__ float block_max(float v, float *red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < blockDim.x / 32 ? red[lane] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// one CTA a row: dyq[m] = clamp(rn(v / sy), +-127) with v = dy[m] * s
+__global__ void __launch_bounds__(256)
+    dx_quant_rows(const bf16 *__restrict__ dy, const float *__restrict__ s,
+                  int8_t *__restrict__ dyq, float *__restrict__ sy, int N) {
+  __shared__ float red[8];
+  const long long m = blockIdx.x;
+  const bf16 *row = dy + m * N;
+  float amax = 0.f;
+  for (int n = threadIdx.x; n < N; n += 256)
+    amax = fmaxf(amax, fabsf(__fmul_rn(__bfloat162float(row[n]), s[n])));
+  const float scale = __fdiv_rn(fmaxf(block_max(amax, red), 1e-20f), 127.0f);
+  if (threadIdx.x == 0) sy[m] = scale;
+  int8_t *out = dyq + m * N;
+  for (int n = threadIdx.x; n < N; n += 256) {
+    const int q = __float2int_rn(__fdiv_rn(__fmul_rn(__bfloat162float(row[n]), s[n]), scale));
+    out[n] = static_cast<int8_t>(max(-127, min(127, q)));
+  }
+}
+
+// chunks [c0, c1) of slice `slice` out of `split` over nc chunks
+__device__ __forceinline__ void slice_range(int slice, int split, int nc, int &c0, int &c1) {
+  c0 = static_cast<int>(static_cast<long long>(slice) * nc / split);
+  c1 = static_cast<int>(static_cast<long long>(slice + 1) * nc / split);
+}
+
+// One CTA: output columns [k0, k0 + 128) of rows [m0, m0 + 64 NCONS), the
+// contraction over chunk slice blockIdx.z. Warps 0 .. 4 NCONS - 1 are the
+// consumer warpgroups (rows 64 wg .. 64 wg + 63 of the tile), the last warp
+// the producer.
+template <int NCONS>
+__global__ void __launch_bounds__(Tile<NCONS>::THREADS)
+    dx_product(const __grid_constant__ CUtensorMap map_a,
+               const __grid_constant__ CUtensorMap map_b, const float *__restrict__ sy,
+               bf16 *__restrict__ dx, int *__restrict__ part, int M, int K, int N) {
+  using T = Tile<NCONS>;
+  extern __shared__ __align__(1024) unsigned char smem_ring[];
+  const uint32_t tiles = (saddr(smem_ring) + ATOM - 1) / ATOM * ATOM;
+  const uint32_t full = tiles + STAGES * T::STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  const int k0 = blockIdx.x * TN, m0 = blockIdx.y * 64 * NCONS;
+  const int slice = blockIdx.z, split = gridDim.z;
+  int c0, c1;
+  slice_range(slice, split, (N + TC - 1) / TC, c0, c1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, NCONS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == NCONS * 4) {  // the producer: one thread starts every load
+    if (lane == 0) {
+      for (int c = c0; c < c1; ++c) {
+        const int i = c - c0, s = i % STAGES;
+        if (i >= STAGES) bar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+        const uint32_t a = tiles + s * T::STAGE_BYTES, bar = full + 8 * s;
+        bar_expect(bar, T::STAGE_BYTES);
+        tma_load(a, &map_a, c * TC, m0, bar);
+        tma_load(a + T::A_BYTES, &map_b, c * TC, k0, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int c = c0; c < c1; ++c) {
+    const int i = c - c0, s = i % STAGES;
+    bar_wait(full + 8 * s, (i / STAGES) & 1);
+    const uint32_t a = tiles + s * T::STAGE_BYTES + wg * 64 * TC;
+    const uint32_t b = tiles + s * T::STAGE_BYTES + T::A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC / 32; ++kk)  // the next 32 bytes lie 32 bytes on
+      wgmma_s8_ss(acc, gmma_desc(a + kk * 32, 16, ATOM), gmma_desc(b + kk * 32, 16, ATOM));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: release it
+    if (i > 0 && threadIdx.x % 128 == 0) bar_arrive(empty + 8 * ((i - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // register i: row r0 + 8 ((i >> 1) & 1), column cl + 8 (i >> 2) + (i & 1)
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int cl = k0 + 2 * (lane % 4);
+  const bool pairs = K % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= M) continue;
+    const float rs = sy[r];
+    bf16 *orow = dx + static_cast<long long>(r) * K;
+    int *prow = part + (static_cast<long long>(slice) * M + r) * K;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int c = cl + 8 * j;
+      const int v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (split > 1) {
+        if (pairs && c + 1 < K) {
+          *reinterpret_cast<int2 *>(prow + c) = make_int2(v0, v1);
+        } else {
+          if (c < K) prow[c] = v0;
+          if (c + 1 < K) prow[c + 1] = v1;
+        }
+        continue;
+      }
+      const float f0 = __fmul_rn(__int2float_rn(v0), rs);
+      const float f1 = __fmul_rn(__int2float_rn(v1), rs);
+      if (pairs && c + 1 < K) {
+        *reinterpret_cast<__nv_bfloat162 *>(orow + c) = __floats2bfloat162_rn(f0, f1);
+      } else {
+        if (c < K) orow[c] = __float2bfloat16_rn(f0);
+        if (c + 1 < K) orow[c + 1] = __float2bfloat16_rn(f1);
+      }
+    }
+  }
+}
+
+// dx = bf16(float(sum over slices of part) * sy[row]), the slices in order
+__global__ void __launch_bounds__(256)
+    dx_finish(const int *__restrict__ part, const float *__restrict__ sy,
+              bf16 *__restrict__ dx, int M, int K, int split) {
+  const long long MK = static_cast<long long>(M) * K;
+  for (long long e = blockIdx.x * 256ll + threadIdx.x; e < MK; e += gridDim.x * 256ll) {
+    int acc = 0;
+    for (int s = 0; s < split; ++s) acc += part[s * MK + e];
+    dx[e] = __float2bfloat16_rn(__fmul_rn(__int2float_rn(acc), sy[e / K]));
+  }
+}
+
+template <int NCONS>
+int launch_product(const void *dyq, const void *sy, const void *q, void *dx, void *part,
+                   int M, int K, int N, int split, cudaStream_t stream) {
+  using T = Tile<NCONS>;
+  CUtensorMap ma, mb;
+  if (!tensor_map_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, dyq, M, N, N, TC, 64 * NCONS,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, N, TC, TN,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void *>(dx_product<NCONS>),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((K + TN - 1) / TN, (M + 64 * NCONS - 1) / (64 * NCONS), split);
+  dx_product<NCONS><<<grid, T::THREADS, T::SMEM, stream>>>(
+      ma, mb, static_cast<const float *>(sy), static_cast<bf16 *>(dx),
+      static_cast<int *>(part), M, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace qdx
 
 }  // namespace
 
 // #7: x (M, K) bf16, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16
 extern "C" int int8_matmul_bf16(const void *x, const void *q, const void *s, void *out,
                                 int M, int K, int N, void *stream) {
-  return launch<true, false>(x, nullptr, nullptr, q, s, out, M, K, N, stream);
+  return launch<true, false>(x, nullptr, q, s, out, M, K, N, stream);
 }
 
-// #8: dy (M, N) bf16, q (K, N) int8, s (N,) fp32 -> dx (M, K) bf16
+// #8: dy (M, N) bf16, q (K, N) int8, s (N,) fp32 -> dx (M, K) bf16. Scratch
+// from the wrapper: dyq (M, N) int8, sy (M,) fp32 and, with split > 1,
+// part (split, M, K) int32; split in [1, ceil(N / 128)], 1 where N % 16 != 0.
 extern "C" int int8_matmul_dx_bf16(const void *dy, const void *q, const void *s,
-                                   void *dx, int M, int K, int N, void *stream) {
-  return launch<false, false>(dy, nullptr, s, q, nullptr, dx, M, K, N, stream);
+                                   void *dyq, void *sy, void *part, void *dx, int M, int K,
+                                   int N, int split, void *stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool tma = N % 16 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  if (M <= 0 || K <= 0 || N <= 0 || split < 1 || split > (N + qdx::TC - 1) / qdx::TC ||
+      (split > 1 && (part == nullptr || !tma)))
+    return cudaErrorInvalidValue;
+  qdx::dx_quant_rows<<<M, 256, 0, st>>>(static_cast<const bf16 *>(dy),
+                                       static_cast<const float *>(s),
+                                       static_cast<int8_t *>(dyq), static_cast<float *>(sy), N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (!tma)  // rows TMA cannot map: #10's kernel on the quantised rows
+    return launch<false, true>(dyq, sy, q, nullptr, dx, M, K, N, stream);
+  const int e = M <= 64 ? qdx::launch_product<1>(dyq, sy, q, dx, part, M, K, N, split, st)
+                        : qdx::launch_product<2>(dyq, sy, q, dx, part, M, K, N, split, st);
+  if (e != cudaSuccess || split == 1) return e;
+  const long long MK = static_cast<long long>(M) * K;
+  const int blocks = static_cast<int>(std::min<long long>((MK + 255) / 256, 4096));
+  qdx::dx_finish<<<blocks, 256, 0, st>>>(static_cast<const int *>(part),
+                                        static_cast<const float *>(sy),
+                                        static_cast<bf16 *>(dx), M, K, split);
+  return cudaGetLastError();
 }
 
 // #9: xq (M, K) int8, sx (M,) fp32, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16
 extern "C" int int8_matmul_prequant_bf16(const void *xq, const void *sx, const void *q,
                                          const void *s, void *out, int M, int K, int N,
                                          void *stream) {
-  return launch<true, true>(xq, sx, nullptr, q, s, out, M, K, N, stream);
+  return launch<true, true>(xq, sx, q, s, out, M, K, N, stream);
 }
 
 // #10: dyq (M, N) int8, sy (M,) fp32, q (K, N) int8 -> dx (M, K) bf16
 extern "C" int int8_matmul_dx_prequant_bf16(const void *dyq, const void *sy, const void *q,
                                             void *dx, int M, int K, int N, void *stream) {
-  return launch<false, true>(dyq, sy, nullptr, q, nullptr, dx, M, K, N, stream);
+  return launch<false, true>(dyq, sy, q, nullptr, dx, M, K, N, stream);
 }

@@ -42,7 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from rlaifv_tpu_torch.models.layers import Dense, lora_side_term
-from rlaifv_tpu_torch.ops.attention import multi_head_attention
+from rlaifv_tpu_torch.ops.attention import kernel_domain, multi_head_attention
 from rlaifv_tpu_torch.ops.decode_attention import (
     decode_attention_prefix_int8,
     decode_attention_prefix_int8_dense,
@@ -317,7 +317,10 @@ class LlamaAttention(nn.Module):
                                         q_offset=None, impl=self.attn_impl)
         args = (q[:, 0], cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
                 attention_mask)
-        if q.is_cuda and self.attn_impl != "dense":
+        n_rep = q.shape[2] // cache["k"].shape[2]
+        if q.is_cuda and self.attn_impl != "dense" and (
+                self.attn_impl != "auto"
+                or kernel_domain(q.dtype, q.shape[-1], n_rep, decode=True)):
             out = decode_attention_prefix_int8(*args, cache_index + 1)
         else:
             out = decode_attention_prefix_int8_dense(*args)

@@ -65,16 +65,16 @@ SIGNATURES = {
     "fused_head_dw_bf16": [_P] * 3 + [_I] * 4 + [_P],
     # x, q, s, out, M, K, N, stream
     "int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
-    # dy, q, s, dx, M, K, N, stream
-    "int8_matmul_dx_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # dy, q, s, dyq, sy, part, dx, M, K, N, split, stream
+    "int8_matmul_dx_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # xq, sx, q, s, out, M, K, N, stream
     "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 3 + [_P],
     # dyq, sy, q, dx, M, K, N, stream
     "int8_matmul_dx_prequant_bf16": [_P] * 4 + [_I] * 3 + [_P],
     # xq, sx, qp, gs, out, M, K, N, G, stream
     "int4_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
-    # dy, qp, gs, dx, M, K, N, G, stream
-    "int4_matmul_dx_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    # dy, qp, gs, amax, dx, M, K, N, G, stream
+    "int4_matmul_dx_bf16": [_P] * 5 + [_I] * 4 + [_P],
     # int64 array of pointers and ints (ops/fused_decode.py), its length,
     # eps, scale, w4, stream
     "fused_decode_step_cuda": [_P, _I, _F, _F, _I, _P],
@@ -123,23 +123,39 @@ def _run(cmds: list) -> str:
     return "".join(logs)
 
 
-def _compile_and_link(path: Path) -> str:
+def compile_and_link(path: Path, sources: list, include: Optional[Path] = None) -> str:
     """One nvcc per source, all started together, then one link into
     `path` (written under a temporary name and renamed). The objects and
     the temporary file are removed whether or not the build succeeds."""
     tag = f"{os.getpid()}.tmp"
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    if include is not None:
+        compile_flags += ["-I", str(include)]
+    objs = [path.parent / f"{src.stem}.{tag}.o" for src in sources]
     tmp = path.with_suffix(f".{tag}")
     try:
         log = _run([[_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
-                    for src, obj in zip(_sources(), objs)])
+                    for src, obj in zip(sources, objs)])
         log += _run([[_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, path)
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
     return log
+
+
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare the C signatures of the entry
+    points it exports."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    lib.rlaifv_error_string.argtypes = [ctypes.c_int]
+    lib.rlaifv_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -152,17 +168,10 @@ def load_kernels() -> ctypes.CDLL:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
-            build_log = _compile_and_link(path)
+            build_log = compile_and_link(path, _sources())
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.rlaifv_error_string.argtypes = [ctypes.c_int]
-        lib.rlaifv_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+        _lib = open_library(path)
+        return _lib
 
 
 def check(err: int, name: str) -> None:

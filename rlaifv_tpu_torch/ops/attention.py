@@ -5,11 +5,15 @@ Counterpart of rlaifv_tpu/ops/attention.py with the same layouts (q
 (B, Lq, H, D); k/v (B, Lk, KVH, D), KVH dividing H) and the same dispatch
 rule, with "on TPU" read as "q is a CUDA tensor":
 
-- flash (ops/flash_attention.py) when Lq >= 128, D <= 256, q_offset is None
-  or an int, and Lq == Lk or q_offset + Lq == Lk;
+- flash (ops/flash_attention.py) when Lq >= 128, q_offset is None or an
+  int, and Lq == Lk or q_offset + Lq == Lk;
 - prefix decode (ops/decode_attention.py) when Lq == 1, a mask is given,
   q_offset is not None and Lk % 128 == 0;
-- dense otherwise.
+- dense otherwise,
+and a kernel only inside its domain (`kernel_domain`): bf16 operands with D
+64 or 128, for decode n_rep 1, 2, 4 or 8. The JAX package routes any dtype
+with D <= 256 to its TPU kernels (fp32 at Precision.HIGHEST); the port runs
+the rest, fp32 among it, on the dense path (ROADMAP.md section 3).
 
 In eager PyTorch every cache_index is a Python int, so the geometry
 conditions alone keep the generate prefill (Lk = max_len != Lq) and the
@@ -74,18 +78,28 @@ def dense_attention(
     return out.to(q.dtype)
 
 
+def kernel_domain(dtype: Optional[torch.dtype], D: int, n_rep: int = 1,
+                  decode: bool = False) -> bool:
+    """Whether the attention kernels take these operands: bf16 (all of q,
+    k, v; None for mixed types) with head dim 64 or 128, and for the decode
+    kernels (#4, #5) a head-group size n_rep of 1, 2, 4 or 8."""
+    return dtype == torch.bfloat16 and D in (64, 128) and (
+        not decode or n_rep in (1, 2, 4, 8))
+
+
 def attention_route(*, Lq: int, Lk: int, D: int, q_offset: Optional[int],
-                    has_mask: bool, on_cuda: bool, impl: str = "auto") -> str:
+                    has_mask: bool, on_cuda: bool, dtype: Optional[torch.dtype],
+                    n_rep: int = 1, impl: str = "auto") -> str:
     """The path `multi_head_attention` takes: "flash", "decode" or "dense"."""
     if impl != "auto":
         return impl
     if not on_cuda:
         return "dense"
-    if Lq >= 128 and D <= 256 and (
+    if Lq >= 128 and kernel_domain(dtype, D) and (
             Lq == Lk or (q_offset is not None and q_offset + Lq == Lk)):
         return "flash"
-    if (Lq == 1 and q_offset is not None and has_mask and D <= 256
-            and Lk % 128 == 0):
+    if (Lq == 1 and q_offset is not None and has_mask and Lk % 128 == 0
+            and kernel_domain(dtype, D, n_rep, decode=True)):
         return "decode"
     return "dense"
 
@@ -103,16 +117,18 @@ def multi_head_attention(
     """Grouped-query attention. Returns (B, Lq, H, D).
 
     impl: "auto" picks a Hopper kernel for CUDA tensors of a fitting
-    geometry and the dense path otherwise; "flash"/"decode"/"dense" force a
+    geometry and type (`attention_route`) and the dense path otherwise; "flash"/"decode"/"dense" force a
     path (a forced kernel on a CPU tensor runs its plain version).
     """
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
     if q_offset is not None and not isinstance(q_offset, int):
         raise TypeError(f"q_offset must be a Python int; got {type(q_offset)}")
+    same = q.dtype == k.dtype == v.dtype
     route = attention_route(Lq=Lq, Lk=Lk, D=D, q_offset=q_offset,
                             has_mask=attention_mask is not None,
-                            on_cuda=q.is_cuda, impl=impl)
+                            on_cuda=q.is_cuda, dtype=q.dtype if same else None,
+                            n_rep=H // k.shape[2], impl=impl)
 
     if route == "flash":
         from rlaifv_tpu_torch.ops.flash_attention import flash_attention

@@ -15,7 +15,9 @@ high nibble (`pack_int4`), so any whole group unpacks on its own.
   scale;
 - `int4_matmul_dx` (#12): for each output group j, dy * gs[j] quantised per
   row with its own scale sy, an exact int8 sub-dot over all N against the
-  group's unpacked rows, times sy.
+  group's unpacked rows, times sy. On the card one pass over dy writes the
+  (M, K/G) table of every sy (`int4_dx_row_scales`), and the product
+  rounds each quotient without a division (`bracketed_round`).
 
 The kernels live in csrc/int4_matmul.cu. Each entry point launches its
 kernel for a CUDA tensor (bf16 activations; anything else raises) and runs
@@ -164,6 +166,35 @@ def int4_matmul_dx_plain(dy, qp, gs) -> torch.Tensor:
     return out.to(dy.dtype).reshape(*dy.shape[:-1], out.shape[1])
 
 
+# the relative half-width of the brackets around 1 / sy (csrc/int4_matmul.cu)
+BRACKET = 2.0 ** -20
+
+
+def int4_dx_row_scales(dy2: torch.Tensor, gs: torch.Tensor) -> torch.Tensor:
+    """Plain version of #12's row-scale pass: fp32 dy (M, N), gs (J, N) ->
+    the (M, J) table sy[m, j] = max(max_n |dy[m, n] gs[j, n]|, 1e-20) / 127
+    (the product rounded to fp32, the quotient IEEE: `quantize_rows`' scale
+    of dy * gs[j], group for group)."""
+    amax = torch.stack([(dy2 * gs[j]).abs().amax(dim=-1) for j in range(gs.shape[0])], 1)
+    amax = torch.clamp_min(amax, 1e-20)
+    return amax / torch.full_like(amax, 127.0)
+
+
+def bracketed_round(v: torch.Tensor, sy: torch.Tensor) -> torch.Tensor:
+    """#12's rounding, in torch: fp32 v (M, C), sy (M, 1) -> int8 equal to
+    `quantize_rows`' clamp(round(v / sy)) bit for bit, by its rule: with r =
+    1 / sy (fp32, IEEE), r1 = r (1 - BRACKET) and r2 = r (1 + BRACKET)
+    rounded to fp32, v r1 and v r2 (exact in float64: two 24-bit
+    significands) bracket the IEEE quotient; where both round to one
+    integer (half to even) that is the result, elsewhere the quotient
+    v / sy itself (fp32, IEEE) is rounded."""
+    r = torch.ones_like(sy) / sy
+    lo = torch.round(v.double() * (r * (1 - BRACKET)).double())
+    hi = torch.round(v.double() * (r * (1 + BRACKET)).double())
+    out = torch.where(lo == hi, lo.float(), torch.round(v / sy))
+    return out.clamp_(-127, 127).to(torch.int8)
+
+
 def _check_weight(name: str, qp: torch.Tensor, gs: torch.Tensor) -> None:
     """The layouts both kernels take: qp (K/2, N) int8, gs (K/G, N) fp32,
     G a multiple of 128 dividing K, N a multiple of 128 (the JAX package's
@@ -208,7 +239,8 @@ def _kernel_fwd(xq, sx, qp, gs) -> torch.Tensor:
 
 
 def _kernel_dx(dy2, qp, gs) -> torch.Tensor:
-    """Kernel #12 on dy (M, N) bf16 -> (M, K) bf16."""
+    """Kernel #12 on dy (M, N) bf16 -> (M, K) bf16: the pass of row maxima
+    into an (M, K/G) table, then the product (two launches)."""
     M, N = dy2.shape
     K = 2 * qp.shape[0]
     _check_weight("int4_matmul_dx", qp, gs)
@@ -216,8 +248,14 @@ def _kernel_dx(dy2, qp, gs) -> torch.Tensor:
     if qp.shape[1] != N or not dy2.is_contiguous():
         raise ValueError(f"int4_matmul_dx: dy must be contiguous (M, {qp.shape[1]}); "
                          f"got {tuple(dy2.shape)}")
+    if qp.data_ptr() % 16 or gs.data_ptr() % 16:
+        raise ValueError("int4_matmul_dx: the kernel reads qp and gs through TMA, "
+                         "which needs 16-byte aligned bases")
+    if dy2.data_ptr() % 16:
+        dy2 = dy2.clone()  # a view at an odd offset; TMA reads aligned rows
+    amax = torch.empty((M, gs.shape[0]), dtype=torch.float32, device=dy2.device)
     dx = torch.empty((M, K), dtype=torch.bfloat16, device=dy2.device)
-    _launch("int4_matmul_dx_bf16", dy2, qp, gs, dx, M, K, N, _group(qp, gs))
+    _launch("int4_matmul_dx_bf16", dy2, qp, gs, amax, dx, M, K, N, _group(qp, gs))
     int4_matmul_dx.launches += 1
     return dx
 

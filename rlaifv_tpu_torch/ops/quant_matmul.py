@@ -8,7 +8,9 @@ x (..., K), q (K, N) int8, scale (N,) fp32 per output channel.
   (sx = max(max|x|, 1e-20) / 127, xq = clamp(round(x / sx), -127, 127)),
   int8 x int8 -> int32, out = (acc * sx) * scale;
 - `int8_matmul_dx` (#8): dx = (dy * scale) @ q^T with dy * scale quantised
-  per row the same way, q^T never made;
+  per row the same way, q^T never made: on the card a row pass quantises
+  once, then the product splits the N contraction into `dx_split` slices
+  whose exact int32 partials are summed in order (`int8_dx_split_plain`);
 - `int8_matmul_prequant` (#9), `int8_matmul_dx_prequant` (#10): the same
   functions with the rows quantised beforehand, in torch (as XLA does it
   outside Pallas in the JAX package), and a pure int8 product kernel.
@@ -29,6 +31,7 @@ returns dx only: q and scale are frozen.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Tuple
@@ -54,12 +57,18 @@ def quantize_rows(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(v / sx).clamp_(-127, 127).to(torch.int8), sx
 
 
-def _int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 (M, C) @ int8 (C, P) -> the exact int32 sums, as fp32 (one
-    rounding, as the kernels' int32 -> fp32 conversion)."""
+def _exact_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, C) @ int8 (C, P) -> the exact integer sums: int64 on the
+    CPU, float64 on the card (exact below 2^53)."""
     if a.is_cuda:
-        return (a.double() @ b.double()).float()
-    return (a.long() @ b.long()).float()
+        return a.double() @ b.double()
+    return a.long() @ b.long()
+
+
+def _int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact sums as fp32 (one rounding, as the kernels' int32 -> fp32
+    conversion)."""
+    return _exact_product(a, b).float()
 
 
 def int8_matmul_prequant_plain(xq, sx, q, scale) -> torch.Tensor:
@@ -85,6 +94,51 @@ def int8_matmul_dx_plain(dy, q, scale) -> torch.Tensor:
     d2 = dy.reshape(-1, dy.shape[-1]).float() * scale.float()
     out = int8_matmul_dx_prequant_plain(*quantize_rows(d2), q)
     return out.to(dy.dtype).reshape(*dy.shape[:-1], q.shape[0])
+
+
+# kernel #8's tiles (csrc/quant_matmul.cu, qdx): the output columns (rows
+# of q) a CTA owns and the contraction chunk a stage holds
+DX_TILE = 128
+
+
+def dx_split(M: int, K: int, N: int, sms: int, tma: bool = True) -> int:
+    """Slices of kernel #8's N contraction. Rows take one 64-row warpgroup
+    a CTA at M <= 64 (two CTAs an SM) and two above (one an SM); the
+    slices multiply the (output tile, row tile) CTAs up to that count,
+    with at least one 128-wide chunk a slice. 1 where TMA cannot map the
+    rows (N % 16 != 0 or an unaligned q), which #10's kernel takes."""
+    if not tma or N % 16:
+        return 1
+    rows, per_sm = (64, 2) if M <= 64 else (128, 1)
+    tiles = -(-M // rows) * -(-K // DX_TILE)
+    return max(1, min(-(-N // DX_TILE), -(-per_sm * sms // tiles)))
+
+
+def dx_launches(split: int) -> int:
+    """Kernel launches of one #8 call: the row pass, the product and, with
+    more than one slice, the pass that sums them."""
+    return 2 + (split > 1)
+
+
+def int8_dx_split_plain(dyq, sy, q, split: int) -> torch.Tensor:
+    """Kernel #8's product as the card splits it: dyq (M, N) int8, sy (M, 1)
+    fp32 -> fp32 (M, K). Slice s holds the 128-wide chunks [s nc / split,
+    (s + 1) nc / split) of nc; each slice's exact integer partial, summed
+    in slice order (exact: int32 on the card), rounds once to fp32, times
+    sy."""
+    N = dyq.shape[1]
+    nc = -(-N // DX_TILE)
+    acc = 0
+    for s in range(split):
+        c0, c1 = (min(N, s * nc // split * DX_TILE),
+                  min(N, (s + 1) * nc // split * DX_TILE))
+        acc = acc + _exact_product(dyq[:, c0:c1], q[:, c0:c1].T)
+    return acc.float() * sy
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, a: torch.Tensor, a_dtype: torch.dtype, q: torch.Tensor,
@@ -126,14 +180,20 @@ def _kernel_fwd(x2, q, scale) -> torch.Tensor:
 
 
 def _kernel_dx(dy2, q, scale) -> torch.Tensor:
-    """Kernel #8 on dy (M, N) bf16 -> (M, K) bf16."""
+    """Kernel #8 on dy (M, N) bf16 -> (M, K) bf16: the row pass into dyq
+    and sy, the split product, and the sum of the slices' int32 partials."""
     M, N = dy2.shape
     K = q.shape[0]
     _check("int8_matmul_dx", dy2, torch.bfloat16, q, scale=(scale, N))
     if q.shape[1] != N:
         raise ValueError(f"int8_matmul_dx: dy (M, {N}) against q {tuple(q.shape)}")
-    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dy2.device)
-    _launch("int8_matmul_dx_bf16", dy2, q, scale, dx, M, K, N)
+    dev = dy2.device
+    split = dx_split(M, K, N, _sms(dev.index or 0), q.data_ptr() % 16 == 0)
+    dyq = torch.empty((M, N), dtype=torch.int8, device=dev)
+    sy = torch.empty((M,), dtype=torch.float32, device=dev)
+    part = torch.empty((split, M, K), dtype=torch.int32, device=dev) if split > 1 else None
+    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    _launch("int8_matmul_dx_bf16", dy2, q, scale, dyq, sy, part, dx, M, K, N, split)
     int8_matmul_dx.launches += 1
     return dx
 

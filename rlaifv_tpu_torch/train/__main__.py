@@ -26,6 +26,8 @@ import os
 
 import torch
 
+from rlaifv_tpu_torch.train.family import get_family
+
 
 def resolve_device(name: str) -> torch.device:
     """"cuda" (the default) needs a visible card; "cpu" only when asked."""
@@ -70,6 +72,8 @@ def check_quantize(config) -> None:
 
 
 def run_config(config, device) -> int:
+    family = config.model.model_family
+    spec = get_family(family)  # families other than llava15 raise, before any load
     import numpy as np
     from transformers import AutoTokenizer
 
@@ -81,12 +85,9 @@ def run_config(config, device) -> int:
         quantize_llm_int4,
         quantize_llm_int8,
     )
-    from rlaifv_tpu_torch.train.family import get_family
     from rlaifv_tpu_torch.train.ref_logp import inference_logp
     from rlaifv_tpu_torch.train.trainer import DPOTrainer, precompute_head
 
-    family = config.model.model_family
-    spec = get_family(family)  # families other than llava15 raise
     check_quantize(config)
     cfg, model = build_llava(config, device)
     print(f"[train] loading checkpoint {config.model.model_name_or_path}", flush=True)
@@ -123,7 +124,8 @@ def run_config(config, device) -> int:
         # policy == reference => loss = ln 2 exact
         inference_logp(rows, model, tokenizer, data_dir, max_len=config.data.max_len,
                        num_patches=cfg.num_image_tokens, image_processor=proc,
-                       lm_head_impl=precompute_head(config.training, cfg.llm.hidden_size),
+                       lm_head_impl=precompute_head(config.training, cfg.llm.hidden_size,
+                                                    cfg.llm.dtype),
                        family=family)
 
     dataset = DPODataset(tokenizer, config.data.data_dir, mm_cfg, score_fn=score_fn,
@@ -159,7 +161,10 @@ def lora_kwargs(config, model, device) -> dict:
 
 
 def run_demo(config, device) -> int:
-    """Tiny synthetic end-to-end run (random weights, seed 0)."""
+    """Tiny synthetic end-to-end run (random weights, seed 0) of
+    model.model_family (llava15; the others raise)."""
+    family = config.model.model_family
+    get_family(family)  # families other than llava15 raise
     from rlaifv_tpu_torch.data.collator import DPOCollator
     from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
     from rlaifv_tpu_torch.train.trainer import DPOTrainer
@@ -177,7 +182,7 @@ def run_demo(config, device) -> int:
     collator = DPOCollator(pad_token_id=0, max_len=64,
                            num_patches=cfg.num_image_tokens)
     steps = DPOTrainer(config, model, pairs, collator).train()
-    print(f"[demo:llava15] finished at step {steps} on {device}", flush=True)
+    print(f"[demo:{family}] finished at step {steps} on {device}", flush=True)
     return steps
 
 
@@ -186,6 +191,9 @@ def main(argv=None):
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--demo", action="store_true",
                     help="tiny synthetic end-to-end run (no checkpoint needed)")
+    ap.add_argument("--family", type=str, default=None,
+                    help="override model.model_family (llava15; omnilmm and minicpmv "
+                         "are not ported yet and raise)")
     ap.add_argument("--output-dir", type=str, default=None)
     ap.add_argument("--max-steps", type=int, default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -196,6 +204,8 @@ def main(argv=None):
     from rlaifv_tpu_torch.core.config import Config
 
     config = Config.from_json(args.config) if args.config else Config()
+    if args.family:
+        config.model.model_family = args.family
     if args.output_dir:
         config.training.output_dir = args.output_dir
     if args.max_steps:

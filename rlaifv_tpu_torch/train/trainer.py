@@ -65,24 +65,27 @@ class MetricLogger:
             print(f"[train] {brief}", flush=True)
 
 
-def precompute_head(training, hidden_size: int) -> str:
+def precompute_head(training, hidden_size: int, dtype: torch.dtype) -> str:
     """The reference-logp precompute's head, train.py's rule: lm_head_impl,
     with "auto" read as "fused" at hidden_size >= 2048 and "xla" below. No
     compact_len reaches the precompute, so "auto" never picks the compact
-    head there (an explicit "compact" raises, as in the JAX package)."""
+    head there (an explicit "compact" raises, as in the JAX package). The
+    fused head's kernels take bf16 only, so "auto" also reads "xla" for a
+    model of another dtype (the JAX package runs fp32 through its TPU
+    kernels; ROADMAP.md section 3)."""
     head = getattr(training, "lm_head_impl", "auto")
     if head == "auto":
-        head = "fused" if hidden_size >= 2048 else "xla"
+        head = "fused" if hidden_size >= 2048 and dtype == torch.bfloat16 else "xla"
     return head
 
 
-def resolve_head(training, hidden_size: int) -> str:
+def resolve_head(training, hidden_size: int, dtype: torch.dtype) -> str:
     """The train step's head, the JAX trainer's rule: "auto" is "compact"
     when compact_len > 0, else `precompute_head`'s choice."""
     if getattr(training, "lm_head_impl", "auto") == "auto" and \
             int(getattr(training, "compact_len", 0)) > 0:
         return "compact"
-    return precompute_head(training, hidden_size)
+    return precompute_head(training, hidden_size, dtype)
 
 
 class DPOTrainer:
@@ -107,7 +110,7 @@ class DPOTrainer:
             dpo_token_weighted=t.dpo_token_weighted,
             sft_weight=t.sft_weight,
             dpo_weight=t.dpo_weight,
-            lm_head_impl=resolve_head(t, model.cfg.llm.hidden_size),
+            lm_head_impl=resolve_head(t, model.cfg.llm.hidden_size, model.cfg.llm.dtype),
             compact_len=int(t.compact_len),
             shared_prefix_len=int(t.shared_prefix_len),
             shared_suffix_len=int(t.shared_suffix_len),

@@ -42,3 +42,30 @@ def synth_preference_pairs(cfg, n_pairs: int, *, answer_len: int = 96,
                    ref_rej_avg_logp=float(rng.normal(-2.2, 0.2)))
         pairs.append((rej, win))
     return pairs
+
+
+def quotient_ties(M: int, N: int, J: int = 1, *, seed: int = 0):
+    """Rows and column scales whose per-row quantisation lands on and next
+    to half-integers, for the int8 and int4 dx kernels' rounding: numpy
+    (dy (M, N) fp32 holding bf16 values, gs (J, N) fp32). For every row m
+    and group j, v = dy[m] * gs[j] has its largest |v| in column 0 (dy 1,
+    gs[j, 0] = 381 2^e_j), so sy = max|v| / 127 = 3 2^e_j exactly, whose
+    reciprocal is inexact. Half of the other columns hold dy = +-3 (2k + 1)
+    / 2 against gs[j, n] = 2^e_j, so v / sy = +-(k + 1/2) exactly; a quarter
+    move gs one ulp off 2^e_j (quotients within an ulp of a half-integer);
+    a quarter are Gaussian (|dy| <= 100, bf16)."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(-12, 1, size=(J, 1)).astype(np.float32)
+    kind = rng.integers(0, 4, size=N)
+    kind[0] = -1
+    gs = np.where(kind == 2, np.where(rng.integers(0, 2, size=N) == 1,
+                                      np.float32(1 + 2.0 ** -23), np.float32(1 - 2.0 ** -24)),
+                  np.float32(1)).astype(np.float32) * np.exp2(e)
+    gs[:, 0] = 381 * np.exp2(e[:, 0])
+    half = 3 * (2 * rng.integers(0, 43, size=(M, N)) + 1) / 2
+    half *= np.where(rng.integers(0, 2, size=(M, N)) == 1, 1, -1)
+    gauss = np.clip(rng.normal(scale=30.0, size=(M, N)), -100, 100)
+    gauss = (gauss.astype(np.float32).view(np.uint32) & 0xFFFF0000).view(np.float32)
+    dy = np.where(kind[None] == 3, gauss, half).astype(np.float32)
+    dy[:, 0] = 1
+    return dy, gs.astype(np.float32)

@@ -159,9 +159,9 @@ def test_multi_head_attention_matches_jax(Lq, Lk, q_offset, causal, masked):
 def test_attention_route_on_cuda(geometry, want):
     """The slice's geometries reach the same paths as on the TPU."""
     assert tattn.attention_route(D=128, has_mask=True, on_cuda=True,
-                                 **geometry) == want
+                                 dtype=torch.bfloat16, **geometry) == want
     assert tattn.attention_route(D=128, has_mask=True, on_cuda=False,
-                                 **geometry) == "dense"
+                                 dtype=torch.bfloat16, **geometry) == "dense"
 
 
 @pytest.mark.parametrize(
@@ -206,4 +206,55 @@ def test_attention_route_train_shapes(geometry, want):
     """The train step's attention calls take the flash kernels on the card
     (forward and, through autograd, the two backward kernels)."""
     assert tattn.attention_route(D=128, has_mask=True, on_cuda=True,
-                                 **geometry) == want
+                                 dtype=torch.bfloat16, **geometry) == want
+
+
+@pytest.mark.parametrize("geometry,kernel", [
+    (dict(Lq=740, Lk=740, q_offset=0), "flash"),      # autocheck prefix
+    (dict(Lq=128, Lk=256, q_offset=128), "flash"),    # rectangular suffix
+    (dict(Lq=2048, Lk=2048, q_offset=None), "flash"),  # plain DPO path
+    (dict(Lq=1, Lk=896, q_offset=800), "decode"),     # decode step
+    (dict(Lq=32, Lk=772, q_offset=740), None),        # short suffix: dense anyway
+])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16])
+def test_attention_route_keeps_kernels_in_their_domain(dtype, D, geometry, kernel):
+    """On the card a kernel takes only bf16 with D 64 or 128; every other
+    type or head dim, fp32 at any D included, takes the dense path (the
+    JAX package's off-TPU formula) instead of reaching a kernel that
+    raises. The CPU is always dense."""
+    want = kernel if kernel and dtype == torch.bfloat16 and D in (64, 128) else "dense"
+    kw = dict(D=D, has_mask=True, dtype=dtype, **geometry)
+    assert tattn.attention_route(on_cuda=True, **kw) == want
+    assert tattn.attention_route(on_cuda=False, **kw) == "dense"
+    assert tattn.kernel_domain(dtype, D) == (dtype == torch.bfloat16 and D in (64, 128))
+
+
+@pytest.mark.parametrize("n_rep,want", [(1, "decode"), (2, "decode"), (4, "decode"),
+                                        (8, "decode"), (3, "dense"), (16, "dense")])
+def test_decode_route_needs_a_kernel_head_group(n_rep, want):
+    """The decode kernels take n_rep 1, 2, 4 or 8 (flash any); mixed
+    operand types (dtype None) take the dense path."""
+    geo = dict(Lq=1, Lk=896, q_offset=800, D=128, has_mask=True, on_cuda=True)
+    assert tattn.attention_route(dtype=torch.bfloat16, n_rep=n_rep, **geo) == want
+    assert tattn.attention_route(dtype=None, n_rep=1, **geo) == "dense"
+    assert tattn.attention_route(Lq=740, Lk=740, q_offset=0, D=128, has_mask=True,
+                                 on_cuda=True, dtype=torch.bfloat16, n_rep=n_rep) == "flash"
+
+
+@pytest.mark.parametrize("dtype,hidden,want", [
+    (torch.bfloat16, 4096, "fused"), (torch.float32, 4096, "xla"),
+    (torch.float16, 4096, "xla"), (torch.bfloat16, 64, "xla"), (torch.float32, 64, "xla"),
+])
+def test_auto_head_follows_the_model_dtype(dtype, hidden, want):
+    """"auto" picks the fused head (bf16 kernels) only for a bf16 model at
+    hidden >= 2048, in the precompute and in the train step; an explicit
+    head stays as asked."""
+    from rlaifv_tpu_torch.core.config import Config
+    from rlaifv_tpu_torch.train.trainer import precompute_head, resolve_head
+
+    training = Config().training
+    assert precompute_head(training, hidden, dtype) == want
+    assert resolve_head(training, hidden, dtype) == want
+    training.lm_head_impl = "fused"
+    assert resolve_head(training, hidden, dtype) == "fused"

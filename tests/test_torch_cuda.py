@@ -17,7 +17,8 @@ other orders); dx and dW elementwise within 2^-6 |plain| + 1e-5 max|plain|
 The int8 matmul kernels equal their plain twins bit for bit (exact integer
 sums, IEEE quantisation, the same fp32 epilogue), and #7 equals #9, #8
 equals #10; so do the int4 kernels #11 and #12 (the groups' fp32 sums in
-order, each product and sum rounded separately). The int8-cache decode
+order, each product and sum rounded separately), #8 and #12 also on
+quotients at and next to half-integers (synth.quotient_ties). The int8-cache decode
 kernel #5: max|kernel - twin| <= 2^-7 max|twin| (exact integer sums, IEEE
 quantisation and unfused fp32 epilogues on both sides; expf against torch's
 exp can flip a rounding of p8 by one step, and the output is bf16). The
@@ -33,6 +34,7 @@ a fully masked row is exactly 0.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -647,6 +649,130 @@ def test_int4_kernels_raise_on_what_they_do_not_take(gen):
         i4.int4_matmul_dx(dy, qp2[:, :128], gs2[:, :128])
     with pytest.raises(ValueError):  # groups of 64 rows
         i4.int4_matmul(x, qp, torch.ones(4, 128, device="cuda"))
+
+
+# ---------------------------------- #8 and #12: row passes, split and warp-specialised products
+
+
+def _ties(M, N, J, seed):
+    """synth.quotient_ties on the card: bf16 dy (M, N), fp32 scales (J, N)."""
+    from rlaifv_tpu_torch.utils.synth import quotient_ties
+
+    dy, gs = quotient_ties(M, N, J, seed=seed)
+    return torch.from_numpy(dy).cuda().to(torch.bfloat16), torch.from_numpy(gs).cuda()
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (1, 4096, 11008), (16, 4096, 11008), (63, 4096, 11008), (64, 4096, 11008),
+    (127, 4096, 11008),   # one and two 64-row warpgroups, 9 / 5 contraction slices
+    (64, 300, 1008),      # ragged output columns and contraction chunks
+    (20, 130, 200),       # N % 16 != 0: #10's kernel on the quantised rows
+])
+def test_int8_dx_kernel_matches_twin_on_ties_and_reruns(gen, M, K, N):
+    """Kernel #8 (row pass, split product, sum of the slices) equals its
+    twin and #10 bit for bit on Gaussian rows and on quotients at and next
+    to half-integers; a rerun gives the same bits; one wrapper call counts
+    one launch."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    _, dy, q, s = _int8_case(gen, M, K, N)
+    tdy, ts = _ties(M, N, 1, seed=M)
+    n0 = qm.int8_matmul_dx.launches
+    got = qm.int8_matmul_dx(dy, q, s)
+    got_ties = qm.int8_matmul_dx(tdy, q, ts[0])
+    torch.cuda.synchronize()
+    assert qm.int8_matmul_dx.launches - n0 == 2
+    assert torch.equal(got, qm.int8_matmul_dx_plain(dy, q, s))
+    assert torch.equal(got, qm.int8_matmul_dx_prequant(dy, q, s))
+    assert torch.equal(got_ties, qm.int8_matmul_dx_plain(tdy, q, ts[0]))
+    assert torch.equal(qm.int8_matmul_dx(dy, q, s), got)
+
+
+@pytest.mark.parametrize("M,K,N,G", [
+    (16, 11008, 4096, 128), (127, 4096, 4096, 128), (128, 11008, 4096, 128),
+    (6144, 11008, 4096, 128),   # the 8-pair QLoRA step's down_proj dx
+    (200, 1024, 256, 256), (130, 2560, 384, 256),   # groups of 256, a ragged row tile
+    (5, 384, 128, 128),         # an odd number of 64-row units
+])
+def test_int4_dx_kernel_matches_twin_on_ties_and_reruns(gen, M, K, N, G):
+    """Kernel #12 (the row-maximum pass, the warp-specialised product with
+    the bracketed rounding) equals its twin bit for bit on Gaussian rows
+    and on quotients at and next to half-integers, at groups of 128 and
+    256; a rerun gives the same bits."""
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+
+    qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"), G)
+    dy = _randn(gen, M, N)
+    tdy, tgs = _ties(M, N, K // G, seed=M + G)
+    got = i4.int4_matmul_dx(dy, qp, gs)
+    got_ties = i4.int4_matmul_dx(tdy, qp, tgs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, i4.int4_matmul_dx_plain(dy, qp, gs))
+    assert torch.equal(got_ties, i4.int4_matmul_dx_plain(tdy, qp, tgs))
+    assert torch.equal(i4.int4_matmul_dx(dy, qp, gs), got)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 96), (torch.float32, 128),
+                                     (torch.float32, 64)])
+def test_attention_outside_the_kernels_domain_runs_dense(gen, dtype, D):
+    """On the card a bf16 head dim the kernels do not take (96) and any
+    fp32 operands take the dense path, the JAX package's off-TPU formula,
+    for a flash geometry and a decode step: no kernel launches, no raise."""
+    from rlaifv_tpu_torch.ops.attention import multi_head_attention
+
+    B, L, H, KVH = 2, 256, 4, 2
+    q = torch.randn(B, L, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, L, KVH, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, L, KVH, D, generator=gen, device="cuda").to(dtype)
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    n0 = (flash_attention.launches, decode_attention_prefix.launches)
+    for kw in (dict(q_offset=0), dict(q_offset=None)):
+        out = multi_head_attention(q, k, v, attention_mask=mask, causal=True, **kw)
+        want = multi_head_attention(q, k, v, attention_mask=mask, causal=True,
+                                    impl="dense", **kw)
+        assert out.dtype == dtype and torch.equal(out, want)
+    step = multi_head_attention(q[:, :1], k, v, attention_mask=mask, q_offset=200)
+    assert torch.equal(step, multi_head_attention(q[:, :1], k, v, attention_mask=mask,
+                                                  q_offset=200, impl="dense"))
+    assert (flash_attention.launches, decode_attention_prefix.launches) == n0
+
+
+def test_tiny_fp32_train_step_runs_on_the_card(gen, tmp_path):
+    """A tiny fp32 LLaVA with the 7B's head dim (128) and a hidden size at
+    which "auto" would pick the fused head in bf16 (2048), on sequences
+    long enough for the flash route (>= 128 tokens): two DPO steps on the
+    card take the dense attention and the "xla" head (neither launches a
+    bf16 kernel, which raised before) and give finite losses."""
+    import json as _json
+
+    from rlaifv_tpu_torch.core.config import Config
+    from rlaifv_tpu_torch.data.collator import DPOCollator
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
+    from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head
+    from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
+
+    cfg = LlavaConfig(
+        llm=LlamaConfig.tiny(hidden_size=2048, num_heads=16, num_kv_heads=16,
+                             intermediate_size=256, max_position_embeddings=512),
+        vision=CLIPVisionConfig.tiny(hidden_size=48))
+    assert cfg.llm.dtype == torch.float32
+    model = init_weights_(LlavaForCausalLM(cfg, device="cuda"), gen)
+    pairs = synth_preference_pairs(cfg, 4, answer_len=150, question_len=16)
+    collator = DPOCollator(pad_token_id=0, max_len=256, num_patches=cfg.num_image_tokens)
+    config = Config()
+    config.training.output_dir = str(tmp_path)
+    config.training.max_steps = 2
+    config.training.learning_rate = 1e-4
+    assert resolve_head(config.training, 2048, torch.float32) == "xla"
+    n0 = (flash_attention.launches, fused_target_logp.fwd_launches)
+    assert DPOTrainer(config, model, pairs, collator).train() == 2
+    assert (flash_attention.launches, fused_target_logp.fwd_launches) == n0
+    logged = [_json.loads(x) for x in open(tmp_path / "metrics.jsonl")]
+    losses = [m["loss"] for m in logged if "loss" in m]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 # ---------------------------------------------------------------- kernel #16

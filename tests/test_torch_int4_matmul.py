@@ -316,3 +316,110 @@ def test_quant_dense_bits_and_other_bit_widths():
         QuantDense(64, 8, dtype=torch.float32, bits=2)
     with pytest.raises(ValueError, match="8 or 4"):
         LlamaForCausalLM(LlamaConfig.tiny(quantize=True, quantize_bits=2), device="meta")
+
+
+# ------------------------------------------------- kernel #12's arithmetic
+
+
+def _groups(dy, gs):
+    """fp32 v = dy * gs[j] for every group j (the twin's products)."""
+    return [torch.from_numpy(dy) * torch.from_numpy(gs[j]) for j in range(gs.shape[0])]
+
+
+@pytest.mark.parametrize("seed,M,N,J", [(0, 8, 256, 3), (1, 33, 384, 2), (2, 5, 1024, 7)])
+def test_bracketed_rounding_equals_ieee_on_ties(seed, M, N, J):
+    """#12 rounds rn(v / sy) without a division: two bracketing products
+    v r (1 -+ 2^-20), exact in float64, rounded half to even; where they
+    round apart, the IEEE quotient. On inputs whose quotients are exact
+    half-integers or one ulp beside them (synth.quotient_ties) it equals
+    quantize_rows bit for bit, while rounding v r alone (the rule without
+    the guard) misses about a quarter of the ties."""
+    from rlaifv_tpu_torch.ops.quant_matmul import quantize_rows
+    from rlaifv_tpu_torch.utils.synth import quotient_ties
+
+    dy, gs = quotient_ties(M, N, J, seed=seed)
+    assert torch.equal(torch.from_numpy(dy).to(torch.bfloat16).float(), torch.from_numpy(dy))
+    for v in _groups(dy, gs):
+        want, sy = quantize_rows(v)
+        q = v / sy
+        assert (q - q.floor() == 0.5).float().mean() > 0.3  # the ties are there
+        assert torch.equal(T.bracketed_round(v, sy), want)
+        unguarded = torch.round(v.double() * (torch.ones_like(sy) / sy).double())
+        assert (unguarded.clamp(-127, 127).to(torch.int8) != want).float().mean() > 0.1
+
+
+def test_bracketed_rounding_equals_ieee_on_a_sweep():
+    """The same on random rows of any scale: values drawn from fp32 bit
+    patterns, rows with zeros, tiny and huge magnitudes (hypothesis)."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    from hypothesis.extra.numpy import arrays
+
+    from rlaifv_tpu_torch.ops.quant_matmul import quantize_rows
+
+    finite = st.floats(allow_nan=False, allow_infinity=False, width=32)
+
+    @settings(max_examples=200, deadline=None, derandomize=True)
+    @given(arrays(np.float32, st.tuples(st.integers(1, 4), st.integers(1, 64)),
+                  elements=finite), st.floats(2.0 ** -100, 2.0 ** 100, width=32))
+    def check(rows, scale):
+        v = torch.from_numpy(rows) * torch.tensor(scale, dtype=torch.float32)
+        v = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+        want, sy = quantize_rows(v)
+        assert torch.equal(T.bracketed_round(v, sy), want)
+
+    check()
+
+
+@pytest.mark.parametrize("G", [128, 256])
+def test_row_scale_table_matches_the_jax_kernel_group_for_group(G):
+    """The plain version of #12's first pass, the (M, K/G) table of row
+    scales, equals quantize_rows' scale of dy * gs[j] group for group; its
+    maxima equal the ones the JAX _dx_kernel takes (the same jnp
+    expressions, on the CPU), and its scale is the IEEE quotient of them
+    by 127 where XLA's is the reciprocal rule (as tests above pin)."""
+    from rlaifv_tpu_torch.ops.quant_matmul import quantize_rows
+
+    rng = np.random.default_rng(9)
+    K, N, M = 2 * G, 256, 20
+    qp, gs = J.quantize_int4((rng.normal(size=(K, N)) * 0.1).astype(np.float32), group=G)
+    dy = (rng.normal(size=(M, N)) * 0.5).astype(np.float32)
+    table = T.int4_dx_row_scales(torch.from_numpy(dy), torch.from_numpy(gs))
+    assert table.shape == (M, K // G) and table.dtype == torch.float32
+    for j, v in enumerate(_groups(dy, gs)):
+        assert torch.equal(table[:, j:j + 1], quantize_rows(v)[1])
+        dys = jnp.asarray(dy) * jnp.asarray(gs)[j:j + 1, :]
+        amax = np.asarray(jnp.max(jnp.abs(dys), axis=1, keepdims=True))
+        np.testing.assert_array_equal(amax, v.abs().amax(-1, keepdim=True).numpy())
+        np.testing.assert_array_equal(_rows(v.numpy(), reciprocal=False)[1],
+                                      table[:, j:j + 1].numpy())
+        np.testing.assert_array_equal(
+            _rows(v.numpy(), reciprocal=True)[1],
+            np.asarray(jnp.maximum(jnp.asarray(amax), 1e-20) / 127.0))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_kernel_rule_dx_equals_the_twin(ties):
+    """#12 as the card computes it (the row-scale table, then the
+    bracketed rounding, exact integer sums per group) equals the twin
+    int4_matmul_dx_plain bit for bit, on Gaussian rows and on ties."""
+    from rlaifv_tpu_torch.utils.synth import quotient_ties
+
+    rng = np.random.default_rng(11)
+    K, N, M = 384, 256, 12
+    qp, gs = (torch.from_numpy(a) for a in J.quantize_int4(
+        (rng.normal(size=(K, N)) * 0.1).astype(np.float32)))
+    if ties:
+        dy_np, gs_np = quotient_ties(M, N, K // 128, seed=4)
+        dy, gs = torch.from_numpy(dy_np).to(torch.bfloat16), torch.from_numpy(gs_np)
+    else:
+        dy = torch.from_numpy((rng.normal(size=(M, N)) * 0.5).astype(np.float32)).bfloat16()
+    d2 = dy.float()
+    table = T.int4_dx_row_scales(d2, gs)
+    w = T.unpack_int4(qp).long()
+    out = torch.empty(M, K)
+    for j in range(gs.shape[0]):
+        sy = table[:, j:j + 1]
+        vq = T.bracketed_round(d2 * gs[j], sy)
+        out[:, j * 128:(j + 1) * 128] = (vq.long() @ w[j * 128:(j + 1) * 128].T).float() * sy
+    assert torch.equal(out.to(torch.bfloat16), T.int4_matmul_dx_plain(dy, qp, gs))

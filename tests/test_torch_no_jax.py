@@ -11,7 +11,7 @@ divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.tr
 --device cpu` for 2 steps into a temporary directory, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
 An AST scan finds no import statement rooted at those names in any file of
-the port or in chip_smoke.py.
+the port, of tools/ or in chip_smoke.py.
 """
 import ast
 import subprocess
@@ -155,9 +155,10 @@ def test_chip_smoke_imports_only_the_port():
 
 
 @pytest.mark.parametrize("path", sorted(
-    str(p.relative_to(ROOT)) for p in (ROOT / "rlaifv_tpu_torch").rglob("*.py")))
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "rlaifv_tpu_torch").rglob("*.py"),
+                                       *(ROOT / "tools").glob("*.py")]))
 def test_no_import_is_rooted_at_jax_or_the_jax_package(path):
-    """Every import statement of the port, at module level or inside a
-    function."""
+    """Every import statement of the port and of its measurement scripts
+    under tools/, at module level or inside a function."""
     roots = _import_roots(ROOT / path)
     assert not roots & FORBIDDEN, (path, roots & FORBIDDEN)

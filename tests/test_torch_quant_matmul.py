@@ -184,3 +184,42 @@ def test_weight_quantiser_matches_numpy_bit_for_bit(dtype):
     # and a transposed view (the torch (out, in) weight) quantises the same
     q2, s2 = quantize_kernel_int8_torch(w.T.contiguous().T)
     assert torch.equal(q2, q) and torch.equal(s2, s) and q2.is_contiguous()
+
+
+# -------------------------------------------------- kernel #8's split product
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 5])
+@pytest.mark.parametrize("M,K,N", [(8, 32, 640), (5, 40, 520), (64, 96, 1000)])
+def test_split_contraction_equals_the_twin_and_jax(M, K, N, split):
+    """#8's product on the card splits the N contraction into slices of
+    128-wide chunks and sums their exact int32 partials in order
+    (int8_dx_split_plain): equal to the twin int8_matmul_dx_plain and to
+    the JAX #10 bit for bit, and, given the rows the reciprocal rule
+    quantises, to the JAX in-kernel #8 in interpret mode."""
+    (_, tx), (jdy, tdy), (jqw, js), (tqw, ts) = _inputs(6, M, K, N, "bf16")
+    dyq, sy = tq.quantize_rows(tdy.float() * ts)
+    got = tq.int8_dx_split_plain(dyq, sy, tqw, split).to(tdy.dtype)
+    assert torch.equal(got, tq.int8_matmul_dx_plain(tdy, tqw, ts))
+    np.testing.assert_array_equal(_np(got), _np(jq.int8_matmul_dx_prequant(jdy, jqw, js)))
+    v = tdy.float() * ts
+    amax = v.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp_min(amax, 1e-20) * torch.tensor(np.float32(1) / np.float32(127))
+    vq = torch.round(v / sx).clamp(-127, 127).to(torch.int8)
+    np.testing.assert_array_equal(
+        _np(tq.int8_dx_split_plain(vq, sx, tqw, split).to(tdy.dtype)),
+        _np(jq.int8_matmul_dx(jdy, jqw, js, interpret=True)))
+
+
+def test_dx_split_plan():
+    """The slices fill about two CTAs an SM at M <= 64 (one 64-row tile of
+    128 output columns a CTA), one CTA an SM above; never more slices than
+    128-wide chunks, one where TMA cannot map the rows; a call launches the
+    row pass, the product and, with slices, their sum."""
+    assert tq.dx_split(64, 4096, 11008, 132) == 9       # 32 tiles x 9 = 288 CTAs
+    assert tq.dx_split(127, 4096, 11008, 132) == 5      # 128-row tiles
+    assert tq.dx_split(6144, 4096, 11008, 132) == 1
+    assert tq.dx_split(1, 40, 208, 132) == 2            # 2 chunks of 128
+    assert tq.dx_split(16, 4096, 4104, 132) == 1        # N % 16 != 0
+    assert tq.dx_split(16, 4096, 4096, 132, tma=False) == 1
+    assert [tq.dx_launches(s) for s in (1, 2, 9)] == [2, 3, 3]

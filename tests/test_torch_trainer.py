@@ -190,9 +190,9 @@ def test_precompute_head_follows_train_py(head, compact_len, hidden, want):
     picks the compact head when compact_len > 0."""
     training = Config().training
     training.lm_head_impl, training.compact_len = head, compact_len
-    assert precompute_head(training, hidden) == want
+    assert precompute_head(training, hidden, torch.bfloat16) == want
     if head == "auto" and compact_len:
-        assert resolve_head(training, hidden) == "compact"
+        assert resolve_head(training, hidden, torch.bfloat16) == "compact"
 
 
 def test_non_finite_loss_stops_the_run(data, tmp_path):
@@ -210,8 +210,8 @@ def test_what_is_not_ported_raises(data, tmp_path):
     int8 or int4 base are ported, the OmniLMM family is #9 and MiniCPM-V
     #10; each raises before anything is loaded."""
     training = Config().training
-    assert resolve_head(training, 4096) == "fused"
-    assert resolve_head(training, 64) == "xla"
+    assert resolve_head(training, 4096, torch.bfloat16) == "fused"
+    assert resolve_head(training, 64, torch.bfloat16) == "xla"
     from rlaifv_tpu_torch.train.__main__ import main
 
     for model, item in (({"model_family": "omnilmm"}, "#9"),
@@ -221,6 +221,28 @@ def test_what_is_not_ported_raises(data, tmp_path):
         (tmp_path / "cfg.json").write_text(json.dumps(cfg))
         with pytest.raises(NotImplementedError, match=item):
             main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("family,item", [("llava15", None), ("omnilmm", "#9"),
+                                         ("minicpmv", "#10")])
+def test_family_option_overrides_the_config(family, item, tmp_path, capsys):
+    """`--family` sets model.model_family as train.py's does: llava15 runs
+    the tiny demo on the CPU; OmniLMM (#9) and MiniCPM-V (#10) raise their
+    NotImplementedError before anything is built, in the demo and with a
+    config file."""
+    from rlaifv_tpu_torch.train.__main__ import main
+
+    argv = ["--demo", "--family", family, "--device", "cpu", "--max-steps", "1",
+            "--output-dir", str(tmp_path / "out")]
+    if item is None:
+        assert main(argv) == 1
+        assert "[demo:llava15] finished at step 1 on cpu" in capsys.readouterr().out
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        main(argv)
+    (tmp_path / "cfg.json").write_text(json.dumps({"model": {"model_family": "llava15"}}))
+    with pytest.raises(NotImplementedError, match=item):
+        main(["--config", str(tmp_path / "cfg.json"), "--family", family, "--device", "cpu"])
 
 
 def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
