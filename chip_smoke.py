@@ -27,9 +27,13 @@ Phases, one progress line each (or a few):
      dW given dl and the whole backward call beside the bounds, the
      two-call library composite (F.linear + F.cross_entropy, its autograd
      backward) and a recompute composite (the backward's three products as
-     torch calls); then planted faults (g dropped, one-hot dropped, lse
-     shifted, ragged tile unmasked, one chunk's dx dropped), each of which
-     must break the bounds;
+     torch calls), and the kernels one forward call launched (captured in a
+     CUDA graph; 2 planned: the split tiles, the combine); then planted
+     faults (g dropped, one-hot dropped, lse shifted, ragged tile unmasked,
+     one chunk's dx dropped; and three broken copies of the forward kernel:
+     the running sum not rescaled, the target dropped after a split's first
+     tile, a ring stage reloading k-tile 0), each of which must break the
+     bounds;
   4. the slice: LLaVA-1.5-7B at full width and depth in bf16 with random
      weights (seeded), a synthetic character-level tokenizer and
      examples/test.jpeg: autocheck of 8 facts (shared-prefix prefill ->
@@ -106,11 +110,14 @@ Phases, one progress line each (or a few):
      difference 0 (#12 also at N = 11008, which the dispatch sends to the
      dequant dx); times beside the int8 bound, torch._int_mm on the
      unpacked int8 operands (product only, both weight layouts) and the
-     "dequant" route, the kernels one #12 call launched (captured in a CUDA
-     graph; 2 planned), and one projection's int4 route against it; then #12
-     on tie quotients (groups of 128 and 256), reruns bit-equal, and three
-     planted faults (the guard band removed, sy from group j + 1, one ring
-     stage loading chunk 0 again), each of which must break the check;
+     "dequant" route, the kernels one call of each launched (captured in a
+     CUDA graph; 1 and 2 planned), and one projection's int4 route against
+     it; #11 again at groups of 256 at every shape; then #12 on tie
+     quotients (groups of 128 and 256), reruns bit-equal, and three planted
+     faults in each (#12: the guard band removed, sy from group j + 1, one
+     ring stage loading chunk 0 again; #11: gs from group g + 1, the
+     accumulator not cleared, a nibble's sign dropped), each of which must
+     break the check;
   3f. (run after 3e) kernel #5, prefix decode over an int8 cache, against
      its plain twin at phase 11's shapes (B = 10 and 4 at L = 896, block
      128; B = 24 at L = 1024, block 256) and the edges (one live column,
@@ -251,6 +258,7 @@ from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     _kernel_dx,
     _kernel_fwd,
     chunk_width,
+    fwd_splits,
     fused_head_bwd,
     fused_head_bwd_plain,
     fused_head_fwd_plain,
@@ -978,6 +986,20 @@ def _recompute_composite(x, w, y, lse, gr, vc: int, need_dw: bool = True):
     return dx.to(x.dtype), dw
 
 
+# 3c: planted faults in the redesigned forward (#13/#14), each a broken copy
+# of csrc/fused_head.cu that must break HEAD_FWD_TOL
+HEAD_FWD_FAULTS = {
+    "running sum not rescaled when the max rises": [(
+        "fused_head.cu", "st.s[h] = st.s[h] * __expf(st.m[h] - m_new) + sum;",
+        "st.s[h] = st.s[h] + sum;")],
+    "target logit dropped after a split's first tile": [(
+        "fused_head.cu", "epi_fwd(acc, p, n0, y0, y1, st);",
+        "epi_fwd(acc, p, n0, t == t0 ? y0 : -1, t == t0 ? y1 : -1, st);")],
+    "one ring stage reloads k-tile 0": [(
+        "fused_head.cu", "const int k0 = kt * TK;", "const int k0 = (kt == 1 ? 0 : kt) * TK;")],
+}
+
+
 def head_cases(pair: dict) -> list:
     """3c's cases: the train step's head (M = 2 (L - 1) rows of the collated
     pair, H = 4096, V = 32000), the ref-logp plain fallback at batch_pairs 8
@@ -1095,12 +1117,18 @@ def phase_head(g, pair: dict) -> dict:
             t_fp = time_ms(lambda: fused_head_fwd_plain(x, w, y), runs)
             t_fl = time_ms(lambda: _composite(x, w, y), runs)
             b_f = bound(flop, _nbytes(x, w, y) + 8 * M)
+            launched = launched_ops(lambda: _kernel_fwd(x, w, y))
+            nsplit = fwd_splits(M, V, torch.cuda.get_device_properties(0).multi_processor_count)
             msg += (f" | fwd kernel {t_f:.3f} ms = {flop / (t_f * 1e-3) / 1e12:.1f} "
                     f"TFLOP/s, plain {t_fp:.3f} ms, library composite (F.linear + "
                     f"F.cross_entropy) {t_fl:.3f} ms, bound {b_f['bound_ms']:.3f} ms "
-                    f"({b_f['bound_by']})")
-            res.setdefault("fwd", {})[c["name"]] = dict(ms=t_f, plain_ms=t_fp,
-                                                        library_ms=t_fl, **b_f)
+                    f"({b_f['bound_by']}) | one forward call captured in a CUDA graph: "
+                    f"{ops_text(launched)}; 2 kernels planned ({nsplit} vocabulary splits "
+                    f"of 128-row CTAs, then the combine)")
+            r["ok"] = r["ok"] and launched.get("kernel", 0) == 2 and len(launched) == 1
+            res.setdefault("fwd", {})[c["name"]] = dict(
+                ms=t_f, plain_ms=t_fp, library_ms=t_fl, kernels_a_call=launched.get("kernel", 0),
+                **b_f)
         log(msg + f" | {'ok' if r['ok'] else 'FAIL'}")
         if not r["ok"]:
             raise AssertionError(f"fused head kernels disagree with the plain versions: "
@@ -1121,6 +1149,20 @@ def phase_head(g, pair: dict) -> dict:
             f"{'caught' if not r['ok'] else 'MISSED'}")
         if r["ok"]:
             raise AssertionError(f"the 3c bounds miss the planted fault {fault!r}")
+    # broken copies of the forward kernel (build_variants) on the same inputs
+    t0 = time.perf_counter()
+    libs = build_variants(HEAD_FWD_FAULTS)
+    log(f"[3c fused head] forward planted faults: {len(libs)} broken variants built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, lib in libs.items():
+        with kernels_from(lib):
+            r = head_check(x, w, y, gr, backward=False)
+        log(f"[3c fused head] planted fault {name!r} (M=2046 H=1024 V=32001, "
+            f"{fwd_splits(2046, 32001, torch.cuda.get_device_properties(0).multi_processor_count)}"
+            f" splits): max|logp err| {r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} "
+            f"(tol {HEAD_FWD_TOL}) | {'caught' if not r['ok'] else 'MISSED'}")
+        if r["ok"]:
+            raise AssertionError(f"the 3c bounds miss the planted fault {name!r}")
     return res
 
 
@@ -2866,6 +2908,18 @@ DX4_FAULTS = {
 }
 
 
+# 3e: planted faults in the redesigned forward (#11)
+FWD4_FAULTS = {
+    "gs taken from group g + 1": [(
+        "int4_matmul.cu", "tma_load(st + G_OFF, &map_gs, n0, g, bar);",
+        "tma_load(st + G_OFF, &map_gs, n0, (g + 1) % J, bar);")],
+    "the accumulator not cleared between groups": [(
+        "int4_matmul.cu", "keep = i % per_group != 0;", "keep = 1;")],
+    "a nibble's sign extension dropped": [(
+        "int4_matmul.cu", "hi = o[b] & 0xf0f0f0f0u;", "hi = o[b] & 0x70707070u;")],
+}
+
+
 def tie_case(M: int, N: int, J: int, seed: int) -> tuple:
     """synth.quotient_ties on the card: bf16 dy (M, N), fp32 scales (J, N)
     whose row quotients fall on and next to half-integers (Gaussian rows
@@ -3000,7 +3054,9 @@ def phase_int8(g, qb: dict) -> dict:
 
 def phase_int4(g, qb: dict) -> dict:
     """3e: kernels #11 and #12 against their plain twins (max abs difference
-    0) at the 7B projection widths and Llama3-8B's, with times beside the int8 bound,
+    0; #11 at groups of 128 and 256) at the 7B projection widths and
+    Llama3-8B's, the kernels one call of each launches (a CUDA graph of the
+    call), planted faults in both, with times beside the int8 bound,
     torch._int_mm on the unpacked int8 operands (product only; the weight
     row-major as it unpacks and in cuBLASLt's fast column-major layout) and
     the "dequant" route (a bf16 dequantisation plus one cuBLAS product). #12
@@ -3045,9 +3101,12 @@ def phase_int4(g, qb: dict) -> dict:
                 return "refused" if v is None else f"{v:.4f}"
 
             launched = launched_ops(run[12])
+            launched11 = launched_ops(run[11])
             entry[12]["kernels_a_call"] = launched.get("kernel", 0)
-            ok = ok and launched.get("kernel", 0) == 2
-            log(f"[3e int4] M={M} K={K} N={N}: one #12 call captured in a CUDA graph: "
+            entry[11]["kernels_a_call"] = launched11.get("kernel", 0)
+            ok = ok and launched.get("kernel", 0) == 2 and launched11 == {"kernel": 1}
+            log(f"[3e int4] M={M} K={K} N={N}: one #11 call captured in a CUDA graph: "
+                f"{ops_text(launched11)}; 1 kernel planned | one #12 call: "
                 f"{ops_text(launched)}; 2 kernels planned (row maxima, product) | "
                 f"max|err| #11 {err[11]:.1e} #12 {err[12]:.1e} "
                 f"(tol 0) | " + " ".join(
@@ -3059,8 +3118,9 @@ def phase_int4(g, qb: dict) -> dict:
                 f"{lib(t_lib_row)}) dx {lib(t_lib[12])} ms | dequant route fwd "
                 f"{t_deq[11]:.4f} dx {t_deq[12]:.4f} ms | {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"int4 kernels disagree with the plain twins, or #12 "
-                                     f"with its planned launches, at M={M} K={K} N={N}: {err}")
+                raise AssertionError(f"int4 kernels disagree with the plain twins, or #11 or "
+                                     f"#12 with its planned launches, at M={M} K={K} N={N}: "
+                                     f"{err}")
             res["err"] = max(res["err"], max(err.values()))
             if M == qb["m_prefix"]:
                 route_noise("[3e int4]", out[11], out[12], i4.dequant_int4_matmul(x, qp, gs),
@@ -3068,6 +3128,20 @@ def phase_int4(g, qb: dict) -> dict:
             del x, dy, xq, dyq, out, plain, run
         del qp, gs, w8, w8_col
         torch.cuda.empty_cache()
+
+    # #11 at groups of 256, every shape above
+    n256 = 0
+    for K, N, ms in widths:
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"), 256)
+        for M in ms:
+            x = _randn(g, M, K)
+            xq, sx = qm.quantize_rows(x.float())
+            got = i4._kernel_fwd(xq, sx.reshape(-1), qp, gs)
+            if not torch.equal(got, i4.int4_matmul_plain(x, qp, gs)):
+                raise AssertionError(f"#11 disagrees with its twin at G=256, M={M} K={K} N={N}")
+            n256 += 1
+        del qp, gs
+    log(f"[3e int4] #11 at groups of 256: equal to the twin at all {n256} shapes above | ok")
 
     # #12 on quotients at and next to half-integers, groups of 128 and 256;
     # reruns give the same bits
@@ -3099,6 +3173,10 @@ def phase_int4(g, qb: dict) -> dict:
         n_diff = int((i4._kernel_dx(dy, qp, gs) != gauss[2]).sum())
     log(f"[3e int4] #12 without its guard band on Gaussian rows (M={M} K={K} N={N}): "
         f"{n_diff} of {gauss[2].numel()} outputs differ from the twin")
+    x = _randn(g, M, K)
+    xq, sx = qm.quantize_rows(x.float())
+    case = (i4._kernel_fwd, (xq, sx.reshape(-1), qp, gs), i4.int4_matmul_plain(x, qp, gs))
+    planted_faults("[3e int4] #11", FWD4_FAULTS, {k: case for k in FWD4_FAULTS})
     return res
 
 
@@ -3593,7 +3671,11 @@ def main() -> None:
              "rlaifv_tpu/ops/decode_attention.py:59", launches["decode"],
              kern["decode"]["max_abs_err"], kern["decode"]),
         _row("fused_head_fwd", head_src, "rlaifv_tpu/ops/fused_head.py:128,157",
-             launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"]),
+             launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"],
+             "redesigned: the TMA + wgmma mainloop with an online-softmax epilogue over "
+             "vocabulary splits, then the combine; one wrapper call launched "
+             f"{head['fwd']['train step']['kernels_a_call']} kernels here (a CUDA graph of "
+             "one call, 3c; launches counts calls)"),
         _row("fused_head_dx", head_src, "rlaifv_tpu/ops/fused_head.py:318",
              launches["head_dx"], head["dx_err"], head["bwd"]["train step"]["dx"],
              f"the dl and dx kernels, two products; dl launches {launches['head_dl']}"),
@@ -3621,7 +3703,11 @@ def main() -> None:
     i4_src, i4_py = "rlaifv_tpu_torch/csrc/int4_matmul.cu", "rlaifv_tpu/ops/int4_matmul.py"
     kernels += [
         _row("int4_matmul", i4_src, f"{i4_py}:135", launches["int4"], int4["err"],
-             int4[(qb["m_prefix"], 4096, 11008)][11]),
+             int4[(qb["m_prefix"], 4096, 11008)][11],
+             "redesigned: TMA ring, warp-specialised unpacking, int8 wgmma, per-group "
+             "rescale; one wrapper call launched "
+             f"{int4[(qb['m_prefix'], 4096, 11008)][11]['kernels_a_call']} kernel here (a "
+             "CUDA graph of one call, 3e)"),
         _row("int4_matmul_dx", i4_src, f"{i4_py}:240", launches["int4_dx"], int4["err"],
              int4[(qb["m_prefix"], 11008, 4096)][12],
              "redesigned: the row-maximum pass and the warp-specialised product; one "

@@ -8,252 +8,73 @@
 // (as _bwd_dx_kernel rounds it), dx = dl W and dW = dl^T x, each summed in
 // fp32 and rounded to bf16 once.
 //
-// Forward. Replaces rlaifv_tpu/ops/fused_head.py:_fwd_kernel (the
+// One mainloop serves four epilogues. A CTA computes (128 rows, 256
+// columns) tiles of a product over its whole contraction: a ring of STAGES
+// shared-memory stages that one producer warp fills with TMA loads of
+// 128-byte-swizzled tiles (mbarriers count the bytes in and the consumers'
+// releases out) while two consumer warpgroups run wgmma.mma_async
+// m64n256k16 (bf16 x bf16 -> fp32 registers) on the stages that have
+// arrived. Operands are read as they lie: x and the W rows are K-major for
+// the scores, W_c is MN-major for dx, dl_c^T and x are MN-major for dW;
+// wgmma transposes 16-bit operands itself (its transpose immediates), so
+// no transpose pass exists. Tensor maps are encoded in the C entry points
+// (the encoder looked up through the CUDA runtime, no -lcuda); their
+// out-of-bounds boxes zero-fill rows at or past M, columns at or past the
+// vocabulary's (or the chunk's) width and H tails, and the epilogues mask
+// what they read and store. No atomics: every output element is written by
+// one CTA in a fixed order, so reruns give the same bits.
+//
+// Forward (FWD). Replaces rlaifv_tpu/ops/fused_head.py:_fwd_kernel (the
 // pallas_call of _fwd, H <= 2048) and _fwd_kernel_hblocked (of
-// _fwd_hblocked, H > 2048) with one kernel: one CTA per (64 rows,
-// vocabulary split) walks its split's 64-wide vocabulary tiles and keeps
-// each row's online (max, sumexp, target logit) in registers (two threads
-// a row); the wrapper combines the few splits with a torch logsumexp.
-// Every score tile is a 64 x 64 x H product on WMMA (16x16x16 bf16
-// fragments) over operand tiles that cp.async streams through shared
-// memory in two stages; the H contraction is its inner K-loop, which is the
-// TPU's row-14 H-blocking in its natural form. Vocabulary columns at or
-// past V score -1e30 (out of the max and the sum); lse = max +
-// log(max(sumexp, 1e-30)), as the TPU kernels. What bounds it: the product
-// 2 M H V at the tensor cores' rate, which WMMA reaches a tenth of.
+// _fwd_hblocked, H > 2048): the H contraction is the mainloop, at any H. A
+// CTA owns 128 rows and one vocabulary split and walks the split's 256-wide
+// tiles; the producer's ring runs straight on from one tile's last k-stage
+// into the next tile's first, so the next tile's loads overlap this tile's
+// epilogue (x's rows are read again per tile, from L2). The epilogue keeps
+// an online (max, sum of exp(s - max), target logit) per row in each
+// thread's registers (2 rows x 64 columns of the tile a thread): columns at
+// or past V are out of the max and the sum, the running sum is rescaled
+// when the max rises, and the label's column adds its score. At the split's
+// end the 4 threads of a row combine their states and write the row's
+// (max, sum, target) partials (3, nsplit, M); a second, small kernel
+// combines the splits: lse = max + log(max(sum, 1e-30)), logp = target -
+// lse, as the TPU kernels. What bounds it: the product 2 M H V at the
+// tensor cores' rate (0.542 ms at M = 2046, H = 4096, V = 32000); the
+// M V exponentials take a few microseconds of the SFUs. The wrapper
+// (ops/fused_head.py:fwd_splits) picks the splits so that one wave of CTAs,
+// one an SM, fills the card.
 //
 // Backward. Replaces _bwd_dx_kernel and _bwd_dw_kernel (the two
-// pallas_calls of _bwd, both built on _dl_tile) with three kernels that
+// pallas_calls of _bwd, both built on _dl_tile) with three epilogues that
 // the wrapper (ops/fused_head.py) runs once per vocabulary chunk of vc
 // columns, in order:
-// - dl: S_c = x W_c^T over all of H for a (128 rows, 256 columns) tile of
+// - DL: S_c = x W_c^T over all of H for a (128 rows, 256 columns) tile of
 //   the chunk; the epilogue forms dl from the accumulator registers (the
 //   row's label, lse and g against column c0 + j) and writes dl_c (M, vc)
 //   bf16 once. The scores are formed once per backward (the two TPU
 //   kernels each recompute them);
-// - dx: dx (+)= dl_c W_c, K = vc. One chunk writes bf16 dx from the
+// - DX: dx (+)= dl_c W_c, K = vc. One chunk writes bf16 dx from the
 //   registers; several accumulate into one fp32 (M, H) buffer in chunk
 //   order (written by the first, read and rewritten by each later one, the
 //   last casting to bf16), the only read-modify-write left;
-// - dW: dW[c0:c1] = dl_c^T x, K = M: every element written once, in bf16,
+// - DW: dW[c0:c1] = dl_c^T x, K = M: every element written once, in bf16,
 //   from an fp32 register sum over all M rows.
 // What bounds them: three bf16 products of 2 M H V at the tensor cores'
 // rate (989 TFLOP/s dense), 1.627 ms at M = 2046, H = 4096, V = 32000,
 // plus M vc 2 bytes of dl written and read twice a chunk, which the
-// products hide. What the design does about it: the three kernels share
-// one mainloop, a ring of STAGES shared-memory stages that one producer
-// warp fills with TMA loads of 128-byte-swizzled tiles (mbarriers count the
-// bytes in and the consumers' releases out) while two consumer warpgroups
-// run wgmma.mma_async m64n256k16 (bf16 x bf16 -> fp32 registers) on the
-// stages that have arrived. Operands are read as they lie: x and the W
-// rows are K-major for the scores, W_c is MN-major for dx, dl_c^T and x are
-// MN-major for dW; wgmma transposes 16-bit operands itself (its
-// transpose immediates), so no transpose pass exists. The epilogues are
-// separate from the mainloop, so the forward can take it next with an
-// online-softmax epilogue. Tensor maps are encoded in the C entry points
-// (the encoder looked up through the CUDA runtime, no -lcuda); their
-// out-of-bounds boxes zero-fill rows at or past M, columns at or past the
-// chunk's width and H tails, and the epilogues mask their stores. No atomics: every
-// output element is written by one CTA in a fixed order, so reruns give
-// the same bits. Scratch: M vc 2 bytes of dl (vc chosen by the wrapper so
+// products hide. Scratch: M vc 2 bytes of dl (vc chosen by the wrapper so
 // that this stays within 256 MiB) plus, with more than one chunk, M H 4
 // bytes of fp32 dx.
 //
 // H must be a multiple of 64 (the wrapper checks).
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
-
-constexpr int BM = 64;  // rows (or vocabulary rows, for dW) of a tile
-constexpr int BN = 64;  // vocabulary columns of a score tile
-constexpr int BK = 64;  // H columns of an operand chunk
-constexpr int NWARPS = 4;  // each warp owns 16 rows of a 64-row tile
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float kNegInf = -1e30f;
-
-constexpr int LDT = BK + 8;  // bf16 row stride of 64 x 64 operand tiles
-constexpr int LDS = BN + 4;  // fp32 row stride of the score tile
-constexpr int LDP = BN + 8;  // bf16 row stride of the former dl tile (below)
-
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
-constexpr int TILE_BYTES = align128(64 * LDT * 2);
-constexpr int OFF_A = 0;                             // 2 stages of x chunks
-constexpr int OFF_B = OFF_A + 2 * TILE_BYTES;        // 2 stages of W chunks
-constexpr int OFF_S = OFF_B + 2 * TILE_BYTES;        // fp32 score tile
-// The former WMMA backward kept a bf16 dl tile here. The forward does not
-// use the region; keeping it keeps the forward's shared memory, and so its
-// occupancy and measured times, as they were
-constexpr int OFF_DL = OFF_S + align128(BM * LDS * 4);
-constexpr int SMEM_BYTES = OFF_DL + align128(BM * LDP * 2);
-
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-__device__ __forceinline__ void cp_async16(void *smem, const void *gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// start copying rows [r0, r0 + 64) x columns [k0, k0 + 64) of a row-major
-// (rows, ld) bf16 matrix into a shared tile; rows at or past `rows` zero
-__device__ __forceinline__ void stage(bf16 *dst, const bf16 *src, int r0,
-                                      int rows, int ld, int k0) {
-  for (int i = threadIdx.x; i < 64 * (BK / 8); i += NTHREADS) {
-    const int r = i / (BK / 8), c = i % (BK / 8);
-    const bool ok = r0 + r < rows;
-    const bf16 *g = ok ? src + (long long)(r0 + r) * ld + k0 + c * 8 : src;
-    cp_async16(dst + r * LDT + c * 8, g, ok);
-  }
-}
-
-// acc (this warp's 16 rows x 64 columns) = x[m0 .. m0+64) . W[v0 .. v0+64)^T
-// over all of H, two cp.async stages deep; returns with every warp done
-// reading the staging buffers
-__device__ void score_tile(FragAcc (&acc)[4], unsigned char *smem,
-                           const bf16 *__restrict__ x, int m0, int M,
-                           const bf16 *__restrict__ w, int v0, int V, int H) {
-  bf16 *sA = reinterpret_cast<bf16 *>(smem + OFF_A);
-  bf16 *sB = reinterpret_cast<bf16 *>(smem + OFF_B);
-  constexpr int STAGE = TILE_BYTES / 2;  // bf16 elements between stages
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-  const int nk = H / BK;
-  stage(sA, x, m0, M, H, 0);
-  stage(sB, w, v0, V, H, 0);
-  cp_async_commit();
-  for (int kb = 0; kb < nk; ++kb) {
-    const int cur = kb & 1;
-    if (kb + 1 < nk) {
-      stage(sA + (cur ^ 1) * STAGE, x, m0, M, H, (kb + 1) * BK);
-      stage(sB + (cur ^ 1) * STAGE, w, v0, V, H, (kb + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16 *a = sA + cur * STAGE + warp * 16 * LDT;
-    const bf16 *b = sB + cur * STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + kk, LDT);
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + n * 16 * LDT + kk, LDT);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
-    __syncthreads();  // the stage is consumed before the next one reuses it
-  }
-}
-
-// the score tile of this warp's 16 rows into shared memory (fp32)
-__device__ __forceinline__ void store_scores(float *sS, FragAcc (&acc)[4]) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc[n], LDS,
-                            wmma::mem_row_major);
-  __syncwarp();
-}
-
-// vocabulary tiles [t0, t1) of split `s` out of `nsplit` over n_vt tiles
-__device__ __forceinline__ void split_range(int s, int nsplit, int n_vt,
-                                            int &t0, int &t1) {
-  t0 = (int)((long long)s * n_vt / nsplit);
-  t1 = (int)((long long)(s + 1) * n_vt / nsplit);
-}
-
-__global__ void __launch_bounds__(NTHREADS)
-fused_head_fwd_kernel(const bf16 *__restrict__ x, const bf16 *__restrict__ w,
-                      const int *__restrict__ y, float *__restrict__ part_m,
-                      float *__restrict__ part_s, float *__restrict__ part_t,
-                      int M, int H, int V) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float *sS = reinterpret_cast<float *>(smem + OFF_S);
-  const int m0 = blockIdx.x * BM;
-  const int split = blockIdx.y, nsplit = gridDim.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // lanes 2i and 2i+1 share row warp*16 + i, 32 interleaved columns each
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int mi = m0 + row;
-  const int yr = mi < M ? y[mi] : -1;
-
-  int t0, t1;
-  split_range(split, nsplit, (V + BN - 1) / BN, t0, t1);
-  float m_run = kNegInf, s_run = 0.f, t_run = 0.f;
-  FragAcc acc[4];
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * BN;
-    score_tile(acc, smem, x, m0, M, w, v0, V, H);
-    store_scores(sS, acc);
-    const float *srow = sS + row * LDS;
-    float tile_max = kNegInf;
-#pragma unroll 8
-    for (int j = 0; j < BN / 2; ++j) {
-      const int c = 2 * j + half;
-      if (v0 + c < V) tile_max = fmaxf(tile_max, srow[c]);
-    }
-    const float m_new = fmaxf(m_run, tile_max);
-    float sum = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < BN / 2; ++j) {
-      const int c = 2 * j + half;
-      if (v0 + c < V) {
-        sum += expf(srow[c] - m_new);
-        if (v0 + c == yr) t_run += srow[c];
-      }
-    }
-    s_run = s_run * expf(m_run - m_new) + sum;
-    m_run = m_new;
-    __syncwarp();  // the row is read before the next tile's store
-  }
-  // the two halves of the row
-  const float m_o = __shfl_xor_sync(0xffffffffu, m_run, 1);
-  const float s_o = __shfl_xor_sync(0xffffffffu, s_run, 1);
-  const float t_o = __shfl_xor_sync(0xffffffffu, t_run, 1);
-  const float m = fmaxf(m_run, m_o);
-  const float s = s_run * expf(m_run - m) + s_o * expf(m_o - m);
-  if (half == 0 && mi < M) {
-    const long long o = (long long)split * M + mi;
-    part_m[o] = m;
-    part_s[o] = s;
-    part_t[o] = t_run + t_o;
-  }
-}
-
-cudaError_t set_smem(const void *kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              SMEM_BYTES);
-}
-
-bool bad_shape(int M, int H, int V) {
-  return M <= 0 || V <= 0 || H <= 0 || H % BK != 0;
-}
-
-// ------------------------------------------------------------------ backward
-
-namespace bwd {
 
 using namespace rlaifv;
 
@@ -270,8 +91,9 @@ constexpr int B_BYTES = TN * TK * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 // the ring, its 2 x STAGES barriers and the slack that aligns it to an atom
 constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + ATOM;
-enum Epi { DL = 0, DX = 1, DW = 2 };
+enum Epi { DL = 0, DX = 1, DW = 2, FWD = 3 };
 constexpr int FIRST = 1, LAST = 2;  // the dx epilogue's place in the chunk walk
+constexpr float kNegInf = -1e30f;   // the forward's empty max: exp(kNegInf - s) is 0
 
 // keeps the compiler from moving reads of the accumulators across the
 // asynchronous products
@@ -280,10 +102,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x 256, fp32, this warpgroup's registers) += A (64 x 16) B (16 x 256),
-// bf16 from shared memory; TA / TB: the operand is MN-major (transposed)
+// d (64 x 256, fp32, this warpgroup's registers) = A (64 x 16) B (16 x 256) +
+// (d, or 0 when keep is 0), bf16 from shared memory; TA / TB: the operand is
+// MN-major (transposed)
 template <int TA, int TB>
-__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t db,
+                                          int keep) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
@@ -321,20 +145,22 @@ __device__ __forceinline__ void wgmma_256(float (&d)[128], uint64_t da, uint64_t
         "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
         "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+      : "l"(da), "l"(db), "r"(keep), "n"(TA), "n"(TB));
 }
 
 struct Params {
-  const int *y;      // dl: labels (M,), in [0, V)
+  const int *y;      // dl, fwd: labels (M,), in [0, V)
   const float *lse;  // dl: the saved row logsumexp (M,)
   const float *g;    // dl: the upstream gradient (M,)
   bf16 *out;         // dl_c, dx or the chunk's rows of dW
   float *acc32;      // dx: the fp32 sum over chunks (M, H)
-  int rows, cols;    // the output's extent: stores outside it are masked
+  float *part;       // fwd: (3, nsplit, M) partials: max, sum, target
+  int rows, cols;    // the output's extent (fwd: M, V): what lies outside is masked
   int ldo;           // the output's row stride in elements (acc32's too)
   int c0;            // dl: the chunk's first vocabulary column
   int mode;          // dx and dW: FIRST | LAST
   int ktiles;        // TK-deep stages along the contraction
+  int nsplit;        // fwd: vocabulary splits
 };
 
 // dl = g (onehot(y) - exp(s - lse)) of this thread's scores into dl_c (bf16).
@@ -390,27 +216,127 @@ __device__ __forceinline__ void epi_store(const float (&acc)[128], const Params 
   }
 }
 
-// One CTA computes a TM x TN tile of C = A B over the whole contraction.
-// A (TM x K) is K-major (TM rows of K elements) or, for dW, MN-major (K rows
-// of TM elements); B (K x TN) is K-major (TN rows of K elements) for dl and
-// MN-major (K rows of TN elements) for dx and dW. Each stage holds A as one
-// TMA box of 128 rows (K-major) or two 64 x 64 boxes (MN-major), and B as one
-// box of 256 rows or four 64 x 64 boxes. Warps 0-7 are the two consumer
-// warpgroups (rows 0-63 and 64-127 of the tile), warp 8 the producer.
+// The forward's running state of this thread's two rows (labels y0, y1),
+// over the columns it holds (2 (lane % 4) + 8 j + {0, 1} of every tile)
+struct Online {
+  float m[2], s[2], t[2];
+};
+
+// One score tile into the running state: the tile's max over the live
+// columns, the running sum rescaled to the new max, the tile's exps added,
+// and the label's score where the label lies in this thread's columns.
+// Register i holds row r0 + 8 ((i >> 1) & 1), column cl + 8 (i >> 2) + (i & 1).
+__device__ __forceinline__ void epi_fwd(const float (&acc)[128], const Params &p, int n0,
+                                        int y0, int y1, Online &st) {
+  const int cl = n0 + 2 * (threadIdx.x % 4);
+  const bool whole = n0 + TN <= p.cols;  // no column past V
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (whole || cl + 8 * j + e < p.cols) mx = fmaxf(mx, acc[4 * j + 2 * h + e]);
+    const float m_new = fmaxf(st.m[h], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (whole || cl + 8 * j + e < p.cols) sum += __expf(acc[4 * j + 2 * h + e] - m_new);
+    st.s[h] = st.s[h] * __expf(st.m[h] - m_new) + sum;
+    st.m[h] = m_new;
+    const int d = (h ? y1 : y0) - cl;  // the label's offset from this thread's first column
+    if (d >= 0 && d < TN && (d & 6) == 0) {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e == d) st.t[h] += acc[4 * j + 2 * h + e];
+    }
+  }
+}
+
+// The 4 threads of each row combine their states; the first writes the
+// row's partials of this split
+__device__ __forceinline__ void fwd_partials(Online &st, const Params &p, int r0, int split) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, st.m[h], o);
+      const float s_o = __shfl_xor_sync(0xffffffffu, st.s[h], o);
+      const float t_o = __shfl_xor_sync(0xffffffffu, st.t[h], o);
+      const float m = fmaxf(st.m[h], m_o);
+      st.s[h] = st.s[h] * __expf(st.m[h] - m) + s_o * __expf(m_o - m);
+      st.t[h] += t_o;
+      st.m[h] = m;
+    }
+    const int r = r0 + 8 * h;
+    if (threadIdx.x % 4 == 0 && r < p.rows) {
+      const long long o = static_cast<long long>(split) * p.rows + r;
+      const long long plane = static_cast<long long>(p.nsplit) * p.rows;
+      p.part[o] = st.m[h];
+      p.part[plane + o] = st.s[h];
+      p.part[2 * plane + o] = st.t[h];
+    }
+  }
+}
+
+// logp and lse of each row from its splits' partials (3, nsplit, M)
+__global__ void fwd_combine(const float *__restrict__ part, int nsplit, int M,
+                            float *__restrict__ logp, float *__restrict__ lse) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= M) return;
+  const long long plane = static_cast<long long>(nsplit) * M;
+  float m = kNegInf;
+  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, part[static_cast<long long>(s) * M + r]);
+  float sum = 0.f, t = 0.f;
+  for (int s = 0; s < nsplit; ++s) {
+    const long long o = static_cast<long long>(s) * M + r;
+    sum += part[plane + o] * expf(part[o] - m);
+    t += part[2 * plane + o];
+  }
+  const float l = m + logf(fmaxf(sum, 1e-30f));
+  lse[r] = l;
+  logp[r] = t - l;
+}
+
+// The mainloop. A (TM x K) is K-major (TM rows of K elements) or, for dW,
+// MN-major (K rows of TM elements); B (K x TN) is K-major (TN rows of K
+// elements) for the scores (FWD, DL) and MN-major (K rows of TN elements)
+// for dx and dW. Each stage holds A as one TMA box of 128 rows (K-major) or
+// two 64 x 64 boxes (MN-major), and B as one box of 256 rows or four 64 x
+// 64 boxes. Warps 0-7 are the two consumer warpgroups (rows 0-63 and
+// 64-127 of the tile), warp 8 the producer. A CTA computes the output
+// column tiles [t0, t1) of its rows in turn: one for DL, DX and DW; its
+// split's vocabulary tiles for FWD.
 template <int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
-bwd_kernel(const __grid_constant__ CUtensorMap map_a,
-           const __grid_constant__ CUtensorMap map_b, const Params p) {
+head_kernel(const __grid_constant__ CUtensorMap map_a,
+            const __grid_constant__ CUtensorMap map_b, const Params p) {
   constexpr int TA = EPI == DW;
-  constexpr int TB = EPI != DL;
+  constexpr int TB = EPI == DX || EPI == DW;
   extern __shared__ __align__(1024) unsigned char smem_ring[];
   const uint32_t tiles = (saddr(smem_ring) + ATOM - 1) / ATOM * ATOM;
   const uint32_t full = tiles + STAGES * STAGE_BYTES;  // a stage's bytes have landed
   const uint32_t empty = full + STAGES * 8;            // both consumers are done with it
-  // dl walks the rows fastest (the CTAs at work share W tiles, x stays in
-  // L2); dx and dW walk the output columns fastest (they share A tiles)
-  const int m0 = (EPI == DL ? blockIdx.x : blockIdx.y) * TM;
-  const int n0 = (EPI == DL ? blockIdx.y : blockIdx.x) * TN;
+  // FWD: the splits of one row tile are adjacent in launch order; DL walks
+  // the rows fastest (the CTAs at work share W tiles, x stays in L2); DX
+  // and DW walk the output columns fastest (they share A tiles)
+  int m0, t0, t1, split = 0;
+  if (EPI == FWD) {
+    split = blockIdx.x % p.nsplit;
+    m0 = blockIdx.x / p.nsplit * TM;
+    const int n_vt = (p.cols + TN - 1) / TN;
+    t0 = static_cast<int>(static_cast<long long>(split) * n_vt / p.nsplit);
+    t1 = static_cast<int>(static_cast<long long>(split + 1) * n_vt / p.nsplit);
+  } else {
+    m0 = (EPI == DL ? blockIdx.x : blockIdx.y) * TM;
+    t0 = EPI == DL ? blockIdx.y : blockIdx.x;
+    t1 = t0 + 1;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -424,23 +350,27 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a,
 
   if (warp == NCONS * 4) {  // the producer: one thread starts every load
     if (lane == 0) {
-      for (int kt = 0; kt < p.ktiles; ++kt) {
-        const int s = kt % STAGES;
-        if (kt >= STAGES) bar_wait(empty + 8 * s, (kt / STAGES - 1) & 1);
-        const uint32_t a = tiles + s * STAGE_BYTES, b = a + A_BYTES, bar = full + 8 * s;
-        const int k0 = kt * TK;
-        bar_expect(bar, STAGE_BYTES);
-        if (TA) {
+      int it = 0;  // stages filled so far, across the CTA's tiles
+      for (int t = t0; t < t1; ++t) {
+        const int n0 = t * TN;
+        for (int kt = 0; kt < p.ktiles; ++kt, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) bar_wait(empty + 8 * s, (it / STAGES - 1) & 1);
+          const uint32_t a = tiles + s * STAGE_BYTES, b = a + A_BYTES, bar = full + 8 * s;
+          const int k0 = kt * TK;
+          bar_expect(bar, STAGE_BYTES);
+          if (TA) {
 #pragma unroll
-          for (int j = 0; j < TM / 64; ++j) tma_load(a + j * BOX, &map_a, m0 + 64 * j, k0, bar);
-        } else {
-          tma_load(a, &map_a, k0, m0, bar);
-        }
-        if (TB) {
+            for (int j = 0; j < TM / 64; ++j) tma_load(a + j * BOX, &map_a, m0 + 64 * j, k0, bar);
+          } else {
+            tma_load(a, &map_a, k0, m0, bar);
+          }
+          if (TB) {
 #pragma unroll
-          for (int j = 0; j < TN / 64; ++j) tma_load(b + j * BOX, &map_b, n0 + 64 * j, k0, bar);
-        } else {
-          tma_load(b, &map_b, k0, n0, bar);
+            for (int j = 0; j < TN / 64; ++j) tma_load(b + j * BOX, &map_b, n0 + 64 * j, k0, bar);
+          } else {
+            tma_load(b, &map_b, k0, n0, bar);
+          }
         }
       }
     }
@@ -448,39 +378,50 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 
   const int wg = warp / 4;  // this warpgroup's 64 rows start one BOX into A
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  for (int kt = 0; kt < p.ktiles; ++kt) {
-    const int s = kt % STAGES;
-    bar_wait(full + 8 * s, (kt / STAGES) & 1);
-    const uint32_t a = tiles + s * STAGE_BYTES + wg * BOX;
-    const uint32_t b = tiles + s * STAGE_BYTES + A_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      // K-major: the next 16 elements lie 32 bytes on along the swizzled
-      // row; MN-major: the next 16 rows lie two atoms on, the next 64
-      // columns one BOX on (the leading byte offset)
-      const uint64_t da = TA ? gmma_desc(a + kk * 2 * ATOM, BOX, ATOM)
-                             : gmma_desc(a + kk * 32, 16, ATOM);
-      const uint64_t db = TB ? gmma_desc(b + kk * 2 * ATOM, BOX, ATOM)
-                             : gmma_desc(b + kk * 32, 16, ATOM);
-      wgmma_256<TA, TB>(acc, da, db);
-    }
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous stage's products are done: release it
-    if (kt > 0 && threadIdx.x % 128 == 0) bar_arrive(empty + 8 * ((kt - 1) % STAGES));
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-
   const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
-  const int cl = n0 + 2 * (lane % 4);
-  if (EPI == DL)
-    epi_dl(acc, p, r0, cl);
-  else
-    epi_store(acc, p, r0, cl);
+  Online st{{kNegInf, kNegInf}, {0.f, 0.f}, {0.f, 0.f}};
+  int y0 = -1, y1 = -1;
+  if (EPI == FWD) {
+    if (r0 < p.rows) y0 = p.y[r0];
+    if (r0 + 8 < p.rows) y1 = p.y[r0 + 8];
+  }
+  float acc[128];  // a tile's first product overwrites it (keep = 0)
+  int it = 0;      // stages consumed so far, across the CTA's tiles
+  for (int t = t0; t < t1; ++t) {
+    const int n0 = t * TN;
+    for (int kt = 0; kt < p.ktiles; ++kt, ++it) {
+      const int s = it % STAGES;
+      bar_wait(full + 8 * s, (it / STAGES) & 1);
+      const uint32_t a = tiles + s * STAGE_BYTES + wg * BOX;
+      const uint32_t b = tiles + s * STAGE_BYTES + A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        // K-major: the next 16 elements lie 32 bytes on along the swizzled
+        // row; MN-major: the next 16 rows lie two atoms on, the next 64
+        // columns one BOX on (the leading byte offset)
+        const uint64_t da = TA ? gmma_desc(a + kk * 2 * ATOM, BOX, ATOM)
+                               : gmma_desc(a + kk * 32, 16, ATOM);
+        const uint64_t db = TB ? gmma_desc(b + kk * 2 * ATOM, BOX, ATOM)
+                               : gmma_desc(b + kk * 32, 16, ATOM);
+        wgmma_256<TA, TB>(acc, da, db, kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kt > 0 && threadIdx.x % 128 == 0) bar_arrive(empty + 8 * ((it - 1) % STAGES));
+    }
+    wgmma_wait<0>();
+    if (threadIdx.x % 128 == 0) bar_arrive(empty + 8 * ((it - 1) % STAGES));
+    fence_acc(acc);
+
+    if (EPI == FWD)
+      epi_fwd(acc, p, n0, y0, y1, st);
+    else if (EPI == DL)
+      epi_dl(acc, p, r0, n0 + 2 * (lane % 4));
+    else
+      epi_store(acc, p, r0, n0 + 2 * (lane % 4));
+  }
+  if (EPI == FWD) fwd_partials(st, p, r0, split);
 }
 
 // a tensor map over the row-major bf16 (rows, cols) matrix at base, row
@@ -494,13 +435,12 @@ bool tensor_map(CUtensorMap *map, const void *base, int rows, int cols, int ld,
 }
 
 template <int EPI>
-int launch(const CUtensorMap &a, const CUtensorMap &b, const Params &p, int grid_x,
-           int grid_y, void *stream) {
-  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void *>(bwd_kernel<EPI>),
+int launch(const CUtensorMap &a, const CUtensorMap &b, const Params &p, dim3 grid,
+           void *stream) {
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void *>(head_kernel<EPI>),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
-  bwd_kernel<EPI><<<dim3(grid_x, grid_y), THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      a, b, p);
+  head_kernel<EPI><<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(a, b, p);
   return cudaGetLastError();
 }
 
@@ -512,27 +452,34 @@ bool bad_chunk(int M, int H, int V, int c0, int vw, int ldl) {
          ldl % 8 != 0;
 }
 
-}  // namespace bwd
-
 }  // namespace
 
 // x (M, H) and w (V, H) bf16 row-major contiguous, y (M,) int32 in [0, V);
-// part_m, part_s, part_t (nsplit, M) fp32: each vocabulary split's running
-// max, sum of exp(s - max) and target logit (0 where y lies in another
-// split). H a multiple of 64.
-extern "C" int fused_head_fwd_bf16(const void *x, const void *w, const void *y,
-                                   void *part_m, void *part_s, void *part_t,
-                                   int M, int H, int V, int nsplit,
+// part (3, nsplit, M) fp32 scratch: each vocabulary split's running max,
+// sum of exp(s - max) and target logit (0 where y lies in another split);
+// writes logp and lse (M,) fp32. H a multiple of 64, 1 <= nsplit <= the
+// number of 256-wide vocabulary tiles. Two launches: the tiles, then the
+// combine.
+extern "C" int fused_head_fwd_bf16(const void *x, const void *w, const void *y, void *part,
+                                   void *logp, void *lse, int M, int H, int V, int nsplit,
                                    void *stream) {
-  const int n_vt = (V + BN - 1) / BN;
-  if (bad_shape(M, H, V) || nsplit < 1 || nsplit > n_vt) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(reinterpret_cast<const void *>(fused_head_fwd_kernel));
+  if (M <= 0 || V <= 0 || H <= 0 || H % TK != 0 || nsplit < 1 || nsplit > cdiv(V, TN))
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb;
+  if (!tensor_map(&ma, x, M, H, H, TM) || !tensor_map(&mb, w, V, H, H, TN))
+    return cudaErrorInvalidValue;
+  Params p{};
+  p.y = static_cast<const int *>(y);
+  p.part = static_cast<float *>(part);
+  p.rows = M;
+  p.cols = V;
+  p.ktiles = cdiv(H, TK);
+  p.nsplit = nsplit;
+  int err = launch<FWD>(ma, mb, p, dim3(cdiv(M, TM) * nsplit), stream);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + BM - 1) / BM, nsplit);
-  fused_head_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16 *>(x), static_cast<const bf16 *>(w),
-      static_cast<const int *>(y), static_cast<float *>(part_m),
-      static_cast<float *>(part_s), static_cast<float *>(part_t), M, H, V);
+  fwd_combine<<<cdiv(M, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float *>(part), nsplit, M, static_cast<float *>(logp),
+      static_cast<float *>(lse));
   return cudaGetLastError();
 }
 
@@ -544,17 +491,23 @@ extern "C" int fused_head_fwd_bf16(const void *x, const void *w, const void *y,
 extern "C" int fused_head_dl_bf16(const void *x, const void *w, const void *y,
                                   const void *lse, const void *g, void *dl, int M, int H,
                                   int V, int c0, int vw, int ldl, void *stream) {
-  using namespace bwd;
   if (bad_chunk(M, H, V, c0, vw, ldl)) return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (!tensor_map(&ma, x, M, H, H, TM) ||
       !tensor_map(&mb, static_cast<const bf16 *>(w) + static_cast<long long>(c0) * H, vw, H,
                   H, TN))
     return cudaErrorInvalidValue;
-  const Params p{static_cast<const int *>(y), static_cast<const float *>(lse),
-                 static_cast<const float *>(g), static_cast<bf16 *>(dl), nullptr,
-                 M, vw, ldl, c0, 0, cdiv(H, TK)};
-  return launch<DL>(ma, mb, p, cdiv(M, TM), cdiv(vw, TN), stream);
+  Params p{};
+  p.y = static_cast<const int *>(y);
+  p.lse = static_cast<const float *>(lse);
+  p.g = static_cast<const float *>(g);
+  p.out = static_cast<bf16 *>(dl);
+  p.rows = M;
+  p.cols = vw;
+  p.ldo = ldl;
+  p.c0 = c0;
+  p.ktiles = cdiv(H, TK);
+  return launch<DL>(ma, mb, p, dim3(cdiv(M, TM), cdiv(vw, TN)), stream);
 }
 
 // That chunk's share of dx = dl W: dl (M, ldl) bf16 as the dl entry point
@@ -565,7 +518,6 @@ extern "C" int fused_head_dl_bf16(const void *x, const void *w, const void *y,
 extern "C" int fused_head_dx_bf16(const void *dl, const void *w, void *dx32, void *dx,
                                   int M, int H, int V, int c0, int vw, int ldl, int mode,
                                   void *stream) {
-  using namespace bwd;
   if (bad_chunk(M, H, V, c0, vw, ldl) || mode < 0 || mode > 3 ||
       (mode != (FIRST | LAST) && dx32 == nullptr))
     return cudaErrorInvalidValue;
@@ -574,9 +526,15 @@ extern "C" int fused_head_dx_bf16(const void *dl, const void *w, void *dx32, voi
       !tensor_map(&mb, static_cast<const bf16 *>(w) + static_cast<long long>(c0) * H, vw, H,
                   H, TK))
     return cudaErrorInvalidValue;
-  const Params p{nullptr, nullptr, nullptr, static_cast<bf16 *>(dx),
-                 static_cast<float *>(dx32), M, H, H, 0, mode, cdiv(vw, TK)};
-  return launch<DX>(ma, mb, p, cdiv(H, TN), cdiv(M, TM), stream);
+  Params p{};
+  p.out = static_cast<bf16 *>(dx);
+  p.acc32 = static_cast<float *>(dx32);
+  p.rows = M;
+  p.cols = H;
+  p.ldo = H;
+  p.mode = mode;
+  p.ktiles = cdiv(vw, TK);
+  return launch<DX>(ma, mb, p, dim3(cdiv(H, TN), cdiv(M, TM)), stream);
 }
 
 // That chunk's rows of dW = dl^T x: dl (M, ldl) as above, x (M, H) bf16;
@@ -584,12 +542,16 @@ extern "C" int fused_head_dx_bf16(const void *dl, const void *w, void *dx32, voi
 // receives vw rows, each element written once.
 extern "C" int fused_head_dw_bf16(const void *dl, const void *x, void *dw, int M, int H,
                                   int vw, int ldl, void *stream) {
-  using namespace bwd;
   if (bad_chunk(M, H, vw, 0, vw, ldl)) return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (!tensor_map(&ma, dl, M, vw, ldl, TK) || !tensor_map(&mb, x, M, H, H, TK))
     return cudaErrorInvalidValue;
-  const Params p{nullptr, nullptr, nullptr, static_cast<bf16 *>(dw), nullptr,
-                 vw, H, H, 0, FIRST | LAST, cdiv(M, TK)};
-  return launch<DW>(ma, mb, p, cdiv(H, TN), cdiv(vw, TM), stream);
+  Params p{};
+  p.out = static_cast<bf16 *>(dw);
+  p.rows = vw;
+  p.cols = H;
+  p.ldo = H;
+  p.mode = FIRST | LAST;
+  p.ktiles = cdiv(M, TK);
+  return launch<DW>(ma, mb, p, dim3(cdiv(H, TN), cdiv(vw, TM)), stream);
 }

@@ -93,11 +93,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// d (64 x 128 int32, this warpgroup's registers) += A (64 x 32) B^T, int8 x
-// int8, both operands K-major: A and B from shared memory (descriptors).
-// Register i of a thread holds row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) & 1)
-// and column 8 (i >> 2) + 2 (lane % 4) + (i & 1) of the tile.
-__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da, uint64_t db) {
+// d (64 x 128 int32, this warpgroup's registers) = A (64 x 32) B^T + (d, or
+// 0 when keep is 0), int8 x int8, both operands K-major: A and B from
+// shared memory (descriptors). Register i of a thread holds row 16 (warp %
+// 4) + lane / 4 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 (lane % 4) +
+// (i & 1) of the tile.
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da, uint64_t db,
+                                            int keep = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -117,7 +119,7 @@ __device__ __forceinline__ void wgmma_s8_ss(int (&d)[64], uint64_t da, uint64_t 
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
         "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(keep));
 }
 
 // the same with A from registers: a[0..3] hold rows lane / 4 and lane / 4 + 8

@@ -34,15 +34,45 @@
 // also quantises dy * gs[j] once per output group: M N K / G elements
 // (2.2e9 at down_proj), a few fp32 instructions each, on the SMs' ALUs.
 //
-// The forward (simple first: mma.sync, no wgmma or TMA): a CTA owns a
-// 128 x 128 output tile and walks K in steps of 128 weight rows = 64 packed
-// byte rows, the groups in order, through two cp.async stages. Each step's
-// packed (64 x 128) tile is staged as it lies (swizzled), its nibbles
-// sign-extended four bytes at a time and transposed with byte permutes into
-// a K-contiguous (128 x 128) int8 tile, the B operand of mma.sync m16n8k32
-// s8 (.col). 8 warps each hold a 32 x 64 int32 sum for the group and a fp32
-// sum over the groups; at a group's end the int32 sum is scaled by gs[g]
-// and added in. No unpacked or transposed weight exists in device memory.
+// #11, the forward (q4fwd below): a CTA owns a 128 x 128 output tile and
+// walks K in steps of 64 packed byte rows (128 weight rows, two runs of 64:
+// the low nibbles, then the high ones), the groups in order, its warps
+// specialised:
+// - warp 0's first lane keeps a ring of TMA loads in flight, 3 steps ahead
+//   of the unpacking: the step's two xq boxes (K-major, 64-byte swizzle),
+//   the packed tile (64 x 128 bytes as it lies, 128-byte swizzle) and the
+//   group's gs row;
+// - warps 0-3 unpack each packed tile into a K-major int8 tile in wgmma's
+//   64-byte-swizzled layout (int8 wgmma takes both operands K-major only,
+//   and the packed weight is N-contiguous, so this is a transpose): 4 x 4
+//   byte blocks transposed once with byte permutes, each nibble then moved
+//   to the high half of its byte, a signed int8 of 16 times the weight (one
+//   or two logic operations a word, no sign-extension arithmetic). Within
+//   each 16 columns the tile's rows are permuted (column i of chunk c at
+//   row i ^ c, low three bits), so that a warp's stores hit 32 distinct
+//   banks; the epilogue reads the columns back through the same
+//   permutation;
+// - two consumer warpgroups (64 rows each) run wgmma m64n128k32 s8 x s8 ->
+//   s32 on the xq boxes and the unpacked tile; a group's first product
+//   clears the accumulator (wgmma's scale-d), and at the group's end the
+//   exact int32 sum is scaled by gs[g] (read from the ring) and added into
+//   the fp32 sum, while the other warpgroup's products run. The epilogue
+//   multiplies by the row scale and by 1/16 and rounds to bf16 once.
+// The factor 16 is exact all the way: |16 w| <= 128 fits int8, a group's
+// int32 sum stays below 2^24 (16 x 127 x 8 x G, G <= 1024), and rounding
+// commutes with scaling by a power of two, so every fp32 value is 16 times
+// the twin's until the exact 1/16.
+// mbarriers count the ring's bytes in and its readers out, the unpacked
+// tiles' writers and (after wgmma.wait) their readers. No unpacked or
+// transposed weight exists in device memory. One int32 accumulator: ptxas
+// caps every thread at 168 registers (384 threads), so a second one beside
+// the fp32 sum spills, and it serialises a warpgroup's products whenever
+// that warpgroup reads accumulators while any of its own are in flight.
+// Measured on an H100 (PERF.md; tools/int4_fwd_ablate.py): ~490
+// TOP/s at M 6144, about a microsecond a step, of which no single part
+// accounts for most: without the rescale a third less, without the
+// unpacking a sixth, with a quarter of the products an eighth; a deeper
+// load lookahead or dropping the proxy fence moves it by under 4%.
 // dx: TMA, warp specialisation and wgmma with A from registers (q4dx).
 #include <stdint.h>
 
@@ -57,165 +87,232 @@ namespace {
 
 using namespace rlaifv;
 
-constexpr int BM = 128;        // rows of x a CTA owns (forward)
-constexpr int BN = 128;        // output columns a CTA owns
-constexpr int NTHREADS = 256;  // 8 warps, 4 along rows x 2 along columns
-constexpr int HG = 64;         // packed byte rows a step
+namespace q4fwd {
 
-// forward: a step is 2 HG = 128 weight rows; rows of 144 bytes (36 words)
-// put a fragment load's 8 rows x 4 words in 32 distinct banks and keep
-// rows 16-byte aligned for cp.async
-constexpr int KS = 2 * HG;
-constexpr int LDF = KS + 16;
-constexpr int FA_BYTES = BM * LDF;  // one stage of the xq tile
-constexpr int FP_BYTES = HG * BN;   // one stage of the packed tile as it lies
-constexpr int FB_BYTES = BN * LDF;  // the unpacked, K-contiguous weight tile
-constexpr int FWD_SMEM = 2 * FA_BYTES + 2 * FP_BYTES + FB_BYTES;  // 71,680 bytes
-static_assert(BN == 128, "the packed staging tile has 128-byte rows (swizzle128)");
+constexpr int BN = 128;       // output columns a CTA owns: one m64n128k32
+constexpr int HG = 64;        // packed byte rows a step: 128 weight rows
+constexpr int STAGES = 7;
+constexpr int NBUF = 3;       // unpacked tiles
+// loads run this many steps ahead of the unpacking: the slot a load takes
+// was read by the unpackers and retired by the consumers before the
+// unpacking of the current step can start (STAGES - NBUF - 1), so the load
+// never waits there
+constexpr int AHEAD = STAGES - NBUF - 1;
+constexpr int NCONS = 2;      // consumer warpgroups: 128 rows of x
+constexpr int THREADS = (NCONS + 1) * 128;
+constexpr int P_BYTES = HG * BN;       // the packed tile, 128-byte rows
+constexpr int RUN_BYTES = 128 * HG;    // an xq box: 128 rows x one run of 64
+constexpr int G_BYTES = BN * 4;        // the group's gs row
+constexpr int P_OFF = 0, A_OFF = P_BYTES, G_OFF = A_OFF + 2 * RUN_BYTES;
+constexpr int STAGE_BYTES = 25 * 1024;  // P, A, G, padded to a 1 KB multiple
+constexpr int EXPECT = P_BYTES + 2 * RUN_BYTES + G_BYTES;
+constexpr int U_RUN = BN * HG;         // one run of an unpacked tile
+constexpr int U_BYTES = 2 * U_RUN;
+constexpr int SMEM = STAGES * STAGE_BYTES + NBUF * U_BYTES + 2 * (STAGES + NBUF) * 8 + 1024;
+static_assert(G_OFF + G_BYTES <= STAGE_BYTES, "stage layout");
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-    int4_fwd_kernel(const int8_t *__restrict__ xq, const float *__restrict__ sx,
-                    const int8_t *__restrict__ qp, const float *__restrict__ gs,
-                    bf16 *__restrict__ out, int M, int K, int N, int G) {
-  extern __shared__ __align__(16) int8_t smem[];
-  int8_t *sA = smem;                  // [2][FA_BYTES]
-  int8_t *sP = smem + 2 * FA_BYTES;   // [2][FP_BYTES]
-  int8_t *sB = sP + 2 * FP_BYTES;     // [FB_BYTES]
+// The unpacked tile row that holds packed column n (0..127): within each
+// 16 columns (chunk c = n / 16), column i sits at row i ^ c (low three
+// bits), so that the 8 chunks a warp stores at once land in 8 distinct
+// 4-bank groups
+__device__ __forceinline__ int unpacked_row(int n) {
+  return (n & ~7) | ((n & 7) ^ ((n >> 4) & 7));
+}
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int steps = K / KS, per_group = G / KS;
-  // K and N are multiples of 128: rows are 16-byte aligned when the base is
-  const bool a_vec = (reinterpret_cast<uintptr_t>(xq) & 15) == 0;
-  const bool q_vec = (reinterpret_cast<uintptr_t>(qp) & 15) == 0;
-
-  // step s: packed rows s HG .. s HG + 64 (group g, offset c in its G/2 byte
-  // rows) and the xq columns of their weight rows, low run then high run
-  auto stage = [&](int st, int s) {
-    const int g = s / per_group, c = (s % per_group) * HG;
-    for (int i = threadIdx.x; i < BM * (KS / 16); i += NTHREADS) {
-      const int r = i / (KS / 16), ch = i % (KS / 16);
-      const int col = g * G + (ch < HG / 16 ? c : G / 2 + c) + (ch % (HG / 16)) * 16;
-      load16_i8(sA + st * FA_BYTES + r * LDF + ch * 16, xq, m0 + r, M, col, K, a_vec);
-    }
-    for (int i = threadIdx.x; i < HG * (BN / 16); i += NTHREADS) {
-      const int r = i / (BN / 16), ch = i % (BN / 16);
-      load16_i8(sP + st * FP_BYTES + swizzle128(r, ch * 16), qp, s * HG + r, K / 2,
-                n0 + ch * 16, N, q_vec);
-    }
-  };
-  // the staged packed tile -> sB row n: the step's 64 low-nibble weights,
-  // then its 64 high-nibble ones; 4 x 4 byte blocks, two per thread, a half
-  // warp on the 16 K-blocks of one N-block (32 distinct banks a store)
-  auto unpack = [&](const int8_t *src) {
+// The byte offsets in an unpacked run where thread (c, kb) stores its 16
+// words: word kb (weight rows 4 kb .. 4 kb + 3 of the run) of the rows
+// that hold columns 16 c .. 16 c + 15, in wgmma's 64-byte swizzle (16-byte
+// chunk q of row R at q ^ ((R >> 1) & 3))
+__device__ __forceinline__ void unpack_offsets(uint32_t (&off)[16], int c, int kb) {
 #pragma unroll
-    for (int i = 0; i < (HG / 4) * (BN / 4) / NTHREADS; ++i) {
-      const int idx = threadIdx.x + i * NTHREADS;
-      const int kb = idx % (HG / 4), nb = idx / (HG / 4);
-      uint32_t lo[4], hi[4], o[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const uint32_t w = ld32(src + swizzle128(kb * 4 + r, nb * 4));
-        lo[r] = lo_nibbles(w);
-        hi[r] = hi_nibbles(w);
-      }
-      transpose4x4(lo, o);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t *>(sB + (nb * 4 + j) * LDF + kb * 4) = o[j];
-      transpose4x4(hi, o);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        *reinterpret_cast<uint32_t *>(sB + (nb * 4 + j) * LDF + HG + kb * 4) = o[j];
-    }
-  };
-
-  const int lane = threadIdx.x % 32, g8 = lane / 4, t = lane % 4;
-  const int warp = threadIdx.x / 32, wm = warp % 4, wn = warp / 4;
-  int iacc[2][8][4];   // this group's exact int32 sums
-  float acc[2][8][4];  // the fp32 sum over the groups so far
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        iacc[i][j][e] = 0;
-        acc[i][j][e] = 0.f;
-      }
-
-  stage(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < steps) {
-      stage(cur ^ 1, s + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    unpack(sP + cur * FP_BYTES);
-    __syncthreads();
-    const int8_t *ta = sA + cur * FA_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < KS; ks += 32) {
-      uint32_t af[2][4], bfrag[8][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int8_t *p = ta + (wm * 32 + mt * 16 + g8) * LDF + ks + t * 4;
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * LDF);
-        af[mt][2] = ld32(p + 16);
-        af[mt][3] = ld32(p + 8 * LDF + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int8_t *p = sB + (wn * 64 + j * 8 + g8) * LDF + ks + t * 4;
-        bfrag[j][0] = ld32(p);
-        bfrag[j][1] = ld32(p + 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mma_s8(iacc[mt][j], af[mt], bfrag[j]);
-    }
-    if ((s + 1) % per_group == 0) {  // the group's end: acc += float(iacc) * gs[g]
-      const float *grow = gs + (long long)(s / per_group) * N + n0 + wn * 64 + t * 2;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float s0 = grow[j * 8], s1 = grow[j * 8 + 1];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float part = __fmul_rn(__int2float_rn(iacc[mt][j][e]), e % 2 ? s1 : s0);
-            acc[mt][j][e] = __fadd_rn(acc[mt][j][e], part);
-            iacc[mt][j][e] = 0;
-          }
-      }
-    }
-    __syncthreads();  // sA / sP of this stage and sB are read before the next writes
+  for (int i = 0; i < 16; ++i) {
+    const int R = unpacked_row(16 * c + i);
+    off[i] = R * HG + ((((kb >> 2) ^ ((R >> 1) & 3)) << 4) | ((kb & 3) << 2));
   }
+}
 
-  // epilogue: bf16(acc * sx[row]); N is even, so column pairs store as one word
+// The staged packed tile (64 rows of 128 bytes, TMA's 128-byte swizzle:
+// 16-byte chunk q of row r at q ^ (r & 7)) -> the unpacked tile's two runs.
+// Thread (c, kb) of warps 0-3 takes packed rows 4 kb .. 4 kb + 3 x columns
+// 16 c .. 16 c + 15: a quarter warp reads one whole row (8 chunks). Each 4
+// x 4 byte block is transposed once with byte permutes (o[b]: column 4 w +
+// b, rows 4 kb .. 4 kb + 3), and each nibble lands in the high half of its
+// byte, which makes it a signed int8 of 16 times its value: (o << 4) &
+// 0xf0 per byte for the low nibbles, o & 0xf0 for the high ones (per-byte
+// operations commute with the transpose).
+__device__ __forceinline__ void unpack(uint32_t p, uint32_t u, const uint32_t (&off)[16],
+                                       int c, int kb) {
+  uint32_t v[4][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * kb + r;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[r][0]), "=r"(v[r][1]), "=r"(v[r][2]), "=r"(v[r][3])
+                 : "r"(p + row * BN + ((c ^ (row & 7)) << 4)));
+  }
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t q[4] = {v[0][w], v[1][w], v[2][w], v[3][w]};
+    uint32_t o[4];
+    transpose4x4(q, o);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t lo = (o[b] << 4) & 0xf0f0f0f0u, hi = o[b] & 0xf0f0f0f0u;
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(u + off[4 * w + b]), "r"(lo));
+      asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(u + U_RUN + off[4 * w + b]), "r"(hi));
+    }
+  }
+}
+
+// One step's products into acc: the low run, then the high one, two k32
+// products each (K-major, 64-byte swizzle: 32 bytes on); keep = 0 clears
+// acc with the first (a group's first step)
+__device__ __forceinline__ void products(int (&acc)[64], uint32_t a, uint32_t u, int keep) {
+  wgmma_fence();
+#pragma unroll
+  for (int run = 0; run < 2; ++run)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      wgmma_s8_ss(acc, gmma_desc(a + run * RUN_BYTES + kk * 32, 16, 512, 2),
+                  gmma_desc(u + run * U_RUN + kk * 32, 16, 512, 2),
+                  run == 0 && kk == 0 ? keep : 1);
+  wgmma_commit();
+}
+
+// A finished group into the fp32 sum: sum += float(acc) * gs[g], two
+// roundings, in group order. gsm: the group's gs row in the ring. Register
+// i's column (see unpacked_row) is 8 jj + ((2 t + e) ^ c), jj = i / 4,
+// e = i % 2, c = jj / 2: the pair's columns nb, nb + 1 with nb = 8 jj +
+// (2 t ^ (c & 6)), swapped when c is odd.
+__device__ __forceinline__ void rescale(float (&sum)[64], int (&acc)[64], uint32_t gsm, int t) {
+  fence_acc(acc);
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int c = jj / 2;
+    float g[2];
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(g[0]), "=f"(g[1])
+                 : "r"(gsm + (8 * jj + ((2 * t) ^ (c & 6))) * 4));
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * jj + 2 * h + e;
+        sum[i] = __fadd_rn(sum[i], __fmul_rn(__int2float_rn(acc[i]), g[e ^ (c & 1)]));
+      }
+  }
+}
+
+// Rows [m0, m0 + 128) x columns [n0, n0 + 128) of out. Warps 0-3 load and
+// unpack, warps 4-11 consume.
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_groups(const __grid_constant__ CUtensorMap map_xq,
+               const __grid_constant__ CUtensorMap map_qp,
+               const __grid_constant__ CUtensorMap map_gs, const float *__restrict__ sx,
+               bf16 *__restrict__ out, int M, int K, int N, int G) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = (saddr(smem_raw) + 1023) / 1024 * 1024;
+  const uint32_t bufs = ring + STAGES * STAGE_BYTES;  // unpacked tiles
+  const uint32_t full = bufs + NBUF * U_BYTES;        // a stage's bytes have landed
+  const uint32_t empty = full + STAGES * 8;           // its readers are done
+  const uint32_t ufull = empty + STAGES * 8;          // an unpacked tile is written
+  const uint32_t ufree = ufull + NBUF * 8;            // its products have retired
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * 128;
+  const int per_group = G / (2 * HG), J = K / G, nsteps = K / (2 * HG);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, 4 + NCONS);  // the unpacking warps, the consumers
+    }
+    for (int b = 0; b < NBUF; ++b) {
+      bar_init(ufull + 8 * b, 4);
+      bar_init(ufree + 8 * b, NCONS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // step i: packed rows [64 i, 64 i + 64) of group g = i / per_group, at
+    // offset c of its G/2 rows; the xq columns of their weight rows, the low
+    // run then the high one; the group's gs row
+    auto load = [&](int i) {
+      const int s = i % STAGES, g = i / per_group, c = (i % per_group) * HG;
+      if (i >= STAGES) bar_wait(empty + 8 * s, (i / STAGES - 1) & 1);
+      const uint32_t st = ring + s * STAGE_BYTES, bar = full + 8 * s;
+      bar_expect(bar, EXPECT);
+      tma_load(st + P_OFF, &map_qp, n0, i * HG, bar);
+      tma_load(st + A_OFF, &map_xq, g * G + c, m0, bar);
+      tma_load(st + A_OFF + RUN_BYTES, &map_xq, g * G + G / 2 + c, m0, bar);
+      tma_load(st + G_OFF, &map_gs, n0, g, bar);
+    };
+    const bool producer = warp == 0 && lane == 0;
+    const int c = lane & 7, kb = 4 * warp + (lane >> 3);  // this thread's unpacking block
+    uint32_t off[16];
+    unpack_offsets(off, c, kb);
+    if (producer)
+      for (int i = 0; i < AHEAD && i < nsteps; ++i) load(i);
+    for (int i = 0; i < nsteps; ++i) {
+      if (producer && i + AHEAD < nsteps) load(i + AHEAD);
+      const int s = i % STAGES, b = i % NBUF;
+      bar_wait(full + 8 * s, (i / STAGES) & 1);
+      if (i >= NBUF) bar_wait(ufree + 8 * b, (i / NBUF - 1) & 1);
+      unpack(ring + s * STAGE_BYTES + P_OFF, bufs + b * U_BYTES, off, c, kb);
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) {
+        bar_arrive(ufull + 8 * b);
+        bar_arrive(empty + 8 * s);
+      }
+    }
+  } else {
+    const int wg = warp / 4 - 1, t = lane % 4;
+    // A group's first product overwrites acc (keep = 0). ptxas serialises a
+    // warpgroup's products if it reads accumulators while any of its own
+    // products are in flight, so each step's products retire before the
+    // rescale, which overlaps the other warpgroup's products.
+    int acc[64];
+    float sum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    const uint32_t a_wg = A_OFF + wg * 64 * HG;  // this warpgroup's rows of the xq boxes
+    for (int i = 0; i < nsteps; ++i) {
+      const int s = i % STAGES, b = i % NBUF, keep = i % per_group != 0;
+      const uint32_t st = ring + s * STAGE_BYTES;
+      bar_wait(full + 8 * s, (i / STAGES) & 1);
+      bar_wait(ufull + 8 * b, (i / NBUF) & 1);
+      products(acc, st + a_wg, bufs + b * U_BYTES, keep);
+      wgmma_wait<0>();
+      if ((i + 1) % per_group == 0) rescale(sum, acc, st + G_OFF, t);  // the group's end
+      if (threadIdx.x % 128 == 0) {  // step i is done with
+        bar_arrive(empty + 8 * s);
+        bar_arrive(ufree + 8 * b);
+      }
+    }
+
+    // epilogue: bf16(sum * sx[row]), the weights' factor 16 taken out
+    // exactly; column pairs as rescale maps them
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = m0 + wm * 32 + mt * 16 + g8 + h * 8;
+      const int row = m0 + wg * 64 + (warp % 4) * 16 + lane / 4 + 8 * h;
       if (row >= M) continue;
       const float rs = sx[row];
-      bf16 *orow = out + (long long)row * N;
+      bf16 *orow = out + static_cast<long long>(row) * N + n0;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + wn * 64 + j * 8 + t * 2;
-        *reinterpret_cast<__nv_bfloat162 *>(orow + col) = __floats2bfloat162_rn(
-            __fmul_rn(acc[mt][j][h * 2], rs), __fmul_rn(acc[mt][j][h * 2 + 1], rs));
+      for (int jj = 0; jj < 16; ++jj) {
+        const int c = jj / 2, i = 4 * jj + 2 * h;
+        const float lo = sum[i + (c & 1)], hi = sum[i + 1 - (c & 1)];
+        *reinterpret_cast<__nv_bfloat162 *>(orow + 8 * jj + ((2 * t) ^ (c & 6))) =
+            __floats2bfloat162_rn(__fmul_rn(__fmul_rn(lo, rs), 0.0625f),
+                                  __fmul_rn(__fmul_rn(hi, rs), 0.0625f));
       }
     }
   }
 }
+
+}  // namespace q4fwd
 
 // ---------------------------------------------------------------- #12, dx
 //
@@ -660,19 +757,29 @@ __global__ void __launch_bounds__(THREADS, 1)
 }  // namespace
 
 // #11: xq (M, K) int8, sx (M,) fp32, qp (K/2, N) int8, gs (K/G, N) fp32 ->
-// out (M, N) bf16; G a multiple of 128 dividing K, N a multiple of 128
+// out (M, N) bf16; G a multiple of 128 dividing K, at most 1024 (the int32
+// group sums of 16 times the weights stay exact in fp32), N a multiple of
+// 128, xq, qp and gs 16-byte aligned
 extern "C" int int4_matmul_bf16(const void *xq, const void *sx, const void *qp,
                                 const void *gs, void *out, int M, int K, int N, int G,
                                 void *stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      int4_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  int4_fwd_kernel<<<grid, NTHREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t *>(xq), static_cast<const float *>(sx),
-      static_cast<const int8_t *>(qp), static_cast<const float *>(gs),
-      static_cast<bf16 *>(out), M, K, N, G);
-  return static_cast<int>(cudaGetLastError());
+  using namespace q4fwd;
+  if (M <= 0 || G <= 0 || G % 128 || G > 1024 || K % G || N % 128) return cudaErrorInvalidValue;
+  CUtensorMap mx, mq, mg;
+  if (!tensor_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, HG, 128,
+                     CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !tensor_map_2d(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, qp, K / 2, N, N, BN, HG,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mg, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, gs, K / G, N, 4ll * N, BN, 1,
+                     CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void *>(fwd_groups),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  fwd_groups<<<dim3(N / BN, (M + 127) / 128), THREADS, SMEM,
+               static_cast<cudaStream_t>(stream)>>>(mx, mq, mg, static_cast<const float *>(sx),
+                                                    static_cast<bf16 *>(out), M, K, N, G);
+  return cudaGetLastError();
 }
 
 // #12: dy (M, N) bf16, qp (K/2, N) int8, gs (K/G, N) fp32 -> dx (M, K) bf16;

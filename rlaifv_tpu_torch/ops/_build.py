@@ -55,7 +55,7 @@ SIGNATURES = {
     # q, k, k_scale, v, v_scale, mask, out, B, H, KVH, L, D, valid_len,
     # block_l, q stride b, q stride h, scale, stream
     "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
-    # x, w, y, part_m, part_s, part_t, M, H, V, nsplit, stream
+    # x, w, y, part, logp, lse, M, H, V, nsplit, stream
     "fused_head_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, y, lse, g, dl, M, H, V, c0, vw, ldl, stream
     "fused_head_dl_bf16": [_P] * 6 + [_I] * 6 + [_P],

@@ -1,11 +1,17 @@
 """Fused LM head: target-token log-probabilities without the (M, V) logits.
 
 Counterpart of rlaifv_tpu/ops/fused_head.py. The kernels live in
-csrc/fused_head.cu. The forward is one kernel (the TPU's `_fwd_kernel` and
-`_fwd_kernel_hblocked`; the H contraction is the kernel's inner loop at any
-H). The backward (the TPU's `_bwd_dx_kernel` and `_bwd_dw_kernel`, both
-built on `_dl_tile`) walks the vocabulary in chunks of `vc` columns, in
-order, and runs three kernels a chunk:
+csrc/fused_head.cu, four epilogues of one TMA + wgmma mainloop (the
+source's header says how). The forward (the TPU's `_fwd_kernel` and
+`_fwd_kernel_hblocked`; the H contraction is the mainloop at any H) runs
+one CTA per (128 rows, vocabulary split): it walks the split's 256-wide
+vocabulary tiles with an online (max, sumexp, target) per row, writes the
+split's partials, and a small second kernel combines the splits
+(`fwd_splits` plans them; `fwd_partials_plain` and `combine_partials` are
+the two stages in plain PyTorch). The backward (the TPU's
+`_bwd_dx_kernel` and `_bwd_dw_kernel`, both built on `_dl_tile`) walks the
+vocabulary in chunks of `vc` columns, in order, and runs three kernels a
+chunk:
 
 - dl: the chunk's scores x W_c^T, recomputed once from the saved row
   logsumexp, and from them dl_c = g (onehot(y) - exp(s - lse)), written once
@@ -16,13 +22,13 @@ order, and runs three kernels a chunk:
 - dW: dl_c^T x, the chunk's rows of dW, each written once (skipped for a
   frozen head).
 
-What bounds the backward on the card: three bf16 products of 2 M H V FLOP
-at the tensor cores' rate, plus the M vc 2 bytes of dl a chunk writes once
-and reads twice. The kernels run them on wgmma fed by TMA (the source's
-header says how). `chunk_width` picks vc so that dl stays within
-DL_CHUNK_BYTES: one chunk at the 7B train step's head (M = 2046, V = 32000:
-131 MB), 8192 columns at the QLoRA step's M = 16368. Scratch: M vc 2 bytes
-of dl, plus M H 4 bytes of fp32 dx when there is more than one chunk.
+What bounds them on the card: the forward's product 2 M H V and the
+backward's three, at the tensor cores' rate, plus the M vc 2 bytes of dl a
+chunk writes once and reads twice. `chunk_width` picks vc so that dl stays
+within DL_CHUNK_BYTES: one chunk at the 7B train step's head (M = 2046,
+V = 32000: 131 MB), 8192 columns at the QLoRA step's M = 16368. Scratch:
+the forward's 3 nsplit M 4 bytes of partials; M vc 2 bytes of dl, plus
+M H 4 bytes of fp32 dx when there is more than one chunk.
 
 `target_logp_plain`, `fused_head_fwd_plain` and `fused_head_bwd_plain` are
 the functions in plain PyTorch, the kernels' references on the card; on the
@@ -44,7 +50,9 @@ from typing import Optional, Tuple
 
 import torch
 
-BLOCK = 64  # rows, vocabulary columns and H columns of the forward's tiles
+BLOCK = 64  # H is a multiple of this: one 128-byte row of bf16, a stage's depth
+ROW_TILE = 128  # rows of a forward CTA
+VOCAB_TILE = 256  # vocabulary columns of a forward score tile
 # the backward's dl chunk (M x vc bf16) stays within this many bytes
 DL_CHUNK_BYTES = 256 * 2 ** 20
 # vc is a multiple of this: the dW kernel's tile over the vocabulary
@@ -85,12 +93,54 @@ def fused_head_bwd_plain(x, w, y, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
     return dx, dw
 
 
-def _splits(M: int, V: int, device) -> int:
-    """Vocabulary splits so that about two CTAs per SM run (each CTA owns 64
-    rows of one split); at most one split per 64-wide vocabulary tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_m = -(-M // BLOCK)
-    return max(1, min(-(-V // BLOCK), -(-2 * sms // n_m)))
+def fwd_splits(M: int, V: int, sms: int) -> int:
+    """The forward's vocabulary splits for M rows on `sms` SMs. A CTA owns
+    128 rows (n_m row tiles in all) and one split, and walks the split's
+    256-wide vocabulary tiles; one CTA fits an SM (~197 KB of ring). The
+    rule: sms // n_m splits, so that one wave of CTAs fills the card (M
+    2046: 16 row tiles x 8 splits, 128 CTAs of 15-16 tiles; 9 splits would
+    start a second, nearly empty wave), but at least two (M 16363: 128 row
+    tiles x 2 splits, two waves of 62-63 tiles a CTA), and never more
+    splits than vocabulary tiles. Measured on an H100 (PERF.md,
+    tools/head_splits.py): at M 2046 8 splits beat 4, 9 and 16; at M 16363
+    2 beat 1, 3, 4 and 8."""
+    n_m, n_v = -(-M // ROW_TILE), -(-V // VOCAB_TILE)
+    return max(1, min(n_v, max(2, sms // n_m)))
+
+
+def _split_tiles(split: int, nsplit: int, V: int) -> range:
+    """The vocabulary tiles of one split (the kernel's rule)."""
+    n_v = -(-V // VOCAB_TILE)
+    return range(split * n_v // nsplit, (split + 1) * n_v // nsplit)
+
+
+def fwd_partials_plain(x, w, y, nsplit: int) -> torch.Tensor:
+    """The forward kernel's first stage in plain PyTorch: (3, nsplit, M) fp32
+    of each split's row max, sum of exp(s - max) and target logit (0 where
+    the label lies in another split), over the split's vocabulary tiles."""
+    M, V = x.shape[0], w.shape[0]
+    part = torch.empty((3, nsplit, M), dtype=torch.float32, device=x.device)
+    for i in range(nsplit):
+        tiles = _split_tiles(i, nsplit, V)
+        c0, c1 = tiles.start * VOCAB_TILE, min(V, tiles.stop * VOCAB_TILE)
+        s = torch.matmul(x.float(), w[c0:c1].float().T)
+        m = s.amax(dim=-1)
+        part[0, i] = m
+        part[1, i] = torch.exp(s - m[:, None]).sum(dim=-1)
+        inside = (y.long() >= c0) & (y.long() < c1)
+        at = torch.clamp(y.long() - c0, 0, c1 - c0 - 1)
+        part[2, i] = torch.where(inside, torch.gather(s, 1, at[:, None])[:, 0], 0.0)
+    return part
+
+
+def combine_partials(part: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's second stage in plain PyTorch: (logp, lse) (M,)
+    from (3, nsplit, M) partials, lse = max + log(max(sum, 1e-30)) as the
+    TPU kernels."""
+    m, s, t = part
+    mx = m.amax(dim=0)
+    lse = mx + torch.log(torch.clamp((s * torch.exp(m - mx)).sum(dim=0), min=1e-30))
+    return t.sum(dim=0) - lse, lse
 
 
 def _check(x, w, y, **fp32):
@@ -111,25 +161,22 @@ def _check(x, w, y, **fp32):
 
 
 def _kernel_fwd(x, w, y):
-    """(logp, lse) from the forward kernel; the vocabulary splits' partial
-    (max, sumexp, target) combine here."""
+    """(logp, lse) from the forward kernels: the split tiles' partials, then
+    their combine (two launches)."""
     from rlaifv_tpu_torch.ops import _build
 
     _check(x, w, y)
     M, H = x.shape
     V = w.shape[0]
-    nsplit = _splits(M, V, x.device)
+    nsplit = fwd_splits(M, V, torch.cuda.get_device_properties(x.device).multi_processor_count)
     part = torch.empty((3, nsplit, M), dtype=torch.float32, device=x.device)
+    logp, lse = torch.empty((2, M), dtype=torch.float32, device=x.device)
     err = _build.load_kernels().fused_head_fwd_bf16(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), part[2].data_ptr(), M, H, V, nsplit,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), logp.data_ptr(),
+        lse.data_ptr(), M, H, V, nsplit, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_head_fwd_bf16")
     fused_target_logp.fwd_launches += 1
-    m, s, t = part
-    mx = m.amax(dim=0)
-    lse = mx + torch.log(torch.clamp((s * torch.exp(m - mx)).sum(dim=0), min=1e-30))
-    return t.sum(dim=0) - lse, lse
+    return logp, lse
 
 
 def chunk_width(M: int, V: int) -> int:
@@ -279,7 +326,7 @@ def fused_target_logp(hidden: torch.Tensor, w: torch.Tensor,
     return logp.reshape(batch_shape)
 
 
-fused_target_logp.fwd_launches = 0  # forward kernel launches (CUDA tensors only)
+fused_target_logp.fwd_launches = 0  # forward calls on the card (two kernels each)
 fused_target_logp.dl_launches = 0  # dl kernel launches (one a chunk)
 fused_target_logp.dx_launches = 0  # dx product launches (one a chunk)
 fused_target_logp.dw_launches = 0  # dW product launches (one a chunk)

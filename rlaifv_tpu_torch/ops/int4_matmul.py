@@ -40,6 +40,9 @@ import torch
 from rlaifv_tpu_torch.ops.quant_matmul import _int_product, _launch, quantize_rows
 
 INT4_GROUP = 128  # quantization group size along the contraction axis
+# #11 sums 16 times each weight (csrc/int4_matmul.cu); a group's int32 sum
+# stays exact in fp32 up to this group size
+FWD_MAX_GROUP = 1024
 # Widest output whose dx takes kernel #12; wider ones (gate/up at N = 11008)
 # take the dequant formula. The JAX package's choice (a TPU VMEM budget), not
 # measured on the H100.
@@ -232,6 +235,14 @@ def _kernel_fwd(xq, sx, qp, gs) -> torch.Tensor:
     for key, t in (("xq", xq), ("sx", sx), ("qp", qp), ("gs", gs)):
         if t.device != xq.device or not t.is_contiguous():
             raise ValueError(f"int4_matmul: {key} must be contiguous on {xq.device}")
+    if qp.data_ptr() % 16 or gs.data_ptr() % 16:
+        raise ValueError("int4_matmul: the kernel reads qp and gs through TMA, "
+                         "which needs 16-byte aligned bases")
+    if _group(qp, gs) > FWD_MAX_GROUP:
+        raise ValueError(f"int4_matmul: the kernel takes groups of at most {FWD_MAX_GROUP} "
+                         f"rows; got {_group(qp, gs)}")
+    if xq.data_ptr() % 16:
+        xq = xq.clone()  # a view at an odd offset; TMA reads aligned rows
     out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
     _launch("int4_matmul_bf16", xq, sx, qp, gs, out, M, K, N, _group(qp, gs))
     int4_matmul.launches += 1

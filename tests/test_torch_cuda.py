@@ -420,6 +420,9 @@ def _grad_close(got, ref):
     (130, 4096, 32001),   # ragged rows and one valid column in the last tile
     (77, 128, 300),       # tiny, every edge ragged
     (1, 64, 64),          # one row, one tile
+    (300, 256, 1000),     # the forward's edges: V % 256 != 0, M % 128 != 0
+    (200, 64, 700),       # H 64: one stage a tile
+    (77, 128, 256),       # one vocabulary tile: a single split
 ])
 def test_fused_head_kernels_match_plain(gen, M, H, V, vc):
     x, w, y, g = _head_case(gen, M, H, V)
@@ -585,6 +588,33 @@ def test_int4_kernels_match_plain_bit_for_bit(gen, M, K, N):
     assert out.shape == (M, N) and dx.shape == (M, K)
     assert torch.equal(out, i4.int4_matmul_plain(x, qp, gs))
     assert torch.equal(dx, i4.int4_matmul_dx_plain(dy, qp, gs))
+
+
+@pytest.mark.parametrize("G", [128, 256])
+@pytest.mark.parametrize("M", [1, 127, 6144])
+def test_int4_forward_kernel_matches_twin_at_groups_of_128_and_256(gen, M, G):
+    """Kernel #11 on prequantised rows equals int4_product_plain bit for bit
+    at one row, a ragged row tile and the 8-pair step's prefix rows, groups
+    of 128 and 256; an xq view off 16 bytes is copied first, a qp off 16
+    bytes raises."""
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    K, N = 4096, 4096
+    qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"), G)
+    xq, sx = qm.quantize_rows(_randn(gen, M, K).float())
+    want = i4.int4_product_plain(xq, sx, qp, gs).to(torch.bfloat16)
+    got = i4._kernel_fwd(xq, sx.reshape(-1), qp, gs)
+    odd = torch.empty(xq.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(xq.shape)
+    odd.copy_(xq)
+    got_odd = i4._kernel_fwd(odd, sx.reshape(-1), qp, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_odd, want)
+    odd_qp = torch.empty(qp.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(qp.shape)
+    odd_qp.copy_(qp)
+    with pytest.raises(ValueError):
+        i4._kernel_fwd(xq, sx.reshape(-1), odd_qp, gs)
 
 
 def test_int4_autograd_routes_and_quant_dense_on_cuda(gen, monkeypatch):

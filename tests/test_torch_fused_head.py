@@ -180,6 +180,57 @@ def test_chunk_width(M, V, want):
             M * (vc + tfh.VC_ALIGN) * 2 > tfh.DL_CHUNK_BYTES
 
 
+@pytest.mark.parametrize("M,V,sms,want", [
+    (2046, 32000, 132, 8),     # the 7B train step: 16 row tiles x 8 splits, one wave
+    (16363, 32000, 132, 2),    # the ref-logp fallback: 128 row tiles, at least two splits
+    (16368, 32000, 132, 2),    # the QLoRA step's head
+    (1000, 32001, 132, 16),
+    (130, 32001, 132, 66),     # two row tiles: 132 CTAs of about two tiles
+    (77, 300, 132, 2),         # never more splits than vocabulary tiles
+    (77, 256, 132, 1),         # one vocabulary tile: a single split
+    (1, 64, 132, 1),
+    (2 ** 21, 32000, 132, 2),
+    (2046, 32000, 114, 7),     # a card with fewer SMs
+])
+def test_fwd_splits(M, V, sms, want):
+    s = tfh.fwd_splits(M, V, sms)
+    n_m, n_v = -(-M // tfh.ROW_TILE), -(-V // tfh.VOCAB_TILE)
+    assert s == want and 1 <= s <= n_v
+    assert n_m * s <= sms or s == min(2, n_v)  # one wave, unless two splits make more
+
+
+FWD_SPLIT_CASES = {  # M, H, V, splits: ragged rows and a ragged last vocabulary tile
+    "three splits": (13, 32, 700, 3),
+    "two splits, one column in the last tile": (21, 64, 513, 2),
+    "one split a tile": (29, 32, 1000, 4),
+    "one split": (5, 32, 300, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_SPLIT_CASES))
+def test_split_partials_combine_to_the_forward(case):
+    """The forward kernel's two stages in plain PyTorch: each split's (max,
+    sumexp, target) over its 256-wide tiles, then the combine, against
+    fused_head_fwd_plain and the JAX `_fwd` kernel in interpret mode."""
+    M, H, V, nsplit = FWD_SPLIT_CASES[case]
+    x, w, y, _ = _case(len(case) + 3, M, H, V)
+    xt, wt, yt = torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(y)
+    part = tfh.fwd_partials_plain(xt, wt, yt, nsplit)
+    assert part.shape == (3, nsplit, M)
+    inside = [(yt >= r.start * tfh.VOCAB_TILE) & (yt < r.stop * tfh.VOCAB_TILE)
+              for r in (tfh._split_tiles(i, nsplit, V) for i in range(nsplit))]
+    assert torch.equal(torch.stack(inside).sum(0), torch.ones(M, dtype=torch.long))
+    assert bool((part[2][~torch.stack(inside)] == 0).all())  # the label's split alone
+    logp, lse = tfh.combine_partials(part)
+    want_logp, want_lse = tfh.fused_head_fwd_plain(xt, wt, yt)
+    torch.testing.assert_close(logp, want_logp, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(lse, want_lse, rtol=RTOL, atol=ATOL)
+    jlogp, jlse = jfh._fwd(jnp.asarray(x), jnp.asarray(w.T), jnp.asarray(y), 8, 128,
+                           jax.lax.Precision.HIGHEST, True)
+    np.testing.assert_allclose(logp.numpy(), np.asarray(jlogp), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, 0], rtol=RTOL, atol=ATOL)
+
+
 CHUNKED = {  # M, H, V, forced vc, JAX blocks
     "ragged last chunk": (13, 64, 300, 128, dict(block_m=8, block_v=128)),
     "two chunks": (16, 32, 300, 256, dict(block_m=8, block_v=128)),

@@ -252,6 +252,29 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take():
     assert T.int4_matmul_dx(dy[:0], tqp, tgs).shape == (0, 256)
 
 
+def test_forward_kernel_wrapper_raises_on_what_tma_does_not_take():
+    """Kernel #11's wrapper reads qp and gs through TMA: a base off 16 bytes
+    raises before any launch, as groups of more than FWD_MAX_GROUP rows do
+    (the kernel's int32 sums of 16 times the weights stay exact in fp32 up
+    to there)."""
+    xq = torch.ones(4, 256, dtype=torch.int8)
+    sx = torch.ones(4)
+    _, _, _, (tqp, tgs) = _inputs(5, (4, 256), 128, "f32")
+    odd = torch.empty(tqp.numel() + 1, dtype=torch.int8)[1:].view(tqp.shape)
+    odd.copy_(tqp)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        T._kernel_fwd(xq, sx, odd, tgs)
+    odd_gs = torch.empty(tgs.numel() + 1)[1:].view(tgs.shape)
+    odd_gs.copy_(tgs)
+    with pytest.raises(ValueError, match="16-byte"):
+        T._kernel_fwd(xq, sx, tqp, odd_gs)
+    K = 2 * T.FWD_MAX_GROUP
+    with pytest.raises(ValueError, match="at most"):
+        T._kernel_fwd(torch.ones(4, K, dtype=torch.int8), sx,
+                      torch.zeros(K // 2, 128, dtype=torch.int8), torch.ones(1, 128))
+
+
 @pytest.mark.parametrize("width", ["one-group", "g128"])
 def test_quantize_llm_int4_equals_jax_and_bridges_both_ways(width):
     """quantize_llm_int4 on the port's tiny Llama (weights bridged from a
