@@ -24,4 +24,17 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16 *p) {
   return *reinterpret_cast<const uint4 *>(p);
 }
 
+// 2^x (ex2.approx: 2 ulp; -inf gives 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats as one register of bf16 (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t *>(&v);
+}
+
 }  // namespace rlaifv

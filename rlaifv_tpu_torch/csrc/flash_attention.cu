@@ -3,268 +3,322 @@
 // Replaces: rlaifv_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _fwd's pallas_call), the TPU kernel behind `flash_attention`.
 //
-// What bounds it on the H100: tensor-core FLOPs. At the autocheck prefix
-// prefill (Lq = Lk ~ 740, D = 128) every key tile is reused by 64 query
-// rows, so the kernel does ~64 multiply-adds per byte it reads, and the
-// score and output products dominate.
+// What bounds it on the H100: tensor-core FLOPs, 4 D flops a visible (query,
+// key) pair of a head (S = Q K^T and O = P V). At the autocheck prefix
+// prefill (Lq = Lk = 740, H = 32, D = 128, causal) that is 0.0046 ms at 989
+// TFLOP/s against 0.0073 ms for its bytes, so a call of this size is bound
+// by how fast its tiles come in and its products issue, not by either peak.
 //
-// What the design does about it: the products run on the tensor cores
-// (WMMA bf16 x bf16 -> fp32, 16x16x16 fragments); the TPU kernel kept all
-// of K resident in VMEM and scored it in one product, which does not fit a
-// Hopper SM, so here one CTA owns a (batch, head, 64-query-row) tile and
-// streams 64-key K/V tiles through shared memory with an online softmax,
-// stopping at the causal diagonal (about half the tiles of a square causal
-// problem are never read). Ragged edges are masked in the kernel, so no
-// 128-padding is needed. Scores, the running max/sum and the output sum
-// stay fp32; probabilities are rounded to bf16 for the P.V product, as the
-// TPU kernel's bf16 MXU path does. wgmma, TMA and warp specialisation are
-// left for a later change.
+// What the design does about it: a CTA of 256 threads owns 128 query rows of
+// one (batch, head): two consumer warpgroups of 64 rows each, and no
+// producer warp (with one, ptxas caps every thread at 168 registers and
+// serialises the products). Thread 0 loads Q once and the first K/V tiles
+// (128 keys each; 2 stages at D 128, 3 at D 64) with TMA loads of
+// 128-byte-swizzled 64-column boxes from rank-4 tensor maps over (D,
+// position, head, batch), which read any (batch, position, head) strides
+// and zero-fill the ragged Lq/Lk tails; the walk stops at the causal
+// diagonal. The warpgroup that releases a stage second refills it (a
+// counter a stage in shared memory says which). Each tile's key mask
+// (int32, nonzero = attend) comes in by a 1D TMA box beside it, and a warp
+// vote skips the mask on tiles whose keys are all live. Each warpgroup runs
+// S = Q K^T as wgmma m64n128k16 with both operands in shared memory
+// (K-major), masks on the accumulator registers (the causal test only on
+// tiles that cross its diagonal), keeps the online softmax in registers
+// (the 4 threads of a row combine with two shuffles), rounds P to bf16
+// straight into wgmma's register A fragment and runs O += P V with V read
+// as it lies (MN-major, through wgmma's transpose), O an fp32 register
+// accumulator. The running max is snapped up to a whole number of log2
+// units, so the rescale is a power of two (exact) and bf16(P) scales
+// exactly with it: a row's P hardly depends on which tile its keys fell in
+// (the shared-prefix scorer left-pads a prefix the train step right-pads).
+// The next tile's S product is issued right behind P V, and O is rescaled
+// only after both have retired (reading an accumulator while a product is
+// in flight would serialise the products). The two warpgroups take turns
+// on the tensor cores: one computes its softmax while the other's products
+// run. CTAs are launched longest first (causal query tiles from the last),
+// one a streaming multiprocessor (~160 KB of shared memory at D 128).
 //
-// Semantics kept from the TPU kernel: scale 1/sqrt(D); key mask (int32,
-// nonzero = attend) plus an optional causal mask on absolute positions
-// (q_offset + row); GQA by h / (H / KVH); a row whose keys are all masked
-// outputs exactly 0 and lse = -5e29 + log(1e-30); otherwise
-// lse = max + log(sum).
+// Semantics kept from the TPU kernel: scale 1/sqrt(D); key mask plus an
+// optional causal mask on absolute positions (q_offset + row); GQA by
+// h / (H / KVH); fp32 scores and sums, P rounded to bf16 for P.V; a row
+// whose keys are all masked outputs exactly 0 and lse = -5e29 + log(1e-30);
+// otherwise lse = max + log(sum).
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per CTA
-constexpr int BK = 64;  // key columns per tile
-constexpr int NWARPS = BQ / 16;  // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(BQ == BK, "load_tile stages Q and K/V tiles of one height");
+using namespace rlaifv;
+
+constexpr int BQ = 128;                // query rows of a CTA
+constexpr int BK = 128;                // keys of a K/V tile
+constexpr int THREADS = 256;           // two warpgroups of 64 rows; no producer warp
+constexpr int ATOM = 1024;             // a 128-byte swizzle atom: 8 rows of 128 bytes
+// a TMA box must start 16-byte aligned: a tile's mask ints are read from the
+// aligned element at or before the tile's first, 4 more than the tile
+constexpr int MASK_BOX = BK + 4;
+constexpr int MASK_SLOT = 640;         // MASK_BOX ints, rounded up to 128 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // the TPU kernel floors its running max at -1e30/2: a row whose keys are
 // all masked keeps max = -inf here and reports this floor in its lse
 constexpr float kMaskedRowMax = -5e29f;
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
-
 template <int D>
-struct Layout {
-  static constexpr int LDQ = D + 8;   // bf16 row stride of Q/K/V tiles
-  static constexpr int LDS = BK + 4;  // fp32 row stride of the score tile
-  static constexpr int LDP = BK + 8;  // bf16 row stride of the probability tile
-  static constexpr int LDO = D + 4;   // fp32 row stride of the output sum
+struct Smem {
+  static constexpr int CH = D / 64;                // 64-column boxes of a row
+  static constexpr int STAGES = D == 128 ? 2 : 3;  // K/V tiles in flight
+  static constexpr int Q_BOX = BQ * 128;           // BQ rows of one 64-column box
+  static constexpr int KV_BOX = BK * 128;
+  static constexpr int KV_BYTES = CH * KV_BOX;     // a K or a V tile
   static constexpr int Q = 0;
-  static constexpr int K = Q + align128(BQ * LDQ * 2);
-  static constexpr int V = K + align128(BK * LDQ * 2);
-  static constexpr int S = V + align128(BK * LDQ * 2);
-  static constexpr int P = S + align128(BQ * LDS * 4);
-  static constexpr int O = P + align128(BQ * LDP * 2);
-  static constexpr int MASK = O + align128(BQ * LDO * 4);
-  static constexpr int BYTES = MASK + align128(BK * 4);
+  static constexpr int K = Q + CH * Q_BOX;         // stage s: K at K + 2 s KV_BYTES, V after it
+  static constexpr int MASK = K + STAGES * 2 * KV_BYTES;  // stage s: MASK_BOX ints of the mask
+  static constexpr int CNT = MASK + STAGES * MASK_SLOT;   // stage s: releases so far
+  static constexpr int BAR = CNT + 16;                    // Q, full[STAGES]
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + ATOM;  // + slack to align
 };
 
-// rows [row0, row0 + 64) of a (.., L, .., D) operand into a shared tile,
-// zero-filling rows at or past `rows`; 16-byte loads along D
+struct Params {
+  bf16 *out;        // (B, Lq, H, D)
+  float *lse;       // (B, H, Lq)
+  int B, H, KVH, Lq, Lk, n_qt, causal, q_offset;
+  float scale;
+};
+
+__host__ __device__ __forceinline__ int key_tiles(int end) { return (end + BK - 1) / BK; }
+
 template <int D>
-__device__ __forceinline__ void load_tile(bf16 *dst, const bf16 *src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows) val = rlaifv::load16(src + (row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4 *>(dst + r * Layout<D>::LDQ + c * 8) = val;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_mask, const Params p) {
+  using L = Smem<D>;
+  constexpr int CH = L::CH, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (saddr(smem_raw) + ATOM - 1) / ATOM * ATOM;
+  unsigned char *smem = smem_raw + (base - saddr(smem_raw));
+  const int *s_mask = reinterpret_cast<const int *>(smem + L::MASK);  // stage s at s MASK_SLOT / 4
+  int *s_cnt = reinterpret_cast<int *>(smem + L::CNT);
+  const uint32_t bar_q = base + L::BAR, full = bar_q + 8;
+
+  // longest first: with causal masking the last query tiles see the most keys
+  const int hb = blockIdx.x % (p.B * p.H);
+  const int qt = blockIdx.x / (p.B * p.H);
+  const int q0 = (p.causal ? p.n_qt - 1 - qt : qt) * BQ;
+  const int h = hb % p.H, b = hb / p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int kv_end = p.causal ? min(p.Lk, p.q_offset + min(q0 + BQ, p.Lq)) : p.Lk;
+  const int n_tiles = key_tiles(kv_end);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      s_cnt[s] = 0;
+    }
+    bar_init_fence();
   }
-}
+  __syncthreads();
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
-                 const bf16 *__restrict__ v, const int *__restrict__ mask,
-                 bf16 *__restrict__ out, float *__restrict__ lse, int H,
-                 int KVH, int Lq, int Lk, long long qsb, long long qsl,
-                 long long qsh, long long ksb, long long ksl, long long ksh,
-                 long long vsb, long long vsl, long long vsh, int causal,
-                 int q_offset, float scale) {
-  using Lay = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *sQ = reinterpret_cast<bf16 *>(smem + Lay::Q);
-  bf16 *sK = reinterpret_cast<bf16 *>(smem + Lay::K);
-  bf16 *sV = reinterpret_cast<bf16 *>(smem + Lay::V);
-  float *sS = reinterpret_cast<float *>(smem + Lay::S);
-  bf16 *sP = reinterpret_cast<bf16 *>(smem + Lay::P);
-  float *sO = reinterpret_cast<float *>(smem + Lay::O);
-  int *sMask = reinterpret_cast<int *>(smem + Lay::MASK);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  load_tile<D>(sQ, q + b * qsb + h * qsh, qsl, q0, Lq);
-  for (int i = threadIdx.x; i < BQ * Lay::LDO; i += NTHREADS) sO[i] = 0.f;
-
-  // softmax bookkeeping: lanes 2i and 2i+1 share query row warp*16 + i and
-  // keep identical copies of its running max and sum
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int qpos = q_offset + q0 + row;
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
-  // keys past the tile's last query position are never read
-  int kv_end = Lk;
-  if (causal) kv_end = min(Lk, q_offset + min(q0 + BQ, Lq));
-
-  const bf16 *kb = k + b * ksb + kvh * ksh;
-  const bf16 *vb = v + b * vsb + kvh * vsh;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D>(sK, kb, ksl, k0, Lk);
-    load_tile<D>(sV, vb, vsl, k0, Lk);
-    for (int j = threadIdx.x; j < BK; j += NTHREADS)
-      sMask[j] = (k0 + j < Lk) ? mask[(long long)b * Lk + k0 + j] : 0;
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+  // key tile t into its stage: K, V and the tile's mask ints (of batch row
+  // b; past Lk they belong to the next row or read 0, and are masked)
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES, k0 = t * BK;
+    const uint32_t kb = base + L::K + s * 2 * L::KV_BYTES, vb = kb + L::KV_BYTES;
+    const uint32_t bar = full + 8 * s;
+    bar_expect(bar, 2 * L::KV_BYTES + MASK_BOX * 4);
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(kb + c * L::KV_BOX, &map_k, 64 * c, k0, kvh, b, bar);
+      tma_load_4d(vb + c * L::KV_BOX, &map_v, 64 * c, k0, kvh, b, bar);
+    }
+    tma_load_1d(base + L::MASK + s * MASK_SLOT, &map_mask, (b * p.Lk + k0) & ~3, bar);
+  };
+  // this warpgroup is done with tile t's stage: the second warpgroup to say
+  // so refills it with tile t + STAGES
+  auto release = [&](int t) {
+    if (threadIdx.x % 128 == 0 && (atomicAdd(s_cnt + t % STAGES, 1) & 1) &&
+        t + STAGES < n_tiles)
+      load_tile(t + STAGES);
+  };
+  if (threadIdx.x == 0) {
+    bar_expect(bar_q, CH * L::Q_BOX);
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * Lay::LDQ + kk, Lay::LDQ);
+    for (int c = 0; c < CH; ++c)
+      tma_load_4d(base + L::Q + c * L::Q_BOX, &map_q, 64 * c, q0, h, b, bar_q);
+    for (int t = 0; t < min(STAGES, n_tiles); ++t) load_tile(t);
+  }
+
+  // a consumer warpgroup: rows r_wg .. r_wg + 63 of the tile; this thread
+  // holds rows row0 and row0 + 8 (h = 0, 1) at columns 8 j + 2 (lane % 4) + {0, 1}
+  const int wg = warp / 4;
+  const int r_wg = q0 + 64 * wg;
+  const int row0 = r_wg + 16 * (warp % 4) + lane / 4;
+  const int tq = lane % 4;
+  int n_wg = 0;  // the key tiles this warpgroup reads: up to its own diagonal
+  if (r_wg < p.Lq)
+    n_wg = p.causal ? key_tiles(min(p.Lk, p.q_offset + min(r_wg + 64, p.Lq))) : n_tiles;
+  const float c = p.scale * LOG2E;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s c rounded up, per row
+  float l[2] = {0.f, 0.f};              // this thread's share of the running sum
+  float o[D / 2], sc[BK / 2];
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, sK + n * 16 * Lay::LDQ + kk, Lay::LDQ);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  uint32_t pa[BK / 16][4];  // P in bf16, wgmma's A fragments
+
+  const uint32_t qa = base + L::Q + wg * 64 * 128;
+  bar_wait(bar_q, 0);
+  for (int t = 0; t < n_wg; ++t) {
+    const int s = t % STAGES;
+    bar_wait(full + 8 * s, (t / STAGES) & 1);
+    const uint32_t kb = base + L::K + s * 2 * L::KV_BYTES, vb = kb + L::KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_ss<BK>(sc, gmma_desc(qa + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, ATOM),
+                        gmma_desc(kb + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, ATOM),
+                        kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();  // S of this tile and P V of the last one
+    fence_acc(sc);
+    fence_acc(o);
+    if (t > 0) release(t - 1);
+
+    // a warp's vote: every key of the tile lies before Lk and has mask 1
+    const int k0 = t * BK;
+    const int *km = s_mask + s * (MASK_SLOT / 4) + ((b * p.Lk + k0) & 3);
+    bool all_live = k0 + 4 * lane + 3 < p.Lk;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) all_live = all_live && km[4 * lane + e] != 0;
+    const bool keyed = !__all_sync(0xffffffffu, all_live);
+    const bool diag = p.causal && k0 + BK - 1 > p.q_offset + r_wg;
+    if (keyed || diag) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * tq + e;
+          const bool live = !keyed || (k0 + col < p.Lk && km[col] != 0);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const bool ok = live && (!diag || k0 + col <= p.q_offset + row0 + 8 * hh);
+            if (!ok) sc[4 * j + 2 * hh + e] = -INFINITY;
+          }
         }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + warp * 16 * Lay::LDS + n * 16, acc[n],
-                                Lay::LDS, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax over this tile; each lane of a pair takes 32 columns
-    {
-      float *srow = sS + row * Lay::LDS;
-      bf16 *prow = sP + row * Lay::LDP;
+    float alpha[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
       float mx = -INFINITY;
-#pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = 2 * j + half;
-        const bool ok = sMask[c] != 0 && (!causal || k0 + c <= qpos);
-        const float s = ok ? srow[c] * scale : -INFINITY;
-        srow[c] = s;
-        mx = fmaxf(mx, s);
-      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * hh], sc[4 * j + 2 * hh + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_new = fmaxf(m_run, mx);
-      // m_new == -inf: nothing attended yet, the sums stay 0
-      const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_run - m_new);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // the running max snapped up to a whole number (a power of two): the
+      // rescale is exact, and bf16(p) scales exactly with it, so a row's P
+      // hardly depends on which tile its keys fell in (left- or right-padded
+      // keys, any q_offset)
+      const float m_new = fmaxf(m[hh], ceilf(mx * c));
+      // nothing live yet: the exponents stay -inf and give 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[hh] = m[hh] == -INFINITY ? 0.f : ldexpf(1.f, static_cast<int>(m[hh] - m_new));
+      m[hh] = m_new;
       float sum = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = 2 * j + half;
-        const float s = srow[c];
-        const float p = (s == -INFINITY) ? 0.f : expf(s - m_new);
-        prow[c] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      float *orow = sO + row * Lay::LDO;
-#pragma unroll 8
-      for (int j = 0; j < D / 2; ++j) orow[2 * j + half] *= alpha;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          sc[i] = exp2_approx(fmaf(sc[i], c, -m_use));
+          sum += sc[i];
+        }
+      l[hh] = l[hh] * alpha[hh] + sum;
     }
-    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[ks][r] = pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
 
-    // O += P V for this warp's 16 rows
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-      float *optr = sO + warp * 16 * Lay::LDO + n * 16;
-      wmma::load_matrix_sync(o, optr, Lay::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + warp * 16 * Lay::LDP + kk, Lay::LDP);
-        wmma::load_matrix_sync(bv, sV + kk * Lay::LDQ + n * 16, Lay::LDQ);
-        wmma::mma_sync(o, a, bv, o);
-      }
-      wmma::store_matrix_sync(optr, o, Lay::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_bf16_rs<D, 1>(o, pa[ks], gmma_desc(vb + ks * 2 * ATOM, L::KV_BOX, ATOM));
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_acc(o);
+  // the tiles past this warpgroup's diagonal: released once they have landed
+  for (int t = n_wg; t < n_tiles; ++t) {
+    if (t > 0) release(t - 1);
+    bar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+  }
+  if (n_tiles > 0) release(n_tiles - 1);
 
-  if (q0 + row < Lq) {
-    const float l_safe = fmaxf(l_run, 1e-30f);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float sum = l[hh];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + 8 * hh;
+    if (row >= p.Lq) continue;
+    const float l_safe = fmaxf(sum, 1e-30f);
     const float inv = 1.f / l_safe;
-    const float *orow = sO + row * Lay::LDO;
-    bf16 *dst = out + (((long long)b * Lq + q0 + row) * H + h) * D;
-#pragma unroll 8
-    for (int j = 0; j < D / 2; ++j) {
-      const int c = 2 * j + half;
-      dst[c] = __float2bfloat16(orow[c] * inv);
-    }
-    if (half == 0)
-      lse[((long long)b * H + h) * Lq + q0 + row] =
-          fmaxf(m_run, kMaskedRowMax) + logf(l_safe);
+    bf16 *dst = p.out + ((static_cast<long long>(b) * p.Lq + row) * p.H + h) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162 *>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * hh] * inv, o[4 * j + 2 * hh + 1] * inv);
+    if (tq == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.Lq + row] =
+          fmaxf(m[hh] * LN2, kMaskedRowMax) + logf(l_safe);
   }
 }
 
 template <int D>
-cudaError_t launch(const bf16 *q, const bf16 *k, const bf16 *v, const int *mask,
-                   bf16 *out, float *lse, int B, int H, int KVH, int Lq, int Lk,
-                   const long long *s, int causal, int q_offset, float scale,
-                   cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::BYTES;
+cudaError_t launch(const CUtensorMap &mq, const CUtensorMap &mk, const CUtensorMap &mv,
+                   const CUtensorMap &mm, const Params &p, cudaStream_t stream) {
+  constexpr int bytes = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, mask, out, lse, H, KVH, Lq, Lk, s[0], s[1], s[2], s[3], s[4],
-      s[5], s[6], s[7], s[8], causal, q_offset, scale);
+  flash_fwd_kernel<D><<<p.n_qt * p.H * p.B, THREADS, bytes, stream>>>(mq, mk, mv, mm, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Lq, H, D), k/v (B, Lk, KVH, D) bf16 with unit stride along D and the
-// given element strides for (batch, position, head); mask (B, Lk) int32;
-// out (B, Lq, H, D) bf16 and lse (B, H, Lq) fp32, both contiguous.
+// q (B, Lq, H, D), k/v (B, Lk, KVH, D) bf16 with unit stride along D, the
+// given element strides for (batch, position, head) (each a multiple of 8)
+// and 16-byte aligned bases; mask (B, Lk) int32, 16-byte aligned; out (B, Lq, H, D) bf16 and
+// lse (B, H, Lq) fp32, both contiguous.
 extern "C" int flash_attention_fwd_bf16(
     const void *q, const void *k, const void *v, const void *mask, void *out,
     void *lse, int B, int H, int KVH, int Lq, int Lk, int D, int qsb, int qsl,
     int qsh, int ksb, int ksl, int ksh, int vsb, int vsl, int vsh, int causal,
     int q_offset, float scale, void *stream) {
-  if (KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0 || q_offset < 0)
+  if (B <= 0 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0 || q_offset < 0 ||
+      (D != 64 && D != 128))
     return cudaErrorInvalidValue;
-  const long long s[9] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh};
+  CUtensorMap mq, mk, mv, mm;
+  if (!attention_map(&mq, q, B, Lq, H, D, qsb, qsl, qsh, BQ) ||
+      !attention_map(&mk, k, B, Lk, KVH, D, ksb, ksl, ksh, BK) ||
+      !attention_map(&mv, v, B, Lk, KVH, D, vsb, vsl, vsh, BK) ||
+      !tensor_map_1d(&mm, CU_TENSOR_MAP_DATA_TYPE_INT32, mask, static_cast<long long>(B) * Lk,
+                     MASK_BOX))
+    return cudaErrorInvalidValue;
+  Params p{static_cast<bf16 *>(out), static_cast<float *>(lse), B, H, KVH, Lq, Lk,
+           (Lq + BQ - 1) / BQ, causal, q_offset, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  const auto *qp = static_cast<const bf16 *>(q);
-  const auto *kp = static_cast<const bf16 *>(k);
-  const auto *vp = static_cast<const bf16 *>(v);
-  const auto *mp = static_cast<const int *>(mask);
-  auto *op = static_cast<bf16 *>(out);
-  auto *lp = static_cast<float *>(lse);
-  switch (D) {
-    case 64:
-      return launch<64>(qp, kp, vp, mp, op, lp, B, H, KVH, Lq, Lk, s, causal,
-                        q_offset, scale, st);
-    case 128:
-      return launch<128>(qp, kp, vp, mp, op, lp, B, H, KVH, Lq, Lk, s, causal,
-                         q_offset, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return D == 64 ? launch<64>(mq, mk, mv, mm, p, st) : launch<128>(mq, mk, mv, mm, p, st);
 }

@@ -3,42 +3,53 @@
 //
 // Replaces: rlaifv_tpu/ops/flash_attention.py:_bwd_dq_kernel and
 // _bwd_dkv_kernel (the two pallas_calls of _bwd), the TPU kernels behind
-// the gradient of `flash_attention`.
+// the gradient of `flash_attention`. The split is the TPU's own: dq from one
+// kernel, dk and dv from the other. No atomics: every output element is
+// written once by one CTA, so the gradient is deterministic. Probabilities
+// are recomputed from the forward's saved lse, p = exp(s scale - lse), and
+// dS = p (dP - delta) scale; the products take P and dS rounded to bf16, as
+// the TPU kernels' bf16 MXU path does, and every sum is fp32, rounded to
+// bf16 once. delta = rowsum(dO O) is a plain torch reduction outside, as it
+// is an XLA fusion outside on the TPU. Masking is the forward's: a key with
+// mask 0, or (causal) a key past the query's absolute position q_offset +
+// row, has p = 0. That covers the rows the forward reported as fully masked
+// (their lse is about -5e29): every entry of such a row is masked, so the
+// row adds nothing.
 //
-// What bounds it on the H100: tensor-core FLOPs. Each CTA reuses a 64-row
-// tile of Q (dq kernel) or of K/V (dk/dv kernel) against every tile it
-// streams, so at training lengths (L ~ 2048, D = 128) the five products of
-// the backward (S = QK^T, dP = dO V^T, dq = dS K, dv = P^T dO,
-// dk = dS^T Q) dominate the bytes read.
+// What bounds both on the H100: tensor-core FLOPs (dq: 6 D flops a visible
+// (query, key) pair of a head, dk/dv: 8 D); at the train step's suffix call
+// (B 2, 284 queries over 1052 keys at q_offset 768, H 32, D 128) dk/dv is
+// 0.0234 ms at 3.35 TB/s for its bytes and about 0.017 at 989 TFLOP/s.
 //
-// What the design does about it: the products run on the tensor cores
-// (WMMA bf16 x bf16 -> fp32, 16x16x16 fragments). The TPU kernels keep the
-// whole K (or the whole Q) resident in VMEM and score one (BQ, L) or
-// (Lq, BK) product, which no Hopper SM holds, so here both kernels stream
-// 64-row tiles through shared memory. The split is the TPU's own: dq comes
-// from one kernel (one CTA per batch, head and 64 query rows, streaming the
-// K/V tiles up to the causal diagonal) and dk/dv from the other (one CTA
-// per batch, kv head and 64 keys, looping over the n_rep query heads of
-// that kv head and over the query tiles from the diagonal on). No atomics:
-// every output element is written once by one CTA, so the gradient is
-// deterministic. dq accumulates in WMMA fragments (registers); dk and dv,
-// which a warp updates from two products a tile, accumulate in fp32 shared
-// memory. Probabilities are recomputed from the forward's saved lse:
-// p = exp(s * scale - lse); the products take P and dS rounded to bf16, as
-// the TPU kernels' bf16 MXU path does. delta = rowsum(dO * O) is a plain
-// torch reduction outside, as it is an XLA fusion outside on the TPU.
-// wgmma, TMA and warp specialisation are left for a later change.
+// dq (flash_bwd_dq_kernel): one CTA of 4 warps per (batch, head, 64 query
+// rows) streams 64-key K/V tiles through shared memory up to the causal
+// diagonal; WMMA 16x16x16 products, dq in WMMA fragments.
 //
-// Masking is the forward's: a key with mask 0, or (causal) a key past the
-// query's absolute position q_offset + row, has p = 0. That covers the rows
-// the forward reported as fully masked (their lse is about -5e29): every
-// entry of such a row is masked, so the row adds nothing and gets dq = 0.
-// Query rows past Lq and key rows past Lk are zero-filled, add nothing and
-// are never written.
+// dk/dv (dkv::kernel): a CTA owns 128 keys of one (batch, kv head), 64 for
+// each of two consumer warpgroups (256 threads, so that each thread may hold
+// up to 255 registers). K and V stay resident in shared memory, loaded once
+// by TMA. A ring of three stages holds (Q, dO) tiles of 64 query rows and
+// their lse and delta rows, TMA-loaded (128-byte-swizzled 64-column boxes of
+// rank-4 tensor maps over (D, position, head, batch), which take any (batch,
+// position, head) strides and zero-fill ragged tails; lse and delta through
+// 1D maps). A step walks every query head of the kv head, then the query
+// tiles from the causal start on. Each step runs four wgmma products:
+// S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands in shared memory,
+// K-major), then, from P^T and dS^T formed on the accumulator registers and
+// rounded to bf16 straight into wgmma's register A fragments, dV += P^T dO
+// and dK += dS^T Q with dO and Q read as they lie (MN-major, through
+// wgmma's transpose), from the same stage. dK and dV are fp32 register
+// accumulators for the CTA's whole life, written once as bf16. A step's dV
+// and dK products stay in flight while the next step's S^T and dP^T are
+// issued. There is no producer warp (it would cap every thread at 224
+// registers): the consumer warpgroup that releases a stage second refills it
+// (a counter in shared memory says which). CTAs are launched longest first
+// (causal: the first key tiles see the most queries).
 #include <math.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -84,24 +95,6 @@ struct DqLayout : Tiles<D> {
   static constexpr int OUT = DS + T::PROB;
   static constexpr int MASK = OUT + T::ACC;
   static constexpr int BYTES = MASK + T::ROW;
-};
-
-template <int D>
-struct DkvLayout : Tiles<D> {
-  using T = Tiles<D>;
-  static constexpr int K = 0;
-  static constexpr int V = K + T::TILE;
-  static constexpr int Q = V + T::TILE;
-  static constexpr int DO = Q + T::TILE;
-  static constexpr int ST = DO + T::TILE;
-  static constexpr int DPT = ST + T::SCORE;
-  static constexpr int PT = DPT + T::SCORE;
-  static constexpr int DST = PT + T::PROB;
-  static constexpr int DK = DST + T::PROB;
-  static constexpr int DV = DK + T::ACC;
-  static constexpr int LSE = DV + T::ACC;
-  static constexpr int DELTA = LSE + T::ROW;
-  static constexpr int BYTES = DELTA + T::ROW;
 };
 
 // rows [row0, row0 + 64) of a (.., L, .., D) operand into a shared tile,
@@ -255,192 +248,264 @@ flash_bwd_dq_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
   }
 }
 
+// ---- dk/dv: TMA + wgmma, the sums in registers
+
+namespace dkv {
+
+constexpr int BKV = 128;          // keys of a CTA: 64 for each consumer warpgroup
+constexpr int BQ = 64;            // query rows of a step
+constexpr int THREADS = 256;      // two warpgroups; no producer warp (registers)
+constexpr int ATOM = 1024;        // a 128-byte swizzle atom: 8 rows of 128 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+// a TMA box must start 16-byte aligned: a step's lse and delta values are
+// read from the aligned element at or before its first, 4 more than BQ
+constexpr int ROW_BOX = BQ + 4;
+constexpr int ROW_SLOT = 512;  // ROW_BOX floats, rounded up to 128 bytes
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
-                     const bf16 *__restrict__ v, const int *__restrict__ mask,
-                     const bf16 *__restrict__ dout,
-                     const float *__restrict__ lse,
-                     const float *__restrict__ delta, bf16 *__restrict__ dk,
-                     bf16 *__restrict__ dv, int H, int KVH, int Lq, int Lk,
-                     Strides st, int causal, int q_offset, float scale) {
-  using Lay = DkvLayout<D>;
-  constexpr int LDQ = Tiles<D>::LDQ, LDS = Tiles<D>::LDS;
-  constexpr int LDP = Tiles<D>::LDP, LDA = Tiles<D>::LDA;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *sK = reinterpret_cast<bf16 *>(smem + Lay::K);
-  bf16 *sV = reinterpret_cast<bf16 *>(smem + Lay::V);
-  bf16 *sQ = reinterpret_cast<bf16 *>(smem + Lay::Q);
-  bf16 *sDO = reinterpret_cast<bf16 *>(smem + Lay::DO);
-  float *sST = reinterpret_cast<float *>(smem + Lay::ST);
-  float *sDPT = reinterpret_cast<float *>(smem + Lay::DPT);
-  bf16 *sPT = reinterpret_cast<bf16 *>(smem + Lay::PT);
-  bf16 *sDST = reinterpret_cast<bf16 *>(smem + Lay::DST);
-  float *sDK = reinterpret_cast<float *>(smem + Lay::DK);
-  float *sDV = reinterpret_cast<float *>(smem + Lay::DV);
-  float *sLse = reinterpret_cast<float *>(smem + Lay::LSE);
-  float *sDelta = reinterpret_cast<float *>(smem + Lay::DELTA);
+struct Smem {
+  static constexpr int CH = D / 64;                 // 64-column boxes of a row
+  static constexpr int STAGES = 3;                  // (Q, dO, lse, delta) steps in flight
+  static constexpr int KV_BOX = BKV * 128;          // BKV rows of one 64-column box
+  static constexpr int Q_BOX = BQ * 128;
+  static constexpr int K = 0;
+  static constexpr int V = K + CH * KV_BOX;
+  static constexpr int STAGE = 2 * CH * Q_BOX;      // Q, then dO
+  static constexpr int QS = V + CH * KV_BOX;        // stage s at QS + s STAGE
+  static constexpr int STATS = QS + STAGES * STAGE;  // stage s: lse, then delta, ROW_SLOT each
+  static constexpr int CNT = STATS + STAGES * 2 * ROW_SLOT;  // stage s: releases so far
+  static constexpr int BAR = CNT + 16;              // K/V, full[STAGES]
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + ATOM;  // + slack to align
+};
 
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_rep = H / KVH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wrow = warp * 16;
+struct Params {
+  const int *mask;  // (B, Lk)
+  bf16 *dk, *dv;    // (B, Lk, KVH, D)
+  int B, H, KVH, Lq, Lk, causal, q_offset;
+  float scale;
+};
 
-  load_tile<D>(sK, k + b * st.kb + kvh * st.kh, st.kl, k0, Lk);
-  load_tile<D>(sV, v + b * st.vb + kvh * st.vh, st.vl, k0, Lk);
-  for (int i = threadIdx.x; i < 64 * LDA; i += NTHREADS) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
+// A CTA owns keys k0 .. k0 + 127 of one (batch, kv head); warpgroup w the 64
+// from k0 + 64 w. Its steps walk the query heads of the kv head, and for
+// each the query tiles from the first that can see k0 (causal) to Lq.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+       const __grid_constant__ CUtensorMap map_lse,
+       const __grid_constant__ CUtensorMap map_delta, const Params p) {
+  using namespace rlaifv;
+  using L = Smem<D>;
+  constexpr int CH = L::CH, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (saddr(smem_raw) + ATOM - 1) / ATOM * ATOM;
+  unsigned char *smem = smem_raw + (base - saddr(smem_raw));
+  const float *s_stats = reinterpret_cast<const float *>(smem + L::STATS);
+  int *s_cnt = reinterpret_cast<int *>(smem + L::CNT);
+  const uint32_t bar_kv = base + L::BAR, full = bar_kv + 8;
 
-  // lanes 2i and 2i+1 share key row warp*16 + i, 32 query columns each
-  const int row = wrow + (lane >> 1);
-  const int half = lane & 1;
-  const int kj = k0 + row;
-  const bool key_ok = kj < Lk && mask[(long long)b * Lk + kj] != 0;
+  // longest first: with causal masking the first key tiles see the most queries
+  const int hb = blockIdx.x % (p.B * p.KVH);
+  const int k0 = blockIdx.x / (p.B * p.KVH) * BKV;
+  const int kvh = hb % p.KVH, b = hb / p.KVH;
+  const int n_rep = p.H / p.KVH;
+  const int q_begin = p.causal ? max(0, k0 - p.q_offset) / BQ * BQ : 0;
+  const int n_q = q_begin < p.Lq ? (p.Lq - q_begin + BQ - 1) / BQ : 0;
+  const int steps = n_rep * n_q;
 
-  // query rows before the first one that may see this key tile are skipped
-  int q_begin = 0;
-  if (causal) q_begin = max(0, k0 - q_offset) / BQ * BQ;
-
-  for (int r = 0; r < n_rep; ++r) {
-    const int h = kvh * n_rep + r;
-    const bf16 *q_head = q + b * st.qb + h * st.qh;
-    const bf16 *do_head = dout + b * st.ob + h * st.oh;
-    const long long stat0 = ((long long)b * H + h) * Lq;
-    for (int q0 = q_begin; q0 < Lq; q0 += BQ) {
-      __syncthreads();  // the previous Q/dO tile is consumed
-      load_tile<D>(sQ, q_head, st.ql, q0, Lq);
-      load_tile<D>(sDO, do_head, st.ol, q0, Lq);
-      for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-        const bool ok = q0 + i < Lq;
-        sLse[i] = ok ? lse[stat0 + q0 + i] : 0.f;
-        sDelta[i] = ok ? delta[stat0 + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      product_abt<D>(sST + wrow * LDS, sK + wrow * LDQ, sQ);
-      product_abt<D>(sDPT + wrow * LDS, sV + wrow * LDQ, sDO);
-      __syncwarp();
-
-      // P^T and dS^T = P^T o (dP^T - delta) * scale for this key row
-      {
-        const float *srow = sST + row * LDS;
-        const float *dprow = sDPT + row * LDS;
-        bf16 *prow = sPT + row * LDP;
-        bf16 *dsrow = sDST + row * LDP;
-#pragma unroll 8
-        for (int j = 0; j < BQ / 2; ++j) {
-          const int c = 2 * j + half;
-          const int qi = q0 + c;
-          const bool ok = key_ok && qi < Lq && (!causal || kj <= q_offset + qi);
-          const float p = ok ? expf(srow[c] * scale - sLse[c]) : 0.f;
-          prow[c] = __float2bfloat16(p);
-          dsrow[c] = __float2bfloat16(p * (dprow[c] - sDelta[c]) * scale);
-        }
-      }
-      __syncwarp();
-
-      // dV += P^T dO and dK += dS^T Q for this warp's 16 key rows
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> av, ak;
-        float *pv = sDV + wrow * LDA + n * 16;
-        float *pk = sDK + wrow * LDA + n * 16;
-        wmma::load_matrix_sync(av, pv, LDA, wmma::mem_row_major);
-        wmma::load_matrix_sync(ak, pk, LDA, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BQ; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fa, sPT + wrow * LDP + kk, LDP);
-          wmma::load_matrix_sync(fb, sDO + kk * LDQ + n * 16, LDQ);
-          wmma::mma_sync(av, fa, fb, av);
-          wmma::load_matrix_sync(fa, sDST + wrow * LDP + kk, LDP);
-          wmma::load_matrix_sync(fb, sQ + kk * LDQ + n * 16, LDQ);
-          wmma::mma_sync(ak, fa, fb, ak);
-        }
-        wmma::store_matrix_sync(pv, av, LDA, wmma::mem_row_major);
-        wmma::store_matrix_sync(pk, ak, LDA, wmma::mem_row_major);
-      }
+  if (threadIdx.x == 0) {
+    bar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      s_cnt[s] = 0;
     }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  // step i into its stage: Q and dO of query tile qt of head h, and their lse and delta rows
+  auto load_step = [&](int i) {
+    const int s = i % STAGES;
+    const int h = kvh * n_rep + i / n_q, qt = q_begin + (i % n_q) * BQ;
+    const uint32_t st = base + L::QS + s * L::STAGE, bar = full + 8 * s;
+    const uint32_t stats = base + L::STATS + s * 2 * ROW_SLOT;
+    bar_expect(bar, L::STAGE + 2 * ROW_BOX * 4);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(st + c * L::Q_BOX, &map_q, 64 * c, qt, h, b, bar);
+      tma_load_4d(st + (CH + c) * L::Q_BOX, &map_do, 64 * c, qt, h, b, bar);
+    }
+    const int row = ((b * p.H + h) * p.Lq + qt) & ~3;
+    tma_load_1d(stats, &map_lse, row, bar);
+    tma_load_1d(stats + ROW_SLOT, &map_delta, row, bar);
+  };
+  // this warpgroup is done with step j's stage: the second warpgroup to say
+  // so refills it with step j + STAGES
+  auto release = [&](int j) {
+    if (threadIdx.x % 128 == 0 && (atomicAdd(s_cnt + j % STAGES, 1) & 1) && j + STAGES < steps)
+      load_step(j + STAGES);
+  };
+
+  if (threadIdx.x == 0 && steps > 0) {
+    bar_expect(bar_kv, 2 * CH * L::KV_BOX);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(base + L::K + c * L::KV_BOX, &map_k, 64 * c, k0, kvh, b, bar_kv);
+      tma_load_4d(base + L::V + c * L::KV_BOX, &map_v, 64 * c, k0, kvh, b, bar_kv);
+    }
+    for (int i = 0; i < min(STAGES, steps); ++i) load_step(i);
   }
 
-  __syncthreads();  // the sums are complete (and zero if no tile ran)
-  if (kj < Lk) {
-    const float *krow = sDK + row * LDA;
-    const float *vrow = sDV + row * LDA;
-    const long long off = (((long long)b * Lk + kj) * KVH + kvh) * D;
-#pragma unroll 8
-    for (int j = 0; j < D / 2; ++j) {
-      const int c = 2 * j + half;
-      dk[off + c] = __float2bfloat16(krow[c]);
-      dv[off + c] = __float2bfloat16(vrow[c]);
+  // this thread holds key rows key0 and key0 + 8 (hh = 0, 1) of its
+  // warpgroup's 64, at query columns 8 j + 2 (lane % 4) + {0, 1} of a step
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+  const int wg = warp / 4;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * (warp % 4) + lane / 4;
+  bool key_ok[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kj = key0 + 8 * hh;
+    key_ok[hh] = kj < p.Lk && p.mask[static_cast<long long>(b) * p.Lk + kj] != 0;
+  }
+  const float c = p.scale * LOG2E;
+  float dk[D / 2], dv[D / 2], sc[BQ / 2], dp[BQ / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T and dS^T in bf16, wgmma's A fragments
+  const uint32_t ka = base + L::K + wg * 64 * 128, va = base + L::V + wg * 64 * 128;
+
+  if (steps > 0) bar_wait(bar_kv, 0);
+  int pending = -1;  // the step whose dV and dK products are in flight
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % STAGES;
+    const int qt = q_begin + (i % n_q) * BQ;
+    const uint32_t qs = base + L::QS + s * L::STAGE, dos = qs + CH * L::Q_BOX;
+    // a step that sees none of this warpgroup's keys adds nothing
+    const bool live = kw0 < p.Lk && !(p.causal && kw0 > p.q_offset + qt + BQ - 1);
+    bar_wait(full + 8 * s, (i / STAGES) & 1);
+    if (live) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_ss<BQ>(sc, gmma_desc(ka + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, ATOM),
+                          gmma_desc(qs + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, ATOM),
+                          kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_ss<BQ>(dp, gmma_desc(va + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, ATOM),
+                          gmma_desc(dos + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, ATOM),
+                          kk > 0);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();  // S^T and dP^T of this step, dV and dK of the last
+    fence_acc(dk);
+    fence_acc(dv);
+    if (pending >= 0) release(pending);
+    pending = -1;
+    if (!live) {
+      release(i);
+      continue;
+    }
+    fence_acc(sc);
+    fence_acc(dp);
+
+    // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale, masked:
+    // keys past Lk or with mask 0, queries at or past Lq (TMA zero-fills their
+    // rows, but their lse is another row's), and (causal) keys past the query
+    const int h = kvh * n_rep + i / n_q;
+    const float *lse = s_stats + s * 2 * (ROW_SLOT / 4) + (((b * p.H + h) * p.Lq + qt) & 3);
+    const float *delta = lse + ROW_SLOT / 4;
+    const bool tail = qt + BQ > p.Lq;
+    const bool diag = p.causal && kw0 + 63 > p.q_offset + qt;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tq + e;
+        const float lse2 = lse[col] * LOG2E, dlt = delta[col];
+        const bool col_ok = !tail || qt + col < p.Lq;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * j + 2 * hh + e;
+          const bool ok = key_ok[hh] && col_ok &&
+                          (!diag || key0 + 8 * hh <= p.q_offset + qt + col);
+          const float pv = ok ? exp2_approx(fmaf(sc[i], c, -lse2)) : 0.f;
+          sc[i] = pv;
+          dp[i] = pv * (dp[i] - dlt) * p.scale;
+        }
+      }
+#pragma unroll
+    for (int ks = 0; ks < BQ / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[ks][r] = pack_bf16(sc[8 * ks + 2 * r], sc[8 * ks + 2 * r + 1]);
+        da[ks][r] = pack_bf16(dp[8 * ks + 2 * r], dp[8 * ks + 2 * r + 1]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q, dO and Q read as they lie (MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BQ / 16; ++ks)
+      wgmma_bf16_rs<D, 1>(dv, pa[ks], gmma_desc(dos + ks * 2 * ATOM, L::Q_BOX, ATOM));
+#pragma unroll
+    for (int ks = 0; ks < BQ / 16; ++ks)
+      wgmma_bf16_rs<D, 1>(dk, da[ks], gmma_desc(qs + ks * 2 * ATOM, L::Q_BOX, ATOM));
+    wgmma_commit();
+    pending = i;
+  }
+  wgmma_wait<0>();
+  fence_acc(dk);
+  fence_acc(dv);
+  if (pending >= 0) release(pending);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kj = key0 + 8 * hh;
+    if (kj >= p.Lk) continue;
+    const long long off = ((static_cast<long long>(b) * p.Lk + kj) * p.KVH + kvh) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162 *>(p.dk + off + 8 * j) =
+          __floats2bfloat162_rn(dk[4 * j + 2 * hh], dk[4 * j + 2 * hh + 1]);
+      *reinterpret_cast<__nv_bfloat162 *>(p.dv + off + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * hh], dv[4 * j + 2 * hh + 1]);
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const bf16 *q, const bf16 *k, const bf16 *v, const int *mask,
-                   const bf16 *dout, const float *lse, const float *delta,
-                   bf16 *dq, bf16 *dk, bf16 *dv, int B, int H, int KVH, int Lq,
-                   int Lk, const Strides &st, int causal, int q_offset,
-                   float scale, cudaStream_t stream) {
-  if (dq != nullptr) {
-    constexpr int bytes = DqLayout<D>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Lq + BQ - 1) / BQ, H, B);
-    flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-        q, k, v, mask, dout, lse, delta, dq, H, KVH, Lq, Lk, st, causal,
-        q_offset, scale);
-  } else {
-    constexpr int bytes = DkvLayout<D>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid((Lk + BK - 1) / BK, KVH, B);
-    flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-        q, k, v, mask, dout, lse, delta, dk, dv, H, KVH, Lq, Lk, st, causal,
-        q_offset, scale);
-  }
+cudaError_t launch(const CUtensorMap (&maps)[6], const Params &p, cudaStream_t stream) {
+  constexpr int bytes = Smem<D>::BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int grid = (p.Lk + BKV - 1) / BKV * p.KVH * p.B;
+  kernel<D><<<grid, THREADS, bytes, stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4],
+                                              maps[5], p);
   return cudaGetLastError();
 }
 
-int dispatch(const void *q, const void *k, const void *v, const void *mask,
-             const void *dout, const void *lse, const void *delta, void *dq,
-             void *dk, void *dv, int B, int H, int KVH, int Lq, int Lk, int D,
-             const int *s, int causal, int q_offset, float scale,
-             void *stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0 || q_offset < 0)
-    return cudaErrorInvalidValue;
-  const Strides st{s[0], s[1], s[2], s[3], s[4], s[5],
-                   s[6], s[7], s[8], s[9], s[10], s[11]};
-  const auto *qp = static_cast<const bf16 *>(q);
-  const auto *kp = static_cast<const bf16 *>(k);
-  const auto *vp = static_cast<const bf16 *>(v);
-  const auto *mp = static_cast<const int *>(mask);
-  const auto *op = static_cast<const bf16 *>(dout);
-  const auto *lp = static_cast<const float *>(lse);
-  const auto *dp = static_cast<const float *>(delta);
-  auto *dqp = static_cast<bf16 *>(dq);
-  auto *dkp = static_cast<bf16 *>(dk);
-  auto *dvp = static_cast<bf16 *>(dv);
-  auto stm = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(qp, kp, vp, mp, op, lp, dp, dqp, dkp, dvp, B, H, KVH,
-                        Lq, Lk, st, causal, q_offset, scale, stm);
-    case 128:
-      return launch<128>(qp, kp, vp, mp, op, lp, dp, dqp, dkp, dvp, B, H, KVH,
-                         Lq, Lk, st, causal, q_offset, scale, stm);
-    default:
-      return cudaErrorInvalidValue;
-  }
+}  // namespace dkv
+
+template <int D>
+cudaError_t launch_dq(const bf16 *q, const bf16 *k, const bf16 *v, const int *mask,
+                      const bf16 *dout, const float *lse, const float *delta, bf16 *dq, int B,
+                      int H, int KVH, int Lq, int Lk, const Strides &st, int causal,
+                      int q_offset, float scale, cudaStream_t stream) {
+  constexpr int bytes = DqLayout<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + BQ - 1) / BQ, H, B);
+  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
+      q, k, v, mask, dout, lse, delta, dq, H, KVH, Lq, Lk, st, causal, q_offset, scale);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int B, int H, int KVH, int Lq, int Lk, int D, int q_offset) {
+  return B <= 0 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0 || q_offset < 0 ||
+         (D != 64 && D != 128);
 }
 
 }  // namespace
@@ -455,22 +520,47 @@ extern "C" int flash_attention_bwd_dq_bf16(
     int H, int KVH, int Lq, int Lk, int D, int qsb, int qsl, int qsh, int ksb,
     int ksl, int ksh, int vsb, int vsl, int vsh, int osb, int osl, int osh,
     int causal, int q_offset, float scale, void *stream) {
-  if (dq == nullptr) return cudaErrorInvalidValue;
-  const int s[12] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
-  return dispatch(q, k, v, mask, dout, lse, delta, dq, nullptr, nullptr, B, H,
-                  KVH, Lq, Lk, D, s, causal, q_offset, scale, stream);
+  if (dq == nullptr || bad_shape(B, H, KVH, Lq, Lk, D, q_offset)) return cudaErrorInvalidValue;
+  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
+  const auto *qp = static_cast<const bf16 *>(q);
+  const auto *kp = static_cast<const bf16 *>(k);
+  const auto *vp = static_cast<const bf16 *>(v);
+  const auto *mp = static_cast<const int *>(mask);
+  const auto *op = static_cast<const bf16 *>(dout);
+  const auto *lp = static_cast<const float *>(lse);
+  const auto *dp = static_cast<const float *>(delta);
+  auto *dqp = static_cast<bf16 *>(dq);
+  auto stm = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_dq<64>(qp, kp, vp, mp, op, lp, dp, dqp, B, H, KVH, Lq, Lk, st, causal,
+                                 q_offset, scale, stm)
+                 : launch_dq<128>(qp, kp, vp, mp, op, lp, dp, dqp, B, H, KVH, Lq, Lk, st,
+                                  causal, q_offset, scale, stm);
 }
 
-// as above; dk and dv (B, Lk, KVH, D) bf16 contiguous, each the sum over
-// the n_rep = H / KVH query heads of its kv head
+// as above (q, k, v and dout with strides that are multiples of 8 elements
+// and 16-byte aligned bases); dk and dv (B, Lk, KVH, D) bf16 contiguous,
+// each the sum over the n_rep = H / KVH query heads of its kv head
 extern "C" int flash_attention_bwd_dkv_bf16(
     const void *q, const void *k, const void *v, const void *mask,
     const void *dout, const void *lse, const void *delta, void *dk, void *dv,
     int B, int H, int KVH, int Lq, int Lk, int D, int qsb, int qsl, int qsh,
     int ksb, int ksl, int ksh, int vsb, int vsl, int vsh, int osb, int osl,
     int osh, int causal, int q_offset, float scale, void *stream) {
-  if (dk == nullptr || dv == nullptr) return cudaErrorInvalidValue;
-  const int s[12] = {qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
-  return dispatch(q, k, v, mask, dout, lse, delta, nullptr, dk, dv, B, H, KVH,
-                  Lq, Lk, D, s, causal, q_offset, scale, stream);
+  if (dk == nullptr || dv == nullptr || bad_shape(B, H, KVH, Lq, Lk, D, q_offset))
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[6];
+  const long long rows = static_cast<long long>(B) * H * Lq;
+  using rlaifv::attention_map;
+  using rlaifv::tensor_map_1d;
+  if (!attention_map(&maps[0], q, B, Lq, H, D, qsb, qsl, qsh, dkv::BQ) ||
+      !attention_map(&maps[1], k, B, Lk, KVH, D, ksb, ksl, ksh, dkv::BKV) ||
+      !attention_map(&maps[2], v, B, Lk, KVH, D, vsb, vsl, vsh, dkv::BKV) ||
+      !attention_map(&maps[3], dout, B, Lq, H, D, osb, osl, osh, dkv::BQ) ||
+      !tensor_map_1d(&maps[4], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, lse, rows, dkv::ROW_BOX) ||
+      !tensor_map_1d(&maps[5], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, delta, rows, dkv::ROW_BOX))
+    return cudaErrorInvalidValue;
+  const dkv::Params p{static_cast<const int *>(mask), static_cast<bf16 *>(dk),
+                      static_cast<bf16 *>(dv), B, H, KVH, Lq, Lk, causal, q_offset, scale};
+  auto stm = static_cast<cudaStream_t>(stream);
+  return D == 64 ? dkv::launch<64>(maps, p, stm) : dkv::launch<128>(maps, p, stm);
 }

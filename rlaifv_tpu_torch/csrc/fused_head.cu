@@ -95,13 +95,6 @@ enum Epi { DL = 0, DX = 1, DW = 2, FWD = 3 };
 constexpr int FIRST = 1, LAST = 2;  // the dx epilogue's place in the chunk walk
 constexpr float kNegInf = -1e30f;   // the forward's empty max: exp(kNegInf - s) is 0
 
-// keeps the compiler from moving reads of the accumulators across the
-// asynchronous products
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d (64 x 256, fp32, this warpgroup's registers) = A (64 x 16) B (16 x 256) +
 // (d, or 0 when keep is 0), bf16 from shared memory; TA / TB: the operand is
 // MN-major (transposed)

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of this
-// directory (fused_head.cu, quant_matmul.cu, int4_matmul.cu): mbarriers, 2D
-// TMA loads, wgmma shared-memory descriptors and fences, and the tensor-map
-// encoder looked up through the CUDA runtime (no -lcuda).
+// directory (fused_head.cu, quant_matmul.cu, int4_matmul.cu,
+// flash_attention.cu, flash_attention_bwd.cu): mbarriers, 1D/2D/4D TMA
+// loads, wgmma shared-memory descriptors, fences and the bf16 products of
+// the attention kernels, and the tensor-map encoders looked up through the
+// CUDA runtime (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode function's types only
@@ -63,6 +65,26 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap *map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c_inner), "r"(c_outer)
+      : "memory");
+}
+
+// the box at element c0 of a 1D tensor map
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap *map, int c0,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// the box at (c0, c1, c2, c3), innermost first, of a 4D tensor map
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap *map, int c0,
+                                            int c1, int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -150,6 +172,86 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// The bf16 products of the attention kernels: d (64 x N fp32, this
+// warpgroup's registers; register i of a thread holds row 16 (warp % 4) +
+// lane / 4 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 (lane % 4) + (i & 1))
+// += A (64 x 16) B (16 x N), or = when keep is 0. wgmma_bf16_ss: A and B
+// from shared memory, both K-major. wgmma_bf16_rs: A from registers (a[0..3]
+// of a thread hold rows lane / 4 and lane / 4 + 8 of this warp's 16 at
+// columns 2 (lane % 4) + {0, 1} and 8 + 2 (lane % 4) + {0, 1}: mma.sync
+// m16n8k16's A fragment, which is also how the accumulator above holds
+// columns 16 s .. 16 s + 15 in registers 8 s .. 8 s + 7), B K-major (TB = 0)
+// or MN-major (TB = 1).
+#define RLAIFV_F8(d, i)                                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),          \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define RLAIFV_F32(d, i) RLAIFV_F8(d, i), RLAIFV_F8(d, i + 8), RLAIFV_F8(d, i + 16), \
+                         RLAIFV_F8(d, i + 24)
+#define RLAIFV_R32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define RLAIFV_R64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "  \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "   \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "   \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                              int keep);
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                                  int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RLAIFV_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : RLAIFV_F32(d, 0)
+      : "l"(da), "l"(db), "r"(keep));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                                   int keep) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RLAIFV_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : RLAIFV_F32(d, 0), RLAIFV_F32(d, 32)
+      : "l"(da), "l"(db), "r"(keep));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<64, 1>(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " RLAIFV_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : RLAIFV_F32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs<128, 1>(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " RLAIFV_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : RLAIFV_F32(d, 0), RLAIFV_F32(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// keeps the compiler from moving reads of fp32 accumulators across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // keeps the compiler from moving reads of the accumulators across the
 // asynchronous products
 __device__ __forceinline__ void fence_acc(int (&d)[64]) {
@@ -195,6 +297,58 @@ inline bool tensor_map_2d(CUtensorMap *map, CUtensorMapDataType type, const void
   return encode(map, type, 2, const_cast<void *>(base), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map of `rank` (1 to 5) dimensions, innermost first: dims[i]
+// elements along dimension i, strides[i - 1] bytes between neighbours along
+// dimension i >= 1 (in any order: (D, position, head, batch) views of a fused
+// projection have a head stride below the position stride), read in boxes of
+// box[i] elements; boxes read zeros outside the tensor. The base must be
+// 16-byte aligned and every stride a positive multiple of 16 (false
+// otherwise, or when the encoder refuses).
+inline bool tensor_map_nd(CUtensorMap *map, CUtensorMapDataType type, const void *base,
+                          int rank, const long long *dims, const long long *strides,
+                          const int *box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || rank < 1 || rank > 5 || reinterpret_cast<uintptr_t>(base) % 16 != 0)
+    return false;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], step[5];
+  for (int i = 0; i < rank; ++i) {
+    if (dims[i] <= 0 || box[i] <= 0 || box[i] > 256) return false;
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    step[i] = 1;
+    if (i > 0) {
+      if (strides[i - 1] <= 0 || strides[i - 1] % 16 != 0) return false;
+      s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
+    }
+  }
+  return encode(map, type, rank, const_cast<void *>(base), d, s, b, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a tensor map over n elements in a row, read box at a time (no swizzle); a
+// box must start 16-byte aligned
+inline bool tensor_map_1d(CUtensorMap *map, CUtensorMapDataType type, const void *base,
+                          long long n, int box) {
+  return tensor_map_nd(map, type, base, 1, &n, nullptr, &box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// the attention kernels' operands: a tensor map over a bf16 (B, L, heads, D)
+// tensor with element strides (sb, sl, sh) and unit stride along D, read in
+// boxes of 64 columns x `rows` positions (128 bytes a row, swizzled); a
+// dimension of extent 1 takes any valid stride
+inline bool attention_map(CUtensorMap *map, const void *base, int B, int L, int heads, int D,
+                          long long sb, long long sl, long long sh, int rows) {
+  const long long dims[4] = {D, L, heads, B};
+  long long strides[3] = {2 * sl, 2 * sh, 2 * sb};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = 2ll * D;
+  const int box[4] = {64, rows, 1, 1};
+  return tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace rlaifv

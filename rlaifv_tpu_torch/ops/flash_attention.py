@@ -94,10 +94,12 @@ def _check_operands(B, Lk, D, H, KVH, q_offset, **tensors):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash_attention kernel takes bf16; {name} is {t.dtype}")
         if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) \
-                or t.data_ptr() % 16:
+                or t.data_ptr() % 16 or any(s == 0 and n > 1 for s, n in
+                                            zip(t.stride()[:3], t.shape[:3])):
             raise ValueError(
                 f"flash_attention kernel needs {name} with unit stride along D, "
-                f"16-byte aligned rows; got strides {t.stride()}"
+                f"16-byte aligned rows and no broadcast dimension (its TMA tensor "
+                f"maps); got strides {t.stride()}"
             )
     if D not in (64, 128):
         raise ValueError(f"flash_attention kernel takes D in (64, 128); got {D}")
@@ -115,7 +117,8 @@ def _int_mask(attention_mask, B, Lk, device):
     mask = attention_mask.to(device=device, dtype=torch.int32).contiguous()
     if mask.shape != (B, Lk):
         raise ValueError(f"mask {tuple(mask.shape)} != {(B, Lk)}")
-    return mask
+    # the forward kernel reads it through a TMA tensor map: 16-byte aligned
+    return mask if mask.data_ptr() % 16 == 0 else mask.clone()
 
 
 def _kernel_fwd(q, k, v, attention_mask, causal, q_offset):

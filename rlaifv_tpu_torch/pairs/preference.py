@@ -128,7 +128,10 @@ def run(autocheck_path: str, divide_path: str, sample_num: int = 2,
     )
     write_jsonlines(save_path, pairs)
     write_jsonlines(save_path.replace(".jsonl", ".addcls.jsonl"), annotated)
-    judged = [dict(r, fact_judge=judges[r["question_id"]]) for r in kept_answers]
+    # an answer none of whose facts got a yes/no question has no judgments:
+    # an empty fact_judge here, where the reference (and the JAX package's
+    # copy) raises KeyError
+    judged = [dict(r, fact_judge=judges.get(r["question_id"], {})) for r in kept_answers]
     write_jsonlines(save_path.replace(".jsonl", ".addfactjudge.jsonl"), judged)
 
     sampled = sample_pairs(pairs, sample_num)

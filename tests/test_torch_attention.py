@@ -94,6 +94,56 @@ def test_flash_rectangular_q_offset_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+
+# the redesigned Hopper kernels' tile edges (128-row query tiles, 128-key
+# tiles, 64-query steps of the dk/dv kernel): lengths beside 128 and 255, a
+# query tile straddling q_offset, n_rep 4 and 8, D 64, rows that see no key,
+# strided views; B, Lq, Lk, H, KVH, D, causal, q_offset
+TILE_EDGES = [
+    (1, 127, 127, 4, 1, 64, True, 0),      # n_rep 4
+    (1, 128, 128, 8, 1, 64, True, 0),      # n_rep 8
+    (2, 129, 129, 2, 2, 64, True, 0),
+    (1, 255, 255, 2, 1, 128, True, 0),
+    (1, 200, 300, 2, 2, 64, True, 100),    # query tiles straddle q_offset
+    (1, 129, 255, 4, 1, 64, True, 126),
+    (1, 256, 256, 2, 1, 64, False, 0),     # bidirectional
+    (1, 255, 127, 2, 2, 64, False, 0),
+]
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["contiguous", "strided"])
+@pytest.mark.parametrize("B,Lq,Lk,H,KVH,D,causal,q_offset", TILE_EDGES)
+def test_flash_forward_tile_edges_match_jax(B, Lq, Lk, H, KVH, D, causal, q_offset, strided):
+    """The plain forward (out and lse) against the JAX forward kernel in
+    interpret mode on inputs padded to 128 (pad keys masked, pad queries cut
+    off). Row B - 1 is left-padded by 7 keys, so with causal masking at
+    q_offset 0 its first 7 queries see nothing (out 0). "strided" hands the
+    port head-major (B, H, L, D) storage viewed as (B, L, H, D)."""
+    q, k, v = _qkv(5, B, Lq, Lk, H, KVH, D)
+    mask = np.ones((B, Lk), np.int32)
+    mask[-1, :7] = 0
+    pq, pk = (-Lq) % 128, (-Lk) % 128
+
+    def heads_first(x, pad):
+        return jnp.asarray(np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))).transpose(0, 2, 1, 3))
+
+    want, want_lse = jflash_fwd(heads_first(q, pq), heads_first(k, pk), heads_first(v, pk),
+                                jnp.asarray(np.pad(mask, ((0, 0), (0, pk)))), 1.0 / D ** 0.5,
+                                causal, 128, q_offset)
+    if strided:
+        tq, tk, tv = (torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+                      .transpose(1, 2) for x in (q, k, v))
+        assert not tq.is_contiguous()
+    else:
+        tq, tk, tv = _t(q, k, v)
+    got, lse = flash_attention(tq, tk, tv, attention_mask=torch.from_numpy(mask),
+                               causal=causal, q_offset=q_offset, return_lse=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).transpose(0, 2, 1, 3)[:, :Lq],
+                               atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[:, :, 0, :Lq], atol=ATOL)
+    if causal and q_offset == 0:
+        assert (got[-1, :7] == 0).all()
+
 @pytest.mark.parametrize("valid_len", [1, 13, 32])
 def test_decode_attention_prefix_matches_jax(valid_len):
     """JAX's prefix kernel (block_l=8, interpret) vs the port, with a

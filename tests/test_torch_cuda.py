@@ -89,6 +89,15 @@ def _close(out, ref):
     (1, 577, 577, 16, 16, 64, False, 0),     # bidirectional, D=64
     (2, 70, 70, 4, 1, 64, True, 0),          # one ragged tile
     (1, 100, 300, 4, 2, 128, True, 200),     # rectangular suffix window
+    # the 128-row query tiles' and 128-key tiles' edges
+    (1, 127, 127, 4, 1, 128, True, 0),       # n_rep 4
+    (1, 128, 128, 8, 1, 64, True, 0),        # n_rep 8, D 64
+    (2, 129, 129, 4, 4, 128, True, 0),
+    (1, 255, 255, 8, 2, 64, True, 0),
+    (1, 200, 300, 4, 4, 128, True, 100),     # query tiles straddle q_offset
+    (2, 129, 255, 8, 1, 128, True, 126),
+    (1, 255, 127, 4, 4, 128, False, 0),
+    (2, 384, 640, 8, 8, 128, False, 0),      # more key tiles than ring stages
 ])
 def test_flash_kernel_matches_plain(gen, B, Lq, Lk, H, KVH, D, causal, q_offset):
     q, k, v = _randn(gen, B, Lq, H, D), _randn(gen, B, Lk, KVH, D), _randn(gen, B, Lk, KVH, D)
@@ -117,6 +126,36 @@ def test_flash_kernel_takes_strided_views(gen):
     _close(out, ref)
 
 
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_take_fused_qkv_views(gen, D):
+    """q, k, v as views of one fused (B, L, 3, H, D) projection (position
+    stride 3 H D, head stride D), through the forward and both backward
+    kernels (rank-4 TMA tensor maps take any such strides)."""
+    B, L, H = 2, 300, 4
+    qkv = _randn(gen, B, L, 3, H, D)
+    q, k, v = qkv.unbind(2)
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    mask[1, -30:] = 0
+    out, lse = flash_attention(q, k, v, attention_mask=mask, return_lse=True)
+    ref, ref_lse = flash_attention_ref(q, k, v, mask)
+    _close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    do = _randn(gen, B, L, H, D)
+    got = flash_attention_bwd(q, k, v, mask, out, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, mask, out, lse, do)
+    for a, r in zip(got, want):
+        _close_grad(a, r)
+
+
+def test_flash_kernel_refuses_broadcast_operands(gen):
+    """A stride-0 (expanded) dimension has no TMA tensor map: the wrapper
+    raises before any launch."""
+    q = _randn(gen, 2, 128, 4, 64)
+    kv = _randn(gen, 1, 128, 4, 64).expand(2, -1, -1, -1)
+    with pytest.raises(ValueError):
+        flash_attention(q, kv, kv)
+
+
 def _close_grad(got, ref):
     got, ref = got.float(), ref.float()
     assert torch.isfinite(got).all()
@@ -130,6 +169,15 @@ def _close_grad(got, ref):
     (1, 100, 300, 4, 1, 128, True, 200),   # rectangular suffix window
     (1, 150, 150, 4, 4, 64, False, 0),     # bidirectional, D=64
     (2, 70, 70, 4, 2, 64, True, 0),        # one ragged tile
+    # the dk/dv kernel's 128-key CTAs and 64-query steps at their edges
+    (1, 127, 127, 4, 1, 128, True, 0),     # n_rep 4
+    (1, 128, 128, 8, 1, 64, True, 0),      # n_rep 8, D 64
+    (2, 129, 129, 4, 4, 128, True, 0),
+    (1, 255, 255, 8, 2, 64, True, 0),
+    (1, 200, 300, 4, 4, 128, True, 100),   # query tiles straddle q_offset
+    (2, 129, 255, 8, 1, 128, True, 126),
+    (1, 255, 127, 4, 4, 128, False, 0),
+    (2, 577, 577, 16, 16, 64, False, 0),   # more steps than ring stages, ragged rows
 ])
 def test_flash_bwd_kernels_match_plain(gen, B, Lq, Lk, H, KVH, D, causal, q_offset):
     """dq and dk/dv kernels against flash_attention_bwd_ref on the same

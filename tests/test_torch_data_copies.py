@@ -385,6 +385,41 @@ def test_copy_matches_the_original(case, tmp_path):
     _deep_equal(got, want)
 
 
+
+def test_preference_run_keeps_an_answer_without_questions(tmp_path):
+    """A deliberate difference: an answer with no autocheck row (none of its
+    facts got a yes/no question) makes the JAX package's `run` raise
+    KeyError, as the reference does; the port's writes it to .addfactjudge
+    with an empty fact_judge, and every other file as the JAX package writes
+    them without that answer."""
+    rng = np.random.default_rng(6)
+    facts = _fact_rows(rng)
+    answers = _answer_rows(rng, facts)
+    lone = dict(answers[-1], question_id=99, ds_question_id="ds9", raw_question="Q9?",
+                question="Q9?")
+    out = {}
+    for name, rows in (("rlaifv_tpu_torch", answers + [lone]), ("rlaifv_tpu", answers)):
+        pkg = _package(name)
+        fio = pkg("utils.file_io")
+        d = tmp_path / name
+        d.mkdir()
+        fio.write_jsonlines(str(d / "autocheck.jsonl"), facts)
+        fio.write_jsonlines(str(d / "gq.jsonl"), rows)
+        pkg("pairs.preference").run(str(d / "autocheck.jsonl"), str(d / "gq.jsonl"))
+        out[name] = [fio.read_jsonlines(str(d / f"autocheck.pair_diff1{ext}.jsonl"))
+                     for ext in ("", ".addcls", ".addfactjudge")]
+    pairs, addcls, judged = out["rlaifv_tpu_torch"]
+    assert judged[-1]["question_id"] == 99 and judged[-1]["fact_judge"] == {}
+    _deep_equal((pairs, addcls, judged[:-1]), tuple(out["rlaifv_tpu"]))
+    d = tmp_path / "raises"
+    d.mkdir()
+    jfio = _package("rlaifv_tpu")("utils.file_io")
+    jfio.write_jsonlines(str(d / "autocheck.jsonl"), facts)
+    jfio.write_jsonlines(str(d / "gq.jsonl"), answers + [lone])
+    with pytest.raises(KeyError):
+        _package("rlaifv_tpu")("pairs.preference").run(str(d / "autocheck.jsonl"),
+                                                      str(d / "gq.jsonl"))
+
 def test_the_data_layer_the_scripts_import_is_the_ports_own():
     from rlaifv_tpu_torch import data
 

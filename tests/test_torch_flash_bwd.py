@@ -79,6 +79,56 @@ def test_flash_grads_match_jax(case):
         assert (tq.grad[0, :7] == 0).all()  # a row that sees nothing adds nothing
 
 
+
+# the redesigned Hopper kernels' tile edges (see tests/test_torch_attention.py
+# TILE_EDGES): B, Lq, Lk, H, KVH, D, causal, q_offset
+TILE_EDGES = [
+    (1, 127, 127, 4, 1, 64, True, 0),      # n_rep 4
+    (1, 128, 128, 8, 1, 64, True, 0),      # n_rep 8
+    (2, 129, 129, 2, 2, 64, True, 0),
+    (1, 255, 255, 2, 1, 128, True, 0),
+    (1, 200, 300, 2, 2, 64, True, 100),    # query tiles straddle q_offset
+    (1, 129, 255, 4, 1, 64, True, 126),
+    (1, 256, 256, 2, 1, 64, False, 0),     # bidirectional
+]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,KVH,D,causal,q_offset", TILE_EDGES)
+def test_flash_grads_at_tile_edges_match_jax(B, Lq, Lk, H, KVH, D, causal, q_offset):
+    """`jax.grad` through the JAX kernels (interpret mode) against the
+    port's autograd Function on CPU tensors (the plain forward and
+    backward), fp32 from one seed, with a strided dO (head-major storage)
+    and the last row left-padded by 7 keys (with causal masking at q_offset
+    0 its first 7 queries see nothing and get dq = 0)."""
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Lk, KVH, D)).astype(np.float32)
+    v = rng.normal(size=(B, Lk, KVH, D)).astype(np.float32)
+    g = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    mask = np.ones((B, Lk), np.int32)
+    mask[-1, :7] = 0
+
+    def jloss(q, k, v):
+        out = jflash(q, k, v, attention_mask=jnp.asarray(mask), causal=causal,
+                     q_offset=q_offset)
+        return (out * g).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, attention_mask=torch.from_numpy(mask), causal=causal,
+                          q_offset=q_offset)
+    tg = torch.from_numpy(np.ascontiguousarray(g.transpose(0, 2, 1, 3))).transpose(1, 2)
+    out.backward(tg)
+
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=ATOL)
+    for name, t, want in zip("qkv", (tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=RTOL, err_msg=f"d{name}")
+    if causal and q_offset == 0:
+        assert (tq.grad[-1, :7] == 0).all()
+
 def test_bwd_ref_is_the_gradient_of_the_plain_forward():
     """flash_attention_bwd_ref, fed the saved out/lse and an arbitrary-strided
     dO, equals autograd through the plain forward and returns the input
