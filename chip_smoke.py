@@ -25,8 +25,10 @@ Phases, one progress line each (or a few):
      TFLOP/s, the kernels one call of each launches (one), bounds, SDPA's
      forward and autograd backward (plain dpo B 2 L 2048, the suffix);
      three broken copies of the dk/dv kernel (the last query head of a kv
-     head skipped, the causal mask off, the delta term dropped) on the GQA
-     case, each of which must break the comparison;
+     head skipped, the causal mask off, the delta term dropped) and three of
+     the dq kernel (the diagonal tile unmasked, the delta term dropped, the
+     last ring stage of the key walk skipped) on the GQA case, each of which
+     must break the comparison;
   3c. the fused LM head kernels (forward; the backward's dl, dx and dW,
      walked in vocabulary chunks) against the plain versions at the train
      step's head (M = 2 (L - 1), H = 4096, V = 32000), the ref-logp
@@ -90,16 +92,18 @@ Phases, one progress line each (or a few):
      times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
      (product only) and the "dequant" route (a bf16 cuBLAS product of the
-     dequantised weight), the kernels one #8 call launched (the call
-     captured in a CUDA graph; they must match dx_launches' plan), and one
-     projection's
+     dequantised weight), the kernels one #8 call and one #10 call launched
+     (each call captured in a CUDA graph; they must match dx_launches' and
+     dx_prequant_plan's plans; #10's route and tile logged), one case with
+     N % 16 != 0 (#10 on the rows TMA cannot map), and one projection's
      int8 route against the dequant route (the activation-quantisation
      error, ~1%); then #8 on rows whose quotients fall on and next to
      half-integers (synth.quotient_ties; M = 1, 63, 64, 127, the short
-     step's, ragged K and N), reruns bit-equal, and two planted faults
-     (one contraction slice dropped, sy from the next row), each a broken
-     copy of csrc/quant_matmul.cu built beside the kernels, that must break
-     the bit-exact check;
+     step's, ragged K and N), reruns bit-equal, and four planted faults
+     (#8: one contraction slice dropped, sy from the next row; #10 on its
+     wide tile: the last contraction stage dropped, sy from the wrong row of
+     a tile), each a broken copy of csrc/quant_matmul.cu built beside the
+     kernels, that must break the bit-exact check;
   9. the QLoRA slice (configs/llava15_dpo_qlora.json): phase 8's seed-0
      LLaVA-1.5-7B rebuilt after phase 6 is freed, its LLM projections
      quantised to int8 on the card (head, CLIP and projector bf16), the
@@ -705,7 +709,7 @@ FLASH_FWD_CASES = [
 
 # 3 / 3b: planted faults in the redesigned flash kernels, each a broken copy
 # of one source (build_variants) that must break its phase's comparison: #1
-# on the autocheck prefix (3), #3 on 3b's GQA case (n_rep 4)
+# on the autocheck prefix (3), #3 and #2 on 3b's GQA case (n_rep 4)
 FLASH_FWD_FAULTS = {
     "fwd: the diagonal tile left unmasked": [(
         "flash_attention.cu", "const bool diag = p.causal && k0 + BK - 1 > p.q_offset + r_wg;",
@@ -727,6 +731,20 @@ FLASH_DKV_FAULTS = {
     "dkv: the delta term dropped": [(
         "flash_attention_bwd.cu", "dp[i] = pv * (dp[i] - dlt) * p.scale;",
         "dp[i] = pv * dp[i] * p.scale;")],
+}
+FLASH_DQ_FAULTS = {
+    "dq: the diagonal tile left unmasked": [(
+        "flash_attention_bwd.cu",
+        "const bool on_diagonal = p.causal && k0 + BK - 1 > p.q_offset + r_wg;",
+        "const bool on_diagonal = false;")],
+    "dq: the delta term dropped": [(
+        "flash_attention_bwd.cu", "ds[e] = pv * (dp[i] - dlt[hh]) * p.scale;",
+        "ds[e] = pv * dp[i] * p.scale;")],
+    "dq: the last ring stage of the key walk skipped": [(
+        "flash_attention_bwd.cu",
+        "n_wg = p.causal ? key_tiles(min(p.Lk, p.q_offset + min(r_wg + 64, p.Lq))) : n_tiles;",
+        "n_wg = p.causal ? key_tiles(min(p.Lk, p.q_offset + min(r_wg + 64, p.Lq))) - 1\n"
+        "                   : n_tiles - 1;")],
 }
 
 
@@ -912,7 +930,7 @@ def _bwd_cases(pair: dict) -> list:
 def phase_backward(g, pair: dict, variants) -> dict:
     """3b: the forward kernel and the two backward kernels against their
     plain versions at the train step's shapes (causal, H = 32, D = 128);
-    #3's planted faults on the GQA case."""
+    #3's and #2's planted faults on the GQA case."""
     H, D = 32, 128
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "cases": {}}
     for c in _bwd_cases(pair):
@@ -989,7 +1007,7 @@ def phase_backward(g, pair: dict, variants) -> dict:
         if c["name"] == "gqa":
             kept = (kargs, ref)
 
-    # broken copies of #3 on the GQA case (n_rep 4)
+    # broken copies of #3 and #2 on the GQA case (n_rep 4)
     kargs, ref = kept
 
     def check_dkv(got):
@@ -997,9 +1015,16 @@ def phase_backward(g, pair: dict, variants) -> dict:
                 for a, r in zip(got, ref[1:])]
         return max(errs) <= BWD_TOL, f"max|err| / max|plain| dk {errs[0]:.3e} dv {errs[1]:.3e}"
 
+    def check_dq(got):
+        err = (got.float() - ref[0].float()).abs().max().item() / \
+            ref[0].float().abs().max().item()
+        return err <= BWD_TOL, f"max|err| / max|plain| dq {err:.3e}"
+
     libs = variants.result()
     flash_faults_caught("[3b flash bwd]", {n: libs[n] for n in FLASH_DKV_FAULTS},
                         lambda: _kernel_bwd_dkv(*kargs), check_dkv)
+    flash_faults_caught("[3b flash bwd]", {n: libs[n] for n in FLASH_DQ_FAULTS},
+                        lambda: _kernel_bwd_dq(*kargs), check_dq)
     return res
 
 
@@ -3013,6 +3038,15 @@ DX8_FAULTS = {
     "sy taken from the next row": [(
         "quant_matmul.cu", "sy[e / K]));", "sy[(e / K + 1) % M]));")],
 }
+# 3d: planted faults in #10's wide tile (qdx::dx_wide)
+DX10_FAULTS = {
+    "#10: the last contraction stage dropped": [(
+        "quant_matmul.cu", "const int nc = (N + TC - 1) / TC;",
+        "const int nc = (N + TC - 1) / TC - 1;")],
+    "#10: sy taken from the wrong row of a tile": [(
+        "quant_matmul.cu", "const float row_scale = sy[row];",
+        "const float row_scale = sy[row ^ 1];")],
+}
 DX4_FAULTS = {
     "guard band removed (rint(v r) alone)": [
         ("int4_matmul.cu", "constexpr float BRACKET_LO = 1.0f - 0x1p-20f;",
@@ -3083,10 +3117,15 @@ def phase_int8(g, qb: dict) -> dict:
     cases = [(K, N, M) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)) for M in ms]
     cases += [(K, N, M) for K, N in FUSED_WIDTHS for M in FUSED_MS]
     cases += [(K, N, M) for K, N in LLAMA3_WIDTHS for M in llama3_ms()]
-    for K, N, M in cases:
-        x, dy = _randn(g, M, K), _randn(g, M, N)
+    # the N % 16 != 0 case (#10 on rows TMA cannot map) and #10's planted
+    # faults draw from a generator of their own: the phases after 3d keep
+    # the inputs the shared generator has always given them (3g's one-layer
+    # flip-row bound trips on a few percent of random draws, PERF.md §7)
+    own = torch.Generator(device="cuda").manual_seed(1)
+    for K, N, M, gen in [(*c, g) for c in cases] + [(4096, 1000, 512, own)]:
+        x, dy = _randn(gen, M, K), _randn(gen, M, N)
         q, s = quantize_kernel_int8_torch(
-            0.02 * torch.randn(K, N, generator=g, device="cuda"))
+            0.02 * torch.randn(K, N, generator=gen, device="cuda"))
         xq, sx = qm.quantize_rows(x.float())
         dyq, sy = qm.quantize_rows(dy.float() * s)
         sx, sy = sx.reshape(-1), sy.reshape(-1)
@@ -3126,9 +3165,16 @@ def phase_int8(g, qb: dict) -> dict:
         split = qm.dx_split(M, K, N, qm._sms(0), q.data_ptr() % 16 == 0)
         launched = launched_ops(run[8])
         entry[8]["kernels_a_call"] = launched.get("kernel", 0)
-        ok = ok and launched.get("kernel", 0) == qm.dx_launches(split)
+        plan = qm.dx_prequant_plan(M, K, N, qm._sms(0),
+                                   q.data_ptr() % 16 == 0 and dyq.data_ptr() % 16 == 0)
+        launched10 = launched_ops(run[10])
+        entry[10].update(kernels_a_call=launched10.get("kernel", 0), route=plan.route)
+        ok = ok and launched.get("kernel", 0) == qm.dx_launches(split) and \
+            launched10.get("kernel", 0) == plan.launches
         log(f"[3d int8] M={M} K={K} N={N}: one #8 call captured in a CUDA graph: "
             f"{ops_text(launched)}; {split} contraction slices, {qm.dx_launches(split)} kernels "
+            f"planned | one #10 call: {ops_text(launched10)}; route {plan.route}, tile "
+            f"{plan.tile[0]} x {plan.tile[1]}, {plan.split} slices, {plan.launches} kernels "
             f"planned | max|err| #7 {err[7]:.1e} #9 {err[9]:.1e} "
             f"#8 {err[8]:.1e} #10 {err[10]:.1e} (tol 0), #7==#9 "
             f"{torch.equal(out[7], out[9])} #8==#10 {torch.equal(out[8], out[10])} | "
@@ -3141,8 +3187,8 @@ def phase_int8(g, qb: dict) -> dict:
             f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"int8 kernels disagree with the plain twins, or #8 "
-                                 f"with its planned launches, at M={M} K={K} N={N}: {err}")
+            raise AssertionError(f"int8 kernels disagree with the plain twins, or #8 or "
+                                 f"#10 with its planned launches, at M={M} K={K} N={N}: {err}")
         res["err"] = max(res["err"], max(err.values()))
         if M == qb["m_prefix"]:
             route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
@@ -3172,7 +3218,14 @@ def phase_int8(g, qb: dict) -> dict:
     q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
     dy = _randn(g, M, N)
     case = (qm._kernel_dx, (dy, q, s), qm.int8_matmul_dx_plain(dy, q, s))
-    planted_faults("[3d int8] #8", DX8_FAULTS, {k: case for k in DX8_FAULTS})
+    M, K, N = qb["m_prefix"], 4096, 11008  # #10 on its wide tile
+    assert qm.dx_prequant_plan(M, K, N, qm._sms(0)).route == "wide"
+    q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=own, device="cuda"))
+    dy = _randn(own, M, N)
+    dyq, sy = qm.quantize_rows(dy.float() * s)
+    case10 = (qm._kernel_dx_prequant, (dyq, sy.reshape(-1), q), qm.int8_matmul_dx_plain(dy, q, s))
+    planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS},
+                   {**{k: case for k in DX8_FAULTS}, **{k: case10 for k in DX10_FAULTS}})
     return res
 
 
@@ -3701,7 +3754,8 @@ def main() -> None:
     import concurrent.futures
 
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    flash_variants = pool.submit(build_variants, {**FLASH_FWD_FAULTS, **FLASH_DKV_FAULTS})
+    flash_variants = pool.submit(build_variants, {**FLASH_FWD_FAULTS, **FLASH_DKV_FAULTS,
+                                                  **FLASH_DQ_FAULTS})
     g = torch.Generator(device="cuda").manual_seed(0)
     kern = timed("3 kernels", phase_kernels, g, flash_variants)
     cfg = LlavaConfig.llava15_7b()
@@ -3795,7 +3849,9 @@ def main() -> None:
         _row("flash_attention_bwd_dq", src, "rlaifv_tpu/ops/flash_attention.py:157",
              launches["dq"], bwd["dq_err"],
              dict(ms=suffix["dq_ms"], plain_ms=suffix["plain_ms"],
-                  library_ms=suffix["library_ms"], **suffix["dq_bound"])),
+                  library_ms=suffix["library_ms"], **suffix["dq_bound"]),
+             "redesigned: TMA-fed wgmma, dQ summed in registers, dS as the register A "
+             "operand; one kernel a call (a CUDA graph of one call, 3b)"),
         _row("flash_attention_bwd_dkv", src, "rlaifv_tpu/ops/flash_attention.py:191",
              launches["dkv"], bwd["dkv_err"],
              dict(ms=suffix["dkv_ms"], plain_ms=suffix["plain_ms"],
@@ -3831,7 +3887,11 @@ def main() -> None:
         _row("int8_matmul_prequant", q_src, f"{q_py}:244", launches["int8_prequant"],
              int8["err"], large[9]),
         _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
-             launches["int8_dx_prequant"], int8["err"], large[10]),
+             launches["int8_dx_prequant"], int8["err"], large[10],
+             f"redesigned: the {large[10]['route']} route here (a 128 x 256 TMA + wgmma "
+             "tile where its tiles fill the card, #8's split product where they do not); "
+             f"one wrapper call launched {large[10]['kernels_a_call']} kernel here (a CUDA "
+             "graph of one call, 3d)"),
     ]
     # rows 11-12 at the 8-pair step's prefix of phase 10: #11 at gate/up
     # (K = 4096, N = 11008), #12 at down_proj's dx (N = 4096, K = 11008)

@@ -18,235 +18,280 @@
 //
 // What bounds both on the H100: tensor-core FLOPs (dq: 6 D flops a visible
 // (query, key) pair of a head, dk/dv: 8 D); at the train step's suffix call
-// (B 2, 284 queries over 1052 keys at q_offset 768, H 32, D 128) dk/dv is
-// 0.0234 ms at 3.35 TB/s for its bytes and about 0.017 at 989 TFLOP/s.
+// (B 2, 284 queries over 1052 keys at q_offset 768, H 32, D 128) dq is
+// 0.0145 ms for its bytes at 3.35 TB/s and about 0.013 at 989 TFLOP/s, dk/dv
+// 0.0234 and 0.017; at B 2, L 2048 both are bound by their operations (dq
+// 0.103 ms, dk/dv 0.138). So each kernel's design is about keeping the
+// tensor cores fed: TMA loads that overlap the products, the softmax on the
+// accumulator registers, and the sums in registers for a CTA's whole life.
 //
-// dq (flash_bwd_dq_kernel): one CTA of 4 warps per (batch, head, 64 query
-// rows) streams 64-key K/V tiles through shared memory up to the causal
-// diagonal; WMMA 16x16x16 products, dq in WMMA fragments.
+// The two kernels share one shape: a CTA of 256 threads, two consumer
+// warpgroups of 64 rows each and no producer warp (one would cap every
+// thread at 168 registers, and ptxas then serialises the products). The
+// operands a CTA keeps are loaded once by TMA and stay resident in shared
+// memory; the ones it walks over come through a ring of stages, each a TMA
+// load of 128-byte-swizzled 64-column boxes from rank-4 tensor maps over
+// (D, position, head, batch), which take any (batch, position, head)
+// strides and zero-fill ragged tails. The consumer warpgroup that releases a
+// stage second refills it (a counter a stage in shared memory says which).
+// Each step's products are wgmma (bf16, fp32 sums): the two score products
+// with both operands in shared memory (K-major), then the gradient products
+// with P or dS formed on the score accumulators and rounded to bf16 straight
+// into wgmma's register A fragments, the B operand read as it lies
+// (MN-major, through wgmma's transpose) from the same stage. A step's
+// gradient products stay in flight while the next step's score products are
+// issued. CTAs are launched longest first.
 //
-// dk/dv (dkv::kernel): a CTA owns 128 keys of one (batch, kv head), 64 for
-// each of two consumer warpgroups (256 threads, so that each thread may hold
-// up to 255 registers). K and V stay resident in shared memory, loaded once
-// by TMA. A ring of three stages holds (Q, dO) tiles of 64 query rows and
-// their lse and delta rows, TMA-loaded (128-byte-swizzled 64-column boxes of
-// rank-4 tensor maps over (D, position, head, batch), which take any (batch,
-// position, head) strides and zero-fill ragged tails; lse and delta through
-// 1D maps). A step walks every query head of the kv head, then the query
-// tiles from the causal start on. Each step runs four wgmma products:
-// S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands in shared memory,
-// K-major), then, from P^T and dS^T formed on the accumulator registers and
-// rounded to bf16 straight into wgmma's register A fragments, dV += P^T dO
-// and dK += dS^T Q with dO and Q read as they lie (MN-major, through
-// wgmma's transpose), from the same stage. dK and dV are fp32 register
-// accumulators for the CTA's whole life, written once as bf16. A step's dV
-// and dK products stay in flight while the next step's S^T and dP^T are
-// issued. There is no producer warp (it would cap every thread at 224
-// registers): the consumer warpgroup that releases a stage second refills it
-// (a counter in shared memory says which). CTAs are launched longest first
-// (causal: the first key tiles see the most queries).
+// dq (dq::kernel): a CTA owns 128 query rows of one (batch, head). Q and dO
+// stay resident; a ring of four stages brings K and V tiles of 64 keys and
+// their key-mask ints (a 1D TMA box that starts 16-byte aligned; a warp vote
+// skips the mask on tiles whose keys are all live), up to the causal end of
+// the CTA's rows. A step runs S = Q K^T and dP = dO V^T (m64n64k16), then
+// dQ += dS K (m64n128k16 at D 128, K read MN-major). Each thread keeps its
+// rows' lse and delta in registers; dQ is an fp32 register accumulator (64
+// registers a thread at D 128), written once as bf16. Causal CTAs run from
+// the last query tile, which sees the most keys.
+//
+// dk/dv (dkv::kernel): a CTA owns 128 keys of one (batch, kv head). K and V
+// stay resident; a ring of three stages holds (Q, dO) tiles of 64 query rows
+// and their lse and delta rows (through 1D maps). A step walks every query
+// head of the kv head, then the query tiles from the causal start on, with
+// four products: S^T = K Q^T and dP^T = V dO^T (m64n64k16), then dV += P^T
+// dO and dK += dS^T Q with dO and Q read MN-major. dK and dV are fp32
+// register accumulators (250 of 255 registers). Causal CTAs run from the
+// first key tile, which sees the most queries.
 #include <math.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per tile
-constexpr int BK = 64;  // key rows per tile
-constexpr int NWARPS = 4;  // each warp owns 16 rows of the CTA's own tile
-constexpr int NTHREADS = NWARPS * 32;
-static_assert(BQ == 16 * NWARPS && BK == 16 * NWARPS, "16 rows a warp");
+// ---- dq: TMA + wgmma, dQ in registers
 
-__host__ __device__ constexpr int align128(int x) { return (x + 127) / 128 * 128; }
+namespace dq {
 
-// element strides (batch, position, head) of q, k, v and dO
-struct Strides {
-  long long qb, ql, qh, kb, kl, kh, vb, vl, vh, ob, ol, oh;
-};
-
-template <int D>
-struct Tiles {
-  static constexpr int LDQ = D + 8;   // bf16 row stride of Q/K/V/dO tiles
-  static constexpr int LDS = 64 + 4;  // fp32 row stride of 64-wide score tiles
-  static constexpr int LDP = 64 + 8;  // bf16 row stride of 64-wide P/dS tiles
-  static constexpr int LDA = D + 4;   // fp32 row stride of D-wide sums
-  static constexpr int TILE = align128(64 * LDQ * 2);
-  static constexpr int SCORE = align128(64 * LDS * 4);
-  static constexpr int PROB = align128(64 * LDP * 2);
-  static constexpr int ACC = align128(64 * LDA * 4);
-  static constexpr int ROW = align128(64 * 4);
-};
+constexpr int BQ = 128;           // query rows of a CTA: 64 for each consumer warpgroup
+constexpr int BK = 64;            // keys of a ring stage
+constexpr int THREADS = 256;      // two warpgroups; no producer warp (registers)
+constexpr int ATOM = 1024;        // a 128-byte swizzle atom: 8 rows of 128 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+// a TMA box must start 16-byte aligned: a stage's mask ints are read from
+// the aligned element at or before its first key, 4 more than BK
+constexpr int MASK_BOX = BK + 4;
+constexpr int MASK_SLOT = 384;  // MASK_BOX ints, rounded up to 128 bytes
 
 template <int D>
-struct DqLayout : Tiles<D> {
-  using T = Tiles<D>;
+struct Smem {
+  static constexpr int CH = D / 64;                // 64-column boxes of a row
+  static constexpr int STAGES = 4;                 // K/V tiles in flight
+  static constexpr int Q_BOX = BQ * 128;           // BQ rows of one 64-column box
+  static constexpr int KV_BOX = BK * 128;
+  static constexpr int KV_BYTES = CH * KV_BOX;     // a K or a V tile
   static constexpr int Q = 0;
-  static constexpr int DO = Q + T::TILE;
-  static constexpr int K = DO + T::TILE;
-  static constexpr int V = K + T::TILE;
-  static constexpr int S = V + T::TILE;
-  static constexpr int DP = S + T::SCORE;
-  static constexpr int DS = DP + T::SCORE;
-  static constexpr int OUT = DS + T::PROB;
-  static constexpr int MASK = OUT + T::ACC;
-  static constexpr int BYTES = MASK + T::ROW;
+  static constexpr int DO = Q + CH * Q_BOX;
+  static constexpr int K = DO + CH * Q_BOX;        // stage s: K at K + 2 s KV_BYTES, V after it
+  static constexpr int MASK = K + STAGES * 2 * KV_BYTES;  // stage s: MASK_BOX ints of the mask
+  static constexpr int CNT = MASK + STAGES * MASK_SLOT;   // stage s: releases so far
+  static constexpr int BAR = (CNT + 4 * STAGES + 7) / 8 * 8;  // Q and dO, full[STAGES]
+  static constexpr int BYTES = BAR + (1 + STAGES) * 8 + ATOM;  // + slack to align
 };
 
-// rows [row0, row0 + 64) of a (.., L, .., D) operand into a shared tile,
-// zero-filling rows at or past `rows`; 16-byte loads along D
-template <int D>
-__device__ __forceinline__ void load_tile(bf16 *dst, const bf16 *src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < rows) val = rlaifv::load16(src + (row0 + r) * row_stride + c * 8);
-    *reinterpret_cast<uint4 *>(dst + r * Tiles<D>::LDQ + c * 8) = val;
-  }
-}
+struct Params {
+  const float *lse, *delta;  // (B, H, Lq)
+  bf16 *dq;                  // (B, Lq, H, D)
+  int B, H, KVH, Lq, Lk, n_qt, causal, q_offset;
+  float scale;
+};
 
-// out[16 x 64] (fp32, this warp's rows) = A[16 x D] . B[64 x D]^T, with A
-// and B row-major bf16 tiles in shared memory
+__host__ __device__ __forceinline__ int key_tiles(int end) { return (end + BK - 1) / BK; }
+
 template <int D>
-__device__ __forceinline__ void product_abt(float *out, const bf16 *a,
-                                            const bf16 *b) {
-  constexpr int LDQ = Tiles<D>::LDQ;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk, LDQ);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * LDQ + kk, LDQ);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+       const __grid_constant__ CUtensorMap map_mask, const Params p) {
+  using namespace rlaifv;
+  using L = Smem<D>;
+  constexpr int CH = L::CH, STAGES = L::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (saddr(smem_raw) + ATOM - 1) / ATOM * ATOM;
+  unsigned char *smem = smem_raw + (base - saddr(smem_raw));
+  const int *s_mask = reinterpret_cast<const int *>(smem + L::MASK);  // stage s at s MASK_SLOT / 4
+  int *s_cnt = reinterpret_cast<int *>(smem + L::CNT);
+  const uint32_t bar_q = base + L::BAR, full = bar_q + 8;
+
+  // longest first: with causal masking the last query tiles see the most keys
+  const int hb = blockIdx.x % (p.B * p.H);
+  const int qt = blockIdx.x / (p.B * p.H);
+  const int q0 = (p.causal ? p.n_qt - 1 - qt : qt) * BQ;
+  const int h = hb % p.H, b = hb / p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int n_tiles = key_tiles(p.causal ? min(p.Lk, p.q_offset + min(q0 + BQ, p.Lq)) : p.Lk);
+
+  if (threadIdx.x == 0) {
+    bar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      s_cnt[s] = 0;
     }
+    bar_init_fence();
   }
+  __syncthreads();
+
+  // key tile t into its stage: K, V and the tile's mask ints (of batch row
+  // b; past Lk they belong to the next row or read 0, and are masked)
+  auto load_tile = [&](int t) {
+    const int s = t % STAGES, k0 = t * BK;
+    const uint32_t kb = base + L::K + s * 2 * L::KV_BYTES, vb = kb + L::KV_BYTES;
+    const uint32_t bar = full + 8 * s;
+    bar_expect(bar, 2 * L::KV_BYTES + MASK_BOX * 4);
 #pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], Tiles<D>::LDS,
-                            wmma::mem_row_major);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16 *__restrict__ q, const bf16 *__restrict__ k,
-                    const bf16 *__restrict__ v, const int *__restrict__ mask,
-                    const bf16 *__restrict__ dout,
-                    const float *__restrict__ lse,
-                    const float *__restrict__ delta, bf16 *__restrict__ dq,
-                    int H, int KVH, int Lq, int Lk, Strides st, int causal,
-                    int q_offset, float scale) {
-  using Lay = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16 *sQ = reinterpret_cast<bf16 *>(smem + Lay::Q);
-  bf16 *sDO = reinterpret_cast<bf16 *>(smem + Lay::DO);
-  bf16 *sK = reinterpret_cast<bf16 *>(smem + Lay::K);
-  bf16 *sV = reinterpret_cast<bf16 *>(smem + Lay::V);
-  float *sS = reinterpret_cast<float *>(smem + Lay::S);
-  float *sDP = reinterpret_cast<float *>(smem + Lay::DP);
-  bf16 *sDS = reinterpret_cast<bf16 *>(smem + Lay::DS);
-  float *sOut = reinterpret_cast<float *>(smem + Lay::OUT);
-  int *sMask = reinterpret_cast<int *>(smem + Lay::MASK);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  load_tile<D>(sQ, q + b * st.qb + h * st.qh, st.ql, q0, Lq);
-  load_tile<D>(sDO, dout + b * st.ob + h * st.oh, st.ol, q0, Lq);
-
-  // lanes 2i and 2i+1 share query row warp*16 + i, 32 columns each
-  const int row = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int qi = q0 + row;
-  const bool row_ok = qi < Lq;
-  const long long stat = ((long long)b * H + h) * Lq + qi;
-  const float lse_r = row_ok ? lse[stat] : 0.f;
-  const float delta_r = row_ok ? delta[stat] : 0.f;
-  const int qpos = q_offset + qi;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(kb + c * L::KV_BOX, &map_k, 64 * c, k0, kvh, b, bar);
+      tma_load_4d(vb + c * L::KV_BOX, &map_v, 64 * c, k0, kvh, b, bar);
+    }
+    tma_load_1d(base + L::MASK + s * MASK_SLOT, &map_mask, (b * p.Lk + k0) & ~3, bar);
+  };
+  // this warpgroup is done with tile t's stage: the second warpgroup to say
+  // so refills it with tile t + STAGES
+  auto release = [&](int t) {
+    if (threadIdx.x % 128 == 0 && (atomicAdd(s_cnt + t % STAGES, 1) & 1) &&
+        t + STAGES < n_tiles)
+      load_tile(t + STAGES);
+  };
+  if (threadIdx.x == 0) {
+    bar_expect(bar_q, 2 * CH * L::Q_BOX);
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(base + L::Q + c * L::Q_BOX, &map_q, 64 * c, q0, h, b, bar_q);
+      tma_load_4d(base + L::DO + c * L::Q_BOX, &map_do, 64 * c, q0, h, b, bar_q);
+    }
+    for (int t = 0; t < min(STAGES, n_tiles); ++t) load_tile(t);
+  }
 
-  // keys past the tile's last query position are never read
-  int kv_end = Lk;
-  if (causal) kv_end = min(Lk, q_offset + min(q0 + BQ, Lq));
+  // a consumer warpgroup: rows r_wg .. r_wg + 63 of the tile; this thread
+  // holds rows row0 and row0 + 8 (hh = 0, 1) at columns 8 j + 2 (lane % 4) + {0, 1}
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % 4;
+  const int wg = warp / 4;
+  const int r_wg = q0 + 64 * wg;
+  const int row0 = r_wg + 16 * (warp % 4) + lane / 4;
+  int n_wg = 0;  // the key tiles this warpgroup reads: up to its own causal end
+  if (r_wg < p.Lq)
+    n_wg = p.causal ? key_tiles(min(p.Lk, p.q_offset + min(r_wg + 64, p.Lq))) : n_tiles;
+  // this thread's rows' lse (in log2 units) and delta; rows at or past Lq
+  // read zeros (TMA zero-fills their Q and dO: dS = 0) and are never written
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.Lq + row;
+    lse2[hh] = row < p.Lq ? p.lse[at] * LOG2E : 0.f;
+    dlt[hh] = row < p.Lq ? p.delta[at] : 0.f;
+  }
+  const float c = p.scale * LOG2E;  // scores in log2 units
+  float acc[D / 2], sc[BK / 2], dp[BK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  fence_acc(acc);  // the zeros land before the first product's fence
+  uint32_t da[BK / 16][4];  // dS in bf16, wgmma's A fragments
 
-  const bf16 *kb = k + b * st.kb + kvh * st.kh;
-  const bf16 *vb = v + b * st.vb + kvh * st.vh;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D>(sK, kb, st.kl, k0, Lk);
-    load_tile<D>(sV, vb, st.vl, k0, Lk);
-    for (int j = threadIdx.x; j < BK; j += NTHREADS)
-      sMask[j] = (k0 + j < Lk) ? mask[(long long)b * Lk + k0 + j] : 0;
-    __syncthreads();
+  const uint32_t qa = base + L::Q + wg * 64 * 128, doa = base + L::DO + wg * 64 * 128;
+  bar_wait(bar_q, 0);
+  int pending = -1;  // the tile whose dQ product is in flight
+  for (int t = 0; t < n_wg; ++t) {
+    const int s = t % STAGES;
+    bar_wait(full + 8 * s, (t / STAGES) & 1);
+    const uint32_t kb = base + L::K + s * 2 * L::KV_BYTES, vb = kb + L::KV_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_ss<BK>(sc, gmma_desc(qa + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, ATOM),
+                        gmma_desc(kb + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, ATOM),
+                        kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_ss<BK>(dp, gmma_desc(doa + (kk / 4) * L::Q_BOX + (kk % 4) * 32, 16, ATOM),
+                        gmma_desc(vb + (kk / 4) * L::KV_BOX + (kk % 4) * 32, 16, ATOM),
+                        kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();  // S and dP of this tile, dQ of the last one
+    fence_acc(acc);
+    fence_acc(sc);
+    fence_acc(dp);
+    if (pending >= 0) release(pending);
 
-    const int wrow = warp * 16;
-    product_abt<D>(sS + wrow * Tiles<D>::LDS, sQ + wrow * Tiles<D>::LDQ, sK);
-    product_abt<D>(sDP + wrow * Tiles<D>::LDS, sDO + wrow * Tiles<D>::LDQ, sV);
-    __syncwarp();
-
-    // dS = P o (dP - delta) * scale, P = exp(S * scale - lse)
-    {
-      const float *srow = sS + row * Tiles<D>::LDS;
-      const float *dprow = sDP + row * Tiles<D>::LDS;
-      bf16 *dsrow = sDS + row * Tiles<D>::LDP;
-#pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = 2 * j + half;
-        const bool ok = row_ok && sMask[c] != 0 && (!causal || k0 + c <= qpos);
-        const float p = ok ? expf(srow[c] * scale - lse_r) : 0.f;
-        dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r) * scale);
+    // a warp's vote: every key of the tile lies before Lk and has mask 1
+    const int k0 = t * BK;
+    const int *km = s_mask + s * (MASK_SLOT / 4) + ((b * p.Lk + k0) & 3);
+    const bool all_live =
+        k0 + 2 * lane + 1 < p.Lk && km[2 * lane] != 0 && km[2 * lane + 1] != 0;
+    const bool keyed = !__all_sync(0xffffffffu, all_live);
+    const bool on_diagonal = p.causal && k0 + BK - 1 > p.q_offset + r_wg;
+    // dS = P (dP - delta) scale, P = exp(S scale - lse), masked, straight
+    // into the A fragments: register 8 ks + 2 r + e of S and dP holds row
+    // row0 + 8 (r & 1), column 16 ks + 8 (r >> 1) + 2 (lane % 4) + e. No
+    // plain code writes the accumulators (ptxas would serialise the products)
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int hh = r & 1;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 8 * ks + 2 * r + e, col = 16 * ks + 8 * (r >> 1) + 2 * tq + e;
+          const bool ok = (!keyed || (k0 + col < p.Lk && km[col] != 0)) &&
+                          (!on_diagonal || k0 + col <= p.q_offset + row0 + 8 * hh);
+          const float pv = ok ? exp2_approx(fmaf(sc[i], c, -lse2[hh])) : 0.f;
+          ds[e] = pv * (dp[i] - dlt[hh]) * p.scale;
+        }
+        da[ks][r] = pack_bf16(ds[0], ds[1]);
       }
-    }
-    __syncwarp();
 
-    // dq += dS K for this warp's 16 rows
+    // dQ += dS K, K read as it lies (MN-major)
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sDS + wrow * Tiles<D>::LDP + kk, Tiles<D>::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sK + kk * Tiles<D>::LDQ + n * 16, Tiles<D>::LDQ);
-        wmma::mma_sync(acc[n], fa, fb, acc[n]);
-      }
-    }
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_bf16_rs<D, 1>(acc, da[ks], gmma_desc(kb + ks * 2 * ATOM, L::KV_BOX, ATOM));
+    wgmma_commit();
+    pending = t;
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (pending >= 0) release(pending);
+  // the tiles past this warpgroup's causal end: released once they have landed
+  for (int t = n_wg; t < n_tiles; ++t) {
+    bar_wait(full + 8 * (t % STAGES), (t / STAGES) & 1);
+    release(t);
   }
 
-  float *orow_base = sOut + warp * 16 * Tiles<D>::LDA;
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(orow_base + n * 16, acc[n], Tiles<D>::LDA,
-                            wmma::mem_row_major);
-  __syncwarp();
-  if (row_ok) {
-    const float *orow = sOut + row * Tiles<D>::LDA;
-    bf16 *dst = dq + (((long long)b * Lq + qi) * H + h) * D;
-#pragma unroll 8
-    for (int j = 0; j < D / 2; ++j) {
-      const int c = 2 * j + half;
-      dst[c] = __float2bfloat16(orow[c]);
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= p.Lq) continue;
+    bf16 *dst = p.dq + ((static_cast<long long>(b) * p.Lq + row) * p.H + h) * D + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162 *>(dst + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
   }
 }
+
+template <int D>
+cudaError_t launch(const CUtensorMap (&maps)[5], const Params &p, cudaStream_t stream) {
+  constexpr int bytes = Smem<D>::BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<D><<<p.n_qt * p.H * p.B, THREADS, bytes, stream>>>(maps[0], maps[1], maps[2],
+                                                             maps[3], maps[4], p);
+  return cudaGetLastError();
+}
+
+}  // namespace dq
 
 // ---- dk/dv: TMA + wgmma, the sums in registers
 
@@ -488,21 +533,6 @@ cudaError_t launch(const CUtensorMap (&maps)[6], const Params &p, cudaStream_t s
 
 }  // namespace dkv
 
-template <int D>
-cudaError_t launch_dq(const bf16 *q, const bf16 *k, const bf16 *v, const int *mask,
-                      const bf16 *dout, const float *lse, const float *delta, bf16 *dq, int B,
-                      int H, int KVH, int Lq, int Lk, const Strides &st, int causal,
-                      int q_offset, float scale, cudaStream_t stream) {
-  constexpr int bytes = DqLayout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Lq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, mask, dout, lse, delta, dq, H, KVH, Lq, Lk, st, causal, q_offset, scale);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int B, int H, int KVH, int Lq, int Lk, int D, int q_offset) {
   return B <= 0 || KVH <= 0 || H % KVH != 0 || Lq <= 0 || Lk <= 0 || q_offset < 0 ||
          (D != 64 && D != 128);
@@ -511,35 +541,36 @@ bool bad_shape(int B, int H, int KVH, int Lq, int Lk, int D, int q_offset) {
 }  // namespace
 
 // q (B, Lq, H, D), k/v (B, Lk, KVH, D), dout (B, Lq, H, D) bf16 with unit
-// stride along D and the given element strides for (batch, position, head);
-// mask (B, Lk) int32; lse and delta (B, H, Lq) fp32 contiguous; dq
-// (B, Lq, H, D) bf16 contiguous.
+// stride along D, the given element strides for (batch, position, head)
+// (each a positive multiple of 8: TMA tensor maps take no stride 0) and
+// 16-byte aligned bases; mask (B, Lk) int32, 16-byte aligned; lse and delta
+// (B, H, Lq) fp32 contiguous; dq (B, Lq, H, D) bf16 contiguous.
 extern "C" int flash_attention_bwd_dq_bf16(
     const void *q, const void *k, const void *v, const void *mask,
-    const void *dout, const void *lse, const void *delta, void *dq, int B,
+    const void *dout, const void *lse, const void *delta, void *dq_out, int B,
     int H, int KVH, int Lq, int Lk, int D, int qsb, int qsl, int qsh, int ksb,
     int ksl, int ksh, int vsb, int vsl, int vsh, int osb, int osl, int osh,
     int causal, int q_offset, float scale, void *stream) {
-  if (dq == nullptr || bad_shape(B, H, KVH, Lq, Lk, D, q_offset)) return cudaErrorInvalidValue;
-  const Strides st{qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, osb, osl, osh};
-  const auto *qp = static_cast<const bf16 *>(q);
-  const auto *kp = static_cast<const bf16 *>(k);
-  const auto *vp = static_cast<const bf16 *>(v);
-  const auto *mp = static_cast<const int *>(mask);
-  const auto *op = static_cast<const bf16 *>(dout);
-  const auto *lp = static_cast<const float *>(lse);
-  const auto *dp = static_cast<const float *>(delta);
-  auto *dqp = static_cast<bf16 *>(dq);
+  if (dq_out == nullptr || bad_shape(B, H, KVH, Lq, Lk, D, q_offset))
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[5];
+  using rlaifv::attention_map;
+  if (!attention_map(&maps[0], q, B, Lq, H, D, qsb, qsl, qsh, dq::BQ) ||
+      !attention_map(&maps[1], k, B, Lk, KVH, D, ksb, ksl, ksh, dq::BK) ||
+      !attention_map(&maps[2], v, B, Lk, KVH, D, vsb, vsl, vsh, dq::BK) ||
+      !attention_map(&maps[3], dout, B, Lq, H, D, osb, osl, osh, dq::BQ) ||
+      !rlaifv::tensor_map_1d(&maps[4], CU_TENSOR_MAP_DATA_TYPE_INT32, mask,
+                             static_cast<long long>(B) * Lk, dq::MASK_BOX))
+    return cudaErrorInvalidValue;
+  const dq::Params p{static_cast<const float *>(lse), static_cast<const float *>(delta),
+                     static_cast<bf16 *>(dq_out), B, H, KVH, Lq, Lk,
+                     (Lq + dq::BQ - 1) / dq::BQ, causal, q_offset, scale};
   auto stm = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dq<64>(qp, kp, vp, mp, op, lp, dp, dqp, B, H, KVH, Lq, Lk, st, causal,
-                                 q_offset, scale, stm)
-                 : launch_dq<128>(qp, kp, vp, mp, op, lp, dp, dqp, B, H, KVH, Lq, Lk, st,
-                                  causal, q_offset, scale, stm);
+  return D == 64 ? dq::launch<64>(maps, p, stm) : dq::launch<128>(maps, p, stm);
 }
 
-// as above (q, k, v and dout with strides that are multiples of 8 elements
-// and 16-byte aligned bases); dk and dv (B, Lk, KVH, D) bf16 contiguous,
-// each the sum over the n_rep = H / KVH query heads of its kv head
+// as above; dk and dv (B, Lk, KVH, D) bf16 contiguous, each the sum over the
+// n_rep = H / KVH query heads of its kv head
 extern "C" int flash_attention_bwd_dkv_bf16(
     const void *q, const void *k, const void *v, const void *mask,
     const void *dout, const void *lse, const void *delta, void *dk, void *dv,

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of this
 // directory (fused_head.cu, quant_matmul.cu, int4_matmul.cu,
 // flash_attention.cu, flash_attention_bwd.cu): mbarriers, 1D/2D/4D TMA
-// loads, wgmma shared-memory descriptors, fences and the bf16 products of
-// the attention kernels, and the tensor-map encoders looked up through the
-// CUDA runtime (no -lcuda).
+// loads, wgmma shared-memory descriptors, fences, the int8 products (n128
+// and n256) and the bf16 products of the attention kernels, and the
+// tensor-map encoders looked up through the CUDA runtime (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode function's types only
@@ -172,6 +172,34 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 256 int32) += A (64 x 32) B^T, as wgmma_s8_ss at twice the width:
+// register i of a thread holds row 16 (warp % 4) + lane / 4 + 8 ((i >> 1) &
+// 1) and column 8 (i >> 2) + 2 (lane % 4) + (i & 1), i < 128
+#define RLAIFV_I8(d, i)                                                                 \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]),          \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define RLAIFV_I32(d, i) RLAIFV_I8(d, i), RLAIFV_I8(d, i + 8), RLAIFV_I8(d, i + 16), \
+                         RLAIFV_I8(d, i + 24)
+#define RLAIFV_R128                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "     \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "     \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "     \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "     \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+  "%124, %125, %126, %127}"
+
+__device__ __forceinline__ void wgmma_s8_ss256(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " RLAIFV_R128
+      ", %128, %129, p;\n}\n"
+      : RLAIFV_I32(d, 0), RLAIFV_I32(d, 32), RLAIFV_I32(d, 64), RLAIFV_I32(d, 96)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // The bf16 products of the attention kernels: d (64 x N fp32, this
 // warpgroup's registers; register i of a thread holds row 16 (warp % 4) +
 // lane / 4 + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 (lane % 4) + (i & 1))
@@ -254,9 +282,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 
 // keeps the compiler from moving reads of the accumulators across the
 // asynchronous products
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap *, CUtensorMapDataType, cuuint32_t, void *,

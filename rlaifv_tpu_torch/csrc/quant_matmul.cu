@@ -25,14 +25,15 @@
 // against K N + M (K + N) bytes), the weight bytes at small M (M < 128, each
 // q byte is used by only M rows).
 //
-// What the design does about it (#7, #9, #10; #8 in qdx below): each CTA
-// owns a 128 x 128 output tile and walks the contraction in 64-wide chunks
-// through two shared-memory stages
+// What the design does about it (#7, #9, and #10 on rows TMA cannot map;
+// #8 and #10 in qdx below): each CTA owns a 128 x 128 output tile and walks
+// the contraction in 64-wide chunks through two shared-memory stages
 // (cp.async for int8 operands), 8 warps each issuing mma.sync m16n8k32
 // s8 x s8 -> s32 on a 32 x 64 sub-tile. The int8 mma takes both operands
 // contraction-contiguous (.row.col):
 // - dx contracts over N, and a row of q (K, N) is already N-contiguous: q
-//   tiles load as they lie, no q^T anywhere;
+//   tiles load as they lie, no q^T anywhere (#10 takes this kernel only on
+//   rows a TMA tensor map cannot read: N % 16 != 0 or an unaligned base);
 // - the forward contracts over K, so each (64 K-rows x 128 N) q tile is
 //   staged as it lies (16-byte chunks XOR-swizzled across banks) and
 //   transposed in shared memory with byte permutes into a K-contiguous
@@ -484,6 +485,153 @@ int launch_product(const void *dyq, const void *sy, const void *q, void *dx, voi
   return cudaGetLastError();
 }
 
+// dx_product over `split` slices, then (split > 1) dx_finish
+int split_product(const void *dyq, const void *sy, const void *q, void *dx, void *part, int M,
+                  int K, int N, int split, cudaStream_t st) {
+  const int e = M <= 64 ? launch_product<1>(dyq, sy, q, dx, part, M, K, N, split, st)
+                        : launch_product<2>(dyq, sy, q, dx, part, M, K, N, split, st);
+  if (e != cudaSuccess || split == 1) return e;
+  const long long MK = static_cast<long long>(M) * K;
+  const int blocks = static_cast<int>(std::min<long long>((MK + 255) / 256, 4096));
+  dx_finish<<<blocks, 256, 0, st>>>(static_cast<const int *>(part),
+                                    static_cast<const float *>(sy), static_cast<bf16 *>(dx),
+                                    M, K, split);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- #10's wide tile, large M
+//
+// dx_wide: dyq . q^T for rows enough to fill the card with 128 x 256 output
+// tiles (QLoRA's prefix and suffix rows, M ~ 4-6k): 2 M K N int8 operations
+// against M N + K N + 2 M K bytes, bound by the tensor cores, whose int8
+// peak needs about 170 operations a byte moved into shared memory. A CTA of
+// two consumer warpgroups owns rows [m0, m0 + 128) and output columns (rows
+// of q) [k0, k0 + 256); each warpgroup runs wgmma m64n256k32 s8 x s8 -> s32
+// on its 64 rows into a 128-register int32 accumulator, which reads 384
+// bytes of the stage for 64 K operations of a warpgroup: 2x the operations a
+// byte of the 128 x 128 tile. Both operands K-major as they lie (the
+// contraction N is contiguous in dyq's rows and in q's), fed by TMA through
+// a 4-stage ring of 128-byte-swizzled 128-byte contraction chunks (48 KB a
+// stage). No producer warp: the warpgroup that releases a stage second
+// refills it (a counter a stage), so every thread may hold 255 registers.
+// The grid is rastered in groups of GROUP_M row tiles, column tiles inside
+// a group, so the CTAs of a wave share their q tiles in L2. The epilogue is
+// #8's: bf16(float(acc) * sy), rows past M and columns past K not written.
+// Rows too few to fill the card with these tiles (one QLoRA pair's 768
+// prefix rows at K 4096 give 96) take #8's split product and dx_finish on
+// the prequantised rows instead (ops/quant_matmul.py:dx_prequant_plan).
+constexpr int WM = 128;       // rows of dyq a CTA owns: 64 for each consumer warpgroup
+constexpr int WN = 256;       // output columns (rows of q) a CTA owns
+constexpr int WSTAGES = 4;
+constexpr int WTHREADS = 256;
+constexpr int GROUP_M = 16;   // row tiles of a raster group
+constexpr int WA_BYTES = WM * TC;
+constexpr int WSTAGE_BYTES = WA_BYTES + WN * TC;
+constexpr int WSMEM = WSTAGES * WSTAGE_BYTES + WSTAGES * 8 + 4 * WSTAGES + ATOM;
+
+__global__ void __launch_bounds__(WTHREADS, 1)
+    dx_wide(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            const float *__restrict__ sy, bf16 *__restrict__ dx, int M, int K, int N) {
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  const uint32_t tiles = (saddr(smem_wide) + ATOM - 1) / ATOM * ATOM;
+  const uint32_t full = tiles + WSTAGES * WSTAGE_BYTES;
+  int *s_cnt = reinterpret_cast<int *>(smem_wide + (full + WSTAGES * 8 - saddr(smem_wide)));
+  // the raster: groups of GROUP_M row tiles, the row tile fastest inside one
+  const int tiles_m = (M + WM - 1) / WM, tiles_k = (K + WN - 1) / WN;
+  const int group = blockIdx.x / (GROUP_M * tiles_k);
+  const int first = group * GROUP_M, in = blockIdx.x % (GROUP_M * tiles_k);
+  const int gm = min(GROUP_M, tiles_m - first);
+  const int m0 = (first + in % gm) * WM, k0 = in / gm * WN;
+  const int nc = (N + TC - 1) / TC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      bar_init(full + 8 * s, 1);
+      s_cnt[s] = 0;
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  // contraction chunk c into its stage: dyq rows, then q rows
+  auto load = [&](int c) {
+    const int s = c % WSTAGES;
+    const uint32_t a = tiles + s * WSTAGE_BYTES, bar = full + 8 * s;
+    bar_expect(bar, WSTAGE_BYTES);
+    tma_load(a, &map_a, c * TC, m0, bar);
+    tma_load(a + WA_BYTES, &map_b, c * TC, k0, bar);
+  };
+  // this warpgroup is done with chunk c's stage: the second warpgroup to say
+  // so refills it with chunk c + WSTAGES
+  auto release = [&](int c) {
+    if (threadIdx.x % 128 == 0 && (atomicAdd(s_cnt + c % WSTAGES, 1) & 1) && c + WSTAGES < nc)
+      load(c + WSTAGES);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < min(WSTAGES, nc); ++c) load(c);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4;
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  for (int c = 0; c < nc; ++c) {
+    const int s = c % WSTAGES;
+    bar_wait(full + 8 * s, (c / WSTAGES) & 1);
+    const uint32_t a = tiles + s * WSTAGE_BYTES + wg * 64 * TC;
+    const uint32_t b = tiles + s * WSTAGE_BYTES + WA_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TC / 32; ++kk)
+      wgmma_s8_ss256(acc, gmma_desc(a + kk * 32, 16, ATOM), gmma_desc(b + kk * 32, 16, ATOM));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done: release its stage
+    if (c > 0) release(c - 1);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // register i: row r0 + 8 ((i >> 1) & 1), column cl + 8 (i >> 2) + (i & 1)
+  const int r0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int cl = k0 + 2 * (lane % 4);
+  const bool pairs = K % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= M) continue;
+    const float row_scale = sy[row];
+    bf16 *orow = dx + static_cast<long long>(row) * K;
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j) {
+      const int col = cl + 8 * j;
+      const float f0 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), row_scale);
+      const float f1 = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), row_scale);
+      if (pairs && col + 1 < K) {
+        *reinterpret_cast<__nv_bfloat162 *>(orow + col) = __floats2bfloat162_rn(f0, f1);
+      } else {
+        if (col < K) orow[col] = __float2bfloat16_rn(f0);
+        if (col + 1 < K) orow[col + 1] = __float2bfloat16_rn(f1);
+      }
+    }
+  }
+}
+
+int launch_wide(const void *dyq, const void *sy, const void *q, void *dx, int M, int K, int N,
+                cudaStream_t stream) {
+  CUtensorMap ma, mb;
+  if (!tensor_map_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, dyq, M, N, N, TC, WM,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, N, TC, WN,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void *>(dx_wide),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = (M + WM - 1) / WM * ((K + WN - 1) / WN);
+  dx_wide<<<grid, WTHREADS, WSMEM, stream>>>(ma, mb, static_cast<const float *>(sy),
+                                              static_cast<bf16 *>(dx), M, K, N);
+  return cudaGetLastError();
+}
+
 }  // namespace qdx
 
 }  // namespace
@@ -510,17 +658,9 @@ extern "C" int int8_matmul_dx_bf16(const void *dy, const void *q, const void *s,
                                        static_cast<int8_t *>(dyq), static_cast<float *>(sy), N);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (!tma)  // rows TMA cannot map: #10's kernel on the quantised rows
+  if (!tma)  // rows TMA cannot map: the cp.async kernel on the quantised rows
     return launch<false, true>(dyq, sy, q, nullptr, dx, M, K, N, stream);
-  const int e = M <= 64 ? qdx::launch_product<1>(dyq, sy, q, dx, part, M, K, N, split, st)
-                        : qdx::launch_product<2>(dyq, sy, q, dx, part, M, K, N, split, st);
-  if (e != cudaSuccess || split == 1) return e;
-  const long long MK = static_cast<long long>(M) * K;
-  const int blocks = static_cast<int>(std::min<long long>((MK + 255) / 256, 4096));
-  qdx::dx_finish<<<blocks, 256, 0, st>>>(static_cast<const int *>(part),
-                                        static_cast<const float *>(sy),
-                                        static_cast<bf16 *>(dx), M, K, split);
-  return cudaGetLastError();
+  return qdx::split_product(dyq, sy, q, dx, part, M, K, N, split, st);
 }
 
 // #9: xq (M, K) int8, sx (M,) fp32, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16
@@ -530,8 +670,24 @@ extern "C" int int8_matmul_prequant_bf16(const void *xq, const void *sx, const v
   return launch<true, true>(xq, sx, q, s, out, M, K, N, stream);
 }
 
-// #10: dyq (M, N) int8, sy (M,) fp32, q (K, N) int8 -> dx (M, K) bf16
+// #10: dyq (M, N) int8, sy (M,) fp32, q (K, N) int8 -> dx (M, K) bf16 by
+// the route ops/quant_matmul.py:dx_prequant_plan picks: 0 the cp.async
+// kernel (rows TMA cannot map: N % 16 != 0, or dyq or q off 16 bytes), 1
+// the wide tile (split 1), 2 #8's product over `split` slices of the N
+// contraction (part (split, M, K) int32 scratch with split > 1) and the sum
+// of their partials. A route TMA cannot take, or a split out of [1, ceil(N /
+// 128)], is refused.
 extern "C" int int8_matmul_dx_prequant_bf16(const void *dyq, const void *sy, const void *q,
-                                            void *dx, int M, int K, int N, void *stream) {
-  return launch<false, true>(dyq, sy, q, nullptr, dx, M, K, N, stream);
+                                            void *part, void *dx, int M, int K, int N,
+                                            int route, int split, void *stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool tma = N % 16 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(dyq) & 15) == 0;
+  if (M <= 0 || K <= 0 || N <= 0 || route < 0 || route > 2 || (route > 0 && !tma) ||
+      split < 1 || split > (N + qdx::TC - 1) / qdx::TC || (route != 2 && split != 1) ||
+      (split > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  if (route == 0) return launch<false, true>(dyq, sy, q, nullptr, dx, M, K, N, stream);
+  if (route == 1) return qdx::launch_wide(dyq, sy, q, dx, M, K, N, st);
+  return qdx::split_product(dyq, sy, q, dx, part, M, K, N, split, st);
 }

@@ -69,8 +69,8 @@ SIGNATURES = {
     "int8_matmul_dx_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # xq, sx, q, s, out, M, K, N, stream
     "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 3 + [_P],
-    # dyq, sy, q, dx, M, K, N, stream
-    "int8_matmul_dx_prequant_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # dyq, sy, q, part, dx, M, K, N, route, split, stream
+    "int8_matmul_dx_prequant_bf16": [_P] * 5 + [_I] * 5 + [_P],
     # xq, sx, qp, gs, out, M, K, N, G, stream
     "int4_matmul_bf16": [_P] * 5 + [_I] * 4 + [_P],
     # dy, qp, gs, amax, dx, M, K, N, G, stream

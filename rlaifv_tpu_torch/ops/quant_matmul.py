@@ -13,7 +13,9 @@ x (..., K), q (K, N) int8, scale (N,) fp32 per output channel.
   whose exact int32 partials are summed in order (`int8_dx_split_plain`);
 - `int8_matmul_prequant` (#9), `int8_matmul_dx_prequant` (#10): the same
   functions with the rows quantised beforehand, in torch (as XLA does it
-  outside Pallas in the JAX package), and a pure int8 product kernel.
+  outside Pallas in the JAX package), and a pure int8 product kernel; #10
+  takes the route `dx_prequant_plan` picks (a wide TMA + wgmma tile where
+  its tiles fill the card, #8's split product where they do not).
 
 The kernels live in csrc/quant_matmul.cu. Each entry point launches its
 kernel for a CUDA tensor (bf16 activations; anything else raises) and runs
@@ -34,7 +36,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -118,6 +120,41 @@ def dx_launches(split: int) -> int:
     """Kernel launches of one #8 call: the row pass, the product and, with
     more than one slice, the pass that sums them."""
     return 2 + (split > 1)
+
+
+# kernel #10's wide tile (csrc/quant_matmul.cu, qdx::dx_wide): rows of dyq
+# and output columns (rows of q) a CTA owns
+WIDE_TILE = (128, 256)
+# the C entry's route codes
+DX_ROUTES = {"rows": 0, "wide": 1, "split": 2}
+
+
+class DxPlan(NamedTuple):
+    """How one kernel #10 call runs: `route` ("wide", "split" or "rows"),
+    the output `tile` (rows, columns) a CTA owns, the N contraction's
+    `split` and the kernels the call `launches`."""
+    route: str
+    tile: Tuple[int, int]
+    split: int
+    launches: int
+
+
+def dx_prequant_plan(M: int, K: int, N: int, sms: int, tma: bool = True) -> DxPlan:
+    """Kernel #10's route on dyq (M, N), q (K, N):
+    - "rows": rows a TMA tensor map cannot read (N % 16 != 0, or dyq or q
+      off 16 bytes) take the cp.async kernel, 128 x 128 tiles, one launch;
+    - "wide": the 128 x 256 tile at split 1 where its tiles fill the card
+      (at least one a streaming multiprocessor): QLoRA's prefix and suffix
+      rows;
+    - "split": fewer rows take #8's product on the prequantised rows, its
+      N contraction in `dx_split` slices, and the pass that sums them."""
+    if not tma or N % 16:
+        return DxPlan("rows", (128, 128), 1, 1)
+    rows, cols = WIDE_TILE
+    if -(-M // rows) * -(-K // cols) >= sms:
+        return DxPlan("wide", WIDE_TILE, 1, 1)
+    split = dx_split(M, K, N, sms)
+    return DxPlan("split", (64 if M <= 64 else 128, DX_TILE), split, 1 + (split > 1))
 
 
 def int8_dx_split_plain(dyq, sy, q, split: int) -> torch.Tensor:
@@ -212,14 +249,21 @@ def _kernel_prequant(xq, sx, q, scale) -> torch.Tensor:
 
 
 def _kernel_dx_prequant(dyq, sy, q) -> torch.Tensor:
-    """Kernel #10 on dyq (M, N) int8, sy (M,) fp32 -> (M, K) bf16."""
+    """Kernel #10 on dyq (M, N) int8, sy (M,) fp32 -> (M, K) bf16, by the
+    route `dx_prequant_plan` picks."""
     M, N = dyq.shape
     K = q.shape[0]
     _check("int8_matmul_dx_prequant", dyq, torch.int8, q, sy=(sy, M))
     if q.shape[1] != N:
         raise ValueError(f"int8_matmul_dx_prequant: dyq (M, {N}) against q {tuple(q.shape)}")
-    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dyq.device)
-    _launch("int8_matmul_dx_prequant_bf16", dyq, sy, q, dx, M, K, N)
+    dev = dyq.device
+    plan = dx_prequant_plan(M, K, N, _sms(dev.index or 0),
+                            q.data_ptr() % 16 == 0 and dyq.data_ptr() % 16 == 0)
+    part = torch.empty((plan.split, M, K), dtype=torch.int32, device=dev) \
+        if plan.split > 1 else None
+    dx = torch.empty((M, K), dtype=torch.bfloat16, device=dev)
+    _launch("int8_matmul_dx_prequant_bf16", dyq, sy, q, part, dx, M, K, N,
+            DX_ROUTES[plan.route], plan.split)
     int8_matmul_dx_prequant.launches += 1
     return dx
 

@@ -178,6 +178,10 @@ def _close_grad(got, ref):
     (2, 129, 255, 8, 1, 128, True, 126),
     (1, 255, 127, 4, 4, 128, False, 0),
     (2, 577, 577, 16, 16, 64, False, 0),   # more steps than ring stages, ragged rows
+    # the dq kernel's 128-row CTAs (two warpgroups of 64) and 64-key steps
+    (1, 383, 384, 4, 4, 128, True, 1),     # the last CTA's second warpgroup ragged
+    (1, 65, 193, 4, 2, 128, True, 128),    # one row past a warpgroup, a 1-key step
+    (2, 300, 640, 8, 2, 128, False, 0),    # 10 key steps through its 4 ring stages
 ])
 def test_flash_bwd_kernels_match_plain(gen, B, Lq, Lk, H, KVH, D, causal, q_offset):
     """dq and dk/dv kernels against flash_attention_bwd_ref on the same
@@ -764,6 +768,50 @@ def test_int8_dx_kernel_matches_twin_on_ties_and_reruns(gen, M, K, N):
     assert torch.equal(got, qm.int8_matmul_dx_prequant(dy, q, s))
     assert torch.equal(got_ties, qm.int8_matmul_dx_plain(tdy, q, ts[0]))
     assert torch.equal(qm.int8_matmul_dx(dy, q, s), got)
+
+
+@pytest.mark.parametrize("sms", [1, 132])  # at 1 every case TMA can map takes the wide tile
+@pytest.mark.parametrize("N", [1008, 1000])
+@pytest.mark.parametrize("K", [255, 256, 257])
+@pytest.mark.parametrize("M", [127, 128, 129, 257])
+def test_int8_dx_prequant_kernel_matches_twin_at_its_tiles_edges(gen, monkeypatch, M, K, N,
+                                                                 sms):
+    """Kernel #10 at the edges of its wide tile (128 rows x 256 output
+    columns) and 128-byte contraction chunks, on the route its plan picks
+    for `sms` streaming multiprocessors (the wide tile, #8's split product,
+    or the cp.async kernel where N % 16 != 0): equal to its twin and to #8
+    bit for bit, a rerun equal, one launch counted."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "_sms", lambda index: sms)
+    _, dy, q, s = _int8_case(gen, M, K, N)
+    dyq, sy = qm.quantize_rows(dy.float() * s)
+    plan = qm.dx_prequant_plan(M, K, N, sms)
+    assert plan.route == ("rows" if N % 16 else "wide" if sms == 1 else "split")
+    n0 = qm.int8_matmul_dx_prequant.launches
+    got = qm._kernel_dx_prequant(dyq, sy.reshape(-1), q)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul_dx_prequant.launches - n0 == 1
+    assert torch.equal(got, qm.int8_matmul_dx_plain(dy, q, s))
+    assert torch.equal(got, qm.int8_matmul_dx(dy, q, s))
+    assert torch.equal(qm._kernel_dx_prequant(dyq, sy.reshape(-1), q), got)
+
+
+@pytest.mark.parametrize("M,K,N,route,split", [
+    (128, 4096, 4096, "split", 5),     # the crossover: slices and their sum
+    (768, 4096, 11008, "split", 1),    # one pair's prefix rows: 6 x 16 wide tiles
+    (768, 11008, 4096, "wide", 1),
+    (4544, 4096, 11008, "wide", 1),    # the 8-pair step's suffix rows
+])
+def test_int8_dx_prequant_kernel_routes_at_train_rows(gen, M, K, N, route, split):
+    """#10 at QLoRA's row counts on the card's 132 SMs: the planned route,
+    equal to its twin bit for bit."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    plan = qm.dx_prequant_plan(M, K, N, qm._sms(0))
+    assert (plan.route, plan.split) == (route, split)
+    _, dy, q, s = _int8_case(gen, M, K, N)
+    assert torch.equal(qm.int8_matmul_dx_prequant(dy, q, s), qm.int8_matmul_dx_plain(dy, q, s))
 
 
 @pytest.mark.parametrize("M,K,N,G", [

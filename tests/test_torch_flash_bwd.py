@@ -81,7 +81,9 @@ def test_flash_grads_match_jax(case):
 
 
 # the redesigned Hopper kernels' tile edges (see tests/test_torch_attention.py
-# TILE_EDGES): B, Lq, Lk, H, KVH, D, causal, q_offset
+# TILE_EDGES): B, Lq, Lk, H, KVH, D, causal, q_offset. The dq kernel's CTAs
+# own 128 query rows (two warpgroups of 64) and step over 64 keys, the dk/dv
+# kernel's own 128 keys and step over 64 query rows.
 TILE_EDGES = [
     (1, 127, 127, 4, 1, 64, True, 0),      # n_rep 4
     (1, 128, 128, 8, 1, 64, True, 0),      # n_rep 8
@@ -90,6 +92,9 @@ TILE_EDGES = [
     (1, 200, 300, 2, 2, 64, True, 100),    # query tiles straddle q_offset
     (1, 129, 255, 4, 1, 64, True, 126),
     (1, 256, 256, 2, 1, 64, False, 0),     # bidirectional
+    (1, 383, 384, 2, 1, 64, True, 1),      # the last CTA's second warpgroup ragged
+    (1, 65, 193, 2, 2, 128, True, 128),    # one row past a warpgroup, a 1-key step
+    (1, 64, 321, 2, 1, 64, False, 0),      # the second warpgroup empty, 6 key steps
 ]
 
 

@@ -223,3 +223,61 @@ def test_dx_split_plan():
     assert tq.dx_split(16, 4096, 4104, 132) == 1        # N % 16 != 0
     assert tq.dx_split(16, 4096, 4096, 132, tma=False) == 1
     assert [tq.dx_launches(s) for s in (1, 2, 9)] == [2, 3, 3]
+
+
+# ------------------------------------------- kernel #10's routes and tile edges
+
+
+@pytest.mark.parametrize("M,K,N,tma,want", [
+    # 3d's 7B widths: below the crossover, the crossover, the short step's
+    # prefix (one pair, 768 rows), the 8-pair step's suffix and prefix rows
+    (16, 4096, 4096, True, ("split", (64, 128), 9, 2)),
+    (64, 4096, 11008, True, ("split", (64, 128), 9, 2)),
+    (127, 11008, 4096, True, ("split", (128, 128), 2, 2)),
+    (128, 4096, 4096, True, ("split", (128, 128), 5, 2)),
+    (768, 4096, 11008, True, ("split", (128, 128), 1, 1)),   # 6 x 16 wide tiles < 132
+    (768, 11008, 4096, True, ("wide", (128, 256), 1, 1)),    # 6 x 43
+    (4544, 4096, 11008, True, ("wide", (128, 256), 1, 1)),
+    (6144, 4096, 11008, True, ("wide", (128, 256), 1, 1)),
+    (6144, 11008, 4096, True, ("wide", (128, 256), 1, 1)),
+    # the fused widths at a decode and a prefill step, Llama3-8B's down_proj
+    (24, 4096, 22016, True, ("split", (64, 128), 9, 2)),
+    (21504, 4096, 12288, True, ("wide", (128, 256), 1, 1)),
+    (128, 14336, 4096, True, ("split", (128, 128), 2, 2)),
+    # rows a TMA tensor map cannot read: the cp.async kernel, one launch
+    (512, 4096, 1000, True, ("rows", (128, 128), 1, 1)),
+    (6144, 4096, 11008, False, ("rows", (128, 128), 1, 1)),
+])
+def test_dx_prequant_plan(M, K, N, tma, want):
+    """#10 takes the 128 x 256 tile at split 1 where its tiles fill the 132
+    SMs (at least one each), #8's 128-column product split along N where
+    they do not (its `dx_split` slices; the summing pass only with more
+    than one), and the cp.async kernel on rows TMA cannot map."""
+    plan = tq.dx_prequant_plan(M, K, N, 132, tma)
+    assert tuple(plan) == want
+    if plan.route == "split":
+        assert plan.split == tq.dx_split(M, K, N, 132)
+        assert plan.launches == tq.dx_launches(plan.split) - 1  # no row pass
+
+
+@pytest.mark.parametrize("N", [1008, 1000])
+@pytest.mark.parametrize("K", [255, 256, 257])
+@pytest.mark.parametrize("M", [127, 128, 129, 257])
+def test_dx_prequant_twin_at_the_wide_tiles_edges_matches_jax(M, K, N):
+    """int8_matmul_dx_prequant's twin (CPU tensors) against the JAX #10 in
+    interpret mode, bit for bit, bf16, at the edges of the wide tile (128
+    rows x 256 output columns) and of its 128-byte contraction chunks (N
+    1008, and N 1000, which TMA cannot map); and, where the card's plan at
+    any SM count splits the contraction, #8's split product the same."""
+    _, (jdy, tdy), (jqw, js), (tqw, ts) = _inputs(7, M, K, N, "bf16")
+    got = tq.int8_matmul_dx_prequant(tdy, tqw, ts)
+    assert got.shape == (M, K) and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        _np(got), _np(jq.int8_matmul_dx_prequant(jdy, jqw, js, interpret=True)))
+    dyq, sy = tq.quantize_rows(tdy.float() * ts)
+    for sms in (1, 132):
+        plan = tq.dx_prequant_plan(M, K, N, sms)
+        assert plan.route == ("rows" if N % 16 else "wide" if sms == 1 else "split")
+        if plan.route == "split":
+            assert torch.equal(tq.int8_dx_split_plain(dyq, sy, tqw, plan.split).to(got.dtype),
+                               got)
