@@ -91,19 +91,25 @@ Phases, one progress line each (or a few):
      prefill rows (M = 8, 64, 128, 8 x its divide prompt bucket);
      times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
-     (product only) and the "dequant" route (a bf16 cuBLAS product of the
-     dequantised weight), the kernels one #8 call and one #10 call launched
-     (each call captured in a CUDA graph; they must match dx_launches' and
-     dx_prequant_plan's plans; #10's route and tile logged), one case with
+     (product only; on the rows zero-padded to 32 where it refuses 16 or
+     fewer) and the "dequant" route (a bf16 cuBLAS product of the
+     dequantised weight), #7's cp.async kernel (its route before the split
+     product) below 128 rows, #7 against #9 plus its torch row quantisation
+     at M 64, 127 and 128, the kernels one #7, one #8 and one #10 call
+     launched (each call captured in a CUDA graph; they must match
+     fwd_plan's, dx_launches' and dx_prequant_plan's plans; #7's and #10's
+     routes logged), one case with
      N % 16 != 0 (#10 on the rows TMA cannot map), and one projection's
      int8 route against the dequant route (the activation-quantisation
      error, ~1%); then #8 on rows whose quotients fall on and next to
      half-integers (synth.quotient_ties; M = 1, 63, 64, 127, the short
-     step's, ragged K and N), reruns bit-equal, and four planted faults
+     step's, ragged K and N), reruns bit-equal, and seven planted faults
      (#8: one contraction slice dropped, sy from the next row; #10 on its
      wide tile: the last contraction stage dropped, sy from the wrong row of
-     a tile), each a broken copy of csrc/quant_matmul.cu built beside the
-     kernels, that must break the bit-exact check;
+     a tile; #7's split product: one K slice dropped, sx from the next row,
+     the column scale one column off), each a broken copy of
+     csrc/quant_matmul.cu built beside the kernels, that must break the
+     bit-exact check;
   9. the QLoRA slice (configs/llava15_dpo_qlora.json): phase 8's seed-0
      LLaVA-1.5-7B rebuilt after phase 6 is freed, its LLM projections
      quantised to int8 on the card (head, CLIP and projector bf16), the
@@ -158,10 +164,15 @@ Phases, one progress line each (or a few):
      batch 24 at L 1024 and Llama3's GQA (B 8, L 2304, H 32, KVH 8) in bf16,
      and the edges (a fully masked row -> 0, L 781, D 64, n_rep 2 and 8,
      interior holes): fp32 within 1e-5 x max(1, max|twin|), bf16 within
-     phase 3's bound; times beside the twin, SDPA on KV repeated to H and
-     the bound; then planted faults (the mask ignored, the scale dropped, q
-     head h reading kv head h % KVH, the last partial key tile dropped, the
-     denominator clamp removed), each of which must break the bound;
+     phase 3's bound, each case's key splits (full_plan) and the kernels
+     one call launched (a CUDA graph of the call: the split kernel and,
+     with splits, the merge); times beside the twin, SDPA on KV repeated to
+     H and the bound; then planted faults (the mask ignored, the scale
+     dropped, q head h reading kv head h % KVH, the last partial key tile
+     dropped, the denominator clamp removed; and two broken copies of the
+     kernel: one split left out of the merge, a split's state merged
+     without rescaling to the common max), each of which must break the
+     bound;
   12. (run after 11, on its model) the fused engine: the eager int8-KV
      path's forced logits and step time first, the LLM's weights stacked in
      place (memory before and after, flat within one layer's weights),
@@ -259,6 +270,7 @@ from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix_ref,
     decode_attention_ref,
     dequantize_kv,
+    full_plan,
     prefix_block_l,
     quantize_kv,
 )
@@ -1870,7 +1882,8 @@ def phase_fused_kernel(g) -> dict:
 
 # 3h: kernel #6 against its twin (decode_attention_ref). Both compute in
 # fp32; they sum the same products in other orders, scale q . k after the
-# sum alike, and expf rounds differently from torch's exp. fp32 inputs:
+# sum alike, and the kernel's exp2f of log2-scaled scores (its key splits
+# merged in log2 units) rounds differently from torch's exp. fp32 inputs:
 # |kernel - twin| <= FULL_RTOL x max(1, max|twin|); bf16 inputs: both round
 # the fp32 result to bf16 once, so the bf16 bound of phase 3 (OUT_TOL +
 # OUT_RTOL x |twin|). A fully masked row must be exactly 0.
@@ -1891,7 +1904,18 @@ FULL_CASES = [  # 3h: run_tpu_checks' shapes, batch 24, Llama3 GQA, then the edg
     dict(name="n_rep 8", B=3, L=640, H=32, KVH=4, D=128, fp32=True),
     dict(name="interior holes", B=3, L=1000, H=32, KVH=8, D=128, fp32=True, mask="holes"),
 ]
-FULL_FAULT_CASE = "L 781, a fully masked row"
+FULL_FAULT_CASE = "L 781, a fully masked row"  # 6 key splits on 132 SMs
+# 3h: planted faults in the merge of #6's key splits, each a broken copy of
+# csrc/decode_attention_full.cu that must break the bound on FULL_FAULT_CASE
+FULL_SPLIT_FAULTS = {
+    "one split left out of the merge": [(
+        "decode_attention_full.cu",
+        "  for (int s = 0; s < splits; ++s) {\n    const float *ps = p + s * (D + 2);",
+        "  for (int s = 1; s < splits; ++s) {\n    const float *ps = p + s * (D + 2);")],
+    "a split's state merged without rescaling to the common max": [(
+        "decode_attention_full.cu", "    const float a = exp2f(ps[D] - mx);",
+        "    const float a = 1.f;")],
+}
 
 
 def _full_inputs(g, c: dict) -> list:
@@ -1932,12 +1956,12 @@ def _full_ratio(out: torch.Tensor, ref: torch.Tensor) -> tuple:
     return err.max().item(), (err / (OUT_TOL + OUT_RTOL * r.abs())).max().item()
 
 
-def full_tile(D: int, dtype: torch.dtype) -> int:
-    """Keys csrc/decode_attention_full.cu reads per tile: 8 warps x the key
-    rows a warp covers (32 lanes over D / (16 bytes of elements) lanes a
-    row)."""
+def full_tile(D: int, dtype: torch.dtype, n_rep: int) -> int:
+    """Keys csrc/decode_attention_full.cu reads per tile: its warps (8 at
+    n_rep 1-2, 4 above) x the key rows a warp covers (32 lanes over D / (16
+    bytes of elements) lanes a row)."""
     vec = 16 // torch.empty((), dtype=dtype).element_size()
-    return 8 * 32 // (D // vec)
+    return (8 if n_rep <= 2 else 4) * 32 // (D // vec)
 
 
 def _full_fault(q, k, v, mask, fault: str) -> torch.Tensor:
@@ -1948,7 +1972,8 @@ def _full_fault(q, k, v, mask, fault: str) -> torch.Tensor:
         mask = torch.ones_like(mask)
     elif fault == "last partial key tile dropped":
         mask = mask.clone()
-        mask[:, L // full_tile(D, q.dtype) * full_tile(D, q.dtype):] = 0
+        tile = full_tile(D, q.dtype, H // KVH)
+        mask[:, L // tile * tile:] = 0
     heads = torch.arange(H, device=q.device)
     kv_of = heads % KVH if fault == "q head h read kv head h % KVH" else heads // (H // KVH)
     kf, vf = k.float()[:, :, kv_of], v.float()[:, :, kv_of]  # (B, L, H, D)
@@ -1968,6 +1993,10 @@ def phase_full_kernel(g) -> dict:
     times beside the twin, SDPA and the bound; then planted faults that
     must break the bound."""
     res = {"err": 0.0}
+    t0 = time.perf_counter()
+    split_faults = build_variants(FULL_SPLIT_FAULTS)
+    log(f"[3h full decode] planted faults: {len(split_faults)} broken variants built in "
+        f"{time.perf_counter() - t0:.1f} s")
     for c in FULL_CASES:
         args = _full_inputs(g, c)
         q, k, v, mask = args
@@ -1976,13 +2005,18 @@ def phase_full_kernel(g) -> dict:
         torch.cuda.synchronize()
         err, ratio = _full_ratio(out, ref)
         dead = [b for b in range(c["B"]) if not bool(mask[b].any())]
-        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead)
+        splits = full_plan(c["B"], c["KVH"], c["L"], qm._sms(0), c["H"] // c["KVH"])
+        tile = full_tile(c["D"], q.dtype, c["H"] // c["KVH"])
+        launched = launched_ops(lambda: decode_attention(*args))
+        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead) and \
+            launched.get("kernel", 0) == 1 + (splits > 1)
         tol = (f"{FULL_RTOL} x max(1, max|twin|)" if c["fp32"]
                else f"{OUT_TOL} + {OUT_RTOL} x |twin|")
         msg = (f"[3h full decode] {c['name']}: {'fp32' if c['fp32'] else 'bf16'} "
                f"B={c['B']} L={c['L']} H={c['H']} KVH={c['KVH']} D={c['D']} (tile "
-               f"{full_tile(c['D'], q.dtype)} keys) | max|err| {err:.3e} = {ratio:.3f} of the "
-               f"bound ({tol}), {len(dead)} fully masked rows")
+               f"{tile} keys, {splits} key splits; one call captured in a CUDA graph: "
+               f"{ops_text(launched)}, {1 + (splits > 1)} planned) | max|err| {err:.3e} = "
+               f"{ratio:.3f} of the bound ({tol}), {len(dead)} fully masked rows")
         if c.get("time"):
             t_k = time_ms(lambda: decode_attention(*args))
             t_p = time_ms(lambda: decode_attention_ref(*args), 10)
@@ -1994,7 +2028,8 @@ def phase_full_kernel(g) -> dict:
             b = bound(ops, _nbytes(q, k, v, mask, out),
                       PEAK_FP32_TFLOPS if c["fp32"] else PEAK_BF16_TFLOPS)
             gbps = _nbytes(q, k, v, mask, out) / (t_k * 1e-3) / 1e9
-            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps, **b)
+            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps,
+                                  splits=splits, kernels_a_call=launched.get("kernel", 0), **b)
             msg += (f" | kernel {t_k:.4f} ms = {gbps:.0f} GB/s ({gbps / HBM_PEAK_GBPS:.1%} of "
                     f"{HBM_PEAK_GBPS:.0f}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                     f"{t_k / b['bound_ms']:.2f}x; twin {t_p:.3f} ms; SDPA with the same "
@@ -2010,8 +2045,20 @@ def phase_full_kernel(g) -> dict:
                           "last partial key tile dropped", "denominator clamp removed"):
                 f_err, f_ratio = _full_ratio(out, _full_fault(*args, fault))
                 log(f"[3h full decode] planted fault {fault!r} ({c['name']}, "
-                    f"{c['L'] % full_tile(c['D'], q.dtype)} keys in the last tile): max|err| "
+                    f"{c['L'] % tile} keys in the last tile): max|err| "
                     f"{f_err:.3e} = {f_ratio:.3g} of the bound | "
+                    f"{'caught' if f_ratio > 1 else 'MISSED'}")
+                if f_ratio <= 1:
+                    missed.append(fault)
+            for fault, lib in split_faults.items():
+                with kernels_from(lib):
+                    got = decode_attention(*args)
+                torch.cuda.synchronize()
+                f_err, f_ratio = _full_ratio(got, ref)
+                dead_ok = all(bool((got[b] == 0).all()) for b in dead)
+                log(f"[3h full decode] planted fault {fault!r} ({c['name']}, {splits} key "
+                    f"splits; a broken copy of the kernel): max|err| {f_err:.3e} = "
+                    f"{f_ratio:.3g} of the bound, fully masked rows 0: {dead_ok} | "
                     f"{'caught' if f_ratio > 1 else 'MISSED'}")
                 if f_ratio <= 1:
                     missed.append(fault)
@@ -2996,6 +3043,14 @@ def int_mm_ms(a: torch.Tensor, b: torch.Tensor, tag: str = "[3d int8]"):
     return time_ms(lambda: torch._int_mm(a, b))
 
 
+def int_mm_padded_ms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """torch._int_mm on a's rows zero-padded to 32 (it refuses 16 rows or
+    fewer): the yardstick where the rows themselves are refused."""
+    pad = torch.zeros((32, a.shape[1]), dtype=a.dtype, device=a.device)
+    pad[:a.shape[0]] = a
+    return time_ms(lambda: torch._int_mm(pad, b))
+
+
 def route_noise(tag: str, out, dx, deq_out, deq_dx) -> None:
     """One projection's int8 (int4) route against the "dequant" route on
     Gaussian x and dy: the activation-quantisation error of a single
@@ -3038,6 +3093,20 @@ DX8_FAULTS = {
     "sy taken from the next row": [(
         "quant_matmul.cu", "sy[e / K]));", "sy[(e / K + 1) % M]));")],
 }
+# 3d: planted faults in #7's split product (qfwd), on a case whose K
+# contraction is split (FWD7_FAULT_CASE: 4 slices on 132 SMs)
+FWD7_FAULTS = {
+    "#7: one K slice dropped": [(
+        "quant_matmul.cu", "qdx::slice_range(slice, split, (K + TK - 1) / TK, c0, c1);",
+        "qdx::slice_range(slice, split, (K + TK - 1) / TK, c0, c1);\n"
+        "  if (slice == split - 1) c1 = c0;")],
+    "#7: sx taken from the next row": [(
+        "quant_matmul.cu", "const float rs = sx[row];", "const float rs = sx[(row + 1) % M];")],
+    "#7: the column scale read one column off": [(
+        "quant_matmul.cu", "for (int e = 0; e < 4; ++e) cs[e] = s[col + e];",
+        "for (int e = 0; e < 4; ++e) cs[e] = s[(col + e + 1) % N];")],
+}
+FWD7_FAULT_CASE = (24, 4096, 4096)  # M, K, N: the o projection at the batch-24 decode rows
 # 3d: planted faults in #10's wide tile (qdx::dx_wide)
 DX10_FAULTS = {
     "#10: the last contraction stage dropped": [(
@@ -3143,9 +3212,13 @@ def phase_int8(g, qb: dict) -> dict:
             all(bool(torch.isfinite(o.float()).all()) for o in out.values())
         t = {k: time_ms(fn) for k, fn in run.items()}
         t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
+        # #7's cp.async kernel (the parent's route below 128 rows) in this run
+        t_tile = time_ms(lambda: qm._kernel_fwd(x, q, s, qm.FwdPlan("tile", (128, 128), 1, 1))) \
+            if M < 128 else None
         t_plain = {7: time_ms(lambda: qm.int8_matmul_plain(x, q, s), 5),
                    8: time_ms(lambda: qm.int8_matmul_dx_plain(dy, q, s), 5)}
         t_lib = {7: int_mm_ms(xq, q), 8: int_mm_ms(dyq, q.T)}
+        t_pad = int_mm_padded_ms(xq, q) if t_lib[7] is None else None
         t_deq = {7: time_ms(lambda: qm.dequant_matmul(x, q, s)),
                  8: time_ms(lambda: qm.dequant_matmul_dx(dy, q, s))}
         nbytes = {7: _nbytes(x, q, s, out[7]), 9: _nbytes(xq, sx, q, s, out[9]),
@@ -3157,10 +3230,14 @@ def phase_int8(g, qb: dict) -> dict:
             entry[k] = dict(ms=t[k], plain_ms=t_plain[ref], library_ms=t_lib[ref],
                             dequant_ms=t_deq[ref],
                             **bound(ops, nbytes[k], PEAK_INT8_TOPS))
+        entry[7].update(tile_ms=t_tile, padded_library_ms=t_pad, quant_ms=t_quant)
         res[(M, K, N)] = entry
 
         def lib(k):
-            return "refused" if t_lib[k] is None else f"{t_lib[k]:.4f}"
+            if t_lib[k] is None:
+                return "refused" + (f" ({t_pad:.4f} on the rows zero-padded to 32)"
+                                    if k == 7 else "")
+            return f"{t_lib[k]:.4f}"
 
         split = qm.dx_split(M, K, N, qm._sms(0), q.data_ptr() % 16 == 0)
         launched = launched_ops(run[8])
@@ -3169,9 +3246,20 @@ def phase_int8(g, qb: dict) -> dict:
                                    q.data_ptr() % 16 == 0 and dyq.data_ptr() % 16 == 0)
         launched10 = launched_ops(run[10])
         entry[10].update(kernels_a_call=launched10.get("kernel", 0), route=plan.route)
+        fplan = qm.fwd_plan(M, K, N, qm._sms(0),
+                            q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        launched7 = launched_ops(run[7])
+        entry[7].update(kernels_a_call=launched7.get("kernel", 0), route=fplan.route,
+                        split=fplan.split)
         ok = ok and launched.get("kernel", 0) == qm.dx_launches(split) and \
-            launched10.get("kernel", 0) == plan.launches
-        log(f"[3d int8] M={M} K={K} N={N}: one #8 call captured in a CUDA graph: "
+            launched10.get("kernel", 0) == plan.launches and \
+            launched7.get("kernel", 0) == fplan.launches
+        log(f"[3d int8] M={M} K={K} N={N}: one #7 call captured in a CUDA graph: "
+            f"{ops_text(launched7)}; route {fplan.route}, tile {fplan.tile[0]} x "
+            f"{fplan.tile[1]}, {fplan.split} K slices, {fplan.launches} kernels planned"
+            + (f"; its cp.async kernel (the parent's route) {t_tile:.4f} ms, "
+               f"{t_tile / t[7]:.2f}x" if t_tile else "")
+            + f" | one #8 call: "
             f"{ops_text(launched)}; {split} contraction slices, {qm.dx_launches(split)} kernels "
             f"planned | one #10 call: {ops_text(launched10)}; route {plan.route}, tile "
             f"{plan.tile[0]} x {plan.tile[1]}, {plan.split} slices, {plan.launches} kernels "
@@ -3186,8 +3274,12 @@ def phase_int8(g, qb: dict) -> dict:
             f"torch._int_mm fwd {lib(7)} dx {lib(8)} ms (product only) | dequant "
             f"route fwd {t_deq[7]:.4f} dx {t_deq[8]:.4f} ms | "
             f"{'ok' if ok else 'FAIL'}")
+        if M in (64, 127, 128):  # the crossover INT8_DEQUANT_MIN_M wants
+            log(f"[3d int8] M={M} K={K} N={N}: #7 ({fplan.route}) {t[7]:.4f} ms against #9 "
+                f"{t[9]:.4f} + its torch row quantisation {t_quant:.4f} = "
+                f"{t[9] + t_quant:.4f} ms")
         if not ok:
-            raise AssertionError(f"int8 kernels disagree with the plain twins, or #8 or "
+            raise AssertionError(f"int8 kernels disagree with the plain twins, or #7, #8 or "
                                  f"#10 with its planned launches, at M={M} K={K} N={N}: {err}")
         res["err"] = max(res["err"], max(err.values()))
         if M == qb["m_prefix"]:
@@ -3224,8 +3316,15 @@ def phase_int8(g, qb: dict) -> dict:
     dy = _randn(own, M, N)
     dyq, sy = qm.quantize_rows(dy.float() * s)
     case10 = (qm._kernel_dx_prequant, (dyq, sy.reshape(-1), q), qm.int8_matmul_dx_plain(dy, q, s))
-    planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS},
-                   {**{k: case for k in DX8_FAULTS}, **{k: case10 for k in DX10_FAULTS}})
+    M, K, N = FWD7_FAULT_CASE  # #7's split product, from a generator of its own
+    assert qm.fwd_plan(M, K, N, qm._sms(0)).split > 1
+    g7 = torch.Generator(device="cuda").manual_seed(7)
+    q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g7, device="cuda"))
+    x = _randn(g7, M, K)
+    case7 = (qm._kernel_fwd, (x, q, s), qm.int8_matmul_plain(x, q, s))
+    planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS, **FWD7_FAULTS},
+                   {**{k: case for k in DX8_FAULTS}, **{k: case10 for k in DX10_FAULTS},
+                    **{k: case7 for k in FWD7_FAULTS}})
     return res
 
 
@@ -3879,7 +3978,11 @@ def main() -> None:
     q_src, q_py = "rlaifv_tpu_torch/csrc/quant_matmul.cu", "rlaifv_tpu/ops/quant_matmul.py"
     small, large = int8[(qb["m_short"], 4096, 11008)], int8[(qb["m_prefix"], 4096, 11008)]
     kernels += [
-        _row("int8_matmul", q_src, f"{q_py}:36", launches["int8"], int8["err"], small[7]),
+        _row("int8_matmul", q_src, f"{q_py}:36", launches["int8"], int8["err"], small[7],
+             f"redesigned: a row pass and the split product (route {small[7]['route']}, "
+             f"{small[7]['split']} K slices here); one wrapper call launched "
+             f"{small[7]['kernels_a_call']} kernels here (a CUDA graph of one call, 3d; "
+             "launches counts calls)"),
         _row("int8_matmul_dx", q_src, f"{q_py}:132", launches["int8_dx"], int8["err"],
              small[8], "redesigned: a row pass, the split wgmma product and the sum of "
              f"its slices; one wrapper call launched {small[8]['kernels_a_call']} kernels "
@@ -3929,7 +4032,10 @@ def main() -> None:
     kernels.append(_row(
         "decode_attention", "rlaifv_tpu_torch/csrc/decode_attention_full.cu",
         "rlaifv_tpu/ops/decode_attention.py:34", launches["decode_full"], full["err"],
-        full["Llama3 GQA"]))
+        full["Llama3 GQA"],
+        f"redesigned: the key axis in {full['Llama3 GQA']['splits']} splits here and their "
+        f"merge; one call launched {full['Llama3 GQA']['kernels_a_call']} kernels here (a "
+        "CUDA graph of one call, 3h)"))
     log(f"[done] {len(kernels)} kernels; chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of this
 // directory (fused_head.cu, quant_matmul.cu, int4_matmul.cu,
 // flash_attention.cu, flash_attention_bwd.cu): mbarriers, 1D/2D/4D TMA
-// loads, wgmma shared-memory descriptors, fences, the int8 products (n128
-// and n256) and the bf16 products of the attention kernels, and the
-// tensor-map encoders looked up through the CUDA runtime (no -lcuda).
+// loads, wgmma shared-memory descriptors, fences, programmatic dependent
+// launch, the int8 products (n128 and n256) and the bf16 products of the
+// attention kernels, and the tensor-map encoders looked up through the CUDA
+// runtime (no -lcuda).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the encode function's types only
@@ -86,6 +87,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap *map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Programmatic dependent launch: a grid launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start once every
+// CTA of the grid before it has called grid_launch_dependents (or exited);
+// grid_dependency_wait returns when that grid has finished and its writes
+// are visible.
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // generic-proxy writes to shared memory, visible to wgmma reads after the

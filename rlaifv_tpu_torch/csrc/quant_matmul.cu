@@ -25,12 +25,12 @@
 // against K N + M (K + N) bytes), the weight bytes at small M (M < 128, each
 // q byte is used by only M rows).
 //
-// What the design does about it (#7, #9, and #10 on rows TMA cannot map;
-// #8 and #10 in qdx below): each CTA owns a 128 x 128 output tile and walks
-// the contraction in 64-wide chunks through two shared-memory stages
-// (cp.async for int8 operands), 8 warps each issuing mma.sync m16n8k32
-// s8 x s8 -> s32 on a 32 x 64 sub-tile. The int8 mma takes both operands
-// contraction-contiguous (.row.col):
+// What the design does about it (#9; #7 and #10 on rows TMA cannot map, #7
+// also above FWD_SPLIT_MAX_M; #8 and #10 in qdx below, #7 in qfwd): each CTA
+// owns a 128 x 128 output tile and walks the contraction in 64-wide chunks
+// through two shared-memory stages (cp.async for int8 operands), 8 warps
+// each issuing mma.sync m16n8k32 s8 x s8 -> s32 on a 32 x 64 sub-tile. The
+// int8 mma takes both operands contraction-contiguous (.row.col):
 // - dx contracts over N, and a row of q (K, N) is already N-contiguous: q
 //   tiles load as they lie, no q^T anywhere (#10 takes this kernel only on
 //   rows a TMA tensor map cannot read: N % 16 != 0 or an unaligned base);
@@ -39,15 +39,16 @@
 //   transposed in shared memory with byte permutes into a K-contiguous
 //   tile. Neither q^T nor a second copy of the weight exists in device
 //   memory.
-// The in-kernel-quantisation kernel (#7) first takes each of its 128 rows'
-// absolute maximum over the whole contraction (as the TPU kernel quantises
-// its row stripe in every program), then quantises each bf16 chunk into
-// shared memory as it arrives, loading the next chunk into registers while
-// the current one multiplies. That costs an IEEE division per element in
-// every column CTA, the TPU kernel's redundancy across N tiles, where the
-// prequant pair divides once per element in torch. Ragged edges (M, N, K
-// not a multiple of the tile, rows whose length is not a multiple of 16
-// bytes) read as zeros, which add exact zeros, and are never written.
+// The in-kernel-quantisation instance (#7's cp.async route) first takes
+// each of its 128 rows' absolute maximum over the whole contraction (as the
+// TPU kernel quantises its row stripe in every program), then quantises
+// each bf16 chunk into shared memory as it arrives, loading the next chunk
+// into registers while the current one multiplies. That costs an IEEE
+// division per element in every column CTA, the TPU kernel's redundancy
+// across N tiles, where the prequant pair divides once per element in
+// torch. Ragged edges (M, N, K not a multiple of the tile, rows whose
+// length is not a multiple of 16 bytes) read as zeros, which add exact
+// zeros, and are never written.
 #include <stdint.h>
 
 #include <algorithm>
@@ -634,12 +635,398 @@ int launch_wide(const void *dyq, const void *sy, const void *q, void *dx, int M,
 
 }  // namespace qdx
 
+// ------------------------------------------------------------ #7, redesigned
+//
+// out = bf16((float(xq . q) * sx) * s) at the rows decoding gives it (M <=
+// FWD_SPLIT_MAX_M, ops/quant_matmul.py:fwd_plan), where the weight's K N
+// bytes bound it: at M 8-64 each q byte feeds only M products. Two
+// launches:
+// 1. fwd_quant_rows: one CTA a row quantises x once per call, sx = max(max
+//    |x|, 1e-20) / 127 and rn(x / sx) (IEEE, as quantize8 / row_scales),
+//    into xq (M, K) int8 and sx (M,), where the TPU kernel quantises the
+//    rows again in every column tile; it also zeroes the tile counters of
+//    step 2, and lets step 2 launch at once (programmatic dependent launch:
+//    step 2 streams its first q tiles while this pass runs and waits for
+//    it only before it reads xq, sx and the counters);
+// 2. fwd_product: the weight as the wide operand ("swap AB"): out^T (N x M)
+//    = q^T . xq^T on mma.sync m16n8k32 s8 x s8 -> s32, so q's N fills the
+//    16-row side of the product and the few rows of x its 8-wide side (M
+//    rounded up to 8 x MT, no 128-row padding). A CTA owns 128 columns of q
+//    and walks one slice of the K contraction (128-row chunks): as many
+//    slices as keep (N tiles x K slices) within one CTA an SM, since a
+//    slice's partial sums cost more than further CTAs win once the column
+//    tiles alone fill most of the card (tools/split_sweep.py); so only the
+//    narrow widths (N 4096-6144) split. One producer warp streams the q
+//    tile (128 K-rows x 128 columns, as it lies, N-contiguous) and the xq
+//    tile (8 MT rows x 128 K-bytes) by TMA through a 3-stage ring of
+//    128-byte-swizzled tiles (48 KB of weight in flight a CTA). Eight
+//    consumer warps, two for each 32 columns, each take half of a stage's K
+//    steps: enough warps to hide the fragment loads and products of one CTA
+//    an SM at 64 rows (above 64 rows four warps take all of them: eight
+//    would not fit their accumulators in 288 threads' registers). The int8
+//    mma takes A K-contiguous, so each thread builds its A fragments from
+//    the staged natural tile: four 32-bit loads (4 K-rows x 4 columns) and
+//    a 4 x 4 byte transpose give one K-group of four columns, which the
+//    thread holds as rows g, g + 8 of two m16 tiles (the rows of out^T are
+//    permuted so that a thread's fragment rows are four neighbouring
+//    columns; its outputs are then 4 bf16 of a row of out). One slice
+//    writes the epilogue itself; several write exact int32 partials (split,
+//    M, N), and the CTA that finishes a column tile last (a counter a tile)
+//    sums them, several slices' loads in flight at once (int32: exact,
+//    |sum| <= 127^2 K < 2^31 for K < 133,000), and writes bf16((float(sum)
+//    * sx) * s).
+// The output equals qmm_kernel<true, false> (and #9 on the same rows) bit
+// for bit whatever the split. Rows TMA cannot map (N or K not a multiple of
+// 16, x or q off 16 bytes) and more rows than FWD_SPLIT_MAX_M take that
+// kernel.
+namespace qfwd {
+
+constexpr int TN = 128;        // columns of q (output columns) a CTA owns
+constexpr int TK = 128;        // contraction rows of a stage
+constexpr int STAGES = 3;
+constexpr int Q_BYTES = TK * TN;
+constexpr int ATOM = 1024;
+
+template <int MT>  // MT row tiles of 8: x's rows rounded up
+struct Tile {
+  // consumer warps: 4 column groups x HALVES halves of a stage's K steps
+  // (one half above 64 rows, whose accumulators would not fit 288 threads'
+  // registers), and the producer warp
+  static constexpr int HALVES = MT <= 8 ? 2 : 1;
+  static constexpr int WARPS = 4 * HALVES;
+  static constexpr int THREADS = WARPS * 32 + 32;
+  static constexpr int X_BYTES = 8 * MT * TK;
+  static constexpr int STAGE_BYTES = Q_BYTES + X_BYTES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 16 + ATOM;
+};
+
+// named barriers of the consumer warps: all of them (id 1), or the 4 that
+// write the tile (id 2)
+template <int WARPS>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WARPS * 32) : "memory");
+}
+__device__ __forceinline__ void writers_sync() {
+  asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+// one CTA a row: xq[m] = clamp(rn(x[m] / sx), +-127), sx = max(max |x[m]|,
+// 1e-20) / 127; the CTAs also zero the `tiles` counters of fwd_product. K is
+// a multiple of 8 and x 16-byte aligned.
+__global__ void __launch_bounds__(256)
+    fwd_quant_rows(const bf16 *__restrict__ x, int8_t *__restrict__ xq, float *__restrict__ sx,
+                   int *__restrict__ cnt, int tiles, int K) {
+  __shared__ float red[8];
+  grid_launch_dependents();  // fwd_product may start streaming q now
+  const long long m = blockIdx.x;
+  const bf16 *row = x + m * K;
+  float amax = 0.f;
+  for (int c = threadIdx.x * 8; c < K; c += 256 * 8) {
+    float v[8];
+    bf16x8_to_float(load16(row + c), v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(v[j]));
+  }
+  const float scale = __fdiv_rn(fmaxf(qdx::block_max(amax, red), 1e-20f), 127.0f);
+  if (threadIdx.x == 0) sx[m] = scale;
+  for (int c = threadIdx.x * 8; c < K; c += 256 * 8) {
+    float v[8];
+    bf16x8_to_float(load16(row + c), v);
+    *reinterpret_cast<uint2 *>(xq + m * K + c) = quantize8(v, scale);
+  }
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < tiles; i += gridDim.x * 256) cnt[i] = 0;
+}
+
+// One CTA: output columns [n0, n0 + 128) of every row, the contraction over
+// chunk slice blockIdx.y. Warps 0 .. WARPS - 1 consume (warp w: columns n0
+// + 32 (w % 4) .. + 31, the K steps of its half w / 4 of every stage; the
+// second half's sums join the first's through shared memory at the end),
+// warp WARPS produces.
+template <int MT>
+__global__ void __launch_bounds__(Tile<MT>::THREADS)
+    fwd_product(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_x, const float *__restrict__ sx,
+                const float *__restrict__ s, bf16 *__restrict__ out, int *__restrict__ part,
+                int *__restrict__ cnt, int M, int K, int N) {
+  using T = Tile<MT>;
+  constexpr int WARPS = T::WARPS;
+  extern __shared__ __align__(1024) unsigned char smem_fwd[];
+  const uint32_t base = saddr(smem_fwd);
+  const uint32_t off = (base + ATOM - 1) / ATOM * ATOM - base;  // first tile, 1024-aligned
+  const uint32_t full = base + off + STAGES * T::STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+  int *s_last = reinterpret_cast<int *>(smem_fwd + off + STAGES * T::STAGE_BYTES + 2 * STAGES * 8);
+  const int n0 = blockIdx.x * TN, slice = blockIdx.y, split = gridDim.y;
+  int c0, c1;
+  qdx::slice_range(slice, split, (K + TK - 1) / TK, c0, c1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      bar_init(full + 8 * st, 1);
+      bar_init(empty + 8 * st, WARPS);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == WARPS) {  // the producer: one thread starts every load
+    if (lane == 0) {
+      // the first stages' q tiles go out before the row pass has finished
+      // (a programmatic launch: fwd_quant_rows may still run); their xq
+      // tiles, and every later stage, after it
+      const int first = min(c1 - c0, STAGES);
+      for (int i = 0; i < first; ++i) {
+        const uint32_t dst = base + off + i * T::STAGE_BYTES, bar = full + 8 * i;
+        bar_expect(bar, T::STAGE_BYTES);
+        tma_load(dst, &map_q, n0, (c0 + i) * TK, bar);
+      }
+      grid_dependency_wait();
+      for (int i = 0; i < first; ++i)
+        tma_load(base + off + i * T::STAGE_BYTES + Q_BYTES, &map_x, (c0 + i) * TK, 0,
+                 full + 8 * i);
+      for (int c = c0 + first; c < c1; ++c) {
+        const int i = c - c0, st = i % STAGES;
+        bar_wait(empty + 8 * st, (i / STAGES - 1) & 1);
+        const uint32_t dst = base + off + st * T::STAGE_BYTES, bar = full + 8 * st;
+        bar_expect(bar, T::STAGE_BYTES);
+        tma_load(dst, &map_q, n0, c * TK, bar);
+        tma_load(dst + Q_BYTES, &map_x, c * TK, 0, bar);
+      }
+    }
+    return;
+  }
+  grid_dependency_wait();  // sx and the counters come from the row pass
+
+  const int g = lane / 4, t = lane % 4, half = warp / 4;
+  // this thread's four neighbouring columns: a byte offset in a q row
+  const int qcol = 32 * (warp % 4) + 4 * g, qchunk = qcol >> 4, qbyte = qcol & 15;
+  // acc[u][j][e]: column n0 + qcol + 2 u + (e >> 1), row 8 j + 2 t + (e & 1)
+  int acc[2][MT][4];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[u][j][e] = 0;
+
+  for (int c = c0; c < c1; ++c) {
+    const int i = c - c0, st = i % STAGES;
+    bar_wait(full + 8 * st, (i / STAGES) & 1);
+    const int8_t *qs = reinterpret_cast<const int8_t *>(smem_fwd + off + st * T::STAGE_BYTES);
+    const int8_t *xs = qs + Q_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < TK / 32 / T::HALVES; ++kk) {
+      const int ks = TK / 32 / T::HALVES * half + kk;  // this half's 32-row K steps
+      // A: rows g, g + 8 of tile u are columns qcol + 2 u, qcol + 2 u + 1;
+      // K-group h holds contraction rows 32 ks + 16 h + 4 t + (0..3)
+      uint32_t a[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t w[4], o[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // 128-byte swizzle: chunk c at c ^ (row % 8)
+          const int k = 32 * ks + 16 * h + 4 * t + r;  // k % 8 == 4 (t % 2) + r
+          w[r] = ld32(qs + k * 128 + (((qchunk ^ (4 * (t & 1) + r)) << 4) | qbyte));
+        }
+        transpose4x4(w, o);  // o[j] byte r: q[row 32 ks + 16 h + 4 t + r][column qcol + j]
+        a[0][2 * h] = o[0];
+        a[0][2 * h + 1] = o[1];
+        a[1][2 * h] = o[2];
+        a[1][2 * h + 1] = o[3];
+      }
+      // B: xq row 8 j + g (swizzled by g), bytes 32 ks + 4 t and + 16
+#pragma unroll
+      for (int j = 0; j < MT; ++j) {
+        const int8_t *xr = xs + (8 * j + g) * 128 + 4 * t;
+        const uint32_t b[2] = {ld32(xr + (((2 * ks) ^ g) << 4)),
+                               ld32(xr + (((2 * ks + 1) ^ g) << 4))};
+        mma_s8(acc[0][j], a[0], b);
+        mma_s8(acc[1][j], a[1], b);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(empty + 8 * st);
+  }
+
+  // the second half's sums into the first's, through the ring (every
+  // stage has been read: all consumers passed the last full barrier)
+  if constexpr (T::HALVES == 2) {
+    int *red = reinterpret_cast<int *>(smem_fwd + off);
+    const int slot = (warp % 4) * 32 + lane;
+    consumers_sync<WARPS>();
+    if (half == 1) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[((u * MT + j) * 4 + e) * 128 + slot] = acc[u][j][e];
+    }
+    consumers_sync<WARPS>();
+    if (half == 1) return;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int j = 0; j < MT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][j][e] += red[((u * MT + j) * 4 + e) * 128 + slot];
+  }
+
+  const int col = n0 + qcol;  // N % 16 == 0: col < N covers col + 3
+  if (split > 1) {
+    // every slice stores its exact partial; the tile's last CTA adds the
+    // others' to its own
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * j + 2 * t + e;
+        if (row < M && col < N)
+          *reinterpret_cast<int4 *>(part + (static_cast<long long>(slice) * M + row) * N + col) =
+              make_int4(acc[0][j][e], acc[0][j][2 + e], acc[1][j][e], acc[1][j][2 + e]);
+      }
+    __threadfence();
+    writers_sync();
+    if (threadIdx.x == 0) *s_last = atomicAdd(cnt + blockIdx.x, 1) == split - 1;
+    writers_sync();
+    if (!*s_last) return;
+    __threadfence();
+    // U slices at a time, all of their loads in flight together
+    constexpr int U = MT <= 2 ? 4 : MT <= 4 ? 2 : 1;
+    for (int s0 = 0; s0 < split; s0 += U) {
+      int4 p[U][MT][2];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int sl = s0 + u, row = 8 * j + 2 * t + e;
+            p[u][j][e] = sl < split && sl != slice && row < M && col < N
+                             ? __ldcg(reinterpret_cast<const int4 *>(
+                                   part + (static_cast<long long>(sl) * M + row) * N + col))
+                             : make_int4(0, 0, 0, 0);
+          }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < MT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            acc[0][j][e] += p[u][j][e].x;
+            acc[0][j][2 + e] += p[u][j][e].y;
+            acc[1][j][e] += p[u][j][e].z;
+            acc[1][j][2 + e] += p[u][j][e].w;
+          }
+    }
+  }
+  if (col >= N) return;
+  float cs[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cs[e] = s[col + e];
+#pragma unroll
+  for (int j = 0; j < MT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = 8 * j + 2 * t + e;
+      if (row >= M) continue;
+      const float rs = sx[row];
+      const int v[4] = {acc[0][j][e], acc[0][j][2 + e], acc[1][j][e], acc[1][j][2 + e]};
+      float f[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) f[u] = __fmul_rn(__fmul_rn(__int2float_rn(v[u]), rs), cs[u]);
+      *reinterpret_cast<uint2 *>(out + static_cast<long long>(row) * N + col) =
+          make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+    }
+}
+
+template <int MT>
+int launch_product(const void *xq, const void *sx, const void *q, const void *s, void *out,
+                   void *part, void *cnt, int M, int K, int N, int split, cudaStream_t stream) {
+  using T = Tile<MT>;
+  CUtensorMap mq, mx;
+  if (!tensor_map_2d(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, N, TN, TK,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, TK, 8 * MT,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;  // once a process: a decode step calls this 128 times
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void *>(fwd_product<MT>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  // launched while the row pass still runs: it waits for that pass's
+  // results (griddepcontrol.wait) only where it reads them
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + TN - 1) / TN, split);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, fwd_product<MT>, mq, mx, static_cast<const float *>(sx),
+                            static_cast<const float *>(s), static_cast<bf16 *>(out),
+                            static_cast<int *>(part), static_cast<int *>(cnt), M, K, N);
+}
+
+// fwd_product's instance for `rows` (8 MT: 8, 16, 24, 32, 48, 64, 96 or
+// 128 rows); cudaErrorInvalidValue for another count
+int product_by_rows(int rows, const void *xq, const void *sx, const void *q, const void *s,
+                    void *out, void *part, void *cnt, int M, int K, int N, int split,
+                    cudaStream_t st) {
+#define RLAIFV_FWD_CASE(R, MT) \
+  case R: return launch_product<MT>(xq, sx, q, s, out, part, cnt, M, K, N, split, st);
+  switch (rows) {
+    RLAIFV_FWD_CASE(8, 1)
+    RLAIFV_FWD_CASE(16, 2)
+    RLAIFV_FWD_CASE(24, 3)
+    RLAIFV_FWD_CASE(32, 4)
+    RLAIFV_FWD_CASE(48, 6)
+    RLAIFV_FWD_CASE(64, 8)
+    RLAIFV_FWD_CASE(96, 12)
+    RLAIFV_FWD_CASE(128, 16)
+    default: return cudaErrorInvalidValue;
+  }
+#undef RLAIFV_FWD_CASE
+}
+
+}  // namespace qfwd
+
 }  // namespace
 
-// #7: x (M, K) bf16, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16
-extern "C" int int8_matmul_bf16(const void *x, const void *q, const void *s, void *out,
-                                int M, int K, int N, void *stream) {
-  return launch<true, false>(x, nullptr, q, s, out, M, K, N, stream);
+// #7: x (M, K) bf16, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16 by the
+// route ops/quant_matmul.py:fwd_plan picks: 0 the cp.async kernel (rows TMA
+// cannot map, more rows than the split product takes), 1 the row pass and
+// the split product over `rows` (M rounded up to 8, 16, 24, 32, 48, 64, 96
+// or 128) and `split` slices of the K contraction. Scratch from the wrapper
+// for route 1: xq (M, K) int8, sx (M,) fp32 and, with split > 1, part
+// (split, M, N) int32 and cnt (ceil(N / 128),) int32. A route TMA cannot
+// take, or a split out of [1, ceil(K / 128)], is refused.
+extern "C" int int8_matmul_bf16(const void *x, const void *q, const void *s, void *xq,
+                                void *sx, void *part, void *cnt, void *out, int M, int K,
+                                int N, int route, int rows, int split, void *stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || route < 0 || route > 1) return cudaErrorInvalidValue;
+  if (route == 0) return launch<true, false>(x, nullptr, q, s, out, M, K, N, stream);
+  const auto aligned = [](const void *p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (N % 16 != 0 || K % 16 != 0 || !aligned(x) || !aligned(q) || !aligned(xq) ||
+      sx == nullptr || rows < M || split < 1 || split > (K + qfwd::TK - 1) / qfwd::TK ||
+      (split > 1 && (part == nullptr || cnt == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (N + qfwd::TN - 1) / qfwd::TN;
+  qfwd::fwd_quant_rows<<<M, 256, 0, st>>>(static_cast<const bf16 *>(x),
+                                          static_cast<int8_t *>(xq), static_cast<float *>(sx),
+                                          static_cast<int *>(cnt), split > 1 ? tiles : 0, K);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return qfwd::product_by_rows(rows, xq, sx, q, s, out, part, cnt, M, K, N, split, st);
 }
 
 // #8: dy (M, N) bf16, q (K, N) int8, s (N,) fp32 -> dx (M, K) bf16. Scratch

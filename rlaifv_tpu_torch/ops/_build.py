@@ -49,9 +49,9 @@ SIGNATURES = {
     # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
     # scale, stream
     "decode_attention_prefix_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
-    # q, k, v, mask, out, B, H, KVH, L, D, q stride b, q stride h, is_bf16,
-    # scale, stream
-    "decode_attention_full_cuda": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # q, k, v, mask, out, part, B, H, KVH, L, D, q stride b, q stride h,
+    # is_bf16, splits, scale, stream
+    "decode_attention_full_cuda": [_P] * 6 + [_I] * 9 + [_F, _P],
     # q, k, k_scale, v, v_scale, mask, out, B, H, KVH, L, D, valid_len,
     # block_l, q stride b, q stride h, scale, stream
     "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
@@ -63,8 +63,8 @@ SIGNATURES = {
     "fused_head_dx_bf16": [_P] * 4 + [_I] * 7 + [_P],
     # dl, x, dw (the chunk's first row), M, H, vw, ldl, stream
     "fused_head_dw_bf16": [_P] * 3 + [_I] * 4 + [_P],
-    # x, q, s, out, M, K, N, stream
-    "int8_matmul_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # x, q, s, xq, sx, part, cnt, out, M, K, N, route, rows, split, stream
+    "int8_matmul_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # dy, q, s, dyq, sy, part, dx, M, K, N, split, stream
     "int8_matmul_dx_bf16": [_P] * 7 + [_I] * 4 + [_P],
     # xq, sx, q, s, out, M, K, N, stream

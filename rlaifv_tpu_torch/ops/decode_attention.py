@@ -6,7 +6,9 @@ over a static (B, L, KVH, D) cache.
 - `decode_attention` (TPU kernel #6): the whole cache, every column read,
   fp32 or bf16 operands, the arithmetic in fp32 whatever their type,
   causality folded into the mask by the caller; a row whose keys are all
-  masked returns 0. Kernel in csrc/decode_attention_full.cu, plain version
+  masked returns 0. Kernel in csrc/decode_attention_full.cu, its key axis
+  split into `full_plan` ranges whose partial softmax states a merge pass
+  combines (`decode_attention_split_ref`), plain version
   `decode_attention_ref`. No module of the JAX package calls it, and no
   path of the port does;
 - `decode_attention_prefix` (TPU kernel #4): a bf16 cache, columns
@@ -34,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from rlaifv_tpu_torch.ops.attention import _build_bias, dense_attention, repeat_kv
-from rlaifv_tpu_torch.ops.quant_matmul import _int_product, quantize_rows
+from rlaifv_tpu_torch.ops.quant_matmul import _int_product, _sms, quantize_rows
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_L = 256
@@ -63,6 +65,60 @@ def decode_attention_ref(
     return out.reshape(B, H, D).to(q.dtype)
 
 
+# kernel #6's split of the key axis: (batch row, kv head, split) CTAs for
+# one wave of the CTAs an SM holds (by n_rep: 8-warp CTAs at n_rep 1-2, two
+# an SM; 4-warp CTAs at 4, three, and at 8, two: their registers), at least
+# FULL_MIN_KEYS keys a split
+FULL_CTAS_PER_SM = {1: 2, 2: 2, 4: 3, 8: 2}
+FULL_MIN_KEYS = 128
+
+
+def full_plan(B: int, KVH: int, L: int, sms: int, n_rep: int = 4) -> int:
+    """The splits of kernel #6's key axis: as many as B x KVH x splits CTAs
+    fit in one wave (FULL_CTAS_PER_SM[n_rep] on each of `sms`
+    multiprocessors), no more than leave each split FULL_MIN_KEYS keys (the
+    merge stays a small part of the work), at least one. Llama3's GQA step
+    (B 8, KVH 8, n_rep 4, L 2304) takes 6 (384 CTAs), batch 24 (KVH 32: 768
+    CTAs already) one."""
+    return max(1, min(FULL_CTAS_PER_SM[n_rep] * sms // (B * KVH), L // FULL_MIN_KEYS))
+
+
+def full_split_ranges(L: int, splits: int) -> list:
+    """The keys [l0, l1) of each split, as the kernel cuts them."""
+    return [(s * L // splits, (s + 1) * L // splits) for s in range(splits)]
+
+
+def decode_attention_split_ref(q, k, v, mask, splits: int) -> torch.Tensor:
+    """Kernel #6 as the card splits it, in fp32 -> (B, H, D) in q's type:
+    each split's state over its keys (`full_split_ranges`), m_s = max(max s,
+    -5e29), l_s = sum exp(s - m_s), acc_s = sum exp(s - m_s) v (a masked key
+    adds exp(-1e30 - m_s) = 0), then the merge: M = max m_s and out = (sum
+    acc_s e^(m_s - M)) / max(sum l_s e^(m_s - M), 1e-30), splits in order.
+    A split with no live key has m_s = -5e29, l_s = 0, acc_s = 0 and adds
+    nothing; a row masked in every split gives 0. (The card keeps m in log2
+    units and exponentiates with exp2: the same function, rounded
+    elsewhere.)"""
+    B, H, D = q.shape
+    KVH = k.shape[2]
+    n_rep = H // KVH
+    qf = q.float().reshape(B, KVH, n_rep, D)
+    states = []
+    for l0, l1 in full_split_ranges(k.shape[1], splits):
+        s = torch.einsum("bgrd,btgd->bgrt", qf, k[:, l0:l1].float()) * (1.0 / D ** 0.5)
+        s = s + torch.where(mask[:, None, None, l0:l1] != 0, 0.0, NEG_INF)
+        m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+        p = torch.exp(s - m)
+        states.append((m, p.sum(dim=-1, keepdim=True),
+                       torch.einsum("bgrt,btgd->bgrd", p, v[:, l0:l1].float())))
+    mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    num, den = 0.0, 0.0
+    for m, l, acc in states:
+        w = torch.exp(m - mx)
+        num, den = num + acc * w, den + l * w
+    out = num / torch.clamp(den, min=1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def _kernel_full(q, k, v, mask):
     from rlaifv_tpu_torch.ops import _build
 
@@ -87,11 +143,14 @@ def _kernel_full(q, k, v, mask):
         raise ValueError(f"q needs unit stride along D; got {q.stride()}")
     mask = mask.to(dtype=torch.int32).contiguous()
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    splits = full_plan(B, KVH, L, _sms(q.device.index or 0), H // KVH)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.load_kernels().decode_attention_full_cuda(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, H, KVH, L, D, q.stride(0), q.stride(1), int(q.dtype == torch.bfloat16),
-        1.0 / D ** 0.5, stream,
+        None if part is None else part.data_ptr(), B, H, KVH, L, D, q.stride(0),
+        q.stride(1), int(q.dtype == torch.bfloat16), splits, 1.0 / D ** 0.5, stream,
     )
     _build.check(err, "decode_attention_full_cuda")
     decode_attention.launches += 1

@@ -6,7 +6,10 @@ x (..., K), q (K, N) int8, scale (N,) fp32 per output channel.
 
 - `int8_matmul` (TPU kernel #7): each row of x quantised inside the kernel
   (sx = max(max|x|, 1e-20) / 127, xq = clamp(round(x / sx), -127, 127)),
-  int8 x int8 -> int32, out = (acc * sx) * scale;
+  int8 x int8 -> int32, out = (acc * sx) * scale; on the card by the route
+  `fwd_plan` picks: at decode rows a row pass quantises once, then the
+  product splits the K contraction into slices whose exact int32 partials
+  are summed (`int8_fwd_split_plain`);
 - `int8_matmul_dx` (#8): dx = (dy * scale) @ q^T with dy * scale quantised
   per row the same way, q^T never made: on the card a row pass quantises
   once, then the product splits the N contraction into `dx_split` slices
@@ -89,6 +92,68 @@ def int8_matmul_plain(x, q, scale) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     out = int8_matmul_prequant_plain(*quantize_rows(x2.float()), q, scale)
     return out.to(x.dtype).reshape(*x.shape[:-1], q.shape[1])
+
+
+# kernel #7's split product (csrc/quant_matmul.cu, qfwd): the output
+# columns (columns of q) a CTA owns, which is also the contraction chunk a
+# stage holds, and the row counts it is built for (x's rows rounded up to
+# one of them)
+FWD_TILE = 128
+FWD_ROWS = (8, 16, 24, 32, 48, 64, 96, 128)
+# the most rows the split product takes; more take the cp.async kernel
+FWD_SPLIT_MAX_M = 127
+# the C entry's route codes: the cp.async kernel for "rows" and "tile"
+FWD_ROUTES = {"rows": 0, "tile": 0, "split": 1}
+
+
+class FwdPlan(NamedTuple):
+    """How one kernel #7 call runs: `route` ("split", "tile" or "rows"),
+    the output `tile` (rows, columns) a CTA owns, the K contraction's
+    `split` and the kernels the call `launches`."""
+    route: str
+    tile: Tuple[int, int]
+    split: int
+    launches: int
+
+
+def fwd_plan(M: int, K: int, N: int, sms: int, tma: bool = True) -> FwdPlan:
+    """Kernel #7's route on x (M, K), q (K, N):
+    - "rows": rows a TMA tensor map cannot read (N or K not a multiple of
+      16, x or q off 16 bytes) take the cp.async kernel, 128 x 128 tiles,
+      one launch;
+    - "tile": more than FWD_SPLIT_MAX_M rows take the same kernel;
+    - "split": the row pass, then the product on tiles of x's rows rounded
+      up to FWD_ROWS x 128 columns, its K contraction in as many slices of
+      128-row chunks as keep the CTAs within one an SM (never more slices
+      than chunks): two launches. A slice's partial sums cost more than
+      further CTAs win (tools/split_sweep.py), so only the narrow widths
+      split: N 4096 in 4 slices, N 6144 in 2, N 11008 and wider in one."""
+    if not tma or N % 16 or K % 16:
+        return FwdPlan("rows", (128, 128), 1, 1)
+    if M > FWD_SPLIT_MAX_M:
+        return FwdPlan("tile", (128, 128), 1, 1)
+    rows = next(r for r in FWD_ROWS if r >= M)
+    split = max(1, min(-(-K // FWD_TILE), sms // -(-N // FWD_TILE)))
+    return FwdPlan("split", (rows, FWD_TILE), split, 2)
+
+
+def fwd_slices(K: int, split: int) -> list:
+    """The K rows [k0, k1) of each of kernel #7's `split` slices: slice s
+    holds the 128-row chunks [s nc / split, (s + 1) nc / split) of nc."""
+    nc = -(-K // FWD_TILE)
+    return [(min(K, s * nc // split * FWD_TILE), min(K, (s + 1) * nc // split * FWD_TILE))
+            for s in range(split)]
+
+
+def int8_fwd_split_plain(xq, sx, q, scale, split: int) -> torch.Tensor:
+    """Kernel #7's product as the card splits it: xq (M, K) int8, sx (M, 1)
+    fp32 -> fp32 (M, N). Each slice's exact integer partial, summed
+    (exact: int32 on the card), rounds once to fp32, times sx, times
+    scale."""
+    acc = 0
+    for k0, k1 in fwd_slices(xq.shape[1], split):
+        acc = acc + _exact_product(xq[:, k0:k1], q[k0:k1])
+    return acc.float() * sx * scale.float()
 
 
 def int8_matmul_dx_plain(dy, q, scale) -> torch.Tensor:
@@ -203,15 +268,48 @@ def _launch(fn: str, *args) -> None:
     _build.check(err, fn)
 
 
-def _kernel_fwd(x2, q, scale) -> torch.Tensor:
-    """Kernel #7 on x (M, K) bf16 -> (M, N) bf16."""
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@functools.lru_cache(maxsize=512)
+def _fwd_call(M: int, K: int, N: int, sms: int, tma: bool, plan: FwdPlan = None) -> tuple:
+    """One #7 call's plan (fwd_plan's, or `plan`), the C entry's route
+    codes, the byte offsets of its scratch (sx, the tile counters, the
+    partials) and the scratch's size, cached: a decode step calls #7 with a
+    few shapes over and over, and the host's time a call is part of an
+    eager step's."""
+    plan = plan or fwd_plan(M, K, N, sms, tma)
+    o_sx = _align16(M * K)
+    o_cnt = _align16(o_sx + 4 * M)
+    o_part = _align16(o_cnt + 4 * -(-N // FWD_TILE))
+    size = o_part + 4 * plan.split * M * N if plan.split > 1 else o_cnt
+    return plan, (FWD_ROUTES[plan.route], plan.tile[0], plan.split), o_sx, o_cnt, o_part, size
+
+
+def _kernel_fwd(x2, q, scale, plan: FwdPlan = None) -> torch.Tensor:
+    """Kernel #7 on x (M, K) bf16 -> (M, N) bf16, by the route `fwd_plan`
+    picks (or `plan`). The split route's scratch is one byte buffer: xq (M,
+    K) int8, sx (M,) fp32 and, with slices, the tile counters and the int32
+    partials (split, M, N)."""
     M, K = x2.shape
     N = q.shape[1]
     _check("int8_matmul", x2, torch.bfloat16, q, scale=(scale, N))
     if q.shape[0] != K:
         raise ValueError(f"int8_matmul: x (M, {K}) against q {tuple(q.shape)}")
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x2.device)
-    _launch("int8_matmul_bf16", x2, q, scale, out, M, K, N)
+    dev = x2.device
+    plan, codes, o_sx, o_cnt, o_part, size = _fwd_call(
+        M, K, N, _sms(dev.index or 0), q.data_ptr() % 16 == 0 and x2.data_ptr() % 16 == 0,
+        plan)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    buf = xq = sx = part = cnt = None
+    if plan.route == "split":  # held until the launch is queued
+        buf = torch.empty(size, dtype=torch.uint8, device=dev)
+        xq = buf.data_ptr()
+        sx = xq + o_sx
+        if plan.split > 1:
+            cnt, part = xq + o_cnt, xq + o_part
+    _launch("int8_matmul_bf16", x2, q, scale, xq, sx, part, cnt, out, M, K, N, *codes)
     int8_matmul.launches += 1
     return out
 

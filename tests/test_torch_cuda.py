@@ -29,8 +29,10 @@ quantisation step; there every row's x_out stays within FUSED_FLIP_STEPS
 int8 steps of that row's scale (max|x_out row| / 127) and the fresh k/v
 within FUSED_KV_STEPS steps. The full-cache decode kernel #6: fp32 inputs
 within 1e-5 x max(1, max|twin|) of its twin (both in fp32, sums in other
-orders, expf against torch's exp), bf16 inputs within the bf16 bound above;
-a fully masked row is exactly 0.
+orders, exp2f of log2-scaled scores against torch's exp), bf16 inputs
+within the bf16 bound above;
+a fully masked row is exactly 0, also when the key axis is split (a split
+whose keys are all masked adds nothing to the merge).
 """
 import dataclasses
 
@@ -290,6 +292,45 @@ def test_full_decode_kernel_matches_twin(gen, dtype, B, L, H, KVH, D):
         assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
     else:
         _close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KVH,D,splits", [
+    (3, 1000, 8, 8, 128, 7),   # n_rep 1, L % 7 != 0
+    (3, 640, 16, 8, 64, 5),    # n_rep 2, D 64
+    (3, 781, 32, 8, 128, 6),   # n_rep 4: 3h's fault case
+    (3, 333, 32, 4, 128, 2),   # n_rep 8
+    (2, 129, 8, 2, 64, 1),
+])
+def test_full_decode_kernel_merges_its_key_splits(gen, monkeypatch, dtype, B, L, H, KVH, D,
+                                                   splits):
+    """Kernel #6 with its key axis split as given (full_plan patched): a
+    split whose keys are all masked (row 0's second split) adds nothing, a
+    row masked in every split (row 1) is exactly 0; within 3h's bound of
+    the plain version and of the split twin; one launch counted, one
+    kernel and the merge launched."""
+    from rlaifv_tpu_torch.ops import decode_attention as da
+
+    monkeypatch.setattr(da, "full_plan", lambda *a: splits)
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(dtype)
+               for s in ((B, H, D), (B, L, KVH, D), (B, L, KVH, D)))
+    mask = torch.ones((B, L), dtype=torch.int32, device="cuda")
+    l0, l1 = da.full_split_ranges(L, splits)[min(1, splits - 1)]
+    mask[0, l0:l1] = 0
+    mask[1] = 0
+    mask[-1, :7] = 0
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1 and (out[1] == 0).all()
+    for ref in (decode_attention_ref(q, k, v, mask),
+                da.decode_attention_split_ref(q, k, v, mask, splits)):
+        if dtype == torch.float32:
+            assert torch.isfinite(out).all()
+            err = (out - ref).abs().max().item()
+            assert err <= 1e-5 * max(1.0, ref.abs().max().item()), err
+        else:
+            _close(out, ref)
 
 
 def test_full_decode_kernel_raises_on_what_it_does_not_take(gen):
@@ -594,6 +635,30 @@ def test_int8_autograd_routes_and_quant_dense_on_cuda(gen, monkeypatch):
     got = layer(x).float()
     want = (x.float() @ (q.float() * s)).float()
     assert ((got - want).abs() <= 0.02 * want.abs() + 0.02 * want.abs().max()).all()
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 5])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 4096, 4096), (8, 4096, 6144), (10, 272, 1008), (24, 1040, 4096),
+    (63, 4096, 1040), (64, 4096, 11008), (100, 1424, 528), (127, 4096, 11008),
+])
+def test_int8_fwd_split_kernel_matches_twin(gen, M, K, N, split):
+    """Kernel #7's row pass and split product, its K contraction in the
+    given slices (ragged K: a short last chunk; N not a multiple of the
+    128-column tile; rows at the edges of the 8-row tiles): equal to its
+    twin, to #9 and to a rerun bit for bit; one launch counted."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    x, _, q, s = _int8_case(gen, M, K, N)
+    plan = qm.fwd_plan(M, K, N, 132)._replace(split=min(split, -(-K // 128)))
+    assert plan.route == "split"
+    n0 = qm.int8_matmul.launches
+    got = qm._kernel_fwd(x, q, s, plan)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul.launches - n0 == 1
+    assert torch.equal(got, qm.int8_matmul_plain(x, q, s))
+    assert torch.equal(got, qm.int8_matmul_prequant(x, q, s))
+    assert torch.equal(qm._kernel_fwd(x, q, s, plan), got)
 
 
 def test_int8_kernels_raise_on_what_they_do_not_take(gen):

@@ -88,3 +88,82 @@ def test_prefix_twin_is_the_full_twin_over_the_prefix():
     want = td.decode_attention_ref(q, k[:, :30], v[:, :30], mask[:, :30])
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------------- kernel #6's split key axis
+
+
+def _split_case(case, seed, B, L, H, KVH, D, splits):
+    """Inputs whose mask exercises the merge: "dead split" masks every key
+    of split 1 in row 0; "dead row" masks all of row 1 (a row masked in
+    every split); "holes" leaves left padding and an interior hole."""
+    q, k, v, mask = _inputs(seed, B, L, H, KVH, D)
+    mask[:] = 1
+    ranges = td.full_split_ranges(L, splits)
+    if case == "dead split":
+        mask[0, ranges[1][0]:ranges[1][1]] = 0
+    elif case == "dead row":
+        mask[1] = 0
+    else:
+        mask[-1, :3] = 0
+        mask[0, L // 3:L // 3 + 5] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("case,B,L,H,KVH,D,splits", [
+    ("dead split", 2, 96, 4, 4, 16, 3),    # n_rep 1
+    ("dead split", 2, 100, 8, 4, 32, 4),   # n_rep 2, L not a multiple of the splits
+    ("dead row", 3, 77, 8, 2, 16, 5),      # n_rep 4
+    ("dead row", 2, 130, 8, 1, 64, 2),     # n_rep 8
+    ("holes", 3, 129, 16, 2, 32, 7),       # n_rep 8, L % 7 != 0
+    ("holes", 2, 64, 4, 4, 16, 1),         # one split: the plain state
+])
+def test_split_twin_matches_ref_and_jax(case, B, L, H, KVH, D, splits):
+    """decode_attention_split_ref (each split's (m, l, acc) merged as the
+    card merges them) against decode_attention_ref and the JAX
+    decode_attention(..., interpret=True), fp32, within 1e-5 x max(1,
+    max|ref|) (3h's bound: sums in other orders, exp rounded once more per
+    split). A split whose keys are all masked adds nothing; a row masked in
+    every split is exactly 0."""
+    q, k, v, mask = _split_case(case, 4, B, L, H, KVH, D, splits)
+    args = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    got = td.decode_attention_split_ref(*args, splits)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, H, D)
+    assert torch.isfinite(got).all()
+    for want in (td.decode_attention_ref(*args).numpy(), _jax(q, k, v, mask)):
+        bound = 1e-5 * max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(got.numpy() - want).max()) <= bound
+    if case == "dead row":
+        assert (got[1] == 0).all()
+    if case == "dead split":  # the live splits of row 0 alone give its output
+        live = [r for i, r in enumerate(td.full_split_ranges(L, splits)) if i != 1]
+        keep = torch.zeros(L, dtype=torch.bool)
+        for l0, l1 in live:
+            keep[l0:l1] = True
+        alone = td.decode_attention_ref(args[0][:1], args[1][:1, keep], args[2][:1, keep],
+                                        args[3][:1, keep])
+        torch.testing.assert_close(got[:1], alone, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,KVH,L,n_rep,want", [
+    (8, 8, 2304, 4, 6),     # Llama3-8B's GQA step: 384 CTAs for 3 x 132
+    (8, 4, 2304, 8, 8),     # n_rep 8: two CTAs an SM, 256 CTAs
+    (24, 32, 1024, 1, 1),   # batch 24, H = KVH = 32: 768 CTAs already
+    (4, 8, 896, 1, 7),      # run_tpu_checks' shape: 8 fit, 7 splits of 128 keys
+    (4, 4, 896, 2, 7),
+    (3, 8, 781, 4, 6),
+    (1, 1, 100, 4, 1),      # fewer keys than one split's floor
+    (2, 1, 4096, 8, 32),
+    (16, 8, 4096, 4, 3),    # 384 CTAs
+])
+def test_full_plan(B, KVH, L, n_rep, want):
+    """As many splits as B x KVH x splits CTAs fit in one wave of the CTAs
+    an SM holds at this n_rep on 132 SMs, each split at least
+    FULL_MIN_KEYS keys; the ranges cover the keys once."""
+    splits = td.full_plan(B, KVH, L, 132, n_rep)
+    assert splits == want
+    ranges = td.full_split_ranges(L, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == L
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert splits == 1 or min(l1 - l0 for l0, l1 in ranges) >= td.FULL_MIN_KEYS
+    assert splits == 1 or B * KVH * splits <= td.FULL_CTAS_PER_SM[n_rep] * 132

@@ -281,3 +281,77 @@ def test_dx_prequant_twin_at_the_wide_tiles_edges_matches_jax(M, K, N):
         if plan.route == "split":
             assert torch.equal(tq.int8_dx_split_plain(dyq, sy, tqw, plan.split).to(got.dtype),
                                got)
+
+
+# ------------------------------------------- kernel #7's split product and plan
+
+
+@pytest.mark.parametrize("M,K,N,tma,want", [
+    # phase 11's decode rows at the fused widths (qkv 3 x 4096, gate/up 2 x
+    # 11008) and its o and down projections
+    (10, 4096, 12288, True, ("split", (16, 128), 1, 2)),
+    (24, 4096, 12288, True, ("split", (24, 128), 1, 2)),
+    (24, 4096, 22016, True, ("split", (24, 128), 1, 2)),
+    (24, 4096, 4096, True, ("split", (24, 128), 4, 2)),
+    (24, 11008, 4096, True, ("split", (24, 128), 4, 2)),
+    # phase 13's Llama3-8B decode rows: fused qkv, gate/up, down
+    (8, 4096, 6144, True, ("split", (8, 128), 2, 2)),
+    (8, 4096, 28672, True, ("split", (8, 128), 1, 2)),
+    (8, 14336, 4096, True, ("split", (8, 128), 4, 2)),
+    # the 7B widths at 3d's rows below the crossover and the short step's suffix
+    (16, 4096, 4096, True, ("split", (16, 128), 4, 2)),
+    (64, 4096, 11008, True, ("split", (64, 128), 1, 2)),
+    (64, 11008, 4096, True, ("split", (64, 128), 4, 2)),
+    (127, 4096, 11008, True, ("split", (128, 128), 1, 2)),
+    # few columns and a short contraction: no more slices than 128-row chunks
+    (1, 32, 16, True, ("split", (8, 128), 1, 2)),
+    (40, 272, 1008, True, ("split", (48, 128), 3, 2)),
+    # more rows than the split product takes, and rows TMA cannot map
+    (128, 4096, 4096, True, ("tile", (128, 128), 1, 1)),
+    (64, 4096, 1000, True, ("rows", (128, 128), 1, 1)),
+    (64, 4100, 4096, True, ("rows", (128, 128), 1, 1)),
+    (24, 4096, 12288, False, ("rows", (128, 128), 1, 1)),
+])
+def test_fwd_plan(M, K, N, tma, want):
+    """#7 takes the row pass and the split product up to FWD_SPLIT_MAX_M
+    rows, on tiles of the rows rounded up to FWD_ROWS, its K contraction
+    in as many slices as keep the CTAs within one an SM on 132 SMs (never
+    more slices than 128-row chunks): two launches; the cp.async kernel
+    above it and on rows TMA cannot map: one. The slices cover K exactly
+    once."""
+    plan = tq.fwd_plan(M, K, N, 132, tma)
+    assert tuple(plan) == want
+    if plan.route == "split":
+        assert plan.tile[0] == min(r for r in tq.FWD_ROWS if r >= M)
+        assert -(-N // tq.FWD_TILE) * plan.split <= 132 or plan.split == 1
+    slices = tq.fwd_slices(K, plan.split)
+    assert slices[0][0] == 0 and slices[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+    assert all(k0 < k1 for k0, k1 in slices)  # no empty slice where the plan splits
+    assert all(k0 % tq.FWD_TILE == 0 for k0, _ in slices)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 5])
+@pytest.mark.parametrize("M,K,N", [(8, 640, 128), (24, 520, 96), (5, 300, 200), (64, 1000, 48)])
+def test_fwd_split_contraction_equals_the_twins_and_jax(M, K, N, split):
+    """#7's product on the card splits the K contraction into slices of
+    128-row chunks (ragged K: the last chunk short) and sums their exact
+    int32 partials (int8_fwd_split_plain): equal to int8_matmul_plain and to
+    the #9 twin bit for bit, on rows quantised once (the row pass); and,
+    given the rows the reciprocal rule quantises, to the JAX in-kernel #7 in
+    interpret mode bit for bit (the rule test_in_kernel_twins_match_jax
+    pins)."""
+    (jx, tx), _, (jqw, js), (tqw, ts) = _inputs(8, M, K, N, "bf16")
+    xq, sx = tq.quantize_rows(tx.float())
+    got = tq.int8_fwd_split_plain(xq, sx, tqw, ts, split).to(tx.dtype)
+    assert torch.equal(got, tq.int8_matmul_plain(tx, tqw, ts))
+    assert torch.equal(got, tq.int8_matmul_prequant_plain(xq, sx, tqw, ts).to(tx.dtype))
+    np.testing.assert_array_equal(_np(got), _np(jq.int8_matmul_prequant(jx, jqw, js)))
+    amax = tx.float().abs().amax(dim=-1, keepdim=True)
+    sr = torch.clamp_min(amax, 1e-20) * torch.tensor(np.float32(1) / np.float32(127))
+    xr = torch.round(tx.float() / sr).clamp(-127, 127).to(torch.int8)
+    np.testing.assert_array_equal(
+        _np(tq.int8_fwd_split_plain(xr, sr, tqw, ts, split).to(tx.dtype)),
+        _np(jq.int8_matmul(jx, jqw, js, interpret=True)))
+    slices = tq.fwd_slices(K, split)
+    assert sum(k1 - k0 for k0, k1 in slices) == K

@@ -1,5 +1,5 @@
 """Wall time of chip_smoke.py phase 9's QLoRA short step, cold and warm,
-and what kernel #8 costs in it, for the tree at ROOT (default: this
+and what kernels #8 and #7 cost in it, for the tree at ROOT (default: this
 checkout).
 
 The short step is one preference pair whose suffix (64 projection rows,
@@ -15,11 +15,12 @@ script prints, on one line each:
   between the two medians is #8's cost in the step beside that common
   route, whatever the host's speed in that process;
 - one warm step under torch.profiler: its wall and device time and every
-  kernel whose name holds "qmm" or "qdx" (#7-#10), count and device ms;
-- one #8 call at the step's widest shape (M 64, K 4096, N 11008): its
-  device ms (CUDA events behind a spin kernel, as chip_smoke times) and
-  its host microseconds (200 calls issued while a spin kernel holds the
-  card).
+  kernel whose name holds "qmm", "qdx" or "qfwd" (#7-#10), count and
+  device ms;
+- one #8 call and one #7 call at the step's widest shape (M 64, K 4096, N
+  11008): device ms (CUDA events behind a spin kernel, as chip_smoke
+  times) and host microseconds (200 calls issued while a spin kernel holds
+  the card).
 
 Each process imports ROOT's chip_smoke.py and rlaifv_tpu_torch, so ROOT
 may be an unpacked `git archive` of another commit; run two trees in one
@@ -109,7 +110,7 @@ def main() -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(_device_us(e) for e in kernels) / 1e3
-    int8 = [e for e in kernels if "qmm" in e.key or "qdx" in e.key]
+    int8 = [e for e in kernels if "qmm" in e.key or "qdx" in e.key or "qfwd" in e.key]
     print(f"{tag}: one warm step with #8 profiled: {wall * 1e3:.1f} ms wall, {device:.1f} "
           f"ms of device time | " + " | ".join(
               f"{e.key.replace('(anonymous namespace)::', '').split('(')[0][:60]} "
@@ -118,17 +119,19 @@ def main() -> None:
     M, K, N = 2 * qb["W"], 4096, 11008
     g = torch.Generator(device="cuda").manual_seed(0)
     q, s = cs.quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
-    dy = cs._randn(g, M, N)
-    dev_ms = cs.time_ms(lambda: cs.qm._kernel_dx(dy, q, s))
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    t0 = time.perf_counter()
-    for _ in range(200):
-        cs.qm._kernel_dx(dy, q, s)
-    host_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    print(f"{tag}: one #8 call at M={M} K={K} N={N}: {dev_ms:.4f} ms on the card, "
-          f"{host_us:.1f} us on the host", flush=True)
+    dy, x = cs._randn(g, M, N), cs._randn(g, M, K)
+    for name, call in (("#8", lambda: cs.qm._kernel_dx(dy, q, s)),
+                       ("#7", lambda: cs.qm._kernel_fwd(x, q, s))):
+        dev_ms = cs.time_ms(call)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        print(f"{tag}: one {name} call at M={M} K={K} N={N}: {dev_ms:.4f} ms on the card, "
+              f"{host_us:.1f} us on the host", flush=True)
 
 
 if __name__ == "__main__":
