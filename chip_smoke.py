@@ -101,15 +101,20 @@ Phases, one progress line each (or a few):
      routes logged), one case with
      N % 16 != 0 (#10 on the rows TMA cannot map), and one projection's
      int8 route against the dequant route (the activation-quantisation
-     error, ~1%); then #8 on rows whose quotients fall on and next to
+     error, ~1%); #9's route (fwd_prequant_plan: the wide tile, or the
+     cp.async kernel where TMA cannot map the rows) and kernels a call
+     (captured), its cp.async kernel (the parent's route) from 128 rows and
+     the whole int8_matmul_prequant call (the row pass on the card and the
+     product) beside it; then #8 on rows whose quotients fall on and next to
      half-integers (synth.quotient_ties; M = 1, 63, 64, 127, the short
-     step's, ragged K and N), reruns bit-equal, and seven planted faults
+     step's, ragged K and N), reruns bit-equal, and ten planted faults
      (#8: one contraction slice dropped, sy from the next row; #10 on its
      wide tile: the last contraction stage dropped, sy from the wrong row of
      a tile; #7's split product: one K slice dropped, sx from the next row,
-     the column scale one column off), each a broken copy of
-     csrc/quant_matmul.cu built beside the kernels, that must break the
-     bit-exact check;
+     the column scale one column off; #9's wide tile: the last contraction
+     stage dropped, sx from the next row, the column scale one column off),
+     each a broken copy of csrc/quant_matmul.cu built beside the kernels,
+     that must break the bit-exact check;
   9. the QLoRA slice (configs/llava15_dpo_qlora.json): phase 8's seed-0
      LLaVA-1.5-7B rebuilt after phase 6 is freed, its LLM projections
      quantised to int8 on the card (head, CLIP and projector bf16), the
@@ -138,13 +143,20 @@ Phases, one progress line each (or a few):
      accumulator not cleared, a nibble's sign dropped), each of which must
      break the check;
   3f. (run after 3e) kernel #5, prefix decode over an int8 cache, against
-     its plain twin at phase 11's shapes (B = 10 and 4 at L = 896, block
-     128; B = 24 at L = 1024, block 256) and the edges (one live column,
-     mid-block, a block edge, L % 256 != 0, n_rep 4, D 64, fully masked
-     rows), NaN scales past the last live block; times beside the bound and
-     SDPA over the cache dequantised to bf16; then planted faults (the
-     v-scale fold dropped, p quantised with one global max, valid_len one
-     block short, the mask ignored), each of which must break the bound;
+     its split twin (decode_attention_prefix_int8_split_ref at the key
+     splits prefix_int8_plan gives on this card) at phase 11's shapes (B =
+     10 and 4 at L = 896, block 128; B = 24 at L = 1024, block 256), the
+     int8 Llama3 backend's GQA step (B 8, H 32, KVH 8, L 2304, valid_len
+     2200: 4 splits) and the edges (one live column, mid-block, a block
+     edge, L % 256 != 0, n_rep 4, D 64, fully masked rows), NaN scales past
+     the last live block, reruns bit-equal, each case's splits and the
+     kernels one call launched (a CUDA graph: the split kernel and, with
+     splits, the merge); times beside the bound and SDPA over the cache
+     dequantised to bf16; then planted faults (the v-scale fold dropped, p
+     quantised with one global max, valid_len one block short, the mask
+     ignored; and two broken copies of the merge on the GQA case: one
+     split's state left out, the splits merged without rescaling to the
+     common max), each of which must break the bound;
   3g. (run after 3f) kernel #16, fused decode through the layer stack,
      against its plain twin (fused_decode_step_ref) at the 7B widths
      (Vicuna-7B, 32 layers, random int8/int4 stacked weights and cache):
@@ -267,11 +279,13 @@ from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix,
     decode_attention_prefix_int8,
     decode_attention_prefix_int8_ref,
+    decode_attention_prefix_int8_split_ref,
     decode_attention_prefix_ref,
     decode_attention_ref,
     dequantize_kv,
     full_plan,
     prefix_block_l,
+    prefix_int8_plan,
     quantize_kv,
 )
 from rlaifv_tpu_torch.ops import fused_head as fh  # noqa: E402
@@ -1456,6 +1470,9 @@ def _kv8_ratio(out: torch.Tensor, ref: torch.Tensor) -> tuple:
 
 KV8_CASES = [  # 3f: the serving path's shapes, then the edges
     dict(name="diverse_gen", B=10, L=896, H=32, KVH=32, D=128, valid=896, time=True),
+    # the int8 Llama3-8B backend's GQA decode step (phase 13), from a
+    # generator of its own: the shared one keeps giving 3g its inputs
+    dict(name="Llama3 GQA", B=8, L=2304, H=32, KVH=8, D=128, valid=2200, time=True, own=True),
     dict(name="greedy_gen", B=4, L=896, H=32, KVH=32, D=128, valid=833, time=False),
     dict(name="batch-24 headline", B=24, L=1024, H=32, KVH=32, D=128, valid=960, time=True),
     dict(name="one live column", B=4, L=1024, H=32, KVH=32, D=128, valid=1, time=False),
@@ -1466,46 +1483,83 @@ KV8_CASES = [  # 3f: the serving path's shapes, then the edges
 ]
 
 
+def kv8_splits(B: int, L: int, H: int, KVH: int, valid: int) -> int:
+    """The key splits kernel #5 takes on this card (prefix_int8_plan)."""
+    return prefix_int8_plan(B, KVH, max(-(-valid // prefix_block_l(L)), 1), qm._sms(0), H // KVH)
+
+
+# 3f: planted faults in #5's merge, each a broken copy of
+# csrc/decode_attention_int8.cu run on the Llama3 GQA case (4 key splits on
+# 132 SMs)
+KV8_MERGE_FAULTS = {
+    "one split's state left out of the merge": [(
+        "decode_attention_int8.cu", "  for (int si = 0; si < splits; ++si) {",
+        "  for (int si = 0; si < splits - 1; ++si) {")],
+    "the splits merged without rescaling to the common max": [(
+        "decode_attention_int8.cu", "    const float w = expf(__fsub_rn(ps[D], mx));",
+        "    const float w = 1.f;")],
+}
+
+
 def phase_kv8_kernel(g) -> dict:
-    """3f: kernel #5 against its twin at the serving path's shapes and the
-    edges, times beside the bound and the library yardstick, then planted
-    faults that must break the bound."""
+    """3f: kernel #5 against its split twin (at the key splits the card's
+    plan gives) at the serving path's shapes, the int8 Llama3 backend's and
+    the edges, the kernels one call launched (a CUDA graph of the call),
+    times beside the bound and the library yardstick, then planted faults
+    (four around the kernel, two broken merges) that must break the bound."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    merge_variants = pool.submit(build_variants, KV8_MERGE_FAULTS)
+    own = torch.Generator(device="cuda").manual_seed(5)
     res = {"err": 0.0}
     for c in KV8_CASES:
         B, L, H, KVH, D, valid = (c[k] for k in ("B", "L", "H", "KVH", "D", "valid"))
-        args = _kv8_cache(g, B, L, H, KVH, D, valid)
+        args = _kv8_cache(own if c.get("own") else g, B, L, H, KVH, D, valid)
+        splits = kv8_splits(B, L, H, KVH, valid)
         out = decode_attention_prefix_int8(*args, valid)
-        ref = decode_attention_prefix_int8_ref(*args, valid)
+        again = decode_attention_prefix_int8(*args, valid)
+        ref = decode_attention_prefix_int8_split_ref(*args, valid, splits)
         torch.cuda.synchronize()
         err, ratio = _kv8_ratio(out, ref)
         dead = [b for b in range(B) if 7 * b >= valid]  # rows that see no key
-        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead)
+        launched = launched_ops(lambda: decode_attention_prefix_int8(*args, valid))
+        ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead) and \
+            torch.equal(again, out) and launched.get("kernel", 0) == 1 + (splits > 1)
         msg = (f"[3f int8 decode] {c['name']}: B={B} L={L} H={H} KVH={KVH} D={D} "
-               f"valid_len={valid} block_l={prefix_block_l(L)} | max|err| {err:.3e} = "
-               f"{ratio:.3f} of the bound ({KV8_TOL:.4f} x max|twin|), {len(dead)} fully "
-               f"masked rows")
+               f"valid_len={valid} block_l={prefix_block_l(L)}, {splits} key splits; one call "
+               f"captured in a CUDA graph: {ops_text(launched)} | max|err| against the split "
+               f"twin {err:.3e} = {ratio:.3f} of the bound ({KV8_TOL:.4f} x max|twin|), rerun "
+               f"equal {torch.equal(again, out)}, {len(dead)} fully masked rows")
         if c["time"]:
             q, kq, ks, vq, vs, mask = args
             t_k = time_ms(lambda: decode_attention_prefix_int8(*args, valid))
             t_p = time_ms(lambda: decode_attention_prefix_int8_ref(*args, valid), 10)
             live = [t[:, :valid] for t in (kq, ks, vq, vs, mask)]
-            kd, vd = (dequantize_kv(a, sc, torch.bfloat16) for a, sc in
-                      ((live[0], live[1]), (live[2], live[3])))
+            kd, vd = (dequantize_kv(a, sc, torch.bfloat16).repeat_interleave(H // KVH, dim=2)
+                      for a, sc in ((live[0], live[1]), (live[2], live[3])))
             keep = (live[4] != 0)[:, None, None, :]
             t_lib = time_ms(lambda: sdpa(q[:, None], kd, vd, keep))
             ops = 4 * H * D * valid * B
             b = bound(ops, _nbytes(q, *live, out), PEAK_INT8_TOPS)
             gbps = _nbytes(q, *live, out) / (t_k * 1e-3) / 1e9
-            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps, **b)
+            res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=t_lib, gbps=gbps,
+                                  splits=splits, kernels_a_call=launched.get("kernel", 0), **b)
             msg += (f" | kernel {t_k:.4f} ms = {gbps:.0f} GB/s ({gbps / HBM_PEAK_GBPS:.1%} of "
                     f"{HBM_PEAK_GBPS:.0f}), bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                     f"twin {t_p:.3f} ms, SDPA over the live prefix dequantised to bf16 "
-                    f"(dequantisation not timed) {t_lib:.4f} ms")
+                    f"(dequantisation not timed{', KV repeated to H' if H > KVH else ''}) "
+                    f"{t_lib:.4f} ms")
         log(msg + f" | {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"kernel #5 disagrees with its twin: {c['name']}")
+            raise AssertionError(f"kernel #5 disagrees with its split twin, a rerun or its "
+                                 f"planned launches: {c['name']}")
         res["err"] = max(res["err"], err)
-        del args, out, ref
+        if c["name"] == "Llama3 GQA":
+            merge_case = (args, ref, valid)
+        else:
+            del args
+        del out, ref, again
     torch.cuda.empty_cache()
 
     # the probe: block 0 holds two keys scoring ~6 above the rest, so the
@@ -1520,7 +1574,8 @@ def phase_kv8_kernel(g) -> dict:
     args = _kv8_cache(g, B, L, H, H, D, valid, pad=100)
     args[0] = q
     args[1], args[2] = quantize_kv(kf.to(torch.bfloat16))
-    ref = decode_attention_prefix_int8_ref(*args, valid)
+    splits = kv8_splits(B, L, H, H, valid)
+    ref = decode_attention_prefix_int8_split_ref(*args, valid, splits)
     q, kq, ks, vq, vs, mask = args
     sound = decode_attention_prefix_int8(*args, valid)
     faults = {
@@ -1535,12 +1590,27 @@ def phase_kv8_kernel(g) -> dict:
     }
     torch.cuda.synchronize()
     err, ratio = _kv8_ratio(sound, ref)
-    log(f"[3f int8 decode] probe B={B} L={L} H={H} D={D} valid_len={valid}: the sound "
-        f"kernel at {ratio:.3f} of the bound | {'ok' if ratio <= 1 else 'FAIL'}")
+    log(f"[3f int8 decode] probe B={B} L={L} H={H} D={D} valid_len={valid}, {splits} key "
+        f"splits: the sound kernel at {ratio:.3f} of the bound (against the split twin) | "
+        f"{'ok' if ratio <= 1 else 'FAIL'}")
     if ratio > 1:
         raise AssertionError("kernel #5 disagrees with its twin on the probe")
-    for name, out in faults.items():
-        err, ratio = _kv8_ratio(out, ref)
+    # the broken merges, on the Llama3 GQA case's splits
+    t0 = time.perf_counter()
+    libs = merge_variants.result()
+    pool.shutdown()
+    log(f"[3f int8 decode] planted faults: {len(libs)} broken merges built in the background "
+        f"(waited {time.perf_counter() - t0:.1f} s)")
+    margs, mref, mvalid = merge_case
+    (mB, mH, _), (_, mL, mKVH, _) = margs[0].shape, margs[1].shape
+    assert kv8_splits(mB, mL, mH, mKVH, mvalid) > 1
+    checks = [(name, out, ref) for name, out in faults.items()]
+    for name, lib in libs.items():
+        with kernels_from(lib):
+            checks.append((name, decode_attention_prefix_int8(*margs, mvalid), mref))
+    torch.cuda.synchronize()
+    for name, out, want in checks:
+        err, ratio = _kv8_ratio(out, want)
         log(f"[3f int8 decode] planted fault {name!r}: max|err| {err:.3e} = {ratio:.3g} of "
             f"the bound | {'caught' if ratio > 1 else 'MISSED'}")
         if ratio <= 1:
@@ -3107,6 +3177,18 @@ FWD7_FAULTS = {
         "for (int e = 0; e < 4; ++e) cs[e] = s[(col + e + 1) % N];")],
 }
 FWD7_FAULT_CASE = (24, 4096, 4096)  # M, K, N: the o projection at the batch-24 decode rows
+# 3d: planted faults in #9's wide tile (qpre::fwd_wide), on the 8-pair
+# step's prefix rows at gate/up, from a generator of its own
+FWD9_FAULTS = {
+    "#9: the last contraction stage dropped": [(
+        "quant_matmul.cu", "const int chunks = (K + TK - 1) / TK;",
+        "const int chunks = (K + TK - 1) / TK - 1;")],
+    "#9: sx taken from the next row": [(
+        "quant_matmul.cu", "const float rowscale = sx[m];",
+        "const float rowscale = sx[(m + 1) % M];")],
+    "#9: the column scale read one column off": [(
+        "quant_matmul.cu", "colscale[e] = s[col + e];", "colscale[e] = s[(col + e + 1) % N];")],
+}
 # 3d: planted faults in #10's wide tile (qdx::dx_wide)
 DX10_FAULTS = {
     "#10: the last contraction stage dropped": [(
@@ -3212,6 +3294,11 @@ def phase_int8(g, qb: dict) -> dict:
             all(bool(torch.isfinite(o.float()).all()) for o in out.values())
         t = {k: time_ms(fn) for k, fn in run.items()}
         t_quant = time_ms(lambda: qm.quantize_rows(x.float()))
+        # #9: the whole wrapper call (the row pass on the card and the
+        # product) and, from 128 rows, its cp.async kernel (the parent's route)
+        t_call9 = time_ms(lambda: qm.int8_matmul_prequant(x, q, s))
+        t_rows9 = time_ms(lambda: qm._kernel_prequant(
+            xq, sx, q, s, qm.FwdPlan("rows", (128, 128), 1, 1))) if M >= 128 else None
         # #7's cp.async kernel (the parent's route below 128 rows) in this run
         t_tile = time_ms(lambda: qm._kernel_fwd(x, q, s, qm.FwdPlan("tile", (128, 128), 1, 1))) \
             if M < 128 else None
@@ -3231,6 +3318,7 @@ def phase_int8(g, qb: dict) -> dict:
                             dequant_ms=t_deq[ref],
                             **bound(ops, nbytes[k], PEAK_INT8_TOPS))
         entry[7].update(tile_ms=t_tile, padded_library_ms=t_pad, quant_ms=t_quant)
+        entry[9].update(call_ms=t_call9, rows_ms=t_rows9)
         res[(M, K, N)] = entry
 
         def lib(k):
@@ -3251,15 +3339,25 @@ def phase_int8(g, qb: dict) -> dict:
         launched7 = launched_ops(run[7])
         entry[7].update(kernels_a_call=launched7.get("kernel", 0), route=fplan.route,
                         split=fplan.split)
+        plan9 = qm.fwd_prequant_plan(M, K, N, qm._sms(0),
+                                     q.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0)
+        launched9 = launched_ops(run[9])
+        entry[9].update(kernels_a_call=launched9.get("kernel", 0), route=plan9.route)
         ok = ok and launched.get("kernel", 0) == qm.dx_launches(split) and \
             launched10.get("kernel", 0) == plan.launches and \
-            launched7.get("kernel", 0) == fplan.launches
+            launched7.get("kernel", 0) == fplan.launches and \
+            launched9.get("kernel", 0) == plan9.launches
         log(f"[3d int8] M={M} K={K} N={N}: one #7 call captured in a CUDA graph: "
             f"{ops_text(launched7)}; route {fplan.route}, tile {fplan.tile[0]} x "
             f"{fplan.tile[1]}, {fplan.split} K slices, {fplan.launches} kernels planned"
             + (f"; its cp.async kernel (the parent's route) {t_tile:.4f} ms, "
                f"{t_tile / t[7]:.2f}x" if t_tile else "")
-            + f" | one #8 call: "
+            + f" | one #9 call: {ops_text(launched9)}; route {plan9.route}, tile "
+            f"{plan9.tile[0]} x {plan9.tile[1]}, {plan9.launches} kernel planned"
+            + (f"; its cp.async kernel (the parent's route) {t_rows9:.4f} ms, "
+               f"{t_rows9 / t[9]:.2f}x" if t_rows9 else "")
+            + f"; the whole int8_matmul_prequant call (row pass on the card + product) "
+            f"{t_call9:.4f} ms | one #8 call: "
             f"{ops_text(launched)}; {split} contraction slices, {qm.dx_launches(split)} kernels "
             f"planned | one #10 call: {ops_text(launched10)}; route {plan.route}, tile "
             f"{plan.tile[0]} x {plan.tile[1]}, {plan.split} slices, {plan.launches} kernels "
@@ -3279,8 +3377,9 @@ def phase_int8(g, qb: dict) -> dict:
                 f"{t[9]:.4f} + its torch row quantisation {t_quant:.4f} = "
                 f"{t[9] + t_quant:.4f} ms")
         if not ok:
-            raise AssertionError(f"int8 kernels disagree with the plain twins, or #7, #8 or "
-                                 f"#10 with its planned launches, at M={M} K={K} N={N}: {err}")
+            raise AssertionError(f"int8 kernels disagree with the plain twins, or #7, #8, #9 "
+                                 f"or #10 with its planned launches, at M={M} K={K} N={N}: "
+                                 f"{err}")
         res["err"] = max(res["err"], max(err.values()))
         if M == qb["m_prefix"]:
             route_noise("[3d int8]", out[9], out[10], qm.dequant_matmul(x, q, s),
@@ -3322,9 +3421,16 @@ def phase_int8(g, qb: dict) -> dict:
     q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g7, device="cuda"))
     x = _randn(g7, M, K)
     case7 = (qm._kernel_fwd, (x, q, s), qm.int8_matmul_plain(x, q, s))
-    planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS, **FWD7_FAULTS},
+    M, K, N = qb["m_prefix"], 4096, 11008  # #9 on its wide tile
+    assert qm.fwd_prequant_plan(M, K, N, qm._sms(0)).route == "wide"
+    g9 = torch.Generator(device="cuda").manual_seed(9)
+    q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=g9, device="cuda"))
+    x = _randn(g9, M, K)
+    xq, sx = qm.quantize_rows(x.float())
+    case9 = (qm._kernel_prequant, (xq, sx.reshape(-1), q, s), qm.int8_matmul_plain(x, q, s))
+    planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS, **FWD7_FAULTS, **FWD9_FAULTS},
                    {**{k: case for k in DX8_FAULTS}, **{k: case10 for k in DX10_FAULTS},
-                    **{k: case7 for k in FWD7_FAULTS}})
+                    **{k: case7 for k in FWD7_FAULTS}, **{k: case9 for k in FWD9_FAULTS}})
     return res
 
 
@@ -3988,7 +4094,11 @@ def main() -> None:
              f"its slices; one wrapper call launched {small[8]['kernels_a_call']} kernels "
              "here (a CUDA graph of one call, 3d; launches counts calls)"),
         _row("int8_matmul_prequant", q_src, f"{q_py}:244", launches["int8_prequant"],
-             int8["err"], large[9]),
+             int8["err"], large[9],
+             f"redesigned: the {large[9]['route']} route here (a 128 x 256 TMA + wgmma tile "
+             "with q^T built in registers); one product call launched "
+             f"{large[9]['kernels_a_call']} kernel here (a CUDA graph of one call, 3d); the "
+             f"whole wrapper call with its row pass {large[9]['call_ms']:.4f} ms"),
         _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
              launches["int8_dx_prequant"], int8["err"], large[10],
              f"redesigned: the {large[10]['route']} route here (a 128 x 256 TMA + wgmma "
@@ -4018,7 +4128,13 @@ def main() -> None:
     kernels.append(_row(
         "decode_attention_prefix_int8", "rlaifv_tpu_torch/csrc/decode_attention_int8.cu",
         "rlaifv_tpu/ops/decode_attention.py:180", launches["decode_int8"], kv8["err"],
-        kv8["diverse_gen"]))
+        kv8["diverse_gen"],
+        f"redesigned: key blocks split over CTAs where B x KVH does not fill a wave "
+        f"({kv8['diverse_gen']['splits']} here, {kv8['Llama3 GQA']['splits']} at the Llama3 "
+        f"GQA step: {kv8['Llama3 GQA']['ms']:.4f} ms against a bound of "
+        f"{kv8['Llama3 GQA']['bound_ms']:.4f}), a TMA ring of k/v tiles, both products on "
+        "mma.sync; one call launched "
+        f"{kv8['diverse_gen']['kernels_a_call']} kernel here (a CUDA graph of one call, 3f)"))
     # row 16 at the batch-24 headline's decode step (int8, L 1024, cache_index
     # 960); max_abs_err is x_out's over 3g's cases; no single PyTorch call
     # computes the function (library_ms null; 12 logs the eager step beside it)

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of this
 // directory (fused_head.cu, quant_matmul.cu, int4_matmul.cu,
-// flash_attention.cu, flash_attention_bwd.cu): mbarriers, 1D/2D/4D TMA
+// flash_attention.cu, flash_attention_bwd.cu, decode_attention_int8.cu):
+// mbarriers, 1D/2D/3D/4D TMA
 // loads, wgmma shared-memory descriptors, fences, programmatic dependent
 // launch, the int8 products (n128 and n256) and the bf16 products of the
 // attention kernels, and the tensor-map encoders looked up through the CUDA
@@ -76,6 +77,16 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap *map
       "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
+      : "memory");
+}
+
+// the box at (c0, c1, c2), innermost first, of a 3D tensor map
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap *map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -25,8 +25,9 @@
 // against K N + M (K + N) bytes), the weight bytes at small M (M < 128, each
 // q byte is used by only M rows).
 //
-// What the design does about it (#9; #7 and #10 on rows TMA cannot map, #7
-// also above FWD_SPLIT_MAX_M; #8 and #10 in qdx below, #7 in qfwd): each CTA
+// What the design does about it (qmm_kernel: #7, #9 and #10 on rows TMA
+// cannot map, #7 also above FWD_SPLIT_MAX_M; #8 and #10 in qdx below, #7 in
+// qfwd, #9 in qpre): each CTA
 // owns a 128 x 128 output tile and walks the contraction in 64-wide chunks
 // through two shared-memory stages (cp.async for int8 operands), 8 warps
 // each issuing mma.sync m16n8k32 s8 x s8 -> s32 on a 32 x 64 sub-tile. The
@@ -330,21 +331,25 @@ __device__ __forceinline__ float block_max(float v, float *red) {
   return v;
 }
 
-// one CTA a row: dyq[m] = clamp(rn(v / sy), +-127) with v = dy[m] * s
+// one CTA a row: dyq[m] = clamp(rn(v / sy), +-127) with v = dy[m] * s, or
+// v = dy[m] where s is null (the prequant forward's rows on any K)
 __global__ void __launch_bounds__(256)
     dx_quant_rows(const bf16 *__restrict__ dy, const float *__restrict__ s,
                   int8_t *__restrict__ dyq, float *__restrict__ sy, int N) {
   __shared__ float red[8];
   const long long m = blockIdx.x;
   const bf16 *row = dy + m * N;
+  const auto value = [&](int n) {
+    const float x = __bfloat162float(row[n]);
+    return s != nullptr ? __fmul_rn(x, s[n]) : x;
+  };
   float amax = 0.f;
-  for (int n = threadIdx.x; n < N; n += 256)
-    amax = fmaxf(amax, fabsf(__fmul_rn(__bfloat162float(row[n]), s[n])));
+  for (int n = threadIdx.x; n < N; n += 256) amax = fmaxf(amax, fabsf(value(n)));
   const float scale = __fdiv_rn(fmaxf(block_max(amax, red), 1e-20f), 127.0f);
   if (threadIdx.x == 0) sy[m] = scale;
   int8_t *out = dyq + m * N;
   for (int n = threadIdx.x; n < N; n += 256) {
-    const int q = __float2int_rn(__fdiv_rn(__fmul_rn(__bfloat162float(row[n]), s[n]), scale));
+    const int q = __float2int_rn(__fdiv_rn(value(n), scale));
     out[n] = static_cast<int8_t>(max(-127, min(127, q)));
   }
 }
@@ -999,6 +1004,235 @@ int product_by_rows(int rows, const void *xq, const void *sx, const void *q, con
 
 }  // namespace qfwd
 
+// ------------------------------------------------------------ #9, redesigned
+//
+// out = bf16((float(xq . q) * sx) * s) on prequantised rows at the row
+// counts of a prefill or a QLoRA step (M ~ 10^2 - 10^4): 2 M K N int8
+// operations against M K + K N + 2 M N bytes, bound by the tensor cores.
+// The contraction K is the row axis of q, which lies N-contiguous, and int8
+// wgmma takes both operands K-major with no transpose flag, so the weight is
+// the A operand ("swap AB": out^T = q^T . xq^T) and q^T is built in
+// registers, where int8 wgmma accepts A; B = xq is K-major as it lies.
+// fwd_wide: a CTA of two consumer warpgroups (no producer warp) owns rows
+// [m0, m0 + 128) of xq and columns [n0, n0 + 256) of q, each warpgroup 128 of
+// the columns as two m64n128k32 s8 x s8 -> s32 products (two 64-register
+// int32 accumulators) sharing one B tile. A 4-stage TMA ring of
+// 128-byte-swizzled tiles (two 128 x 128 boxes of q as it lies, one 128 x 128
+// box of xq: 48 KB a stage); the warpgroup that releases a stage second
+// refills it. Each thread builds its A fragments from the staged natural q
+// tile as qfwd::fwd_product does (four 32-bit loads of 4 K-rows x 4 columns
+// and a 4 x 4 byte transpose give one K-group of four neighbouring columns;
+// the rows of out^T are permuted so that those four columns are the rows
+// of the thread's two products' fragments), the rows a load reads permuted
+// by lane so that one load instruction hits no bank twice. The fragments of
+// the next KS 32-row K steps are built while the products of earlier steps
+// run (NBUF sets of 8 KS registers), so the transposes hide under the tensor
+// cores.
+// The grid is rastered in groups of GROUP_M row tiles, as #10's wide tile. A
+// thread's outputs are 4 neighbouring columns of a row: one 8-byte store
+// each. The tile takes any row count: a K split for rows too few to fill the
+// card (the tile's last CTA summing int32 partials) read slower than the
+// unsplit tile at M 128 on the H100, so none is made.
+namespace qpre {
+
+constexpr int TM = 128;         // rows of xq a CTA owns
+constexpr int TN = 256;         // columns of q a CTA owns: 128 a warpgroup
+constexpr int TK = 128;         // contraction rows of a stage
+constexpr int STAGES = 4;
+constexpr int THREADS = 256;
+constexpr int GROUP_M = 16;     // row tiles of a raster group
+constexpr int BOX_BYTES = TK * 128;  // one 128-column box of q, or the xq tile
+constexpr int STAGE_BYTES = 3 * BOX_BYTES;
+constexpr int ATOM = 1024;
+constexpr int SMEM = STAGES * STAGE_BYTES + STAGES * 8 + 4 * STAGES + ATOM;
+
+constexpr int KS = 2;              // 32-row K steps a fragment set holds
+constexpr int SETS = TK / 32 / KS;  // fragment sets a stage
+constexpr int NBUF = 2;            // fragment sets in registers: NBUF - 1 in flight
+static_assert(SETS % NBUF == 0, "every stage starts on the first fragment set");
+
+// this thread's A fragments of KS K steps: a[ks][u] for product u (columns
+// qcol + 2 u, qcol + 2 u + 1 as its rows g, g + 8)
+using Frags = uint32_t[KS][2][4];
+
+// A fragments of set `set` from the stage's q box (128 K-rows x 128
+// columns, 128-byte swizzle: row k's chunk c at chunk c ^ (k % 8)). A warp's
+// load reads 2 neighbouring chunks of 4 rows, one a lane group t, whose
+// swizzle phases 4 (t % 2) + r would repeat for t and t + 2 (a 2-way bank
+// conflict): load i of lanes t >= 2 reads row r = i ^ 2 of its 4-row group
+// instead, which puts the 4 rows' chunk pairs on 8 distinct chunks, and the
+// words are swapped back.
+__device__ __forceinline__ void build_frags(Frags &a, const int8_t *qs, int set, int t,
+                                            int qchunk, int qbyte) {
+  const int rot = 2 * (t >> 1);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v[4], w[4], o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = i ^ rot;
+        const int k = 32 * (set * KS + ks) + 16 * h + 4 * t + r;  // k % 8 == 4 (t % 2) + r
+        v[i] = ld32(qs + k * 128 + (((qchunk ^ (4 * (t & 1) + r)) << 4) | qbyte));
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) w[r] = rot ? v[r ^ 2] : v[r];
+      transpose4x4(w, o);  // o[j] byte r: q[row 32 kk + 16 h + 4 t + r][column qcol + j]
+      a[ks][0][2 * h] = o[0];
+      a[ks][0][2 * h + 1] = o[1];
+      a[ks][1][2 * h] = o[2];
+      a[ks][1][2 * h + 1] = o[3];
+    }
+}
+
+// One CTA: tile blockIdx.x (rastered).
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_wide(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_x,
+             const float *__restrict__ sx, const float *__restrict__ s, bf16 *__restrict__ out,
+             int M, int K, int N) {
+  extern __shared__ __align__(1024) unsigned char smem_pre[];
+  const uint32_t base = saddr(smem_pre);
+  const uint32_t off = (base + ATOM - 1) / ATOM * ATOM - base;
+  const uint32_t tiles = base + off;
+  const uint32_t full = tiles + STAGES * STAGE_BYTES;
+  int *s_cnt = reinterpret_cast<int *>(smem_pre + off + STAGES * STAGE_BYTES + STAGES * 8);
+  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
+  const int group = blockIdx.x / (GROUP_M * tiles_n);
+  const int first = group * GROUP_M, in = blockIdx.x % (GROUP_M * tiles_n);
+  const int gm = min(GROUP_M, tiles_m - first);
+  const int m0 = (first + in % gm) * TM, n0 = in / gm * TN;
+  const int chunks = (K + TK - 1) / TK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      bar_init(full + 8 * st, 1);
+      s_cnt[st] = 0;
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  // chunk c into its stage: q columns n0 .. + 127, n0 + 128 .. + 255, xq rows
+  auto load = [&](int c) {
+    const uint32_t dst = tiles + (c % STAGES) * STAGE_BYTES, bar = full + 8 * (c % STAGES);
+    bar_expect(bar, STAGE_BYTES);
+    tma_load(dst, &map_q, n0, c * TK, bar);
+    tma_load(dst + BOX_BYTES, &map_q, n0 + 128, c * TK, bar);
+    tma_load(dst + 2 * BOX_BYTES, &map_x, c * TK, m0, bar);
+  };
+  // this warpgroup is done with chunk c's stage: the second to say so
+  // refills it with chunk c + STAGES
+  auto release = [&](int c) {
+    if (threadIdx.x % 128 == 0 && (atomicAdd(s_cnt + c % STAGES, 1) & 1) && c + STAGES < chunks)
+      load(c + STAGES);
+  };
+  if (threadIdx.x == 0)
+    for (int c = 0; c < min(STAGES, chunks); ++c) load(c);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  // this thread's four neighbouring columns: a byte offset in a q box row
+  const int qcol = 32 * (warp % 4) + 4 * g, qchunk = qcol >> 4, qbyte = qcol & 15;
+  int acc[2][64];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[u][i] = 0;
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+
+  auto stage_q = [&](int c) {
+    return reinterpret_cast<const int8_t *>(smem_pre + off + (c % STAGES) * STAGE_BYTES +
+                                            wg * BOX_BYTES);
+  };
+  // fragment set `set` of chunk c: the two products of each of its K
+  // steps; B: the xq tile, K-major, the step's 32 bytes
+  auto issue = [&](const Frags &a, int c, int set) {
+    const uint32_t xs = tiles + (c % STAGES) * STAGE_BYTES + 2 * BOX_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        wgmma_s8_rs(acc[u], a[ks][u], gmma_desc(xs + (set * KS + ks) * 32, 16, ATOM));
+    wgmma_commit();
+  };
+  // NBUF fragment sets: while the products of NBUF - 1 sets read theirs,
+  // the next set is built into the last; wgmma_wait<NBUF - 1> frees the one
+  // read NBUF sets back
+  Frags fr[NBUF];
+  bar_wait(full, 0);
+  build_frags(fr[0], stage_q(0), 0, t, qchunk, qbyte);
+  for (int c = 0; c < chunks; ++c) {
+    const int8_t *qs = stage_q(c);
+#pragma unroll
+    for (int set = 0; set < SETS; ++set) {
+      issue(fr[set % NBUF], c, set);
+      wgmma_wait<NBUF - 1>();  // the set NBUF - 1 before this one is done
+      if (set == NBUF - 2 && c > 0) release(c - 1);  // ... chunk c - 1's last
+      if (set + 1 < SETS) {
+        build_frags(fr[(set + 1) % NBUF], qs, set + 1, t, qchunk, qbyte);
+      } else if (c + 1 < chunks) {
+        bar_wait(full + 8 * ((c + 1) % STAGES), ((c + 1) / STAGES) & 1);
+        build_frags(fr[0], stage_q(c + 1), 0, t, qchunk, qbyte);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+
+  // register i of product u: column n0 + 128 wg + qcol + 2 u + ((i >> 1) & 1),
+  // row m0 + 8 (i >> 2) + 2 t + (i & 1)
+  const int col = n0 + 128 * wg + qcol;  // N % 16 == 0: col < N covers col + 3
+  if (col >= N) return;
+  float colscale[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) colscale[e] = s[col + e];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t + e;
+      if (m >= M) continue;
+      const float rowscale = sx[m];
+      const int v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e], acc[1][4 * j + e],
+                        acc[1][4 * j + 2 + e]};
+      float f[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        f[u] = __fmul_rn(__fmul_rn(__int2float_rn(v[u]), rowscale), colscale[u]);
+      *reinterpret_cast<uint2 *>(out + static_cast<long long>(m) * N + col) =
+          make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+    }
+}
+
+int launch_wide(const void *xq, const void *sx, const void *q, const void *s, void *out, int M,
+                int K, int N, cudaStream_t stream) {
+  CUtensorMap mq, mx;
+  if (!tensor_map_2d(&mq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, K, N, N, 128, TK,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map_2d(&mx, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, TK, TM,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void *>(fwd_wide), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const int grid = (M + TM - 1) / TM * ((N + TN - 1) / TN);
+  fwd_wide<<<grid, THREADS, SMEM, stream>>>(mq, mx, static_cast<const float *>(sx),
+                                            static_cast<const float *>(s),
+                                            static_cast<bf16 *>(out), M, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace qpre
+
 }  // namespace
 
 // #7: x (M, K) bf16, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16 by the
@@ -1050,11 +1284,38 @@ extern "C" int int8_matmul_dx_bf16(const void *dy, const void *q, const void *s,
   return qdx::split_product(dyq, sy, q, dx, part, M, K, N, split, st);
 }
 
-// #9: xq (M, K) int8, sx (M,) fp32, q (K, N) int8, s (N,) fp32 -> out (M, N) bf16
+// #9: xq (M, K) int8, sx (M,) fp32, q (K, N) int8, s (N,) fp32 -> out (M, N)
+// bf16 by the route ops/quant_matmul.py:fwd_prequant_plan picks: 0 the
+// cp.async kernel (rows TMA cannot map: N or K not a multiple of 16, xq or q
+// off 16 bytes), 1 the wide tile. A route TMA cannot take is refused.
 extern "C" int int8_matmul_prequant_bf16(const void *xq, const void *sx, const void *q,
                                          const void *s, void *out, int M, int K, int N,
-                                         void *stream) {
-  return launch<true, true>(xq, sx, q, s, out, M, K, N, stream);
+                                         int route, void *stream) {
+  const auto aligned = [](const void *p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool tma = N % 16 == 0 && K % 16 == 0 && aligned(q) && aligned(xq);
+  if (M <= 0 || K <= 0 || N <= 0 || route < 0 || route > 1 || (route == 1 && !tma))
+    return cudaErrorInvalidValue;
+  if (route == 0) return launch<true, true>(xq, sx, q, s, out, M, K, N, stream);
+  return qpre::launch_wide(xq, sx, q, s, out, M, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// The prequant wrappers' row passes (#7's and #8's, bit for bit
+// quantize_rows): x (M, K) bf16 -> xq (M, K) int8, sx (M,) fp32; with s
+// (N,) fp32 given, v = x * s is quantised instead (#10's dy * s). One CTA a
+// row.
+extern "C" int int8_quant_rows_bf16(const void *x, const void *s, void *xq, void *sx, int M,
+                                    int K, void *stream) {
+  if (M <= 0 || K <= 0) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (s == nullptr && K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    qfwd::fwd_quant_rows<<<M, 256, 0, st>>>(static_cast<const bf16 *>(x),
+                                            static_cast<int8_t *>(xq), static_cast<float *>(sx),
+                                            nullptr, 0, K);
+  else
+    qdx::dx_quant_rows<<<M, 256, 0, st>>>(static_cast<const bf16 *>(x),
+                                         static_cast<const float *>(s), static_cast<int8_t *>(xq),
+                                         static_cast<float *>(sx), K);
+  return cudaGetLastError();
 }
 
 // #10: dyq (M, N) int8, sy (M,) fp32, q (K, N) int8 -> dx (M, K) bf16 by

@@ -52,9 +52,9 @@ SIGNATURES = {
     # q, k, v, mask, out, part, B, H, KVH, L, D, q stride b, q stride h,
     # is_bf16, splits, scale, stream
     "decode_attention_full_cuda": [_P] * 6 + [_I] * 9 + [_F, _P],
-    # q, k, k_scale, v, v_scale, mask, out, B, H, KVH, L, D, valid_len,
-    # block_l, q stride b, q stride h, scale, stream
-    "decode_attention_prefix_int8_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # q, k, k_scale, v, v_scale, mask, out, part, B, H, KVH, L, D, valid_len,
+    # block_l, splits, q stride b, q stride h, scale, stream
+    "decode_attention_prefix_int8_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
     # x, w, y, part, logp, lse, M, H, V, nsplit, stream
     "fused_head_fwd_bf16": [_P] * 6 + [_I] * 4 + [_P],
     # x, w, y, lse, g, dl, M, H, V, c0, vw, ldl, stream
@@ -67,8 +67,10 @@ SIGNATURES = {
     "int8_matmul_bf16": [_P] * 8 + [_I] * 6 + [_P],
     # dy, q, s, dyq, sy, part, dx, M, K, N, split, stream
     "int8_matmul_dx_bf16": [_P] * 7 + [_I] * 4 + [_P],
-    # xq, sx, q, s, out, M, K, N, stream
-    "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    # xq, sx, q, s, out, M, K, N, route, stream
+    "int8_matmul_prequant_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    # x, s (or null), xq, sx, M, K, stream
+    "int8_quant_rows_bf16": [_P] * 4 + [_I] * 2 + [_P],
     # dyq, sy, q, part, dx, M, K, N, route, split, stream
     "int8_matmul_dx_prequant_bf16": [_P] * 5 + [_I] * 5 + [_P],
     # xq, sx, qp, gs, out, M, K, N, G, stream

@@ -18,7 +18,9 @@ over a static (B, L, KVH, D) cache.
   per-(token, head) scales (`quantize_kv`), key blocks [0, ceil(valid_len /
   block_l)); q and the v-scaled probabilities are quantised to int8 per
   row (p per key block), so both products are int8 x int8 -> int32. Kernel
-  in csrc/decode_attention_int8.cu, plain twin
+  in csrc/decode_attention_int8.cu, its key blocks split into
+  `prefix_int8_plan` ranges whose states a merge pass combines
+  (`decode_attention_prefix_int8_split_ref`), plain twin
   `decode_attention_prefix_int8_ref`. `decode_attention_prefix_int8_dense`
   is the JAX package's off-TPU formula (dense attention over the cache
   dequantised to q's type), which the model runs on the CPU and with
@@ -273,36 +275,19 @@ def prefix_block_l(L: int, block_l: Optional[int] = None) -> int:
     return block_l
 
 
-def decode_attention_prefix_int8_ref(
-    q: torch.Tensor,  # (B, H, D)
-    k: torch.Tensor,  # (B, L, KVH, D) int8
-    k_scale: torch.Tensor,  # (B, L, KVH) fp32
-    v: torch.Tensor,  # (B, L, KVH, D) int8
-    v_scale: torch.Tensor,  # (B, L, KVH) fp32
-    mask: torch.Tensor,  # (B, L) key validity
-    valid_len: int,
-    *,
-    block_l: Optional[int] = None,
-) -> torch.Tensor:
-    """Plain twin of kernel #5 (the TPU `_prefix_kernel_int8`), block by
-    block in fp32 -> (B, H, D) in q's type. Blocks [0, max(ceil(valid_len /
-    block_l), 1)) are read whole, their columns past valid_len under the
-    mask. Per block: s = int(q8 . k8) * sq * ks * (1/sqrt(D)) plus the mask
-    bias; the online softmax (m floored at -5e29); pv = p * vs quantised per
-    row of the block; acc = acc * corr + int(p8 . v8) * sp. Out = acc /
-    max(l, 1e-30): a row that sees no key outputs 0. The integer sums are
+def _prefix_int8_state(q8, sq, k, k_scale, v, v_scale, mask, bl: int, j0: int, j1: int):
+    """Kernel #5's block recurrence over key blocks [j0, j1) from a fresh
+    state -> (m, l, acc): q8 (B, KVH, n_rep, D) int8 with its row scales sq.
+    Per block: s = int(q8 . k8) * sq * ks * (1/sqrt(D)) plus the mask bias;
+    the online softmax (m floored at -5e29); pv = p * vs quantised per row
+    of the block; acc = acc * corr + int(p8 . v8) * sp. The integer sums are
     exact (`_int_product`: |sum| <= 127^2 x 256)."""
-    B, H, D = q.shape
-    L, KVH = k.shape[1], k.shape[2]
-    n_rep = H // KVH
-    bl = prefix_block_l(L, block_l)
-    n_blocks = max(-(-valid_len // bl), 1)
-    q8, sq = quantize_rows(q.float().reshape(B, KVH, n_rep, D))
+    B, KVH, n_rep, D = q8.shape
     scale = 1.0 / D ** 0.5
-    m = torch.full((B, KVH, n_rep, 1), NEG_INF, device=q.device)
+    m = torch.full((B, KVH, n_rep, 1), NEG_INF, device=q8.device)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, KVH, n_rep, D), device=q.device)
-    for j in range(n_blocks):
+    acc = torch.zeros((B, KVH, n_rep, D), device=q8.device)
+    for j in range(j0, j1):
         cols = slice(j * bl, (j + 1) * bl)
         kb = k[:, cols].permute(0, 2, 3, 1)  # (B, KVH, D, bl)
         vb = v[:, cols].permute(0, 2, 1, 3)  # (B, KVH, bl, D)
@@ -317,8 +302,90 @@ def decode_attention_prefix_int8_ref(
         p8, sp = quantize_rows(p * vs)  # the v scale folded into p
         acc = acc * corr + _int_product(p8, vb) * sp
         m = m_new
+    return m, l, acc
+
+
+def _prefix_int8_setup(q, k, valid_len: int, block_l: Optional[int]) -> tuple:
+    """q quantised per head row, (B, KVH, n_rep, D), its scales, the key
+    block and the live block count max(ceil(valid_len / block_l), 1)."""
+    B, H, D = q.shape
+    L, KVH = k.shape[1], k.shape[2]
+    bl = prefix_block_l(L, block_l)
+    q8, sq = quantize_rows(q.float().reshape(B, KVH, H // KVH, D))
+    return q8, sq, bl, max(-(-valid_len // bl), 1)
+
+
+def decode_attention_prefix_int8_ref(
+    q: torch.Tensor,  # (B, H, D)
+    k: torch.Tensor,  # (B, L, KVH, D) int8
+    k_scale: torch.Tensor,  # (B, L, KVH) fp32
+    v: torch.Tensor,  # (B, L, KVH, D) int8
+    v_scale: torch.Tensor,  # (B, L, KVH) fp32
+    mask: torch.Tensor,  # (B, L) key validity
+    valid_len: int,
+    *,
+    block_l: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain twin of kernel #5 (the TPU `_prefix_kernel_int8`), block by
+    block in fp32 -> (B, H, D) in q's type. Blocks [0, max(ceil(valid_len /
+    block_l), 1)) are read whole, their columns past valid_len under the
+    mask, through `_prefix_int8_state`'s recurrence. Out = acc / max(l,
+    1e-30): a row that sees no key outputs 0."""
+    q8, sq, bl, n_blocks = _prefix_int8_setup(q, k, valid_len, block_l)
+    _, l, acc = _prefix_int8_state(q8, sq, k, k_scale, v, v_scale, mask, bl, 0, n_blocks)
     out = acc / torch.clamp_min(l, 1e-30)
-    return out.reshape(B, H, D).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+# kernel #5's CTAs a streaming multiprocessor: ~111 KB of shared memory a
+# CTA (csrc/decode_attention_int8.cu), two on the H100's 228 KB
+PREFIX_INT8_CTAS_PER_SM = 2
+
+
+def prefix_int8_plan(B: int, KVH: int, n_blocks: int, sms: int, n_rep: int = 1) -> int:
+    """The splits of kernel #5's key blocks: as many as bring the B x KVH
+    (batch row, kv head) CTAs up to one wave (PREFIX_INT8_CTAS_PER_SM on
+    each of `sms` multiprocessors), at most one a block, at least one; no
+    split once B x KVH fills a wave. The CTA serves all n_rep (1, 2, 4 or
+    8) query heads of its group whatever their count, so n_rep does not
+    change the plan. Llama3-8B's int8 decode step (B 8, KVH 8, L 2304,
+    9 blocks) takes 4 splits on 132 SMs; phase 11's diverse_gen (B 10,
+    KVH 32: 320 CTAs) and batch 24 (768) one."""
+    if n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"prefix_int8_plan: n_rep must be 1, 2, 4 or 8; got {n_rep}")
+    return max(1, min(n_blocks, PREFIX_INT8_CTAS_PER_SM * sms // (B * KVH)))
+
+
+def prefix_int8_split_blocks(n_blocks: int, splits: int) -> list:
+    """The key blocks [j0, j1) of each split, as the kernel cuts them."""
+    return [(s * n_blocks // splits, (s + 1) * n_blocks // splits) for s in range(splits)]
+
+
+def decode_attention_prefix_int8_split_ref(q, k, k_scale, v, v_scale, mask, valid_len: int,
+                                           splits: int, *,
+                                           block_l: Optional[int] = None) -> torch.Tensor:
+    """Kernel #5 as the card splits it, in fp32 -> (B, H, D) in q's type:
+    each split's state (m_s, l_s, acc_s) over its key blocks
+    (`prefix_int8_split_blocks`) by `_prefix_int8_state` from a fresh
+    running max, then the merge: M = max m_s and out = (sum acc_s e^(m_s -
+    M)) / max(sum l_s e^(m_s - M), 1e-30), splits in order. A split starts
+    its own running max, so its first blocks quantise p under another max
+    than the sequential twin does: p8 can move by one step where a quotient
+    lies near a half-integer. A split with no live key has m_s = -5e29, l_s
+    = 0, acc_s = 0 and adds nothing; a row masked in every split gives 0. At
+    one split this is `decode_attention_prefix_int8_ref` bit for bit."""
+    q8, sq, bl, n_blocks = _prefix_int8_setup(q, k, valid_len, block_l)
+    if not 1 <= splits <= n_blocks:
+        raise ValueError(f"splits must be in [1, {n_blocks}]; got {splits}")
+    states = [_prefix_int8_state(q8, sq, k, k_scale, v, v_scale, mask, bl, j0, j1)
+              for j0, j1 in prefix_int8_split_blocks(n_blocks, splits)]
+    mx = torch.stack([m for m, _, _ in states]).amax(dim=0)
+    num, den = 0.0, 0.0
+    for m, l, acc in states:
+        w = torch.exp(m - mx)
+        num, den = num + acc * w, den + l * w
+    out = num / torch.clamp_min(den, 1e-30)
+    return out.reshape(q.shape).to(q.dtype)
 
 
 def decode_attention_prefix_int8_dense(q, k, k_scale, v, v_scale, mask) -> torch.Tensor:
@@ -357,14 +424,20 @@ def _kernel_int8(q, k, k_scale, v, v_scale, mask, valid_len):
         raise ValueError(f"mask {tuple(mask.shape)} != ({B}, {L})")
     if not isinstance(valid_len, int) or not 1 <= valid_len <= L:
         raise ValueError(f"valid_len must be an int in [1, {L}]; got {valid_len!r}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention_prefix_int8 kernel needs a 16-byte aligned cache")
     bl = prefix_block_l(L)
     mask = mask.to(dtype=torch.int32).contiguous()
+    splits = prefix_int8_plan(B, KVH, max(-(-valid_len // bl), 1), _sms(q.device.index or 0),
+                              H // KVH)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _build.load_kernels().decode_attention_prefix_int8_bf16(
         q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(), v_scale.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), B, H, KVH, L, D, valid_len, bl,
-        q.stride(0), q.stride(1), 1.0 / D ** 0.5, stream,
+        mask.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), B, H,
+        KVH, L, D, valid_len, bl, splits, q.stride(0), q.stride(1), 1.0 / D ** 0.5, stream,
     )
     _build.check(err, "decode_attention_prefix_int8_bf16")
     decode_attention_prefix_int8.launches += 1

@@ -15,9 +15,12 @@ x (..., K), q (K, N) int8, scale (N,) fp32 per output channel.
   once, then the product splits the N contraction into `dx_split` slices
   whose exact int32 partials are summed in order (`int8_dx_split_plain`);
 - `int8_matmul_prequant` (#9), `int8_matmul_dx_prequant` (#10): the same
-  functions with the rows quantised beforehand, in torch (as XLA does it
-  outside Pallas in the JAX package), and a pure int8 product kernel; #10
-  takes the route `dx_prequant_plan` picks (a wide TMA + wgmma tile where
+  functions with the rows quantised beforehand (as XLA does it outside
+  Pallas in the JAX package: here by #7's and #8's row passes on the card,
+  `quantize_rows_cuda`, and `quantize_rows` on the CPU), and a pure int8
+  product kernel; #9 takes the route `fwd_prequant_plan` picks (a wide TMA
+  + wgmma tile with q^T built in registers where TMA can map the rows),
+  #10 the route `dx_prequant_plan` picks (a wide TMA + wgmma tile where
   its tiles fill the card, #8's split product where they do not).
 
 The kernels live in csrc/quant_matmul.cu. Each entry point launches its
@@ -107,9 +110,10 @@ FWD_ROUTES = {"rows": 0, "tile": 0, "split": 1}
 
 
 class FwdPlan(NamedTuple):
-    """How one kernel #7 call runs: `route` ("split", "tile" or "rows"),
-    the output `tile` (rows, columns) a CTA owns, the K contraction's
-    `split` and the kernels the call `launches`."""
+    """How one kernel #7 (or #9) call runs: `route` ("split", "tile" or
+    "rows"; #9: "wide" or "rows"), the output `tile` (rows, columns) a CTA
+    owns, the K contraction's `split` and the kernels the call
+    `launches`."""
     route: str
     tile: Tuple[int, int]
     split: int
@@ -220,6 +224,29 @@ def dx_prequant_plan(M: int, K: int, N: int, sms: int, tma: bool = True) -> DxPl
         return DxPlan("wide", WIDE_TILE, 1, 1)
     split = dx_split(M, K, N, sms)
     return DxPlan("split", (64 if M <= 64 else 128, DX_TILE), split, 1 + (split > 1))
+
+
+# kernel #9's wide tile (csrc/quant_matmul.cu, qpre::fwd_wide): rows of xq
+# and columns of q a CTA owns
+PREQ_TILE = (128, 256)
+# the C entry's route codes: the cp.async kernel, the wide tile
+PREQ_ROUTES = {"rows": 0, "wide": 1}
+
+
+def fwd_prequant_plan(M: int, K: int, N: int, sms: int, tma: bool = True) -> FwdPlan:
+    """Kernel #9's route on xq (M, K), q (K, N):
+    - "rows": rows a TMA tensor map cannot read (N or K not a multiple of
+      16, xq or q off 16 bytes) take the cp.async kernel, 128 x 128 tiles,
+      one launch;
+    - "wide": every other row count takes the 128 x 256 tile (q^T built in
+      registers, wgmma), one launch: QLoRA's prefix and suffix rows and a
+      batch's prefill fill the card with it; one prompt's prefill (128 to a
+      few hundred rows) does not, but the tile alone still reads faster there
+      than the cp.async kernel and than a K split of the tile (whose last
+      CTA sums int32 partials) on the H100, so `sms` changes nothing."""
+    if not tma or N % 16 or K % 16:
+        return FwdPlan("rows", (128, 128), 1, 1)
+    return FwdPlan("wide", PREQ_TILE, 1, 1)
 
 
 def int8_dx_split_plain(dyq, sy, q, split: int) -> torch.Tensor:
@@ -333,17 +360,41 @@ def _kernel_dx(dy2, q, scale) -> torch.Tensor:
     return dx
 
 
-def _kernel_prequant(xq, sx, q, scale) -> torch.Tensor:
-    """Kernel #9 on xq (M, K) int8, sx (M,) fp32 -> (M, N) bf16."""
+def _kernel_prequant(xq, sx, q, scale, plan: FwdPlan = None) -> torch.Tensor:
+    """Kernel #9 on xq (M, K) int8, sx (M,) fp32 -> (M, N) bf16, by the
+    route `fwd_prequant_plan` picks (or `plan`)."""
     M, K = xq.shape
     N = q.shape[1]
     _check("int8_matmul_prequant", xq, torch.int8, q, sx=(sx, M), scale=(scale, N))
     if q.shape[0] != K:
         raise ValueError(f"int8_matmul_prequant: xq (M, {K}) against q {tuple(q.shape)}")
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=xq.device)
-    _launch("int8_matmul_prequant_bf16", xq, sx, q, scale, out, M, K, N)
+    dev = xq.device
+    plan = plan or fwd_prequant_plan(M, K, N, _sms(dev.index or 0),
+                                     q.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    _launch("int8_matmul_prequant_bf16", xq, sx, q, scale, out, M, K, N,
+            PREQ_ROUTES[plan.route])
     int8_matmul_prequant.launches += 1
     return out
+
+
+def quantize_rows_cuda(x2: torch.Tensor, scale: torch.Tensor = None) -> tuple:
+    """The prequant wrappers' row quantisation on the card: x (M, C) bf16
+    (times scale (C,) fp32 where given: #10's dy * s) -> int8 (M, C) and
+    fp32 (M,) row scales, bit for bit `quantize_rows` of the same fp32
+    values, by the row passes of kernels #7 and #8 (one CTA a row)."""
+    M, C = x2.shape
+    if x2.dtype != torch.bfloat16 or not x2.is_contiguous():
+        raise TypeError(f"quantize_rows_cuda takes contiguous bf16 rows; got {x2.dtype} "
+                        f"strides {x2.stride()}")
+    if scale is not None and (scale.dtype != torch.float32 or tuple(scale.shape) != (C,)
+                              or not scale.is_contiguous() or scale.device != x2.device):
+        raise ValueError(f"quantize_rows_cuda: scale must be ({C},) fp32 contiguous on "
+                         f"{x2.device}")
+    xq = torch.empty((M, C), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x2.device)
+    _launch("int8_quant_rows_bf16", x2, scale, xq, sx, M, C)
+    return xq, sx
 
 
 def _kernel_dx_prequant(dyq, sy, q) -> torch.Tensor:
@@ -390,29 +441,44 @@ def int8_matmul_dx(dy, q, scale) -> torch.Tensor:
     return dx.reshape(*dy.shape[:-1], q.shape[0])
 
 
+def _rows_on_card(x2, scale=None) -> tuple:
+    """The prequant kernels' rows on the card: bf16 rows by the row passes
+    (`quantize_rows_cuda`), others (no int8 path of the port runs them) by
+    `quantize_rows` as before."""
+    if x2.dtype == torch.bfloat16:
+        return quantize_rows_cuda(x2, scale)
+    v = x2.float() if scale is None else x2.float() * scale.float()
+    xq, sx = quantize_rows(v)
+    return xq, sx.reshape(-1)
+
+
 def int8_matmul_prequant(x, q, scale) -> torch.Tensor:
-    """int8_matmul with the rows quantised once, in torch, then the pure
-    int8 product kernel (#9) on the card; the plain twin on the CPU."""
+    """int8_matmul with the rows quantised once beforehand, then the pure
+    int8 product kernel (#9): on the card the rows by #7's row pass
+    (`quantize_rows_cuda`), on the CPU by `quantize_rows` and the plain
+    twin."""
     x2 = x.reshape(-1, x.shape[-1]).contiguous()  # the quantised rows keep its layout
-    xq, sx = quantize_rows(x2.float())
     if not x.is_cuda:
+        xq, sx = quantize_rows(x2.float())
         out = int8_matmul_prequant_plain(xq, sx, q, scale).to(x.dtype)
     elif x2.shape[0]:
-        out = _kernel_prequant(xq, sx.reshape(-1), q, scale)
+        out = _kernel_prequant(*_rows_on_card(x2), q, scale)
     else:
         out = x2.new_empty((0, q.shape[1]))
     return out.reshape(*x.shape[:-1], q.shape[1])
 
 
 def int8_matmul_dx_prequant(dy, q, scale) -> torch.Tensor:
-    """int8_matmul_dx with dy * scale quantised once, in torch, then the
-    pure int8 product kernel (#10) on the card; the plain twin on the CPU."""
+    """int8_matmul_dx with dy * scale quantised once beforehand, then the
+    pure int8 product kernel (#10): on the card the rows by #8's row pass
+    (`quantize_rows_cuda`), on the CPU by `quantize_rows` and the plain
+    twin."""
     d2 = dy.reshape(-1, dy.shape[-1]).contiguous()
-    dyq, sy = quantize_rows(d2.float() * scale.float())
     if not dy.is_cuda:
+        dyq, sy = quantize_rows(d2.float() * scale.float())
         dx = int8_matmul_dx_prequant_plain(dyq, sy, q).to(dy.dtype)
     elif d2.shape[0]:
-        dx = _kernel_dx_prequant(dyq, sy.reshape(-1), q)
+        dx = _kernel_dx_prequant(*_rows_on_card(d2, scale), q)
     else:
         dx = d2.new_empty((0, q.shape[0]))
     return dx.reshape(*dy.shape[:-1], q.shape[0])

@@ -21,7 +21,10 @@ order, each product and sum rounded separately), #8 and #12 also on
 quotients at and next to half-integers (synth.quotient_ties). The int8-cache decode
 kernel #5: max|kernel - twin| <= 2^-7 max|twin| (exact integer sums, IEEE
 quantisation and unfused fp32 epilogues on both sides; expf against torch's
-exp can flip a rounding of p8 by one step, and the output is bf16). The
+exp can flip a rounding of p8 by one step, and the output is bf16), held to
+the split twin at the key splits the card's plan gives; a rerun is bit-equal.
+The prequant kernel #9 equals its twin on both routes, and the prequant
+wrappers' row passes equal quantize_rows bit for bit. The
 fused decode kernel #16 through 2 layers: every row of x_out within 1e-5 of
 max|x_out| of its twin and the fresh k/v equal, but for at most
 FUSED_FLIP_ROWS(B) rows where a value landed on the other side of a
@@ -377,19 +380,93 @@ def _int8_cache(gen, B, L, H, KVH, D, valid_len):
     (4, 1024, 32, 32, 128, 256),   # exactly one block
     (3, 384, 32, 8, 128, 300),     # n_rep 4, L % 256 != 0
     (2, 512, 8, 8, 64, 137),       # D 64
+    (8, 2304, 32, 8, 128, 2200),   # the int8 Llama3 backend's GQA step: 4 key splits
+    (4, 896, 32, 32, 128, 833),    # greedy_gen: 2 splits of block 128
 ])
 def test_int8_decode_kernel_matches_twin(gen, B, L, H, KVH, D, valid_len):
+    """Kernel #5 at its plan's key splits (prefix_int8_plan on this card)
+    against the split twin within 2^-7 max|twin| (and the sequential twin
+    where it does not split); a rerun gives the same bits, fully masked rows
+    give 0; one launch counted, the split kernel and (with splits) the
+    merge launched."""
+    from rlaifv_tpu_torch.ops import decode_attention as da
+    from rlaifv_tpu_torch.ops.quant_matmul import _sms
+
     args = _int8_cache(gen, B, L, H, KVH, D, valid_len)
+    splits = da.prefix_int8_plan(B, KVH, -(-valid_len // da.prefix_block_l(L)), _sms(0),
+                                 H // KVH)
     n0 = decode_attention_prefix_int8.launches
     out = decode_attention_prefix_int8(*args, valid_len)
-    ref = decode_attention_prefix_int8_ref(*args, valid_len)
+    ref = da.decode_attention_prefix_int8_split_ref(*args, valid_len, splits)
     torch.cuda.synchronize()
     assert decode_attention_prefix_int8.launches == n0 + 1
     assert torch.isfinite(out.float()).all()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    if splits == 1:
+        assert torch.equal(ref, decode_attention_prefix_int8_ref(*args, valid_len))
     dead = [b for b in range(B) if 7 * b >= valid_len]
     assert all((out[b] == 0).all() for b in dead)  # fully masked rows output 0
+    assert torch.equal(decode_attention_prefix_int8(*args, valid_len), out)
+    assert _kernel_nodes(lambda: decode_attention_prefix_int8(*args, valid_len)) == \
+        1 + (splits > 1)
+
+
+@pytest.mark.parametrize("B,L,H,KVH,D,valid_len,splits", [
+    (3, 1280, 8, 8, 128, 1250, 5),   # block 256, n_rep 1
+    (3, 640, 16, 4, 64, 640, 3),     # block 128, n_rep 4, D 64
+    (3, 640, 8, 1, 64, 577, 5),      # n_rep 8, a partial last block
+    (3, 2304, 32, 8, 128, 2200, 9),  # one block a split
+])
+def test_int8_decode_kernel_merges_its_key_splits(gen, monkeypatch, B, L, H, KVH, D,
+                                                  valid_len, splits):
+    """Kernel #5 with its key blocks split as given (prefix_int8_plan
+    patched): a split whose blocks are all masked (row 0's second) adds
+    nothing, a row masked everywhere (row 1) is exactly 0; within 2^-7
+    max|twin| of the split twin; a rerun gives the same bits."""
+    from rlaifv_tpu_torch.ops import decode_attention as da
+
+    monkeypatch.setattr(da, "prefix_int8_plan", lambda *a: splits)
+    q, kq, ks, vq, vs, mask = _int8_cache(gen, B, L, H, KVH, D, valid_len)
+    bl = da.prefix_block_l(L)
+    mask[:] = 1
+    j0, j1 = da.prefix_int8_split_blocks(-(-valid_len // bl), splits)[1]
+    mask[0, j0 * bl:j1 * bl] = 0
+    mask[1] = 0
+    args = (q, kq, ks, vq, vs, mask)
+    out = decode_attention_prefix_int8(*args, valid_len)
+    ref = da.decode_attention_prefix_int8_split_ref(*args, valid_len, splits)
+    torch.cuda.synchronize()
+    assert (out[1] == 0).all() and torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(decode_attention_prefix_int8(*args, valid_len), out)
+
+
+def _kernel_nodes(fn) -> int:
+    """The kernels one call of fn() puts on the card: the call captured in
+    a CUDA graph (never replayed), its kernel nodes counted through
+    libcuda."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    fn()  # builds the kernels and warms the caches outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kernels = 0
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
 
 
 def test_int8_decode_kernel_raises_on_what_it_does_not_take(gen):
@@ -659,6 +736,71 @@ def test_int8_fwd_split_kernel_matches_twin(gen, M, K, N, split):
     assert torch.equal(got, qm.int8_matmul_plain(x, q, s))
     assert torch.equal(got, qm.int8_matmul_prequant(x, q, s))
     assert torch.equal(qm._kernel_fwd(x, q, s, plan), got)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (6144, 4096, 11008),  # the 8-pair QLoRA step's prefix, gate/up
+    (128, 11008, 4096),   # down_proj at the crossover: 16 tiles
+    (129, 272, 1008),     # a ragged row tile, a short last K chunk, a half column tile
+    (300, 96, 304),
+    (257, 264, 1000),     # rows TMA cannot map: the cp.async route
+])
+def test_int8_prequant_kernel_routes_match_twin(gen, M, K, N):
+    """Kernel #9 on the route fwd_prequant_plan picks and on every route
+    the shape allows (the wide tile where TMA can map the rows, the
+    cp.async kernel anywhere): equal to its twin, to #7 and to a rerun bit
+    for bit; one launch counted and one kernel launched a call."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    x, _, q, s = _int8_case(gen, M, K, N)
+    xq, sx = qm.quantize_rows(x.float())
+    sx = sx.reshape(-1)
+    want = qm.int8_matmul_plain(x, q, s)
+    plan = qm.fwd_prequant_plan(M, K, N, qm._sms(0))
+    assert plan.route == ("wide" if N % 16 == 0 and K % 16 == 0 else "rows")
+    routes = [plan] + ([qm.FwdPlan("rows", (128, 128), 1, 1)] if plan.route == "wide" else [])
+    for p in routes:
+        n0 = qm.int8_matmul_prequant.launches
+        got = qm._kernel_prequant(xq, sx, q, s, p)
+        torch.cuda.synchronize()
+        assert qm.int8_matmul_prequant.launches - n0 == 1
+        assert torch.equal(got, want), p.route
+        assert torch.equal(qm._kernel_prequant(xq, sx, q, s, p), got)
+        assert _kernel_nodes(lambda: qm._kernel_prequant(xq, sx, q, s, p)) == p.launches
+    assert torch.equal(qm.int8_matmul(x, q, s), want)
+
+
+@pytest.mark.parametrize("M,C", [(1, 4096), (127, 4096), (6144, 4096), (200, 1008), (33, 100)])
+def test_prequant_wrappers_quantise_rows_on_the_card(gen, M, C):
+    """The prequant wrappers' rows on the card (#7's row pass for x, #8's
+    for dy * s; C 100 and unaligned rows take #8's pass without a scale)
+    equal quantize_rows bit for bit, also on quotients at and next to
+    half-integers (synth.quotient_ties); the whole wrapper call launches
+    the row pass and its product: two kernels."""
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+    from rlaifv_tpu_torch.utils.synth import quotient_ties
+
+    x = _randn(gen, M, C)
+    dy, gs = quotient_ties(M, C, 1, seed=M + C)
+    dy = torch.from_numpy(dy).cuda().to(torch.bfloat16)
+    s = torch.from_numpy(gs[0]).cuda()
+    for rows, scale in ((x, None), (dy, None), (dy, s), (x, s)):
+        got = qm.quantize_rows_cuda(rows, scale)
+        want = qm.quantize_rows(rows.float() if scale is None else rows.float() * scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1].reshape(-1))
+    xs = _randn(gen, M * C + 1)[1:].view(M, C)  # contiguous, off 16 bytes: #8's pass
+    got = qm.quantize_rows_cuda(xs)
+    want = qm.quantize_rows(xs.float())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1].reshape(-1))
+    if C % 16 == 0:
+        q, s2 = _int8_case(gen, 1, C, 256)[2:]
+        assert _kernel_nodes(lambda: qm.int8_matmul_prequant(x, q, s2)) == 2
+        q, s2 = _int8_case(gen, 1, 256, C)[2:]
+        plan = qm.dx_prequant_plan(M, 256, C, qm._sms(0))
+        dyx = _randn(gen, M, C)
+        assert _kernel_nodes(lambda: qm.int8_matmul_dx_prequant(dyx, q, s2)) == 1 + plan.launches
+        assert torch.equal(qm.int8_matmul_dx_prequant(dyx, q, s2), qm.int8_matmul_dx_plain(dyx, q, s2))
 
 
 def test_int8_kernels_raise_on_what_they_do_not_take(gen):

@@ -290,3 +290,95 @@ def test_dense_route_and_unknown_cache_type():
             m(ids, attention_mask=mask, cache=cache, cache_index=0)
             outs.append(m(ids[:, :1], attention_mask=mask, cache=cache, cache_index=9)[0])
     torch.testing.assert_close(outs[0], outs[1], atol=1e-6, rtol=0)
+
+
+# -------------------------------------- kernel #5's key splits and their merge
+
+SPLIT_CASES = [  # (B, L, H, KVH, D, valid_len): at least 5 key blocks each
+    (3, 1280, 8, 8, 128, 1250),  # block 256, n_rep 1
+    (3, 640, 16, 4, 64, 640),    # L % 256 != 0: block 128; n_rep 4, D 64
+    (3, 640, 8, 1, 64, 577),     # block 128, n_rep 8, a partial last block
+]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+@pytest.mark.parametrize("B,L,H,KVH,D,valid_len", SPLIT_CASES)
+def test_split_twin_matches_twin_and_jax(B, L, H, KVH, D, valid_len, splits):
+    """`decode_attention_prefix_int8_split_ref`, kernel #5 as the card
+    splits its key blocks, against the sequential twin and the JAX
+    `decode_attention_prefix_int8(..., interpret=True)`. Row 0 has a split
+    whose blocks are all masked (the second, where there are two or more),
+    row 1 is masked everywhere (exactly 0), row 2 sees one column. At one
+    split the split twin is the sequential twin bit for bit. Otherwise each
+    split starts its own running max, so the early blocks of a later split
+    quantise p under another max: a p8 on a half-integer can move by one
+    step, ~1/127 of its block's largest share, and the merge rounds in
+    another order; both sides stay within 2^-7 max|out| (3f's bound on the
+    card), and the JAX kernel within TWIN_RTOL where nothing was split."""
+    (q, kq, ks, vq, vs, mask), targs = _cache_inputs(3, B, L, H, KVH, D, valid_len)
+    bl = td.prefix_block_l(L)
+    n_blocks = -(-valid_len // bl)
+    assert n_blocks >= 5
+    ranges = td.prefix_int8_split_blocks(n_blocks, splits)
+    mask[:] = 1
+    if splits > 1:
+        j0, j1 = ranges[1]
+        mask[0, j0 * bl:j1 * bl] = 0
+    mask[1] = 0
+    mask[2] = 0
+    mask[2, 5] = 1
+    targs[-1] = torch.from_numpy(mask.copy())
+    want = np.asarray(jd.decode_attention_prefix_int8(
+        *(jnp.asarray(a) for a in (q, kq, ks, vq, vs, mask)), jnp.int32(valid_len),
+        interpret=True))
+    seq = td.decode_attention_prefix_int8_ref(*targs, valid_len)
+    got = td.decode_attention_prefix_int8_split_ref(*targs, valid_len, splits)
+    assert (got[1] == 0).all() and (seq[1] == 0).all()
+    bound = 2 ** -7 * np.abs(want).max()
+    np.testing.assert_allclose(seq.numpy(), want, rtol=0, atol=TWIN_RTOL * np.abs(want).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=bound)
+    np.testing.assert_allclose(got.numpy(), seq.numpy(), rtol=0, atol=bound)
+    if splits == 1:
+        assert torch.equal(got, seq)
+    # row 2's one column: its value row, wherever the split holds it
+    np.testing.assert_allclose(got[2].numpy(), seq[2].numpy(), rtol=0, atol=bound)
+
+
+def test_split_twin_at_one_live_column_and_a_dead_split():
+    """valid_len 1 is one block, hence one split; a split past every live
+    key (all its keys masked) adds nothing: equal to the twin over the
+    other splits' blocks alone."""
+    _, targs = _cache_inputs(4, 2, 1024, 8, 2, 128, 1)
+    assert torch.equal(td.decode_attention_prefix_int8_split_ref(*targs, 1, 1),
+                       td.decode_attention_prefix_int8_ref(*targs, 1))
+    with pytest.raises(ValueError):
+        td.decode_attention_prefix_int8_split_ref(*targs, 1, 2)
+    _, (q, kq, ks, vq, vs, mask) = _cache_inputs(5, 2, 1024, 8, 2, 128, 1024)
+    mask[:] = 1
+    mask[:, 512:] = 0  # the second of two splits sees no key
+    got = td.decode_attention_prefix_int8_split_ref(q, kq, ks, vq, vs, mask, 1024, 2)
+    assert torch.equal(got, td.decode_attention_prefix_int8_ref(q, kq, ks, vq, vs, mask, 512))
+
+
+@pytest.mark.parametrize("B,KVH,n_blocks,n_rep,want", [
+    (8, 8, 9, 4, 4),      # the int8 Llama3-8B backend's decode step (L 2304): 256 CTAs
+    (10, 32, 7, 1, 1),    # phase 11's diverse_gen: 320 CTAs fill the wave already
+    (24, 32, 4, 1, 1),    # the batch-24 headline
+    (4, 32, 7, 1, 2),     # greedy_gen's 4 rows
+    (3, 8, 3, 4, 3),      # few blocks: one split a block
+    (8, 8, 1, 8, 1),      # one block: no split
+    (1, 1, 300, 8, 264),  # one (row, head): a wave of splits
+    (200, 32, 9, 2, 1),
+])
+def test_prefix_int8_plan(B, KVH, n_blocks, n_rep, want):
+    """Kernel #5 splits its key blocks only while B x KVH CTAs do not fill
+    one wave of two CTAs an SM (132 SMs), at most one split a block; the
+    ranges cover the blocks once, in order."""
+    splits = td.prefix_int8_plan(B, KVH, n_blocks, 132, n_rep)
+    assert splits == want
+    ranges = td.prefix_int8_split_blocks(n_blocks, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_blocks
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:] + [(n_blocks,)]))
+    assert td.prefix_int8_plan(B, KVH, n_blocks, 1, n_rep) == max(1, min(n_blocks, 2 // (B * KVH)))
+    with pytest.raises(ValueError):
+        td.prefix_int8_plan(B, KVH, n_blocks, 132, 3)

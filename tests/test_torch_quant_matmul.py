@@ -355,3 +355,51 @@ def test_fwd_split_contraction_equals_the_twins_and_jax(M, K, N, split):
         _np(jq.int8_matmul(jx, jqw, js, interpret=True)))
     slices = tq.fwd_slices(K, split)
     assert sum(k1 - k0 for k0, k1 in slices) == K
+
+
+# ------------------------------------------------ kernel #9's routes and plan
+
+
+@pytest.mark.parametrize("M,K,N,tma,want", [
+    # the 8-pair QLoRA step's prefix and suffix rows, a batch's prefill at the
+    # fused widths, one prompt's prefill and 3d's crossover rows
+    (6144, 4096, 11008, True, ("wide", (128, 256), 1, 1)),
+    (4544, 11008, 4096, True, ("wide", (128, 256), 1, 1)),
+    (21504, 4096, 12288, True, ("wide", (128, 256), 1, 1)),
+    (832, 4096, 22016, True, ("wide", (128, 256), 1, 1)),
+    (128, 4096, 4096, True, ("wide", (128, 256), 1, 1)),   # 16 tiles: fewer than 132 SMs
+    (1, 32, 16, True, ("wide", (128, 256), 1, 1)),
+    # rows a TMA tensor map cannot read: the cp.async kernel
+    (512, 4096, 1000, True, ("rows", (128, 128), 1, 1)),   # N % 16 != 0
+    (512, 4104, 4096, True, ("rows", (128, 128), 1, 1)),   # K % 16 != 0
+    (6144, 4096, 11008, False, ("rows", (128, 128), 1, 1)),
+])
+def test_fwd_prequant_plan(M, K, N, tma, want):
+    """#9 takes the 128 x 256 wide tile (q^T built in registers, wgmma)
+    wherever TMA can map the rows, one launch whatever the row count and the
+    SM count; the cp.async kernel where it cannot."""
+    for sms in (1, 132):
+        assert tuple(tq.fwd_prequant_plan(M, K, N, sms, tma)) == want
+    assert tq.PREQ_ROUTES[want[0]] == (0 if want[0] == "rows" else 1)
+
+
+@pytest.mark.parametrize("N", [1008, 1000])
+@pytest.mark.parametrize("K", [272, 264])
+@pytest.mark.parametrize("M", [127, 128, 129, 257])
+def test_prequant_twin_at_the_wide_tiles_edges_matches_jax(M, K, N):
+    """int8_matmul_prequant's twin (CPU tensors), the function of both #9
+    routes, against the JAX #9 in interpret mode, bit for bit, bf16, at the
+    edges of the wide tile (128 rows x 256 columns, 128-row K chunks: K 272
+    ends on a short chunk) and on rows TMA cannot map (N 1000, K 264: the
+    cp.async route); and equal to #7's twin, which #9 equals on the card."""
+    (jx, tx), _, (jqw, js), (tqw, ts) = _inputs(9, M, K, N, "bf16")
+    route = tq.fwd_prequant_plan(M, K, N, 132).route
+    assert route == ("wide" if N % 16 == 0 and K % 16 == 0 else "rows")
+    got = tq.int8_matmul_prequant(tx, tqw, ts)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        _np(got), _np(jq.int8_matmul_prequant(jx, jqw, js, interpret=True)))
+    xq, sx = tq.quantize_rows(tx.float())
+    assert torch.equal(tq.int8_matmul_prequant_plain(xq, sx, tqw, ts).to(got.dtype), got)
+    assert torch.equal(tq.int8_matmul_plain(tx, tqw, ts), got)
+    assert tq.int8_matmul_prequant.launches == 0  # CPU tensors: the twin

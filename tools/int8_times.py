@@ -1,13 +1,17 @@
 """Device times of the int8 kernels #7 (forward, rows quantised in the
 kernel) below 128 rows, #9 (forward on prequantised rows) and #10 (its dx)
 at chip_smoke.py's phase 3d shapes, beside torch._int_mm on the same int8
-operands; then phase 11's eager int8-KV serving step and headline; then
+operands, and of the whole int8_matmul_prequant call (its row quantisation
+and #9); then phase 11's eager int8-KV serving step and headline; then
 chip_smoke.py's phases 8 (ref-logp) and 9 (the int8 QLoRA steps), for the
 tree at ROOT (default: this checkout).
 
 Prints one line a shape, tagged with ROOT's directory name: #7 (below 128
 rows, with its route where ROOT's quant_matmul plans one), #9 and #10 in ms
-and TOP/s, #10's route where ROOT plans one, and torch._int_mm (cuBLASLt,
+and TOP/s, #9's and #10's routes where ROOT plans them (and #9's cp.async
+route beside its plan's, where ROOT can be given a plan), the whole
+int8_matmul_prequant call (the rows quantised as ROOT quantises them, then
+#9), and torch._int_mm (cuBLASLt,
 int8 x int8 -> int32, the product only: no scales, no rounding) for the
 forward's and the dx's operands, on the rows zero-padded to 32 where it
 refuses 16 or fewer. The shapes are 3d's: the 7B widths (4096 x 4096, 4096
@@ -83,6 +87,7 @@ def main() -> None:
     cases += [(K, N, M) for K, N in cs.LLAMA3_WIDTHS for M in cs.llama3_ms()]
     plan = getattr(cs.qm, "dx_prequant_plan", None)
     fplan = getattr(cs.qm, "fwd_plan", None)
+    pplan = getattr(cs.qm, "fwd_prequant_plan", None)
     g = torch.Generator(device="cuda").manual_seed(0)
     for K, N, M in cases:
         q, s = cs.quantize_kernel_int8_torch(
@@ -103,6 +108,13 @@ def main() -> None:
             fwd = (f"#7 {t7:.4f} ms = {nbytes / t7 / 1e6:.0f} GB/s of {cs.HBM_PEAK_GBPS:.0f}"
                    f"{route7}, ")
         t9 = cs.time_ms(lambda: cs.qm._kernel_prequant(xq, sx, q, s))
+        t_call = cs.time_ms(lambda: cs.qm.int8_matmul_prequant(x, q, s))
+        route9 = ""
+        if pplan is not None:
+            p9 = pplan(M, K, N, cs.qm._sms(0))
+            t9_rows = cs.time_ms(lambda: cs.qm._kernel_prequant(
+                xq, sx, q, s, cs.qm.FwdPlan("rows", (128, 128), 1, 1)))
+            route9 = f" ({p9.route}; the cp.async route {t9_rows:.4f} ms)"
         t10 = cs.time_ms(lambda: cs.qm._kernel_dx_prequant(dyq, sy, q))
         lib = [cs.int_mm_ms(a, b, tag) for a, b in ((xq, q), (dyq, q.T))]
         if lib[0] is None:
@@ -116,7 +128,8 @@ def main() -> None:
             route = f" ({p.route}, {p.tile[0]} x {p.tile[1]}, {p.split} slices)"
         lib_text = " ".join(t if isinstance(t, str) else "refused" if t is None else f"{t:.4f}"
                             for t in lib)
-        print(f"{tag} M={M} K={K} N={N}: {fwd}#9 {t9:.4f} ms = {ops / t9 / 1e9:.0f} TOP/s, "
+        print(f"{tag} M={M} K={K} N={N}: {fwd}#9 {t9:.4f} ms = {ops / t9 / 1e9:.0f} TOP/s"
+              f"{route9}, the whole int8_matmul_prequant call {t_call:.4f} ms, "
               f"#10 {t10:.4f} ms = {ops / t10 / 1e9:.0f} TOP/s{route} | torch._int_mm "
               f"fwd dx {lib_text} ms", flush=True)
         del q, s, x, xq, dyq
