@@ -158,7 +158,8 @@ Phases, one progress line each (or a few):
      split's state left out, the splits merged without rescaling to the
      common max), each of which must break the bound;
   3g. (run after 3f) kernel #16, fused decode through the layer stack,
-     against its plain twin (fused_decode_step_ref) at the 7B widths
+     against its plain twin (fused_decode_step_ref, with the cache blocks
+     cut into the kernel's key splits: fused_plan) at the 7B widths
      (Vicuna-7B, 32 layers, random int8/int4 stacked weights and cache):
      B = 8 and 10 at L = 896, batch 24 at L = 1024 and cache_index 960, a
      block edge with a fully masked row, mid-block, n_rep 4, int4; at one
@@ -169,7 +170,14 @@ Phases, one progress line each (or a few):
      activation quantised over the whole of I, rope skipped on k, one
      I-block of the down sum dropped), each of which must break the
      one-layer bound; Llama3-8B (I 14336: Ip 14336, bi 2048; KVH 8, B 8,
-     L 2304), int8 and int4; the barrier-bound floor of a launch;
+     L 2304), int8 and int4; each case's plan and the kernels one call
+     launched (a CUDA graph of the call); three broken copies of the kernel
+     on the n_rep 4 case (3 key splits: one split left out of the merge, a
+     split merged without rescaling to the common max, a product ring stage
+     consumed before its wait), built while 3-3b run, each of which must
+     break the one-layer bound; the per-phase breakdown at batch 24 (a
+     copy with barrier stamps, tools/fused_times.py) and the barrier-bound
+     floor of a launch, beside the first design's;
   3h. (run after 3g) kernel #6, single-query attention over the whole
      cache (fp32 math), against its plain twin at run_tpu_checks' shapes (B
      4, L 896, H 8, KVH 8 and 4, fp32, rows masked from 700 and from 13),
@@ -1617,7 +1625,8 @@ def phase_kv8_kernel(g) -> dict:
             raise AssertionError(f"the 3f bound misses the planted fault {name!r}")
     return res
 
-# 3g: kernel #16 against its twin (fused_decode_step_ref). Both sum the
+# 3g: kernel #16 against its twin (fused_decode_step_ref at the kernel's
+# plan: the same key splits, fused_plan(...).attn_splits). Both sum the
 # integer products exactly, quantise with IEEE divisions and round the fp32
 # formulas alike, but the norm's sum of squares, the fresh column's dot and
 # the softmax sums reduce in other orders and expf / sigmoid / rsqrt round
@@ -1672,6 +1681,53 @@ FD_CASES = [  # 3g: the fused path's shapes at the 7B widths, then the edges
     dict(name="Llama3-8B", B=8, L=2304, ci=2200, KVH=8, bits=8, time=True, llama3=True),
     dict(name="int4 Llama3-8B", B=8, L=2304, ci=2200, KVH=8, bits=4, time=True, llama3=True),
 ]
+
+
+# 3g: planted faults in #16's key-split merge and its product ring, each a
+# broken copy of csrc/fused_decode.cu run through one layer of
+# FUSED_FAULT_CASE (3 key splits on 264 CTAs) that must break the sharp bounds
+# (the names are build_variants' directories: none may repeat another
+# phase's, or the second build reopens the first one's library)
+FUSED_FAULT_CASE = "GQA n_rep 4"
+FUSED_KERNEL_FAULTS = {
+    "#16: one split left out of the merge": [(
+        "fused_decode.cu", "        for (int s = 0; s < S; ++s) {\n          const float *ps",
+        "        for (int s = 1; s < S; ++s) {\n          const float *ps")],
+    "#16: a split merged without rescaling to the common max": [(
+        "fused_decode.cu", "          const float wgt = expf(__fsub_rn(__ldcg(ps + DH), mx));",
+        "          const float wgt = 1.f;")],
+    # the wait moved after the products: the stage is read while its TMA may
+    # still be landing, the barrier protocol intact
+    "#16: a product ring stage consumed before its wait": [
+        ("fused_decode.cu", "      bar_wait(full + 8 * st, (u0 / G::STAGES) & 1);\n", ""),
+        ("fused_decode.cu", "      chunk_mma<W4>(d, ws, ws + G::WBYTES, MT, qchunk, qbyte, g, t);\n",
+         "      chunk_mma<W4>(d, ws, ws + G::WBYTES, MT, qchunk, qbyte, g, t);\n"
+         "      bar_wait(full + 8 * st, (u0 / G::STAGES) & 1);\n")],
+}
+# kernel #16's first design (commit 1b0ed56: one cooperative launch, cp.async
+# sub-chunks, one attention item a (row, kv head)) at the batch-24 headline's
+# step, us a layer (tools/fused_times.py on an NVIDIA H100 80GB HBM3, 700 W),
+# and its barrier-bound floor in ms
+FUSED_PARENT_PHASES = dict(rms=22.4, qkv=48.6, attention=102.1, o=22.2, rms2=21.6,
+                           gate_up=72.8, act=9.7, down=49.4)
+FUSED_PARENT_FLOOR_MS = 1.1992
+
+
+def _fused_times_tool():
+    """tools/fused_times.py, loaded by path (its stamped copy of #16)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("fused_times",
+                                                  ROOT / "tools" / "fused_times.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fused_variants() -> dict:
+    """#16's broken copies and its stamped copy, built together."""
+    return build_variants({**FUSED_KERNEL_FAULTS,
+                           "fused_stamps": _fused_times_tool().STAMP_EDITS})
 
 
 def _fd_cfg(KVH: int, bits: int, llama3: bool = False, **kw):
@@ -1870,11 +1926,18 @@ def _fd_bound(d, B: int, ci: int) -> dict:
     return bound(ops, _fd_bytes(d, B, ci), PEAK_INT8_TOPS)
 
 
-def phase_fused_kernel(g) -> dict:
-    """3g: kernel #16 against its twin at the fused path's shapes and edges
-    (int8 and int4, MHA and GQA), times beside the bound and the twin's;
-    the barrier-bound floor of a launch; then the planted faults."""
+def phase_fused_kernel(g, variants=None) -> dict:
+    """3g: kernel #16 against its twin at the kernel's plan at the fused
+    path's shapes and edges (int8 and int4, MHA and GQA), times beside the
+    bound and the twin's; the plan and the kernels a call (a CUDA graph of
+    one call); the per-phase breakdown at the batch-24 headline (the stamped
+    copy) and the barrier-bound floor, beside the first design's; then the
+    planted faults: five in the twin, three broken copies of the kernel
+    (`variants`: a future of fused_variants(), built here if None)."""
     res = {"err": 0.0}
+    libs = variants.result() if variants is not None else fused_variants()
+    tool = _fused_times_tool()
+    tool.declare(libs["fused_stamps"])
     weights = {}
     for c in FD_CASES:
         key = (c["KVH"], c["bits"], c.get("llama3", False))
@@ -1889,20 +1952,22 @@ def phase_fused_kernel(g) -> dict:
         cache, mask, x, pos = _fd_inputs(g, d, B, ci, c.get("dead_row", False))
         args = (weights[key], cache, x, mask, pos, ci, d)
         kw = dict(rope_theta=cfg.rope_theta)
+        plan = fd.fused_plan(d, B, ci)
+        kwr = dict(kw, attn_splits=plan.attn_splits)  # the twin at the kernel's plan
         out = fd.fused_decode_step(*args, **kw)
-        ref = fd.fused_decode_step_ref(*args, **kw)
+        ref = fd.fused_decode_step_ref(*args, **kwr)
         xp = torch.nextafter(x, torch.full_like(x, math.inf))
-        spread = _fd_gap(*fd.fused_decode_step_ref(weights[key], cache, xp, *args[3:], **kw),
+        spread = _fd_gap(*fd.fused_decode_step_ref(weights[key], cache, xp, *args[3:], **kwr),
                          *ref)
         args1 = _fd_layer0(args)
         out1 = fd.fused_decode_step(*args1, **kw)
-        gap1 = _fd_gap(*out1, *fd.fused_decode_step_ref(*args1, **kw))
+        gap1 = _fd_gap(*out1, *fd.fused_decode_step_ref(*args1, **kwr))
         torch.cuda.synchronize()
         gap = _fd_gap(*out, *ref)
         broken = _fd_layer_broken(gap1, B)
         ok = _fd_within(gap) and not broken
         msg = (f"[3g fused decode] {c['name']}: int{c['bits']} B={B} L={d.L} cache_index={ci} "
-               f"KVH={d.KVH} I={d.I} (Ip {d.Ip}, bi {d.bi}) | one layer: {gap1['rows']} of {B} rows hold a flip (bound "
+               f"KVH={d.KVH} I={d.I} (Ip {d.Ip}, bi {d.bi}), {plan} | one layer: {gap1['rows']} of {B} rows hold a flip (bound "
                f"{FUSED_FLIP_ROWS(B)}), x_out {gap1['x_rel']:.2e} of max, the worst row "
                f"{gap1['row_steps']:.3g} steps of its scale (tol {FUSED_FLIP_STEPS}), k/v "
                f"{gap1['steps']} steps (tol {FUSED_LAYER_KV_STEPS}) | {d.n_layers} layers: "
@@ -1913,8 +1978,13 @@ def phase_fused_kernel(g) -> dict:
                f"x one ulp up: {spread['x_rel']:.3e}, {spread['steps']} steps, "
                f"{spread['scale_rel']:.2e}")
         if c["time"]:
+            try:
+                ops = ops_text(launched_ops(lambda: fd.fused_decode_step(*args, **kw)))
+            except RuntimeError as e:  # a cooperative launch the graph cannot hold
+                ops = f"not captured ({str(e).splitlines()[0][:80]})"
+            msg += f" | one call: {ops} (a CUDA graph of one call; the wrapper's rope tables too)"
             t_k = time_ms(lambda: fd.fused_decode_step(*args, **kw), 10)
-            t_p = time_ms(lambda: fd.fused_decode_step_ref(*args, **kw), 2)
+            t_p = time_ms(lambda: fd.fused_decode_step_ref(*args, **kwr), 2)
             b = _fd_bound(d, B, ci)
             gbps = _fd_bytes(d, B, ci) / (t_k * 1e-3) / 1e9
             res[c["name"]] = dict(ms=t_k, plain_ms=t_p, library_ms=None, gbps=gbps, **b)
@@ -1927,10 +1997,37 @@ def phase_fused_kernel(g) -> dict:
         if not ok:
             raise AssertionError(f"kernel #16 disagrees with its twin: {c['name']}")
         res["err"] = max(res["err"], gap["x_abs"])
+        if c["name"] == "batch-24 headline":
+            with kernels_from(libs["fused_stamps"]):
+                rows = tool.breakdown(torch, libs["fused_stamps"],
+                                      lambda: fd.fused_decode_step(*args, **kw), d.n_layers)
+            res["phases"] = rows
+            log(f"[3g fused decode] phases at the batch-24 headline ({tool.phases_text(rows)}); "
+                f"the first design's: " + ", ".join(
+                    f"{k} {v}" for k, v in FUSED_PARENT_PHASES.items()) +
+                f" = {sum(FUSED_PARENT_PHASES.values()):.1f} us a layer")
+        if c["name"] == FUSED_FAULT_CASE:
+            ref1 = fd.fused_decode_step_ref(*args1, **kwr)
+            missed = []
+            for name in FUSED_KERNEL_FAULTS:
+                with kernels_from(libs[name]):
+                    bad = fd.fused_decode_step(*args1, **kw)
+                torch.cuda.synchronize()
+                gapf = _fd_gap(*bad, *ref1)
+                broken = _fd_layer_broken(gapf, B)
+                log(f"[3g fused decode] planted fault {name!r} (a broken copy of the kernel, "
+                    f"{plan.attn_splits} key splits), one layer: {gapf['rows']} of {B} rows "
+                    f"differ, x_out {gapf['x_rel']:.3e} of max, a row {gapf['row_steps']:.3g} "
+                    f"steps off, k/v {gapf['steps']} steps | "
+                    f"{'caught: ' + '; '.join(broken) if broken else 'MISSED'}")
+                if not broken:
+                    missed.append(name)
+            if missed:
+                raise AssertionError(f"the 3g bounds miss the kernel faults {missed}")
         if c["name"].startswith("greedy_gen"):
-            _fd_faults(args1, kw, out1)
+            _fd_faults(args1, kwr, out1)
         elif c["name"] == "batch-24 headline":
-            _fd_faults(args1, kw, out1, first_row=FUSED_TILE_ROWS)
+            _fd_faults(args1, kwr, out1, first_row=FUSED_TILE_ROWS)
         del cache, args, out, ref
     weights.clear()
     gc.collect()
@@ -1943,10 +2040,11 @@ def phase_fused_kernel(g) -> dict:
     tiny = _fd_weights(g, cfg)
     cache, mask, x, pos = _fd_inputs(g, d, 1, 1)
     t_floor = time_ms(lambda: fd.fused_decode_step(tiny, cache, x, mask, pos, 1, d), 20)
-    n_bar = 8 * d.n_layers - 1
+    n_bar = 8 * d.n_layers
     res["floor_ms"] = t_floor
-    log(f"[3g fused decode] barrier-bound floor: {t_floor:.3f} ms a launch at D 256, B 1 "
-        f"({n_bar} grid barriers: <= {t_floor / n_bar * 1e3:.2f} us a barrier and phase)")
+    log(f"[3g fused decode] barrier-bound floor: {t_floor:.4f} ms a launch at D 256, B 1 "
+        f"({n_bar} grid barriers: <= {t_floor / n_bar * 1e3:.2f} us a barrier and phase); the "
+        f"first design's {FUSED_PARENT_FLOOR_MS} ms")
     return res
 
 
@@ -2345,13 +2443,15 @@ def _fused_forced(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tens
             cmask[:, Lp + t] = 1
             x = eng.llm.embed(tokens[:, t:t + 1])[:, 0].float()
             rest = (cmask, plen + t, Lp + t, d)
+            # the twin cuts the cache blocks as the kernel's plan does
+            kw = dict(rope_theta=cfg.rope_theta,
+                      attn_splits=fd.fused_plan(d, x.shape[0], Lp + t).attn_splits)
             x_k, kv = fd.fused_decode_step(eng._fused_stacked, cache, x, *rest,
                                            rope_theta=cfg.rope_theta)
-            x_r, _ = fd.fused_decode_step_ref(eng._fused_stacked, cache, x, *rest,
-                                              rope_theta=cfg.rope_theta)
+            x_r, _ = fd.fused_decode_step_ref(eng._fused_stacked, cache, x, *rest, **kw)
             x_p, _ = fd.fused_decode_step_ref(eng._fused_stacked, cache,
                                               torch.nextafter(x, torch.full_like(x, math.inf)),
-                                              *rest, rope_theta=cfg.rope_theta)
+                                              *rest, **kw)
             for out, xo in ((kern, x_k), (twin, x_r), (spread, x_p)):
                 out.append(eng._head(xo).float())
             fd.scatter_new_kv(cache, kv, Lp + t)
@@ -3961,6 +4061,7 @@ def main() -> None:
     pool = concurrent.futures.ThreadPoolExecutor(1)
     flash_variants = pool.submit(build_variants, {**FLASH_FWD_FAULTS, **FLASH_DKV_FAULTS,
                                                   **FLASH_DQ_FAULTS})
+    fused_copies = pool.submit(fused_variants)
     g = torch.Generator(device="cuda").manual_seed(0)
     kern = timed("3 kernels", phase_kernels, g, flash_variants)
     cfg = LlavaConfig.llava15_7b()
@@ -3976,7 +4077,7 @@ def main() -> None:
     int8 = timed("3d int8", phase_int8, g, qb)
     int4 = timed("3e int4", phase_int4, g, qb)
     kv8 = timed("3f int8 decode", phase_kv8_kernel, g)
-    fused = timed("3g fused decode", phase_fused_kernel, g)
+    fused = timed("3g fused decode", phase_fused_kernel, g, fused_copies)
     full = timed("3h full decode", phase_full_kernel, g)
 
     t0 = time.perf_counter()
@@ -4141,7 +4242,11 @@ def main() -> None:
     kernels.append(_row(
         "fused_decode_step", "rlaifv_tpu_torch/csrc/fused_decode.cu",
         "rlaifv_tpu/ops/fused_decode.py:603", launches["fused"], fused["err"],
-        fused["batch-24 headline"]))
+        fused["batch-24 headline"],
+        "redesigned: key-split attention (kernel #5's design) with the cache streamed by "
+        "TMA, the weights through a TMA ring with int8 contraction slices, each phase's "
+        "first stages issued before its barrier, an acquire-release grid barrier; one "
+        "cooperative launch a step"))
     # row 6 at the Llama3 GQA geometry (B 8, L 2304, KVH 8, bf16): no path
     # of the port calls it (none of the JAX package does), so its launches
     # on the main path are 0

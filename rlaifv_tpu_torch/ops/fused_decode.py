@@ -28,6 +28,12 @@ tensor it runs the plain twin `fused_decode_step_ref`. The caller writes
 the fresh k/v into the cache (`scatter_new_kv`) and runs ln_f and the head
 on x_out.
 
+The kernel cuts each (row, kv head)'s live cache blocks into
+`fused_attention_plan` splits and merges them (`fused_decode_step_ref(...,
+attn_splits=)` is its reference; one split is the sequential function),
+and slices the int8 qkv and gate/up contractions by
+`fused_product_slices` (exact int32 partials: the same function).
+
 `stacked_prefill_tower` is the write-through prefill over the stacked
 weights: the per-layer products (QuantDense's), attention and rope of the
 model, each layer's int8 k/v written straight into the stacked cache.
@@ -385,19 +391,13 @@ def _fresh_column(qg, k, v, scale: float):
     return m, torch.ones_like(m), v[:, :, None, :].expand(qg.shape).clone()
 
 
-def _attention(q, k, v, cache, layer: int, mask, cache_index: int, d: FusedDecodeDims):
-    """q (B, H, Dh), k/v (B, KVH, Dh) roped fp32 -> (B, H, Dh) fp32: the
-    fresh column from the unquantised q, k, v, then the live cache blocks
-    with q quantised per (head, row) and each block's v-scaled
+def _blocks(q8, qs, m, l, acc, cache, layer: int, live_all, j0: int, j1: int,
+            d: FusedDecodeDims):
+    """The online softmax's state (m, l, acc) carried over the cache blocks
+    [j0, j1), q8/qs quantised per (head, row), each block's v-scaled
     probabilities quantised per row."""
-    B = q.shape[0]
     scale = 1.0 / (d.Dh ** 0.5)
-    qg = q.reshape(B, d.KVH, d.H // d.KVH, d.Dh)
-    q8, qs = quantize_rows(qg)
-    m, l, acc = _fresh_column(qg, k, v, scale)
-    live_col = torch.arange(d.L, device=q.device) < cache_index
-    live_all = (mask != 0) & live_col[None, :]
-    for j in range(max(-(-cache_index // d.bl), 0)):
+    for j in range(j0, j1):
         cols = slice(j * d.bl, (j + 1) * d.bl)
         kb = cache["k"][layer][:, :, cols].permute(1, 0, 3, 2)  # (B, KVH, Dh, bl)
         vb = cache["v"][layer][:, :, cols].permute(1, 0, 2, 3)  # (B, KVH, bl, Dh)
@@ -412,10 +412,49 @@ def _attention(q, k, v, cache, layer: int, mask, cache_index: int, d: FusedDecod
         p8, ps = quantize_rows(p * vs)
         acc = acc * corr + _int_product(p8, vb) * ps
         m = m_new
-    return (acc / torch.clamp_min(l, 1e-30)).reshape(B, d.H, d.Dh)
+    return m, l, acc
 
 
-O_CHUNK = 8  # heads of one partial sum of the o projection (the kernel's warps)
+def fused_split_blocks(n_blocks: int, splits: int) -> list:
+    """The cache blocks [j0, j1) of each split, as the kernel cuts them."""
+    return [(s * n_blocks // splits, (s + 1) * n_blocks // splits) for s in range(splits)]
+
+
+def _attention(q, k, v, cache, layer: int, mask, cache_index: int, d: FusedDecodeDims,
+               splits: int = 1):
+    """q (B, H, Dh), k/v (B, KVH, Dh) roped fp32 -> (B, H, Dh) fp32: the
+    fresh column from the unquantised q, k, v, then the live cache blocks
+    with q quantised per (head, row) and each block's v-scaled
+    probabilities quantised per row. With `splits` > 1 the blocks are cut
+    as the kernel cuts them (`fused_split_blocks`): split 0 carries on from
+    the fresh column, every other split starts from m = -1e30, l = 0, acc =
+    0, and the splits merge in order: M = max m_s, out = (sum acc_s e^(m_s
+    - M)) / max(sum l_s e^(m_s - M), 1e-30)."""
+    B = q.shape[0]
+    scale = 1.0 / (d.Dh ** 0.5)
+    qg = q.reshape(B, d.KVH, d.H // d.KVH, d.Dh)
+    q8, qs = quantize_rows(qg)
+    m, l, acc = _fresh_column(qg, k, v, scale)
+    live_col = torch.arange(d.L, device=q.device) < cache_index
+    live_all = (mask != 0) & live_col[None, :]
+    n_blocks = max(-(-cache_index // d.bl), 0)
+    if splits == 1:
+        m, l, acc = _blocks(q8, qs, m, l, acc, cache, layer, live_all, 0, n_blocks, d)
+        return (acc / torch.clamp_min(l, 1e-30)).reshape(B, d.H, d.Dh)
+    states = []
+    for s, (j0, j1) in enumerate(fused_split_blocks(n_blocks, splits)):
+        if s:
+            m, l, acc = torch.full_like(m, NEG_INF), torch.zeros_like(l), torch.zeros_like(acc)
+        states.append(_blocks(q8, qs, m, l, acc, cache, layer, live_all, j0, j1, d))
+    mx = torch.stack([ms for ms, _, _ in states]).amax(dim=0)
+    num, den = 0.0, 0.0
+    for ms, ls, accs in states:
+        w = torch.exp(ms - mx)
+        num, den = num + accs * w, den + ls * w
+    return (num / torch.clamp_min(den, 1e-30)).reshape(B, d.H, d.Dh)
+
+
+O_CHUNK = 8  # heads of one partial sum of the o projection (one o item of the kernel)
 
 
 def _o_projection(ao8, aos, wo, so, d: FusedDecodeDims) -> torch.Tensor:
@@ -460,16 +499,22 @@ def _down(a8, sa, wdown, sdown, blk: int, d: FusedDecodeDims) -> torch.Tensor:
 
 def fused_decode_step_ref(stacked: dict, cache: dict, x: torch.Tensor, mask: torch.Tensor,
                           positions: torch.Tensor, cache_index: int, dims: FusedDecodeDims,
-                          *, rope_theta: float = 10000.0):
+                          *, rope_theta: float = 10000.0, attn_splits=None):
     """The plain twin of kernel #16, phase by phase in fp32 (module
     docstring) -> (x_out (B, D) fp32, new_kv): {"k", "v"} (n_layers, KVH,
     B, Dh) int8 and {"k_scale", "v_scale"} (n_layers, KVH, B) fp32. The
     integer sums are exact (`_int_product`) and every quantisation divides
-    in IEEE fp32, as the kernel does."""
+    in IEEE fp32, as the kernel does. attn_splits: the cache blocks of each
+    (row, kv head) cut into that many splits and merged (`_attention`), as
+    the kernel's plan cuts them (`fused_plan(...).attn_splits`); None or 1:
+    the sequential function (the JAX package's)."""
     d = dims
     if d.H % d.KVH:
         raise ValueError("num_heads must be a multiple of num_kv_heads")
     cache_index = int(cache_index)
+    splits = int(attn_splits or 1)
+    if not 1 <= splits <= max(-(-cache_index // d.bl), 1):
+        raise ValueError(f"attn_splits must be in [1, max(live blocks, 1)]; got {attn_splits}")
     B = x.shape[0]
     cos, sin = rope_tables(positions, d.Dh, rope_theta)
     xs = x.float().clone()
@@ -485,7 +530,7 @@ def fused_decode_step_ref(stacked: dict, cache: dict, x: torch.Tensor, mask: tor
             t8, ts = quantize_rows(t.transpose(0, 1))
             new[key].append(t8)
             new[f"{key}_scale"].append(ts[..., 0])
-        out = _attention(q, k, v, cache, i, mask, cache_index, d)
+        out = _attention(q, k, v, cache, i, mask, cache_index, d, splits)
         ao8, aos = quantize_rows(out)
         xs = xs + _o_projection(ao8, aos, stacked["wo"][i], stacked["so"][i], d)
         x8, sx = quantize_rows(_rms(xs, stacked["ln"][i, 1], d.eps))
@@ -495,14 +540,89 @@ def fused_decode_step_ref(stacked: dict, cache: dict, x: torch.Tensor, mask: tor
     return xs, {key: torch.stack(vals) for key, vals in new.items()}
 
 
-# (name, dtype) of every tensor the kernel takes, in the C entry point's
-# order (csrc/fused_decode.cu, struct Args)
+# kernel #16's CTAs a streaming multiprocessor: ~111 KB of shared memory a
+# CTA (csrc/fused_decode.cu), two on the H100's 228 KB
+FUSED_CTAS_PER_SM = 2
+KERNEL_TN = 128  # output columns of a product item
+KERNEL_TK = 128  # contraction rows of a chunk
+
+
+def fused_attention_plan(B: int, KVH: int, n_blocks: int, ctas: int, n_rep: int = 1) -> int:
+    """The splits of each (row, kv head)'s live cache blocks in kernel #16's
+    attention phase: as many as bring the B x KVH items up to one wave of
+    the grid's `ctas` CTAs, at most one a block, at least one; one split
+    once B x KVH fills a wave. A CTA serves all n_rep (1, 2, 4 or 8) query
+    heads of its group, so n_rep does not change the plan. Splits fall on
+    block boundaries (p is quantised per block). Llama3-8B's step (B 8,
+    KVH 8, 18 live blocks) takes 4 splits on 264 CTAs; batch 24 (768 items)
+    one (`ops/decode_attention.py:prefix_int8_plan`'s rule)."""
+    if n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"fused_attention_plan: n_rep must be 1, 2, 4 or 8; got {n_rep}")
+    if B * KVH >= ctas:
+        return 1
+    return max(1, min(n_blocks, ctas // (B * KVH)))
+
+
+FUSED_MAX_SLICES = 8  # the kernel sums at most this many int32 partials of a value
+
+
+def fused_product_slices(tiles: int, chunks: int, ctas: int) -> int:
+    """The slices of an int8 contraction of `chunks` 128-row chunks whose
+    `tiles` column tiles kernel #16 covers: items (tile, slice) are dealt to
+    the `ctas` CTAs in turn, so a CTA takes ceil(tiles S / ctas) of them,
+    each ceil(chunks / S) chunks plus about one chunk's worth of fixed cost
+    (the slice's int32 partial out, its first load in). -> the S in [1,
+    min(chunks, FUSED_MAX_SLICES)] with the least such cost, the smallest on
+    a tie. The partials are exact, so S does not change the function. 7B
+    qkv at any B (96 tiles of 32 chunks) takes 8 on 264 CTAs, gate/up (176
+    tiles) 3."""
+    def cost(s: int) -> int:
+        return -(-tiles * s // ctas) * (-(-chunks // s) + 1)
+
+    return min(range(1, min(chunks, FUSED_MAX_SLICES) + 1), key=lambda s: (cost(s), s))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How kernel #16 cuts its work at one step's shape."""
+    attn_splits: int  # cache-block splits of a (row, kv head)
+    qkv_slices: int   # contraction slices of the qkv product (int8; int4: 1)
+    gu_slices: int    # ... of the gate/up product
+
+
+def _ctas(device) -> int:
+    index = torch.device(device).index or 0 if device is not None else 0
+    return FUSED_CTAS_PER_SM * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def fused_plan(d: FusedDecodeDims, B: int, cache_index: int, ctas: int = None,
+               device=None) -> FusedPlan:
+    """Kernel #16's plan at this step: the attention's splits
+    (`fused_attention_plan`) and the int8 contraction slices
+    (`fused_product_slices`; int4 sums its groups in order, one slice).
+    ctas: the kernel's grid (default FUSED_CTAS_PER_SM on each of the
+    card's multiprocessors)."""
+    ctas = ctas or _ctas(device)
+    n_blocks = max(-(-int(cache_index) // d.bl), 0)
+    attn = fused_attention_plan(B, d.KVH, n_blocks, ctas, d.H // d.KVH)
+    if d.w4:
+        return FusedPlan(attn, 1, 1)
+    C = d.D // KERNEL_TK
+    return FusedPlan(attn, fused_product_slices(d.Nq // KERNEL_TN, C, ctas),
+                     fused_product_slices(2 * d.Ip // KERNEL_TN, C, ctas))
+
+
+# every tensor the kernel takes, in the C entry point's order
+# (csrc/fused_decode.cu, fused_decode_step_cuda)
 _TENSORS = ("cossin", "mask", "ln", "wqkv", "sqkv", "k", "k_scale", "v", "v_scale",
             "wo", "so", "wgu", "sgu", "wdown", "sdown", "x", "nk", "nks", "nv", "nvs",
-            "x8", "xs", "qkv", "ao8", "aos", "gu", "a8", "as", "yp", "bar")
-_INTS = ("B", "n_layers", "D", "H", "KVH", "Ip", "bi", "L", "cache_index", "valid_blocks")
+            "x8", "xs", "pqkv", "ao8", "aos", "pgu", "a8", "as", "po", "pdown", "patt", "cnt",
+            "rowp")
+_INTS = ("B", "n_layers", "D", "H", "KVH", "Ip", "bi", "L", "cache_index", "valid_blocks",
+         "attn_splits", "qkv_slices", "gu_slices")
 KERNEL_DH = 128  # the head dim the kernel is built for (every model the package serves)
 KERNEL_MAX_B = 32  # rows one mma tile pair covers
+KERNEL_MAX_D = 4096  # the hidden width a row phase keeps in registers
 
 
 def _stacked_shapes(d: FusedDecodeDims) -> dict:
@@ -526,10 +646,10 @@ def _check_kernel_args(stacked, cache, x, mask, cache_index, d: FusedDecodeDims)
         raise ValueError(f"fused_decode_step kernel: Dh {KERNEL_DH}, n_rep in (1, 2, 4, 8) and "
                          f"1 <= B <= {KERNEL_MAX_B}; got Dh={d.Dh} H={d.H} KVH={d.KVH} B={B}")
     if d.bl != 128 or d.L % 128 or d.D % 128 or d.bi % 128 or d.Ip % d.bi \
-            or max(d.nI, -(-d.H // O_CHUNK)) > 8:
+            or max(d.nI, -(-d.H // O_CHUNK)) > 8 or d.D > KERNEL_MAX_D or d.bi > 2048:
         raise ValueError(f"fused_decode_step kernel: L, D and bi multiples of 128 (block 128), "
-                         f"at most 8 I-blocks and 8 head chunks; got L={d.L} D={d.D} "
-                         f"bi={d.bi} bl={d.bl} nI={d.nI} H={d.H}")
+                         f"D <= {KERNEL_MAX_D}, bi <= 2048, at most 8 I-blocks and 8 head "
+                         f"chunks; got L={d.L} D={d.D} bi={d.bi} bl={d.bl} nI={d.nI} H={d.H}")
     if d.w4 and (d.g_d, d.g_o, d.g_down) != (128, 128, 128):
         raise ValueError(f"fused_decode_step kernel: int4 groups of 128; got "
                          f"{(d.g_d, d.g_o, d.g_down)}")
@@ -563,6 +683,9 @@ def _kernel(stacked, cache, x, mask, positions, cache_index, d: FusedDecodeDims,
         return torch.empty(shape, dtype=dtype, device=dev)
 
     kv = (d.n_layers, d.KVH, B)
+    plan = fused_plan(d, B, cache_index, device=dev)
+    # the products' outputs: int8 the slices' exact int32 partials, int4 fp32
+    part = torch.int32 if not d.w4 else f32
     t = dict(stacked, **cache)
     t.update(
         cossin=rope_tables(positions.to(dev), d.Dh, rope_theta).contiguous(),
@@ -570,13 +693,21 @@ def _kernel(stacked, cache, x, mask, positions, cache_index, d: FusedDecodeDims,
         x=x.to(f32).clone(memory_format=torch.contiguous_format),
         nk=empty(*kv, d.Dh, dtype=i8), nks=empty(*kv), nv=empty(*kv, d.Dh, dtype=i8),
         nvs=empty(*kv), x8=empty(B, d.D, dtype=i8), xs=empty(B),
-        qkv=empty(B, d.Nq), ao8=empty(B, d.H * d.Dh, dtype=i8), aos=empty(B, d.H),
-        gu=empty(B, 2 * d.Ip), a8=empty(B, d.Ip, dtype=i8), **{"as": empty(B, d.nI)},
-        yp=empty(max(-(-d.H // O_CHUNK), d.nI), B, d.D),
-        bar=torch.zeros(2, dtype=torch.int32, device=dev),
+        pqkv=empty(plan.qkv_slices, B, d.Nq, dtype=part),
+        ao8=empty(B, d.H * d.Dh, dtype=i8), aos=empty(d.H, 32),
+        pgu=empty(plan.gu_slices, B, 2 * d.Ip, dtype=part),
+        a8=empty(B, d.Ip, dtype=i8), **{"as": empty(B, d.nI)},
+        po=empty(-(-d.H // O_CHUNK), B, d.D),
+        pdown=empty(d.nI, B, d.D),
+        patt=empty(B, d.H, plan.attn_splits, d.Dh + 4),
+        # a (row, kv head)'s split arrivals, a row's part arrivals, the grid
+        # barrier's 2 words, then CTAs an SM id (1024) and a rank (2)
+        cnt=torch.zeros(B * d.KVH + B + 2 + 1026, dtype=torch.int32, device=dev),
+        rowp=empty(2, B, 8),
     )
     ints = dict(B=B, n_layers=d.n_layers, D=d.D, H=d.H, KVH=d.KVH, Ip=d.Ip, bi=d.bi, L=d.L,
-                cache_index=cache_index, valid_blocks=-(-cache_index // d.bl))
+                cache_index=cache_index, valid_blocks=-(-cache_index // d.bl),
+                **dataclasses.asdict(plan))
     args = [t[k].data_ptr() for k in _TENSORS] + [ints[k] for k in _INTS]
     packed = (ctypes.c_longlong * len(args))(*args)
     err = _build.load_kernels().fused_decode_step_cuda(
@@ -596,8 +727,9 @@ def fused_decode_step(stacked: dict, cache: dict, x: torch.Tensor, mask: torch.T
     validity; positions (B,): the fresh token's rope positions; cache_index:
     a host int, the cache column the fresh k/v belong to (columns below it
     are the live prefix). A CUDA tensor launches kernel #16 (Dh 128, n_rep in
-    1/2/4/8, B <= 32, 128-multiples; int4 groups of 128; anything else
-    raises); a CPU tensor runs `fused_decode_step_ref`."""
+    1/2/4/8, B <= 32, 128-multiples, D <= 4096; int4 groups of 128;
+    anything else raises) with `fused_plan`'s splits; a CPU tensor runs
+    `fused_decode_step_ref` at one split."""
     if x.is_cuda:
         return _kernel(stacked, cache, x, mask, positions, cache_index, dims, rope_theta)
     return fused_decode_step_ref(stacked, cache, x, mask, positions, cache_index, dims,

@@ -25,8 +25,10 @@ exp can flip a rounding of p8 by one step, and the output is bf16), held to
 the split twin at the key splits the card's plan gives; a rerun is bit-equal.
 The prequant kernel #9 equals its twin on both routes, and the prequant
 wrappers' row passes equal quantize_rows bit for bit. The
-fused decode kernel #16 through 2 layers: every row of x_out within 1e-5 of
-max|x_out| of its twin and the fresh k/v equal, but for at most
+fused decode kernel #16 through 2 layers, held to its twin at the kernel's
+plan (the cache blocks cut into the same key splits; forced plans with one
+split and with several, and sliced contractions): every row of x_out
+within 1e-5 of max|x_out| of its twin and the fresh k/v equal, but for at most
 FUSED_FLIP_ROWS(B) rows where a value landed on the other side of a
 quantisation step; there every row's x_out stays within FUSED_FLIP_STEPS
 int8 steps of that row's scale (max|x_out row| / 127) and the fresh k/v
@@ -37,6 +39,7 @@ within the bf16 bound above;
 a fully masked row is exactly 0, also when the key axis is split (a split
 whose keys are all masked adds nothing to the merge).
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1177,26 +1180,38 @@ def _fused_broken(out, ref):
         (f"k/v {steps} steps apart", steps > FUSED_KV_STEPS)) if bad]
 
 
-@pytest.mark.parametrize("bits,D,H,KVH,I,L,B,ci", [
-    (8, 256, 2, 2, 512, 256, 5, 200),  # MHA, one I-block
-    (8, 512, 4, 1, 4096, 384, 3, 300),  # n_rep 4, two I-blocks
-    (8, 256, 2, 2, 512, 128, 32, 100),  # the widest batch
-    (4, 256, 2, 2, 512, 256, 4, 129),  # int4, one live column past a block edge
-    (4, 256, 2, 2, 4096, 384, 6, 256),  # int4, two I-blocks, cache_index on a block edge
+@pytest.mark.parametrize("bits,D,H,KVH,I,L,B,ci,plan", [
+    (8, 256, 2, 2, 512, 256, 5, 200, None),  # MHA, one I-block (the card's plan: 2 splits)
+    (8, 512, 4, 1, 4096, 384, 3, 300, None),  # n_rep 4, two I-blocks (3 splits)
+    (8, 256, 2, 2, 512, 128, 32, 100, None),  # the widest batch (one live block: 1 split)
+    (4, 256, 2, 2, 512, 256, 4, 129, None),  # int4, one live column past a block edge
+    (4, 256, 2, 2, 4096, 384, 6, 256, None),  # int4, two I-blocks, cache_index on a block edge
+    (8, 512, 4, 1, 4096, 384, 3, 300, (1, 1, 1)),  # forced: one split, whole contractions
+    (8, 512, 4, 1, 4096, 384, 3, 300, (2, 4, 3)),  # forced: 2 splits, sliced contractions
+    (4, 256, 2, 2, 512, 512, 4, 400, (4, 1, 1)),  # int4, forced 4 splits
 ])
-def test_fused_decode_kernel_matches_twin(gen, bits, D, H, KVH, I, L, B, ci):
-    """Kernel #16 against fused_decode_step_ref through 2 layers within the
-    flip bounds of the module docstring; one launch a call."""
+def test_fused_decode_kernel_matches_twin(gen, bits, D, H, KVH, I, L, B, ci, plan):
+    """Kernel #16 against fused_decode_step_ref at the kernel's plan (the
+    cache blocks cut into the same splits) through 2 layers within the flip
+    bounds of the module docstring; one launch a call. `plan` forces
+    (attn_splits, qkv_slices, gu_slices) in place of the
+    card's own."""
+    from unittest import mock
+
     from rlaifv_tpu_torch.ops import fused_decode as fd
 
     args = _fused_case(gen, bits, D, H, KVH, I, L, B, ci)
+    forced = fd.FusedPlan(*plan) if plan else None
+    used = forced or fd.fused_plan(args[-1], B, ci, device="cuda")
     n = fd.fused_decode_step.launches
-    out = fd.fused_decode_step(*args)
-    ref = fd.fused_decode_step_ref(*args)
+    with mock.patch.object(fd, "fused_plan", lambda *a, **k: forced) if forced \
+            else contextlib.nullcontext():
+        out = fd.fused_decode_step(*args)
+    ref = fd.fused_decode_step_ref(*args, attn_splits=used.attn_splits)
     torch.cuda.synchronize()
     assert fd.fused_decode_step.launches == n + 1
     assert torch.isfinite(out[0]).all()
-    assert not _fused_broken(out, ref), _fused_broken(out, ref)
+    assert not _fused_broken(out, ref), (used, _fused_broken(out, ref))
 
 
 @pytest.mark.parametrize("fault", ["mask ignored", "fresh column dropped"])

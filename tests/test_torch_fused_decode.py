@@ -18,6 +18,12 @@ CPU.
   in the four cases: no step flipped), the fresh int8 k/v equal except for
   at most KV_FLIPS one-step flips in a case (read 0 of 256-512 values), their
   scales to 1e-5 relative (read <= 2.4e-7).
+- The key split (kernel #16's deliberate difference): the twin at one
+  split equals, bit for bit, a frozen copy of the sequential attention; at
+  2-4 splits (3-4 live blocks, a fully masked row, a cache_index inside a
+  block, int8 and int4, MHA and GQA) it stays within the tolerances above
+  of the sequential JAX function; the plans split on block boundaries,
+  fill a wave at Llama3-8B's B 8 x KVH 8 and take one split at batch 24.
 - `stacked_prefill_tower` and `scatter_new_kv` against the JAX ones (the
   off-TPU product formula on both sides: fp32, different sum orders, so
   int8 cache values within one step).
@@ -226,6 +232,157 @@ def test_twin_matches_jax_interpret(bits, prompt_len, L, llm_kw):
         np.testing.assert_allclose(got_kv[f"{key}_scale"].numpy(),
                                    np.asarray(want_kv[f"{key}_scale"]), rtol=1e-5)
     assert flips <= KV_FLIPS, flips
+
+
+# ------------------------------------------------------------ the key split
+
+
+def _frozen_sequential_attention(q, k, v, cache, layer, mask, cache_index, d, splits=1):
+    """A frozen copy of the twin's attention before the key split: the fresh
+    column, then every live block in one recurrence."""
+    assert splits == 1
+    B = q.shape[0]
+    scale = 1.0 / (d.Dh ** 0.5)
+    qg = q.reshape(B, d.KVH, d.H // d.KVH, d.Dh)
+    q8, qs = tfd.quantize_rows(qg)
+    m, l, acc = tfd._fresh_column(qg, k, v, scale)
+    live_col = torch.arange(d.L, device=q.device) < cache_index
+    live_all = (mask != 0) & live_col[None, :]
+    for j in range(max(-(-cache_index // d.bl), 0)):
+        cols = slice(j * d.bl, (j + 1) * d.bl)
+        kb = cache["k"][layer][:, :, cols].permute(1, 0, 3, 2)
+        vb = cache["v"][layer][:, :, cols].permute(1, 0, 2, 3)
+        ks = cache["k_scale"][layer][:, :, cols].permute(1, 0, 2)[:, :, None, :]
+        vs = cache["v_scale"][layer][:, :, cols].permute(1, 0, 2)[:, :, None, :]
+        sc = tfd._int_product(q8, kb) * qs * ks * scale
+        sc = torch.where(live_all[:, None, None, cols], sc, tfd.NEG_INF)
+        m_new = torch.maximum(m, torch.clamp_min(sc.amax(dim=-1, keepdim=True),
+                                                 tfd.NEG_INF / 2))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        p8, ps = tfd.quantize_rows(p * vs)
+        acc = acc * corr + tfd._int_product(p8, vb) * ps
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).reshape(B, d.H, d.Dh)
+
+
+def _split_case(bits: int, prompt_len: int, L: int, dead_row: bool, **llm_kw):
+    """_jax_setup's step as torch inputs, with row 1's cache columns all
+    masked when `dead_row` (it then sees the fresh column alone)."""
+    cfg, params, scache, mask, positions, x = _jax_setup(bits, prompt_len, L, **llm_kw)
+    mask = np.array(mask)
+    if dead_row:
+        mask[1] = 0
+    d = jfd.default_dims(cfg, L)
+    jstacked = jfd.stack_llama_params(params, cfg)
+    td = tfd.default_dims(LlamaConfig.tiny(**SERVE, quantize_bits=bits, **llm_kw), L)
+    targs = (_torch_stacked(jstacked, d), {k: _t(v) for k, v in scache.items()}, _t(x),
+             _t(mask), _t(positions), prompt_len, td)
+    jargs = (jstacked, scache, x, jnp.asarray(mask), positions, jnp.int32(prompt_len), d)
+    return cfg, targs, jargs
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_split_twin_at_one_split_is_the_sequential_twin(bits):
+    """fused_decode_step_ref with attn_splits 1 (and left out) equals, bit
+    for bit, the step with a frozen copy of the sequential attention."""
+    from unittest import mock
+
+    cfg, targs, _ = _split_case(bits, 300, 512, dead_row=False)
+    kw = dict(rope_theta=cfg.rope_theta)
+    with mock.patch.object(tfd, "_attention", _frozen_sequential_attention):
+        want_x, want_kv = tfd.fused_decode_step_ref(*targs, **kw)
+    for splits in (None, 1):
+        got_x, got_kv = tfd.fused_decode_step_ref(*targs, **kw, attn_splits=splits)
+        assert torch.equal(got_x, want_x)
+        for key in want_kv:
+            assert torch.equal(got_kv[key], want_kv[key]), key
+
+
+_SPLIT_CONFIGS = {  # the twin's tiny configs with 3-4 live cache blocks
+    "int8 MHA, a fully masked row": (8, 400, 512, True, dict(num_kv_heads=4)),
+    "int8 GQA, cache_index inside a block": (8, 300, 512, False, {}),
+    "int4 GQA": (4, 400, 512, False, {}),
+}
+_split_jax_cache = {}
+
+
+def _split_jax(name):
+    """The JAX step (interpret mode) of a split config, computed once."""
+    if name not in _split_jax_cache:
+        bits, prompt_len, L, dead, llm_kw = _SPLIT_CONFIGS[name]
+        cfg, targs, jargs = _split_case(bits, prompt_len, L, dead, **llm_kw)
+        want = jfd.fused_decode_step(*jargs, rope_theta=cfg.rope_theta, interpret=True)
+        _split_jax_cache[name] = (cfg, targs, tuple(np.asarray(w) for w in (want[0],)),
+                                  {k: np.asarray(v) for k, v in want[1].items()})
+    return _split_jax_cache[name]
+
+
+@pytest.mark.parametrize("name,splits", [
+    (n, s) for n in _SPLIT_CONFIGS for s in (2, 3, 4)
+    if s <= -(-_SPLIT_CONFIGS[n][1] // 128)])
+def test_split_twin_matches_jax_interpret(name, splits):
+    """The twin with its cache blocks cut into 2-4 splits (the kernel's
+    function) against the sequential JAX function: within
+    test_twin_matches_jax_interpret's tolerances."""
+    cfg, targs, (want_x,), want_kv = _split_jax(name)
+    got_x, got_kv = tfd.fused_decode_step_ref(*targs, rope_theta=cfg.rope_theta,
+                                              attn_splits=splits)
+    rel = np.abs(got_x.numpy() - want_x).max() / np.abs(want_x).max()
+    assert rel <= X_REL_TOL, rel
+    flips = 0
+    for key in ("k", "v"):
+        diff = np.abs(got_kv[key].numpy().astype(np.int32) - want_kv[key].astype(np.int32))
+        assert diff.max() <= 1, (key, diff.max())
+        flips += int(diff.sum())
+        np.testing.assert_allclose(got_kv[f"{key}_scale"].numpy(), want_kv[f"{key}_scale"],
+                                   rtol=1e-5)
+    assert flips <= KV_FLIPS, flips
+
+
+def test_split_twin_rejects_more_splits_than_blocks():
+    cfg, targs, _ = _split_case(8, 300, 512, dead_row=False)
+    with pytest.raises(ValueError, match="attn_splits"):
+        tfd.fused_decode_step_ref(*targs, rope_theta=cfg.rope_theta, attn_splits=4)
+
+
+@pytest.mark.parametrize("B,KVH,n_blocks,ctas,want", [
+    (8, 8, 18, 264, 4),  # Llama3-8B's step: 64 items x 4 fill the wave of 264
+    (24, 32, 8, 264, 1),  # the batch-24 headline: 768 items fill it already
+    (10, 32, 7, 264, 1),  # diverse_gen: 320 items
+    (6, 8, 3, 264, 3),  # GQA n_rep 4 at 300 columns: at most one split a block
+    (1, 2, 0, 264, 1),  # no live block: the fresh column alone
+    (2, 2, 1, 264, 1),
+])
+def test_fused_attention_plan(B, KVH, n_blocks, ctas, want):
+    for n_rep in (1, 2, 4, 8):
+        assert tfd.fused_attention_plan(B, KVH, n_blocks, ctas, n_rep) == want
+    if want > 1:
+        assert B * KVH * want <= ctas < B * KVH * (want + 1) or want == n_blocks
+    spans = tfd.fused_split_blocks(n_blocks, want)
+    assert spans[0][0] == 0 and spans[-1][1] == n_blocks
+    assert all(j1 > j0 for j0, j1 in spans) or n_blocks == 0
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    with pytest.raises(ValueError, match="n_rep"):
+        tfd.fused_attention_plan(B, KVH, n_blocks, ctas, 3)
+
+
+@pytest.mark.parametrize("geom,bits,B,L,ci,want", [
+    ("vicuna-7b", 8, 24, 1024, 960, (1, 8, 3)),
+    ("vicuna-7b", 8, 8, 896, 840, (1, 8, 3)),
+    ("llama3-8b", 8, 8, 2304, 2200, (4, 5, 1)),
+    ("vicuna-7b", 4, 24, 1024, 960, (1, 1, 1)),
+])
+def test_fused_plan(geom, bits, B, L, ci, want):
+    """The kernel's plan at 3g's shapes on 264 CTAs (132 SMs): deterministic,
+    splits within the live blocks, slices within the contractions."""
+    kw = {k: _GEOMETRIES[geom][k] for k in _SHARED}
+    d = tfd.default_dims(LlamaConfig(**kw, quantize=True, quantize_bits=bits), L)
+    plan = tfd.fused_plan(d, B, ci, ctas=264)
+    assert plan == tfd.fused_plan(d, B, ci, ctas=264)
+    assert (plan.attn_splits, plan.qkv_slices, plan.gu_slices) == want
+    assert 1 <= plan.qkv_slices <= min(d.D // 128, tfd.FUSED_MAX_SLICES)
 
 
 def test_tower_and_scatter_match_jax():
