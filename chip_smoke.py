@@ -16,7 +16,17 @@ Phases, one progress line each (or a few):
      flash call launches (a CUDA graph of the call: one); three broken
      copies of the flash forward (the diagonal tile unmasked, the rescale
      skipped, the last ragged key tile dropped), built while 3 and 3b run,
-     each of which must break the comparison;
+     each of which must break the comparison; the prefix decode kernel (#4)
+     against its plain version and its split twin at the card's plan
+     (prefix_plan): phase 4's shape at four valid_len, then the bf16
+     batch-24 run, the bf16 Llama3-8B backend's GQA step (B 8, KVH 8,
+     valid_len 2200) and phase 13's short prompts (valid_len 384) from a
+     generator of their own, each with its key splits and the kernels one
+     call launches (a CUDA graph of the call) against the plan, its time
+     beside the plain version, SDPA and the bound; three broken copies of
+     #4 (one split left out of the merge, a split not rescaled, the last
+     partial key tile dropped), built with the flash copies, each of which
+     must break the bound on the GQA step at valid_len 600;
   3b. the flash forward and backward kernels (dq, dk/dv) against the plain
      versions on the same bf16 inputs and dO at the train step's shapes:
      five fixed ones and the three calls phase 6's collated pair makes
@@ -289,11 +299,13 @@ from rlaifv_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention_prefix_int8_ref,
     decode_attention_prefix_int8_split_ref,
     decode_attention_prefix_ref,
+    decode_attention_prefix_split_ref,
     decode_attention_ref,
     dequantize_kv,
     full_plan,
     prefix_block_l,
     prefix_int8_plan,
+    prefix_plan,
     quantize_kv,
 )
 from rlaifv_tpu_torch.ops import fused_head as fh  # noqa: E402
@@ -823,8 +835,10 @@ def flash_faults_caught(tag: str, libs: dict, run, check) -> None:
 
 def phase_kernels(g, variants) -> dict:
     """3: the flash forward (#1) and the prefix decode kernel (#4) against
-    their plain versions at the serving shapes; #1's planted faults from the
-    broken copies `variants` (a future of build_variants) builds."""
+    their plain versions at the serving shapes (#4 also against its split
+    twin at the card's plan, and at the Llama3 GQA step); #1's and #4's
+    planted faults from the broken copies `variants` (a future of
+    build_variants) builds."""
     results = {}
     # --- flash attention forward
     err_max = 0.0
@@ -880,7 +894,8 @@ def phase_kernels(g, variants) -> dict:
     flash_faults_caught("[3 flash]", {n: libs[n] for n in FLASH_FWD_FAULTS},
                         lambda: flash_attention(q, k, v, return_lse=True, **kw), check_fwd)
 
-    # --- prefix decode attention
+    # --- prefix decode attention (#4): phase 4's shape at four valid_len,
+    # then its other main-path shapes from a generator of their own
     B, L, H, KVH, D = 10, 896, 32, 32, 128
     q, k0, v0 = _randn(g, B, H, D), _randn(g, B, L, KVH, D), _randn(g, B, L, KVH, D)
     err_max = 0.0
@@ -891,36 +906,115 @@ def phase_kernels(g, variants) -> dict:
         k, v = k0.clone(), v0.clone()
         k[:, valid_len:] = float("nan")  # never read: poison
         v[:, valid_len:] = float("nan")
-        out = decode_attention_prefix(q, k, v, mask, valid_len)
-        ref = decode_attention_prefix_ref(q, k, v, mask, valid_len)
-        torch.cuda.synchronize()
-        e = (out.float() - ref.float()).abs().max().item()
-        ok = _within(out, ref) and bool(torch.isfinite(out.float()).all())
-        if valid_len == 1:
-            ok = ok and bool((out[1:] == 0).all())  # rows 1.. are fully masked
-        t_k = time_ms(lambda: decode_attention_prefix(q, k, v, mask, valid_len))
-        t_p = time_ms(lambda: decode_attention_prefix_ref(q, k, v, mask, valid_len))
-        nbytes = 2 * B * valid_len * KVH * D * 2 + 2 * q.numel() * 2 + B * valid_len * 4
-        gbps = nbytes / (t_k * 1e-3) / 1e9
-        log(f"[3 decode] B={B} L={L} H={H} KVH={KVH} D={D} valid_len={valid_len}: "
-            f"max|err| {e:.3e} (tol {OUT_TOL} + {OUT_RTOL} x |plain|) | kernel {t_k:.4f} ms plain "
-            f"{t_p:.4f} ms | {gbps:.0f} GB/s = {gbps / HBM_PEAK_GBPS:.1%} of "
-            f"{HBM_PEAK_GBPS:.0f} GB/s | {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"decode kernel disagrees at valid_len={valid_len}")
-        err_max = max(err_max, e)
+        r = _prefix_case(f"phase 4 valid_len={valid_len}", q, k, v, mask, valid_len,
+                         timed=valid_len == 896)
+        err_max = max(err_max, r["max_abs_err"])
         if valid_len == 896:
-            kv, vv, mv = k[:, :valid_len], v[:, :valid_len], mask[:, :valid_len]
-            keep = (mv != 0)[:, None, None, :]
-            t_lib = time_ms(lambda: sdpa(q[:, None], kv, vv, keep))
-            flop = 4 * H * D * int(mv.sum())
-            results["decode"] = dict(ms=t_k, plain_ms=t_p, gbps=gbps, library_ms=t_lib,
-                                     **bound(flop, _nbytes(q, kv, vv, mv, out)))
-            log(f"[3 decode] valid_len={valid_len}: SDPA over the live prefix "
-                f"{t_lib:.4f} ms (library yardstick) | bound "
-                f"{results['decode']['bound_ms']:.4f} ms ({results['decode']['bound_by']})")
+            results["decode"] = r
+    gp = torch.Generator(device="cuda").manual_seed(18)
+    for c in PREFIX_CASES:
+        B, L, H, KVH, valid_len = (c[x] for x in ("B", "L", "H", "KVH", "valid"))
+        q, k, v = _randn(gp, B, H, D), _randn(gp, B, L, KVH, D), _randn(gp, B, L, KVH, D)
+        mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+        for b in range(B):
+            mask[b, 7 * b:valid_len] = 1
+        k[:, valid_len:] = float("nan")
+        v[:, valid_len:] = float("nan")
+        r = _prefix_case(c["name"], q, k, v, mask, valid_len,
+                         timed=c["name"] != PREFIX_FAULT_CASE)
+        err_max = max(err_max, r["max_abs_err"])
+        results.setdefault("decode_cases", {})[c["name"]] = r
+        if c["name"] == PREFIX_FAULT_CASE:
+            twin = decode_attention_prefix_split_ref(q, k, v, mask, valid_len, r["splits"])
+            flash_faults_caught(
+                "[3 decode]", {n: libs[n] for n in PREFIX_FAULTS},
+                lambda: decode_attention_prefix(q, k, v, mask, valid_len),
+                lambda got: _prefix_fault_reading(got, twin, r["splits"]))
+        del q, k, v, mask
     results["decode"]["max_abs_err"] = err_max
+    torch.cuda.empty_cache()
     return results
+
+
+# 3: kernel #4 at the main path's other shapes: the bf16 batch-24 run, the
+# bf16 Llama3-8B divide-and-conquer backend's GQA step at a long prefix and at
+# phase 13's short prompts; then the GQA step at a prefix where a dropped
+# partial tile moves the output well past the bound (the planted faults' case)
+PREFIX_CASES = [
+    dict(name="batch 24", B=24, L=1024, H=32, KVH=32, valid=960),
+    dict(name="Llama3 GQA", B=8, L=2304, H=32, KVH=8, valid=2200),
+    dict(name="phase 13 short", B=8, L=512, H=32, KVH=8, valid=384),
+    dict(name="Llama3 GQA valid_len 600", B=8, L=2304, H=32, KVH=8, valid=600),
+]
+# 3: broken copies of csrc/decode_attention.cu that must break the bf16
+# bound against the split twin on PREFIX_FAULT_CASE (2 key splits of 300
+# keys: each split's last 16-key tile holds 12)
+PREFIX_FAULT_CASE = "Llama3 GQA valid_len 600"
+PREFIX_FAULTS = {
+    "#4: one split left out of the merge": [(
+        "decode_attention.cu",
+        "  for (int s = 0; s < splits; ++s) {\n    const float *ps = p + s * (D + 2);",
+        "  for (int s = 1; s < splits; ++s) {\n    const float *ps = p + s * (D + 2);")],
+    "#4: a split merged without rescaling to the common max": [(
+        "decode_attention.cu", "    const float c = exp2f(mx - m_new), a = exp2f(m_s - m_new);",
+        "    const float c = 1.f, a = 1.f;")],
+    "#4: the last partial key tile dropped": [(
+        "decode_attention.cu", "const int n_tiles = (l1 - l0 + TILE - 1) / TILE;",
+        "const int n_tiles = (l1 - l0) / TILE;")],
+}
+
+
+def _prefix_fault_reading(got: torch.Tensor, twin: torch.Tensor, splits: int) -> tuple:
+    ratio = _full_ratio(got, twin)[1]
+    return ratio <= 1, f"{ratio:.3g} of the bf16 bound against the split twin ({splits} splits)"
+
+
+def _prefix_case(name: str, q, k, v, mask, valid_len: int, timed: bool) -> dict:
+    """Kernel #4 on one case against its plain version and its split twin at
+    the card's plan, within the bf16 bound; rows padded past valid_len
+    exactly 0; the kernels one call launches (a CUDA graph of one call)
+    against the plan; with `timed`, the kernel, plain and SDPA times (SDPA
+    over the live prefix, KV repeated to H beforehand, the repeat not timed)
+    and the bound. Logs one line; raises on a disagreement."""
+    B, H, D = q.shape
+    L, KVH = k.shape[1], k.shape[2]
+    splits = prefix_plan(B, KVH, valid_len, qm._sms(0), H // KVH)
+    out = decode_attention_prefix(q, k, v, mask, valid_len)
+    ref = decode_attention_prefix_ref(q, k, v, mask, valid_len)
+    twin = decode_attention_prefix_split_ref(q, k, v, mask, valid_len, splits)
+    torch.cuda.synchronize()
+    (e, ratio), (e_t, ratio_t) = _full_ratio(out, ref), _full_ratio(out, twin)
+    e, ratio = max(e, e_t), max(ratio, ratio_t)
+    dead = [b for b in range(B) if not bool(mask[b, :valid_len].any())]
+    launched = launched_ops(lambda: decode_attention_prefix(q, k, v, mask, valid_len))
+    ok = ratio <= 1 and all(bool((out[b] == 0).all()) for b in dead) and \
+        launched == {"kernel": 1 + (splits > 1)}
+    t_k = time_ms(lambda: decode_attention_prefix(q, k, v, mask, valid_len))
+    t_p = time_ms(lambda: decode_attention_prefix_ref(q, k, v, mask, valid_len), 10)
+    live = [x[:, :valid_len] for x in (k, v, mask)]
+    nbytes = _nbytes(q, *live, out)
+    gbps = nbytes / (t_k * 1e-3) / 1e9
+    msg = (f"[3 decode] {name}: B={B} L={L} H={H} KVH={KVH} D={D} valid_len={valid_len}, "
+           f"{splits} key splits; one call captured in a CUDA graph: {ops_text(launched)}, "
+           f"{1 + (splits > 1)} planned | max|err| {e:.3e} = {ratio:.3f} of the bound (tol "
+           f"{OUT_TOL} + {OUT_RTOL} x |plain|, against the plain version and the split "
+           f"twin), {len(dead)} fully masked rows | kernel {t_k:.4f} ms plain {t_p:.4f} ms | "
+           f"{gbps:.0f} GB/s = {gbps / HBM_PEAK_GBPS:.1%} of {HBM_PEAK_GBPS:.0f} GB/s")
+    res = dict(ms=t_k, plain_ms=t_p, gbps=gbps, max_abs_err=e, splits=splits,
+               kernels_a_call=launched.get("kernel", 0))
+    if timed:
+        kr, vr = (x.repeat_interleave(H // KVH, dim=2) for x in live[:2])
+        keep = (live[2] != 0)[:, None, None, :]
+        res["library_ms"] = time_ms(lambda: sdpa(q[:, None], kr, vr, keep))
+        res.update(bound(4 * H * D * int(live[2].sum()), nbytes))
+        msg += (f", bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                f"{t_k / res['bound_ms']:.2f}x; SDPA over the live prefix "
+                f"{res['library_ms']:.4f} ms (library yardstick)")
+        del kr, vr
+    log(msg + f" | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"decode kernel #4 disagrees: {name}")
+    return res
 
 
 def _visible_pairs(Lq: int, Lk: int, causal: bool, q_offset: int) -> int:
@@ -4055,12 +4149,12 @@ def main() -> None:
     t_start = time.perf_counter()
     smi = phase_environment()
     timed("2 build", phase_build)
-    # the flash kernels' broken copies build while 3 and 3b run
+    # the flash kernels' and #4's broken copies build while 3 and 3b run
     import concurrent.futures
 
     pool = concurrent.futures.ThreadPoolExecutor(1)
     flash_variants = pool.submit(build_variants, {**FLASH_FWD_FAULTS, **FLASH_DKV_FAULTS,
-                                                  **FLASH_DQ_FAULTS})
+                                                  **FLASH_DQ_FAULTS, **PREFIX_FAULTS})
     fused_copies = pool.submit(fused_variants)
     g = torch.Generator(device="cuda").manual_seed(0)
     kern = timed("3 kernels", phase_kernels, g, flash_variants)
@@ -4146,6 +4240,7 @@ def main() -> None:
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     suffix = bwd["cases"]["train suffix"]
+    gqa = kern["decode_cases"]["Llama3 GQA"]
     kernels = [
         _row("flash_attention_fwd", "rlaifv_tpu_torch/csrc/flash_attention.cu",
              "rlaifv_tpu/ops/flash_attention.py:73", launches["flash"],
@@ -4166,7 +4261,13 @@ def main() -> None:
              "register A operands; one kernel a call (a CUDA graph of one call, 3b)"),
         _row("decode_attention_prefix", "rlaifv_tpu_torch/csrc/decode_attention.cu",
              "rlaifv_tpu/ops/decode_attention.py:59", launches["decode"],
-             kern["decode"]["max_abs_err"], kern["decode"]),
+             kern["decode"]["max_abs_err"], kern["decode"],
+             "redesigned: the live keys split over CTAs where B x KVH does not fill a wave "
+             f"({kern['decode']['splits']} here, {gqa['splits']} at the bf16 Llama3 GQA step: "
+             f"{gqa['ms']:.4f} ms against a bound of {gqa['bound_ms']:.4f}, SDPA "
+             f"{gqa['library_ms']:.4f}), each warp's k/v tiles by TMA through its own ring, "
+             "both products on mma.sync; one call launched "
+             f"{kern['decode']['kernels_a_call']} kernel here (a CUDA graph of one call, 3)"),
         _row("fused_head_fwd", head_src, "rlaifv_tpu/ops/fused_head.py:128,157",
              launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"],
              "redesigned: the TMA + wgmma mainloop with an online-softmax epilogue over "

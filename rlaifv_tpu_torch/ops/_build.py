@@ -46,9 +46,9 @@ SIGNATURES = {
     # as above with dk, dv in place of dq
     "flash_attention_bwd_dkv_bf16": [_P] * 9 + [_I] * 6 + [_I] * 12
     + [_I, _I, _F, _P],
-    # q, k, v, mask, out, B, H, KVH, L, D, valid_len, q stride b, q stride h,
-    # scale, stream
-    "decode_attention_prefix_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    # q, k, v, mask, out, part, B, H, KVH, L, D, valid_len, splits,
+    # q stride b, q stride h, scale, stream
+    "decode_attention_prefix_bf16": [_P] * 6 + [_I] * 9 + [_F, _P],
     # q, k, v, mask, out, part, B, H, KVH, L, D, q stride b, q stride h,
     # is_bf16, splits, scale, stream
     "decode_attention_full_cuda": [_P] * 6 + [_I] * 9 + [_F, _P],

@@ -12,7 +12,9 @@ over a static (B, L, KVH, D) cache.
   `decode_attention_ref`. No module of the JAX package calls it, and no
   path of the port does;
 - `decode_attention_prefix` (TPU kernel #4): a bf16 cache, columns
-  [0, valid_len); kernel in csrc/decode_attention.cu, plain version
+  [0, valid_len); kernel in csrc/decode_attention.cu, the live keys split
+  into `prefix_plan` ranges whose states a merge pass combines
+  (`decode_attention_prefix_split_ref`), plain version
   `decode_attention_prefix_ref`;
 - `decode_attention_prefix_int8` (#5): an int8 cache with fp32 (B, L, KVH)
   per-(token, head) scales (`quantize_kv`), key blocks [0, ceil(valid_len /
@@ -189,6 +191,68 @@ def decode_attention_prefix_ref(
     return decode_attention_ref(q, k[:, :valid_len], v[:, :valid_len], mask[:, :valid_len])
 
 
+# the CTAs a streaming multiprocessor that kernel #4's splits aim for (three
+# fit, with a 64 KB ring of shared-memory stages each: csrc/decode_attention.cu;
+# a split beyond one CTA an SM reads no faster, tools/split_sweep.py) and the
+# fewest keys a split takes
+PREFIX_CTAS_PER_SM = 1
+PREFIX_MIN_KEYS = 256
+
+
+def prefix_plan(B: int, KVH: int, valid_len: int, sms: int, n_rep: int = 4) -> int:
+    """The splits of kernel #4's live keys [0, valid_len): as many as bring
+    the B x KVH (batch row, kv head) CTAs up to PREFIX_CTAS_PER_SM on each
+    of `sms` multiprocessors, no more than leave each split PREFIX_MIN_KEYS
+    keys, at least one; no split once B x KVH reaches that. The splits cut
+    [0, valid_len) only (`full_split_ranges(valid_len, splits)`), so no
+    column past valid_len is read. The CTA serves all n_rep (1, 2, 4 or 8)
+    query heads of its group, so n_rep does not change the plan. Llama3-8B's
+    bf16 GQA step (B 8, KVH 8: 64 CTAs, valid_len 2200) takes 2 splits on
+    132 SMs, at phase 13's short prompts (valid_len 384) one; phase 4's
+    decode (B 10, KVH 32: 320 CTAs) and batch 24 (768) one."""
+    if n_rep not in (1, 2, 4, 8):
+        raise ValueError(f"prefix_plan: n_rep must be 1, 2, 4 or 8; got {n_rep}")
+    return max(1, min(PREFIX_CTAS_PER_SM * sms // (B * KVH), valid_len // PREFIX_MIN_KEYS))
+
+
+def decode_attention_prefix_split_ref(q, k, v, mask, valid_len: int, splits: int) -> torch.Tensor:
+    """Kernel #4 as the card splits it: `decode_attention_split_ref`'s
+    function over the live prefix, its keys [0, valid_len) cut at
+    `full_split_ranges(valid_len, splits)`, in fp32 -> (B, H, D) in q's
+    type. Each split's scores s (plus -1e30 where the mask is 0), m_s =
+    max(max s, -5e29), p_s = exp(s - m_s), l_s = sum p_s; then M = max m_s,
+    w_s = exp(m_s - M), den = max(sum l_s w_s, 1e-30) and out = sum (p_s w_s
+    / den) . v_s, splits in order. A split with no live key has l_s = 0 and
+    p_s = 0 and adds nothing; a row masked in every split gives 0. At one
+    split (w = 1) this is `decode_attention_prefix_ref`'s arithmetic bit
+    for bit. (The card sums acc_s = p_s . v_s and divides after the merge,
+    merges with a running max, keeps m in log2 units and rounds p to bf16
+    for its P.V product, as the TPU kernel does: the same function, rounded
+    elsewhere.)"""
+    B, H, D = q.shape
+    KVH = k.shape[2]
+    if not 1 <= splits <= valid_len:
+        raise ValueError(f"splits must be in [1, {valid_len}]; got {splits}")
+    qf = q.float().reshape(B, KVH, H // KVH, D)
+    states = []
+    for l0, l1 in full_split_ranges(valid_len, splits):
+        s = torch.einsum("bgrd,btgd->bgrt", qf, k[:, l0:l1].float()) * (1.0 / D ** 0.5)
+        s = s + torch.where(mask[:, None, None, l0:l1] != 0, 0.0, NEG_INF)
+        m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+        p = torch.exp(s - m)
+        states.append((l0, l1, m, p))
+    mx = torch.stack([m for _, _, m, _ in states]).amax(dim=0)
+    w = [torch.exp(m - mx) for _, _, m, _ in states]
+    den = 0.0
+    for (_, _, _, p), ws in zip(states, w):
+        den = den + p.sum(dim=-1, keepdim=True) * ws
+    den = torch.clamp(den, min=1e-30)
+    out = 0.0
+    for (l0, l1, _, p), ws in zip(states, w):
+        out = out + torch.einsum("bgrt,btgd->bgrd", p * ws / den, v[:, l0:l1].float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def _kernel(q, k, v, mask, valid_len):
     from rlaifv_tpu_torch.ops import _build
 
@@ -217,12 +281,14 @@ def _kernel(q, k, v, mask, valid_len):
         raise ValueError(f"valid_len must be an int in [1, {L}]; got {valid_len!r}")
     mask = mask.to(dtype=torch.int32).contiguous()
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    lib = _build.load_kernels()
+    splits = prefix_plan(B, KVH, valid_len, _sms(q.device.index or 0), H // KVH)
+    part = torch.empty((B, H, splits, D + 2), dtype=torch.float32, device=q.device) \
+        if splits > 1 else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.decode_attention_prefix_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B, H, KVH, L, D, valid_len, q.stride(0), q.stride(1),
-        1.0 / D ** 0.5, stream,
+    err = _build.load_kernels().decode_attention_prefix_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), B, H, KVH, L, D, valid_len, splits,
+        q.stride(0), q.stride(1), 1.0 / D ** 0.5, stream,
     )
     _build.check(err, "decode_attention_prefix_bf16")
     decode_attention_prefix.launches += 1
@@ -237,8 +303,8 @@ def decode_attention_prefix(
     valid_len: int,  # cache columns [0, valid_len) are live
 ) -> torch.Tensor:
     """-> (B, H, D). A CUDA tensor runs the Hopper kernel (bf16, contiguous
-    cache, D in {64, 128}; anything else raises); a CPU tensor runs
-    `decode_attention_prefix_ref`."""
+    cache, D in {64, 128}; anything else raises) over `prefix_plan`'s key
+    splits; a CPU tensor runs `decode_attention_prefix_ref`."""
     if q.is_cuda:
         return _kernel(q, k, v, mask, valid_len)
     return decode_attention_prefix_ref(q, k, v, mask, valid_len)

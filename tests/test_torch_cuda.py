@@ -6,8 +6,9 @@ Marked `cuda`: without a CUDA device every test skips. On the card
     python -m pytest -m cuda tests/test_torch_cuda.py --noconftest -q
 
 bf16 inputs; outputs are checked as |kernel - plain| <= 1e-2 + 1e-2 |plain|
-(each side rounds once to bf16, and the flash kernel rounds its
-probabilities to bf16 for the P.V product), lse at 1e-3 abs (fp32). The
+(each side rounds once to bf16, and the flash kernel and the prefix decode
+kernel #4 round their probabilities to bf16 for the P.V product; #4 also
+against its split twin at the card's plan), lse at 1e-3 abs (fp32). The
 backward kernels' dq, dk, dv: max|kernel - plain| <= 2e-2 max|plain| per
 gradient (P and dS are rounded to bf16 for the products and the outputs
 are bf16: about one bf16 ulp of the largest entry). The fused LM head:
@@ -237,21 +238,49 @@ def test_flash_autograd_on_cuda(gen):
         _close_grad(t.grad, r)
 
 
-@pytest.mark.parametrize("H,KVH,D", [(32, 32, 128), (32, 8, 128), (8, 1, 64)])
-@pytest.mark.parametrize("valid_len", [1, 129, 640, 896])
-def test_decode_kernel_matches_plain_and_skips_dead_columns(gen, H, KVH, D, valid_len):
-    B, L = 10, 896
+@pytest.mark.parametrize("B,L,H,KVH,D,valid_len,splits", [
+    *[(10, 896, H, KVH, D, valid_len, None)  # phase 4's shape, the plan's splits
+      for H, KVH, D in ((32, 32, 128), (32, 8, 128), (8, 1, 64))
+      for valid_len in (1, 129, 640, 896)],
+    (8, 2304, 32, 8, 128, 2200, None),  # the bf16 Llama3-8B backend's GQA step
+    (8, 512, 32, 8, 128, 384, None),    # the same at phase 13's short prompts
+    # forced plans (prefix_plan patched)
+    (10, 896, 32, 32, 128, 896, 3),
+    (8, 2304, 32, 8, 128, 2200, 1),
+    (3, 781, 32, 4, 128, 700, 5),  # n_rep 8, splits off the 16-key tiles
+    (3, 333, 8, 8, 64, 300, 7),    # n_rep 1, D 64
+    (4, 640, 16, 8, 128, 37, 3),   # splits shorter than a tile
+])
+def test_decode_kernel_matches_plain_and_skips_dead_columns(gen, monkeypatch, B, L, H, KVH, D,
+                                                            valid_len, splits):
+    """Kernel #4 against the plain version and the split twin at the
+    kernel's plan (or a forced one), 7 b columns of left padding in row b
+    (rows padded past valid_len see nothing: exactly 0), NaN in every column
+    past valid_len (never read); a rerun gives the same bits; one launch
+    counted, the split kernel and (with splits) the merge launched."""
+    from rlaifv_tpu_torch.ops import decode_attention as da
+    from rlaifv_tpu_torch.ops.quant_matmul import _sms
+
+    if splits is None:
+        splits = da.prefix_plan(B, KVH, valid_len, _sms(0), H // KVH)
+    else:
+        monkeypatch.setattr(da, "prefix_plan", lambda *a: splits)
     q, k, v = _randn(gen, B, H, D), _randn(gen, B, L, KVH, D), _randn(gen, B, L, KVH, D)
     mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
     for b in range(B):
         mask[b, 7 * b:valid_len] = 1
     k[:, valid_len:] = float("nan")  # columns past valid_len are never read
     v[:, valid_len:] = float("nan")
+    n0 = decode_attention_prefix.launches
     out = decode_attention_prefix(q, k, v, mask, valid_len)
-    ref = decode_attention_prefix_ref(q, k, v, mask, valid_len)
-    _close(out, ref)
-    if valid_len == 1:
-        assert (out[1:] == 0).all()
+    torch.cuda.synchronize()
+    assert decode_attention_prefix.launches == n0 + 1
+    _close(out, decode_attention_prefix_ref(q, k, v, mask, valid_len))
+    _close(out, da.decode_attention_prefix_split_ref(q, k, v, mask, valid_len, splits))
+    assert all((out[b] == 0).all() for b in range(B) if 7 * b >= valid_len)
+    assert torch.equal(decode_attention_prefix(q, k, v, mask, valid_len), out)
+    assert _kernel_nodes(lambda: decode_attention_prefix(q, k, v, mask, valid_len)) == \
+        1 + (splits > 1)
 
 
 def test_kernels_raise_on_what_they_do_not_take(gen):
