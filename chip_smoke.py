@@ -63,15 +63,32 @@ Phases, one progress line each (or a few):
      kernels' launch counters reset just before and read just after;
   5. the slice against its plain path: shared-prefix logits with every
      attention forced dense, same weights;
-  11. (run after 5, on phase 4's model) the int8-KV serving path, the JAX
+  14. (run after 5, on phase 4's bf16 model) the eval slice:
+     evals.vqa.generate_answers over 8 rows on examples/test.jpeg in one
+     batch with 3 beams and 64 new tokens (the eval CLI's default is 1024;
+     EVAL_NEW says why 64): #1 in the prefill (square over the prompt
+     columns), #4 on every beam step (32 a step), the launch counters reset
+     just before and read just after; tok/s, the beam step's median wall
+     ms, the cache reorder's device ms a step (CUDA events around it
+     alone) and rows copied, peak memory; the step's breakdown (the model
+     step's device time, #4 at the beam shape B 24 timed beside its plain
+     version, SDPA and its bound, the weights' byte bound, the reorder,
+     the rest); generate_beam(num_beams=1) equal to greedy generate; the
+     recorded parents and tokens of 4 steps replayed through beam_step with
+     attention forced dense, each step's log-probs within phase 5's bound;
+     evals.run_eval's Object HalBench (no GPT, a synthetic COCO directory),
+     MMHal and RefoMB (a stub judge transport: the machine has no network)
+     on the answers, each writing its files and printing its summary;
+  11. (run after 14, on phase 4's model) the int8-KV serving path, the JAX
      package's headline serving configuration (scripts/bench_7b_serve.py):
      one generate of 24 prompts of 896 tokens and 64 new tokens on the bf16
      model, then the model quantised in place to int8 weights (head bf16),
      its q/k/v and gate/up projections fused and its cache switched to int8;
      phase 4's three workloads and the batch-24 generate again (kernel #5
      on every decode step, #7/#9 at the fused widths), their rates and peak
-     memory beside the bf16 ones; then the prefill and 4 forced decode
-     steps of greedy_gen's prompts on the kernel route against attn_impl
+     memory beside the bf16 ones; one beam batch (4 rows, 3 beams, 16 new
+     tokens; #5 on every beam step, no #4); then the prefill and 4 forced
+     decode steps of greedy_gen's prompts on the kernel route against attn_impl
      "dense" (the dequantised formula) and against a bf16 cache;
   8. the reference-logp precompute: 16 synthetic RLAIF-V rows at the train
      geometry through score_preference_rows on the frozen starting policy
@@ -234,7 +251,8 @@ Phases, one progress line each (or a few):
      by step 2); step time, pairs/s, tokens/s, peak memory, and the
      launches a step of #11, #12 and the dequant dx (gate/up).
 
-Each path of the main run (4, 11's two headline runs and its slice, 12's
+Each path of the main run (4, 14's beam batch, 11's two headline runs, its
+slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
@@ -270,6 +288,10 @@ from rlaifv_tpu_torch.constants import IGNORE_INDEX  # noqa: E402
 from rlaifv_tpu_torch.core.config import Config  # noqa: E402
 from rlaifv_tpu_torch.data import ClipImageProcessor, DPOCollator  # noqa: E402
 from rlaifv_tpu_torch import pipeline as pipe  # noqa: E402
+from rlaifv_tpu_torch.evals import gpt_client  # noqa: E402
+from rlaifv_tpu_torch.evals import run_eval  # noqa: E402
+from rlaifv_tpu_torch.evals.vqa import generate_answers  # noqa: E402
+from rlaifv_tpu_torch.genai import beam as beam_mod  # noqa: E402
 from rlaifv_tpu_torch.genai import divide_conquer as dcq  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import DecodeEngine, left_pad_batch  # noqa: E402
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
@@ -472,15 +494,30 @@ KV8_TOL = 2 ** -7
 # amplifies ulp-level differences far more: flash against dense attention
 # moves phase 5's logits by 4.3% of max|logit|, and with int8 weights every
 # projection's row quantisation turns such differences into whole
-# quantisation steps: the int8-KV prefill (fresh-window flash) against the
-# bf16-cache prefill (dense), the same function, read 0.159 (NVIDIA H100
-# 80GB HBM3, PERF.md section 6). So each comparison is held to
+# quantisation steps: the int8-KV prefill (fresh-window flash) against a
+# bf16-cache prefill run dense over max_len columns, the same function, read
+# 0.159-0.177 (NVIDIA H100 80GB HBM3, PERF.md section 6; both prefills now
+# run flash over the prompt columns and read 0). So each comparison is held to
 # INT8_KV_REL_TOL of max|logit| and, for the direction of every logit row,
 # to a cosine of at least INT8_KV_COS_MIN
 INT8_KV_REL_TOL = 0.4
 INT8_KV_COS_MIN = 0.9
 # 11: the JAX package's headline serving shape (scripts/bench_7b_serve.py)
 HEADLINE_B, HEADLINE_PROMPT, HEADLINE_NEW = 24, 896, 64
+# 14: the eval slice (evals/vqa.py's generate_answers, 3 beams, the eval
+# scripts' default) on 8 rows in one batch; 64 new tokens where the eval CLI
+# defaults to 1024: a random-weight model never emits EOS, so every row
+# would run all 1024 steps (~16x the phase's decode time) at the same
+# kernels and the same step shape but a longer live prefix; 64 keeps the
+# step at L 896 (the shape the row-4 timing below takes) within the run's
+# time. Phase 11's int8-KV beam batch: 4 rows, 3 beams, 16 new tokens
+EVAL_ROWS, EVAL_BEAMS, EVAL_NEW = 8, 3, 64
+EVAL_QUESTIONS = ["What is in the image?", "Describe the scene in detail.",
+                  "What colors do you see?", "Is it daytime?", "How many objects are there?",
+                  "What is on the left side?", "Describe the background.",
+                  "What is the main object doing?"]
+EVAL_REPLAY_STEPS = 4
+KV8_BEAM_ROWS, KV8_BEAM_NEW = 4, 16
 # 10: the int4 QLoRA step 0 against the "dequant" route (the int4 weights
 # dequantised to bf16, no activation quantisation), as in 9: the same ~1%
 # rowwise activation quantisation on every projection's forward and on the
@@ -1545,6 +1582,336 @@ def phase_slice_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
         raise AssertionError("slice disagrees with its plain path")
 
 
+class BeamMeter:
+    """Wraps genai/beam.py's beam_start, beam_step and reorder_rows (module
+    attributes, which beam_search looks up at each call) inside a `with`:
+    each step's wall ms (a step holds the loop's one sync), the steps that
+    called the model, each reorder's device ms (CUDA events around it
+    alone) and rows copied, and for the first `record` steps the (parent,
+    tok) host arrays and the log-probs, with the first tokens and the
+    prefill's log-probs of the first call."""
+
+    def __init__(self, record: int = 0):
+        self.record = record
+        self.step_ms, self.model_steps, self.events, self.rows_copied = [], 0, [], []
+        self.first = self.logp0 = None
+        self.forced, self.logps = [], []
+
+    def __enter__(self):
+        self._saved = start, step, reorder = (beam_mod.beam_start, beam_mod.beam_step,
+                                              beam_mod.reorder_rows)
+
+        def metered_start(*a, **k):
+            state, first, logp0 = start(*a, **k)
+            if self.first is None:
+                self.first, self.logp0 = first.copy(), logp0.clone()
+            return state, first, logp0
+
+        def metered_step(*a, **k):
+            t0 = time.perf_counter()
+            parent, tok, logp = step(*a, **k)
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+            if logp is not None:
+                self.model_steps += 1
+                if len(self.forced) < self.record:
+                    self.forced.append((parent.copy(), tok.copy()))
+                    self.logps.append(logp.clone())
+            return parent, tok, logp
+
+        def timed_reorder(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            n = reorder(*a, **k)
+            e1.record()
+            self.events.append((e0, e1))
+            self.rows_copied.append(n)
+            return n
+
+        beam_mod.beam_start, beam_mod.beam_step, beam_mod.reorder_rows = (
+            metered_start, metered_step, timed_reorder)
+        return self
+
+    def __exit__(self, *exc):
+        beam_mod.beam_start, beam_mod.beam_step, beam_mod.reorder_rows = self._saved
+
+    def reorder_ms(self) -> list:
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _eval_rows(image_bytes: bytes, questions) -> list:
+    """Benchmark rows as evals/vqa.py reads them (image bytes inline)."""
+    return [{"question_id": i, "question": q, "image_bytes": image_bytes,
+             "metainfos": {"ds_question_id": f"eval{i}"}} for i, q in enumerate(questions)]
+
+
+def _synthetic_coco(d: str, n: int) -> str:
+    """A COCO val2014 layout of n images: instance labels from six COCO
+    classes (numpy seed 14) and one caption each; Object HalBench's ground
+    truth reads both."""
+    names = ["person", "dog", "cat", "car", "chair", "dining table"]
+    rng = np.random.default_rng(14)
+    os.makedirs(d, exist_ok=True)
+    labels = {i: sorted(set(rng.integers(1, len(names) + 1, 2).tolist())) for i in range(n)}
+    with open(os.path.join(d, "instances_val2014.json"), "w") as f:
+        json.dump({"categories": [{"id": i + 1, "name": x} for i, x in enumerate(names)],
+                   "annotations": [{"image_id": i, "category_id": c}
+                                   for i, cs in labels.items() for c in cs]}, f)
+    with open(os.path.join(d, "captions_val2014.json"), "w") as f:
+        json.dump({"annotations": [{"image_id": i, "caption": f"A {names[labels[i][0] - 1]}."}
+                                   for i in range(n)]}, f)
+    return d
+
+
+def _stub_judge(model, messages, **kw):
+    """The judge's transport on a machine with no network: a fixed reply
+    per prompt (a rating for MMHal, a verdict for RefoMB's two passes)."""
+    import zlib
+
+    h = zlib.crc32(messages[-1]["content"].encode())
+    return f"Stub review. Rating: {h % 7}, stub. [[{'ABC'[h % 3]}]]", {"total_tokens": 0}
+
+
+def phase_eval_scorers(answers: list) -> None:
+    """14: evals.run_eval's three benchmarks on the beam answers, each
+    tiled to its benchmark's cardinality: Object HalBench without GPT
+    against a synthetic COCO directory, MMHal and RefoMB judged through a
+    stub transport; each writes its files and prints its summary."""
+    import tempfile
+
+    from rlaifv_tpu_torch.evals.mmhal import NUM_QUESTIONS
+    from rlaifv_tpu_torch.evals.refomb import load_dev_set
+
+    n_obj, n_ref = 300, len(load_dev_set())
+    saved = gpt_client.openai_http_transport
+    gpt_client.openai_http_transport = lambda **kw: _stub_judge
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "objhal_answers.jsonl")
+            write_jsonlines(path, [{"question_id": i, "image_id": i,
+                                    "prompt": answers[i % len(answers)]["prompt"],
+                                    "text": answers[i % len(answers)]["text"]}
+                                   for i in range(n_obj)])
+            out = run_eval.eval_objhal(path, _synthetic_coco(os.path.join(tmp, "coco"), n_obj),
+                                       os.path.join(tmp, "objhal"), use_gpt=False)
+            with open(out) as f:
+                om = json.load(f)["overall_metrics"]
+            assert om["sentence_num"] == n_obj, om
+            log(f"[14 eval] Object HalBench (no GPT, synthetic COCO of {n_obj} images, the "
+                f"{len(answers)} answers tiled): CHAIRs {om['CHAIRs']:.4f} CHAIRi "
+                f"{om['CHAIRi']:.4f} -> {os.path.basename(out)}")
+            path = os.path.join(tmp, "mmhal_answers.json")
+            with open(path, "w") as f:
+                json.dump([{"question_id": i, "text": answers[i % len(answers)]["text"]}
+                           for i in range(NUM_QUESTIONS)], f)
+            summary = run_eval.eval_mmhal(path, os.path.join(tmp, "mmhal"))
+            assert os.path.exists(os.path.join(tmp, "mmhal", "mmhal_review.json"))
+            log(f"[14 eval] MMHal ({NUM_QUESTIONS} answers, stub judge): average score "
+                f"{summary['average_score']:.3f}, hallucination rate "
+                f"{summary['hallucination_rate']:.3f} -> mmhal_review.json")
+            path = os.path.join(tmp, "refomb_answers.jsonl")
+            write_jsonlines(path, [{"question_id": i, "text": answers[i % len(answers)]["text"]}
+                                   for i in range(n_ref)])
+            summary = run_eval.eval_refomb(path, os.path.join(tmp, "refomb"))
+            written = sorted(os.listdir(os.path.join(tmp, "refomb")))
+            assert written == ["refomb_reviews.hall.jsonl", "refomb_reviews.jsonl"], written
+            log(f"[14 eval] RefoMB ({n_ref} answers, stub judge, both passes): "
+                f"{summary['pairwise']['total']} pairwise verdicts, hallucination score "
+                f"{summary['hallucination']['hallucination_score']:.3f} -> {', '.join(written)}")
+    finally:
+        gpt_client.openai_http_transport = saved
+
+
+def _eval_step_device_ms(eng: DecodeEngine, prompts, starts, images, valid: int) -> float:
+    """Device ms of one model step of the beam batch (B x K rows) at the
+    eval cache width, the live prefix `valid` columns: the step captured
+    once in a CUDA graph and its replays timed (time_ms), so the host's
+    launch time is kept out."""
+    Lp, ids, mask, starts = _padded(eng, prompts, starts)
+    max_len = -(-(Lp + EVAL_NEW) // 128) * 128
+    with torch.inference_mode():
+        _, cache, cmask = eng._prefill(ids, mask, eng._device_images(images), starts, max_len,
+                                       beams=EVAL_BEAMS)
+        cmask[:, Lp:valid] = 1
+        tok = torch.full((cmask.shape[0],), 5, dtype=torch.long, device="cuda")
+        pos = mask.sum(dim=1).repeat_interleave(EVAL_BEAMS) + valid - 1 - Lp
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up off the capture
+            eng._step(tok, cmask, pos, cache, valid - 1)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            eng._step(tok, cmask, pos, cache, valid - 1)
+        ms = time_ms(graph.replay)
+    del graph, cache
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _eval_decode_case(B: int, L: int, valid: int) -> dict:
+    """Kernel #4 at the beam step's shape (phase 3's checks and timings, a
+    generator of its own, seed 14): B x K rows, the eval cache width, the
+    live prefix half way through the run."""
+    gp = torch.Generator(device="cuda").manual_seed(14)
+    H, D = 32, 128
+    q, k, v = _randn(gp, B, H, D), _randn(gp, B, L, H, D), _randn(gp, B, L, H, D)
+    mask = torch.zeros((B, L), dtype=torch.int32, device="cuda")
+    mask[:, 7:valid] = 1
+    return dict(_prefix_case("phase 14 beam step", q, k, v, mask, valid, timed=True),
+                B=B, L=L, valid=valid)
+
+
+def phase_eval(gen: Llava15Generator, image_bytes: bytes) -> tuple:
+    """14: evals.vqa.generate_answers over 8 rows in one batch with 3 beams
+    -> (launches of that run, the beam-shape #4 case)."""
+    eng, n_layers = gen.engine, gen.model.cfg.llm.num_layers
+    rows = _eval_rows(image_bytes, EVAL_QUESTIONS[:EVAL_ROWS])
+    generate_answers(gen, rows[:2], max_new_tokens=2, batch_size=2, num_beams=EVAL_BEAMS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with BeamMeter(record=EVAL_REPLAY_STEPS) as meter:
+        reset_counts()
+        t0 = time.perf_counter()
+        answers = generate_answers(gen, rows, max_new_tokens=EVAL_NEW, batch_size=EVAL_ROWS,
+                                   num_beams=EVAL_BEAMS, model_id="random-llava15-7b")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert len(answers) == EVAL_ROWS and all(isinstance(a["text"], str) for a in answers)
+    assert [a["question_id"] for a in answers] == list(range(EVAL_ROWS))
+    steps = meter.model_steps
+    log(f"[14 eval] launches during generate_answers ({EVAL_ROWS} rows, {EVAL_BEAMS} beams, "
+        f"{EVAL_NEW} new tokens, one batch): " + ", ".join(
+            f"{k} {v}" for k, v in launches.items() if v))
+    if launches["flash"] < n_layers or launches["decode"] != n_layers * steps or \
+            launches["decode_int8"] or steps < 1:
+        raise AssertionError(f"14: the beam path's kernels did not run as planned "
+                             f"({steps} model steps): {launches}")
+    prompts, starts, images = gen._prepare(rows)
+    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    reorder = meter.reorder_ms()
+    step_ms = statistics.median(meter.step_ms)
+    reorder_ms = statistics.mean(reorder) if reorder else 0.0
+    rows_copied = statistics.mean(meter.rows_copied) if meter.rows_copied else 0.0
+    log(f"[14 eval] {EVAL_ROWS} x {EVAL_BEAMS} beams, prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens (Lp {Lp}, max_len "
+        f"{-(-(Lp + EVAL_NEW) // 128) * 128}): {steps} beam steps in {wall:.3f} s = "
+        f"{EVAL_ROWS * (steps + 1) / wall:.1f} tok/s of the best beams "
+        f"({EVAL_ROWS * EVAL_BEAMS * (steps + 1) / wall:.1f} beam tok/s; prefill and vision "
+        f"encode included); beam step {step_ms:.2f} ms (median wall, its one sync included); "
+        f"reorder {reorder_ms:.3f} ms a step on the device (CUDA events around it alone; mean "
+        f"{rows_copied:.1f} of {EVAL_ROWS * EVAL_BEAMS} rows copied, live columns only); "
+        f"peak {peak_gb:.2f} GiB")
+    valid = Lp + EVAL_NEW // 2
+    step_dev = _eval_step_device_ms(eng, prompts, starts, images, valid)
+    beam4 = _eval_decode_case(EVAL_ROWS * EVAL_BEAMS, -(-(Lp + EVAL_NEW) // 128) * 128, valid)
+    log(f"[14 eval] beam step breakdown at valid_len {valid}: wall {step_ms:.2f} ms = the "
+        f"model step's device time {step_dev:.2f} ms (a CUDA graph of the step; #4 {n_layers} x "
+        f"{beam4['ms']:.4f} = {n_layers * beam4['ms']:.2f} ms of it, the weights' byte bound "
+        f"{_weight_bytes(gen.model.llm) / (HBM_PEAK_GBPS * 1e9) * 1e3:.2f} ms) + reorder "
+        f"{reorder_ms:.3f} ms + the rest (host: launches, the pick, the sync) "
+        f"{step_ms - step_dev - reorder_ms:.2f} ms")
+
+    # K = 1 against greedy decoding on the same rows
+    with torch.inference_mode():
+        one = eng.generate_beam(prompts, images=images, image_starts=starts, num_beams=1,
+                                max_new_tokens=EVAL_NEW)
+        greedy = eng.generate(prompts, images=images, image_starts=starts,
+                              max_new_tokens=EVAL_NEW)
+    same = np.array_equal(one.tokens, greedy.tokens) and np.array_equal(one.lengths,
+                                                                        greedy.lengths)
+    log(f"[14 eval] generate_beam(num_beams=1) against generate (greedy), {EVAL_ROWS} rows x "
+        f"{EVAL_NEW} tokens: {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError("14: one beam is not greedy decoding")
+    phase_eval_replay(gen, prompts, starts, images, meter)
+    phase_eval_scorers(answers)
+    return launches, beam4
+
+
+def _weight_bytes(llm) -> int:
+    """Bytes of the LLM's weights one decode step reads (every parameter
+    and buffer but the token embedding, of which a step reads B rows)."""
+    emb = llm.model.tok_embed.weight
+    total = sum(t.numel() * t.element_size() for t in [*llm.parameters(), *llm.buffers()])
+    return total - emb.numel() * emb.element_size()
+
+
+def phase_eval_replay(gen: Llava15Generator, prompts, starts, images, meter: BeamMeter) -> None:
+    """14: the kernel run's first tokens and the parents and tokens of its
+    first EVAL_REPLAY_STEPS steps, replayed through beam_step with every
+    attention on the dense route: the prefill's and each step's log-probs
+    against the kernel run's, within phase 5's bound."""
+    eng = gen.engine
+    attn = [m for m in gen.model.modules() if isinstance(m, LlamaAttention)]
+    Lp, ids, mask, starts = _padded(eng, prompts, starts)
+    max_len = -(-(Lp + EVAL_NEW) // 128) * 128
+    gaps = []
+
+    def gap(got, ref):
+        d, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        gaps.append((d, scale))
+
+    for m in attn:
+        m.attn_impl = "dense"
+    try:
+        with torch.inference_mode():
+            first, cache, cmask = eng._prefill(ids, mask, eng._device_images(images), starts,
+                                               max_len, beams=EVAL_BEAMS)
+            state, _, logp0 = beam_mod.beam_start(
+                first, cache, cmask, mask.sum(dim=1).repeat_interleave(EVAL_BEAMS),
+                num_beams=EVAL_BEAMS, eos_id=eng.eos_id)
+            gap(meter.logp0, logp0)
+            state.last_tok = torch.from_numpy(meter.first).cuda()
+            state.done = state.last_tok == eng.eos_id
+            for t, (forced, kernel) in enumerate(zip(meter.forced, meter.logps), start=1):
+                _, _, logp = beam_mod.beam_step(eng._step, state, t, Lp=Lp, eos_id=eng.eos_id,
+                                                pad_id=eng.pad_id, forced=forced)
+                gap(kernel, logp)
+            del cache, state
+    finally:
+        for m in attn:
+            m.attn_impl = "auto"
+    ok = len(gaps) == 1 + EVAL_REPLAY_STEPS and all(d <= SLICE_REL_TOL * sc for d, sc in gaps)
+    log(f"[14 eval] replay on the dense route (the prefill, then the recorded parents and "
+        f"tokens of {len(gaps) - 1} steps): max|dlogp| / max|logp| " + ", ".join(
+            f"{d / sc:.4f}" for d, sc in gaps) + f" (tol {SLICE_REL_TOL}, phase 5's) | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("14: the beam path disagrees with its dense route")
+
+
+def phase_kv8_beam(gen: Llava15Generator, image_bytes: bytes) -> dict:
+    """11: one beam batch on the int8-KV model (KV8_BEAM_ROWS rows, 3 beams,
+    KV8_BEAM_NEW new tokens): kernel #5 on every beam step, no #4 ->
+    its launches."""
+    n_layers = gen.model.cfg.llm.num_layers
+    items = _items(image_bytes, EVAL_QUESTIONS[:KV8_BEAM_ROWS])
+    gen.greedy_gen(items[:1], max_new_tokens=2, num_beams=EVAL_BEAMS)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with BeamMeter() as meter:
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = gen.greedy_gen(items, max_new_tokens=KV8_BEAM_NEW, batch_size=KV8_BEAM_ROWS,
+                              num_beams=EVAL_BEAMS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    steps = meter.model_steps
+    assert len(rows) == KV8_BEAM_ROWS and all(isinstance(r["answer"], str) for r in rows)
+    log(f"[11 int8-kv beam] {KV8_BEAM_ROWS} rows x {EVAL_BEAMS} beams, {KV8_BEAM_NEW} new "
+        f"tokens: {steps} beam steps in {wall:.3f} s, beam step {statistics.median(meter.step_ms):.2f} "
+        f"ms (median wall), reorder {statistics.mean(meter.reorder_ms() or [0.0]):.3f} ms a step "
+        f"on the device; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
+    if launches["decode"] or launches["decode_int8"] != n_layers * steps or steps < 1:
+        raise AssertionError(f"11: the int8-KV beam batch missed kernel #5: {launches}")
+    return launches
+
+
 def _kv8_cache(g, B: int, L: int, H: int, KVH: int, D: int, valid_len: int,
                pad: int = 7) -> list:
     """Kernel #5's operands: bf16 q, a quantised random cache whose scales
@@ -2444,9 +2811,9 @@ def phase_int8_kv_vs_plain(gen: Llava15Generator, image_bytes: bytes) -> None:
     set_llm_config(gen.model, kv_cache_dtype="int8")
     assert all(bool(torch.isfinite(r).all()) for r in runs.values())
     checks = [
-        ("prefill: the path (fresh-window flash) vs the bf16 cache (dense over max_len)",
-         "path", "bf16", slice(0, 1)),
-        ("prefill, both dense: the fresh window vs the bf16 cache's max_len",
+        ("prefill: the path (fresh-window flash) vs the bf16 cache (flash over the "
+         "prompt columns)", "path", "bf16", slice(0, 1)),
+        ("prefill, both dense: the fresh window vs the bf16 cache's prompt columns",
          "int8 dense", "bf16 dense", slice(0, 1)),
         ("decode steps 1-4: the path (#5) vs the bf16 cache (#4)", "path", "bf16",
          slice(1, None)),
@@ -2491,6 +2858,7 @@ def phase_int8_kv(gen: Llava15Generator, image_bytes: bytes, bf16: dict) -> dict
         raise AssertionError(f"11: not the int8-KV path's kernels: {slice_launches}")
     head_launches, head = phase_headline(gen, items, "11 int8-kv headline", "decode_int8")
     add_counts(launches, head_launches)
+    add_counts(launches, phase_kv8_beam(gen, image_bytes))
     log(f"[11 int8-kv] decode kernel #5: {slice_launches['decode_int8'] // n_layers} steps x "
         f"{n_layers} launches in the slice, {head_launches['decode_int8']} in the headline, "
         f"#4 {slice_launches['decode'] + head_launches['decode']}")
@@ -2826,14 +3194,13 @@ def phase_pipeline(fgen: Llava15Generator, tok) -> dict:
         f"pairs, {len(files[os.path.basename(out)])} after the length balance")
     if not (n_facts > 0 and qas and out.endswith("_pair_diff1_samp2_balanceshort.jsonl")):
         raise AssertionError("13: the pipeline produced no facts or no yes/no questions")
-    # generate's bf16 prefill attends over a max_len cache at cache_index 0
-    # (Lq != Lk), which the dispatch sends to the dense formula, as the JAX
-    # package's; #1 serves the fresh-window prefills of the int8 and fused
-    # backends below (and phase 12's fused LLaVA prefills in this run)
+    # generate's bf16 prefill runs over the cache's first Lp columns (square:
+    # #1, a layer a prefill); #1 also serves the fresh-window prefills of the
+    # int8 and fused backends below (and phase 12's fused LLaVA prefills)
     log(f"[13 pipeline] the bf16 Llama3-8B backend: {meter.rates()} | launches in its calls: "
         f"decode #4 {meter.launches['decode']} ({meter.steps} steps x {model.cfg.num_layers} "
         f"layers = {meter.steps * model.cfg.num_layers}), flash #1 {meter.launches['flash']} "
-        f"(the prefill is not square: dense); the whole pipeline: {launches}")
+        f"(the prefills, square); the whole pipeline: {launches}")
     if meter.launches["decode"] != meter.steps * model.cfg.num_layers:
         raise AssertionError(f"13: the bf16 backend did not run #4 a layer a step: "
                              f"{meter.launches}")
@@ -4190,6 +4557,9 @@ def main() -> None:
                            checkpoint_name="random-llava15-7b")
     launches, bf16_rates = timed("4 slice", phase_slice, gen, image_bytes)
     timed("5 slice vs plain", phase_slice_vs_plain, gen, image_bytes)
+    # 14 runs the eval slice on the same bf16 model before 11 changes it
+    eval_launches, beam4 = timed("14 eval", phase_eval, gen, image_bytes)
+    add_counts(launches, eval_launches)
     # 11 serves the same seed-0 model in the int8-KV configuration, 12 the
     # same quantised model through the fused engine (which consumes its
     # per-layer weights), 13 the feedback pipeline with that fused generator
@@ -4235,7 +4605,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[10 int4] main-path launches (serving 4, int8-KV serving 11, fused serving 12, "
+    log(f"[10 int4] main-path launches (serving 4, the eval slice 14, int8-KV serving 11 "
+        f"with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
@@ -4267,7 +4638,11 @@ def main() -> None:
              f"{gqa['ms']:.4f} ms against a bound of {gqa['bound_ms']:.4f}, SDPA "
              f"{gqa['library_ms']:.4f}), each warp's k/v tiles by TMA through its own ring, "
              "both products on mma.sync; one call launched "
-             f"{kern['decode']['kernels_a_call']} kernel here (a CUDA graph of one call, 3)"),
+             f"{kern['decode']['kernels_a_call']} kernel here (a CUDA graph of one call, 3); "
+             f"at phase 14's beam step (B {beam4['B']}, L {beam4['L']}, valid_len "
+             f"{beam4['valid']}) "
+             f"{beam4['ms']:.4f} ms against a bound of {beam4['bound_ms']:.4f}, SDPA "
+             f"{beam4['library_ms']:.4f}"),
         _row("fused_head_fwd", head_src, "rlaifv_tpu/ops/fused_head.py:128,157",
              launches["head_fwd"], head["fwd_err"], head["fwd"]["train step"],
              "redesigned: the TMA + wgmma mainloop with an online-softmax epilogue over "

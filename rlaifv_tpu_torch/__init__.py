@@ -4,8 +4,9 @@ The JAX package `rlaifv_tpu` is the reference; module names here mirror it
 (`rlaifv_tpu_torch/models/llama.py` <-> `rlaifv_tpu/models/llama.py`). This
 package imports torch and never jax, and nothing of `rlaifv_tpu`: it keeps
 its own copies of the reference's jax-free modules (`constants`, `data/*`,
-`utils/file_io`, `utils/prefetch`, the llava15 part of `train/family` and
-the HF-checkpoint loader of `models/convert`), function for function.
+`utils/file_io`, `utils/prefetch`, the llava15 part of `train/family`, the
+HF-checkpoint loaders of `models/convert`, `pairs/*` and `evals/*` with
+their data files), function for function.
 
 Subpackages
 -----------
@@ -16,7 +17,12 @@ ops    : attention dispatch; hand-written sm_90a CUDA kernels (csrc/) for
 models : LLaVA-1.5 (CLIP ViT-L/14-336 + mlp2x_gelu projector + Llama,
          remat) and the bridge from the JAX package's param trees
 genai  : eager decode engine (with shared-prefix pair scoring), sampling,
-         diverse generation and autocheck
+         beam search, diverse generation and autocheck
+evals  : benchmark answers (`python -m rlaifv_tpu_torch.evals.vqa`, 3
+         beams), the Object HalBench / MMHal / RefoMB judges and
+         `python -m rlaifv_tpu_torch.evals.run_eval`
+pipeline, iteration : the feedback-data pipeline and the iterative
+         alignment driver (`python -m rlaifv_tpu_torch.iteration`)
 train  : DPO math, the shared-prefix paired forward, the train step with
          an optax-exact AdamW, the reference-logp precompute, DPOTrainer
          and `python -m rlaifv_tpu_torch.train`

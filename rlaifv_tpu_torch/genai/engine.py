@@ -13,7 +13,14 @@ as the divide-and-conquer stage's Llama3-8B:
   row's pad offset;
 - max_len = prompt bucket + max_new rounded up to 128, so decode steps
   take the prefix decode-attention kernel;
+- the prompt prefill runs over views of the cache's first Lp columns, so
+  its attention is square and takes the flash kernel (the JAX engine's
+  prefill attends over all max_len columns, the ones past Lp masked: the
+  same values);
 - decoding stops once every row has emitted EOS;
+- `generate_beam` prefills at B rows straight into a cache of B * K rows
+  and runs genai/beam.py's eager beam loop (one sync a step, the cache
+  rows reordered by the chosen parents);
 - shared-prefix scoring prefills the prefix once into a cache of exactly
   P columns (square, so the flash kernel serves it) and runs the suffixes
   in buckets of 32 over a copy of that cache;
@@ -35,8 +42,10 @@ place, the per-layer buffers freed), `generate` prefills through
 `stacked_prefill_tower` into a stacked h-major cache, and each decode step
 is the token's embedding in fp32, one `fused_decode_step` (kernel #16 on the
 card), `scatter_new_kv` (in place) and the head on the fp32 result cast to
-the model's dtype. `generate_repeated` and the scoring paths need the
-per-layer weights and raise ValueError on a fused engine.
+the model's dtype. `generate_repeated`, `generate_beam` and the scoring
+paths need the per-layer weights and raise ValueError on a fused engine
+(the JAX engine's `generate_beam` has no such guard; its fused engine keeps
+nothing to run a beam with either).
 """
 from __future__ import annotations
 
@@ -172,17 +181,31 @@ class DecodeEngine:
         cfg = dataclasses.replace(self.llm.cfg, kv_cache_dtype="fp")
         return llama_init_cache(cfg, B, S, self.device)
 
-    def _prefill(self, ids, mask, images, image_starts, max_len):
-        """Prompt pass into a fresh (B, max_len) cache at cache_index 0 ->
-        (last-position logits (B, V), cache, cache_mask (B, max_len))."""
+    def _prefill(self, ids, mask, images, image_starts, max_len, beams: int = 1):
+        """Prompt pass at B rows into a fresh (B * beams, max_len) cache ->
+        (last-position logits (B, V), cache, cache_mask (B * beams,
+        max_len)).
+
+        The pass runs over views of the cache's first Lp columns (of rows
+        b * beams), so its attention is square (Lq == Lk == Lp) and takes the
+        flash kernel; with beams > 1 the prompt columns are then copied to
+        the other rows of each prompt (row b * beams + k is beam k)."""
         B, Lp = ids.shape
         pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
-        cache_mask = torch.zeros((B, max_len), dtype=torch.int32, device=self.device)
-        cache_mask[:, :Lp] = mask
+        cache = self.llm.init_cache(B * beams, max_len)
+        views = [{name: c.view(B, beams, *c.shape[1:])[:, 0, :Lp]
+                  for name, c in layer.items()} for layer in cache]
         embeds = self._embeds(ids, images, image_starts)
-        logits, cache = self.llm(inputs_embeds=embeds, attention_mask=cache_mask,
-                                 position_ids=pos, cache=self.llm.init_cache(B, max_len),
-                                 cache_index=0)
+        logits, _ = self.llm(inputs_embeds=embeds, attention_mask=mask,
+                             position_ids=pos, cache=views, cache_index=0)
+        if beams > 1:
+            for layer in cache:
+                for c in layer.values():
+                    rows = c.view(B, beams, *c.shape[1:])
+                    rows[:, 1:, :Lp] = rows[:, :1, :Lp]
+        cache_mask = torch.zeros((B * beams, max_len), dtype=torch.int32,
+                                 device=self.device)
+        cache_mask[:, :Lp] = mask.repeat_interleave(beams, dim=0)
         return logits[:, -1, :], cache, cache_mask
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -251,14 +274,34 @@ class DecodeEngine:
                 token_seen[rows, tok] += live
         return tokens.T.cpu().numpy()
 
-    def _finish(self, tokens: np.ndarray, first_logits) -> GenerateResult:
+    def _trim(self, tokens: np.ndarray) -> np.ndarray:
+        """Lengths (through the first EOS) of each row; the tokens after it
+        become PAD, in place."""
         lengths = np.zeros(tokens.shape[0], np.int64)
         for i, row in enumerate(tokens):
             eos = np.where(row == self.eos_id)[0]
             lengths[i] = (eos[0] + 1) if len(eos) else len(row)
             tokens[i, lengths[i]:] = self.pad_id
-        return GenerateResult(tokens, lengths,
+        return lengths
+
+    def _finish(self, tokens: np.ndarray, first_logits) -> GenerateResult:
+        return GenerateResult(tokens, self._trim(tokens),
                               first_logits.float().cpu().numpy())
+
+    def _batch(self, prompts, images, image_starts, prompt_bucket: int, max_new: int):
+        """Left-pad the prompts to their bucket -> (ids, mask (B, Lp) on the
+        device, image starts shifted by each row's padding or None,
+        max_len = Lp + max_new rounded up to 128)."""
+        Lp = _round_up(max(len(p) for p in prompts), prompt_bucket)
+        ids_np, mask_np = left_pad_batch(prompts, self.pad_id, Lp)
+        starts = None
+        if images is not None:
+            offs = Lp - np.asarray([len(p) for p in prompts])
+            starts = np.asarray(image_starts, np.int64) + offs
+            starts = np.where(np.asarray(image_starts) < 0, -1, starts)
+        return (torch.from_numpy(ids_np).to(self.device),
+                torch.from_numpy(mask_np).to(self.device), starts,
+                _round_up(Lp + max_new, 128))
 
     # -------------------------------------------------- public API
 
@@ -269,16 +312,8 @@ class DecodeEngine:
                  prompt_bucket: int = 64) -> GenerateResult:
         """prompts: token-id sequences with image sentinels pre-expanded;
         images (B, H, W, 3); image_starts relative to each prompt."""
-        Lp = _round_up(max(len(p) for p in prompts), prompt_bucket)
-        ids_np, mask_np = left_pad_batch(prompts, self.pad_id, Lp)
-        offs = Lp - np.asarray([len(p) for p in prompts])
-        starts = None
-        if images is not None:
-            starts = np.asarray(image_starts, np.int64) + offs
-            starts = np.where(np.asarray(image_starts) < 0, -1, starts)
-        max_len = _round_up(Lp + max_new_tokens, 128)
-        ids = torch.from_numpy(ids_np).to(self.device)
-        mask = torch.from_numpy(mask_np).to(self.device)
+        ids, mask, starts, max_len = self._batch(prompts, images, image_starts,
+                                                 prompt_bucket, max_new_tokens)
         prefill = self._fused_prefill if self.fused_decode else self._prefill
         first, cache, cache_mask = prefill(
             ids, mask, self._device_images(images), starts, max_len)
@@ -304,18 +339,54 @@ class DecodeEngine:
         images = (self._device_images(np.asarray(image)[None])
                   if image is not None else None)
         starts = [image_start + off if image_start >= 0 else -1]
-        first, cache, cache_mask = self._prefill(ids, mask, images, starts, max_len)
-        # a real copy per row, not expand(): the decode writes each row's
-        # new k/v in place and the decode kernels index rows densely (an
-        # int8 cache's scales are 3-D)
-        cache = [{name: c.repeat(n, *[1] * (c.dim() - 1)) for name, c in layer.items()}
-                 for layer in cache]
-        cache_mask = cache_mask.repeat(n, 1)
+        # n real rows, not expand(): the decode writes each row's new k/v
+        # in place and the decode kernels index rows densely (an int8
+        # cache's scales are 3-D)
+        first, cache, cache_mask = self._prefill(ids, mask, images, starts, max_len,
+                                                 beams=n)
         prompt_len = mask.sum(dim=1).expand(n)
         tokens = self._decode(first.expand(n, -1), cache, cache_mask, prompt_len,
                               ids.expand(n, -1), mask.expand(n, -1), sampling,
                               max_new_tokens, seed)
         return self._finish(tokens, first.expand(n, -1))
+
+    @torch.inference_mode()
+    def generate_beam(self, prompts, *, images=None, image_starts=None,
+                      num_beams: int = 3, max_new_tokens: int = 512,
+                      length_penalty: float = 1.0, prompt_bucket: int = 64,
+                      sampling: Optional[SamplingParams] = None,
+                      seed: int = 0) -> GenerateResult:
+        """Beam decode (genai/beam.py). Deterministic by default (7B chat
+        and eval parity); `sampling=SamplingParams.chat_12b()` gives the
+        combined beam+sample mode. The prompts prefill once at B rows,
+        straight into a cache of B * num_beams rows; the result's third
+        field holds each row's best length-normalised score, as in the JAX
+        engine."""
+        from rlaifv_tpu_torch.genai.beam import beam_search
+
+        self._need_per_layer("generate_beam")
+        B, K = len(prompts), num_beams
+        ids, mask, starts, max_len = self._batch(prompts, images, image_starts,
+                                                 prompt_bucket, max_new_tokens)
+        Lp = ids.shape[1]
+        first, cache, cache_mask = self._prefill(
+            ids, mask, self._device_images(images), starts, max_len, beams=K)
+        token_seen = None
+        if sampling is not None and sampling.repetition_penalty != 1.0:
+            # prompt tokens count toward the penalty (HF: the sequence so far)
+            token_seen = torch.zeros((B, first.shape[-1]), dtype=torch.int32,
+                                     device=self.device)
+            token_seen.scatter_reduce_(1, ids.clamp(min=0).long(), mask, reduce="amax")
+        generator = None
+        if sampling is not None and sampling.do_sample:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        seqs, scores = beam_search(
+            self._step, first, cache, cache_mask,
+            mask.sum(dim=1).repeat_interleave(K), Lp, num_beams=K,
+            max_new_tokens=max_new_tokens, eos_id=self.eos_id, pad_id=self.pad_id,
+            length_penalty=length_penalty, sampling=sampling, generator=generator,
+            token_seen=token_seen)
+        return GenerateResult(seqs, self._trim(seqs), scores)
 
     @torch.inference_mode()
     def score_shared_prefix(self, prefix_ids, suffixes, *, image=None,

@@ -5,7 +5,8 @@ Counterpart of rlaifv_tpu/genai/llava_gen.py over the eager decode engine:
 - diverse_gen: N samples per question at T=0.7; consecutive identical
   (question, image) items share one prefill through
   `DecodeEngine.generate_repeated`, the rest run as plain batches;
-- greedy_gen: deterministic decoding (num_beams=1);
+- greedy_gen: deterministic decoding: greedy at num_beams=1, beam search
+  (`DecodeEngine.generate_beam`) above, as the eval scripts' 3 beams;
 - autocheck: 1-token greedy prefill, softmax mass on the
   {yes, Yes, no, No} token ids, with the shared-prefix fast path
   (`DecodeEngine.score_shared_prefix`) for facts about one image.
@@ -19,9 +20,9 @@ configuration: int8 weights, `fuse_proj`, `kv_cache_dtype="int8"`).
 through the fused engine (kernel #16 on every decode step): diverse_gen
 then skips `share_repeats` and autocheck the shared prefix, and both take
 the batch `generate` path, as in the JAX package (the fused engine has no
-per-layer weights for `generate_repeated` or `score_shared_prefix`). Not
-carried yet: beam search and continuous batching (ROADMAP.md 'Modules to
-port' #6e).
+per-layer weights for `generate_repeated` or `score_shared_prefix`); beam
+search raises there. Not carried yet: continuous batching (ROADMAP.md
+'Modules to port' #6e).
 """
 from __future__ import annotations
 
@@ -167,19 +168,25 @@ class Llava15Generator:
     def greedy_gen(self, items: List[dict], *, max_new_tokens: int = 1024,
                    batch_size: int = 8, num_beams: int = 1,
                    continuous: bool = False) -> List[dict]:
-        """Deterministic decoding, num_beams=1."""
-        if num_beams > 1:
-            raise NotImplementedError(f"beam search {_NOT_PORTED}")
-        if continuous:
+        """Deterministic benchmark decoding: greedy at num_beams=1, the
+        KV-cached beam search above (the eval scripts pass 3 beams). As in
+        the JAX package, `continuous` applies to greedy decoding only."""
+        if continuous and num_beams == 1:
             raise NotImplementedError(f"continuous batching {_NOT_PORTED}")
         out = []
         for i in range(0, len(items), batch_size):
             chunk = items[i:i + batch_size]
             prompts, starts, images = self._prepare(chunk)
-            res = self.engine.generate(
-                prompts, images=images, image_starts=starts,
-                sampling=SamplingParams.greedy(), max_new_tokens=max_new_tokens,
-            )
+            if num_beams > 1:
+                res = self.engine.generate_beam(
+                    prompts, images=images, image_starts=starts,
+                    num_beams=num_beams, max_new_tokens=max_new_tokens,
+                )
+            else:
+                res = self.engine.generate(
+                    prompts, images=images, image_starts=starts,
+                    sampling=SamplingParams.greedy(), max_new_tokens=max_new_tokens,
+                )
             out.extend(self._answer_rows(chunk, res))
         return out
 

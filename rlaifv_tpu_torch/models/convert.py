@@ -36,9 +36,14 @@ converter of rlaifv_tpu/models/convert.py copied function for function
 `convert_llava`, `load_image_newline`): HF state dict -> the same flax-style
 tree, then the bridge above; a bare HF Llama checkpoint goes through
 `convert_llama` and `llama_params_from_jax`, and `llama_config_from_hf`
-reads its config.json. The train entry point builds its configs from
-presets, as train.py does. The other families' converters and quantizers
-are not copied: ROADMAP.md 'Modules to port' #9 and #10.
+reads its config.json. `llava_config_from_hf` and `clip_config_from_hf`
+read a LLaVA's or a CLIP tower's config.json into the port's configs, and
+`load_pretrained_llava` (with `_merge_tree`, `convert_peft_lora` and the
+numpy `_quantize_llm_tree`) loads the full, LoRA-over-base and
+projector-only layouts as the JAX function does. The train entry point
+builds its configs from presets, as train.py does. The other families'
+converters and quantizers are not copied: ROADMAP.md 'Modules to port' #9
+and #10.
 """
 from __future__ import annotations
 
@@ -597,3 +602,225 @@ def load_llava_checkpoint(model_dir: str, dtype=np.float32,
                           vision_layers_to_run: Optional[int] = None) -> Tree:
     return convert_llava(load_state_dict_dir(model_dir), dtype=dtype,
                          vision_layers_to_run=vision_layers_to_run)
+
+
+def llava_config_from_hf(model_dir: str, **overrides):
+    """Build LlavaConfig from the checkpoint's config.json (HF LlavaConfig /
+    reference LlavaLlamaForCausalLM layout). Falls back to 7B defaults for
+    missing fields (ref builder.py relies on from_pretrained for this).
+    `llm={...}` and `vision={...}` override fields of the two sub-configs
+    (e.g. dtype and param_dtype)."""
+    import json as _json
+
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.models.llava import LlavaConfig
+
+    cfg_path = os.path.join(model_dir, "config.json")
+    raw = {}
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            raw = _json.load(f)
+
+    llm = LlamaConfig(
+        vocab_size=raw.get("vocab_size", 32000),
+        hidden_size=raw.get("hidden_size", 4096),
+        intermediate_size=raw.get("intermediate_size", 11008),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=raw.get("num_attention_heads", 32),
+        num_kv_heads=raw.get(
+            "num_key_value_heads", raw.get("num_attention_heads", 32)
+        ),
+        max_position_embeddings=raw.get("max_position_embeddings", 4096),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-6),
+        **overrides.get("llm", {}),
+    )
+    vis_raw = raw.get("vision_config", {})
+    vision = CLIPVisionConfig(
+        image_size=vis_raw.get("image_size", 336),
+        patch_size=vis_raw.get("patch_size", 14),
+        hidden_size=vis_raw.get("hidden_size", raw.get("mm_hidden_size", 1024)),
+        intermediate_size=vis_raw.get("intermediate_size", 4096),
+        num_layers=vis_raw.get("num_hidden_layers", 24),
+        num_heads=vis_raw.get("num_attention_heads", 16),
+        select_layer=raw.get("mm_vision_select_layer", -2),
+        **overrides.get("vision", {}),
+    )
+    return LlavaConfig(
+        llm=llm,
+        vision=vision,
+        projector_type=raw.get("mm_projector_type", "mlp2x_gelu"),
+        image_aspect_ratio=raw.get("image_aspect_ratio", "pad"),
+        image_grid_pinpoints=raw.get("image_grid_pinpoints"),
+        mm_patch_merge_type=raw.get("mm_patch_merge_type", "flat"),
+    )
+
+
+def clip_config_from_hf(model_dir: str, **overrides):
+    """CLIPVisionConfig from a bare HF CLIPVisionModel checkpoint dir."""
+    import json as _json
+
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+
+    with open(os.path.join(model_dir, "config.json")) as f:
+        raw = _json.load(f)
+    raw = raw.get("vision_config", raw)
+    return CLIPVisionConfig(
+        image_size=raw.get("image_size", 336),
+        patch_size=raw.get("patch_size", 14),
+        hidden_size=raw.get("hidden_size", 1024),
+        intermediate_size=raw.get("intermediate_size", 4096),
+        num_layers=raw.get("num_hidden_layers", 24),
+        num_heads=raw.get("num_attention_heads", 16),
+        **overrides,
+    )
+
+
+def _merge_tree(base: Tree, overlay: Tree) -> Tree:
+    out = dict(base)
+    for k, v in overlay.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = _merge_tree(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def convert_peft_lora(sd: Mapping[str, Any], dtype=np.float32) -> Tree:
+    """peft adapter state dict -> the LoRA tree ({module: {a, b}}).
+
+    peft keys look like 'base_model.model.model.layers.N.self_attn.q_proj.
+    lora_A.weight' with lora_A (r, in), lora_B (out, r) — transposed into
+    the a (in, r) / b (r, out) layout (ref builder.py:52-86 merge path).
+    """
+    lora: Tree = {}
+    hf2fx = {"self_attn": "attn", "mlp": "mlp"}
+    pat = re.compile(
+        r"(?:base_model\.)?(?:model\.)*layers\.(\d+)\.(self_attn|mlp)\."
+        r"(\w+_proj)\.lora_(A|B)\.weight"
+    )
+    for key, val in sd.items():
+        m = pat.search(key)
+        if not m:
+            continue
+        layer, block, proj, ab = m.groups()
+        path = f"llm/model/layer_{layer}/{hf2fx[block]}/{proj}"
+        node = lora
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        w = _np(val).astype(dtype)
+        node["a" if ab == "A" else "b"] = w.T
+    return lora
+
+
+def _quantize_llm_tree(llm: Tree, mode) -> Tree:
+    """A numpy LLM tree with its projection kernels quantised, the JAX
+    package's numpy `_quantize_llm` (its `quantize_llm_int8` /
+    `quantize_llm_int4` walks): quantize_llm=True/"int8" -> {kernel int8,
+    scale per out channel}, lm_head included; "int4" -> {kernel packed
+    nibbles, scale per group}, lm_head left float. A model built with
+    quantize=True (quantize_bits, quantize_lm_head to match) loads it."""
+    from rlaifv_tpu_torch.models.llama import quantize_kernel_int8
+    from rlaifv_tpu_torch.ops.int4_matmul import quantize_int4
+
+    bits4 = mode == "int4"
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            if (_QUANT_PROJ.match(name or "") and (not bits4 or name != "lm_head")
+                    and set(node) == {"kernel"} and np.ndim(node["kernel"]) == 2):
+                w = np.asarray(node["kernel"])
+                if bits4:
+                    q, s = quantize_int4(w, group=pick_int4_group(w.shape[0]))
+                else:
+                    q, s = quantize_kernel_int8(w)
+                return {"kernel": q, "scale": s}
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    return walk(llm, "")
+
+
+def load_pretrained_llava(
+    model_path: str,
+    model_base: Optional[str] = None,
+    dtype=np.float32,
+    vision_layers_to_run: Optional[int] = None,
+    lora_alpha: float = 16.0,
+    quantize_llm=False,
+) -> Tree:
+    """Reference load_pretrained_model semantics (ref llava/model/
+    builder.py:26-167) for the three layouts, as a numpy tree that
+    `load_jax_params` copies into a model:
+
+    - full checkpoint:                load_pretrained_llava(path)
+    - LoRA adapters over a base:      load_pretrained_llava(lora_dir, base)
+      (adapter_model safetensors/bin + optional non_lora_trainables.bin)
+    - delta/projector-only over base: base weights overlaid with whatever
+      tensors the delta dir provides (mm_projector-only checkpoints).
+    """
+    if model_base is None:
+        params = load_llava_checkpoint(
+            model_path, dtype=dtype, vision_layers_to_run=vision_layers_to_run
+        )
+        if quantize_llm:
+            params["llm"] = _quantize_llm_tree(params["llm"], quantize_llm)
+        return params
+
+    params = load_llava_checkpoint(
+        model_base, dtype=dtype, vision_layers_to_run=vision_layers_to_run
+    )
+
+    # non-LoRA trainables (projector etc.) saved beside adapters
+    non_lora_path = os.path.join(model_path, "non_lora_trainables.bin")
+    if os.path.exists(non_lora_path):
+        sd = torch.load(non_lora_path, map_location="cpu", weights_only=True)
+        sd = {
+            k[len("base_model."):] if k.startswith("base_model.") else k: v
+            for k, v in sd.items()
+        }
+        sd = {
+            k[len("model."):] if k.startswith("model.model.") else k: v
+            for k, v in sd.items()
+        }
+        overlay = convert_llava(
+            sd, dtype=dtype, vision_layers_to_run=vision_layers_to_run
+        ) if any(k.startswith("model.layers") for k in sd) else {}
+        if not overlay and any("mm_projector" in k for k in sd):
+            proj: Tree = {}
+            for k, v in sd.items():
+                m = re.match(r".*mm_projector\.(\d+)\.(weight|bias)", k)
+                if not m:
+                    continue
+                seq_i, kind = int(m.group(1)), m.group(2)
+                fc = proj.setdefault(f"fc{seq_i // 2}", {})
+                arr = _np(v).astype(dtype)
+                fc["kernel" if kind == "weight" else "bias"] = (
+                    arr.T if kind == "weight" else arr
+                )
+            overlay = {"mm_projector": proj}
+        params = _merge_tree(params, overlay)
+
+    # adapters: merge a@b * alpha/r into the kernels
+    try:
+        adapter_sd = load_state_dict_dir(model_path)
+    except FileNotFoundError:
+        # peft's torch-format save name (builder.py loads it explicitly);
+        # load_state_dict_dir's bin glob only matches pytorch_model*.bin
+        adapter_sd = {}
+        abin = os.path.join(model_path, "adapter_model.bin")
+        if os.path.exists(abin):
+            adapter_sd = {
+                k: _np(v) for k, v in torch.load(
+                    abin, map_location="cpu", weights_only=True
+                ).items()
+            }
+    lora = convert_peft_lora(adapter_sd, dtype=dtype)
+    if lora:
+        from rlaifv_tpu_torch.train.lora import lora_merge
+
+        params = lora_merge(params, lora, alpha=lora_alpha)
+    if quantize_llm:
+        params["llm"] = _quantize_llm_tree(params["llm"], quantize_llm)
+    return params

@@ -207,16 +207,21 @@ def main(argv=None):
 
     from rlaifv_tpu_torch.genai.divide_conquer import make_llama3_backend
     from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator
-    from rlaifv_tpu_torch.models.convert import load_jax_params, load_llava_checkpoint
-    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM
+    from rlaifv_tpu_torch.models.convert import (
+        llava_config_from_hf,
+        load_jax_params,
+        load_llava_checkpoint,
+    )
+    from rlaifv_tpu_torch.models.llava import LlavaForCausalLM
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("rlaifv_tpu_torch.pipeline: no CUDA device is visible; "
                          "pass --device cpu to run on the CPU")
 
     def llava(path):
-        # the LLaVA-1.5-7B geometry, as the port's train entry point builds it
-        cfg = LlavaConfig.llava15_7b()
+        # the checkpoint's own geometry (config.json), in bf16
+        bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        cfg = llava_config_from_hf(path, llm=bf16, vision=bf16)
         model = LlavaForCausalLM(cfg, device="meta").to_empty(device=args.device)
         load_jax_params(model, load_llava_checkpoint(
             path, vision_layers_to_run=cfg.vision.layers_to_run))

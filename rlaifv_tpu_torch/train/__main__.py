@@ -29,10 +29,10 @@ import torch
 from rlaifv_tpu_torch.train.family import get_family
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str, prog: str = "rlaifv_tpu_torch.train") -> torch.device:
     """"cuda" (the default) needs a visible card; "cpu" only when asked."""
     if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("rlaifv_tpu_torch.train: no CUDA device is visible; "
+        raise SystemExit(f"{prog}: no CUDA device is visible; "
                          "pass --device cpu to run on the CPU")
     return torch.device(name)
 

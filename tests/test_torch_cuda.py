@@ -601,6 +601,77 @@ def test_tiny_slice_kernels_match_dense_path(gen):
     assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale
 
 
+def test_tiny_beam_search_kernels_match_dense_route(gen):
+    """A bf16 tiny LLaVA (head dim 128, n_rep 2) through the beam path on
+    the card: the prefill takes #1 and every beam step #4; the recorded
+    parents and tokens of 4 steps replayed with attention forced dense give
+    log-probs within 5e-2 of max|logp|, and one beam is greedy decoding."""
+    import numpy as np
+
+    from rlaifv_tpu_torch.genai import beam
+    from rlaifv_tpu_torch.genai.engine import left_pad_batch
+    from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+    from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig
+    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
+    from fake_tokenizer import FakeTokenizer  # tests/ is on sys.path under pytest
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = LlavaConfig(
+        llm=LlamaConfig.tiny(hidden_size=256, num_heads=2, num_kv_heads=1, vocab_size=512,
+                             max_position_embeddings=512, **bf16),
+        vision=CLIPVisionConfig.tiny(hidden_size=48, **bf16))
+    model = init_weights_(LlavaForCausalLM(cfg, device="cuda"), gen).eval()
+    g = Llava15Generator(model, FakeTokenizer(), cfg.num_image_tokens,
+                         image_size=cfg.vision.image_size)
+    eng, K = g.engine, 3
+    S = cfg.vision.image_size
+    img = np.random.default_rng(0).integers(0, 255, (S, S, 3), dtype=np.uint8)
+    items = [{"question": "Describe it." if i % 2 else f"What is object {i} doing here?",
+              "question_id": i, "image": img} for i in range(4)]
+    prompts, starts, images = g._prepare(items)
+    Lp = -(-max(map(len, prompts)) // 64) * 64
+    assert Lp >= 128  # the prefill is square and long enough for the flash route
+    ids_np, mask_np = left_pad_batch(prompts, eng.pad_id, Lp)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    padded = np.asarray(starts) + Lp - np.asarray([len(p) for p in prompts])
+    attn = [m for m in model.modules() if isinstance(m, LlamaAttention)]
+
+    def run(impl, forced=None):
+        for m in attn:
+            m.attn_impl = impl
+        with torch.inference_mode():
+            first, cache, cmask = eng._prefill(ids, mask, eng._device_images(images), padded,
+                                               -(-(Lp + 8) // 128) * 128, beams=K)
+            state, tok0, logp0 = beam.beam_start(first, cache, cmask,
+                                                 mask.sum(dim=1).repeat_interleave(K),
+                                                 num_beams=K, eos_id=-1)
+            if forced:
+                state.last_tok = torch.from_numpy(forced[0]).cuda()
+            out = [(tok0, logp0)]
+            for t in range(1, 5):
+                parent, tok, logp = beam.beam_step(eng._step, state, t, Lp=Lp, eos_id=-1,
+                                                   pad_id=eng.pad_id,
+                                                   forced=forced[t] if forced else None)
+                out.append(((parent, tok), logp))
+        for m in attn:
+            m.attn_impl = "auto"
+        return out
+
+    f0, d0 = flash_attention.launches, decode_attention_prefix.launches
+    fast = run("auto")
+    assert flash_attention.launches - f0 == cfg.llm.num_layers
+    assert decode_attention_prefix.launches - d0 == 4 * cfg.llm.num_layers
+    plain = run("dense", [fast[0][0]] + [f[0] for f in fast[1:]])
+    for (_, a), (_, b) in zip(fast, plain):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 5e-2 * b.abs().max().item()
+    one = eng.generate_beam(prompts, images=images, image_starts=starts, num_beams=1,
+                            max_new_tokens=8)
+    greedy = eng.generate(prompts, images=images, image_starts=starts, max_new_tokens=8)
+    np.testing.assert_array_equal(one.tokens, greedy.tokens)
+
+
 def _head_case(gen, M, H, V):
     x = torch.randn(M, H, generator=gen, device="cuda").to(torch.bfloat16)
     w = (0.02 * torch.randn(V, H, generator=gen, device="cuda")).to(torch.bfloat16)

@@ -178,7 +178,7 @@ def test_unported_modes_raise(gens):
     cfg, _, tgen = gens
     items = _items(cfg, 1)
     with pytest.raises(NotImplementedError, match="#6"):
-        tgen.greedy_gen(items, num_beams=3)
+        tgen.greedy_gen(items, continuous=True)
     with pytest.raises(NotImplementedError, match="#6"):
         tgen.diverse_gen(items, continuous=True)
     # fused decode is ported; a bf16 model is refused with the JAX message

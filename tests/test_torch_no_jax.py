@@ -5,7 +5,8 @@ A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
 the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
-cache, then in place int8 weights + fused projections + int8 cache, then
+cache (greedy, and 3 beams through evals.vqa), then in place int8 weights
++ fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
 divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.train --demo
 --device cpu` for 2 steps into a temporary directory, imports
@@ -45,6 +46,10 @@ SCRIPT = textwrap.dedent("""
     for name in mods:
         importlib.import_module(name)
     assert "rlaifv_tpu_torch.ops.int4_matmul" in mods
+    for name in ("genai.beam", "evals.vqa", "evals.run_eval", "evals.object_halbench",
+                 "evals.mmhal", "evals.refomb", "evals.report", "evals.summaries",
+                 "evals.text_utils", "evals.gpt_client", "iteration"):
+        assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
     from rlaifv_tpu_torch.models.convert import quantize_int4_torch
@@ -74,6 +79,10 @@ SCRIPT = textwrap.dedent("""
     assert len(rows) == 2 and all(isinstance(r["answer"], str) for r in rows)
     rows = gen.greedy_gen(items[:2], max_new_tokens=3)
     assert len(rows) == 2
+    # the eval slice: 3 beams through evals.vqa, judged by run_eval offline
+    from rlaifv_tpu_torch.evals.vqa import generate_answers
+    answers = generate_answers(gen, items, max_new_tokens=3, num_beams=3)
+    assert [a["question_id"] for a in answers] == [0, 1, 2]
 
     # the same model in the int8-KV serving configuration, in place
     from rlaifv_tpu_torch.models.convert import (fuse_llm_projections_,
@@ -85,6 +94,7 @@ SCRIPT = textwrap.dedent("""
     assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
     assert len(gen.diverse_gen(items[:1] * 2, max_new_tokens=3)) == 2
     assert len(gen.greedy_gen(items[:2], max_new_tokens=3)) == 2
+    assert len(gen.greedy_gen(items[:2], max_new_tokens=3, num_beams=3)) == 2
     # and through the fused engine (its weights stacked in place)
     fused = Llava15Generator(model, FakeTokenizer(), cfg.num_image_tokens,
                              image_size=cfg.vision.image_size, fused_decode=True)
