@@ -79,6 +79,30 @@ Phases, one progress line each (or a few):
      evals.run_eval's Object HalBench (no GPT, a synthetic COCO directory),
      MMHal and RefoMB (a stub judge transport: the machine has no network)
      on the answers, each writing its files and printing its summary;
+  15. continuous batching (genai/continuous.py), in three parts. 15a (after
+     3h): kernels #4, #5 and #16 against their split twins at the masks
+     continuous batching gives them (utils/synth.py:continuous_mask:
+     windows ending at the write column with different starts, finished
+     rows, an empty slot, and the same rolled by a compaction) with phases
+     3, 3f and 3g's bounds; 15b (after 14, on phase 4's bf16 model):
+     diverse generation of 2 questions x 10 repeats through
+     a ContinuousGenerator (share_keys from the repeat groups, 8 slots, chunk
+     16, at most 64 new tokens under lognormal(4.45, 0.8) budgets,
+     headroom 32: one compaction), then diverse_gen(continuous=True), the
+     batch path and generate_many on the same items, then greedy
+     continuous against generate on 8 prompts (first and decode logits
+     within phase 5's bound, a row first differing only at a near-tie
+     under a fixed bound); 15c (after 11 and after 12): the same greedy
+     check on 12 prompts through 4 slots with a compaction on the int8-KV
+     engine (#5 every step, #7, #9) and on the fused engine (#16 every
+     step, compact_stacked, the slot scatter), the decode tokens whose keys
+     sit at the same offset in the key blocks on both paths held to phase
+     5's bound and the others to phase 11's int8-KV bound and cosine; each
+     run logs its refill waves, prefills, scatter refills, compactions,
+     launches against the plan, host syncs over the whole run with its
+     refills (counted under torch.cuda.set_sync_debug_mode("warn"): one a
+     chunk planned, none in a refill) and tok/s beside the card's name and
+     power limit;
   11. (run after 14, on phase 4's model) the int8-KV serving path, the JAX
      package's headline serving configuration (scripts/bench_7b_serve.py):
      one generate of 24 prompts of 896 tokens and 64 new tokens on the bf16
@@ -251,8 +275,8 @@ Phases, one progress line each (or a few):
      by step 2); step time, pairs/s, tokens/s, peak memory, and the
      launches a step of #11, #12 and the dequant dx (gate/up).
 
-Each path of the main run (4, 14's beam batch, 11's two headline runs, its
-slice and its beam batch, 12's
+Each path of the main run (4, 14's beam batch, 15's runs, 11's two
+headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
@@ -293,8 +317,11 @@ from rlaifv_tpu_torch.evals import run_eval  # noqa: E402
 from rlaifv_tpu_torch.evals.vqa import generate_answers  # noqa: E402
 from rlaifv_tpu_torch.genai import beam as beam_mod  # noqa: E402
 from rlaifv_tpu_torch.genai import divide_conquer as dcq  # noqa: E402
-from rlaifv_tpu_torch.genai.engine import DecodeEngine, left_pad_batch  # noqa: E402
+from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator  # noqa: E402
+from rlaifv_tpu_torch.genai.engine import (DecodeEngine, GenerateResult, group_consecutive,  # noqa: E402
+                                          left_pad_batch)
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
+from rlaifv_tpu_torch.genai.sampling import SamplingParams  # noqa: E402
 from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig, LlamaForCausalLM  # noqa: E402
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     LlavaConfig,
@@ -346,7 +373,7 @@ from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     fused_target_logp,
 )
 from rlaifv_tpu_torch.utils.file_io import read_jsonlines, write_jsonlines  # noqa: E402
-from rlaifv_tpu_torch.utils.synth import quotient_ties  # noqa: E402
+from rlaifv_tpu_torch.utils.synth import continuous_mask, quotient_ties  # noqa: E402
 from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     DPOHparams,
     LlavaDPOAdapter,
@@ -4493,6 +4520,479 @@ def phase_qlora_int4(model, tok, rows: list, cfg: LlavaConfig, ref_bf16: list) -
     return launches
 
 
+# 15: slot-refill continuous batching (genai/continuous.py) on the card, on
+# the models phases 4, 11 and 12 build. Two short questions put every prompt
+# in the 768 bucket (766 and 763 tokens with the character-level tokenizer),
+# so CONT_HEADROOM gives a 896-column cache: 128 columns of room, which the
+# 160-192 decode steps of a run pass, so each run compacts at least once
+CONT_QUESTIONS = ["Is it daytime?", "Any people?"]
+CONT_REPEATS = 10  # the diverse-gen repeat expansion (muffin/llava15_gen_data.py)
+CONT_SLOTS, CONT_CHUNK, CONT_NEW, CONT_HEADROOM = 8, 16, 64, 32
+CONT_BUDGET = (4.45, 0.8)  # lognormal per-prompt budgets (scripts/bench_7b_gen.py)
+CONT_BUDGET_SEED = 0
+# greedy continuous against generate: 8 distinct prompts of varied length
+CONT_GREEDY = ["Is it daytime?", "Any people?", "Is it dark?", "What colour?", "Is it wet?",
+               "Where?", "Any cars?", "Is it?"]
+CONT_GREEDY_NEW = 32
+# the two paths put a prompt at other cache columns with another valid_len
+# and batch (other key splits, tile alignments and kernel plans), so their
+# logits differ by rounding, and a random model's near-ties then pick other
+# tokens: they are compared token by token while their histories agree
+# (_greedy_vs_generate), in bf16 within phase 5's bound, and with the int8
+# cache within phase 11's (INT8_KV_REL_TOL, INT8_KV_COS_MIN: with int8
+# weights every row quantisation turns such rounding into whole steps).
+# The witness that the gap is the engine's and not the continuous path's:
+# the run's first wave sits at generate's columns, so it must equal
+# generate on those prompts alone (the same batch) within phase 5's bound,
+# while generate itself moves between that batch and the whole one. A row
+# may first differ from generate only where generate's top-2 logit gap is
+# under CONT_TIE x max|first logit|, a fixed bound (phase 5's share): the
+# first mismatches read on the H100 sit at gaps of 0-0.0415 of it, the
+# first wave is bit-equal to generate at its own batch, and generate moves
+# by 0.137 (int8-KV), 0.121 (fused) and 0.010 (bf16) of it between that
+# batch and the whole one (PERF.md section 5)
+CONT_TIE = SLICE_REL_TOL
+# (c): the int8-KV and fused engines on 12 prompts (6 questions x 2
+# images' worth of repeats, distinct prompts) through 4 slots
+CONT_SMALL = ["Is it daytime?", "Any people?", "Is it dark?", "What colour?", "Is it wet?",
+              "Any cars?"] * 2
+CONT_SMALL_SLOTS = 4
+
+
+def cont_budgets(n: int) -> np.ndarray:
+    mu, sigma = CONT_BUDGET
+    b = np.random.default_rng(CONT_BUDGET_SEED).lognormal(mu, sigma, n)
+    return np.clip(b, 8, CONT_NEW).astype(np.int64)
+
+
+@contextlib.contextmanager
+def run_syncs():
+    """Counts the host syncs of every ContinuousGenerator.run, refills and
+    compactions included, under torch.cuda.set_sync_debug_mode("warn"):
+    every synchronizing CUDA call warns "called a synchronizing CUDA
+    operation" (the mode's one-time notice that it is a prototype is not
+    one), and those warnings are counted -> a list with one record a run:
+    the generator (its stats), the syncs of the whole run, those of each
+    chunk (ContinuousGenerator._chunk), and the source lines that made
+    them."""
+    import warnings
+
+    runs, run, chunk = [], ContinuousGenerator.run, ContinuousGenerator._chunk
+    caught = []
+
+    def syncs(ws):
+        return [w for w in ws if "called a synchronizing" in str(w.message)]
+
+    def counted_chunk(self, *a):
+        n0 = len(caught)
+        out = chunk(self, *a)
+        runs[-1]["chunks"].append(len(syncs(caught[n0:])))
+        return out
+
+    def counted_run(self, *a, **kw):
+        nonlocal caught
+        rec = dict(gen=self, chunks=[], total=0, sites={})
+        runs.append(rec)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return run(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                found = syncs(caught)
+                rec["total"] = len(found)
+                for w in found:
+                    site = f"{os.path.basename(w.filename)}:{w.lineno}"
+                    rec["sites"][site] = rec["sites"].get(site, 0) + 1
+
+    ContinuousGenerator.run, ContinuousGenerator._chunk = counted_run, counted_chunk
+    try:
+        yield runs
+    finally:
+        ContinuousGenerator.run, ContinuousGenerator._chunk = run, chunk
+
+
+def _cont_masks(B: int, L: int, gt: int, seed: int) -> dict:
+    """15a's masks on the card: windows ending at gt with different starts,
+    finished rows, an empty slot (row 1); the same rolled by a compaction."""
+    return {name: torch.from_numpy(continuous_mask(B, L, gt, seed=seed, shift=s)).cuda()
+            for name, s in (("windows", 0), ("compacted", L - 1 - gt))}
+
+
+def phase_continuous_kernels(g) -> dict:
+    """15a: kernels #4, #5 and #16 against their split twins at the masks
+    continuous batching gives them (utils/synth.py:continuous_mask), with
+    phases 3, 3f and 3g's bounds and checks."""
+    res = {"cases": 0}
+    # #4: phase 15b's bf16 step (8 slots, 896 columns) and a GQA step
+    for (B, L, H, KVH, gt), seed in (((8, 896, 32, 32, 700), 1), ((8, 2304, 32, 8, 2000), 2)):
+        for name, mask in _cont_masks(B, L, gt, seed).items():
+            q, k, v = _randn(g, B, H, 128), _randn(g, B, L, KVH, 128), _randn(g, B, L, KVH, 128)
+            k[:, gt + 1:] = float("nan")  # past valid_len: never read
+            v[:, gt + 1:] = float("nan")
+            _prefix_case(f"15a #4 {name} B={B} KVH={KVH}", q, k, v, mask, gt + 1, timed=False)
+            res["cases"] += 1
+    # #5: phase 15c's int8-KV step (4 slots) and the 8-slot one
+    for B, L, gt, seed in ((4, 896, 700, 3), (8, 896, 300, 4)):
+        for name, mask in _cont_masks(B, L, gt, seed).items():
+            args = _kv8_cache(g, B, L, 32, 32, 128, gt + 1)
+            args[5] = mask
+            splits = kv8_splits(B, L, 32, 32, gt + 1)
+            out = decode_attention_prefix_int8(*args, gt + 1)
+            again = decode_attention_prefix_int8(*args, gt + 1)
+            ref = decode_attention_prefix_int8_split_ref(*args, gt + 1, splits)
+            torch.cuda.synchronize()
+            err, ratio = _kv8_ratio(out, ref)
+            launched = launched_ops(lambda: decode_attention_prefix_int8(*args, gt + 1))
+            ok = ratio <= 1 and bool((out[1] == 0).all()) and torch.equal(again, out) and \
+                launched.get("kernel", 0) == 1 + (splits > 1)
+            log(f"[15a #5] {name} B={B} L={L} valid_len={gt + 1}, {splits} key splits; one "
+                f"call: {ops_text(launched)} | max|err| against the split twin {err:.3e} = "
+                f"{ratio:.3f} of the bound ({KV8_TOL:.4f} x max|twin|), the empty slot 0, "
+                f"rerun equal | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel #5 disagrees at a continuous mask: {name}")
+            res["cases"] += 1
+    # #16: phase 15c's fused step (4 slots, 896 columns), two layers of the
+    # 7B widths: the sharp bound at one layer, the gross one at two
+    cfg = _fd_cfg(32, 8, num_layers=2)
+    weights = _fd_weights(g, cfg)
+    d = fd.default_dims(cfg, 896)
+    for B, gt, seed in ((4, 700, 5), (8, 300, 6)):
+        for name, mask in _cont_masks(B, 896, gt, seed).items():
+            cache, _, x, _ = _fd_inputs(g, d, B, gt)
+            pos = mask.sum(dim=1) - 1
+            args = (weights, cache, x, mask, pos, gt, d)
+            plan = fd.fused_plan(d, B, gt)
+            kw = dict(rope_theta=cfg.rope_theta)
+            kwr = dict(kw, attn_splits=plan.attn_splits)
+            out = fd.fused_decode_step(*args, **kw)
+            gap = _fd_gap(*out, *fd.fused_decode_step_ref(*args, **kwr))
+            args1 = _fd_layer0(args)
+            gap1 = _fd_gap(*fd.fused_decode_step(*args1, **kw),
+                           *fd.fused_decode_step_ref(*args1, **kwr))
+            torch.cuda.synchronize()
+            broken = _fd_layer_broken(gap1, B)
+            ok = _fd_within(gap) and not broken
+            log(f"[15a #16] {name} B={B} L=896 cache_index={gt}, {plan} | one layer: "
+                f"{gap1['rows']} of {B} rows hold a flip (bound {FUSED_FLIP_ROWS(B)}), the worst "
+                f"row {gap1['row_steps']:.3g} steps (tol {FUSED_FLIP_STEPS}), k/v "
+                f"{gap1['steps']} steps | 2 layers: x_out {gap['x_rel']:.3e} of max (tol "
+                f"{FUSED_X_TOL}), k/v {gap['steps']} steps | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"kernel #16 disagrees at a continuous mask: {name}")
+            res["cases"] += 1
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _cont_run(fn) -> tuple:
+    """fn() with every launch counter reset just before and read just after,
+    the syncs of its continuous runs counted -> (result, wall s, launches,
+    run_syncs's records)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    with run_syncs() as runs:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, read_counts(), runs
+
+
+def _cont_check(tag: str, n_layers: int, launches: dict, runs: list, decode: str,
+                per_step: int, compacts: bool = True) -> dict:
+    """One continuous run's launches against its plan: #1 once a layer a
+    prefill (batched and window), `decode` per_step times a decode step;
+    one host sync a chunk and none besides over the whole run (refills and
+    compactions included); with `compacts`, a compaction -> the
+    generator's stats."""
+    (rec,) = runs
+    st = rec["gen"].stats
+    prefills = st["prefills"] + st["window_prefills"]
+    want = {"flash": n_layers * prefills, decode: per_step * st["steps"]}
+    got = {k: launches[k] for k in want}
+    ok = (got == want and rec["chunks"] == [1] * st["chunks"] and rec["total"] == st["chunks"]
+          and st["compactions"] >= compacts)
+    log(f"[{tag}] {st}; launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)}; "
+        f"planned {want}; host syncs over the whole run, {st['refill_waves']} refill waves "
+        f"included: {rec['total']} for {st['chunks']} chunks = {rec['total'] / st['chunks']:.2f} "
+        f"a chunk (each chunk's own {sorted(set(rec['chunks']))}; 1 planned, the packed read, "
+        f"and none in a refill; from {rec['sites']}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: launches, syncs or compactions off the plan")
+    return st
+
+
+def _recorded_generate(eng: DecodeEngine, prompts, starts, images, new: int) -> tuple:
+    """eng.generate of the prompts -> (result, each row's logits a token:
+    token 0 the first logits, token k from decode step k - 1, on the
+    device; generate's (Lp, max_len))."""
+    steps, geom, step, batch = [], [], eng._step, eng._batch
+
+    def recorded_step(*a):
+        logits, cache = step(*a)
+        steps.append(logits.float().clone())  # kept on the device: no sync
+        return logits, cache
+
+    def recorded_batch(*a):
+        out = batch(*a)
+        geom.append((out[1].shape[1], out[3]))
+        return out
+
+    eng._step, eng._batch = recorded_step, recorded_batch
+    try:
+        res = eng.generate(prompts, images=images, image_starts=starts, max_new_tokens=new)
+    finally:
+        eng._step, eng._batch = step, batch
+    first = torch.from_numpy(res.first_logits).float().to(eng.device)
+    return res, [[first[b]] + [x[b] for x in steps] for b in range(len(prompts))], geom[0]
+
+
+def _agree(new: int, a_rows, a_res, b_rows, b_res) -> tuple:
+    """Two runs' logits a token while their histories agree, row by row ->
+    (largest |difference| over the decode tokens, least row cosine, tokens
+    compared, each row's first differing token, rows equal in full)."""
+    worst, cos, compared, first_diff, full = 0.0, 1.0, 0, [], 0
+    for b in range(len(a_rows)):
+        n = min(new, int(a_res.lengths[b]), int(b_res.lengths[b]))
+        diff = np.flatnonzero(a_res.tokens[b, :n] != b_res.tokens[b, :n])
+        m = int(diff[0]) if len(diff) else n
+        first_diff.append(m)
+        full += int(m == n)
+        for k in range(1, min(m + 1, n)):
+            x, y = a_rows[b][k], b_rows[b][k]
+            worst = max(worst, (x - y).abs().max().item())
+            cos = min(cos, torch.nn.functional.cosine_similarity(x, y, dim=0).item())
+            compared += 1
+    return worst, cos, compared, first_diff, full
+
+
+def _greedy_vs_generate(tag: str, eng: DecodeEngine, prompts, starts, images, slots: int,
+                        new: int, smi: str, rel_tol: float = SLICE_REL_TOL,
+                        cos_min: float = -1.0, block=None) -> dict:
+    """Greedy continuous (a ContinuousGenerator with slots, CONT_CHUNK and
+    CONT_HEADROOM) against one generate of all the prompts, token by token.
+
+    Each prompt's logits a token on both paths (token 0 from the prefill,
+    token k from decode step k - 1; the continuous ones mapped from slots
+    back to prompts through the run's refills) are compared while the
+    row's history is equal on both: the first logits within phase 5's
+    bound (SLICE_REL_TOL x max|first logits|), the decode logits within
+    rel_tol x that and a row cosine of at least cos_min. A row may first
+    differ only at a step where generate's top-2 gap is under CONT_TIE x
+    max|first logits|. The witness: the run's first wave, at generate's
+    columns, against generate of those prompts alone (the same batch),
+    within phase 5's bound; beside it generate of that batch against the
+    whole one. With the int8 cache's key block(L) given, the decode tokens
+    are also split by whether their keys sat at the same offset in the key
+    blocks on both paths through their whole history (p is quantised per
+    block): the largest gap of each share is logged."""
+    ref, gen_rows, (Lp_gen, L_gen) = _recorded_generate(eng, prompts, starts, images, new)
+    cont_steps, refills, moves, geom, step = [], [], [], {}, eng._step
+    cg = ContinuousGenerator
+    reset, compact, init = cg._reset_slots, cg._compact, cg._init_slots
+
+    def recorded_step(*a):
+        logits, cache = step(*a)
+        cont_steps.append(logits.float().clone())
+        return logits, cache
+
+    def recorded_reset(self, st, idx, ids, mask, first, gt, budgets):
+        n = idx.numel()
+        refills.append((self.stats["chunks"], gt, idx.clone(), ids[:n], mask[:n],
+                        first[:n].float().clone()))
+        return reset(self, st, idx, ids, mask, first, gt, budgets)
+
+    def recorded_compact(self, st, gt, shift):
+        moves.append((self.stats["chunks"], shift))
+        return compact(self, st, gt, shift)
+
+    def recorded_init(self, max_len):
+        geom["continuous"] = max_len
+        return init(self, max_len)
+
+    gen = ContinuousGenerator(eng, slots=slots, chunk=CONT_CHUNK, max_new_tokens=new,
+                              headroom=CONT_HEADROOM)
+    eng._step = recorded_step
+    cg._reset_slots, cg._compact, cg._init_slots = recorded_reset, recorded_compact, recorded_init
+    try:
+        run, wall, launches, runs = _cont_run(lambda: gen.run(
+            prompts, images=np.asarray(images), image_starts=starts))
+    finally:
+        eng._step = step
+        cg._reset_slots, cg._compact, cg._init_slots = reset, compact, init
+    # each prompt's logits a token (token k from the slot's decode step k - 1
+    # from its refill's chunk on), its first wave, and the first token
+    # whose history ran with the row's keys at another offset in the blocks
+    N = len(prompts)
+    index = {}  # equal prompts (greedy: equal outputs) map in queue order
+    for i, p in enumerate(prompts):
+        index.setdefault(tuple(p), []).append(i)
+    bl = (block(L_gen), block(geom["continuous"])) if block else None
+    cont_rows, shifted_from, wave = [None] * N, [new + 1] * N, []
+    for c0, gt, idx, ids, mask, fl in refills:
+        for r, s in enumerate(idx.tolist()):
+            p = index[tuple(ids[r][mask[r] == 1].tolist())].pop(0)
+            cont_rows[p] = [fl[r]] + [x[s] for x in cont_steps[c0 * CONT_CHUNK:]]
+            wave += [p] if c0 == 0 else []
+            off, at = gt - Lp_gen, 1  # the keys' column offset against generate's
+            for c, shift in [(c0, 0)] + [m for m in moves if m[0] >= c0]:
+                off, at = off - shift, (c - c0) * CONT_CHUNK + 1
+                if bl and (bl[0] != bl[1] or off % bl[0]):
+                    shifted_from[p] = at
+                    break
+    scale = gen_rows[0][0].abs().max().item()
+    for b in range(1, N):
+        scale = max(scale, gen_rows[b][0].abs().max().item())
+    first_gap = max((cont_rows[b][0] - gen_rows[b][0]).abs().max().item() for b in range(N))
+    worst, cos, compared, mismatch, full = _agree(new, cont_rows, run, gen_rows, ref)
+    at_mismatch, ok = [], first_gap <= SLICE_REL_TOL * scale
+    split = {"aligned": 0.0, "shifted": 0.0}
+    for b in range(N):
+        for k in range(1, min(mismatch[b] + 1, new, int(ref.lengths[b]))):
+            share = "shifted" if k >= shifted_from[b] else "aligned"
+            split[share] = max(split[share],
+                               (cont_rows[b][k] - gen_rows[b][k]).abs().max().item())
+        if mismatch[b] < min(new, int(ref.lengths[b]), int(run.lengths[b])):
+            top2 = gen_rows[b][mismatch[b]].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            at_mismatch.append(f"{b}@{mismatch[b]} {gap / scale:.4f}")
+            ok = ok and gap < CONT_TIE * scale
+    ok = ok and worst <= rel_tol * scale and cos >= cos_min
+    # the witness: the first wave against generate of its prompts alone
+    sub = [prompts[p] for p in wave]
+    w_ref, w_rows, _ = _recorded_generate(eng, sub, [starts[p] for p in wave],
+                                          np.asarray(images)[wave], new)
+    w_run = GenerateResult(run.tokens[wave], run.lengths[wave], None)
+    w = _agree(new, [cont_rows[p] for p in wave], w_run, w_rows, w_ref)
+    g_ref = GenerateResult(ref.tokens[wave], ref.lengths[wave], None)
+    g = _agree(new, w_rows, w_ref, [gen_rows[p] for p in wave], g_ref)
+    ok = ok and w[0] <= SLICE_REL_TOL * scale
+    blocks = (f"; by the keys' offset in the key blocks ({bl[0]} at generate's L={L_gen}, "
+              f"{bl[1]} at L={geom['continuous']}), first shifted token {shifted_from}: at "
+              f"most {split['aligned'] / scale:.4f} aligned, {split['shifted'] / scale:.4f} "
+              f"shifted" if bl else "")
+    log(f"[{tag}] greedy continuous ({slots} slots) vs generate on {N} prompts x {new} "
+        f"tokens, max|first logit| {scale:.4f}: the first logits differ by at most "
+        f"{first_gap / scale:.4f} of it (tol {SLICE_REL_TOL}); the decode logits of the "
+        f"{compared} tokens whose history both paths share by at most {worst / scale:.4f} "
+        f"(tol {rel_tol}), least row cosine {cos:.5f}"
+        + (f" (tol {cos_min})" if cos_min > -1 else "") + blocks
+        + f" | each row's first differing token {mismatch} (of {new}), generate's top-2 gap "
+        f"there as a share of max|first logit| {at_mismatch} (tie bound {CONT_TIE}); {full} "
+        f"of {N} rows equal in full | witness, the first wave {wave} against generate of "
+        f"those {len(wave)} prompts alone: {w[0] / scale:.4f} over {w[2]} tokens (tol "
+        f"{SLICE_REL_TOL}; {'bit-equal' if w[0] == 0 else 'not bit-equal'}), {w[4]} of "
+        f"{len(wave)} rows equal in full; generate of those alone against generate of all "
+        f"{N}: {g[0] / scale:.4f} over {g[2]} tokens, least row cosine {g[1]:.5f}, {g[4]} of "
+        f"{len(wave)} rows equal in full | {smi} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: continuous disagrees with generate beyond a near-tie")
+    return dict(launches=launches, runs=runs, wall=wall, rows_full=full)
+
+
+def phase_continuous(gen: Llava15Generator, image_bytes: bytes, smi: str) -> dict:
+    """15b: the bf16 per-layer engine (phase 4's model): diverse generation
+    of 2 questions x 10 repeats through a ContinuousGenerator (share_keys
+    from the repeat groups, 8 slots, chunk 16, per-prompt lognormal budgets,
+    CONT_HEADROOM: a compaction), diverse_gen(continuous=True) on the same
+    items, then the batch path and generate_many on them; greedy continuous
+    against generate -> the launches of its runs."""
+    items = _items(image_bytes, [q for q in CONT_QUESTIONS for _ in range(CONT_REPEATS)])
+    prompts, starts, images = gen._prepare(items)
+    keys = [None] * len(items)
+    for k, idx in enumerate(group_consecutive(items, with_question=True)):
+        for i in idx:
+            keys[i] = k
+    budgets = cont_budgets(len(items))
+    sp = SamplingParams.diverse_gen()
+    eng = gen.engine
+    n_layers = gen.model.cfg.llm.num_layers
+    eng.generate_continuous(prompts[:2], images=images[:2], image_starts=starts[:2],
+                            slots=2, max_new_tokens=2)  # warm-up
+    cont = ContinuousGenerator(eng, slots=CONT_SLOTS, chunk=CONT_CHUNK, max_new_tokens=CONT_NEW,
+                               sampling=sp, headroom=CONT_HEADROOM)
+    res, wall, launches, runs = _cont_run(lambda: cont.run(
+        prompts, images=np.asarray(images), image_starts=starts, seed=0,
+        max_new_per_prompt=budgets, share_keys=keys))
+    st = _cont_check("15b continuous", n_layers, launches, runs, "decode", n_layers)
+    ends = res.tokens[np.arange(len(items)), np.maximum(res.lengths - 1, 0)]
+    assert res.tokens.shape == (len(items), CONT_NEW) and all(
+        n == b or (n < b and e == eng.eos_id) for n, b, e in zip(res.lengths, budgets, ends))
+    toks = int(res.lengths.sum())
+    rates = {"continuous": toks / wall}
+    log(f"[15b continuous] {len(items)} prompts ({len(CONT_QUESTIONS)} questions x "
+        f"{CONT_REPEATS}), budgets {budgets.tolist()} (sum {toks}): {wall:.3f} s, "
+        f"{rates['continuous']:.1f} tok/s, {st['steps']} decode steps of {CONT_SLOTS} slots "
+        f"({toks / (st['steps'] * CONT_SLOTS):.1%} of the slot-steps emit a budgeted token) | "
+        f"{smi}")
+    total = add_counts({}, launches)
+    # diverse_gen's continuous branch (its defaults: chunk 32, no budgets)
+    rows, wall, more, runs = _cont_run(lambda: gen.diverse_gen(
+        items, max_new_tokens=CONT_NEW, batch_size=CONT_SLOTS, continuous=True))
+    assert len(rows) == len(items) and all(isinstance(r["answer"], str) for r in rows)
+    st = _cont_check("15b diverse_gen", n_layers, more, runs, "decode", n_layers,
+                     compacts=False)
+    add_counts(total, more)
+    n = len(items) * CONT_NEW
+    rates["diverse_gen continuous"] = n / wall
+    log(f"[15b diverse_gen continuous] {len(items)} rows x {CONT_NEW}: {wall:.3f} s, "
+        f"{n / wall:.1f} tok/s ({st['steps']} steps, {st}) | {smi}")
+    # the fixed-batch paths on the same prompts (no per-prompt budgets:
+    # every row runs CONT_NEW steps; the budgeted rate counts the tokens the
+    # budgets ask for, as the continuous run delivers them)
+    for name, fn in (
+            ("diverse_gen batch", lambda: gen.diverse_gen(
+                items, max_new_tokens=CONT_NEW, batch_size=CONT_SLOTS)),
+            ("generate_many", lambda: eng.generate_many(
+                prompts, images=images, image_starts=starts, batch_size=CONT_SLOTS,
+                sampling=sp, max_new_tokens=CONT_NEW))):
+        _, wall, more, _ = _cont_run(fn)
+        add_counts(total, more)
+        rates[name] = n / wall
+        log(f"[15b {name}] {len(items)} rows x {CONT_NEW}: {wall:.3f} s, {n / wall:.1f} tok/s; "
+            f"the budgets' {toks} tokens at {toks / wall:.1f} tok/s against the continuous "
+            f"run's {rates['continuous']:.1f} | {smi}")
+    g_items = _items(image_bytes, CONT_GREEDY)
+    p, s, im = gen._prepare(g_items)
+    out = _greedy_vs_generate("15b greedy", eng, p, s, im, CONT_SLOTS // 2, CONT_GREEDY_NEW,
+                              smi)
+    _cont_check("15b greedy", n_layers, out["launches"], out["runs"], "decode", n_layers,
+                compacts=False)
+    add_counts(total, out["launches"])
+    return total, rates
+
+
+def phase_continuous_engine(gen: Llava15Generator, image_bytes: bytes, smi: str, tag: str,
+                            decode: str, per_step: int, absent: tuple, present: tuple,
+                            block) -> dict:
+    """15c: greedy continuous on 12 prompts through 4 slots with a
+    compaction, on phase 11's int8-KV engine (#5 every step, #7 on the
+    decode rows, #9 in the refill prefills) or phase 12's fused engine (#16
+    every step, compact_stacked, the slot scatter of the write-through
+    prefill), against the same engine's generate, its decode tokens split
+    by their key offset modulo the engine's key block(L) -> the launches."""
+    p, s, im = gen._prepare(_items(image_bytes, CONT_SMALL))
+    eng = gen.engine
+    eng.generate_continuous(p[:2], images=im[:2], image_starts=s[:2], slots=2,
+                            max_new_tokens=2)  # warm-up
+    out = _greedy_vs_generate(tag, eng, p, s, im, CONT_SMALL_SLOTS, CONT_NEW, smi,
+                              INT8_KV_REL_TOL, INT8_KV_COS_MIN, block)
+    st = _cont_check(tag, eng.llm.cfg.num_layers, out["launches"], out["runs"], decode,
+                     per_step)
+    if any(out["launches"][k] for k in absent) or not all(out["launches"][k] for k in present):
+        raise AssertionError(f"{tag}: not this engine's kernels ({absent} none, {present} "
+                             f"some): {out['launches']}")
+    n = len(p) * CONT_NEW
+    log(f"[{tag}] {len(p)} prompts x {CONT_NEW} through {CONT_SMALL_SLOTS} slots: "
+        f"{out['wall']:.3f} s, {n / out['wall']:.1f} tok/s ({st['steps']} steps) | {smi}")
+    return out["launches"]
+
+
 def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4540,6 +5040,7 @@ def main() -> None:
     kv8 = timed("3f int8 decode", phase_kv8_kernel, g)
     fused = timed("3g fused decode", phase_fused_kernel, g, fused_copies)
     full = timed("3h full decode", phase_full_kernel, g)
+    timed("15a continuous kernels", phase_continuous_kernels, g)
 
     t0 = time.perf_counter()
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
@@ -4560,14 +5061,26 @@ def main() -> None:
     # 14 runs the eval slice on the same bf16 model before 11 changes it
     eval_launches, beam4 = timed("14 eval", phase_eval, gen, image_bytes)
     add_counts(launches, eval_launches)
+    # 15 runs continuous batching on the bf16 model, then (15c) on 11's
+    # int8-KV model and on 12's fused engine
+    cont_launches, _ = timed("15b continuous", phase_continuous, gen, image_bytes, smi)
+    add_counts(launches, cont_launches)
     # 11 serves the same seed-0 model in the int8-KV configuration, 12 the
     # same quantised model through the fused engine (which consumes its
     # per-layer weights), 13 the feedback pipeline with that fused generator
     kv8_launches, int8_kv_rates = timed("11 int8-kv", phase_int8_kv, gen, image_bytes,
                                         bf16_rates)
     add_counts(launches, kv8_launches)
+    n_layers = cfg.llm.num_layers
+    add_counts(launches, timed("15c continuous int8-kv", phase_continuous_engine, gen,
+                               image_bytes, smi, "15c int8-kv", "decode_int8", n_layers,
+                               ("decode",), ("int8", "int8_prequant"), prefix_block_l))
     fused_launches, fgen = timed("12 fused", phase_fused, gen, image_bytes, int8_kv_rates)
     add_counts(launches, fused_launches)
+    add_counts(launches, timed("15c continuous fused", phase_continuous_engine, fgen,
+                               image_bytes, smi, "15c fused", "fused", 1,
+                               ("decode", "decode_int8", "int8"), ("int8_prequant",),
+                               lambda L: fd.default_dims(fgen.engine.llm.cfg, L).bl))
     del gen
     add_counts(launches, timed("13 pipeline", phase_pipeline, fgen, tok))
     del fgen, model
@@ -4605,8 +5118,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"[10 int4] main-path launches (serving 4, the eval slice 14, int8-KV serving 11 "
-        f"with its beam batch, fused serving 12, "
+    log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
+        f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"

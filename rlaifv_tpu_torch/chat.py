@@ -1,0 +1,161 @@
+"""Single-image chat with LLaVA-1.5 on the port.
+
+    python -m rlaifv_tpu_torch.chat --model-path <ckpt> [--image img.jpg]
+        [--question "..."] [--kv-int8] [--load-8bit] [--device cpu]
+
+Counterpart of the root chat.py's LLaVA-1.5 path (ref chat.py:143-241):
+`RLAIFV7B.chat` builds an llava_v1 prompt, splices the image sentinel,
+resizes the image (normalised on the device) and decodes with 3 beams, T 0,
+1024 new tokens at most, through `DecodeEngine.generate_beam`; the model is
+picked by path substring as there. The checkpoint's config.json gives the
+model (`llava_config_from_hf`, full, LoRA-over-base or projector-delta
+layouts through `load_pretrained_llava`), in bf16 on the card (the default;
+no visible card is an error) or in fp32 on the CPU with `--device cpu`.
+`--load-8bit`: weight-only int8 LLM projections (kernels #9/#7 on the
+card); `--kv-int8`: an int8 decode cache (kernel #5).
+
+Not ported yet, each raising NotImplementedError with its ROADMAP.md
+'Modules to port' number: anyres checkpoints (LLaVA-1.6 grids, #8, raised
+by models/llava.py), `--lookup-decode` and `--load-4bit` (its serving path
+needs models/quant_smooth.py; #11), the OmniLMM-12B (#9) and MiniCPM-V
+(#10) families.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional
+
+_NOT_PORTED = "is not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' "
+
+
+class RLAIFV7B:
+    """LLaVA-1.5-7B (CLIP-L/14-336 + Vicuna-7B) chat on the port."""
+
+    def __init__(self, model_path: str, model_base: Optional[str] = None,
+                 max_new_tokens: int = 1024, load_8bit: bool = False,
+                 load_4bit: bool = False, kv_int8: bool = False,
+                 lookup_decode: bool = False, device="cuda", tokenizer=None):
+        import torch
+
+        from rlaifv_tpu_torch.data.image_processing import ClipImageProcessor
+        from rlaifv_tpu_torch.genai.engine import DecodeEngine
+        from rlaifv_tpu_torch.models.convert import (
+            llava_config_from_hf,
+            load_jax_params,
+            load_pretrained_llava,
+        )
+        from rlaifv_tpu_torch.models.llava import LlavaForCausalLM
+
+        if load_4bit:
+            raise NotImplementedError(
+                "--load-4bit (int4 serving with models/quant_smooth.py) " + _NOT_PORTED + "#11")
+        if lookup_decode:
+            raise NotImplementedError(
+                "--lookup-decode (genai/lookup_decode.py) " + _NOT_PORTED + "#11")
+        dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+        dt = dict(dtype=dtype, param_dtype=dtype)
+        llm = dict(dt, **({"quantize": True} if load_8bit else {}),
+                   **({"kv_cache_dtype": "int8"} if kv_int8 else {}))
+        cfg = llava_config_from_hf(model_base or model_path, llm=llm, vision=dt)
+        self.cfg = cfg
+        self.model = LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
+        # full / LoRA-over-base / projector-delta checkpoints, as the
+        # reference's loader reads them
+        load_jax_params(self.model, load_pretrained_llava(
+            model_path, model_base=model_base, vision_layers_to_run=cfg.vision.layers_to_run,
+            quantize_llm=load_8bit))
+        self.model.eval()
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            try:  # the slow tokenizer, for llama tokenization parity
+                tokenizer = AutoTokenizer.from_pretrained(model_path, use_fast=False)
+            except (ValueError, OSError):
+                tokenizer = AutoTokenizer.from_pretrained(model_path)
+        self.tokenizer = tokenizer
+        self.image_processor = ClipImageProcessor(image_size=cfg.vision.image_size)
+        self.engine = DecodeEngine(self.model, eos_id=tokenizer.eos_token_id,
+                                   pad_id=tokenizer.pad_token_id or 0)
+        self.max_new_tokens = max_new_tokens
+
+    def prompt(self, question: str) -> dict:
+        """The llava_v1 prompt of `question` with the image sentinel spliced
+        -> {"input_ids", "image_start"} (image slots expanded)."""
+        from rlaifv_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+        from rlaifv_tpu_torch.data import conversation as conversation_lib
+        from rlaifv_tpu_torch.data.multimodal import expand_image_sentinels, tokenizer_image_token
+
+        conv = conversation_lib.conv_templates["llava_v1"].copy()
+        conv.append_message(conv.roles[0], DEFAULT_IMAGE_TOKEN + "\n" + question)
+        conv.append_message(conv.roles[1], None)
+        ids = tokenizer_image_token(conv.get_prompt(), self.tokenizer)
+        return expand_image_sentinels(ids, None, self.cfg.num_image_tokens)
+
+    def chat(self, input: dict) -> str:
+        from rlaifv_tpu_torch.data.image_processing import decode_image
+
+        ex = self.prompt(input["question"])
+        # resize-only uint8, normalised on the device
+        image = self.image_processor.resize_uint8(decode_image(input["image"]))
+        # ref chat.py:169-178: do_sample=False, num_beams=3
+        res = self.engine.generate_beam(
+            [ex["input_ids"].tolist()], images=image[None],
+            image_starts=[int(ex["image_start"])], num_beams=3,
+            max_new_tokens=self.max_new_tokens)
+        out = res.tokens[0][:res.lengths[0]]
+        return self.tokenizer.decode(out, skip_special_tokens=True).strip()
+
+
+class RLAIFVChat:
+    """Pick the model family by path substring (ref chat.py:221-228)."""
+
+    def __init__(self, model_path: str, load_8bit: bool = False, load_4bit: bool = False,
+                 kv_int8: bool = False, lookup_decode: bool = False, device="cuda",
+                 max_new_tokens: int = 1024, tokenizer=None):
+        if "12B" in model_path:
+            raise NotImplementedError("the OmniLMM-12B family " + _NOT_PORTED + "#9")
+        if "minicpm" in model_path.lower():
+            raise NotImplementedError("the MiniCPM-V family " + _NOT_PORTED + "#10")
+        base = None
+        if "lora" in model_path.lower():
+            # ref chat.py:228: LoRA checkpoints load over the llava base
+            base = os.environ.get("RLAIFV_MODEL_BASE", "liuhaotian/llava-v1.5-7b")
+        self.model = RLAIFV7B(model_path, model_base=base, max_new_tokens=max_new_tokens,
+                              load_8bit=load_8bit, load_4bit=load_4bit, kv_int8=kv_int8,
+                              lookup_decode=lookup_decode, device=device, tokenizer=tokenizer)
+
+    def chat(self, input: dict) -> str:
+        return self.model.chat(input)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="single-image chat with the port")
+    ap.add_argument("--model-path", required=True)
+    ap.add_argument("--image", default="./examples/test.jpeg")
+    ap.add_argument("--question", default="Why did the car in the picture stop?")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 decode KV cache (half the cache memory)")
+    ap.add_argument("--load-8bit", action="store_true",
+                    help="weight-only int8 LLM projections")
+    ap.add_argument("--load-4bit", action="store_true",
+                    help="weight-only int4 LLM (not ported: ROADMAP #11)")
+    ap.add_argument("--lookup-decode", action="store_true",
+                    help="prompt-lookup greedy decoding (not ported: ROADMAP #11)")
+    ap.add_argument("--max-new-tokens", type=int, default=1024)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (the default; no visible card is an error) or cpu")
+    args = ap.parse_args(argv)
+
+    from rlaifv_tpu_torch.train.__main__ import resolve_device
+
+    device = resolve_device(args.device, "rlaifv_tpu_torch.chat")
+    chat_model = RLAIFVChat(args.model_path, load_8bit=args.load_8bit,
+                            load_4bit=args.load_4bit, kv_int8=args.kv_int8,
+                            lookup_decode=args.lookup_decode, device=device,
+                            max_new_tokens=args.max_new_tokens)
+    print(chat_model.chat({"image": args.image, "question": args.question}))
+
+
+if __name__ == "__main__":
+    main()

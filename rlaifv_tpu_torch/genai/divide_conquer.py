@@ -15,8 +15,9 @@ list[str]`), normally the port's DecodeEngine over a converted Llama3-8B
 hands the built model to `llama3_backend`, the part after the load, which
 tests and the card's smoke run call with a model they built themselves.
 
-Not ported: `continuous=True` (continuous batching, ROADMAP.md 'Modules to
-port' #6e) and `int4_smooth=True` (models/quant_smooth.py, #11) raise
+`continuous=True` generates through the engine's slot-refill
+`generate_continuous` (`slots` cache slots). Not ported: `int4_smooth=True`
+(models/quant_smooth.py, ROADMAP.md 'Modules to port' #11) raises
 NotImplementedError.
 """
 from __future__ import annotations
@@ -173,7 +174,9 @@ def llama3_backend(model, tokenizer, *, temperature: float = 0.2,
     int4: nibble-packed int4 weights instead. fused_decode additionally runs
     the whole GQA layer stack as one kernel launch per token (kernel #16;
     implies a quantised base: int8 unless int4). The engine consumes the
-    model's per-layer weights when it stacks them."""
+    model's per-layer weights when it stacks them. continuous: slot-refill
+    continuous batching over `slots` slots (genai/continuous.py) on any of
+    these engines."""
     from rlaifv_tpu_torch.genai.engine import DecodeEngine
     from rlaifv_tpu_torch.genai.sampling import SamplingParams
     from rlaifv_tpu_torch.models.convert import (
@@ -183,10 +186,6 @@ def llama3_backend(model, tokenizer, *, temperature: float = 0.2,
         set_llm_config,
     )
 
-    if continuous:
-        raise NotImplementedError(
-            "continuous batching is not ported to rlaifv_tpu_torch yet: "
-            "ROADMAP.md 'Modules to port' #6e")
     int8 = int8 or (fused_decode and not int4)
     if int4 and int4_smooth:
         raise NotImplementedError(
@@ -212,9 +211,13 @@ def llama3_backend(model, tokenizer, *, temperature: float = 0.2,
 
     def generate_fn(prompts: List[str]) -> List[str]:
         token_prompts = [tokenizer(p).input_ids for p in prompts]
-        res = engine.generate(
-            token_prompts, sampling=sp, max_new_tokens=max_new_tokens
-        )
+        if continuous:
+            # fact lists vary a lot in length: slot refill keeps every cache
+            # slot busy instead of waiting on the batch's longest row
+            res = engine.generate_continuous(token_prompts, sampling=sp,
+                                             max_new_tokens=max_new_tokens, slots=slots)
+        else:
+            res = engine.generate(token_prompts, sampling=sp, max_new_tokens=max_new_tokens)
         return [
             tokenizer.decode(res.tokens[i][: res.lengths[i]],
                              skip_special_tokens=True)

@@ -21,6 +21,9 @@ as the divide-and-conquer stage's Llama3-8B:
 - `generate_beam` prefills at B rows straight into a cache of B * K rows
   and runs genai/beam.py's eager beam loop (one sync a step, the cache
   rows reordered by the chosen parents);
+- `generate_many` runs length-sorted batches through `generate`;
+  `generate_continuous` runs genai/continuous.py's slot-refill continuous
+  batching (one sync a chunk of decode steps), on every engine kind;
 - shared-prefix scoring prefills the prefix once into a cache of exactly
   P columns (square, so the flash kernel serves it) and runs the suffixes
   in buckets of 32 over a copy of that cache;
@@ -67,6 +70,7 @@ from rlaifv_tpu_torch.ops.fused_decode import (
     stack_llama_params,
     stacked_prefill_tower,
 )
+from rlaifv_tpu_torch.utils.device import to_device
 
 
 def left_pad_batch(seqs, pad_id: int, length: Optional[int] = None):
@@ -166,7 +170,7 @@ class DecodeEngine:
         (encode_images); float pixels are cast by the vision tower."""
         if images is None:
             return None
-        return torch.from_numpy(np.asarray(images)).to(self.device)
+        return to_device(np.asarray(images), self.device)
 
     def _need_per_layer(self, name: str) -> None:
         if self.fused_decode:
@@ -349,6 +353,63 @@ class DecodeEngine:
                               ids.expand(n, -1), mask.expand(n, -1), sampling,
                               max_new_tokens, seed)
         return self._finish(tokens, first.expand(n, -1))
+
+    @torch.inference_mode()
+    def generate_many(self, prompts, *, images=None, image_starts=None,
+                      batch_size: int = 8,
+                      sampling: SamplingParams = SamplingParams.greedy(),
+                      max_new_tokens: int = 512, seed: int = 0,
+                      prompt_bucket: int = 64) -> GenerateResult:
+        """Queue-mode generation: the prompts sorted by length, so each
+        batch shares a tight padding bucket and its rows tend to finish
+        together, then `generate` batch by batch (seed + the batch's start);
+        rows come back in the caller's order."""
+        order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+        tokens = [None] * len(prompts)
+        lengths = np.zeros(len(prompts), np.int64)
+        first_logits = [None] * len(prompts)
+        for start in range(0, len(order), batch_size):
+            idx = order[start:start + batch_size]
+            res = self.generate(
+                [prompts[i] for i in idx],
+                images=np.asarray(images)[idx] if images is not None else None,
+                image_starts=([image_starts[i] for i in idx]
+                              if image_starts is not None else None),
+                sampling=sampling, max_new_tokens=max_new_tokens, seed=seed + start,
+                prompt_bucket=prompt_bucket)
+            for row, i in enumerate(idx):
+                tokens[i] = res.tokens[row]
+                lengths[i] = res.lengths[row]
+                first_logits[i] = res.first_logits[row]
+        out = np.full((len(prompts), max(t.shape[0] for t in tokens)), self.pad_id,
+                      tokens[0].dtype)
+        for i, t in enumerate(tokens):
+            out[i, :t.shape[0]] = t
+        return GenerateResult(out, lengths, np.stack(first_logits))
+
+    @torch.inference_mode()
+    def generate_continuous(self, prompts, *, images=None, image_starts=None,
+                            span_features=None, span_starts=None, slots: int = 8,
+                            sampling: SamplingParams = SamplingParams.greedy(),
+                            max_new_tokens: int = 512, seed: int = 0, chunk: int = 32,
+                            prompt_bucket: int = 64, collect_first_logits: bool = False,
+                            max_new_per_prompt=None, share_keys=None) -> GenerateResult:
+        """Slot-refill continuous batching (genai/continuous.py): a finished
+        row's slot takes the next prompt of the queue at once instead of
+        waiting for its batch's slowest row. Greedy tokens equal generate's.
+        share_keys (one hashable per prompt, equal key == identical prompt
+        and image) lets the refills of repeat-expanded prompts share one
+        prefill and vision encode per distinct key."""
+        from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator
+
+        gen = ContinuousGenerator(self, slots=slots, chunk=chunk,
+                                  max_new_tokens=max_new_tokens, sampling=sampling,
+                                  prompt_bucket=prompt_bucket)
+        return gen.run(
+            prompts, images=np.asarray(images) if images is not None else None,
+            image_starts=image_starts, span_features=span_features,
+            span_starts=span_starts, seed=seed, collect_first_logits=collect_first_logits,
+            max_new_per_prompt=max_new_per_prompt, share_keys=share_keys)
 
     @torch.inference_mode()
     def generate_beam(self, prompts, *, images=None, image_starts=None,

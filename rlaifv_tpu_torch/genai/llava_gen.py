@@ -21,8 +21,10 @@ through the fused engine (kernel #16 on every decode step): diverse_gen
 then skips `share_repeats` and autocheck the shared prefix, and both take
 the batch `generate` path, as in the JAX package (the fused engine has no
 per-layer weights for `generate_repeated` or `score_shared_prefix`); beam
-search raises there. Not carried yet: continuous batching (ROADMAP.md
-'Modules to port' #6e).
+search raises there. `continuous=True` runs diverse_gen (with `share_keys`
+from the repeat groups) and one-beam greedy_gen through the engine's
+slot-refill `generate_continuous` (genai/continuous.py), `batch_size`
+slots, on every engine kind.
 """
 from __future__ import annotations
 
@@ -42,8 +44,6 @@ from rlaifv_tpu_torch.data.multimodal import expand_image_sentinels, tokenizer_i
 from rlaifv_tpu_torch.genai.engine import DecodeEngine, group_consecutive
 from rlaifv_tpu_torch.genai.sampling import SamplingParams
 from rlaifv_tpu_torch.utils.file_io import write_jsonlines
-
-_NOT_PORTED = "is not ported to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #6e"
 
 
 def wrap_question_for_llava15(question: str, tokenizer,
@@ -131,10 +131,23 @@ class Llava15Generator:
                     share_repeats: bool = True) -> List[dict]:
         """Sampled answers. share_repeats: runs of identical
         (question, image) items - the repeat_time expansion - take ONE
-        prefill and vision encode each through generate_repeated."""
-        if continuous:
-            raise NotImplementedError(f"continuous batching {_NOT_PORTED}")
+        prefill and vision encode each through generate_repeated.
+        continuous: slot-refill continuous batching over all the items
+        (`batch_size` slots), share_repeats then naming the repeat groups as
+        share_keys: one prefill and vision encode a group and refill wave."""
         sp = SamplingParams(temperature=temperature, do_sample=True)
+        if continuous:
+            prompts, starts, images = self._prepare(items)
+            share_keys = None
+            if share_repeats:
+                share_keys = [None] * len(items)
+                for g, idxs in enumerate(group_consecutive(items, with_question=True)):
+                    for i in idxs:
+                        share_keys[i] = g
+            res = self.engine.generate_continuous(
+                prompts, images=images, image_starts=starts, slots=batch_size, sampling=sp,
+                max_new_tokens=max_new_tokens, seed=seed, share_keys=share_keys)
+            return self._answer_rows(items, res)
         out: List[dict] = [None] * len(items)
         singles = list(range(len(items)))
         if share_repeats and not self.engine.fused_decode:
@@ -170,9 +183,14 @@ class Llava15Generator:
                    continuous: bool = False) -> List[dict]:
         """Deterministic benchmark decoding: greedy at num_beams=1, the
         KV-cached beam search above (the eval scripts pass 3 beams). As in
-        the JAX package, `continuous` applies to greedy decoding only."""
+        the JAX package, `continuous` (slot-refill continuous batching,
+        `batch_size` slots) applies to greedy decoding only."""
         if continuous and num_beams == 1:
-            raise NotImplementedError(f"continuous batching {_NOT_PORTED}")
+            prompts, starts, images = self._prepare(items)
+            res = self.engine.generate_continuous(
+                prompts, images=images, image_starts=starts, slots=batch_size,
+                sampling=SamplingParams.greedy(), max_new_tokens=max_new_tokens)
+            return self._answer_rows(items, res)
         out = []
         for i in range(0, len(items), batch_size):
             chunk = items[i:i + batch_size]

@@ -2,7 +2,8 @@
 
 Counterpart of rlaifv_tpu/genai/sampling.py with the same presets and
 transforms (temperature, top-k, top-p as sort + mask, HF repetition
-penalty). Draws use an explicit `torch.Generator`; JAX and torch give
+penalty). Draws use an explicit `torch.Generator` and read nothing back to
+the host (`sample_token`); JAX and torch give
 different random bits for one seed, so the two packages agree on the
 filtered distribution (`filtered_logits`), not on sampled tokens.
 """
@@ -79,7 +80,12 @@ def filtered_logits(logits: torch.Tensor, params: SamplingParams) -> torch.Tenso
 def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
                  params: SamplingParams,
                  token_seen: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, V) logits -> (B,) next token ids (int64)."""
+    """(B, V) logits -> (B,) next token ids (int64).
+
+    The sampled draw does not check its input as torch.multinomial does: a
+    row whose probabilities hold NaN, inf or a negative value gives some
+    token instead of raising. Callers keep their logits finite (the
+    continuous chunk zeroes the logits of finished and empty slots)."""
     logits = logits.float()
     if token_seen is not None:
         logits = apply_repetition_penalty(logits, token_seen,
@@ -87,7 +93,11 @@ def sample_token(generator: Optional[torch.Generator], logits: torch.Tensor,
     if not params.do_sample:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(filtered_logits(logits, params), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # torch.multinomial(probs, 1)'s own draw, an exponential race (argmax of
+    # p / E, E ~ Exp(1)), without its input checks, which read the device
+    # twice a call: the continuous chunk then needs no host sync a step
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1)
 
 
 def yesno_probs(logits: torch.Tensor, yes_ids, no_ids) -> dict:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,6 +23,7 @@ from rlaifv_tpu_torch.models.llama import (
     llama_init_cache,
 )
 from rlaifv_tpu_torch.models.projector import VisionProjector
+from rlaifv_tpu_torch.utils.device import to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +104,8 @@ class LlavaForCausalLM(nn.Module):
         normalised) are normalised here in fp32, like the host processor."""
         v = self.cfg.vision
         if images.dtype == torch.uint8:
-            mean = torch.tensor(v.image_mean, dtype=torch.float32, device=images.device)
-            std = torch.tensor(v.image_std, dtype=torch.float32, device=images.device)
+            mean, std = (to_device(np.asarray(x, np.float32), images.device)
+                         for x in (v.image_mean, v.image_std))
             images = ((images.float() / 255.0 - mean) / std).to(v.dtype)
         return self.mm_projector(self.vision_tower(images))
 

@@ -36,7 +36,11 @@ and slices the int8 qkv and gate/up contractions by
 
 `stacked_prefill_tower` is the write-through prefill over the stacked
 weights: the per-layer products (QuantDense's), attention and rope of the
-model, each layer's int8 k/v written straight into the stacked cache.
+model, each layer's int8 k/v written straight into the stacked cache, at a
+column offset and, for continuous batching (genai/continuous.py), into the
+slots `slot_ids` of the batch (`write_prefill_window`). `compact_stacked`
+rolls the cache's columns left one layer at a time (continuous batching's
+compaction).
 
 Deliberate differences from the JAX module:
 - no `sdown` banding: the int4 down scales stay (n_layers, Ip/G, D); the
@@ -46,18 +50,22 @@ Deliberate differences from the JAX module:
   place: `stack_llama_params` copies one weight kind at a time into its
   stacked tensor and frees each layer's buffer as it goes (always the JAX
   `consume=True` donation), so the two layouts of a weight never coexist
-  beyond one stacked array;
-- `compact_stacked` (continuous batching) is not ported.
+  beyond one stacked array; so is `compact_stacked`, through one
+  layer-sized temporary (the JAX function rolls each layer into a new
+  slice).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rlaifv_tpu_torch.ops.int4_matmul import int4_product_plain, pick_int4_group, unpack_int4
 from rlaifv_tpu_torch.ops.quant_matmul import _int_product, int8_matmul_prequant_plain, quantize_rows
+from rlaifv_tpu_torch.utils.device import to_device
 
 NEG_INF = -1e30
 
@@ -276,13 +284,53 @@ def unstack_cache(stacked: dict) -> list:
             for i in range(stacked["k"].shape[0])]
 
 
-def write_prefill_window(scache: dict, i: int, mini: dict) -> dict:
-    """Write layer i's prefill window cache (model layout (B, Lp, KVH[, Dh]))
-    into the stacked cache at columns [0, Lp), in place."""
+def write_prefill_window(scache: dict, i: int, mini: dict, col_start: int = 0,
+                         slot_ids=None, n_slots: int = 0) -> dict:
+    """Write layer i's prefill window cache (model layout (R, Lp, KVH[, Dh]))
+    into the stacked cache at columns [col_start, col_start + Lp), in place.
+
+    slot_ids None: the window's rows are the batch's rows (R == B).
+    Otherwise row r goes to slot slot_ids[r] of the n_slots-row batch, and
+    rows whose id is n_slots or more are dropped (continuous batching's
+    padding rows); slot_ids is a host sequence of ints."""
+    return _write_window(scache, i, mini, col_start,
+                         _slot_rows(slot_ids, n_slots, scache["k"].device))
+
+
+def _slot_rows(slot_ids, n_slots: int, device):
+    """The window rows kept and their slots, as two device indices (built
+    once for all layers, uploaded without a host sync), or None for the
+    identity (slot_ids None); rows with an id >= n_slots are dropped."""
+    if slot_ids is None:
+        return None
+    keep = [(r, int(s)) for r, s in enumerate(slot_ids) if 0 <= int(s) < n_slots]
+    return to_device(np.asarray(keep, np.int64).reshape(-1, 2).T, device)
+
+
+def _write_window(scache: dict, i: int, mini: dict, col_start: int, rows_slots) -> dict:
+    """write_prefill_window with the slot indices of _slot_rows."""
+    if rows_slots is not None and rows_slots.shape[1] == 0:
+        return scache
     for key, sub in mini.items():
         glob = scache[key]
-        sub = sub.transpose(0, 2).transpose(1, 2).to(glob.dtype)  # (KVH, B, Lp[, Dh])
-        glob[i, :, :, :sub.shape[2]] = sub
+        sub = sub.transpose(0, 2).transpose(1, 2).to(glob.dtype)  # (KVH, R, Lp[, Dh])
+        cols = slice(col_start, col_start + sub.shape[2])
+        if rows_slots is None:
+            glob[i, :, :, cols] = sub
+        else:
+            glob[i, :, :, cols].index_copy_(1, rows_slots[1],
+                                            sub.index_select(1, rows_slots[0]))
+    return scache
+
+
+def compact_stacked(scache: dict, shift: int) -> dict:
+    """Roll every layer's cache columns left by `shift` (continuous
+    batching's compaction), in place, one layer at a time through one
+    layer-sized temporary: a roll of the whole stacked cache would need a
+    second cache."""
+    for a in scache.values():
+        for layer in a:
+            layer.copy_(torch.roll(layer, -int(shift), dims=2))
     return scache
 
 
@@ -306,15 +354,18 @@ def _rms_like_model(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.T
 
 
 def stacked_prefill_tower(stacked: dict, scache: dict, embeds: torch.Tensor,
-                          mask: torch.Tensor, pos: torch.Tensor, cfg):
+                          mask: torch.Tensor, pos: torch.Tensor, cfg, col_start: int = 0,
+                          slot_ids=None, n_slots: int = 0):
     """A prompt window (R, Lp) through the whole layer stack on the stacked
     weights, each layer's int8 k/v written into the stacked cache at columns
-    [0, Lp) (the write-through prefill). The products
+    [col_start, col_start + Lp) (the write-through prefill), of slots
+    `slot_ids` of an n_slots-row cache if given (`write_prefill_window`;
+    ids >= n_slots drop). The products
     are QuantDense's (`quant_product`: the int8/int4 kernels on the card),
-    attention the model's (`multi_head_attention`: flash at Lq >= 128 on the
-    card), and the zero-padded MLP columns are exact, so this equals the
-    per-layer prefill. -> (final hidden states (R, Lp, D) before ln_f,
-    scache)."""
+    attention the model's over the fresh window (`multi_head_attention`:
+    flash at Lq >= 128 on the card), and the zero-padded MLP columns are
+    exact, so this equals the per-layer prefill. -> (final hidden states
+    (R, Lp, D) before ln_f, scache)."""
     from rlaifv_tpu_torch.models.llama import apply_rope, quant_product, rope_cos_sin
     from rlaifv_tpu_torch.ops.attention import multi_head_attention
     from rlaifv_tpu_torch.ops.decode_attention import quantize_kv
@@ -328,6 +379,7 @@ def stacked_prefill_tower(stacked: dict, scache: dict, embeds: torch.Tensor,
     def mm(x, w, s):  # int8 stacked scales carry a leading 1
         return quant_product(x.to(cfg.dtype), w, s if bits == 4 else s[0], bits)
 
+    rows_slots = _slot_rows(slot_ids, n_slots, scache["k"].device)
     x = embeds
     for i in range(cfg.num_layers):
         xn = _rms_like_model(x, stacked["ln"][i, 0], cfg.rms_norm_eps)
@@ -345,7 +397,8 @@ def stacked_prefill_tower(stacked: dict, scache: dict, embeds: torch.Tensor,
         gu = mm(xn2, stacked["wgu"][i], stacked["sgu"][i])
         act = F.silu(gu[..., :Ip]) * gu[..., Ip:]
         x = x + mm(act, stacked["wdown"][i], stacked["sdown"][i])
-        write_prefill_window(scache, i, {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs})
+        _write_window(scache, i, {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs},
+                      col_start, rows_slots)
     return x, scache
 
 

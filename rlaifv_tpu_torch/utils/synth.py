@@ -69,3 +69,35 @@ def quotient_ties(M: int, N: int, J: int = 1, *, seed: int = 0):
     dy = np.where(kind[None] == 3, gauss, half).astype(np.float32)
     dy[:, 0] = 1
     return dy, gs.astype(np.float32)
+
+
+def continuous_mask(B: int, L: int, gt: int, *, seed: int = 0, shift: int = 0,
+                    empty=(1,)) -> np.ndarray:
+    """A (B, L) int32 cache mask as continuous batching (genai/continuous.py)
+    leaves it at a decode step writing column gt: an active row's live window
+    starts anywhere and ends at gt (the fresh column included), a finished
+    row's window ends before gt (its column gt masked), the rows `empty`
+    are masked everywhere (slots never filled); with `shift`, the windows
+    were laid out at write column gt + shift and rolled left by `shift`, as
+    a compaction rolls them, the columns from gt on cleared. Every third
+    row from row 0 is finished; the decode kernels read valid_len gt + 1."""
+    rng = np.random.default_rng(seed)
+    top = gt + shift
+    if not (0 < gt and top < L):
+        raise ValueError(f"continuous_mask: need 0 < gt and gt + shift < L; got {gt}, {shift}")
+    mask = np.zeros((B, L), np.int32)
+    active = []
+    for b in range(B):
+        if b in empty:
+            continue
+        stop = top
+        if b % 3 == 0:
+            stop = top - int(rng.integers(1, max(2, top // 4)))
+        else:
+            active.append(b)
+        mask[b, stop - int(rng.integers(1, stop + 1)):stop] = 1
+    if shift:
+        mask = np.roll(mask, -shift, axis=1)
+        mask[:, gt:] = 0
+    mask[active, gt] = 1
+    return mask

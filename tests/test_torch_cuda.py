@@ -1442,3 +1442,147 @@ def test_tiny_bare_llama_backend_runs_its_kernels(gen, fused):
         assert d == [3, 0, 0, 0, 0], d
     else:
         assert d[0] == 0 and d[1] == 3 * cfg.num_layers and d[2:] == [0, 0, 0], d
+
+
+def _continuous_masks(B, L, gt, seed):
+    """continuous batching's masks (utils/synth.py): windows ending at gt
+    with different starts, finished rows, an empty slot (row 1), and the
+    same rolled by a compaction."""
+    from rlaifv_tpu_torch.utils.synth import continuous_mask
+
+    return [torch.from_numpy(continuous_mask(B, L, gt, seed=seed, shift=s)).cuda()
+            for s in (0, L - 1 - gt)]
+
+
+@pytest.mark.parametrize("B,L,H,KVH,gt", [(8, 896, 32, 32, 700), (8, 2304, 32, 8, 2000),
+                                          (4, 640, 8, 8, 37)])
+def test_prefix_kernels_at_continuous_batching_masks(gen, B, L, H, KVH, gt):
+    """Kernels #4 and #5 at the masks continuous batching gives them: #4
+    within the bf16 bound of its plain version and its split twin at the
+    card's plan, #5 within 2^-7 max|twin| of its split twin; the empty slot
+    exactly 0."""
+    from rlaifv_tpu_torch.ops import decode_attention as da
+    from rlaifv_tpu_torch.ops.quant_matmul import _sms
+
+    valid = gt + 1
+    for mask in _continuous_masks(B, L, gt, seed=B):
+        q, k, v = _randn(gen, B, H, 128), _randn(gen, B, L, KVH, 128), _randn(gen, B, L, KVH, 128)
+        k[:, valid:] = float("nan")
+        v[:, valid:] = float("nan")
+        out = decode_attention_prefix(q, k, v, mask, valid)
+        _close(out, decode_attention_prefix_ref(q, k, v, mask, valid))
+        splits = da.prefix_plan(B, KVH, valid, _sms(0), H // KVH)
+        _close(out, da.decode_attention_prefix_split_ref(q, k, v, mask, valid, splits))
+        assert (out[1] == 0).all()
+        args = list(_int8_cache(gen, B, L, H, KVH, 128, valid))
+        args[5] = mask
+        splits = da.prefix_int8_plan(B, KVH, -(-valid // da.prefix_block_l(L)), _sms(0),
+                                     H // KVH)
+        out = decode_attention_prefix_int8(*args, valid)
+        ref = da.decode_attention_prefix_int8_split_ref(*args, valid, splits)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+        assert (out[1] == 0).all()
+
+
+@pytest.mark.parametrize("B,ci", [(4, 200), (8, 300)])
+def test_fused_decode_kernel_at_continuous_batching_masks(gen, B, ci):
+    """Kernel #16 at continuous batching's masks (an empty slot sees only
+    its fresh column) within the flip bounds of its twin at its plan."""
+    from rlaifv_tpu_torch.ops import fused_decode as fd
+
+    stacked, cache, x, _, _, _, d = _fused_case(gen, 8, 512, 4, 1, 4096, 384, B, ci)
+    for mask in _continuous_masks(B, 384, ci, seed=ci):
+        pos = mask.sum(dim=1) - 1
+        out = fd.fused_decode_step(stacked, cache, x, mask, pos, ci, d)
+        plan = fd.fused_plan(d, B, ci, device="cuda")
+        ref = fd.fused_decode_step_ref(stacked, cache, x, mask, pos, ci, d,
+                                       attn_splits=plan.attn_splits)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[0]).all()
+        assert not _fused_broken(out, ref), (plan, _fused_broken(out, ref))
+
+
+def test_sampler_draws_as_multinomial_on_the_card(gen):
+    """genai/sampling.py's exponential race is torch.multinomial's one-sample
+    draw on the same generator state, and reads nothing back to the host."""
+    import warnings
+
+    from rlaifv_tpu_torch.genai.sampling import SamplingParams, sample_token
+
+    logits = torch.randn(8, 32000, generator=gen, device="cuda") * 3
+    sp = SamplingParams.diverse_gen()
+    probs = torch.softmax(logits / sp.temperature, dim=-1)
+    for seed in range(3):
+        want = torch.multinomial(probs, 1, generator=torch.Generator(
+            device="cuda").manual_seed(seed))[:, 0]
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = sample_token(g, logits, sp)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert not [w for w in caught if "called a synchronizing" in str(w.message)]
+        assert torch.equal(got, want)
+
+
+def test_tiny_continuous_engine_runs_its_kernels(gen):
+    """A bf16 tiny LLaVA (head dim 128) on the card through a
+    ContinuousGenerator with a compaction: #1 once a layer a refill prefill,
+    #4 once a layer a decode step; one host sync a chunk, and over the
+    whole run (refills included) no other but the first-logit read that
+    collect_first_logits asks of each refill prefill; the first logits
+    within 5e-2 of max|logit| of generate's (phase 5's bound)."""
+    import warnings
+
+    import numpy as np
+
+    from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator
+    from rlaifv_tpu_torch.genai.engine import DecodeEngine
+    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
+
+    cfg = LlavaConfig.tiny(hidden_size=256, num_heads=2, num_kv_heads=2,
+                           dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = init_weights_(LlavaForCausalLM(cfg, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(0)).eval()
+    eng = DecodeEngine(model, eos_id=-1)
+    S = cfg.vision.image_size
+    images = np.random.default_rng(0).integers(0, 255, (5, S, S, 3), dtype=np.uint8)
+    prompts = [list(range(3, 3 + n)) for n in (150, 140, 130, 145, 135)]
+    kw = dict(images=images, image_starts=[0] * 5, max_new_tokens=40)
+    cont = ContinuousGenerator(eng, slots=2, chunk=8, max_new_tokens=40, headroom=8)
+    chunk, caught, syncs = ContinuousGenerator._chunk, [], []
+
+    def n_syncs(ws):
+        return sum("called a synchronizing" in str(w.message) for w in ws)
+
+    def counted(self, *a):
+        n0 = len(caught)
+        out = chunk(self, *a)
+        syncs.append(n_syncs(caught[n0:]))
+        return out
+
+    n = (flash_attention.launches, decode_attention_prefix.launches)
+    ContinuousGenerator._chunk = counted
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = cont.run(prompts, images=images, image_starts=[0] * 5,
+                               collect_first_logits=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        ContinuousGenerator._chunk = chunk
+    st = cont.stats
+    assert st["compactions"] >= 1 and syncs == [1] * st["chunks"], (st, syncs)
+    assert n_syncs(caught) == st["chunks"] + st["prefills"], (st, n_syncs(caught))
+    assert flash_attention.launches - n[0] == cfg.llm.num_layers * st["prefills"]
+    assert decode_attention_prefix.launches - n[1] == cfg.llm.num_layers * st["steps"]
+    want = eng.generate(prompts, **kw)
+    top = np.abs(want.first_logits).max()
+    np.testing.assert_allclose(got.first_logits, want.first_logits, rtol=0, atol=5e-2 * top)

@@ -22,7 +22,8 @@ JAX package's, on the CPU.
 - The fused q/k/v projection at the Llama3 widths (q 4096, k 1024, v 1024)
   splits into the separate products, float and int8 (atol 1e-5: fp32
   products over K = 4096 that the CPU may block differently).
-- `continuous=True` and `int4_smooth=True` raise NotImplementedError.
+- `int4_smooth=True` raises NotImplementedError; `continuous=True` runs
+  (tests/test_torch_chat.py holds its tokens to `generate`'s).
 """
 import copy
 import json
@@ -271,10 +272,12 @@ def test_llama3_backend_int8_matches_jax(fused):
                                                              add_generation_prompt=True)
 
 
-def test_llama3_backend_generate_fn_and_unported_options():
+def test_llama3_backend_generate_fn_and_unported_options(monkeypatch):
     """generate_fn samples each prompt (the reference's T 0.2 / top-p 0.9)
-    and decodes the row's tokens up to <|eot_id|> with the tokenizer; the two
-    unported options raise NotImplementedError citing their ROADMAP items."""
+    and decodes the row's tokens up to <|eot_id|> with the tokenizer; the
+    unported option raises NotImplementedError citing its ROADMAP item;
+    continuous=True (ported) builds a backend whose generate_fn goes
+    through generate_continuous."""
     params = _jax_params()
 
     def build():
@@ -290,8 +293,13 @@ def test_llama3_backend_generate_fn_and_unported_options():
     (kw,) = calls
     assert (kw["sampling"].temperature, kw["sampling"].top_p, kw["max_new_tokens"]) == (0.2, 0.9, 5)
     assert len(out) == 2 and all(isinstance(s, str) and len(s) <= 5 for s in out)
-    with pytest.raises(NotImplementedError, match="#6e"):
-        tdc.llama3_backend(build(), tok, continuous=True)
+    from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator
+
+    runs, run = [], ContinuousGenerator.run
+    monkeypatch.setattr(ContinuousGenerator, "run",
+                        lambda self, *a, **kw: runs.append(self) or run(self, *a, **kw))
+    cgen, _ = tdc.llama3_backend(build(), tok, continuous=True, slots=2, max_new_tokens=3)
+    assert len(cgen(prompts)) == 2 and [g.B for g in runs] == [2]
     with pytest.raises(NotImplementedError, match="#11"):
         tdc.llama3_backend(build(), tok, int4=True, int4_smooth=True)
 

@@ -175,12 +175,16 @@ def test_run_writes_rank_shards(gens, tmp_path, is_yesno):
 
 
 def test_unported_modes_raise(gens):
+    """Continuous batching is ported (tests/test_torch_continuous.py); its
+    MiniCPM-V span-feature mode still raises, citing #10."""
     cfg, _, tgen = gens
     items = _items(cfg, 1)
-    with pytest.raises(NotImplementedError, match="#6"):
-        tgen.greedy_gen(items, continuous=True)
-    with pytest.raises(NotImplementedError, match="#6"):
-        tgen.diverse_gen(items, continuous=True)
+    assert len(tgen.greedy_gen(items, continuous=True, max_new_tokens=2)) == 1
+    assert len(tgen.diverse_gen(items, continuous=True, max_new_tokens=2)) == 1
+    prompts, starts, _ = tgen._prepare(items)
+    with pytest.raises(NotImplementedError, match="#10"):
+        tgen.engine.generate_continuous(prompts, span_features=np.zeros((1, 1, 2, 8)),
+                                        span_starts=[[int(starts[0])]])
     # fused decode is ported; a bf16 model is refused with the JAX message
     with pytest.raises(ValueError, match="fused_decode requires quantize"):
         Llava15Generator(tgen.model, tgen.tokenizer, tgen.num_patches,

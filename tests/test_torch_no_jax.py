@@ -5,7 +5,8 @@ A subprocess blocks `jax`, `jaxlib`, `flax`, `optax`, `orbax`, `triton` and
 the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
-cache (greedy, and 3 beams through evals.vqa), then in place int8 weights
+cache (greedy, continuous diverse_gen, and 3 beams through evals.vqa),
+then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
 divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.train --demo
@@ -48,7 +49,8 @@ SCRIPT = textwrap.dedent("""
     assert "rlaifv_tpu_torch.ops.int4_matmul" in mods
     for name in ("genai.beam", "evals.vqa", "evals.run_eval", "evals.object_halbench",
                  "evals.mmhal", "evals.refomb", "evals.report", "evals.summaries",
-                 "evals.text_utils", "evals.gpt_client", "iteration"):
+                 "evals.text_utils", "evals.gpt_client", "iteration", "genai.continuous",
+                 "chat"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -79,6 +81,14 @@ SCRIPT = textwrap.dedent("""
     assert len(rows) == 2 and all(isinstance(r["answer"], str) for r in rows)
     rows = gen.greedy_gen(items[:2], max_new_tokens=3)
     assert len(rows) == 2
+    # slot-refill continuous batching (genai/continuous.py)
+    from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator
+    runs, run = [], ContinuousGenerator.run
+    ContinuousGenerator.run = lambda self, *a, **kw: runs.append(self) or run(self, *a, **kw)
+    rows = gen.diverse_gen(items[:1] * 3 + items[1:], max_new_tokens=3, batch_size=2,
+                           continuous=True)
+    ContinuousGenerator.run = run
+    assert len(rows) == 5 and runs[0].stats["chunks"] >= 3
     # the eval slice: 3 beams through evals.vqa, judged by run_eval offline
     from rlaifv_tpu_torch.evals.vqa import generate_answers
     answers = generate_answers(gen, items, max_new_tokens=3, num_beams=3)
@@ -99,6 +109,7 @@ SCRIPT = textwrap.dedent("""
     fused = Llava15Generator(model, FakeTokenizer(), cfg.num_image_tokens,
                              image_size=cfg.vision.image_size, fused_decode=True)
     assert len(fused.greedy_gen(items[:2], max_new_tokens=3)) == 2
+    assert len(fused.greedy_gen(items, max_new_tokens=3, batch_size=2, continuous=True)) == 3
 
     # the divide-and-conquer stage: a tiny Llama3-shaped bare LM through
     # llama3_backend, bf16 weights and fused decode (int8 implied)
