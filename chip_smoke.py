@@ -139,7 +139,11 @@ Phases, one progress line each (or a few):
      prefill rows (M = 10, 24, 832, 3328, 21504): max abs
      difference 0, #7 == #9 and #8 == #10; also at Llama3-8B's widths
      (4096 x 6144, 4096 x 28672, 14336 x 4096) and phase 13's decode and
-     prefill rows (M = 8, 64, 128, 8 x its divide prompt bucket);
+     prefill rows (M = 8, 64, 128, 8 x its divide prompt bucket), and at
+     EVA02-enormous's quantised projections (1792 x 5376, 1792 x 15360,
+     15360 x 1792; M = 1025 and 8200, phase 16's rows), then QuantDense
+     with its bias at those shapes against the twin plus the bias, its
+     whole call timed;
      times beside the bound (int8 at
      1,979 TOP/s or the bytes), torch._int_mm on the same int8 operands
      (product only; on the rows zero-padded to 32 where it refuses 16 or
@@ -181,7 +185,8 @@ Phases, one progress line each (or a few):
   3e. (run after 3d) the int4 weight kernels (#11 forward on rows quantised
      in torch, #12 its dx) against their plain twins at the same widths and
      M = 16, 64, 127, 128 and phase 10's prefix and suffix rows, and at
-     3d's Llama3-8B widths and rows: max abs
+     3d's Llama3-8B and EVA02 widths and rows (QuantDense with its bias at
+     the EVA02 shapes, as in 3d): max abs
      difference 0 (#12 also at N = 11008, which the dispatch sends to the
      dequant dx); times beside the int8 bound, torch._int_mm on the
      unpacked int8 operands (product only, both weight layouts) and the
@@ -265,7 +270,28 @@ Phases, one progress line each (or a few):
      divide batch (#9 prefill, #7 decode rows, #5 every step, no #4), its
      route against attn_impl "dense" on a prefill and 4 forced steps, then
      stacked for fused decode (memory before and after; #16 once a decode
-     step, no #4 / #5 / #7) and each forced step's #16 against its twin;
+     step, no #4 / #5 / #7) and each forced step's #16 against its twin; its work directory stays for 16e;
+  16. (run after 13, with the 7B serving models freed) OmniLMM-12B, the
+     reference loop's labeler, at full width and depth with random weights
+     (seed 0; EVA02-enormous with 63 of its 64 blocks, the resampler's 64
+     queries, Mistral-7B's 32 layers; the head shaped to the fake
+     tokenizer's printable ids), 448 px images (the position tables
+     re-gridded bicubically): 16a bf16: the encode's ms an image, autocheck
+     of 2 images x 8 facts through the shared prefix and plain (yes/no
+     logits within phase 5's bound), diverse_gen 2 x 5 repeats
+     (generate_repeated) and 3-beam chat decoding (chat_12b sampling), 64
+     new tokens, #1 and #4 counted against the path's plan (each LLM pass's
+     attention route), the prefill and 4 forced steps against attn_impl
+     "dense"; 16e: pipeline.stage_autocheck on phase 13's yes/no questions
+     with that model, then stage_pairs and stage_length_balance; 16b: the
+     model quantised in place (both towers int8, head bf16, int8 KV cache):
+     autocheck at batch 8 (the JAX package's 12B headline geometry), one
+     generate, #9, #7, #5 and #1 against the plan, the prefill and 4 forced
+     steps against the dense route on a bf16 cache (phase 11's bounds);
+     16c: that model fused and served through the fused engine: #16 once a
+     step, no #4, #5 or #7, each forced step's #16 against its twin; 16d:
+     the seed-0 model rebuilt and quantised to int4 on both towers, one
+     autocheck batch, #11 against the plan; facts/s, tok/s, peak GiB;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -277,7 +303,8 @@ Phases, one progress line each (or a few):
 
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
-slice and headline, 13's pipeline and its int8 and fused batches, 8, 6,
+slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
+runs, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -321,8 +348,20 @@ from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import (DecodeEngine, GenerateResult, group_consecutive,  # noqa: E402
                                           left_pad_batch)
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
+from rlaifv_tpu_torch.genai.omni_gen import OmniLMMGenerator, omni_yesno_ids  # noqa: E402
 from rlaifv_tpu_torch.genai.sampling import SamplingParams  # noqa: E402
-from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig, LlamaForCausalLM  # noqa: E402
+from rlaifv_tpu_torch.models import llama as llama_mod  # noqa: E402
+from rlaifv_tpu_torch.models.llama import (  # noqa: E402
+    LlamaAttention,
+    LlamaConfig,
+    LlamaForCausalLM,
+    QuantDense,
+)
+from rlaifv_tpu_torch.models.omnilmm import (  # noqa: E402
+    OmniLMMConfig,
+    OmniLMMForCausalLM,
+    init_omnilmm_weights_,
+)
 from rlaifv_tpu_torch.models.llava import (  # noqa: E402
     LlavaConfig,
     LlavaForCausalLM,
@@ -334,9 +373,16 @@ from rlaifv_tpu_torch.models.convert import (  # noqa: E402
     quantize_kernel_int8_torch,
     quantize_llm_int4,
     quantize_llm_int8,
+    quantize_vision_int4,
+    quantize_vision_int8,
     set_llm_config,
 )
 from rlaifv_tpu_torch.ops import _build  # noqa: E402
+from rlaifv_tpu_torch.ops.attention import (  # noqa: E402
+    attention_route,
+    dense_attention,
+    kernel_domain,
+)
 from rlaifv_tpu_torch.ops import fused_decode as fd  # noqa: E402
 from rlaifv_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from rlaifv_tpu_torch.ops import quant_matmul as qm  # noqa: E402
@@ -3179,13 +3225,11 @@ def _stage_files(ans_dir: str) -> dict:
     return {n: read_jsonlines(os.path.join(ans_dir, n)) for n in sorted(os.listdir(ans_dir))}
 
 
-def phase_pipeline(fgen: Llava15Generator, tok) -> dict:
+def phase_pipeline(fgen: Llava15Generator, tok, work: str) -> dict:
     """13: run_pipeline end to end (phase 12's fused generator, the bf16
-    Llama3-8B backend), the same model quantised in place to int8 and then
-    stacked for fused decode on one divide batch, and the logit checks ->
-    the launches of its runs."""
-    import tempfile
-
+    Llama3-8B backend) in `work` (kept for phase 16e), the same model
+    quantised in place to int8 and then stacked for fused decode on one
+    divide batch, and the logit checks -> the launches of its runs."""
     shape_head_(fgen.model.llm.lm_head.weight, printable_ids(tok))
     log(f"[13 pipeline] phase 12's fused LLaVA generator serves as the generator and the "
         f"labeler; its head shaped the same way")
@@ -3193,23 +3237,22 @@ def phase_pipeline(fgen: Llava15Generator, tok) -> dict:
     bf16_fn, tmpl = dcq.llama3_backend(model, tok, max_new_tokens=PIPE_NEW_TOKENS)
     meter = BackendMeter(bf16_fn.engine)
     launches = {}
-    with tempfile.TemporaryDirectory() as work:
-        ques = os.path.join(work, "questions.jsonl")
-        image_path = str(ROOT / "examples" / "test.jpeg")
-        write_jsonlines(ques, [{"question": q, "image_path": image_path,
-                                "ds_question_id": f"q{i}",
-                                "metainfos": {"ds_question_id": f"q{i}"}}
-                               for i, q in enumerate(PIPE_QUESTIONS)])
-        ans_dir = os.path.join(work, "results")
-        reset_counts()
-        t0 = time.perf_counter()
-        out = pipe.run_pipeline(fgen, fgen, (bf16_fn, tmpl), (bf16_fn, tmpl), ques, ans_dir,
-                                repeat=PIPE_REPEAT, batch_size=PIPE_BATCH,
-                                max_tokens=PIPE_MAX_TOKENS, sample_num=2)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        add_counts(launches, read_counts())
-        files = _stage_files(ans_dir)
+    ques = os.path.join(work, "questions.jsonl")
+    image_path = str(ROOT / "examples" / "test.jpeg")
+    write_jsonlines(ques, [{"question": q, "image_path": image_path,
+                            "ds_question_id": f"q{i}",
+                            "metainfos": {"ds_question_id": f"q{i}"}}
+                           for i, q in enumerate(PIPE_QUESTIONS)])
+    ans_dir = os.path.join(work, "results")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = pipe.run_pipeline(fgen, fgen, (bf16_fn, tmpl), (bf16_fn, tmpl), ques, ans_dir,
+                            repeat=PIPE_REPEAT, batch_size=PIPE_BATCH,
+                            max_tokens=PIPE_MAX_TOKENS, sample_num=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add_counts(launches, read_counts())
+    files = _stage_files(ans_dir)
     for name, rows in files.items():
         log(f"[13 pipeline] {name}: {len(rows)} rows")
     divide = next(rows for n, rows in files.items() if n.endswith(".llama3-8b_divide.jsonl"))
@@ -3736,6 +3779,11 @@ FUSED_MS = (10, 24, 832, 4 * 832, 24 * 896)
 # of one divide batch: 8 prompts padded to the bucket of the longest
 # divide prompt phase 13 can build (PIPE_MAX_TOKENS-character answers)
 LLAMA3_WIDTHS = ((4096, 6144), (4096, 28672), (14336, 4096))
+# phase 16's EVA02-enormous tower quantised (int8 in 16b, int4 in 16d): qkv
+# (1792 -> 3 x 1792), fc1 (1792 -> 15360) and fc2 (15360 -> 1792), at one
+# 448 px image's rows (32 x 32 patches + the cls token) and a batch of 8
+EVA_WIDTHS = ((1792, 5376), (1792, 15360), (15360, 1792))
+EVA_MS = (1025, 8 * 1025)
 
 
 def llama3_ms() -> tuple:
@@ -3856,12 +3904,15 @@ def phase_int8(g, qb: dict) -> dict:
     cases = [(K, N, M) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)) for M in ms]
     cases += [(K, N, M) for K, N in FUSED_WIDTHS for M in FUSED_MS]
     cases += [(K, N, M) for K, N in LLAMA3_WIDTHS for M in llama3_ms()]
-    # the N % 16 != 0 case (#10 on rows TMA cannot map) and #10's planted
-    # faults draw from a generator of their own: the phases after 3d keep
-    # the inputs the shared generator has always given them (3g's one-layer
-    # flip-row bound trips on a few percent of random draws, PERF.md §7)
+    # the N % 16 != 0 case (#10 on rows TMA cannot map), #10's planted
+    # faults and the EVA02 widths draw from generators of their own: the
+    # phases after 3d keep the inputs the shared generator has always given
+    # them (3g's one-layer flip-row bound trips on a few percent of random
+    # draws, PERF.md §7)
     own = torch.Generator(device="cuda").manual_seed(1)
-    for K, N, M, gen in [(*c, g) for c in cases] + [(4096, 1000, 512, own)]:
+    eva = torch.Generator(device="cuda").manual_seed(16)
+    for K, N, M, gen in [(*c, g) for c in cases] + [(4096, 1000, 512, own)] + \
+            [(K, N, M, eva) for K, N in EVA_WIDTHS for M in EVA_MS]:
         x, dy = _randn(gen, M, K), _randn(gen, M, N)
         q, s = quantize_kernel_int8_torch(
             0.02 * torch.randn(K, N, generator=gen, device="cuda"))
@@ -4019,6 +4070,7 @@ def phase_int8(g, qb: dict) -> dict:
     planted_faults("[3d int8]", {**DX8_FAULTS, **DX10_FAULTS, **FWD7_FAULTS, **FWD9_FAULTS},
                    {**{k: case for k in DX8_FAULTS}, **{k: case10 for k in DX10_FAULTS},
                     **{k: case7 for k in FWD7_FAULTS}, **{k: case9 for k in FWD9_FAULTS}})
+    res["eva_quant_dense"] = eva_quant_dense("[3d int8]", eva, 8)
     return res
 
 
@@ -4033,14 +4085,17 @@ def phase_int4(g, qb: dict) -> dict:
     is checked at N = 11008 too, where the dispatch takes the dequant dx."""
     res = {"err": 0.0}
     ms = sorted({16, 64, 127, 128, qb["m_suffix"], qb["m_prefix"]})
-    widths = [(K, N, ms) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
-    widths += [(K, N, llama3_ms()) for K, N in LLAMA3_WIDTHS]
-    for K, N, ms in widths:
-        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"))
+    # the EVA02 widths from a generator of their own (3d says why)
+    eva = torch.Generator(device="cuda").manual_seed(16)
+    widths = [(K, N, ms, g) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
+    widths += [(K, N, llama3_ms(), g) for K, N in LLAMA3_WIDTHS]
+    widths += [(K, N, EVA_MS, eva) for K, N in EVA_WIDTHS]
+    for K, N, ms, gen in widths:
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"))
         w8 = i4.unpack_int4(qp)  # (K, N) row-major
         w8_col = w8.T.contiguous().T  # the same values column-major
         for M in ms:
-            x, dy = _randn(g, M, K), _randn(g, M, N)
+            x, dy = _randn(gen, M, K), _randn(gen, M, N)
             xq, sx = qm.quantize_rows(x.float())
             sx = sx.reshape(-1)
             dyq = qm.quantize_rows(dy.float() * gs[0])[0]  # one group's operand
@@ -4101,10 +4156,10 @@ def phase_int4(g, qb: dict) -> dict:
 
     # #11 at groups of 256, every shape above
     n256 = 0
-    for K, N, ms in widths:
-        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=g, device="cuda"), 256)
+    for K, N, ms, gen in widths:
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"), 256)
         for M in ms:
-            x = _randn(g, M, K)
+            x = _randn(gen, M, K)
             xq, sx = qm.quantize_rows(x.float())
             got = i4._kernel_fwd(xq, sx.reshape(-1), qp, gs)
             if not torch.equal(got, i4.int4_matmul_plain(x, qp, gs)):
@@ -4147,6 +4202,7 @@ def phase_int4(g, qb: dict) -> dict:
     xq, sx = qm.quantize_rows(x.float())
     case = (i4._kernel_fwd, (xq, sx.reshape(-1), qp, gs), i4.int4_matmul_plain(x, qp, gs))
     planted_faults("[3e int4] #11", FWD4_FAULTS, {k: case for k in FWD4_FAULTS})
+    res["eva_quant_dense"] = eva_quant_dense("[3e int4]", eva, 4)
     return res
 
 
@@ -4993,6 +5049,581 @@ def phase_continuous_engine(gen: Llava15Generator, image_bytes: bytes, smi: str,
     return out["launches"]
 
 
+# 16: OmniLMM-12B, the reference loop's labeler (scripts/run_data_pipeline.py
+# labeler_name "omni"), at full width and depth with random weights from seed
+# 0: EVA02-enormous (1792 wide, 63 of its 64 blocks run, head dim 112: its
+# attention is plain torch), the resampler (64 queries, 32 heads), Mistral-7B
+# (32 layers, 8 KV heads: n_rep 4), 448 px images as scripts/bench_12b_serve.py
+# feeds them (the 16 x 16 position table re-gridded to 32 x 32, the
+# resampler's 8 x 8 sincos table to 32 x 32), the head shaped to the fake
+# tokenizer's printable ids (phase 13's HEAD_GAIN). 16a bf16: the encode, the
+# shared-prefix and plain autocheck, diverse_gen, 3-beam chat decoding, the
+# kernels against attn_impl "dense"; 16e (on 16a's model) stage 3 of the
+# pipeline on phase 13's yes/no questions; 16b the same model quantised in
+# place (both towers int8, the head bf16, an int8 KV cache: the JAX package's
+# 12B headline, bench_12b_serve's batch 8); 16c that model through the fused
+# engine; 16d the seed-0 model rebuilt and quantised to int4 on both towers.
+# Depth and widths are the published ones; repeats and tokens are cut to keep
+# the phase near two minutes.
+OMNI_IMAGE = 448
+OMNI_BATCH = 8
+OMNI_NEW = 64
+OMNI_DIVERSE = (["Describe the image in detail.", "What is happening here?"], 5)
+OMNI_GREEDY = ["What is in the image?", "Describe the scene.", "What colors do you see?",
+               "Is it daytime?"]
+OMNI_FORCED = 4
+# 16a's kernels (#1 prefill, #4 steps) against attn_impl "dense", as a share
+# of max|first logit|: phase 5's 0.05 holds LLaVA-1.5, but this random 12B
+# model drifts further from a change of rounding: read 0.0625 (prefill) and
+# 0.0708 (4 steps) on an H100 80GB HBM3, and the shared prefix against the
+# plain path 0.053 over the whole vocabulary. 16a logs beside them the dense
+# route against itself one prompt at a time, and the norm of a resampled
+# image token beside a text embedding's. The bound sits ~2x outside the
+# readings, as phase 12's FUSED_LOGIT_REL_TOL does
+OMNI_LOGIT_REL_TOL = 0.15
+
+
+def _omni_images(image_bytes: bytes) -> list:
+    """Two images: examples/test.jpeg and its mirror image (numpy)."""
+    from PIL import Image, ImageOps
+
+    from rlaifv_tpu_torch.data.image_processing import decode_image
+
+    img = decode_image(image_bytes)
+    return [np.asarray(img), np.asarray(ImageOps.mirror(img))]
+
+
+def _omni_items(images: list, questions, per_image: bool = True) -> list:
+    """Each question about each image (image-major), or question i about
+    image i % len(images)."""
+    pairs = ([(im, q) for im in images for q in questions] if per_image
+             else [(images[i % len(images)], q) for i, q in enumerate(questions)])
+    return [{"question": q, "question_id": i, "image": im,
+             "metainfos": {"ds_question_id": f"omni{i}"}} for i, (im, q) in enumerate(pairs)]
+
+
+def build_omnilmm(tok, tag: str):
+    """OmniLMM-12B in bf16 on the card, random weights from seed 0, the
+    head's rows of printable ids x HEAD_GAIN and the others zeroed."""
+    t0 = time.perf_counter()
+    model = OmniLMMForCausalLM(OmniLMMConfig.omnilmm_12b(), device="meta").to_empty(
+        device="cuda")
+    init_omnilmm_weights_(model, torch.Generator(device="cuda").manual_seed(0)).eval()
+    shape_head_(model.llm.lm_head.weight, printable_ids(tok))
+    torch.cuda.synchronize()
+    parts = {name: sum(p.numel() for p in getattr(model, name).parameters()) / 1e9
+             for name in ("vision_tower", "resampler", "llm")}
+    cfg = model.cfg
+    log(f"[{tag}] OmniLMM-12B bf16 on cuda: {sum(parts.values()):.3f} B params (EVA02-enormous "
+        f"{parts['vision_tower']:.3f}: {cfg.vision.embed_dim} wide, {len(model.vision_tower.blocks)}"
+        f" of {cfg.vision.depth} blocks run, MLP {cfg.vision.mlp_hidden}; resampler "
+        f"{parts['resampler']:.3f}: {cfg.num_query} queries, {cfg.resampler.num_heads} heads; "
+        f"Mistral-7B {parts['llm']:.3f}: {cfg.llm.num_layers} layers, I "
+        f"{cfg.llm.intermediate_size}, {cfg.llm.num_kv_heads} KV heads for "
+        f"{cfg.llm.num_heads}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+        f"built in {time.perf_counter() - t0:.1f} s; random weights (seed 0)")
+    return model
+
+
+class PathPlan:
+    """The launches a path plans, read off its calls inside a `with`: each
+    pass of the language model plans #1 a layer where
+    ops/attention.py:attention_route says "flash", #4 a layer on a decode
+    step it routes to "decode", #5 a layer on an int8-cache decode step in
+    the kernel's domain; each quantised projection (QuantDense, both
+    towers) plans #9 from INT8_DEQUANT_MIN_M rows and #7 below (int8), #11
+    (int4, where its kernel takes the shapes). Counted beside the launch
+    counters, from the shapes alone."""
+
+    def __init__(self, llm: LlamaForCausalLM):
+        self.llm, self.counts = llm, {}
+
+    def _add(self, key: str, n: int) -> None:
+        self.counts[key] = self.counts.get(key, 0) + n
+
+    def _attention(self, L: int, attention_mask, cache, cache_index) -> None:
+        cfg = self.llm.cfg
+        impl = next(m.attn_impl for m in self.llm.modules() if isinstance(m, LlamaAttention))
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        if cache is not None and "k_scale" in cache[0] and L == 1:
+            if impl != "dense" and (impl != "auto" or kernel_domain(
+                    cfg.dtype, cfg.head_size, n_rep, decode=True)):
+                self._add("decode_int8", cfg.num_layers)
+            return
+        Lk, q_offset = L, None
+        if cache is not None and "k_scale" not in cache[0]:
+            Lk, q_offset = cache[0]["k"].shape[1], cache_index
+        route = attention_route(Lq=L, Lk=Lk, D=cfg.head_size, q_offset=q_offset,
+                                has_mask=attention_mask is not None, on_cuda=True,
+                                dtype=cfg.dtype, n_rep=n_rep, impl=impl)
+        if route in ("flash", "decode"):
+            self._add(route, cfg.num_layers)
+
+    def __enter__(self):
+        forward, product = self.llm.forward, llama_mod.quant_product
+
+        def planned_forward(input_ids=None, *, inputs_embeds=None, attention_mask=None,
+                            cache=None, cache_index=None, **kw):
+            L = (input_ids if inputs_embeds is None else inputs_embeds).shape[1]
+            self._attention(L, attention_mask, cache, cache_index)
+            return forward(input_ids, inputs_embeds=inputs_embeds,
+                           attention_mask=attention_mask, cache=cache,
+                           cache_index=cache_index, **kw)
+
+        def planned_product(x, q, scale, bits):
+            if bits == 4:
+                if i4._impl() == "kernel" and i4._kernel_legal(q, scale):
+                    self._add("int4", 1)
+            elif qm._rows(x) >= qm.INT8_DEQUANT_MIN_M:
+                self._add("int8_prequant", 1)
+            else:
+                self._add("int8", 1)
+            return product(x, q, scale, bits)
+
+        self._restore = (forward, product)
+        self.llm.forward, llama_mod.quant_product = planned_forward, planned_product
+        return self
+
+    def __exit__(self, *exc):
+        del self.llm.forward  # the class's method again
+        llama_mod.quant_product = self._restore[1]
+
+    def check(self, tag: str, launches: dict, keys) -> None:
+        """Each named kernel's launches against the plan; raise if one is
+        off or a planned kernel never ran."""
+        rows = [(k, launches.get(k, 0), self.counts.get(k, 0)) for k in keys]
+        ok = all(got == want for _, got, want in rows) and any(want for *_, want in rows)
+        log(f"[{tag}] launches against the path's plan: " + ", ".join(
+            f"{k} {got} (planned {want})" for k, got, want in rows)
+            + f" | {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: launches differ from the plan: {rows}")
+
+
+def _omni_rates(tag: str, n: int, what: str, seconds: float) -> float:
+    rate = n / seconds
+    log(f"[{tag}] {what}: {n} in {seconds:.3f} s = {rate:.2f}/s")
+    return rate
+
+
+def phase_omni_bf16(gen: OmniLMMGenerator, image_bytes: bytes) -> tuple:
+    """16a: the encode's time per image, autocheck of 2 images x 8 facts
+    through the shared prefix and plain (their yes/no logits within phase
+    5's bound), diverse_gen 2 x 5 repeats (generate_repeated), 3-beam chat
+    decoding with SamplingParams.chat_12b(), each counted against its
+    plan (#1 a layer a prefill pass, #4 a layer a decode step, beams
+    included), and the kernels' prefill and 4 forced steps against attn_impl
+    "dense" -> (launches, rates)."""
+    tag = "16a omnilmm bf16"
+    model, eng = gen.model, gen.engine
+    images = _omni_images(image_bytes)
+    facts = _omni_items(images, FACTS)
+    pix = torch.from_numpy(np.stack([gen.processor(im) for im in images] * 4)).cuda()
+    with torch.inference_mode():
+        feat_norm = model.encode_images(pix[:1]).float().norm(dim=-1).mean().item()
+        text_norm = model.llm.model.tok_embed.weight.float().norm(dim=-1).mean().item()
+        enc1 = time_ms(lambda: model.encode_images(pix[:1]), 5)
+        enc8 = time_ms(lambda: model.encode_images(pix), 3)
+        vit8 = time_ms(lambda: model.vision_tower(pix), 3)
+        # one block of the tower at 8 images, and its attention alone (plain
+        # torch: fp32 scores and softmax, the head dim 112 outside #1's domain)
+        vt = model.cfg.vision
+        grid = OMNI_IMAGE // vt.patch_size
+        L, H = grid * grid + 1, vt.num_heads
+        x = torch.randn((OMNI_BATCH, L, vt.embed_dim), device="cuda").to(torch.bfloat16)
+        q, k, v = (torch.randn((OMNI_BATCH, L, H, vt.embed_dim // H), device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        block = time_ms(lambda: model.vision_tower.blocks[0](x, None), 5)
+        attn = time_ms(lambda: dense_attention(q, k, v, None), 5)
+        del x, q, k, v
+    log(f"[{tag}] encode (EVA02-enormous at {OMNI_IMAGE} px: {grid} x {grid} + 1 tokens, the "
+        f"pos table re-gridded {vt.grid} -> {grid}; then the resampler): one image "
+        f"{enc1:.2f} ms, {OMNI_BATCH} images {enc8:.2f} ms = {enc8 / OMNI_BATCH:.2f} ms an "
+        f"image (the tower alone {vit8 / OMNI_BATCH:.2f}); one block at {OMNI_BATCH} images "
+        f"{block:.3f} ms, its attention alone (plain fp32 torch) {attn:.3f} ms; a resampled "
+        f"token's norm {feat_norm:.2f} on average, a text embedding's {text_norm:.3f}")
+    rates = dict(encode_ms=enc8 / OMNI_BATCH, block_ms=block, attn_ms=attn)
+    gen.autocheck(facts[:2], batch_size=OMNI_BATCH)  # warm-up
+    gen.diverse_gen(_omni_items(images[:1], ["Warm up."] * 2), max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        shared = gen.autocheck(facts, batch_size=OMNI_BATCH)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = gen.autocheck(facts, batch_size=OMNI_BATCH, shared_prefix=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates["facts_s"] = _omni_rates(tag, len(facts), "autocheck facts, shared prefix",
+                                       t1 - t0)
+        rates["facts_plain_s"] = _omni_rates(tag, len(facts), "autocheck facts, plain (one "
+                                             "encode and prefill a fact)", t2 - t1)
+        steps0 = read_counts()["decode"]
+        qs, rep = OMNI_DIVERSE
+        sampled = gen.diverse_gen(_omni_items(images[:1], [q for q in qs for _ in range(rep)]),
+                                  max_new_tokens=OMNI_NEW, seed=0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        n_layers = model.cfg.llm.num_layers
+        steps = (read_counts()["decode"] - steps0) // n_layers
+        n_div = rep * (steps + len(qs))
+        rates["diverse_tok_s"] = _omni_rates(
+            tag, n_div, f"diverse_gen {len(qs)} x {rep} repeats (generate_repeated: one encode "
+            f"and prefill a question), {steps} decode steps: tokens", t3 - t2)
+        beam_items = _omni_items(images, OMNI_GREEDY[:2], per_image=False)
+        steps0 = read_counts()["decode"]
+        beams = gen.generate_beam(beam_items, num_beams=3, sampling=SamplingParams.chat_12b(),
+                                  max_new_tokens=OMNI_NEW, seed=0)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        bsteps = (read_counts()["decode"] - steps0) // n_layers
+        rates["beam_tok_s"] = _omni_rates(
+            tag, len(beam_items) * (bsteps + 1), f"generate_beam 3 beams (chat_12b sampling) "
+            f"of {len(beam_items)} rows, {bsteps} steps: tokens of the best beams", t4 - t3)
+        launches = read_counts()
+    rates["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "decode", "decode_int8"))
+    assert len(sampled) == rep * len(qs) and all(isinstance(r["answer"], str) for r in sampled)
+    assert len(beams) == 2 and all(isinstance(r[1], str) for r in beams)
+
+    # the shared prefix against the plain path: the yes/no probabilities of
+    # the 16 facts, then the logits of 8 facts about one image at the yes/no
+    # ids (the gate) and over the whole vocabulary; the plain path encodes
+    # the image at batch 8 and at batch 1 (the shared path's batch)
+    d_prob = max(abs(a["scores"][w] - b["scores"][w]) for a, b in zip(shared, plain)
+                 for w in a["scores"])
+    prompts, starts, pixels = gen._prepare(facts[:8])
+    P = int(starts[0]) + gen.num_query + 1
+    via_prefix = torch.from_numpy(eng.score_shared_prefix(
+        prompts[0][:P], [p[P:] for p in prompts], image=pixels[0],
+        image_start=int(starts[0]), batch_size=OMNI_BATCH))
+    via_plain = torch.from_numpy(eng.generate(prompts, images=pixels, image_starts=starts,
+                                              max_new_tokens=1).first_logits)
+    via_one = torch.from_numpy(np.concatenate([eng.generate(
+        prompts[i:i + 1], images=pixels[i:i + 1], image_starts=starts[i:i + 1],
+        max_new_tokens=1).first_logits for i in range(len(prompts))]))
+    yn = list(omni_yesno_ids(gen.tokenizer).values())
+    scale = via_plain.abs().max().item()
+    d_yn = (via_prefix[:, yn] - via_plain[:, yn]).abs().max().item()
+    d_all = (via_prefix - via_plain).abs().max().item()
+    d_one = (via_prefix - via_one).abs().max().item()
+    ok = d_yn <= SLICE_REL_TOL * scale and d_prob <= PROB_TOL and \
+        bool(torch.isfinite(via_prefix).all())
+    log(f"[{tag}] shared prefix (prefix {P} tokens) vs plain path, 8 facts of one image: "
+        f"yes/no logits max|d| {d_yn:.4f} vs max|logit| {scale:.3f} (tol {SLICE_REL_TOL} x "
+        f"max) | max|dp| over the 16 facts' yes/no {d_prob:.3e} (tol {PROB_TOL}) | "
+        f"{'ok' if ok else 'FAIL'}; over the whole vocabulary max|d| {d_all:.4f} against "
+        f"the plain path at batch 8, {d_one:.4f} against it at batch 1")
+    if not ok:
+        raise AssertionError("16a: the shared prefix disagrees with the plain path")
+
+    # the kernels (#1 prefill, #4 steps) against attn_impl "dense"
+    prompts, starts, pixels = gen._prepare(_omni_items(images, OMNI_GREEDY, per_image=False))
+    keep = printable_ids(gen.tokenizer)
+    tokens = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (len(prompts), OMNI_FORCED), generator=torch.Generator().manual_seed(0)).cuda()]
+    fast = _forced_logits(eng, prompts, starts, pixels, tokens, ("auto", "auto"))
+    dense = _forced_logits(eng, prompts, starts, pixels, tokens, ("dense", "dense"))
+    # the dense route against itself, each prompt alone: the same function
+    # at other GEMM shapes, i.e. the model's own bf16 drift
+    alone = torch.cat([_forced_logits(eng, prompts[i:i + 1], starts[i:i + 1],
+                                      pixels[i:i + 1], tokens[i:i + 1], ("dense", "dense"))
+                       for i in range(len(prompts))], dim=1)
+    ok = all(bool(torch.isfinite(r).all()) for r in (fast, dense, alone))
+    first = dense[0].abs().max()
+    for text, steps in (("prefill: #1 vs dense", slice(0, 1)),
+                        (f"decode steps 1-{OMNI_FORCED}: #4 vs dense", slice(1, None))):
+        rel = ((fast[steps] - dense[steps]).abs().max() / first).item()
+        drift = ((alone[steps] - dense[steps]).abs().max() / first).item()
+        cos = torch.nn.functional.cosine_similarity(
+            fast[steps].flatten(0, -2), dense[steps].flatten(0, -2), dim=-1).min().item()
+        good = rel <= OMNI_LOGIT_REL_TOL
+        ok = ok and good
+        log(f"[{tag} vs plain] {text}: max|d| / max|first logit| {rel:.4f} (tol "
+            f"{OMNI_LOGIT_REL_TOL}; the dense route against itself one prompt at a time "
+            f"{drift:.4f}), least row cosine {cos:.5f} | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("16a: the kernels disagree with attn_impl dense")
+    return launches, rates
+
+
+def phase_omni_labeler(gen: OmniLMMGenerator, work: str) -> dict:
+    """16e: the reference's labeler configuration: stage 3 of the pipeline
+    (pipeline.stage_autocheck) scores phase 13's yes/no questions with
+    OmniLMM-12B, then stage 4 (pairs) and 5 (length balance) on its scores;
+    each file's rows -> the launches."""
+    tag = "16e omnilmm labeler"
+    results = os.path.join(work, "results")
+    qas = next(os.path.join(results, n) for n in sorted(os.listdir(results))
+               if n.endswith(".gq.qas.jsonl") and not n.startswith("autocheck_"))
+    gq = next(os.path.join(results, n) for n in sorted(os.listdir(results))
+              if n.endswith(".gq.jsonl"))
+    out_dir = os.path.join(work, "omnilmm")
+    os.makedirs(out_dir, exist_ok=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    scored = pipe.stage_autocheck(gen, qas, out_dir, batch_size=OMNI_BATCH)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    balanced = pipe.stage_length_balance(pipe.stage_pairs(scored, gq, sample_num=2))
+    n_qas, n_scored = len(read_jsonlines(qas)), len(read_jsonlines(scored))
+    log(f"[{tag}] stage_autocheck on phase 13's {os.path.basename(qas)} ({n_qas} yes/no "
+        f"questions): {n_scored} rows in {t1 - t0:.2f} s = {n_scored / (t1 - t0):.2f} facts/s")
+    for name, rows in _stage_files(out_dir).items():
+        log(f"[{tag}] {name}: {len(rows)} rows")
+    if n_scored != n_qas or not all(0.0 <= p <= 1.0 for r in read_jsonlines(scored)
+                                    for p in r["scores"].values()):
+        raise AssertionError("16e: the labeler's rows do not match the questions")
+    assert balanced.endswith("_balanceshort.jsonl")
+    return launches
+
+
+def phase_omni_int8(gen: OmniLMMGenerator, image_bytes: bytes) -> tuple:
+    """16b: 16a's model quantised in place (both towers int8, the head
+    bf16, an int8 KV cache; OmniLMMConfig.omnilmm_12b_int8): autocheck at
+    batch 8 on the plain path (bench_12b_serve's geometry: one encode and
+    prefill a fact), one greedy generate, each launch against the plan;
+    the prefill and 4 forced steps against attn_impl "dense" on a bf16
+    cache (phase 11's bounds) -> (launches, rates)."""
+    tag = "16b omnilmm int8"
+    model = gen.model
+    t0 = time.perf_counter()
+    quantize_llm_int8(model, include_lm_head=False)
+    quantize_vision_int8(model)
+    set_llm_config(model, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] both towers quantised to int8 in place (the head and the resampler bf16), the "
+        f"cache int8, in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    images = _omni_images(image_bytes)
+    facts = _omni_items(images, FACTS)
+    greedy = _omni_items(images, OMNI_GREEDY, per_image=False)
+    gen.autocheck(facts[:2], batch_size=OMNI_BATCH, shared_prefix=False)  # warm-up
+    torch.cuda.synchronize()
+    rates = {}
+    torch.cuda.reset_peak_memory_stats()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = gen.autocheck(facts, batch_size=OMNI_BATCH, shared_prefix=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rates["facts_s"] = _omni_rates(tag, len(facts), f"autocheck facts at batch {OMNI_BATCH}"
+                                       " (plain: one encode and prefill a fact)", t1 - t0)
+        rows = gen.generate(greedy, sampling=SamplingParams.greedy(), max_new_tokens=OMNI_NEW)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_counts()
+    n_layers = model.cfg.llm.num_layers
+    steps = launches["decode_int8"] // n_layers
+    rates["tok_s"] = _omni_rates(tag, len(greedy) * (steps + 1), f"greedy generate of "
+                                 f"{len(greedy)} rows, {steps} steps: tokens", t2 - t1)
+    rates["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "decode", "decode_int8", "int8", "int8_prequant"))
+    assert len(scored) == len(facts) and len(rows) == len(greedy)
+
+    prompts, starts, pixels = gen._prepare(greedy)
+    keep = printable_ids(gen.tokenizer)
+    tokens = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (len(prompts), OMNI_FORCED), generator=torch.Generator().manual_seed(0)).cuda()]
+    path = _forced_logits(gen.engine, prompts, starts, pixels, tokens, ("auto", "auto"))
+    set_llm_config(model, kv_cache_dtype="fp")
+    dense = _forced_logits(gen.engine, prompts, starts, pixels, tokens, ("dense", "dense"))
+    set_llm_config(model, kv_cache_dtype="int8")
+    ok = bool(torch.isfinite(path).all() and torch.isfinite(dense).all())
+    for text, a, b in (("prefill: the path (fresh-window #1) vs dense on a bf16 cache",
+                        path[:1], dense[:1]),
+                       (f"decode steps 1-{OMNI_FORCED}: the path (#5) vs dense on a bf16 cache",
+                        path[1:], dense[1:])):
+        rel, cos = _logit_gap(a, b)
+        good = rel <= INT8_KV_REL_TOL and cos >= INT8_KV_COS_MIN
+        ok = ok and good
+        log(f"[{tag} vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol {INT8_KV_REL_TOL}), "
+            f"least row cosine {cos:.5f} (tol {INT8_KV_COS_MIN}) | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("16b: the int8 path disagrees with the dense route")
+    return launches, rates
+
+
+def phase_omni_fused(gen: OmniLMMGenerator, image_bytes: bytes) -> tuple:
+    """16c: 16b's model with its projections fused, served through the
+    fused engine (the LLM's weights stacked in place): one greedy generate
+    with #16 once a decode step and no #4, #5 or #7 anywhere in the run,
+    then 4 forced steps with each step's #16 against its twin on the same
+    cache -> (launches, rates)."""
+    tag = "16c omnilmm fused"
+    fuse_llm_projections_(gen.model)
+    fgen = OmniLMMGenerator(gen.model, gen.tokenizer, image_size=OMNI_IMAGE,
+                            checkpoint_name=gen.checkpoint_name, fused_decode=True)
+    images = _omni_images(image_bytes)
+    greedy = _omni_items(images, OMNI_GREEDY, per_image=False)
+    fgen.generate(greedy[:1], sampling=SamplingParams.greedy(), max_new_tokens=2)  # warm-up
+    spy, step = types.SimpleNamespace(steps=0), fgen.engine._step
+
+    def counted(*a):
+        spy.steps += 1
+        return step(*a)
+
+    fgen.engine._step = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = fgen.generate(greedy, sampling=SamplingParams.greedy(), max_new_tokens=OMNI_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    fgen.engine._step = step
+    rates = {"tok_s": _omni_rates(tag, len(greedy) * (spy.steps + 1), f"greedy generate of "
+                                  f"{len(greedy)} rows, {spy.steps} steps: tokens", t1 - t0)}
+    decode_free = ("decode", "decode_int8", "int8")
+    ok = launches["fused"] == spy.steps > 0 and not any(launches[k] for k in decode_free) \
+        and launches["int8_prequant"] > 0 and len(rows) == len(greedy)
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f" | #16 {launches['fused']} = {spy.steps} decode steps, #4/#5/#7 "
+        f"{sum(launches[k] for k in decode_free)} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"16c: the fused path's launches: {launches}")
+    prompts, starts, pixels = fgen._prepare(greedy)
+    keep = printable_ids(gen.tokenizer)
+    tokens = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (len(prompts), OMNI_FORCED), generator=torch.Generator().manual_seed(0)).cuda()]
+    kern, twin, spread = _fused_forced(fgen.engine, prompts, starts, pixels, tokens)
+    ok = all(bool(torch.isfinite(r).all()) for r in (kern, twin, spread))
+    rel, cos = _logit_gap(spread[1:], twin[1:])
+    log(f"[{tag} vs plain] the twin against itself with each step's x one ulp up: max|d| / "
+        f"max|ref| {rel:.4f}, least row cosine {cos:.5f}")
+    rel, cos = _logit_gap(kern[1:], twin[1:])
+    good = ok and rel <= FUSED_LOGIT_REL_TOL and cos >= FUSED_LOGIT_COS_MIN
+    log(f"[{tag} vs plain] decode steps 1-{OMNI_FORCED}: kernel #16 vs the twin on the same "
+        f"cache: max|d| / max|ref| {rel:.4f} (tol {FUSED_LOGIT_REL_TOL}), least row cosine "
+        f"{cos:.5f} (tol {FUSED_LOGIT_COS_MIN}) | {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("16c: kernel #16 disagrees with its twin at OmniLMM-12B")
+    return launches, rates
+
+
+def phase_omni_int4(tok, image_bytes: bytes) -> tuple:
+    """16d: the seed-0 model rebuilt, both towers quantised to int4 on the
+    card (group 128, the head bf16, an int8 cache): one autocheck batch of
+    8 facts on the plain path, #11 against the plan -> (launches, rates)."""
+    tag = "16d omnilmm int4"
+    model = build_omnilmm(tok, tag)
+    t0 = time.perf_counter()
+    quantize_llm_int4(model, include_lm_head=False)
+    quantize_vision_int4(model)
+    set_llm_config(model, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] both towers quantised to int4 in place in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    gen = OmniLMMGenerator(model, tok, image_size=OMNI_IMAGE, checkpoint_name="random-omnilmm-12b")
+    facts = _omni_items(_omni_images(image_bytes), FACTS[:OMNI_BATCH // 2])
+    gen.autocheck(facts[:1], batch_size=OMNI_BATCH, shared_prefix=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = gen.autocheck(facts, batch_size=OMNI_BATCH, shared_prefix=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = read_counts()
+    rates = {"facts_s": _omni_rates(tag, len(facts), f"autocheck facts at batch {OMNI_BATCH} "
+                                    "(plain)", t1 - t0),
+             "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "int4", "int8", "int8_prequant"))
+    assert len(scored) == len(facts) and all(
+        0.0 <= p <= 1.0 for r in scored for p in r["scores"].values())
+    del gen, model
+    return launches, rates
+
+
+def phase_omnilmm(tok, image_bytes: bytes, work: str, smi: str) -> dict:
+    """16: OmniLMM-12B's serving slice, a-e (above) -> the launches of its
+    counted runs."""
+    model = build_omnilmm(tok, "16 omnilmm")
+    gen = OmniLMMGenerator(model, tok, image_size=OMNI_IMAGE,
+                           checkpoint_name="random-omnilmm-12b")
+    launches, bf16 = timed("16a omnilmm bf16", phase_omni_bf16, gen, image_bytes)
+    add_counts(launches, timed("16e omnilmm labeler", phase_omni_labeler, gen, work))
+    int8_launches, int8 = timed("16b omnilmm int8", phase_omni_int8, gen, image_bytes)
+    add_counts(launches, int8_launches)
+    fused_launches, fused = timed("16c omnilmm fused", phase_omni_fused, gen, image_bytes)
+    add_counts(launches, fused_launches)
+    del gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches, int4 = timed("16d omnilmm int4", phase_omni_int4, tok, image_bytes)
+    add_counts(launches, int4_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[16 omnilmm] {smi}: bf16 encode {bf16['encode_ms']:.2f} ms an image (a block at "
+        f"{OMNI_BATCH} images {bf16['block_ms']:.3f} ms, its attention {bf16['attn_ms']:.3f}), autocheck "
+        f"{bf16['facts_s']:.2f} facts/s shared / {bf16['facts_plain_s']:.2f} plain, diverse_gen "
+        f"{bf16['diverse_tok_s']:.1f} tok/s, 3-beam chat {bf16['beam_tok_s']:.1f} tok/s, peak "
+        f"{bf16['peak_gb']:.2f} GiB | int8 autocheck {int8['facts_s']:.2f} facts/s at batch "
+        f"{OMNI_BATCH}, generate {int8['tok_s']:.1f} tok/s, peak {int8['peak_gb']:.2f} GiB | "
+        f"fused generate {fused['tok_s']:.1f} tok/s | int4 autocheck {int4['facts_s']:.2f} "
+        f"facts/s, peak {int4['peak_gb']:.2f} GiB | launches {launches}")
+    return launches
+
+
+def eva_quant_dense(tag: str, g, bits: int) -> dict:
+    """3d / 3e at the EVA02 tower's projections: QuantDense with its bias,
+    the whole call (row pass, product, bias) at M = 1025 (one 448 px
+    image) and 8200 (a batch of 8), against the plain twin plus the bias
+    bit for bit, one kernel launch counted a call, its time beside the
+    product alone -> {(M, K, N): ms}."""
+    out = {}
+    for K, N in EVA_WIDTHS:
+        w = 0.02 * torch.randn(K, N, generator=g, device="cuda")
+        layer = QuantDense(K, N, dtype=torch.bfloat16, bits=bits, bias=True,
+                           param_dtype=torch.bfloat16, device="cuda")
+        layer.q, layer.scale = (quantize_int4_torch(w) if bits == 4
+                                else quantize_kernel_int8_torch(w))
+        layer.bias.copy_(torch.randn(N, generator=g, device="cuda"))
+        for M in EVA_MS:
+            x = _randn(g, M // 1025, 1025, K)
+            counter = (i4.int4_matmul, "launches") if bits == 4 else \
+                (qm.int8_matmul_prequant, "launches")
+            n0 = getattr(*counter)
+            with torch.inference_mode():
+                got = layer(x)
+                torch.cuda.synchronize()
+                n1 = getattr(*counter)
+                x2 = x.reshape(M, K)
+                twin = (i4.int4_matmul_plain(x2, layer.q, layer.scale) if bits == 4
+                        else qm.int8_matmul_plain(x2, layer.q, layer.scale))
+                want = (twin + layer.bias.to(torch.bfloat16)).reshape(got.shape)
+                t_call = time_ms(lambda: layer(x))
+                t_prod = time_ms(lambda: (i4.int4_matmul if bits == 4
+                                          else qm.int8_matmul_prequant)(x, layer.q, layer.scale))
+            ok = torch.equal(got, want) and n1 - n0 == 1
+            out[(M, K, N)] = t_call
+            log(f"{tag} QuantDense(bits={bits}, bias) M={M} K={K} N={N}: the whole call (row "
+                f"pass, product, bias) {t_call:.4f} ms, the wrapper's product call alone "
+                f"{t_prod:.4f} ms; equal to the twin + bias {torch.equal(got, want)}, "
+                f"{n1 - n0} launch | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: QuantDense with a bias disagrees with its twin "
+                                     f"at M={M} K={K} N={N}")
+        del w, layer
+    torch.cuda.empty_cache()
+    return out
+
+
 def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5082,10 +5713,20 @@ def main() -> None:
                                ("decode", "decode_int8", "int8"), ("int8_prequant",),
                                lambda L: fd.default_dims(fgen.engine.llm.cfg, L).bl))
     del gen
-    add_counts(launches, timed("13 pipeline", phase_pipeline, fgen, tok))
-    del fgen, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        add_counts(launches, timed("13 pipeline", phase_pipeline, fgen, tok, work))
+        del fgen, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        # 16 serves OmniLMM-12B (its labeler stage on 13's questions), then
+        # frees it before 8 builds the training model
+        add_counts(launches, timed("16 omnilmm", phase_omnilmm, tok, image_bytes, work, smi))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # 8 scores the rows with the frozen starting policy; 7 and 6 train that
     # same model on the first row's pair against those reference logps (7
@@ -5120,7 +5761,8 @@ def main() -> None:
 
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
-        f"the feedback pipeline 13, ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10): {launches}")
+        f"the feedback pipeline 13, OmniLMM-12B 16a-e, ref-logp 8, train 6, QLoRA 9, int4 "
+        f"QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     suffix = bwd["cases"]["train suffix"]
@@ -5173,6 +5815,8 @@ def main() -> None:
     # suffix (#7, #8) and the 8-pair step's prefix (#9, #10), gate/up widths
     q_src, q_py = "rlaifv_tpu_torch/csrc/quant_matmul.cu", "rlaifv_tpu/ops/quant_matmul.py"
     small, large = int8[(qb["m_short"], 4096, 11008)], int8[(qb["m_prefix"], 4096, 11008)]
+    eva_fc1 = (EVA_MS[1], 1792, 15360)
+    eva8, eva4 = int8[eva_fc1], int4[eva_fc1]
     kernels += [
         _row("int8_matmul", q_src, f"{q_py}:36", launches["int8"], int8["err"], small[7],
              f"redesigned: a row pass and the split product (route {small[7]['route']}, "
@@ -5188,7 +5832,10 @@ def main() -> None:
              f"redesigned: the {large[9]['route']} route here (a 128 x 256 TMA + wgmma tile "
              "with q^T built in registers); one product call launched "
              f"{large[9]['kernels_a_call']} kernel here (a CUDA graph of one call, 3d); the "
-             f"whole wrapper call with its row pass {large[9]['call_ms']:.4f} ms"),
+             f"whole wrapper call with its row pass {large[9]['call_ms']:.4f} ms; at EVA02's "
+             f"fc1 (M {EVA_MS[1]}, K 1792, N 15360, 16b) {eva8[9]['ms']:.4f} ms against a bound "
+             f"of {eva8[9]['bound_ms']:.4f}, torch._int_mm {eva8[9]['library_ms']:.4f}, the "
+             f"QuantDense call with its bias {int8['eva_quant_dense'][eva_fc1]:.4f}"),
         _row("int8_matmul_dx_prequant", q_src, f"{q_py}:340",
              launches["int8_dx_prequant"], int8["err"], large[10],
              f"redesigned: the {large[10]['route']} route here (a 128 x 256 TMA + wgmma "
@@ -5205,7 +5852,10 @@ def main() -> None:
              "redesigned: TMA ring, warp-specialised unpacking, int8 wgmma, per-group "
              "rescale; one wrapper call launched "
              f"{int4[(qb['m_prefix'], 4096, 11008)][11]['kernels_a_call']} kernel here (a "
-             "CUDA graph of one call, 3e)"),
+             f"CUDA graph of one call, 3e); at EVA02's fc1 (M {EVA_MS[1]}, K 1792, N 15360, "
+             f"16d) {eva4[11]['ms']:.4f} ms against a bound of {eva4[11]['bound_ms']:.4f}, "
+             f"torch._int_mm {eva4[11]['library_ms']:.4f}, the QuantDense call with its bias "
+             f"{int4['eva_quant_dense'][eva_fc1]:.4f}"),
         _row("int4_matmul_dx", i4_src, f"{i4_py}:240", launches["int4_dx"], int4["err"],
              int4[(qb["m_prefix"], 11008, 4096)][12],
              "redesigned: the row-maximum pass and the warp-specialised product; one "

@@ -1,4 +1,4 @@
-"""Single-image chat with LLaVA-1.5 on the port.
+"""Single-image chat with LLaVA-1.5 or OmniLMM-12B on the port.
 
     python -m rlaifv_tpu_torch.chat --model-path <ckpt> [--image img.jpg]
         [--question "..."] [--kv-int8] [--load-8bit] [--device cpu]
@@ -12,13 +12,17 @@ model (`llava_config_from_hf`, full, LoRA-over-base or projector-delta
 layouts through `load_pretrained_llava`), in bf16 on the card (the default;
 no visible card is an error) or in fp32 on the CPU with `--device cpu`.
 `--load-8bit`: weight-only int8 LLM projections (kernels #9/#7 on the
-card); `--kv-int8`: an int8 decode cache (kernel #5).
+card); `--kv-int8`: an int8 decode cache (kernel #5). A path holding "12B"
+loads OmniLMM-12B (genai/omni_gen.py `OmniLMMChat`, as the root chat.py:
+3 beams combined with sampling): `--load-8bit` quantises both towers to
+int8 with an int8 KV cache, `--load-4bit` to int4 (plain group
+quantisation); `--kv-int8` and `--lookup-decode` do not apply there.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
 'Modules to port' number: anyres checkpoints (LLaVA-1.6 grids, #8, raised
-by models/llava.py), `--lookup-decode` and `--load-4bit` (its serving path
-needs models/quant_smooth.py; #11), the OmniLMM-12B (#9) and MiniCPM-V
-(#10) families.
+by models/llava.py), `--lookup-decode` and the 7B's `--load-4bit` (its
+serving path needs models/quant_smooth.py; #11), the MiniCPM-V family
+(#10).
 """
 from __future__ import annotations
 
@@ -114,16 +118,24 @@ class RLAIFVChat:
                  kv_int8: bool = False, lookup_decode: bool = False, device="cuda",
                  max_new_tokens: int = 1024, tokenizer=None):
         if "12B" in model_path:
-            raise NotImplementedError("the OmniLMM-12B family " + _NOT_PORTED + "#9")
-        if "minicpm" in model_path.lower():
+            from rlaifv_tpu_torch.genai.omni_gen import OmniLMMChat
+
+            # --load-8bit: the one-card 12B configuration (int8 on both
+            # towers, int8 KV cache); --load-4bit: int4 group quantisation
+            self.model = OmniLMMChat(model_path, int8=load_8bit, int4=load_4bit,
+                                     device=device, max_new_tokens=max_new_tokens,
+                                     tokenizer=tokenizer)
+        elif "minicpm" in model_path.lower():
             raise NotImplementedError("the MiniCPM-V family " + _NOT_PORTED + "#10")
-        base = None
-        if "lora" in model_path.lower():
-            # ref chat.py:228: LoRA checkpoints load over the llava base
-            base = os.environ.get("RLAIFV_MODEL_BASE", "liuhaotian/llava-v1.5-7b")
-        self.model = RLAIFV7B(model_path, model_base=base, max_new_tokens=max_new_tokens,
-                              load_8bit=load_8bit, load_4bit=load_4bit, kv_int8=kv_int8,
-                              lookup_decode=lookup_decode, device=device, tokenizer=tokenizer)
+        else:
+            base = None
+            if "lora" in model_path.lower():
+                # ref chat.py:228: LoRA checkpoints load over the llava base
+                base = os.environ.get("RLAIFV_MODEL_BASE", "liuhaotian/llava-v1.5-7b")
+            self.model = RLAIFV7B(model_path, model_base=base, max_new_tokens=max_new_tokens,
+                                  load_8bit=load_8bit, load_4bit=load_4bit, kv_int8=kv_int8,
+                                  lookup_decode=lookup_decode, device=device,
+                                  tokenizer=tokenizer)
 
     def chat(self, input: dict) -> str:
         return self.model.chat(input)
@@ -139,7 +151,7 @@ def main(argv=None):
     ap.add_argument("--load-8bit", action="store_true",
                     help="weight-only int8 LLM projections")
     ap.add_argument("--load-4bit", action="store_true",
-                    help="weight-only int4 LLM (not ported: ROADMAP #11)")
+                    help="weight-only int4 (OmniLMM-12B; the 7B's is not ported: ROADMAP #11)")
     ap.add_argument("--lookup-decode", action="store_true",
                     help="prompt-lookup greedy decoding (not ported: ROADMAP #11)")
     ap.add_argument("--max-new-tokens", type=int, default=1024)

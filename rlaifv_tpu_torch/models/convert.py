@@ -41,9 +41,14 @@ read a LLaVA's or a CLIP tower's config.json into the port's configs, and
 `load_pretrained_llava` (with `_merge_tree`, `convert_peft_lora` and the
 numpy `_quantize_llm_tree`) loads the full, LoRA-over-base and
 projector-only layouts as the JAX function does. The train entry point
-builds its configs from presets, as train.py does. The other families'
-converters and quantizers are not copied: ROADMAP.md 'Modules to port' #9
-and #10.
+builds its configs from presets, as train.py does. OmniLMM-12B checkpoints
+go through `convert_omnilmm` (`convert_llama`, `convert_eva02` and
+models/resampler.py's `convert_resampler`) and `omnilmm_config_from_hf`,
+then the same bridge (the EVA blocks `block_{i}` -> `blocks.{i}`);
+`quantize_vision_int8` / `quantize_vision_int4` quantise the EVA tower's
+projections in place, biases kept, and `set_vision_config` replaces
+fields of every EvaConfig a model carries. MiniCPM-V's
+converters are not copied: ROADMAP.md 'Modules to port' #10.
 """
 from __future__ import annotations
 
@@ -72,6 +77,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
 
 def _torch_name(path: str) -> str:
     path = re.sub(r"\blayer_(\d+)\b", r"layers.\1", path)
+    path = re.sub(r"\bblock_(\d+)\b", r"blocks.\1", path)  # the EVA02 tower
     path = re.sub(r"^mm_projector\.fc(\d+)\.", r"mm_projector.fcs.\1.", path)
     return re.sub(r"\.(kernel|scale|embedding)$", ".weight", path)
 
@@ -99,8 +105,11 @@ def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax LLaVA param tree (arrays of any numpy-convertible type, or
     torch tensors, as `flax_tree` gives them) ->
     state dict for rlaifv_tpu_torch's LlavaForCausalLM. QuantDense nodes
-    (int8 or int4) become `q`/`scale` buffers; given a variables dict {"params",
-    "lora"}, the state dict of its base (the adapters: `lora_from_jax`)."""
+    (int8 or int4) become `q`/`scale` buffers (and `bias`, the vision
+    towers'); given a variables dict {"params", "lora"}, the state dict of
+    its base (the adapters: `lora_from_jax`). A flax OmniLMMForCausalLM
+    tree maps the same way onto the port's: the EVA02 blocks `block_{i}`
+    -> `blocks.{i}`, the resampler's raw (D, D) `proj` kept as it is."""
     if set(params) == {"params", "lora"}:
         params = params["params"]
     quant = _quant_modules(params)
@@ -163,6 +172,7 @@ def lora_from_jax(lora: Mapping[str, Any]) -> Dict[str, Any]:
 def _flax_module_path(torch_name: str) -> str:
     """`llm.model.layers.0.attn.q_proj` -> `llm/model/layer_0/attn/q_proj`."""
     path = re.sub(r"\blayers\.(\d+)\b", r"layer_\1", torch_name)
+    path = re.sub(r"\bblocks\.(\d+)\b", r"block_\1", path)
     path = re.sub(r"^mm_projector\.fcs\.(\d+)\b", r"mm_projector.fc\1", path)
     return path.replace(".", "/")
 
@@ -187,6 +197,8 @@ def flax_tree(model: nn.Module) -> Tree:
         if isinstance(mod, QuantDense):
             _set(tree, prefix + "kernel", mod.q)
             _set(tree, prefix + "scale", mod.scale)
+            if mod.bias is not None:
+                _set(tree, prefix + "bias", mod.bias)
             continue
         for name, t in mod.named_parameters(recurse=False):
             leaf = leaves[f"{mod_name}.{name}" if mod_name else name]
@@ -229,18 +241,33 @@ _QUANT_PROJ = re.compile(
 )
 
 
-def set_llm_config(model: nn.Module, **fields) -> nn.Module:
-    """Replace `fields` of every LlamaConfig `model` carries (its modules'
-    `cfg`, or a LlavaConfig's `llm`), in place."""
-    from rlaifv_tpu_torch.models.llama import LlamaConfig
-
+def _set_config(model: nn.Module, kind: type, sub: str, fields: dict) -> nn.Module:
+    """Replace `fields` of every `kind` config `model` carries (its modules'
+    `cfg`, or the `sub` field of a composite model's), in place."""
     for mod in model.modules():
         cfg = getattr(mod, "cfg", None)
-        if isinstance(cfg, LlamaConfig):
+        if isinstance(cfg, kind):
             mod.cfg = dataclasses.replace(cfg, **fields)
-        elif isinstance(getattr(cfg, "llm", None), LlamaConfig):
-            mod.cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **fields))
+        elif isinstance(getattr(cfg, sub, None), kind):
+            mod.cfg = dataclasses.replace(
+                cfg, **{sub: dataclasses.replace(getattr(cfg, sub), **fields)})
     return model
+
+
+def set_llm_config(model: nn.Module, **fields) -> nn.Module:
+    """Replace `fields` of every LlamaConfig `model` carries (its modules'
+    `cfg`, or a LlavaConfig's / OmniLMMConfig's `llm`), in place."""
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+
+    return _set_config(model, LlamaConfig, "llm", fields)
+
+
+def set_vision_config(model: nn.Module, **fields) -> nn.Module:
+    """Replace `fields` of every EvaConfig `model` carries (its modules'
+    `cfg`, or an OmniLMMConfig's `vision`), in place."""
+    from rlaifv_tpu_torch.models.eva02 import EvaConfig
+
+    return _set_config(model, EvaConfig, "vision", fields)
 
 
 @torch.no_grad()
@@ -289,6 +316,58 @@ def quantize_llm_int4(model: nn.Module, include_lm_head: bool = False) -> nn.Mod
     from `quantize_int4_torch` with G = `pick_int4_group(in)`. The head
     stays float by default, as in the JAX package."""
     return _quantize_llm(model, include_lm_head, bits=4)
+
+
+_VISION_QUANT = re.compile(
+    r"^(qkv|q_proj|k_proj|v_proj|proj|out_proj|w1|w2|w3|fc1|fc2)$"
+)
+
+
+@torch.no_grad()
+def _quantize_vision(model: nn.Module, bits: int) -> nn.Module:
+    """The vision tower's projections named as `_VISION_QUANT` says become
+    bits-wide QuantDense layers with their biases, in place, their weights
+    quantised on their device one at a time; the patch embedding, norms
+    and cls/pos tokens stay float. `model` is an OmniLMMForCausalLM (its
+    `vision_tower`) or a tower; the configs it carries say so."""
+    from rlaifv_tpu_torch.models.layers import Dense
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    tower = getattr(model, "vision_tower", model)
+    targets = [name for name, mod in tower.named_modules()
+               if isinstance(mod, Dense) and _VISION_QUANT.match(name.rsplit(".", 1)[-1])]
+    for name in targets:
+        dense = tower.get_submodule(name)
+        kernel = dense.weight.T
+        if bits == 4:
+            q, scale = quantize_int4_torch(kernel, pick_int4_group(dense.in_features))
+        else:
+            q, scale = quantize_kernel_int8_torch(kernel)
+        quant = QuantDense(dense.in_features, dense.out_features, dtype=dense.compute_dtype,
+                           bits=bits, bias=dense.bias is not None,
+                           param_dtype=dense.weight.dtype, device="meta")
+        quant.q, quant.scale = q, scale
+        if dense.bias is not None:
+            quant.bias = dense.bias.detach()
+        parent, _, attr = name.rpartition(".")
+        setattr(tower.get_submodule(parent), attr, quant)
+    return set_vision_config(model, quantize=True, quantize_bits=bits)
+
+
+def quantize_vision_int8(model: nn.Module) -> nn.Module:
+    """Weight-only int8 for the ViT projections, in place (the JAX
+    package's `quantize_vision_int8` over the port's modules): int8
+    kernels and per-output-channel scales from
+    `quantize_kernel_int8_torch`, biases kept."""
+    return _quantize_vision(model, bits=8)
+
+
+def quantize_vision_int4(model: nn.Module) -> nn.Module:
+    """Weight-only int4 for the ViT projections, in place (the JAX
+    package's `quantize_vision_int4`): packed nibbles and group scales
+    from `quantize_int4_torch` with G = `pick_int4_group(in)`, biases
+    kept."""
+    return _quantize_vision(model, bits=4)
 
 
 def fuse_llm_projections(llm_params: Tree) -> Tree:
@@ -373,9 +452,10 @@ def fuse_llm_projections_(model: nn.Module) -> nn.Module:
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a flax LLaVA param tree into a LlavaForCausalLM, or a bare flax
-    Llama tree into a LlamaForCausalLM (strict: every name must match),
-    converting to each parameter's dtype and device."""
+    """Copy a flax LLaVA param tree into a LlavaForCausalLM, a flax OmniLMM
+    tree into an OmniLMMForCausalLM, or a bare flax Llama tree into a
+    LlamaForCausalLM (strict: every name must match), converting to each
+    parameter's dtype and device."""
     sd = llava_params_from_jax(params)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
@@ -574,6 +654,111 @@ def convert_llava(
             "bias": _np(sd[f"model.mm_projector.{seq_i}.bias"]).astype(dtype),
         }
     tree["mm_projector"] = proj
+    return tree
+
+
+def convert_eva02(
+    sd: Mapping[str, Any], prefix: str = "", dtype=np.float32,
+    layers_to_run: Optional[int] = None,
+) -> Tree:
+    """timm Eva (fused-qkv plain variant) -> the EvaVisionTower tree.
+
+    timm layout: patch_embed.proj.{weight,bias}, cls_token, pos_embed,
+    blocks.N.{norm1, attn.{qkv,proj}, norm2, mlp.fc1/fc2}, norm. The last
+    block is dead (replaced by Identity in the reference) and skipped; a
+    checkpoint with q_bias/v_bias instead of a qkv bias gets a zero k bias.
+    """
+    g = lambda k: _np(sd[prefix + k]).astype(dtype)
+    tree: Tree = {}
+    _set(tree, "patch_embed/kernel",
+         g("patch_embed.proj.weight").transpose(2, 3, 1, 0))
+    _set(tree, "patch_embed/bias", g("patch_embed.proj.bias"))
+    _set(tree, "cls_token", g("cls_token").reshape(-1))
+    _set(tree, "pos_embed", g("pos_embed").reshape(
+        -1, g("pos_embed").shape[-1]))
+    layer_pat = re.compile(re.escape(prefix) + r"blocks\.(\d+)\.")
+    n_layers = 1 + max(int(m.group(1)) for k in sd if (m := layer_pat.match(k)))
+    run = layers_to_run if layers_to_run is not None else n_layers - 1
+    for i in range(run):
+        hf = f"blocks.{i}."
+        fx = f"block_{i}/"
+        _set(tree, fx + "norm1/scale", g(hf + "norm1.weight"))
+        _set(tree, fx + "norm1/bias", g(hf + "norm1.bias"))
+        _set(tree, fx + "norm2/scale", g(hf + "norm2.weight"))
+        _set(tree, fx + "norm2/bias", g(hf + "norm2.bias"))
+        _set(tree, fx + "attn/qkv/kernel", g(hf + "attn.qkv.weight").T)
+        if prefix + hf + "attn.qkv.bias" in sd:
+            _set(tree, fx + "attn/qkv/bias", g(hf + "attn.qkv.bias"))
+        else:
+            # EVA q/v-bias-only convention: k bias is fixed zero
+            q_b = g(hf + "attn.q_bias")
+            v_b = g(hf + "attn.v_bias")
+            _set(tree, fx + "attn/qkv/bias",
+                 np.concatenate([q_b, np.zeros_like(q_b), v_b]))
+        _set(tree, fx + "attn/proj/kernel", g(hf + "attn.proj.weight").T)
+        _set(tree, fx + "attn/proj/bias", g(hf + "attn.proj.bias"))
+        _set(tree, fx + "mlp/fc1/kernel", g(hf + "mlp.fc1.weight").T)
+        _set(tree, fx + "mlp/fc1/bias", g(hf + "mlp.fc1.bias"))
+        _set(tree, fx + "mlp/fc2/kernel", g(hf + "mlp.fc2.weight").T)
+        _set(tree, fx + "mlp/fc2/bias", g(hf + "mlp.fc2.bias"))
+    _set(tree, "norm/scale", g("norm.weight"))
+    _set(tree, "norm/bias", g("norm.bias"))
+    return tree
+
+
+def omnilmm_config_from_hf(model_dir: str, **overrides):
+    """OmniLMMConfig from the checkpoint's config.json (the reference
+    OmniLMMConfig extends MistralConfig and carries num_query; the EVA
+    tower is a fixed timm model, so `eva_config` in config.json, or the
+    `vision` overrides, only matter for other checkpoints). `llm={...}`
+    and `vision={...}` override fields of the two sub-configs."""
+    import json as _json
+
+    from rlaifv_tpu_torch.models.eva02 import EvaConfig
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.models.omnilmm import OmniLMMConfig
+
+    cfg_path = os.path.join(model_dir, "config.json")
+    raw = {}
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            raw = _json.load(f)
+
+    llm = LlamaConfig.mistral_7b(
+        vocab_size=raw.get("vocab_size", 32000),
+        hidden_size=raw.get("hidden_size", 4096),
+        intermediate_size=raw.get("intermediate_size", 14336),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=raw.get("num_attention_heads", 32),
+        num_kv_heads=raw.get("num_key_value_heads", 8),
+        max_position_embeddings=raw.get("max_position_embeddings", 32768),
+        rope_theta=raw.get("rope_theta", 10000.0),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-5),
+        **overrides.get("llm", {}),
+    )
+    eva_kw = dict(raw.get("eva_config", {}))
+    eva_kw.update(overrides.get("vision", {}))
+    return OmniLMMConfig(llm=llm, vision=EvaConfig.enormous(**eva_kw),
+                         num_query=raw.get("num_query", 64))
+
+
+def convert_omnilmm(sd: Mapping[str, Any], dtype=np.float32,
+                    vision_layers_to_run: Optional[int] = None) -> Tree:
+    """OmniLMM-12B checkpoint -> the OmniLMMForCausalLM tree: the Mistral
+    LM under model.* / lm_head.*, the timm Eva tower under
+    model.vision_tower.*, the resampler under model.resampler.*."""
+    from rlaifv_tpu_torch.models.resampler import convert_resampler
+
+    llm_sd = {
+        k: v for k, v in sd.items()
+        if not k.startswith(("model.vision_tower", "model.resampler"))
+    }
+    tree: Tree = {"llm": convert_llama(llm_sd, dtype=dtype)}
+    tree["vision_tower"] = convert_eva02(
+        sd, prefix="model.vision_tower.", dtype=dtype,
+        layers_to_run=vision_layers_to_run,
+    )
+    tree["resampler"] = convert_resampler(sd, prefix="model.resampler.", dtype=dtype)
     return tree
 
 

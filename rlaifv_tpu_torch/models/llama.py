@@ -100,6 +100,23 @@ class LlamaConfig:
         return LlamaConfig(**base)
 
     @staticmethod
+    def mistral_7b(**kw) -> "LlamaConfig":
+        """Mistral-7B / Zephyr-beta: the OmniLMM-12B language backbone."""
+        base = dict(
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            max_position_embeddings=32768,
+            rope_theta=10000.0,
+            rms_norm_eps=1e-5,
+        )
+        base.update(kw)
+        return LlamaConfig(**base)
+
+    @staticmethod
     def tiny(**kw) -> "LlamaConfig":
         base = dict(
             vocab_size=256,
@@ -192,9 +209,9 @@ def quantize_kernel_int8(w: "np.ndarray"):
 
 
 class QuantDense(nn.Module):
-    """Weight-only quantised projection without bias (the flax
-    `kernel`/`scale` leaves as frozen buffers `q`/`scale`, in the flax
-    layout):
+    """Weight-only quantised projection (the flax `kernel`/`scale` leaves
+    as frozen buffers `q`/`scale`, in the flax layout; with `bias=True` the
+    flax `bias` as a frozen buffer in `param_dtype`):
 
     - bits 8: y = x @ (q * scale), q (in, out) int8, scale (out,) fp32; on
       the card ops/quant_matmul.py's `int8_matmul_grad`;
@@ -204,10 +221,13 @@ class QuantDense(nn.Module):
 
     Both products are differentiable in x. On the CPU the layer computes the
     formula the JAX package runs off the TPU: x @ the weight dequantised to
-    the activation type. `lora` adds the same side term as Dense."""
+    the activation type. `lora` adds the same side term as Dense; the bias
+    comes after both, in the compute type, as in the JAX QuantDense (the
+    vision towers' projections)."""
 
     def __init__(self, in_features: int, out_features: int, *, dtype: torch.dtype,
-                 bits: int = 8, device=None):
+                 bits: int = 8, bias: bool = False,
+                 param_dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         if bits not in (4, 8):
             raise ValueError(f"QuantDense: bits must be 8 or 4; got {bits}")
@@ -221,12 +241,16 @@ class QuantDense(nn.Module):
         self.register_buffer("q", torch.zeros(q_shape, dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(s_shape, dtype=torch.float32,
                                                  device=device))
+        self.register_buffer("bias", torch.zeros(out_features, dtype=param_dtype,
+                                                 device=device) if bias else None)
         self.lora = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
         y = quant_product(x, self.q, self.scale, self.bits)
-        return y if self.lora is None else y + lora_side_term(x, self.lora)
+        if self.lora is not None:
+            y = y + lora_side_term(x, self.lora)
+        return y if self.bias is None else y + self.bias.to(self.compute_dtype)
 
 
 def quant_product(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

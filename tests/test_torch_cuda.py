@@ -1586,3 +1586,98 @@ def test_tiny_continuous_engine_runs_its_kernels(gen):
     want = eng.generate(prompts, **kw)
     top = np.abs(want.first_logits).max()
     np.testing.assert_allclose(got.first_logits, want.first_logits, rtol=0, atol=5e-2 * top)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("K,N", [(1792, 5376), (1792, 15360), (15360, 1792)])
+def test_quant_dense_with_bias_at_eva_rows_matches_twin(gen, bits, K, N):
+    """QuantDense with a bias at the EVA02-enormous tower's projections
+    (qkv, fc1, fc2) on one 448 px image's rows (M 1025): #9 (int8, one
+    launch) or #11 (int4, one launch) plus the bias equal the plain twin
+    plus the bias bit for bit."""
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch, quantize_kernel_int8_torch
+    from rlaifv_tpu_torch.models.llama import QuantDense
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+
+    w = 0.02 * torch.randn(K, N, generator=gen, device="cuda")
+    layer = QuantDense(K, N, dtype=torch.bfloat16, bits=bits, bias=True,
+                       param_dtype=torch.bfloat16, device="cuda")
+    layer.q, layer.scale = quantize_int4_torch(w) if bits == 4 else quantize_kernel_int8_torch(w)
+    layer.bias.copy_(torch.randn(N, generator=gen, device="cuda"))
+    x = _randn(gen, 1, 1025, K)
+    counter = i4.int4_matmul if bits == 4 else qm.int8_matmul_prequant
+    n0 = counter.launches
+    with torch.no_grad():
+        got = layer(x)
+    torch.cuda.synchronize()
+    assert counter.launches - n0 == 1
+    plain = i4.int4_matmul_plain if bits == 4 else qm.int8_matmul_plain
+    want = plain(x[0], layer.q, layer.scale) + layer.bias.to(torch.bfloat16)
+    assert torch.equal(got[0], want)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_tiny_omnilmm_engine_matches_dense_route(gen, mode):
+    """A tiny OmniLMM (LM head dim 64, n_rep 2; an EVA tower of head dim 64
+    at 28 px, its table re-gridded from a 2 x 2 grid) on the card, in bf16
+    and with both towers int8 and an int8 cache: the shared-prefix scores
+    and generate's first logits through the kernels (#1 prefill, #4 or #5
+    decode steps, #7 / #9 projections) within 5e-2 of max|logit| of the
+    same model on attn_impl "dense"; the decode kernel of the mode ran and
+    the other did not."""
+    import numpy as np
+
+    from rlaifv_tpu_torch.genai.omni_gen import OmniLMMGenerator
+    from rlaifv_tpu_torch.models.convert import (quantize_llm_int8, quantize_vision_int8,
+                                                 set_llm_config)
+    from rlaifv_tpu_torch.models.eva02 import EvaConfig
+    from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig
+    from rlaifv_tpu_torch.models.omnilmm import (OmniLMMConfig, OmniLMMForCausalLM,
+                                                 init_omnilmm_weights_)
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+    from fake_tokenizer import FakeTokenizer  # tests/ is on sys.path under pytest
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = OmniLMMConfig(
+        llm=LlamaConfig.tiny(hidden_size=256, intermediate_size=256, num_heads=4,
+                             num_kv_heads=2, vocab_size=512, **bf16),
+        vision=EvaConfig.tiny(image_size=14, embed_dim=128, num_heads=2, mlp_hidden=256,
+                              **bf16),
+        num_query=4)
+    model = init_omnilmm_weights_(OmniLMMForCausalLM(cfg, device="cuda"), gen).eval()
+    if mode == "int8":
+        quantize_llm_int8(model, include_lm_head=False)
+        set_llm_config(quantize_vision_int8(model), kv_cache_dtype="int8")
+    g = OmniLMMGenerator(model, FakeTokenizer(), image_size=28)
+    img = np.random.default_rng(0).integers(0, 255, (40, 30, 3), dtype=np.uint8)
+    items = [{"question": f"Is object {i} present?", "question_id": i, "image": img}
+             for i in range(4)]
+    prompts, starts, images = g._prepare(items)
+    P = int(starts[0]) + g.num_query + 1
+
+    def run(impl):
+        for m in model.modules():
+            if isinstance(m, LlamaAttention):
+                m.attn_impl = impl
+        logits = g.engine.score_shared_prefix(
+            prompts[0][:P], [p[P:] for p in prompts], image=images[0],
+            image_start=int(starts[0]), batch_size=4)
+        res = g.engine.generate(prompts, images=images, image_starts=starts, max_new_tokens=6)
+        return torch.from_numpy(logits), res
+
+    decode, other = decode_attention_prefix_int8, decode_attention_prefix
+    if mode == "bf16":
+        decode, other = other, decode
+    n = (flash_attention.launches, decode.launches, other.launches,
+         qm.int8_matmul.launches + qm.int8_matmul_prequant.launches)
+    fast_logits, fast = run("auto")
+    assert flash_attention.launches > n[0] and decode.launches > n[1]
+    assert other.launches == n[2]
+    assert (qm.int8_matmul.launches + qm.int8_matmul_prequant.launches > n[3]) == (mode == "int8")
+    set_llm_config(model, kv_cache_dtype="fp")  # the dense route on a bf16 cache
+    plain_logits, plain = run("dense")
+    scale = plain_logits.abs().max().item()
+    assert torch.isfinite(fast_logits).all()
+    assert (fast_logits - plain_logits).abs().max().item() <= 5e-2 * scale
+    assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale

@@ -6,6 +6,8 @@ the JAX package `rlaifv_tpu` with a sys.meta_path finder, imports every
 module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
 cache (greedy, continuous diverse_gen, and 3 beams through evals.vqa),
+a tiny OmniLMM through autocheck and diverse_gen (float, then both towers
+int8 in place with an int8 cache),
 then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
@@ -50,7 +52,8 @@ SCRIPT = textwrap.dedent("""
     for name in ("genai.beam", "evals.vqa", "evals.run_eval", "evals.object_halbench",
                  "evals.mmhal", "evals.refomb", "evals.report", "evals.summaries",
                  "evals.text_utils", "evals.gpt_client", "iteration", "genai.continuous",
-                 "chat"):
+                 "chat", "models.eva02", "models.resampler", "models.omnilmm",
+                 "genai.omni_gen"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -123,6 +126,24 @@ SCRIPT = textwrap.dedent("""
                                        fused_decode=fused_decode)
         out = dgen([tmpl(dc.divide_messages({"question": "Q?", "answer": "A cat."}))])
         assert len(out) == 1 and isinstance(out[0], str)
+
+    # the OmniLMM-12B serving slice at tiny widths: autocheck and generate,
+    # then both towers quantised to int8 in place with an int8 cache
+    from rlaifv_tpu_torch.genai.omni_gen import OmniLMMGenerator
+    from rlaifv_tpu_torch.models import omnilmm
+    from rlaifv_tpu_torch.models.convert import quantize_vision_int8
+    ocfg = omnilmm.OmniLMMConfig.tiny(vocab_size=512)
+    omodel = omnilmm.init_omnilmm_weights_(omnilmm.OmniLMMForCausalLM(ocfg),
+                                           torch.Generator().manual_seed(0))
+    ogen = OmniLMMGenerator(omodel, FakeTokenizer(), image_size=ocfg.vision.image_size)
+    oitems = [dict(it, image=img[:28, :28]) for it in items]
+    for quantized in (False, True):
+        if quantized:
+            quantize_llm_int8(omodel, include_lm_head=False)
+            set_llm_config(quantize_vision_int8(omodel), kv_cache_dtype="int8")
+        rows = ogen.autocheck(oitems, batch_size=2)
+        assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
+        assert len(ogen.diverse_gen(oitems[:1] * 2, max_new_tokens=3)) == 2
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy
