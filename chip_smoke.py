@@ -29,11 +29,13 @@ Phases, one progress line each (or a few):
      must break the bound on the GQA step at valid_len 600;
   3b. the flash forward and backward kernels (dq, dk/dv) against the plain
      versions on the same bf16 inputs and dO at the train step's shapes:
-     five fixed ones and the three calls phase 6's collated pair makes
+     five fixed ones, the three calls phase 6's collated pair makes
      (plain, paired prefix, paired suffix at q_offset = Pa), with its
-     masks; max abs errors against stated tolerances, median times,
+     masks, and the same three of phase 17's OmniLMM-12B pair at Mistral's
+     GQA (KVH 8); max abs errors against stated tolerances, median times,
      TFLOP/s, the kernels one call of each launches (one), bounds, SDPA's
-     forward and autograd backward (plain dpo B 2 L 2048, the suffix);
+     forward and autograd backward (plain dpo B 2 L 2048, the two
+     suffixes);
      three broken copies of the dk/dv kernel (the last query head of a kv
      head skipped, the causal mask off, the delta term dropped) and three of
      the dq kernel (the diagonal tile unmasked, the delta term dropped, the
@@ -292,6 +294,25 @@ Phases, one progress line each (or a few):
      step, no #4, #5 or #7, each forced step's #16 against its twin; 16d:
      the seed-0 model rebuilt and quantised to int4 on both towers, one
      autocheck batch, #11 against the plan; facts/s, tok/s, peak GiB;
+  17. (run after 16, its models freed) OmniLMM-12B QLoRA training at full
+     width and depth on configs/omnilmm_dpo_qlora.json (17a) and
+     omnilmm_dpo_qlora_int4.json (17b), each loaded unchanged: the model
+     built by the train entry point's build_omnilmm (seed-0 random weights,
+     63 EVA02 blocks, the head shaped as 16's) and quantised by its
+     quantize_base (17a: the LLM's 7 x 32 projections int8, the tower
+     bf16; 17b: both towers int4); phase 8's 16 rows and 9's short row in
+     the omni convention at 448 px; the reference logps on that base
+     through the shared prefix against the plain scorer; step 0 equal bit
+     for bit to the twin route (every int8 / int4 product by its plain
+     twin), and two planted faults (a doubled dx, a dropped contraction
+     slice) caught by that comparison; step 0 against the "dequant" route
+     (DPO and SFT adapter gradients, bounds set from readings), near ln 2;
+     3 AdamW steps of the config's 4 pairs (the loss
+     lower by step 2); one short step (#7/#8 on 17a); every counted run's
+     #1-#3 and #7-#15 launches against the plan `TrainPlan` derives from
+     its calls (each attention call's route, each quantised projection's
+     rows, each head call's vocabulary chunks; backwards where a gradient
+     arrives); s a step, pairs/s, tokens/s, peak GiB, launches a step;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -304,7 +325,7 @@ Phases, one progress line each (or a few):
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
-runs, 8, 6,
+runs, 17a-b's precomputes, steps and short steps, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -434,6 +455,11 @@ from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     validate_shared_prefix,
 )
 from rlaifv_tpu_torch.train.lora import attach_lora, lora_init, lora_scaled  # noqa: E402
+from rlaifv_tpu_torch.train import paired_forward as paired_mod  # noqa: E402
+from rlaifv_tpu_torch.train.__main__ import (  # noqa: E402
+    build_omnilmm as build_omnilmm_entry,
+    quantize_base,
+)
 from rlaifv_tpu_torch.train.family import get_family  # noqa: E402
 from rlaifv_tpu_torch.train.ref_logp import _encode_rows, score_preference_rows  # noqa: E402
 from rlaifv_tpu_torch.train.trainer import resolve_head  # noqa: E402
@@ -1135,11 +1161,13 @@ def _visible_pairs(Lq: int, Lk: int, causal: bool, q_offset: int) -> int:
     return int(torch.clamp(q_offset + torch.arange(Lq) + 1, max=Lk).sum())
 
 
-def _bwd_cases(pair: dict) -> list:
+def _bwd_cases(pair: dict, omni: dict = None) -> list:
     """3b's cases: five fixed train shapes, then the three attention calls
     the train step makes on its collated pair (phase 6's batch), with that
     batch's own masks: the plain path (2, L, L), the paired prefix
-    (1, Pa, Pa) and the paired suffix (2, W, Pa + W) at q_offset = Pa."""
+    (1, Pa, Pa) and the paired suffix (2, W, Pa + W) at q_offset = Pa; then
+    given `omni`, the same three of phase 17's OmniLMM-12B pair at
+    Mistral's GQA (8 KV heads for 32)."""
     def ones(B, Lk):
         return torch.ones((B, Lk), dtype=torch.int32, device="cuda")
 
@@ -1149,36 +1177,47 @@ def _bwd_cases(pair: dict) -> list:
     pre[:, -5:] = 0  # alignment pad rows of Pa = 640
     suf = tail.clone()
     suf[:, 635:640] = 0  # the prefix's pad rows, tiled
-    mask = torch.from_numpy(pair["batch_np"]["attention_mask"]).cuda()
-    P, L = pair["P"], mask.shape[1]
-    pmask, smask = paired_masks(mask, P, L - P)
-    Pa = pmask.shape[1]
     return [
         dict(name="plain dpo", Lq=2048, KVH=32, off=0, mask=tail),
         dict(name="gqa", Lq=2048, KVH=8, off=0, mask=tail),
         dict(name="paired prefix", Lq=640, KVH=32, off=0, mask=pre),
         dict(name="paired suffix", Lq=1408, KVH=32, off=640, mask=suf),
         dict(name="ragged", Lq=901, KVH=32, off=0, mask=ones(1, 901)),
-        dict(name="train plain", Lq=L, KVH=32, off=0, mask=mask),
-        dict(name="train prefix", Lq=Pa, KVH=32, off=0, mask=pmask),
-        dict(name="train suffix", Lq=L - P, KVH=32, off=Pa, mask=smask),
-    ]
+    ] + _pair_cases("train", pair, KVH=32) + \
+        (_pair_cases("12B", omni, KVH=8) if omni else [])
 
 
-def phase_backward(g, pair: dict, variants) -> dict:
+def _pair_cases(name: str, pair: dict, KVH: int) -> list:
+    """The three attention calls of one collated pair's step: plain over its
+    2 rows, the paired prefix and the paired suffix at q_offset = Pa."""
+    mask = torch.from_numpy(pair["batch_np"]["attention_mask"]).cuda()
+    P, L = pair["P"], mask.shape[1]
+    pmask, smask = paired_masks(mask, P, L - P)
+    Pa = pmask.shape[1]
+    return [dict(name=f"{name} plain", Lq=L, KVH=KVH, off=0, mask=mask),
+            dict(name=f"{name} prefix", Lq=Pa, KVH=KVH, off=0, mask=pmask),
+            dict(name=f"{name} suffix", Lq=L - P, KVH=KVH, off=Pa, mask=smask)]
+
+
+def phase_backward(g, pair: dict, variants, omni: dict) -> dict:
     """3b: the forward kernel and the two backward kernels against their
-    plain versions at the train step's shapes (causal, H = 32, D = 128);
-    #3's and #2's planted faults on the GQA case."""
+    plain versions at the train step's shapes (causal, H = 32, D = 128) and
+    at phase 17's 12B pair (KVH 8); #3's and #2's planted faults on the GQA
+    case."""
     H, D = 32, 128
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "cases": {}}
-    for c in _bwd_cases(pair):
+    # the 12B pair's cases draw from a generator of their own: the phases
+    # after 3b keep the inputs they had before those cases were added
+    g12 = torch.Generator(device="cuda").manual_seed(12)
+    for c in _bwd_cases(pair, omni):
         mask, Lq, KVH, off = c["mask"], c["Lq"], c["KVH"], c["off"]
         B, Lk = mask.shape
-        q, k, v = _randn(g, B, Lq, H, D), _randn(g, B, Lk, KVH, D), _randn(g, B, Lk, KVH, D)
+        cg = g12 if c["name"].startswith("12B") else g
+        q, k, v = _randn(cg, B, Lq, H, D), _randn(cg, B, Lk, KVH, D), _randn(cg, B, Lk, KVH, D)
         out, lse = flash_attention(q, k, v, attention_mask=mask, q_offset=off,
                                    return_lse=True)
         ref_out, ref_lse = flash_attention_ref(q, k, v, mask, True, off)
-        do = _randn(g, B, Lq, H, D)
+        do = _randn(cg, B, Lq, H, D)
         args = (q, k, v, mask, out, lse, do, True, off)
         got = flash_attention_bwd(*args)
         ref = flash_attention_bwd_ref(*args)
@@ -1221,8 +1260,11 @@ def phase_backward(g, pair: dict, variants) -> dict:
         res["dkv_err"] = max(res["dkv_err"], errs[1], errs[2])
         res["cases"][c["name"]] = dict(fwd_ms=t_fwd, dq_ms=t_dq, dkv_ms=t_dkv,
                                        plain_ms=t_plain)
-        if c["name"] in ("plain dpo", "train suffix"):  # the longest, the train step's largest
-            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        # the longest, the 7B and the 12B train steps' largest
+        if c["name"] in ("plain dpo", "train suffix", "12B suffix"):
+            # KV heads repeated to H beforehand (GQA), as flash_library does
+            ql, kl, vl = (t.detach().repeat_interleave(H // t.shape[2], dim=2)
+                          .requires_grad_(True) for t in (q, k, v))
             lib_out = sdpa(ql, kl, vl, _sdpa_mask(mask, Lq, True, off))
             t_lib = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                                         retain_graph=True))
@@ -1286,10 +1328,49 @@ def _grad_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
     return d.max().item(), ratio
 
 
+# 3c's bound on the dl kernel: within one bf16 rounding of the plain dl
+# (the two sum x.w in other orders, so an entry near a rounding boundary
+# can land on either side: one ulp, <= 2^-7 of its magnitude)
+HEAD_DL_RTOL = 2 ** -7
+
+
+def _dl_ratio(got: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(entries that differ, the largest ratio of an entry's difference to
+    HEAD_DL_RTOL x its larger magnitude: one bf16 rounding apart at <= 1)."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    allowed = HEAD_DL_RTOL * torch.maximum(got.abs(), ref.abs())
+    ratio = torch.where(d == 0, torch.zeros_like(d), d / allowed).max().item() \
+        if bool(torch.isfinite(got).all()) else math.inf
+    return int((d != 0).sum()), ratio
+
+
+@contextlib.contextmanager
+def _captured_dl():
+    """The dl kernel's output of each vocabulary chunk, in order, as
+    fused_head_bwd hands it to the dx kernel (the port's wrapper is patched
+    for the block only)."""
+    real, chunks = fh._kernel_dx, []
+
+    def capture(dl, w, dx32, dx, c0, vw, mode):
+        chunks.append(dl[:, :vw].clone())
+        real(dl, w, dx32, dx, c0, vw, mode)
+
+    fh._kernel_dx = capture
+    try:
+        yield chunks
+    finally:
+        fh._kernel_dx = real
+
+
 def head_check(x, w, y, gr, backward: bool = True, fault: str = "", need_dw: bool = True,
                vc=None) -> dict:
     """The fused-head kernels against the plain versions on one input set,
-    the backward through fused_head_bwd's chunk walk (vc forced if given).
+    the backward through fused_head_bwd's chunk walk (vc forced if given):
+    dx against the plain dx, the dl kernel within one bf16 rounding of the
+    plain dl, and dW against dl^T x in fp32 from the kernel's own dl (a
+    rounding flip in dl moves the plain dW by more than dW's bound where an
+    entry's terms cancel; the plain dW is logged beside it).
     `fault` plants one error around the sound kernels (the probe): "g" drops
     the upstream gradient, "onehot" drops the label's one-hot, "lse" shifts
     the saved lse by 0.5, "ragged" leaves the ragged vocabulary tile
@@ -1311,12 +1392,17 @@ def head_check(x, w, y, gr, backward: bool = True, fault: str = "", need_dw: boo
         ref_dx, ref_dw = fused_head_bwd_plain(x, w, y, ref_lse, gr)
         klse = lse + 0.5 if fault == "lse" else lse
         kg = torch.ones_like(gr) if fault == "g" else gr
-        with _dropped_dx_chunk(1) if fault == "chunk" else contextlib.nullcontext():
+        with _dropped_dx_chunk(1) if fault == "chunk" else contextlib.nullcontext(), \
+                _captured_dl() as chunks:
             dx, dw = fused_head_bwd(kx, kw, ky, klse, kg, need_dw=need_dw, vc=vc)
+        dl = torch.cat(chunks, dim=1)[:, :V]
         out["dx_err"], out["dx_ratio"] = _grad_err(dx, ref_dx)
-        ok = ok and out["dx_ratio"] <= 1
+        out["dl_flips"], out["dl_ratio"] = _dl_ratio(dl, fh._dl_plain(x, w, y, ref_lse, gr, 0))
+        ok = ok and out["dx_ratio"] <= 1 and out["dl_ratio"] <= 1
         if need_dw:
-            out["dw_err"], out["dw_ratio"] = _grad_err(dw[:V], ref_dw)
+            own = torch.matmul(dl.float().T, x.float()).to(w.dtype)
+            out["dw_err"], out["dw_ratio"] = _grad_err(dw[:V], own)
+            out["dw_plain_ratio"] = _grad_err(dw[:V], ref_dw)[1]
             ok = ok and out["dw_ratio"] <= 1
     torch.cuda.synchronize()
     out["ok"] = ok
@@ -1472,10 +1558,15 @@ def phase_head(g, pair: dict) -> dict:
                f"max|lse err| {r['lse_err']:.3e} (tol {HEAD_FWD_TOL})")
         if c["backward"]:
             msg += (f" | max|dx err| {r['dx_err']:.3e}"
-                    + (f" max|dW err| {r['dw_err']:.3e}" if need_dw else " (no dW)")
-                    + f" (tol {HEAD_GRAD_RTOL:.4f} x |plain| + {HEAD_GRAD_ATOL} x "
-                    f"max|plain|; worst entry at {r['dx_ratio']:.3f}"
-                    + (f" / {r['dw_ratio']:.3f}" if need_dw else "") + " of it)")
+                    + (f", dW against dl^T x from the kernel's dl max|err| {r['dw_err']:.3e}"
+                       if need_dw else " (no dW)")
+                    + f" (tol {HEAD_GRAD_RTOL:.4f} x |ref| + {HEAD_GRAD_ATOL} x "
+                    f"max|ref|; worst entry at {r['dx_ratio']:.3f}"
+                    + (f" / {r['dw_ratio']:.3f}" if need_dw else "") + " of it"
+                    + (f"; dW against the plain dW at {r['dw_plain_ratio']:.3f}, not a gate"
+                       if need_dw else "")
+                    + f") | dl: {r['dl_flips']} of {M * V} entries one rounding off the "
+                    f"plain dl, worst at {r['dl_ratio']:.3f} of one bf16 rounding")
         res["fwd_err"] = max(res["fwd_err"], r["logp_err"], r["lse_err"])
         res["dx_err"] = max(res["dx_err"], r.get("dx_err", 0.0))
         res["dw_err"] = max(res["dw_err"], r.get("dw_err", 0.0))
@@ -1532,7 +1623,8 @@ def phase_head(g, pair: dict) -> dict:
             f"{f' vc={PROBE_VC}' if fault == 'chunk' else ''}): max|logp err| "
             f"{r['logp_err']:.3e} max|lse err| {r['lse_err']:.3e} max|dx err| "
             f"{r['dx_err']:.3e} max|dW err| {r['dw_err']:.3e} (worst entry at "
-            f"{r['dx_ratio']:.3g} / {r['dw_ratio']:.3g} of its bound) | "
+            f"{r['dx_ratio']:.3g} / {r['dw_ratio']:.3g} of its bound; dl at "
+            f"{r['dl_ratio']:.3g} of one rounding) | "
             f"{'caught' if not r['ok'] else 'MISSED'}")
         if r["ok"]:
             raise AssertionError(f"the 3c bounds miss the planted fault {fault!r}")
@@ -3784,6 +3876,41 @@ LLAMA3_WIDTHS = ((4096, 6144), (4096, 28672), (14336, 4096))
 # 448 px image's rows (32 x 32 patches + the cls token) and a batch of 8
 EVA_WIDTHS = ((1792, 5376), (1792, 15360), (15360, 1792))
 EVA_MS = (1025, 8 * 1025)
+# phase 17's Mistral-7B projections, unfused: q and o (4096 x 4096), k and v
+# (4096 x 1024), gate and up (4096 x 14336), down (14336 x 4096); held bit
+# for bit at 17's rows (`omni_ms`), and 17b's int4 EVA02 tower at its 4
+# images a step (3e)
+MISTRAL_WIDTHS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+EVA_STEP_M = 4 * 1025
+
+
+def omni_ms(rows: list, short: dict, tok) -> tuple:
+    """Phase 17's projection rows from the shapes alone (3d and 3e read
+    them before 17 runs): the config's 4-pair step's prefix B Pa (P padded
+    to a multiple of 128) and suffix 2 B (L - P), the short pair's prefix
+    Pa and suffix 2 W."""
+    c = Config.from_json(str(ROOT / "configs" / OMNI_QLORA[0][1]))
+    qb = omni_batches(rows, short, tok, c)
+    B, L = c.training.per_device_batch_pairs, qb["batch_np"]["input_ids"].shape[1]
+    return (B * (-(-qb["P"] // 128) * 128), 2 * B * (L - qb["P"]),
+            -(-qb["Ps"] // 128) * 128, 2 * qb["W"])
+
+
+def _exact_cases(tag: str, cases, gen, run) -> None:
+    """Each (M, K, N) of `cases` on x, dy from `gen`: run(x, dy, M, K, N)
+    -> {name: (the kernel's output, the twin's)}, every pair equal bit for
+    bit."""
+    for M, K, N in cases:
+        x, dy = _randn(gen, M, K), _randn(gen, M, N)
+        outs = run(x, dy, M, K, N)
+        torch.cuda.synchronize()
+        bad = {k: (a.float() - b.float()).abs().max().item() for k, (a, b) in outs.items()
+               if not torch.equal(a, b)}
+        log(f"{tag} M={M} K={K} N={N}: " + ", ".join(outs) + " equal to the twin bit for bit "
+            f"| {'ok' if not bad else f'FAIL {bad}'}")
+        if bad:
+            raise AssertionError(f"{tag}: kernels disagree with the twins at M={M} K={K} "
+                                 f"N={N}: {bad}")
 
 
 def llama3_ms() -> tuple:
@@ -4026,6 +4153,28 @@ def phase_int8(g, qb: dict) -> dict:
         del x, dy, q, s, xq, dyq, out, plain, run
         torch.cuda.empty_cache()
 
+    # phase 17's Mistral-7B widths at 17's rows, bit for bit only (no
+    # times), from a generator of their own (above): the four kernels and
+    # the wrappers the path calls (the row pass on the card, then #9 / #10)
+    mis = torch.Generator(device="cuda").manual_seed(17)
+    for K, N in MISTRAL_WIDTHS:
+        q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=mis, device="cuda"))
+
+        def run(x, dy, M, K, N):
+            xq, sx = qm.quantize_rows(x.float())
+            dyq, sy = qm.quantize_rows(dy.float() * s)
+            fwd, dx = qm.int8_matmul_plain(x, q, s), qm.int8_matmul_dx_plain(dy, q, s)
+            return {"#7": (qm._kernel_fwd(x, q, s), fwd),
+                    "#9": (qm._kernel_prequant(xq, sx.reshape(-1), q, s), fwd),
+                    "int8_matmul_prequant": (qm.int8_matmul_prequant(x, q, s), fwd),
+                    "#8": (qm._kernel_dx(dy, q, s), dx),
+                    "#10": (qm._kernel_dx_prequant(dyq, sy.reshape(-1), q), dx),
+                    "int8_matmul_dx_prequant": (qm.int8_matmul_dx_prequant(dy, q, s), dx)}
+
+        _exact_cases("[3d int8] phase 17's", [(M, K, N) for M in qb["omni_ms"]], mis, run)
+        del q, s
+    torch.cuda.empty_cache()
+
     # #8 on quotients at and next to half-integers: the short step's rows
     # and the edges of its row tiles, both widths; reruns give the same bits
     for K, N, M in [(4096, 11008, M) for M in (1, 63, 64, 127, qb["m_short"])] + \
@@ -4153,6 +4302,24 @@ def phase_int4(g, qb: dict) -> dict:
             del x, dy, xq, dyq, out, plain, run
         del qp, gs, w8, w8_col
         torch.cuda.empty_cache()
+
+    # phase 17's Mistral-7B widths at 17's rows and 17b's EVA02 tower at its
+    # 4 images, bit for bit only (no times), from a generator of their own:
+    # #11 through the wrapper the path calls (the rows quantised in torch),
+    # #12 (the dispatch takes the dequant dx above INT4_DX_MAX_N columns)
+    mis = torch.Generator(device="cuda").manual_seed(17)
+    for K, N, ms17 in [(K, N, qb["omni_ms"]) for K, N in MISTRAL_WIDTHS] + \
+            [(K, N, (EVA_STEP_M,)) for K, N in EVA_WIDTHS]:
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=mis, device="cuda"))
+
+        def run(x, dy, M, K, N):
+            return {"int4_matmul (#11)": (i4.int4_matmul(x, qp, gs),
+                                          i4.int4_matmul_plain(x, qp, gs)),
+                    "#12": (i4._kernel_dx(dy, qp, gs), i4.int4_matmul_dx_plain(dy, qp, gs))}
+
+        _exact_cases("[3e int4] phase 17's", [(M, K, N) for M in ms17], mis, run)
+        del qp, gs
+    torch.cuda.empty_cache()
 
     # #11 at groups of 256, every shape above
     n256 = 0
@@ -5066,6 +5233,7 @@ def phase_continuous_engine(gen: Llava15Generator, image_bytes: bytes, smi: str,
 # Depth and widths are the published ones; repeats and tokens are cut to keep
 # the phase near two minutes.
 OMNI_IMAGE = 448
+OMNI_QUERIES = 64  # the resampler's queries: image tokens a row
 OMNI_BATCH = 8
 OMNI_NEW = 64
 OMNI_DIVERSE = (["Describe the image in detail.", "What is happening here?"], 5)
@@ -5127,19 +5295,30 @@ def build_omnilmm(tok, tag: str):
 
 class PathPlan:
     """The launches a path plans, read off its calls inside a `with`: each
-    pass of the language model plans #1 a layer where
-    ops/attention.py:attention_route says "flash", #4 a layer on a decode
-    step it routes to "decode", #5 a layer on an int8-cache decode step in
-    the kernel's domain; each quantised projection (QuantDense, both
-    towers) plans #9 from INT8_DEQUANT_MIN_M rows and #7 below (int8), #11
-    (int4, where its kernel takes the shapes). Counted beside the launch
-    counters, from the shapes alone."""
+    pass of the language model `llm` (where one is given) plans #1 a layer
+    where ops/attention.py:attention_route says "flash", #4 a layer on a
+    decode step it routes to "decode", #5 a layer on an int8-cache decode
+    step in the kernel's domain; each quantised projection (QuantDense,
+    both towers) plans its forward kernel by rows and bits (#9 from
+    INT8_DEQUANT_MIN_M rows on INT8_LARGE_M_IMPL "prequant", #7 below; #11
+    where its kernel takes the shapes) and, when its output takes a
+    gradient, its dx (#10 after #9, #8 after #7; #12 up to INT4_DX_MAX_N
+    columns, the dequant formula above). Backwards count the gradients that
+    arrive (a hook on the output). Counted beside the launch counters, from
+    the shapes and the routes' own rules."""
 
-    def __init__(self, llm: LlamaForCausalLM):
+    def __init__(self, llm: LlamaForCausalLM = None):
         self.llm, self.counts = llm, {}
 
     def _add(self, key: str, n: int) -> None:
         self.counts[key] = self.counts.get(key, 0) + n
+
+    def _when_grad(self, out: torch.Tensor, keys: dict) -> None:
+        if out.requires_grad:
+            def planned(grad):
+                for key, n in keys.items():
+                    self._add(key, n)
+            out.register_hook(planned)
 
     def _attention(self, L: int, attention_mask, cache, cache_index) -> None:
         cfg = self.llm.cfg
@@ -5160,33 +5339,45 @@ class PathPlan:
             self._add(route, cfg.num_layers)
 
     def __enter__(self):
-        forward, product = self.llm.forward, llama_mod.quant_product
-
-        def planned_forward(input_ids=None, *, inputs_embeds=None, attention_mask=None,
-                            cache=None, cache_index=None, **kw):
-            L = (input_ids if inputs_embeds is None else inputs_embeds).shape[1]
-            self._attention(L, attention_mask, cache, cache_index)
-            return forward(input_ids, inputs_embeds=inputs_embeds,
-                           attention_mask=attention_mask, cache=cache,
-                           cache_index=cache_index, **kw)
+        product = llama_mod.quant_product
+        dx_of = {"int8": "int8_dx", "int8_prequant": "int8_dx_prequant"}
 
         def planned_product(x, q, scale, bits):
+            out = product(x, q, scale, bits)
             if bits == 4:
-                if i4._impl() == "kernel" and i4._kernel_legal(q, scale):
+                kernel = i4._impl() == "kernel" and i4._kernel_legal(q, scale)
+                if kernel:
                     self._add("int4", 1)
-            elif qm._rows(x) >= qm.INT8_DEQUANT_MIN_M:
-                self._add("int8_prequant", 1)
-            else:
-                self._add("int8", 1)
-            return product(x, q, scale, bits)
+                self._when_grad(out, {"int4_dx" if kernel and q.shape[1] <= i4.INT4_DX_MAX_N
+                                      else "int4_dequant_dx": 1})
+                return out
+            impl = qm._large_m_impl() if qm._rows(x) >= qm.INT8_DEQUANT_MIN_M else "kernel"
+            fwd = {"prequant": "int8_prequant", "kernel": "int8"}.get(impl)
+            if fwd:
+                self._add(fwd, 1)
+                self._when_grad(out, {dx_of[fwd]: 1})
+            return out
 
-        self._restore = (forward, product)
-        self.llm.forward, llama_mod.quant_product = planned_forward, planned_product
+        self._product = product
+        llama_mod.quant_product = planned_product
+        if self.llm is not None:
+            forward = self.llm.forward
+
+            def planned_forward(input_ids=None, *, inputs_embeds=None, attention_mask=None,
+                                cache=None, cache_index=None, **kw):
+                L = (input_ids if inputs_embeds is None else inputs_embeds).shape[1]
+                self._attention(L, attention_mask, cache, cache_index)
+                return forward(input_ids, inputs_embeds=inputs_embeds,
+                               attention_mask=attention_mask, cache=cache,
+                               cache_index=cache_index, **kw)
+
+            self.llm.forward = planned_forward
         return self
 
     def __exit__(self, *exc):
-        del self.llm.forward  # the class's method again
-        llama_mod.quant_product = self._restore[1]
+        if self.llm is not None:
+            del self.llm.forward  # the class's method again
+        llama_mod.quant_product = self._product
 
     def check(self, tag: str, launches: dict, keys) -> None:
         """Each named kernel's launches against the plan; raise if one is
@@ -5580,6 +5771,485 @@ def phase_omnilmm(tok, image_bytes: bytes, work: str, smi: str) -> dict:
     return launches
 
 
+# 17: OmniLMM-12B QLoRA training, configs/omnilmm_dpo_qlora.json (17a: LLM
+# projections int8, EVA02 tower bf16) and omnilmm_dpo_qlora_int4.json (17b:
+# both towers int4), each loaded unchanged and quantised by the entry
+# point's own `quantize_base`; phase 8's 16 rows and 9's short row in the omni
+# convention (omni_preprocess, a literal <im_patch> span) at 448 px. The
+# keys whose launches each counted run holds to its plan:
+TRAIN_KEYS = ("flash", "dq", "dkv", "int8", "int8_dx", "int8_prequant", "int8_dx_prequant",
+              "int4", "int4_dx", "head_fwd", "head_dl", "head_dx", "head_dw")
+OMNI_QLORA = (("17a omnilmm int8", "omnilmm_dpo_qlora.json"),
+              ("17b omnilmm int4", "omnilmm_dpo_qlora_int4.json"))
+# 17's bounds. The gate on the kernels is exact: step 0 on the kernel
+# route against the twin route (`twin_products`: every int8 / int4 product
+# by its plain twin on the card, the same int8 operands summed exactly in
+# fp64, the row passes and every other kernel kept), the loss, both logps
+# and every adapter gradient equal bit for bit; 3d / 3e hold the product
+# kernels bit-equal to the twins at this phase's shapes, and the other
+# kernels are deterministic, so a sound run repeats the twin route's bits.
+# Two planted faults (OMNI_FAULTS) go through the same comparison and must
+# fail it. The bounds below, set from readings (NVIDIA H100 80GB HBM3,
+# PERF.md section 6), hold the quantised routes to the float formula.
+# This random 12B model moves far more than LLaVA under any change of
+# rounding (its resampled image tokens have norm ~63 against ~1.3 for text,
+# 16a), and an int8 or int4 projection turns an ulp of difference into a
+# whole step of its row's quantisation (tools/omni_witness.py reads the
+# same comparisons with every attention forced dense). Shared-prefix
+# reference logps against the plain scorer (fused head) on the same base:
+# sums and means max rel 0.0273 (int8) / 0.0184 (int4), per-token |d| mean
+# 0.235 / 0.247 nats; on the bf16 base 0.0025 and 0.061 (phase 8's bounds,
+# 5e-3 and 0.05, are LLaVA's); the bounds sit ~2x outside the quantised
+# readings
+OMNI_REF_RTOL = 0.06
+OMNI_REF_TOKEN_TOL = 0.5
+# Step 0 against the "dequant" route (as in 9 and 10): logps max rel
+# 2.15e-3 / 2.49e-3 (phase 9's QLORA_LOGP_RTOL holds), losses 0.089 / 0.230
+# apart; the DPO margin's b gradients rel 0.68-0.78 / 0.50-0.70, cosine >=
+# 0.730 / 0.797 (phase 9's 0.6 / 0.85 do not hold); the SFT term's rel
+# 0.086-0.485 / 0.095-0.514, cosine >= 0.882 / 0.868. The bounds sit ~1.5x
+# outside the readings (rel, 1 - cosine), ~2x for the loss
+OMNI_ROUTE_TOL = dict(logp=QLORA_LOGP_RTOL, loss=0.5, rel=1.2, cos=0.6, sft_rel=0.8,
+                      sft_cos=0.8)
+# 17's planted faults around the sound product kernels of the base (#9 /
+# #10 on int8, #11 / #12 on int4), on step 0: every dx the kernel returns
+# doubled, and each forward product without the last 128 columns of its
+# contraction (the rows' operand zeroed there: a dropped stage)
+OMNI_FAULTS = ("dx doubled", "last contraction slice dropped")
+# Step 0 near ln 2: the reference logps come from the shared-prefix engine
+# (the prefix left-padded) and the policy's from the paired forward (right-
+# padded): read +0.107 (int8) / +0.140 (int4), a margin of ~2-3 nats on
+# sequences of ~2600. Held ~2x outside the readings
+OMNI_LN2_TOL = 0.3
+
+
+class TrainPlan(PathPlan):
+    """A training path's plan: PathPlan's quantised projections, and each
+    attention call (not each pass: a training pass's calls take the paired
+    path's own shapes) plans #1 where ops/attention.py:attention_route says
+    "flash" and, when its output takes a gradient, #2 and #3; each
+    fused-head forward plans #13/#14 and, when its logps take a gradient,
+    #15's dl and dx once a vocabulary chunk (`chunk_width`), dW where the
+    head trains. Forwards count every call, a remat recompute included."""
+
+    def __enter__(self):
+        super().__enter__()
+        attention, head_fwd, head_apply = (llama_mod.multi_head_attention, fh.fused_head_fwd,
+                                           fh._FusedHead.apply)
+
+        def planned_attention(q, k, v, *, attention_mask=None, causal=True, q_offset=None,
+                              impl="auto"):
+            same = q.dtype == k.dtype == v.dtype
+            route = attention_route(Lq=q.shape[1], Lk=k.shape[1], D=q.shape[3],
+                                    q_offset=q_offset, has_mask=attention_mask is not None,
+                                    on_cuda=q.is_cuda, dtype=q.dtype if same else None,
+                                    n_rep=q.shape[2] // k.shape[2], impl=impl)
+            out = attention(q, k, v, attention_mask=attention_mask, causal=causal,
+                            q_offset=q_offset, impl=impl)
+            if route == "flash":
+                self._add("flash", 1)
+                self._when_grad(out, {"dq": 1, "dkv": 1})
+            return out
+
+        def planned_head_fwd(x, w, y):
+            if x.is_cuda:
+                self._add("head_fwd", 1)
+            return head_fwd(x, w, y)
+
+        def planned_head_apply(x, w, y):
+            logp = head_apply(x, w, y)
+            chunks = -(-w.shape[0] // chunk_width(x.shape[0], w.shape[0]))
+            self._when_grad(logp, {"head_dl": chunks, "head_dx": chunks,
+                                   "head_dw": chunks if w.requires_grad else 0})
+            return logp
+
+        self._restore = (attention, head_fwd)
+        llama_mod.multi_head_attention = paired_mod.multi_head_attention = planned_attention
+        fh.fused_head_fwd = planned_head_fwd
+        fh._FusedHead.apply = planned_head_apply
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        attention, head_fwd = self._restore
+        llama_mod.multi_head_attention = paired_mod.multi_head_attention = attention
+        fh.fused_head_fwd = head_fwd
+        del fh._FusedHead.apply  # torch.autograd.Function's again
+
+
+@contextlib.contextmanager
+def twin_products():
+    """Inside, every int8 / int4 product kernel of a quantised projection
+    (#7-#12) is replaced by its plain twin on the card: the same int8
+    operands summed exactly (fp64), then the kernels' own fp32 rounding
+    and scaling. The row passes and every other kernel stay. Nothing here
+    launches #7-#12."""
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (qm, "_kernel_fwd"), (qm, "_kernel_dx"), (qm, "_kernel_prequant"),
+        (qm, "_kernel_dx_prequant"), (i4, "_kernel_fwd"), (i4, "_kernel_dx"))]
+    bf16 = torch.bfloat16
+    qm._kernel_fwd = lambda x2, q, scale, plan=None: qm.int8_matmul_plain(x2, q, scale)
+    qm._kernel_dx = qm.int8_matmul_dx_plain
+    qm._kernel_prequant = lambda xq, sx, q, scale, plan=None: qm.int8_matmul_prequant_plain(
+        xq, sx.reshape(-1, 1), q, scale).to(bf16)
+    qm._kernel_dx_prequant = lambda dyq, sy, q: qm.int8_matmul_dx_prequant_plain(
+        dyq, sy.reshape(-1, 1), q).to(bf16)
+    i4._kernel_fwd = lambda xq, sx, qp, gs: i4.int4_product_plain(
+        xq, sx.reshape(-1, 1), qp, gs).to(bf16)
+    i4._kernel_dx = i4.int4_matmul_dx_plain
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def omni_fault(name: str, bits: int):
+    """One of OMNI_FAULTS planted around the sound kernels inside: the
+    large-row int8 kernels (#9, #10) or the int4 ones (#11, #12)."""
+    owner, fwd, dx = (qm, "_kernel_prequant", "_kernel_dx_prequant") if bits == 8 \
+        else (i4, "_kernel_fwd", "_kernel_dx")
+    attr = dx if name == "dx doubled" else fwd
+    real = getattr(owner, attr)
+
+    def doubled(*args):
+        return 2 * real(*args)
+
+    def sliced(xq, *args):
+        xq = xq.clone()
+        xq[:, -128:] = 0
+        return real(xq, *args)
+
+    setattr(owner, attr, doubled if name == "dx doubled" else sliced)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, real)
+
+
+def omni_grad_names(n_layers: int) -> dict:
+    """The adapter gradients 17 compares by relative error and cosine: the
+    b of q, v and down in the first and last layers."""
+    return {f"layer {i} {p} b": f"llm/model/layer_{i}/{blk}/{p}/b"
+            for i in (0, n_layers - 1)
+            for blk, p in (("attn", "q_proj"), ("attn", "v_proj"), ("mlp", "down_proj"))}
+
+
+def step0_verdict(run: tuple, twin: tuple, deq: tuple, names: dict, tol: dict) -> dict:
+    """17's step-0 comparison of `run` (loss, logps, every adapter gradient
+    by tensor name): equal to the twin route's bit for bit, and within tol
+    of the dequant route's (loss, logps, the `names` gradients by relative
+    error and cosine)."""
+    equal = run[0] == twin[0] and run[1] == twin[1] and \
+        all(torch.equal(g, twin[2][n]) for n, g in run[2].items())
+    max_d = max((g - twin[2][n]).abs().max().item() for n, g in run[2].items())
+    d_loss, d_logp, grads = compare_runs(
+        (run[0], run[1], {k: run[2][n] for k, n in names.items()}), deq)
+    near = d_loss <= tol["loss"] and d_logp <= tol["logp"] and all(
+        r <= tol["rel"] and cs >= tol["cos"] for r, cs in grads.values())
+    return dict(equal=equal, max_d=max_d, d_loss_twin=abs(run[0] - twin[0]), d_loss=d_loss,
+                d_logp=d_logp, grads=grads, near=near, ok=equal and near)
+
+
+def _verdict_text(v: dict, tol: dict) -> str:
+    return (f"against the twin route: equal bit for bit {v['equal']} (loss |d| "
+            f"{v['d_loss_twin']:.3e}, gradients max|d| {v['max_d']:.3e}) | against the dequant "
+            f"route: loss |d| {v['d_loss']:.4f} (tol {tol['loss']}), logps max rel "
+            f"{v['d_logp']:.2e} (tol {tol['logp']}), "
+            + " | ".join(f"{k}: rel {r:.3e} cos {cs:.6f}" for k, (r, cs) in v["grads"].items())
+            + f" (tol rel {tol['rel']}, cos {tol['cos']}): within {v['near']}")
+
+
+def omni_items(rows: list, tok, logps=None) -> list:
+    """The (rej, win) items DPODataset builds from parquet rows in the omni
+    convention (omni_preprocess, the <image> tag expanded to <im_start>
+    <im_patch>*64 <im_end> as text), at 448 px, with their reference
+    logps."""
+    spec = get_family("omnilmm")
+    mm_cfg = spec.mm_cfg(spec.image_processor(OMNI_IMAGE), OMNI_QUERIES)
+    items = _encode_rows(rows, tok, mm_cfg, spec.preprocess_func)
+    for (rej, win), lp in zip(items, logps or []):
+        win["ref_win_logp"], win["ref_win_avg_logp"], win["ref_win_per_token_logp"] = lp[:3]
+        rej["ref_rej_logp"], rej["ref_rej_avg_logp"], rej["ref_rej_per_token_logp"] = lp[3:]
+    return items
+
+
+def omni_batches(rows: list, short, tok, c, ref=None) -> dict:
+    """17, data: the config's pairs a step (the first rows) collated as
+    train.py collates them (DPOCollator's bucket 256, the <im_patch> span
+    located, max_len from the config), its shared prefix derived (P = the
+    first <im_patch> + 64: the image ends inside the prefix); given a short
+    row, its pair with the suffix trimmed to the labels (W a multiple of 16,
+    or the rest of the row where that is shorter; 2 W rows <
+    INT8_DEQUANT_MIN_M)."""
+    t = c.training
+    collator = DPOCollator(pad_token_id=tok.pad_token_id, max_len=c.data.max_len,
+                           num_patches=OMNI_QUERIES, beta=t.dpo_beta,
+                           **get_family("omnilmm").collator_kwargs(tok))
+    items = omni_items(rows + ([short] if short else []), tok, ref)
+    batch = collator(items[:t.per_device_batch_pairs])
+    P = derive_shared_prefix_len(batch, OMNI_QUERIES)
+    validate_shared_prefix(batch, P, OMNI_QUERIES)
+    assert P == int(batch["image_starts"].max()) + OMNI_QUERIES, P
+    out = dict(batch_np=batch, P=P)
+    if short:
+        sbatch = collator(items[-1:])
+        Ps = derive_shared_prefix_len(sbatch, OMNI_QUERIES)
+        last = int(np.nonzero((sbatch["labels"] != IGNORE_INDEX).any(axis=0))[0].max()) + 1
+        W = min(-(-(last - Ps) // 16) * 16, sbatch["labels"].shape[1] - Ps)
+        validate_shared_prefix(sbatch, Ps, OMNI_QUERIES, suffix_len=W)
+        assert 2 * W < qm.INT8_DEQUANT_MIN_M, (W, qm.INT8_DEQUANT_MIN_M)
+        out.update(short_np=sbatch, Ps=Ps, W=W)
+    return out
+
+
+def omni_pair(rows: list, tok) -> dict:
+    """3b's 12B pair: the first row collated alone as phase 17 collates."""
+    c = Config.from_json(str(ROOT / "configs" / OMNI_QLORA[0][1]))
+    c.training.per_device_batch_pairs = 1
+    return omni_batches(rows, None, tok, c)
+
+
+def _omni_train_model(tok, c, tag: str):
+    """The entry point's build_omnilmm for config `c` on the card, random
+    weights from seed 0 (the head shaped to the printable ids, as phase
+    16's), then its `quantize_base`: the config's own
+    quantisation rule, in place."""
+    t0 = time.perf_counter()
+    cfg, model = build_omnilmm_entry(c, "cuda")
+    init_omnilmm_weights_(model, torch.Generator(device="cuda").manual_seed(0))
+    shape_head_(model.llm.lm_head.weight, printable_ids(tok))
+    quantize_base(c, model)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm_q = [m for m in model.llm.modules() if isinstance(m, QuantDense)]
+    tower_q = [m for m in model.vision_tower.modules() if isinstance(m, QuantDense)]
+    bits, depth = c.model.quantize_bits, len(model.vision_tower.blocks)
+    qkv = model.vision_tower.blocks[0].attn.qkv
+    log(f"[{tag}] OmniLMM-12B by the entry point's build_omnilmm (remat "
+        f"{model.cfg.llm.remat}), random weights (seed 0), quantised by its quantize_base in "
+        f"{time.perf_counter() - t0:.1f} s: {len(llm_q)} int{bits} QuantDense in the LLM "
+        f"(7 x {cfg.llm.num_layers}), {len(tower_q)} in the EVA02 tower ({depth} blocks; "
+        f"qkv {type(qkv).__name__}"
+        f"{'' if isinstance(qkv, QuantDense) else ' ' + str(qkv.weight.dtype)}), lm_head "
+        f"{type(model.llm.lm_head).__name__} {model.llm.lm_head.weight.dtype} | "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    if len(llm_q) != 7 * cfg.llm.num_layers or any(m.bits != bits for m in llm_q + tower_q) \
+            or len(tower_q) != (4 * depth if bits == 4 else 0) \
+            or isinstance(model.llm.lm_head, QuantDense) or not model.cfg.llm.remat \
+            or (bits == 8 and qkv.weight.dtype != torch.bfloat16):
+        raise AssertionError(f"{tag}: the base is not the config's quantisation rule")
+    return model
+
+
+def _planned_run(tag: str, fn):
+    """fn() with every counter at 0 inside a TrainPlan -> (its result, the
+    launches, seconds, the plan's counts); the launches held to the plan."""
+    torch.cuda.synchronize()
+    with TrainPlan() as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = read_counts()
+    plan.check(tag, n, TRAIN_KEYS)
+    return out, n, dt, plan.counts
+
+
+def phase_omni_qlora(tok, rows: list, short: dict, tag: str, name: str) -> tuple:
+    """17a / 17b: the config's base, the reference logps of the 16 rows and
+    the short one on it (shared prefix, against the plain scorer), step 0
+    against the "dequant" route (DPO and SFT gradients), 3 AdamW steps of
+    the config's 4 pairs, one short step -> (launches, rates)."""
+    c = Config.from_json(str(ROOT / "configs" / name))
+    t, bits = c.training, c.model.quantize_bits
+    assert c.model.model_family == "omnilmm" and c.model.quantize and t.use_lora
+    assert t.per_device_batch_pairs == 4 and c.data.max_len == 2048
+    assert t.shared_prefix_len == -1 and getattr(t, "lm_head_impl", "auto") == "auto"
+    model = _omni_train_model(tok, c, tag)
+    cfg, spec = model.cfg, get_family("omnilmm")
+    n_layers = cfg.llm.num_layers
+    launches = {}
+
+    # the reference logps on the quantised base
+    kw = dict(max_len=c.data.max_len, num_patches=cfg.num_image_tokens, batch_pairs=8,
+              image_processor=spec.image_processor(OMNI_IMAGE), progress=False,
+              family="omnilmm")
+    score_preference_rows(rows[:2], model, tok, shared_prefix=True, **kw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ref, n, ref_s, _ = _planned_run(f"{tag} ref-logp", lambda: score_preference_rows(
+        rows + [short], model, tok, shared_prefix=True, **kw))
+    add_counts(launches, n)
+    ref_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    plain = score_preference_rows(rows + [short], model, tok, shared_prefix=False,
+                                  lm_head_impl="fused", **kw)
+    rel, tmean, tmax = _seq_close(ref, plain, OMNI_REF_RTOL)
+    ok = rel <= OMNI_REF_RTOL and tmean <= OMNI_REF_TOKEN_TOL and \
+        all(np.isfinite(r[k]) for r in ref for k in (0, 1, 3, 4))
+    log(f"[{tag}] ref-logp on the int{bits} base (shared-prefix path): {len(ref)} pairs in "
+        f"{ref_s:.3f} s = {len(ref) / ref_s:.2f} pairs/s | peak {ref_gb:.2f} GiB | launches "
+        + ", ".join(f"{k} {n[k]}" for k in TRAIN_KEYS if n[k])
+        + f" | against the plain scorer (fused head, not counted): sums and means max rel "
+        f"{rel:.3e} (tol {OMNI_REF_RTOL}), per-token |d| mean {tmean:.3e} (tol "
+        f"{OMNI_REF_TOKEN_TOL}) max {tmax:.3e} | logps row 0 {ref[0][0]:.2f}/{ref[0][3]:.2f} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the shared-prefix reference logps disagree with the "
+                             "plain scorer")
+
+    qb = omni_batches(rows, short, tok, c, ref)
+    hp = DPOHparams(beta=t.dpo_beta, dpo_use_average=t.dpo_use_average,
+                    lm_head_impl=resolve_head(t, cfg.llm.hidden_size, cfg.llm.dtype),
+                    shared_prefix_len=qb["P"])
+    assert hp.lm_head_impl == "fused", hp.lm_head_impl
+    batch = batch_to_device(qb["batch_np"], "cuda")
+    adapter = spec.adapter(model)
+    assert type(adapter).__name__ == "OmnilmmDPOAdapter"
+    model.train()
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+    n_lora = sum(x.numel() for _, x in named_tensors(lora))
+    optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                               weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                               schedule="constant")
+    step = make_lora_dpo_train_step(adapter, optimizer, hp, lora, lora_alpha=t.lora_alpha)
+    feats = adapter.encode_images_fn(batch["images"][:1])  # grad mode on, base frozen
+    tower_graph = feats.requires_grad
+    del feats
+    B, (L, P) = t.per_device_batch_pairs, (qb["batch_np"]["input_ids"].shape[1], qb["P"])
+    tokens = B * P + 2 * B * (L - P)
+    real = B * P + int(qb["batch_np"]["attention_mask"][:, P:].sum())
+    log(f"[{tag}] {B} pairs padded to L={L} (bucket 256), image spans at "
+        f"{sorted(set(int(s) for s in qb['batch_np']['image_starts']))}, derived P={P} "
+        f"(array {-(-P // 128) * 128}), W={L - P}: {tokens} tokens a step, {real} not "
+        f"padding | adapters r {t.lora_r} alpha {t.lora_alpha} on the LLM's 7 x {n_layers} "
+        f"projections: {n_lora / 1e6:.1f} M fp32 values | head {hp.lm_head_impl}, remat, "
+        f"constant lr {QLORA_LR} | the frozen tower's features require grad: {tower_graph}")
+    if tower_graph:
+        raise AssertionError(f"{tag}: the frozen EVA02 tower records a graph")
+
+    # step 0, none of it counted: on the kernel route, the twin route and
+    # the "dequant" route (DPO loss and the SFT term), then with each
+    # planted fault through the same comparison
+    names = omni_grad_names(n_layers)
+    every = {nm: nm for nm, _ in named_tensors(lora)}
+    tol = OMNI_ROUTE_TOL
+    owner, attr, kernel_impl = (qm, "INT8_LARGE_M_IMPL", "prequant") if bits == 8 \
+        else (i4, "INT4_IMPL", "kernel")
+    hp_sft = dataclasses.replace(hp, dpo_weight=0.0, sft_weight=1.0)
+
+    def loss_grads(hp_, grads=every):
+        return _lora_loss_grads(model, adapter, batch, hp_, lora, t.lora_alpha, grads)
+
+    setattr(owner, attr, "dequant")
+    try:
+        deq, sft_deq = loss_grads(hp, names), loss_grads(hp_sft, names)
+    finally:
+        setattr(owner, attr, kernel_impl)
+    t0 = time.perf_counter()
+    ker = loss_grads(hp)
+    torch.cuda.synchronize()
+    ker_s = time.perf_counter() - t0
+    with twin_products():
+        t0 = time.perf_counter()
+        twin = loss_grads(hp)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+    verdict = step0_verdict(ker, twin, deq, names, tol)
+    log(f"[{tag}] step 0, {kernel_impl} (kernels) route: loss {ker[0]:.6f}, logps "
+        f"{ker[1][0]:.2f}/{ker[1][1]:.2f} ({ker_s:.2f} s; the twin route {twin_s:.2f} s) | "
+        + _verdict_text(verdict, tol) + f" | {'ok' if verdict['ok'] else 'FAIL'}")
+    if not verdict["ok"]:
+        raise AssertionError(f"{tag}: step 0 disagrees with the twin or the dequant route")
+    _, _, sft_grads = compare_runs(loss_grads(hp_sft, names), sft_deq)
+    ok = all(r <= tol["sft_rel"] and cs >= tol["sft_cos"] for r, cs in sft_grads.values())
+    log(f"[{tag}] step 0, SFT term (chosen mean logp), {kernel_impl} vs dequant route: "
+        + " | ".join(f"{k}: rel {r:.3e} cos {cs:.6f}" for k, (r, cs) in sft_grads.items())
+        + f" (tol rel {tol['sft_rel']}, cos {tol['sft_cos']}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: the SFT gradient disagrees with the dequant route")
+    for fault in OMNI_FAULTS:
+        with omni_fault(fault, bits):
+            v = step0_verdict(loss_grads(hp), twin, deq, names, tol)
+        log(f"[{tag}] step 0, planted fault {fault!r}: " + _verdict_text(v, tol)
+            + f" | {'caught' if not v['ok'] else 'MISSED'}")
+        if v["ok"]:
+            raise AssertionError(f"{tag}: the step-0 comparison misses the fault {fault!r}")
+    del ker, twin
+
+    losses, times, per_step = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        metrics, n, dt, planned = _planned_run(f"{tag} step {i}", lambda: step(batch))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        times.append(dt)
+        add_counts(launches, n)
+        losses.append(loss)
+        per_step.append({k: n[k] for k in TRAIN_KEYS if n[k]})
+        log(f"[{tag}] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | {dt:.3f} s | "
+            f"launches {per_step[-1]} (dequant dx planned "
+            f"{planned.get('int4_dequant_dx', 0)}; the head is frozen)")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"{tag}: non-finite loss or zero grad norm at step {i}")
+        if i == 0 and abs(loss - math.log(2)) > OMNI_LN2_TOL:
+            raise AssertionError(f"{tag}: step-0 loss {loss} not within {OMNI_LN2_TOL} "
+                                 "of ln 2")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = statistics.mean(times[1:])
+    rates = dict(step_s=step_s, pairs_s=B / step_s, tokens_s=tokens / step_s,
+                 real_tokens_s=real / step_s, peak_gb=peak_gb, ref_pairs_s=len(ref) / ref_s,
+                 ref_gb=ref_gb, launches_step=per_step[-1])
+    log(f"[{tag}] steps 1-2 (after step 0): {step_s:.3f} s a step = {B / step_s:.3f} "
+        f"pairs/s = {tokens / step_s:.0f} tokens/s with padding, {real / step_s:.0f} "
+        f"without | peak device memory {peak_gb:.2f} GiB | loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (step 0 within {OMNI_LN2_TOL} of ln 2 = {math.log(2):.6f}: "
+        f"{losses[0] - math.log(2):+.3e})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall over 2 updates: {losses}")
+
+    # the short pair: its suffix rows (2 W) take #7 / #8 (int8) or #11 / #12
+    Ps, W = qb["Ps"], qb["W"]
+    short_step = make_lora_dpo_train_step(
+        adapter, optimizer, dataclasses.replace(hp, shared_prefix_len=Ps, shared_suffix_len=W),
+        lora, lora_alpha=t.lora_alpha)
+    metrics, n, dt, _ = _planned_run(f"{tag} short step", lambda: short_step(
+        batch_to_device(qb["short_np"], "cuda")))
+    add_counts(launches, n)
+    loss = float(metrics["loss"])
+    log(f"[{tag}] short step: 1 pair, P={Ps}, suffix trimmed to W={W} ({2 * W} rows < "
+        f"{qm.INT8_DEQUANT_MIN_M}): loss {loss:.6e} | {dt:.3f} s | launches "
+        f"{ {k: n[k] for k in TRAIN_KEYS if n[k]} }")
+    small = ("int8", "int8_dx") if bits == 8 else ("int4", "int4_dx")
+    if not math.isfinite(loss) or min(n[k] for k in small) < 1:
+        raise AssertionError(f"{tag}: the short step missed its kernels: {n}")
+    rates["short_s"] = dt
+    del step, short_step, optimizer, lora, batch, model, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rates
+
+
+def phase_omni_train(tok, image_bytes: bytes, smi: str) -> dict:
+    """17: OmniLMM-12B QLoRA training, 17a int8 then 17b int4 (each on a
+    seed-0 model of its own, the other freed) -> the launches of their
+    counted runs."""
+    rows, short = synth_rows(image_bytes), short_row(image_bytes)
+    launches, rates = {}, {}
+    for tag, name in OMNI_QLORA:
+        n, rates[tag] = timed(tag, phase_omni_qlora, tok, rows, short, tag, name)
+        add_counts(launches, n)
+    log(f"[17 omnilmm qlora] {smi}: " + " | ".join(
+        f"{tag}: {r['step_s']:.3f} s a step, {r['pairs_s']:.3f} pairs/s, "
+        f"{r['tokens_s']:.0f} tokens/s ({r['real_tokens_s']:.0f} without padding), peak "
+        f"{r['peak_gb']:.2f} GiB; ref-logp {r['ref_pairs_s']:.2f} pairs/s, peak "
+        f"{r['ref_gb']:.2f} GiB; short step {r['short_s']:.3f} s; launches a step "
+        f"{r['launches_step']}" for tag, r in rates.items())
+        + f" | launches {launches}")
+    return launches
+
+
 def eva_quant_dense(tag: str, g, bits: int) -> dict:
     """3d / 3e at the EVA02 tower's projections: QuantDense with its bias,
     the whole call (row pass, product, bias) at M = 1025 (one 448 px
@@ -5662,10 +6332,11 @@ def main() -> None:
     rows = synth_rows(image_bytes)
     pair = collate_train_pair(preference_items(rows, tok, cfg), tok, cfg)
     short = short_row(image_bytes)
-    bwd = timed("3b flash backward", phase_backward, g, pair, flash_variants)
+    bwd = timed("3b flash backward", phase_backward, g, pair, flash_variants,
+                omni_pair(rows, tok))
     pool.shutdown()
     head = timed("3c fused head", phase_head, g, pair)
-    qb = qlora_batches(rows, short, tok, cfg)
+    qb = dict(qlora_batches(rows, short, tok, cfg), omni_ms=omni_ms(rows, short, tok))
     int8 = timed("3d int8", phase_int8, g, qb)
     int4 = timed("3e int4", phase_int4, g, qb)
     kv8 = timed("3f int8 decode", phase_kv8_kernel, g)
@@ -5727,6 +6398,9 @@ def main() -> None:
         add_counts(launches, timed("16 omnilmm", phase_omnilmm, tok, image_bytes, work, smi))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # 17 trains OmniLMM-12B's adapters on its two QLoRA configs, 16's models
+    # freed, each config on a model of its own
+    add_counts(launches, timed("17 omnilmm qlora", phase_omni_train, tok, image_bytes, smi))
 
     # 8 scores the rows with the frozen starting policy; 7 and 6 train that
     # same model on the first row's pair against those reference logps (7
@@ -5761,11 +6435,11 @@ def main() -> None:
 
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
-        f"the feedback pipeline 13, OmniLMM-12B 16a-e, ref-logp 8, train 6, QLoRA 9, int4 "
-        f"QLoRA 10): {launches}")
+        f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, ref-logp 8, "
+        f"train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
-    suffix = bwd["cases"]["train suffix"]
+    suffix, sfx12 = bwd["cases"]["train suffix"], bwd["cases"]["12B suffix"]
     gqa = kern["decode_cases"]["Llama3 GQA"]
     kernels = [
         _row("flash_attention_fwd", "rlaifv_tpu_torch/csrc/flash_attention.cu",
@@ -5778,13 +6452,17 @@ def main() -> None:
              dict(ms=suffix["dq_ms"], plain_ms=suffix["plain_ms"],
                   library_ms=suffix["library_ms"], **suffix["dq_bound"]),
              "redesigned: TMA-fed wgmma, dQ summed in registers, dS as the register A "
-             "operand; one kernel a call (a CUDA graph of one call, 3b)"),
+             "operand; one kernel a call (a CUDA graph of one call, 3b); at phase 17's "
+             f"OmniLMM-12B suffix (GQA n_rep 4) {sfx12['dq_ms']:.4f} ms against a bound of "
+             f"{sfx12['dq_bound']['bound_ms']:.4f}"),
         _row("flash_attention_bwd_dkv", src, "rlaifv_tpu/ops/flash_attention.py:191",
              launches["dkv"], bwd["dkv_err"],
              dict(ms=suffix["dkv_ms"], plain_ms=suffix["plain_ms"],
                   library_ms=suffix["library_ms"], **suffix["dkv_bound"]),
              "redesigned: TMA-fed wgmma, dK and dV summed in registers, P^T and dS^T as "
-             "register A operands; one kernel a call (a CUDA graph of one call, 3b)"),
+             "register A operands; one kernel a call (a CUDA graph of one call, 3b); at phase "
+             f"17's OmniLMM-12B suffix (GQA n_rep 4) {sfx12['dkv_ms']:.4f} ms against a bound "
+             f"of {sfx12['dkv_bound']['bound_ms']:.4f}"),
         _row("decode_attention_prefix", "rlaifv_tpu_torch/csrc/decode_attention.cu",
              "rlaifv_tpu/ops/decode_attention.py:59", launches["decode"],
              kern["decode"]["max_abs_err"], kern["decode"],
@@ -5993,10 +6671,38 @@ def profile_qlora(bits: int) -> None:
                    f"qlora, int{bits} base, 8 pairs", "int4" if bits == 4 else "qmm")
 
 
+def profile_omni_qlora(bits: int) -> None:
+    """`python3 chip_smoke.py --profile-omni-qlora [--int4]`: the same
+    breakdown of phase 17's OmniLMM-12B QLoRA step (the config's 4 pairs,
+    its base built and quantised by the entry point, r 64 adapters, the
+    fused head; zero reference logps): 17a's, or with --int4 17b's."""
+    _, tok, image_bytes, rows = _profile_setup()
+    c = Config.from_json(str(ROOT / "configs" / OMNI_QLORA[0 if bits == 8 else 1][1]))
+    assert c.model.quantize_bits == bits
+    qb = omni_batches(rows, None, tok, c)
+    t = c.training
+    for key in ("ref_win_logp", "ref_rej_logp"):
+        qb["batch_np"][key] = np.zeros(t.per_device_batch_pairs, np.float32)
+    model = _omni_train_model(tok, c, "profile")
+    model.train()
+    lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+    optimizer = make_optimizer(lora, QLORA_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                               weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                               schedule="constant")
+    hp = DPOHparams(beta=t.dpo_beta, lm_head_impl="fused", shared_prefix_len=qb["P"])
+    step = make_lora_dpo_train_step(get_family("omnilmm").adapter(model), optimizer, hp, lora,
+                                    lora_alpha=t.lora_alpha)
+    _profile_steps(step, batch_to_device(qb["batch_np"], "cuda"),
+                   f"omnilmm qlora, int{bits} base, {t.per_device_batch_pairs} pairs",
+                   "int4" if bits == 4 else "qmm")
+
+
 if __name__ == "__main__":
     if "--profile-train" in sys.argv[1:]:
         profile_train()
     elif "--profile-qlora" in sys.argv[1:]:
         profile_qlora(4 if "--int4" in sys.argv[1:] else 8)
+    elif "--profile-omni-qlora" in sys.argv[1:]:
+        profile_omni_qlora(4 if "--int4" in sys.argv[1:] else 8)
     else:
         main()

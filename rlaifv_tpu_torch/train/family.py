@@ -1,12 +1,19 @@
 """Model-family dispatch for DPO training and ref-logp scoring.
 
-Counterpart of rlaifv_tpu/train/family.py with the llava15 spec only:
-`core/config.py`'s `model_family` knob resolves here, and the spec names
-how a preference row tokenizes (`preprocess_v1` with the kept `<image>`
-sentinel), how the collator finds the image span (sentinel expansion) and
-which adapter drives the train step (`LlavaDPOAdapter`). The other families
-of the JAX package raise: OmniLMM-12B is ROADMAP.md 'Modules to port' #9,
-MiniCPM-V 2.5 #10.
+Counterpart of rlaifv_tpu/train/family.py: `core/config.py`'s
+`model_family` knob resolves here, and the spec names what differs between
+the trainable families:
+
+- how a preference row tokenizes (`preprocess_v1` with the kept `<image>`
+  sentinel for llava15, `omni_preprocess` over text-expanded `<im_patch>`
+  spans for omnilmm),
+- how the collator finds the image span (sentinel expansion, or the
+  literal patch-token id),
+- which adapter drives the shared train step (`LlavaDPOAdapter`,
+  `OmnilmmDPOAdapter`).
+
+MiniCPM-V is not a training family, in the JAX package either (it serves
+and labels only): naming it raises ValueError.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from functools import partial
 from typing import Callable, Optional
 
 import numpy as np
+
+from rlaifv_tpu_torch.constants import DEFAULT_IMAGE_PATCH_TOKEN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,7 +37,8 @@ class FamilySpec:
     # text-level <image> handling (data/multimodal.py::expand_image_token)
     keep_image_tag: bool
     use_im_start_end: bool
-    # collator convention: expand the -200 sentinel on the host
+    # collator convention: expand the -200 sentinel on the host (llava15) or
+    # locate the literal <im_patch> span already in the row (omnilmm)
     expand_images_in_collator: bool
     # host image pipeline defaults
     default_image_size: int
@@ -52,26 +62,41 @@ class FamilySpec:
         )
 
     def collator_kwargs(self, tokenizer) -> dict:
-        # llava15 expands the -200 sentinel on the host; the JAX package's
-        # omnilmm branch (a literal <im_patch> span) comes with #9
-        return {"expand_images": self.expand_images_in_collator}
+        if self.expand_images_in_collator:
+            return {"expand_images": True}
+        return {
+            "expand_images": False,
+            "image_patch_id": tokenizer.convert_tokens_to_ids(DEFAULT_IMAGE_PATCH_TOKEN),
+        }
 
     def adapter(self, model):
-        from rlaifv_tpu_torch.train.train_step import LlavaDPOAdapter
+        from rlaifv_tpu_torch.train.train_step import (
+            LlavaDPOAdapter,
+            OmnilmmDPOAdapter,
+        )
 
-        return LlavaDPOAdapter(model)
+        return (LlavaDPOAdapter if self.name == "llava15" else OmnilmmDPOAdapter)(model)
 
     def expand_inst(self, inst: dict, num_patches: int, max_len: int,
                     tokenizer=None) -> dict:
         """Encoded side -> batch-ready {input_ids, labels, image_start}
         (the per-row step DPOCollator._encode_side performs; exposed for
         the shared-prefix ref-logp splitter, train/ref_logp.py)."""
-        from rlaifv_tpu_torch.data.multimodal import expand_image_sentinels
+        if self.expand_images_in_collator:
+            from rlaifv_tpu_torch.data.multimodal import expand_image_sentinels
 
-        return expand_image_sentinels(
-            np.asarray(inst["input_ids"]), np.asarray(inst["labels"]),
-            num_patches, max_len,
-        )
+            return expand_image_sentinels(
+                np.asarray(inst["input_ids"]), np.asarray(inst["labels"]),
+                num_patches, max_len,
+            )
+        ids = np.asarray(inst["input_ids"])[:max_len].astype(np.int32)
+        labels = np.asarray(inst["labels"])[:max_len].astype(np.int32)
+        patch_id = tokenizer.convert_tokens_to_ids(DEFAULT_IMAGE_PATCH_TOKEN)
+        hits = np.where(ids == patch_id)[0]
+        start = int(hits[0]) if len(hits) else -1
+        if start >= 0 and start + num_patches > len(ids):
+            start = -1  # truncation cut the span: treat the row as text-only
+        return {"input_ids": ids, "labels": labels, "image_start": np.int32(start)}
 
 
 def _llava_spec() -> FamilySpec:
@@ -88,21 +113,28 @@ def _llava_spec() -> FamilySpec:
     )
 
 
-_SPECS = {"llava15": _llava_spec}
-_NOT_PORTED = {
-    "omnilmm": "#9 (OmniLMM-12B family)",
-    "minicpmv": "#10 (MiniCPM-V 2.5 family)",
-}
+def _omnilmm_spec() -> FamilySpec:
+    from rlaifv_tpu_torch.data.preprocess import omni_preprocess
+
+    return FamilySpec(
+        name="omnilmm",
+        preprocess_func=omni_preprocess,
+        keep_image_tag=False,  # text-expand <image> -> the im tokens
+        use_im_start_end=True,  # <im_start><im_patch>*N<im_end>
+        expand_images_in_collator=False,
+        default_image_size=448,
+        image_aspect="square",  # plain resize + CLIP norm, no pad
+    )
+
+
+_SPECS = {"llava15": _llava_spec, "omnilmm": _omnilmm_spec}
 
 
 def get_family(name: str) -> FamilySpec:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model_family={name!r} is not ported to rlaifv_tpu_torch yet: "
-            f"ROADMAP.md 'Modules to port' {_NOT_PORTED[name]}"
-        )
     if name not in _SPECS:
         raise ValueError(
-            f"unknown model_family {name!r}; trainable families: {sorted(_SPECS)}"
+            f"unknown model_family {name!r}; trainable families: "
+            f"{sorted(_SPECS)} (minicpmv is serve/label-only — the "
+            "reference has no MiniCPM-V train entry either; PARITY.md §2.2)"
         )
     return _SPECS[name]()

@@ -29,12 +29,14 @@ from rlaifv_tpu_torch.train.dpo import (
     get_batch_logps_compact,
     get_batch_logps_from_hidden,
 )
-from rlaifv_tpu_torch.train.train_step import LlavaDPOAdapter, batch_to_device
+from rlaifv_tpu_torch.train.train_step import batch_to_device
 
 
-def make_score_fn(model, *, lm_head_impl: str = "xla", compact_len: int = 0):
+def make_score_fn(model, *, lm_head_impl: str = "xla", compact_len: int = 0,
+                  family: Optional[str] = None):
     """(collated numpy batch) -> (sum, avg, per_token) fp32 tensors for the
-    concatenated win||rej rows, under inference mode.
+    concatenated win||rej rows, under inference mode, through the family's
+    train-step adapter (`FamilySpec.adapter`; llava15 by default).
 
     "fused" runs the fused head (no (2B, L, V) logits: at 7B that tensor is
     the scoring pass's peak activation); "compact" (compact_len > 0) runs
@@ -48,16 +50,19 @@ def make_score_fn(model, *, lm_head_impl: str = "xla", compact_len: int = 0):
     if compact and compact_len <= 0:
         raise ValueError("lm_head_impl='compact' requires compact_len > 0")
     use_hidden = fused or compact
-    adapter = LlavaDPOAdapter(model)
+    from rlaifv_tpu_torch.train.family import get_family
+
+    adapter = get_family(family or "llava15").adapter(model)
 
     @torch.inference_mode()
     def score(batch_np):
         batch = batch_to_device(batch_np, model.device)
-        fwd_feats = model.hidden_with_features if use_hidden else model.forward_with_features
-        fwd_text = model.hidden_text if use_hidden else model.forward_text
+        fwd_feats = adapter.hidden_with_features if use_hidden else \
+            adapter.forward_with_features
+        fwd_text = adapter.hidden_text if use_hidden else adapter.forward_text
         images = batch.get("images")
         if images is not None:
-            feats = model.encode_images(images)
+            feats = adapter.encode_images_fn(images)
             out = fwd_feats(batch["input_ids"], torch.cat([feats, feats]),
                             batch["image_starts"], batch["attention_mask"])
         else:
@@ -245,7 +250,8 @@ def score_preference_rows(
             lm_head_impl=lm_head_impl, compact_len=compact_len, family=family)
     collator = DPOCollator(pad_token_id=tokenizer.pad_token_id, max_len=max_len,
                            num_patches=num_patches, **spec.collator_kwargs(tokenizer))
-    score = make_score_fn(model, lm_head_impl=lm_head_impl, compact_len=compact_len)
+    score = make_score_fn(model, lm_head_impl=lm_head_impl, compact_len=compact_len,
+                          family=family)
 
     out: List[list] = []
     it = range(0, len(rows), batch_pairs)

@@ -9,7 +9,8 @@ variants (plain concatenated, shared-prefix paired, KTO, text-only; the
 
 The vision tower runs once per image (B) and its features are tiled over
 the 2B rows. Parameters live in the `nn.Module`; the functions take the
-model (through `LlavaDPOAdapter`) instead of a parameter tree.
+model (through `LlavaDPOAdapter`, or `OmnilmmDPOAdapter` for OmniLMM-12B)
+instead of a parameter tree.
 """
 from __future__ import annotations
 
@@ -174,6 +175,17 @@ class LlavaDPOAdapter:
                       suffix_mask, suffix_pos_start=None):
         return paired_hidden(self.module.llm.model, prefix_embeds, suffix_embeds,
                              prefix_mask, suffix_mask, suffix_pos_start)
+
+
+class OmnilmmDPOAdapter(LlavaDPOAdapter):
+    """The train step's view of an OmniLMMForCausalLM. Its prompt already
+    holds the literal <im_start><im_patch>*N<im_end> tokens, and the
+    resampled EVA02 features overwrite that span (`splice_image_features`
+    with start = the first <im_patch>), so the LLaVA methods serve it
+    unchanged: `encode_images` runs the tower and the resampler,
+    `hidden_with_features` / `forward_text` the Mistral LM, whose untied
+    `llm.lm_head` is the head, and `paired_hidden` runs over `llm.model`.
+    The class names the family at the call sites."""
 
 
 def paired_masks(attention_mask: torch.Tensor, P: int, W: int

@@ -91,10 +91,12 @@ def resolve_head(training, hidden_size: int, dtype: torch.dtype) -> str:
 class DPOTrainer:
     def __init__(self, config: Config, model, dataset, collator, *,
                  adapter=None, lora=None, lora_alpha: float = 16.0):
-        """model: a LlavaForCausalLM (trained in place, on its own device;
-        with `lora`, the frozen base, int8 or not); dataset: indexable ->
-        (rej_dict, win_dict); collator: DPOCollator; lora: an adapter tree
-        (train/lora.py) on the model's device, trained in place."""
+        """model: a LlavaForCausalLM or OmniLMMForCausalLM (trained in
+        place, on its own device; with `lora`, the frozen base, quantised or
+        not); adapter: its family's (`FamilySpec.adapter`, LLaVA's by
+        default); dataset: indexable -> (rej_dict, win_dict); collator:
+        DPOCollator; lora: an adapter tree (train/lora.py) on the model's
+        device, trained in place."""
         t = config.training
         self.config = config
         self.model = model

@@ -1,6 +1,7 @@
 """Synthetic preference pairs for demos, smoke runs and tests (jax-free).
 
-`synth_preference_pairs` is rlaifv_tpu/utils/synth.py's function, copied
+`synth_preference_pairs`, `synth_omni_preference_pairs` and
+`synth_omni_dpo_batch` are rlaifv_tpu/utils/synth.py's functions, copied
 because that module imports the JAX model package. The same seed gives the
 same pairs in both packages.
 """
@@ -42,6 +43,57 @@ def synth_preference_pairs(cfg, n_pairs: int, *, answer_len: int = 96,
                    ref_rej_avg_logp=float(rng.normal(-2.2, 0.2)))
         pairs.append((rej, win))
     return pairs
+
+
+def synth_omni_preference_pairs(cfg, n_pairs: int, *, answer_len: int = 96,
+                                question_len: int = 24, seed: int = 0,
+                                im_patch_id: int = 250, im_start_id: int = 251,
+                                im_end_id: int = 252):
+    """Random OmniLMM-convention pairs: the prompt holds a literal
+    <im_start><im_patch>*num_image_tokens<im_end> span instead of the -200
+    sentinel, the marker ids inside the tiny vocabulary (256) by default,
+    every other id below them."""
+    rng = np.random.default_rng(seed)
+    vocab = min(cfg.llm.vocab_size, im_patch_id)
+    size = cfg.vision.image_size
+    span = [im_start_id] + [im_patch_id] * cfg.num_image_tokens + [im_end_id]
+    pairs = []
+    for _ in range(n_pairs):
+        q = rng.integers(5, vocab, size=question_len).tolist()
+        image = rng.normal(size=(size, size, 3)).astype(np.float32)
+
+        def side(ans_len):
+            ans = rng.integers(5, vocab, size=ans_len).tolist()
+            ids = [1, *span, *q, *ans, 2]
+            labels = [IGNORE_INDEX] * (len(ids) - len(ans) - 1) + ans + [2]
+            return {
+                "input_ids": np.asarray(ids, np.int64),
+                "labels": np.asarray(labels, np.int64),
+                "image": image,
+            }
+
+        win = side(answer_len)
+        jitter = int(rng.integers(-16, 16))
+        rej = side(max(4, answer_len + jitter))
+        win.update(ref_win_logp=float(rng.normal(-200, 20)),
+                   ref_win_avg_logp=float(rng.normal(-2, 0.2)))
+        rej.update(ref_rej_logp=float(rng.normal(-210, 20)),
+                   ref_rej_avg_logp=float(rng.normal(-2.2, 0.2)))
+        pairs.append((rej, win))
+    return pairs
+
+
+def synth_omni_dpo_batch(cfg, n_pairs: int, max_len: int, *, answer_len: int = 96,
+                         seed: int = 0, beta: float = 0.1, im_patch_id: int = 250):
+    """synth_omni_preference_pairs collated at one fixed shape (no bucket),
+    the collator locating the literal patch span."""
+    from rlaifv_tpu_torch.data.collator import DPOCollator
+
+    coll = DPOCollator(pad_token_id=0, max_len=max_len, num_patches=cfg.num_image_tokens,
+                       beta=beta, bucket=None, expand_images=False,
+                       image_patch_id=im_patch_id)
+    return coll(synth_omni_preference_pairs(cfg, n_pairs, answer_len=answer_len, seed=seed,
+                                            im_patch_id=im_patch_id))
 
 
 def quotient_ties(M: int, N: int, J: int = 1, *, seed: int = 0):

@@ -7,7 +7,7 @@ the CPU.
   `generate_beam` (3 beams) of the same model, prompt and image, with a
   float or int8 cache and int8 weights; `main` prints it; each unported
   option raises NotImplementedError citing its ROADMAP number (the "12B"
-  case: the chat branch is ported, OmniLMM training still raises #9);
+  case: the chat branch and OmniLMM training are ported);
   without a card the entry point exits unless told `--device cpu`.
 - `Llava15Generator.diverse_gen(continuous=True)` and
   `greedy_gen(continuous=True)` against the JAX generator's on bridged
@@ -135,12 +135,12 @@ def test_chat_main_prints_the_answer(ckpt, monkeypatch, capsys):
 def test_chat_unported_options_raise(ckpt, tmp_path, case, item):
     path, kw = ckpt, {}
     if case == "12B":
-        # the chat's 12B branch is ported (tests/test_torch_omni_gen.py);
-        # OmniLMM-12B training, the rest of #9, still raises
+        # the chat's 12B branch is ported (tests/test_torch_omni_gen.py),
+        # and so is OmniLMM-12B training, the rest of #9
+        # (tests/test_torch_omni_train.py): the family resolves
         from rlaifv_tpu_torch.train.family import get_family
 
-        with pytest.raises(NotImplementedError, match=item):
-            get_family("omnilmm")
+        assert get_family("omnilmm").name == "omnilmm"
         return
     if case in ("load_4bit", "lookup_decode"):
         kw[case] = True

@@ -2,7 +2,7 @@
 outputs on the same inputs.
 
 rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
-`utils/prefetch`, the llava15 `train/family` spec, the HF-checkpoint
+`utils/prefetch`, `data/augment`, the llava15 `train/family` spec, the HF-checkpoint
 loader and `fuse_llm_projections` of `models/convert`,
 `quantize_kernel_int8`, the numpy int4 helpers of `ops/int4_matmul`, the
 tree helpers of `train/lora` and the KV-cache quantiser of
@@ -165,6 +165,20 @@ def case_family_spec(pkg):
             mm, fam.collator_kwargs(FakeTokenizer()),
             fam.expand_inst(inst, 4, 32, FakeTokenizer()),
             vars(fam.image_processor()), fam.preprocess_func.keywords)
+
+
+def case_augment(pkg):
+    """RandomAugment from one seed on a seeded image, several calls (each
+    samples and applies n ops), and each op alone from one seeded rng."""
+    import random
+
+    aug = pkg("data.augment")
+    img = np.random.default_rng(9).integers(0, 256, (32, 40, 3), dtype=np.uint8)
+    ra = aug.RandomAugment(n=2, m=7, seed=3)
+    calls = [ra(img) for _ in range(6)]
+    ops = {name: np.asarray(aug._pil(fn(img, 7, random.Random(1))))
+           for name, fn in aug.AUG_OPS.items()}
+    return sorted(aug.AUG_OPS), aug.DEFAULT_AUGS, ra.augs, calls, ops
 
 
 def case_checkpoint_loader(pkg, tmp_path):

@@ -205,44 +205,71 @@ def test_non_finite_loss_stops_the_run(data, tmp_path):
         tr.train()
 
 
-def test_what_is_not_ported_raises(data, tmp_path):
+def _stop_at_the_build(monkeypatch, family):
+    """The family's MODEL_BUILDERS entry replaced by a stub that records
+    the family it was called for and stops the run (a real OmniLMM-12B
+    would be built)."""
+    from rlaifv_tpu_torch.train import __main__ as tmain
+
+    built = []
+
+    def stop(config, device):
+        built.append(config.model.model_family)
+        raise RuntimeError("stopped at the build")
+
+    monkeypatch.setitem(tmain.MODEL_BUILDERS, family, stop)
+    return built
+
+
+def test_what_is_not_ported_raises(data, tmp_path, monkeypatch):
     """The 7B "auto" head is the fused one (ported); LoRA and QLoRA on an
-    int8 or int4 base are ported, the OmniLMM family is #9 and MiniCPM-V
-    #10; each raises before anything is loaded."""
+    int8 or int4 base are ported, and so is the OmniLMM family (#9): its
+    config reaches build_omnilmm. MiniCPM-V is no training family, in the
+    JAX package either: it raises ValueError before anything is loaded."""
     training = Config().training
     assert resolve_head(training, 4096, torch.bfloat16) == "fused"
     assert resolve_head(training, 64, torch.bfloat16) == "xla"
     from rlaifv_tpu_torch.train.__main__ import main
 
-    for model, item in (({"model_family": "omnilmm"}, "#9"),
-                        ({"model_family": "minicpmv"}, "#10")):
+    built = _stop_at_the_build(monkeypatch, "omnilmm")
+    for model, error, match in (({"model_family": "omnilmm"}, RuntimeError, "stopped"),
+                                ({"model_family": "minicpmv"}, ValueError,
+                                 "minicpmv is serve/label-only")):
         cfg = {"model": model, "training": {"output_dir": str(tmp_path / "out"),
                                             "use_lora": True}}
         (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             main(["--config", str(tmp_path / "cfg.json"), "--device", "cpu"])
+    assert built == ["omnilmm"]
 
 
 @pytest.mark.parametrize("family,item", [("llava15", None), ("omnilmm", "#9"),
                                          ("minicpmv", "#10")])
-def test_family_option_overrides_the_config(family, item, tmp_path, capsys):
-    """`--family` sets model.model_family as train.py's does: llava15 runs
-    the tiny demo on the CPU; OmniLMM (#9) and MiniCPM-V (#10) raise their
-    NotImplementedError before anything is built, in the demo and with a
-    config file."""
+def test_family_option_overrides_the_config(family, item, tmp_path, capsys, monkeypatch):
+    """`--family` sets model.model_family as train.py's does: llava15 and
+    OmniLMM (ported by ROADMAP.md #9) run the tiny demo on the CPU, and with
+    a config file OmniLMM reaches build_omnilmm; MiniCPM-V (#10, a serving
+    family only) raises the JAX package's ValueError before anything is
+    built, in the demo and with a config file."""
     from rlaifv_tpu_torch.train.__main__ import main
 
     argv = ["--demo", "--family", family, "--device", "cpu", "--max-steps", "1",
             "--output-dir", str(tmp_path / "out")]
-    if item is None:
-        assert main(argv) == 1
-        assert "[demo:llava15] finished at step 1 on cpu" in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv)
     (tmp_path / "cfg.json").write_text(json.dumps({"model": {"model_family": "llava15"}}))
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--config", str(tmp_path / "cfg.json"), "--family", family, "--device", "cpu"])
+    config_run = ["--config", str(tmp_path / "cfg.json"), "--family", family, "--device", "cpu"]
+    if family != "minicpmv":
+        assert main(argv) == 1
+        assert f"[demo:{family}] finished at step 1 on cpu" in capsys.readouterr().out
+        if family == "omnilmm":
+            built = _stop_at_the_build(monkeypatch, family)
+            with pytest.raises(RuntimeError, match="stopped"):
+                main(config_run)
+            assert built == [family]
+        return
+    with pytest.raises(ValueError, match="minicpmv is serve/label-only"):
+        main(argv)
+    with pytest.raises(ValueError, match="minicpmv is serve/label-only"):
+        main(config_run)
 
 
 def test_entry_point_needs_a_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
@@ -355,7 +382,7 @@ def test_config_run_from_a_checkpoint_and_jax_reference_logps(tmp_path, monkeypa
                    max_len=512, num_patches=n_img, batch_pairs=2, image_processor=proc)
 
     tcfg = LlavaConfig(llm=LlamaConfig(**llm), vision=CLIPVisionConfig(**vision))
-    monkeypatch.setattr(tmain, "build_llava", lambda config, device: (
+    monkeypatch.setitem(tmain.MODEL_BUILDERS, "llava15", lambda config, device: (
         tcfg, LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu")))
     out = tmp_path / "out"
     cfg = {"model": {"model_name_or_path": ckpt},
@@ -401,7 +428,7 @@ def test_config_run_precomputes_reference_logps(tmp_path, monkeypatch):
     pd.DataFrame(rows).to_parquet(os.path.join(data, "raw-000.parquet"))
 
     tcfg = LlavaConfig(llm=LlamaConfig(**llm), vision=CLIPVisionConfig(**vision))
-    monkeypatch.setattr(tmain, "build_llava", lambda config, device: (
+    monkeypatch.setitem(tmain.MODEL_BUILDERS, "llava15", lambda config, device: (
         tcfg, LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu")))
     out = tmp_path / "out"
     cfg = {"model": {"model_name_or_path": ckpt},
@@ -560,7 +587,7 @@ def _qlora_run(tmp_path, monkeypatch, logps, bits):
 
     tcfg = LlavaConfig(llm=LlamaConfig(**llm), vision=CLIPVisionConfig(**vision))
     built = []
-    monkeypatch.setattr(tmain, "build_llava", lambda config, device: (
+    monkeypatch.setitem(tmain.MODEL_BUILDERS, "llava15", lambda config, device: (
         tcfg, built.append(LlavaForCausalLM(tcfg, device="meta").to_empty(device="cpu"))
         or built[-1]))
     out = tmp_path / "out"
