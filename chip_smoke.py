@@ -313,6 +313,32 @@ Phases, one progress line each (or a few):
      its calls (each attention call's route, each quantised projection's
      rows, each head call's vocabulary chunks; backwards where a gradient
      arrives); s a step, pairs/s, tokens/s, peak GiB, launches a step;
+  18. (run after 17, its models freed) MiniCPM-Llama3-V 2.5, the
+     reference's third VLM family, at full width and depth with random
+     weights (seed 0; SigLIP-so400m's 27 blocks at head dim 72, its
+     attention plain torch; the resampler's 96 queries; Llama3-8B's 32
+     layers, n_rep 4; the head shaped as 13's), images cut by the real
+     slicer (examples/test.jpeg: a source and a 2 x 1 grid, three 96-token
+     spans a row): 18a bf16: the encode's ms a slice and an item, autocheck
+     of 2 images x 8 facts through the shared prefix and plain (yes/no
+     logits within phase 5's bound), diverse_gen 2 x 5 repeats
+     (generate_repeated), one chat, a 3-beam generate_beam with spans, 64
+     new tokens, #1 and #4 counted against the plan, the prefill and 4
+     forced steps against attn_impl "dense"; 18e (on 18a's model)
+     generate_continuous with spans on 12 prompts through 4 slots against
+     generate, the first wave bit-equal to generate of its prompts alone,
+     launches and host syncs against the plan; 18b: the model quantised in
+     place (int8 LLM, head and SigLIP bf16, int8 KV) at
+     scripts/bench_minicpmv_serve.py's geometry (8 items of 5 slices of 448
+     px, 576-token prompts): encode, prefill and decode-step ms, autocheck
+     facts/s at batch 8, #9, #7, #5 and #1 against the plan, the prefill and
+     4 forced steps against the dense route on a bf16 cache (phase 11's
+     bounds); 18c: that model fused and served through the fused engine:
+     #16 once a step, no #4, #5 or #7, greedy tokens and logits against
+     18b's eager engine, each forced step's #16 against its twin; 18d: the
+     seed-0 model rebuilt with an int4 LLM, one autocheck batch, #11
+     against the plan; 3 holds #1 at 18b's prefill, 3d / 3e #7, #9 and #11
+     bit for bit at 18b's rows;
   10. the int4 QLoRA slice (llava15_dpo_qlora.json with quantize_bits 4,
      built in memory): phase 8's seed-0 model rebuilt after phase 9 is
      freed, its LLM projections quantised to nibble-packed int4 with
@@ -325,7 +351,7 @@ Phases, one progress line each (or a few):
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
-runs, 17a-b's precomputes, steps and short steps, 8, 6,
+runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -369,6 +395,7 @@ from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import (DecodeEngine, GenerateResult, group_consecutive,  # noqa: E402
                                           left_pad_batch)
 from rlaifv_tpu_torch.genai.llava_gen import Llava15Generator, yesno_token_ids  # noqa: E402
+from rlaifv_tpu_torch.genai.minicpmv_gen import MiniCPMVGenerator  # noqa: E402
 from rlaifv_tpu_torch.genai.omni_gen import OmniLMMGenerator, omni_yesno_ids  # noqa: E402
 from rlaifv_tpu_torch.genai.sampling import SamplingParams  # noqa: E402
 from rlaifv_tpu_torch.models import llama as llama_mod  # noqa: E402
@@ -377,6 +404,11 @@ from rlaifv_tpu_torch.models.llama import (  # noqa: E402
     LlamaConfig,
     LlamaForCausalLM,
     QuantDense,
+)
+from rlaifv_tpu_torch.models.minicpmv import (  # noqa: E402
+    MiniCPMVConfig,
+    MiniCPMVForCausalLM,
+    init_minicpmv_weights_,
 )
 from rlaifv_tpu_torch.models.omnilmm import (  # noqa: E402
     OmniLMMConfig,
@@ -887,6 +919,8 @@ FLASH_FWD_CASES = [
     dict(name="autocheck prefix", B=1, L=740, H=32, KVH=32, D=128, causal=True, masked=20),
     dict(name="gqa", B=2, L=1024, H=32, KVH=8, D=128, causal=True, masked=0),
     dict(name="bidirectional", B=1, L=577, H=16, KVH=16, D=64, causal=False, masked=0),
+    # phase 18b's prefill: 8 MiniCPM-V prompts of 576 tokens, Llama3-8B's GQA
+    dict(name="minicpmv prefill", B=8, L=576, H=32, KVH=8, D=128, causal=True, masked=16),
 ]
 
 # 3 / 3b: planted faults in the redesigned flash kernels, each a broken copy
@@ -2918,21 +2952,31 @@ def _padded(eng: DecodeEngine, prompts, starts) -> tuple:
     return Lp, ids, mask, starts
 
 
+def _padded_spans(eng: DecodeEngine, prompts, spans, Lp: int):
+    """(span features, span starts relative to each prompt) -> the engine's
+    spans at generate's left padding to Lp, or None."""
+    if spans is None:
+        return None
+    return eng._spans(spans[0], spans[1], Lp - np.asarray([len(p) for p in prompts]))
+
+
 def _forced_logits(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tensor,
-                   impls: tuple) -> torch.Tensor:
+                   impls: tuple, spans=None) -> torch.Tensor:
     """The prefill, then one decode step for each column of `tokens` (the
     same tokens on every route), as DecodeEngine.generate runs them, at the
     cache width generate gives 64 new tokens, with attn_impl impls[0] for
     the prefill and impls[1] for the steps -> fp32 logits (1 + steps, B, V):
     the last prompt position's, then each step's. A bare language model's
-    engine takes starts and images None."""
+    engine takes starts and images None; a MiniCPM-V prompt its spans
+    (features (B, S, Q, D), starts (B, S)) and starts and images None."""
     attn = [m for m in eng.model.modules() if isinstance(m, LlamaAttention)]
     Lp, ids, mask, starts = _padded(eng, prompts, starts)
     with torch.inference_mode():
         for m in attn:
             m.attn_impl = impls[0]
         first, cache, cmask = eng._prefill(ids, mask, eng._device_images(images), starts,
-                                           -(-(Lp + 64) // 128) * 128)
+                                           -(-(Lp + 64) // 128) * 128,
+                                           spans=_padded_spans(eng, prompts, spans, Lp))
         for m in attn:
             m.attn_impl = impls[1]
         out, plen = [first.float()], mask.sum(dim=1)
@@ -3051,19 +3095,21 @@ FUSED_LOGIT_REL_TOL = 0.3
 FUSED_LOGIT_COS_MIN = 0.95
 
 
-def _fused_forced(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tensor) -> tuple:
+def _fused_forced(eng: DecodeEngine, prompts, starts, images, tokens: torch.Tensor,
+                  spans=None) -> tuple:
     """The fused engine's prefill, then one fused step for each column of
     `tokens`, each through kernel #16, through the twin on the same cache
     and through the twin with x one ulp up -> fp32 logits (1 + steps, B, V)
     of the three (the prefill's first in each); the kernel's fresh k/v go
-    into the cache."""
+    into the cache. spans as in _forced_logits."""
     cfg = eng.llm.cfg
     Lp, ids, mask, starts = _padded(eng, prompts, starts)
     max_len = -(-(Lp + 64) // 128) * 128
     d = fd.default_dims(cfg, max_len)
     with torch.inference_mode():
         first, cache, cmask = eng._fused_prefill(ids, mask, eng._device_images(images), starts,
-                                                 max_len)
+                                                 max_len,
+                                                 spans=_padded_spans(eng, prompts, spans, Lp))
         kern, twin, spread = [first.float()], [first.float()], [first.float()]
         plen = mask.sum(dim=1)
         for t in range(tokens.shape[1]):
@@ -3348,7 +3394,10 @@ def phase_pipeline(fgen: Llava15Generator, tok, work: str) -> dict:
     for name, rows in files.items():
         log(f"[13 pipeline] {name}: {len(rows)} rows")
     divide = next(rows for n, rows in files.items() if n.endswith(".llama3-8b_divide.jsonl"))
-    qas = next(rows for n, rows in files.items() if n.endswith(".gq.qas.jsonl"))
+    # the divide stage's questions (the labeler's output also ends in
+    # .gq.qas.jsonl, under the autocheck_ prefix), as 16e picks them
+    qas = next(rows for n, rows in files.items()
+               if n.endswith(".gq.qas.jsonl") and not n.startswith("autocheck_"))
     pairs = next(rows for n, rows in files.items() if n.endswith(".pair_diff1.jsonl"))
     n_facts = sum(len(r["facts"]) for r in divide)
     log(f"[13 pipeline] run_pipeline in {wall:.1f} s -> {os.path.basename(out)}: "
@@ -3882,6 +3931,11 @@ EVA_MS = (1025, 8 * 1025)
 # images a step (3e)
 MISTRAL_WIDTHS = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 EVA_STEP_M = 4 * 1025
+# phase 18's Llama3-8B projections unfused are the same four widths: held bit
+# for bit at 18b's decode rows (8) and prefill rows (8 prompts of
+# MCV_BENCH_LP, bench_minicpmv_serve's geometry), int8 in 3d and int4 (18d
+# autochecks those 8 prompts) in 3e
+MCV_MS = (8, 8 * 576)
 
 
 def omni_ms(rows: list, short: dict, tok) -> tuple:
@@ -3911,6 +3965,27 @@ def _exact_cases(tag: str, cases, gen, run) -> None:
         if bad:
             raise AssertionError(f"{tag}: kernels disagree with the twins at M={M} K={K} "
                                  f"N={N}: {bad}")
+
+
+def _exact_int8(name: str, ms, gen) -> None:
+    """3d: #7-#10 and the prequant wrappers bit for bit against the twins at
+    MISTRAL_WIDTHS and the rows `ms`, weights and inputs from `gen`."""
+    for K, N in MISTRAL_WIDTHS:
+        q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=gen, device="cuda"))
+
+        def run(x, dy, M, K, N):
+            xq, sx = qm.quantize_rows(x.float())
+            dyq, sy = qm.quantize_rows(dy.float() * s)
+            fwd, dx = qm.int8_matmul_plain(x, q, s), qm.int8_matmul_dx_plain(dy, q, s)
+            return {"#7": (qm._kernel_fwd(x, q, s), fwd),
+                    "#9": (qm._kernel_prequant(xq, sx.reshape(-1), q, s), fwd),
+                    "int8_matmul_prequant": (qm.int8_matmul_prequant(x, q, s), fwd),
+                    "#8": (qm._kernel_dx(dy, q, s), dx),
+                    "#10": (qm._kernel_dx_prequant(dyq, sy.reshape(-1), q), dx),
+                    "int8_matmul_dx_prequant": (qm.int8_matmul_dx_prequant(dy, q, s), dx)}
+
+        _exact_cases(f"[3d int8] {name}", [(M, K, N) for M in ms], gen, run)
+        del q, s
 
 
 def llama3_ms() -> tuple:
@@ -4153,27 +4228,14 @@ def phase_int8(g, qb: dict) -> dict:
         del x, dy, q, s, xq, dyq, out, plain, run
         torch.cuda.empty_cache()
 
-    # phase 17's Mistral-7B widths at 17's rows, bit for bit only (no
-    # times), from a generator of their own (above): the four kernels and
-    # the wrappers the path calls (the row pass on the card, then #9 / #10)
-    mis = torch.Generator(device="cuda").manual_seed(17)
-    for K, N in MISTRAL_WIDTHS:
-        q, s = quantize_kernel_int8_torch(0.02 * torch.randn(K, N, generator=mis, device="cuda"))
-
-        def run(x, dy, M, K, N):
-            xq, sx = qm.quantize_rows(x.float())
-            dyq, sy = qm.quantize_rows(dy.float() * s)
-            fwd, dx = qm.int8_matmul_plain(x, q, s), qm.int8_matmul_dx_plain(dy, q, s)
-            return {"#7": (qm._kernel_fwd(x, q, s), fwd),
-                    "#9": (qm._kernel_prequant(xq, sx.reshape(-1), q, s), fwd),
-                    "int8_matmul_prequant": (qm.int8_matmul_prequant(x, q, s), fwd),
-                    "#8": (qm._kernel_dx(dy, q, s), dx),
-                    "#10": (qm._kernel_dx_prequant(dyq, sy.reshape(-1), q), dx),
-                    "int8_matmul_dx_prequant": (qm.int8_matmul_dx_prequant(dy, q, s), dx)}
-
-        _exact_cases("[3d int8] phase 17's", [(M, K, N) for M in qb["omni_ms"]], mis, run)
-        del q, s
+    # phase 17's Mistral-7B widths at 17's rows and phase 18's Llama3-8B
+    # (the same widths) at 18b's rows, bit for bit only (no times), each from
+    # a generator of its own (above): the four kernels and the wrappers the
+    # path calls (the row pass on the card, then #9 / #10)
+    for name, ms, seed in (("phase 17's", qb["omni_ms"], 17), ("phase 18b's", MCV_MS, 18)):
+        _exact_int8(name, ms, torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.empty_cache()
+
 
     # #8 on quotients at and next to half-integers: the short step's rows
     # and the edges of its row tiles, both widths; reruns give the same bits
@@ -4318,6 +4380,14 @@ def phase_int4(g, qb: dict) -> dict:
                     "#12": (i4._kernel_dx(dy, qp, gs), i4.int4_matmul_dx_plain(dy, qp, gs))}
 
         _exact_cases("[3e int4] phase 17's", [(M, K, N) for M in ms17], mis, run)
+        del qp, gs
+    # phase 18d's int4 Llama3-8B (MISTRAL_WIDTHS) at 18b's prefill rows, #11
+    # through the wrapper, from a generator of its own
+    mcv = torch.Generator(device="cuda").manual_seed(18)
+    for K, N in MISTRAL_WIDTHS:
+        qp, gs = quantize_int4_torch(0.02 * torch.randn(K, N, generator=mcv, device="cuda"))
+        _exact_cases("[3e int4] phase 18d's", [(MCV_MS[1], K, N)], mcv, lambda x, dy, M, K, N: {
+            "int4_matmul (#11)": (i4.int4_matmul(x, qp, gs), i4.int4_matmul_plain(x, qp, gs))})
         del qp, gs
     torch.cuda.empty_cache()
 
@@ -4950,10 +5020,25 @@ def _cont_check(tag: str, n_layers: int, launches: dict, runs: list, decode: str
     return st
 
 
-def _recorded_generate(eng: DecodeEngine, prompts, starts, images, new: int) -> tuple:
+def _media(starts, images, spans, rows=None) -> dict:
+    """generate's media arguments (images and their starts, or MiniCPM-V's
+    spans: features (B, S, Q, D) and starts (B, S)), of `rows` only when
+    given."""
+    if spans is not None:
+        feats, sstarts = spans
+        if rows is not None:
+            feats, sstarts = feats[list(rows)], np.asarray(sstarts)[list(rows)]
+        return dict(span_features=feats, span_starts=sstarts)
+    if rows is not None:
+        starts, images = [starts[p] for p in rows], np.asarray(images)[list(rows)]
+    return dict(images=np.asarray(images), image_starts=starts)
+
+
+def _recorded_generate(eng: DecodeEngine, prompts, starts, images, new: int,
+                       spans=None) -> tuple:
     """eng.generate of the prompts -> (result, each row's logits a token:
     token 0 the first logits, token k from decode step k - 1, on the
-    device; generate's (Lp, max_len))."""
+    device; generate's (Lp, max_len)); spans as in _media."""
     steps, geom, step, batch = [], [], eng._step, eng._batch
 
     def recorded_step(*a):
@@ -4963,12 +5048,12 @@ def _recorded_generate(eng: DecodeEngine, prompts, starts, images, new: int) -> 
 
     def recorded_batch(*a):
         out = batch(*a)
-        geom.append((out[1].shape[1], out[3]))
+        geom.append((out[1].shape[1], out[-1]))
         return out
 
     eng._step, eng._batch = recorded_step, recorded_batch
     try:
-        res = eng.generate(prompts, images=images, image_starts=starts, max_new_tokens=new)
+        res = eng.generate(prompts, max_new_tokens=new, **_media(starts, images, spans))
     finally:
         eng._step, eng._batch = step, batch
     first = torch.from_numpy(res.first_logits).float().to(eng.device)
@@ -4996,7 +5081,8 @@ def _agree(new: int, a_rows, a_res, b_rows, b_res) -> tuple:
 
 def _greedy_vs_generate(tag: str, eng: DecodeEngine, prompts, starts, images, slots: int,
                         new: int, smi: str, rel_tol: float = SLICE_REL_TOL,
-                        cos_min: float = -1.0, block=None) -> dict:
+                        cos_min: float = -1.0, block=None, spans=None,
+                        wave_bit_equal: bool = False) -> dict:
     """Greedy continuous (a ContinuousGenerator with slots, CONT_CHUNK and
     CONT_HEADROOM) against one generate of all the prompts, token by token.
 
@@ -5013,8 +5099,12 @@ def _greedy_vs_generate(tag: str, eng: DecodeEngine, prompts, starts, images, sl
     whole one. With the int8 cache's key block(L) given, the decode tokens
     are also split by whether their keys sat at the same offset in the key
     blocks on both paths through their whole history (p is quantised per
-    block): the largest gap of each share is logged."""
-    ref, gen_rows, (Lp_gen, L_gen) = _recorded_generate(eng, prompts, starts, images, new)
+    block): the largest gap of each share is logged. MiniCPM-V prompts take
+    their spans (features, starts) in place of starts and images; with
+    wave_bit_equal the first wave must equal generate of its prompts alone
+    bit for bit."""
+    ref, gen_rows, (Lp_gen, L_gen) = _recorded_generate(eng, prompts, starts, images, new,
+                                                        spans)
     cont_steps, refills, moves, geom, step = [], [], [], {}, eng._step
     cg = ContinuousGenerator
     reset, compact, init = cg._reset_slots, cg._compact, cg._init_slots
@@ -5044,7 +5134,7 @@ def _greedy_vs_generate(tag: str, eng: DecodeEngine, prompts, starts, images, sl
     cg._reset_slots, cg._compact, cg._init_slots = recorded_reset, recorded_compact, recorded_init
     try:
         run, wall, launches, runs = _cont_run(lambda: gen.run(
-            prompts, images=np.asarray(images), image_starts=starts))
+            prompts, **_media(starts, images, spans)))
     finally:
         eng._step = step
         cg._reset_slots, cg._compact, cg._init_slots = reset, compact, init
@@ -5088,13 +5178,17 @@ def _greedy_vs_generate(tag: str, eng: DecodeEngine, prompts, starts, images, sl
     ok = ok and worst <= rel_tol * scale and cos >= cos_min
     # the witness: the first wave against generate of its prompts alone
     sub = [prompts[p] for p in wave]
-    w_ref, w_rows, _ = _recorded_generate(eng, sub, [starts[p] for p in wave],
-                                          np.asarray(images)[wave], new)
+    if spans is None:
+        w_ref, w_rows, _ = _recorded_generate(eng, sub, [starts[p] for p in wave],
+                                              np.asarray(images)[wave], new)
+    else:
+        w_ref, w_rows, _ = _recorded_generate(
+            eng, sub, None, None, new, tuple(_media(None, None, spans, wave).values()))
     w_run = GenerateResult(run.tokens[wave], run.lengths[wave], None)
     w = _agree(new, [cont_rows[p] for p in wave], w_run, w_rows, w_ref)
     g_ref = GenerateResult(ref.tokens[wave], ref.lengths[wave], None)
     g = _agree(new, w_rows, w_ref, [gen_rows[p] for p in wave], g_ref)
-    ok = ok and w[0] <= SLICE_REL_TOL * scale
+    ok = ok and w[0] <= SLICE_REL_TOL * scale and (w[0] == 0 or not wave_bit_equal)
     blocks = (f"; by the keys' offset in the key blocks ({bl[0]} at generate's L={L_gen}, "
               f"{bl[1]} at L={geom['continuous']}), first shifted token {shifted_from}: at "
               f"most {split['aligned'] / scale:.4f} aligned, {split['shifted'] / scale:.4f} "
@@ -6250,6 +6344,529 @@ def phase_omni_train(tok, image_bytes: bytes, smi: str) -> dict:
     return launches
 
 
+# 18: MiniCPM-Llama3-V 2.5, the reference's third VLM family and a labeler
+# of its own (SURVEY.md M13, G3), at full width and depth with random weights
+# from seed 0: SigLIP-so400m (27 blocks of width 1152, head dim 72: its
+# attention is plain torch, outside #1's domain; the 70 x 70 position table
+# re-gridded per slice), the resampler (96 queries, 32 heads, no query-side
+# table, each slice's sincos grid on the keys), Llama3-8B (32 layers, 8 KV
+# heads for 32: n_rep 4, rope theta 500000, vocabulary 128256) with the head
+# shaped to the fake tokenizer's printable ids (phase 13's HEAD_GAIN), images
+# sliced by the real slicer (data/minicpmv_slicing.py): examples/test.jpeg
+# and its mirror give a source of 546 x 364 px and a 2 x 1 grid of 392 x 518
+# px slices, three 96-token spans a row. 18a bf16: the encode, the
+# shared-prefix and plain autocheck, diverse_gen (generate_repeated), one
+# chat, a 3-beam generate_beam with spans, the kernels against attn_impl
+# "dense"; 18e (on 18a's model) greedy continuous with spans against
+# generate; 18b the model quantised in place (int8 LLM, bf16 head and
+# SigLIP, int8 KV: MiniCPMVConfig.minicpm_llama3_v25_int8) at
+# scripts/bench_minicpmv_serve.py's geometry (B 8 items of 5 slices, the
+# source and a 2 x 2 grid of 448 px, Q 96: 896 x 896 px images, prompts
+# padded to MCV_BENCH_LP); 18c that model through the fused engine; 18d the
+# seed-0 model rebuilt with an int4 LLM. Repeats and tokens are cut as
+# phase 16's.
+MCV_NEW = 64
+MCV_BENCH_B, MCV_BENCH_PX, MCV_BENCH_SLICES = 8, 896, 5
+MCV_BENCH_LP = MCV_MS[1] // MCV_BENCH_B  # bench_minicpmv_serve: (5 x 96 + 96) to 64
+# 18a's kernels (#1 prefill, #4 steps) against attn_impl "dense", as a share
+# of max|first logit|. Phase 5's 0.05 holds LLaVA-1.5; this random model,
+# like 16a's, carries resampled tokens of norm ~64 against ~1.3 for text,
+# and its own bf16 drift fills that bound: read on an H100 80GB HBM3, #1
+# 0.0464 and #4 0.0497 against "dense", and the dense route against itself
+# one prompt at a time (the same function at other GEMM shapes) 0.0389 on
+# the decode steps. The bound sits ~2x outside the readings, as 16a's
+MCV_LOGIT_REL_TOL = 0.1
+# 18a's shared prefix against the plain path on the yes/no probabilities:
+# phase 5's PROB_TOL holds LLaVA-1.5, whose yes/no logits sit near the
+# vocabulary's bulk; this random model's do not (its head keeps only the
+# printable ids), and its resampled tokens have norm ~64 against ~1.3 for
+# text, so the same relative logit drift moves p further. Read on an H100
+# 80GB HBM3: max|dp| 1.548e-3 with the yes/no logits 0.0160 of max|logit|
+# apart (phase 5's logit bound, 0.05, holds; 0.0398 over the whole
+# vocabulary). The bound sits ~3x outside the reading
+MCV_PROB_TOL = 5e-3
+MCV_CONT = ["Is it daytime?", "Any people?", "Is it dark?", "What colour?", "Is it wet?",
+            "Any cars?"]  # x 2 images: 12 distinct prompts through CONT_SMALL_SLOTS
+
+
+def build_minicpmv(tok, tag: str) -> MiniCPMVForCausalLM:
+    """MiniCPM-Llama3-V 2.5 in bf16 on the card, random weights from seed 0,
+    the head's rows of printable ids x HEAD_GAIN and the others zeroed."""
+    t0 = time.perf_counter()
+    model = MiniCPMVForCausalLM(MiniCPMVConfig.minicpm_llama3_v25(), device="meta").to_empty(
+        device="cuda")
+    init_minicpmv_weights_(model, torch.Generator(device="cuda").manual_seed(0)).eval()
+    shape_head_(model.llm.lm_head.weight, printable_ids(tok))
+    torch.cuda.synchronize()
+    parts = {name: sum(p.numel() for p in getattr(model, name).parameters()) / 1e9
+             for name in ("vpm", "resampler", "llm")}
+    cfg = model.cfg
+    log(f"[{tag}] MiniCPM-Llama3-V 2.5 bf16 on cuda: {sum(parts.values()):.3f} B params "
+        f"(SigLIP-so400m {parts['vpm']:.3f}: {cfg.vision.hidden_size} wide, "
+        f"{cfg.vision.num_layers} blocks, {cfg.vision.num_heads} heads of "
+        f"{cfg.vision.hidden_size // cfg.vision.num_heads}, MLP {cfg.vision.intermediate_size}, "
+        f"a {cfg.vision.grid} x {cfg.vision.grid} position table; resampler "
+        f"{parts['resampler']:.3f}: {cfg.query_num} queries, {cfg.resampler.num_heads} heads; "
+        f"Llama3-8B {parts['llm']:.3f}: {cfg.llm.num_layers} layers, I "
+        f"{cfg.llm.intermediate_size}, {cfg.llm.num_kv_heads} KV heads for {cfg.llm.num_heads}, "
+        f"vocab {cfg.llm.vocab_size}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB "
+        f"allocated, built in {time.perf_counter() - t0:.1f} s; random weights (seed 0)")
+    return model
+
+
+def _mcv_bench_images(image_bytes: bytes) -> list:
+    """18b's images: examples/test.jpeg and its mirror resized to
+    MCV_BENCH_PX square, which the slicer cuts into a 448 px source and a
+    2 x 2 grid of 448 px slices."""
+    from PIL import Image
+
+    return [np.asarray(Image.fromarray(im).resize((MCV_BENCH_PX, MCV_BENCH_PX),
+                                                  Image.Resampling.BICUBIC))
+            for im in _omni_images(image_bytes)]
+
+
+def _slice_buckets(gen: MiniCPMVGenerator, items: list) -> list:
+    """The items' slices, normalised and grouped by shape as _prepare
+    encodes them: one (N, H, W, 3) fp32 tensor on the card a bucket."""
+    buckets: dict = {}
+    for item in items:
+        for s in gen._build_prompt(item)[2]:
+            arr = np.asarray(s, np.uint8)
+            buckets.setdefault(arr.shape, []).append(gen._normalize(arr))
+    return [torch.from_numpy(np.stack(b)).cuda() for b in buckets.values()]
+
+
+def _mcv_tokens(gen: MiniCPMVGenerator, n: int) -> torch.Tensor:
+    keep = printable_ids(gen.tokenizer)
+    return torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (n, OMNI_FORCED), generator=torch.Generator().manual_seed(0)).cuda()]
+
+
+def phase_mcv_bf16(gen: MiniCPMVGenerator, image_bytes: bytes) -> tuple:
+    """18a: the encode's time a slice and an item, autocheck of 2 images x 8
+    facts through the shared prefix and plain (their yes/no logits within
+    phase 5's bound), diverse_gen 2 x 5 repeats (generate_repeated), one
+    chat and a 3-beam generate_beam with spans, each counted against its
+    plan (#1 a layer a prefill pass, #4 a layer a decode step), and the
+    kernels' prefill and 4 forced steps against attn_impl "dense" ->
+    (launches, rates)."""
+    tag = "18a minicpmv bf16"
+    model, eng = gen.model, gen.engine
+    images = _omni_images(image_bytes)
+    facts = _omni_items(images, FACTS)
+    ids, starts, slices = gen._build_prompt(facts[0])
+    vt = model.cfg.vision
+    item_buckets = _slice_buckets(gen, facts[:1])
+    cells = next(b for b in item_buckets if b.shape[0] > 1)
+    eight = cells.repeat(4, 1, 1, 1)  # 8 slices of one shape
+    gh, gw = eight.shape[1] // vt.patch_size, eight.shape[2] // vt.patch_size
+    H = vt.num_heads
+    with torch.inference_mode():
+        feat_norm = model.encode_slices(eight[:1]).float().norm(dim=-1).mean().item()
+        text_norm = model.llm.model.tok_embed.weight.float().norm(dim=-1).mean().item()
+        enc_item = time_ms(lambda: [model.encode_slices(b) for b in item_buckets], 5)
+        enc8 = time_ms(lambda: model.encode_slices(eight), 3)
+        vit8 = time_ms(lambda: model.vpm(eight), 3)
+        x = torch.randn((8, gh * gw, vt.hidden_size), device="cuda").to(torch.bfloat16)
+        q, k, v = (torch.randn((8, gh * gw, H, vt.hidden_size // H), device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        block = time_ms(lambda: model.vpm.layers[0](x), 5)
+        attn = time_ms(lambda: dense_attention(q, k, v, None), 5)
+        del x, q, k, v, eight
+    log(f"[{tag}] slices of one item: {[tuple(s.size) for s in slices]} px, spans at {starts} "
+        f"in a {len(ids)}-token prompt; encode (SigLIP-so400m, the {vt.grid} x {vt.grid} "
+        f"position table re-gridded to each slice's grid, then the resampler at that grid): "
+        f"one item ({len(slices)} slices, {len(item_buckets)} shape buckets) {enc_item:.2f} ms; "
+        f"8 slices of {gh} x {gw} patches {enc8:.2f} ms = {enc8 / 8:.2f} ms a slice (the tower "
+        f"alone {vit8 / 8:.2f}); one block at 8 slices {block:.3f} ms, its attention alone "
+        f"(plain torch, head dim {vt.hidden_size // H}) {attn:.3f} ms; a resampled token's norm "
+        f"{feat_norm:.2f} on average, a text embedding's {text_norm:.3f}")
+    rates = dict(encode_slice_ms=enc8 / 8, encode_item_ms=enc_item, block_ms=block,
+                 attn_ms=attn)
+    gen.autocheck(facts[:2], batch_size=OMNI_BATCH)  # warm-up
+    gen.diverse_gen(_omni_items(images[:1], ["Warm up."] * 2), max_new_tokens=2)
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    n_layers = model.cfg.llm.num_layers
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        shared = gen.autocheck(facts, batch_size=OMNI_BATCH)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = gen.autocheck(facts, batch_size=OMNI_BATCH, shared_prefix=False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rates["facts_s"] = _omni_rates(tag, len(facts), "autocheck facts, shared prefix (one "
+                                       "slice encode and prefix prefill an image)", t1 - t0)
+        rates["facts_plain_s"] = _omni_rates(tag, len(facts), "autocheck facts, plain (one "
+                                             "encode and prefill a fact)", t2 - t1)
+        steps0 = read_counts()["decode"]
+        qs, rep = OMNI_DIVERSE
+        sampled = gen.diverse_gen(_omni_items(images[:1], [q for q in qs for _ in range(rep)]),
+                                  max_new_tokens=MCV_NEW, seed=0)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        steps = (read_counts()["decode"] - steps0) // n_layers
+        rates["diverse_tok_s"] = _omni_rates(
+            tag, rep * (steps + len(qs)), f"diverse_gen {len(qs)} x {rep} repeats "
+            f"(generate_repeated: one encode and prefill a question), {steps} decode steps: "
+            "tokens", t3 - t2)
+        steps0 = read_counts()["decode"]
+        answer = gen.chat(OMNI_GREEDY[0], images[0], max_new_tokens=MCV_NEW)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        csteps = (read_counts()["decode"] - steps0) // n_layers
+        rates["chat_tok_s"] = _omni_rates(tag, csteps + 1, f"chat (T 0.7, top-p 0.8, "
+                                          f"repetition 1.05), {csteps} steps: tokens", t4 - t3)
+        beam_items = _omni_items(images, OMNI_GREEDY[:2], per_image=False)
+        prompts, feats, sst = gen._prepare(beam_items)
+        steps0 = read_counts()["decode"]
+        beams = eng.generate_beam(prompts, span_features=feats, span_starts=sst, num_beams=3,
+                                  max_new_tokens=MCV_NEW)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        bsteps = (read_counts()["decode"] - steps0) // n_layers
+        rates["beam_tok_s"] = _omni_rates(
+            tag, len(beam_items) * (bsteps + 1), f"generate_beam with spans, 3 beams of "
+            f"{len(beam_items)} rows, {bsteps} steps: tokens of the best beams", t5 - t4)
+        launches = read_counts()
+    rates["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "decode", "decode_int8"))
+    assert len(sampled) == rep * len(qs) and all(isinstance(r["answer"], str) for r in sampled)
+    assert isinstance(answer, str) and beams.tokens.shape[0] == len(beam_items)
+
+    # the shared prefix against the plain path: the yes/no probabilities of
+    # the 16 facts, then the logits of 8 facts about one image at the yes/no
+    # ids (the gate) and over the whole vocabulary
+    d_prob = max(abs(a["scores"][w] - b["scores"][w]) for a, b in zip(shared, plain)
+                 for w in a["scores"])
+    prompts, feats, sst = gen._prepare(facts[:8])
+    P = eng.longest_common_prefix_len(prompts)
+    via_prefix = torch.from_numpy(eng.score_shared_prefix(
+        prompts[0][:P], [p[P:] for p in prompts], span_features=feats[0], span_starts=sst[0],
+        batch_size=OMNI_BATCH))
+    via_plain = torch.from_numpy(eng.generate(prompts, span_features=feats, span_starts=sst,
+                                              max_new_tokens=1).first_logits)
+    yn = list(gen._yesno_ids().values())
+    scale = via_plain.abs().max().item()
+    d_yn = (via_prefix[:, yn] - via_plain[:, yn]).abs().max().item()
+    d_all = (via_prefix - via_plain).abs().max().item()
+    ok = d_yn <= SLICE_REL_TOL * scale and d_prob <= MCV_PROB_TOL and \
+        bool(torch.isfinite(via_prefix).all())
+    log(f"[{tag}] shared prefix ({P} tokens, spans ending at {int(sst[0].max()) + 96}) vs "
+        f"plain path, 8 facts of one image: yes/no logits max|d| {d_yn:.4f} vs max|logit| "
+        f"{scale:.3f} (tol {SLICE_REL_TOL} x max) | max|dp| over the 16 facts' yes/no "
+        f"{d_prob:.3e} (tol {MCV_PROB_TOL}) | {'ok' if ok else 'FAIL'}; over the whole "
+        f"vocabulary max|d| {d_all:.4f}")
+    if not ok:
+        raise AssertionError("18a: the shared prefix disagrees with the plain path")
+
+    # the kernels (#1 prefill, #4 steps) against attn_impl "dense"
+    prompts, feats, sst = gen._prepare(_omni_items(images, OMNI_GREEDY, per_image=False))
+    tokens = _mcv_tokens(gen, len(prompts))
+    spans = (feats, sst)
+    fast = _forced_logits(eng, prompts, None, None, tokens, ("auto", "auto"), spans)
+    dense = _forced_logits(eng, prompts, None, None, tokens, ("dense", "dense"), spans)
+    alone = torch.cat([_forced_logits(eng, prompts[i:i + 1], None, None, tokens[i:i + 1],
+                                      ("dense", "dense"), (feats[i:i + 1], sst[i:i + 1]))
+                       for i in range(len(prompts))], dim=1)
+    ok = all(bool(torch.isfinite(r).all()) for r in (fast, dense, alone))
+    first = dense[0].abs().max()
+    for text, sl in (("prefill: #1 vs dense", slice(0, 1)),
+                     (f"decode steps 1-{OMNI_FORCED}: #4 vs dense", slice(1, None))):
+        rel = ((fast[sl] - dense[sl]).abs().max() / first).item()
+        drift = ((alone[sl] - dense[sl]).abs().max() / first).item()
+        cos = torch.nn.functional.cosine_similarity(
+            fast[sl].flatten(0, -2), dense[sl].flatten(0, -2), dim=-1).min().item()
+        good = rel <= MCV_LOGIT_REL_TOL
+        ok = ok and good
+        log(f"[{tag} vs plain] {text}: max|d| / max|first logit| {rel:.4f} (tol "
+            f"{MCV_LOGIT_REL_TOL}; the dense route against itself one prompt at a time "
+            f"{drift:.4f}), least row cosine {cos:.5f} | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("18a: the kernels disagree with attn_impl dense")
+    return launches, rates
+
+
+def phase_mcv_continuous(gen: MiniCPMVGenerator, image_bytes: bytes, smi: str) -> dict:
+    """18e: greedy generate_continuous with spans (the "spans" refill mode)
+    on 12 prompts (6 questions x 2 images) through CONT_SMALL_SLOTS slots
+    on 18a's bf16 engine, against generate (phase 15's comparison); the
+    first wave bit-equal to generate of its prompts alone; the launches and
+    host syncs against the plan -> the launches."""
+    tag = "18e minicpmv continuous"
+    items = _omni_items(_omni_images(image_bytes), MCV_CONT)
+    prompts, feats, sst = gen._prepare(items)
+    eng = gen.engine
+    eng.generate_continuous(prompts[:2], span_features=feats[:2], span_starts=sst[:2], slots=2,
+                            max_new_tokens=2)  # warm-up
+    out = _greedy_vs_generate(tag, eng, prompts, None, None, CONT_SMALL_SLOTS, CONT_NEW, smi,
+                              spans=(feats, sst), wave_bit_equal=True)
+    n_layers = gen.model.cfg.llm.num_layers
+    st = _cont_check(tag, n_layers, out["launches"], out["runs"], "decode", n_layers)
+    n = len(prompts) * CONT_NEW
+    log(f"[{tag}] {len(prompts)} prompts x {CONT_NEW} through {CONT_SMALL_SLOTS} slots: "
+        f"{out['wall']:.3f} s, {n / out['wall']:.1f} tok/s ({st['steps']} steps) | {smi}")
+    return out["launches"]
+
+
+def phase_mcv_int8(gen: MiniCPMVGenerator, image_bytes: bytes) -> tuple:
+    """18b: 18a's model quantised in place (int8 LLM, the head, resampler
+    and SigLIP bf16, an int8 KV cache) at bench_minicpmv_serve's geometry:
+    the encode of 8 items x 5 slices, the prefill of their 8 x
+    MCV_BENCH_LP-token prompts, autocheck at batch 8 on the plain path (one
+    encode and prefill a fact), the decode step from a 65-token generate,
+    each launch against the plan; the prefill and 4 forced steps against
+    the dense route on a bf16 cache (phase 11's bounds) -> (launches,
+    rates, the eager forced logits and first logits phase 18c compares
+    with)."""
+    tag = "18b minicpmv int8"
+    model, eng = gen.model, gen.engine
+    t0 = time.perf_counter()
+    quantize_llm_int8(model, include_lm_head=False)
+    set_llm_config(model, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the LLM quantised to int8 in place (the head, resampler and SigLIP bf16), "
+        f"the cache int8, in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    items = _omni_items(_mcv_bench_images(image_bytes), FACTS[:MCV_BENCH_B // 2])
+    prompts, feats, sst = gen._prepare(items)
+    Lp = -(-max(len(p) for p in prompts) // 64) * 64
+    buckets = _slice_buckets(gen, items)
+    n_slices = sum(b.shape[0] for b in buckets)
+    log(f"[{tag}] bench_minicpmv_serve's geometry: {len(items)} items of {MCV_BENCH_PX} px, "
+        f"{feats.shape[1]} spans a row ({n_slices} slices of "
+        f"{[tuple(b.shape[1:3]) for b in buckets]} px), Q {feats.shape[2]}, prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens padded to {Lp}")
+    if feats.shape[1] != MCV_BENCH_SLICES or Lp != MCV_BENCH_LP or len(buckets) != 1:
+        raise AssertionError(f"18b: not the bench geometry: {feats.shape}, Lp {Lp}")
+    gen.autocheck(items[:2], batch_size=MCV_BENCH_B, shared_prefix=False)  # warm-up
+    with torch.inference_mode():
+        enc = time_ms(lambda: model.encode_slices(buckets[0]), 3)
+    rates = {"encode_ms": enc}
+    torch.cuda.reset_peak_memory_stats()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = gen.autocheck(items, batch_size=MCV_BENCH_B, shared_prefix=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rates["facts_s"] = _omni_rates(tag, len(items), f"autocheck facts at batch "
+                                       f"{MCV_BENCH_B} (plain: one encode and prefill a fact)",
+                                       t1 - t0)
+        walls = {}
+        for new in (1, 65):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = eng.generate(prompts, span_features=feats, span_starts=sst,
+                               max_new_tokens=new)
+            torch.cuda.synchronize()
+            walls[new] = time.perf_counter() - t2
+        launches = read_counts()
+    rates["prefill_ms"] = walls[1] * 1e3
+    rates["decode_step_ms"] = (walls[65] - walls[1]) / 64 * 1e3
+    rates["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{tag}] encode of the {n_slices} slices {enc:.2f} ms ({enc / n_slices:.2f} ms a "
+        f"slice, {enc / len(items):.2f} an item); prefill of {len(items)} x {Lp} tokens with "
+        f"the splice (generate of 1 token) {rates['prefill_ms']:.2f} ms; a decode step at "
+        f"batch {len(items)} ((generate of 65 - generate of 1) / 64) "
+        f"{rates['decode_step_ms']:.2f} ms; launches: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "decode", "decode_int8", "int8", "int8_prequant"))
+    assert len(scored) == len(items) and res.tokens.shape == (len(items), 65)
+
+    greedy = _omni_items(_omni_images(image_bytes), OMNI_GREEDY, per_image=False)
+    prompts, feats, sst = gen._prepare(greedy)
+    tokens, spans = _mcv_tokens(gen, len(prompts)), (feats, sst)
+    path = _forced_logits(eng, prompts, None, None, tokens, ("auto", "auto"), spans)
+    set_llm_config(model, kv_cache_dtype="fp")
+    dense = _forced_logits(eng, prompts, None, None, tokens, ("dense", "dense"), spans)
+    set_llm_config(model, kv_cache_dtype="int8")
+    ok = bool(torch.isfinite(path).all() and torch.isfinite(dense).all())
+    for text, a, b in (("prefill: the path (fresh-window #1) vs dense on a bf16 cache",
+                        path[:1], dense[:1]),
+                       (f"decode steps 1-{OMNI_FORCED}: the path (#5) vs dense on a bf16 cache",
+                        path[1:], dense[1:])):
+        rel, cos = _logit_gap(a, b)
+        good = rel <= INT8_KV_REL_TOL and cos >= INT8_KV_COS_MIN
+        ok = ok and good
+        log(f"[{tag} vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol {INT8_KV_REL_TOL}), "
+            f"least row cosine {cos:.5f} (tol {INT8_KV_COS_MIN}) | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("18b: the int8 path disagrees with the dense route")
+    eager = _recorded_generate(eng, prompts, None, None, MCV_NEW, spans)
+    return launches, rates, dict(forced=path, greedy=eager)
+
+
+def phase_mcv_fused(gen: MiniCPMVGenerator, image_bytes: bytes, eager: dict) -> tuple:
+    """18c: 18b's model with its projections fused, served through the
+    fused engine (the LLM's weights stacked in place): a greedy generate
+    with #16 once a decode step and no #4, #5 or #7 in the run; its first
+    logits and its decode logits while the histories agree against 18b's
+    eager int8-KV generate (phase 11's bounds), each row's first differing
+    token logged; 4 forced steps: the fused prefill against 18b's, each
+    step's #16 against its twin on the same cache (phase 12's checks) ->
+    (launches, rates)."""
+    tag = "18c minicpmv fused"
+    fuse_llm_projections_(gen.model)
+    fgen = MiniCPMVGenerator(gen.model, gen.tokenizer, checkpoint_name=gen.checkpoint_name,
+                             fused_decode=True)
+    greedy = _omni_items(_omni_images(image_bytes), OMNI_GREEDY, per_image=False)
+    prompts, feats, sst = fgen._prepare(greedy)
+    spans = (feats, sst)
+    fgen.engine.generate(prompts[:1], span_features=feats[:1], span_starts=sst[:1],
+                         max_new_tokens=2)  # warm-up
+    spy, step = types.SimpleNamespace(steps=0), fgen.engine._step
+
+    def counted(*a):
+        spy.steps += 1
+        return step(*a)
+
+    fgen.engine._step = counted
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fgen.engine.generate(prompts, span_features=feats, span_starts=sst,
+                               max_new_tokens=MCV_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = read_counts()
+    fgen.engine._step = step
+    rates = {"tok_s": _omni_rates(tag, len(prompts) * (spy.steps + 1), f"greedy generate of "
+                                  f"{len(prompts)} rows, {spy.steps} steps: tokens", t1 - t0)}
+    decode_free = ("decode", "decode_int8", "int8")
+    ok = launches["fused"] == spy.steps > 0 and not any(launches[k] for k in decode_free) \
+        and launches["int8_prequant"] > 0
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f" | #16 {launches['fused']} = {spy.steps} decode steps, #4/#5/#7 "
+        f"{sum(launches[k] for k in decode_free)} | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"18c: the fused path's launches: {launches}")
+
+    # greedy tokens against 18b's eager int8-KV generate of the same prompts
+    fres, frows, _ = _recorded_generate(fgen.engine, prompts, None, None, MCV_NEW, spans)
+    eres, erows, _ = eager["greedy"]
+    assert np.array_equal(fres.tokens, res.tokens)
+    scale = max(erows[b][0].abs().max().item() for b in range(len(prompts)))
+    first_rel, first_cos = _logit_gap(torch.stack([r[0] for r in frows]),
+                                      torch.stack([r[0] for r in erows]))
+    worst, cos, compared, mismatch, full = _agree(MCV_NEW, frows, fres, erows, eres)
+    gaps = []
+    for b, m in enumerate(mismatch):
+        if m < MCV_NEW:
+            top2 = erows[b][m].topk(2).values
+            gaps.append(f"{b}@{m} {(top2[0] - top2[1]).item() / scale:.4f}")
+    good = first_rel <= INT8_KV_REL_TOL and first_cos >= INT8_KV_COS_MIN and \
+        worst <= INT8_KV_REL_TOL * scale and cos >= INT8_KV_COS_MIN
+    log(f"[{tag} vs eager int8-KV] greedy generate of {len(prompts)} rows x {MCV_NEW}: first "
+        f"logits max|d| / max|ref| {first_rel:.4f}, least row cosine {first_cos:.5f}; the "
+        f"decode logits of the {compared} tokens whose history both share by at most "
+        f"{worst / scale:.4f} of max|first logit|, least row cosine {cos:.5f} (tol "
+        f"{INT8_KV_REL_TOL}, {INT8_KV_COS_MIN}); each row's first differing token {mismatch} "
+        f"(of {MCV_NEW}), the eager top-2 gap there {gaps}; {full} of {len(prompts)} rows "
+        f"equal in full | {'ok' if good else 'FAIL'}")
+    tokens = _mcv_tokens(fgen, len(prompts))
+    kern, twin, spread = _fused_forced(fgen.engine, prompts, None, None, tokens, spans)
+    ok = good and all(bool(torch.isfinite(r).all()) for r in (kern, twin, spread))
+    rel, cos = _logit_gap(spread[1:], twin[1:])
+    log(f"[{tag} vs plain] the twin against itself with each step's x one ulp up: max|d| / "
+        f"max|ref| {rel:.4f}, least row cosine {cos:.5f}")
+    for text, a, b, rel_tol, cos_min in (
+            ("prefill: the fused tower vs 18b's per-layer prefill", kern[:1],
+             eager["forced"][:1], INT8_KV_REL_TOL, INT8_KV_COS_MIN),
+            (f"decode steps 1-{OMNI_FORCED}: kernel #16 vs the twin on the same cache",
+             kern[1:], twin[1:], FUSED_LOGIT_REL_TOL, FUSED_LOGIT_COS_MIN),
+            (f"decode steps 1-{OMNI_FORCED}: the fused path vs 18b's eager int8-KV path",
+             kern[1:], eager["forced"][1:], INT8_KV_REL_TOL, INT8_KV_COS_MIN)):
+        rel, cos = _logit_gap(a, b)
+        good = rel <= rel_tol and cos >= cos_min
+        ok = ok and good
+        log(f"[{tag} vs plain] {text}: max|d| / max|ref| {rel:.4f} (tol {rel_tol}), least row "
+            f"cosine {cos:.5f} (tol {cos_min}) | {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("18c: the fused path disagrees with its plain routes")
+    return launches, rates
+
+
+def phase_mcv_int4(tok, image_bytes: bytes) -> tuple:
+    """18d: the seed-0 model rebuilt, its LLM quantised to int4 on the card
+    (group 128, the head and SigLIP bf16, an int8 cache): autocheck of
+    18b's 8 items at batch 8 on the plain path, #11 against the plan ->
+    (launches, rates)."""
+    tag = "18d minicpmv int4"
+    model = build_minicpmv(tok, tag)
+    t0 = time.perf_counter()
+    quantize_llm_int4(model, include_lm_head=False)
+    set_llm_config(model, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] the LLM quantised to int4 in place in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    gen = MiniCPMVGenerator(model, tok, checkpoint_name="random-minicpm-llama3-v25")
+    items = _omni_items(_mcv_bench_images(image_bytes), FACTS[:MCV_BENCH_B // 2])
+    gen.autocheck(items[:1], batch_size=MCV_BENCH_B, shared_prefix=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        t0 = time.perf_counter()
+        scored = gen.autocheck(items, batch_size=MCV_BENCH_B, shared_prefix=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = read_counts()
+    rates = {"facts_s": _omni_rates(tag, len(items), f"autocheck facts at batch {MCV_BENCH_B} "
+                                    "(plain)", t1 - t0),
+             "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[{tag}] launches: " + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        + f"; peak {rates['peak_gb']:.2f} GiB")
+    plan.check(tag, launches, ("flash", "int4", "int8", "int8_prequant"))
+    assert len(scored) == len(items) and all(
+        0.0 <= p <= 1.0 for r in scored for p in r["scores"].values())
+    del gen, model
+    return launches, rates
+
+
+def phase_minicpmv(tok, image_bytes: bytes, smi: str) -> dict:
+    """18: MiniCPM-Llama3-V 2.5's serving slice, a-e (above) -> the
+    launches of its counted runs."""
+    model = build_minicpmv(tok, "18 minicpmv")
+    gen = MiniCPMVGenerator(model, tok, checkpoint_name="random-minicpm-llama3-v25")
+    launches, bf16 = timed("18a minicpmv bf16", phase_mcv_bf16, gen, image_bytes)
+    add_counts(launches, timed("18e minicpmv continuous", phase_mcv_continuous, gen,
+                               image_bytes, smi))
+    int8_launches, int8, eager = timed("18b minicpmv int8", phase_mcv_int8, gen, image_bytes)
+    add_counts(launches, int8_launches)
+    fused_launches, fused = timed("18c minicpmv fused", phase_mcv_fused, gen, image_bytes,
+                                  eager)
+    add_counts(launches, fused_launches)
+    del gen, model, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_launches, int4 = timed("18d minicpmv int4", phase_mcv_int4, tok, image_bytes)
+    add_counts(launches, int4_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[18 minicpmv] {smi}: bf16 encode {bf16['encode_slice_ms']:.2f} ms a slice, "
+        f"{bf16['encode_item_ms']:.2f} ms an item (a block at 8 slices {bf16['block_ms']:.3f} "
+        f"ms, its attention {bf16['attn_ms']:.3f}), autocheck {bf16['facts_s']:.2f} facts/s "
+        f"shared / {bf16['facts_plain_s']:.2f} plain, diverse_gen {bf16['diverse_tok_s']:.1f} "
+        f"tok/s, chat {bf16['chat_tok_s']:.1f} tok/s, 3-beam {bf16['beam_tok_s']:.1f} tok/s, "
+        f"peak {bf16['peak_gb']:.2f} GiB | int8 at the bench geometry: encode "
+        f"{int8['encode_ms']:.2f} ms, prefill {int8['prefill_ms']:.2f} ms, autocheck "
+        f"{int8['facts_s']:.2f} facts/s, decode step {int8['decode_step_ms']:.2f} ms, peak "
+        f"{int8['peak_gb']:.2f} GiB | fused generate {fused['tok_s']:.1f} tok/s | int4 "
+        f"autocheck {int4['facts_s']:.2f} facts/s, peak {int4['peak_gb']:.2f} GiB | launches "
+        f"{launches}")
+    return launches
+
+
 def eva_quant_dense(tag: str, g, bits: int) -> dict:
     """3d / 3e at the EVA02 tower's projections: QuantDense with its bias,
     the whole call (row pass, product, bias) at M = 1025 (one 448 px
@@ -6401,6 +7018,9 @@ def main() -> None:
     # 17 trains OmniLMM-12B's adapters on its two QLoRA configs, 16's models
     # freed, each config on a model of its own
     add_counts(launches, timed("17 omnilmm qlora", phase_omni_train, tok, image_bytes, smi))
+    # 18 serves MiniCPM-Llama3-V 2.5 (bf16, int8, fused, int4; continuous
+    # with spans), 17's models freed
+    add_counts(launches, timed("18 minicpmv", phase_minicpmv, tok, image_bytes, smi))
 
     # 8 scores the rows with the frozen starting policy; 7 and 6 train that
     # same model on the first row's pair against those reference logps (7
@@ -6435,7 +7055,8 @@ def main() -> None:
 
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
-        f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, ref-logp 8, "
+        f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, "
+        f"MiniCPM-Llama3-V 2.5 18a-e, ref-logp 8, "
         f"train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"

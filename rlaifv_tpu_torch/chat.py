@@ -1,4 +1,5 @@
-"""Single-image chat with LLaVA-1.5 or OmniLMM-12B on the port.
+"""Single-image chat with LLaVA-1.5, OmniLMM-12B or MiniCPM-Llama3-V 2.5 on
+the port.
 
     python -m rlaifv_tpu_torch.chat --model-path <ckpt> [--image img.jpg]
         [--question "..."] [--kv-int8] [--load-8bit] [--device cpu]
@@ -16,13 +17,17 @@ card); `--kv-int8`: an int8 decode cache (kernel #5). A path holding "12B"
 loads OmniLMM-12B (genai/omni_gen.py `OmniLMMChat`, as the root chat.py:
 3 beams combined with sampling): `--load-8bit` quantises both towers to
 int8 with an int8 KV cache, `--load-4bit` to int4 (plain group
-quantisation); `--kv-int8` and `--lookup-decode` do not apply there.
+quantisation); `--kv-int8` and `--lookup-decode` do not apply there. A
+path holding "minicpm" (any case) loads MiniCPM-Llama3-V 2.5
+(genai/minicpmv_gen.py `MiniCPMVChat`, as the JAX package's chat CLI:
+sampled T 0.7 / top-p 0.8 / repetition 1.05): `--load-8bit` quantises the
+LLM to int8 with an int8 KV cache, `--load-4bit` to int4, the SigLIP tower
+left float.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP.md
 'Modules to port' number: anyres checkpoints (LLaVA-1.6 grids, #8, raised
 by models/llava.py), `--lookup-decode` and the 7B's `--load-4bit` (its
-serving path needs models/quant_smooth.py; #11), the MiniCPM-V family
-(#10).
+serving path needs models/quant_smooth.py; #11).
 """
 from __future__ import annotations
 
@@ -126,7 +131,13 @@ class RLAIFVChat:
                                      device=device, max_new_tokens=max_new_tokens,
                                      tokenizer=tokenizer)
         elif "minicpm" in model_path.lower():
-            raise NotImplementedError("the MiniCPM-V family " + _NOT_PORTED + "#10")
+            from rlaifv_tpu_torch.genai.minicpmv_gen import MiniCPMVChat
+
+            # --load-8bit / --load-4bit: the one-card configuration (int8 or
+            # int4 LLM, int8 KV cache, the SigLIP tower float)
+            self.model = MiniCPMVChat(model_path, int8=load_8bit, int4=load_4bit,
+                                      device=device, max_new_tokens=max_new_tokens,
+                                      tokenizer=tokenizer)
         else:
             base = None
             if "lora" in model_path.lower():
@@ -151,7 +162,8 @@ def main(argv=None):
     ap.add_argument("--load-8bit", action="store_true",
                     help="weight-only int8 LLM projections")
     ap.add_argument("--load-4bit", action="store_true",
-                    help="weight-only int4 (OmniLMM-12B; the 7B's is not ported: ROADMAP #11)")
+                    help="weight-only int4 (OmniLMM-12B, MiniCPM-V; the 7B's is not ported: "
+                         "ROADMAP #11)")
     ap.add_argument("--lookup-decode", action="store_true",
                     help="prompt-lookup greedy decoding (not ported: ROADMAP #11)")
     ap.add_argument("--max-new-tokens", type=int, default=1024)

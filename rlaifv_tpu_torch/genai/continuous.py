@@ -43,10 +43,12 @@ through to the batched refill. A fused engine ignores share_keys, as the
 JAX module's docstring says (the stacked write-through prefill keeps no
 per-layer window).
 
-Modes: "text" and "images" (the LLaVA splice through the engine's
-`_embeds`). MiniCPM-V's pre-encoded `span_features` raise
-NotImplementedError (ROADMAP.md 'Modules to port' #10). The per-layer
-engine (bf16 or int8 KV cache) scatters into its per-layer cache; the fused
+Modes: "text", "images" (the LLaVA / OmniLMM splice through the engine's
+`_embeds`) and "spans" (MiniCPM-V's pre-encoded span groups, (N, S, Q, D)
+numpy or a tensor on the card, with (N, S) starts relative to each prompt,
+-1 inactive: a refill takes its prompts' groups and shifts their starts by
+the window's left padding; padding rows take the first prompt's group with
+every start -1). The per-layer engine (bf16 or int8 KV cache) scatters into its per-layer cache; the fused
 engine prefills through `stacked_prefill_tower(col_start=, slot_ids=)`
 straight into the stacked cache and compacts with `compact_stacked`.
 """
@@ -170,19 +172,19 @@ class ContinuousGenerator:
                 w = sub[key]
                 glob[idx, gt - w.shape[1]:gt] = w[:idx.numel()].to(glob.dtype)
 
-    def _prefill_window(self, ids, mask, images, starts, cache):
+    def _prefill_window(self, ids, mask, images, starts, cache, spans=None):
         """A left-padded window (R, Lp) through the per-layer model into
         `cache` (R rows of exactly Lp columns: square attention) -> the
         last position's logits (R, V)."""
         eng = self.engine
         pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
-        logits, _ = eng.llm(inputs_embeds=eng._embeds(ids, images, starts),
+        logits, _ = eng.llm(inputs_embeds=eng._embeds(ids, images, starts, spans),
                             attention_mask=mask, position_ids=pos, cache=cache,
                             cache_index=0)
         return logits[:, -1]
 
     def _refill(self, st: _Slots, ids, mask, slot_ids, gt: int, images, starts,
-                budgets_r):
+                budgets_r, spans=None):
         """Prefill R prompts in their own (R, Lp_r) window and scatter it
         into columns [gt - Lp_r, gt) of the slots `slot_ids` (a host array;
         ids >= B are padding rows, dropped) -> first logits (R, V)."""
@@ -193,24 +195,25 @@ class ContinuousGenerator:
             cfg = eng.llm.cfg
             pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
             x, _ = stacked_prefill_tower(
-                eng._fused_stacked, st.cache, eng._embeds(ids, images, starts), mask, pos,
+                eng._fused_stacked, st.cache, eng._embeds(ids, images, starts, spans), mask,
+                pos,
                 cfg, col_start=gt - Lp, slot_ids=slot_ids, n_slots=B)
             first = eng._head(x[:, -1])
         else:
             window = eng.llm.init_cache(R, Lp)
-            first = self._prefill_window(ids, mask, images, starts, window)
+            first = self._prefill_window(ids, mask, images, starts, window, spans)
             self._put(st, window, idx, gt)
         self._reset_slots(st, idx, ids, mask, first, gt, budgets_r)
         self.stats["prefills"] += 1
         return first
 
-    def _window_prefill(self, ids, mask, images, starts):
+    def _window_prefill(self, ids, mask, images, starts, spans=None):
         """Prefill ONE prompt into a standalone (1, Lp) window cache in the
         serving cache type -> (window, first logits (1, V)). The window is
         position-independent (content-relative RoPE), so it can be
         scattered into any slots at any gt, any number of times."""
         window = self.engine.llm.init_cache(1, ids.shape[1])
-        first = self._prefill_window(ids, mask, images, starts, window)
+        first = self._prefill_window(ids, mask, images, starts, window, spans)
         self.stats["window_prefills"] += 1
         return window, first
 
@@ -280,9 +283,6 @@ class ContinuousGenerator:
         collect_first_logits)."""
         from rlaifv_tpu_torch.genai.engine import GenerateResult, left_pad_batch
 
-        if span_features is not None or span_starts is not None:
-            raise NotImplementedError("span_features (MiniCPM-V's refill mode) is not ported "
-                                      "to rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #10")
         eng, B, T = self.engine, self.B, self.T
         dev = eng.device
         N = len(prompts)
@@ -318,7 +318,25 @@ class ContinuousGenerator:
         first_logits = [None] * N
         host_done = np.ones(B, bool)
         gt = Lp0
-        mode = "images" if images is not None else "text"
+        mode = ("images" if images is not None
+                else "spans" if span_features is not None else "text")
+
+        def spans_of(ps, Lp_r, R):
+            """The span groups of prompts `ps` in a window of Lp_r columns and
+            R rows: (features (R, S, Q, D) on the device, starts (R, S)
+            shifted by each prompt's left padding; padding rows repeat the
+            first group with every start -1)."""
+            rows = list(ps) + [ps[0]] * (R - len(ps))
+            if torch.is_tensor(span_features):
+                feats = span_features.index_select(
+                    0, to_device(np.asarray(rows, np.int64), span_features.device)).to(dev)
+            else:
+                feats = to_device(np.asarray(span_features)[rows], dev)
+            sts = np.full((R, np.shape(span_starts)[1]), -1, np.int64)
+            for r, p in enumerate(ps):
+                st = np.asarray(span_starts[p], np.int64)
+                sts[r] = np.where(st < 0, -1, st + Lp_r - len(prompts[p]))
+            return feats, sts
 
         def harvest(s):
             p = owner[s]
@@ -339,12 +357,14 @@ class ContinuousGenerator:
             if not (saved and saved["key"] == key_r and saved["Lp"] == Lp_r):
                 ids, mask = left_pad_batch([prompts[p0]], eng.pad_id, Lp_r)
                 ids, mask = to_device(ids, dev), to_device(mask, dev)
-                media, starts = None, None
+                media, starts, spans = None, None, None
                 if mode == "images":
                     st0 = int(image_starts[p0])
                     media = eng._device_images(images[p0][None])
                     starts = [st0 + Lp_r - len(prompts[p0]) if st0 >= 0 else -1]
-                window, first = self._window_prefill(ids, mask, media, starts)
+                elif mode == "spans":
+                    spans = spans_of([p0], Lp_r, 1)
+                window, first = self._window_prefill(ids, mask, media, starts, spans)
                 saved = dict(key=key_r, Lp=Lp_r, window=window, first=first, ids=ids,
                              mask=mask)
             self._scatter_refill(st, saved["window"], saved["first"], saved["ids"],
@@ -415,7 +435,9 @@ class ContinuousGenerator:
                 mask = np.concatenate([mask, np.zeros((R - take, Lp_r), np.int32)])
             slot_ids = np.full(R, B, np.int64)
             slot_ids[:take] = free_rest[:take]
-            media = starts = None
+            media = starts = spans = None
+            if mode == "spans":
+                spans = spans_of(group, Lp_r, R)
             if mode == "images":
                 offs = Lp_r - np.asarray([len(prompts[p]) for p in group])
                 media = np.zeros((R,) + images.shape[1:], images.dtype)
@@ -427,7 +449,7 @@ class ContinuousGenerator:
             budgets_r = np.full(R, self.max_new, np.int64)
             budgets_r[:take] = budgets[group]
             first = self._refill(st, to_device(ids, dev), to_device(mask, dev), slot_ids, gt,
-                                 media, starts, budgets_r)
+                                 media, starts, budgets_r, spans)
             for s, p in zip(free_rest[:take], group):
                 owner[s] = p
                 host_done[s] = False

@@ -2,15 +2,18 @@
 
 Counterpart of rlaifv_tpu/genai/engine.py::DecodeEngine on its per-layer
 cache path (bf16 or int8, as the model's kv_cache_dtype says), with the
-same conventions. It serves a LLaVA model (models/llava.py, images spliced
-into the prompt embeddings) or, as the JAX engine's bare-LM mode, a
-text-only LlamaForCausalLM (models/llama.py; `images` must be None), such
-as the divide-and-conquer stage's Llama3-8B:
+same conventions. It serves a LLaVA or OmniLMM model (images spliced into
+the prompt embeddings), a MiniCPM-V model (models/minicpmv.py: pre-encoded
+`span_features` spliced at several `span_starts` of each row) or, as the
+JAX engine's bare-LM mode, a text-only LlamaForCausalLM (models/llama.py;
+`images` must be None), such as the divide-and-conquer stage's Llama3-8B.
+Span features splice into the LM's own token embeddings whatever the
+model, as the JAX engine's `_embed_spliced` does:
 
 - prompts are LEFT-padded to a bucket of 64, so every row's last prompt
   token sits at one index and one host-int cache_index drives the decode
-  loop; positions are cumsum(mask) - 1 and image starts shift by each
-  row's pad offset;
+  loop; positions are cumsum(mask) - 1 and image and span starts shift by
+  each row's pad offset (-1 stays -1);
 - max_len = prompt bucket + max_new rounded up to 128, so decode steps
   take the prefix decode-attention kernel;
 - the prompt prefill runs over views of the cache's first Lp columns, so
@@ -21,7 +24,8 @@ as the divide-and-conquer stage's Llama3-8B:
 - `generate_beam` prefills at B rows straight into a cache of B * K rows
   and runs genai/beam.py's eager beam loop (one sync a step, the cache
   rows reordered by the chosen parents);
-- `generate_many` runs length-sorted batches through `generate`;
+- `generate_many` runs length-sorted batches through `generate` (no span
+  features, as in the JAX engine);
   `generate_continuous` runs genai/continuous.py's slot-refill continuous
   batching (one sync a chunk of decode steps), on every engine kind;
 - shared-prefix scoring prefills the prefix once into a cache of exactly
@@ -62,6 +66,7 @@ import torch
 from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.genai.sampling import SamplingParams, sample_token
 from rlaifv_tpu_torch.models.llama import llama_init_cache
+from rlaifv_tpu_torch.models.minicpmv import splice_multi_span
 from rlaifv_tpu_torch.ops.fused_decode import (
     default_dims,
     fused_decode_step,
@@ -156,9 +161,15 @@ class DecodeEngine:
     def device(self) -> torch.device:
         return self.llm.model.tok_embed.weight.device
 
-    def _embeds(self, ids, images, image_starts) -> torch.Tensor:
-        """Prompt embeddings: the LLaVA splice, or a bare LM's token
-        embeddings (image sentinels < 0 map to id 0 either way)."""
+    def _embeds(self, ids, images, image_starts, spans=None) -> torch.Tensor:
+        """Prompt embeddings: the span splice (`spans` = (features (B, S, Q,
+        D) on the device, starts (B, S) host ints in padded coordinates)),
+        the LLaVA splice, or a bare LM's token embeddings (image sentinels
+        < 0 map to id 0 either way)."""
+        if spans is not None:
+            if images is not None:
+                raise ValueError("pass images or span features, not both")
+            return splice_multi_span(self.llm.embed(ids.clamp(min=0)), *spans)
         if self._multimodal:
             return self.model.build_embeds(ids, images, image_starts)
         if images is not None:
@@ -171,6 +182,16 @@ class DecodeEngine:
         if images is None:
             return None
         return to_device(np.asarray(images), self.device)
+
+    def _spans(self, span_features, span_starts, offs):
+        """(features on the device, starts shifted by each row's left-pad
+        offset `offs` (B,), -1 kept) or None without span features."""
+        if span_features is None:
+            return None
+        feats = (span_features.to(self.device) if torch.is_tensor(span_features)
+                 else to_device(np.asarray(span_features), self.device))
+        st = np.asarray(span_starts, np.int64)
+        return feats, np.where(st < 0, -1, st + np.asarray(offs, np.int64)[:, None])
 
     def _need_per_layer(self, name: str) -> None:
         if self.fused_decode:
@@ -185,7 +206,8 @@ class DecodeEngine:
         cfg = dataclasses.replace(self.llm.cfg, kv_cache_dtype="fp")
         return llama_init_cache(cfg, B, S, self.device)
 
-    def _prefill(self, ids, mask, images, image_starts, max_len, beams: int = 1):
+    def _prefill(self, ids, mask, images, image_starts, max_len, beams: int = 1,
+                 spans=None):
         """Prompt pass at B rows into a fresh (B * beams, max_len) cache ->
         (last-position logits (B, V), cache, cache_mask (B * beams,
         max_len)).
@@ -199,7 +221,7 @@ class DecodeEngine:
         cache = self.llm.init_cache(B * beams, max_len)
         views = [{name: c.view(B, beams, *c.shape[1:])[:, 0, :Lp]
                   for name, c in layer.items()} for layer in cache]
-        embeds = self._embeds(ids, images, image_starts)
+        embeds = self._embeds(ids, images, image_starts, spans)
         logits, _ = self.llm(inputs_embeds=embeds, attention_mask=mask,
                              position_ids=pos, cache=views, cache_index=0)
         if beams > 1:
@@ -217,7 +239,7 @@ class DecodeEngine:
         h = x[:, None].to(self.llm.cfg.dtype)
         return self.llm.logits(self.llm.model.ln_f(h))[:, 0]
 
-    def _fused_prefill(self, ids, mask, images, image_starts, max_len):
+    def _fused_prefill(self, ids, mask, images, image_starts, max_len, spans=None):
         """The write-through prefill into a fresh stacked int8 cache ->
         (last-position logits (B, V), stacked cache, cache_mask)."""
         B, Lp = ids.shape
@@ -225,7 +247,7 @@ class DecodeEngine:
         pos = (torch.cumsum(mask, dim=1) - 1).clamp(min=0)
         cache_mask = torch.zeros((B, max_len), dtype=torch.int32, device=self.device)
         cache_mask[:, :Lp] = mask
-        embeds = self._embeds(ids, images, image_starts)
+        embeds = self._embeds(ids, images, image_starts, spans)
         x, cache = stacked_prefill_tower(
             self._fused_stacked, init_stacked_cache(cfg, B, max_len, self.device),
             embeds, mask, pos, cfg)
@@ -292,47 +314,55 @@ class DecodeEngine:
         return GenerateResult(tokens, self._trim(tokens),
                               first_logits.float().cpu().numpy())
 
-    def _batch(self, prompts, images, image_starts, prompt_bucket: int, max_new: int):
+    def _batch(self, prompts, images, image_starts, prompt_bucket: int, max_new: int,
+               span_features=None, span_starts=None):
         """Left-pad the prompts to their bucket -> (ids, mask (B, Lp) on the
-        device, image starts shifted by each row's padding or None,
-        max_len = Lp + max_new rounded up to 128)."""
+        device, image starts shifted by each row's padding or None, the
+        spans (`_spans`) or None, max_len = Lp + max_new rounded up to
+        128)."""
         Lp = _round_up(max(len(p) for p in prompts), prompt_bucket)
         ids_np, mask_np = left_pad_batch(prompts, self.pad_id, Lp)
+        offs = Lp - np.asarray([len(p) for p in prompts])
         starts = None
         if images is not None:
-            offs = Lp - np.asarray([len(p) for p in prompts])
             starts = np.asarray(image_starts, np.int64) + offs
             starts = np.where(np.asarray(image_starts) < 0, -1, starts)
         return (torch.from_numpy(ids_np).to(self.device),
                 torch.from_numpy(mask_np).to(self.device), starts,
+                self._spans(span_features, span_starts, offs),
                 _round_up(Lp + max_new, 128))
 
     # -------------------------------------------------- public API
 
     @torch.inference_mode()
-    def generate(self, prompts, *, images=None, image_starts=None,
-                 sampling: SamplingParams = SamplingParams.greedy(),
+    def generate(self, prompts, *, images=None, image_starts=None, span_features=None,
+                 span_starts=None, sampling: SamplingParams = SamplingParams.greedy(),
                  max_new_tokens: int = 512, seed: int = 0,
                  prompt_bucket: int = 64) -> GenerateResult:
         """prompts: token-id sequences with image sentinels pre-expanded;
-        images (B, H, W, 3); image_starts relative to each prompt."""
-        ids, mask, starts, max_len = self._batch(prompts, images, image_starts,
-                                                 prompt_bucket, max_new_tokens)
+        images (B, H, W, 3); image_starts relative to each prompt;
+        span_features (B, S, Q, D) pre-encoded features (numpy or a tensor)
+        and span_starts (B, S) relative to each prompt, -1 inactive."""
+        ids, mask, starts, spans, max_len = self._batch(
+            prompts, images, image_starts, prompt_bucket, max_new_tokens, span_features,
+            span_starts)
         prefill = self._fused_prefill if self.fused_decode else self._prefill
         first, cache, cache_mask = prefill(
-            ids, mask, self._device_images(images), starts, max_len)
+            ids, mask, self._device_images(images), starts, max_len, spans=spans)
         tokens = self._decode(first, cache, cache_mask, mask.sum(dim=1), ids,
                               mask, sampling, max_new_tokens, seed)
         return self._finish(tokens, first)
 
     @torch.inference_mode()
     def generate_repeated(self, prompt, *, n: int, image=None,
-                          image_start: int = -1,
+                          image_start: int = -1, span_features=None, span_starts=None,
                           sampling: SamplingParams = SamplingParams.greedy(),
                           max_new_tokens: int = 512, seed: int = 0,
                           prompt_bucket: int = 64) -> GenerateResult:
         """n sampled continuations of ONE prompt with one prefill and one
-        vision encode: prefill at B=1, copy the cache to n rows, decode."""
+        vision encode: prefill at B=1, copy the cache to n rows, decode.
+        span_features (S, Q, D) and span_starts (S,) are one prompt's
+        group."""
         self._need_per_layer("generate_repeated")
         Lp = _round_up(len(prompt), prompt_bucket)
         ids_np, mask_np = left_pad_batch([prompt], self.pad_id, Lp)
@@ -343,11 +373,16 @@ class DecodeEngine:
         images = (self._device_images(np.asarray(image)[None])
                   if image is not None else None)
         starts = [image_start + off if image_start >= 0 else -1]
+        spans = None
+        if span_features is not None:
+            feats = (span_features[None] if torch.is_tensor(span_features)
+                     else np.asarray(span_features)[None])
+            spans = self._spans(feats, np.asarray(span_starts)[None], [off])
         # n real rows, not expand(): the decode writes each row's new k/v
         # in place and the decode kernels index rows densely (an int8
         # cache's scales are 3-D)
         first, cache, cache_mask = self._prefill(ids, mask, images, starts, max_len,
-                                                 beams=n)
+                                                 beams=n, spans=spans)
         prompt_len = mask.sum(dim=1).expand(n)
         tokens = self._decode(first.expand(n, -1), cache, cache_mask, prompt_len,
                               ids.expand(n, -1), mask.expand(n, -1), sampling,
@@ -413,6 +448,7 @@ class DecodeEngine:
 
     @torch.inference_mode()
     def generate_beam(self, prompts, *, images=None, image_starts=None,
+                      span_features=None, span_starts=None,
                       num_beams: int = 3, max_new_tokens: int = 512,
                       length_penalty: float = 1.0, prompt_bucket: int = 64,
                       sampling: Optional[SamplingParams] = None,
@@ -427,11 +463,12 @@ class DecodeEngine:
 
         self._need_per_layer("generate_beam")
         B, K = len(prompts), num_beams
-        ids, mask, starts, max_len = self._batch(prompts, images, image_starts,
-                                                 prompt_bucket, max_new_tokens)
+        ids, mask, starts, spans, max_len = self._batch(
+            prompts, images, image_starts, prompt_bucket, max_new_tokens, span_features,
+            span_starts)
         Lp = ids.shape[1]
         first, cache, cache_mask = self._prefill(
-            ids, mask, self._device_images(images), starts, max_len, beams=K)
+            ids, mask, self._device_images(images), starts, max_len, beams=K, spans=spans)
         token_seen = None
         if sampling is not None and sampling.repetition_penalty != 1.0:
             # prompt tokens count toward the penalty (HF: the sequence so far)
@@ -449,14 +486,33 @@ class DecodeEngine:
             token_seen=token_seen)
         return GenerateResult(seqs, self._trim(seqs), scores)
 
+    @staticmethod
+    def longest_common_prefix_len(seqs) -> int:
+        """Length of the longest common prefix of token-id sequences, capped
+        at min_len - 1 so every row keeps at least one suffix token. Any
+        split at or below it is exact: each row's full tokenisation is
+        sliced, never re-tokenised, so prefix + suffix == the full ids."""
+        first = seqs[0]
+        P = min(len(s) for s in seqs) - 1
+        for s in seqs[1:]:
+            i = 0
+            while i < P and s[i] == first[i]:
+                i += 1
+            P = i
+            if P == 0:
+                break
+        return max(P, 0)
+
     @torch.inference_mode()
     def score_shared_prefix(self, prefix_ids, suffixes, *, image=None,
-                            image_start: int = -1, batch_size: int = 16,
-                            suffix_bucket: int = 32) -> np.ndarray:
+                            image_start: int = -1, span_features=None, span_starts=None,
+                            batch_size: int = 16, suffix_bucket: int = 32) -> np.ndarray:
         """Last-position fp32 logits (N, V) for N prompts sharing one prefix:
         the prefix KV is computed once (one vision encode, one prefill) and
         only the suffixes run per row - exactly
-        `generate(..., max_new_tokens=1).first_logits`."""
+        `generate(..., max_new_tokens=1).first_logits`. span_features
+        (S, Q, D) and span_starts (S,) are the prefix's span group, every
+        span inside the prefix."""
         self._need_per_layer("score_shared_prefix")
         if any(len(s) < 1 for s in suffixes):
             raise ValueError("score_shared_prefix: every suffix must carry "
@@ -469,8 +525,13 @@ class DecodeEngine:
         ids = torch.as_tensor([prefix_ids], dtype=torch.int64, device=dev)
         images = (self._device_images(np.asarray(image)[None])
                   if image is not None else None)
+        spans = None
+        if span_features is not None:
+            feats = (span_features[None] if torch.is_tensor(span_features)
+                     else np.asarray(span_features)[None])
+            spans = self._spans(feats, np.asarray(span_starts)[None], [0])
         _, pcache = self.llm(
-            inputs_embeds=self._embeds(ids, images, [image_start]),
+            inputs_embeds=self._embeds(ids, images, [image_start], spans),
             attention_mask=torch.ones((1, P), dtype=torch.int32, device=dev),
             position_ids=torch.arange(P, device=dev)[None],
             cache=self._fp_cache(1, P), cache_index=0,

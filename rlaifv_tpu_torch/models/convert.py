@@ -47,8 +47,12 @@ models/resampler.py's `convert_resampler`) and `omnilmm_config_from_hf`,
 then the same bridge (the EVA blocks `block_{i}` -> `blocks.{i}`);
 `quantize_vision_int8` / `quantize_vision_int4` quantise the EVA tower's
 projections in place, biases kept, and `set_vision_config` replaces
-fields of every EvaConfig a model carries. MiniCPM-V's
-converters are not copied: ROADMAP.md 'Modules to port' #10.
+fields of every EvaConfig a model carries. MiniCPM-Llama3-V 2.5
+checkpoints go through `convert_minicpmv` (`convert_llama` under llm.*,
+`convert_siglip` under vpm.*, `convert_resampler` without a query-side
+table) and `minicpmv_config_from_hf`, then the same bridge (the SigLIP
+blocks `layer_{i}` -> `layers.{i}`); the tower stays float when the LLM is
+quantised.
 """
 from __future__ import annotations
 
@@ -453,9 +457,10 @@ def fuse_llm_projections_(model: nn.Module) -> nn.Module:
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Copy a flax LLaVA param tree into a LlavaForCausalLM, a flax OmniLMM
-    tree into an OmniLMMForCausalLM, or a bare flax Llama tree into a
-    LlamaForCausalLM (strict: every name must match), converting to each
-    parameter's dtype and device."""
+    tree into an OmniLMMForCausalLM, a flax MiniCPM-V tree (vpm/,
+    resampler/, llm/) into a MiniCPMVForCausalLM, or a bare flax Llama tree
+    into a LlamaForCausalLM (strict: every name must match), converting to
+    each parameter's dtype and device."""
     sd = llava_params_from_jax(params)
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
@@ -759,6 +764,115 @@ def convert_omnilmm(sd: Mapping[str, Any], dtype=np.float32,
         layers_to_run=vision_layers_to_run,
     )
     tree["resampler"] = convert_resampler(sd, prefix="model.resampler.", dtype=dtype)
+    return tree
+
+
+def convert_siglip(
+    sd: Mapping[str, Any], prefix: str = "vpm.", dtype=np.float32
+) -> Tree:
+    """HF SiglipVisionModel / MiniCPM-V `vpm.` tower -> the
+    SiglipVisionTower tree.
+
+    Key layout (HF siglip + MiniCPM-V 2.5 remote code): embeddings.
+    patch_embedding.{weight,bias}, embeddings.position_embedding.weight,
+    encoder.layers.N.{self_attn.{q,k,v,out}_proj, layer_norm1/2, mlp.fc1/2},
+    post_layernorm; an extra `vision_model.` nesting is tolerated.
+    """
+    if not any(k.startswith(prefix + "encoder") for k in sd):
+        if any(k.startswith(prefix + "vision_model.encoder") for k in sd):
+            prefix = prefix + "vision_model."
+    g = lambda k: _np(sd[prefix + k]).astype(dtype)
+    tree: Tree = {}
+    _set(tree, "patch_embed/kernel",
+         g("embeddings.patch_embedding.weight").transpose(2, 3, 1, 0))
+    _set(tree, "patch_embed/bias", g("embeddings.patch_embedding.bias"))
+    _set(tree, "pos_embed", g("embeddings.position_embedding.weight"))
+    layer_pat = re.compile(re.escape(prefix) + r"encoder\.layers\.(\d+)\.")
+    n_layers = 1 + max(int(m.group(1)) for k in sd if (m := layer_pat.match(k)))
+    for i in range(n_layers):
+        hf = f"encoder.layers.{i}."
+        fx = f"layer_{i}/"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _set(tree, fx + f"{name}/kernel", g(hf + f"self_attn.{name}.weight").T)
+            _set(tree, fx + f"{name}/bias", g(hf + f"self_attn.{name}.bias"))
+        _set(tree, fx + "ln1/scale", g(hf + "layer_norm1.weight"))
+        _set(tree, fx + "ln1/bias", g(hf + "layer_norm1.bias"))
+        _set(tree, fx + "ln2/scale", g(hf + "layer_norm2.weight"))
+        _set(tree, fx + "ln2/bias", g(hf + "layer_norm2.bias"))
+        _set(tree, fx + "fc1/kernel", g(hf + "mlp.fc1.weight").T)
+        _set(tree, fx + "fc1/bias", g(hf + "mlp.fc1.bias"))
+        _set(tree, fx + "fc2/kernel", g(hf + "mlp.fc2.weight").T)
+        _set(tree, fx + "fc2/bias", g(hf + "mlp.fc2.bias"))
+    _set(tree, "post_ln/scale", g("post_layernorm.weight"))
+    _set(tree, "post_ln/bias", g("post_layernorm.bias"))
+    return tree
+
+
+def minicpmv_config_from_hf(model_dir: str, **overrides):
+    """MiniCPMVConfig from the checkpoint's config.json (the MiniCPM-Llama3-V
+    2.5 remote-code layout: the Llama3 fields at the top level, the slicing
+    knobs query_num / slice_mode / max_slice_nums / scale_resolution /
+    patch_size, the SigLIP tower so400m unless a vision_config block says
+    otherwise). `llm={...}` and `vision={...}` override fields of the two
+    sub-configs."""
+    import json as _json
+
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.models.minicpmv import MiniCPMVConfig
+    from rlaifv_tpu_torch.models.siglip import SiglipVisionConfig
+
+    cfg_path = os.path.join(model_dir, "config.json")
+    raw = {}
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            raw = _json.load(f)
+
+    llm = LlamaConfig.llama3_8b(
+        vocab_size=raw.get("vocab_size", 128256),
+        hidden_size=raw.get("hidden_size", 4096),
+        intermediate_size=raw.get("intermediate_size", 14336),
+        num_layers=raw.get("num_hidden_layers", 32),
+        num_heads=raw.get("num_attention_heads", 32),
+        num_kv_heads=raw.get("num_key_value_heads", 8),
+        max_position_embeddings=raw.get("max_position_embeddings", 8192),
+        rope_theta=raw.get("rope_theta", 500000.0),
+        rms_norm_eps=raw.get("rms_norm_eps", 1e-5),
+        **overrides.get("llm", {}),
+    )
+    vis_raw = dict(raw.get("vision_config", {}))
+    vis_kw = dict(
+        image_size=vis_raw.get("image_size", 980),
+        patch_size=vis_raw.get("patch_size", 14),
+        hidden_size=vis_raw.get("hidden_size", 1152),
+        intermediate_size=vis_raw.get("intermediate_size", 4304),
+        num_layers=vis_raw.get("num_hidden_layers", 27),
+        num_heads=vis_raw.get("num_attention_heads", 16),
+    )
+    vis_kw.update(overrides.get("vision", {}))
+    return MiniCPMVConfig(
+        llm=llm,
+        vision=SiglipVisionConfig.so400m(**vis_kw),
+        query_num=raw.get("query_num", 96),
+        slice_mode=raw.get("slice_mode", True),
+        max_slice_nums=raw.get("max_slice_nums", 9),
+        scale_resolution=raw.get("scale_resolution", 448),
+        patch_size=raw.get("patch_size", 14),
+    )
+
+
+def convert_minicpmv(sd: Mapping[str, Any], dtype=np.float32) -> Tree:
+    """MiniCPM-Llama3-V 2.5 checkpoint -> the MiniCPMVForCausalLM tree: the
+    Llama3 LM under llm.*, the SigLIP tower under vpm.*, the resampler
+    under resampler.* (the remote code's module names)."""
+    from rlaifv_tpu_torch.models.resampler import convert_resampler
+
+    llm_sd = {k[len("llm."):]: v for k, v in sd.items() if k.startswith("llm.")}
+    tree: Tree = {"llm": convert_llama(llm_sd, dtype=dtype)}
+    tree["vpm"] = convert_siglip(sd, prefix="vpm.", dtype=dtype)
+    # 2.5's resampler runs query_pos=False (the positions ride the keys a
+    # slice at a time), so the tree holds no pos_embed
+    tree["resampler"] = convert_resampler(sd, prefix="resampler.", dtype=dtype,
+                                          query_pos=False)
     return tree
 
 

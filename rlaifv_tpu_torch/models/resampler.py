@@ -56,6 +56,15 @@ def sincos_2d(embed_dim: int, grid_size: int) -> np.ndarray:
     return sincos_2d_rect(embed_dim, grid_size, grid_size)
 
 
+@functools.lru_cache(maxsize=64)
+def sincos_table(embed_dim: int, grid_h: int, grid_w: int) -> np.ndarray:
+    """`sincos_2d_rect`, computed once a (width, grid): at width 4096 the
+    table of one 448 px slice's grid takes tens of ms of host numpy, which
+    a forward would otherwise pay on every call. Callers do not write to
+    it."""
+    return sincos_2d_rect(embed_dim, grid_h, grid_w)
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
     x = np.abs(x)
     out = ((1.5 * x - 2.5) * x) * x + 1.0
@@ -165,14 +174,14 @@ class Resampler(nn.Module):
         q = self.ln_q(self.query.to(dt))
 
         if tgt_hw is not None:
-            kv_pos = to_device(sincos_2d_rect(D, tgt_hw[0], tgt_hw[1]), x.device).to(dt)
+            kv_pos = to_device(sincos_table(D, tgt_hw[0], tgt_hw[1]), x.device).to(dt)
         elif self.pos_embed is not None:
             kv_pos = interp_abs_pos(self.pos_embed.to(dt), N)
         else:
             side = int(math.isqrt(N))
             if side * side != N:
                 raise ValueError(f"non-square token count N={N} needs explicit tgt_hw")
-            kv_pos = to_device(sincos_2d_rect(D, side, side), x.device).to(dt)
+            kv_pos = to_device(sincos_table(D, side, side), x.device).to(dt)
 
         q_in = q[None] + self.pos_embed.to(dt)[None] if cfg.query_pos else q[None]
         qh = self.attn_q(q_in.expand(B, -1, -1))

@@ -132,8 +132,22 @@ def test_chat_main_prints_the_answer(ckpt, monkeypatch, capsys):
 @pytest.mark.parametrize("case,item", [
     ("load_4bit", "#11"), ("lookup_decode", "#11"), ("12B", "#9"), ("minicpm", "#10"),
     ("anyres", "#8")])
-def test_chat_unported_options_raise(ckpt, tmp_path, case, item):
+def test_chat_unported_options_raise(ckpt, tmp_path, monkeypatch, case, item):
     path, kw = ckpt, {}
+    if case == "minicpm":
+        # the MiniCPM-V branch is ported (tests/test_torch_minicpmv_gen.py
+        # runs it on a tiny checkpoint): a "minicpm" path picks MiniCPMVChat
+        # with the CLI's options
+        from rlaifv_tpu_torch.genai import minicpmv_gen
+
+        seen = {}
+        monkeypatch.setattr(minicpmv_gen, "MiniCPMVChat",
+                            lambda path, **kw: seen.update(path=path, **kw) or "picked")
+        chat = tchat.RLAIFVChat(str(tmp_path / "MiniCPM-Llama3-V-2_5"), load_8bit=True,
+                                device="cpu", tokenizer=FakeTokenizer())
+        assert chat.model == "picked" and seen["path"].endswith("MiniCPM-Llama3-V-2_5")
+        assert seen["int8"] and not seen["int4"] and seen["device"] == "cpu"
+        return
     if case == "12B":
         # the chat's 12B branch is ported (tests/test_torch_omni_gen.py),
         # and so is OmniLMM-12B training, the rest of #9

@@ -215,15 +215,36 @@ def test_continuous_with_int8_kv_cache(lm_params):
     _check(gen.run(prompts), *_reference(engine, prompts, max_new=10))
 
 
-def test_continuous_spans_raise(lm):
-    """MiniCPM-V's pre-encoded span features are not ported (#10)."""
-    gen = ContinuousGenerator(lm, slots=2, chunk=4, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="#10"):
-        gen.run([[1, 2, 3]], span_features=np.zeros((1, 1, 2, 64), np.float32),
-                span_starts=[[1]])
-    with pytest.raises(NotImplementedError, match="#10"):
-        lm.generate_continuous([[1, 2, 3]], span_features=np.zeros((1, 1, 2, 64), np.float32),
-                               span_starts=[[1]])
+def test_continuous_spans_raise(lm, lm_params):
+    """MiniCPM-V's pre-encoded span features (the "spans" refill mode) on
+    the bare LM: the JAX engine splices spans into any model's token
+    embeddings, so greedy continuous tokens equal the JAX
+    ContinuousGenerator's on the same weights and per-prompt generate's,
+    through refills of padded windows (rows with 1-3 active spans, the
+    padding rows' starts -1) and a compaction."""
+    prompts = _prompts(6, (90, 4, 60, 9, 3, 46, 7, 12), lo=5, hi=255)
+    rng = np.random.default_rng(6)
+    feats = rng.normal(size=(8, 3, 2, 64)).astype(np.float32)
+    starts = np.asarray([[0, 40, 80], [2, -1, -1], [1, 30, -1], [3, 7, -1], [1, -1, -1],
+                         [44, -1, 5], [0, 4, -1], [-1, 9, 2]])
+    kw = dict(span_features=feats, span_starts=starts)
+    cont = dict(slots=2, chunk=4, max_new_tokens=12, prompt_bucket=8, headroom=8)
+    gen = ContinuousGenerator(lm, sampling=GREEDY, **cont)
+    got = gen.run(prompts, collect_first_logits=True, **kw)
+    assert gen.stats["compactions"] > 0 and gen.stats["prefills"] > 1
+    jeng = JEngine(JLlama(JLlamaConfig.tiny()), lm_params, eos_id=-1, pad_id=0)
+    want = JContinuous(jeng, sampling=JSamplingParams.greedy(), **cont).run(
+        prompts, collect_first_logits=True, **kw)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths, np.asarray(want.lengths))
+    np.testing.assert_allclose(got.first_logits, np.asarray(want.first_logits), atol=ATOL)
+    refs = [lm.generate([p], span_features=feats[i:i + 1], span_starts=starts[i:i + 1],
+                        sampling=GREEDY, max_new_tokens=12, prompt_bucket=8).tokens[0]
+            for i, p in enumerate(prompts)]
+    np.testing.assert_array_equal(got.tokens, np.stack(refs))
+    via_engine = lm.generate_continuous(prompts, slots=2, chunk=4, max_new_tokens=12,
+                                        prompt_bucket=8, **kw)
+    np.testing.assert_array_equal(via_engine.tokens, got.tokens)
 
 
 # ------------------------------------------------ share_keys

@@ -1681,3 +1681,65 @@ def test_tiny_omnilmm_engine_matches_dense_route(gen, mode):
     assert torch.isfinite(fast_logits).all()
     assert (fast_logits - plain_logits).abs().max().item() <= 5e-2 * scale
     assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale
+
+
+def test_tiny_minicpmv_int8_engine_matches_dense_route(gen):
+    """A tiny MiniCPM-V (LM head dim 64, n_rep 2, 32 queries; a SigLIP tower
+    of head dim 8 at 28 px, re-gridded per slice) with int8 LLM
+    projections and an int8 cache on the card: a sliced image's span
+    groups through the shared-prefix scores and generate's first logits
+    (#1 prefill, #5 decode steps, #7 / #9 projections) within 5e-2 of
+    max|logit| of the same model on attn_impl "dense" over a bf16 cache;
+    #5 ran and #4 did not."""
+    import numpy as np
+
+    from rlaifv_tpu_torch.genai.minicpmv_gen import MiniCPMVGenerator
+    from rlaifv_tpu_torch.models.convert import quantize_llm_int8, set_llm_config
+    from rlaifv_tpu_torch.models.llama import LlamaAttention, LlamaConfig
+    from rlaifv_tpu_torch.models.minicpmv import (MiniCPMVConfig, MiniCPMVForCausalLM,
+                                                  init_minicpmv_weights_)
+    from rlaifv_tpu_torch.models.siglip import SiglipVisionConfig
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+    from fake_tokenizer import FakeTokenizer  # tests/ is on sys.path under pytest
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = MiniCPMVConfig(
+        llm=LlamaConfig.tiny(hidden_size=256, intermediate_size=256, num_heads=4,
+                             num_kv_heads=2, vocab_size=512, **bf16),
+        vision=SiglipVisionConfig.tiny(**bf16), query_num=32, scale_resolution=28,
+        patch_size=7)
+    model = init_minicpmv_weights_(MiniCPMVForCausalLM(cfg, device="cuda"), gen).eval()
+    quantize_llm_int8(model, include_lm_head=False)
+    set_llm_config(model, kv_cache_dtype="int8")
+    g = MiniCPMVGenerator(model, FakeTokenizer())
+    img = np.random.default_rng(0).integers(0, 255, (90, 60, 3), dtype=np.uint8)
+    items = [{"question": f"Is object {i} present?", "question_id": i, "image": img}
+             for i in range(4)]
+    prompts, feats, starts = g._prepare(items)
+    P = g.engine.longest_common_prefix_len(prompts)
+    assert starts.shape[1] > 2 and int(starts.max()) + cfg.query_num <= P >= 128
+
+    def run(impl):
+        for m in model.modules():
+            if isinstance(m, LlamaAttention):
+                m.attn_impl = impl
+        logits = g.engine.score_shared_prefix(
+            prompts[0][:P], [p[P:] for p in prompts], span_features=feats[0],
+            span_starts=starts[0], batch_size=4)
+        res = g.engine.generate(prompts, span_features=feats, span_starts=starts,
+                                max_new_tokens=6)
+        return torch.from_numpy(logits), res
+
+    n = (flash_attention.launches, decode_attention_prefix_int8.launches,
+         decode_attention_prefix.launches,
+         qm.int8_matmul.launches + qm.int8_matmul_prequant.launches)
+    fast_logits, fast = run("auto")
+    assert flash_attention.launches > n[0] and decode_attention_prefix_int8.launches > n[1]
+    assert decode_attention_prefix.launches == n[2]
+    assert qm.int8_matmul.launches + qm.int8_matmul_prequant.launches > n[3]
+    set_llm_config(model, kv_cache_dtype="fp")  # the dense route on a bf16 cache
+    plain_logits, plain = run("dense")
+    scale = plain_logits.abs().max().item()
+    assert torch.isfinite(fast_logits).all()
+    assert (fast_logits - plain_logits).abs().max().item() <= 5e-2 * scale
+    assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale

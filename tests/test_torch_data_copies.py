@@ -6,8 +6,9 @@ rlaifv_tpu_torch keeps its own `constants`, `data/*`, `utils/file_io`,
 loader and `fuse_llm_projections` of `models/convert`,
 `quantize_kernel_int8`, the numpy int4 helpers of `ops/int4_matmul`, the
 tree helpers of `train/lora` and the KV-cache quantiser of
-`ops/decode_attention`, and `pairs/{construction,preference,
-length_filter}` (it imports nothing of rlaifv_tpu). Each case
+`ops/decode_attention`, `pairs/{construction,preference,
+length_filter}` and `data/minicpmv_slicing` (it imports nothing of
+rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -375,6 +376,29 @@ def case_pairs_length_filter(pkg, tmp_path):
             lf.search_balanced_cut(pairs, use_len=False),
             fio.read_jsonlines(str(d / "out.jsonl")),
             fio.read_jsonlines(str(d / "out_search_diff.jsonl")))
+
+
+def case_minicpmv_slicing(pkg):
+    """Every function of data/minicpmv_slicing.py: the geometry on wide,
+    tall, square and small images, PIL slicing and the placeholders."""
+    from PIL import Image
+
+    sl = pkg("data.minicpmv_slicing")
+    sizes = [(1920, 1080), (500, 2000), (448, 448), (300, 200), (90, 60), (1000, 1000)]
+    out = {"divide": [sl.ensure_divide(n, 14) for n in (5, 100, 447, 1000)],
+           "resize": [sl.find_best_resize(s, 448, 14, allow_upscale=up)
+                      for s in sizes for up in (False, True)],
+           "refine": [sl.get_refine_size(s, (2, 3), 448, 14, allow_upscale=True) for s in sizes],
+           "grid": [sl.best_grid(s, m, 9) for s in sizes for m in (1, 2, 4, 9, 10)],
+           "plan": [sl.slice_image_plan(s, never_split=ns) for s in sizes for ns in (False, True)],
+           "placeholder": [sl.get_image_placeholder(g, 3) for g in (None, (2, 1), (3, 2))],
+           "grid_text": [sl.get_grid_placeholder(g, 2) for g in (None, (1, 3))]}
+    rng = np.random.default_rng(8)
+    img = Image.fromarray(rng.integers(0, 255, (300, 700, 3), dtype=np.uint8))
+    source, patches, grid = sl.slice_image(img, 9, 112, 14)
+    out["slices"] = [np.asarray(source), [np.asarray(p) for p in patches], grid]
+    out["reshape"] = sl.reshape_by_patch(rng.normal(size=(3, 28, 42)).astype(np.float32), 14)
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}

@@ -175,16 +175,26 @@ def test_run_writes_rank_shards(gens, tmp_path, is_yesno):
 
 
 def test_unported_modes_raise(gens):
-    """Continuous batching is ported (tests/test_torch_continuous.py); its
-    MiniCPM-V span-feature mode still raises, citing #10."""
-    cfg, _, tgen = gens
-    items = _items(cfg, 1)
-    assert len(tgen.greedy_gen(items, continuous=True, max_new_tokens=2)) == 1
-    assert len(tgen.diverse_gen(items, continuous=True, max_new_tokens=2)) == 1
+    """Continuous batching is ported (tests/test_torch_continuous.py), and
+    so is its MiniCPM-V span-feature mode: pre-encoded spans spliced into
+    the LLaVA model's token embeddings (the JAX engine splices spans into
+    any model's) give generate_continuous's greedy tokens equal to the JAX
+    engine's and to generate's, through two slots and refills of rows with
+    one or two active spans."""
+    cfg, jgen, tgen = gens
+    items = _items(cfg, 3)
+    assert len(tgen.greedy_gen(items[:1], continuous=True, max_new_tokens=2)) == 1
+    assert len(tgen.diverse_gen(items[:1], continuous=True, max_new_tokens=2)) == 1
     prompts, starts, _ = tgen._prepare(items)
-    with pytest.raises(NotImplementedError, match="#10"):
-        tgen.engine.generate_continuous(prompts, span_features=np.zeros((1, 1, 2, 8)),
-                                        span_starts=[[int(starts[0])]])
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(3, 2, 2, cfg.llm.hidden_size)).astype(np.float32)
+    span_starts = np.asarray([[int(starts[0]), 9], [int(starts[1]), -1], [4, 12]])
+    kw = dict(span_features=feats, span_starts=span_starts, max_new_tokens=4)
+    got = tgen.engine.generate_continuous(prompts, slots=2, chunk=2, **kw)
+    want = jgen.engine.generate_continuous(prompts, slots=2, chunk=2, **kw)
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.lengths, np.asarray(want.lengths))
+    np.testing.assert_array_equal(got.tokens, tgen.engine.generate(prompts, **kw).tokens)
     # fused decode is ported; a bf16 model is refused with the JAX message
     with pytest.raises(ValueError, match="fused_decode requires quantize"):
         Llava15Generator(tgen.model, tgen.tokenizer, tgen.num_patches,

@@ -7,7 +7,8 @@ module of the port, runs the int4 product's plain twin and the tiny
 serving slice on the CPU (random weights from a seeded generator), bf16
 cache (greedy, continuous diverse_gen, and 3 beams through evals.vqa),
 a tiny OmniLMM through autocheck and diverse_gen (float, then both towers
-int8 in place with an int8 cache),
+int8 in place with an int8 cache), a tiny MiniCPM-V through autocheck and
+continuous diverse_gen on sliced images,
 then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
@@ -53,7 +54,8 @@ SCRIPT = textwrap.dedent("""
                  "evals.mmhal", "evals.refomb", "evals.report", "evals.summaries",
                  "evals.text_utils", "evals.gpt_client", "iteration", "genai.continuous",
                  "chat", "models.eva02", "models.resampler", "models.omnilmm",
-                 "genai.omni_gen"):
+                 "genai.omni_gen", "models.siglip", "models.minicpmv", "genai.minicpmv_gen",
+                 "data.minicpmv_slicing"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -144,6 +146,19 @@ SCRIPT = textwrap.dedent("""
         rows = ogen.autocheck(oitems, batch_size=2)
         assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
         assert len(ogen.diverse_gen(oitems[:1] * 2, max_new_tokens=3)) == 2
+
+    # the MiniCPM-V serving slice at tiny widths: sliced images, span
+    # features through autocheck and continuous diverse_gen
+    from rlaifv_tpu_torch.genai.minicpmv_gen import MiniCPMVGenerator
+    from rlaifv_tpu_torch.models import minicpmv
+    mcfg = minicpmv.MiniCPMVConfig.tiny(vocab_size=512)
+    mmodel = minicpmv.init_minicpmv_weights_(minicpmv.MiniCPMVForCausalLM(mcfg),
+                                             torch.Generator().manual_seed(0))
+    mgen = MiniCPMVGenerator(mmodel, FakeTokenizer())
+    mitems = [dict(it, image=np.zeros((60, 40, 3), np.uint8) + i) for i, it in enumerate(items)]
+    rows = mgen.autocheck(mitems[:1] * 2 + mitems[1:], batch_size=2)
+    assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
+    assert len(mgen.diverse_gen(mitems, max_new_tokens=3, batch_size=2, continuous=True)) == 3
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy
