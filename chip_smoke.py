@@ -81,6 +81,33 @@ Phases, one progress line each (or a few):
      evals.run_eval's Object HalBench (no GPT, a synthetic COCO directory),
      MMHal and RefoMB (a stub judge transport: the machine has no network)
      on the answers, each writing its files and printing its summary;
+  19. (run after 14, beside phase 4's bf16 model, which it leaves
+     unchanged) the serving options ported last. 19a: the seed-0 model
+     in fp32, calibrated on the chat's RLAIFV_INT4_SMOOTH sentence and
+     smoothed in place with the alpha search (models/quant_smooth.py,
+     layer by layer on the card): its first logits on 8 prompts before
+     and after the fold within FOLD_FP32_REL_TOL; the bf16 model rebuilt,
+     smoothed and quantised to int4 in place (the alphas' histogram,
+     seconds, peak GiB): the prefill and 4 forced steps on #11 equal, bit
+     for bit, the same with every #11 product by its plain twin, #11
+     against the plan; plain and smoothed int4 against float (logged).
+     19b: greedy lookup_generate (32 tokens) on the bf16 model (4 prompts)
+     and on 19a's (2), each prompt quoting the model's own greedy
+     continuation: #1 a layer a prefill, no #4 in the window loop, #11 at
+     9 rows a window (int4), more than one token a window, the tokens
+     against generate under phase 15's tie rule, tok/s beside one
+     prompt's generate; the token embeddings scaled by 2^16 meanwhile
+     (exact, undone after: a random 7B's text otherwise follows no quote).
+     19c: a LLaVA-1.6-vicuna-7b geometry (phase 4's
+     modules under anyres grids, a seeded image_newline):
+     examples/test.jpeg's 5 views merged on the card bit for bit as the
+     numpy merge (T 2144), encode and prefill ms, the 3-beam chat of 64
+     tokens, #1 and #4 against the plan. 19d: Llama3-8B through
+     llama3_backend(int4, int4_smooth, fused_decode) on 8 divide prompts:
+     #11 on the prefill, #16 once a step; its prefill and 4 forced steps
+     against the unfused smoothed int4 engine's (phase 11's bound and
+     cosine). Phase 3 holds #1 at 19c's prefill and #4 at its beam
+     steps, 3e #11 at 19b's 9-row window, bit for bit;
   15. continuous batching (genai/continuous.py), in three parts. 15a (after
      3h): kernels #4, #5 and #16 against their split twins at the masks
      continuous batching gives them (utils/synth.py:continuous_mask:
@@ -351,7 +378,8 @@ Phases, one progress line each (or a few):
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
-runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 8, 6,
+runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 19a-d's
+runs, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -389,7 +417,21 @@ from rlaifv_tpu_torch import pipeline as pipe  # noqa: E402
 from rlaifv_tpu_torch.evals import gpt_client  # noqa: E402
 from rlaifv_tpu_torch.evals import run_eval  # noqa: E402
 from rlaifv_tpu_torch.evals.vqa import generate_answers  # noqa: E402
+from rlaifv_tpu_torch.chat import CALIBRATION_TEXT as CHAT_CALIBRATION_TEXT  # noqa: E402
+from rlaifv_tpu_torch.chat import RLAIFV7B  # noqa: E402
+from rlaifv_tpu_torch.data.image_processing import process_anyres_image_full  # noqa: E402
 from rlaifv_tpu_torch.genai import beam as beam_mod  # noqa: E402
+from rlaifv_tpu_torch.genai.lookup_decode import lookup_generate  # noqa: E402
+from rlaifv_tpu_torch.models.anyres import (  # noqa: E402
+    encode_anyres,
+    merge_anyres_device,
+    merge_anyres_features,
+)
+from rlaifv_tpu_torch.models.quant_smooth import (  # noqa: E402
+    collect_llm_act_stats,
+    quantize_llm_int4_smooth,
+    smooth_llm_for_int4,
+)
 from rlaifv_tpu_torch.genai import divide_conquer as dcq  # noqa: E402
 from rlaifv_tpu_torch.genai.continuous import ContinuousGenerator  # noqa: E402
 from rlaifv_tpu_torch.genai.engine import (DecodeEngine, GenerateResult, group_consecutive,  # noqa: E402
@@ -921,6 +963,8 @@ FLASH_FWD_CASES = [
     dict(name="bidirectional", B=1, L=577, H=16, KVH=16, D=64, causal=False, masked=0),
     # phase 18b's prefill: 8 MiniCPM-V prompts of 576 tokens, Llama3-8B's GQA
     dict(name="minicpmv prefill", B=8, L=576, H=32, KVH=8, D=128, causal=True, masked=16),
+    # phase 19c's prefill: one LLaVA-1.6 anyres prompt of 2349 tokens, MHA
+    dict(name="anyres prefill", B=1, L=2349, H=32, KVH=32, D=128, causal=True, masked=0),
 ]
 
 # 3 / 3b: planted faults in the redesigned flash kernels, each a broken copy
@@ -1108,12 +1152,14 @@ def phase_kernels(g, variants) -> dict:
 
 # 3: kernel #4 at the main path's other shapes: the bf16 batch-24 run, the
 # bf16 Llama3-8B divide-and-conquer backend's GQA step at a long prefix and at
-# phase 13's short prompts; then the GQA step at a prefix where a dropped
-# partial tile moves the output well past the bound (the planted faults' case)
+# phase 13's short prompts, phase 19c's 3 anyres beams (MHA, a long prefix:
+# key splits); then the GQA step at a prefix where a dropped partial tile
+# moves the output well past the bound (the planted faults' case)
 PREFIX_CASES = [
     dict(name="batch 24", B=24, L=1024, H=32, KVH=32, valid=960),
     dict(name="Llama3 GQA", B=8, L=2304, H=32, KVH=8, valid=2200),
     dict(name="phase 13 short", B=8, L=512, H=32, KVH=8, valid=384),
+    dict(name="19c anyres beams", B=3, L=2432, H=32, KVH=32, valid=2400),
     dict(name="Llama3 GQA valid_len 600", B=8, L=2304, H=32, KVH=8, valid=600),
 ]
 # 3: broken copies of csrc/decode_attention.cu that must break the bf16
@@ -3340,7 +3386,7 @@ class BackendMeter:
                 f"{self.prefill_rows}, peak {self.peak / 2 ** 30:.2f} GiB")
 
 
-def build_llama3(tok) -> LlamaForCausalLM:
+def build_llama3(tok, tag: str = "13 pipeline") -> LlamaForCausalLM:
     """Llama3-8B at full width and depth in bf16 on the card, random weights
     from seed 0, its head shaped to the fake tokenizer's printable ids."""
     t0 = time.perf_counter()
@@ -3350,7 +3396,7 @@ def build_llama3(tok) -> LlamaForCausalLM:
     shape_head_(model.lm_head.weight, printable_ids(tok))
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    log(f"[13 pipeline] Llama3-8B bf16 on cuda: {n / 1e9:.3f} B params (vocab {cfg.vocab_size}, "
+    log(f"[{tag}] Llama3-8B bf16 on cuda: {n / 1e9:.3f} B params (vocab {cfg.vocab_size}, "
         f"I {cfg.intermediate_size}, {cfg.num_kv_heads} KV heads for {cfg.num_heads}, rope theta "
         f"{cfg.rope_theta:g}), {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, built "
         f"in {time.perf_counter() - t0:.1f} s; random weights (seed 0), the head's rows of "
@@ -3583,7 +3629,8 @@ def build_model(cfg: LlavaConfig, tag: str = "8 ref-logp", device: str = "cuda")
     model = LlavaForCausalLM(cfg, device="meta").to_empty(device=device)
     init_weights_(model, torch.Generator(device=device).manual_seed(0))
     torch.cuda.synchronize()
-    log(f"[{tag}] LLaVA-1.5-7B bf16, remat on: "
+    log(f"[{tag}] LLaVA-1.5-7B {str(cfg.llm.dtype).split('.')[-1]}, remat "
+        f"{'on' if cfg.llm.remat else 'off'}: "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params, built in "
         f"{time.perf_counter() - t0:.1f} s")
     return model
@@ -4295,7 +4342,8 @@ def phase_int4(g, qb: dict) -> dict:
     the "dequant" route (a bf16 dequantisation plus one cuBLAS product). #12
     is checked at N = 11008 too, where the dispatch takes the dequant dx."""
     res = {"err": 0.0}
-    ms = sorted({16, 64, 127, 128, qb["m_suffix"], qb["m_prefix"]})
+    # 9: phase 19b's lookup window (k + 1 rows) on the smoothed int4 7B
+    ms = sorted({9, 16, 64, 127, 128, qb["m_suffix"], qb["m_prefix"]})
     # the EVA02 widths from a generator of their own (3d says why)
     eva = torch.Generator(device="cuda").manual_seed(16)
     widths = [(K, N, ms, g) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096))]
@@ -6867,6 +6915,467 @@ def phase_minicpmv(tok, image_bytes: bytes, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- 19
+
+
+# 19a's fold gate: the seed-0 model in fp32, its first logits over 8
+# prompts after the smoothing folds against its own before them, as a share
+# of max|first logit|. The fold is exact in real arithmetic; on an H100 80GB
+# HBM3 the fp32 model reads 1.84e-5 (the alpha search's folds at 0.25 in
+# every layer). The bound sits ~50x above that reading and far below the
+# percent-level move of a fold that is partly wrong.
+FOLD_FP32_REL_TOL = 1e-3
+LOOKUP_QUESTIONS = ["Describe the image in detail.", "What is in the image?",
+                    "What colors do you see?", "Why did the car in the picture stop?"]
+LOOKUP_NEW = 32
+LOOKUP_TAIL = 4  # the prompt's last tokens, repeated after its continuation
+LOOKUP_ALTER = 10  # every 10th token of the quoted continuation altered
+LOOKUP_INT4_PROMPTS = 2
+# 19b's token embeddings scaled by 2^16 (exact in bf16): the residual stream
+# then follows the current token, so a random model's greedy text follows a
+# quote of itself and lookup's drafts are accepted; unscaled, a random 7B's
+# text neither repeats nor follows a quote (1.000 tokens a window on an H100
+# 80GB HBM3, quoted or not)
+LOOKUP_EMBED_GAIN = 2.0 ** 16
+ANYRES_PINS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
+# examples/test.jpeg (640 x 420) picks 672 x 672: the base and a 2 x 2 grid,
+# 576 base features + a 48 x 48 grid unpadded to 32 rows of 48 + a newline
+ANYRES_T = 576 + 32 * 49
+ANYRES_NEW = 64
+D3_NEW = 64  # 19d's new tokens a prompt
+D3_ANSWERS = ["A red car waits at a crossing while people walk past it.",
+              "Two dogs sleep on a blue sofa next to a window.",
+              "The kitchen has a white table and three wooden chairs.",
+              "A man rides a bicycle down a wet street at night.",
+              "Snow covers the roofs of the small houses by the lake.",
+              "A child holds a yellow kite on a windy beach.",
+              "The clock on the tower shows a quarter past nine.",
+              "Green apples lie in a basket on the market stall."]
+
+
+def _first_logits(eng: DecodeEngine, prompts, starts, images) -> torch.Tensor:
+    """generate's first logits (max_new_tokens 1) on the card, fp32."""
+    with torch.inference_mode():
+        res = eng.generate(prompts, images=images, image_starts=starts, max_new_tokens=1)
+    return torch.from_numpy(res.first_logits).float().cuda()
+
+
+def _drift(x: torch.Tensor, ref: torch.Tensor) -> str:
+    rel = ((x - ref).abs().max() / ref.abs().max()).item()
+    top1 = (x.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return f"max|d first logit| / max|ref| {rel:.4f}, top-1 agreement {top1:.3f}"
+
+
+def _alpha_hist(log: dict) -> dict:
+    """A smoothing log's chosen alphas counted by producer group."""
+    hist = {}
+    for rec in log.values():
+        for key, (a, _) in rec.items():
+            hist.setdefault(key, {}).setdefault(a, 0)
+            hist[key][a] += 1
+    return hist
+
+
+@contextlib.contextmanager
+def int4_rows():
+    """Inside, the rows of every kernel #11 call, counted by row count."""
+    rows, real = {}, i4._kernel_fwd
+
+    def counted(xq, *a):
+        rows[xq.shape[0]] = rows.get(xq.shape[0], 0) + 1
+        return real(xq, *a)
+
+    i4._kernel_fwd = counted
+    try:
+        yield rows
+    finally:
+        i4._kernel_fwd = real
+
+
+def phase_smooth(gen: Llava15Generator, tok, image_bytes: bytes, smi: str) -> tuple:
+    """19a: LLaVA-1.5-7B smoothed for int4 (models/quant_smooth.py, the
+    --load-4bit chat's RLAIFV_INT4_SMOOTH=1 path): the fold gate on the
+    seed-0 model in fp32 (calibrated on the chat's sentence, the alpha
+    search run layer by layer on the card; its first logits against its own
+    before the fold within FOLD_FP32_REL_TOL); the bf16 model rebuilt,
+    smoothed and quantised to int4 in place; its prefill and 4
+    forced steps on #11 against the same with every #11 product by its
+    plain twin, bit for bit, #11 against the plan; the drift of plain and
+    smoothed int4 against float over 8 prompts (logged) -> (launches, the
+    smoothed int4 chat, readings)."""
+    tag = "19a smooth"
+    cfg = LlavaConfig.llava15_7b()
+    n_layers = cfg.llm.num_layers
+    prompts, starts, images = gen._prepare(_items(image_bytes, FACTS))
+    ref = _first_logits(gen.engine, prompts, starts, images)
+    calib = np.asarray(tok(CHAT_CALIBRATION_TEXT).input_ids, np.int64)[None]
+
+    # the fold gate, in fp32 (the JAX package's smoothed float tree is
+    # fp32): the seed-0 model in fp32, its first logits before and after
+    # the fold in place (the alpha search)
+    model = build_model(LlavaConfig.llava15_7b(dtype=torch.float32, param_dtype=torch.float32),
+                        tag)
+    eng = DecodeEngine(model, eos_id=tok.eos_token_id)
+    ref32 = _first_logits(eng, prompts, starts, images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = collect_llm_act_stats(model, calib)
+    torch.cuda.synchronize()
+    t_cal = time.perf_counter() - t0
+    smooth_llm_for_int4(model, stats)
+    fold32 = _first_logits(eng, prompts, starts, images)
+    scale32 = ref32.abs().max().item()
+    d_fold = (fold32 - ref32).abs().max().item()
+    del eng, model, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = d_fold <= FOLD_FP32_REL_TOL * scale32
+    log(f"[{tag}] calibration on {calib.shape[1]} tokens {t_cal:.2f} s (fp32); the fold gate: "
+        f"the smoothed fp32 model's first logits on {len(prompts)} prompts against its own "
+        f"before the fold: max|d| {d_fold:.3e} = {d_fold / scale32:.2e} of max|first logit| "
+        f"{scale32:.3f} (tol {FOLD_FP32_REL_TOL}) | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("19a: the smoothing folds changed the model")
+
+    model = build_model(cfg, tag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alphas = {}
+    t0 = time.perf_counter()
+    quantize_llm_int4_smooth(model, calib, log=alphas)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    hist = _alpha_hist(alphas)
+    log(f"[{tag}] calibrated, searched and quantised to int4 in place in {t_q:.2f} s, peak "
+        f"{peak:.2f} GiB, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated after; the "
+        f"alphas chosen over {n_layers} layers by group: {hist} | {smi}")
+    schat = RLAIFV7B.from_model(model, tok, max_new_tokens=LOOKUP_NEW)
+    eng = schat.engine
+
+    keep = printable_ids(tok)
+    forced = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (4, 4), generator=torch.Generator().manual_seed(19)).cuda()]
+    torch.cuda.synchronize()
+    with PathPlan(model.llm) as plan:
+        reset_counts()
+        kern = _forced_logits(eng, prompts[:4], starts[:4], images[:4], forced, ("auto", "auto"))
+        torch.cuda.synchronize()
+        launches = read_counts()
+    with twin_products():
+        twin = _forced_logits(eng, prompts[:4], starts[:4], images[:4], forced, ("auto", "auto"))
+    equal = bool(torch.isfinite(kern).all()) and torch.equal(kern, twin)
+    want_int4 = 7 * n_layers * (1 + forced.shape[1])
+    log(f"[{tag}] the prefill and {forced.shape[1]} forced steps of 4 prompts on #11 against "
+        f"the same with every #11 product by its plain twin (attention #1 / #4 on both): "
+        f"{'bit-equal' if equal else 'NOT EQUAL'} (max|d| {(kern - twin).abs().max().item():.3e}); "
+        f"#11 {launches['int4']} launches = 7 projections x {n_layers} layers x "
+        f"{1 + forced.shape[1]} passes ({want_int4})")
+    plan.check(tag, launches, ("flash", "decode", "int4"))
+    if not equal or launches["int4"] != want_int4:
+        raise AssertionError("19a: the smoothed int4 model's #11 route differs from its twin")
+
+    smoothed = _first_logits(eng, prompts, starts, images)
+    plain = build_model(cfg, tag)
+    quantize_llm_int4(plain)
+    plain_logits = _first_logits(DecodeEngine(plain, eos_id=tok.eos_token_id), prompts, starts,
+                                 images)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] int4 against the float model over {len(prompts)} prompts (random weights carry "
+        f"no outlier channels: logged, not gated): plain group int4 {_drift(plain_logits, ref)}; "
+        f"smoothed {_drift(smoothed, ref)}")
+    return launches, schat, dict(calib_s=t_cal, quant_s=t_q, peak_gb=peak, hist=hist)
+
+
+@contextlib.contextmanager
+def scaled_embeddings(llm):
+    """Inside, the LM's token embeddings times LOOKUP_EMBED_GAIN; restored
+    bit for bit after."""
+    w = llm.model.tok_embed.weight
+    keep = w.detach().clone()
+    with torch.no_grad():
+        w.mul_(LOOKUP_EMBED_GAIN)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            w.copy_(keep)
+
+
+def _lookup_prompts(chat: "RLAIFV7B", image_bytes: bytes, n: int) -> tuple:
+    """The chat's prompts of LOOKUP_QUESTIONS[:n], each followed by the
+    model's own greedy continuation (generate, LOOKUP_NEW tokens, EOS
+    dropped, every LOOKUP_ALTER-th token moved to the next id) and its last
+    LOOKUP_TAIL tokens again: the prompt-lookup n-gram at the end of such a
+    prompt finds the continuation, as in a prompt that quotes the
+    answer-to-be, so windows accept drafts up to an altered token and
+    reject it -> (prompts, image starts, images)."""
+    eng = chat.engine
+    image = chat.image_processor.resize_uint8(image_bytes)
+    exs = [chat.prompt(q) for q in LOOKUP_QUESTIONS[:n]]
+    prompts = [ex["input_ids"].tolist() for ex in exs]
+    starts = [int(ex["image_start"]) for ex in exs]
+    images = np.stack([image] * n)
+    res = eng.generate(prompts, images=images, image_starts=starts, max_new_tokens=LOOKUP_NEW)
+    vocab = chat.model.llm.cfg.vocab_size
+    quotes = [[int(t) for t in res.tokens[b][:res.lengths[b]] if t != eng.eos_id]
+              for b in range(n)]
+    quotes = [[(t + 1) % vocab if i % LOOKUP_ALTER == LOOKUP_ALTER - 1 else t
+               for i, t in enumerate(q)] for q in quotes]
+    return [p + q + p[-LOOKUP_TAIL:] for p, q in zip(prompts, quotes)], starts, images
+
+
+def _lookup_run(tag: str, chat: "RLAIFV7B", image_bytes: bytes, n: int, smi: str) -> dict:
+    """Greedy lookup_generate of n prompts from _lookup_prompts on
+    `chat`'s engine (each prompt alone, LOOKUP_NEW tokens) counted against
+    the plan: #1 once a layer a prefill, no #4 in the window loop, #11 (an
+    int4 model) on every projection, 9 rows a window; more than one token a
+    window (drafts accepted); the tokens against one greedy generate of the
+    same prompts under the tie rule; lookup's tok/s beside a one-prompt
+    generate's -> launches."""
+    eng, llm = chat.engine, chat.model.llm
+    n_layers = llm.cfg.num_layers
+    prompts, starts, images = _lookup_prompts(chat, image_bytes, n)
+    lookup_generate(eng, prompts[0], images=images[:1], image_starts=starts[:1],
+                    max_new_tokens=4)  # warm-up
+    torch.cuda.synchronize()
+    with PathPlan(llm) as plan, int4_rows() as rows:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = [lookup_generate(eng, p, images=images[b:b + 1], image_starts=starts[b:b + 1],
+                               max_new_tokens=LOOKUP_NEW) for b, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    n_tok, n_steps = sum(len(r.tokens) for r in res), sum(r.n_steps for r in res)
+    quant = llm.cfg.quantize
+    want_rows = {9: 7 * n_layers * n_steps} if quant else {}
+    ok = (launches["flash"] == n_layers * len(prompts) and launches["decode"] == 0
+          and {m: n for m, n in rows.items() if m == 9} == want_rows and n_tok > n_steps)
+    log(f"[{tag}] {len(prompts)} prompts ({min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens, each quoting its greedy continuation; embeddings x {LOOKUP_EMBED_GAIN:g}) x "
+        f"{LOOKUP_NEW} new tokens: {n_tok} "
+        f"tokens in {n_steps} windows = {n_tok / n_steps:.3f} a window (> 1: drafts accepted; "
+        f"{[r.n_steps for r in res]}), {wall:.3f} s = {n_tok / wall:.1f} tok/s (prefill and "
+        f"encode included); launches {', '.join(f'{k} {v}' for k, v in launches.items() if v)}; "
+        f"#11 calls by rows {rows} (planned 9 rows: {want_rows.get(9, 0)} = 7 x {n_layers} x "
+        f"windows); #4 in the window loop {launches['decode']} (planned 0) | "
+        f"{'ok' if ok else 'FAIL'}")
+    plan.check(tag, launches, ("flash", "decode", "int4"))
+    if not ok:
+        raise AssertionError(f"{tag}: lookup's launches off the plan, or no draft accepted")
+
+    ref, gen_rows, _ = _recorded_generate(eng, prompts, starts, images, LOOKUP_NEW)
+    scale = max(gen_rows[b][0].abs().max().item() for b in range(len(prompts)))
+    first_diff, gaps, ok = [], [], True
+    for b, r in enumerate(res):
+        want = [int(t) for t in ref.tokens[b][:ref.lengths[b]]]
+        m = next((i for i, (x, y) in enumerate(zip(r.tokens, want)) if x != y),
+                 None if len(r.tokens) == len(want) else min(len(r.tokens), len(want)))
+        first_diff.append(len(want) if m is None else m)
+        if m is not None:
+            top2 = gen_rows[b][m].topk(2).values
+            gap = (top2[0] - top2[1]).item() / scale
+            gaps.append(f"{b}@{m} {gap:.4f}")
+            ok = ok and gap < CONT_TIE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = eng.generate(prompts[:1], images=images[:1], image_starts=starts[:1],
+                       max_new_tokens=LOOKUP_NEW)
+    torch.cuda.synchronize()
+    gen_tok_s = int(one.lengths[0]) / (time.perf_counter() - t0)
+    log(f"[{tag}] lookup tokens against generate greedy (the {len(prompts)} prompts batched; "
+        f"the window's dense logits and #4's round differently): each row's first differing "
+        f"token {first_diff} (of {LOOKUP_NEW}), generate's top-2 gap there as a share of "
+        f"max|first logit| {scale:.3f}: {gaps} (tie bound {CONT_TIE}); generate of one prompt "
+        f"({LOOKUP_NEW} tokens, prefill and encode included) {gen_tok_s:.1f} tok/s against "
+        f"lookup's {n_tok / wall:.1f} | {smi} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: lookup differs from greedy generate beyond a near-tie")
+    return launches
+
+
+def phase_lookup(gen: Llava15Generator, schat: "RLAIFV7B", tok, image_bytes: bytes,
+                 smi: str) -> dict:
+    """19b: --lookup-decode on the bf16 model (phase 4's, 4 prompts) and on
+    19a's smoothed int4 model (LOOKUP_INT4_PROMPTS prompts), each with its
+    embeddings scaled (scaled_embeddings), then the --load-4bit
+    --lookup-decode chat's answer once, unscaled -> launches."""
+    with scaled_embeddings(gen.model.llm):
+        launches = _lookup_run("19b lookup bf16", RLAIFV7B.from_model(
+            gen.model, tok, max_new_tokens=LOOKUP_NEW, lookup_decode=True), image_bytes,
+            len(LOOKUP_QUESTIONS), smi)
+    chat4 = RLAIFV7B.from_model(schat.model, tok, max_new_tokens=16, lookup_decode=True)
+    with scaled_embeddings(schat.model.llm):
+        add_counts(launches, _lookup_run("19b lookup int4 smoothed", chat4, image_bytes,
+                                         LOOKUP_INT4_PROMPTS, smi))
+    answer = chat4.chat({"image": image_bytes, "question": LOOKUP_QUESTIONS[3]})
+    assert isinstance(answer, str)
+    log(f"[19b lookup] the --load-4bit --lookup-decode chat answered {len(answer)} characters")
+    return launches
+
+
+def phase_anyres(gen: Llava15Generator, tok, image_bytes: bytes, smi: str) -> dict:
+    """19c: a LLaVA-1.6-vicuna-7b geometry (phase 4's modules and weights
+    under an anyres configuration, a seeded image_newline): the device merge
+    of examples/test.jpeg's views against the numpy merge bit for bit, the
+    encode's and the 3-beam prefill's ms, then the 3-beam chat of 64 new
+    tokens counted against the plan (#1 32 a prefill, #4 32 a beam step)
+    -> launches."""
+    tag = "19c anyres"
+    base = gen.model
+    cfg = dataclasses.replace(base.cfg, image_aspect_ratio="anyres",
+                              image_grid_pinpoints=ANYRES_PINS,
+                              mm_patch_merge_type="spatial_unpad")
+    model = LlavaForCausalLM(cfg, device="meta")
+    model.vision_tower, model.mm_projector, model.llm = (base.vision_tower, base.mm_projector,
+                                                         base.llm)
+    model.eval()
+    D, n_layers = cfg.llm.hidden_size, cfg.llm.num_layers
+    newline = (torch.randn(D, generator=torch.Generator(device="cuda").manual_seed(19),
+                           device="cuda") / math.sqrt(D)).to(torch.bfloat16)
+    chat = RLAIFV7B.from_model(model, tok, max_new_tokens=ANYRES_NEW, image_newline=newline)
+    views, grid, size = process_anyres_image_full(image_bytes, chat.image_processor, ANYRES_PINS)
+    with torch.inference_mode():
+        feats = model.encode_images(torch.from_numpy(views).cuda())
+    merged = merge_anyres_device(feats, grid, original_size=size, image_newline=newline)
+    want = merge_anyres_features(feats.float().cpu().numpy(), grid, original_size=size,
+                                 image_newline=newline.float().cpu().numpy())
+    equal = np.array_equal(merged.float().cpu().numpy(), want)
+    T = merged.shape[0]
+    log(f"[{tag}] examples/test.jpeg {size[0]} x {size[1]}: {len(views)} views, grid {grid}, "
+        f"T {T} merged features (planned {ANYRES_T}); the device merge against the numpy merge: "
+        f"{'bit-equal' if equal else 'NOT EQUAL'}")
+    if not equal or T != ANYRES_T:
+        raise AssertionError("19c: the anyres merge")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    span = encode_anyres(model, chat.image_processor, cfg, image_bytes, image_newline=newline)
+    torch.cuda.synchronize()
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    ex = chat.prompt(LOOKUP_QUESTIONS[0], T)
+    t0 = time.perf_counter()
+    chat.engine.generate_beam([ex["input_ids"].tolist()], span_features=span[None, None],
+                              span_starts=[[int(ex["image_start"])]], num_beams=3,
+                              max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    with BeamMeter() as meter:
+        reset_counts()
+        t0 = time.perf_counter()
+        answer = chat.chat({"image": image_bytes, "question": LOOKUP_QUESTIONS[0]})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = meter.model_steps
+    ok = (isinstance(answer, str) and launches["flash"] == n_layers
+          and launches["decode"] == n_layers * steps and steps >= 1)
+    log(f"[{tag}] the 3-beam chat, {len(ex['input_ids'])}-token prompt, {ANYRES_NEW} new tokens: "
+        f"encode {encode_ms:.1f} ms ({len(views)} views and the merge), the 3-beam prefill "
+        f"{prefill_ms:.1f} ms, the chat {wall:.3f} s = {(steps + 1) / wall:.1f} tok/s of the best "
+        f"beam ({3 * (steps + 1) / wall:.1f} beam tok/s; encode and prefill included), {steps} "
+        f"beam steps; launches flash {launches['flash']} (planned {n_layers}), #4 "
+        f"{launches['decode']} (planned {n_layers} x {steps}); peak {peak:.2f} GiB | {smi} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("19c: the anyres chat's launches off the plan")
+    return launches
+
+
+def phase_smooth_backend(tok, smi: str) -> dict:
+    """19d: Llama3-8B at full width and depth through the divide-and-conquer
+    backend with int4_smooth and fused decode (llama3_backend: smoothing at
+    alpha 0.5, int4, fused projections, an int8 cache, kernel #16), 8
+    divide prompts of D3_NEW tokens: #11 on the prefill's projections, #16
+    once a step; its prefill and OMNI_FORCED forced steps (#16) against the
+    unfused smoothed int4 engine's (#11 and #5 a layer) on a first build
+    (phase 11's bound and cosine) -> launches."""
+    tag = "19d llama3 int4 smoothed"
+    msgs = [dcq.divide_messages({"question": q, "answer": a})
+            for q, a in zip(PIPE_QUESTIONS * 2, D3_ANSWERS)]
+    model = build_llama3(tok, tag)
+    ref_fn, tmpl = dcq.llama3_backend(model, tok, int4=True, int4_smooth=True,
+                                      max_new_tokens=D3_NEW)
+    prompts = [tmpl(m) for m in msgs]
+    ids = [tok(p).input_ids for p in prompts]
+    keep = printable_ids(tok)
+    forced = torch.as_tensor(keep, device="cuda")[torch.randint(
+        len(keep), (len(ids), OMNI_FORCED), generator=torch.Generator().manual_seed(19)).cuda()]
+    ref = _forced_logits(ref_fn.engine, ids, None, None, forced, ("auto", "auto"))
+    del ref_fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_llama3(tok, tag)
+    t0 = time.perf_counter()
+    fn, _ = dcq.llama3_backend(model, tok, int4=True, int4_smooth=True, fused_decode=True,
+                               max_new_tokens=D3_NEW)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_layers = model.cfg.num_layers
+    meter = BackendMeter(fn.engine)
+    reset_counts()
+    out = fn(prompts)
+    launches = read_counts()
+    rates = meter.rates()
+    ok = (len(out) == len(prompts) and launches["fused"] == meter.steps >= 1
+          and launches["int4"] == 4 * n_layers
+          and not any(launches[k] for k in ("decode", "decode_int8", "int8", "int8_prequant")))
+    log(f"[{tag}] smoothed (alpha 0.5), int4, fused and stacked in {t_build:.1f} s; "
+        f"{len(prompts)} divide prompts: {rates}; #16 {launches['fused']} = {meter.steps} decode "
+        f"steps; #11 {launches['int4']} (planned 4 products x {n_layers} layers x 1 prefill); "
+        f"#1 {launches['flash']}; #4 {launches['decode']}, #5 {launches['decode_int8']} | "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"19d: the smoothed int4 fused backend's kernels: {launches}")
+    reset_counts()
+    kern, twin, spread = _fused_forced(fn.engine, ids, None, None, forced)
+    n_fused = read_counts()["fused"]
+    w_rel, w_cos = _logit_gap(spread[1:], twin[1:])
+    good = n_fused == forced.shape[1]
+    lines = []
+    for what, a, b in (("the stacked prefill", kern[:1], ref[:1]),
+                       (f"decode steps 1-{forced.shape[1]} (#16 against #11 and #5 a layer)",
+                        kern[1:], ref[1:])):
+        rel, cos = _logit_gap(a, b)
+        good = good and rel <= INT8_KV_REL_TOL and cos >= INT8_KV_COS_MIN
+        lines.append(f"{what}: max|d| / max|ref| {rel:.4f}, least row cosine {cos:.5f}")
+    log(f"[{tag}] the fused engine against the unfused smoothed int4 engine (int8 cache) on "
+        f"{len(ids)} prompts and {forced.shape[1]} forced tokens: {'; '.join(lines)} (tol "
+        f"{INT8_KV_REL_TOL}, cosine {INT8_KV_COS_MIN}); the model's own spread: #16's twin with "
+        f"x one ulp up against the twin {w_rel:.4f}, cosine {w_cos:.5f}; #16 {n_fused} launches "
+        f"(planned {forced.shape[1]}) | {smi} | {'ok' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("19d: the fused smoothed int4 engine disagrees with the unfused one")
+    del fn, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_options(gen: Llava15Generator, tok, image_bytes: bytes, smi: str) -> dict:
+    """19: the serving options of the root chat.py and the serving loaders
+    ported last (a-d above) -> the launches of their counted runs."""
+    launches, schat, _ = timed("19a smooth", phase_smooth, gen, tok, image_bytes, smi)
+    add_counts(launches, timed("19b lookup", phase_lookup, gen, schat, tok, image_bytes, smi))
+    del schat
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, timed("19c anyres", phase_anyres, gen, tok, image_bytes, smi))
+    add_counts(launches, timed("19d llama3 int4 smoothed", phase_smooth_backend, tok, smi))
+    log(f"[19 options] launches {launches}")
+    return launches
+
+
 def eva_quant_dense(tag: str, g, bits: int) -> dict:
     """3d / 3e at the EVA02 tower's projections: QuantDense with its bias,
     the whole call (row pass, product, bias) at M = 1025 (one 448 px
@@ -6980,6 +7489,10 @@ def main() -> None:
     # 14 runs the eval slice on the same bf16 model before 11 changes it
     eval_launches, beam4 = timed("14 eval", phase_eval, gen, image_bytes)
     add_counts(launches, eval_launches)
+    # 19 serves the options ported last (smoothed int4, prompt-lookup
+    # decoding, LLaVA-1.6 anyres, the smoothed int4 D&C backend) on models of
+    # its own beside phase 4's, which it reads and leaves unchanged
+    add_counts(launches, timed("19 options", phase_options, gen, tok, image_bytes, smi))
     # 15 runs continuous batching on the bf16 model, then (15c) on 11's
     # int8-KV model and on 12's fused engine
     cont_launches, _ = timed("15b continuous", phase_continuous, gen, image_bytes, smi)
@@ -7056,7 +7569,7 @@ def main() -> None:
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, "
-        f"MiniCPM-Llama3-V 2.5 18a-e, ref-logp 8, "
+        f"MiniCPM-Llama3-V 2.5 18a-e, the serving options 19a-d, ref-logp 8, "
         f"train 6, QLoRA 9, int4 QLoRA 10): {launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"

@@ -16,9 +16,9 @@ hands the built model to `llama3_backend`, the part after the load, which
 tests and the card's smoke run call with a model they built themselves.
 
 `continuous=True` generates through the engine's slot-refill
-`generate_continuous` (`slots` cache slots). Not ported: `int4_smooth=True`
-(models/quant_smooth.py, ROADMAP.md 'Modules to port' #11) raises
-NotImplementedError.
+`generate_continuous` (`slots` cache slots). `int4=True, int4_smooth=True`
+smooths the model with models/quant_smooth.py's `smooth_quantize_for_serving`
+(alpha 0.5, one calibration forward) before the int4 quantisation.
 """
 from __future__ import annotations
 
@@ -171,7 +171,8 @@ def llama3_backend(model, tokenizer, *, temperature: float = 0.2,
 
     int8: weight-only int8 LLM (the head left bf16) + fused projections +
     int8 KV cache (the single-chip 8B serving config), quantised in place.
-    int4: nibble-packed int4 weights instead. fused_decode additionally runs
+    int4: nibble-packed int4 weights instead; int4_smooth: AWQ-style
+    smoothing first (fixed alpha 0.5). fused_decode additionally runs
     the whole GQA layer stack as one kernel launch per token (kernel #16;
     implies a quantised base: int8 unless int4). The engine consumes the
     model's per-layer weights when it stacks them. continuous: slot-refill
@@ -186,12 +187,14 @@ def llama3_backend(model, tokenizer, *, temperature: float = 0.2,
         set_llm_config,
     )
 
+    from rlaifv_tpu_torch.models.quant_smooth import smooth_quantize_for_serving
+
     int8 = int8 or (fused_decode and not int4)
     if int4 and int4_smooth:
-        raise NotImplementedError(
-            "int4_smooth (models/quant_smooth.py) is not ported to "
-            "rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #11")
-    if int4:
+        # AWQ-style smoothing at the serving loader's fixed alpha 0.5, one
+        # calibration forward (models/quant_smooth.py), then fused
+        fuse_llm_projections_(smooth_quantize_for_serving(model.cfg, model, tokenizer))
+    elif int4:
         fuse_llm_projections_(quantize_llm_int4(model))
     elif int8:
         fuse_llm_projections_(quantize_llm_int8(model, include_lm_head=False))

@@ -36,8 +36,9 @@ raises).
 `int8` quantises the LLM's projections to int8 in place (the head and the
 SigLIP tower float) with an int8 KV cache, `int4` the same with int4 group
 quantisation, `fused_decode` serves the int8 (or int4) model through
-kernel #16 (it implies int8 unless int4 is chosen). `int4_smooth` (AWQ
-smoothing) raises NotImplementedError: ROADMAP.md 'Modules to port' #11.
+kernel #16 (it implies int8 unless int4 is chosen). `int4_smooth` smooths
+the LLM first (models/quant_smooth.py, alpha 0.5), calibrated with the
+tokenizer passed in, or the JAX package's id ramp without one.
 """
 from __future__ import annotations
 
@@ -301,11 +302,8 @@ class MiniCPMVChat:
             set_llm_config,
         )
         from rlaifv_tpu_torch.models.minicpmv import MiniCPMVForCausalLM
+        from rlaifv_tpu_torch.models.quant_smooth import smooth_quantize_for_serving
 
-        if int4 and int4_smooth:
-            raise NotImplementedError(
-                "int4_smooth (AWQ smoothing, models/quant_smooth.py) is not ported to "
-                "rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #11")
         if fused_decode and not (int8 or int4):
             int8 = True
         dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
@@ -315,7 +313,12 @@ class MiniCPMVChat:
         load_jax_params(model, convert_minicpmv(load_state_dict_dir(model_path)))
         # the float weights load first, then the LLM is quantised in place
         # on the device; the SigLIP tower stays float
-        if int4:
+        if int4 and int4_smooth:
+            # AWQ-style smoothing of the LLM (alpha 0.5), calibrated with the
+            # tokenizer given here (the id ramp without one, as the JAX
+            # package)
+            smooth_quantize_for_serving(cfg.llm, model, tokenizer)
+        elif int4:
             quantize_llm_int4(model, include_lm_head=False)
         elif int8:
             quantize_llm_int8(model, include_lm_head=False)

@@ -30,8 +30,10 @@ an int8 KV cache, `int4` the same with int4 group quantisation,
 `fused_decode` serves the int8 (or int4) model through kernel #16 (it
 implies int8 unless int4 is chosen; its chat raises ValueError, since beam
 search needs the per-layer weights the fused engine frees, and the JAX
-fused engine keeps none to run a beam with either). `int4_smooth` (AWQ
-smoothing) raises NotImplementedError: ROADMAP.md 'Modules to port' #11.
+fused engine keeps none to run a beam with either). `int4_smooth` smooths
+the LM first (models/quant_smooth.py, alpha 0.5), calibrated with the
+tokenizer passed in, or the JAX package's id ramp without one; the towers
+keep plain group int4.
 """
 from __future__ import annotations
 
@@ -263,11 +265,8 @@ class OmniLMMChat:
             set_llm_config,
         )
         from rlaifv_tpu_torch.models.omnilmm import OmniLMMForCausalLM
+        from rlaifv_tpu_torch.models.quant_smooth import smooth_quantize_for_serving
 
-        if int4 and int4_smooth:
-            raise NotImplementedError(
-                "int4_smooth (AWQ smoothing, models/quant_smooth.py) is not ported to "
-                "rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #11")
         if fused_decode and not (int8 or int4):
             int8 = True
         dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
@@ -277,7 +276,13 @@ class OmniLMMChat:
         load_jax_params(model, convert_omnilmm(load_state_dict_dir(model_path)))
         # the float weights load first, then quantise in place on the device
         if int4:
-            quantize_llm_int4(model, include_lm_head=False)
+            # int4_smooth: AWQ-style smoothing of the LM (alpha 0.5),
+            # calibrated with the tokenizer given here (the id ramp without
+            # one, as the JAX package); the towers keep plain group int4
+            if int4_smooth:
+                smooth_quantize_for_serving(cfg.llm, model, tokenizer)
+            else:
+                quantize_llm_int4(model, include_lm_head=False)
             quantize_vision_int4(model)
         elif int8:
             quantize_llm_int8(model, include_lm_head=False)

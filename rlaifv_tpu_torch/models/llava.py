@@ -3,7 +3,9 @@
 Counterpart of rlaifv_tpu/models/llava.py with the same static-shape
 splice: the host pre-expands each prompt so the image span occupies
 `num_image_tokens` slots, and the model overwrites that span with the
-projected vision features.
+projected vision features. An anyres (LLaVA-1.6) configuration builds the
+same modules: its views are encoded by `encode_images` and merged by
+models/anyres.py, the merged features spliced as one span by the engine.
 """
 from __future__ import annotations
 
@@ -82,11 +84,6 @@ def splice_image_features(text_embeds: torch.Tensor, image_features: torch.Tenso
 class LlavaForCausalLM(nn.Module):
     def __init__(self, cfg: LlavaConfig, device=None):
         super().__init__()
-        if cfg.image_aspect_ratio == "anyres" or cfg.mm_patch_merge_type != "flat":
-            raise NotImplementedError(
-                "anyres images are not ported to rlaifv_tpu_torch yet: "
-                "ROADMAP.md 'Modules to port' #8 (anyres)"
-            )
         self.cfg = cfg
         self.vision_tower = CLIPVisionTower(cfg.vision, device)
         self.mm_projector = VisionProjector(

@@ -5,10 +5,11 @@ the CPU.
 - The chat on a tiny LLaVA checkpoint written here (HF layout, vocabulary
   512 for tests/fake_tokenizer.py): its answer equals the decoded
   `generate_beam` (3 beams) of the same model, prompt and image, with a
-  float or int8 cache and int8 weights; `main` prints it; each unported
-  option raises NotImplementedError citing its ROADMAP number (the "12B"
-  case: the chat branch and OmniLMM training are ported);
-  without a card the entry point exits unless told `--device cpu`.
+  float or int8 cache and int8 weights; `main` prints it; `--load-4bit`
+  (plain and RLAIFV_INT4_SMOOTH=1), `--lookup-decode` and an anyres
+  (LLaVA-1.6) checkpoint answer as the JAX RLAIFV7B on the same checkpoint
+  (its beams moved to the greedy columns); the "12B" and "minicpm" paths
+  pick their chats; without a card the entry point exits unless told `--device cpu`.
 - `Llava15Generator.diverse_gen(continuous=True)` and
   `greedy_gen(continuous=True)` against the JAX generator's on bridged
   weights: greedy answers equal; sampled rows have the JAX rows' schema
@@ -38,6 +39,7 @@ from rlaifv_tpu_torch.models.convert import load_jax_params
 from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM
 from tests.fake_tokenizer import FakeTokenizer
+from tests.test_torch_beam import greedy_columns  # noqa: F401  (a fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE = os.path.join(ROOT, "examples", "test.jpeg")
@@ -129,10 +131,47 @@ def test_chat_main_prints_the_answer(ckpt, monkeypatch, capsys):
     assert capsys.readouterr().out.strip().splitlines()[-1] == _beam_answer(ckpt, 6)
 
 
+class _NpTokenizer(FakeTokenizer):
+    """The fake tokenizer with the `return_tensors="np"` call the root
+    chat.py's RLAIFV_INT4_SMOOTH calibration makes."""
+
+    def __call__(self, text, return_tensors=None, **kw):
+        enc = super().__call__(text, **kw)
+        return {"input_ids": np.asarray([enc.input_ids])} if return_tensors == "np" else enc
+
+
+def _anyres_ckpt(path):
+    """The tiny checkpoint in a LLaVA-1.6 configuration: anyres grids of
+    the 14 px view, spatial_unpad, and a seeded `model.image_newline` in a
+    safetensors file of its own."""
+    from safetensors.torch import save_file
+
+    _write_ckpt(path, image_aspect_ratio="anyres", mm_patch_merge_type="spatial_unpad",
+                image_grid_pinpoints=[[14, 14], [14, 28], [28, 14], [28, 28]])
+    save_file({"model.image_newline": torch.randn(32, generator=torch.Generator()
+                                                  .manual_seed(7))},
+              os.path.join(path, "model-extra.safetensors"))
+    return path
+
+
+# the options ported since the test pinned their NotImplementedError: each
+# now runs, and its answer equals the JAX RLAIFV7B's on the same checkpoint
+PORTED = {"load_4bit": dict(load_4bit=True), "int4_smooth": dict(load_4bit=True),
+          "lookup_decode": dict(lookup_decode=True), "anyres": {}}
+
+
 @pytest.mark.parametrize("case,item", [
     ("load_4bit", "#11"), ("lookup_decode", "#11"), ("12B", "#9"), ("minicpm", "#10"),
-    ("anyres", "#8")])
-def test_chat_unported_options_raise(ckpt, tmp_path, monkeypatch, case, item):
+    ("anyres", "#8"), ("int4_smooth", "#11")])
+def test_chat_unported_options_raise(ckpt, tmp_path, monkeypatch, greedy_columns, case, item):
+    """Every option of the root chat.py runs on the port. The ones that
+    raised NotImplementedError with their ROADMAP number (item) until
+    models/quant_smooth.py, genai/lookup_decode.py and models/anyres.py were
+    ported answer as the JAX RLAIFV7B does on the same checkpoint (its beam
+    search moved to the greedy columns, tests/test_torch_beam.py):
+    `--load-4bit` plain and with RLAIFV_INT4_SMOOTH=1 (the float model
+    smoothed with the alpha search, then int4), `--lookup-decode`, and an
+    anyres checkpoint."""
     path, kw = ckpt, {}
     if case == "minicpm":
         # the MiniCPM-V branch is ported (tests/test_torch_minicpmv_gen.py
@@ -156,14 +195,38 @@ def test_chat_unported_options_raise(ckpt, tmp_path, monkeypatch, case, item):
 
         assert get_family("omnilmm").name == "omnilmm"
         return
-    if case in ("load_4bit", "lookup_decode"):
-        kw[case] = True
-    elif case == "anyres":
-        path = _write_ckpt(str(tmp_path / "llava-anyres"), image_aspect_ratio="anyres")
-    else:
-        path = str(tmp_path / f"RLAIF-V-{case}")
-    with pytest.raises(NotImplementedError, match=item):
-        tchat.RLAIFVChat(path, device="cpu", tokenizer=FakeTokenizer(), **kw)
+    import transformers
+
+    import chat as jchat
+
+    kw = PORTED[case]
+    if case == "anyres":
+        path = _anyres_ckpt(str(tmp_path / "llava-anyres"))
+    if case == "int4_smooth":
+        monkeypatch.setenv("RLAIFV_INT4_SMOOTH", "1")
+    tok = _NpTokenizer()
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained", lambda *a, **k: tok)
+    chat = tchat.RLAIFVChat(path, device="cpu", max_new_tokens=6, tokenizer=tok, **kw)
+    want = jchat.RLAIFV7B(path, max_new_tokens=6, **kw)
+    model = chat.model.model
+    if case in ("load_4bit", "int4_smooth"):
+        cfg = model.cfg.llm
+        assert (cfg.quantize, cfg.quantize_bits, cfg.quantize_lm_head) == (True, 4, False)
+        q_proj = model.llm.model.layers[0].attn.q_proj
+        assert q_proj.q.dtype == torch.int8 and q_proj.scale.dim() == 2
+        # the folded norm weights (the checkpoint's ones without smoothing)
+        ln = model.llm.model.layers[0].ln_attn.weight.detach().numpy()
+        np.testing.assert_allclose(ln, np.asarray(want.engine.params["llm"]["model"]
+                                                  ["layer_0"]["ln_attn"]["scale"]), rtol=1e-5)
+        assert (ln == 1).all() == (case == "load_4bit")
+    if case == "anyres":
+        assert model.cfg.image_aspect_ratio == "anyres"
+        np.testing.assert_array_equal(chat.model.image_newline, want.image_newline)
+    question = {"image": IMAGE, "question": QUESTION}
+    answer = chat.chat(question)
+    assert isinstance(answer, str) and answer == want.chat(question)
+    with pytest.raises(ValueError, match="bf16 KV cache"):
+        tchat.RLAIFVChat(ckpt, device="cpu", tokenizer=tok, lookup_decode=True, kv_int8=True)
 
 
 def test_chat_needs_the_card_unless_told():

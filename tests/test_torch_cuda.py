@@ -1743,3 +1743,108 @@ def test_tiny_minicpmv_int8_engine_matches_dense_route(gen):
     assert torch.isfinite(fast_logits).all()
     assert (fast_logits - plain_logits).abs().max().item() <= 5e-2 * scale
     assert np.abs(fast.first_logits - plain.first_logits).max() <= 5e-2 * scale
+
+
+def _tiny_bf16_llava(gen):
+    """A tiny LLaVA in bf16 on the card whose LM widths the int4 kernel
+    takes (K and N multiples of 128: hidden 256, 4 heads of 64, 2 KV
+    heads), random weights from `gen`."""
+    from rlaifv_tpu_torch.models.llama import LlamaConfig
+    from rlaifv_tpu_torch.models.llava import LlavaConfig, LlavaForCausalLM, init_weights_
+    from rlaifv_tpu_torch.models.clip_vit import CLIPVisionConfig
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = LlavaConfig(llm=LlamaConfig.tiny(hidden_size=256, intermediate_size=256, num_heads=4,
+                                           num_kv_heads=2, vocab_size=512, **bf16),
+                      vision=CLIPVisionConfig.tiny(hidden_size=48, **bf16))
+    return init_weights_(LlavaForCausalLM(cfg, device="cuda"), gen).eval()
+
+
+def test_tiny_smoothed_int4_engine_matches_its_twin_route(gen):
+    """A tiny LLaVA smoothed (the alpha search, on the card) and quantised
+    to int4 in place: the prefill and 4 decode steps with every projection
+    on kernel #11 equal, bit for bit, the same steps with each #11 product
+    by its plain twin (`int4_product_plain`); attention is the same on both
+    routes (#1 prefill, #4 steps)."""
+    from rlaifv_tpu_torch.genai.engine import DecodeEngine
+    from rlaifv_tpu_torch.models.quant_smooth import quantize_llm_int4_smooth
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+
+    model = _tiny_bf16_llava(gen)
+    log = {}
+    quantize_llm_int4_smooth(model, torch.randint(3, 500, (1, 40), generator=gen,
+                                                  device="cuda"), log=log)
+    assert model.cfg.llm.quantize_bits == 4 and set(log) == {"layer_0", "layer_1"}
+    eng = DecodeEngine(model, eos_id=-1)
+    ids = torch.randint(3, 500, (2, 160), generator=gen, device="cuda")
+    mask = torch.ones_like(ids, dtype=torch.int32)
+    steps = torch.randint(3, 500, (2, 4), generator=gen, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            first, cache, cmask = eng._prefill(ids, mask, None, None, 256)
+            out = [first.float()]
+            for t in range(4):
+                cmask[:, 160 + t] = 1
+                logits, cache = eng.llm(input_ids=steps[:, t:t + 1], attention_mask=cmask,
+                                        position_ids=torch.full((2, 1), 160 + t, device="cuda"),
+                                        cache=cache, cache_index=160 + t)
+                out.append(logits[:, 0].float())
+        return torch.stack(out)
+
+    n0, f0, d0 = i4.int4_matmul.launches, flash_attention.launches, \
+        decode_attention_prefix.launches
+    kernel = run()
+    assert i4.int4_matmul.launches - n0 == 5 * 2 * 7  # 5 passes x 2 layers x 7 projections
+    assert flash_attention.launches - f0 == 2 and decode_attention_prefix.launches - d0 == 8
+    real = i4._kernel_fwd
+    i4._kernel_fwd = lambda xq, sx, qp, gs: i4.int4_product_plain(
+        xq, sx.reshape(-1, 1), qp, gs).to(torch.bfloat16)
+    try:
+        twin = run()
+    finally:
+        i4._kernel_fwd = real
+    assert torch.isfinite(kernel).all() and torch.equal(kernel, twin)
+
+
+def test_tiny_lookup_matches_generate_on_the_card(gen):
+    """Greedy prompt-lookup decoding on a tiny bf16 LLaVA on the card, on a
+    prompt that quotes the model's own greedy continuation (then its last 4
+    tokens again), so drafts are accepted: #1 prefills the prompt, no #4
+    runs inside the window loop (the 9-row window takes the dense path),
+    more than one token a window, and the tokens equal generate's greedy
+    tokens up to the first position where generate's top-2 logit gap is
+    under 0.05 of max|first logit| (the window's dense logits and #4's
+    round differently)."""
+    from rlaifv_tpu_torch.genai.engine import DecodeEngine
+    from rlaifv_tpu_torch.genai.lookup_decode import lookup_generate
+
+    model = _tiny_bf16_llava(gen)
+    eng = DecodeEngine(model, eos_id=-1)
+    base = torch.randint(3, 500, (8,), generator=gen, device="cuda").tolist()
+    prompt = [1] + (base * 20)[:159]
+    quoted = eng.generate([prompt], max_new_tokens=48, prompt_bucket=len(prompt))
+    prompt = prompt + [int(t) for t in quoted.tokens[0][:quoted.lengths[0]]] + prompt[-4:]
+    steps, step = [], eng._step
+
+    def recorded(*a):
+        logits, cache = step(*a)
+        steps.append(logits[0].float().clone())
+        return logits, cache
+
+    eng._step = recorded
+    ref = eng.generate([prompt], max_new_tokens=48, prompt_bucket=len(prompt))
+    del eng._step
+    f0, d0 = flash_attention.launches, decode_attention_prefix.launches
+    got = lookup_generate(eng, prompt, max_new_tokens=48)
+    assert flash_attention.launches - f0 == 2 and decode_attention_prefix.launches == d0
+    want = [int(t) for t in ref.tokens[0][:ref.lengths[0]]]
+    rows = [torch.from_numpy(ref.first_logits[0]).cuda()] + steps
+    scale = rows[0].abs().max().item()
+    m = next((i for i, (a, b) in enumerate(zip(got.tokens, want)) if a != b), None)
+    if m is None:
+        assert got.tokens == want
+    else:
+        top2 = rows[m].topk(2).values
+        assert (top2[0] - top2[1]).item() < 0.05 * scale, (m, got.tokens, want)
+    assert got.n_steps < len(got.tokens) and got.tokens_per_step > 1

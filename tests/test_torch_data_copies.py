@@ -7,8 +7,8 @@ loader and `fuse_llm_projections` of `models/convert`,
 `quantize_kernel_int8`, the numpy int4 helpers of `ops/int4_matmul`, the
 tree helpers of `train/lora` and the KV-cache quantiser of
 `ops/decode_attention`, `pairs/{construction,preference,
-length_filter}` and `data/minicpmv_slicing` (it imports nothing of
-rlaifv_tpu). Each case
+length_filter}`, `data/minicpmv_slicing` and the numpy merge of
+`models/anyres` (it imports nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -398,6 +398,25 @@ def case_minicpmv_slicing(pkg):
     source, patches, grid = sl.slice_image(img, 9, 112, 14)
     out["slices"] = [np.asarray(source), [np.asarray(p) for p in patches], grid]
     out["reshape"] = sl.reshape_by_patch(rng.normal(size=(3, 28, 42)).astype(np.float32), 14)
+    return out
+
+
+def case_anyres(pkg):
+    """The numpy merge of models/anyres.py: every merge type, wide, tall
+    and square sources, and unpad_grid on its own."""
+    ar = pkg("models.anyres")
+    rng = np.random.default_rng(9)
+    newline = rng.normal(size=4).astype(np.float32)
+    out = []
+    for n, grid, merge_type, size in ((5, (2, 2), "spatial_unpad", (640, 420)),
+                                      (3, (1, 2), "spatial_unpad", (300, 900)),
+                                      (5, (2, 2), "spatial_unpad", (500, 500)),
+                                      (7, (3, 2), "spatial", None), (3, (2, 1), "flat", None)):
+        views = rng.normal(size=(n, 16, 4)).astype(np.float32)
+        out.append(ar.merge_anyres_features(views, grid, merge_type=merge_type,
+                                            original_size=size, image_newline=newline))
+    grid = np.arange(48 * 48).reshape(48, 48, 1)
+    out += [ar.unpad_grid(grid, (640, 420)), ar.unpad_grid(grid, (420, 640))]
     return out
 
 

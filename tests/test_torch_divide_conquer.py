@@ -22,7 +22,9 @@ JAX package's, on the CPU.
 - The fused q/k/v projection at the Llama3 widths (q 4096, k 1024, v 1024)
   splits into the separate products, float and int8 (atol 1e-5: fp32
   products over K = 4096 that the CPU may block differently).
-- `int4_smooth=True` raises NotImplementedError; `continuous=True` runs
+- `int4=True, int4_smooth=True` (AWQ smoothing at alpha 0.5, then int4,
+  fused, an int8 cache) against the JAX engine on the JAX loader's tree:
+  greedy tokens equal, first logits within 1e-4; `continuous=True` runs
   (tests/test_torch_chat.py holds its tokens to `generate`'s).
 """
 import copy
@@ -39,6 +41,7 @@ from rlaifv_tpu.genai import divide_conquer as jdc
 from rlaifv_tpu.genai.engine import DecodeEngine as JEngine
 from rlaifv_tpu.genai.sampling import SamplingParams as JSamplingParams
 from rlaifv_tpu.models import convert as jconvert
+from rlaifv_tpu.models import quant_smooth as jqs
 from rlaifv_tpu.models.llama import LlamaConfig as JLlamaConfig
 from rlaifv_tpu.models.llama import LlamaForCausalLM as JLlama
 from rlaifv_tpu.models.llama import rope_cos_sin as jrope
@@ -56,6 +59,7 @@ TINY3 = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=
              num_heads=8, num_kv_heads=2, max_position_embeddings=256,
              rope_theta=500000.0, rms_norm_eps=1e-5)
 SERVE = dict(quantize=True, quantize_lm_head=False, fuse_proj=True, kv_cache_dtype="int8")
+SERVE4 = dict(SERVE, quantize_bits=4)
 
 TEXTS = [
     "### Facts:\n- The cat is black.\n- There are two dogs.\n",
@@ -274,9 +278,9 @@ def test_llama3_backend_int8_matches_jax(fused):
 
 def test_llama3_backend_generate_fn_and_unported_options(monkeypatch):
     """generate_fn samples each prompt (the reference's T 0.2 / top-p 0.9)
-    and decodes the row's tokens up to <|eot_id|> with the tokenizer; the
-    unported option raises NotImplementedError citing its ROADMAP item;
-    continuous=True (ported) builds a backend whose generate_fn goes
+    and decodes the row's tokens up to <|eot_id|> with the tokenizer;
+    int4_smooth=True (once unported) serves the JAX loader's smoothed int4
+    model; continuous=True (ported) builds a backend whose generate_fn goes
     through generate_continuous."""
     params = _jax_params()
 
@@ -300,8 +304,18 @@ def test_llama3_backend_generate_fn_and_unported_options(monkeypatch):
                         lambda self, *a, **kw: runs.append(self) or run(self, *a, **kw))
     cgen, _ = tdc.llama3_backend(build(), tok, continuous=True, slots=2, max_new_tokens=3)
     assert len(cgen(prompts)) == 2 and [g.B for g in runs] == [2]
-    with pytest.raises(NotImplementedError, match="#11"):
-        tdc.llama3_backend(build(), tok, int4=True, int4_smooth=True)
+    # int4_smooth (raised NotImplementedError until models/quant_smooth.py
+    # was ported): the JAX make_llama3_backend's tree, fuse_llm_projections(
+    # smooth_quantize_for_serving(cfg, params, tokenizer)) at alpha 0.5,
+    # calibrated on the fake tokenizer's id ramp by each package's forward
+    jparams = jax.tree.map(jnp.asarray, jconvert.fuse_llm_projections(
+        jqs.smooth_quantize_for_serving(JLlamaConfig(**TINY3, **SERVE4), params, tok)))
+    sgen, _ = tdc.llama3_backend(build(), tok, int4=True, int4_smooth=True, max_new_tokens=5)
+    cfg = sgen.engine.llm.cfg
+    assert (cfg.quantize, cfg.quantize_bits, cfg.fuse_proj, cfg.kv_cache_dtype) == \
+        (True, 4, True, "int8")
+    assert sgen.engine.llm.model.layers[0].mlp.gate_up_proj.scale.dim() == 2
+    _generate_both(_jax_engine(jparams, **SERVE4), sgen.engine)
 
 
 @pytest.mark.parametrize("quant", [False, True])

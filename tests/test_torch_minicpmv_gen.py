@@ -21,7 +21,7 @@ widths, fp32, tests/fake_tokenizer.py: `<unk>` 3, `<image>` 310, `<slice>`
 - `MiniCPMVChat` from a tiny checkpoint directory written here (fp32,
   `int8`, `int4`, `fused_decode`): greedy tokens equal to the JAX chat's on
   the same directory; the chat's answer equal to `generate` with the chat
-  sampling; `int4_smooth` raises #11;
+  sampling; `int4_smooth` (the LLM smoothed first) too;
 - the chat CLI's "minicpm" branch.
 """
 import copy
@@ -349,7 +349,10 @@ CHAT_MODES = {"fp32": {}, "int8": dict(int8=True), "int4": dict(int4=True),
 
 @pytest.mark.parametrize("mode", list(CHAT_MODES))
 def test_minicpmv_chat_matches_jax(ckpt, mode):
-    kw = CHAT_MODES[mode]
+    _minicpmv_chat_matches_jax(ckpt, mode, CHAT_MODES[mode])
+
+
+def _minicpmv_chat_matches_jax(ckpt, mode, kw):
     tok = FakeTokenizer()
     chat = tgen_mod.MiniCPMVChat(ckpt, tokenizer=tok, max_new_tokens=5, device="cpu", **kw)
     jchat = jgen_mod.MiniCPMVChat(ckpt, tokenizer=tok, max_new_tokens=5, **kw)
@@ -377,9 +380,12 @@ def test_minicpmv_chat_matches_jax(ckpt, mode):
 
 
 def test_minicpmv_chat_int4_smooth_raises(ckpt):
-    with pytest.raises(NotImplementedError, match="#11"):
-        tgen_mod.MiniCPMVChat(ckpt, tokenizer=FakeTokenizer(), int4=True, int4_smooth=True,
-                              device="cpu")
+    """int4_smooth=True raised NotImplementedError until
+    models/quant_smooth.py was ported: it now runs the int4 path with the
+    LM smoothed first (alpha 0.5, calibrated on the fake tokenizer's id
+    ramp by each package's own forward), against the JAX chat as the int4
+    mode is."""
+    _minicpmv_chat_matches_jax(ckpt, "int4", dict(int4=True, int4_smooth=True))
 
 
 def test_chat_cli_picks_minicpmv(ckpt, monkeypatch, capsys):

@@ -142,7 +142,8 @@ def test_lora_adapters_and_anyres_raise():
     """A {"params", "lora"} variables dict bridges its base (the adapters
     cross with lora_from_jax); an int4 tree (packed kernel, 2-D group
     scales) bridges to QuantDense's `q`/`scale` buffers as it lies; anyres
-    raises naming #8."""
+    builds the same modules (the raise naming #8 is lifted: models/anyres.py
+    merges its views, tests/test_torch_anyres.py)."""
     assert llava_params_from_jax({"params": {}, "lora": {}}) == {}
     kernel = np.arange(32 * 64).reshape(32, 64).astype(np.int8)
     int4 = {"llm": {"model": {"layer_0": {"attn": {"q_proj": {
@@ -153,8 +154,11 @@ def test_lora_adapters_and_anyres_raise():
                            "llm.model.layers.0.attn.q_proj.scale"}
         np.testing.assert_array_equal(sd["llm.model.layers.0.attn.q_proj.q"].numpy(), kernel)
         assert sd["llm.model.layers.0.attn.q_proj.scale"].shape == (1, 64)
-    with pytest.raises(NotImplementedError, match="#8"):
-        LlavaForCausalLM(LlavaConfig(image_aspect_ratio="anyres"), device="meta")
+    anyres = LlavaForCausalLM(LlavaConfig(image_aspect_ratio="anyres",
+                                          mm_patch_merge_type="spatial_unpad"), device="meta")
+    plain = LlavaForCausalLM(LlavaConfig(), device="meta")
+    assert {n: p.shape for n, p in anyres.state_dict().items()} == \
+        {n: p.shape for n, p in plain.state_dict().items()}
 
 
 def test_remat_recomputes_per_block_with_the_same_result(pair):

@@ -8,7 +8,9 @@ serving slice on the CPU (random weights from a seeded generator), bf16
 cache (greedy, continuous diverse_gen, and 3 beams through evals.vqa),
 a tiny OmniLMM through autocheck and diverse_gen (float, then both towers
 int8 in place with an int8 cache), a tiny MiniCPM-V through autocheck and
-continuous diverse_gen on sliced images,
+continuous diverse_gen on sliced images, the 7B chat on a tiny LLaVA
+smoothed and quantised to int4 (models/quant_smooth.py) and one greedy
+prompt-lookup generation (genai/lookup_decode.py),
 then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
@@ -55,7 +57,8 @@ SCRIPT = textwrap.dedent("""
                  "evals.text_utils", "evals.gpt_client", "iteration", "genai.continuous",
                  "chat", "models.eva02", "models.resampler", "models.omnilmm",
                  "genai.omni_gen", "models.siglip", "models.minicpmv", "genai.minicpmv_gen",
-                 "data.minicpmv_slicing"):
+                 "data.minicpmv_slicing", "models.quant_smooth", "genai.lookup_decode",
+                 "models.anyres"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -159,6 +162,19 @@ SCRIPT = textwrap.dedent("""
     rows = mgen.autocheck(mitems[:1] * 2 + mitems[1:], batch_size=2)
     assert all(0.0 <= v <= 1.0 for r in rows for v in r["scores"].values())
     assert len(mgen.diverse_gen(mitems, max_new_tokens=3, batch_size=2, continuous=True)) == 3
+
+    # the 7B chat on a tiny LLaVA smoothed (the alpha search) and quantised
+    # to int4 in place, its 3 beams, then one greedy lookup_generate
+    from rlaifv_tpu_torch.chat import RLAIFV7B
+    from rlaifv_tpu_torch.genai.lookup_decode import lookup_generate
+    from rlaifv_tpu_torch.models.quant_smooth import quantize_llm_int4_smooth
+    smodel = init_weights_(LlavaForCausalLM(cfg), torch.Generator().manual_seed(1)).eval()
+    quantize_llm_int4_smooth(smodel, np.arange(1, 33)[None])
+    assert smodel.cfg.llm.quantize_bits == 4
+    schat = RLAIFV7B.from_model(smodel, FakeTokenizer(), max_new_tokens=3)
+    assert isinstance(schat.chat({"image": img, "question": "What is it?"}), str)
+    res = lookup_generate(schat.engine, [1, 5, 6, 7, 5, 6, 7], max_new_tokens=5)
+    assert len(res.tokens) == 5 and res.n_steps >= 1
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy

@@ -16,7 +16,7 @@ package's, on the CPU (tiny widths, fp32, tests/fake_tokenizer.py).
 - `OmniLMMChat` from a tiny checkpoint directory written here (fp32,
   `int8`, `int4`, `fused_decode`): greedy tokens equal to the JAX chat's
   on the same directory, the chat's answer equal to generate_beam's with
-  `SamplingParams.chat_12b()`; `int4_smooth` raises #11;
+  `SamplingParams.chat_12b()`; `int4_smooth` (the LM smoothed first) too;
 - the chat CLI's "12B" branch;
 - `pipeline.stage_autocheck` with the OmniLMM labeler against the JAX
   orchestrator's on the same qas rows: the same rows, scores within 1e-5.
@@ -337,7 +337,10 @@ CHAT_MODES = {"fp32": {}, "int8": dict(int8=True), "int4": dict(int4=True),
 
 @pytest.mark.parametrize("mode", list(CHAT_MODES))
 def test_omnilmm_chat_matches_jax(omni_ckpt, mode):
-    kw = CHAT_MODES[mode]
+    _omnilmm_chat_matches_jax(omni_ckpt, mode, CHAT_MODES[mode])
+
+
+def _omnilmm_chat_matches_jax(omni_ckpt, mode, kw):
     tok = FakeTokenizer()
     chat = tgen_mod.OmniLMMChat(omni_ckpt, tokenizer=tok, max_new_tokens=5, image_size=28,
                                 device="cpu", **kw)
@@ -370,9 +373,12 @@ def test_omnilmm_chat_matches_jax(omni_ckpt, mode):
 
 
 def test_omnilmm_chat_int4_smooth_raises(omni_ckpt):
-    with pytest.raises(NotImplementedError, match="#11"):
-        tgen_mod.OmniLMMChat(omni_ckpt, tokenizer=FakeTokenizer(), int4=True,
-                             int4_smooth=True, device="cpu")
+    """int4_smooth=True raised NotImplementedError until
+    models/quant_smooth.py was ported: it now runs the int4 path with the
+    LM smoothed first (alpha 0.5, calibrated on the fake tokenizer's id
+    ramp by each package's own forward), against the JAX chat as the int4
+    mode is."""
+    _omnilmm_chat_matches_jax(omni_ckpt, "int4", dict(int4=True, int4_smooth=True))
 
 
 def test_chat_cli_12b_branch(omni_ckpt, monkeypatch, capsys):
