@@ -373,13 +373,46 @@ Phases, one progress line each (or a few):
      that base, step 0 against the "dequant" route (DPO and SFT
      gradients), 3 AdamW steps of 8 pairs (loss near ln 2 at step 0, lower
      by step 2); step time, pairs/s, tokens/s, peak memory, and the
-     launches a step of #11, #12 and the dequant dx (gate/up).
+     launches a step of #11, #12 and the dequant dx (gate/up);
+  20. the modules ported last, in four parts. 20a-c run after 19, on
+     phase 4's bf16 model, which they leave unchanged. 20a: the native
+     JPEG loader (data/native_loader.py) built by g++ from the repo's
+     copy of the C++ source into build/, on examples/test.jpeg and a
+     resized and a mirrored copy (re-encoded) as a batch of 64: byte-equal
+     to the PIL path, ms/image, the PIL fallbacks (0 on JPEG input); a
+     machine without libjpeg prints that on a line of its own and every
+     image takes the PIL path. 20b: the device image pipeline
+     (ops/image_kernels.py) at bench.py's geometry (64 seeded 640 px
+     images to 336) and on 20a's images, within 2 uint8 steps of the host
+     ClipImageProcessor; the device program's ms/image (the BASELINE
+     preprocess metric) and the whole call's; the CLIP tower and
+     projector on device and on host pixels. 20c: export
+     (models/export.py) of phase 4's model to an HF dir at fp16, reloaded
+     by load_pretrained_llava into a fresh model: every tensor the
+     original rounded bf16 -> fp16 -> bf16, bit for bit; 4 prompts x 16
+     greedy tokens equal to the original's with its weights rounded the
+     same way (restored after); then r 64 LoRA adapters on q_proj and
+     v_proj (b drawn from the seed) over phase 4's model cut to 4 LLM
+     layers (full width, its own export as the base: the loader's fp32
+     conversion of a 32-layer base takes ~100 s) through export_peft_lora
+     and load_pretrained_llava(adapter, base): its merged weights (within
+     one bf16 ulp) and first logits (phase 5's bound) against the cut
+     model with the same fp16 adapters merged in fp32 on the card, the
+     drift against the adapters attached logged; GB written, export and
+     reload seconds. 20d (after 10, every model freed): the reference-logp
+     precompute over two processes on the one card (subprocesses with
+     torchrun's variables, a gloo group, each building phase 8's seed-0
+     7B): inference_logp on phase 8's rows, the shared-prefix path and the
+     plain scorer with the fused head, rank 0 writing the parquet; row for
+     row against phase 8's single-process results within its bounds and
+     bit for bit (each shard's batches hold the same pairs as phase 8's);
+     the three processes' peak device memory, wall seconds and pairs/s.
 
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
 runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 19a-d's
-runs, 8, 6,
+runs, 20c's reloaded model, 20d's workers, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -394,14 +427,19 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -513,6 +551,17 @@ from rlaifv_tpu_torch.ops.fused_head import (  # noqa: E402
     fused_head_fwd_plain,
     fused_target_logp,
 )
+from rlaifv_tpu_torch.core import distributed as dist_mod  # noqa: E402
+from rlaifv_tpu_torch.data import native_loader  # noqa: E402
+from rlaifv_tpu_torch.models import export as export_mod  # noqa: E402
+from rlaifv_tpu_torch.models.convert import (  # noqa: E402
+    llava_config_from_hf,
+    load_jax_params,
+    load_pretrained_llava,
+    torch_module_name,
+)
+from rlaifv_tpu_torch.ops.image_kernels import DeviceImagePipeline, _resize_normalize  # noqa: E402
+from rlaifv_tpu_torch.train.ref_logp import inference_logp  # noqa: E402
 from rlaifv_tpu_torch.utils.file_io import read_jsonlines, write_jsonlines  # noqa: E402
 from rlaifv_tpu_torch.utils.synth import continuous_mask, quotient_ties  # noqa: E402
 from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
@@ -528,7 +577,12 @@ from rlaifv_tpu_torch.train.train_step import (  # noqa: E402
     paired_masks,
     validate_shared_prefix,
 )
-from rlaifv_tpu_torch.train.lora import attach_lora, lora_init, lora_scaled  # noqa: E402
+from rlaifv_tpu_torch.train.lora import (  # noqa: E402
+    adapter_pairs,
+    attach_lora,
+    lora_init,
+    lora_scaled,
+)
 from rlaifv_tpu_torch.train import paired_forward as paired_mod  # noqa: E402
 from rlaifv_tpu_torch.train.__main__ import (  # noqa: E402
     build_omnilmm as build_omnilmm_entry,
@@ -3650,13 +3704,14 @@ def _seq_close(a: list, b: list, rtol: float) -> tuple:
     return rel, tok_mean, tok_max
 
 
-def phase_ref_logp(model, tok, rows: list, cfg: LlavaConfig) -> tuple:
+def phase_ref_logp(model, tok, rows: list, cfg: LlavaConfig, keep: dict = None) -> tuple:
     """8: the reference-logp precompute of the rows through the port's
     score_preference_rows three times: the shared-prefix path (the default
     of inference_logp), the plain scorer with the fused head (what rows
     that cannot share take, and what "auto" picks at 7B) and the plain
     scorer with the "xla" head (the comparison, not counted). A spy on
-    DecodeEngine.score_pair_logps counts the rows the shared path scored."""
+    DecodeEngine.score_pair_logps counts the rows the shared path scored.
+    `keep` (a dict) receives the three runs' rows by name."""
     kw = dict(max_len=2048, num_patches=cfg.num_image_tokens, batch_pairs=8,
               image_processor=ClipImageProcessor(image_size=cfg.vision.image_size),
               progress=False)
@@ -3710,6 +3765,8 @@ def phase_ref_logp(model, tok, rows: list, cfg: LlavaConfig) -> tuple:
         raise AssertionError("8: the ref-logp paths disagree")
     if launches["head_fwd"] < 1 or launches["flash"] < 2 * cfg.llm.num_layers:
         raise AssertionError(f"8: a kernel of the ref-logp path did not run: {launches}")
+    if keep is not None:
+        keep.update(runs)
     log(f"[8 ref-logp] launches: flash fwd {launches['flash']}, fused head fwd "
         f"{launches['head_fwd']}")
     return runs["shared"], launches
@@ -7420,6 +7477,558 @@ def eva_quant_dense(tag: str, g, bits: int) -> dict:
     return out
 
 
+# 20: the modules ported last (registry, TSV sources and profiling have no
+# device path; the rest run here)
+LOADER_BATCH = 64
+PRE_B, PRE_S = 64, 640  # bench.py:448's preprocess geometry (to 336)
+PIXEL_STEPS = 2.0  # tests/test_image_kernels.py:30: PIL's int16 taps, 2 uint8 LSBs
+PEAK_FP32_TFLOPS = 67.0  # H100 SXM data sheet, float32 outside the tensor cores
+EXPORT_QUESTIONS = ["What is in the image?", "Describe the scene.",
+                    "What colors do you see?", "Is it daytime?"]
+EXPORT_NEW = 16
+FP16_MIN_NORMAL = 2.0 ** -14
+PEFT_R, PEFT_ALPHA = 64, 16.0
+EXPORT_LAYERS = 4  # 20c's LLM depth (full width; tools/export_roundtrip.py: all 32)
+PEFT_PROJ = ("q_proj", "v_proj")  # peft's default LoRA targets for Llama
+PEFT_TARGET = rf"llm/.*({'|'.join(PEFT_PROJ)})/kernel$"
+PEFT_B_STD = 0.1  # merged delta ~0.2 of a weight's std: visible, not dominant
+PEFT_SEED = 20
+REF2_WORLD = 2
+REF2_TIMEOUT = 600  # the workers' wall limit (start, build, score)
+
+
+def _loader_blobs(image_bytes: bytes) -> tuple:
+    """20a's batch: examples/test.jpeg, a copy resized to 3/4 and a mirrored
+    copy (both re-encoded as JPEG, quality 90), cycled to LOADER_BATCH."""
+    from PIL import Image, ImageOps
+
+    img = Image.open(io.BytesIO(image_bytes)).convert("RGB")
+
+    def jpeg(im) -> bytes:
+        buf = io.BytesIO()
+        im.save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    w, h = img.size
+    three = [image_bytes, jpeg(img.resize((w * 3 // 4, h * 3 // 4), Image.Resampling.BICUBIC)),
+             jpeg(ImageOps.mirror(img))]
+    sizes = [Image.open(io.BytesIO(b)).size for b in three]
+    return [three[i % 3] for i in range(LOADER_BATCH)], sizes
+
+
+def phase_loader(image_bytes: bytes, smi: str) -> list:
+    """20a: the native JPEG loader on a batch of 64 -> the decoded, padded
+    images. Where it builds: byte-equal to the PIL path, no JPEG falling
+    back to PIL, and timed. Where it does not, every image takes the PIL
+    path: the phase says so, decodes the batch for 20b and times nothing."""
+    blobs, sizes = _loader_blobs(image_bytes)
+    loader = native_loader.NativeImageLoader()
+    t0 = time.perf_counter()
+    native = native_loader.native_available()
+    build_s = time.perf_counter() - t0
+    if not native:
+        log("[20a native loader] NOT AVAILABLE on this machine: the C++ loader did not build "
+            f"(libjpeg's header /usr/include/jpeglib.h "
+            f"{'present' if os.path.exists('/usr/include/jpeglib.h') else 'absent'}); "
+            f"{len(blobs)} images decoded on the PIL path for 20b, nothing timed")
+        return loader(blobs)
+    so = native_loader.library_path()
+    pkg_files = sorted(os.listdir(ROOT / "rlaifv_tpu_torch" / "native"))
+    log(f"[20a native loader] g++ built {so.relative_to(ROOT)} from the repo's copy "
+        f"in {build_s:.1f} s; rlaifv_tpu_torch/native holds {pkg_files}")
+    if so.parent != ROOT / "build" / "rlaifv_tpu_torch" or pkg_files != ["image_loader.cpp"]:
+        raise AssertionError("20a: the loader's library is not under build/ alone")
+    fell_back = []
+    orig = native_loader.NativeImageLoader._fallback
+
+    def spy(self, batch):
+        fell_back.append(len(batch))
+        return orig(self, batch)
+
+    native_loader.NativeImageLoader._fallback = spy
+    try:
+        loader(blobs[:4])  # warm-up
+        fell_back.clear()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = loader(blobs)
+            runs.append(time.perf_counter() - t0)
+    finally:
+        native_loader.NativeImageLoader._fallback = orig
+    n_fallback = sum(fell_back) // len(runs)
+    t0 = time.perf_counter()
+    pil = loader._fallback(blobs)
+    pil_ms = (time.perf_counter() - t0) / len(blobs) * 1e3
+    equal = all(a.shape == b.shape and np.array_equal(a, b) for a, b in zip(out, pil))
+    ms = min(runs) / len(blobs) * 1e3
+    log(f"[20a native loader] {len(blobs)} JPEGs ({' / '.join(f'{w}x{h}' for w, h in sizes)}, "
+        f"cycled) decoded and padded to squares: {ms:.4f} ms/image (native, "
+        f"{loader.num_threads} threads, best of 3 batches) | the PIL path alone "
+        f"{pil_ms:.4f} ms/image | PIL fallbacks {n_fallback} of {len(blobs)} images | "
+        f"byte-equal to the PIL path: {equal} | {smi}")
+    if not equal:
+        raise AssertionError("20a: the loader's images differ from the PIL path's")
+    if n_fallback:
+        raise AssertionError(f"20a: {n_fallback} JPEGs fell back to PIL")
+    return out
+
+
+def _pixel_steps(got: torch.Tensor, want: np.ndarray, std: np.ndarray) -> float:
+    """max |device - host| in whole uint8 steps: |d| x std x 255 after the
+    normalisation, rounded to the nearest step (the fp32 normalisation
+    leaves ~1e-5 of a step on it)."""
+    return float(np.rint(np.abs(got.cpu().numpy() - want) * std * 255.0).max())
+
+
+def phase_preprocess(model: LlavaForCausalLM, decoded: list, smi: str) -> dict:
+    """20b: DeviceImagePipeline on the card at bench.py's geometry and on
+    20a's images, within PIXEL_STEPS of the host processor; the device
+    program's ms/image (bench.py's metric: the fused resize + normalise on
+    device-resident pixels) and the whole call's (host pad and upload
+    included); then the CLIP tower and projector on device and on host
+    pixels of 20a's images."""
+    D = model.cfg.vision.image_size
+    pipe = DeviceImagePipeline(image_size=D, device=model.device)
+    host = ClipImageProcessor(image_size=D)
+    std = np.asarray(host.std, np.float32)
+    rng = np.random.default_rng(0)
+    bench = list(rng.integers(0, 255, size=(PRE_B, PRE_S, PRE_S, 3), dtype=np.uint8))
+    dev_u8 = torch.from_numpy(np.stack(bench)).to(model.device)
+    Wr = pipe.resize_weights(PRE_S)
+    dev_ms = time_ms(lambda: _resize_normalize(dev_u8, Wr, Wr, pipe.mean, pipe.std),
+                     runs=10) / PRE_B
+    flop = 2 * 3 * PRE_B * (PRE_S * PRE_S * D + PRE_S * D * D)  # the two dense products
+    nbytes = PRE_B * PRE_S * PRE_S * 3 + PRE_B * D * D * 3 * 4
+    b = bound(flop, nbytes, PEAK_FP32_TFLOPS)
+    pipe(bench[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe(bench)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) / PRE_B * 1e3
+    del dev_u8
+    dev_pix = pipe(decoded)
+    steps = {}
+    for name, imgs, got in (("bench", bench, out), ("20a", decoded, dev_pix)):
+        if got.device != model.device or got.dtype != torch.float32 or \
+                tuple(got.shape) != (len(imgs), D, D, 3):
+            raise AssertionError(f"20b: {name}: {got.device} {got.dtype} {tuple(got.shape)}")
+        steps[name] = _pixel_steps(got, np.stack([host(im) for im in imgs]), std)
+    log(f"[20b preprocess] DeviceImagePipeline {PRE_B} x {PRE_S}^2 -> {D}: device program "
+        f"{dev_ms:.5f} ms/image (the BASELINE preprocess metric; bound "
+        f"{b['bound_ms'] / PRE_B:.5f} ms/image by {b['bound_by']} at {PEAK_FP32_TFLOPS} fp32 "
+        f"TFLOP/s: dense products, TF32 off) | the whole call with host pad and upload "
+        f"{call_ms:.4f} ms/image | max |device - host ClipImageProcessor| "
+        f"{steps['bench']:.3f} uint8 steps (bench), {steps['20a']:.3f} (20a's "
+        f"{len(decoded)} images) (tol {PIXEL_STEPS}) | {smi}")
+    if max(steps.values()) > PIXEL_STEPS:
+        raise AssertionError(f"20b: device pixels off the host processor's: {steps}")
+    host_pix = torch.from_numpy(np.stack([host(im) for im in decoded])).to(model.device)
+    rel = 0.0
+    with torch.inference_mode():
+        for i in range(0, len(decoded), 16):
+            f_dev = model.encode_images(dev_pix[i:i + 16]).float()
+            f_host = model.encode_images(host_pix[i:i + 16]).float()
+            rel = max(rel, ((f_dev - f_host).abs().max() / f_host.abs().max()).item())
+            if not (torch.isfinite(f_dev).all() and torch.isfinite(f_host).all()):
+                raise AssertionError("20b: non-finite image features")
+    log(f"[20b preprocess] CLIP tower + projector (bf16) on 20a's {len(decoded)} images: "
+        f"device pixels against host pixels, max |d feature| / max |feature| {rel:.4f}")
+    return dict(device_ms=dev_ms, call_ms=call_ms, steps=steps, feature_rel=rel)
+
+
+def _host_gib() -> float:
+    """This process's peak resident host memory, GiB (ru_maxrss: KiB)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e9
+
+
+def _round_fp16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float16).to(t.dtype) if t.is_floating_point() else t
+
+
+def _greedy(gen: Llava15Generator, prompts, starts, images) -> np.ndarray:
+    with torch.inference_mode():
+        return gen.engine.generate(prompts, images=images, image_starts=starts,
+                                   max_new_tokens=EXPORT_NEW).tokens
+
+
+def _empty_llava(cfg: LlavaConfig, device) -> LlavaForCausalLM:
+    return LlavaForCausalLM(cfg, device="meta").to_empty(device=device).eval()
+
+
+def _reload(path: str, device, **kw) -> LlavaForCausalLM:
+    """load_pretrained_llava(path, **kw) into a fresh bf16 model on `device`,
+    its config from path's config.json."""
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    cfg = llava_config_from_hf(kw.get("model_base") or path, llm=bf16, vision=bf16)
+    tree = load_pretrained_llava(path, **kw)
+    model = load_jax_params(_empty_llava(cfg, device), tree)
+    del tree
+    gc.collect()
+    torch.cuda.synchronize()
+    return model
+
+
+def _ulps(x: torch.Tensor, ref: torch.Tensor) -> int:
+    """max distance in bf16 ulps between two bf16 tensors: their bit
+    patterns mapped onto one integer line (negative values mirrored, so
+    +0 and -0 meet and a step across zero counts one)."""
+    def line(t: torch.Tensor) -> torch.Tensor:
+        bits = t.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((line(x) - line(ref)).abs().max())
+
+
+def _cut_llava(model: LlavaForCausalLM, n_layers: int) -> LlavaForCausalLM:
+    """`model` with its LLM cut to the first n_layers layers (full width),
+    its tensors shared with `model`, not copied."""
+    cfg = dataclasses.replace(model.cfg, llm=dataclasses.replace(model.cfg.llm,
+                                                                 num_layers=n_layers))
+    keep = {k: v for k, v in model.state_dict().items()
+            if not (k.startswith("llm.model.layers.") and int(k.split(".")[3]) >= n_layers)}
+    cut = LlavaForCausalLM(cfg, device="meta")
+    cut.load_state_dict(keep, assign=True)
+    return cut.eval()
+
+
+@contextlib.contextmanager
+def _restored(model: torch.nn.Module):
+    """Run the block with `model`'s parameters changed in place, then put
+    them back bit for bit (their device copies kept meanwhile)."""
+    params = list(model.parameters())
+    saved = [p.detach().clone() for p in params]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, s in zip(params, saved):
+                p.copy_(s)
+        if not all(torch.equal(p, s) for p, s in zip(params, saved)):
+            raise AssertionError("20c: a model was not restored")
+
+
+def _round_model_(model: torch.nn.Module) -> None:
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(_round_fp16(p))
+
+
+def _export(model: LlavaForCausalLM, out: str) -> tuple:
+    """params_from_model + export_llava_hf (fp16, no base_dir: the dead
+    final ViT block stays out) -> (seconds, the bridge's seconds)."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        tree = export_mod.params_from_model(model)
+    t_bridge = time.perf_counter() - t0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        export_mod.export_llava_hf(tree, out, cfg=model.cfg)
+    del tree
+    gc.collect()
+    return time.perf_counter() - t0, t_bridge
+
+
+def export_roundtrip(gen: Llava15Generator, tok, image_bytes: bytes, smi: str, out: str,
+                     tag: str = "20c export") -> dict:
+    """gen's model exported as an HF checkpoint (fp16) into `out` and
+    reloaded through load_pretrained_llava into a fresh model (its generate
+    runs with the launch counters reset just before and read just after).
+    Gates: every reloaded tensor bit-equal to the original rounded as the
+    export rounds (bf16 -> fp16 -> bf16), and EXPORT_QUESTIONS x EXPORT_NEW
+    greedy tokens equal to those of the rounded original (restored bit for
+    bit after)."""
+    model = gen.model
+    items = _items(image_bytes, EXPORT_QUESTIONS)
+    prompts, starts, images = gen._prepare(items)
+    need = sum(p.numel() for p in model.parameters()) * 2  # fp16
+    free = shutil.disk_usage(os.path.dirname(out)).free
+    log(f"[{tag}] {out}: {free / 1e9:.1f} GB free, the export needs ~{need / 1e9:.1f} GB")
+    if free < 2 * need:
+        raise AssertionError(f"{tag}: {free / 1e9:.1f} GB free under {out}, "
+                             f"{2 * need / 1e9:.1f} GB wanted")
+    t_export, t_bridge = _export(model, out)
+    gb = _dir_gb(out)
+    t0 = time.perf_counter()
+    model2 = _reload(out, model.device, dtype=np.float16)
+    t_reload = time.perf_counter() - t0
+    n_layers = model.cfg.llm.num_layers
+    log(f"[{tag}] LLaVA-1.5-7B at full width, {n_layers} LLM layers: params_from_model + "
+        f"export_llava_hf (fp16): {gb:.2f} GB written in {t_export:.1f} s "
+        f"({gb / t_export:.2f} GB/s; the bridge {t_bridge:.1f} s) | load_pretrained_llava + "
+        f"load_jax_params into a fresh model: {t_reload:.1f} s | host peak "
+        f"{_host_gib():.1f} GiB | {smi}")
+    # every tensor: the original rounded bf16 -> fp16 -> bf16, bit for bit
+    own, got = model.state_dict(), model2.state_dict()
+    if set(own) != set(got):
+        raise AssertionError(f"{tag}: the reloaded state's names differ: {set(own) ^ set(got)}")
+    n, n_moved, n_sub, bad = 0, 0, 0, []
+    for name, t in own.items():
+        r = _round_fp16(t)
+        n += t.numel()
+        n_moved += int((r != t).sum())
+        n_sub += int(((t.abs() < FP16_MIN_NORMAL) & (t != 0)).sum())
+        if not torch.equal(got[name], r):
+            bad.append(name)
+    n_tensors = len(own)
+    del own, got
+    log(f"[{tag}] reloaded state vs the original rounded bf16 -> fp16 -> bf16: "
+        f"{n_tensors - len(bad)} of {n_tensors} tensors bit-equal ({n / 1e9:.3f} B "
+        f"values; exact in fp16's normal range: {n_sub} nonzero values below 2^-14 "
+        f"({n_sub / n:.2e}), {n_moved} values moved by the rounding)")
+    if bad:
+        raise AssertionError(f"{tag}: {len(bad)} reloaded tensors differ, e.g. {bad[:3]}")
+    gen2 = Llava15Generator(model2, tok, model2.cfg.num_image_tokens,
+                            image_size=model2.cfg.vision.image_size)
+    _greedy(gen2, prompts[:1], starts[:1], images[:1])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    got_tok = _greedy(gen2, prompts, starts, images)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    del gen2, model2
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _restored(model):
+        _round_model_(model)
+        want_tok = _greedy(gen, prompts, starts, images)
+    torch.cuda.empty_cache()
+    same = bool(np.array_equal(got_tok, want_tok))
+    log(f"[{tag}] {len(prompts)} prompts x {EXPORT_NEW} greedy tokens through "
+        f"Llava15Generator on the reloaded model: equal to the rounded original's: {same} "
+        f"| launches: flash {launches['flash']}, decode {launches['decode']}")
+    if not same:
+        raise AssertionError(f"{tag}: the reloaded model's greedy tokens differ")
+    if launches["flash"] < n_layers or launches["decode"] < n_layers:
+        raise AssertionError(f"{tag}: a kernel of the reloaded model's path did not run: "
+                             f"{launches}")
+    return dict(launches=launches, gb=gb, export_s=t_export, reload_s=t_reload,
+                inputs=(prompts, starts, images))
+
+
+def phase_export(gen: Llava15Generator, tok, image_bytes: bytes, smi: str) -> dict:
+    """20c: phase 4's model cut to EXPORT_LAYERS LLM layers (full width, its
+    tensors shared) through `export_roundtrip`, then `phase_export_peft`
+    over that export as the base; phase 4's model is left unchanged.
+    tools/export_roundtrip.py runs the same round trip at full depth."""
+    cut = _cut_llava(gen.model, EXPORT_LAYERS)
+    gen_cut = Llava15Generator(cut, tok, cut.cfg.num_image_tokens,
+                               image_size=cut.cfg.vision.image_size)
+    work = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        base = os.path.join(work, "base")
+        res = export_roundtrip(gen_cut, tok, image_bytes, smi, base)
+        res["peft"] = phase_export_peft(cut, base, tok, *res.pop("inputs"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del gen_cut, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_export_peft(cut: LlavaForCausalLM, base: str, tok, prompts, starts,
+                      images) -> dict:
+    """20c, LoRA: adapters on the cut model through export_peft_lora and
+    load_pretrained_llava(adapter, base) over its export `base`. The
+    reference is the cut model rounded as exported, with the adapters' fp16
+    values merged in fp32 as the loader merges them, restored after; the
+    drift against the adapters attached is logged."""
+    device = cut.device
+    work = tempfile.mkdtemp(prefix="chip_smoke_peft_")
+    try:
+        peft = os.path.join(work, "peft")
+        g = torch.Generator(device=device).manual_seed(PEFT_SEED)
+        lora = lora_init(g, cut, r=PEFT_R, target=PEFT_TARGET)
+        for _, node in adapter_pairs(lora):
+            node["b"] = torch.randn(node["b"].shape, generator=g, device=device) * PEFT_B_STD
+        t0 = time.perf_counter()
+        export_mod.export_peft_lora(export_mod.lora_params(lora), peft, alpha=PEFT_ALPHA,
+                                    r=PEFT_R, base_model_name=base)
+        t_peft = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model3 = _reload(peft, device, model_base=base, dtype=np.float32,
+                         lora_alpha=PEFT_ALPHA)
+        t_merge = time.perf_counter() - t0
+        eng = dict(eos_id=tok.eos_token_id, pad_id=tok.pad_token_id or 0)
+        got_l = _first_logits(DecodeEngine(model3, **eng), prompts, starts, images)
+        scale = PEFT_ALPHA / PEFT_R
+        n_w, n_diff, ulps = 0, 0, 0
+        with _restored(cut), torch.no_grad():
+            _round_model_(cut)
+            for path, node in adapter_pairs(lora):
+                name = torch_module_name(path)
+                w = cut.get_submodule(name).weight
+                a, b = (node[k].half().float() for k in ("a", "b"))
+                w.copy_((w.float() + (a @ b).T * scale).to(w.dtype))
+                w3 = model3.get_submodule(name).weight
+                n_w += w.numel()
+                n_diff += int((w3 != w).sum())
+                ulps = max(ulps, _ulps(w3, w))
+            want_l = _first_logits(DecodeEngine(cut, **eng), prompts, starts, images)
+        del model3
+        attach_lora(cut, lora_scaled(lora, PEFT_ALPHA))
+        try:
+            attached_l = _first_logits(DecodeEngine(cut, **eng), prompts, starts, images)
+        finally:
+            attach_lora(cut, None)
+        gb = _dir_gb(peft)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = (got_l - want_l).abs().max().item()
+    scale_l = want_l.abs().max().item()
+    ok = d <= SLICE_REL_TOL * scale_l and bool(torch.isfinite(got_l).all())
+    log(f"[20c export] LoRA r {PEFT_R} on {'/'.join(PEFT_PROJ)} (b ~ N(0, {PEFT_B_STD}), seed "
+        f"{PEFT_SEED}) over the same {cut.cfg.llm.num_layers}-layer model, its export above as "
+        f"the base: export_peft_lora {gb:.3f} GB in {t_peft:.1f} s; "
+        f"load_pretrained_llava(adapter, base) merged + loaded in {t_merge:.1f} s | merged "
+        f"weights against the in-memory merge: {n_diff} of {n_w} differ, at most {ulps} bf16 "
+        f"ulp | first logits: max|d| {d:.4f} vs max|logit| {scale_l:.3f} (tol {SLICE_REL_TOL} "
+        f"x max) | {'ok' if ok else 'FAIL'} | with the adapters attached instead (bf16 side "
+        f"term, no rounding) max|d| {(got_l - attached_l).abs().max().item():.4f} | host peak "
+        f"{_host_gib():.1f} GiB")
+    if not ok or ulps > 1:  # fp32 sums in another order may flip a bf16 rounding
+        raise AssertionError("20c: the reloaded LoRA model disagrees with the merge")
+    return dict(gb=gb, reload_s=t_merge)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ref2_rows(path: str) -> list:
+    import pandas as pd
+
+    files = sorted(f for f in os.listdir(path) if f.endswith(".parquet"))
+    frame = pd.concat([pd.read_parquet(os.path.join(path, f)) for f in files])
+    return [json.loads(x)["logps"] for x in frame["logps"]]
+
+
+REF2_RUNS = {"shared": dict(), "fused": dict(shared_prefix=False, lm_head_impl="fused")}
+
+
+def ref_logp_worker(out_dir: str) -> None:
+    """`python3 chip_smoke.py --ref-logp-worker OUT` under torchrun's
+    variables: one rank of 20d. Builds phase 8's seed-0 7B, runs
+    inference_logp on phase 8's rows (both REF2_RUNS) over the gloo group,
+    and writes its launches, seconds and peak memory to OUT/rank<r>.json."""
+    dist_mod.initialize()
+    rank = dist_mod.process_index()
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings, as in phase 8
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LlavaConfig.llava15_7b(remat=True)
+    image_bytes = (ROOT / "examples" / "test.jpeg").read_bytes()
+    rows, tok = synth_rows(image_bytes), _fake_tokenizer()
+    model = build_model(cfg, f"20d rank {rank}")
+    kw = dict(max_len=2048, num_patches=cfg.num_image_tokens, batch_pairs=8,
+              image_processor=ClipImageProcessor(image_size=cfg.vision.image_size))
+    score_preference_rows(rows[:2], model, tok, progress=False, shared_prefix=True,
+                          **kw)  # warm-up, as phase 8's
+    torch.cuda.synchronize()
+    dist_mod.barrier("warm")
+    res = {"rank": rank, "world": dist_mod.process_count(), "runs": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for name, extra in REF2_RUNS.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        inference_logp(rows, model, tok, os.path.join(out_dir, name), **kw, **extra)
+        torch.cuda.synchronize()
+        res["runs"][name] = dict(seconds=time.perf_counter() - t0, launches=read_counts())
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_ref_logp_two(ref_runs: dict, smi: str) -> dict:
+    """20d: the precompute over REF2_WORLD processes sharing the card, each
+    its own seed-0 7B (every model of this process freed first); rank 0's
+    parquet against phase 8's single-process rows. The parent samples the
+    card's used memory (all processes) while they run."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ref2_")
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(REF2_WORLD)}
+    free, total = torch.cuda.mem_get_info()
+    base_used = peak_used = total - free
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        # each worker writes to a file: a pipe nobody reads while they run
+        # would block a worker that prints more than its buffer holds
+        log_paths = [os.path.join(work, f"rank{r}.log") for r in range(REF2_WORLD)]
+        procs = []
+        for r, path in enumerate(log_paths):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--ref-logp-worker", work],
+                    env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                    stdout=out, stderr=subprocess.STDOUT))
+        try:
+            while any(p.poll() is None for p in procs):
+                peak_used = max(peak_used, total - torch.cuda.mem_get_info()[0])
+                if time.perf_counter() - t0 > REF2_TIMEOUT:
+                    raise AssertionError(f"20d: the workers ran past {REF2_TIMEOUT} s")
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        logs = [open(path).read() for path in log_paths]
+        for r, (p, out) in enumerate(zip(procs, logs)):
+            for line in out.splitlines():
+                if line.startswith("[20d"):
+                    log(line)
+            if p.returncode != 0:
+                raise AssertionError(f"20d: rank {r} exited {p.returncode}:\n{out[-4000:]}")
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(REF2_WORLD)]
+        for name in REF2_RUNS:
+            got, want = _ref2_rows(os.path.join(work, name)), ref_runs[name]
+            if len(got) != len(want):
+                raise AssertionError(f"20d: {name}: {len(got)} rows written, {len(want)} "
+                                     "expected")
+            rel, tmean, tmax = _seq_close(got, want, LOGP_RTOL)
+            n_equal = sum(a == b for a, b in zip(got, want))
+            secs = max(rk["runs"][name]["seconds"] for rk in ranks)
+            ok = rel <= LOGP_RTOL and tmean <= TOKEN_MEAN_TOL and n_equal == len(want)
+            for rk in ranks:
+                add_counts(launches, rk["runs"][name]["launches"])
+            log(f"[20d ref-logp world {REF2_WORLD}] {name}: {len(got)} pairs in {secs:.3f} s "
+                f"(the slower rank) = {len(got) / secs:.2f} pairs/s | against phase 8's one "
+                f"process: sums and means max rel {rel:.3e} (tol {LOGP_RTOL}) | per-token |d| "
+                f"mean {tmean:.3e} (tol {TOKEN_MEAN_TOL}) max {tmax:.3e} | rows bit-equal "
+                f"{n_equal} of {len(want)} | {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"20d: the {name} rows at world {REF2_WORLD} disagree")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[20d ref-logp world {REF2_WORLD}] {REF2_WORLD} worker processes on one card: wall "
+        f"{wall:.1f} s (start, build, warm-up, both runs) | peak device memory, all three "
+        f"processes {peak_used / 2 ** 30:.2f} GiB of {total / 2 ** 30:.1f} (this process "
+        f"alone {base_used / 2 ** 30:.2f}), each worker's allocator peak "
+        f"{max(rk['peak_gib'] for rk in ranks):.2f} GiB | launches {launches} | {smi}")
+    if peak_used >= 80e9:
+        raise AssertionError(f"20d: {peak_used / 1e9:.1f} GB used on the card")
+    if launches["flash"] < 2 * LlavaConfig.llava15_7b().llm.num_layers or \
+            launches["head_fwd"] < 1:
+        raise AssertionError(f"20d: a kernel of the precompute did not run: {launches}")
+    return launches
+
+
 def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7493,6 +8102,13 @@ def main() -> None:
     # decoding, LLaVA-1.6 anyres, the smoothed int4 D&C backend) on models of
     # its own beside phase 4's, which it reads and leaves unchanged
     add_counts(launches, timed("19 options", phase_options, gen, tok, image_bytes, smi))
+    # 20a-c: the JPEG loader, the device image pipeline on phase 4's tower,
+    # and phase 4's model exported and reloaded (left unchanged)
+    decoded = timed("20a native loader", phase_loader, image_bytes, smi)
+    timed("20b preprocess", phase_preprocess, model, decoded, smi)
+    del decoded
+    add_counts(launches, timed("20c export", phase_export, gen, tok, image_bytes,
+                               smi)["launches"])
     # 15 runs continuous batching on the bf16 model, then (15c) on 11's
     # int8-KV model and on 12's fused engine
     cont_launches, _ = timed("15b continuous", phase_continuous, gen, image_bytes, smi)
@@ -7540,7 +8156,8 @@ def main() -> None:
     # runs on the weights before any update: the DPO loss of this random
     # model saturates after one step at any lr that moves bf16 weights)
     model = build_model(LlavaConfig.llava15_7b(remat=True))
-    ref_logps, rl = timed("8 ref-logp", phase_ref_logp, model, tok, rows, cfg)
+    ref_runs = {}
+    ref_logps, rl = timed("8 ref-logp", phase_ref_logp, model, tok, rows, cfg, ref_runs)
     add_counts(launches, rl)
     train_pair = collate_train_pair(preference_items(rows, tok, cfg, ref_logps), tok, cfg)
     assert (train_pair["batch_np"]["input_ids"] == pair["batch_np"]["input_ids"]).all()
@@ -7566,11 +8183,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # 20d: phase 8's precompute again over two processes on this card
+    add_counts(launches, timed("20d ref-logp world 2", phase_ref_logp_two, ref_runs, smi))
+
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, "
-        f"MiniCPM-Llama3-V 2.5 18a-e, the serving options 19a-d, ref-logp 8, "
-        f"train 6, QLoRA 9, int4 QLoRA 10): {launches}")
+        f"MiniCPM-Llama3-V 2.5 18a-e, the serving options 19a-d, the reloaded export 20c, "
+        f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10, ref-logp at world 2 20d): "
+        f"{launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
     suffix, sfx12 = bwd["cases"]["train suffix"], bwd["cases"]["12B suffix"]
@@ -7838,5 +8459,7 @@ if __name__ == "__main__":
         profile_qlora(4 if "--int4" in sys.argv[1:] else 8)
     elif "--profile-omni-qlora" in sys.argv[1:]:
         profile_omni_qlora(4 if "--int4" in sys.argv[1:] else 8)
+    elif "--ref-logp-worker" in sys.argv[1:]:
+        ref_logp_worker(sys.argv[sys.argv.index("--ref-logp-worker") + 1])
     else:
         main()

@@ -1,4 +1,5 @@
-"""Step checkpoints for the trainer: params + optimizer state + step.
+"""Step checkpoints for the trainer: params + optimizer state + step
+(+ the model's class and config, which export reads).
 
 Counterpart of rlaifv_tpu/core/checkpoint.py with the same directory
 layout (one directory per step, named by the step number, under the

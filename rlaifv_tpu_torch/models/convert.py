@@ -105,6 +105,32 @@ def _quant_modules(tree: Mapping[str, Any], prefix: str = "") -> set:
     return out
 
 
+def _bridge(params: Mapping[str, Any]):
+    """(torch name, flax leaf, is a Dense/Conv kernel) for every leaf of a
+    flax param tree, in tree order; QuantDense leaves keep their layout."""
+    if set(params) == {"params", "lora"}:
+        params = params["params"]
+    quant = _quant_modules(params)
+    for path, val in _flatten(params):
+        module, _, leaf = path.rpartition(".")
+        if module in quant:  # QuantDense keeps the flax (in, out) layout
+            name = _torch_name(f"{module}.kernel")[:-len("weight")]
+            yield name + ("q" if leaf == "kernel" else leaf), val, False
+        else:
+            yield _torch_name(path), val, path.endswith(".kernel")
+
+
+def _bridged_tensor(val, kernel: bool) -> torch.Tensor:
+    arr = _np(val)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes; torch cannot wrap it
+        arr = arr.astype(np.float32)
+    if kernel:
+        if arr.ndim == 4:  # patch conv (kh, kw, in, out)
+            arr = arr.reshape(-1, arr.shape[-1])
+        arr = arr.T
+    return torch.from_numpy(np.array(arr, order="C"))
+
+
 def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax LLaVA param tree (arrays of any numpy-convertible type, or
     torch tensors, as `flax_tree` gives them) ->
@@ -114,26 +140,7 @@ def llava_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     its base (the adapters: `lora_from_jax`). A flax OmniLMMForCausalLM
     tree maps the same way onto the port's: the EVA02 blocks `block_{i}`
     -> `blocks.{i}`, the resampler's raw (D, D) `proj` kept as it is."""
-    if set(params) == {"params", "lora"}:
-        params = params["params"]
-    quant = _quant_modules(params)
-    sd = {}
-    for path, val in _flatten(params):
-        arr = _np(val)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes; torch cannot wrap it
-            arr = arr.astype(np.float32)
-        module, _, leaf = path.rpartition(".")
-        if module in quant:  # QuantDense keeps the flax (in, out) layout
-            name = _torch_name(f"{module}.kernel")[:-len("weight")]
-            sd[name + ("q" if leaf == "kernel" else leaf)] = torch.from_numpy(
-                np.array(arr, order="C"))
-            continue
-        if path.endswith(".kernel"):
-            if arr.ndim == 4:  # patch conv (kh, kw, in, out)
-                arr = arr.reshape(-1, arr.shape[-1])
-            arr = arr.T
-        sd[_torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))
-    return sd
+    return {name: _bridged_tensor(val, kernel) for name, val, kernel in _bridge(params)}
 
 
 def llama_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -460,19 +467,21 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     tree into an OmniLMMForCausalLM, a flax MiniCPM-V tree (vpm/,
     resampler/, llm/) into a MiniCPMVForCausalLM, or a bare flax Llama tree
     into a LlamaForCausalLM (strict: every name must match), converting to
-    each parameter's dtype and device."""
-    sd = llava_params_from_jax(params)
+    each parameter's dtype and device one tensor at a time (a 7B tree needs
+    no second host copy)."""
+    leaves = {name: (val, kernel) for name, val, kernel in _bridge(params)}
     own = model.state_dict()
-    missing = sorted(set(own) - set(sd))
-    unexpected = sorted(set(sd) - set(own))
+    missing = sorted(set(own) - set(leaves))
+    unexpected = sorted(set(leaves) - set(own))
     if missing or unexpected:
         raise KeyError(f"param bridge mismatch: missing {missing[:5]}, "
                        f"unexpected {unexpected[:5]}")
     with torch.no_grad():
         for name, t in own.items():
-            if tuple(sd[name].shape) != tuple(t.shape):
-                raise ValueError(f"{name}: {tuple(sd[name].shape)} != {tuple(t.shape)}")
-            t.copy_(sd[name].to(dtype=t.dtype))
+            src = _bridged_tensor(*leaves[name])
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: {tuple(src.shape)} != {tuple(t.shape)}")
+            t.copy_(src.to(dtype=t.dtype))
     return model
 
 

@@ -13,7 +13,11 @@ the base through `quantize_base`), then follows
 train.py: when the dataset directory holds no `*logp*.parquet`, the frozen
 starting policy scores its raw parquet rows first (train/ref_logp.py, with
 the train step's head), and DPO trains against those reference logps
-through the family's adapter.
+through the family's adapter. Under torchrun (`torchrun --nproc-per-node 2
+-m rlaifv_tpu_torch.train ...`) the precompute shards its rows over the
+processes (core/distributed.py) and process 0 writes the parquet; the
+trainer itself then raises until parallel/sharding.py is ported (ROADMAP.md
+'Modules to port' #11).
 
 `training.use_lora` trains LoRA adapters (train/lora.py, seeded from
 `training.seed`) on the LLM's projections over the frozen model;
@@ -266,6 +270,13 @@ def main(argv=None):
                     help="run on the card (default) or, when asked, the CPU")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    from rlaifv_tpu_torch.core import distributed
+
+    # under torchrun: the gloo group the ref-logp precompute gathers over
+    distributed.initialize()
+    if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+        # one card a local rank where there are several; all share one where not
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
 
     from rlaifv_tpu_torch.core.config import Config
 

@@ -8,9 +8,9 @@ the prompt prefix prefills once a pair and only the two answers run
 again); results go out in the reference's chunked-parquet contract
 (data/datasets.py `write_logp_parquet`), which is also the restart
 checkpoint. Each row gets [win_logp, win_avg, win_per_token, rej_logp,
-rej_avg, rej_per_token]. Rows are sharded by process as in the JAX package;
-the gather across processes waits for `core/distributed.py`, ROADMAP.md
-'Modules to port' #11, so more than one process raises.
+rej_avg, rej_per_token]. Rows are sharded by process as in the JAX package
+(contiguous shards, `shard_indices`); the shards' rows are gathered over
+core/distributed.py's gloo group and process 0 writes the parquet.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from rlaifv_tpu_torch.constants import IGNORE_INDEX
+from rlaifv_tpu_torch.core import distributed as dist
 from rlaifv_tpu_torch.data.collator import DPOCollator
 from rlaifv_tpu_torch.data.datasets import shard_indices, write_logp_parquet
 from rlaifv_tpu_torch.data.preprocess import encode_preference_sample, preprocess_v1
@@ -301,19 +302,20 @@ def inference_logp(
 
     shared_prefix=True (the default): each pair's prompt prefix prefills
     once and only the two answer suffixes run again, the same values for a
-    fraction of the work."""
-    import torch.distributed as dist
-
-    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-    if world > 1:
-        raise NotImplementedError(
-            "the reference-logp precompute over more than one process needs the "
-            "cross-process gather, which is not ported to rlaifv_tpu_torch yet: "
-            "ROADMAP.md 'Modules to port' #11 (core/distributed.py)")
-    local = shard_indices(len(rows), world, 0)
+    fraction of the work. Over several processes (core/distributed.py) each
+    scores its contiguous shard of the rows, the shards are gathered in
+    rank order, process 0 writes the parquet, and every process waits for
+    it at a barrier."""
+    world, rank = dist.process_count(), dist.process_index()
+    local = shard_indices(len(rows), world, rank)
     logps = score_preference_rows(
         [rows[i] for i in local], model, tokenizer, max_len=max_len,
         num_patches=num_patches, batch_pairs=batch_pairs,
         image_processor=image_processor, lm_head_impl=lm_head_impl,
         compact_len=compact_len, shared_prefix=shared_prefix, family=family)
-    write_logp_parquet(rows, out_dir, logps)
+    if world > 1:
+        # ragged per-token lists: the pickled-object gather
+        logps = [x for shard in dist.all_gather_objects(logps) for x in shard]
+    if rank == 0:
+        write_logp_parquet(rows, out_dir, logps)
+    dist.barrier("ref-logp written")

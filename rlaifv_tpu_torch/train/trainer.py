@@ -9,7 +9,10 @@ overflow check, and checkpoint save and auto-resume. The model trains in
 place; with a LoRA adapter tree (the JAX trainer's `base_params` mode) the
 adapters train and the model is the frozen base, and a checkpoint holds the
 adapters and their optimizer state, not the base. The mesh fields of the
-config are not read (one card, no mesh).
+config are not read (one card, no mesh): more than one process raises
+NotImplementedError until the sharding is ported (ROADMAP.md 'Modules to
+port' #11, parallel/sharding.py), where it would train an unsynchronised
+replica in each.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from rlaifv_tpu_torch.utils.prefetch import prefetch_iterator
+from rlaifv_tpu_torch.core import distributed as dist
 from rlaifv_tpu_torch.core.checkpoint import CheckpointManager, has_resumable_checkpoint
 from rlaifv_tpu_torch.core.config import Config
 from rlaifv_tpu_torch.train.train_step import (
@@ -155,8 +159,13 @@ class DPOTrainer:
         return self.model.state_dict()
 
     def _state_tree(self) -> Dict:
+        # the model's class and config travel with its weights, so that an
+        # export rebuilds the model the run trained (python -m
+        # rlaifv_tpu_torch.export)
         return {"step": self.step, "params": self._train_tensors(),
-                "opt_state": self.optimizer.state_dict()}
+                "opt_state": self.optimizer.state_dict(),
+                "model": {"class": type(self.model).__name__,
+                          "config": dataclasses.asdict(self.model.cfg)}}
 
     def _batches(self, seed: int) -> Iterator:
         n_pairs = self.config.training.per_device_batch_pairs
@@ -221,6 +230,22 @@ class DPOTrainer:
     def train(self) -> int:
         """Run to max_steps optimizer updates; returns the micro-step count."""
         t = self.config.training
+        # multi-process debug guard (RLAIFV_DISTRIBUTED_DEBUG=1): divergent
+        # host-side config/seed silently corrupts data-parallel training
+        dist.assert_consistent(
+            {"seed": t.seed, "max_steps": t.max_steps,
+             "lr": t.learning_rate, "beta": t.dpo_beta,
+             "accum": self.grad_accum},
+            "training-config",
+        )
+        if dist.process_count() > 1:
+            raise NotImplementedError(
+                f"DPOTrainer over {dist.process_count()} processes needs the FSDP/TP "
+                "sharding of the JAX trainer's mesh, which is not ported to "
+                "rlaifv_tpu_torch yet: ROADMAP.md 'Modules to port' #11 "
+                "(parallel/sharding.py). Each process would train an unsynchronised "
+                "replica; run the trainer as one process (the reference-logp "
+                "precompute does run over several)")
         batches = prefetch_iterator(self._batches(t.seed), depth=2)
         step = self.start_step
         t0 = time.time()

@@ -8,7 +8,10 @@ loader and `fuse_llm_projections` of `models/convert`,
 tree helpers of `train/lora` and the KV-cache quantiser of
 `ops/decode_attention`, `pairs/{construction,preference,
 length_filter}`, `data/minicpmv_slicing` and the numpy merge of
-`models/anyres` (it imports nothing of rlaifv_tpu). Each case
+`models/anyres`, `core/registry`, `data/tsv_data`, the StepTimer of
+`utils/profiling`, the numpy resampling weights of `ops/image_kernels`, the
+numpy functions of `models/export` and the C++ source of the JPEG loader
+(it imports nothing of rlaifv_tpu). Each case
 runs one piece of both packages and compares the results exactly: the
 copies are the same numpy code.
 """
@@ -420,6 +423,159 @@ def case_anyres(pkg):
     return out
 
 
+def case_registry(pkg):
+    """core/registry.py: registration, lookup, membership and both KeyErrors."""
+    reg = pkg("core.registry")
+    r = reg.Registry("test")
+    r.register("a")(len)
+    r.register()(sorted)
+    out = {"keys": sorted(r.keys()), "a": r["a"] is len, "in": ("sorted" in r, "b" in r),
+           "globals": (reg.data_sources.name, reg.models.name)}
+    for fn in (lambda: r["missing"], lambda: r.register("a")(len)):
+        with pytest.raises(KeyError) as err:
+            fn()
+        out.setdefault("errors", []).append(str(err.value))
+    return out
+
+
+def case_tsv_data(pkg, tmp_path):
+    """data/tsv_data.py: TSVFile (its .lineidx), size-suffixed shards, the
+    weighted interleave and the chunked shuffle."""
+    tsv = pkg("data.tsv_data")
+    d = tmp_path / pkg.__name__
+    d.mkdir()
+    paths = []
+    for name, n in (("a", 7), ("b", 3), ("c", 5)):
+        paths.append(str(d / f"{name}.tsv"))
+        with open(paths[-1], "w") as f:
+            f.writelines(f"{name}{i}\tx{i}\t\n" for i in range(n))
+    t = tsv.TSVFile(paths[0])
+    one = tsv.SingleDataSourceDataset("ab", paths[0], paths[1])
+    multi = tsv.MultiDataSourceDataset([one, tsv.SingleDataSourceDataset("c", paths[2])],
+                                       [3, 2])
+    return {"len": len(t), "rows": [t[i] for i in (3, 0, 6)],
+            "lineidx": open(str(d / "a.lineidx")).read(),
+            "single": [len(one), one.borders, [one[i] for i in range(len(one))]],
+            "multi": [len(multi), multi.pattern, [multi[i] for i in range(len(multi))]],
+            "chunked": [tsv.chunked_random_indices(n, chunk_size=c, seed=s)
+                        for n, c, s in ((25, 10, 0), (7, 100, 3), (0, 4, 1))]}
+
+
+def case_step_timer(pkg):
+    """utils/profiling.py's StepTimer on a scripted clock."""
+    prof = pkg("utils.profiling")
+    ticks = iter([1.0, 1.5, 2.5, 2.75, 4.0])
+
+    class Clock:
+        perf_counter = staticmethod(lambda: next(ticks))
+
+    real, prof.time = prof.time, Clock
+    try:
+        t = prof.StepTimer(ema=0.8)
+        out = [(t.tick(), t.avg_seconds, t.throughput(4)) for _ in range(5)]
+    finally:
+        prof.time = real
+    return out
+
+
+def case_image_resize_weights(pkg):
+    """ops/image_kernels.py's numpy: PIL's bicubic kernel and the (dst, src)
+    resampling matrices, up- and down-sampling."""
+    ik = pkg("ops.image_kernels")
+    x = np.linspace(-3, 3, 61)
+    return {"bicubic": [ik._bicubic(x), ik._bicubic(x, a=-0.75)],
+            "weights": [ik.pil_resize_weights(src, dst) for src, dst in
+                        ((448, 336), (336, 336), (100, 336), (1344, 336), (640, 336),
+                         (7, 5), (5, 7))]}
+
+
+def _llava_tree(rng, L=2, D=16, I=24, V=40, VD=12, VI=20, VL=2, P=2, S=4):
+    """A JAX-layout LLaVA param tree of random fp32 arrays (flax names,
+    kernels (in, out), the patch conv HWIO)."""
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    llm = {"model": {"tok_embed": {"embedding": f(V, D)}, "ln_f": {"scale": f(D)}},
+           "lm_head": {"kernel": f(D, V)}}
+    for i in range(L):
+        llm["model"][f"layer_{i}"] = {
+            "attn": {n: {"kernel": f(D, D)} for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {"gate_proj": {"kernel": f(D, I)}, "up_proj": {"kernel": f(D, I)},
+                    "down_proj": {"kernel": f(I, D)}},
+            "ln_attn": {"scale": f(D)}, "ln_mlp": {"scale": f(D)}}
+    vis = {"cls_token": f(VD), "patch_embed": {"kernel": f(P, P, 3, VD)},
+           "pos_embed": f(S * S + 1, VD), "pre_ln": {"scale": f(VD), "bias": f(VD)}}
+    for i in range(VL):
+        vis[f"layer_{i}"] = {
+            "attn": {n: {"kernel": f(VD, VD), "bias": f(VD)}
+                     for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "ln1": {"scale": f(VD), "bias": f(VD)}, "ln2": {"scale": f(VD), "bias": f(VD)},
+            "fc1": {"kernel": f(VD, VI), "bias": f(VI)}, "fc2": {"kernel": f(VI, VD),
+                                                             "bias": f(VD)}}
+    proj = {"fc0": {"kernel": f(VD, D), "bias": f(D)}, "fc1": {"kernel": f(D, D), "bias": f(D)}}
+    return {"llm": llm, "vision_tower": vis, "mm_projector": proj}
+
+
+def _read_dir(path):
+    import json
+
+    import torch
+
+    out = {}
+    for name in sorted(os.listdir(path)):
+        full = os.path.join(path, name)
+        if name.endswith(".json"):
+            out[name] = json.load(open(full))
+        else:
+            out[name] = {k: v.numpy() for k, v in
+                         torch.load(full, map_location="cpu", weights_only=True).items()}
+    return out
+
+
+def case_export(pkg, tmp_path):
+    """models/export.py's numpy functions: the state dicts at fp32 and fp16,
+    int8 dequantisation, unfuse after fuse (float and int8), the
+    synthesized config, and the files export_llava_hf and export_peft_lora
+    write (with a base dir: its extra tensors, config and tokenizer file)."""
+    ex = pkg("models.export")
+    conv = pkg("models.convert")
+    cfg = pkg("models.llava").LlavaConfig.tiny()
+    rng = np.random.default_rng(11)
+    params = _llava_tree(rng)
+    from types import SimpleNamespace
+
+    from rlaifv_tpu_torch.models.convert import _quantize_llm_tree
+
+    qllm = _quantize_llm_tree(params["llm"], "int8")  # the same input for both
+    llm_cfg = SimpleNamespace(num_heads=2, num_kv_heads=2, head_size=8)
+    out = {"sd32": ex.export_llava_sd(params, dtype=np.float32),
+           "sd16": ex.export_llava_sd(params),
+           "int8": ex.export_llama_sd(qllm, dtype=np.float32),
+           "kernel8": ex._kernel(qllm["model"]["layer_0"]["mlp"]["up_proj"]),
+           "unfuse": ex.unfuse_llm_projections(conv.fuse_llm_projections(params["llm"]),
+                                               llm_cfg),
+           "unfuse8": ex.unfuse_llm_projections(conv.fuse_llm_projections(qllm), llm_cfg),
+           "config": ex._hf_config_from_llava(cfg)}
+    d = tmp_path / pkg.__name__
+    base = str(d / "base")
+    ex.export_llava_hf(params, base, cfg=cfg, dtype=np.float32)
+    with open(os.path.join(base, "tokenizer_config.json"), "w") as f:
+        f.write("{}")
+    sd = _read_dir(base)["pytorch_model.bin"]
+    sd["model.image_newline"] = rng.normal(size=16).astype(np.float32)
+    import torch
+
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               os.path.join(base, "pytorch_model.bin"))
+    out["hf"] = _read_dir(ex.export_llava_hf(params, str(d / "hf"), base_dir=base))
+    lora = {"llm": {"model": {f"layer_{i}": {blk: {n: {"a": rng.normal(size=(16, 4)).astype(
+        np.float32), "b": rng.normal(size=(4, 16)).astype(np.float32)} for n in names}
+        for blk, names in (("attn", ("q_proj", "v_proj")), ("mlp", ("up_proj",)))}
+        for i in range(2)}}}
+    out["peft"] = _read_dir(ex.export_peft_lora(
+        lora, str(d / "peft"), alpha=8.0, base_model_name="base",
+        non_lora_params={"mm_projector": params["mm_projector"]}))
+    return out
+
+
 CASES = {name[5:]: fn for name, fn in dict(globals()).items() if name.startswith("case_")}
 
 
@@ -482,3 +638,9 @@ def test_the_data_layer_the_scripts_import_is_the_ports_own():
 
     for cls in (data.DPOCollator, data.ClipImageProcessor):
         assert cls.__module__.startswith("rlaifv_tpu_torch.data."), cls.__module__
+
+
+def test_jpeg_loader_source_is_a_byte_copy():
+    """The port builds its JPEG loader from its own copy of the C++ source."""
+    port = (ROOT / "rlaifv_tpu_torch" / "native" / "image_loader.cpp").read_bytes()
+    assert port == (ROOT / "rlaifv_tpu" / "native" / "image_loader.cpp").read_bytes()

@@ -15,7 +15,8 @@ then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
 divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.train --demo
---device cpu` for 2 steps into a temporary directory, imports
+--device cpu` for 2 steps into a temporary directory and `python -m
+rlaifv_tpu_torch.export` on its checkpoint, imports
 chip_smoke.py, and checks that no CUDA kernel library was built or loaded.
 An AST scan finds no import statement rooted at those names in any file of
 the port, of tools/ or in chip_smoke.py.
@@ -58,7 +59,9 @@ SCRIPT = textwrap.dedent("""
                  "chat", "models.eva02", "models.resampler", "models.omnilmm",
                  "genai.omni_gen", "models.siglip", "models.minicpmv", "genai.minicpmv_gen",
                  "data.minicpmv_slicing", "models.quant_smooth", "genai.lookup_decode",
-                 "models.anyres"):
+                 "models.anyres", "core.registry", "core.distributed", "data.tsv_data",
+                 "data.native_loader", "ops.image_kernels", "models.export", "export",
+                 "utils.profiling"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -185,6 +188,14 @@ SCRIPT = textwrap.dedent("""
     steps = [json.loads(line)["step"] for line in open(os.path.join(out, "metrics.jsonl"))]
     assert steps == [1, 2], steps
     assert os.listdir(os.path.join(out, "checkpoints")) == ["2"]
+    # and its export, as `python -m rlaifv_tpu_torch.export`
+    from rlaifv_tpu_torch.core.config import Config
+    with open(os.path.join(out, "cfg.json"), "w") as f:
+        json.dump(Config().to_dict(), f)
+    sys.argv = ["rlaifv_tpu_torch.export", "--config", os.path.join(out, "cfg.json"),
+                "--train-dir", out, "--out", os.path.join(out, "hf")]
+    runpy.run_module("rlaifv_tpu_torch.export", run_name="__main__")
+    assert sorted(os.listdir(os.path.join(out, "hf"))) == ["config.json", "pytorch_model.bin"]
 
     import chip_smoke  # noqa: F401  (its main() needs a card; the import does not)
 

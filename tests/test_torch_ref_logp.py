@@ -144,8 +144,10 @@ def _mm_cfg(setup):
 
 
 def test_inference_logp_writes_the_jax_parquet_layout(setup, tmp_path, monkeypatch):
-    """Same files, columns and rows as the JAX writer; more than one
-    process raises naming ROADMAP #11."""
+    """Same files, columns and rows as the JAX writer. Over two processes
+    (the collectives stubbed here; tests/test_torch_distributed.py runs two
+    real ones) rank 1 scores its shard and writes nothing, and rank 0 writes
+    the gathered rows as one process does."""
     import json
 
     import pandas as pd
@@ -165,9 +167,25 @@ def test_inference_logp_writes_the_jax_parquet_layout(setup, tmp_path, monkeypat
     for a, b in zip(t["logps"], j["logps"]):
         _close_rows([json.loads(a)["logps"]], [json.loads(b)["logps"]], SUM_ATOL, TOK_ATOL)
 
-    import torch.distributed as dist
+    from rlaifv_tpu_torch.core import distributed as dist
 
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="#11"):
-        tref.inference_logp(setup["rows"], setup["model"], tok, str(tmp_path / "w"))
+    kw = {k: v for k, v in setup["kw"].items() if k != "progress"}
+    shards = {}
+    monkeypatch.setattr(dist, "process_count", lambda: 2)
+    monkeypatch.setattr(dist, "barrier", lambda name="": None)
+    for rank in (1, 0):  # rank 1 first: rank 0's gather returns both shards
+
+        def gather(obj, rank=rank):
+            shards[rank] = obj
+            return [shards.get(0, obj), shards[1]]  # rank 1 writes nothing
+
+        monkeypatch.setattr(dist, "process_index", lambda rank=rank: rank)
+        monkeypatch.setattr(dist, "all_gather_objects", gather)
+        tref.inference_logp(setup["rows"], setup["model"], tok, str(tmp_path / f"w{rank}"),
+                            **kw)
+    assert not (tmp_path / "w1").exists()
+    assert [len(shards[r]) for r in (0, 1)] == [3, 2]  # shard_indices(5, 2, r)
+    w = pd.read_parquet(tmp_path / "w0" / names[0])
+    assert w.drop(columns="logps").equals(t.drop(columns="logps"))
+    for a, b in zip(w["logps"], t["logps"]):
+        _close_rows([json.loads(a)["logps"]], [json.loads(b)["logps"]], SUM_ATOL, TOK_ATOL)
