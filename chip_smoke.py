@@ -407,12 +407,37 @@ Phases, one progress line each (or a few):
      row against phase 8's single-process results within its bounds and
      bit for bit (each shard's batches hold the same pairs as phase 8's);
      the three processes' peak device memory, wall seconds and pairs/s.
+  21. (after 20d, every model freed) the mesh slice (parallel/sharding.py):
+     21a: phase 8's seed-0 7B rebuilt, wrapped through create_mesh(1,
+     None, 1) on a one-process group with NCCL axis groups and
+     shard_params (FSDP2 units a block, the root for the rest), then
+     phase 6's four steps on phase 6's pair through the sharded step:
+     every step's loss, logps and grad norm and the fingerprint of every
+     parameter after the last (an exact integer checksum of its bits) equal
+     phase 6's bit for bit, the launches of #1-#3 and the head kernels
+     equal phase 6's; s a step and peak GiB beside phase 6's. 21b:
+     DPOTrainer with that mesh passed in, in configs/llava15_dpo_lora.json's
+     mode (bf16 base sharded, r 64 adapters whole), two steps on phase 8's
+     rows and their reference logps, a checkpoint; its state.pt reloaded:
+     the adapters equal the trained ones bit for bit. 21c: world 2 on the
+     one card (two subprocesses, as 20d's, the mesh's groups gloo over CUDA
+     tensors: NCCL refuses two ranks on one device): the seed-0 7B at full
+     width cut to 8 layers, sharded at (1, 2, 1), a global batch of the
+     first two rows' pairs (one a rank), one step; against a one-process
+     reference in this process (the same cut model unsharded, each pair a
+     micro-batch at the shape its rank runs, the gradients summed): both
+     ranks' loss and logps (the global means) within the CPU tests' metric
+     tolerance (atol 1e-5 + rtol 1e-6), their grad norm (after the gloo
+     reduce-scatter) within 1e-3 relative; the two pairs' logps must
+     differ by far more than that tolerance.
+     Phase 3b holds #1-#3 at the train suffix with 16 and 8 local heads
+     (tp 2 and 4) too.
 
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
 runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 19a-d's
-runs, 20c's reloaded model, 20d's workers, 8, 6,
+runs, 20c's reloaded model, 20d's workers, 21a-c's runs, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -590,7 +615,8 @@ from rlaifv_tpu_torch.train.__main__ import (  # noqa: E402
 )
 from rlaifv_tpu_torch.train.family import get_family  # noqa: E402
 from rlaifv_tpu_torch.train.ref_logp import _encode_rows, score_preference_rows  # noqa: E402
-from rlaifv_tpu_torch.train.trainer import resolve_head  # noqa: E402
+from rlaifv_tpu_torch.train.trainer import DPOTrainer, resolve_head  # noqa: E402
+from rlaifv_tpu_torch.parallel import sharding  # noqa: E402
 from rlaifv_tpu_torch.ops.flash_attention import (  # noqa: E402
     _kernel_bwd_dkv,
     _kernel_bwd_dq,
@@ -1318,7 +1344,10 @@ def _bwd_cases(pair: dict, omni: dict = None) -> list:
         dict(name="paired suffix", Lq=1408, KVH=32, off=640, mask=suf),
         dict(name="ragged", Lq=901, KVH=32, off=0, mask=ones(1, 901)),
     ] + _pair_cases("train", pair, KVH=32) + \
-        (_pair_cases("12B", omni, KVH=8) if omni else [])
+        (_pair_cases("12B", omni, KVH=8) if omni else []) + \
+        [dict(c, name=f"{c['name']} tp{32 // h}", H=h, KVH=h)
+         for c in _pair_cases("train", pair, KVH=32) if c["name"] == "train suffix"
+         for h in (16, 8)]
 
 
 def _pair_cases(name: str, pair: dict, KVH: int) -> list:
@@ -1335,18 +1364,21 @@ def _pair_cases(name: str, pair: dict, KVH: int) -> list:
 
 def phase_backward(g, pair: dict, variants, omni: dict) -> dict:
     """3b: the forward kernel and the two backward kernels against their
-    plain versions at the train step's shapes (causal, H = 32, D = 128) and
-    at phase 17's 12B pair (KVH 8); #3's and #2's planted faults on the GQA
-    case."""
-    H, D = 32, 128
+    plain versions at the train step's shapes (causal, H = 32, D = 128), at
+    phase 17's 12B pair (KVH 8) and at the train suffix's tensor-parallel
+    shards (16 and 8 local heads, phase 21's tp 2 and 4); #3's and #2's
+    planted faults on the GQA case."""
+    D = 128
     res = {"fwd_err": 0.0, "dq_err": 0.0, "dkv_err": 0.0, "cases": {}}
-    # the 12B pair's cases draw from a generator of their own: the phases
-    # after 3b keep the inputs they had before those cases were added
+    # the 12B pair's and the tp shards' cases draw from generators of their
+    # own: the phases after 3b keep the inputs they had before those cases
+    # were added
     g12 = torch.Generator(device="cuda").manual_seed(12)
+    gtp = torch.Generator(device="cuda").manual_seed(21)
     for c in _bwd_cases(pair, omni):
-        mask, Lq, KVH, off = c["mask"], c["Lq"], c["KVH"], c["off"]
+        mask, Lq, KVH, off, H = c["mask"], c["Lq"], c["KVH"], c["off"], c.get("H", 32)
         B, Lk = mask.shape
-        cg = g12 if c["name"].startswith("12B") else g
+        cg = g12 if c["name"].startswith("12B") else gtp if "tp" in c["name"] else g
         q, k, v = _randn(cg, B, Lq, H, D), _randn(cg, B, Lk, KVH, D), _randn(cg, B, Lk, KVH, D)
         out, lse = flash_attention(q, k, v, attention_mask=mask, q_offset=off,
                                    return_lse=True)
@@ -1395,7 +1427,8 @@ def phase_backward(g, pair: dict, variants, omni: dict) -> dict:
         res["cases"][c["name"]] = dict(fwd_ms=t_fwd, dq_ms=t_dq, dkv_ms=t_dkv,
                                        plain_ms=t_plain)
         # the longest, the 7B and the 12B train steps' largest
-        if c["name"] in ("plain dpo", "train suffix", "12B suffix"):
+        if c["name"] in ("plain dpo", "train suffix", "12B suffix", "train suffix tp2",
+                         "train suffix tp4"):
             # KV heads repeated to H beforehand (GQA), as flash_library does
             ql, kl, vl = (t.detach().repeat_interleave(H // t.shape[2], dim=2)
                           .requires_grad_(True) for t in (q, k, v))
@@ -3657,6 +3690,14 @@ def preference_items(rows: list, tok, cfg: LlavaConfig, logps=None) -> list:
     return items
 
 
+def train_collator(tok, cfg: LlavaConfig, beta: float) -> DPOCollator:
+    """train.py's collator at max_len 2048 (DPOCollator's default bucket:
+    the batch pads to the next multiple of 256 tokens)."""
+    return DPOCollator(pad_token_id=tok.pad_token_id, max_len=2048,
+                       num_patches=cfg.num_image_tokens, beta=beta,
+                       **get_family("llava15").collator_kwargs(tok))
+
+
 def collate_train_pair(items: list, tok, cfg: LlavaConfig) -> dict:
     """6, data: configs/llava15_dpo.json's training settings (one pair a
     step, max_len 2048, shared_prefix_len -1, lm_head_impl "auto"); the
@@ -3666,10 +3707,7 @@ def collate_train_pair(items: list, tok, cfg: LlavaConfig) -> dict:
     t = Config.from_json(str(ROOT / "configs" / "llava15_dpo.json")).training
     assert t.shared_prefix_len == -1 and t.per_device_batch_pairs == 1
     assert getattr(t, "lm_head_impl", "auto") == "auto"
-    collator = DPOCollator(pad_token_id=tok.pad_token_id, max_len=2048,
-                           num_patches=cfg.num_image_tokens, beta=t.dpo_beta,
-                           **get_family("llava15").collator_kwargs(tok))
-    batch_np = collator(items[:1])
+    batch_np = train_collator(tok, cfg, t.dpo_beta)(items[:1])
     P = derive_shared_prefix_len(batch_np, cfg.num_image_tokens)
     validate_shared_prefix(batch_np, P, cfg.num_image_tokens)
     return dict(batch_np=batch_np, P=P, training=t)
@@ -3772,7 +3810,7 @@ def phase_ref_logp(model, tok, rows: list, cfg: LlavaConfig, keep: dict = None) 
     return runs["shared"], launches
 
 
-def build_train(pair: dict, model, device: str = "cuda") -> dict:
+def build_train(pair: dict, model, device: str = "cuda", tag: str = "6 train") -> dict:
     """6, set-up: the step's hyperparameters and the collated pair with the
     reference logps phase 8 wrote for it."""
     cfg = model.cfg
@@ -3788,7 +3826,7 @@ def build_train(pair: dict, model, device: str = "cuda") -> dict:
     # the paired path's rows: the prefix once, each suffix padded to W
     tokens = P + 2 * (L - P)
     real = P + int(batch_np["attention_mask"][:, P:].sum())
-    log(f"[6 train] LLaVA-1.5 bf16 full fine-tune, remat on | "
+    log(f"[{tag}] LLaVA-1.5 bf16 full fine-tune, remat on | "
         f"one pair padded to L={L} (bucket 256), derived P={P} (array "
         f"{-(-P // 128) * 128}), W={L - P}: {tokens} tokens a step, {real} of them "
         f"not padding | head {hp.lm_head_impl} (\"auto\" at hidden "
@@ -3799,16 +3837,30 @@ def build_train(pair: dict, model, device: str = "cuda") -> dict:
                 real_tokens=real, training=t)
 
 
-def phase_train(tr: dict) -> dict:
-    """6: four AdamW steps of the full fine-tune on the pair."""
-    model, t = tr["model"], tr["training"]
-    optimizer = make_optimizer(model, TRAIN_LR, total_steps=t.max_steps,
-                               warmup_ratio=0.0, weight_decay=t.weight_decay,
-                               max_grad_norm=t.max_grad_norm, schedule="constant")
-    step = make_dpo_train_step(tr["adapter"], optimizer, tr["hp"])
-    n_layers = model.cfg.llm.num_layers
-    losses, times, launches = [], [], {}
-    for i in range(4):
+def param_fingerprint(model) -> str:
+    """An exact fingerprint of every parameter's bits: per parameter (whole,
+    gathered from its shards on a sharded model) the sum and the
+    position-weighted sum of its 16- or 32-bit words in int64 (wrapping),
+    taken on the card, hashed in parameter order."""
+    import hashlib
+
+    plan = sharding.mesh_plan(model)
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        t = (plan.full_tensor(name, p) if plan else p).detach().contiguous()
+        w = t.view(torch.int16 if t.element_size() == 2 else torch.int32).flatten().long()
+        pos = torch.arange(1, w.numel() + 1, device=w.device)
+        h.update(f"{name}:{int(w.sum())}:{int((w * pos).sum())};".encode())
+        del w, pos
+    return h.hexdigest()
+
+
+def train_steps(tr: dict, step, tag: str, n_steps: int = 4) -> dict:
+    """`n_steps` steps of `step` on tr's batch: each step's loss, logps,
+    grad norm, seconds and launches, the peak memory after step 0."""
+    n_layers = tr["model"].cfg.llm.num_layers
+    rec = dict(losses=[], logps=[], gnorms=[], times=[], counts=[])
+    for i in range(n_steps):
         if i == 1:
             torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -3816,26 +3868,48 @@ def phase_train(tr: dict) -> dict:
         metrics = step(tr["batch"])
         loss = float(metrics["loss"])
         gnorm = float(metrics["grad_norm"])
-        times.append(time.perf_counter() - ts)
+        rec["times"].append(time.perf_counter() - ts)
         n = read_counts()
-        add_counts(launches, n)
-        losses.append(loss)
-        log(f"[6 train] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
-            f"{times[-1]:.3f} s | flash launches fwd {n['flash']} bwd dq {n['dq']} "
+        rec["counts"].append(n)
+        rec["losses"].append(loss)
+        rec["gnorms"].append(gnorm)
+        rec["logps"].append((float(metrics["logps_train/chosen"]),
+                             float(metrics["logps_train/rejected"])))
+        log(f"[{tag}] step {i}: loss {loss:.6e} grad_norm {gnorm:.4e} | "
+            f"{rec['times'][-1]:.3f} s | flash launches fwd {n['flash']} bwd dq {n['dq']} "
             f"dk/dv {n['dkv']} | fused head fwd {n['head_fwd']} dl {n['head_dl']} "
-            f"dx {n['head_dx']} dW {n['head_dw']}" + (f" | policy logps {float(metrics['logps_train/chosen']):.3f}"
-                                     f"/{float(metrics['logps_train/rejected']):.3f}"
-                                     if i == 0 else ""))
+            f"dx {n['head_dx']} dW {n['head_dw']}" + (f" | policy logps {rec['logps'][0][0]:.3f}"
+                                     f"/{rec['logps'][0][1]:.3f}" if i == 0 else ""))
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
-            raise AssertionError(f"non-finite loss or grad norm at step {i}")
+            raise AssertionError(f"{tag}: non-finite loss or grad norm at step {i}")
         if min(n["flash"], n["dq"], n["dkv"]) < n_layers or \
                 min(n["head_fwd"], n["head_dl"], n["head_dx"], n["head_dw"]) < 1:
-            raise AssertionError(f"a kernel of the train path did not run: {n}")
-        if i == 0 and (abs(loss - math.log(2)) > REF_LN2_TOL or not gnorm > 0):
-            raise AssertionError(f"step 0: loss {loss} not within {REF_LN2_TOL} of ln 2 "
-                                 f"(policy == reference) or grad norm {gnorm} not above 0")
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_s = statistics.mean(times[1:])
+            raise AssertionError(f"{tag}: a kernel of the train path did not run: {n}")
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec["step_s"] = statistics.mean(rec["times"][1:]) if n_steps > 1 else rec["times"][0]
+    return rec
+
+
+def phase_train(tr: dict) -> dict:
+    """6: four AdamW steps of the full fine-tune on the pair; -> the launches
+    and the record 21a holds its sharded steps to (each step's loss, logps,
+    grad norm and launches, the parameters' fingerprint after the fourth)."""
+    model, t = tr["model"], tr["training"]
+    optimizer = make_optimizer(model, TRAIN_LR, total_steps=t.max_steps,
+                               warmup_ratio=0.0, weight_decay=t.weight_decay,
+                               max_grad_norm=t.max_grad_norm, schedule="constant")
+    step = make_dpo_train_step(tr["adapter"], optimizer, tr["hp"])
+    rec = train_steps(tr, step, "6 train")
+    launches = {}
+    for n in rec["counts"]:
+        add_counts(launches, n)
+    losses, gnorm = rec["losses"], rec["gnorms"][0]
+    if abs(losses[0] - math.log(2)) > REF_LN2_TOL or not gnorm > 0:
+        raise AssertionError(f"step 0: loss {losses[0]} not within {REF_LN2_TOL} of ln 2 "
+                             f"(policy == reference) or grad norm {gnorm} not above 0")
+    rec["fingerprint"] = param_fingerprint(model)
+    peak_gb, step_s = rec["peak_gib"], rec["step_s"]
+    log(f"[6 train] parameters after step 3: fingerprint {rec['fingerprint'][:16]}")
     log(f"[6 train] steps 1-3 (after the warm-up step 0): {step_s:.3f} s a step = "
         f"{1 / step_s:.3f} pairs/s = {tr['tokens'] / step_s:.0f} tokens/s with padding, "
         f"{tr['real_tokens'] / step_s:.0f} without | peak device memory "
@@ -3860,7 +3934,7 @@ def phase_train(tr: dict) -> dict:
         f"{statistics.mean(xla_times):.3f} s against {step_s:.3f} s fused | peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB against "
         f"{peak_gb:.2f} GiB fused")
-    return launches
+    return dict(launches=launches, record=rec)
 
 
 def train_run(model, adapter, batch, hp, impl: str) -> tuple:
@@ -8029,6 +8103,295 @@ def phase_ref_logp_two(ref_runs: dict, smi: str) -> dict:
     return launches
 
 
+MESH_TWO_WORLD = 2
+MESH_TWO_LAYERS = 8  # 21c's depth (full width): gloo stages each collective through the host
+MESH_TWO_TIMEOUT = 300  # the 21c workers' wall limit (start, build, one step)
+# tests/test_torch_mesh_train.py's metric tolerance (the CPU tests')
+METRIC_ATOL, METRIC_RTOL = 1e-5, 1e-6
+# 21c's grad norm against its one-process reference: the two pairs'
+# bf16 gradients are summed by gloo's reduce-scatter there and by autograd
+# here, each rounding once to bf16
+MESH_TWO_GNORM_RTOL = 1e-3
+MESH_KERNELS = ("flash", "dq", "dkv", "head_fwd", "head_dl", "head_dx", "head_dw")
+
+
+def _train_optimizer(model, t):
+    """Phase 6's optimizer: constant TRAIN_LR, no warm-up."""
+    return make_optimizer(model, TRAIN_LR, total_steps=t.max_steps, warmup_ratio=0.0,
+                          weight_decay=t.weight_decay, max_grad_norm=t.max_grad_norm,
+                          schedule="constant")
+
+
+def phase_mesh(train6: dict, train_pair: dict, smi: str) -> tuple:
+    """21a: phase 6's seed-0 model rebuilt and wrapped through
+    create_mesh(1, None, 1) and shard_params on this process's one-process
+    group (NCCL axis groups), then phase 6's four steps on its pair through
+    the sharded step; -> (launches, the mesh). Every number phase 6 recorded
+    and the parameters' fingerprint must equal phase 6's bit for bit, and
+    every step launch the kernels phase 6's did."""
+    model = build_model(LlavaConfig.llava15_7b(remat=True), "21a mesh")
+    mesh = sharding.create_mesh(1, None, 1, device_type="cuda")
+    t0 = time.perf_counter()
+    sharding.shard_params(model, mesh)
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t0
+    units = sum(1 for m in model.modules() if type(m).__name__.startswith("FSDP"))
+    log(f"[21a mesh] mesh {dict(sharding.axis_sizes(mesh))}, groups "
+        f"{torch.distributed.get_backend(mesh.get_group('fsdp'))}; shard_params "
+        f"{t_shard:.2f} s: {units} FSDP units (the root and every block), "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB after")
+    tr = build_train(train_pair, model, tag="21a mesh")
+    step = make_dpo_train_step(tr["adapter"], _train_optimizer(model, tr["training"]),
+                               tr["hp"])
+    rec = train_steps(tr, step, "21a mesh")
+    rec["fingerprint"] = param_fingerprint(model)
+    ref = train6["record"]
+    same = {k: rec[k] == ref[k] for k in ("losses", "logps", "gnorms", "fingerprint")}
+    plan = [{k: n[k] for k in MESH_KERNELS} for n in rec["counts"]]
+    plan_ok = plan == [{k: n[k] for k in MESH_KERNELS} for n in ref["counts"]]
+    log(f"[21a mesh] against phase 6, bit for bit: " +
+        ", ".join(f"{k} {'equal' if v else 'DIFFER'}" for k, v in same.items()) +
+        f" (fingerprint {rec['fingerprint'][:16]}) | launches a step {plan[0]} "
+        f"{'equal to' if plan_ok else 'DIFFER from'} phase 6's | steps 1-3 "
+        f"{rec['step_s']:.3f} s a step against phase 6's {ref['step_s']:.3f} "
+        f"({rec['step_s'] / ref['step_s']:.2f}x), peak {rec['peak_gib']:.2f} GiB against "
+        f"{ref['peak_gib']:.2f} | {smi}")
+    if not (all(same.values()) and plan_ok):
+        raise AssertionError(f"21a: the sharded step at one device differs from phase 6: "
+                             f"{same}, launches equal {plan_ok}")
+    launches = {}
+    for n in rec["counts"]:
+        add_counts(launches, n)
+    del tr, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, mesh
+
+
+def phase_mesh_lora(mesh, rows: list, tok, cfg: LlavaConfig, ref_logps: list,
+                    smi: str) -> dict:
+    """21b: DPOTrainer with 21a's mesh passed in, in
+    configs/llava15_dpo_lora.json's mode (the bf16 base sharded, r 64
+    adapters whole): two steps over phase 8's rows and reference logps, a
+    checkpoint; its state.pt reloaded holds the trained adapters bit for
+    bit."""
+    c = Config.from_json(str(ROOT / "configs" / "llava15_dpo_lora.json"))
+    t = c.training
+    assert t.use_lora and (t.mesh_dp, t.mesh_fsdp, t.mesh_tp) == (1, None, 1)
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_lora_")
+    t.output_dir, t.max_steps, t.save_steps = work, 2, 2
+    try:
+        model = build_model(LlavaConfig.llava15_7b(remat=True), "21b mesh lora")
+        lora = lora_init(torch.Generator(device="cuda").manual_seed(t.seed), model, r=t.lora_r)
+        items = preference_items(rows, tok, cfg, ref_logps)
+        trainer = DPOTrainer(c, model, items, train_collator(tok, cfg, t.dpo_beta),
+                             adapter=LlavaDPOAdapter(model), lora=lora,
+                             lora_alpha=t.lora_alpha, mesh=mesh)
+        if sharding.mesh_plan(model) is None:
+            raise AssertionError("21b: the trainer left the model unsharded")
+        reset_counts()
+        t0 = time.perf_counter()
+        steps = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts()
+        restored = trainer.ckpt.restore()
+        trained = dict(named_tensors(lora))
+        differ = [k for k, x in trained.items()
+                  if not torch.equal(restored["params"][k], x.detach().cpu())]
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f if '"loss"' in line]
+        loss0 = logged[0]["loss"]
+        log(f"[21b mesh lora] DPOTrainer(mesh=21a's) on llava15_dpo_lora.json: {steps} steps "
+            f"in {wall:.2f} s (build of the step, checkpoint included), losses "
+            f"{[round(r['loss'], 6) for r in logged]} (step 0 within {REF_LN2_TOL} of ln 2: "
+            f"{loss0 - math.log(2):+.3e}) | state.pt at step {restored['step']}: "
+            f"{len(trained) - len(differ)} of {len(trained)} adapters equal the trained ones "
+            f"bit for bit | launches {dict((k, n[k]) for k in MESH_KERNELS)} | {smi}")
+        if differ or steps != 2 or restored["step"] != 2 or \
+                abs(loss0 - math.log(2)) > REF_LN2_TOL:
+            raise AssertionError(f"21b: steps {steps}, checkpoint step {restored['step']}, "
+                                 f"step-0 loss {loss0}, adapters differing {differ[:4]}")
+        layers = cfg.llm.num_layers
+        if min(n["flash"], n["dq"], n["dkv"]) < 2 * layers or n["head_fwd"] < 2 or \
+                n["head_dx"] < 2 or n["head_dw"]:
+            raise AssertionError(f"21b: the LoRA path's kernels ran off plan: {n}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del trainer, model, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
+def _mesh_two_batch(ref_logps: list) -> tuple:
+    """21c's model config and data: LLaVA-1.5-7B at full width cut to
+    MESH_TWO_LAYERS layers, a global batch of the first two rows' pairs
+    with phase 8's reference logps, collated and split as the trainer
+    does; -> (cfg, training config, global batch, P)."""
+    cfg = LlavaConfig.llava15_7b(remat=True)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, num_layers=MESH_TWO_LAYERS))
+    rows, tok = synth_rows((ROOT / "examples" / "test.jpeg").read_bytes()), _fake_tokenizer()
+    items = preference_items(rows, tok, cfg, ref_logps)
+    t = Config.from_json(str(ROOT / "configs" / "llava15_dpo.json")).training
+    global_np = train_collator(tok, cfg, t.dpo_beta)(items[:MESH_TWO_WORLD])
+    return cfg, t, global_np, derive_shared_prefix_len(global_np, cfg.num_image_tokens)
+
+
+def mesh_worker(out_dir: str) -> None:
+    """`python3 chip_smoke.py --mesh-worker OUT` under torchrun's variables:
+    one rank of 21c. Builds the seed-0 model of `_mesh_two_batch`, shards
+    it at (1, 2, 1) over gloo groups (both ranks share the card), trains
+    one step on its pair of the global batch (gloo stages every collective
+    through the host), and writes its record to OUT/rank<r>.json."""
+    dist_mod.initialize()
+    rank = dist_mod.process_index()
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings, as in phase 6
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"21c rank {rank}"
+    with open(os.path.join(out_dir, "ref_logps.json")) as f:
+        cfg, t, global_np, P = _mesh_two_batch(json.load(f))
+    model = build_model(cfg, tag)
+    mesh = sharding.create_mesh(1, None, 1, device_type="cuda", backend="gloo")
+    sharding.shard_params(model, mesh)
+    tr = build_train(dict(batch_np=sharding.shard_pairs(global_np, mesh), P=P, training=t),
+                     model, tag=tag)
+    step = make_dpo_train_step(tr["adapter"], _train_optimizer(model, t), tr["hp"])
+    dist_mod.barrier("built")
+    rec = train_steps(tr, step, tag, n_steps=1)
+    rec.update(rank=rank, mesh=sharding.axis_sizes(mesh))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_two_reference(ref_logps: list) -> dict:
+    """21c's reference, in this process with no group: the same seed-0 cut
+    model unsharded, each rank's pair run as a micro-batch at the shape that
+    rank runs it, the gradients summed in .grad; -> each pair's loss and
+    logps, their means, and the norm of the mean gradient (the sum's norm
+    halved, exactly). Its launches count toward no path."""
+    cfg, t, global_np, P = _mesh_two_batch(ref_logps)
+    model = build_model(cfg, "21c reference")
+    pairs = []
+    for r in range(MESH_TWO_WORLD):
+        part = sharding.shard_pairs(global_np, (1, MESH_TWO_WORLD, 1), rank=r)
+        tr = build_train(dict(batch_np=part, P=P, training=t), model,
+                         tag=f"21c reference, rank {r}'s pair")
+        loss, metrics = dpo_loss_from_batch(tr["adapter"], tr["batch"], tr["hp"])
+        loss.backward()
+        pairs.append(dict(loss=float(loss.detach()),
+                          logps=(float(metrics["logps_train/chosen"]),
+                                 float(metrics["logps_train/rejected"]))))
+    grads = ((n, p.grad) for n, p in model.named_parameters())
+    gnorm = float(sharding.global_norm(grads)) / MESH_TWO_WORLD
+    reset_counts()
+    del tr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(pairs=pairs, gnorm=gnorm,
+                loss=sum(p["loss"] for p in pairs) / MESH_TWO_WORLD,
+                logps=[sum(p["logps"][i] for p in pairs) / MESH_TWO_WORLD for i in (0, 1)])
+
+
+def phase_mesh_two(ref_logps: list, ref6: dict, smi: str) -> dict:
+    """21c: the sharded trainer's step over MESH_TWO_WORLD processes on the
+    one card (every model of this process freed first), each rank on its
+    own pair, against `mesh_two_reference` on both pairs: both ranks' loss
+    and logps (the global batch's means) within the CPU tests' metric
+    tolerance, their grad norm (the gradients reduce-scattered over gloo)
+    within MESH_TWO_GNORM_RTOL. The two pairs' logps must differ by far more
+    than that tolerance, so that a rank training on the wrong pair shows."""
+    t0 = time.perf_counter()
+    ref = mesh_two_reference(ref_logps)
+    t_ref = time.perf_counter() - t0
+    tol = lambda x: METRIC_ATOL + METRIC_RTOL * abs(x)  # noqa: E731
+    (c0, r0), (c1, r1) = (p["logps"] for p in ref["pairs"])
+    if min(abs(c0 - c1), abs(r0 - r1)) < 100 * tol(max(abs(c0), abs(c1), abs(r0), abs(r1))):
+        raise AssertionError(f"21c: the two pairs' logps are too close to tell apart: "
+                             f"{ref['pairs']}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_two_")
+    with open(os.path.join(work, "ref_logps.json"), "w") as f:
+        json.dump(ref_logps, f, default=lambda x: x.tolist() if hasattr(x, "tolist")
+                  else float(x))
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(MESH_TWO_WORLD)}
+    free, total = torch.cuda.mem_get_info()
+    base_used = peak_used = total - free
+    log(f"[21c mesh world {MESH_TWO_WORLD}] reference on both pairs in {t_ref:.1f} s "
+        f"(build included): losses {[p['loss'] for p in ref['pairs']]}, chosen/rejected "
+        f"logps {[p['logps'] for p in ref['pairs']]}, grad norm {ref['gnorm']} | before the "
+        f"workers start: {base_used / 2 ** 30:.2f} GiB of the card in use")
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        log_paths = [os.path.join(work, f"rank{r}.log") for r in range(MESH_TWO_WORLD)]
+        procs = []
+        for r, path in enumerate(log_paths):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-worker", work],
+                    env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                    stdout=out, stderr=subprocess.STDOUT))
+        try:
+            while any(p.poll() is None for p in procs):
+                peak_used = max(peak_used, total - torch.cuda.mem_get_info()[0])
+                if time.perf_counter() - t0 > MESH_TWO_TIMEOUT:
+                    raise AssertionError(f"21c: the workers ran past {MESH_TWO_TIMEOUT} s")
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        failed = []
+        for r, (p, path) in enumerate(zip(procs, log_paths)):
+            out = open(path).read()
+            for line in out.splitlines():
+                if line.startswith("[21c"):
+                    log(line)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n{out[-3000:]}")
+        if failed:
+            raise AssertionError("21c: " + "\n".join(failed))
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json")))
+                 for r in range(MESH_TWO_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    off = []
+    for rk in ranks:
+        got = [rk["losses"][0], *rk["logps"][0]]
+        for what, g, w in zip(("loss", "chosen logp", "rejected logp"), got,
+                              [ref["loss"], *ref["logps"]]):
+            if abs(g - w) > tol(w):
+                off.append(f"rank {rk['rank']} {what} {g} against {w}")
+        if abs(rk["gnorms"][0] - ref["gnorm"]) > MESH_TWO_GNORM_RTOL * ref["gnorm"]:
+            off.append(f"rank {rk['rank']} grad norm {rk['gnorms'][0]} against {ref['gnorm']}")
+        for n in rk["counts"]:
+            add_counts(launches, n)
+    loss_err = max(abs(rk["losses"][0] - ref["loss"]) for rk in ranks)
+    gn_err = max(abs(rk["gnorms"][0] - ref["gnorm"]) for rk in ranks) / ref["gnorm"]
+    log(f"[21c mesh world {MESH_TWO_WORLD}] mesh {ranks[0]['mesh']} over gloo groups on one "
+        f"card, {MESH_TWO_LAYERS} layers at full width, a pair a rank: step-0 loss "
+        f"{[rk['losses'][0] for rk in ranks]} against the reference's mean {ref['loss']} "
+        f"(|d| {loss_err:.3e}, tol {tol(ref['loss']):.3e}) | logps "
+        f"{[rk['logps'][0] for rk in ranks]} against {ref['logps']} | grad norm "
+        f"{[rk['gnorms'][0] for rk in ranks]} against {ref['gnorm']} (relative {gn_err:.3e}, "
+        f"tol {MESH_TWO_GNORM_RTOL}) | the step {max(rk['times'][0] for rk in ranks):.3f} s "
+        f"(the slower rank; phase 6's steps 1-3 at 32 layers {ref6['step_s']:.3f}) | wall "
+        f"{wall:.1f} s | peak device memory, all three processes "
+        f"{peak_used / 2 ** 30:.2f} GiB of {total / 2 ** 30:.1f} (this process alone "
+        f"{base_used / 2 ** 30:.2f}), each worker's allocator peak "
+        f"{max(rk['peak_gib'] for rk in ranks):.2f} GiB | "
+        f"launches {dict((k, launches[k]) for k in MESH_KERNELS)} | {smi}")
+    if off:
+        raise AssertionError(f"21c: world {MESH_TWO_WORLD} is off its one-process reference: "
+                             + "; ".join(off))
+    return launches
+
+
 def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8164,7 +8527,8 @@ def main() -> None:
     tr = build_train(train_pair, model)
     timed("7 train vs plain", phase_train_vs_plain, tr["model"], tr["adapter"], tr["batch"],
           tr["hp"])
-    add_counts(launches, timed("6 train", phase_train, tr))
+    train6 = timed("6 train", phase_train, tr)
+    add_counts(launches, train6["launches"])
     del tr, model  # phase 6's model, gradients and optimizer (~55 GiB)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8186,11 +8550,25 @@ def main() -> None:
     # 20d: phase 8's precompute again over two processes on this card
     add_counts(launches, timed("20d ref-logp world 2", phase_ref_logp_two, ref_runs, smi))
 
+    # 21: the mesh slice. 21a and 21b on a one-process group of this
+    # process (NCCL axis groups), 21c over two processes sharing the card
+    dist_mod.initialize(coordinator=f"127.0.0.1:{_free_port()}", num_processes=1,
+                        process_id=0)
+    mesh_launches, mesh = timed("21a mesh", phase_mesh, train6, train_pair, smi)
+    add_counts(launches, mesh_launches)
+    add_counts(launches, timed("21b mesh lora", phase_mesh_lora, mesh, rows, tok, cfg,
+                               ref_logps, smi))
+    del mesh
+    torch.distributed.destroy_process_group()
+    add_counts(launches, timed("21c mesh world 2", phase_mesh_two, ref_logps,
+                               train6["record"], smi))
+
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, "
         f"MiniCPM-Llama3-V 2.5 18a-e, the serving options 19a-d, the reloaded export 20c, "
-        f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10, ref-logp at world 2 20d): "
+        f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10, ref-logp at world 2 20d, the mesh "
+        f"21a-c): "
         f"{launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
@@ -8461,5 +8839,7 @@ if __name__ == "__main__":
         profile_omni_qlora(4 if "--int4" in sys.argv[1:] else 8)
     elif "--ref-logp-worker" in sys.argv[1:]:
         ref_logp_worker(sys.argv[sys.argv.index("--ref-logp-worker") + 1])
+    elif "--mesh-worker" in sys.argv[1:]:
+        mesh_worker(sys.argv[sys.argv.index("--mesh-worker") + 1])
     else:
         main()

@@ -9,7 +9,10 @@ The file format is not orbax's: each step directory holds one
 `torch.save` file, `state.pt`, of the trainer's state dict (tensors on the
 CPU). A JAX checkpoint does not load here, nor the other way round.
 Writes are synchronous; a step directory appears only once complete (it is
-written under a temporary name and renamed).
+written under a temporary name and renamed). Over a mesh the trainer
+gathers every tensor whole, one parameter at a time, and process 0 alone
+calls `save`, so the file is the same at any mesh and resumes at any other
+(`python -m rlaifv_tpu_torch.export` reads it alike).
 """
 from __future__ import annotations
 

@@ -2,10 +2,9 @@
 rlaifv_tpu/core/config.py, so `configs/*.json` load unchanged, with
 `resolve_dtype` giving torch dtypes.
 
-Fields the port does not carry yet still load (a config file stays valid
-for both packages); the code that reads them raises NotImplementedError
-naming the ROADMAP.md item (the mesh fields are read by nothing on one
-card).
+Every field loads and is read: the mesh fields `training.mesh_dp /
+mesh_fsdp / mesh_tp` by the trainer (parallel/sharding.py's mesh over the
+processes, one device each; fsdp null takes the processes dp x tp leaves).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Multi-process runtime init + host-object collectives.
+"""Multi-process runtime init, host-object collectives and the device
+groups of a mesh.
 
 Counterpart of rlaifv_tpu/core/distributed.py on torch.distributed. The
 launcher is torchrun (or anything that sets its variables): `initialize`
@@ -7,12 +8,19 @@ reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, and
 does nothing when they are absent (one process) or when a process group
 already exists.
 
-Host objects travel over a gloo group of CPU tensors
+Host objects travel over the default group, gloo over CPU tensors
 (`dist.all_gather_object`), as the JAX gather is host-side: no NCCL
 communicator is made for them, so two processes may share one card (a
 second NCCL rank on the same device is refused). Used by the ref-logp
 precompute to gather its ragged per-row logps
 (ref muffin/eval/muffin_inference_logp.py:331 `all_gather_object`).
+
+Device tensors travel over the axis groups of a mesh (`device_mesh`,
+called by parallel/sharding.py's `create_mesh` when the trainer shards a
+model): NCCL groups for a mesh on the card, gloo ones for a mesh on the
+CPU. They are made there and only there, never by `initialize`. NCCL over
+more than one process needs one card a process; on a one-card machine a
+mesh runs at one process.
 """
 from __future__ import annotations
 
@@ -46,6 +54,18 @@ def initialize(coordinator: Optional[str] = None,
         rank=process_id if process_id is not None else int(os.environ.get("RANK", "0")),
         timeout=TIMEOUT,
     )
+
+
+def device_mesh(shape, names, device_type: str, backend: Optional[str] = None):
+    """A DeviceMesh of `shape` over every process (row-major by rank), its
+    axes named `names`; each axis group NCCL when device_type is "cuda",
+    gloo when "cpu", or `backend` (gloo carries CUDA tensors too, so two
+    processes may share one card). Collective over the default group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = backend or {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(names),
+                            backend_override={i: backend for i in range(len(shape))})
 
 
 def process_index() -> int:

@@ -99,12 +99,12 @@ class CLIPAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, C = x.shape
-        H = self.cfg.num_heads
-        q = self.q_proj(x).view(B, L, H, C // H)
-        k = self.k_proj(x).view(B, L, H, C // H)
-        v = self.v_proj(x).view(B, L, H, C // H)
+        D = C // self.cfg.num_heads  # the head count off the projections (a tp shard's)
+        q = self.q_proj(x).view(B, L, -1, D)
+        k = self.k_proj(x).view(B, L, -1, D)
+        v = self.v_proj(x).view(B, L, -1, D)
         out = multi_head_attention(q, k, v, causal=False, impl="dense")
-        return self.out_proj(out.reshape(B, L, C))
+        return self.out_proj(out.reshape(B, L, -1))
 
 
 class CLIPBlock(nn.Module):

@@ -24,7 +24,11 @@ class Dense(nn.Linear):
     """y = x @ W^T (+ b), computed in `dtype`; weight (out, in) is the
     transpose of the flax (in, out) kernel. `lora`, when set to an adapter
     pair (train/lora.py `attach_lora`), adds the low-rank side term: the
-    JAX package's LoraDense reading its "lora" collection."""
+    JAX package's LoraDense reading its "lora" collection. `tp`, set by
+    parallel/sharding.py's `shard_params`, makes the layer hold its tensor-
+    parallel slice and compute through it."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, *, bias: bool,
                  dtype: torch.dtype, param_dtype: torch.dtype,
@@ -38,6 +42,8 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.to(dt)
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         bias = self.bias.to(dt) if self.bias is not None else None
         y = F.linear(x, self.weight.to(dt), bias)
         return y if self.lora is None else y + lora_side_term(x, self.lora)

@@ -288,26 +288,28 @@ class LlamaAttention(nn.Module):
         self.attn_impl = cfg.attn_impl
 
     def qkv(self, x: torch.Tensor):
-        """x (B, L, hidden) -> q, k, v (B, L, H|KVH, D), before RoPE."""
+        """x (B, L, hidden) -> q, k, v (B, L, H|KVH, D), before RoPE. The
+        head counts are read off the projections' output, so a tensor-
+        parallel shard (parallel/sharding.py) yields its local heads."""
         cfg = self.cfg
         B, L, _ = x.shape
         H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
         if cfg.fuse_proj:
-            q, k, v = self.qkv_proj(x).split([H * D, KVH * D, KVH * D], dim=-1)
+            qkv = self.qkv_proj(x)
+            kv = qkv.shape[-1] * KVH // (H + 2 * KVH)
+            q, k, v = qkv.split([qkv.shape[-1] - 2 * kv, kv, kv], dim=-1)
         else:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        return q.view(B, L, H, D), k.view(B, L, KVH, D), v.view(B, L, KVH, D)
+        return q.view(B, L, -1, D), k.view(B, L, -1, D), v.view(B, L, -1, D)
 
     def forward(self, x, cos, sin, attention_mask, cache=None, cache_index=None):
-        cfg = self.cfg
         B, L, _ = x.shape
-        H, D = cfg.num_heads, cfg.head_size
         q, k, v = self.qkv(x)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
         if cache is not None and "k_scale" in cache:
             out = self._int8_cache_attention(q, k, v, attention_mask, cache, cache_index)
-            return self.o_proj(out.reshape(B, L, H * D)), cache
+            return self.o_proj(out.reshape(B, L, -1)), cache
 
         if cache is not None:
             # in place (the JAX dynamic_update_slice): the step's k/v land in
@@ -324,7 +326,26 @@ class LlamaAttention(nn.Module):
             q_offset=cache_index if cache is not None else None,
             impl=self.attn_impl,
         )
-        return self.o_proj(out.reshape(B, L, H * D)), cache
+        return self.o_proj(out.reshape(B, L, -1)), cache
+
+    def forward_paired(self, xp, xs, cosp, sinp, coss, sins, pmask, smask):
+        """The shared-prefix paired attention (train/paired_forward.py):
+        prefix xp (B, P, hidden) causal over itself; suffix xs (2B, W,
+        hidden), rows b and B + b over prefix b's keys then their own, with
+        q_offset P. -> (prefix out, suffix out) after o_proj."""
+        B, P, _ = xp.shape
+        S, W, _ = xs.shape  # S = 2B (win rows then rej rows)
+        qp, kp, vp = self.qkv(xp)
+        qs, ks, vs = self.qkv(xs)
+        qp, kp = apply_rope(qp, cosp, sinp), apply_rope(kp, cosp, sinp)
+        qs, ks = apply_rope(qs, coss, sins), apply_rope(ks, coss, sins)
+        op = multi_head_attention(qp, kp, vp, attention_mask=pmask, causal=True,
+                                  impl=self.attn_impl)
+        kf = torch.cat([torch.cat([kp, kp]), ks], dim=1)
+        vf = torch.cat([torch.cat([vp, vp]), vs], dim=1)
+        os_ = multi_head_attention(qs, kf, vf, attention_mask=smask, causal=True,
+                                   q_offset=P, impl=self.attn_impl)
+        return self.o_proj(op.reshape(B, P, -1)), self.o_proj(os_.reshape(S, W, -1))
 
     def _int8_cache_attention(self, q, k, v, attention_mask, cache, cache_index):
         """The int8-cache branch (the JAX LlamaAttention's): the fresh k/v
@@ -385,6 +406,18 @@ class LlamaBlock(nn.Module):
         x = x + attn_out
         return x + self.mlp(self.ln_mlp(x)), cache
 
+    def forward_paired(self, xp, xs, cosp, sinp, coss, sins, pmask, smask):
+        """The block over the paired streams (train/paired_forward.py):
+        prefix xp (B, P, hidden), suffix xs (2B, W, hidden) -> both after
+        the block. A method of its own, so that a sharded block (an FSDP
+        unit) gathers its weights around it as around `forward`."""
+        ap, as_ = self.attn.forward_paired(self.ln_attn(xp), self.ln_attn(xs),
+                                           cosp, sinp, coss, sins, pmask, smask)
+        xp, xs = xp + ap, xs + as_
+        xp = xp + self.mlp(self.ln_mlp(xp))
+        xs = xs + self.mlp(self.ln_mlp(xs))
+        return xp, xs
+
 
 class LlamaModel(nn.Module):
     """Decoder stack over token ids or pre-built input embeddings."""
@@ -401,7 +434,11 @@ class LlamaModel(nn.Module):
         self.ln_f = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.param_dtype, device)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        # a plain gather: the TPU one-hot trick serves mesh sharding only
+        # a plain gather (the TPU one-hot trick serves GSPMD only); over a
+        # tp mesh the vocabulary-parallel lookup of parallel/sharding.py
+        tp = getattr(self.tok_embed, "tp", None)
+        if tp is not None:
+            return tp.embedding(input_ids, self.tok_embed.weight).to(self.cfg.dtype)
         return F.embedding(input_ids, self.tok_embed.weight).to(self.cfg.dtype)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, attention_mask=None,

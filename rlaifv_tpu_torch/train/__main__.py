@@ -3,9 +3,10 @@
     python -m rlaifv_tpu_torch.train --config cfg.json   # run from a checkpoint
     python -m rlaifv_tpu_torch.train --demo              # tiny synthetic run
 
-Counterpart of train.py for the llava15 and omnilmm families on one device:
-the card (`--device cuda`, the default; without a visible card the run
-stops with an error) or the CPU when asked (`--device cpu`). `--config`
+Counterpart of train.py for the llava15 and omnilmm families: on the
+card (`--device cuda`, the default; without a visible card the run stops
+with an error) or the CPU when asked (`--device cpu`), one device a
+process. `--config`
 builds the family's model (`MODEL_BUILDERS`: LLaVA-1.5-7B, or OmniLMM-12B =
 EVA02-enormous + resampler + Mistral-7B), loads its HF checkpoint through
 the port's numpy converters and the bridge (`load_base`, which quantises
@@ -13,11 +14,17 @@ the base through `quantize_base`), then follows
 train.py: when the dataset directory holds no `*logp*.parquet`, the frozen
 starting policy scores its raw parquet rows first (train/ref_logp.py, with
 the train step's head), and DPO trains against those reference logps
-through the family's adapter. Under torchrun (`torchrun --nproc-per-node 2
--m rlaifv_tpu_torch.train ...`) the precompute shards its rows over the
-processes (core/distributed.py) and process 0 writes the parquet; the
-trainer itself then raises until parallel/sharding.py is ported (ROADMAP.md
-'Modules to port' #11).
+through the family's adapter. Under torchrun (`torchrun --nproc-per-node N
+-m rlaifv_tpu_torch.train --config cfg.json`) every process joins the gloo
+group of core/distributed.py, the precompute shards its rows over the
+processes and process 0 writes the parquet, and the trainer trains over
+the config's `training.mesh_dp / mesh_fsdp / mesh_tp` mesh (fsdp null =
+the processes dp x tp leaves): parallel/sharding.py's `create_mesh` makes
+the device groups (NCCL on the card, gloo on the CPU) and shards the model,
+FSDP2 over (dp, fsdp), tensor parallel over tp. A config mesh smaller than
+the world raises ValueError (the QLoRA configs' 1 x 1 x 1 trains as one
+process). NCCL needs a card a process: on a one-card machine the mesh runs
+at one process.
 
 `training.use_lora` trains LoRA adapters (train/lora.py, seeded from
 `training.seed`) on the LLM's projections over the frozen model;

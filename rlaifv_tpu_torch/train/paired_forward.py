@@ -13,7 +13,8 @@ answer suffix, so the prompt runs once per pair:
 RoPE takes REAL positions (prefix arange(Pa), suffix P + arange(W)) while
 the attention masks run on array positions; mixing the two would shift
 every suffix logp. Both functions run over the blocks and parameters of
-the model's own `LlamaModel`: there is no second parameter tree.
+the model's own `LlamaModel` (each block's `forward_paired`, which an FSDP
+unit gathers its weights around): there is no second parameter tree.
 
 With `cfg.remat` the checkpoint unit is the PAIR: one checkpoint per block
 over (xp, xs), so the merged (2B, Pa+W) KV exists only inside it. Separate
@@ -27,48 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rlaifv_tpu_torch.models.llama import (
-    LlamaAttention,
-    LlamaBlock,
-    LlamaModel,
-    apply_rope,
-    rope_cos_sin,
-)
-from rlaifv_tpu_torch.ops.attention import multi_head_attention
-
-
-def _paired_attention(attn: LlamaAttention, xp, xs, cosp, sinp, coss, sins,
-                      pmask, smask):
-    cfg = attn.cfg
-    B, P, _ = xp.shape
-    S, W, _ = xs.shape  # S = 2B (win rows then rej rows)
-    H, D = cfg.num_heads, cfg.head_size
-    # separate q/k/v projections or one fused qkv_proj (cfg.fuse_proj)
-    qp, kp, vp = attn.qkv(xp)
-    qs, ks, vs = attn.qkv(xs)
-    qp, kp = apply_rope(qp, cosp, sinp), apply_rope(kp, cosp, sinp)
-    qs, ks = apply_rope(qs, coss, sins), apply_rope(ks, coss, sins)
-
-    # prefix: ordinary causal self-attention, one row per pair
-    op = multi_head_attention(qp, kp, vp, attention_mask=pmask, causal=True,
-                              impl=attn.attn_impl)
-    # suffix: queries at array positions [P, P + W) over the merged keys;
-    # row b and row B + b share prefix b
-    kf = torch.cat([torch.cat([kp, kp]), ks], dim=1)
-    vf = torch.cat([torch.cat([vp, vp]), vs], dim=1)
-    os_ = multi_head_attention(qs, kf, vf, attention_mask=smask, causal=True,
-                               q_offset=P, impl=attn.attn_impl)
-    return (attn.o_proj(op.reshape(B, P, H * D)),
-            attn.o_proj(os_.reshape(S, W, H * D)))
-
-
-def _paired_block(blk: LlamaBlock, xp, xs, cosp, sinp, coss, sins, pmask, smask):
-    ap, as_ = _paired_attention(blk.attn, blk.ln_attn(xp), blk.ln_attn(xs),
-                                cosp, sinp, coss, sins, pmask, smask)
-    xp, xs = xp + ap, xs + as_
-    xp = xp + blk.mlp(blk.ln_mlp(xp))
-    xs = xs + blk.mlp(blk.ln_mlp(xs))
-    return xp, xs
+from rlaifv_tpu_torch.models.llama import LlamaModel, rope_cos_sin
 
 
 def paired_hidden(
@@ -97,11 +57,11 @@ def paired_hidden(
     xp, xs = prefix_embeds, suffix_embeds
     remat = cfg.remat and torch.is_grad_enabled()
     for blk in model.layers:
-        args = (blk, xp, xs, cosp, sinp, coss, sins, prefix_mask, suffix_mask)
+        args = (xp, xs, cosp, sinp, coss, sins, prefix_mask, suffix_mask)
         if remat:
-            xp, xs = checkpoint(_paired_block, *args, use_reentrant=False)
+            xp, xs = checkpoint(blk.forward_paired, *args, use_reentrant=False)
         else:
-            xp, xs = _paired_block(*args)
+            xp, xs = blk.forward_paired(*args)
     return model.ln_f(xp), model.ln_f(xs)
 
 

@@ -1,7 +1,9 @@
 """DPO train step in PyTorch: policy (win||rej) logps -> DPO loss against
 cached reference logps -> gradients -> AdamW update.
 
-Counterpart of rlaifv_tpu/train/train_step.py on one card: the same
+Counterpart of rlaifv_tpu/train/train_step.py, on one device or over a
+mesh (parallel/sharding.py; a rank trains on its pairs, see
+`make_dpo_train_step`): the same
 `DPOHparams`, the same host-side shared-prefix helpers, the same forward
 variants (plain concatenated, shared-prefix paired, KTO, text-only; the
 "xla", "compact" and "fused" heads) and an optimizer that reproduces optax's
@@ -25,6 +27,12 @@ import torch.nn.functional as F
 from rlaifv_tpu_torch.constants import IGNORE_INDEX
 from rlaifv_tpu_torch.models.convert import flax_leaf_names
 from rlaifv_tpu_torch.models.llava import splice_image_features
+from rlaifv_tpu_torch.parallel.sharding import (
+    global_norm,
+    local_shard,
+    mesh_plan,
+    run_as_forward,
+)
 from rlaifv_tpu_torch.train.dpo import (
     compute_weighted_logp,
     dpo_loss,
@@ -157,10 +165,13 @@ class LlavaDPOAdapter:
         return self.module.hidden_text(input_ids, mask)
 
     def lm_head_weight(self) -> torch.Tensor:
-        """(V, H) head weight (tied embeddings when there is no head)."""
+        """(V, H) head weight (tied embeddings when there is no head); over
+        a tp mesh gathered whole from the vocabulary slices, differentiably
+        (the fused and compact heads take the whole matrix)."""
         llm = self.module.llm
-        return llm.lm_head.weight if llm.lm_head is not None \
-            else llm.model.tok_embed.weight
+        head = llm.lm_head if llm.lm_head is not None else llm.model.tok_embed
+        tp = getattr(head, "tp", None)
+        return head.weight if tp is None else tp.gather_weight(head.weight)
 
     def embed_ids(self, input_ids):
         return self.module.llm.embed(input_ids.clamp(min=0))
@@ -334,12 +345,6 @@ def lr_schedule(learning_rate: float, *, total_steps: int,
     return lr
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, accumulated in fp32."""
-    return torch.sqrt(sum(torch.linalg.vector_norm(t, dtype=torch.float32) ** 2
-                          for t in tensors))
-
-
 class AdamW:
     """optax `chain(clip_by_global_norm(max_grad_norm), adamw(lr, b1, b2,
     eps, weight_decay, mask))` over a model's parameters, step for step:
@@ -353,16 +358,20 @@ class AdamW:
       before the increment), then p + u.
 
     The update runs one parameter at a time (no foreach over the whole
-    model: a 7B model's temporaries would double the moments' memory).
+    model: a 7B model's temporaries would double the moments' memory), on
+    the shard this rank holds when the model is sharded (the update is
+    elementwise; the moments are shaped like the parameters' DTensors).
     A parameter whose .grad is None counts as a zero gradient, as every
     leaf has a gradient in JAX. The global norm sums in fp32 (optax sums
-    in the gradient dtype).
+    in the gradient dtype); over a sharded model (`plan`, the model's
+    MeshPlan) it is the norm over the whole mesh.
     """
 
     def __init__(self, named_params, lr: Callable[[int], float], *,
                  decay: Dict[str, bool], b1=0.9, b2=0.999, eps=1e-8,
-                 weight_decay=0.01, max_grad_norm=1.0):
+                 weight_decay=0.01, max_grad_norm=1.0, plan=None):
         self.named_params = list(named_params)
+        self.plan = plan
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
         self.decay = decay
@@ -378,25 +387,28 @@ class AdamW:
     def step(self, grads=None, grad_norm: Optional[torch.Tensor] = None) -> None:
         grads = self.grads() if grads is None else grads
         if grad_norm is None:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(zip((n for n, _ in self.named_params), grads),
+                                    self.plan)
         norm = float(grad_norm)
+        grads = [local_shard(g) for g in grads]
         count = self.count + 1
         # optax evaluates b ** count in fp32
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
         bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(count))
         step_size = -self.lr(self.count)
         for (name, p), g in zip(self.named_params, grads):
+            p, mu_old, nu_old = local_shard(p), local_shard(self.mu[name]), local_shard(self.nu[name])
             if not norm < self.max_grad_norm:
                 g = (g / torch.tensor(norm, dtype=g.dtype, device=g.device)) \
                     * self.max_grad_norm
-            mu = (1 - self.b1) * g + self.b1 * self.mu[name]
-            nu = (1 - self.b2) * g ** 2 + self.b2 * self.nu[name]
+            mu = (1 - self.b1) * g + self.b1 * mu_old
+            nu = (1 - self.b2) * g ** 2 + self.b2 * nu_old
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.decay[name]:
                 u = u + self.weight_decay * p
             p.copy_(p + u * step_size)
-            self.mu[name].copy_(mu)
-            self.nu[name].copy_(nu)
+            mu_old.copy_(mu)
+            nu_old.copy_(nu)
         self.count = count
 
     def state_dict(self) -> Dict:
@@ -406,13 +418,14 @@ class AdamW:
         self.count = int(state["count"])
         for key in ("mu", "nu"):
             for name, t in getattr(self, key).items():
-                t.copy_(state[key][name])
+                local_shard(t).copy_(state[key][name])
 
 
 class MultiSteps:
     """optax.MultiSteps(opt, every_k_schedule=k): each call folds the
     gradients into a running mean, acc + (g - acc) / (n + 1); the k-th call
-    applies the inner optimizer to the mean and resets it."""
+    applies the inner optimizer to the mean and resets it (clipped by the
+    mean's norm, over the whole mesh on a sharded model)."""
 
     def __init__(self, inner: AdamW, every_k: int):
         self.inner, self.every_k = inner, every_k
@@ -424,7 +437,7 @@ class MultiSteps:
         del grad_norm  # the inner step clips by the norm of the mean
         grads = self.inner.grads() if grads is None else grads
         for (name, _), g in zip(self.inner.named_params, grads):
-            acc = self.acc[name]
+            acc, g = local_shard(self.acc[name]), local_shard(g)
             acc.copy_(acc + (g - acc) / (self.mini_step + 1))
         if self.mini_step == self.every_k - 1:
             self.inner.step([self.acc[n] for n, _ in self.inner.named_params])
@@ -442,7 +455,7 @@ class MultiSteps:
         self.inner.load_state_dict(state["inner"])
         self.mini_step = int(state["mini_step"])
         for name, t in self.acc.items():
-            t.copy_(state["acc"][name])
+            local_shard(t).copy_(state["acc"][name])
 
 
 def weight_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
@@ -462,9 +475,13 @@ def make_optimizer(params, learning_rate: float, *,
                    schedule: str = "cosine") -> AdamW:
     """The JAX make_optimizer's update over every parameter of a model, or
     over the tensors of a LoRA adapter tree (decayed, as wd_mask decays
-    every leaf not named `bias` or `scale`)."""
+    every leaf not named `bias` or `scale`). A model sharded by
+    parallel/sharding.py clips by the norm over its whole mesh; an adapter
+    tree is whole on every rank, its gradients reduced before the step."""
+    plan = None
     if isinstance(params, torch.nn.Module):
         named, decay = list(params.named_parameters()), weight_decay_mask(params)
+        plan = mesh_plan(params)
     else:
         named = named_tensors(params)
         decay = {n: n.rsplit("/", 1)[-1] not in ("bias", "scale") for n, _ in named}
@@ -473,24 +490,35 @@ def make_optimizer(params, learning_rate: float, *,
         lr_schedule(learning_rate, total_steps=total_steps,
                     warmup_ratio=warmup_ratio, schedule=schedule),
         b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-        max_grad_norm=max_grad_norm, decay=decay,
+        max_grad_norm=max_grad_norm, decay=decay, plan=plan,
     )
 
 
 def make_dpo_train_step(model: LlavaDPOAdapter, optimizer, hp: DPOHparams
                         ) -> Callable[[Dict], Dict]:
     """train_step(batch) -> metrics: zeroed grads, loss, backward, the
-    update; metrics["grad_norm"] is the global norm of this batch's grads."""
+    update; metrics["grad_norm"] is the global norm of this batch's grads.
+
+    On a model sharded by parallel/sharding.py the batch is this rank's
+    pairs: FSDP averages the gradients over the data ranks, the norm is
+    taken over the whole mesh, and the metrics are the global batch's
+    means."""
 
     def train_step(batch: Dict) -> Dict:
         module = model.module
-        module.zero_grad(set_to_none=False)
-        loss, metrics = dpo_loss_from_batch(model, batch, hp)
+        plan = mesh_plan(module)
+        # sharded: FSDP hands each shard its reduce-scatter output as the
+        # gradient; into an existing gradient it would add it, holding a
+        # second copy of every shard until the backward ends
+        module.zero_grad(set_to_none=plan is not None)
+        loss, metrics = run_as_forward(module, lambda: dpo_loss_from_batch(model, batch, hp))
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in module.parameters()]
-        metrics["grad_norm"] = global_norm(grads)
-        optimizer.step(grads, metrics["grad_norm"])
+        named = [(n, p.grad if p.grad is not None else torch.zeros_like(p))
+                 for n, p in module.named_parameters()]
+        if plan is not None:
+            metrics = plan.mean_metrics(metrics)
+        metrics["grad_norm"] = global_norm(named, plan)
+        optimizer.step([g for _, g in named], metrics["grad_norm"])
         return metrics
 
     return train_step
@@ -505,7 +533,9 @@ def make_lora_dpo_train_step(model: LlavaDPOAdapter, optimizer, hp: DPOHparams,
     stop_gradient) and int8 buffers never do. Each step attaches
     lora_scaled(lora) to the projections for the forward and the backward
     (a remat recompute reads them), then detaches them before the update;
-    metrics["grad_norm"] is the adapters' global norm."""
+    metrics["grad_norm"] is the adapters' global norm. On a sharded base
+    (parallel/sharding.py) the adapters stay whole on every rank, and their
+    gradients are reduced over the mesh before the norm and the update."""
     from rlaifv_tpu_torch.train.lora import attach_lora, lora_scaled
 
     model.module.requires_grad_(False)
@@ -514,16 +544,24 @@ def make_lora_dpo_train_step(model: LlavaDPOAdapter, optimizer, hp: DPOHparams,
         t.requires_grad_(True)
 
     def train_step(batch: Dict) -> Dict:
+        module = model.module
         for t in leaves:
             t.grad = None
-        attach_lora(model.module, lora_scaled(lora, alpha=lora_alpha))
+        attach_lora(module, lora_scaled(lora, alpha=lora_alpha))
         try:
-            loss, metrics = dpo_loss_from_batch(model, batch, hp)
+            loss, metrics = run_as_forward(module,
+                                           lambda: dpo_loss_from_batch(model, batch, hp))
             loss.backward()
         finally:
-            attach_lora(model.module, None)
-        grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
-        metrics["grad_norm"] = global_norm(grads)
+            attach_lora(module, None)
+        named = [(n, t.grad if t.grad is not None else torch.zeros_like(t))
+                 for n, t in named_tensors(lora)]
+        grads = [g for _, g in named]
+        plan = mesh_plan(module)
+        if plan is not None:
+            plan.reduce_lora_grads(named)
+            metrics = plan.mean_metrics(metrics)
+        metrics["grad_norm"] = global_norm(named)  # the adapters: whole on every rank
         optimizer.step(grads, metrics["grad_norm"])
         return metrics
 

@@ -8,7 +8,8 @@ rank order, barrier, assert_consistent agreeing and diverging, the tiny
 model's reference-logp precompute at world 2 against the one this process
 writes at world 1 (bit-equal at batch_pairs 1, where both score the same
 one-pair batches; within 1e-5 at batch_pairs 8, where the shards' batches
-pad differently), and the trainer refusing world 2 (ROADMAP #11).
+pad differently), and the trainer over both processes against one
+(parallel/sharding.py: the config's mesh at world 2 is fsdp 2).
 """
 import json
 import os
@@ -116,8 +117,26 @@ def test_inference_logp_world_two_writes_the_world_one_parquet(two, tmp_path, ba
                 np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-5)
 
 
-def test_trainer_refuses_two_processes(two):
-    _, ranks = two
-    for res in ranks:
-        assert res["trainer"] and "#11" in res["trainer"] and \
-            "parallel/sharding.py" in res["trainer"]
+def test_trainer_trains_over_two_processes(two, tmp_path):
+    """Two steps of DPOTrainer over the two processes (the config's mesh:
+    fsdp 2, two pairs a process) write the metrics of the same two steps of
+    four pairs in one process, within tests/test_torch_train.py's metric
+    tolerance (atol 1e-5 + rtol 1e-6)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_two_process_worker import tiny_setup, train_tiny
+
+    out, ranks = two
+    assert [res["trainer"] for res in ranks] == [2, 2]
+    assert train_tiny(tiny_setup()[0], str(tmp_path)) == 2
+
+    def logged(path):
+        with open(path / "metrics.jsonl") as f:
+            return [json.loads(line) for line in f]
+
+    got, want = logged(out / "train"), logged(tmp_path)
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            if k != "steps_per_sec":
+                assert abs(g[k] - w[k]) <= 1e-5 + 1e-6 * abs(w[k]), (g["step"], k, g[k], w[k])

@@ -10,8 +10,8 @@ a tiny OmniLMM through autocheck and diverse_gen (float, then both towers
 int8 in place with an int8 cache), a tiny MiniCPM-V through autocheck and
 continuous diverse_gen on sliced images, the 7B chat on a tiny LLaVA
 smoothed and quantised to int4 (models/quant_smooth.py) and one greedy
-prompt-lookup generation (genai/lookup_decode.py),
-then in place int8 weights
+prompt-lookup generation (genai/lookup_decode.py), the mesh's parameter
+specs (parallel/sharding.py), then in place int8 weights
 + fused projections + int8 cache (beams too), then
 through the fused engine (kernel #16's twin), a tiny bare Llama through the
 divide-and-conquer backend (bf16 and fused), runs `python -m rlaifv_tpu_torch.train --demo
@@ -61,7 +61,7 @@ SCRIPT = textwrap.dedent("""
                  "data.minicpmv_slicing", "models.quant_smooth", "genai.lookup_decode",
                  "models.anyres", "core.registry", "core.distributed", "data.tsv_data",
                  "data.native_loader", "ops.image_kernels", "models.export", "export",
-                 "utils.profiling"):
+                 "utils.profiling", "parallel", "parallel.sharding"):
         assert "rlaifv_tpu_torch." + name in mods, name
 
     # the int4 product on CPU tensors: the plain twins, nothing built
@@ -178,6 +178,11 @@ SCRIPT = textwrap.dedent("""
     assert isinstance(schat.chat({"image": img, "question": "What is it?"}), str)
     res = lookup_generate(schat.engine, [1, 5, 6, 7, 5, 6, 7], max_new_tokens=5)
     assert len(res.tokens) == 5 and res.n_steps >= 1
+
+    # the mesh's rules need no process group
+    from rlaifv_tpu_torch.parallel import sharding
+    specs = sharding.param_specs(LlavaForCausalLM(cfg), (1, 2, 2))
+    assert specs["llm.model.layers.0.mlp.gate_proj.weight"] == ("tp", "fsdp")
 
     # the training entry point, as `python -m rlaifv_tpu_torch.train`
     import json, os, runpy

@@ -7,8 +7,9 @@ localhost, torchrun's environment variables).
 Initialises from the environment, gathers ragged objects, meets at a
 barrier, runs assert_consistent on agreeing and on diverging values, runs
 the reference-logp precompute of the tiny model on the shared rows (batch
-pairs 1 and 8), and checks that the trainer refuses to run; writes what it
-saw to <out_dir>/rank<r>.json.
+pairs 1 and 8), and trains the tiny model 2 steps over the two processes
+(DPOTrainer on the config's mesh: fsdp 2); writes what it saw to
+<out_dir>/rank<r>.json.
 """
 import json
 import os
@@ -61,6 +62,26 @@ def tiny_setup():
     return model, FakeTokenizer(), rows, kw
 
 
+def train_tiny(model, output_dir: str) -> int:
+    """DPOTrainer on the config's default mesh (dp 1, fsdp null = every
+    process, tp 1): 2 steps over 4 synthetic pairs, 2 pairs a process at
+    world 2 (the test runs it at world 1 with per_device_batch_pairs 2 x
+    world_size); -> the micro-steps taken. Process 0 writes metrics.jsonl."""
+    from rlaifv_tpu_torch.core.config import Config
+    from rlaifv_tpu_torch.data.collator import DPOCollator
+    from rlaifv_tpu_torch.train.trainer import DPOTrainer
+    from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
+
+    config = Config()
+    t = config.training
+    t.output_dir, t.max_steps, t.learning_rate = output_dir, 2, 1e-3
+    t.per_device_batch_pairs = 4 // dist.process_count()
+    cfg = model.cfg
+    return DPOTrainer(config, model, synth_preference_pairs(cfg, 4, answer_len=6, question_len=4),
+                      DPOCollator(pad_token_id=0, max_len=64,
+                                  num_patches=cfg.num_image_tokens)).train()
+
+
 def main(out_dir: str) -> None:
     dist.initialize()
     rank = dist.process_index()
@@ -90,16 +111,7 @@ def main(out_dir: str) -> None:
     from rlaifv_tpu_torch.train.trainer import DPOTrainer
     from rlaifv_tpu_torch.utils.synth import synth_preference_pairs
 
-    config = Config()
-    config.training.output_dir = os.path.join(out_dir, f"train{rank}")
-    cfg = model.cfg
-    try:
-        DPOTrainer(config, model, synth_preference_pairs(cfg, 2, answer_len=6, question_len=4),
-                   DPOCollator(pad_token_id=0, max_len=64,
-                               num_patches=cfg.num_image_tokens)).train()
-        res["trainer"] = None
-    except NotImplementedError as e:
-        res["trainer"] = str(e)
+    res["trainer"] = train_tiny(model, os.path.join(out_dir, "train"))
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
