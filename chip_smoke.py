@@ -432,12 +432,34 @@ Phases, one progress line each (or a few):
      differ by far more than that tolerance.
      Phase 3b holds #1-#3 at the train suffix with 16 and 8 local heads
      (tp 2 and 4) too.
+  22. (after 21c, every model freed) tensor-parallel serving: the seed-0
+     LLaVA-1.5-7B at full width, bf16 at its 32 layers, int4 (head bf16)
+     and int8 with an int8 KV cache at 8 (the time budget), served first
+     by this process (the references: each run plain, then under
+     `tp_witness`, the same model computing what each tp rank computes,
+     written out by hand in plain torch from the whole weights), then by
+     two subprocesses at mesh (1, 1, 2) (gloo groups over CUDA tensors on
+     the one card), each `shard_params`-split: (a) 4 text prompts x 32
+     greedy tokens, (b) 4 image prompts, (c) generate_continuous on 2
+     slots, (d) generate_beam with 3 beams, (e) int4, (f) int8 with the
+     int8 cache, 16 tokens. Both ranks' tokens must be equal bit for bit;
+     each rank's logits are held to the plain run's and to the witness's
+     while the histories agree (phase 15's bounds: SLICE_REL_TOL in bf16,
+     INT8_KV_REL_TOL and INT8_KV_COS_MIN quantised, a first differing
+     token only at a reference top-2 gap under CONT_TIE; (d) the plain
+     run's picks replayed): within every bound of the witness, and of the
+     plain run except where the witness breaks the same bound against the
+     plain run (tp's order alone: logged as open); each rank's launches of
+     #1, #4, #5, #7, #9 and #11 equal its plan; logged beside them: the
+     witness's share of the LLM and of the vision tower, s a decode step
+     beside one process's, one traced step's gloo ms, each rank's peak
+     GiB.
 
 Each path of the main run (4, 14's beam batch, 15's runs, 11's two
 headline runs, its slice and its beam batch, 12's
 slice and headline, 13's pipeline and its int8 and fused batches, 16a-e's
 runs, 17a-b's precomputes, steps and short steps, 18a-e's runs, 19a-d's
-runs, 20c's reloaded model, 20d's workers, 21a-c's runs, 8, 6,
+runs, 20c's reloaded model, 20d's workers, 21a-c's runs, 22a-f's ranks, 8, 6,
 9's precompute, steps and short step, and 10's precompute and steps)
 starts with every launch counter at 0 and is read just after; the
 `kernels` line reports those launches beside each kernel's error, times,
@@ -8392,6 +8414,598 @@ def phase_mesh_two(ref_logps: list, ref6: dict, smi: str) -> dict:
     return launches
 
 
+TP_WORLD = 2
+TP_NEW = 32  # (a)-(e): greedy tokens a prompt
+TP_NEW_INT8 = 16  # (f)
+TP_BEAMS, TP_SLOTS = 3, 2
+TP_TIMEOUT = 600  # the 22 workers' wall limit (start, three builds, the runs)
+TP_QUANT_LAYERS = MESH_TWO_LAYERS  # (e) and (f)'s LLM depth (full width): the time budget
+TP_QUESTIONS = ["What is in the image?", "Describe the scene.", "What colors do you see?",
+                "Is there a person in the picture?"]
+TP_TEXT = (300, 260, 220, 180)  # (a)'s prompt lengths in characters (the tokenizer's ids)
+# (name, weights, what runs, new tokens, logit bound (a share of max|first
+# logit|), least row cosine, the kernels its plan counts)
+TP_CASES = (
+    ("22a text", "bf16", "text", TP_NEW, SLICE_REL_TOL, -1.0, ("flash", "decode")),
+    ("22b image", "bf16", "image", TP_NEW, SLICE_REL_TOL, -1.0, ("flash", "decode")),
+    ("22c continuous", "bf16", "continuous", TP_NEW, SLICE_REL_TOL, -1.0, ("flash", "decode")),
+    ("22d beam", "bf16", "beam", TP_NEW, SLICE_REL_TOL, -1.0, ("flash", "decode")),
+    ("22e int4", "int4", "image", TP_NEW, INT8_KV_REL_TOL, INT8_KV_COS_MIN,
+     ("flash", "decode", "int4")),
+    ("22f int8", "int8", "image", TP_NEW_INT8, INT8_KV_REL_TOL, INT8_KV_COS_MIN,
+     ("flash", "decode_int8", "int8", "int8_prequant")),
+)
+TP_KERNELS = ("flash", "decode", "decode_int8", "int8", "int8_prequant", "int4")
+
+
+def tp_model(weights: str, tag: str) -> LlavaForCausalLM:
+    """Phase 22's seed-0 LLaVA-1.5-7B (CLIP-L/336, the projector, the LLM
+    at full width; the quantised ones at TP_QUANT_LAYERS layers) in bf16,
+    quantised whole when `weights` says so: "int4" (quantize_llm_int4, the
+    head bf16), "int8" (quantize_llm_int8 and an int8 KV cache: the JAX
+    serving headline less fuse_proj)."""
+    cfg = LlavaConfig.llava15_7b()
+    if weights != "bf16":
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                                num_layers=TP_QUANT_LAYERS))
+    t0 = time.perf_counter()
+    model = LlavaForCausalLM(cfg, device="meta").to_empty(device="cuda")
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(0)).eval()
+    if weights == "int4":
+        quantize_llm_int4(model)
+    elif weights == "int8":
+        quantize_llm_int8(model)
+        set_llm_config(model, kv_cache_dtype="int8")
+    torch.cuda.synchronize()
+    log(f"[{tag}] LLaVA-1.5-7B {weights}, {cfg.llm.num_layers} LLM layers: built and "
+        f"quantised in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+@contextlib.contextmanager
+def tp_witness(model, parts=("vision", "llm")):
+    """Phase 22's witness: the unsharded model computing, in this one
+    process and in plain torch, what each of TP_WORLD tp ranks computes,
+    written out by hand from the whole weights (of parallel/sharding.py only
+    `param_specs`, the JAX rules' placement, held to the JAX package's on
+    the CPU). A projection the specs split on its outputs (column-parallel)
+    is one product a rank on its slice of the outputs (a QuantDense's
+    columns of q and scale) with its slice of the bias, concatenated; one
+    split on its inputs (row-parallel) is one product a rank on its slice
+    of K (a QuantDense's rows of q, int4's packed rows with their group
+    scales, int8's per-column scale whole: each rank's activation rows
+    quantised over its own K slice by the kernels), each in fp32, summed in
+    rank order, the bias added, rounded once; attention (the LLM's bf16 and
+    int8-cache paths, CLIP's) is one call a rank on its slice of the heads,
+    concatenated. `parts`: "llm" the language model, "vision" the tower and
+    the projector."""
+    from rlaifv_tpu_torch.models import clip_vit
+    from rlaifv_tpu_torch.models.layers import Dense
+
+    n = TP_WORLD
+    specs = sharding.param_specs(model, dict(zip(sharding.MESH_AXES, (1, 1, n))))
+    cuts = lambda size: [slice(r * size // n, (r + 1) * size // n) for r in range(n)]  # noqa: E731
+
+    def rows_product(mod, ws):
+        dt = mod.compute_dtype
+        bias = None if mod.bias is None else mod.bias.to(dt)
+
+        def forward(x):
+            x = x.to(dt)
+            ys = []
+            for c, w in zip(cuts(x.shape[-1]), ws):
+                xr = x[..., c].contiguous()
+                if isinstance(mod, QuantDense):
+                    y = llama_mod.quant_product(xr, w[0], w[1], mod.bits).float()
+                elif xr.dtype == torch.float32:
+                    y = torch.nn.functional.linear(xr, w)
+                else:
+                    y = torch.mm(xr.reshape(-1, xr.shape[-1]), w.T, out_dtype=torch.float32)
+                    y = y.reshape(*x.shape[:-1], -1)
+                ys.append(y)
+            y = sum(ys)
+            return (y if bias is None else y + bias).to(dt)
+
+        return forward
+
+    def columns_product(mod, ws):
+        dt = mod.compute_dtype
+        bias = [None] * n if mod.bias is None else [mod.bias.to(dt)[c] for c in
+                                                    cuts(mod.bias.shape[0])]
+
+        def forward(x):
+            x = x.to(dt)
+            ys = []
+            for w, b in zip(ws, bias):
+                if isinstance(mod, QuantDense):
+                    y = llama_mod.quant_product(x, w[0], w[1], mod.bits)
+                    ys.append(y if b is None else y + b)
+                else:
+                    ys.append(torch.nn.functional.linear(x, w, b))
+            return torch.cat(ys, -1)
+
+        return forward
+
+    patched = []
+    for name, mod in model.named_modules():
+        quant = isinstance(mod, QuantDense)
+        if not (quant or isinstance(mod, Dense)):
+            continue
+        if ("llm" if name.startswith("llm.") else "vision") not in parts:
+            continue
+        spec = specs.get(f"{name}.q" if quant else f"{name}.weight", ())
+        dim = next((i for i, axis in enumerate(spec) if axis == "tp"), None)
+        if dim is None:
+            continue
+        if name.rsplit(".", 1)[-1] in ("qkv_proj", "gate_up_proj") or mod.lora is not None:
+            raise ValueError(f"tp_witness: {name} is fused or carries LoRA")
+        rows = dim == (0 if quant else 1)
+        if quant and rows:
+            if mod.bits == 4 and mod.scale.shape[0] % n:
+                raise ValueError(f"tp_witness: {name}'s int4 groups do not split over {n}")
+            s_cuts = cuts(mod.scale.shape[0]) if mod.bits == 4 else [slice(None)] * n
+            ws = [(mod.q[a].contiguous(), mod.scale[b].contiguous())
+                  for a, b in zip(cuts(mod.q.shape[0]), s_cuts)]
+        elif quant:
+            ws = [(mod.q[:, c].contiguous(), mod.scale[..., c].contiguous())
+                  for c in cuts(mod.q.shape[1])]
+        else:
+            w = mod.weight.to(mod.compute_dtype)
+            ws = [(w[:, c] if rows else w[c]).contiguous() for c in cuts(w.shape[dim])]
+        mod.forward = (rows_product if rows else columns_product)(mod, ws)
+        patched.append(mod)
+
+    def heads(fn, qdim):
+        def call(q, k, *rest, **kw):
+            H, KVH = q.shape[qdim], k.shape[2]
+            if H % n or KVH % n:
+                raise ValueError(f"tp_witness: {H} / {KVH} heads do not split over {n}")
+            outs = []
+            for h, g in zip(cuts(H), cuts(KVH)):
+                pick = [slice(None)] * q.dim()
+                pick[qdim] = h
+                cache = [t[:, :, g].contiguous()
+                         if isinstance(t, torch.Tensor) and t.dim() >= 3 else t for t in rest]
+                outs.append(fn(q[tuple(pick)].contiguous(), k[:, :, g].contiguous(), *cache,
+                               **kw))
+            return torch.cat(outs, qdim)
+
+        return call
+
+    saved = []
+    for mod_ns, fn_name, qdim, part in ((llama_mod, "multi_head_attention", 2, "llm"),
+                                        (llama_mod, "decode_attention_prefix_int8", 1, "llm"),
+                                        (clip_vit, "multi_head_attention", 2, "vision")):
+        if part in parts:
+            fn = getattr(mod_ns, fn_name)
+            saved.append((mod_ns, fn_name, fn))
+            setattr(mod_ns, fn_name, heads(fn, qdim))
+    try:
+        yield
+    finally:
+        for mod in patched:
+            del mod.forward
+        for mod_ns, fn_name, fn in saved:
+            setattr(mod_ns, fn_name, fn)
+
+
+def tp_inputs(gen: Llava15Generator, tok) -> dict:
+    """(a)'s text prompts (no image) and the image prompts of (b)-(f)."""
+    rng = np.random.default_rng(22)
+    text = [tok.encode(_text(rng, k)) for k in TP_TEXT]
+    prompts, starts, images = gen._prepare(_items(
+        (ROOT / "examples" / "test.jpeg").read_bytes(), TP_QUESTIONS))
+    return {"text": (text, None, None), "image": (prompts, starts, images)}
+
+
+def _tp_recorded(eng: DecodeEngine, fn, tops: list = None):
+    """fn() with every decode step's logits kept (fp32, on the host) and
+    the time between steps; with `tops`, each beam pick's candidates'
+    top K + 1 scores -> (fn's result, step logits, seconds between steps)."""
+    steps, stamps, step, pick = [], [], eng._step, beam_mod.pick
+
+    def recorded_step(*a):
+        logits, cache = step(*a)
+        steps.append(logits.float().cpu())  # the decode loop syncs each step anyway
+        stamps.append(time.perf_counter())
+        return logits, cache
+
+    def recorded_pick(flat, frozen, K, *a):
+        tops.append(flat.topk(K + 1, dim=-1).values.cpu())
+        return pick(flat, frozen, K, *a)
+
+    eng._step = recorded_step
+    if tops is not None:
+        beam_mod.pick = recorded_pick
+    try:
+        out = fn()
+    finally:
+        eng._step, beam_mod.pick = step, pick
+    return out, steps, np.diff(stamps).tolist()
+
+
+def tp_case(eng: DecodeEngine, kind: str, new: int, inp: dict) -> dict:
+    """One phase 22 run on `eng` -> its record: tokens and lengths, each
+    prompt's logits a token while it ran (token 0 the first logits), the
+    seconds between decode steps; a beam run its first tokens, prefill
+    log-probs, each step's picks and log-probs and candidates' top K + 1."""
+    prompts, starts, images = inp["text" if kind == "text" else "image"]
+    media = {} if images is None else dict(images=images, image_starts=starts)
+    rec = {}
+    if kind == "beam":
+        tops = []
+        with BeamMeter(record=new) as meter:
+            res, _, dt = _tp_recorded(eng, lambda: eng.generate_beam(
+                prompts, num_beams=TP_BEAMS, max_new_tokens=new, **media), tops)
+        rec.update(first=meter.first, logp0=meter.logp0.float().cpu(), forced=meter.forced,
+                   logps=[x.float().cpu() for x in meter.logps], tops=tops)
+    elif kind == "continuous":
+        refills, reset = [], ContinuousGenerator._reset_slots
+
+        def recorded_reset(self, st, idx, ids, mask, first, gt, budgets):
+            n = idx.numel()
+            refills.append((self.stats["chunks"], idx.tolist(), ids[:n].cpu(), mask[:n].cpu(),
+                            first[:n].float().cpu()))
+            return reset(self, st, idx, ids, mask, first, gt, budgets)
+
+        ContinuousGenerator._reset_slots = recorded_reset
+        try:
+            res, steps, dt = _tp_recorded(eng, lambda: eng.generate_continuous(
+                prompts, slots=TP_SLOTS, max_new_tokens=new, chunk=CONT_CHUNK, **media))
+        finally:
+            ContinuousGenerator._reset_slots = reset
+        index, rows = {}, [None] * len(prompts)
+        for i, p in enumerate(prompts):
+            index.setdefault(tuple(p), []).append(i)
+        for c0, idx, ids, mask, fl in refills:
+            for r, s in enumerate(idx):
+                p = index[tuple(ids[r][mask[r] == 1].tolist())].pop(0)
+                rows[p] = [fl[r]] + [x[s] for x in steps[c0 * CONT_CHUNK:]]
+        rec["rows"] = rows
+    else:
+        res, steps, dt = _tp_recorded(eng, lambda: eng.generate(prompts, max_new_tokens=new,
+                                                                **media))
+        first = torch.from_numpy(res.first_logits).float()
+        rec["rows"] = [[first[b]] + [x[b] for x in steps] for b in range(len(prompts))]
+    rec.update(tokens=res.tokens, lengths=res.lengths,
+               step_s=statistics.median(dt) if dt else None)
+    return rec
+
+
+def tp_gaps(new: int, got: dict, ref: dict, rel_tol: float, cos_min: float) -> dict:
+    """A run's logits against a reference run's while each row's history
+    agrees (phase 15's `_agree`), with phase 15's bounds: the first logits
+    within rel_tol of max|first logit| (SLICE_REL_TOL in bf16), the decode
+    logits within rel_tol and the row cosine at least cos_min; a row may
+    first differ only where the reference's top-2 gap is under CONT_TIE of
+    that scale -> the figures and `over`, each bound's breach."""
+    R = lambda r: GenerateResult(np.asarray(r["tokens"]), np.asarray(r["lengths"]), None)  # noqa: E731
+    scale = max(row[0].abs().max().item() for row in ref["rows"])
+    first = max((g[0] - r[0]).abs().max().item() for g, r in zip(got["rows"], ref["rows"]))
+    worst, cos, compared, mismatch, full = _agree(new, got["rows"], R(got), ref["rows"], R(ref))
+    ties, tie = [], 0.0
+    for b, m in enumerate(mismatch):
+        if m < min(new, int(ref["lengths"][b]), int(got["lengths"][b])):
+            top2 = ref["rows"][b][m].topk(2).values
+            gap = (top2[0] - top2[1]).item() / scale
+            ties.append(f"{b}@{m} {gap:.4f}")
+            tie = max(tie, gap)
+    over = {"first": first > rel_tol * scale, "decode": worst > rel_tol * scale,
+            "cosine": cos < cos_min, "tie": tie >= CONT_TIE}
+    return dict(ok=not any(over.values()), over=over, scale=scale, first=first / scale,
+                worst=worst / scale, cos=cos, compared=compared, mismatch=mismatch, full=full,
+                ties=ties)
+
+
+def tp_beam_gaps(eng: DecodeEngine, inp: dict, got: dict, ref: dict, rel_tol: float,
+                 scale: float, replay: bool = True) -> dict:
+    """(d) against a reference beam run: with `replay`, the reference's
+    first tokens and picks replayed on `eng` (beam_step(forced=...)), its
+    prefill and every step's log-probs within rel_tol of max|log-prob|
+    (phase 14's replay bound); then where a row of `got` first picks
+    otherwise than the reference, the reference's candidates' top K + 1
+    scores must hold a near tie there (adjacent scores under CONT_TIE x the
+    image prompts' max|first logit|) -> the figures and `over`."""
+    prompts, starts, images = inp["image"]
+    K, gaps = TP_BEAMS, []
+
+    def gap(x, y):
+        gaps.append(((x.float().cpu() - y).abs().max().item(), y.abs().max().item()))
+
+    def run_replay(e):
+        ids, mask, st, _, max_len = e._batch(prompts, images, starts, 64, TP_NEW)
+        first, cache, cmask = e._prefill(ids, mask, e._device_images(images), st, max_len,
+                                         beams=K)
+        state, _, logp0 = beam_mod.beam_start(first, cache, cmask,
+                                              mask.sum(dim=1).repeat_interleave(K),
+                                              num_beams=K, eos_id=e.eos_id)
+        gap(logp0, ref["logp0"])
+        state.last_tok = torch.from_numpy(ref["first"]).to(first.device)
+        state.done = state.last_tok == e.eos_id
+        for t, (forced, want) in enumerate(zip(ref["forced"], ref["logps"]), start=1):
+            _, _, logp = beam_mod.beam_step(e._step, state, t, Lp=ids.shape[1],
+                                            eos_id=e.eos_id, pad_id=e.pad_id, forced=forced)
+            gap(logp, want)
+
+    if replay:
+        sharding.serving(run_replay)(eng)
+    picks = lambda r: [(r["first"], None)] + [(tok, par) for par, tok in r["forced"]]  # noqa: E731
+    diverge, tie = [], 0.0
+    for b in range(len(prompts)):
+        for t, ((gt, gp), (rt, rp)) in enumerate(zip(picks(got), picks(ref))):
+            if np.array_equal(gt[b], rt[b]) and (gp is None or np.array_equal(gp[b], rp[b])):
+                continue
+            top = ref["logp0"][b].topk(K + 1).values if t == 0 else ref["tops"][t - 1][b]
+            near = (top[:-1] - top[1:]).min().item() / scale
+            diverge.append(f"{b}@{t} {near:.4f}")
+            tie = max(tie, near)
+            break
+    over = {"replay": any(d > rel_tol * sc for d, sc in gaps), "tie": tie >= CONT_TIE}
+    return dict(ok=not any(over.values()), over=over, replay=[d / sc for d, sc in gaps],
+                diverge=diverge, equal=int(np.sum([np.array_equal(a, b) for a, b in
+                                                   zip(got["tokens"], ref["tokens"])])))
+
+
+def _tp_against(eng: DecodeEngine, inp: dict, case: tuple, rec: dict, ref: dict,
+                scale: float, replay: bool = True) -> dict:
+    name, _, kind, new, rel_tol, cos_min, _ = case
+    if kind == "beam":
+        return tp_beam_gaps(eng, inp, rec, ref, rel_tol, scale, replay)
+    return tp_gaps(new, rec, ref, rel_tol, cos_min)
+
+
+def _tp_text(case: tuple, g: dict) -> str:
+    """One comparison of phase 22, in words."""
+    name, _, kind, new, rel_tol, cos_min, _ = case
+    if kind == "beam":
+        return ((f"the picks replayed: max|dlogp| / max|logp| at most {max(g['replay']):.4f} "
+                 f"over {len(g['replay'])} passes (tol {rel_tol}); " if g["replay"] else "")
+                + f"{g['equal']} rows' beams equal, first differing picks {g['diverge']} "
+                f"(adjacent candidate gaps as a share of max|first logit|, tie bound {CONT_TIE})")
+    return (f"first logits {g['first']:.4f} of max|first logit| {g['scale']:.3f}, decode "
+            f"logits of {g['compared']} tokens at most {g['worst']:.4f} (tol {rel_tol}), least "
+            f"row cosine {g['cos']:.5f}" + (f" (tol {cos_min})" if cos_min > -1 else "")
+            + f"; first differing token {g['mismatch']} (of {new}), the reference's top-2 gap "
+            f"there {g['ties']} (tie bound {CONT_TIE}); {g['full']} rows equal in full")
+
+
+def tp_runs(tok, tag: str, mesh=None, ref: dict = None) -> dict:
+    """Phase 22's runs, on one process (no mesh) or on this rank's shard of
+    the model (`mesh`): each weight variant built (and sharded), its cases
+    run. On one process: each case plain, then under `tp_witness`, the
+    witness held to the plain run with phase 15's bounds, and the bf16
+    image prompts' first logits with the witness on the LLM alone and on
+    the vision tower and projector alone. On a rank: each case's launches
+    against its plan (`PathPlan`) and its logits against the plain and the
+    witness records in `ref` -> the records (one process) or each case's
+    summary (a rank)."""
+    out, inp = {"plain": {}, "witness": {}, "witness_vs_plain": {}}, None
+    for weights in ("bf16", "int4", "int8"):
+        model = tp_model(weights, tag)
+        if mesh is not None:
+            t0 = time.perf_counter()
+            sharding.shard_params(model, mesh)
+            log(f"[{tag}] shard_params ({weights}) {time.perf_counter() - t0:.1f} s; "
+                f"{len(sharding.mesh_plan(model).tp_modules)} modules split over tp, "
+                f"the cache at {model.llm.kv_heads()} KV heads; "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        gen = Llava15Generator(model, tok, model.cfg.num_image_tokens,
+                               image_size=model.cfg.vision.image_size,
+                               checkpoint_name="random-llava15-7b")
+        eng, inp = gen.engine, inp or tp_inputs(gen, tok)
+        cases = [c for c in TP_CASES if c[1] == weights]
+        if mesh is None:
+            plain, witness = out["plain"], out["witness"]
+            plain.update({c[0]: tp_case(eng, c[2], c[3], inp) for c in cases})
+            if weights == "bf16":
+                out["beam_scale"] = max(r[0].abs().max().item()
+                                        for r in plain["22b image"]["rows"])
+                prompts, starts, images = inp["image"]
+                want = torch.stack([r[0] for r in plain["22b image"]["rows"]])
+                shares = {}
+                for part in ("llm", "vision"):
+                    with tp_witness(model, (part,)):
+                        got = torch.from_numpy(eng.generate(
+                            prompts, images=images, image_starts=starts,
+                            max_new_tokens=1).first_logits).float()
+                    shares[part] = (got - want).abs().max().item() / out["beam_scale"]
+                out["shares"] = shares
+            with tp_witness(model):
+                for c in cases:
+                    witness[c[0]] = tp_case(eng, c[2], c[3], inp)
+                    out["witness_vs_plain"][c[0]] = _tp_against(
+                        eng, inp, c, witness[c[0]], plain[c[0]], out["beam_scale"])
+            for c in cases:
+                log(f"[{c[0]}] the witness (one process in tp-{TP_WORLD} order) against the "
+                    f"plain one process: {_tp_text(c, out['witness_vs_plain'][c[0]])}")
+            cases = []
+        for case in cases:
+            name, _, kind, new, rel_tol, cos_min, keys = case
+            torch.cuda.synchronize()
+            reset_counts()
+            with PathPlan(eng.llm) as plan:
+                rec = tp_case(eng, kind, new, inp)
+                torch.cuda.synchronize()
+                launches = read_counts()
+            plan.check(f"{tag} {name}", launches, keys)
+            gaps = {"plain": _tp_against(eng, inp, case, rec, ref["plain"][name],
+                                         ref["beam_scale"]),
+                    "witness": _tp_against(eng, inp, case, rec, ref["witness"][name],
+                                           ref["beam_scale"], replay=False)}
+            out[name] = dict(tokens=np.asarray(rec["tokens"]).tolist(),
+                             lengths=np.asarray(rec["lengths"]).tolist(), gaps=gaps,
+                             step_s=rec["step_s"], launches={k: launches[k] for k in keys},
+                             plan={k: plan.counts.get(k, 0) for k in keys})
+            if name == "22a text":
+                out["trace"] = tp_trace(eng, inp)
+        del gen, eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_trace(eng: DecodeEngine, inp: dict) -> dict:
+    """One decode step of (a)'s prompts under utils/profiling.py's trace
+    (its 4th, after 4 new tokens' warm-up steps are past): the step's wall
+    ms (synchronised) and the gloo collectives' ms in the trace (events
+    named gloo:*, summed) and their count."""
+    from rlaifv_tpu_torch.utils.profiling import trace
+
+    d, step, n, wall = tempfile.mkdtemp(prefix="chip_smoke_tp_trace_"), eng._step, [0], [0.0]
+
+    def traced(*a):
+        n[0] += 1
+        if n[0] != 4:
+            return step(*a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with trace(d):
+            out = step(*a)
+            torch.cuda.synchronize()
+        wall[0] = time.perf_counter() - t0
+        return out
+
+    eng._step = traced
+    try:
+        eng.generate(inp["text"][0], max_new_tokens=6)
+    finally:
+        eng._step = step
+    try:
+        (path,) = [os.path.join(d, f) for f in os.listdir(d)]
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if str(e.get("name", "")).startswith("gloo:") and "dur" in e]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(step_ms=wall[0] * 1e3, gloo_ms=sum(e["dur"] for e in events) / 1e3,
+                gloo_n=len(events))
+
+
+def tp_serve_worker(out_dir: str) -> None:
+    """`python3 chip_smoke.py --tp-serve-worker DIR` under torchrun's
+    variables: one rank of phase 22 on a (1, 1, TP_WORLD) mesh over gloo
+    groups (both ranks share the card): `tp_runs` against the one-process
+    records in DIR/ref.pt; writes DIR/rank<r>.json."""
+    dist_mod.initialize()
+    rank = dist_mod.process_index()
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's settings
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+    mesh = sharding.create_mesh(1, 1, TP_WORLD, device_type="cuda", backend="gloo")
+    out = tp_runs(_fake_tokenizer(), f"22 rank {rank}", mesh, ref)
+    out.update(rank=rank, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_tp_serving(tok, smi: str) -> dict:
+    """22: tensor-parallel serving on the one card (after 21c, every model
+    freed): the one-process runs first (`tp_runs` with no mesh: plain and
+    under `tp_witness`; then freed), then TP_WORLD subprocesses with
+    torchrun's variables, each serving its shard of the same models
+    (`tp_serve_worker`). Both ranks' tokens must be equal bit for bit;
+    each rank's logits within every bound of the witness's, and of the
+    plain run's except a bound the witness breaks too (`tp_gaps`,
+    `tp_beam_gaps`); its launches equal its plan -> the launches of both
+    ranks' counted runs."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ref = tp_runs(tok, "22 one process")
+    t_ref = time.perf_counter() - t0
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_serve_")
+    torch.save(ref, os.path.join(work, "ref.pt"))
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+           "WORLD_SIZE": str(TP_WORLD)}
+    free, total = torch.cuda.mem_get_info()
+    peak_used = total - free
+    try:
+        t0 = time.perf_counter()
+        log_paths = [os.path.join(work, f"rank{r}.log") for r in range(TP_WORLD)]
+        procs = []
+        for r, path in enumerate(log_paths):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-serve-worker", work],
+                    env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                    stdout=out, stderr=subprocess.STDOUT))
+        try:
+            while any(p.poll() is None for p in procs):
+                peak_used = max(peak_used, total - torch.cuda.mem_get_info()[0])
+                if time.perf_counter() - t0 > TP_TIMEOUT:
+                    raise AssertionError(f"22: the workers ran past {TP_TIMEOUT} s")
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        failed = []
+        for r, (p, path) in enumerate(zip(procs, log_paths)):
+            text = open(path).read()
+            for line in text.splitlines():
+                if line.startswith("[22"):
+                    log(line)
+            if p.returncode != 0:
+                failed.append(f"rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        if failed:
+            raise AssertionError("22: " + "\n".join(failed))
+        ranks = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(TP_WORLD)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sh = ref["shares"]
+    log(f"[22 witness] the bf16 image prompts' first logits against the plain one process "
+        f"with the witness's tp-{TP_WORLD} order on the LLM alone {sh['llm']:.4f}, on the vision "
+        f"tower and projector alone {sh['vision']:.4f} of max|first logit| | {smi}")
+    launches, off, open_ = {}, [], {}
+    for case in TP_CASES:
+        name, weights, kind, new, rel_tol, cos_min, keys = case
+        a = ranks[0][name]
+        same = all(rk[name]["tokens"] == a["tokens"] and rk[name]["lengths"] == a["lengths"]
+                   for rk in ranks[1:])
+        # a bound over against the plain one process is open only where the
+        # witness breaks the same bound against it (tp's order alone)
+        w_over = ref["witness_vs_plain"][name]["over"]
+        over = sorted({k for rk in ranks for k, v in rk[name]["gaps"]["plain"]["over"].items()
+                       if v})
+        unexplained = [k for k in over if not w_over[k]]
+        if over:
+            open_[name] = over
+        steps = [rk[name]["step_s"] for rk in ranks]
+        log(f"[{name}] tp {TP_WORLD} against the plain one process: "
+            f"{_tp_text(case, a['gaps']['plain'])}"
+            + (f" | OVER the bound in {over}, " + (
+                f"NOT broken by the witness in {unexplained}" if unexplained else
+                "each also broken by the witness (tp's order alone): open") if over else "")
+            + f" | against the witness: {_tp_text(case, a['gaps']['witness'])} | ranks' tokens "
+            f"{'bit-equal' if same else 'DIFFER'} | s a decode step: ranks "
+            f"{', '.join(f'{s:.4f}' for s in steps if s)} against one process's "
+            f"{ref['plain'][name]['step_s'] or 0:.4f} | launches a rank "
+            f"{[rk[name]['launches'] for rk in ranks]}, planned {a['plan']} | {smi}")
+        if not (same and not unexplained and all(rk[name]["gaps"]["witness"]["ok"]
+                                                 for rk in ranks)):
+            off.append(name)
+        for rk in ranks:
+            add_counts(launches, rk[name]["launches"])
+    tr = [rk["trace"] for rk in ranks]
+    log(f"[22 tp serving] mesh (1, 1, {TP_WORLD}) over gloo groups on one card, "
+        f"LLaVA-1.5-7B at full width ({LlavaConfig.llava15_7b().llm.num_layers} LLM layers in "
+        f"a-d, {TP_QUANT_LAYERS} in e-f): one traced decode step of (a) "
+        + "; ".join(f"rank {r}: {t['step_ms']:.2f} ms, gloo {t['gloo_ms']:.2f} ms over "
+                    f"{t['gloo_n']} collectives" for r, t in enumerate(tr))
+        + f" | each rank's allocator peak {[round(rk['peak_gib'], 2) for rk in ranks]} GiB, "
+        f"the card's peak in use {peak_used / 2 ** 30:.2f} of {total / 2 ** 30:.1f} GiB | the "
+        f"one-process runs {t_ref:.1f} s, the workers {wall:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s | launches {launches} | bounds open against "
+        f"the plain one process (each broken by the witness too) {open_} | {smi}")
+    if off:
+        raise AssertionError(f"22: tp serving off the witness, off the plain one process "
+                             f"beyond tp's order, or its ranks apart in {off}")
+    return launches
+
+
 def _row(name, source, replaces, launches, err, timing, note: str = "") -> dict:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8562,13 +9176,15 @@ def main() -> None:
     torch.distributed.destroy_process_group()
     add_counts(launches, timed("21c mesh world 2", phase_mesh_two, ref_logps,
                                train6["record"], smi))
+    # 22: tensor-parallel serving over two processes on this card
+    add_counts(launches, timed("22 tp serving", phase_tp_serving, tok, smi))
 
     log(f"[10 int4] main-path launches (serving 4, the eval slice 14, continuous batching "
         f"15b-c, int8-KV serving 11 with its beam batch, fused serving 12, "
         f"the feedback pipeline 13, OmniLMM-12B 16a-e, OmniLMM-12B QLoRA 17a-b, "
         f"MiniCPM-Llama3-V 2.5 18a-e, the serving options 19a-d, the reloaded export 20c, "
         f"ref-logp 8, train 6, QLoRA 9, int4 QLoRA 10, ref-logp at world 2 20d, the mesh "
-        f"21a-c): "
+        f"21a-c, tp serving 22a-f): "
         f"{launches}")
     src = "rlaifv_tpu_torch/csrc/flash_attention_bwd.cu"
     head_src = "rlaifv_tpu_torch/csrc/fused_head.cu"
@@ -8841,5 +9457,7 @@ if __name__ == "__main__":
         ref_logp_worker(sys.argv[sys.argv.index("--ref-logp-worker") + 1])
     elif "--mesh-worker" in sys.argv[1:]:
         mesh_worker(sys.argv[sys.argv.index("--mesh-worker") + 1])
+    elif "--tp-serve-worker" in sys.argv[1:]:
+        tp_serve_worker(sys.argv[sys.argv.index("--tp-serve-worker") + 1])
     else:
         main()

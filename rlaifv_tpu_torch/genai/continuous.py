@@ -67,6 +67,7 @@ from rlaifv_tpu_torch.ops.fused_decode import (
     init_stacked_cache,
     stacked_prefill_tower,
 )
+from rlaifv_tpu_torch.parallel.sharding import serving
 from rlaifv_tpu_torch.utils.device import to_device
 
 
@@ -273,7 +274,7 @@ class ContinuousGenerator:
 
     # ------------------------------------------------------------ host
 
-    @torch.inference_mode()
+    @serving
     def run(self, prompts, *, images: Optional[np.ndarray] = None, image_starts=None,
             span_features=None, span_starts=None, seed: int = 0,
             collect_first_logits: bool = False, max_new_per_prompt=None,

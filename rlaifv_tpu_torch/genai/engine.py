@@ -42,6 +42,15 @@ model, as the JAX engine's `_embed_spliced` does:
 Each decode step reads `done.all()` on the host: one device sync per step
 in eager mode, which a CUDA-graph decode loop would remove.
 
+A model sharded by parallel/sharding.py's `shard_params` (the JAX engine
+over a tp mesh) serves through the same entry points, one process a rank:
+each entry point is one `serving_call` (every FSDP unit gathered once, the
+engine's direct calls inside the root unit's forward); the caches hold the
+KV heads the rank computes (`LlamaForCausalLM.kv_heads`); the head's
+logits are gathered over tp, so every rank samples the same tokens and
+makes the same host reads, and the ranks' loops stay in step.
+`fused_decode=True` on a sharded model raises ValueError.
+
 `fused_decode=True` (a model with int8 or int4 weights, `fuse_proj` and an
 int8 KV cache; else ValueError, as the JAX engine) serves through
 ops/fused_decode.py: the LLM's weights are stacked at construction (in
@@ -75,6 +84,7 @@ from rlaifv_tpu_torch.ops.fused_decode import (
     stack_llama_params,
     stacked_prefill_tower,
 )
+from rlaifv_tpu_torch.parallel.sharding import mesh_plan, serving
 from rlaifv_tpu_torch.utils.device import to_device
 
 
@@ -133,7 +143,11 @@ def _round_up(x: int, m: int) -> int:
 class DecodeEngine:
     """Wraps a LLaVA model (models/llava.py) or a bare LlamaForCausalLM
     (models/llama.py) for batched generation. The model holds its own
-    weights and device."""
+    weights and device. A model sharded by parallel/sharding.py's
+    `shard_params` serves the same way on every rank of its mesh: each rank
+    makes the same calls with the same arguments, its caches hold the KV
+    heads it computes, and the gathered logits (so the sampled tokens) are
+    the same on every rank."""
 
     def __init__(self, model, *, eos_id: int = 2, pad_id: int = 0,
                  vocab_size: Optional[int] = None, fused_decode: bool = False):
@@ -147,6 +161,10 @@ class DecodeEngine:
         self._fused_stacked = None
         if fused_decode:
             cfg = self.llm.cfg
+            if mesh_plan(model) is not None:
+                raise ValueError(
+                    "fused_decode serves an unsharded model only: its stacked "
+                    "weights and kernel #16 have no tensor-parallel split")
             if not (cfg.quantize and cfg.fuse_proj and cfg.kv_cache_dtype == "int8"
                     and cfg.num_heads % cfg.num_kv_heads == 0):
                 raise ValueError(
@@ -204,7 +222,7 @@ class DecodeEngine:
         branch's prefill attends only over the fresh window, so it cannot
         see a live prefix; the float branch can)."""
         cfg = dataclasses.replace(self.llm.cfg, kv_cache_dtype="fp")
-        return llama_init_cache(cfg, B, S, self.device)
+        return llama_init_cache(cfg, B, S, self.device, self.llm.kv_heads())
 
     def _prefill(self, ids, mask, images, image_starts, max_len, beams: int = 1,
                  spans=None):
@@ -334,7 +352,7 @@ class DecodeEngine:
 
     # -------------------------------------------------- public API
 
-    @torch.inference_mode()
+    @serving
     def generate(self, prompts, *, images=None, image_starts=None, span_features=None,
                  span_starts=None, sampling: SamplingParams = SamplingParams.greedy(),
                  max_new_tokens: int = 512, seed: int = 0,
@@ -353,7 +371,7 @@ class DecodeEngine:
                               mask, sampling, max_new_tokens, seed)
         return self._finish(tokens, first)
 
-    @torch.inference_mode()
+    @serving
     def generate_repeated(self, prompt, *, n: int, image=None,
                           image_start: int = -1, span_features=None, span_starts=None,
                           sampling: SamplingParams = SamplingParams.greedy(),
@@ -389,7 +407,7 @@ class DecodeEngine:
                               max_new_tokens, seed)
         return self._finish(tokens, first.expand(n, -1))
 
-    @torch.inference_mode()
+    @serving
     def generate_many(self, prompts, *, images=None, image_starts=None,
                       batch_size: int = 8,
                       sampling: SamplingParams = SamplingParams.greedy(),
@@ -422,7 +440,7 @@ class DecodeEngine:
             out[i, :t.shape[0]] = t
         return GenerateResult(out, lengths, np.stack(first_logits))
 
-    @torch.inference_mode()
+    @serving
     def generate_continuous(self, prompts, *, images=None, image_starts=None,
                             span_features=None, span_starts=None, slots: int = 8,
                             sampling: SamplingParams = SamplingParams.greedy(),
@@ -446,7 +464,7 @@ class DecodeEngine:
             span_starts=span_starts, seed=seed, collect_first_logits=collect_first_logits,
             max_new_per_prompt=max_new_per_prompt, share_keys=share_keys)
 
-    @torch.inference_mode()
+    @serving
     def generate_beam(self, prompts, *, images=None, image_starts=None,
                       span_features=None, span_starts=None,
                       num_beams: int = 3, max_new_tokens: int = 512,
@@ -503,7 +521,7 @@ class DecodeEngine:
                 break
         return max(P, 0)
 
-    @torch.inference_mode()
+    @serving
     def score_shared_prefix(self, prefix_ids, suffixes, *, image=None,
                             image_start: int = -1, span_features=None, span_starts=None,
                             batch_size: int = 16, suffix_bucket: int = 32) -> np.ndarray:
@@ -605,7 +623,7 @@ class DecodeEngine:
         sums = per_token.sum(dim=1)
         return sums, sums / m.sum(dim=1).clamp(min=1.0), per_token
 
-    @torch.inference_mode()
+    @serving
     def score_pair_logps(self, prefixes, suffixes, suffix_labels, *, images=None,
                          image_starts=None, pair_batch: int = 8,
                          prefix_bucket: int = 128, suffix_bucket: int = 64):

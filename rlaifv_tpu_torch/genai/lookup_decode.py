@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from rlaifv_tpu_torch.genai.sampling import NEG_INF, SamplingParams, filtered_logits
+from rlaifv_tpu_torch.parallel.sharding import serving
 from rlaifv_tpu_torch.utils.device import to_device
 
 
@@ -101,7 +102,7 @@ def _find_draft(hist: np.ndarray, hlen: int, pending: int, n: int, k: int) -> np
     return hist[p + 1:p + 1 + k].copy()
 
 
-@torch.inference_mode()
+@serving
 def lookup_generate(engine, prompt_ids, *, max_new_tokens: int = 128, draft_len: int = 8,
                     ngram: int = 2, images=None, image_starts=None, span_features=None,
                     span_starts=None, eos_id: Optional[int] = None,

@@ -163,12 +163,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def llama_init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                     device=None) -> list:
+                     device=None, kv_heads: Optional[int] = None) -> list:
     """Static-shape decode cache: per layer {"k", "v"} of
     (B, max_len, KVH, D) in cfg.dtype; with kv_cache_dtype "int8", {"k",
     "k_scale", "v", "v_scale"}: int8 values and fp32 (B, max_len, KVH)
-    scales."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_size)
+    scales. KVH is `kv_heads`, the heads the model computes
+    (`LlamaForCausalLM.kv_heads`: a tensor-parallel shard's local count),
+    cfg.num_kv_heads when not given."""
+    shape = (batch, max_len, kv_heads or cfg.num_kv_heads, cfg.head_size)
     if cfg.kv_cache_dtype == "int8":
         return [
             {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -223,7 +225,11 @@ class QuantDense(nn.Module):
     formula the JAX package runs off the TPU: x @ the weight dequantised to
     the activation type. `lora` adds the same side term as Dense; the bias
     comes after both, in the compute type, as in the JAX QuantDense (the
-    vision towers' projections)."""
+    vision towers' projections). `tp`, set by parallel/sharding.py's
+    `shard_params`, makes the layer hold its tensor-parallel slice of `q`
+    and `scale` and compute through it."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, *, dtype: torch.dtype,
                  bits: int = 8, bias: bool = False,
@@ -247,6 +253,8 @@ class QuantDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         y = quant_product(x, self.q, self.scale, self.bits)
         if self.lora is not None:
             y = y + lora_side_term(x, self.lora)
@@ -485,7 +493,11 @@ class LlamaForCausalLM(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
-            return hidden @ self.model.tok_embed.weight.to(hidden.dtype).T
+            w = self.model.tok_embed.weight.to(hidden.dtype)
+            tp = getattr(self.model.tok_embed, "tp", None)
+            # over tp the embedding holds a vocabulary slice: its logits
+            # are gathered, as a column-parallel head's are
+            return hidden @ w.T if tp is None else tp.vocab_logits(hidden, w)
         return self.lm_head(hidden)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, attention_mask=None,
@@ -498,6 +510,19 @@ class LlamaForCausalLM(nn.Module):
         )
         return self.logits(hidden), cache
 
+    def kv_heads(self) -> int:
+        """The KV heads a cache of this model holds, read off the attention's
+        projections: on a tensor-parallel shard that keeps its local heads
+        (parallel/sharding.py) the k projection's local part (k_proj's, or
+        the k part of qkv_proj's) over head_size; else cfg.num_kv_heads
+        (where the heads do not split over tp, the column-parallel outputs
+        are gathered: every head)."""
+        cfg, attn = self.cfg, self.model.layers[0].attn
+        tp = (attn.qkv_proj if cfg.fuse_proj else attn.k_proj).tp
+        if tp is None or not tp.local_io:
+            return cfg.num_kv_heads
+        return tp.parts[1 if cfg.fuse_proj else 0] // tp.size // cfg.head_size
+
     def init_cache(self, batch: int, max_len: int) -> list:
         device = self.model.tok_embed.weight.device
-        return llama_init_cache(self.cfg, batch, max_len, device)
+        return llama_init_cache(self.cfg, batch, max_len, device, self.kv_heads())

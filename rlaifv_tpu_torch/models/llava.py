@@ -22,7 +22,6 @@ from rlaifv_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
     RMSNorm,
-    llama_init_cache,
 )
 from rlaifv_tpu_torch.models.projector import VisionProjector
 from rlaifv_tpu_torch.utils.device import to_device
@@ -145,7 +144,7 @@ class LlavaForCausalLM(nn.Module):
                               attention_mask=attention_mask)[0]
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        return llama_init_cache(self.cfg.llm, batch, max_len, self.device)
+        return self.llm.init_cache(batch, max_len)
 
 
 @torch.no_grad()

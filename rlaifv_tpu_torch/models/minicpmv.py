@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, llama_init_cache
+from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from rlaifv_tpu_torch.models.llava import init_weights_
 from rlaifv_tpu_torch.models.resampler import Resampler, ResamplerConfig
 from rlaifv_tpu_torch.models.siglip import SiglipVisionConfig, SiglipVisionTower
@@ -176,7 +176,7 @@ class MiniCPMVForCausalLM(nn.Module):
         return logits
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        return llama_init_cache(self.cfg.llm, batch, max_len, self.device)
+        return self.llm.init_cache(batch, max_len)
 
 
 @torch.no_grad()

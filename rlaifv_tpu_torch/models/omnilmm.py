@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from rlaifv_tpu_torch.models.eva02 import EvaConfig, EvaVisionTower
-from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, llama_init_cache
+from rlaifv_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from rlaifv_tpu_torch.models.llava import init_weights_, splice_image_features
 from rlaifv_tpu_torch.models.resampler import Resampler, ResamplerConfig
 
@@ -130,7 +130,7 @@ class OmniLMMForCausalLM(nn.Module):
         return self.llm.model(input_ids.clamp(min=0), attention_mask=attention_mask)[0]
 
     def init_cache(self, batch: int, max_len: int) -> list:
-        return llama_init_cache(self.cfg.llm, batch, max_len, self.device)
+        return self.llm.init_cache(batch, max_len)
 
 
 @torch.no_grad()

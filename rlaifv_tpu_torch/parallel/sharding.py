@@ -20,11 +20,16 @@ applies the same rules by hand:
   consumer takes the local slice (attention over its local heads, the MLP's
   down projection) nothing is gathered; elsewhere a column-parallel output
   is all-gathered and a row-parallel input sliced, which is the placement
-  GSPMD chooses for such a leaf. The data axes are FSDP2 (`fully_shard`,
+  GSPMD chooses for such a leaf. A weight-only quantised projection
+  (QuantDense) splits its flax-layout `q`/`scale` buffers the same way and
+  computes through the int8/int4 kernels at its local N or K. The data axes are FSDP2 (`fully_shard`,
   ZeRO-3): one unit per decoder and vision block and the root for the rest,
   each parameter split on the dim its rule gives fsdp (`shard_placement_fn`),
   replicated over dp (HSDP). `MeshPlan` keeps what was done, for the
   global norm (`global_norm`), metric means, LoRA gradients and checkpoints.
+- `serving_call` runs a serving entry point (genai/engine.py; `serving`
+  decorates them) on a sharded model: one forward of the root unit, each
+  unit gathered once.
 - `shard_batch` is the JAX function over host arrays: the rows of this
   rank's data index (rank // tp) as a contiguous block, a leaf whose leading
   dim does not divide replicated. `shard_pairs` applies it to each half of a
@@ -42,7 +47,14 @@ does the same around a custom call); the embedding, the head and the
 projector stay in the root unit, whole for the length of a step, since the
 lookup and the fused head read their weights outside a module's forward.
 `pin_batch_activation` has no counterpart: a rank computes on its own rows
-only, so there is no activation layout to pin.
+only, so there is no activation layout to pin. A QuantDense holds its
+tp slice of the integers and scales quantised from the whole kernel; an
+int4 projection splits on K only where its groups divide over tp
+(`(K / G) % tp == 0`: the packed layout is group-local, so a row slice is
+a K slice only in whole groups), else it stays whole and its pair is not
+local, where the JAX package splits through the groups. FSDP2 leaves
+buffers whole, so the `q`/`scale` buffers are not split over the data
+axes.
 """
 from __future__ import annotations
 
@@ -177,15 +189,36 @@ def flax_paths(model: nn.Module) -> Dict[str, Tuple[str, str]]:
     return out
 
 
+def quant_buffer_paths(model: nn.Module) -> Dict[str, Tuple[str, torch.Tensor]]:
+    """torch buffer name -> (its flax path, the buffer) for every QuantDense
+    buffer: `q` is the flax `kernel`, `scale` and `bias` keep their names.
+    Both are already in the flax layout."""
+    from rlaifv_tpu_torch.models.convert import _flax_module_path
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    out = {}
+    for name, mod in model.named_modules():
+        if not isinstance(mod, QuantDense):
+            continue
+        for b_name, buf in mod.named_buffers(recurse=False):
+            leaf = "kernel" if b_name == "q" else b_name
+            out[f"{name}.{b_name}"] = (f"{_flax_module_path(name)}/{leaf}", buf)
+    return out
+
+
 def param_specs(model: nn.Module, mesh: MeshLike, rules=None) -> Dict[str, Spec]:
-    """torch parameter name -> its spec in the torch layout, divisibility
-    checked: the JAX `param_specs` of the bridged tree, transposed."""
+    """torch parameter (and QuantDense buffer) name -> its spec in the torch
+    layout, divisibility checked: the JAX `param_specs` of the bridged tree,
+    transposed where the layouts differ (a QuantDense `q` is a flax
+    kernel already)."""
     shapes = dict(model.named_parameters())
     out = {}
     for name, (path, leaf) in flax_paths(model).items():
         shape = tuple(shapes[name].shape)
         spec = torch_layout(spec_for_path(path, rules), leaf, len(shape))
         out[name] = _shrink_spec(spec, shape, mesh)
+    for name, (path, buf) in quant_buffer_paths(model).items():
+        out[name] = _shrink_spec(spec_for_path(path, rules), tuple(buf.shape), mesh)
     return out
 
 
@@ -333,10 +366,21 @@ class TensorParallel:
         self.dim, self.parts, self.local_io = dim, list(parts), local
 
     # --- layout
+    def _parts(self, n: int) -> List[int]:
+        """The parts in the units of a whole axis of n elements: a
+        QuantDense's packed int4 rows (K/2) and group scales (K/G) scale
+        the parts of its K inputs down."""
+        total = sum(self.parts)
+        sizes = [p * n // total for p in self.parts]
+        if sum(sizes) != n or any(p % self.size for p in sizes):
+            raise ValueError(f"an axis of {n} does not hold parts {self.parts} over "
+                             f"tp={self.size}")
+        return sizes
+
     def local(self, full: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's slices of a whole tensor along `dim`."""
         pieces, off = [], 0
-        for p in self.parts:
+        for p in self._parts(full.shape[dim]):
             n = p // self.size
             pieces.append(full.narrow(dim, off + self.rank * n, n))
             off += p
@@ -349,7 +393,7 @@ class TensorParallel:
         if len(self.parts) == 1:
             return torch.cat(bufs, dim)
         out, off = [], 0
-        for p in self.parts:
+        for p in self._parts(x.shape[dim] * self.size):
             n = p // self.size
             out.extend(b.narrow(dim, off, n) for b in bufs)
             off += n
@@ -360,31 +404,62 @@ class TensorParallel:
         return _GatherFromTP.apply(w, self, self.dim)
 
     # --- products
+    def _product(self, mod, x: torch.Tensor, bias: Optional[torch.Tensor],
+                 partial: bool = False) -> torch.Tensor:
+        """x @ this rank's slice of `mod`'s weight (+ bias): F.linear for a
+        Dense; for a QuantDense `quant_product` on its local q/scale, so the
+        int8/int4 kernels run at the local N or K on the card (each row
+        quantised against its max |x| over the rank's K slice). A `partial`
+        product comes back in fp32: a Dense's from fp32 accumulators
+        (torch.mm's out_dtype on the card), a QuantDense's kernel output
+        widened."""
+        if hasattr(mod, "q"):
+            from rlaifv_tpu_torch.models.llama import quant_product
+
+            y = quant_product(x, mod.q, mod.scale, mod.bits)
+            y = y.float() if partial else y
+            return y if bias is None else y + bias
+        w = mod.weight.to(x.dtype)
+        if not partial or x.dtype == torch.float32:
+            y = F.linear(x, w, bias)
+            return y.float() if partial else y
+        x2 = x.reshape(-1, x.shape[-1])
+        y = (torch.mm(x2, w.T, out_dtype=torch.float32) if x.is_cuda
+             else x2.float() @ w.float().T)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+
     def linear(self, mod, x: torch.Tensor) -> torch.Tensor:
-        """`mod` (a Dense holding its slice) on x in its compute dtype."""
+        """`mod` (a Dense or QuantDense holding its slice) on x in its
+        compute dtype: a column-parallel product adds the bias to its slice
+        before its one rounding (gathered after); a row-parallel one sums its
+        partials over tp and adds the bias, serving in fp32 rounded once to
+        the compute dtype, as one process rounds it, training in the compute
+        dtype."""
         dt = mod.compute_dtype
-        w = mod.weight.to(dt)
         bias = mod.bias.to(dt) if mod.bias is not None else None
         lora = mod.lora
         if self.dim == 0:  # column-parallel
             x = _CopyToTP.apply(x, self.group)
-            y = F.linear(x, w, bias if self.local_io else None)
+            if bias is not None and not self.local_io:  # whole: this rank's slice of it
+                bias = _ScatterToTP.apply(bias, self, 0)
+            y = self._product(mod, x, bias)
             if lora is not None:
                 a, b = lora
                 y = y + (x @ a.to(dt)) @ self.local(b.to(dt), 1)
             if not self.local_io:
                 y = _GatherFromTP.apply(y, self, y.dim() - 1)
-                if bias is not None:
-                    y = y + bias
             return y
         if not self.local_io:  # row-parallel
             x = _ScatterToTP.apply(x, self, x.dim() - 1)
-        y = F.linear(x, w)
+        # serving sums fp32 partials and rounds once, where one process rounds
+        # the whole sum once; training sums its partials in the compute type,
+        # half the bytes a step all-reduces (fp32 ones read slower over gloo)
+        y = self._product(mod, x, None, partial=not torch.is_grad_enabled())
         if lora is not None:
             a, b = lora
             y = y + (x @ self.local(a.to(dt), 0)) @ b.to(dt)
         y = _ReduceFromTP.apply(y, self.group)
-        return y if bias is None else y + bias
+        return (y if bias is None else y + bias).to(dt)
 
     def embedding(self, ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Vocabulary-parallel lookup: this rank's rows, zeros elsewhere,
@@ -394,6 +469,12 @@ class TensorParallel:
         outside = (local < 0) | (local >= n)
         e = F.embedding(local.masked_fill(outside, 0), w)
         return _ReduceFromTP.apply(e.masked_fill(outside[..., None], 0), self.group)
+
+    def vocab_logits(self, hidden: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """A tied head over the vocabulary-parallel embedding `w` (this
+        rank's rows): hidden @ w^T, the vocabulary slices gathered."""
+        y = _CopyToTP.apply(hidden, self.group) @ w.T
+        return _GatherFromTP.apply(y, self, y.dim() - 1)
 
 
 # ------------------------------------------------------------ the plan
@@ -530,6 +611,52 @@ def run_as_forward(module: nn.Module, fn):
     return fn() if call is None else call(fn)
 
 
+def serving_call(module: nn.Module, fn):
+    """fn() for serving a sharded model (genai/engine.py's entry points):
+    every FSDP unit gathered once up front (under no_grad: FSDP2 cannot
+    gather inside torch.inference_mode, which fn may enter) and kept whole
+    to the end of fn, then all resharded: one gather a unit a call, not one
+    a decode step. fn runs as one forward of the root unit
+    (`run_as_forward`), so the engine may call the embedding, the vision
+    tower and the head directly. A call inside another joins it. On a
+    model that is not sharded, fn()."""
+    from torch.distributed.fsdp import FSDPModule
+
+    if mesh_plan(module) is None or getattr(module, "serving", False):
+        return fn()
+    units = [m for m in module.modules() if isinstance(m, FSDPModule)]
+    module.serving = True
+    try:
+        with torch.no_grad():
+            for u in units:
+                u.set_reshard_after_forward(False, recurse=False)
+                u.unshard()
+        return run_as_forward(module, fn)
+    finally:
+        module.serving = False
+        for u in units:  # FSDP2's own setting again: the root keeps its weights
+            u.reshard()
+            u.set_reshard_after_forward(u is not module, recurse=False)
+
+
+def serving(fn):
+    """A serving entry point: a DecodeEngine method, a method of an object
+    holding its engine as `engine`, or a function of the engine. It runs
+    under torch.inference_mode, inside one `serving_call` of the engine's
+    model."""
+    import functools
+
+    @functools.wraps(fn)
+    def call(obj, *args, **kwargs):
+        def run():
+            with torch.inference_mode():
+                return fn(obj, *args, **kwargs)
+
+        return serving_call(getattr(getattr(obj, "engine", obj), "model", None), run)
+
+    return call
+
+
 def _call(self, fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
@@ -552,20 +679,39 @@ def _heads_split(mod, tp: int) -> bool:
                                                             cfg.num_heads)))
 
 
+def int4_splits_on_k(mod, tp: int) -> bool:
+    """May the int4 QuantDense `mod` split its K rows over tp? Only in whole
+    groups, (K / G) % tp == 0: byte r of group i packs rows i G + r and
+    i G + G/2 + r (ops/int4_matmul.py:pack_int4), so a slice of the packed
+    rows is a contiguous K slice only at group boundaries."""
+    return mod.scale.shape[0] % tp == 0
+
+
 def _tp_modules(model: nn.Module, specs: Dict[str, Spec], tp: int
                 ) -> Dict[str, Tuple[int, bool, List[int]]]:
-    """module name -> (split dim, local, parts) for every Dense and
-    Embedding whose weight the rules split over tp."""
+    """module name -> (split dim, local, parts) for every Dense, QuantDense
+    and Embedding whose weight the rules split over tp. The dim is the
+    torch weight's: 0 the outputs (column-parallel), 1 the inputs
+    (row-parallel); a QuantDense's flax-layout `q` splits the other one."""
     from rlaifv_tpu_torch.models.layers import Dense
+    from rlaifv_tpu_torch.models.llama import QuantDense
 
     out = {}
     for name, mod in model.named_modules():
-        if not isinstance(mod, (Dense, nn.Embedding)) or f"{name}.weight" not in specs:
+        quant = isinstance(mod, QuantDense)
+        key = f"{name}.q" if quant else f"{name}.weight"
+        if not (quant or isinstance(mod, (Dense, nn.Embedding))) or key not in specs:
             continue
-        dim = spec_dim(specs[f"{name}.weight"], "tp")
+        dim = spec_dim(specs[key], "tp")
         if dim is None:
             continue
-        parts = [mod.weight.shape[dim]]
+        if quant:
+            dim = 1 - dim
+            if dim == 1 and mod.bits == 4 and not int4_splits_on_k(mod, tp):
+                continue  # kept whole: its pair is not local
+            parts = [mod.out_features if dim == 0 else mod.in_features]
+        else:
+            parts = [mod.weight.shape[dim]]
         leaf = name.rsplit(".", 1)[-1]
         if dim == 0 and leaf == "gate_up_proj":
             parts = [parts[0] // 2] * 2
@@ -596,11 +742,32 @@ def _unit_modules(model: nn.Module) -> List[nn.Module]:
     return [m for m in model.modules() if isinstance(m, (LlamaBlock, CLIPBlock, EvaBlock))]
 
 
+def _split_quant(mod, t: TensorParallel, name: str, plan: MeshPlan) -> None:
+    """A QuantDense's buffers to their tp slices, in place: column-parallel
+    (t.dim 0) splits the outputs, dim 1 of `q` and the last dim of `scale`;
+    row-parallel splits dim 0 of `q` (int4: the packed K/2 rows) and, for
+    int4, the (K/G, N) group scales with them; the int8 per-column scale
+    stays whole."""
+    qdim = 1 - t.dim
+    mod.q = t.local(mod.q, qdim).clone()
+    plan.tp_dims[f"{name}.q"] = (t, qdim)
+    sdim = mod.scale.dim() - 1 if t.dim == 0 else (0 if mod.bits == 4 else None)
+    if sdim is not None:
+        mod.scale = t.local(mod.scale, sdim).clone()
+        plan.tp_dims[f"{name}.scale"] = (t, sdim)
+    if t.dim == 0:
+        mod.out_features //= t.size
+    else:
+        mod.in_features //= t.size
+
+
 def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
     """Place a built model (its whole weights on this rank's device) onto
     the mesh by the rules, in place: tp slices first, then FSDP2 over the
     data axes. Leaves `model.mesh_plan` and returns the model. Apply it
-    once, before the optimizer is made (the optimizer holds the shards)."""
+    once, before the optimizer is made (the optimizer holds the shards).
+    A quantised model is quantised whole first (models/convert.py): its
+    QuantDense layers keep their tp slices of those integers and scales."""
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import Shard
 
@@ -615,20 +782,21 @@ def shard_params(model: nn.Module, mesh, rules=None) -> nn.Module:
     plan = MeshPlan(mesh, dist.process_index())
     tp = sizes["tp"]
     if tp > 1:
-        if any(isinstance(m, QuantDense) for m in model.modules()):
-            raise ValueError("shard_params: a quantised base does not split over tp "
-                             "(the QLoRA configs train at mesh 1x1x1)")
         group = plan.group("tp")
         for name, (dim, local, parts) in _tp_modules(model, specs, tp).items():
             mod = model.get_submodule(name)
             t = TensorParallel(group, plan.coord["tp"], tp, dim, parts, local)
             with torch.no_grad():
-                mod.weight = nn.Parameter(t.local(mod.weight.data, dim).clone(),
-                                          requires_grad=mod.weight.requires_grad)
-                plan.tp_dims[f"{name}.weight"] = (t, dim)
+                if isinstance(mod, QuantDense):
+                    _split_quant(mod, t, name, plan)
+                else:
+                    mod.weight = nn.Parameter(t.local(mod.weight.data, dim).clone(),
+                                              requires_grad=mod.weight.requires_grad)
+                    plan.tp_dims[f"{name}.weight"] = (t, dim)
                 if getattr(mod, "bias", None) is not None and dim == 0 and local:
-                    mod.bias = nn.Parameter(t.local(mod.bias.data, 0).clone(),
-                                            requires_grad=mod.bias.requires_grad)
+                    bias = t.local(mod.bias.data, 0).clone()
+                    mod.bias = (bias if isinstance(mod, QuantDense) else
+                                nn.Parameter(bias, requires_grad=mod.bias.requires_grad))
                     plan.tp_dims[f"{name}.bias"] = (t, 0)
             if isinstance(mod, Dense):
                 mod.out_features, mod.in_features = mod.weight.shape

@@ -952,6 +952,53 @@ def test_int4_kernels_match_plain_bit_for_bit(gen, M, K, N):
     assert torch.equal(dx, i4.int4_matmul_dx_plain(dy, qp, gs))
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", [4, 2560])  # phase 22's decode rows (4 prompts), its prefill
+@pytest.mark.parametrize("K,N,dim", [
+    (4096, 11008, 0),   # gate/up column-parallel: local N 5504
+    (4096, 4096, 0),    # q/k/v column-parallel: local N 2048
+    (11008, 4096, 1),   # down_proj row-parallel: local K 5504 (43 groups of 128)
+    (4096, 4096, 1),    # o_proj row-parallel: local K 2048
+])
+def test_quant_kernels_at_tp2_local_shapes_match_plain(gen, bits, M, K, N, dim):
+    """The local calls a tp-2 shard of the 7B makes (parallel/sharding.py):
+    the whole kernel quantised, then rank 1's slice taken by `_split_quant`
+    (columns of q and its scales; rows of q, and for int4 its group
+    scales); a row-parallel call takes the rank's K slice of the rows. #7
+    (or #9 at the prefill's rows) and #11 on that slice against their plain
+    versions bit for bit."""
+    from types import SimpleNamespace
+
+    from rlaifv_tpu_torch.models.convert import quantize_int4_torch, quantize_kernel_int8_torch
+    from rlaifv_tpu_torch.models.llama import QuantDense
+    from rlaifv_tpu_torch.ops import int4_matmul as i4
+    from rlaifv_tpu_torch.ops import quant_matmul as qm
+    from rlaifv_tpu_torch.parallel.sharding import TensorParallel, _split_quant
+
+    w = 0.02 * torch.randn(K, N, generator=gen, device="cuda")
+    mod = QuantDense(K, N, dtype=torch.bfloat16, bits=bits, device="cuda")
+    mod.q, mod.scale = quantize_int4_torch(w) if bits == 4 else quantize_kernel_int8_torch(w)
+    t = TensorParallel(None, 1, 2, dim, [N if dim == 0 else K], True)
+    _split_quant(mod, t, "p", SimpleNamespace(tp_dims={}))
+    x = _randn(gen, M, K)
+    q, s = mod.q, mod.scale
+    if dim:
+        x = t.local(x, 1).contiguous()
+    if bits == 4:
+        n0 = i4.int4_matmul.launches
+        out, want = i4.int4_matmul(x, q, s), i4.int4_matmul_plain(x, q, s)
+        launched = i4.int4_matmul.launches - n0
+    else:
+        kernel = qm.int8_matmul_prequant if M >= qm.INT8_DEQUANT_MIN_M else qm.int8_matmul
+        n0 = kernel.launches
+        out, want = kernel(x, q, s), qm.int8_matmul_plain(x, q, s)
+        launched = kernel.launches - n0
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert out.shape == (M, N // 2 if dim == 0 else N)
+    assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("G", [128, 256])
 @pytest.mark.parametrize("M", [1, 127, 6144])
 def test_int4_forward_kernel_matches_twin_at_groups_of_128_and_256(gen, M, G):
@@ -1848,3 +1895,24 @@ def test_tiny_lookup_matches_generate_on_the_card(gen):
         top2 = rows[m].topk(2).values
         assert (top2[0] - top2[1]).item() < 0.05 * scale, (m, got.tokens, want)
     assert got.n_steps < len(got.tokens) and got.tokens_per_step > 1
+
+
+def test_row_parallel_fp32_partial_on_the_card(gen):
+    """A bf16 row-parallel Dense's serving partial on the card
+    (`TensorParallel._product(partial=True)`, torch.mm's out_dtype): fp32
+    out, within the fp32 summation bound of the exact product (K x 2^-24 x
+    the sum of |products|, any order)."""
+    from rlaifv_tpu_torch.models.layers import Dense
+    from rlaifv_tpu_torch.parallel.sharding import TensorParallel
+
+    mod = Dense(2048, 4096, bias=False, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                init_std=0.02, device="cuda")
+    with torch.no_grad():
+        mod.weight.copy_(_randn(gen, 4096, 2048))
+    x = _randn(gen, 256, 2048)
+    with torch.no_grad():
+        y = TensorParallel(None, 0, 2, 1, [4096], True)._product(mod, x, None, partial=True)
+    assert y.dtype == torch.float32
+    xd, wd = x.double(), mod.weight.detach().double()
+    bound = x.shape[1] * 2.0 ** -24 * (xd.abs() @ wd.abs().T)
+    assert ((y.double() - xd @ wd.T).abs() <= bound).all()

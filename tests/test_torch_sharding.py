@@ -174,3 +174,72 @@ def test_shard_pairs_keeps_each_pair_on_one_rank(mesh):
         if rank % mesh[2] == 0:
             seen += rows
     assert sorted(seen) == list(range(B))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mesh", [(1, 1, 2), (1, 2, 2), (1, 1, 4)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_quant_buffer_specs_match_jax(bits, mesh):
+    """A QuantDense's `q`/`scale` buffers take the JAX `param_specs` of the
+    quantised JAX tree: `q` is the flax `kernel`, already in the flax (in,
+    out) layout (int4: the packed (K/2, N)), so it is not transposed; the
+    scales match `scale$` and are replicated. (Whether an int4 `q` really
+    splits on K is `_tp_modules`' group rule,
+    tests/test_torch_sharded_serving.py.)"""
+    from rlaifv_tpu.models import convert as jconvert
+    from rlaifv_tpu_torch.models import convert as tconvert
+    from rlaifv_tpu_torch.models.llama import QuantDense
+
+    shapes, model = _jax_llava()
+    params = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    jquant, tquant = ((jconvert.quantize_llm_int8, tconvert.quantize_llm_int8) if bits == 8
+                      else (jconvert.quantize_llm_int4, tconvert.quantize_llm_int4))
+    params = {**params, "llm": jquant(params["llm"])}
+    tquant(model)
+    jspecs = jsh.param_specs(params, jsh.create_mesh(*mesh))
+    want = {}
+    for path, spec in jax.tree_util.tree_leaves_with_path(
+            jspecs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)):
+        keys = [k.key for k in path]
+        module = tconvert.torch_module_name("/".join(keys[:-1]))
+        if isinstance(model.get_submodule(module), QuantDense):
+            want[f"{module}.{'q' if keys[-1] == 'kernel' else keys[-1]}"] = tuple(spec)
+    got = tsh.param_specs(model, dict(zip(tsh.MESH_AXES, mesh)))
+    quant = {n: spec for n, spec in got.items() if n.endswith((".q", ".scale"))}
+    # 7 projections a layer, 2 layers, and the int8 head
+    assert len(quant) == len(want) == 2 * (7 * 2 + (bits == 8))
+    for name, spec in quant.items():
+        assert spec == want[name], (name, spec, want[name])
+    assert quant["llm.model.layers.0.attn.q_proj.q"][1] == "tp"  # N over tp
+    assert quant["llm.model.layers.0.attn.o_proj.q"][0] == "tp"  # K over tp
+    assert quant["llm.model.layers.0.attn.o_proj.scale"] == ()
+
+
+def test_row_parallel_sums_fp32_partials_when_serving_and_bf16_when_training(monkeypatch):
+    """A bf16 row-parallel Dense's product over its K slice
+    (`TensorParallel.linear`, the tp sum stubbed to this rank's partial):
+    without grad (serving) the partial is the products summed in fp32 (on
+    the CPU the widened operands' product), rounded once after the sum;
+    with grad (training) it is F.linear's, summed in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from rlaifv_tpu_torch.models.layers import Dense
+
+    summed = []  # the dtype each partial is summed over tp in
+    monkeypatch.setattr(tsh._ReduceFromTP, "apply", lambda y, group: summed.append(y.dtype) or y)
+    g = torch.Generator().manual_seed(0)
+    mod = Dense(32, 16, bias=False, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                init_std=0.02, device="cpu")
+    with torch.no_grad():
+        mod.weight.copy_(torch.randn(16, 32, generator=g))
+    t = tsh.TensorParallel(None, 0, 2, 1, [64], True)
+    x = torch.randn(6, 32, generator=g).to(torch.bfloat16)
+    with torch.no_grad():
+        served = t.linear(mod, x)
+    w = mod.weight.detach()
+    assert torch.equal(served, (x.float() @ w.float().T).to(torch.bfloat16))
+    trained = t.linear(mod, x.requires_grad_())
+    assert summed == [torch.float32, torch.bfloat16]
+    assert trained.dtype == torch.bfloat16
+    assert torch.equal(trained, F.linear(x, w))
